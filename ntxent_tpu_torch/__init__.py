@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of ntxent_tpu for NVIDIA Hopper (H100).
+
+A second package beside the JAX one, which stays the reference. It
+imports ``torch`` and nothing of JAX or of ``ntxent_tpu``. Every Pallas
+kernel on a ported path becomes a kernel written by hand for ``sm_90a``
+(``csrc/``), with a plain PyTorch version beside it that CPU tensors
+take. Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
+
+Ported so far: the serving path of a ViT SimCLR model (``cli``,
+``serving``, ``models``), whose attention runs the flash-attention
+forward kernel (``ops.attention``), and ``weights.load_flax_variables``
+to carry the JAX package's weights across.
+"""
+
+__version__ = "0.1.0"

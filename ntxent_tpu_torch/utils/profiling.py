@@ -1,0 +1,155 @@
+"""Where the serving forward spends its device time.
+
+Builds the model of the slice's main path (ViT-B/16 SimCLR at 224 px,
+random weights from seed 0, as ``ntxent-serve`` builds it) and, for one
+batch-size bucket and each attention impl:
+
+* times the forward with CUDA events (10 calls after warmup): ms per
+  forward and images/s;
+* traces 3 forwards with ``torch.profiler`` and sums the device time of
+  every kernel, grouped as the flash-attention kernel, matrix products
+  (cuBLAS/CUTLASS) and everything else, with the device's busy share of
+  the traced wall time and the top kernels by time.
+
+Run on the card, from the repository root:
+
+    python -m ntxent_tpu_torch.utils.profiling --bucket 64 --impls flash,xla
+
+The last line of the output is one JSON object with every number.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+__all__ = ["cuda_time_ms", "kernel_breakdown", "main"]
+
+_GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
+MODEL, IMAGE_SIZE, SEED = "vit_b16", 224, 0
+RUNS, TRACE_RUNS = 10, 3
+
+
+def cuda_time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
+    """Mean ms of ``fn()`` on the current CUDA stream (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def _group(name: str) -> str:
+    lowered = name.lower()
+    if "flash_fwd_kernel" in lowered:
+        return "flash_attention_fwd"
+    if any(marker in lowered for marker in _GEMM_MARKERS):
+        return "matmul"
+    return "other"
+
+
+def kernel_breakdown(fn, runs: int = TRACE_RUNS, top: int = 8) -> dict:
+    """Device time of ``runs`` calls of ``fn`` by kernel, from a
+    ``torch.profiler`` trace (CPU + CUDA activities)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            entry = by_kernel[evt.name]
+            entry[0] += evt.time_range.elapsed_us()
+            entry[1] += 1
+    device_us = sum(us for us, _ in by_kernel.values())
+    groups: dict[str, float] = defaultdict(float)
+    for name, (us, _) in by_kernel.items():
+        groups[_group(name)] += us
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top]
+    return {
+        "runs": runs,
+        "wall_ms_per_run": wall_us / runs / 1e3,
+        "device_ms_per_run": device_us / runs / 1e3,
+        "device_busy_share": device_us / wall_us if wall_us else None,
+        "groups_ms_per_run": {g: us / runs / 1e3 for g, us in
+                              sorted(groups.items())},
+        "top_kernels": [{"name": name[:120], "ms_per_run": us / runs / 1e3,
+                         "calls_per_run": calls / runs}
+                        for name, (us, calls) in ranked],
+    }
+
+
+def main(argv=None) -> int:
+    from ..cli import build_model, build_serve_parser
+    from ..ops import attention
+    from .capability import card_power_line, device_name, resolve_device
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--bucket", type=int, default=64,
+                   help="batch size of the profiled forward")
+    p.add_argument("--impls", default="flash,xla",
+                   help="comma list of --vit-attention values to profile")
+    args = p.parse_args(argv)
+
+    device = resolve_device("cuda")
+    x = torch.randn(args.bucket, IMAGE_SIZE, IMAGE_SIZE, 3,
+                    generator=torch.Generator().manual_seed(SEED))
+    x = x.to(device)
+    card = card_power_line()
+    print(f"card: {card}", flush=True)
+    result = {"device": device_name(device), "card": card, "model": MODEL,
+              "image_size": IMAGE_SIZE, "bucket": args.bucket, "impls": {}}
+    for impl in args.impls.split(","):
+        serve_args = build_serve_parser().parse_args(
+            ["--model", MODEL, "--image-size", str(IMAGE_SIZE),
+             "--vit-attention", impl, "--head", "embedding",
+             "--seed", str(SEED)])
+        model = build_model(serve_args).to(device).eval()
+
+        def forward():
+            with torch.inference_mode():
+                return model(x)
+
+        ms = cuda_time_ms(forward)
+        attention.flash_attention_fwd.launches = 0
+        breakdown = kernel_breakdown(forward)
+        # kernel_breakdown makes one untraced warmup call before the trace
+        launches = attention.flash_attention_fwd.launches / (TRACE_RUNS + 1)
+        result["impls"][impl] = {
+            "forward_ms": ms, "images_per_s": args.bucket / ms * 1e3,
+            "flash_launches_per_forward": launches, **breakdown}
+        print(f"[{impl}] bucket {args.bucket}: {ms:.3f} ms per forward, "
+              f"{args.bucket / ms * 1e3:.1f} images/s; device busy "
+              f"{breakdown['device_busy_share']:.3f} of the traced wall "
+              f"time; device ms by group "
+              f"{json.dumps(breakdown['groups_ms_per_run'])}", flush=True)
+        for k in breakdown["top_kernels"]:
+            print(f"[{impl}]   {k['ms_per_run']:8.3f} ms "
+                  f"x{k['calls_per_run']:.0f}  {k['name']}")
+        del model
+        torch.cuda.empty_cache()
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

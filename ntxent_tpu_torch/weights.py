@@ -1,0 +1,169 @@
+"""Carry the JAX package's weights into the port's modules.
+
+``load_flax_variables(model, variables)`` takes flax variables,
+``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays
+(what ``jax.device_get`` returns), and copies them into the matching
+port module: ``SimCLRModel`` (ViT backbone), ``VisionTransformer``,
+``EncoderBlock``, ``SeqParallelSelfAttention``, ``MlpBlock`` or
+``ProjectionHead``. The layout differences it handles:
+
+* ``Dense`` kernels are (in, out); torch weights are (out, in).
+* ``patch_embed`` is an HWIO conv kernel (p, p, C, hidden) over NHWC
+  input: flattened row-major it is the (p*p*C, hidden) product the
+  port's patchify feeds.
+* ``DenseGeneral`` q/k/v kernels are (hidden, H, D) with (H, D) biases;
+  ``out`` is (H, D, hidden).
+* BatchNorm ``scale``/``bias`` are parameters, ``mean``/``var`` live in
+  ``batch_stats``; ``fc2`` has no bias.
+* ``cls_token`` and ``pos_embed`` keep their (1, ., hidden) shapes.
+
+Every flax leaf must be consumed and every torch tensor filled, with
+matching shapes; anything else raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.long_context import SeqParallelSelfAttention
+from .models.projection import ProjectionHead, SimCLRModel
+from .models.vit import EncoderBlock, MlpBlock, VisionTransformer
+
+__all__ = ["load_flax_variables"]
+
+
+class _Tree:
+    """Reads leaves of a nested dict by path and remembers which."""
+
+    def __init__(self, tree: dict, root: str):
+        self.tree, self.root, self.used = tree, root, set()
+
+    def get(self, *path: str) -> np.ndarray:
+        node = self.tree
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                raise KeyError(f"flax {self.root} has no "
+                               f"{'/'.join(path)!r}")
+            node = node[key]
+        self.used.add(path)
+        return np.array(node, dtype=np.float32)  # a writable copy
+
+    def leaves(self, node=None, prefix=()) -> set[tuple]:
+        node = self.tree if node is None else node
+        if not isinstance(node, dict):
+            return {prefix}
+        out = set()
+        for key, child in node.items():
+            out |= self.leaves(child, prefix + (key,))
+        return out
+
+
+def _prefixed(prefix: str, tensors: dict) -> dict:
+    return {f"{prefix}.{k}": v for k, v in tensors.items()}
+
+
+def _dense(p: _Tree, path: tuple, bias: bool = True) -> dict:
+    out = {"weight": p.get(*path, "kernel").T}
+    if bias:
+        out["bias"] = p.get(*path, "bias")
+    return out
+
+
+def _layer_norm(p: _Tree, path: tuple) -> dict:
+    return {"weight": p.get(*path, "scale"), "bias": p.get(*path, "bias")}
+
+
+def _attention(module, p, s, path) -> dict:
+    out = {}
+    for name in ("query", "key", "value"):
+        kernel = p.get(*path, name, "kernel")  # (hidden, H, D)
+        out[f"{name}.weight"] = kernel.reshape(kernel.shape[0], -1).T
+        out[f"{name}.bias"] = p.get(*path, name, "bias").reshape(-1)
+    kernel = p.get(*path, "out", "kernel")  # (H, D, hidden)
+    out["out.weight"] = kernel.reshape(-1, kernel.shape[-1]).T
+    out["out.bias"] = p.get(*path, "out", "bias")
+    return out
+
+
+def _mlp(module, p, s, path) -> dict:
+    return (_prefixed("fc1", _dense(p, path + ("Dense_0",)))
+            | _prefixed("fc2", _dense(p, path + ("Dense_1",))))
+
+
+def _block(module, p, s, path) -> dict:
+    return (_prefixed("ln1", _layer_norm(p, path + ("LayerNorm_0",)))
+            | _prefixed("attn", _attention(
+                module.attn, p, s,
+                path + ("MultiHeadDotProductAttention_0",)))
+            | _prefixed("ln2", _layer_norm(p, path + ("LayerNorm_1",)))
+            | _prefixed("mlp", _mlp(module.mlp, p, s,
+                                    path + ("MlpBlock_0",))))
+
+
+def _vit(module, p, s, path) -> dict:
+    kernel = p.get(*path, "patch_embed", "kernel")  # HWIO
+    out = {"patch_embed.weight": kernel.reshape(-1, kernel.shape[-1]).T,
+           "patch_embed.bias": p.get(*path, "patch_embed", "bias"),
+           "cls_token": p.get(*path, "cls_token"),
+           "pos_embed": p.get(*path, "pos_embed")}
+    for i, block in enumerate(module.blocks):
+        out |= _prefixed(f"blocks.{i}",
+                         _block(block, p, s, path + (f"block_{i}",)))
+    return out | _prefixed("final_ln", _layer_norm(p, path + ("final_ln",)))
+
+
+def _head(module, p, s, path) -> dict:
+    return (_prefixed("fc1", _dense(p, path + ("fc1",)))
+            | {"bn1.weight": p.get(*path, "bn1", "scale"),
+               "bn1.bias": p.get(*path, "bn1", "bias"),
+               "bn1.running_mean": s.get(*path, "bn1", "mean"),
+               "bn1.running_var": s.get(*path, "bn1", "var")}
+            | _prefixed("fc2", _dense(p, path + ("fc2",), bias=False)))
+
+
+def _simclr(module, p, s, path) -> dict:
+    if not isinstance(module.backbone, VisionTransformer):
+        raise TypeError(f"no flax layout for backbone "
+                        f"{type(module.backbone).__name__}")
+    return (_prefixed("backbone", _vit(module.backbone, p, s,
+                                       path + ("backbone",)))
+            | _prefixed("projector", _head(module.projector, p, s,
+                                           path + ("projector",))))
+
+
+_CONVERTERS = ((SimCLRModel, _simclr), (VisionTransformer, _vit),
+               (EncoderBlock, _block), (SeqParallelSelfAttention, _attention),
+               (MlpBlock, _mlp), (ProjectionHead, _head))
+
+
+def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
+    """Copy flax ``variables`` into ``model`` in place and return it."""
+    convert = next((fn for cls, fn in _CONVERTERS
+                    if isinstance(model, cls)), None)
+    if convert is None:
+        raise TypeError(f"no flax layout for {type(model).__name__}")
+    params = _Tree(variables["params"], "params")
+    stats = _Tree(variables.get("batch_stats", {}), "batch_stats")
+    tensors = convert(model, params, stats, ())
+    for tree in (params, stats):
+        unused = tree.leaves() - tree.used
+        if unused:
+            raise KeyError(f"flax {tree.root} leaves with no torch "
+                           f"counterpart: "
+                           f"{sorted('/'.join(p) for p in unused)}")
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    missing = set(state) - set(tensors)
+    if missing:
+        raise KeyError(f"torch tensors not covered by the flax variables: "
+                       f"{sorted(missing)}")
+    with torch.no_grad():
+        for key, target in state.items():
+            value = np.ascontiguousarray(tensors[key])
+            if tuple(value.shape) != tuple(target.shape):
+                raise ValueError(f"{key}: flax shape {value.shape} vs torch "
+                                 f"{tuple(target.shape)}")
+            target.copy_(torch.from_numpy(value))
+    return model

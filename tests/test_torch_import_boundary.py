@@ -1,0 +1,79 @@
+"""The port imports neither JAX nor the JAX package.
+
+``ntxent_tpu_torch`` and ``chip_smoke.py`` must run on a machine with no
+JAX: they keep their own copies of what they need from ``ntxent_tpu``.
+A fresh interpreter imports the port's entry modules and checks what got
+loaded; a static scan of every source checks what could be.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "ntxent_tpu_torch"
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "ntxent_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    """True for jax/flax/... and ntxent_tpu or ntxent_tpu.*, but not for
+    ntxent_tpu_torch, which shares the prefix."""
+    root = module.split(".")[0]
+    return root in FORBIDDEN_ROOTS
+
+
+def test_prefix_rule():
+    assert _forbidden("ntxent_tpu") and _forbidden("ntxent_tpu.serving")
+    assert _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert not _forbidden("ntxent_tpu_torch")
+    assert not _forbidden("ntxent_tpu_torch.serving.engine")
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import json, sys\n"
+        "import ntxent_tpu_torch, ntxent_tpu_torch.cli, "
+        "ntxent_tpu_torch.serving, ntxent_tpu_torch.weights\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert "ntxent_tpu_torch.cli" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def _sources():
+    yield from sorted(PACKAGE.rglob("*.py"))
+    yield REPO / "chip_smoke.py"
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+@pytest.mark.parametrize("path", list(_sources()),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    bad = [f"{path.name}:{line} imports {mod}"
+           for line, mod in _imports(path) if _forbidden(mod)]
+    assert bad == []
+
+
+def test_scan_sees_every_module():
+    names = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert {"cli.py", "weights.py", "ops/attention.py",
+            "serving/server.py", "models/vit.py"} <= names
