@@ -1,12 +1,23 @@
-"""Command line of the port: the ``ntxent-serve`` counterpart.
+"""Command line of the port: the ``ntxent-serve`` and ``ntxent-train``
+counterparts.
 
-Same flag names and defaults as ``ntxent_tpu/cli.py``'s
-``build_serve_parser`` for what the port supports (ViT towers; JSON
-``/metrics``), plus ``--device``. Weights are random from ``--seed``, as
-``ntxent-serve`` serves without ``--ckpt-dir``.
+Same flag names and defaults as ``ntxent_tpu/cli.py`` for what the port
+supports, plus ``--device`` (cuda by default; raises without a GPU):
+
+* ``serve_main`` (``build_serve_parser``): ViT towers, JSON ``/metrics``;
+  random weights from ``--seed``, as ``ntxent-serve`` serves without
+  ``--ckpt-dir``.
+* ``train_main`` (``build_train_parser``): single-card SimCLR training of
+  a ViT tower on ``--dataset synthetic``. ``--model`` defaults to
+  ``vit_b16`` (the JAX default, resnet50, is a later slice). Flags of what
+  is not ported yet (other objectives, models, datasets, parallelism,
+  checkpoints, the guard, remat, accumulation) exit with a message naming
+  the ROADMAP.md item.
 
 Run: ``python -m ntxent_tpu_torch.cli --model vit_b16 --vit-attention
-flash --image-size 224 --head embedding --port 8080``.
+flash --image-size 224 --head embedding --port 8080`` (serving), or
+``python -m ntxent_tpu_torch.cli train --model vit_b16 --vit-attention
+flash --image-size 224 --batch 256 --steps 100`` (training).
 """
 
 from __future__ import annotations
@@ -15,17 +26,29 @@ import argparse
 import logging
 import sys
 
+import numpy as np
 import torch
 
 from .models import SimCLRModel, init_weights
 from .models.vit import ViT_B16, ViT_L16, ViT_S16, ViT_Ti16
 from .resilience.retry import RetryPolicy
 from .serving import EmbeddingServer, InferenceEngine
+from .training import (
+    ROADMAP_ITEMS,
+    ArraySource,
+    StreamingLoader,
+    TrainerConfig,
+    TwoViewPipeline,
+    create_train_state,
+    make_train_step,
+    train_loop,
+)
 from .utils.capability import device_name, resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["build_model", "build_serve_parser", "build_server", "serve_main"]
+__all__ = ["build_model", "build_serve_parser", "build_server",
+           "build_train_parser", "serve_main", "train", "train_main"]
 
 ENCODERS = {"vit_t16": ViT_Ti16, "vit_s16": ViT_S16, "vit_b16": ViT_B16,
             "vit_l16": ViT_L16}
@@ -97,8 +120,9 @@ def _buckets(text: str) -> tuple[int, ...]:
 
 
 def build_model(args) -> SimCLRModel:
-    """The served SimCLR model with random weights drawn from ``--seed``
-    (on the CPU, so a seed gives the same weights on every device)."""
+    """The served or trained SimCLR model with random weights drawn from
+    ``--seed`` (on the CPU, so a seed gives the same weights on every
+    device)."""
     encoder = ENCODERS[args.model](image_size=args.image_size,
                                    attention_impl=args.vit_attention)
     model = SimCLRModel(encoder, proj_hidden_dim=args.proj_hidden_dim,
@@ -145,5 +169,144 @@ def serve_main(argv=None) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# ntxent-train
+# --------------------------------------------------------------------------
+
+# The JAX CLI's --model choices; those not ported yet exit with the item.
+MODEL_CHOICES = ["resnet18", "resnet34", "resnet50", "resnet50x2",
+                 "resnet101", "resnet152", "vit_t16", "vit_s16",
+                 "vit_b16", "vit_l16", "tiny"]
+
+
+def build_train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ntxent-train (torch)",
+        description="SimCLR pretraining on PyTorch/CUDA with the fused "
+                    "NT-Xent kernels (single card)")
+    d = p.add_argument_group("data")
+    d.add_argument("--dataset", default="synthetic",
+                   choices=["synthetic", "cifar10", "imagefolder", "npy"],
+                   help="only synthetic is ported")
+    d.add_argument("--data-dir", default=None)
+    d.add_argument("--image-size", type=int, default=None,
+                   help="default: 32 (synthetic)")
+    d.add_argument("--loader", default="python",
+                   choices=["python", "native"])
+    p.add_argument("--synthetic-samples", type=int, default=512)
+
+    m = p.add_argument_group("model")
+    m.add_argument("--model", default="vit_b16", choices=MODEL_CHOICES)
+    m.add_argument("--vit-attention", default="xla", choices=["xla", "flash"],
+                   help="flash: the hand-written flash-attention kernels "
+                        "(forward and backward); xla: plain PyTorch "
+                        "attention on the same weights")
+    m.add_argument("--proj-hidden-dim", type=int, default=2048)
+    m.add_argument("--proj-dim", type=int, default=128)
+    m.add_argument("--moe-experts", type=int, default=0)
+
+    t = p.add_argument_group("training")
+    t.add_argument("--objective", default="simclr",
+                   choices=["simclr", "clip"])
+    t.add_argument("--parallel", default="dp", choices=["dp", "tp"])
+    t.add_argument("--fsdp", action="store_true")
+    t.add_argument("--batch", type=int, default=256)
+    t.add_argument("--steps", type=int, default=1000)
+    t.add_argument("--temperature", type=float, default=0.1)
+    t.add_argument("--base-lr", type=float, default=0.3)
+    t.add_argument("--weight-decay", type=float, default=1e-6)
+    t.add_argument("--warmup-steps", type=int, default=100)
+    t.add_argument("--accum-steps", type=int, default=1)
+    t.add_argument("--remat", action="store_true")
+    t.add_argument("--ckpt-dir", default=None)
+    t.add_argument("--log-every", type=int, default=50)
+    t.add_argument("--max-restarts", type=int, default=0)
+    t.add_argument("--nan-policy", default="off",
+                   choices=["off", "skip", "backoff", "rollback"])
+    t.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a GPU) or cpu")
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def _check_train_args(args) -> None:
+    """Exit, naming the ROADMAP item, on anything not ported yet."""
+    unported = [
+        (not args.model.startswith("vit"), f"--model {args.model}",
+         "resnet"),
+        (args.objective != "simclr", f"--objective {args.objective}",
+         "clip"),
+        (args.dataset != "synthetic", f"--dataset {args.dataset}", "data"),
+        (args.data_dir is not None, "--data-dir", "data"),
+        (args.loader != "python", f"--loader {args.loader}", "data"),
+        (args.parallel != "dp" or args.fsdp, "--parallel tp / --fsdp", "mp"),
+        (args.moe_experts > 0, "--moe-experts", "mp"),
+        (args.accum_steps > 1, "--accum-steps", "resilience"),
+        (args.remat, "--remat", "resilience"),
+        (args.ckpt_dir is not None, "--ckpt-dir", "resilience"),
+        (args.max_restarts > 0, "--max-restarts", "resilience"),
+        (args.nan_policy != "off", f"--nan-policy {args.nan_policy}",
+         "resilience"),
+    ]
+    for hit, flag, item in unported:
+        if hit:
+            raise SystemExit(f"ntxent-train (torch): {flag} is not ported "
+                             f"yet: {ROADMAP_ITEMS[item]}")
+    if args.batch < 1 or args.steps < 1 or args.log_every < 1:
+        raise SystemExit("--batch, --steps and --log-every must be positive")
+
+
+def _synthetic_pipeline(args, device) -> TwoViewPipeline:
+    """``--dataset synthetic`` as the JAX CLI makes it
+    (``RandomState(seed).rand``), streamed and augmented on ``device``."""
+    rng = np.random.RandomState(args.seed)
+    source = ArraySource(rng.rand(args.synthetic_samples, args.image_size,
+                                  args.image_size, 3).astype(np.float32))
+    loader = StreamingLoader(source, args.batch, seed=args.seed)
+    return TwoViewPipeline(loader, device, seed=args.seed + 1)
+
+
+def train(args):
+    """Train as ``train_main`` does from parsed ``args``; returns
+    (TrainState, history)."""
+    if args.image_size is None:
+        args.image_size = 32
+    _check_train_args(args)
+    device = resolve_device(args.device)
+    cfg = TrainerConfig(batch_size=args.batch, temperature=args.temperature,
+                        base_lr=args.base_lr, weight_decay=args.weight_decay,
+                        warmup_steps=args.warmup_steps,
+                        total_steps=args.steps)
+    state = create_train_state(build_model(args), cfg, device)
+    step = make_train_step(cfg.temperature)
+    logger.info("training %s (%s attention) on %s: batch %d, %d steps, "
+                "peak lr %g", args.model, args.vit_attention,
+                device_name(device), args.batch, args.steps,
+                cfg.learning_rate)
+    history = train_loop(state, _synthetic_pipeline(args, device), step,
+                         args.steps, log_every=args.log_every)
+    if history:
+        last = history[-1]
+        logger.info("final: step %d loss %.4f (%.2f steps/s)", last["step"],
+                    last["loss"], last["steps_per_sec"])
+    return state, history
+
+
+def train_main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    train(build_train_parser().parse_args(argv))
+    return 0
+
+
+def main(argv=None) -> int:
+    """``train ...`` runs ``train_main``; anything else ``serve_main``."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["train"]:
+        return train_main(argv[1:])
+    return serve_main(argv)
+
+
 if __name__ == "__main__":
-    sys.exit(serve_main())
+    sys.exit(main())

@@ -62,7 +62,7 @@ class EncoderBlock(nn.Module):
         if moe_experts > 0:
             raise NotImplementedError(
                 "moe_experts > 0: the switch-MoE MLP is not ported yet "
-                "(ROADMAP.md Queue A, slice 4: model parallelism)")
+                "(ROADMAP.md Queue A 9: model parallelism and MoE)")
         self.ln1 = LayerNorm(hidden)
         self.attn = SeqParallelSelfAttention(
             hidden, num_heads, dtype=dtype,

@@ -26,6 +26,9 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_kernels"
 SOURCES: dict[str, Path] = {
     "flash_attention_fwd": _PACKAGE / "csrc" / "flash_attention_fwd.cu",
+    "flash_attention_bwd": _PACKAGE / "csrc" / "flash_attention_bwd.cu",
+    "ntxent_fwd": _PACKAGE / "csrc" / "ntxent_fwd.cu",
+    "ntxent_bwd_sym": _PACKAGE / "csrc" / "ntxent_bwd_sym.cu",
 }
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 

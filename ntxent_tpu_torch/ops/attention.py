@@ -1,15 +1,22 @@
-"""Flash attention: the hand-written Hopper kernel and its plain version.
+"""Flash attention: the hand-written Hopper kernels and their plain versions.
 
-Counterpart of ``ntxent_tpu/ops/attention_pallas.py``'s forward.
-``flash_attention_fwd`` takes the flattened (B*H, L, D) layout and
-returns ``(o, lse)`` as the TPU kernel does: ``o`` in q's dtype, ``lse``
-fp32 of shape (B*H, Lq). A tensor on the GPU launches the CUDA kernel
-(``csrc/flash_attention_fwd.cu``) or raises; a tensor on the CPU takes
-``attention_plain``, the same function in plain PyTorch. There is no
-fallback from the kernel to the plain version.
+Counterpart of ``ntxent_tpu/ops/attention_pallas.py``. On the flattened
+(B*H, L, D) layout:
+
+* ``flash_attention_fwd`` returns ``(o, lse)`` as the TPU forward kernel
+  does: ``o`` in q's dtype, ``lse`` fp32 of shape (B*H, Lq)
+  (``csrc/flash_attention_fwd.cu``; plain version ``attention_plain``);
+* ``flash_attention_dq`` and ``flash_attention_dkv`` are the backward
+  (``csrc/flash_attention_bwd.cu``; plain versions
+  ``attention_dq_plain`` and ``attention_dkv_plain``), from the saved
+  lse and ``delta = rowsum(dO * O)``, with fp32 outputs.
+
+A tensor on the GPU launches the CUDA kernel or raises; a tensor on the
+CPU takes the plain version. There is no fallback from a kernel to its
+plain version. Each wrapper counts its launches in ``.launches``.
 
 ``flash_attention`` is the public (B, L, H, D) entry, as in the JAX
-package.
+package, differentiable through the backward wrappers.
 """
 
 from __future__ import annotations
@@ -23,8 +30,9 @@ import torch
 from . import _build
 from .blocks import round_up
 
-__all__ = ["attention_plain", "flash_attention", "flash_attention_fwd",
-           "resolve_attention_scale"]
+__all__ = ["attention_dkv_plain", "attention_dq_plain", "attention_plain",
+           "flash_attention", "flash_attention_dkv", "flash_attention_dq",
+           "flash_attention_fwd", "resolve_attention_scale"]
 
 _NEG_INF = -1e30
 BLOCK_Q = 64  # q rows per thread block in csrc/flash_attention_fwd.cu
@@ -38,6 +46,18 @@ def resolve_attention_scale(scale, head_dim) -> float:
     return float(scale) if scale is not None else 1.0 / math.sqrt(head_dim)
 
 
+def _scores(q, k, sc, causal, q_offset, k_offset):
+    """fp32 ``q k^T * scale``; when causal, keys after the query's global
+    position (``k_offset + j > q_offset + i``) are masked to -1e30."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sc
+    if causal:
+        qpos = q_offset + torch.arange(q.shape[1], device=q.device)
+        kpos = k_offset + torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(kpos[None, None, :] > qpos[None, :, None],
+                          _NEG_INF)
+    return s
+
+
 def attention_plain(q, k, v, *, causal: bool = False, scale=None,
                     q_offset: int = 0, k_offset: int = 0):
     """Plain PyTorch attention with the kernel's numerics.
@@ -49,12 +69,7 @@ def attention_plain(q, k, v, *, causal: bool = False, scale=None,
     before p . v; a fully masked row gives o = 0 (l = 0 -> 1).
     """
     sc = resolve_attention_scale(scale, q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sc
-    if causal:
-        qpos = q_offset + torch.arange(q.shape[1], device=q.device)
-        kpos = k_offset + torch.arange(k.shape[1], device=q.device)
-        s = s.masked_fill(kpos[None, None, :] > qpos[None, :, None],
-                          _NEG_INF)
+    s = _scores(q, k, sc, causal, q_offset, k_offset)
     m = torch.clamp(s.amax(dim=-1, keepdim=True), min=_NEG_INF)
     p = torch.where(s <= _NEG_INF * 0.5, 0.0,
                     torch.exp(torch.clamp(s - m, max=0.0)))
@@ -92,24 +107,35 @@ def _kernel():
     return fn
 
 
-def _launch(q, k, v, sc, causal, q_offset, k_offset):
-    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
-                        f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+def _check_kernel_args(q, k, v, q_offset, k_offset, **named) -> None:
+    """What the CUDA kernels take: one dtype of float32/bfloat16, head_dim
+    64 or 128, contiguous 16-byte aligned tensors, an int32 grid."""
+    tensors = {"q": q, "k": k, "v": v, **named}
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype
+                                          for t in tensors.values()):
+        raise TypeError(f"flash_attention kernels take float32 or bfloat16 "
+                        f"inputs of one dtype, got "
+                        f"{ {n: t.dtype for n, t in tensors.items()} }")
     bh, lq, d = q.shape
-    lk = k.shape[1]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel supports head_dim in "
                          f"{HEAD_DIMS}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
-    if (bh * (round_up(lq, BLOCK_Q) // BLOCK_Q) > _INT32_MAX
+    tiles = round_up(max(lq, k.shape[1]), BLOCK_Q) // BLOCK_Q
+    if (bh * tiles > _INT32_MAX
             or max(abs(q_offset), abs(k_offset)) > _INT32_MAX // 2):
         raise ValueError(f"grid or offsets exceed int32: bh={bh}, lq={lq}, "
-                         f"offsets=({q_offset}, {k_offset})")
+                         f"lk={k.shape[1]}, offsets=({q_offset}, "
+                         f"{k_offset})")
+
+
+def _launch(q, k, v, sc, causal, q_offset, k_offset):
+    _check_kernel_args(q, k, v, q_offset, k_offset)
+    bh, lq, d = q.shape
+    lk = k.shape[1]
     o = torch.empty_like(q)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -145,6 +171,155 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, scale=None,
 flash_attention_fwd.launches = 0
 
 
+def _bwd_probs(q, k, v, do, lse, delta, sc, causal, q_offset, k_offset):
+    """(p, ds) of the backward kernels (attention_pallas.py:138-152):
+    fp32 scores of the inputs, masked to -1e30, ``p = 0`` where
+    ``s <= -5e29`` else ``exp(min(s - lse, 0))``, ``dp = dO V^T`` in fp32,
+    ``ds = p * (dp - delta) * scale``."""
+    s = _scores(q, k, sc, causal, q_offset, k_offset)
+    p = torch.where(s <= _NEG_INF * 0.5, 0.0,
+                    torch.exp(torch.clamp(s - lse[..., None], max=0.0)))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None]) * sc
+
+
+def attention_dq_plain(q, k, v, do, lse, delta, *, causal: bool = False,
+                       scale=None, q_offset: int = 0, k_offset: int = 0):
+    """fp32 dQ with the kernel's numerics: ``ds`` is cast to k's dtype
+    before ``ds . K`` (attention_pallas.py:153)."""
+    sc = resolve_attention_scale(scale, q.shape[-1])
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, sc, causal, q_offset,
+                       k_offset)
+    return torch.matmul(ds.to(k.dtype).float(), k.float())
+
+
+def attention_dkv_plain(q, k, v, do, lse, delta, *, causal: bool = False,
+                        scale=None, q_offset: int = 0, k_offset: int = 0):
+    """fp32 (dK, dV) with the kernel's numerics: p, dO, ds and Q all in
+    fp32 (attention_pallas.py:191-204)."""
+    sc = resolve_attention_scale(scale, q.shape[-1])
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, sc, causal, q_offset,
+                       k_offset)
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dk, dv
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> None:
+    _check_flat(q, k, v)
+    if do.shape != q.shape or lse.shape != q.shape[:2] \
+            or delta.shape != q.shape[:2]:
+        raise ValueError(f"expected dO {tuple(q.shape)} and lse/delta "
+                         f"{tuple(q.shape[:2])}, got {tuple(do.shape)}, "
+                         f"{tuple(lse.shape)}, {tuple(delta.shape)}")
+    if any(t.device != q.device for t in (do, lse, delta)):
+        raise ValueError("dO, lse and delta must be on q's device")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+
+
+@functools.cache
+def _bwd_kernels():
+    """The two C entry points of csrc/flash_attention_bwd.cu."""
+    lib = _build.load("flash_attention_bwd")
+    # q, k, v, dO, lse, delta, out(s); bh, lq, lk, head_dim, dtype; scale;
+    # causal, q_off, k_off, device; stream
+    tail = ([ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
+    dq, dkv = lib.ntx_flash_attention_dq, lib.ntx_flash_attention_dkv
+    dq.argtypes = [ctypes.c_void_p] * 7 + tail
+    dkv.argtypes = [ctypes.c_void_p] * 8 + tail
+    dq.restype = dkv.restype = ctypes.c_int
+    return dq, dkv
+
+
+def _bwd_launch(fn, name, outs, q, k, v, do, lse, delta, sc, causal,
+                q_offset, k_offset):
+    _check_kernel_args(q, k, v, q_offset, k_offset, do=do)
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    bh, lq, d = q.shape
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+             bh, lq, k.shape[1], d, _DTYPE_CODES[q.dtype], sc, int(causal),
+             int(q_offset), int(k_offset), q.device.index,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = False,
+                       scale=None, q_offset: int = 0, k_offset: int = 0):
+    """fp32 dQ (BH, Lq, D) from the forward's lse and delta.
+
+    On CUDA tensors this launches ``csrc/flash_attention_bwd.cu``'s dQ
+    kernel (counted in ``flash_attention_dq.launches``); on CPU tensors
+    it runs ``attention_dq_plain``."""
+    _check_bwd(q, k, v, do, lse, delta)
+    sc = resolve_attention_scale(scale, q.shape[-1])
+    kw = dict(causal=causal, scale=sc, q_offset=q_offset, k_offset=k_offset)
+    if q.device.type == "cpu":
+        return attention_dq_plain(q, k, v, do, lse, delta, **kw)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch(_bwd_kernels()[0], "flash_attention_dq", (dq,), q, k, v, do,
+                lse, delta, sc, causal, q_offset, k_offset)
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
+                        scale=None, q_offset: int = 0, k_offset: int = 0):
+    """fp32 (dK, dV), each (BH, Lk, D), from the forward's lse and delta.
+
+    On CUDA tensors this launches ``csrc/flash_attention_bwd.cu``'s dK/dV
+    kernel (counted in ``flash_attention_dkv.launches``); on CPU tensors
+    it runs ``attention_dkv_plain``."""
+    _check_bwd(q, k, v, do, lse, delta)
+    sc = resolve_attention_scale(scale, q.shape[-1])
+    kw = dict(causal=causal, scale=sc, q_offset=q_offset, k_offset=k_offset)
+    if q.device.type == "cpu":
+        return attention_dkv_plain(q, k, v, do, lse, delta, **kw)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch(_bwd_kernels()[1], "flash_attention_dkv", (dk, dv), q, k, v,
+                do, lse, delta, sc, causal, q_offset, k_offset)
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flat (BH, L, D) attention whose backward is the dQ and dK/dV
+    wrappers (attention_pallas.py:515-535): the forward saves
+    (q, k, v, o, lse); the backward forms ``delta = rowsum(dO * O)`` in
+    fp32 and casts the fp32 gradients to the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sc, causal, q_offset, k_offset):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=sc,
+                                     q_offset=q_offset, k_offset=k_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(causal=causal, scale=sc, q_offset=q_offset,
+                      k_offset=k_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # autograd may hand back a permuted view of the flattened layout
+        do = do.contiguous().to(q.dtype)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        dq = flash_attention_dq(q, k, v, do, lse, delta, **ctx.kw)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, **ctx.kw)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
 def _flat(x):
     b, l, h, d = x.shape
     return x.permute(0, 2, 1, 3).reshape(b * h, l, d).contiguous()
@@ -160,7 +335,8 @@ def flash_attention(q, k, v, *, causal: bool = False, scale=None,
     """softmax(q k^T * scale) v for q (B, Lq, H, D), k/v (B, Lk, H, D).
 
     ``q_offset``/``k_offset`` are the blocks' global positions for causal
-    masking. Returns (B, Lq, H, D) in q's dtype.
+    masking. Returns (B, Lq, H, D) in q's dtype; differentiable in q, k
+    and v through ``flash_attention_dq``/``flash_attention_dkv``.
     """
     if (q.ndim != 4 or k.shape != v.shape or k.ndim != 4
             or q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]):
@@ -168,7 +344,7 @@ def flash_attention(q, k, v, *, causal: bool = False, scale=None,
                          f"got {tuple(q.shape)} {tuple(k.shape)} "
                          f"{tuple(v.shape)}")
     b, _, h, _ = q.shape
-    o, _ = flash_attention_fwd(_flat(q), _flat(k), _flat(v), causal=causal,
-                               scale=scale, q_offset=q_offset,
-                               k_offset=k_offset)
+    sc = resolve_attention_scale(scale, q.shape[-1])
+    o = _FlashAttention.apply(_flat(q), _flat(k), _flat(v), sc, bool(causal),
+                              int(q_offset), int(k_offset))
     return _unflat(o, b, h)

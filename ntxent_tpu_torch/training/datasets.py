@@ -1,0 +1,107 @@
+"""Seeded batch loading and the two-view pipeline, counterpart of the parts
+of ``ntxent_tpu/training/datasets.py`` the single-card training path uses.
+
+* ``ArraySource``: random access over an in-memory array (or a memmap);
+* ``StreamingLoader``: one seeded permutation per epoch,
+  ``default_rng(SeedSequence([seed, epoch])).permutation(n)``, cut into
+  whole batches. It is the JAX package's shuffle, so a seed yields the
+  same batches in both packages. ``state()`` is the position of the next
+  batch, (epoch, offset). Batches are gathered on the calling thread:
+  the threaded read-ahead of the JAX loader is not ported (an in-memory
+  source needs none);
+* ``TwoViewPipeline``: loader batch -> device -> uint8 to [0, 1] (as at
+  ``datasets.py:316-317``) -> two augmented views. The views' generator
+  is seeded from (seed, epoch, offset): a seed gives the same views.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Iterator
+
+import numpy as np
+import torch
+
+from .augment import augment_batch_pair
+
+__all__ = ["ArraySource", "StreamingLoader", "TwoViewPipeline"]
+
+
+class ArraySource:
+    """Random-access view over an in-memory array or ``np.load(...,
+    mmap_mode='r')`` memmap."""
+
+    def __init__(self, images):
+        self.images = images
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        return np.asarray(self.images[idx])
+
+
+class StreamingLoader:
+    """Seeded shuffling batch loader: (B, H, W, C) numpy batches forever,
+    epoch after epoch, always whole batches (the remainder of an epoch is
+    dropped, as with the JAX loader's default ``drop_remainder=True``)."""
+
+    def __init__(self, source, batch_size: int, seed: int = 0):
+        if len(source) < batch_size:
+            raise ValueError(f"source of {len(source)} < batch {batch_size}")
+        self.source = source
+        self.batch_size = batch_size
+        self.seed = seed
+        self._epoch = 0
+        self._offset = 0  # batches already yielded within the epoch
+
+    def state(self) -> dict:
+        return {"epoch": self._epoch, "offset": self._offset,
+                "seed": self.seed}
+
+    def batches_per_epoch(self) -> int:
+        return len(self.source) // self.batch_size
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch]))
+        return rng.permutation(len(self.source))
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        while True:
+            order = self._epoch_order(self._epoch)
+            while self._offset < self.batches_per_epoch():
+                lo = self._offset * self.batch_size
+                idxs = order[lo:lo + self.batch_size]
+                batch = np.stack([self.source[int(i)] for i in idxs])
+                self._offset += 1
+                yield batch
+            self._epoch += 1
+            self._offset = 0
+
+
+class TwoViewPipeline:
+    """(view1, view2) device batches from a ``StreamingLoader``."""
+
+    def __init__(self, loader: StreamingLoader, device: torch.device,
+                 seed: int = 0):
+        self.loader = loader
+        self.device = torch.device(device)
+        self.seed = seed
+        self._it = None
+
+    def _generator(self) -> torch.Generator:
+        st = self.loader.state()
+        seed = np.random.SeedSequence(
+            [self.seed, st["epoch"], st["offset"]]).generate_state(1)[0]
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._it is None:
+            self._it = iter(self.loader)
+        gen = self._generator()
+        x = torch.from_numpy(next(self._it)).to(self.device)
+        if x.dtype == torch.uint8:
+            x = x.to(torch.float32) / 255.0
+        return augment_batch_pair(x.float(), gen)

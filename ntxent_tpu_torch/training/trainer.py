@@ -1,0 +1,158 @@
+"""Single-card SimCLR training, counterpart of the single-device path of
+``ntxent_tpu/training/trainer.py``.
+
+* ``TrainerConfig``: batch, temperature, LARS and schedule settings;
+* ``TrainState``: the model (fp32 parameters, BatchNorm statistics), its
+  LARS optimizer and the step count (``create_train_state``);
+* ``make_train_step``: both views through the model in ONE forward
+  (``cat([v1, v2])``, so BatchNorm sees all 2B rows), the NT-Xent loss,
+  the backward and the LARS update. ``use_fused=None`` picks the fused
+  loss on CUDA tensors (``ops.ntxent.ntxent_loss_fused``, the hand-written
+  kernels) and the oracle on the CPU, as the JAX step picks the Pallas
+  kernel on a TPU and the oracle elsewhere;
+* ``train_loop``: steps, loss, steps/s and images/s every ``log_every``.
+
+Not in this slice (``make_train_step`` raises ``NotImplementedError``
+naming the ROADMAP.md item, and ``cli`` exits on the flags): the
+divergence guard, rematerialization, the MoE auxiliary loss, gradient
+accumulation, checkpoints. ``ROADMAP_ITEMS`` names every such item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from collections.abc import Callable
+
+import torch
+from torch import nn
+
+from ..ops import oracle
+from ..ops.ntxent import ntxent_loss_fused
+from .lars import LARS, cosine_warmup_schedule, exclusion_mask
+from .lars import simclr_learning_rate
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["ROADMAP_ITEMS", "TrainState", "TrainerConfig",
+           "create_train_state", "make_train_step", "train_loop"]
+
+# What training does not port yet, by the ROADMAP.md item that will.
+ROADMAP_ITEMS = {
+    "resnet": "ROADMAP.md Queue A 2 (ResNet-50 training)",
+    "clip": "ROADMAP.md Queue A 4 (CLIP / InfoNCE)",
+    "resilience": "ROADMAP.md Queue A 7 (checkpoints and training "
+                  "resilience)",
+    "data": "ROADMAP.md Queue A 7 (datasets beyond --dataset synthetic)",
+    "mp": "ROADMAP.md Queue A 9 (model parallelism and MoE)",
+}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: "
+                               f"{ROADMAP_ITEMS[item]}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    batch_size: int = 256
+    temperature: float = 0.1
+    base_lr: float = 0.3
+    weight_decay: float = 1e-6
+    warmup_steps: int = 100
+    total_steps: int = 1000
+
+    @property
+    def learning_rate(self) -> float:
+        return simclr_learning_rate(self.batch_size, self.base_lr)
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: LARS
+    step: int = 0
+
+
+def create_train_state(model: nn.Module, config: TrainerConfig,
+                       device: torch.device) -> TrainState:
+    """Model on ``device`` in train mode with SimCLR's LARS: the
+    warmup-cosine schedule peaking at ``config.learning_rate`` and the
+    BN/bias exclusion mask from the parameters' flax paths."""
+    model = model.to(device).train()
+    schedule = cosine_warmup_schedule(config.learning_rate,
+                                      config.warmup_steps, config.total_steps)
+    optimizer = LARS(model.named_parameters(), schedule,
+                     weight_decay=config.weight_decay,
+                     mask=exclusion_mask(model))
+    return TrainState(model=model, optimizer=optimizer)
+
+
+def apply_two_views(model: nn.Module, v1: torch.Tensor,
+                    v2: torch.Tensor) -> torch.Tensor:
+    """Both views through the model in ONE batched forward (BatchNorm
+    statistics are shared across the 2B rows); returns the stacked
+    embeddings ``cat([z1, z2])``, (2B, D), the layout NT-Xent takes."""
+    return model(torch.cat([v1, v2], dim=0))
+
+
+def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
+                    remat: bool = False, moe_aux_weight: float = 0.0,
+                    guard: bool = False) -> Callable:
+    """``train_step(state, v1, v2) -> (state, {"loss": tensor})``.
+
+    ``use_fused=None`` takes the fused loss on CUDA tensors and the
+    oracle on CPU tensors; ``True`` forces the fused loss (on the CPU its
+    wrappers run the kernels' plain versions)."""
+    if remat:
+        raise _not_ported("rematerialization (remat=True)", "resilience")
+    if guard:
+        raise _not_ported("the divergence guard (guard=True)", "resilience")
+    if moe_aux_weight > 0.0:
+        raise _not_ported("the MoE auxiliary loss", "mp")
+
+    def train_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
+        fused = use_fused if use_fused is not None \
+            else v1.device.type == "cuda"
+        loss_fn = ntxent_loss_fused if fused else oracle.ntxent_loss
+        state.optimizer.zero_grad()
+        loss = loss_fn(apply_two_views(state.model, v1, v2), temperature)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return train_step
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_loop(state: TrainState, data_iter, train_step: Callable,
+               num_steps: int, log_every: int = 50) -> list[dict]:
+    """Run ``num_steps`` steps; every ``log_every`` steps (and at the
+    last) read the loss and log steps/s and images/s over the window
+    (images through the encoder: both views, 2B per step). Returns one
+    record per log point."""
+    history = []
+    device = next(state.model.parameters()).device
+    _sync(device)
+    last_t, last_step = time.perf_counter(), 0
+    for i in range(num_steps):
+        v1, v2 = next(data_iter)
+        state, metrics = train_step(state, v1, v2)
+        if (i + 1) % log_every == 0 or i + 1 == num_steps:
+            loss = float(metrics["loss"])  # synchronizes with the device
+            now = time.perf_counter()
+            steps = i + 1 - last_step
+            sps = steps / (now - last_t)
+            entry = {"step": state.step, "loss": loss, "steps_per_sec": sps,
+                     "images_per_sec": sps * 2 * v1.shape[0]}
+            history.append(entry)
+            logger.info("step %d loss %.4f (%.2f steps/s, %.1f images/s)",
+                        entry["step"], loss, sps, entry["images_per_sec"])
+            last_t, last_step = now, i + 1
+    return history

@@ -2,10 +2,11 @@
 
 from .capability import (
     card_power_line,
+    check_tensor_core_support,
     device_name,
     resolve_device,
     set_fp32_precision,
 )
 
-__all__ = ["card_power_line", "device_name", "resolve_device",
-           "set_fp32_precision"]
+__all__ = ["card_power_line", "check_tensor_core_support", "device_name",
+           "resolve_device", "set_fp32_precision"]

@@ -16,8 +16,8 @@ import subprocess
 
 import torch
 
-__all__ = ["card_power_line", "device_name", "resolve_device",
-           "set_fp32_precision"]
+__all__ = ["card_power_line", "check_tensor_core_support", "device_name",
+           "resolve_device", "set_fp32_precision"]
 
 
 def set_fp32_precision() -> None:
@@ -41,6 +41,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def check_tensor_core_support() -> bool:
+    """Reference-compatible probe: is there a GPU with tensor cores
+    (compute capability 7.0 or newer)?"""
+    return (torch.cuda.is_available()
+            and torch.cuda.get_device_capability(0)[0] >= 7)
 
 
 def device_name(device: torch.device) -> str:

@@ -1,19 +1,32 @@
-"""Where the serving forward spends its device time.
+"""Where the port's serving forward and training step spend device time.
 
-Builds the model of the slice's main path (ViT-B/16 SimCLR at 224 px,
-random weights from seed 0, as ``ntxent-serve`` builds it) and, for one
-batch-size bucket and each attention impl:
+Two modes, each on the model of its slice (ViT-B/16 SimCLR at 224 px,
+random weights from seed 0):
+
+``--mode forward`` (the default; serving): for one batch-size bucket and
+each attention impl,
 
 * times the forward with CUDA events (10 calls after warmup): ms per
   forward and images/s;
 * traces 3 forwards with ``torch.profiler`` and sums the device time of
-  every kernel, grouped as the flash-attention kernel, matrix products
+  every kernel, grouped as the hand-written kernels, matrix products
   (cuBLAS/CUTLASS) and everything else, with the device's busy share of
   the traced wall time and the top kernels by time.
+
+``--mode train`` (the training slice, ``--vit-attention flash``): one
+``ntxent-train`` step at ``--batch`` (2B views through the encoder) on a
+fixed pair of augmented views,
+
+* times the step with CUDA events: step ms and images/s (2B per step);
+* times the two-view augmentation of one batch apart;
+* traces 3 steps: device busy share, device ms by kernel group, the ms of
+  each hand-written kernel and the top kernels;
+* counts each kernel's launches per step and the peak device memory.
 
 Run on the card, from the repository root:
 
     python -m ntxent_tpu_torch.utils.profiling --bucket 64 --impls flash,xla
+    python -m ntxent_tpu_torch.utils.profiling --mode train --batch 256
 
 The last line of the output is one JSON object with every number.
 """
@@ -31,6 +44,13 @@ import torch
 __all__ = ["cuda_time_ms", "kernel_breakdown", "main"]
 
 _GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
+# Device-function name of each hand-written kernel -> its wrapper's name.
+_KERNELS = (("flash_fwd_kernel", "flash_attention_fwd"),
+            ("flash_dq_kernel", "flash_attention_dq"),
+            ("flash_dkv_kernel", "flash_attention_dkv"),
+            ("ntxent_fwd_kernel", "ntxent_fwd"),
+            ("ntxent_loss_reduce", "ntxent_fwd"),
+            ("ntxent_bwd_sym_kernel", "ntxent_bwd_sym"))
 MODEL, IMAGE_SIZE, SEED = "vit_b16", 224, 0
 RUNS, TRACE_RUNS = 10, 3
 
@@ -52,8 +72,9 @@ def cuda_time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
 
 def _group(name: str) -> str:
     lowered = name.lower()
-    if "flash_fwd_kernel" in lowered:
-        return "flash_attention_fwd"
+    for marker, group in _KERNELS:
+        if marker in lowered:
+            return group
     if any(marker in lowered for marker in _GEMM_MARKERS):
         return "matmul"
     return "other"
@@ -98,19 +119,96 @@ def kernel_breakdown(fn, runs: int = TRACE_RUNS, top: int = 8) -> dict:
     }
 
 
+def launch_counters() -> dict:
+    """The launch-counting wrapper of each hand-written kernel."""
+    from ..ops import attention, ntxent
+
+    return {"flash_attention_fwd": attention.flash_attention_fwd,
+            "flash_attention_dq": attention.flash_attention_dq,
+            "flash_attention_dkv": attention.flash_attention_dkv,
+            "ntxent_fwd": ntxent.ntxent_fwd,
+            "ntxent_bwd_sym": ntxent.ntxent_bwd_sym}
+
+
+def train_profile(batch: int, device) -> dict:
+    """The numbers of ``--mode train`` for one batch (see the module
+    docstring)."""
+    from ..cli import build_model, build_train_parser
+    from ..training import (
+        TrainerConfig,
+        augment_batch_pair,
+        create_train_state,
+        make_train_step,
+    )
+
+    args = build_train_parser().parse_args(
+        ["--model", MODEL, "--vit-attention", "flash", "--image-size",
+         str(IMAGE_SIZE), "--batch", str(batch), "--seed", str(SEED)])
+    cfg = TrainerConfig(batch_size=batch, temperature=args.temperature,
+                        base_lr=args.base_lr, warmup_steps=1)
+    state = create_train_state(build_model(args), cfg, device)
+    step = make_train_step(cfg.temperature)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    images = torch.rand(batch, IMAGE_SIZE, IMAGE_SIZE, 3, generator=gen,
+                        device=device)
+    v1, v2 = augment_batch_pair(images, gen)
+    augment_ms = cuda_time_ms(lambda: augment_batch_pair(images, gen),
+                              runs=5, warmup=1)
+
+    def one_step():
+        step(state, v1, v2)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    step_ms = cuda_time_ms(one_step, runs=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated(device)
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    breakdown = kernel_breakdown(one_step, top=16)
+    # kernel_breakdown makes one untraced warmup call before the trace
+    launches = {name: w.launches / (TRACE_RUNS + 1)
+                for name, w in counters.items()}
+    return {"batch": batch, "views_per_step": 2 * batch, "step_ms": step_ms,
+            "images_per_s": 2 * batch / step_ms * 1e3,
+            "augment_ms": augment_ms, "peak_memory_bytes": peak,
+            "launches_per_step": launches, **breakdown}
+
+
 def main(argv=None) -> int:
     from ..cli import build_model, build_serve_parser
     from ..ops import attention
     from .capability import card_power_line, device_name, resolve_device
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--mode", default="forward", choices=["forward", "train"])
     p.add_argument("--bucket", type=int, default=64,
-                   help="batch size of the profiled forward")
+                   help="forward mode: batch size of the profiled forward")
     p.add_argument("--impls", default="flash,xla",
-                   help="comma list of --vit-attention values to profile")
+                   help="forward mode: comma list of --vit-attention values")
+    p.add_argument("--batch", type=int, default=256,
+                   help="train mode: --batch of the profiled step")
     args = p.parse_args(argv)
 
     device = resolve_device("cuda")
+    if args.mode == "train":
+        card = card_power_line()
+        print(f"card: {card}", flush=True)
+        result = {"device": device_name(device), "card": card,
+                  "model": MODEL, "image_size": IMAGE_SIZE,
+                  "mode": "train", **train_profile(args.batch, device)}
+        print(f"[train] batch {args.batch}: {result['step_ms']:.3f} ms per "
+              f"step, {result['images_per_s']:.1f} images/s; augment "
+              f"{result['augment_ms']:.3f} ms; device busy "
+              f"{result['device_busy_share']:.3f}; device ms by group "
+              f"{json.dumps(result['groups_ms_per_run'])}; launches per "
+              f"step {json.dumps(result['launches_per_step'])}; peak "
+              f"memory {result['peak_memory_bytes'] / 2**30:.2f} GiB",
+              flush=True)
+        for k in result["top_kernels"]:
+            print(f"[train]   {k['ms_per_run']:8.3f} ms "
+                  f"x{k['calls_per_run']:.0f}  {k['name']}")
+        print(json.dumps(result))
+        return 0
     x = torch.randn(args.bucket, IMAGE_SIZE, IMAGE_SIZE, 3,
                     generator=torch.Generator().manual_seed(SEED))
     x = x.to(device)

@@ -19,6 +19,12 @@ port module: ``SimCLRModel`` (ViT backbone), ``VisionTransformer``,
 
 Every flax leaf must be consumed and every torch tensor filled, with
 matching shapes; anything else raises.
+
+``flax_paths(model)`` maps each torch parameter name to the path of its
+flax leaf (e.g. ``backbone.blocks.0.attn.query.weight`` ->
+``("backbone", "block_0", "MultiHeadDotProductAttention_0", "query",
+"kernel")``), from the same layout tables: LARS derives its exclusion
+mask from those paths, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from .models.long_context import SeqParallelSelfAttention
 from .models.projection import ProjectionHead, SimCLRModel
 from .models.vit import EncoderBlock, MlpBlock, VisionTransformer
 
-__all__ = ["load_flax_variables"]
+__all__ = ["flax_paths", "load_flax_variables"]
 
 
 class _Tree:
@@ -138,12 +144,48 @@ _CONVERTERS = ((SimCLRModel, _simclr), (VisionTransformer, _vit),
                (MlpBlock, _mlp), (ProjectionHead, _head))
 
 
-def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
-    """Copy flax ``variables`` into ``model`` in place and return it."""
+def _converter(model: nn.Module):
     convert = next((fn for cls, fn in _CONVERTERS
                     if isinstance(model, cls)), None)
     if convert is None:
         raise TypeError(f"no flax layout for {type(model).__name__}")
+    return convert
+
+
+class _Leaf:
+    """Stands in for a flax leaf in ``flax_paths``: keeps its path through
+    the layout transforms (transpose, reshape) the converters apply."""
+
+    shape = (0,)  # read by the converters only to feed reshape
+
+    def __init__(self, path: tuple):
+        self.path = path
+
+    @property
+    def T(self) -> "_Leaf":
+        return self
+
+    def reshape(self, *shape) -> "_Leaf":
+        return self
+
+
+class _PathTree:
+    """A flax tree of ``_Leaf`` placeholders: ``get`` answers any path."""
+
+    def get(self, *path: str) -> _Leaf:
+        return _Leaf(path)
+
+
+def flax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
+    """``{torch parameter name: flax params path}`` for every parameter
+    of ``model`` (buffers such as BatchNorm statistics are not params)."""
+    leaves = _converter(model)(model, _PathTree(), _PathTree(), ())
+    return {name: leaves[name].path for name, _ in model.named_parameters()}
+
+
+def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
+    """Copy flax ``variables`` into ``model`` in place and return it."""
+    convert = _converter(model)
     params = _Tree(variables["params"], "params")
     stats = _Tree(variables.get("batch_stats", {}), "batch_stats")
     tensors = convert(model, params, stats, ())

@@ -1,0 +1,278 @@
+"""The training slice's hand-written kernels against their plain versions.
+
+This file imports torch and the port only (no JAX, no flax), so it runs
+on the card, where the JAX package's model code cannot load:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda
+
+``cuda``-marked tests hold each CUDA kernel (``ntxent_fwd``,
+``ntxent_bwd_sym``, ``flash_attention_dq``, ``flash_attention_dkv``) to
+its plain version on the same card, and the differentiable wrappers'
+gradients to the same computation on the CPU; they skip here. The other
+tests run anywhere: the plain backward versions against torch autograd
+of the plain forwards, the CPU dispatch, the input checks and the build
+table.
+
+Tolerances (max abs error against the plain version on the card):
+
+* NT-Xent, fp32 z: the same fp32 products summed in another order ->
+  2e-4 on lse and loss_sum/2N (logits up to 1/T = 10), 2e-4 on the
+  gradient; bf16 z: products of bf16 values are exact in fp32 on both
+  sides, so the same bounds hold.
+* flash backward, fp32: summation order only -> 1e-4 on dq/dk/dv of
+  unit-scale inputs. bf16: s and dp are exact-product fp32 sums on both
+  sides; ds is rounded to bf16 before ds . K on both sides, but a
+  one-ulp flip of a rounded ds between the two summation orders moves
+  dq by up to 2**-8 |ds| |k| -> 3e-2 on dq; dk/dv keep p and ds to
+  ~16 bits (the kernel's hi/lo split) against the plain version's fp32
+  -> 1e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ntxent_tpu_torch.ops import _build
+from ntxent_tpu_torch.ops import attention as A
+from ntxent_tpu_torch.ops import ntxent as N
+
+NTX_ATOL = 2e-4
+BWD_ATOL = {"float32": dict(dq=1e-4, dkv=1e-4),
+            "bfloat16": dict(dq=3e-2, dkv=1e-2)}
+# (2N, D): the training path's shape, the north-star global batch, and a
+# ragged 2N with D != 2B.
+NTX_SHAPES = [(512, 128), (8192, 128), (1000, 96)]
+# (bh, lq, lk, d, causal, q_offset, k_offset)
+BWD_CASES = {
+    "train_shape": (48, 197, 197, 64, False, 0, 0),
+    "causal_lq_ne_lk": (8, 100, 300, 64, True, 0, 37),
+    "causal_shifted": (8, 100, 300, 64, True, 150, 20),
+    "d128": (16, 197, 197, 128, False, 0, 0),
+    "fully_masked_rows": (4, 70, 90, 64, True, 0, 3),
+}
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _unit_rows(n, d, seed, device="cpu", dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.nn.functional.normalize(torch.randn(n, d, generator=gen), dim=1)
+    return z.to(device=device, dtype=dtype)
+
+
+def _oracle_loss(z, temperature):
+    zf = z.float()
+    n2 = z.shape[0]
+    s = zf @ zf.T / temperature
+    s = s.masked_fill(torch.eye(n2, dtype=torch.bool, device=z.device), -1e30)
+    pos = (torch.arange(n2, device=z.device) + n2 // 2) % n2
+    return (torch.logsumexp(s, 1) - s[torch.arange(n2), pos]).mean()
+
+
+# ---------------------------------------------------------------------------
+# Anywhere: plain versions, dispatch, checks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("temperature", [0.05, 0.5])
+def test_plain_ntxent_backward_is_the_gradient_of_the_loss(temperature):
+    z = _unit_rows(12, 5, seed=0).requires_grad_()
+    ref = _oracle_loss(z, temperature)
+    (g_ref,) = torch.autograd.grad(ref, z)
+    loss_sum, lse = N.ntxent_fwd_plain(z.detach(), temperature)
+    grad = N.ntxent_bwd_sym_plain(z.detach(), lse, temperature)
+    torch.testing.assert_close(loss_sum / 12, ref.detach(), atol=1e-5,
+                               rtol=1e-6)
+    torch.testing.assert_close(grad / 12 / temperature, g_ref, atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_plain_flash_backward_is_the_gradient_of_attention_plain(case):
+    _, lq, lk, _, causal, q_off, k_off = BWD_CASES[case]
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, n, 8, generator=gen).requires_grad_()
+               for n in (lq, lk, lk))
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+    o, lse = A.attention_plain(q, k, v, **kw)
+    do = torch.randn(o.shape, generator=gen)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    delta = (do * o).sum(-1).detach()
+    args = (q.detach(), k.detach(), v.detach(), do, lse.detach(), delta)
+    dq = A.flash_attention_dq(*args, **kw)
+    dk, dv = A.flash_attention_dkv(*args, **kw)
+    for got, ref in zip((dq, dk, dv), grads):
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_versions_without_counting():
+    z = _unit_rows(8, 4, seed=1)
+    counts = (N.ntxent_fwd.launches, N.ntxent_bwd_sym.launches,
+              A.flash_attention_dq.launches, A.flash_attention_dkv.launches)
+    loss_sum, lse = N.ntxent_fwd(z, 0.1)
+    N.ntxent_bwd_sym(z, lse, 0.1)
+    q = torch.randn(2, 5, 8)
+    o, lse_a = A.flash_attention_fwd(q, q, q)
+    A.flash_attention_dq(q, q, q, o, lse_a, lse_a)
+    A.flash_attention_dkv(q, q, q, o, lse_a, lse_a)
+    assert counts == (N.ntxent_fwd.launches, N.ntxent_bwd_sym.launches,
+                      A.flash_attention_dq.launches,
+                      A.flash_attention_dkv.launches)
+    torch.testing.assert_close(loss_sum, N.ntxent_fwd_plain(z, 0.1)[0],
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(7, 4), (6,), (0, 4)])
+def test_ntxent_rejects_odd_or_malformed_input(shape):
+    with pytest.raises(ValueError):
+        N.ntxent_loss_fused(torch.zeros(shape), 0.1)
+
+
+def test_flash_backward_rejects_mismatched_shapes():
+    q = torch.randn(2, 5, 8)
+    with pytest.raises(ValueError):
+        A.flash_attention_dq(q, q, q, q[:, :4], torch.zeros(2, 5),
+                             torch.zeros(2, 5))
+    with pytest.raises(ValueError):
+        A.flash_attention_dkv(q, q, q, q, torch.zeros(2, 4),
+                              torch.zeros(2, 5))
+
+
+@pytest.mark.parametrize("name,symbols", [
+    ("ntxent_fwd", ["ntx_ntxent_fwd"]),
+    ("ntxent_bwd_sym", ["ntx_ntxent_bwd_sym"]),
+    ("flash_attention_bwd", ["ntx_flash_attention_dq",
+                             "ntx_flash_attention_dkv"]),
+])
+def test_training_kernels_build_from_repo_sources(tmp_path, name, symbols):
+    cmd = _build.nvcc_command(name, tmp_path / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    source = _build.SOURCES[name]
+    assert str(source) in cmd and source.is_file()
+    text = source.read_text()
+    assert "torch/" not in text and "atomicAdd" not in text
+    for symbol in symbols:
+        assert f'extern "C" int {symbol}(' in text
+
+
+def test_flash_attention_carries_gradient_on_the_cpu():
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(2, 9, 3, 8, generator=gen).requires_grad_()
+               for _ in range(3))
+    A.flash_attention(q, k, v).square().sum().backward()
+    assert all(t.grad is not None and t.grad.abs().sum() > 0
+               for t in (q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", NTX_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_cuda_ntxent_kernels_match_plain_versions(shape, dtype):
+    dev = _cuda()
+    rows, d = shape
+    z = _unit_rows(rows, d, seed=rows, device=dev, dtype=getattr(torch, dtype))
+    before = (N.ntxent_fwd.launches, N.ntxent_bwd_sym.launches)
+    loss_sum, lse = N.ntxent_fwd(z, 0.1)
+    grad = N.ntxent_bwd_sym(z, lse, 0.1)
+    loss_ref, lse_ref = N.ntxent_fwd_plain(z, 0.1)
+    grad_ref = N.ntxent_bwd_sym_plain(z, lse_ref, 0.1)
+    torch.cuda.synchronize()
+    assert (N.ntxent_fwd.launches, N.ntxent_bwd_sym.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert lse.dtype == grad.dtype == torch.float32
+    torch.testing.assert_close(lse, lse_ref, atol=NTX_ATOL, rtol=0)
+    torch.testing.assert_close(loss_sum / rows, loss_ref / rows,
+                               atol=NTX_ATOL, rtol=0)
+    torch.testing.assert_close(grad, grad_ref, atol=NTX_ATOL, rtol=0)
+    # No atomics: the loss is bitwise repeatable.
+    again, _ = N.ntxent_fwd(z, 0.1)
+    assert again.item() == loss_sum.item()
+
+
+@pytest.mark.cuda
+def test_cuda_ntxent_loss_fused_gradient_matches_the_cpu():
+    dev = _cuda()
+    z_cpu = _unit_rows(256, 128, seed=9).requires_grad_()
+    z_gpu = z_cpu.detach().to(dev).requires_grad_()
+    loss_cpu = N.ntxent_loss_fused(z_cpu, 0.1)
+    loss_gpu = N.ntxent_loss_fused(z_gpu, 0.1)
+    loss_cpu.backward()
+    loss_gpu.backward()
+    torch.testing.assert_close(loss_gpu.cpu(), loss_cpu.detach(), atol=1e-5,
+                               rtol=0)
+    torch.testing.assert_close(z_gpu.grad.cpu(), z_cpu.grad, atol=1e-6,
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_cuda_flash_backward_kernels_match_plain_versions(case, dtype):
+    dev = _cuda()
+    bh, lq, lk, d, causal, q_off, k_off = BWD_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tdt = getattr(torch, dtype)
+    q, do = (torch.randn(bh, lq, d, generator=gen, device=dev).to(tdt)
+             for _ in range(2))
+    k, v = (torch.randn(bh, lk, d, generator=gen, device=dev).to(tdt)
+            for _ in range(2))
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+    o, lse = A.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    before = (A.flash_attention_dq.launches, A.flash_attention_dkv.launches)
+    dq = A.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = A.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+    dq_ref = A.attention_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk_ref, dv_ref = A.attention_dkv_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_dq.launches,
+            A.flash_attention_dkv.launches) == (before[0] + 1, before[1] + 1)
+    tol = BWD_ATOL[dtype]
+    torch.testing.assert_close(dq, dq_ref, atol=tol["dq"], rtol=0)
+    torch.testing.assert_close(dk, dk_ref, atol=tol["dkv"], rtol=0)
+    torch.testing.assert_close(dv, dv_ref, atol=tol["dkv"], rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_gradient_matches_the_cpu():
+    """The fault this slice repairs: on the card, flash_attention used to
+    return a tensor autograd could not see. Its gradient now goes through
+    the backward kernels and matches the CPU's plain backward."""
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(13)
+    qkv = [torch.randn(4, 197, 3, 64, generator=gen) for _ in range(3)]
+    cpu = [t.clone().requires_grad_() for t in qkv]
+    gpu = [t.to(dev).requires_grad_() for t in qkv]
+    w = torch.randn(4, 197, 3, 64, generator=gen)
+    (A.flash_attention(*cpu) * w).sum().backward()
+    (A.flash_attention(*gpu) * w.to(dev)).sum().backward()
+    for c, g in zip(cpu, gpu):
+        assert g.grad is not None
+        torch.testing.assert_close(g.grad.cpu(), c.grad, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_vit_flash_block_gets_qkv_gradients():
+    from ntxent_tpu_torch.models import VisionTransformer, init_weights
+
+    dev = _cuda()
+    vit = init_weights(VisionTransformer(image_size=32, patch_size=16,
+                                         hidden_dim=128, depth=2, num_heads=2,
+                                         mlp_dim=256, attention_impl="flash"),
+                       torch.Generator().manual_seed(0)).to(dev)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(4, 32, 32, 3)).astype(np.float32)).to(dev)
+    vit(x).square().sum().backward()
+    for block in vit.blocks:
+        for proj in (block.attn.query, block.attn.key, block.attn.value):
+            assert proj.weight.grad is not None
+            assert proj.weight.grad.abs().sum().item() > 0

@@ -14,13 +14,33 @@ from ntxent_tpu_torch.utils import profiling
      "matmul"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN", "matmul"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
+    ("void (anonymous namespace)::flash_dq_kernel<__nv_bfloat16, 64>(...)",
+     "flash_attention_dq"),
+    ("void (anonymous namespace)::flash_dkv_kernel<__nv_bfloat16, 64>(...)",
+     "flash_attention_dkv"),
+    ("void (anonymous namespace)::ntxent_fwd_kernel<float>(...)",
+     "ntxent_fwd"),
+    ("(anonymous namespace)::ntxent_loss_reduce(float const*, int, float*)",
+     "ntxent_fwd"),
+    ("void (anonymous namespace)::ntxent_bwd_sym_kernel<float>(...)",
+     "ntxent_bwd_sym"),
 ])
 def test_kernels_are_grouped_by_name(name, group):
     assert profiling._group(name) == group
 
 
-def test_profiler_needs_a_card():
+@pytest.mark.parametrize("argv", [["--bucket", "1"],
+                                  ["--mode", "train", "--batch", "2"]])
+def test_profiler_needs_a_card(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        profiling.main(["--bucket", "1"])
+        profiling.main(argv)
+
+
+def test_every_kernel_wrapper_counts_launches():
+    counters = profiling.launch_counters()
+    assert sorted(counters) == ["flash_attention_dkv", "flash_attention_dq",
+                                "flash_attention_fwd", "ntxent_bwd_sym",
+                                "ntxent_fwd"]
+    assert all(isinstance(w.launches, int) for w in counters.values())

@@ -61,8 +61,10 @@ def _rows(n, seed=0):
 
 
 def _direct(model, x):
+    """The model's own forward in eval mode, as the engine serves it (a
+    module in train mode normalizes with batch statistics)."""
     with torch.inference_mode():
-        return model(torch.from_numpy(x)).numpy()
+        return model.eval()(torch.from_numpy(x)).numpy()
 
 
 class _StubEngine:
