@@ -17,9 +17,12 @@ Phases; any failure ends the run with a non-zero exit and no result:
    (2N = 512 and 8192 at D = 128, and a ragged 2N = 1000 at D = 96, in
    fp32 and bf16); ``flash_attention_dq`` and ``flash_attention_dkv``
    (the training shape in bf16 and fp32 and the causal offset cases) --
-   then CUDA-event times of each kernel, its plain version and, where one
-   PyTorch call computes the same function, that call (a yardstick the
-   port never calls), beside the bound;
+   ``infonce_dual_fwd`` and ``infonce_dual_bwd`` (N = 256, 1000, 8192 at
+   D = 512 and 128, fp32 and bf16, a logit scale of 17.5 passed as a
+   device tensor; the loss bitwise repeatable) -- then CUDA-event times
+   of each kernel, its plain version and, where one PyTorch call computes
+   the same function, that call (a yardstick the port never calls),
+   beside the bound;
 4. serve: a ViT-B/16 SimCLR embedding server built through
    ``ntxent_tpu_torch.cli``, concurrent ``/embed`` requests over HTTP,
    every answer held against the model's direct forward, the forward
@@ -37,8 +40,19 @@ Phases; any failure ends the run with a non-zero exit and no result:
    weights and views: loss and relative gradient-norm error, in fp32
    within fixed tolerances and in the path's bf16 within twice the gap
    bf16 rounding opens on the CPU itself;
-7. one JSON line describing each kernel of the path;
-8. the last line: ``{"ok": true, "device": {...}}``.
+7. CLIP train: ``ntxent-train --objective clip --model vit_b16
+   --vit-attention flash --image-size 224 --batch 256 --steps 5
+   --base-lr 5e-4 --warmup-steps 1`` through ``ntxent_tpu_torch.cli``: a
+   finite loss every step, parameters that moved, exactly 1/1/12/12/12
+   launches per step of infonce_dual_fwd, infonce_dual_bwd and the three
+   flash kernels (image tower only: the causal text tower runs plain
+   attention) and none of the NT-Xent kernels, a nonzero gradient on the
+   logit scale and on every q/k/v projection of both towers; step ms,
+   images/s and peak memory;
+8. CLIP step parity: one fp32 CLIP ViT-B/16 train step (batch 4) on the
+   card against the same step on the CPU, within fixed tolerances;
+9. one JSON line describing each kernel of the paths;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -113,6 +127,19 @@ BWD_CASES = [
      150, 20),
 ]
 
+# InfoNCE kernels against their plain versions. The same exact fp32
+# products (bf16 inputs are exact in fp32) summed in another order, logits
+# up to the scale 17.5 -> 2e-4 on lse_a, lse_b and loss_sum/2N; rows of G
+# sum to at most 4 in absolute value over unit-norm embeddings -> 2e-4 on
+# o_a and o_b.
+INFONCE_ATOL = 2e-4
+# (N, D): the CLIP path's shape (batch 256, embedding 512), a ragged N,
+# N = 8192, each also at D = 128.
+INFONCE_SHAPES = [(256, 512), (1000, 512), (8192, 512), (256, 128),
+                  (1000, 128), (8192, 128)]
+INFONCE_SCALE = 17.5  # not 1/T of the default temperature
+INFONCE_TIMED_N = (256, 8192)
+
 TRAIN_STEPS = 5
 TRAIN_ARGV = ["--model", "vit_b16", "--vit-attention", "flash",
               "--image-size", "224", "--batch", "256", "--steps",
@@ -138,6 +165,22 @@ PARITY_BATCH = 4
 PARITY_LOSS_ATOL = 1e-4
 PARITY_GRAD_RTOL = 1e-2
 PARITY_BF16_FACTOR = 2.0
+
+CLIP_STEPS = 5
+CLIP_ARGV = ["--objective", "clip", "--model", "vit_b16", "--vit-attention",
+             "flash", "--image-size", "224", "--batch", "256", "--steps",
+             str(CLIP_STEPS), "--base-lr", "5e-4", "--warmup-steps", "1",
+             "--device", "cuda", "--log-every", "1"]
+# Kernel launches per CLIP step: the loss forward and backward once (each
+# kernel covers both directions in one launch), each of the image tower's
+# 12 blocks' attention forward, dQ and dK/dV once.
+CLIP_STEP_LAUNCHES = {"infonce_dual_fwd": 1, "infonce_dual_bwd": 1,
+                      "flash_attention_fwd": 12, "flash_attention_dq": 12,
+                      "flash_attention_dkv": 12}
+# Card vs CPU, one fp32 CLIP step from the same weights, images and
+# tokens: summation order only, through 12 blocks of each tower, the
+# projections and the loss -> the SimCLR step's fp32 tolerances.
+CLIP_PARITY_BATCH = 4
 
 SERVE_ARGV = ["--model", "vit_b16", "--vit-attention", "flash",
               "--image-size", "224", "--head", "embedding",
@@ -338,6 +381,104 @@ def phase_ntxent_kernels() -> list[dict]:
          "max_abs_err": errs["ntxent_bwd_sym"], "ms": bwd_ms,
          "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1]},
+    ]
+
+
+def phase_infonce_kernels() -> list[dict]:
+    """infonce_dual_fwd and infonce_dual_bwd against their plain versions,
+    then times at the CLIP path's shape (N = 256, D = 512, fp32) and at
+    N = 8192."""
+    import torch
+
+    from ntxent_tpu_torch.ops import infonce
+    from ntxent_tpu_torch.utils.profiling import cuda_time_ms
+
+    scale = torch.tensor(INFONCE_SCALE, device="cuda")
+    errs = {}
+    for n, d in INFONCE_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            za = _unit_rows(n, d, dtype, seed=n + d)
+            zb = _unit_rows(n, d, dtype, seed=n + d + 1)
+            loss, lse_a, lse_b = infonce.infonce_dual_fwd(za, zb, scale)
+            o_a, o_b = infonce.infonce_dual_bwd(za, zb, scale, lse_a, lse_b)
+            loss_ref, lse_a_ref, lse_b_ref = infonce.infonce_dual_fwd_plain(
+                za, zb, scale)
+            o_a_ref, o_b_ref = infonce.infonce_dual_bwd_plain(
+                za, zb, scale, lse_a_ref, lse_b_ref)
+            again = infonce.infonce_dual_fwd(za, zb, scale)[0]
+            torch.cuda.synchronize()
+            fwd_err = max((lse_a - lse_a_ref).abs().max().item(),
+                          (lse_b - lse_b_ref).abs().max().item(),
+                          abs(loss.item() - loss_ref.item()) / (2 * n))
+            bwd_err = max((o_a - o_a_ref).abs().max().item(),
+                          (o_b - o_b_ref).abs().max().item())
+            repeat = again.item() == loss.item()
+            ok = (fwd_err <= INFONCE_ATOL and bwd_err <= INFONCE_ATOL
+                  and repeat)
+            print(f"[kernel] infonce N={n} D={d} {dtype} scale "
+                  f"{INFONCE_SCALE}: fwd max|err| {fwd_err:.3e}, bwd "
+                  f"max|err| {bwd_err:.3e} (atol {INFONCE_ATOL:g}), loss "
+                  f"bitwise repeatable {repeat} {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
+            if not ok:
+                fail(f"the InfoNCE kernels disagree with their plain "
+                     f"versions at N={n} D={d} {dtype}")
+            if (n, d, dtype) == (256, 512, "float32"):
+                errs = {"infonce_dual_fwd": fwd_err,
+                        "infonce_dual_bwd": bwd_err}
+            del za, zb, o_a, o_b, o_a_ref, o_b_ref
+
+    d = 512
+    times = {}
+    for n in INFONCE_TIMED_N:
+        za = _unit_rows(n, d, "float32", seed=n)
+        zb = _unit_rows(n, d, "float32", seed=n + 1)
+        _, lse_a, lse_b = infonce.infonce_dual_fwd(za, zb, scale)
+        fwd_ms = cuda_time_ms(lambda: infonce.infonce_dual_fwd(za, zb, scale))
+        fwd_plain = cuda_time_ms(
+            lambda: infonce.infonce_dual_fwd_plain(za, zb, scale))
+        bwd_ms = cuda_time_ms(
+            lambda: infonce.infonce_dual_bwd(za, zb, scale, lse_a, lse_b))
+        bwd_plain = cuda_time_ms(
+            lambda: infonce.infonce_dual_bwd_plain(za, zb, scale, lse_a,
+                                                   lse_b))
+        zbytes = n * d * 4
+        # inputs read once (za, zb, the scale; lse for the backward),
+        # outputs written once; 2 N^2 D and 6 N^2 D fp32 operations
+        fwd_bound = _bound(2 * zbytes + 4 + 2 * n * 4 + 4, 2 * n * n * d,
+                           PEAK_FP32_FLOPS)
+        bwd_bound = _bound(2 * zbytes + 4 + 2 * n * 4 + 2 * zbytes,
+                           6 * n * n * d, PEAK_FP32_FLOPS)
+        print(f"[kernel] infonce N={n}, D={d}, fp32: fwd {fwd_ms:.4f} ms "
+              f"(plain {fwd_plain:.4f}, bound {fwd_bound[0]:.5f} by "
+              f"{fwd_bound[1]}), bwd {bwd_ms:.4f} ms (plain {bwd_plain:.4f}, "
+              f"bound {bwd_bound[0]:.5f} by {bwd_bound[1]}); no single "
+              f"PyTorch call computes InfoNCE, so there is no library time",
+              flush=True)
+        times[n] = (fwd_ms, fwd_plain, fwd_bound, bwd_ms, bwd_plain,
+                    bwd_bound)
+        del za, zb
+    fwd_ms, fwd_plain, fwd_bound, bwd_ms, bwd_plain, bwd_bound = times[256]
+    big = times[8192]
+    common = {"route": "cuda", "checked": True, "launches": None,
+              "library_ms": None}
+    return [
+        {"name": "infonce_dual_fwd", **common,
+         "source": "ntxent_tpu_torch/csrc/infonce_dual_fwd.cu",
+         "replaces": "ntxent_tpu/ops/infonce_pallas.py:75 (_dual_fwd_kernel, "
+                     "_dual_fwd_call :165)",
+         "max_abs_err": errs["infonce_dual_fwd"], "ms": fwd_ms,
+         "plain_ms": fwd_plain, "bound_ms": fwd_bound[0],
+         "bound_by": fwd_bound[1], "n8192_ms": big[0],
+         "n8192_plain_ms": big[1], "n8192_bound_ms": big[2][0]},
+        {"name": "infonce_dual_bwd", **common,
+         "source": "ntxent_tpu_torch/csrc/infonce_dual_bwd.cu",
+         "replaces": "ntxent_tpu/ops/infonce_pallas.py:204 (_dual_bwd_kernel, "
+                     "_dual_bwd_call :266)",
+         "max_abs_err": errs["infonce_dual_bwd"], "ms": bwd_ms,
+         "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
+         "bound_by": bwd_bound[1], "n8192_ms": big[3],
+         "n8192_plain_ms": big[4], "n8192_bound_ms": big[5][0]},
     ]
 
 
@@ -600,7 +741,7 @@ def phase_train(card_line: str) -> dict:
     losses = [h["loss"] for h in history]
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         fail(f"train losses {losses}: expected {TRAIN_STEPS} finite values")
-    want = {n: c * TRAIN_STEPS for n, c in STEP_LAUNCHES.items()}
+    want = {n: STEP_LAUNCHES.get(n, 0) * TRAIN_STEPS for n in counters}
     if launches != want:
         fail(f"kernel launches over {TRAIN_STEPS} steps {launches}, "
              f"expected {want}")
@@ -700,6 +841,134 @@ def phase_step_parity() -> None:
             fail(f"the card's {dtype} train step disagrees with the CPU's")
 
 
+def phase_clip_train(card_line: str) -> dict:
+    """ntxent-train --objective clip on the card; returns the launches of
+    each kernel."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    args = cli.build_train_parser().parse_args(CLIP_ARGV)
+    counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    t0 = time.monotonic()
+    state, history = cli.train(args)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = {name: w.launches for name, w in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [h["loss"] for h in history]
+    if len(losses) != CLIP_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"CLIP losses {losses}: expected {CLIP_STEPS} finite values")
+    want = {n: CLIP_STEP_LAUNCHES.get(n, 0) * CLIP_STEPS for n in counters}
+    if launches != want:
+        fail(f"kernel launches over {CLIP_STEPS} CLIP steps {launches}, "
+             f"expected {want}")
+    model = state.model
+    initial = cli.build_clip_model(args).state_dict()
+    moved = max((p.detach().cpu() - initial[n]).abs().max().item()
+                for n, p in model.named_parameters())
+    if not moved > 0:
+        fail("no CLIP parameter changed over the train steps")
+    g = model.logit_scale.grad
+    if g is None or not g.abs().item() > 0:
+        fail("the logit scale has no gradient")
+    for tower in ("image_tower", "text_tower"):
+        for i, block in enumerate(getattr(model, tower).blocks):
+            for proj in ("query", "key", "value"):
+                g = getattr(block.attn, proj).weight.grad
+                if g is None or not g.abs().sum().item() > 0:
+                    fail(f"{tower} block {i} attn.{proj}.weight has no "
+                         "gradient")
+    steady = history[1:]
+    step_ms = 1e3 * sum(1.0 / h["steps_per_sec"]
+                        for h in steady) / len(steady)
+    print(f"[clip] CLIP ViT-B/16 (text width 512, 12 blocks, 77 tokens) "
+          f"flash, batch {args.batch} pairs, {CLIP_STEPS} steps in "
+          f"{wall_s:.1f} s: losses {[round(x, 4) for x in losses]}; launches "
+          f"per step { {n: c // CLIP_STEPS for n, c in launches.items()} }; "
+          f"largest parameter change {moved:.3e}; logit-scale gradient "
+          f"{model.logit_scale.grad.item():.3e}; every q/k/v weight of both "
+          f"towers has a nonzero gradient", flush=True)
+    print(f"[clip] step {step_ms:.1f} ms (steps 2-{CLIP_STEPS}, host clock "
+          f"around a synchronizing loss read), "
+          f"{args.batch / step_ms * 1e3:.1f} images/s, peak memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) on "
+          f"{card_line}", flush=True)
+    del state, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _clip_parity_step(model, device: str, images, tokens):
+    """(loss, flat fp32 gradient) of one fp32 CLIP train step of a copy of
+    ``model`` on ``device``."""
+    import copy
+
+    import torch
+
+    from ntxent_tpu_torch.training import (
+        TrainerConfig,
+        create_clip_train_state,
+        make_clip_train_step,
+    )
+
+    cfg = TrainerConfig(batch_size=CLIP_PARITY_BATCH, base_lr=5e-4,
+                        warmup_steps=1)
+    state = create_clip_train_state(copy.deepcopy(model), cfg,
+                                    torch.device(device))
+    step = make_clip_train_step(use_fused=True)
+    _, metrics = step(state, images.to(device), tokens.to(device))
+    grads = torch.cat([p.grad.detach().float().cpu().flatten()
+                       for p in state.model.parameters()])
+    return metrics["loss"].item(), grads
+
+
+def phase_clip_parity() -> None:
+    """One fp32 CLIP step on the card vs the same step on the CPU (the
+    kernels' plain versions) from the same weights, images and tokens."""
+    import torch
+
+    from ntxent_tpu_torch.models import (
+        CLIPModel,
+        TextTransformer,
+        ViT_B16,
+        init_weights,
+    )
+
+    model = init_weights(
+        CLIPModel(ViT_B16(image_size=224, attention_impl="flash",
+                          dtype=torch.float32),
+                  TextTransformer(dtype=torch.float32)),
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.uniform(size=(
+        CLIP_PARITY_BATCH, 224, 224, 3)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(1, 49408, (CLIP_PARITY_BATCH,
+                                                      77)))
+    t0 = time.monotonic()
+    loss_cpu, g_cpu = _clip_parity_step(model, "cpu", images, tokens)
+    cpu_s = time.monotonic() - t0
+    loss_gpu, g_gpu = _clip_parity_step(model, "cuda", images, tokens)
+    loss_err = abs(loss_gpu - loss_cpu)
+    grad_err = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
+    ok = loss_err <= PARITY_LOSS_ATOL and grad_err <= PARITY_GRAD_RTOL
+    print(f"[clip-parity] CLIP ViT-B/16 train step float32, batch "
+          f"{CLIP_PARITY_BATCH}: loss card {loss_gpu:.6f} vs CPU "
+          f"{loss_cpu:.6f} (|err| {loss_err:.2e}, atol "
+          f"{PARITY_LOSS_ATOL:.2e}); gradient |g_card - g_cpu| / |g_cpu| = "
+          f"{grad_err:.2e} (rtol {PARITY_GRAD_RTOL:.2e}); CPU step "
+          f"{cpu_s:.1f} s {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the card's fp32 CLIP train step disagrees with the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -712,12 +981,18 @@ def main() -> int:
     name, smi = phase_card()
     phase_build()
     kernels = [phase_kernels(), *phase_ntxent_kernels(),
-               *phase_flash_backward()]
+               *phase_flash_backward(), *phase_infonce_kernels()]
     serve_launches = phase_serve(smi)
     train_launches = phase_train(smi)
     phase_step_parity()
+    clip_launches = phase_clip_train(smi)
+    phase_clip_parity()
     for kernel in kernels:
-        kernel["launches"] = train_launches[kernel["name"]]
+        # launches on the train path that runs the kernel (SimCLR for the
+        # NT-Xent and flash kernels, CLIP for InfoNCE), and on CLIP's
+        kernel["launches"] = (train_launches[kernel["name"]]
+                              or clip_launches[kernel["name"]])
+        kernel["clip_launches"] = clip_launches[kernel["name"]]
     kernels[0]["serve_launches"] = serve_launches
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -16,10 +16,17 @@ Ported so far:
   ``training``): the fused NT-Xent forward and backward kernels
   (``ops.ntxent``), the flash-attention backward kernels, BatchNorm in
   train mode, LARS, on-device two-view augmentation;
+* single-card CLIP training (``cli.train_main --objective clip``,
+  ``models.clip``): the fused InfoNCE forward and backward kernels
+  (``ops.infonce``), a causal text tower, AdamW;
 * the loss oracles (``ops.oracle``) and the reference-compatible API
-  (``api``);
+  (``api``), which also exports ``info_nce_fused`` and ``info_nce_loss``
+  as the JAX package's top level does;
 * ``weights.load_flax_variables`` and ``weights.flax_paths`` to carry the
   JAX package's weights and parameter paths across.
 """
 
-__version__ = "0.2.0"
+from .api import info_nce_fused, info_nce_loss
+
+__all__ = ["__version__", "info_nce_fused", "info_nce_loss"]
+__version__ = "0.3.0"

@@ -13,6 +13,10 @@ residual too; ``backward`` computes the exact dense gradient and honours
 similarity accumulation). ``forward(..., fused=True)`` goes through
 ``ntxent_loss_fused``: the CUDA kernels on a GPU tensor, their plain
 versions on a CPU tensor.
+
+As ``ntxent_tpu`` does, it also exports the cross-modal (CLIP) losses:
+``info_nce_fused`` (the InfoNCE kernels) and ``info_nce_loss`` (the
+oracle).
 """
 
 from __future__ import annotations
@@ -20,10 +24,13 @@ from __future__ import annotations
 import torch
 
 from .ops import oracle
+from .ops.infonce import info_nce_fused
 from .ops.ntxent import ntxent_loss_fused
+from .ops.oracle import info_nce_loss
 from .utils.capability import check_tensor_core_support
 
-__all__ = ["backward", "check_tensor_core_support", "forward", "ntxent"]
+__all__ = ["backward", "check_tensor_core_support", "forward",
+           "info_nce_fused", "info_nce_loss", "ntxent"]
 
 
 def _prep(z, use_mixed_precision: bool) -> torch.Tensor:

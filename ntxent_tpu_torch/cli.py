@@ -7,17 +7,29 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
 * ``serve_main`` (``build_serve_parser``): ViT towers, JSON ``/metrics``;
   random weights from ``--seed``, as ``ntxent-serve`` serves without
   ``--ckpt-dir``.
-* ``train_main`` (``build_train_parser``): single-card SimCLR training of
-  a ViT tower on ``--dataset synthetic``. ``--model`` defaults to
-  ``vit_b16`` (the JAX default, resnet50, is a later slice). Flags of what
-  is not ported yet (other objectives, models, datasets, parallelism,
+* ``train_main`` (``build_train_parser``): single-card training on one
+  card, random weights from ``--seed``:
+
+  - ``--objective simclr`` (the default): SimCLR of a ViT tower on
+    ``--dataset synthetic``. ``--model`` defaults to ``vit_b16`` (the JAX
+    default, resnet50, is a later slice);
+  - ``--objective clip``: a CLIP dual encoder (ViT image tower, causal
+    text tower; ``--model tiny`` for both towers at width 32) with
+    InfoNCE at a learnable logit scale and AdamW, on synthetic pairs or
+    ``--data-dir pairs.npz`` (``images`` and ``tokens`` arrays), with the
+    JAX CLI's checks. ``--temperature`` is ignored, as there: the logit
+    scale is the model's.
+
+  Flags of what is not ported yet (models, datasets, parallelism,
   checkpoints, the guard, remat, accumulation) exit with a message naming
   the ROADMAP.md item.
 
 Run: ``python -m ntxent_tpu_torch.cli --model vit_b16 --vit-attention
-flash --image-size 224 --head embedding --port 8080`` (serving), or
+flash --image-size 224 --head embedding --port 8080`` (serving),
 ``python -m ntxent_tpu_torch.cli train --model vit_b16 --vit-attention
-flash --image-size 224 --batch 256 --steps 100`` (training).
+flash --image-size 224 --batch 256 --steps 100`` (SimCLR training), or
+``python -m ntxent_tpu_torch.cli train --objective clip --model vit_b16
+--vit-attention flash --image-size 224 --batch 256 --steps 100`` (CLIP).
 """
 
 from __future__ import annotations
@@ -29,17 +41,27 @@ import sys
 import numpy as np
 import torch
 
-from .models import SimCLRModel, init_weights
-from .models.vit import ViT_B16, ViT_L16, ViT_S16, ViT_Ti16
+from .models import CLIPModel, SimCLRModel, TextTransformer, init_weights
+from .models.vit import (
+    ViT_B16,
+    ViT_L16,
+    ViT_S16,
+    ViT_Ti16,
+    VisionTransformer,
+)
 from .resilience.retry import RetryPolicy
 from .serving import EmbeddingServer, InferenceEngine
 from .training import (
     ROADMAP_ITEMS,
     ArraySource,
+    PairedArrayLoader,
+    PairedPipeline,
     StreamingLoader,
     TrainerConfig,
     TwoViewPipeline,
+    create_clip_train_state,
     create_train_state,
+    make_clip_train_step,
     make_train_step,
     train_loop,
 )
@@ -47,8 +69,9 @@ from .utils.capability import device_name, resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["build_model", "build_serve_parser", "build_server",
-           "build_train_parser", "serve_main", "train", "train_main"]
+__all__ = ["build_clip_model", "build_model", "build_serve_parser",
+           "build_server", "build_train_parser", "serve_main", "train",
+           "train_main"]
 
 ENCODERS = {"vit_t16": ViT_Ti16, "vit_s16": ViT_S16, "vit_b16": ViT_B16,
             "vit_l16": ViT_L16}
@@ -182,8 +205,9 @@ MODEL_CHOICES = ["resnet18", "resnet34", "resnet50", "resnet50x2",
 def build_train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ntxent-train (torch)",
-        description="SimCLR pretraining on PyTorch/CUDA with the fused "
-                    "NT-Xent kernels (single card)")
+        description="SimCLR (fused NT-Xent kernels) or CLIP (fused "
+                    "InfoNCE kernels) pretraining on PyTorch/CUDA, single "
+                    "card")
     d = p.add_argument_group("data")
     d.add_argument("--dataset", default="synthetic",
                    choices=["synthetic", "cifar10", "imagefolder", "npy"],
@@ -208,6 +232,11 @@ def build_train_parser() -> argparse.ArgumentParser:
     t = p.add_argument_group("training")
     t.add_argument("--objective", default="simclr",
                    choices=["simclr", "clip"])
+    t.add_argument("--vocab-size", type=int, default=49408,
+                   help="clip: text-tower vocabulary")
+    t.add_argument("--token-len", type=int, default=None,
+                   help="clip: tokenized caption length (derived from "
+                        "--data-dir tokens when given; 77 for synthetic)")
     t.add_argument("--parallel", default="dp", choices=["dp", "tp"])
     t.add_argument("--fsdp", action="store_true")
     t.add_argument("--batch", type=int, default=256)
@@ -230,14 +259,22 @@ def build_train_parser() -> argparse.ArgumentParser:
 
 
 def _check_train_args(args) -> None:
-    """Exit, naming the ROADMAP item, on anything not ported yet."""
+    """Exit, naming the ROADMAP item, on anything not ported yet (and, for
+    CLIP, on what the JAX CLI refuses)."""
+    clip = args.objective == "clip"
+    if clip and args.model.startswith("resnet"):
+        raise SystemExit("--objective clip takes a ViT image tower "
+                         "(--model vit_*|tiny); the CLIP step carries no "
+                         "BatchNorm state")
+    if clip and args.dataset != "synthetic":
+        raise SystemExit("--objective clip takes paired data via "
+                         "--data-dir pairs.npz (images + tokens arrays); "
+                         "--dataset applies to the simclr objective only")
     unported = [
-        (not args.model.startswith("vit"), f"--model {args.model}",
-         "resnet"),
-        (args.objective != "simclr", f"--objective {args.objective}",
-         "clip"),
+        (not (args.model.startswith("vit") or clip),
+         f"--model {args.model}", "resnet"),
         (args.dataset != "synthetic", f"--dataset {args.dataset}", "data"),
-        (args.data_dir is not None, "--data-dir", "data"),
+        (args.data_dir is not None and not clip, "--data-dir", "data"),
         (args.loader != "python", f"--loader {args.loader}", "data"),
         (args.parallel != "dp" or args.fsdp, "--parallel tp / --fsdp", "mp"),
         (args.moe_experts > 0, "--moe-experts", "mp"),
@@ -266,13 +303,98 @@ def _synthetic_pipeline(args, device) -> TwoViewPipeline:
     return TwoViewPipeline(loader, device, seed=args.seed + 1)
 
 
+def _clip_data(args):
+    """(images, tokens) as the JAX CLI makes them (``cli.py:1208-1240``):
+    ``--data-dir pairs.npz`` with its checks, else synthetic pairs from
+    ``RandomState(seed)``. Sets ``args.image_size`` and
+    ``args.token_len`` from the arrays."""
+    if args.data_dir:
+        with np.load(args.data_dir) as z:
+            images, tokens = z["images"], z["tokens"]
+        if images.ndim != 4 or images.shape[1] != images.shape[2] \
+                or images.shape[3] != 3:
+            raise SystemExit(f"images in {args.data_dir} must be square "
+                             f"NHWC with 3 channels, got {images.shape}")
+        if args.image_size is not None \
+                and args.image_size != images.shape[1]:
+            raise SystemExit(f"--image-size {args.image_size} != images in "
+                             f"{args.data_dir} ({images.shape[1]})")
+        if args.token_len is not None \
+                and args.token_len != tokens.shape[1]:
+            raise SystemExit(f"--token-len {args.token_len} != tokens in "
+                             f"{args.data_dir} ({tokens.shape[1]})")
+        args.image_size = int(images.shape[1])
+        args.token_len = int(tokens.shape[1])
+        tmin, tmax = int(tokens.min()), int(tokens.max())
+        if tmax >= args.vocab_size or tmin < 0:
+            raise SystemExit(
+                f"token ids span [{tmin}, {tmax}] outside [0, --vocab-size "
+                f"{args.vocab_size})")
+        return images, tokens
+    if args.image_size is None:
+        args.image_size = 32
+    if args.token_len is None:
+        args.token_len = 77
+    rng = np.random.RandomState(args.seed)
+    n, size = args.synthetic_samples, args.image_size
+    images = rng.rand(n, size, size, 3).astype(np.float32)
+    tokens = rng.randint(1, args.vocab_size,
+                         (n, args.token_len)).astype(np.int32)
+    return images, tokens
+
+
+def build_clip_model(args) -> CLIPModel:
+    """The CLIP model of ``--model`` (``cli.py:1145``) with random weights
+    drawn from ``--seed`` on the CPU. Needs ``args.image_size`` and
+    ``args.token_len`` resolved."""
+    if args.model == "tiny":
+        image = VisionTransformer(image_size=args.image_size, patch_size=8,
+                                  hidden_dim=32, depth=2, num_heads=2,
+                                  mlp_dim=64,
+                                  attention_impl=args.vit_attention)
+        text = TextTransformer(vocab_size=args.vocab_size,
+                               max_len=args.token_len, hidden_dim=32,
+                               depth=2, num_heads=2)
+        embed_dim = 32
+    else:
+        image = ENCODERS[args.model](image_size=args.image_size,
+                                     attention_impl=args.vit_attention)
+        text = TextTransformer(vocab_size=args.vocab_size,
+                               max_len=args.token_len)
+        embed_dim = 512
+    model = CLIPModel(image, text, embed_dim=embed_dim)
+    return init_weights(model, torch.Generator().manual_seed(args.seed))
+
+
+def _train_clip(args, device):
+    """The CLIP branch of ``train`` (``cli.py:1175``, single device)."""
+    images, tokens = _clip_data(args)
+    cfg = TrainerConfig(batch_size=args.batch, base_lr=args.base_lr,
+                        weight_decay=args.weight_decay,
+                        warmup_steps=args.warmup_steps,
+                        total_steps=args.steps)
+    state = create_clip_train_state(build_clip_model(args), cfg, device)
+    loader = PairedArrayLoader(images, tokens, args.batch, seed=args.seed)
+    logger.info("training CLIP %s (%s attention) on %s: batch %d, %d "
+                "steps, peak lr %g, %d tokens of %d ids", args.model,
+                args.vit_attention, device_name(device), args.batch,
+                args.steps, args.base_lr, args.token_len, args.vocab_size)
+    return state, train_loop(state, PairedPipeline(loader, device),
+                             make_clip_train_step(), args.steps,
+                             log_every=args.log_every, views=1)
+
+
 def train(args):
     """Train as ``train_main`` does from parsed ``args``; returns
     (TrainState, history)."""
-    if args.image_size is None:
-        args.image_size = 32
     _check_train_args(args)
     device = resolve_device(args.device)
+    if args.objective == "clip":
+        state, history = _train_clip(args, device)
+        _log_final(history)
+        return state, history
+    if args.image_size is None:
+        args.image_size = 32
     cfg = TrainerConfig(batch_size=args.batch, temperature=args.temperature,
                         base_lr=args.base_lr, weight_decay=args.weight_decay,
                         warmup_steps=args.warmup_steps,
@@ -285,11 +407,15 @@ def train(args):
                 cfg.learning_rate)
     history = train_loop(state, _synthetic_pipeline(args, device), step,
                          args.steps, log_every=args.log_every)
+    _log_final(history)
+    return state, history
+
+
+def _log_final(history) -> None:
     if history:
         last = history[-1]
         logger.info("final: step %d loss %.4f (%.2f steps/s)", last["step"],
                     last["loss"], last["steps_per_sec"])
-    return state, history
 
 
 def train_main(argv=None) -> int:

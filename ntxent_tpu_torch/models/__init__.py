@@ -1,5 +1,6 @@
 """Model towers of the port."""
 
+from .clip import CLIPModel, TextTransformer
 from .layers import Dense, LayerNorm, init_weights
 from .long_context import SeqParallelSelfAttention
 from .projection import ProjectionHead, SimCLRModel
@@ -14,6 +15,7 @@ from .vit import (
 )
 
 __all__ = [
+    "CLIPModel",
     "Dense",
     "EncoderBlock",
     "LayerNorm",
@@ -21,6 +23,7 @@ __all__ = [
     "ProjectionHead",
     "SeqParallelSelfAttention",
     "SimCLRModel",
+    "TextTransformer",
     "ViT_B16",
     "ViT_L16",
     "ViT_S16",

@@ -19,7 +19,8 @@ from .layers import Dense
 
 __all__ = ["SeqParallelSelfAttention"]
 
-AttentionFn = Callable[..., torch.Tensor]  # (q, k, v) -> out, all (B,L,H,D)
+# (q, k, v) -> out, all (B, L, H, D); called with mask= only when given
+AttentionFn = Callable[..., torch.Tensor]
 
 
 class SeqParallelSelfAttention(nn.Module):
@@ -44,12 +45,13 @@ class SeqParallelSelfAttention(nn.Module):
         self.value = Dense(hidden, hidden, dtype=dtype)
         self.out = Dense(hidden, hidden, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         b, l, hidden = x.shape
 
         def heads(proj):
             return proj(x).view(b, l, self.num_heads, self.head_dim)
 
-        out = self.attention_fn(heads(self.query), heads(self.key),
-                                heads(self.value))
+        qkv = (heads(self.query), heads(self.key), heads(self.value))
+        out = (self.attention_fn(*qkv) if mask is None
+               else self.attention_fn(*qkv, mask=mask))
         return self.out(out.reshape(b, l, hidden))

@@ -9,7 +9,9 @@ flattened) kernel. Input is NHWC, as in the JAX package.
 
 ``attention_impl="flash"`` runs ``SeqParallelSelfAttention`` over the
 flash-attention kernel; ``"xla"`` is plain PyTorch that mirrors flax's
-``nn.MultiHeadDotProductAttention`` on the same weights.
+``nn.MultiHeadDotProductAttention`` on the same weights, and alone takes
+an attention ``mask`` (the CLIP text tower's causal mask), as in the JAX
+block.
 """
 
 from __future__ import annotations
@@ -29,12 +31,18 @@ __all__ = ["EncoderBlock", "MlpBlock", "VisionTransformer", "ViT_B16",
            "ViT_L16", "ViT_S16", "ViT_Ti16", "dot_product_attention"]
 
 
-def dot_product_attention(q, k, v):
+def dot_product_attention(q, k, v, mask=None):
     """flax ``dot_product_attention`` as ``MultiHeadDotProductAttention``
     calls it: q scaled by 1/sqrt(D) in the compute dtype, scores and
-    softmax in that dtype. (B, L, H, D) in and out."""
+    softmax in that dtype. (B, L, H, D) in and out. ``mask`` (boolean,
+    broadcastable to (B, H, Lq, Lk), True where attention is allowed)
+    sets the other scores to the dtype's lowest finite value before the
+    softmax, as flax does."""
     q = q / torch.tensor(math.sqrt(q.shape[-1]), dtype=q.dtype)
-    weights = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+    weights = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
@@ -63,6 +71,7 @@ class EncoderBlock(nn.Module):
             raise NotImplementedError(
                 "moe_experts > 0: the switch-MoE MLP is not ported yet "
                 "(ROADMAP.md Queue A 9: model parallelism and MoE)")
+        self.attention_impl = attention_impl
         self.ln1 = LayerNorm(hidden)
         self.attn = SeqParallelSelfAttention(
             hidden, num_heads, dtype=dtype,
@@ -71,8 +80,11 @@ class EncoderBlock(nn.Module):
         self.ln2 = LayerNorm(hidden)
         self.mlp = MlpBlock(hidden, mlp_dim, dtype)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x, mask=None):
+        if mask is not None and self.attention_impl == "flash":
+            raise ValueError("attention_impl='flash' supports only the "
+                             "unmasked encoder case (ViT towers)")
+        x = x + self.attn(self.ln1(x), mask=mask)
         return x + self.mlp(self.ln2(x))
 
 

@@ -6,8 +6,9 @@ which the kernel's wrapper loads with ``ctypes``. Sources include no
 PyTorch header, so a build takes seconds. Libraries go to
 ``build/torch_kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of their source, and are built on first
-use: a fresh checkout builds what it runs. ``build()`` starts one
-``nvcc`` per missing library, all at once.
+use: a fresh checkout builds what it runs. A source may include the
+headers beside it (``csrc/*.cuh``); their bytes enter every hash.
+``build()`` starts one ``nvcc`` per missing library, all at once.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ SOURCES: dict[str, Path] = {
     "flash_attention_bwd": _PACKAGE / "csrc" / "flash_attention_bwd.cu",
     "ntxent_fwd": _PACKAGE / "csrc" / "ntxent_fwd.cu",
     "ntxent_bwd_sym": _PACKAGE / "csrc" / "ntxent_bwd_sym.cu",
+    "infonce_dual_fwd": _PACKAGE / "csrc" / "infonce_dual_fwd.cu",
+    "infonce_dual_bwd": _PACKAGE / "csrc" / "infonce_dual_bwd.cu",
 }
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -48,7 +51,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(SOURCES[name].read_bytes()).hexdigest()[:12]
+    """The library of ``name``, named by a hash of its source and of the
+    headers beside it (``csrc/*.cuh``), which a source may include."""
+    digest = hashlib.sha1(SOURCES[name].read_bytes())
+    for header in sorted((_PACKAGE / "csrc").glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

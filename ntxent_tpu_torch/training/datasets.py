@@ -11,7 +11,11 @@ of ``ntxent_tpu/training/datasets.py`` the single-card training path uses.
   source needs none);
 * ``TwoViewPipeline``: loader batch -> device -> uint8 to [0, 1] (as at
   ``datasets.py:316-317``) -> two augmented views. The views' generator
-  is seeded from (seed, epoch, offset): a seed gives the same views.
+  is seeded from (seed, epoch, offset): a seed gives the same views;
+* ``PairedArrayLoader`` (CLIP): (images, tokens) batches of in-memory
+  arrays in the same seeded per-epoch order (``datasets.py:368``, one
+  shard); ``PairedPipeline`` moves each batch to the device once per step
+  and turns uint8 images into [0, 1] there (``cli.py:1372-1375``).
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 
 from .augment import augment_batch_pair
 
-__all__ = ["ArraySource", "StreamingLoader", "TwoViewPipeline"]
+__all__ = ["ArraySource", "PairedArrayLoader", "PairedPipeline",
+           "StreamingLoader", "TwoViewPipeline"]
 
 
 class ArraySource:
@@ -65,17 +70,21 @@ class StreamingLoader:
         rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch]))
         return rng.permutation(len(self.source))
 
-    def __iter__(self) -> Iterator[np.ndarray]:
+    def _indices(self) -> Iterator[np.ndarray]:
+        """Row indices of each batch; ``state()`` already points past the
+        batch when it is handed out."""
         while True:
             order = self._epoch_order(self._epoch)
             while self._offset < self.batches_per_epoch():
                 lo = self._offset * self.batch_size
-                idxs = order[lo:lo + self.batch_size]
-                batch = np.stack([self.source[int(i)] for i in idxs])
                 self._offset += 1
-                yield batch
+                yield order[lo:lo + self.batch_size]
             self._epoch += 1
             self._offset = 0
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        for idxs in self._indices():
+            yield np.stack([self.source[int(i)] for i in idxs])
 
 
 class TwoViewPipeline:
@@ -105,3 +114,42 @@ class TwoViewPipeline:
         if x.dtype == torch.uint8:
             x = x.to(torch.float32) / 255.0
         return augment_batch_pair(x.float(), gen)
+
+
+class PairedArrayLoader(StreamingLoader):
+    """(images, tokens) numpy batches of paired in-memory arrays, forever,
+    in ``StreamingLoader``'s seeded order (the JAX ``PairedArrayLoader``
+    with one shard)."""
+
+    def __init__(self, images, tokens, batch_size: int, seed: int = 0):
+        images, tokens = np.asarray(images), np.asarray(tokens)
+        if len(images) != len(tokens):
+            raise ValueError(f"{len(images)} images vs {len(tokens)} tokens")
+        super().__init__(ArraySource(images), batch_size, seed)
+        self.images, self.tokens = images, tokens
+
+    def __iter__(self):
+        for idxs in self._indices():
+            yield self.images[idxs], self.tokens[idxs]
+
+
+class PairedPipeline:
+    """(images, tokens) device batches from a ``PairedArrayLoader``:
+    float32 images ([0, 1] from uint8), int64 token ids."""
+
+    def __init__(self, loader: PairedArrayLoader, device: torch.device):
+        self.loader = loader
+        self.device = torch.device(device)
+        self._it = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._it is None:
+            self._it = iter(self.loader)
+        images, tokens = next(self._it)
+        x = torch.from_numpy(images).to(self.device)
+        x = x.to(torch.float32) / 255.0 if x.dtype == torch.uint8 \
+            else x.float()
+        return x, torch.from_numpy(tokens).to(self.device).long()

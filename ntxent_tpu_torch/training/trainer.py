@@ -1,5 +1,5 @@
-"""Single-card SimCLR training, counterpart of the single-device path of
-``ntxent_tpu/training/trainer.py``.
+"""Single-card SimCLR and CLIP training, counterpart of the single-device
+paths of ``ntxent_tpu/training/trainer.py``.
 
 * ``TrainerConfig``: batch, temperature, LARS and schedule settings;
 * ``TrainState``: the model (fp32 parameters, BatchNorm statistics), its
@@ -10,6 +10,12 @@
   loss on CUDA tensors (``ops.ntxent.ntxent_loss_fused``, the hand-written
   kernels) and the oracle on the CPU, as the JAX step picks the Pallas
   kernel on a TPU and the oracle elsewhere;
+* ``create_clip_train_state`` / ``make_clip_train_step`` (CLIP,
+  ``trainer.py:306-370``): both towers, symmetric InfoNCE at the model's
+  learnable logit scale and an AdamW update. ``use_fused=None`` picks the
+  InfoNCE kernels on CUDA tensors (``ops.infonce.info_nce_fused``) and
+  the oracle at temperature ``1 / scale`` on the CPU, as the JAX step
+  does;
 * ``train_loop``: steps, loss, steps/s and images/s every ``log_every``.
 
 Not in this slice (``make_train_step`` raises ``NotImplementedError``
@@ -29,19 +35,21 @@ import torch
 from torch import nn
 
 from ..ops import oracle
+from ..ops.infonce import info_nce_fused
 from ..ops.ntxent import ntxent_loss_fused
+from .adamw import AdamW
 from .lars import LARS, cosine_warmup_schedule, exclusion_mask
 from .lars import simclr_learning_rate
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["ROADMAP_ITEMS", "TrainState", "TrainerConfig",
-           "create_train_state", "make_train_step", "train_loop"]
+           "create_clip_train_state", "create_train_state",
+           "make_clip_train_step", "make_train_step", "train_loop"]
 
 # What training does not port yet, by the ROADMAP.md item that will.
 ROADMAP_ITEMS = {
-    "resnet": "ROADMAP.md Queue A 2 (ResNet-50 training)",
-    "clip": "ROADMAP.md Queue A 4 (CLIP / InfoNCE)",
+    "resnet": "ROADMAP.md Queue A 6 (ResNet-50 training)",
     "resilience": "ROADMAP.md Queue A 7 (checkpoints and training "
                   "resilience)",
     "data": "ROADMAP.md Queue A 7 (datasets beyond --dataset synthetic)",
@@ -71,7 +79,7 @@ class TrainerConfig:
 @dataclasses.dataclass
 class TrainState:
     model: nn.Module
-    optimizer: LARS
+    optimizer: LARS | AdamW
     step: int = 0
 
 
@@ -126,17 +134,63 @@ def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
     return train_step
 
 
+def create_clip_train_state(model: nn.Module, config: TrainerConfig,
+                            device: torch.device) -> TrainState:
+    """CLIP model on ``device`` in train mode with the JAX CLI's optimizer:
+    ``optax.adamw(cosine_warmup_schedule(base_lr, warmup, steps),
+    weight_decay)`` (``cli.py:1255-1257``; no batch scaling of the lr)."""
+    model = model.to(device).train()
+    schedule = cosine_warmup_schedule(config.base_lr, config.warmup_steps,
+                                      config.total_steps)
+    optimizer = AdamW(model.named_parameters(), schedule,
+                      weight_decay=config.weight_decay)
+    return TrainState(model=model, optimizer=optimizer)
+
+
+def make_clip_train_step(use_fused: bool | None = None, remat: bool = False,
+                         moe_aux_weight: float = 0.0) -> Callable:
+    """``train_step(state, images, tokens) -> (state, {"loss": tensor})``.
+
+    ``state.model(images, tokens)`` returns ``(image_embeds, text_embeds,
+    scale)`` (``models.clip.CLIPModel``); the loss is symmetric InfoNCE at
+    that scale, so the scale's gradient flows. ``use_fused=None`` takes
+    the fused loss on CUDA tensors and the oracle at temperature
+    ``1 / scale`` on CPU tensors; ``True`` forces the fused loss (on the
+    CPU its wrappers run the kernels' plain versions)."""
+    if remat:
+        raise _not_ported("rematerialization (remat=True)", "resilience")
+    if moe_aux_weight > 0.0:
+        raise _not_ported("the MoE auxiliary loss", "mp")
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   tokens: torch.Tensor):
+        fused = use_fused if use_fused is not None \
+            else images.device.type == "cuda"
+        state.optimizer.zero_grad()
+        zi, zt, scale = state.model(images, tokens)
+        loss = (info_nce_fused(zi, zt, scale=scale) if fused
+                else oracle.info_nce_loss(zi, zt, temperature=1.0 / scale))
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return train_step
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def train_loop(state: TrainState, data_iter, train_step: Callable,
-               num_steps: int, log_every: int = 50) -> list[dict]:
+               num_steps: int, log_every: int = 50,
+               views: int = 2) -> list[dict]:
     """Run ``num_steps`` steps; every ``log_every`` steps (and at the
-    last) read the loss and log steps/s and images/s over the window
-    (images through the encoder: both views, 2B per step). Returns one
-    record per log point."""
+    last) read the loss and log steps/s and images/s over the window.
+    Images are those through the image encoder: ``views`` per row of the
+    batch, 2 for SimCLR's two views, 1 for CLIP's (image, text) pairs.
+    Returns one record per log point."""
     history = []
     device = next(state.model.parameters()).device
     _sync(device)
@@ -150,7 +204,7 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
             steps = i + 1 - last_step
             sps = steps / (now - last_t)
             entry = {"step": state.step, "loss": loss, "steps_per_sec": sps,
-                     "images_per_sec": sps * 2 * v1.shape[0]}
+                     "images_per_sec": sps * views * v1.shape[0]}
             history.append(entry)
             logger.info("step %d loss %.4f (%.2f steps/s, %.1f images/s)",
                         entry["step"], loss, sps, entry["images_per_sec"])

@@ -1,7 +1,7 @@
-"""Where the port's serving forward and training step spend device time.
+"""Where the port's serving forward and training steps spend device time.
 
-Two modes, each on the model of its slice (ViT-B/16 SimCLR at 224 px,
-random weights from seed 0):
+Three modes, each on the model of its slice (ViT-B/16 at 224 px, random
+weights from seed 0):
 
 ``--mode forward`` (the default; serving): for one batch-size bucket and
 each attention impl,
@@ -23,10 +23,22 @@ fixed pair of augmented views,
   each hand-written kernel and the top kernels;
 * counts each kernel's launches per step and the peak device memory.
 
+``--mode clip`` (the CLIP slice, ``--vit-attention flash``): one
+``ntxent-train --objective clip`` step of CLIP ViT-B/16 (image tower
+ViT-B/16, text tower width 512, 12 blocks, 77 tokens of a 49408-id
+vocabulary, embedding 512) at ``--batch`` pairs on fixed synthetic pairs,
+
+* times the step with CUDA events: step ms and images/s (B per step);
+* times apart, with CUDA events, each tower's forward and backward, the
+  InfoNCE loss's forward and backward, and the AdamW update;
+* traces 3 steps as ``--mode train`` does, and counts launches and peak
+  device memory.
+
 Run on the card, from the repository root:
 
     python -m ntxent_tpu_torch.utils.profiling --bucket 64 --impls flash,xla
     python -m ntxent_tpu_torch.utils.profiling --mode train --batch 256
+    python -m ntxent_tpu_torch.utils.profiling --mode clip --batch 256
 
 The last line of the output is one JSON object with every number.
 """
@@ -50,7 +62,10 @@ _KERNELS = (("flash_fwd_kernel", "flash_attention_fwd"),
             ("flash_dkv_kernel", "flash_attention_dkv"),
             ("ntxent_fwd_kernel", "ntxent_fwd"),
             ("ntxent_loss_reduce", "ntxent_fwd"),
-            ("ntxent_bwd_sym_kernel", "ntxent_bwd_sym"))
+            ("ntxent_bwd_sym_kernel", "ntxent_bwd_sym"),
+            ("infonce_dual_fwd_kernel", "infonce_dual_fwd"),
+            ("infonce_loss_reduce", "infonce_dual_fwd"),
+            ("infonce_dual_bwd_kernel", "infonce_dual_bwd"))
 MODEL, IMAGE_SIZE, SEED = "vit_b16", 224, 0
 RUNS, TRACE_RUNS = 10, 3
 
@@ -121,13 +136,27 @@ def kernel_breakdown(fn, runs: int = TRACE_RUNS, top: int = 8) -> dict:
 
 def launch_counters() -> dict:
     """The launch-counting wrapper of each hand-written kernel."""
-    from ..ops import attention, ntxent
+    from ..ops import attention, infonce, ntxent
 
     return {"flash_attention_fwd": attention.flash_attention_fwd,
             "flash_attention_dq": attention.flash_attention_dq,
             "flash_attention_dkv": attention.flash_attention_dkv,
             "ntxent_fwd": ntxent.ntxent_fwd,
-            "ntxent_bwd_sym": ntxent.ntxent_bwd_sym}
+            "ntxent_bwd_sym": ntxent.ntxent_bwd_sym,
+            "infonce_dual_fwd": infonce.infonce_dual_fwd,
+            "infonce_dual_bwd": infonce.infonce_dual_bwd}
+
+
+def _traced_step(one_step) -> dict:
+    """Trace breakdown of ``one_step`` and each kernel's launches per
+    step (``kernel_breakdown`` makes one untraced warmup call first)."""
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    breakdown = kernel_breakdown(one_step, top=16)
+    launches = {name: w.launches / (TRACE_RUNS + 1)
+                for name, w in counters.items()}
+    return {"launches_per_step": launches, **breakdown}
 
 
 def train_profile(batch: int, device) -> dict:
@@ -161,17 +190,72 @@ def train_profile(batch: int, device) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     step_ms = cuda_time_ms(one_step, runs=5, warmup=2)
     peak = torch.cuda.max_memory_allocated(device)
-    counters = launch_counters()
-    for wrapper in counters.values():
-        wrapper.launches = 0
-    breakdown = kernel_breakdown(one_step, top=16)
-    # kernel_breakdown makes one untraced warmup call before the trace
-    launches = {name: w.launches / (TRACE_RUNS + 1)
-                for name, w in counters.items()}
     return {"batch": batch, "views_per_step": 2 * batch, "step_ms": step_ms,
             "images_per_s": 2 * batch / step_ms * 1e3,
             "augment_ms": augment_ms, "peak_memory_bytes": peak,
-            "launches_per_step": launches, **breakdown}
+            **_traced_step(one_step)}
+
+
+def clip_profile(batch: int, device) -> dict:
+    """The numbers of ``--mode clip`` for one batch (see the module
+    docstring)."""
+    from ..cli import build_clip_model, build_train_parser
+    from ..ops.infonce import info_nce_fused
+    from ..training import (
+        TrainerConfig,
+        create_clip_train_state,
+        make_clip_train_step,
+    )
+
+    args = build_train_parser().parse_args(
+        ["--objective", "clip", "--model", MODEL, "--vit-attention", "flash",
+         "--image-size", str(IMAGE_SIZE), "--batch", str(batch),
+         "--token-len", "77", "--seed", str(SEED)])
+    cfg = TrainerConfig(batch_size=batch, base_lr=5e-4, warmup_steps=1)
+    state = create_clip_train_state(build_clip_model(args), cfg, device)
+    model = state.model
+    step = make_clip_train_step()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    images = torch.rand(batch, IMAGE_SIZE, IMAGE_SIZE, 3, generator=gen,
+                        device=device)
+    tokens = torch.randint(1, args.vocab_size, (batch, args.token_len),
+                           generator=gen, device=device)
+
+    def one_step():
+        step(state, images, tokens)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    step_ms = cuda_time_ms(one_step, runs=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    def tower(encode, x):
+        def fwd_bwd():
+            model.zero_grad(set_to_none=True)
+            encode(x).sum().backward()
+        return fwd_bwd
+
+    zi = model.encode_image(images).detach().requires_grad_()
+    zt = model.encode_text(tokens).detach().requires_grad_()
+    scale = model.scale().detach().requires_grad_()
+
+    def loss_fwd_bwd():
+        info_nce_fused(zi, zt, scale=scale).backward()
+
+    one_step()  # leaves this step's gradients for the optimizer timing
+    parts = {
+        "image_tower_fwd_bwd": cuda_time_ms(
+            tower(model.encode_image, images), runs=3, warmup=1),
+        "text_tower_fwd_bwd": cuda_time_ms(
+            tower(model.encode_text, tokens), runs=3, warmup=1),
+        "infonce_fwd_bwd": cuda_time_ms(loss_fwd_bwd, runs=5, warmup=1),
+    }
+    one_step()
+    # AdamW alone: the lr comes from the host count, nothing else changes
+    parts["adamw_update"] = cuda_time_ms(state.optimizer.optimizer.step,
+                                         runs=5, warmup=1)
+    return {"batch": batch, "images_per_step": batch, "step_ms": step_ms,
+            "images_per_s": batch / step_ms * 1e3, "peak_memory_bytes": peak,
+            "parts_ms": parts, **_traced_step(one_step)}
 
 
 def main(argv=None) -> int:
@@ -180,32 +264,38 @@ def main(argv=None) -> int:
     from .capability import card_power_line, device_name, resolve_device
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--mode", default="forward", choices=["forward", "train"])
+    p.add_argument("--mode", default="forward",
+                   choices=["forward", "train", "clip"])
     p.add_argument("--bucket", type=int, default=64,
                    help="forward mode: batch size of the profiled forward")
     p.add_argument("--impls", default="flash,xla",
                    help="forward mode: comma list of --vit-attention values")
     p.add_argument("--batch", type=int, default=256,
-                   help="train mode: --batch of the profiled step")
+                   help="train and clip modes: --batch of the profiled step")
     args = p.parse_args(argv)
 
     device = resolve_device("cuda")
-    if args.mode == "train":
+    if args.mode in ("train", "clip"):
         card = card_power_line()
         print(f"card: {card}", flush=True)
+        profile = train_profile if args.mode == "train" else clip_profile
         result = {"device": device_name(device), "card": card,
                   "model": MODEL, "image_size": IMAGE_SIZE,
-                  "mode": "train", **train_profile(args.batch, device)}
-        print(f"[train] batch {args.batch}: {result['step_ms']:.3f} ms per "
-              f"step, {result['images_per_s']:.1f} images/s; augment "
-              f"{result['augment_ms']:.3f} ms; device busy "
+                  "mode": args.mode, **profile(args.batch, device)}
+        tag = f"[{args.mode}]"
+        extra = (f"augment {result['augment_ms']:.3f} ms"
+                 if args.mode == "train" else
+                 f"parts ms {json.dumps(result['parts_ms'])}")
+        print(f"{tag} batch {args.batch}: {result['step_ms']:.3f} ms per "
+              f"step, {result['images_per_s']:.1f} images/s; {extra}; "
+              f"device busy "
               f"{result['device_busy_share']:.3f}; device ms by group "
               f"{json.dumps(result['groups_ms_per_run'])}; launches per "
               f"step {json.dumps(result['launches_per_step'])}; peak "
               f"memory {result['peak_memory_bytes'] / 2**30:.2f} GiB",
               flush=True)
         for k in result["top_kernels"]:
-            print(f"[train]   {k['ms_per_run']:8.3f} ms "
+            print(f"{tag}   {k['ms_per_run']:8.3f} ms "
                   f"x{k['calls_per_run']:.0f}  {k['name']}")
         print(json.dumps(result))
         return 0

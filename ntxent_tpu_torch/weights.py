@@ -3,9 +3,10 @@
 ``load_flax_variables(model, variables)`` takes flax variables,
 ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays
 (what ``jax.device_get`` returns), and copies them into the matching
-port module: ``SimCLRModel`` (ViT backbone), ``VisionTransformer``,
-``EncoderBlock``, ``SeqParallelSelfAttention``, ``MlpBlock`` or
-``ProjectionHead``. The layout differences it handles:
+port module: ``SimCLRModel`` (ViT backbone), ``CLIPModel`` (ViT image
+tower), ``VisionTransformer``, ``TextTransformer``, ``EncoderBlock``,
+``SeqParallelSelfAttention``, ``MlpBlock`` or ``ProjectionHead``. The
+layout differences it handles:
 
 * ``Dense`` kernels are (in, out); torch weights are (out, in).
 * ``patch_embed`` is an HWIO conv kernel (p, p, C, hidden) over NHWC
@@ -15,7 +16,9 @@ port module: ``SimCLRModel`` (ViT backbone), ``VisionTransformer``,
   ``out`` is (H, D, hidden).
 * BatchNorm ``scale``/``bias`` are parameters, ``mean``/``var`` live in
   ``batch_stats``; ``fc2`` has no bias.
-* ``cls_token`` and ``pos_embed`` keep their (1, ., hidden) shapes.
+* ``cls_token`` and ``pos_embed`` keep their (1, ., hidden) shapes; the
+  text tower's ``Embed_0/embedding`` is the (vocab, hidden) table as is,
+  and CLIP's ``logit_scale`` a scalar.
 
 Every flax leaf must be consumed and every torch tensor filled, with
 matching shapes; anything else raises.
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.clip import CLIPModel, TextTransformer
 from .models.long_context import SeqParallelSelfAttention
 from .models.projection import ProjectionHead, SimCLRModel
 from .models.vit import EncoderBlock, MlpBlock, VisionTransformer
@@ -108,16 +112,42 @@ def _block(module, p, s, path) -> dict:
                                     path + ("MlpBlock_0",))))
 
 
-def _vit(module, p, s, path) -> dict:
-    kernel = p.get(*path, "patch_embed", "kernel")  # HWIO
-    out = {"patch_embed.weight": kernel.reshape(-1, kernel.shape[-1]).T,
-           "patch_embed.bias": p.get(*path, "patch_embed", "bias"),
-           "cls_token": p.get(*path, "cls_token"),
-           "pos_embed": p.get(*path, "pos_embed")}
+def _blocks(module, p, s, path) -> dict:
+    out = {}
     for i, block in enumerate(module.blocks):
         out |= _prefixed(f"blocks.{i}",
                          _block(block, p, s, path + (f"block_{i}",)))
     return out | _prefixed("final_ln", _layer_norm(p, path + ("final_ln",)))
+
+
+def _vit(module, p, s, path) -> dict:
+    kernel = p.get(*path, "patch_embed", "kernel")  # HWIO
+    return {"patch_embed.weight": kernel.reshape(-1, kernel.shape[-1]).T,
+            "patch_embed.bias": p.get(*path, "patch_embed", "bias"),
+            "cls_token": p.get(*path, "cls_token"),
+            "pos_embed": p.get(*path, "pos_embed")} | _blocks(module, p, s,
+                                                             path)
+
+
+def _text(module, p, s, path) -> dict:
+    return {"embedding": p.get(*path, "Embed_0", "embedding"),
+            "pos_embed": p.get(*path, "pos_embed")} | _blocks(module, p, s,
+                                                             path)
+
+
+def _clip(module, p, s, path) -> dict:
+    if not isinstance(module.image_tower, VisionTransformer):
+        raise TypeError(f"no flax layout for image tower "
+                        f"{type(module.image_tower).__name__}")
+    return (_prefixed("image_tower", _vit(module.image_tower, p, s,
+                                          path + ("image_tower",)))
+            | _prefixed("text_tower", _text(module.text_tower, p, s,
+                                            path + ("text_tower",)))
+            | _prefixed("image_proj", _dense(p, path + ("image_proj",),
+                                             bias=False))
+            | _prefixed("text_proj", _dense(p, path + ("text_proj",),
+                                            bias=False))
+            | {"logit_scale": p.get(*path, "logit_scale")})
 
 
 def _head(module, p, s, path) -> dict:
@@ -139,7 +169,8 @@ def _simclr(module, p, s, path) -> dict:
                                            path + ("projector",))))
 
 
-_CONVERTERS = ((SimCLRModel, _simclr), (VisionTransformer, _vit),
+_CONVERTERS = ((SimCLRModel, _simclr), (CLIPModel, _clip),
+               (VisionTransformer, _vit), (TextTransformer, _text),
                (EncoderBlock, _block), (SeqParallelSelfAttention, _attention),
                (MlpBlock, _mlp), (ProjectionHead, _head))
 
@@ -203,7 +234,8 @@ def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
                        f"{sorted(missing)}")
     with torch.no_grad():
         for key, target in state.items():
-            value = np.ascontiguousarray(tensors[key])
+            # np.ascontiguousarray would turn a 0-d leaf into shape (1,)
+            value = np.array(tensors[key], order="C")
             if tuple(value.shape) != tuple(target.shape):
                 raise ValueError(f"{key}: flax shape {value.shape} vs torch "
                                  f"{tuple(target.shape)}")

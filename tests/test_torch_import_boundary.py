@@ -83,7 +83,8 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 def test_scan_sees_every_module():
     names = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
     assert {"cli.py", "weights.py", "api.py", "ops/attention.py",
-            "ops/ntxent.py", "ops/oracle.py", "serving/server.py",
+            "ops/ntxent.py", "ops/oracle.py", "ops/infonce.py",
+            "models/clip.py", "training/adamw.py", "serving/server.py",
             "models/vit.py", "models/projection.py", "training/lars.py",
             "training/augment.py", "training/datasets.py",
             "training/trainer.py", "utils/profiling.py"} <= names

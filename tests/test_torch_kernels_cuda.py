@@ -6,8 +6,9 @@ on the card, where the JAX package's model code cannot load:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
 ``cuda``-marked tests hold each CUDA kernel (``ntxent_fwd``,
-``ntxent_bwd_sym``, ``flash_attention_dq``, ``flash_attention_dkv``) to
-its plain version on the same card, and the differentiable wrappers'
+``ntxent_bwd_sym``, ``flash_attention_dq``, ``flash_attention_dkv``,
+``infonce_dual_fwd``, ``infonce_dual_bwd``) to its plain version on the
+same card, and the differentiable wrappers'
 gradients to the same computation on the CPU; they skip here. The other
 tests run anywhere: the plain backward versions against torch autograd
 of the plain forwards, the CPU dispatch, the input checks and the build
@@ -26,6 +27,10 @@ Tolerances (max abs error against the plain version on the card):
   dq by up to 2**-8 |ds| |k| -> 3e-2 on dq; dk/dv keep p and ds to
   ~16 bits (the kernel's hi/lo split) against the plain version's fp32
   -> 1e-2.
+* InfoNCE, fp32 or bf16 za/zb: the same exact fp32 products summed in
+  another order, logits up to the scale 17.5 -> 2e-4 on lse_a, lse_b and
+  loss_sum/2N, 2e-4 on o_a and o_b (rows of G sum to at most 4 in
+  absolute value, times unit-norm embeddings).
 """
 
 import numpy as np
@@ -34,6 +39,7 @@ import torch
 
 from ntxent_tpu_torch.ops import _build
 from ntxent_tpu_torch.ops import attention as A
+from ntxent_tpu_torch.ops import infonce as I
 from ntxent_tpu_torch.ops import ntxent as N
 
 NTX_ATOL = 2e-4
@@ -42,6 +48,11 @@ BWD_ATOL = {"float32": dict(dq=1e-4, dkv=1e-4),
 # (2N, D): the training path's shape, the north-star global batch, and a
 # ragged 2N with D != 2B.
 NTX_SHAPES = [(512, 128), (8192, 128), (1000, 96)]
+INFONCE_ATOL = 2e-4
+# (N, D): the CLIP path's shape (batch 256, embedding 512), a ragged N
+# that is no multiple of the 64-row tile, a narrower D, and N = 8192.
+INFONCE_SHAPES = [(256, 512), (1000, 512), (1000, 128), (8192, 512)]
+INFONCE_SCALE = 17.5  # not 1/T of the default temperature
 # (bh, lq, lk, d, causal, q_offset, k_offset)
 BWD_CASES = {
     "train_shape": (48, 197, 197, 64, False, 0, 0),
@@ -147,6 +158,8 @@ def test_flash_backward_rejects_mismatched_shapes():
     ("ntxent_bwd_sym", ["ntx_ntxent_bwd_sym"]),
     ("flash_attention_bwd", ["ntx_flash_attention_dq",
                              "ntx_flash_attention_dkv"]),
+    ("infonce_dual_fwd", ["ntx_infonce_dual_fwd"]),
+    ("infonce_dual_bwd", ["ntx_infonce_dual_bwd"]),
 ])
 def test_training_kernels_build_from_repo_sources(tmp_path, name, symbols):
     cmd = _build.nvcc_command(name, tmp_path / "lib.so")
@@ -276,3 +289,54 @@ def test_cuda_vit_flash_block_gets_qkv_gradients():
         for proj in (block.attn.query, block.attn.key, block.attn.value):
             assert proj.weight.grad is not None
             assert proj.weight.grad.abs().sum().item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", INFONCE_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_cuda_infonce_kernels_match_plain_versions(shape, dtype):
+    dev = _cuda()
+    n, d = shape
+    tdt = getattr(torch, dtype)
+    za = _unit_rows(n, d, seed=n + d, device=dev, dtype=tdt)
+    zb = _unit_rows(n, d, seed=n + d + 1, device=dev, dtype=tdt)
+    scale = torch.tensor(INFONCE_SCALE, device=dev)
+    before = (I.infonce_dual_fwd.launches, I.infonce_dual_bwd.launches)
+    loss_sum, lse_a, lse_b = I.infonce_dual_fwd(za, zb, scale)
+    o_a, o_b = I.infonce_dual_bwd(za, zb, scale, lse_a, lse_b)
+    loss_ref, lse_a_ref, lse_b_ref = I.infonce_dual_fwd_plain(za, zb, scale)
+    o_a_ref, o_b_ref = I.infonce_dual_bwd_plain(za, zb, scale, lse_a_ref,
+                                                lse_b_ref)
+    torch.cuda.synchronize()
+    assert (I.infonce_dual_fwd.launches, I.infonce_dual_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert lse_a.dtype == o_a.dtype == o_b.dtype == torch.float32
+    torch.testing.assert_close(lse_a, lse_a_ref, atol=INFONCE_ATOL, rtol=0)
+    torch.testing.assert_close(lse_b, lse_b_ref, atol=INFONCE_ATOL, rtol=0)
+    torch.testing.assert_close(loss_sum / (2 * n), loss_ref / (2 * n),
+                               atol=INFONCE_ATOL, rtol=0)
+    torch.testing.assert_close(o_a, o_a_ref, atol=INFONCE_ATOL, rtol=0)
+    torch.testing.assert_close(o_b, o_b_ref, atol=INFONCE_ATOL, rtol=0)
+    # No atomics: the loss is bitwise repeatable.
+    again = I.infonce_dual_fwd(za, zb, scale)[0]
+    assert again.item() == loss_sum.item()
+
+
+@pytest.mark.cuda
+def test_cuda_info_nce_fused_gradients_match_the_cpu():
+    """za, zb and the learnable scale get the CPU's gradients."""
+    dev = _cuda()
+    za, zb = _unit_rows(256, 512, seed=21), _unit_rows(256, 512, seed=22)
+    scale = torch.tensor(INFONCE_SCALE)
+    cpu = [t.clone().requires_grad_() for t in (za, zb, scale)]
+    gpu = [t.to(dev).requires_grad_() for t in (za, zb, scale)]
+    loss_cpu = I.info_nce_fused(cpu[0], cpu[1], scale=cpu[2])
+    loss_gpu = I.info_nce_fused(gpu[0], gpu[1], scale=gpu[2])
+    loss_cpu.backward()
+    loss_gpu.backward()
+    torch.testing.assert_close(loss_gpu.cpu(), loss_cpu.detach(), atol=1e-5,
+                               rtol=0)
+    for c, g in zip(cpu, gpu):
+        torch.testing.assert_close(g.grad.cpu(), c.grad, atol=1e-6,
+                                   rtol=1e-4)

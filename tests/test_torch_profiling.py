@@ -24,13 +24,20 @@ from ntxent_tpu_torch.utils import profiling
      "ntxent_fwd"),
     ("void (anonymous namespace)::ntxent_bwd_sym_kernel<float>(...)",
      "ntxent_bwd_sym"),
+    ("void (anonymous namespace)::infonce_dual_fwd_kernel<float>(...)",
+     "infonce_dual_fwd"),
+    ("(anonymous namespace)::infonce_loss_reduce(float const*, int, float*)",
+     "infonce_dual_fwd"),
+    ("void (anonymous namespace)::infonce_dual_bwd_kernel<__nv_bfloat16>"
+     "(...)", "infonce_dual_bwd"),
 ])
 def test_kernels_are_grouped_by_name(name, group):
     assert profiling._group(name) == group
 
 
 @pytest.mark.parametrize("argv", [["--bucket", "1"],
-                                  ["--mode", "train", "--batch", "2"]])
+                                  ["--mode", "train", "--batch", "2"],
+                                  ["--mode", "clip", "--batch", "2"]])
 def test_profiler_needs_a_card(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present")
@@ -41,6 +48,7 @@ def test_profiler_needs_a_card(argv):
 def test_every_kernel_wrapper_counts_launches():
     counters = profiling.launch_counters()
     assert sorted(counters) == ["flash_attention_dkv", "flash_attention_dq",
-                                "flash_attention_fwd", "ntxent_bwd_sym",
+                                "flash_attention_fwd", "infonce_dual_bwd",
+                                "infonce_dual_fwd", "ntxent_bwd_sym",
                                 "ntxent_fwd"]
     assert all(isinstance(w.launches, int) for w in counters.values())

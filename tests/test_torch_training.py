@@ -448,7 +448,8 @@ def test_train_cli_defaults_match_the_jax_cli():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model", "resnet50"], ["--objective", "clip"], ["--dataset", "npy"],
+    ["--model", "resnet50"], ["--objective", "clip", "--remat"],
+    ["--dataset", "npy"],
     ["--parallel", "tp"], ["--fsdp"], ["--remat"], ["--accum-steps", "2"],
     ["--ckpt-dir", "ck"], ["--nan-policy", "skip"], ["--moe-experts", "4"],
     ["--max-restarts", "1"]], ids=lambda f: f[0])
