@@ -51,8 +51,31 @@ Phases; any failure ends the run with a non-zero exit and no result:
    images/s and peak memory;
 8. CLIP step parity: one fp32 CLIP ViT-B/16 train step (batch 4) on the
    card against the same step on the CPU, within fixed tolerances;
-9. one JSON line describing each kernel of the paths;
-10. the last line: ``{"ok": true, "device": {...}}``.
+9. general NT-Xent kernels: ``ntxent_fwd_general`` (#1 in its general
+   mode), ``ntxent_bwd_general_rows`` and ``ntxent_bwd_general_cols``
+   (#6) against their plain versions at (R, C, D) = (512, 512, 128) (the
+   data-parallel path of a world of one at --batch 256), (128, 512, 128)
+   (one rank of a world of four, rank 3's row ids), (2048, 8192, 128)
+   (one rank of four at global batch 4096) and a ragged (100, 1000, 96)
+   with a padding row, in fp32 and bf16, with and without scattered
+   column ids; the loss bitwise repeatable; CUDA-event times beside the
+   bound;
+10. four ranks emulated on one card: the per-rank strip losses and row and
+   column gradients of P = 4 at global batch 256, summed and scattered as
+   the all-gather's backward does, against the single-card symmetric loss
+   and gradient;
+11. data-parallel train: ResNet-50 SimCLR through
+   ``cli.train(..., data_parallel=True)`` over a real NCCL process group
+   of world size 1 (a ``FileStore``), ``--image-size 224 --batch 256
+   --steps 5``: finite losses, exactly 1/1/1 launches per step of the
+   general forward and the two general backward kernels and none of any
+   other loss or attention kernel, a nonzero gradient on every
+   convolution and BatchNorm weight; step ms, images/s, peak memory;
+12. device-count parity: one fp32 ResNet-50 step (batch 8) of the
+   data-parallel step at world 1 against the single-card step from the
+   same weights and views, cuDNN's TF32 off;
+13. one JSON line describing each kernel of the paths;
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -61,6 +84,7 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -181,6 +205,34 @@ CLIP_STEP_LAUNCHES = {"infonce_dual_fwd": 1, "infonce_dual_bwd": 1,
 # tokens: summation order only, through 12 blocks of each tower, the
 # projections and the loss -> the SimCLR step's fp32 tolerances.
 CLIP_PARITY_BATCH = 4
+
+# General NT-Xent kernels (#1 general mode, #6): (R, C, D). The first is
+# the data-parallel path of this run (a world of one at --batch 256, every
+# row a local row), the second one rank of a 4-card world at global batch
+# 256, the third one rank of four at global batch 4096, the last ragged
+# with a padding row (R odd) and D != 2B. Tolerances: those of the
+# symmetric kernels (NTX_ATOL), for the same reasons.
+GENERAL_SHAPES = [(512, 512, 128), (128, 512, 128), (2048, 8192, 128),
+                  (101, 1000, 96)]
+# Four ranks on one card: P = 4 strips of global batch 256 (2N = 512,
+# D = 128) against the single-card loss: the same terms summed in another
+# order -> 1e-5 on the mean loss, 1e-4 on the relative gradient.
+EMULATED_RANKS, EMULATED_BATCH = 4, 256
+EMULATED_LOSS_ATOL, EMULATED_GRAD_RTOL = 1e-5, 1e-4
+
+DP_STEPS = 5
+DP_ARGV = ["--model", "resnet50", "--image-size", "224", "--batch", "256",
+           "--steps", str(DP_STEPS), "--dataset", "synthetic", "--device",
+           "cuda", "--log-every", "1"]
+# Kernel launches per data-parallel step: the strip loss's forward and
+# its two backward kernels once; nothing else.
+DP_STEP_LAUNCHES = {"ntxent_fwd_general": 1, "ntxent_bwd_general_rows": 1,
+                    "ntxent_bwd_general_cols": 1}
+# World-1 data-parallel step vs the single-card step, fp32 ResNet-50:
+# the strip loss against the symmetric one (another summation order) and
+# the cross-replica BatchNorm's all-reduces at world 1 -> the fp32 train
+# parity tolerances.
+DP_PARITY_BATCH = 8
 
 SERVE_ARGV = ["--model", "vit_b16", "--vit-attention", "flash",
               "--image-size", "224", "--head", "embedding",
@@ -969,6 +1021,316 @@ def phase_clip_parity() -> None:
         fail("the card's fp32 CLIP train step disagrees with the CPU's")
 
 
+def _general_ids(rows, cols, scattered, seed):
+    """(row_gid, col_gid, cols_actual, n_half) on the card: the strip of
+    rank 3 of 4 (ids: indices of the gathered columns; a padding row with
+    the sentinel 2N when ``rows`` is odd), or, ``scattered``, columns with
+    scattered global ids of a problem twice as wide (the ring's block)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    if not scattered:
+        n = rows // 2
+        base = 3 * n + torch.arange(n) if rows < cols else torch.arange(n)
+        ids = [base, cols // 2 + base] + ([torch.tensor([cols])]
+                                          if rows % 2 else [])
+        return torch.cat(ids).cuda(), None, cols, cols // 2
+    total = 2 * cols
+    col_gid = torch.randperm(total, generator=gen)[:cols]
+    row_gid = torch.cat([col_gid[:rows // 2], torch.randperm(
+        total, generator=gen)[:rows - rows // 2]])
+    return row_gid.cuda(), col_gid.cuda(), total, total // 2
+
+
+def _general_bounds(rows, cols, d):
+    """Bounds of #1 general and of each #6 kernel at fp32 (R, C, D): each
+    input read once (z_rows, z_cols, the row ids; the lse for #6), each
+    output written once; 2 R C D and 4 R C D fp32 operations."""
+    inputs = (rows + cols) * d * 4 + rows * 4
+    return (_bound(inputs + rows * 4 + 4, 2 * rows * cols * d,
+                   PEAK_FP32_FLOPS),
+            _bound(inputs + rows * 4 + rows * d * 4, 4 * rows * cols * d,
+                   PEAK_FP32_FLOPS),
+            _bound(inputs + rows * 4 + cols * d * 4, 4 * rows * cols * d,
+                   PEAK_FP32_FLOPS))
+
+
+def phase_general_kernels() -> list[dict]:
+    """#1 general, #6 rows and #6 cols against their plain versions, then
+    times at every fp32 strip shape."""
+    import torch
+
+    from ntxent_tpu_torch.ops import ntxent as N
+    from ntxent_tpu_torch.utils.profiling import cuda_time_ms
+
+    t = NTX_TEMPERATURE
+    errs = {}
+    for rows, cols, d in GENERAL_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            for scattered in (False, True):
+                zr = _unit_rows(rows, d, dtype, seed=rows + d)
+                zc = _unit_rows(cols, d, dtype, seed=cols + d)
+                row_gid, col_gid, total, n_half = _general_ids(
+                    rows, cols, scattered, seed=rows)
+                kw = dict(col_gid=col_gid, cols_actual=total, n_half=n_half)
+                args = (zr, zc, row_gid)
+                loss, lse = N.ntxent_fwd_general(*args, t, **kw)
+                g_rows = N.ntxent_bwd_general_rows(*args, lse, t, **kw)
+                g_cols = N.ntxent_bwd_general_cols(*args, lse, t, **kw)
+                loss_ref, lse_ref = N.ntxent_fwd_general_plain(*args, t, **kw)
+                g_rows_ref = N.ntxent_bwd_general_rows_plain(
+                    *args, lse_ref, t, **kw)
+                g_cols_ref = N.ntxent_bwd_general_cols_plain(
+                    *args, lse_ref, t, **kw)
+                again, _ = N.ntxent_fwd_general(*args, t, **kw)
+                torch.cuda.synchronize()
+                fwd_err = max((lse - lse_ref).abs().max().item(),
+                              abs(loss.item() - loss_ref.item()) / rows)
+                rows_err = (g_rows - g_rows_ref).abs().max().item()
+                cols_err = (g_cols - g_cols_ref).abs().max().item()
+                repeat = again.item() == loss.item()
+                ok = (max(fwd_err, rows_err, cols_err) <= NTX_ATOL
+                      and repeat)
+                print(f"[general] R={rows} C={cols} D={d} {dtype} "
+                      f"{'scattered column ids' if scattered else 'strip'}: "
+                      f"fwd max|err| {fwd_err:.3e}, rows {rows_err:.3e}, "
+                      f"cols {cols_err:.3e} (atol {NTX_ATOL:g}), loss "
+                      f"bitwise repeatable {repeat} "
+                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    fail(f"the general NT-Xent kernels disagree with their "
+                         f"plain versions at R={rows} C={cols} D={d} "
+                         f"{dtype} (scattered ids: {scattered})")
+                if (rows, cols, dtype, scattered) == (512, 512, "float32",
+                                                      False):
+                    errs = {"ntxent_fwd_general": fwd_err,
+                            "ntxent_bwd_general_rows": rows_err,
+                            "ntxent_bwd_general_cols": cols_err}
+                del zr, zc, g_rows, g_cols, g_rows_ref, g_cols_ref
+
+    times = {}
+    for rows, cols, d in GENERAL_SHAPES[:3]:
+        zr = _unit_rows(rows, d, "float32", seed=1)
+        zc = _unit_rows(cols, d, "float32", seed=2)
+        row_gid = _general_ids(rows, cols, False, seed=0)[0]
+        args = (zr, zc, row_gid)
+        _, lse = N.ntxent_fwd_general(*args, t)
+        runs = 3 if cols > 4096 else 10
+        ms = (cuda_time_ms(lambda: N.ntxent_fwd_general(*args, t), runs),
+              cuda_time_ms(lambda: N.ntxent_bwd_general_rows(*args, lse, t),
+                           runs),
+              cuda_time_ms(lambda: N.ntxent_bwd_general_cols(*args, lse, t),
+                           runs))
+        plain = (
+            cuda_time_ms(lambda: N.ntxent_fwd_general_plain(*args, t), runs),
+            cuda_time_ms(lambda: N.ntxent_bwd_general_rows_plain(
+                *args, lse, t), runs),
+            cuda_time_ms(lambda: N.ntxent_bwd_general_cols_plain(
+                *args, lse, t), runs))
+        bounds = _general_bounds(rows, cols, d)
+        print(f"[general] R={rows} C={cols} D={d} fp32: fwd {ms[0]:.4f} ms "
+              f"(plain {plain[0]:.4f}, bound {bounds[0][0]:.5f}), rows "
+              f"{ms[1]:.4f} ms (plain {plain[1]:.4f}, bound "
+              f"{bounds[1][0]:.5f}), cols {ms[2]:.4f} ms (plain "
+              f"{plain[2]:.4f}, bound {bounds[2][0]:.5f}); no single PyTorch "
+              f"call computes them, so there is no library time", flush=True)
+        times[rows, cols] = (ms, plain, bounds)
+        del zr, zc
+    names = ("ntxent_fwd_general", "ntxent_bwd_general_rows",
+             "ntxent_bwd_general_cols")
+    replaces = (
+        "ntxent_tpu/ops/ntxent_pallas.py:130 (_fwd_kernel in its general "
+        "mode, _fwd_call :190)",
+        "ntxent_tpu/ops/ntxent_pallas.py:552 (_bwd_rows_kernel, "
+        "_bwd_general_call :648)",
+        "ntxent_tpu/ops/ntxent_pallas.py:580 (_bwd_cols_kernel, "
+        "_bwd_general_call :648)")
+    sources = ("ntxent_tpu_torch/csrc/ntxent_fwd.cu",
+               "ntxent_tpu_torch/csrc/ntxent_bwd_general.cu",
+               "ntxent_tpu_torch/csrc/ntxent_bwd_general.cu")
+    out = []
+    for i, name in enumerate(names):
+        ms, plain, bounds = times[512, 512]
+        entry = {"name": name, "route": "cuda", "source": sources[i],
+                 "replaces": replaces[i], "checked": True, "launches": None,
+                 "max_abs_err": errs[name], "ms": ms[i],
+                 "plain_ms": plain[i], "bound_ms": bounds[i][0],
+                 "bound_by": bounds[i][1], "library_ms": None}
+        for (rows, cols), tag in (((128, 512), "rank4"),
+                                  ((2048, 8192), "rank4_b4096")):
+            ms, plain, bounds = times[rows, cols]
+            entry |= {f"{tag}_ms": ms[i], f"{tag}_plain_ms": plain[i],
+                      f"{tag}_bound_ms": bounds[i][0]}
+        out.append(entry)
+    return out
+
+
+def phase_emulated_ranks() -> None:
+    """P = 4 ranks one after another on the card: each rank's strip loss
+    and its row and column gradients from the kernels; the losses summed,
+    the column gradients summed and the row gradients scattered (what the
+    all-gather's reduce-scatter and the psum do), against the single-card
+    ntxent_fwd / ntxent_bwd_sym on the same 2N rows."""
+    import torch
+
+    from ntxent_tpu_torch.ops import ntxent as N
+    from ntxent_tpu_torch.parallel.mesh import local_row_gids
+
+    t, p, batch, d = NTX_TEMPERATURE, EMULATED_RANKS, EMULATED_BATCH, 128
+    z = _unit_rows(2 * batch, d, "float32", seed=7)   # [view 1; view 2]
+    n = batch // p
+    loss, grad = 0.0, torch.zeros_like(z)
+    for rank in range(p):
+        gid = local_row_gids(rank, n, p, z.device)
+        z_local = z[gid.long()]
+        loss_r, lse_r = N.ntxent_fwd_general(z_local, z, gid, t)
+        grad.index_add_(0, gid.long(),
+                        N.ntxent_bwd_general_rows(z_local, z, gid, lse_r, t))
+        grad += N.ntxent_bwd_general_cols(z_local, z, gid, lse_r, t)
+        loss = loss + loss_r
+    loss_sym, lse = N.ntxent_fwd(z, t)
+    grad_sym = N.ntxent_bwd_sym(z, lse, t)
+    torch.cuda.synchronize()
+    loss_err = abs(loss.item() - loss_sym.item()) / (2 * batch)
+    grad_err = ((grad - grad_sym).norm() / grad_sym.norm()).item()
+    ok = loss_err <= EMULATED_LOSS_ATOL and grad_err <= EMULATED_GRAD_RTOL
+    print(f"[ranks] {p} ranks emulated at global batch {batch} (2N = "
+          f"{2 * batch}, D = {d}): sum of strip losses / 2N "
+          f"{loss.item() / (2 * batch):.6f} vs single card "
+          f"{loss_sym.item() / (2 * batch):.6f} (|err| {loss_err:.2e}, atol "
+          f"{EMULATED_LOSS_ATOL:g}); gradient |g_ranks - g_card| / |g_card| "
+          f"= {grad_err:.2e} (rtol {EMULATED_GRAD_RTOL:g}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the emulated ranks' strip losses do not sum to the single-card "
+             "loss and gradient")
+
+
+def phase_dp_train(card_line: str) -> dict:
+    """Data-parallel ResNet-50 SimCLR through ntxent_tpu_torch.cli over
+    the NCCL group of world 1; returns the launches of each kernel."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.models import BatchNorm
+    from ntxent_tpu_torch.models.resnet import Conv
+    from ntxent_tpu_torch.parallel import mesh
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    args = cli.build_train_parser().parse_args(DP_ARGV)
+    counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    mark = mesh.comms_accounting().totals()
+    t0 = time.monotonic()
+    state, history = cli.train(args, data_parallel=True)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = {name: w.launches for name, w in counters.items()}
+    comms = mesh.comms_accounting().delta(mark)
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [h["loss"] for h in history]
+    if len(losses) != DP_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"data-parallel losses {losses}: expected {DP_STEPS} finite "
+             "values")
+    want = {n: DP_STEP_LAUNCHES.get(n, 0) * DP_STEPS for n in counters}
+    if launches != want:
+        fail(f"kernel launches over {DP_STEPS} data-parallel steps "
+             f"{launches}, expected {want}")
+    weights = [(n, m.weight) for n, m in state.model.named_modules()
+               if isinstance(m, (Conv, BatchNorm))]
+    for name, w in weights:
+        if w.grad is None or not w.grad.abs().sum().item() > 0:
+            fail(f"{name}.weight has no gradient in the data-parallel step")
+    convs = sum(isinstance(m, Conv) for m in state.model.modules())
+    norms = sum(isinstance(m, BatchNorm) for m in state.model.modules())
+    steady = history[1:]
+    step_ms = 1e3 * sum(1.0 / h["steps_per_sec"]
+                        for h in steady) / len(steady)
+    images_per_s = 2 * args.batch / step_ms * 1e3
+    print(f"[dp] ResNet-50 SimCLR data-parallel over NCCL (world 1), batch "
+          f"{args.batch} (2 x {args.batch} views at 224 px), {DP_STEPS} "
+          f"steps in {wall_s:.1f} s: losses {[round(x, 4) for x in losses]}; "
+          f"launches per step "
+          f"{ {n: c // DP_STEPS for n, c in launches.items() if c} } (every "
+          f"other kernel 0); all {convs} convolutions and {norms} BatchNorms "
+          f"have a nonzero weight gradient; comms over the run (calls, "
+          f"bytes per device; 0 at world 1) "
+          f"{ {op: c for (op, _), c in comms.items()} }", flush=True)
+    print(f"[dp] step {step_ms:.1f} ms (steps 2-{DP_STEPS}, host clock "
+          f"around a synchronizing loss read), {images_per_s:.1f} images/s, "
+          f"peak memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) on {card_line}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dp_parity_step(sharded: bool, views):
+    """(loss, flat fp32 gradient) of one fp32 ResNet-50 step from the
+    weights of seed 0: the data-parallel step at world 1 or the
+    single-card step."""
+    import torch
+
+    from ntxent_tpu_torch.models import (
+        ResNet50,
+        SimCLRModel,
+        cross_replica_batch_norm,
+        init_weights,
+    )
+    from ntxent_tpu_torch.training import (
+        TrainerConfig,
+        create_train_state,
+        make_sharded_train_step,
+        make_train_step,
+    )
+
+    model = init_weights(SimCLRModel(ResNet50(dtype=torch.float32),
+                                     dtype=torch.float32),
+                         torch.Generator().manual_seed(0))
+    cfg = TrainerConfig(batch_size=DP_PARITY_BATCH, warmup_steps=1)
+    if sharded:
+        cross_replica_batch_norm(model, torch.distributed.group.WORLD)
+        step = make_sharded_train_step(None, cfg.temperature)
+    else:
+        step = make_train_step(cfg.temperature, use_fused=True)
+    state = create_train_state(model, cfg, torch.device("cuda"))
+    _, metrics = step(state, *(v.cuda() for v in views))
+    grads = torch.cat([p.grad.detach().float().cpu().flatten()
+                       for p in state.model.parameters()])
+    return metrics["loss"].item(), grads
+
+
+def phase_dp_parity() -> None:
+    """The world-1 data-parallel step against the single-card step, fp32
+    ResNet-50, same weights and views, TF32 off."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    views = [torch.from_numpy(rng.uniform(size=(
+        DP_PARITY_BATCH, 224, 224, 3)).astype(np.float32)) for _ in range(2)]
+    loss_dp, g_dp = _dp_parity_step(True, views)
+    loss_one, g_one = _dp_parity_step(False, views)
+    loss_err = abs(loss_dp - loss_one)
+    grad_err = ((g_dp - g_one).norm() / g_one.norm()).item()
+    ok = loss_err <= PARITY_LOSS_ATOL and grad_err <= PARITY_GRAD_RTOL
+    print(f"[dp-parity] ResNet-50 train step float32, batch "
+          f"{DP_PARITY_BATCH}: loss data-parallel (world 1) {loss_dp:.6f} vs "
+          f"single card {loss_one:.6f} (|err| {loss_err:.2e}, atol "
+          f"{PARITY_LOSS_ATOL:.2e}); gradient |g_dp - g_card| / |g_card| = "
+          f"{grad_err:.2e} (rtol {PARITY_GRAD_RTOL:.2e}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the data-parallel step at world 1 disagrees with the "
+             "single-card step")
+
+
 def main() -> int:
     import torch
 
@@ -981,18 +1343,34 @@ def main() -> int:
     name, smi = phase_card()
     phase_build()
     kernels = [phase_kernels(), *phase_ntxent_kernels(),
-               *phase_flash_backward(), *phase_infonce_kernels()]
+               *phase_flash_backward(), *phase_infonce_kernels(),
+               *phase_general_kernels()]
+    phase_emulated_ranks()
     serve_launches = phase_serve(smi)
     train_launches = phase_train(smi)
     phase_step_parity()
     clip_launches = phase_clip_train(smi)
     phase_clip_parity()
+    from ntxent_tpu_torch.parallel import mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_from_file(f"{tmp}/store", 0, 1, device="cuda")
+        try:
+            dp_launches = phase_dp_train(smi)
+            phase_dp_parity()
+        finally:
+            mesh.shutdown()
     for kernel in kernels:
         # launches on the train path that runs the kernel (SimCLR for the
-        # NT-Xent and flash kernels, CLIP for InfoNCE), and on CLIP's
-        kernel["launches"] = (train_launches[kernel["name"]]
-                              or clip_launches[kernel["name"]])
-        kernel["clip_launches"] = clip_launches[kernel["name"]]
+        # symmetric NT-Xent and flash kernels, CLIP for InfoNCE, the
+        # data-parallel ResNet-50 for the general NT-Xent kernels), and on
+        # CLIP's and the data-parallel path's
+        wrapper = kernel["name"]
+        kernel["launches"] = (train_launches[wrapper]
+                              or clip_launches[wrapper]
+                              or dp_launches[wrapper])
+        kernel["clip_launches"] = clip_launches[wrapper]
+        kernel["dp_launches"] = dp_launches[wrapper]
     kernels[0]["serve_launches"] = serve_launches
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -19,6 +19,11 @@ Ported so far:
 * single-card CLIP training (``cli.train_main --objective clip``,
   ``models.clip``): the fused InfoNCE forward and backward kernels
   (``ops.infonce``), a causal text tower, AdamW;
+* ResNet SimCLR training (``models.resnet``, flax-exact BatchNorm), on
+  one card or data-parallel under ``torchrun`` (``parallel``: process
+  groups, differentiable collectives with comms accounting, the strip
+  loss over the general NT-Xent forward and backward kernels,
+  ``ops.ntxent.ntxent_partial_fused``), cross-replica BatchNorm;
 * the loss oracles (``ops.oracle``) and the reference-compatible API
   (``api``), which also exports ``info_nce_fused`` and ``info_nce_loss``
   as the JAX package's top level does;
@@ -29,4 +34,4 @@ Ported so far:
 from .api import info_nce_fused, info_nce_loss
 
 __all__ = ["__version__", "info_nce_fused", "info_nce_loss"]
-__version__ = "0.3.0"
+__version__ = "0.4.0"

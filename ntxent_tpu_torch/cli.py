@@ -7,12 +7,18 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
 * ``serve_main`` (``build_serve_parser``): ViT towers, JSON ``/metrics``;
   random weights from ``--seed``, as ``ntxent-serve`` serves without
   ``--ckpt-dir``.
-* ``train_main`` (``build_train_parser``): single-card training on one
-  card, random weights from ``--seed``:
+* ``train_main`` (``build_train_parser``): training with random weights
+  from ``--seed``:
 
-  - ``--objective simclr`` (the default): SimCLR of a ViT tower on
-    ``--dataset synthetic``. ``--model`` defaults to ``vit_b16`` (the JAX
-    default, resnet50, is a later slice);
+  - ``--objective simclr`` (the default): SimCLR of a ResNet (``--model
+    resnet50``, the default, ``resnet18/34/50x2/101/152``, ``tiny``; the
+    CIFAR stem at ``--image-size`` <= 64) or a ViT tower on ``--dataset
+    synthetic``. On one card, or data-parallel under ``torchrun`` when
+    ``WORLD_SIZE`` > 1 (``cli.py:824-842``): one rank per card
+    (``cuda:LOCAL_RANK``, NCCL) or per CPU process under ``--device cpu``
+    (gloo), ``--batch`` global, cross-replica BatchNorm, the strip loss
+    (``--dp-loss strip``), only rank 0 logging. A world of one takes the
+    single-card step, as the JAX CLI does on one device;
   - ``--objective clip``: a CLIP dual encoder (ViT image tower, causal
     text tower; ``--model tiny`` for both towers at width 32) with
     InfoNCE at a learnable logit scale and AdamW, on synthetic pairs or
@@ -27,21 +33,38 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
 Run: ``python -m ntxent_tpu_torch.cli --model vit_b16 --vit-attention
 flash --image-size 224 --head embedding --port 8080`` (serving),
 ``python -m ntxent_tpu_torch.cli train --model vit_b16 --vit-attention
-flash --image-size 224 --batch 256 --steps 100`` (SimCLR training), or
-``python -m ntxent_tpu_torch.cli train --objective clip --model vit_b16
---vit-attention flash --image-size 224 --batch 256 --steps 100`` (CLIP).
+flash --image-size 224 --batch 256 --steps 100`` (SimCLR training of a
+ViT on one card), ``torchrun --nproc_per_node 4 -m ntxent_tpu_torch.cli
+train --model resnet50 --image-size 224 --batch 256`` (data-parallel
+ResNet-50 on four cards), or ``python -m ntxent_tpu_torch.cli train
+--objective clip --model vit_b16 --vit-attention flash --image-size 224
+--batch 256 --steps 100`` (CLIP).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 import numpy as np
 import torch
 
-from .models import CLIPModel, SimCLRModel, TextTransformer, init_weights
+from .models import (
+    CLIPModel,
+    ResNet,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet50x2,
+    ResNet101,
+    ResNet152,
+    SimCLRModel,
+    TextTransformer,
+    cross_replica_batch_norm,
+    init_weights,
+)
 from .models.vit import (
     ViT_B16,
     ViT_L16,
@@ -49,6 +72,8 @@ from .models.vit import (
     ViT_Ti16,
     VisionTransformer,
 )
+from .parallel import mesh
+from .parallel.dist_loss import NOT_PORTED
 from .resilience.retry import RetryPolicy
 from .serving import EmbeddingServer, InferenceEngine
 from .training import (
@@ -62,6 +87,7 @@ from .training import (
     create_clip_train_state,
     create_train_state,
     make_clip_train_step,
+    make_sharded_train_step,
     make_train_step,
     train_loop,
 )
@@ -75,6 +101,9 @@ __all__ = ["build_clip_model", "build_model", "build_serve_parser",
 
 ENCODERS = {"vit_t16": ViT_Ti16, "vit_s16": ViT_S16, "vit_b16": ViT_B16,
             "vit_l16": ViT_L16}
+RESNETS = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50,
+           "resnet50x2": ResNet50x2, "resnet101": ResNet101,
+           "resnet152": ResNet152}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -142,13 +171,23 @@ def _buckets(text: str) -> tuple[int, ...]:
     return buckets
 
 
+def _encoder(args):
+    """The encoder of ``--model`` (``cli.py:341-395``): ``tiny`` is a
+    one-stage ResNet on the CIFAR stem, a ResNet takes the CIFAR stem at
+    ``--image-size`` <= 64."""
+    if args.model == "tiny":
+        return ResNet((1,), small_images=True)
+    if args.model in RESNETS:
+        return RESNETS[args.model](small_images=args.image_size <= 64)
+    return ENCODERS[args.model](image_size=args.image_size,
+                                attention_impl=args.vit_attention)
+
+
 def build_model(args) -> SimCLRModel:
     """The served or trained SimCLR model with random weights drawn from
     ``--seed`` (on the CPU, so a seed gives the same weights on every
-    device)."""
-    encoder = ENCODERS[args.model](image_size=args.image_size,
-                                   attention_impl=args.vit_attention)
-    model = SimCLRModel(encoder, proj_hidden_dim=args.proj_hidden_dim,
+    device and every rank)."""
+    model = SimCLRModel(_encoder(args), proj_hidden_dim=args.proj_hidden_dim,
                         proj_dim=args.proj_dim)
     return init_weights(model, torch.Generator().manual_seed(args.seed))
 
@@ -205,9 +244,9 @@ MODEL_CHOICES = ["resnet18", "resnet34", "resnet50", "resnet50x2",
 def build_train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ntxent-train (torch)",
-        description="SimCLR (fused NT-Xent kernels) or CLIP (fused "
-                    "InfoNCE kernels) pretraining on PyTorch/CUDA, single "
-                    "card")
+        description="SimCLR (fused NT-Xent kernels) on one card or "
+                    "data-parallel under torchrun, or CLIP (fused InfoNCE "
+                    "kernels) on one card, on PyTorch/CUDA")
     d = p.add_argument_group("data")
     d.add_argument("--dataset", default="synthetic",
                    choices=["synthetic", "cifar10", "imagefolder", "npy"],
@@ -220,7 +259,11 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-samples", type=int, default=512)
 
     m = p.add_argument_group("model")
-    m.add_argument("--model", default="vit_b16", choices=MODEL_CHOICES)
+    m.add_argument("--model", default="resnet50", choices=MODEL_CHOICES)
+    m.add_argument("--stem", default="conv",
+                   choices=["conv", "space_to_depth"],
+                   help="ResNet ImageNet stem (space_to_depth is not "
+                        "ported)")
     m.add_argument("--vit-attention", default="xla", choices=["xla", "flash"],
                    help="flash: the hand-written flash-attention kernels "
                         "(forward and backward); xla: plain PyTorch "
@@ -239,6 +282,15 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "--data-dir tokens when given; 77 for synthetic)")
     t.add_argument("--parallel", default="dp", choices=["dp", "tp"])
     t.add_argument("--fsdp", action="store_true")
+    t.add_argument("--dp-loss", default="strip",
+                   choices=["strip", "pair", "chunked"],
+                   help="data-parallel NT-Xent schedule: strip (local rows "
+                        "x global columns on every rank; pair and chunked "
+                        "are not ported)")
+    t.add_argument("--collective-dtype", default="float32",
+                   choices=["float32", "bf16", "bfloat16", "int8"],
+                   help="wire dtype of the data-parallel collectives "
+                        "(only float32 is ported)")
     t.add_argument("--batch", type=int, default=256)
     t.add_argument("--steps", type=int, default=1000)
     t.add_argument("--temperature", type=float, default=0.1)
@@ -270,9 +322,13 @@ def _check_train_args(args) -> None:
         raise SystemExit("--objective clip takes paired data via "
                          "--data-dir pairs.npz (images + tokens arrays); "
                          "--dataset applies to the simclr objective only")
+    if args.dp_loss in NOT_PORTED:
+        raise SystemExit(f"ntxent-train (torch): --dp-loss {args.dp_loss} "
+                         f"is not ported yet: {NOT_PORTED[args.dp_loss]}")
     unported = [
-        (not (args.model.startswith("vit") or clip),
-         f"--model {args.model}", "resnet"),
+        (args.stem != "conv", f"--stem {args.stem}", "stem"),
+        (args.collective_dtype != "float32",
+         f"--collective-dtype {args.collective_dtype}", "wire"),
         (args.dataset != "synthetic", f"--dataset {args.dataset}", "data"),
         (args.data_dir is not None and not clip, "--data-dir", "data"),
         (args.loader != "python", f"--loader {args.loader}", "data"),
@@ -289,17 +345,25 @@ def _check_train_args(args) -> None:
         if hit:
             raise SystemExit(f"ntxent-train (torch): {flag} is not ported "
                              f"yet: {ROADMAP_ITEMS[item]}")
+    if not clip and args.vit_attention != "xla" \
+            and not args.model.startswith("vit"):
+        raise SystemExit(f"--vit-attention {args.vit_attention} applies to "
+                         f"ViT encoders only (got --model {args.model}); it "
+                         "would be silently ignored")
     if args.batch < 1 or args.steps < 1 or args.log_every < 1:
         raise SystemExit("--batch, --steps and --log-every must be positive")
 
 
-def _synthetic_pipeline(args, device) -> TwoViewPipeline:
+def _synthetic_pipeline(args, device, rank: int = 0,
+                        world_size: int = 1) -> TwoViewPipeline:
     """``--dataset synthetic`` as the JAX CLI makes it
-    (``RandomState(seed).rand``), streamed and augmented on ``device``."""
+    (``RandomState(seed).rand``), streamed and augmented on ``device``;
+    rank ``rank`` of ``world_size`` gets its rows of each global batch."""
     rng = np.random.RandomState(args.seed)
     source = ArraySource(rng.rand(args.synthetic_samples, args.image_size,
                                   args.image_size, 3).astype(np.float32))
-    loader = StreamingLoader(source, args.batch, seed=args.seed)
+    loader = StreamingLoader(source, args.batch, seed=args.seed, rank=rank,
+                             world_size=world_size)
     return TwoViewPipeline(loader, device, seed=args.seed + 1)
 
 
@@ -384,30 +448,85 @@ def _train_clip(args, device):
                              log_every=args.log_every, views=1)
 
 
-def train(args):
+def train(args, data_parallel: bool | None = None):
     """Train as ``train_main`` does from parsed ``args``; returns
-    (TrainState, history)."""
+    (TrainState, history). ``data_parallel=None`` takes the data-parallel
+    branch when ``WORLD_SIZE`` > 1 in the environment; ``True`` takes it in
+    any case, a world of one included (the process group is joined from
+    the environment unless the caller joined one already)."""
     _check_train_args(args)
+    if args.image_size is None and args.objective != "clip":
+        args.image_size = 32
+    if data_parallel is None:
+        data_parallel = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if data_parallel:
+        if args.objective == "clip":
+            raise SystemExit("--objective clip trains on one card: the "
+                             "data-parallel InfoNCE is ROADMAP.md Queue A "
+                             "3(c)")
+        return _train_data_parallel(args)
     device = resolve_device(args.device)
     if args.objective == "clip":
         state, history = _train_clip(args, device)
         _log_final(history)
         return state, history
-    if args.image_size is None:
-        args.image_size = 32
-    cfg = TrainerConfig(batch_size=args.batch, temperature=args.temperature,
-                        base_lr=args.base_lr, weight_decay=args.weight_decay,
-                        warmup_steps=args.warmup_steps,
-                        total_steps=args.steps)
+    cfg = _train_config(args)
     state = create_train_state(build_model(args), cfg, device)
     step = make_train_step(cfg.temperature)
-    logger.info("training %s (%s attention) on %s: batch %d, %d steps, "
-                "peak lr %g", args.model, args.vit_attention,
-                device_name(device), args.batch, args.steps,
-                cfg.learning_rate)
+    logger.info("training %s on %s: batch %d, %d steps, peak lr %g",
+                _model_label(args), device_name(device), args.batch,
+                args.steps, cfg.learning_rate)
     history = train_loop(state, _synthetic_pipeline(args, device), step,
                          args.steps, log_every=args.log_every)
     _log_final(history)
+    return state, history
+
+
+def _train_config(args) -> TrainerConfig:
+    return TrainerConfig(batch_size=args.batch, temperature=args.temperature,
+                         base_lr=args.base_lr,
+                         weight_decay=args.weight_decay,
+                         warmup_steps=args.warmup_steps,
+                         total_steps=args.steps)
+
+
+def _model_label(args) -> str:
+    if args.model.startswith("vit"):
+        return f"{args.model} ({args.vit_attention} attention)"
+    return args.model
+
+
+def _train_data_parallel(args):
+    """The data-parallel branch (``cli.py:824-842``): one rank per card
+    (NCCL) or per CPU process (gloo), weights from ``--seed`` on every
+    rank, cross-replica BatchNorm, the strip loss, rank 0 logging."""
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if args.batch % world:
+        raise SystemExit(f"--batch {args.batch} must divide across {world} "
+                         "devices")
+    device = mesh.init_from_env(args.device)
+    info = mesh.process_info()
+    rank, lead = info["process_index"], info["process_index"] == 0
+    cfg = _train_config(args)
+    model = cross_replica_batch_norm(build_model(args),
+                                     torch.distributed.group.WORLD)
+    state = create_train_state(model, cfg, device)
+    step = make_sharded_train_step(None, cfg.temperature)
+    if lead:
+        logger.info("topology: %s", info)
+        logger.info("training %s data-parallel over %d ranks (%s, %s "
+                    "loss): global batch %d, %d steps, peak lr %g",
+                    _model_label(args), world,
+                    torch.distributed.get_backend(), args.dp_loss,
+                    args.batch, args.steps, cfg.learning_rate)
+    history = train_loop(state, _synthetic_pipeline(args, device, rank,
+                                                    world),
+                         step, args.steps, log_every=args.log_every,
+                         ranks=world, log=lead)
+    if lead:
+        _log_final(history)
     return state, history
 
 
@@ -422,7 +541,10 @@ def train_main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
-    train(build_train_parser().parse_args(argv))
+    try:
+        train(build_train_parser().parse_args(argv))
+    finally:
+        mesh.shutdown()
     return 0
 
 

@@ -3,6 +3,9 @@
 Parameters are fp32; ``Dense`` computes in its ``dtype`` (bf16 by
 default) as flax's ``nn.Dense(dtype=..., param_dtype=float32)`` does;
 ``LayerNorm`` computes and returns fp32 with flax's epsilon of 1e-6.
+``BatchNorm`` is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5,
+use_fast_variance=False)``, statistics in fp32, over every dimension but
+dim 1, optionally across the ranks of a process group.
 
 Initialization mirrors flax's initializers (LeCun-normal truncated at
 two standard deviations for kernels, zeros for biases) and draws from an
@@ -17,7 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "LayerNorm", "init_weights", "lecun_normal_"]
+from ..parallel.mesh import pmean
+
+__all__ = ["BatchNorm", "Dense", "LayerNorm", "cross_replica_batch_norm",
+           "init_weights", "lecun_normal_"]
 
 # Standard deviation of a unit normal truncated to [-2, 2]: flax divides
 # by it so that the truncated draw keeps variance 1/fan_in.
@@ -63,6 +69,79 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
                             self.bias, self.eps)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over dim 1 (features of (B, F), channels of
+    (B, C, H, W)); returns fp32, which the caller casts to its dtype.
+
+    * eval (``module.eval()``; flax ``use_running_average=True``):
+      normalize with the running statistics;
+    * train: the batch mean, then the biased variance of the centred
+      values (two passes, flax ``use_fast_variance=False``), in fp32; with
+      a process group (``self.group``, flax ``axis_name``), each is averaged
+      over the ranks by a differentiable ``pmean``, so the backward carries
+      the cross-rank terms. The running statistics move as flax's do:
+      ``running = 0.9 running + 0.1 batch``, the *biased* variance kept
+      (``torch.nn.SyncBatchNorm`` keeps the unbiased one).
+
+    Both normalize as flax's ``_normalize``: ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias``. ``zero_init`` starts the scale at 0 (the last
+    norm of a residual branch)."""
+
+    momentum = 0.9  # flax BatchNorm(momentum=0.9): weight of the old value
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 zero_init: bool = False):
+        super().__init__()
+        self.eps = eps
+        self.zero_init = zero_init
+        self.group = None
+        self.weight = nn.Parameter(torch.zeros(features) if zero_init
+                                   else torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(0.0 if self.zero_init else 1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        if self.training:
+            axes = [d for d in range(x.ndim) if d != 1]
+            mean = self._average(xf.mean(dim=axes))
+            centered = xf - mean.view(shape)
+            var = self._average(centered.square().mean(dim=axes))
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(
+                    (1.0 - self.momentum) * mean.detach())
+                self.running_var.mul_(self.momentum).add_(
+                    (1.0 - self.momentum) * var.detach())
+        else:
+            var = self.running_var
+            centered = xf - self.running_mean.view(shape)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return centered * mul.view(shape) + self.bias.view(shape)
+
+    def _average(self, stat: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return stat
+        return pmean(stat, self.group, op="bn_pmean")
+
+
+def cross_replica_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Average every ``BatchNorm``'s batch statistics of ``model`` over the
+    ranks of the process group ``group`` (e.g.
+    ``torch.distributed.group.WORLD``; ``None``: local statistics again),
+    as flax's ``axis_name`` does. Returns ``model``."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.group = group
+    return model
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

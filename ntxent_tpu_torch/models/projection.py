@@ -1,19 +1,11 @@
 """SimCLR projection head and model, counterpart of
 ``ntxent_tpu/models/projection.py``.
 
-BatchNorm follows ``module.train()`` / ``.eval()`` as flax's follows
-``train``:
-
-* eval (serving): normalize with the running statistics (flax
-  ``use_running_average=True``);
-* train: normalize with the batch statistics over every row (all 2B rows
-  of the two views), in fp32, with a two-pass biased variance (flax
-  ``use_fast_variance=False``), and update the running statistics as
-  flax does with ``momentum=0.9``: ``running = 0.9 * running + 0.1 *
-  batch``, storing the *biased* variance (``F.batch_norm`` would store
-  the unbiased one, so the update is written out here).
-
-Both compute in fp32 and return the head's dtype.
+BatchNorm (``layers.BatchNorm``) follows ``module.train()`` / ``.eval()``
+as flax's follows ``train``: batch statistics over every row (all 2B rows
+of the two views) in train mode, across ranks when it has a process
+group (flax ``axis_name``), running statistics in eval mode. It computes
+in fp32; the head casts its output to the head's dtype.
 """
 
 from __future__ import annotations
@@ -23,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.oracle import cosine_normalize
-from .layers import Dense
+from .layers import BatchNorm, Dense
 
 __all__ = ["ProjectionHead", "SimCLRModel"]
 
@@ -36,33 +28,13 @@ class ProjectionHead(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.fc1 = Dense(in_dim, hidden_dim, dtype=dtype)
-        self.bn1 = nn.BatchNorm1d(hidden_dim, eps=1e-5)
+        self.bn1 = BatchNorm(hidden_dim)
         self.fc2 = Dense(hidden_dim, out_dim, bias=False, dtype=dtype)
 
-    momentum = 0.9  # flax BatchNorm(momentum=0.9): weight of the old value
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.fc1(x.to(self.dtype))
-        bn = self.bn1
-        if self.training:
-            x = self._batch_norm_train(x.float())
-        else:
-            x = F.batch_norm(x.float(), bn.running_mean, bn.running_var,
-                             bn.weight, bn.bias, training=False, eps=bn.eps)
+        x = self.bn1(self.fc1(x.to(self.dtype)))
         x = F.relu(x.to(self.dtype))
         return self.fc2(x).float()
-
-    def _batch_norm_train(self, x: torch.Tensor) -> torch.Tensor:
-        bn = self.bn1
-        mean = x.mean(dim=0)
-        centered = x - mean
-        var = centered.square().mean(dim=0)
-        with torch.no_grad():
-            bn.running_mean.mul_(self.momentum).add_(
-                (1.0 - self.momentum) * mean.detach())
-            bn.running_var.mul_(self.momentum).add_(
-                (1.0 - self.momentum) * var.detach())
-        return centered * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
 
 class SimCLRModel(nn.Module):

@@ -30,6 +30,7 @@ SOURCES: dict[str, Path] = {
     "flash_attention_bwd": _PACKAGE / "csrc" / "flash_attention_bwd.cu",
     "ntxent_fwd": _PACKAGE / "csrc" / "ntxent_fwd.cu",
     "ntxent_bwd_sym": _PACKAGE / "csrc" / "ntxent_bwd_sym.cu",
+    "ntxent_bwd_general": _PACKAGE / "csrc" / "ntxent_bwd_general.cu",
     "infonce_dual_fwd": _PACKAGE / "csrc" / "infonce_dual_fwd.cu",
     "infonce_dual_bwd": _PACKAGE / "csrc" / "infonce_dual_bwd.cu",
 }

@@ -1,5 +1,6 @@
-"""Single-card training of the port: SimCLR (LARS, two-view augmentation)
-and CLIP (AdamW, paired loading), seeded loading and the train steps."""
+"""Training of the port: SimCLR (LARS, two-view augmentation) on one card
+or data-parallel over ranks, CLIP (AdamW, paired loading) on one card,
+seeded loading and the train steps."""
 
 from .adamw import AdamW
 from .augment import augment_batch_pair
@@ -18,6 +19,7 @@ from .trainer import (
     create_clip_train_state,
     create_train_state,
     make_clip_train_step,
+    make_sharded_train_step,
     make_train_step,
     train_loop,
 )
@@ -38,6 +40,7 @@ __all__ = [
     "create_clip_train_state",
     "create_train_state",
     "make_clip_train_step",
+    "make_sharded_train_step",
     "make_train_step",
     "simclr_learning_rate",
     "train_loop",

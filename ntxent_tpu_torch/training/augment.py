@@ -8,8 +8,10 @@ p 0.2, separable Gaussian blur with p 0.5. Images are (B, H, W, C) in
 [0, 1], as in the JAX package.
 
 Every random parameter is a (B,) tensor drawn from an explicit
-``torch.Generator`` on the images' device; there is no Python loop over
-images. The deterministic transforms take those parameters as
+``torch.Generator`` on the images' device (``view_params``); there is no
+Python loop over images. A rank of a data-parallel run draws them for the
+whole global batch and applies its rows' share, so it sees the views one
+process would make. The deterministic transforms take those parameters as
 arguments (``resized_crop``, ``color_jitter``, ``gaussian_blur``, ...),
 which is how the tests hold each one to its JAX function at the JAX
 draws: the two frameworks' random streams cannot match.
@@ -23,10 +25,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["adjust_hue", "adjust_saturation", "augment_batch_pair",
-           "augment_views", "blur_kernel_size", "color_jitter",
-           "gaussian_blur", "grayscale", "resized_crop",
-           "scale_and_translate_weights"]
+__all__ = ["adjust_hue", "adjust_saturation", "apply_view",
+           "augment_batch_pair", "augment_views", "blur_kernel_size",
+           "color_jitter", "gaussian_blur", "grayscale", "resized_crop",
+           "scale_and_translate_weights", "view_params"]
 
 _RGB_TO_Y = (0.299, 0.587, 0.114)
 _YIQ_FROM_RGB = np.array([[0.299, 0.587, 0.114],
@@ -147,31 +149,57 @@ def _where(flag: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     return torch.where(flag[:, None, None, None], a, b)
 
 
-def augment_views(images: torch.Tensor,
-                  generator: torch.Generator) -> torch.Tensor:
-    """One SimCLR view of each image (strength 1, blur on), every parameter
-    drawn per image."""
-    b = images.shape[0]
+def view_params(batch: int, generator: torch.Generator,
+                device=None) -> dict[str, torch.Tensor]:
+    """The random parameters of one SimCLR view of each of ``batch``
+    images (strength 1, blur on): (batch,) tensors drawn from
+    ``generator`` in a fixed order."""
 
     def uniform(lo: float, hi: float) -> torch.Tensor:
-        return lo + (hi - lo) * torch.rand(b, generator=generator,
-                                           device=images.device)
+        return lo + (hi - lo) * torch.rand(batch, generator=generator,
+                                           device=device)
 
     def bernoulli(p: float) -> torch.Tensor:
-        return torch.rand(b, generator=generator, device=images.device) < p
+        return torch.rand(batch, generator=generator, device=device) < p
 
-    images = resized_crop(images, uniform(0.08, 1.0),
-                          uniform(math.log(3 / 4), math.log(4 / 3)),
-                          uniform(0.0, 1.0), uniform(0.0, 1.0))
-    images = _where(bernoulli(0.5), images.flip(2), images)
-    jittered = color_jitter(images, uniform(0.2, 1.8), uniform(0.2, 1.8),
-                            uniform(0.2, 1.8), uniform(-0.2, 0.2))
-    images = _where(bernoulli(0.8), jittered, images)
-    images = _where(bernoulli(0.2), grayscale(images), images)
-    return _where(bernoulli(0.5), gaussian_blur(images, uniform(0.1, 2.0)),
-                  images)
+    # a dict display evaluates in order: this is the order of the draws
+    return {"area": uniform(0.08, 1.0),
+            "log_ratio": uniform(math.log(3 / 4), math.log(4 / 3)),
+            "u_x": uniform(0.0, 1.0), "u_y": uniform(0.0, 1.0),
+            "flip": bernoulli(0.5),
+            "brightness": uniform(0.2, 1.8), "contrast": uniform(0.2, 1.8),
+            "saturation": uniform(0.2, 1.8), "hue": uniform(-0.2, 0.2),
+            "jitter": bernoulli(0.8), "gray": bernoulli(0.2),
+            "blur": bernoulli(0.5), "sigma": uniform(0.1, 2.0)}
 
 
-def augment_batch_pair(images: torch.Tensor, generator: torch.Generator):
-    """Two independent views of a batch (B, H, W, C) in [0, 1]."""
-    return augment_views(images, generator), augment_views(images, generator)
+def apply_view(images: torch.Tensor,
+               p: dict[str, torch.Tensor]) -> torch.Tensor:
+    """One view of each image at the parameters ``p`` (``view_params``)."""
+    images = resized_crop(images, p["area"], p["log_ratio"], p["u_x"],
+                          p["u_y"])
+    images = _where(p["flip"], images.flip(2), images)
+    jittered = color_jitter(images, p["brightness"], p["contrast"],
+                            p["saturation"], p["hue"])
+    images = _where(p["jitter"], jittered, images)
+    images = _where(p["gray"], grayscale(images), images)
+    return _where(p["blur"], gaussian_blur(images, p["sigma"]), images)
+
+
+def augment_views(images: torch.Tensor, generator: torch.Generator,
+                  total: int | None = None, offset: int = 0) -> torch.Tensor:
+    """One SimCLR view of each image. ``images`` may be rows ``offset ...``
+    of a batch of ``total`` images: the parameters are drawn for the whole
+    batch and the rows' share is applied, so a shard of the batch gets
+    exactly the views the whole batch would."""
+    b = images.shape[0]
+    p = view_params(b if total is None else total, generator, images.device)
+    return apply_view(images, {k: v[offset:offset + b] for k, v in p.items()})
+
+
+def augment_batch_pair(images: torch.Tensor, generator: torch.Generator,
+                       total: int | None = None, offset: int = 0):
+    """Two independent views of a batch (B, H, W, C) in [0, 1] (or of rows
+    ``offset ...`` of a batch of ``total``, see ``augment_views``)."""
+    return (augment_views(images, generator, total, offset),
+            augment_views(images, generator, total, offset))

@@ -12,6 +12,11 @@ of ``ntxent_tpu/training/datasets.py`` the single-card training path uses.
 * ``TwoViewPipeline``: loader batch -> device -> uint8 to [0, 1] (as at
   ``datasets.py:316-317``) -> two augmented views. The views' generator
   is seeded from (seed, epoch, offset): a seed gives the same views;
+* data parallelism: a loader of ``rank`` of ``world_size`` gathers rows
+  ``rank B/P ... (rank + 1) B/P`` of each global batch of ``B`` (the
+  batch one process would make), and its pipeline draws the views'
+  parameters for all ``B`` rows and applies its rows' share, so a world
+  of P ranks sees exactly the views a world of one sees;
 * ``PairedArrayLoader`` (CLIP): (images, tokens) batches of in-memory
   arrays in the same seeded per-epoch order (``datasets.py:368``, one
   shard); ``PairedPipeline`` moves each batch to the device once per step
@@ -48,14 +53,22 @@ class ArraySource:
 class StreamingLoader:
     """Seeded shuffling batch loader: (B, H, W, C) numpy batches forever,
     epoch after epoch, always whole batches (the remainder of an epoch is
-    dropped, as with the JAX loader's default ``drop_remainder=True``)."""
+    dropped, as with the JAX loader's default ``drop_remainder=True``).
+    With ``world_size`` > 1 it yields rank ``rank``'s rows of each global
+    batch of ``batch_size``."""
 
-    def __init__(self, source, batch_size: int, seed: int = 0):
+    def __init__(self, source, batch_size: int, seed: int = 0,
+                 rank: int = 0, world_size: int = 1):
         if len(source) < batch_size:
             raise ValueError(f"source of {len(source)} < batch {batch_size}")
+        if batch_size % world_size or not 0 <= rank < world_size:
+            raise ValueError(f"batch {batch_size} must split evenly over "
+                             f"{world_size} ranks (rank {rank})")
         self.source = source
         self.batch_size = batch_size
         self.seed = seed
+        self.local_batch = batch_size // world_size
+        self.row_offset = rank * self.local_batch  # first row of this rank
         self._epoch = 0
         self._offset = 0  # batches already yielded within the epoch
 
@@ -84,7 +97,8 @@ class StreamingLoader:
 
     def __iter__(self) -> Iterator[np.ndarray]:
         for idxs in self._indices():
-            yield np.stack([self.source[int(i)] for i in idxs])
+            rows = idxs[self.row_offset:self.row_offset + self.local_batch]
+            yield np.stack([self.source[int(i)] for i in rows])
 
 
 class TwoViewPipeline:
@@ -113,7 +127,8 @@ class TwoViewPipeline:
         x = torch.from_numpy(next(self._it)).to(self.device)
         if x.dtype == torch.uint8:
             x = x.to(torch.float32) / 255.0
-        return augment_batch_pair(x.float(), gen)
+        return augment_batch_pair(x.float(), gen, self.loader.batch_size,
+                                  self.loader.row_offset)
 
 
 class PairedArrayLoader(StreamingLoader):

@@ -1,5 +1,5 @@
-"""Single-card SimCLR and CLIP training, counterpart of the single-device
-paths of ``ntxent_tpu/training/trainer.py``.
+"""SimCLR and CLIP training, counterpart of the single-device paths and
+of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
 
 * ``TrainerConfig``: batch, temperature, LARS and schedule settings;
 * ``TrainState``: the model (fp32 parameters, BatchNorm statistics), its
@@ -16,6 +16,16 @@ paths of ``ntxent_tpu/training/trainer.py``.
   InfoNCE kernels on CUDA tensors (``ops.infonce.info_nce_fused``) and
   the oracle at temperature ``1 / scale`` on the CPU, as the JAX step
   does;
+* ``make_sharded_train_step(group, temperature)`` (``trainer.py:425``,
+  without the guard, the int8/bf16 wire or the MoE loss): each rank runs
+  both of its local views through the model in one forward (BatchNorm
+  statistics across ranks once ``models.cross_replica_batch_norm`` gave
+  the model the group), the strip loss (``parallel.dist_loss``), the
+  backward, the ``pmean`` of the gradients (``_ef_reduce_rule``) and of
+  the BatchNorm running statistics, and the same LARS update on every
+  rank. Each rank differentiates its own copy of the psum'd loss, so its
+  gradients are P times its share and their pmean is the gradient of the
+  global loss, as under JAX's ``shard_map``;
 * ``train_loop``: steps, loss, steps/s and images/s every ``log_every``.
 
 Not in this slice (``make_train_step`` raises ``NotImplementedError``
@@ -34,9 +44,12 @@ from collections.abc import Callable
 import torch
 from torch import nn
 
+from ..models.layers import BatchNorm
 from ..ops import oracle
 from ..ops.infonce import info_nce_fused
 from ..ops.ntxent import ntxent_loss_fused
+from ..parallel.dist_loss import local_ntxent_allgather
+from ..parallel.mesh import pmean_
 from .adamw import AdamW
 from .lars import LARS, cosine_warmup_schedule, exclusion_mask
 from .lars import simclr_learning_rate
@@ -45,11 +58,14 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["ROADMAP_ITEMS", "TrainState", "TrainerConfig",
            "create_clip_train_state", "create_train_state",
-           "make_clip_train_step", "make_train_step", "train_loop"]
+           "make_clip_train_step", "make_sharded_train_step",
+           "make_train_step", "train_loop"]
 
 # What training does not port yet, by the ROADMAP.md item that will.
 ROADMAP_ITEMS = {
-    "resnet": "ROADMAP.md Queue A 6 (ResNet-50 training)",
+    "stem": "ROADMAP.md Queue A 6(b) (the space-to-depth ResNet stem)",
+    "wire": "ROADMAP.md Queue A 3(e) (quantized collectives: "
+            "--collective-dtype bf16/int8 with error feedback)",
     "resilience": "ROADMAP.md Queue A 7 (checkpoints and training "
                   "resilience)",
     "data": "ROADMAP.md Queue A 7 (datasets beyond --dataset synthetic)",
@@ -134,6 +150,29 @@ def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
     return train_step
 
 
+def make_sharded_train_step(group=None,
+                            temperature: float = 0.1) -> Callable:
+    """``train_step(state, v1, v2) -> (state, {"loss": tensor})`` over the
+    ranks of ``group`` (``None``: the default group) with the strip loss;
+    ``v1``, ``v2`` are this rank's rows of the global batch. Every rank
+    returns the global loss and ends with the same parameters."""
+
+    def train_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
+        state.optimizer.zero_grad()
+        z = apply_two_views(state.model, v1, v2)
+        n = v1.shape[0]
+        loss = local_ntxent_allgather(z[:n], z[n:], temperature, group)
+        loss.backward()
+        pmean_([p.grad for p in state.model.parameters()], group)
+        pmean_([b for m in state.model.modules() if isinstance(m, BatchNorm)
+                for b in (m.running_mean, m.running_var)], group)
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return train_step
+
+
 def create_clip_train_state(model: nn.Module, config: TrainerConfig,
                             device: torch.device) -> TrainState:
     """CLIP model on ``device`` in train mode with the JAX CLI's optimizer:
@@ -185,12 +224,15 @@ def _sync(device: torch.device) -> None:
 
 def train_loop(state: TrainState, data_iter, train_step: Callable,
                num_steps: int, log_every: int = 50,
-               views: int = 2) -> list[dict]:
+               views: int = 2, ranks: int = 1,
+               log: bool = True) -> list[dict]:
     """Run ``num_steps`` steps; every ``log_every`` steps (and at the
     last) read the loss and log steps/s and images/s over the window.
     Images are those through the image encoder: ``views`` per row of the
-    batch, 2 for SimCLR's two views, 1 for CLIP's (image, text) pairs.
-    Returns one record per log point."""
+    batch, 2 for SimCLR's two views, 1 for CLIP's (image, text) pairs,
+    over all ``ranks`` of a data-parallel run (each holds the same number
+    of rows). ``log=False`` keeps the records and logs nothing (every
+    rank but 0). Returns one record per log point."""
     history = []
     device = next(state.model.parameters()).device
     _sync(device)
@@ -204,9 +246,11 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
             steps = i + 1 - last_step
             sps = steps / (now - last_t)
             entry = {"step": state.step, "loss": loss, "steps_per_sec": sps,
-                     "images_per_sec": sps * views * v1.shape[0]}
+                     "images_per_sec": sps * views * v1.shape[0] * ranks}
             history.append(entry)
-            logger.info("step %d loss %.4f (%.2f steps/s, %.1f images/s)",
-                        entry["step"], loss, sps, entry["images_per_sec"])
+            if log:
+                logger.info("step %d loss %.4f (%.2f steps/s, %.1f "
+                            "images/s)", entry["step"], loss, sps,
+                            entry["images_per_sec"])
             last_t, last_step = now, i + 1
     return history

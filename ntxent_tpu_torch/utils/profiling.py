@@ -34,11 +34,24 @@ vocabulary, embedding 512) at ``--batch`` pairs on fixed synthetic pairs,
 * traces 3 steps as ``--mode train`` does, and counts launches and peak
   device memory.
 
+``--mode dp`` (the data-parallel slice): one step of data-parallel
+ResNet-50 SimCLR (``make_sharded_train_step``, cross-replica BatchNorm,
+the strip loss) over an NCCL process group of world size 1 at
+``--batch`` (2B views at 224 px) on a fixed pair of augmented views,
+
+* times the step with CUDA events: step ms and images/s (2B per step);
+* times apart the encoder's forward and backward, the strip loss's
+  forward and backward, and the gradient pmean with the LARS update;
+* traces 3 steps as ``--mode train`` does (cuDNN's convolutions fall in
+  the ``matmul`` group, BatchNorm's element-wise passes in ``other``),
+  and counts launches and peak device memory.
+
 Run on the card, from the repository root:
 
     python -m ntxent_tpu_torch.utils.profiling --bucket 64 --impls flash,xla
     python -m ntxent_tpu_torch.utils.profiling --mode train --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode clip --batch 256
+    python -m ntxent_tpu_torch.utils.profiling --mode dp --batch 256
 
 The last line of the output is one JSON object with every number.
 """
@@ -60,9 +73,16 @@ _GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
 _KERNELS = (("flash_fwd_kernel", "flash_attention_fwd"),
             ("flash_dq_kernel", "flash_attention_dq"),
             ("flash_dkv_kernel", "flash_attention_dkv"),
+            ("ntxent_fwd_kernel<float, true>", "ntxent_fwd_general"),
+            ("ntxent_fwd_kernel<__nv_bfloat16, true>", "ntxent_fwd_general"),
             ("ntxent_fwd_kernel", "ntxent_fwd"),
             ("ntxent_loss_reduce", "ntxent_fwd"),
             ("ntxent_bwd_sym_kernel", "ntxent_bwd_sym"),
+            ("ntxent_bwd_general_kernel<float, false>",
+             "ntxent_bwd_general_rows"),
+            ("ntxent_bwd_general_kernel<__nv_bfloat16, false>",
+             "ntxent_bwd_general_rows"),
+            ("ntxent_bwd_general_kernel", "ntxent_bwd_general_cols"),
             ("infonce_dual_fwd_kernel", "infonce_dual_fwd"),
             ("infonce_loss_reduce", "infonce_dual_fwd"),
             ("infonce_dual_bwd_kernel", "infonce_dual_bwd"))
@@ -143,6 +163,9 @@ def launch_counters() -> dict:
             "flash_attention_dkv": attention.flash_attention_dkv,
             "ntxent_fwd": ntxent.ntxent_fwd,
             "ntxent_bwd_sym": ntxent.ntxent_bwd_sym,
+            "ntxent_fwd_general": ntxent.ntxent_fwd_general,
+            "ntxent_bwd_general_rows": ntxent.ntxent_bwd_general_rows,
+            "ntxent_bwd_general_cols": ntxent.ntxent_bwd_general_cols,
             "infonce_dual_fwd": infonce.infonce_dual_fwd,
             "infonce_dual_bwd": infonce.infonce_dual_bwd}
 
@@ -258,6 +281,83 @@ def clip_profile(batch: int, device) -> dict:
             "parts_ms": parts, **_traced_step(one_step)}
 
 
+def dp_profile(batch: int, device) -> dict:
+    """The numbers of ``--mode dp`` for one batch (see the module
+    docstring)."""
+    import tempfile
+
+    from ..cli import build_model, build_train_parser
+    from ..models import cross_replica_batch_norm
+    from ..parallel import mesh
+    from ..parallel.dist_loss import local_ntxent_allgather
+    from ..training import (
+        TrainerConfig,
+        augment_batch_pair,
+        create_train_state,
+        make_sharded_train_step,
+    )
+
+    args = build_train_parser().parse_args(
+        ["--model", "resnet50", "--image-size", str(IMAGE_SIZE), "--batch",
+         str(batch), "--seed", str(SEED)])
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_from_file(f"{tmp}/store", 0, 1, device)
+        try:
+            cfg = TrainerConfig(batch_size=batch,
+                                temperature=args.temperature,
+                                base_lr=args.base_lr, warmup_steps=1)
+            model = cross_replica_batch_norm(build_model(args),
+                                             torch.distributed.group.WORLD)
+            state = create_train_state(model, cfg, device)
+            step = make_sharded_train_step(None, cfg.temperature)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            images = torch.rand(batch, IMAGE_SIZE, IMAGE_SIZE, 3,
+                                generator=gen, device=device)
+            v1, v2 = augment_batch_pair(images, gen)
+            both = torch.cat([v1, v2])
+
+            def one_step():
+                step(state, v1, v2)
+
+            torch.cuda.reset_peak_memory_stats(device)
+            step_ms = cuda_time_ms(one_step, runs=5, warmup=2)
+            peak = torch.cuda.max_memory_allocated(device)
+
+            def encoder_fwd_bwd():
+                model.zero_grad(set_to_none=True)
+                model(both).sum().backward()
+
+            z = model(both).detach()
+            z1 = z[:batch].clone().requires_grad_()
+            z2 = z[batch:].clone().requires_grad_()
+
+            def loss_fwd_bwd():
+                local_ntxent_allgather(z1, z2, cfg.temperature).backward()
+
+            one_step()  # leaves this step's gradients for the update timing
+
+            def reduce_and_update():
+                mesh.pmean_([p.grad for p in model.parameters()])
+                state.optimizer.step()
+
+            parts = {
+                "encoder_fwd_bwd": cuda_time_ms(encoder_fwd_bwd, runs=3,
+                                                warmup=1),
+                "strip_loss_fwd_bwd": cuda_time_ms(loss_fwd_bwd, runs=5,
+                                                   warmup=1),
+            }
+            one_step()
+            parts["grad_pmean_lars_update"] = cuda_time_ms(
+                reduce_and_update, runs=5, warmup=1)
+            return {"batch": batch, "views_per_step": 2 * batch,
+                    "step_ms": step_ms,
+                    "images_per_s": 2 * batch / step_ms * 1e3,
+                    "peak_memory_bytes": peak, "parts_ms": parts,
+                    **_traced_step(one_step)}
+        finally:
+            mesh.shutdown()
+
+
 def main(argv=None) -> int:
     from ..cli import build_model, build_serve_parser
     from ..ops import attention
@@ -265,23 +365,26 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--mode", default="forward",
-                   choices=["forward", "train", "clip"])
+                   choices=["forward", "train", "clip", "dp"])
     p.add_argument("--bucket", type=int, default=64,
                    help="forward mode: batch size of the profiled forward")
     p.add_argument("--impls", default="flash,xla",
                    help="forward mode: comma list of --vit-attention values")
     p.add_argument("--batch", type=int, default=256,
-                   help="train and clip modes: --batch of the profiled step")
+                   help="train, clip and dp modes: --batch of the profiled "
+                        "step")
     args = p.parse_args(argv)
 
     device = resolve_device("cuda")
-    if args.mode in ("train", "clip"):
+    if args.mode in ("train", "clip", "dp"):
         card = card_power_line()
         print(f"card: {card}", flush=True)
-        profile = train_profile if args.mode == "train" else clip_profile
+        profile = {"train": train_profile, "clip": clip_profile,
+                   "dp": dp_profile}[args.mode]
         result = {"device": device_name(device), "card": card,
-                  "model": MODEL, "image_size": IMAGE_SIZE,
-                  "mode": args.mode, **profile(args.batch, device)}
+                  "model": "resnet50" if args.mode == "dp" else MODEL,
+                  "image_size": IMAGE_SIZE, "mode": args.mode,
+                  **profile(args.batch, device)}
         tag = f"[{args.mode}]"
         extra = (f"augment {result['augment_ms']:.3f} ms"
                  if args.mode == "train" else

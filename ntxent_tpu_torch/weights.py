@@ -3,10 +3,10 @@
 ``load_flax_variables(model, variables)`` takes flax variables,
 ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays
 (what ``jax.device_get`` returns), and copies them into the matching
-port module: ``SimCLRModel`` (ViT backbone), ``CLIPModel`` (ViT image
-tower), ``VisionTransformer``, ``TextTransformer``, ``EncoderBlock``,
-``SeqParallelSelfAttention``, ``MlpBlock`` or ``ProjectionHead``. The
-layout differences it handles:
+port module: ``SimCLRModel`` (ViT or ResNet backbone), ``CLIPModel``
+(ViT image tower), ``VisionTransformer``, ``ResNet``, ``TextTransformer``,
+``EncoderBlock``, ``SeqParallelSelfAttention``, ``MlpBlock`` or
+``ProjectionHead``. The layout differences it handles:
 
 * ``Dense`` kernels are (in, out); torch weights are (out, in).
 * ``patch_embed`` is an HWIO conv kernel (p, p, C, hidden) over NHWC
@@ -15,7 +15,11 @@ layout differences it handles:
 * ``DenseGeneral`` q/k/v kernels are (hidden, H, D) with (H, D) biases;
   ``out`` is (H, D, hidden).
 * BatchNorm ``scale``/``bias`` are parameters, ``mean``/``var`` live in
-  ``batch_stats``; ``fc2`` has no bias.
+  ``batch_stats`` and become buffers; ``fc2`` has no bias.
+* ResNet ``Conv`` kernels are HWIO; torch's are OIHW. A block's
+  convolutions and norms are flax's ``Conv_i``/``BatchNorm_i`` in order
+  (``convs.i``/``norms.i`` here), blocks ``BottleneckBlock_k`` or
+  ``BasicBlock_k`` numbered across the stages.
 * ``cls_token`` and ``pos_embed`` keep their (1, ., hidden) shapes; the
   text tower's ``Embed_0/embedding`` is the (vocab, hidden) table as is,
   and CLIP's ``logit_scale`` a scalar.
@@ -39,6 +43,7 @@ from torch import nn
 from .models.clip import CLIPModel, TextTransformer
 from .models.long_context import SeqParallelSelfAttention
 from .models.projection import ProjectionHead, SimCLRModel
+from .models.resnet import ResNet
 from .models.vit import EncoderBlock, MlpBlock, VisionTransformer
 
 __all__ = ["flax_paths", "load_flax_variables"]
@@ -150,27 +155,56 @@ def _clip(module, p, s, path) -> dict:
             | {"logit_scale": p.get(*path, "logit_scale")})
 
 
+def _batch_norm(p: _Tree, s: _Tree, path: tuple) -> dict:
+    return {"weight": p.get(*path, "scale"), "bias": p.get(*path, "bias"),
+            "running_mean": s.get(*path, "mean"),
+            "running_var": s.get(*path, "var")}
+
+
+def _conv(p: _Tree, path: tuple) -> dict:
+    return {"weight": p.get(*path, "kernel").transpose(3, 2, 0, 1)}  # OIHW
+
+
 def _head(module, p, s, path) -> dict:
     return (_prefixed("fc1", _dense(p, path + ("fc1",)))
-            | {"bn1.weight": p.get(*path, "bn1", "scale"),
-               "bn1.bias": p.get(*path, "bn1", "bias"),
-               "bn1.running_mean": s.get(*path, "bn1", "mean"),
-               "bn1.running_var": s.get(*path, "bn1", "var")}
+            | _prefixed("bn1", _batch_norm(p, s, path + ("bn1",)))
             | _prefixed("fc2", _dense(p, path + ("fc2",), bias=False)))
 
 
+def _resnet(module, p, s, path) -> dict:
+    out = (_prefixed("stem_conv", _conv(p, path + ("stem_conv",)))
+           | _prefixed("stem_bn", _batch_norm(p, s, path + ("stem_bn",))))
+    for k, block in enumerate(module.blocks):
+        bpath = path + (f"{type(block).__name__}_{k}",)
+        for i in range(len(block.convs)):
+            out |= _prefixed(f"blocks.{k}.convs.{i}",
+                             _conv(p, bpath + (f"Conv_{i}",)))
+            out |= _prefixed(f"blocks.{k}.norms.{i}",
+                             _batch_norm(p, s, bpath + (f"BatchNorm_{i}",)))
+        if block.proj_conv is not None:
+            out |= _prefixed(f"blocks.{k}.proj_conv",
+                             _conv(p, bpath + ("proj_conv",)))
+            out |= _prefixed(f"blocks.{k}.proj_bn",
+                             _batch_norm(p, s, bpath + ("proj_bn",)))
+    return out
+
+
 def _simclr(module, p, s, path) -> dict:
-    if not isinstance(module.backbone, VisionTransformer):
+    backbone = next((fn for cls, fn in ((VisionTransformer, _vit),
+                                        (ResNet, _resnet))
+                     if isinstance(module.backbone, cls)), None)
+    if backbone is None:
         raise TypeError(f"no flax layout for backbone "
                         f"{type(module.backbone).__name__}")
-    return (_prefixed("backbone", _vit(module.backbone, p, s,
-                                       path + ("backbone",)))
+    return (_prefixed("backbone", backbone(module.backbone, p, s,
+                                           path + ("backbone",)))
             | _prefixed("projector", _head(module.projector, p, s,
                                            path + ("projector",))))
 
 
 _CONVERTERS = ((SimCLRModel, _simclr), (CLIPModel, _clip),
-               (VisionTransformer, _vit), (TextTransformer, _text),
+               (VisionTransformer, _vit), (ResNet, _resnet),
+               (TextTransformer, _text),
                (EncoderBlock, _block), (SeqParallelSelfAttention, _attention),
                (MlpBlock, _mlp), (ProjectionHead, _head))
 
@@ -199,6 +233,8 @@ class _Leaf:
     def reshape(self, *shape) -> "_Leaf":
         return self
 
+    transpose = reshape
+
 
 class _PathTree:
     """A flax tree of ``_Leaf`` placeholders: ``get`` answers any path."""
@@ -226,8 +262,7 @@ def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
             raise KeyError(f"flax {tree.root} leaves with no torch "
                            f"counterpart: "
                            f"{sorted('/'.join(p) for p in unused)}")
-    state = {k: v for k, v in model.state_dict().items()
-             if not k.endswith("num_batches_tracked")}
+    state = model.state_dict()
     missing = set(state) - set(tensors)
     if missing:
         raise KeyError(f"torch tensors not covered by the flax variables: "

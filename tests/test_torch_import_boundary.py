@@ -87,4 +87,6 @@ def test_scan_sees_every_module():
             "models/clip.py", "training/adamw.py", "serving/server.py",
             "models/vit.py", "models/projection.py", "training/lars.py",
             "training/augment.py", "training/datasets.py",
-            "training/trainer.py", "utils/profiling.py"} <= names
+            "training/trainer.py", "utils/profiling.py", "models/resnet.py",
+            "parallel/__init__.py", "parallel/mesh.py",
+            "parallel/dist_loss.py"} <= names

@@ -6,9 +6,10 @@ on the card, where the JAX package's model code cannot load:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
 ``cuda``-marked tests hold each CUDA kernel (``ntxent_fwd``,
-``ntxent_bwd_sym``, ``flash_attention_dq``, ``flash_attention_dkv``,
-``infonce_dual_fwd``, ``infonce_dual_bwd``) to its plain version on the
-same card, and the differentiable wrappers'
+``ntxent_bwd_sym``, ``ntxent_fwd_general``, ``ntxent_bwd_general_rows``,
+``ntxent_bwd_general_cols``, ``flash_attention_dq``,
+``flash_attention_dkv``, ``infonce_dual_fwd``, ``infonce_dual_bwd``) to
+its plain version on the same card, and the differentiable wrappers'
 gradients to the same computation on the CPU; they skip here. The other
 tests run anywhere: the plain backward versions against torch autograd
 of the plain forwards, the CPU dispatch, the input checks and the build
@@ -20,6 +21,9 @@ Tolerances (max abs error against the plain version on the card):
   2e-4 on lse and loss_sum/2N (logits up to 1/T = 10), 2e-4 on the
   gradient; bf16 z: products of bf16 values are exact in fp32 on both
   sides, so the same bounds hold.
+* general NT-Xent (rows x columns with global ids), fp32 or bf16: the
+  same products in another order -> the symmetric bounds, 2e-4 on lse,
+  loss_sum/R and both gradients.
 * flash backward, fp32: summation order only -> 1e-4 on dq/dk/dv of
   unit-scale inputs. bf16: s and dp are exact-product fp32 sums on both
   sides; ds is rounded to bf16 before ds . K on both sides, but a
@@ -48,6 +52,9 @@ BWD_ATOL = {"float32": dict(dq=1e-4, dkv=1e-4),
 # (2N, D): the training path's shape, the north-star global batch, and a
 # ragged 2N with D != 2B.
 NTX_SHAPES = [(512, 128), (8192, 128), (1000, 96)]
+# (R, C, D) of the general kernels: one rank's strip of a 4-card world at
+# global batch 256 and at 4096, and a ragged shape with D != 2B.
+GENERAL_SHAPES = [(128, 512, 128), (2048, 8192, 128), (100, 1000, 96)]
 INFONCE_ATOL = 2e-4
 # (N, D): the CLIP path's shape (batch 256, embedding 512), a ragged N
 # that is no multiple of the 64-row tile, a narrower D, and N = 8192.
@@ -73,6 +80,30 @@ def _unit_rows(n, d, seed, device="cpu", dtype=torch.float32):
     gen = torch.Generator().manual_seed(seed)
     z = torch.nn.functional.normalize(torch.randn(n, d, generator=gen), dim=1)
     return z.to(device=device, dtype=dtype)
+
+
+def _general_case(rows, cols, seed, device="cpu", col_ids=False):
+    """(row_gid, col_gid, cols_actual, n_half) of a general-mode call.
+
+    Without ``col_ids``: the strip layout, the row ids of rank 3 of 4 over
+    ``cols`` gathered columns (ids: the index), one sentinel row id if
+    ``rows`` is not a whole rank. With ``col_ids``: columns that carry
+    scattered global ids of a 2 x ``cols`` problem (the ring's visiting
+    block), rows that share some of them, positives at +-``cols``."""
+    gen = torch.Generator().manual_seed(seed)
+    if not col_ids:
+        n_local = rows // 2
+        gid = 3 * n_local + torch.arange(n_local)
+        row_gid = torch.cat([gid, cols // 2 + gid])
+        if rows % 2:
+            row_gid = torch.cat([row_gid, torch.tensor([cols])])
+        return row_gid.to(device), None, cols, cols // 2
+    total = 2 * cols
+    col_gid = torch.randperm(total, generator=gen)[:cols]
+    row_gid = torch.cat([col_gid[:rows // 2],
+                         torch.randperm(total, generator=gen)[:rows
+                                                              - rows // 2]])
+    return row_gid.to(device), col_gid.to(device), total, total // 2
 
 
 def _oracle_loss(z, temperature):
@@ -137,6 +168,33 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
                                atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("col_ids", [False, True])
+def test_plain_general_backward_is_the_gradient_of_the_forward(col_ids):
+    zr = _unit_rows(9, 5, seed=2).requires_grad_()
+    zc = _unit_rows(14, 5, seed=3).requires_grad_()
+    row_gid, col_gid, total, n_half = _general_case(9, 14, 4, col_ids=col_ids)
+    kw = dict(col_gid=col_gid, cols_actual=total, n_half=n_half)
+    loss_sum, lse = N.ntxent_fwd_general_plain(zr, zc, row_gid, 0.1, **kw)
+    g_rows, g_cols = torch.autograd.grad(loss_sum, (zr, zc))
+    args = (zr.detach(), zc.detach(), row_gid, lse.detach(), 0.1)
+    torch.testing.assert_close(N.ntxent_bwd_general_rows(*args, **kw) / 0.1,
+                               g_rows, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(N.ntxent_bwd_general_cols(*args, **kw) / 0.1,
+                               g_cols, atol=1e-5, rtol=1e-5)
+
+
+def test_partial_losses_of_every_rank_sum_to_the_symmetric_loss():
+    z = _unit_rows(24, 6, seed=5)
+    full, _ = N.ntxent_fwd_plain(z, 0.1)
+    n = 3  # rows per view on each of 4 ranks
+    parts = [N.ntxent_partial_fused(
+        torch.cat([z[d * n:(d + 1) * n], z[12 + d * n:12 + (d + 1) * n]]), z,
+        torch.cat([d * n + torch.arange(n), 12 + d * n + torch.arange(n)]),
+        0.1) for d in range(4)]
+    # the same terms summed in another order: one fp32 ulp of the sum
+    torch.testing.assert_close(sum(parts) / 24, full / 24, atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("shape", [(7, 4), (6,), (0, 4)])
 def test_ntxent_rejects_odd_or_malformed_input(shape):
     with pytest.raises(ValueError):
@@ -154,8 +212,10 @@ def test_flash_backward_rejects_mismatched_shapes():
 
 
 @pytest.mark.parametrize("name,symbols", [
-    ("ntxent_fwd", ["ntx_ntxent_fwd"]),
+    ("ntxent_fwd", ["ntx_ntxent_fwd", "ntx_ntxent_fwd_general"]),
     ("ntxent_bwd_sym", ["ntx_ntxent_bwd_sym"]),
+    ("ntxent_bwd_general", ["ntx_ntxent_bwd_general_rows",
+                            "ntx_ntxent_bwd_general_cols"]),
     ("flash_attention_bwd", ["ntx_flash_attention_dq",
                              "ntx_flash_attention_dkv"]),
     ("infonce_dual_fwd", ["ntx_infonce_dual_fwd"]),
@@ -209,6 +269,65 @@ def test_cuda_ntxent_kernels_match_plain_versions(shape, dtype):
     # No atomics: the loss is bitwise repeatable.
     again, _ = N.ntxent_fwd(z, 0.1)
     assert again.item() == loss_sum.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_ids", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GENERAL_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}x{s[2]}")
+def test_cuda_general_ntxent_kernels_match_plain_versions(shape, dtype,
+                                                          col_ids):
+    dev = _cuda()
+    rows, cols, d = shape
+    tdt = getattr(torch, dtype)
+    zr = _unit_rows(rows, d, seed=rows, device=dev, dtype=tdt)
+    zc = _unit_rows(cols, d, seed=cols, device=dev, dtype=tdt)
+    row_gid, col_gid, total, n_half = _general_case(rows, cols, 6, dev,
+                                                    col_ids)
+    kw = dict(col_gid=col_gid, cols_actual=total, n_half=n_half)
+    wrappers = (N.ntxent_fwd_general, N.ntxent_bwd_general_rows,
+                N.ntxent_bwd_general_cols)
+    before = [w.launches for w in wrappers]
+    loss_sum, lse = N.ntxent_fwd_general(zr, zc, row_gid, 0.1, **kw)
+    g_rows = N.ntxent_bwd_general_rows(zr, zc, row_gid, lse, 0.1, **kw)
+    g_cols = N.ntxent_bwd_general_cols(zr, zc, row_gid, lse, 0.1, **kw)
+    loss_ref, lse_ref = N.ntxent_fwd_general_plain(zr, zc, row_gid, 0.1,
+                                                   **kw)
+    g_rows_ref = N.ntxent_bwd_general_rows_plain(zr, zc, row_gid, lse_ref,
+                                                 0.1, **kw)
+    g_cols_ref = N.ntxent_bwd_general_cols_plain(zr, zc, row_gid, lse_ref,
+                                                 0.1, **kw)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]
+    assert lse.dtype == g_rows.dtype == g_cols.dtype == torch.float32
+    torch.testing.assert_close(lse, lse_ref, atol=NTX_ATOL, rtol=0)
+    torch.testing.assert_close(loss_sum / rows, loss_ref / rows,
+                               atol=NTX_ATOL, rtol=0)
+    torch.testing.assert_close(g_rows, g_rows_ref, atol=NTX_ATOL, rtol=0)
+    torch.testing.assert_close(g_cols, g_cols_ref, atol=NTX_ATOL, rtol=0)
+    again, _ = N.ntxent_fwd_general(zr, zc, row_gid, 0.1, **kw)
+    assert again.item() == loss_sum.item()
+
+
+@pytest.mark.cuda
+def test_cuda_ntxent_partial_fused_gradients_match_the_cpu():
+    dev = _cuda()
+    zr_cpu = _unit_rows(128, 128, seed=31).requires_grad_()
+    zc_cpu = _unit_rows(512, 128, seed=32).requires_grad_()
+    row_gid = _general_case(128, 512, 0)[0]
+    zr_gpu, zc_gpu = (t.detach().to(dev).requires_grad_()
+                      for t in (zr_cpu, zc_cpu))
+    loss_cpu = N.ntxent_partial_fused(zr_cpu, zc_cpu, row_gid, 0.1)
+    loss_gpu = N.ntxent_partial_fused(zr_gpu, zc_gpu, row_gid.to(dev), 0.1)
+    loss_cpu.backward()
+    loss_gpu.backward()
+    # a sum of 128 row losses (~840): compare it per row, as loss_sum / R
+    torch.testing.assert_close(loss_gpu.cpu() / 128, loss_cpu.detach() / 128,
+                               atol=1e-5, rtol=0)
+    for c, g in ((zr_cpu, zr_gpu), (zc_cpu, zc_gpu)):
+        torch.testing.assert_close(g.grad.cpu(), c.grad, atol=1e-5,
+                                   rtol=1e-4)
 
 
 @pytest.mark.cuda

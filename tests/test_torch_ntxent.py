@@ -3,8 +3,10 @@ backward against the JAX package.
 
 The same numpy inputs go through both packages. On the JAX side the
 Pallas kernels run in interpret mode, as the JAX package's own tests run
-them on the CPU: ``_fwd_call``/``_bwd_sym_call`` (Queue B #1, #5) and
-``flash_dq_hop``/``flash_dkv_hop`` (#13, #14). On the port's side CPU
+them on the CPU: ``_fwd_call``/``_bwd_sym_call`` (Queue B #1, #5),
+``ntxent_partial_fused``/``block_lse``/``block_grads`` (#1 in its general
+mode and ``_bwd_general_call``, #6) and ``flash_dq_hop``/
+``flash_dkv_hop`` (#13, #14). On the port's side CPU
 tensors take the kernels' plain versions, so these tests hold the
 arithmetic that the CUDA kernels replace; ``test_torch_kernels_cuda.py``
 holds the CUDA kernels to those plain versions on the card.
@@ -15,6 +17,11 @@ Tolerances, all absolute:
   another order (logits up to 1/T = 10) -> 2e-5 on lse and loss/2N,
   1e-5 on grad. bf16 z: products of bf16 values are exact in fp32 on
   both sides -> the same bounds.
+* general mode (rows x columns with global ids), fp32: the same fp32
+  products summed in another order -> 1e-5 on loss_sum/R, lse and both
+  gradients. bf16 embeddings: the products are exact on both sides, and
+  the partial loss's gradients are cast to bf16 on both sides -> 1e-5 on
+  the loss, one bf16 ulp of the gradients' size (2e-3).
 * flash backward fp32: summation order only -> 1e-5. bf16: dq rounds ds
   to bf16 on both sides, and a one-ulp flip between summation orders
   moves dq by up to 2**-8 |ds| |k| -> 1e-2; dk/dv stay fp32 on both
@@ -35,12 +42,16 @@ from ntxent_tpu.ops.attention_pallas import _flash_fwd, flash_dkv_hop
 from ntxent_tpu.ops.attention_pallas import flash_attention as jflash
 from ntxent_tpu.ops.attention_pallas import flash_dq_hop
 from ntxent_tpu.ops.ntxent_pallas import (
+    _bwd_general_call,
     _bwd_sym_call,
     _fwd_call,
     _gid_column,
     _pad_rows,
 )
+from ntxent_tpu.ops.ntxent_pallas import block_grads as jblock_grads
+from ntxent_tpu.ops.ntxent_pallas import block_lse as jblock_lse
 from ntxent_tpu.ops.ntxent_pallas import ntxent_loss_fused as jfused
+from ntxent_tpu.ops.ntxent_pallas import ntxent_partial_fused as jpartial
 from ntxent_tpu_torch import api as tapi
 from ntxent_tpu_torch.ops import attention as tattn
 from ntxent_tpu_torch.ops import ntxent as tntx
@@ -220,6 +231,118 @@ def test_reference_api_object_and_probe():
     assert isinstance(tapi.check_tensor_core_support(), bool)
     with pytest.raises(ValueError):
         tapi.forward(torch.zeros(4, 2), compat="bogus")
+
+
+# ---------------------------------------------------------------------------
+# General mode: the data-parallel partial loss and the ring's blocks
+# ---------------------------------------------------------------------------
+
+# (name, rows per view on this rank n, ranks P, rank d, D, extra sentinel
+# rows): strips of the stacked views [view 1 of every rank; view 2 of
+# every rank] with 2N = 2 n P columns.
+STRIPS = [("rank1_of_4", 8, 4, 1, 32, 0),
+          ("middle_rank_odd_n", 7, 4, 2, 40, 0),
+          ("ragged_with_padding_rows", 5, 3, 1, 24, 3)]
+
+
+def _strip(n, ranks, rank, dim, pad, dtype, seed):
+    """(z_rows, z_cols, row_gid) of one rank's strip; ``pad`` padding rows
+    carry the sentinel id 2N, as ``_gid_column`` pads them."""
+    two_n = 2 * n * ranks
+    z_cols = _embeddings(two_n, dim, dtype, seed)
+    base = rank * n + np.arange(n)
+    gid = np.concatenate([base, n * ranks + base,
+                          np.full(pad, two_n)]).astype(np.int32)
+    z_rows = np.concatenate([z_cols[gid[:2 * n]],
+                             _embeddings(pad, dim, dtype, seed + 1)])
+    return z_rows, z_cols, gid
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strip", STRIPS, ids=lambda s: s[0])
+def test_partial_fused_loss_and_gradients_match_jax(strip, dtype):
+    _, n, ranks, rank, dim, pad = strip
+    z_rows, z_cols, gid = _strip(n, ranks, rank, dim, pad, dtype, seed=11)
+    jdt = getattr(jnp, dtype)
+    loss_j, (g_rows_j, g_cols_j) = jax.value_and_grad(
+        lambda a, b: jpartial(a, b, jnp.asarray(gid), 0.1, block_rows=BR,
+                              block_cols=BC, interpret=True),
+        argnums=(0, 1))(jnp.asarray(z_rows, jdt), jnp.asarray(z_cols, jdt))
+    zr = _torch(z_rows, dtype).requires_grad_()
+    zc = _torch(z_cols, dtype).requires_grad_()
+    loss = tntx.ntxent_partial_fused(zr, zc, torch.from_numpy(gid), 0.1)
+    loss.backward()
+    assert zr.grad.dtype == zc.grad.dtype == zr.dtype
+    rows = z_rows.shape[0]
+    np.testing.assert_allclose(loss.item() / rows, float(loss_j) / rows,
+                               atol=1e-5, rtol=0)
+    atol = 1e-5 if dtype == "float32" else 2e-3
+    for got, want in ((zr.grad, g_rows_j), (zc.grad, g_cols_j)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), atol=atol,
+                                   rtol=0)
+    # padding rows add no loss and get a zero gradient
+    assert not zr.grad[2 * n:].any()
+
+
+@pytest.mark.parametrize("n_half", ["ring", "positives"])
+def test_general_kernels_with_column_ids_match_block_lse_and_grads(n_half):
+    """Columns that carry scattered global ids (``col_gid``): the ring
+    loss's visiting block. ``block_lse``/``block_grads`` disable positives
+    (n_half = total); with n_half = total / 2 the rows' positives are
+    among the columns, as the kernels also allow."""
+    rng = np.random.default_rng(12)
+    total, rows, cols, dim = 160, 21, 37, 24
+    col_gid = rng.permutation(total)[:cols].astype(np.int32)
+    row_gid = np.concatenate([col_gid[:9], rng.permutation(total)[:rows - 9]]
+                             ).astype(np.int32)
+    if n_half == "positives":  # rows whose positive is a visiting column
+        row_gid[:5] = (col_gid[10:15] + total // 2) % total
+    z_rows, z_cols = _embeddings(rows, dim, seed=13), _embeddings(cols, dim,
+                                                                 seed=14)
+    half = total if n_half == "ring" else total // 2
+    kw = dict(col_gid=torch.from_numpy(col_gid), cols_actual=total,
+              n_half=half)
+    args = (_torch(z_rows), _torch(z_cols), torch.from_numpy(row_gid))
+    loss_sum, lse = tntx.ntxent_fwd_general(*args, 0.1, **kw)
+    g_rows = tntx.ntxent_bwd_general_rows(*args, lse, 0.1, **kw)
+    g_cols = tntx.ntxent_bwd_general_cols(*args, lse, 0.1, **kw)
+    if n_half == "ring":
+        jargs = (jnp.asarray(z_rows), jnp.asarray(z_cols),
+                 jnp.asarray(row_gid), jnp.asarray(col_gid), 0.1, total)
+        jkw = dict(block_rows=BR, block_cols=BC, interpret=True)
+        lse_j = np.asarray(jblock_lse(*jargs, **jkw))
+        g_rows_j, g_cols_j = jblock_grads(*jargs[:4], jnp.asarray(lse_j),
+                                          *jargs[4:], **jkw)
+    else:
+        cg = _pad_rows(jnp.asarray(col_gid)[:, None], BC)[:, 0]
+        cg = cg.at[cols:].set(total)
+        zr, zc = _pad_rows(jnp.asarray(z_rows), BR), _pad_rows(
+            jnp.asarray(z_cols), BC)
+        gid = _gid_column(jnp.asarray(row_gid), BR, sentinel=total)
+        jkw = dict(br=BR, bc=BC, inv_t=1.0 / 0.1, cols_actual=total,
+                   n_half=half, interpret=True, col_gid=cg)
+        loss_j, lse_p = _fwd_call(zr, zc, gid, **jkw)
+        g_rows_j, g_cols_j = _bwd_general_call(zr, zc, gid, lse_p, **jkw)
+        lse_j = np.asarray(lse_p)[:rows, 0]
+        g_rows_j, g_cols_j = g_rows_j[:rows], g_cols_j[:cols]
+        np.testing.assert_allclose(loss_sum.item() / rows,
+                                   float(loss_j) / rows, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), lse_j, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(g_rows.numpy(), np.asarray(g_rows_j),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(g_cols.numpy(), np.asarray(g_cols_j),
+                               atol=1e-5, rtol=0)
+
+
+def test_partial_fused_refuses_an_odd_global_count_and_bad_ids():
+    z = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="even"):
+        tntx.ntxent_partial_fused(z, torch.zeros(7, 3), torch.arange(4), 0.1)
+    with pytest.raises(ValueError, match="row_gid"):
+        tntx.ntxent_partial_fused(z, torch.zeros(8, 3), torch.arange(3), 0.1)
+    with pytest.raises(ValueError, match="share D"):
+        tntx.ntxent_partial_fused(z, torch.zeros(8, 2), torch.arange(4), 0.1)
 
 
 # ---------------------------------------------------------------------------

@@ -448,11 +448,13 @@ def test_train_cli_defaults_match_the_jax_cli():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model", "resnet50"], ["--objective", "clip", "--remat"],
+    ["--model", "resnet50", "--stem", "space_to_depth"],
+    ["--objective", "clip", "--remat"],
     ["--dataset", "npy"],
     ["--parallel", "tp"], ["--fsdp"], ["--remat"], ["--accum-steps", "2"],
     ["--ckpt-dir", "ck"], ["--nan-policy", "skip"], ["--moe-experts", "4"],
-    ["--max-restarts", "1"]], ids=lambda f: f[0])
+    ["--max-restarts", "1"], ["--dp-loss", "pair"],
+    ["--collective-dtype", "int8"]], ids=lambda f: f[0])
 def test_train_cli_names_the_roadmap_item_for_unported_flags(flags):
     args = cli.build_train_parser().parse_args(CPU_ARGV + flags)
     with pytest.raises(SystemExit, match="ROADMAP.md Queue A"):
