@@ -10,6 +10,15 @@ Phases; any failure ends the run with a non-zero exit and no result:
 1. card: its name and power limit;
 2. build: every CUDA kernel source in ``ntxent_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together, timed;
+2a. data-parallel InfoNCE kernels: ``infonce_dual_fwd_rect`` (#9's
+   rectangular stats-only mode), ``infonce_bwd_rows`` (#5's cross-modal
+   mode) and ``infonce_bwd_cols`` (#4) against their plain versions at
+   (rows, cols, D) = (256, 256, 512) (the path of this run), (64, 256,
+   512) (one rank of 4 at batch 256), (1024, 4096, 512) (one rank of 4 at
+   batch 4096) and a ragged (101, 1000, 96) with scattered ids and a
+   padding row, fp32 and bf16, bitwise repeatable; CUDA-event times
+   beside the bound; and the symmetric ``ntxent_fwd`` re-timed over 200
+   launches;
 3. kernels: each hand-written kernel against its plain version on the
    card -- ``flash_attention_fwd`` (the ViT-B/16 serving and training
    shapes in bf16 and fp32, causal cases with q_offset != k_offset and
@@ -63,7 +72,10 @@ Phases; any failure ends the run with a non-zero exit and no result:
 10. four ranks emulated on one card: the per-rank strip losses and row and
    column gradients of P = 4 at global batch 256, summed and scattered as
    the all-gather's backward does, against the single-card symmetric loss
-   and gradient;
+   and gradient; then four CLIP ranks at global batch 256 (D = 512):
+   each rank's rectangular forward, the column lse merged by hand, each
+   rank's rows and columns gradients, against the single-card
+   ``info_nce_fused`` loss and gradients;
 11. data-parallel train: ResNet-50 SimCLR through
    ``cli.train(..., data_parallel=True)`` over a real NCCL process group
    of world size 1 (a ``FileStore``), ``--image-size 224 --batch 256
@@ -74,6 +86,17 @@ Phases; any failure ends the run with a non-zero exit and no result:
 12. device-count parity: one fp32 ResNet-50 step (batch 8) of the
    data-parallel step at world 1 against the single-card step from the
    same weights and views, cuDNN's TF32 off;
+12a. data-parallel CLIP train: ``ntxent-train --objective clip --model
+   vit_b16 --vit-attention flash --image-size 224 --batch 256 --steps 5``
+   through ``cli.train(..., data_parallel=True)`` in the same NCCL group
+   of world 1: finite losses, exactly 1/1/1 launches per step of the
+   rectangular forward and the rows and columns kernels and 12/12/12 of
+   the flash kernels, no other loss kernel, a nonzero gradient on the
+   logit scale and every q/k/v weight of both towers; step ms, images/s,
+   peak memory;
+12b. its parity: one fp32 CLIP ViT-B/16 step (batch 4) of the
+   data-parallel step at world 1 against the single-card CLIP step, TF32
+   off;
 13. one JSON line describing each kernel of the paths;
 14. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -233,6 +256,38 @@ DP_STEP_LAUNCHES = {"ntxent_fwd_general": 1, "ntxent_bwd_general_rows": 1,
 # the cross-replica BatchNorm's all-reduces at world 1 -> the fp32 train
 # parity tolerances.
 DP_PARITY_BATCH = 8
+
+# Data-parallel CLIP kernels (#9 rectangular, #5 cross-modal, #4): (rows,
+# cols, D) of one rank's za rows against the gathered zb. A world of one
+# at --batch 256 (the path of this run), one rank of 4 at batch 256, one
+# rank of 4 at a global batch of 4096 (where the TPU package's backward
+# takes its two-kernel fallback), and a ragged shape with scattered row
+# ids and a padding row (id = cols). Tolerances: INFONCE_ATOL, for its
+# reasons (the same exact products summed in another order).
+DP_CLIP_SHAPES = [(256, 256, 512), (64, 256, 512), (1024, 4096, 512),
+                  (101, 1000, 96)]
+DP_CLIP_SCALE = 1 / 0.07  # CLIP's initial exp(logit_scale)
+# Four ranks of a world of 4 on one card at global batch 256 (D = 512):
+# the merged partial losses and gradients against the single-card
+# info_nce_fused: the same terms summed in another order -> 1e-5 on the
+# mean loss, 1e-4 on each relative gradient.
+DP_CLIP_LOSS_ATOL, DP_CLIP_GRAD_RTOL = 1e-5, 1e-4
+CLIP_DP_STEPS = 5
+CLIP_DP_ARGV = ["--objective", "clip", "--model", "vit_b16",
+                "--vit-attention", "flash", "--image-size", "224", "--batch",
+                "256", "--steps", str(CLIP_DP_STEPS), "--base-lr", "5e-4",
+                "--warmup-steps", "1", "--device", "cuda", "--log-every",
+                "1"]
+# Kernel launches per data-parallel CLIP step: the rectangular forward and
+# the two backward kernels once, the image tower's flash kernels 12 times;
+# no other loss kernel.
+CLIP_DP_STEP_LAUNCHES = {"infonce_dual_fwd_rect": 1, "infonce_bwd_rows": 1,
+                         "infonce_bwd_cols": 1, "flash_attention_fwd": 12,
+                         "flash_attention_dq": 12, "flash_attention_dkv": 12}
+# The symmetric ntxent_fwd re-timed beside the data-parallel InfoNCE
+# kernels over more launches than the other timings: ten launches of a
+# ~0.1 ms kernel do not separate its modes' times.
+SYM_RETIME_RUNS = 200
 
 SERVE_ARGV = ["--model", "vit_b16", "--vit-attention", "flash",
               "--image-size", "224", "--head", "embedding",
@@ -1331,6 +1386,343 @@ def phase_dp_parity() -> None:
              "single-card step")
 
 
+def _dp_clip_ids(rows: int, cols: int, seed: int):
+    """Global row ids on the card: the rows of rank cols / rows - 1 where
+    rows divide cols (rank 0 of a world of one at rows == cols), else
+    scattered ids with a padding row (id = cols) last."""
+    import torch
+
+    if cols % rows == 0:
+        first = cols - rows
+        return (first + torch.arange(rows, dtype=torch.int32)).cuda()
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randperm(cols, generator=gen)[:rows].to(torch.int32)
+    ids[-1] = cols
+    return ids.cuda()
+
+
+def _dp_clip_loss(za, zb, gid, scale, lse_a, lse_b):
+    """The partial loss sum of the rows from the lse, as
+    ``info_nce_dual_partial`` assembles it (a padding row's id clamped)."""
+    import torch
+
+    idx = gid.long().clamp(max=zb.shape[0] - 1)
+    pos = scale * torch.sum(za.float() * zb.float()[idx], dim=1)
+    return torch.sum(lse_a - pos) + torch.sum(lse_b[idx] - pos)
+
+
+def _dp_clip_bounds(rows: int, cols: int, d: int, itemsize: int):
+    """Bounds of #9 rectangular, #5 cross-modal and #4 at (rows, cols, D):
+    each input read once (za, zb, the scale; the row ids and both lse for
+    the backward), each output written once; 2 R C D and 4 R C D
+    operations at the fp32 peak (bf16 inputs are widened to fp32)."""
+    z = (rows + cols) * d * itemsize + 4
+    lse = (rows + cols) * 4
+    return (_bound(z + lse, 2 * rows * cols * d, PEAK_FP32_FLOPS),
+            _bound(z + rows * 4 + lse + rows * d * 4, 4 * rows * cols * d,
+                   PEAK_FP32_FLOPS),
+            _bound(z + rows * 4 + lse + cols * d * 4, 4 * rows * cols * d,
+                   PEAK_FP32_FLOPS))
+
+
+def phase_dp_clip_kernels() -> tuple[list[dict], float]:
+    """#9 rectangular, #5 cross-modal and #4 against their plain versions,
+    then times at every fp32 shape but the ragged one; and the symmetric
+    #1 re-timed in the same call. Returns the kernel entries and the
+    symmetric #1's ms."""
+    import torch
+
+    from ntxent_tpu_torch.ops import infonce as I
+    from ntxent_tpu_torch.ops import ntxent
+    from ntxent_tpu_torch.utils.profiling import cuda_time_ms
+
+    scale = torch.tensor(DP_CLIP_SCALE, dtype=torch.float32, device="cuda")
+    errs = {}
+    for rows, cols, d in DP_CLIP_SHAPES:
+        gid = _dp_clip_ids(rows, cols, seed=rows)
+        for dtype in ("float32", "bfloat16"):
+            za = _unit_rows(rows, d, dtype, seed=rows + d)
+            zb = _unit_rows(cols, d, dtype, seed=cols + d + 1)
+
+            def run():
+                lse_a, lse_b = I.infonce_dual_fwd_rect(za, zb, scale)
+                return (lse_a, lse_b,
+                        I.infonce_bwd_rows(za, zb, gid, scale, lse_a, lse_b),
+                        I.infonce_bwd_cols(za, zb, gid, scale, lse_a, lse_b),
+                        _dp_clip_loss(za, zb, gid, scale, lse_a, lse_b))
+
+            got, again = run(), run()
+            lse_a, lse_b, o_a, o_b, loss = got
+            ref = I.infonce_dual_fwd_rect_plain(za, zb, scale)
+            ref_oa = I.infonce_bwd_rows_plain(za, zb, gid, scale, lse_a,
+                                              lse_b)
+            ref_ob = I.infonce_bwd_cols_plain(za, zb, gid, scale, lse_a,
+                                              lse_b)
+            torch.cuda.synchronize()
+            fwd_err = max((lse_a - ref[0]).abs().max().item(),
+                          (lse_b - ref[1]).abs().max().item())
+            rows_err = (o_a - ref_oa).abs().max().item()
+            cols_err = (o_b - ref_ob).abs().max().item()
+            repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+            ok = (max(fwd_err, rows_err, cols_err) <= INFONCE_ATOL
+                  and repeat and bool(torch.isfinite(loss)))
+            print(f"[dp-clip-kernel] R={rows} C={cols} D={d} {dtype}: rect "
+                  f"fwd max|err| {fwd_err:.3e}, #5 rows {rows_err:.3e}, #4 "
+                  f"cols {cols_err:.3e} (atol {INFONCE_ATOL:g}); lse, o_a, "
+                  f"o_b and the loss bitwise repeatable {repeat} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail(f"the data-parallel InfoNCE kernels disagree with "
+                     f"their plain versions at R={rows} C={cols} D={d} "
+                     f"{dtype}")
+            if (rows, cols, dtype) == (256, 256, "float32"):
+                errs = {"infonce_dual_fwd_rect": fwd_err,
+                        "infonce_bwd_rows": rows_err,
+                        "infonce_bwd_cols": cols_err}
+            del za, zb, got, again, ref_oa, ref_ob
+
+    times = {}
+    for rows, cols, d in DP_CLIP_SHAPES[:3]:
+        za = _unit_rows(rows, d, "float32", seed=1)
+        zb = _unit_rows(cols, d, "float32", seed=2)
+        gid = _dp_clip_ids(rows, cols, seed=0)
+        lse_a, lse_b = I.infonce_dual_fwd_rect(za, zb, scale)
+        args = (za, zb, gid, scale, lse_a, lse_b)
+        ms = (cuda_time_ms(lambda: I.infonce_dual_fwd_rect(za, zb, scale)),
+              cuda_time_ms(lambda: I.infonce_bwd_rows(*args)),
+              cuda_time_ms(lambda: I.infonce_bwd_cols(*args)))
+        plain = (cuda_time_ms(
+            lambda: I.infonce_dual_fwd_rect_plain(za, zb, scale)),
+            cuda_time_ms(lambda: I.infonce_bwd_rows_plain(*args)),
+            cuda_time_ms(lambda: I.infonce_bwd_cols_plain(*args)))
+        bounds = _dp_clip_bounds(rows, cols, d, 4)
+        print(f"[dp-clip-kernel] R={rows} C={cols} D={d} fp32: rect fwd "
+              f"{ms[0]:.4f} ms (plain {plain[0]:.4f}, bound "
+              f"{bounds[0][0]:.5f} by {bounds[0][1]}), #5 rows {ms[1]:.4f} "
+              f"ms (plain {plain[1]:.4f}, bound {bounds[1][0]:.5f} by "
+              f"{bounds[1][1]}), #4 cols {ms[2]:.4f} ms (plain "
+              f"{plain[2]:.4f}, bound {bounds[2][0]:.5f} by "
+              f"{bounds[2][1]}); no single PyTorch call computes them, so "
+              f"there is no library time", flush=True)
+        times[rows, cols] = (ms, plain, bounds)
+        del za, zb, args
+
+    z = _unit_rows(*NTX_SHAPES[0], "float32", seed=0)
+    sym_ms = cuda_time_ms(lambda: ntxent.ntxent_fwd(z, NTX_TEMPERATURE),
+                          runs=SYM_RETIME_RUNS, warmup=20)
+    print(f"[dp-clip-kernel] symmetric ntxent_fwd re-timed at 2N="
+          f"{NTX_SHAPES[0][0]}, D={NTX_SHAPES[0][1]} fp32 over "
+          f"{SYM_RETIME_RUNS} launches: {sym_ms:.4f} ms", flush=True)
+
+    names = ("infonce_dual_fwd_rect", "infonce_bwd_rows", "infonce_bwd_cols")
+    replaces = (
+        "ntxent_tpu/ops/infonce_pallas.py:75 (_dual_fwd_kernel in its "
+        "rectangular stats_only mode, _dual_fwd_call :165)",
+        "ntxent_tpu/ops/ntxent_pallas.py:445 (_bwd_sym_kernel in its "
+        "cross-modal mode, _bwd_sym_call :612)",
+        "ntxent_tpu/ops/ntxent_pallas.py:479 (_bwd_sym_cols_kernel, "
+        "_bwd_sym_cols_call :516)")
+    sources = ("ntxent_tpu_torch/csrc/infonce_dual_fwd.cu",
+               "ntxent_tpu_torch/csrc/infonce_dual_bwd.cu",
+               "ntxent_tpu_torch/csrc/infonce_bwd_cols.cu")
+    out = []
+    for i, name in enumerate(names):
+        ms, plain, bounds = times[256, 256]
+        entry = {"name": name, "route": "cuda", "source": sources[i],
+                 "replaces": replaces[i], "checked": True, "launches": None,
+                 "max_abs_err": errs[name], "ms": ms[i],
+                 "plain_ms": plain[i], "bound_ms": bounds[i][0],
+                 "bound_by": bounds[i][1], "library_ms": None}
+        for (rows, cols), tag in (((64, 256), "rank4"),
+                                  ((1024, 4096), "rank4_b4096")):
+            ms, plain, bounds = times[rows, cols]
+            entry |= {f"{tag}_ms": ms[i], f"{tag}_plain_ms": plain[i],
+                      f"{tag}_bound_ms": bounds[i][0]}
+        out.append(entry)
+    return out, sym_ms
+
+
+def phase_dp_clip_emulated_ranks() -> None:
+    """P = 4 ranks of global batch 256 (D = 512) one after another on the
+    card: each rank's rectangular forward, the column lse merged by hand
+    (max, then log-sum-exp), each rank's rows and columns gradients; the
+    partial losses summed, the za rows concatenated, the zb partials and
+    the scale's shares summed, against the single-card info_nce_fused
+    loss and its gradients."""
+    import torch
+
+    from ntxent_tpu_torch.ops import infonce as I
+
+    p, batch, d = EMULATED_RANKS, EMULATED_BATCH, 512
+    za = _unit_rows(batch, d, "float32", seed=11)
+    zb = _unit_rows(batch, d, "float32", seed=12)
+    scale = torch.tensor(DP_CLIP_SCALE, dtype=torch.float32, device="cuda")
+    n = batch // p
+    parts = []
+    for rank in range(p):
+        gid = rank * n + torch.arange(n, dtype=torch.int32, device="cuda")
+        za_r = za[rank * n:(rank + 1) * n]
+        parts.append((za_r, gid, *I.infonce_dual_fwd_rect(za_r, zb, scale)))
+    stacked = torch.stack([lse_b for *_, lse_b in parts])
+    m = stacked.amax(dim=0)
+    lse_b = m + torch.log(torch.exp(stacked - m).sum(dim=0))
+    loss = 0.0
+    g_za, g_zb, g_scale = [], torch.zeros_like(zb), 0.0
+    coef = 1.0 / (2 * batch)
+    for za_r, gid, lse_a, _ in parts:
+        loss = loss + _dp_clip_loss(za_r, zb, gid, scale, lse_a, lse_b)
+        o_a = I.infonce_bwd_rows(za_r, zb, gid, scale, lse_a, lse_b)
+        g_za.append(o_a * coef * scale)
+        g_zb += I.infonce_bwd_cols(za_r, zb, gid, scale, lse_a, lse_b) \
+            * coef * scale
+        g_scale = g_scale + coef * torch.sum(o_a * za_r)
+    a, b, s = (t.clone().requires_grad_() for t in (za, zb, scale))
+    ref = I.info_nce_fused(a, b, scale=s)
+    ref.backward()
+    torch.cuda.synchronize()
+    loss_err = abs(loss.item() * coef - ref.item())
+    grad_errs = [((got - want).norm() / want.norm()).item()
+                 for got, want in ((torch.cat(g_za), a.grad), (g_zb, b.grad),
+                                   (g_scale, s.grad))]
+    ok = loss_err <= DP_CLIP_LOSS_ATOL and max(grad_errs) <= DP_CLIP_GRAD_RTOL
+    print(f"[dp-clip-ranks] {p} ranks emulated at global batch {batch} "
+          f"(D = {d}): merged partial losses / 2N {loss.item() * coef:.6f} "
+          f"vs single card {ref.item():.6f} (|err| {loss_err:.2e}, atol "
+          f"{DP_CLIP_LOSS_ATOL:g}); relative gradient errors za "
+          f"{grad_errs[0]:.2e}, zb {grad_errs[1]:.2e}, scale "
+          f"{grad_errs[2]:.2e} (rtol {DP_CLIP_GRAD_RTOL:g}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the emulated ranks' partial InfoNCE losses do not sum to the "
+             "single-card loss and gradients")
+
+
+def phase_clip_dp_train(card_line: str) -> dict:
+    """Data-parallel CLIP ViT-B/16 through ntxent_tpu_torch.cli over the
+    NCCL group of world 1; returns the launches of each kernel."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.parallel import mesh
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    args = cli.build_train_parser().parse_args(CLIP_DP_ARGV)
+    counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    mark = mesh.comms_accounting().totals()
+    t0 = time.monotonic()
+    state, history = cli.train(args, data_parallel=True)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = {name: w.launches for name, w in counters.items()}
+    comms = mesh.comms_accounting().delta(mark)
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [h["loss"] for h in history]
+    if len(losses) != CLIP_DP_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"data-parallel CLIP losses {losses}: expected {CLIP_DP_STEPS} "
+             "finite values")
+    want = {n: CLIP_DP_STEP_LAUNCHES.get(n, 0) * CLIP_DP_STEPS
+            for n in counters}
+    if launches != want:
+        fail(f"kernel launches over {CLIP_DP_STEPS} data-parallel CLIP "
+             f"steps {launches}, expected {want}")
+    model = state.model
+    g = model.logit_scale.grad
+    if g is None or not g.abs().item() > 0:
+        fail("the logit scale has no gradient in the data-parallel step")
+    for tower in ("image_tower", "text_tower"):
+        for i, block in enumerate(getattr(model, tower).blocks):
+            for proj in ("query", "key", "value"):
+                g = getattr(block.attn, proj).weight.grad
+                if g is None or not g.abs().sum().item() > 0:
+                    fail(f"{tower} block {i} attn.{proj}.weight has no "
+                         "gradient in the data-parallel step")
+    steady = history[1:]
+    step_ms = 1e3 * sum(1.0 / h["steps_per_sec"]
+                        for h in steady) / len(steady)
+    print(f"[clip-dp] CLIP ViT-B/16 data-parallel over NCCL (world 1), "
+          f"batch {args.batch} pairs, {CLIP_DP_STEPS} steps in {wall_s:.1f} "
+          f"s: losses {[round(x, 4) for x in losses]}; launches per step "
+          f"{ {n: c // CLIP_DP_STEPS for n, c in launches.items() if c} } "
+          f"(every other kernel 0); logit-scale gradient "
+          f"{model.logit_scale.grad.item():.3e}; every q/k/v weight of both "
+          f"towers has a nonzero gradient; comms over the run (calls, bytes "
+          f"per device; 0 at world 1) "
+          f"{ {op: c for (op, _), c in comms.items()} }", flush=True)
+    print(f"[clip-dp] step {step_ms:.1f} ms (steps 2-{CLIP_DP_STEPS}, host "
+          f"clock around a synchronizing loss read), "
+          f"{args.batch / step_ms * 1e3:.1f} images/s, peak memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) on "
+          f"{card_line}", flush=True)
+    del state, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_clip_dp_parity() -> None:
+    """The world-1 data-parallel CLIP step against the single-card CLIP
+    step, fp32 CLIP ViT-B/16, same weights, images and tokens, TF32 off."""
+    import copy
+
+    import torch
+
+    from ntxent_tpu_torch.models import (
+        CLIPModel,
+        TextTransformer,
+        ViT_B16,
+        init_weights,
+    )
+    from ntxent_tpu_torch.training import (
+        TrainerConfig,
+        create_clip_train_state,
+        make_clip_train_step,
+        make_sharded_clip_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = init_weights(
+        CLIPModel(ViT_B16(image_size=224, attention_impl="flash",
+                          dtype=torch.float32),
+                  TextTransformer(dtype=torch.float32)),
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.uniform(size=(
+        CLIP_PARITY_BATCH, 224, 224, 3)).astype(np.float32)).cuda()
+    tokens = torch.from_numpy(rng.integers(1, 49408, (CLIP_PARITY_BATCH,
+                                                      77))).cuda()
+    cfg = TrainerConfig(batch_size=CLIP_PARITY_BATCH, base_lr=5e-4,
+                        warmup_steps=1)
+    results = []
+    for step in (make_sharded_clip_train_step(None),
+                 make_clip_train_step(use_fused=True)):
+        state = create_clip_train_state(copy.deepcopy(model), cfg,
+                                        torch.device("cuda"))
+        _, metrics = step(state, images, tokens)
+        results.append((metrics["loss"].item(), torch.cat(
+            [p.grad.detach().float().cpu().flatten()
+             for p in state.model.parameters()])))
+        del state
+    (loss_dp, g_dp), (loss_one, g_one) = results
+    loss_err = abs(loss_dp - loss_one)
+    grad_err = ((g_dp - g_one).norm() / g_one.norm()).item()
+    ok = loss_err <= PARITY_LOSS_ATOL and grad_err <= PARITY_GRAD_RTOL
+    print(f"[clip-dp-parity] CLIP ViT-B/16 train step float32, batch "
+          f"{CLIP_PARITY_BATCH}: loss data-parallel (world 1) {loss_dp:.6f} "
+          f"vs single card {loss_one:.6f} (|err| {loss_err:.2e}, atol "
+          f"{PARITY_LOSS_ATOL:.2e}); gradient |g_dp - g_card| / |g_card| = "
+          f"{grad_err:.2e} (rtol {PARITY_GRAD_RTOL:.2e}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the data-parallel CLIP step at world 1 disagrees with the "
+             "single-card CLIP step")
+
+
 def main() -> int:
     import torch
 
@@ -1342,10 +1734,13 @@ def main() -> int:
 
     name, smi = phase_card()
     phase_build()
+    dp_clip_kernels, sym_retimed_ms = phase_dp_clip_kernels()
     kernels = [phase_kernels(), *phase_ntxent_kernels(),
                *phase_flash_backward(), *phase_infonce_kernels(),
-               *phase_general_kernels()]
+               *phase_general_kernels(), *dp_clip_kernels]
+    kernels[1]["retimed_ms"] = sym_retimed_ms
     phase_emulated_ranks()
+    phase_dp_clip_emulated_ranks()
     serve_launches = phase_serve(smi)
     train_launches = phase_train(smi)
     phase_step_parity()
@@ -1358,19 +1753,23 @@ def main() -> int:
         try:
             dp_launches = phase_dp_train(smi)
             phase_dp_parity()
+            clip_dp_launches = phase_clip_dp_train(smi)
+            phase_clip_dp_parity()
         finally:
             mesh.shutdown()
+    paths = (train_launches, clip_launches, dp_launches, clip_dp_launches)
     for kernel in kernels:
         # launches on the train path that runs the kernel (SimCLR for the
-        # symmetric NT-Xent and flash kernels, CLIP for InfoNCE, the
-        # data-parallel ResNet-50 for the general NT-Xent kernels), and on
-        # CLIP's and the data-parallel path's
+        # symmetric NT-Xent and flash kernels, CLIP for the square InfoNCE
+        # kernels, the data-parallel ResNet-50 for the general NT-Xent
+        # kernels, the data-parallel CLIP for the rectangular InfoNCE
+        # kernels), and on each train path that is not SimCLR's
         wrapper = kernel["name"]
-        kernel["launches"] = (train_launches[wrapper]
-                              or clip_launches[wrapper]
-                              or dp_launches[wrapper])
+        kernel["launches"] = next((path[wrapper] for path in paths
+                                   if path[wrapper]), 0)
         kernel["clip_launches"] = clip_launches[wrapper]
         kernel["dp_launches"] = dp_launches[wrapper]
+        kernel["clip_dp_launches"] = clip_dp_launches[wrapper]
     kernels[0]["serve_launches"] = serve_launches
     print(smi)
     print(json.dumps({"kernels": kernels}))

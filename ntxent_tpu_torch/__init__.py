@@ -24,6 +24,11 @@ Ported so far:
   groups, differentiable collectives with comms accounting, the strip
   loss over the general NT-Xent forward and backward kernels,
   ``ops.ntxent.ntxent_partial_fused``), cross-replica BatchNorm;
+* data-parallel CLIP training under ``torchrun`` (``--objective clip``):
+  the dual InfoNCE (``parallel.dist_loss.local_infonce_dual``,
+  ``ops.infonce.info_nce_dual_partial``) over the rectangular InfoNCE
+  forward kernel, its rows backward kernel and the columns backward
+  kernel, with the column logsumexp merged across ranks;
 * the loss oracles (``ops.oracle``) and the reference-compatible API
   (``api``), which also exports ``info_nce_fused`` and ``info_nce_loss``
   as the JAX package's top level does;
@@ -34,4 +39,4 @@ Ported so far:
 from .api import info_nce_fused, info_nce_loss
 
 __all__ = ["__version__", "info_nce_fused", "info_nce_loss"]
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -24,7 +24,10 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
     InfoNCE at a learnable logit scale and AdamW, on synthetic pairs or
     ``--data-dir pairs.npz`` (``images`` and ``tokens`` arrays), with the
     JAX CLI's checks. ``--temperature`` is ignored, as there: the logit
-    scale is the model's.
+    scale is the model's. On one card, or data-parallel under ``torchrun``
+    when ``WORLD_SIZE`` > 1 (``--clip-parallel dp``, ``cli.py:1338-1358``):
+    ``--batch`` global, each rank its rows of every batch, the dual
+    InfoNCE (only the text embeddings gathered), only rank 0 logging.
 
   Flags of what is not ported yet (models, datasets, parallelism,
   checkpoints, the guard, remat, accumulation) exit with a message naming
@@ -36,9 +39,10 @@ flash --image-size 224 --head embedding --port 8080`` (serving),
 flash --image-size 224 --batch 256 --steps 100`` (SimCLR training of a
 ViT on one card), ``torchrun --nproc_per_node 4 -m ntxent_tpu_torch.cli
 train --model resnet50 --image-size 224 --batch 256`` (data-parallel
-ResNet-50 on four cards), or ``python -m ntxent_tpu_torch.cli train
+ResNet-50 on four cards), ``python -m ntxent_tpu_torch.cli train
 --objective clip --model vit_b16 --vit-attention flash --image-size 224
---batch 256 --steps 100`` (CLIP).
+--batch 256 --steps 100`` (CLIP), or the same under ``torchrun
+--nproc_per_node 4 -m ntxent_tpu_torch.cli`` (data-parallel CLIP).
 """
 
 from __future__ import annotations
@@ -87,6 +91,7 @@ from .training import (
     create_clip_train_state,
     create_train_state,
     make_clip_train_step,
+    make_sharded_clip_train_step,
     make_sharded_train_step,
     make_train_step,
     train_loop,
@@ -244,9 +249,9 @@ MODEL_CHOICES = ["resnet18", "resnet34", "resnet50", "resnet50x2",
 def build_train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ntxent-train (torch)",
-        description="SimCLR (fused NT-Xent kernels) on one card or "
-                    "data-parallel under torchrun, or CLIP (fused InfoNCE "
-                    "kernels) on one card, on PyTorch/CUDA")
+        description="SimCLR (fused NT-Xent kernels) or CLIP (fused "
+                    "InfoNCE kernels) on one card or data-parallel under "
+                    "torchrun, on PyTorch/CUDA")
     d = p.add_argument_group("data")
     d.add_argument("--dataset", default="synthetic",
                    choices=["synthetic", "cifar10", "imagefolder", "npy"],
@@ -280,6 +285,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     t.add_argument("--token-len", type=int, default=None,
                    help="clip: tokenized caption length (derived from "
                         "--data-dir tokens when given; 77 for synthetic)")
+    t.add_argument("--clip-parallel", default="dp", choices=["dp", "tp"],
+                   help="clip multi-device strategy: dp = data parallelism "
+                        "with the dual InfoNCE (tp is not ported)")
     t.add_argument("--parallel", default="dp", choices=["dp", "tp"])
     t.add_argument("--fsdp", action="store_true")
     t.add_argument("--dp-loss", default="strip",
@@ -333,6 +341,7 @@ def _check_train_args(args) -> None:
         (args.data_dir is not None and not clip, "--data-dir", "data"),
         (args.loader != "python", f"--loader {args.loader}", "data"),
         (args.parallel != "dp" or args.fsdp, "--parallel tp / --fsdp", "mp"),
+        (clip and args.clip_parallel != "dp", "--clip-parallel tp", "mp"),
         (args.moe_experts > 0, "--moe-experts", "mp"),
         (args.accum_steps > 1, "--accum-steps", "resilience"),
         (args.remat, "--remat", "resilience"),
@@ -430,22 +439,71 @@ def build_clip_model(args) -> CLIPModel:
     return init_weights(model, torch.Generator().manual_seed(args.seed))
 
 
+def _clip_config(args) -> TrainerConfig:
+    return TrainerConfig(batch_size=args.batch, base_lr=args.base_lr,
+                         weight_decay=args.weight_decay,
+                         warmup_steps=args.warmup_steps,
+                         total_steps=args.steps)
+
+
+def _clip_label(args) -> str:
+    return (f"CLIP {args.model} ({args.vit_attention} attention), "
+            f"{args.token_len} tokens of {args.vocab_size} ids")
+
+
 def _train_clip(args, device):
     """The CLIP branch of ``train`` (``cli.py:1175``, single device)."""
     images, tokens = _clip_data(args)
-    cfg = TrainerConfig(batch_size=args.batch, base_lr=args.base_lr,
-                        weight_decay=args.weight_decay,
-                        warmup_steps=args.warmup_steps,
-                        total_steps=args.steps)
-    state = create_clip_train_state(build_clip_model(args), cfg, device)
+    state = create_clip_train_state(build_clip_model(args),
+                                    _clip_config(args), device)
     loader = PairedArrayLoader(images, tokens, args.batch, seed=args.seed)
-    logger.info("training CLIP %s (%s attention) on %s: batch %d, %d "
-                "steps, peak lr %g, %d tokens of %d ids", args.model,
-                args.vit_attention, device_name(device), args.batch,
-                args.steps, args.base_lr, args.token_len, args.vocab_size)
+    logger.info("training %s on %s: batch %d, %d steps, peak lr %g",
+                _clip_label(args), device_name(device), args.batch,
+                args.steps, args.base_lr)
     return state, train_loop(state, PairedPipeline(loader, device),
                              make_clip_train_step(), args.steps,
                              log_every=args.log_every, views=1)
+
+
+def _world_size(args) -> int:
+    """The world of a data-parallel run; ``--batch`` must divide over it."""
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if args.batch % world:
+        raise SystemExit(f"--batch {args.batch} must divide across {world} "
+                         "devices")
+    return world
+
+
+def _train_clip_data_parallel(args):
+    """The data-parallel CLIP branch (``cli.py:1338-1358``, ``--clip-parallel
+    dp``): one rank per card (NCCL) or per CPU process (gloo), weights from
+    ``--seed`` on every rank, each rank its rows of every global batch,
+    the dual InfoNCE, rank 0 logging."""
+    world = _world_size(args)
+    device = mesh.init_from_env(args.device)
+    info = mesh.process_info()
+    rank, lead = info["process_index"], info["process_index"] == 0
+    images, tokens = _clip_data(args)
+    state = create_clip_train_state(build_clip_model(args),
+                                    _clip_config(args), device)
+    loader = PairedArrayLoader(images, tokens, args.batch, seed=args.seed,
+                               rank=rank, world_size=world)
+    if lead:
+        logger.info("topology: %s", info)
+        logger.info("training %s data-parallel over %d ranks (%s, dual "
+                    "InfoNCE): global batch %d, %d steps, peak lr %g",
+                    _clip_label(args), world,
+                    torch.distributed.get_backend(), args.batch, args.steps,
+                    args.base_lr)
+    history = train_loop(state, PairedPipeline(loader, device),
+                         make_sharded_clip_train_step(None), args.steps,
+                         log_every=args.log_every, views=1, ranks=world,
+                         log=lead)
+    if lead:
+        _log_final(history)
+    return state, history
 
 
 def train(args, data_parallel: bool | None = None):
@@ -461,9 +519,7 @@ def train(args, data_parallel: bool | None = None):
         data_parallel = int(os.environ.get("WORLD_SIZE", "1")) > 1
     if data_parallel:
         if args.objective == "clip":
-            raise SystemExit("--objective clip trains on one card: the "
-                             "data-parallel InfoNCE is ROADMAP.md Queue A "
-                             "3(c)")
+            return _train_clip_data_parallel(args)
         return _train_data_parallel(args)
     device = resolve_device(args.device)
     if args.objective == "clip":
@@ -500,12 +556,7 @@ def _train_data_parallel(args):
     """The data-parallel branch (``cli.py:824-842``): one rank per card
     (NCCL) or per CPU process (gloo), weights from ``--seed`` on every
     rank, cross-replica BatchNorm, the strip loss, rank 0 logging."""
-    world = (torch.distributed.get_world_size()
-             if torch.distributed.is_initialized()
-             else int(os.environ.get("WORLD_SIZE", "1")))
-    if args.batch % world:
-        raise SystemExit(f"--batch {args.batch} must divide across {world} "
-                         "devices")
+    world = _world_size(args)
     device = mesh.init_from_env(args.device)
     info = mesh.process_info()
     rank, lead = info["process_index"], info["process_index"] == 0

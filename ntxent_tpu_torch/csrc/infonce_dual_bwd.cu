@@ -20,42 +20,50 @@
 // computed as the row side of the swapped problem, since with za <-> zb
 // and lse_a <-> lse_b exchanged, G becomes G^T (blockIdx.y = 1 in the same
 // launch). One launch; each CTA owns 64 output rows of one side and walks
-// every 64-column tile: the s tile by the register-blocked product of
-// infonce_tile.cuh, G to shared memory, then G . b_tile in 64-wide slices
-// of D added into the CTA's (64, D) fp32 accumulator, which lives in
-// shared memory (135 KB at D = 512, opted in with
-// cudaFuncAttributeMaxDynamicSharedMemorySize). No atomics: the result is
-// repeatable. The work is 8 N^2 D against the TPU kernel's 6 N^2 D (s is
-// formed once per side). Arithmetic is fp32 FMA of widened inputs, no TF32.
+// every 64-column tile (infonce_grad.cuh: the s tile by the
+// register-blocked product of infonce_tile.cuh, G to shared memory, then
+// G . b_tile into the CTA's (64, D) fp32 accumulator in shared memory).
+// No atomics: the result is repeatable. The work is 8 N^2 D against the
+// TPU kernel's 6 N^2 D (s is formed once per side). Arithmetic is fp32 FMA
+// of widened inputs, no TF32.
 //
 // Bound at the training shape (N = 256, D = 512, fp32): 6 N^2 D = 201
 // MFLOP, 3.0 us at the 67 TFLOP/s fp32 peak; za, zb, lse and the two
 // outputs are 2 MB, 0.63 us at 3.35 TB/s. Compute-bound on paper,
 // launch-bound in practice (8 CTAs).
 //
-// Supported: float32 or bfloat16 za, zb, contiguous (N, D), N >= 1,
-// 1 <= D <= 512. The C entry point returns cudaGetLastError().
+// Rows kernel (ntx_infonce_bwd_rows). Replaces the Pallas TPU kernel
+// ntxent_tpu/ops/ntxent_pallas.py:445 (_bwd_sym_kernel, launched by
+// _bwd_sym_call at ntxent_pallas.py:625) in its cross-modal mode
+// (diag_pos=True, z_cols, lse_cols, a traced scale), as
+// _infonce_dual_local_bwd runs it for the row side of the data-parallel
+// CLIP loss (infonce_pallas.py:504-505): one rank's rows za (n_r, D) with
+// global ids row_gid against the gathered zb (n_c, D), the row lse lse_a
+// (n_r,) and the merged global column lse lse_b (n_c,):
+//   G[i, j] = (exp0(s - lse_a[i]) - pos) * valid_row_i + (exp0(s - lse_b[j]) - pos),
+//   pos = 1 iff j = row_gid[i], valid_row_i = row_gid[i] < n_c;
+//   o_a = G . zb   (fp32 (n_r, D)).
+// It is the row side of the square kernel with ids on the rows
+// (infonce_grad.cuh), one CTA per 64 rows; the column side is
+// csrc/infonce_bwd_cols.cu. Bound, fp32: 4 n_r n_c D operations against
+// (n_r + n_c) D inputs and an (n_r, D) output, plus ids and lse, in
+// bytes. One rank of 4 at
+// global batch 256 (n_r = 64, n_c = 256, D = 512): 33.6 MFLOP, 0.5 us at
+// the 67 TFLOP/s fp32 peak; at global batch 4096 (1024, 4096): 8.6 GFLOP,
+// 128 us. Latency-bound: one CTA per 64 rows walks all n_c columns.
+//
+// Supported: float32 or bfloat16 za, zb, contiguous, 1 <= D <= 512; the
+// square kernel takes (N, D) each, the rows kernel (n_r, D) and (n_c, D)
+// with int32 row ids. The C entry points return cudaGetLastError().
 
-#include "infonce_tile.cuh"
+#include "infonce_grad.cuh"
 
 namespace {
 
 using namespace infonce;
 
-constexpr int kLdG = kTile + 1;  // G tile and the staged b slice
-
-// Row stride of the accumulator: d rounded up to 32, plus 16, so the two
-// rows a warp touches (ty even and odd) fall in opposite bank halves.
-__host__ __device__ __forceinline__ int acc_stride(int d) {
-  return (d + 31) / 32 * 32 + 16;
-}
-
-__host__ __device__ __forceinline__ size_t smem_floats(int d) {
-  return size_t(kTile) * acc_stride(d) + 2 * kTile * kLd + kTile * kLdG;
-}
-
-// blockIdx.y = 0: o_a[i] = sum_j G[i, j] zb_j; 1: o_b[j] = sum_i G[i, j] za_i
-// as the row side of the swapped problem.
+// Square mode. blockIdx.y = 0: o_a[i] = sum_j G[i, j] zb_j; 1:
+// o_b[j] = sum_i G[i, j] za_i as the row side of the swapped problem.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     infonce_dual_bwd_kernel(const T* __restrict__ za,
@@ -66,112 +74,34 @@ __global__ void __launch_bounds__(kThreads)
                             float* __restrict__ o_a, float* __restrict__ o_b,
                             int n, int d) {
   extern __shared__ float smem[];
-  const int ld_acc = acc_stride(d);
-  float* acc = smem;                 // kTile x ld_acc
-  float* as = acc + kTile * ld_acc;  // kTile x kLd, then bs
-  float* bs = as + kTile * kLd;
-  float* bd = as;                    // kTile x kLdG over as and bs
-  float* gs = bs + kTile * kLd;      // kTile x kLdG
-
   const bool swap = blockIdx.y == 1;
-  const T* a = swap ? zb : za;
-  const T* b = swap ? za : zb;
-  const float* lse_rows = swap ? lse_b : lse_a;
-  const float* lse_cols = swap ? lse_a : lse_b;
-  float* out = swap ? o_b : o_a;
-  const float scale = *scale_ptr;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int row0 = blockIdx.x * kTile;
+  grad_rows(swap ? zb : za, swap ? za : zb, nullptr, nullptr,
+            swap ? lse_b : lse_a, swap ? lse_a : lse_b, *scale_ptr,
+            swap ? o_b : o_a, n, n, n, d, blockIdx.x * kTile, smem);
+}
 
-  for (int e = threadIdx.x; e < kTile * ld_acc; e += kThreads) acc[e] = 0.f;
-  float lse_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    lse_r[i] = row < n ? lse_rows[row] : 0.f;
-  }
-
-  for (int col0 = 0; col0 < n; col0 += kTile) {
-    float s[4][4];
-    tile_products(s, as, bs, a, b, row0, col0, n, d);
-    float lse_c[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      lse_c[j] = col < n ? lse_cols[col] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = col0 + tx + 16 * j;
-        const float x = s[i][j] * scale;
-        const float pos = col == row ? 1.f : 0.f;
-        const float g = (exp0(x - lse_r[i]) - pos) + (exp0(x - lse_c[j]) - pos);
-        gs[(ty + 16 * i) * kLdG + tx + 16 * j] =
-            (row < n && col < n) ? g : 0.f;
-      }
-    }
-    for (int d0 = 0; d0 < d; d0 += kTile) {
-      __syncthreads();  // gs is written; bd's previous readers are done
-      for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-        const int c = e / kTile;
-        const int k = e % kTile;
-        const int gc = col0 + c;
-        const int gk = d0 + k;
-        bd[c * kLdG + k] =
-            (gc < n && gk < d) ? to_float(b[size_t(gc) * d + gk]) : 0.f;
-      }
-      __syncthreads();
-      float o[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-      }
-#pragma unroll 8
-      for (int c = 0; c < kTile; ++c) {
-        float gv[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) gv[i] = gs[(ty + 16 * i) * kLdG + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = bd[c * kLdG + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[i][j] = fmaf(gv[i], bv[j], o[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = d0 + tx + 16 * j;
-          if (k < d) acc[(ty + 16 * i) * ld_acc + k] += o[i][j];
-        }
-      }
-    }
-    // the next tile_products starts with a barrier before it restages
-    // as/bs (= bd) and gs is rewritten only after it
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kTile * d; e += kThreads) {
-    const int r = e / d;
-    const int k = e % d;
-    if (row0 + r < n) out[size_t(row0 + r) * d + k] = acc[r * ld_acc + k];
-  }
+// Rows mode: o_a[i] = sum_j G[i, j] zb_j for rows of za with global ids.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    infonce_bwd_rows_kernel(const T* __restrict__ za,
+                            const T* __restrict__ zb,
+                            const int* __restrict__ row_gid,
+                            const float* __restrict__ scale_ptr,
+                            const float* __restrict__ lse_a,
+                            const float* __restrict__ lse_b,
+                            float* __restrict__ o_a, int n_rows, int n_cols,
+                            int d) {
+  extern __shared__ float smem[];
+  grad_rows(za, zb, row_gid, nullptr, lse_a, lse_b, *scale_ptr, o_a, n_rows,
+            n_cols, n_cols, d, blockIdx.x * kTile, smem);
 }
 
 template <typename T>
 cudaError_t launch(const void* za, const void* zb, const void* scale,
                    const void* lse_a, const void* lse_b, void* o_a, void* o_b,
                    int n, int d, cudaStream_t stream) {
-  const size_t smem = smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      infonce_dual_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  size_t smem;
+  cudaError_t err = opt_in_smem(infonce_dual_bwd_kernel<T>, d, &smem);
   if (err != cudaSuccess) return err;
   const int tiles = (n + kTile - 1) / kTile;
   infonce_dual_bwd_kernel<T><<<dim3(tiles, 2), kThreads, smem, stream>>>(
@@ -179,6 +109,23 @@ cudaError_t launch(const void* za, const void* zb, const void* scale,
       static_cast<const float*>(scale), static_cast<const float*>(lse_a),
       static_cast<const float*>(lse_b), static_cast<float*>(o_a),
       static_cast<float*>(o_b), n, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_rows(const void* za, const void* zb, const void* row_gid,
+                        const void* scale, const void* lse_a,
+                        const void* lse_b, void* o_a, int n_rows, int n_cols,
+                        int d, cudaStream_t stream) {
+  size_t smem;
+  cudaError_t err = opt_in_smem(infonce_bwd_rows_kernel<T>, d, &smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (n_rows + kTile - 1) / kTile;
+  infonce_bwd_rows_kernel<T><<<tiles, kThreads, smem, stream>>>(
+      static_cast<const T*>(za), static_cast<const T*>(zb),
+      static_cast<const int*>(row_gid), static_cast<const float*>(scale),
+      static_cast<const float*>(lse_a), static_cast<const float*>(lse_b),
+      static_cast<float*>(o_a), n_rows, n_cols, d);
   return cudaGetLastError();
 }
 
@@ -201,6 +148,32 @@ extern "C" int ntx_infonce_dual_bwd(const void* za, const void* zb,
   if (dtype == 1) {
     return launch<__nv_bfloat16>(za, zb, scale, lse_a, lse_b, o_a, o_b, n, d,
                                  s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The rows kernel: o_a (n_rows, d) fp32 = G . zb. row_gid: n_rows int32
+// global ids (required); lse_a (n_rows,), lse_b (n_cols,) fp32. dtype as
+// above.
+extern "C" int ntx_infonce_bwd_rows(const void* za, const void* zb,
+                                    const void* row_gid, const void* scale,
+                                    const void* lse_a, const void* lse_b,
+                                    void* o_a, int n_rows, int n_cols, int d,
+                                    int dtype, int device, void* stream) {
+  if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || d < 1 ||
+      d > kMaxD) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_rows<float>(za, zb, row_gid, scale, lse_a, lse_b, o_a,
+                              n_rows, n_cols, d, s);
+  }
+  if (dtype == 1) {
+    return launch_rows<__nv_bfloat16>(za, zb, row_gid, scale, lse_a, lse_b,
+                                      o_a, n_rows, n_cols, d, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -41,8 +41,28 @@
 // 1 MB, 0.31 us at 3.35 TB/s. Compute-bound on paper, launch-bound in
 // practice (8 CTAs).
 //
-// Supported: float32 or bfloat16 za, zb, contiguous (N, D), N >= 1,
-// 1 <= D <= 512. The C entry point returns cudaGetLastError().
+// Rectangular stats-only mode (ntx_infonce_dual_fwd_rect). Replaces the
+// same TPU kernel as _infonce_dual_local_fwd runs it
+// (infonce_pallas.py:453-456: stats_only=True, rows_actual != cols_actual)
+// in the data-parallel CLIP loss: one rank's za rows (n_a, D) against the
+// gathered zb (n_b, D). It computes lse_a (n_a,), the row logsumexp over
+// all n_b columns, and lse_b_part (n_b,), each column's logsumexp over
+// this rank's n_a rows only (the caller merges it across ranks). No
+// positives and no loss: the positives of local rows sit on the global
+// diagonal, which the caller takes from a row-wise dot. Same design, one
+// launch: the first ceil(n_a / 64) CTAs own rows of za and walk every
+// column tile of zb; the next ceil(n_b / 64) own rows of zb and walk the
+// tiles of za (s^T). Both directions see bitwise the same logits.
+//
+// Bound of the rectangular mode, fp32: 2 n_a n_b D operations (s formed
+// once) against (n_a + n_b) (D + 1) * 4 bytes. One rank of 4 at global
+// batch 256 (n_a = 64, n_b = 256, D = 512): 16.8 MFLOP, 0.25 us at the
+// 67 TFLOP/s fp32 peak; at global batch 4096 (1024, 4096): 4.3 GFLOP,
+// 64 us. Latency-bound at the first: 1 + 4 CTAs.
+//
+// Supported: float32 or bfloat16 za, zb, contiguous (n_a, D) and (n_b,
+// D), n_a, n_b >= 1, 1 <= D <= 512. The C entry points return
+// cudaGetLastError().
 
 #include "infonce_tile.cuh"
 
@@ -67,28 +87,16 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// blockIdx.y = 0: rows of za over columns of zb (lse_a); 1: rows of zb
-// over columns of za (lse_b).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    infonce_dual_fwd_kernel(const T* __restrict__ za,
-                            const T* __restrict__ zb,
-                            const float* __restrict__ scale_ptr,
-                            float* __restrict__ lse_a,
-                            float* __restrict__ lse_b,
-                            float* __restrict__ partial, int n, int d) {
-  __shared__ float as[kTile * kLd];
-  __shared__ float bs[kTile * kLd];
-  __shared__ float row_loss[kTile];
-
-  const bool swap = blockIdx.y == 1;
-  const T* a = swap ? zb : za;
-  const T* b = swap ? za : zb;
-  float* lse = swap ? lse_b : lse_a;
-  const float scale = *scale_ptr;
+// One CTA: rows row0 .. row0 + 63 of a (n_a x d) over every column tile of
+// b (n_b x d); writes lse[row] for its rows. kLoss: also the sum over its
+// rows of lse - s[row, row] (the diagonal positive) into *partial.
+template <typename T, bool kLoss>
+__device__ void lse_rows(const T* __restrict__ a, const T* __restrict__ b,
+                         float scale, float* __restrict__ lse,
+                         float* __restrict__ partial, int n_a, int n_b, int d,
+                         int row0, float* as, float* bs, float* row_loss) {
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const int row0 = blockIdx.x * kTile;
 
   float m[4], l[4], pos[4];
 #pragma unroll
@@ -97,9 +105,9 @@ __global__ void __launch_bounds__(kThreads)
     l[i] = 0.f;
     pos[i] = 0.f;
   }
-  for (int col0 = 0; col0 < n; col0 += kTile) {
+  for (int col0 = 0; col0 < n_b; col0 += kTile) {
     float acc[4][4];
-    tile_products(acc, as, bs, a, b, row0, col0, n, d);
+    tile_products(acc, as, bs, a, b, row0, col0, n_a, n_b, d);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + ty + 16 * i;
@@ -109,8 +117,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) {
         const int col = col0 + tx + 16 * j;
         const float raw = acc[i][j] * scale;
-        if (col == row) pos[i] += raw;
-        s[j] = col >= n ? kNegInf : raw;
+        if (kLoss && col == row) pos[i] += raw;
+        s[j] = col >= n_b ? kNegInf : raw;
         tile_max = fmaxf(tile_max, s[j]);
       }
       const float m_new = fmaxf(m[i], group_max(tile_max));
@@ -124,21 +132,63 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     // the positive sits in exactly one thread of the row's group
-    const float p = group_sum(pos[i]);
+    const float p = kLoss ? group_sum(pos[i]) : 0.f;
     if (tx == 0) {
       const int r = ty + 16 * i;
       const int row = row0 + r;
       const float row_lse = m[i] + logf(fmaxf(l[i], 1e-37f));
-      if (row < n) lse[row] = row_lse;
-      row_loss[r] = row < n ? row_lse - p : 0.f;
+      if (row < n_a) lse[row] = row_lse;
+      if (kLoss) row_loss[r] = row < n_a ? row_lse - p : 0.f;
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float sum = 0.f;
-    for (int r = 0; r < kTile; ++r) sum += row_loss[r];
-    partial[blockIdx.y * gridDim.x + blockIdx.x] = sum;
+  if (kLoss) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float sum = 0.f;
+      for (int r = 0; r < kTile; ++r) sum += row_loss[r];
+      *partial = sum;
+    }
   }
+}
+
+// Square mode. blockIdx.y = 0: rows of za over columns of zb (lse_a); 1:
+// rows of zb over columns of za (lse_b).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    infonce_dual_fwd_kernel(const T* __restrict__ za,
+                            const T* __restrict__ zb,
+                            const float* __restrict__ scale_ptr,
+                            float* __restrict__ lse_a,
+                            float* __restrict__ lse_b,
+                            float* __restrict__ partial, int n, int d) {
+  __shared__ float as[kTile * kLd];
+  __shared__ float bs[kTile * kLd];
+  __shared__ float row_loss[kTile];
+  const bool swap = blockIdx.y == 1;
+  lse_rows<T, true>(swap ? zb : za, swap ? za : zb, *scale_ptr,
+                    swap ? lse_b : lse_a,
+                    partial + blockIdx.y * gridDim.x + blockIdx.x, n, n, d,
+                    blockIdx.x * kTile, as, bs, row_loss);
+}
+
+// Rectangular stats-only mode: CTAs [0, tiles_a) own rows of za (n_a) over
+// the columns of zb (n_b) and write lse_a; the rest own rows of zb over the
+// columns of za and write lse_b (each column's lse over these n_a rows).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    infonce_fwd_rect_kernel(const T* __restrict__ za,
+                            const T* __restrict__ zb,
+                            const float* __restrict__ scale_ptr,
+                            float* __restrict__ lse_a,
+                            float* __restrict__ lse_b, int n_a, int n_b,
+                            int d, int tiles_a) {
+  __shared__ float as[kTile * kLd];
+  __shared__ float bs[kTile * kLd];
+  const bool swap = static_cast<int>(blockIdx.x) >= tiles_a;
+  const int row0 = (swap ? blockIdx.x - tiles_a : blockIdx.x) * kTile;
+  lse_rows<T, false>(swap ? zb : za, swap ? za : zb, *scale_ptr,
+                     swap ? lse_b : lse_a, nullptr, swap ? n_b : n_a,
+                     swap ? n_a : n_b, d, row0, as, bs, nullptr);
 }
 
 // One warp sums the per-CTA partials in a fixed order.
@@ -170,6 +220,19 @@ cudaError_t launch(const void* za, const void* zb, const void* scale,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_rect(const void* za, const void* zb, const void* scale,
+                        void* lse_a, void* lse_b, int n_a, int n_b, int d,
+                        cudaStream_t stream) {
+  const int tiles_a = (n_a + kTile - 1) / kTile;
+  const int tiles_b = (n_b + kTile - 1) / kTile;
+  infonce_fwd_rect_kernel<T><<<tiles_a + tiles_b, kThreads, 0, stream>>>(
+      static_cast<const T*>(za), static_cast<const T*>(zb),
+      static_cast<const float*>(scale), static_cast<float*>(lse_a),
+      static_cast<float*>(lse_b), n_a, n_b, d, tiles_a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. `scale` points to one fp32 on the
@@ -190,6 +253,27 @@ extern "C" int ntx_infonce_dual_fwd(const void* za, const void* zb,
   if (dtype == 1) {
     return launch<__nv_bfloat16>(za, zb, scale, lse_a, lse_b, partial, loss,
                                  n, d, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The rectangular stats-only mode: lse_a (n_a,) and lse_b (n_b,) fp32 of
+// za (n_a, d) against zb (n_b, d). dtype as above.
+extern "C" int ntx_infonce_dual_fwd_rect(const void* za, const void* zb,
+                                         const void* scale, void* lse_a,
+                                         void* lse_b, int n_a, int n_b,
+                                         int d, int dtype, int device,
+                                         void* stream) {
+  if (n_a < 1 || n_b < 1 || d < 1 || d > kMaxD) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_rect<float>(za, zb, scale, lse_a, lse_b, n_a, n_b, d, s);
+  }
+  if (dtype == 1) {
+    return launch_rect<__nv_bfloat16>(za, zb, scale, lse_a, lse_b, n_a, n_b,
+                                      d, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-// Shared by csrc/infonce_dual_fwd.cu and csrc/infonce_dual_bwd.cu: the
-// register-blocked fp32 product of one 64 x 64 tile of
-// s = a . b^T over D in 32-wide slices staged in shared memory.
+// Shared by the InfoNCE kernels (csrc/infonce_dual_fwd.cu,
+// csrc/infonce_grad.cuh): the register-blocked fp32 product of one 64 x 64
+// tile of s = a . b^T, a (n_a, D) and b (n_b, D), over D in 32-wide slices
+// staged in shared memory.
 //
 // 256 threads as 16 x 16; thread (ty, tx) owns rows ty + 16 i and columns
 // tx + 16 j (i, j < 4) of the tile. A slice is staged as fp32 with row
@@ -49,11 +50,12 @@ __device__ void stage_slice(float* dst, const T* src, int row0, int n, int d,
   }
 }
 
-// acc[i][j] = a_{row0 + ty + 16 i} . b_{col0 + tx + 16 j} (unscaled fp32).
+// acc[i][j] = a_{row0 + ty + 16 i} . b_{col0 + tx + 16 j} (unscaled fp32);
+// rows past n_a of a and past n_b of b read as zero.
 template <typename T>
 __device__ void tile_products(float (&acc)[4][4], float* as, float* bs,
                               const T* a, const T* b, int row0, int col0,
-                              int n, int d) {
+                              int n_a, int n_b, int d) {
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
 #pragma unroll
@@ -63,8 +65,8 @@ __device__ void tile_products(float (&acc)[4][4], float* as, float* bs,
   }
   for (int k0 = 0; k0 < d; k0 += kSlice) {
     __syncthreads();  // the previous slice's readers are done
-    stage_slice(as, a, row0, n, d, k0);
-    stage_slice(bs, b, col0, n, d, k0);
+    stage_slice(as, a, row0, n_a, d, k0);
+    stage_slice(bs, b, col0, n_b, d, k0);
     __syncthreads();
 #pragma unroll 8
     for (int k = 0; k < kSlice; ++k) {  // zero padding past d adds 0

@@ -33,6 +33,7 @@ SOURCES: dict[str, Path] = {
     "ntxent_bwd_general": _PACKAGE / "csrc" / "ntxent_bwd_general.cu",
     "infonce_dual_fwd": _PACKAGE / "csrc" / "infonce_dual_fwd.cu",
     "infonce_dual_bwd": _PACKAGE / "csrc" / "infonce_dual_bwd.cu",
+    "infonce_bwd_cols": _PACKAGE / "csrc" / "infonce_bwd_cols.cu",
 }
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 

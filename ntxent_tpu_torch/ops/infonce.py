@@ -21,14 +21,36 @@ read it through a pointer, so no step waits on the host for it.
 * ``info_nce_fused(za, zb, temperature, scale=None)`` is the
   differentiable mean loss, with gradients for za, zb and the scale.
 
+The data-parallel form (``info_nce_dual_partial``, ``infonce_pallas.py:
+419-545``): one rank's rows ``za_local`` (n, D) with global ids ``row_gid``
+against the all-gathered ``zb_g`` (N, D):
+
+* ``infonce_dual_fwd_rect(za_local, zb_g, scale) -> (lse_a, lse_b_part)``,
+  the rectangular stats-only mode of the forward kernel (#9): the local
+  rows' lse over all N columns and each column's lse over the local rows;
+* ``infonce_bwd_rows(...) -> o_a`` (``G @ zb_g``, n rows: #5's cross-modal
+  mode, ``csrc/infonce_dual_bwd.cu``) and ``infonce_bwd_cols(...) -> o_b``
+  (``G.T @ za_local``, N columns: #4, ``csrc/infonce_bwd_cols.cu``), with
+  ``G`` the combined gradient of the local rows at the merged global
+  column lse;
+* ``info_nce_dual_partial(za_local, zb_g, row_gid, group, scale=)``: the
+  differentiable partial loss SUM of the local pairs. Its forward merges
+  the column lse across ranks (``pmax`` and ``psum`` of an (N,) vector);
+  its backward launches the two gradient kernels.
+
+On the card the backward is this two-kernel form at every N: the TPU
+package picks it only when its shared-G accumulators outgrow VMEM
+(``_dual_bwd_fits``) and otherwise runs #10 on the rectangle; the
+function is the same.
+
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version. Each wrapper counts its launches in ``.launches`` (one per call:
-each kernel covers both directions in one launch). The TPU package's
-two-pass backward for large N (``_bwd_sym_call`` in cross-modal mode,
-taken when its accumulators outgrow VMEM) is the same function; the
-backward kernel here serves every N, so it has no counterpart. The
-distributed partial losses of that module (``info_nce_dual_partial``,
-``info_nce_partial_fused``) are not ported yet (ROADMAP.md Queue A 3).
+the square kernels cover both directions in one launch). The TPU package's
+two-pass backward for large N on one device (``_bwd_sym_call`` in
+cross-modal mode, taken when its accumulators outgrow VMEM) is the same
+function as #10; the square backward kernel serves every N there. The
+two-pass partial loss (``info_nce_partial_fused``) is not ported
+(ROADMAP.md Queue A 3(f)).
 """
 
 from __future__ import annotations
@@ -41,8 +63,12 @@ import torch
 
 from . import _build
 
-__all__ = ["info_nce_fused", "infonce_dual_bwd", "infonce_dual_bwd_plain",
-           "infonce_dual_fwd", "infonce_dual_fwd_plain", "resolve_scale"]
+__all__ = ["info_nce_dual_partial", "info_nce_fused", "infonce_bwd_cols",
+           "infonce_bwd_cols_plain", "infonce_bwd_rows",
+           "infonce_bwd_rows_plain", "infonce_dual_bwd",
+           "infonce_dual_bwd_plain", "infonce_dual_fwd",
+           "infonce_dual_fwd_plain", "infonce_dual_fwd_rect",
+           "infonce_dual_fwd_rect_plain", "resolve_scale"]
 
 MAX_DIM = 512  # widest embedding the kernels take (CLIP's is 512)
 ROWS_PER_CTA = 64  # rows of one thread block in csrc/infonce_dual_fwd.cu
@@ -62,14 +88,22 @@ def _exp0(x: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.clamp(x, max=0.0))
 
 
-def _check(za: torch.Tensor, zb: torch.Tensor) -> None:
-    if za.ndim != 2 or za.shape != zb.shape:
-        raise ValueError(f"paired embeddings must be (N, D) each and match: "
+def _check_rect(za: torch.Tensor, zb: torch.Tensor) -> None:
+    if za.ndim != 2 or zb.ndim != 2 or za.shape[1] != zb.shape[1]:
+        raise ValueError(f"embeddings must be (n, D) and (N, D): "
                          f"{tuple(za.shape)} vs {tuple(zb.shape)}")
-    if za.shape[0] < 1:
-        raise ValueError("InfoNCE needs at least one pair")
+    if za.shape[0] < 1 or zb.shape[0] < 1:
+        raise ValueError("InfoNCE needs at least one row and one column")
     if za.device != zb.device:
         raise ValueError(f"za on {za.device}, zb on {zb.device}")
+
+
+def _check(za: torch.Tensor, zb: torch.Tensor) -> None:
+    """Paired embeddings: (N, D) each."""
+    _check_rect(za, zb)
+    if za.shape != zb.shape:
+        raise ValueError(f"paired embeddings must match: "
+                         f"{tuple(za.shape)} vs {tuple(zb.shape)}")
 
 
 def _similarity(za, zb, scale) -> torch.Tensor:
@@ -77,21 +111,58 @@ def _similarity(za, zb, scale) -> torch.Tensor:
     return (za.float() @ zb.float().T) * scale.float()
 
 
+def _lse(s: torch.Tensor, dim: int) -> torch.Tensor:
+    """The kernels' logsumexp along ``dim``: max-shifted ``_exp0`` sums
+    and ``log(max(l, 1e-37))``."""
+    m = s.amax(dim=dim, keepdim=True)
+    l = _exp0(s - m).sum(dim=dim)
+    return m.squeeze(dim) + torch.log(torch.clamp(l, min=1e-37))
+
+
 def infonce_dual_fwd_plain(za: torch.Tensor, zb: torch.Tensor,
                            scale: torch.Tensor):
-    """(loss_sum, lse_a, lse_b) with the kernel's numerics: max-shifted
-    ``_exp0`` sums and ``log(max(l, 1e-37))`` in each direction."""
+    """(loss_sum, lse_a, lse_b) with the kernel's numerics in each
+    direction."""
     _check(za, zb)
     s = _similarity(za, zb, scale)
     pos = torch.diagonal(s)
-
-    def lse(dim):
-        m = s.amax(dim=dim, keepdim=True)
-        l = _exp0(s - m).sum(dim=dim)
-        return m.squeeze(dim) + torch.log(torch.clamp(l, min=1e-37))
-
-    lse_a, lse_b = lse(1), lse(0)
+    lse_a, lse_b = _lse(s, 1), _lse(s, 0)
     return (lse_a - pos).sum() + (lse_b - pos).sum(), lse_a, lse_b
+
+
+def infonce_dual_fwd_rect_plain(za: torch.Tensor, zb: torch.Tensor,
+                                scale: torch.Tensor):
+    """(lse_a (n,), lse_b (N,)) of ``s = scale * za @ zb.T`` for za (n, D)
+    and zb (N, D): the row and the column logsumexp, nothing else."""
+    _check_rect(za, zb)
+    s = _similarity(za, zb, scale)
+    return _lse(s, 1), _lse(s, 0)
+
+
+def _cross_modal_g(za, zb, row_gid, scale, lse_a, lse_b) -> torch.Tensor:
+    """The combined ``G = (p_row - pos) * valid_row + (p_col - pos)`` of
+    rows za with global ids ``row_gid`` against the columns zb
+    (``ntxent_pallas.py:445-476`` with ``diag_pos=True``)."""
+    s = _similarity(za, zb, scale)
+    gid = row_gid.long()
+    cols = torch.arange(zb.shape[0], device=zb.device)
+    pos = (gid[:, None] == cols[None, :]).float()
+    valid_row = (gid < zb.shape[0]).float()[:, None]
+    return ((_exp0(s - lse_a[:, None]) - pos) * valid_row
+            + (_exp0(s - lse_b[None, :]) - pos))
+
+
+def infonce_bwd_rows_plain(za, zb, row_gid, scale, lse_a, lse_b):
+    """fp32 ``G @ zb`` (n, D): the row side (#5's cross-modal mode)."""
+    _check_rect(za, zb)
+    return _cross_modal_g(za, zb, row_gid, scale, lse_a, lse_b) @ zb.float()
+
+
+def infonce_bwd_cols_plain(za, zb, row_gid, scale, lse_a, lse_b):
+    """fp32 ``G.T @ za`` (N, D): the column side (#4)."""
+    _check_rect(za, zb)
+    return (_cross_modal_g(za, zb, row_gid, scale, lse_a, lse_b).T
+            @ za.float())
 
 
 def infonce_dual_bwd_plain(za: torch.Tensor, zb: torch.Tensor,
@@ -135,10 +206,33 @@ def _fwd_kernel():
 
 
 @functools.cache
+def _fwd_rect_kernel():
+    fn = _build.load("infonce_dual_fwd").ntx_infonce_dual_fwd_rect
+    # za, zb, scale, lse_a, lse_b; n_a, n_b, d, dtype, device; stream
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _bwd_kernel():
     fn = _build.load("infonce_dual_bwd").ntx_infonce_dual_bwd
     # za, zb, scale, lse_a, lse_b, o_a, o_b; n, d, dtype, device; stream
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_side_kernel(side: str):
+    lib, name = {"rows": ("infonce_dual_bwd", "ntx_infonce_bwd_rows"),
+                 "cols": ("infonce_bwd_cols", "ntx_infonce_bwd_cols")}[side]
+    fn = getattr(_build.load(lib), name)
+    # za, zb, row_gid, scale, lse_a, lse_b, out; n_rows, n_cols, d, dtype,
+    # device; stream
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -220,6 +314,100 @@ def infonce_dual_bwd(za: torch.Tensor, zb: torch.Tensor, scale: torch.Tensor,
 infonce_dual_bwd.launches = 0
 
 
+def infonce_dual_fwd_rect(za: torch.Tensor, zb: torch.Tensor,
+                          scale: torch.Tensor):
+    """(lse_a (n,), lse_b_part (N,)) fp32 for za (n, D), zb (N, D).
+
+    A CUDA tensor launches the rectangular stats-only mode of
+    ``csrc/infonce_dual_fwd.cu`` (counted in
+    ``infonce_dual_fwd_rect.launches``); a CPU tensor runs the plain
+    version."""
+    _check_rect(za, zb)
+    if not _on_cuda("infonce_dual_fwd_rect", za):
+        return infonce_dual_fwd_rect_plain(za, zb, scale)
+    scale = _check_kernel_input(za, zb, scale)
+    (n_a, d), n_b, dev = za.shape, zb.shape[0], za.device
+    lse_a = torch.empty(n_a, dtype=torch.float32, device=dev)
+    lse_b = torch.empty(n_b, dtype=torch.float32, device=dev)
+    err = _fwd_rect_kernel()(za.data_ptr(), zb.data_ptr(), scale.data_ptr(),
+                             lse_a.data_ptr(), lse_b.data_ptr(), n_a, n_b, d,
+                             _DTYPE_CODES[za.dtype], dev.index,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"infonce_dual_fwd_rect launch failed: CUDA "
+                           f"error {err}")
+    infonce_dual_fwd_rect.launches += 1
+    return lse_a, lse_b
+
+
+infonce_dual_fwd_rect.launches = 0
+
+
+def _bwd_side(side: str, wrapper, za, zb, row_gid, scale, lse_a, lse_b):
+    """Validate and launch the rows (``G @ zb``) or columns (``G.T @ za``)
+    kernel; returns its fp32 output."""
+    n_a, n_b = za.shape[0], zb.shape[0]
+    for name, t, n in (("row_gid", row_gid, n_a), ("lse_a", lse_a, n_a),
+                       ("lse_b", lse_b, n_b)):
+        if t.shape != (n,) or t.device != za.device:
+            raise ValueError(f"{name} must be ({n},) on {za.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    scale = _check_kernel_input(za, zb, scale)
+    row_gid = row_gid.to(torch.int32).contiguous()
+    lse_a = lse_a.float().contiguous()
+    lse_b = lse_b.float().contiguous()
+    out = torch.empty((n_a if side == "rows" else n_b, za.shape[1]),
+                      dtype=torch.float32, device=za.device)
+    err = _bwd_side_kernel(side)(
+        za.data_ptr(), zb.data_ptr(), row_gid.data_ptr(), scale.data_ptr(),
+        lse_a.data_ptr(), lse_b.data_ptr(), out.data_ptr(), n_a, n_b,
+        za.shape[1], _DTYPE_CODES[za.dtype], za.device.index,
+        torch.cuda.current_stream(za.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
+                           f"{err}")
+    wrapper.launches += 1
+    return out
+
+
+def infonce_bwd_rows(za: torch.Tensor, zb: torch.Tensor,
+                     row_gid: torch.Tensor, scale: torch.Tensor,
+                     lse_a: torch.Tensor, lse_b: torch.Tensor):
+    """o_a (n, D) fp32 = ``G @ zb`` for rows za (n, D) with global ids
+    ``row_gid`` against zb (N, D), the rows' lse_a (n,) and the global
+    column lse_b (N,).
+
+    A CUDA tensor launches ``ntx_infonce_bwd_rows`` of
+    ``csrc/infonce_dual_bwd.cu`` (counted in ``infonce_bwd_rows.launches``);
+    a CPU tensor runs the plain version."""
+    _check_rect(za, zb)
+    if not _on_cuda("infonce_bwd_rows", za):
+        return infonce_bwd_rows_plain(za, zb, row_gid, scale, lse_a, lse_b)
+    return _bwd_side("rows", infonce_bwd_rows, za, zb, row_gid, scale,
+                     lse_a, lse_b)
+
+
+infonce_bwd_rows.launches = 0
+
+
+def infonce_bwd_cols(za: torch.Tensor, zb: torch.Tensor,
+                     row_gid: torch.Tensor, scale: torch.Tensor,
+                     lse_a: torch.Tensor, lse_b: torch.Tensor):
+    """o_b (N, D) fp32 = ``G.T @ za``: the partial gradient of the
+    gathered zb from these rows (arguments as ``infonce_bwd_rows``).
+
+    A CUDA tensor launches ``csrc/infonce_bwd_cols.cu`` (counted in
+    ``infonce_bwd_cols.launches``); a CPU tensor runs the plain version."""
+    _check_rect(za, zb)
+    if not _on_cuda("infonce_bwd_cols", za):
+        return infonce_bwd_cols_plain(za, zb, row_gid, scale, lse_a, lse_b)
+    return _bwd_side("cols", infonce_bwd_cols, za, zb, row_gid, scale,
+                     lse_a, lse_b)
+
+
+infonce_bwd_cols.launches = 0
+
+
 class _InfoNce(torch.autograd.Function):
     """The mean loss with the kernels' exact backward
     (infonce_pallas.py:331-378): the forward saves (za, zb, scale, lse_a,
@@ -259,3 +447,65 @@ def info_nce_fused(za: torch.Tensor, zb: torch.Tensor,
     _check(za, zb)
     scale = resolve_scale(temperature, scale, za.device)
     return _InfoNce.apply(za.contiguous(), zb.contiguous(), scale)
+
+
+class _InfoNceDualPartial(torch.autograd.Function):
+    """The partial loss sum of one rank's pairs (``infonce_pallas.py:
+    443-512``). Forward: the rectangular stats-only kernel, the column lse
+    merged across ranks (``m = pmax(lse_b_part)``, ``lse_b = m +
+    log(psum(exp(lse_b_part - m)))``, recorded once by the comms
+    accounting), the positives from a row-wise dot with ``zb_g[row_gid]``.
+    Backward: the rows and columns kernels at the merged lse;
+    ``grad_za = o_a * g * scale``, ``grad_zb_g = o_b * g * scale`` (the
+    caller's all-gather sums it over ranks), ``grad_scale = g * sum(o_a *
+    za_local)``: this rank's share, as the JAX rule returns it."""
+
+    @staticmethod
+    def forward(ctx, za, zb_g, row_gid, scale, group):
+        # imported here: the parallel package imports this module
+        from ..parallel.mesh import pmax, psum
+
+        lse_a, lse_b_part = infonce_dual_fwd_rect(za, zb_g, scale)
+        m = pmax(lse_b_part, group)
+        lse_b = m + torch.log(psum(torch.exp(lse_b_part - m), group))
+        zb_pos = zb_g.index_select(0, row_gid.long())
+        pos = scale.float() * torch.sum(za.float() * zb_pos.float(), dim=1)
+        loss_part = torch.sum(lse_a - pos) + torch.sum(
+            lse_b.index_select(0, row_gid.long()) - pos)
+        ctx.save_for_backward(za, zb_g, row_gid, scale, lse_a, lse_b)
+        return loss_part
+
+    @staticmethod
+    def backward(ctx, g):
+        za, zb_g, row_gid, scale, lse_a, lse_b = ctx.saved_tensors
+        o_a = infonce_bwd_rows(za, zb_g, row_gid, scale, lse_a, lse_b)
+        o_b = infonce_bwd_cols(za, zb_g, row_gid, scale, lse_a, lse_b)
+        factor = g.float() * scale.float()
+        grad_za = (o_a * factor).to(za.dtype)
+        grad_zb = (o_b * factor).to(zb_g.dtype)
+        grad_scale = (g.float() * torch.sum(o_a * za.float())).reshape(
+            scale.shape).to(scale.dtype)
+        return grad_za, grad_zb, None, grad_scale, None
+
+
+def info_nce_dual_partial(za_local: torch.Tensor, zb_g: torch.Tensor,
+                          row_gid: torch.Tensor, group=None, *,
+                          scale: torch.Tensor | float = 1.0) -> torch.Tensor:
+    """Both-direction partial InfoNCE **sum** of one rank's pairs from one
+    walk of its rows x global columns block (``infonce_pallas.py:518``).
+
+    ``za_local`` (n, D): this rank's rows; ``zb_g`` (N, D): the other
+    modality gathered over the ranks of ``group`` (``None``: the default
+    group, which must be joined); ``row_gid`` (n,): the local rows' global
+    ids. Returns ``sum_i (lse_row_i - s_ii) + sum_i (lse_col_gid(i) -
+    s_ii)`` over the local rows; psum it over ranks and divide by 2N for
+    the mean loss (``parallel.dist_loss.local_infonce_dual``). Gradients
+    flow to za_local, zb_g and a tensor ``scale``."""
+    _check_rect(za_local, zb_g)
+    if row_gid.shape != (za_local.shape[0],):
+        raise ValueError(f"row_gid must be ({za_local.shape[0]},), got "
+                         f"{tuple(row_gid.shape)}")
+    scale = resolve_scale(1.0, scale, za_local.device)
+    return _InfoNceDualPartial.apply(za_local.contiguous(), zb_g.contiguous(),
+                                     row_gid.to(za_local.device), scale,
+                                     group)

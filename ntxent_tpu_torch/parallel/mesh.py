@@ -5,7 +5,9 @@ counterpart of the parts of ``ntxent_tpu/parallel/mesh.py`` it needs.
   environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
   ``MASTER_PORT``); ``init_from_file(path, rank, world_size, device)``:
   the same over a ``torch.distributed.FileStore`` (no TCP port). NCCL on
-  CUDA, gloo on the CPU; a CUDA rank runs on ``cuda:LOCAL_RANK``.
+  CUDA, gloo on the CPU; a CUDA rank runs on ``cuda:LOCAL_RANK``. A
+  collective waits up to 10 minutes for the other ranks (``timeout``
+  shortens it, as the tests do).
 * ``process_info()`` (``mesh.py:1222``), ``local_row_gids`` (``:1205``).
 * ``all_gather`` (tiled along dim 0), ``psum`` and ``pmean``
   (``:756, 772, 787``), differentiable: the backward of the all-gather is
@@ -16,13 +18,16 @@ counterpart of the parts of ``ntxent_tpu/parallel/mesh.py`` it needs.
   the rank's share, as it is under JAX's ``shard_map`` (its psum
   transposes to a psum); the train step's ``pmean`` of the gradients
   divides it back.
+* ``pmax`` (``:893``): the maximum over ranks, not differentiable (the
+  InfoNCE column-lse merge runs it inside a ``torch.autograd.Function``).
 * ``pmean_(tensors)``: an in-place mean over ranks of a list of fp32
   tensors (gradients, BatchNorm statistics) in one all-reduce.
 
 Comms accounting (``comms_accounting()``) records every forward
 collective with the JAX shims' formulas, per device, on the payload it
 sends: an all-gather ``(P - 1) * bytes`` (P - 1 remote shards arrive),
-an all-reduce ``2 (P - 1) / P * bytes`` (the ring algorithm). Keys are
+an all-reduce (``psum``, ``pmean``, ``pmax``) ``2 (P - 1) / P * bytes``
+(the ring algorithm). Keys are
 ``(op, axis)`` with the axis ``"data"``, as in the JAX package, so a
 step's ``delta`` compares with the JAX step's. Backward collectives are
 not recorded, as the shims do not record them either.
@@ -40,8 +45,8 @@ import torch.distributed as dist
 from ..utils.capability import resolve_device
 
 __all__ = ["AXIS", "CommsAccounting", "all_gather", "comms_accounting",
-           "init_from_env", "init_from_file", "local_row_gids", "pmean",
-           "pmean_", "process_info", "psum", "rank", "shutdown",
+           "init_from_env", "init_from_file", "local_row_gids", "pmax",
+           "pmean", "pmean_", "process_info", "psum", "rank", "shutdown",
            "world_size"]
 
 AXIS = "data"  # the accounting's axis label: the JAX mesh's data axis
@@ -78,15 +83,16 @@ def init_from_env(device="cuda") -> torch.device:
     return dev
 
 
-def init_from_file(path, rank: int, world_size: int,
-                   device="cuda") -> torch.device:
+def init_from_file(path, rank: int, world_size: int, device="cuda",
+                   timeout: datetime.timedelta = _TIMEOUT) -> torch.device:
     """Join a process group of ``world_size`` ranks that meet in the
     ``FileStore`` at ``path`` (a file no rank has used before); a CUDA
-    rank runs on ``cuda:rank``. Returns this rank's device."""
+    rank runs on ``cuda:rank``. A collective that waits longer than
+    ``timeout`` for the other ranks fails. Returns this rank's device."""
     dev = _rank_device(device, rank)
     store = dist.FileStore(str(path), world_size)
     dist.init_process_group(_backend(dev), store=store, rank=rank,
-                            world_size=world_size, timeout=_TIMEOUT)
+                            world_size=world_size, timeout=timeout)
     return dev
 
 
@@ -240,6 +246,17 @@ def psum(x: torch.Tensor, group=None, op: str = "psum") -> torch.Tensor:
     _require_group()
     _record_all_reduce(op, [x], group)
     return _AllReduce.apply(x, group, False)
+
+
+@torch.no_grad()
+def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Elementwise maximum over ranks (an all-reduce with ``MAX``, which
+    gloo and NCCL both run); not differentiable."""
+    _require_group()
+    _record_all_reduce("pmax", [x], group)
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
 
 
 def pmean(x: torch.Tensor, group=None, op: str = "pmean") -> torch.Tensor:

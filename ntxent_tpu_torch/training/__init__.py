@@ -1,5 +1,5 @@
-"""Training of the port: SimCLR (LARS, two-view augmentation) on one card
-or data-parallel over ranks, CLIP (AdamW, paired loading) on one card,
+"""Training of the port: SimCLR (LARS, two-view augmentation) and CLIP
+(AdamW, paired loading), each on one card or data-parallel over ranks,
 seeded loading and the train steps."""
 
 from .adamw import AdamW
@@ -19,6 +19,7 @@ from .trainer import (
     create_clip_train_state,
     create_train_state,
     make_clip_train_step,
+    make_sharded_clip_train_step,
     make_sharded_train_step,
     make_train_step,
     train_loop,
@@ -40,6 +41,7 @@ __all__ = [
     "create_clip_train_state",
     "create_train_state",
     "make_clip_train_step",
+    "make_sharded_clip_train_step",
     "make_sharded_train_step",
     "make_train_step",
     "simclr_learning_rate",

@@ -18,9 +18,11 @@ of ``ntxent_tpu/training/datasets.py`` the single-card training path uses.
   parameters for all ``B`` rows and applies its rows' share, so a world
   of P ranks sees exactly the views a world of one sees;
 * ``PairedArrayLoader`` (CLIP): (images, tokens) batches of in-memory
-  arrays in the same seeded per-epoch order (``datasets.py:368``, one
-  shard); ``PairedPipeline`` moves each batch to the device once per step
-  and turns uint8 images into [0, 1] there (``cli.py:1372-1375``).
+  arrays in the same seeded per-epoch order (``datasets.py:368``); with
+  ``world_size`` > 1, rank ``rank``'s rows of each global batch, the rows
+  the JAX loader's ``shard_index``/``shard_count`` give it;
+  ``PairedPipeline`` moves each batch to the device once per step and
+  turns uint8 images into [0, 1] there (``cli.py:1372-1375``).
 """
 
 from __future__ import annotations
@@ -133,19 +135,23 @@ class TwoViewPipeline:
 
 class PairedArrayLoader(StreamingLoader):
     """(images, tokens) numpy batches of paired in-memory arrays, forever,
-    in ``StreamingLoader``'s seeded order (the JAX ``PairedArrayLoader``
-    with one shard)."""
+    in ``StreamingLoader``'s seeded order: the JAX ``PairedArrayLoader``
+    of ``batch_size / world_size`` rows with ``shard_index=rank`` and
+    ``shard_count=world_size``. ``batch_size`` is the global batch."""
 
-    def __init__(self, images, tokens, batch_size: int, seed: int = 0):
+    def __init__(self, images, tokens, batch_size: int, seed: int = 0,
+                 rank: int = 0, world_size: int = 1):
         images, tokens = np.asarray(images), np.asarray(tokens)
         if len(images) != len(tokens):
             raise ValueError(f"{len(images)} images vs {len(tokens)} tokens")
-        super().__init__(ArraySource(images), batch_size, seed)
+        super().__init__(ArraySource(images), batch_size, seed, rank,
+                         world_size)
         self.images, self.tokens = images, tokens
 
     def __iter__(self):
         for idxs in self._indices():
-            yield self.images[idxs], self.tokens[idxs]
+            rows = idxs[self.row_offset:self.row_offset + self.local_batch]
+            yield self.images[rows], self.tokens[rows]
 
 
 class PairedPipeline:

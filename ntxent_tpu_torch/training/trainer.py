@@ -26,6 +26,16 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   rank. Each rank differentiates its own copy of the psum'd loss, so its
   gradients are P times its share and their pmean is the gradient of the
   global loss, as under JAX's ``shard_map``;
+* ``make_sharded_clip_train_step(group)`` (``trainer.py:625``, the
+  float32 wire, without remat or the MoE loss): each rank runs both towers
+  on its (images, tokens) shard, the dual InfoNCE
+  (``parallel.dist_loss.local_infonce_dual``: only the text embeddings
+  are gathered), the backward, one ``pmean`` of every gradient (the logit
+  scale's included) and the same AdamW update on every rank. As in the
+  SimCLR step, each rank's gradients are P times its share (the psum of
+  the loss and the all-gather's reduce-scatter carry the factor), so their
+  pmean is the gradient of the global loss, as under JAX's ``shard_map``
+  with ``check_vma=False``;
 * ``train_loop``: steps, loss, steps/s and images/s every ``log_every``.
 
 Not in this slice (``make_train_step`` raises ``NotImplementedError``
@@ -48,7 +58,7 @@ from ..models.layers import BatchNorm
 from ..ops import oracle
 from ..ops.infonce import info_nce_fused
 from ..ops.ntxent import ntxent_loss_fused
-from ..parallel.dist_loss import local_ntxent_allgather
+from ..parallel.dist_loss import local_infonce_dual, local_ntxent_allgather
 from ..parallel.mesh import pmean_
 from .adamw import AdamW
 from .lars import LARS, cosine_warmup_schedule, exclusion_mask
@@ -58,8 +68,8 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["ROADMAP_ITEMS", "TrainState", "TrainerConfig",
            "create_clip_train_state", "create_train_state",
-           "make_clip_train_step", "make_sharded_train_step",
-           "make_train_step", "train_loop"]
+           "make_clip_train_step", "make_sharded_clip_train_step",
+           "make_sharded_train_step", "make_train_step", "train_loop"]
 
 # What training does not port yet, by the ROADMAP.md item that will.
 ROADMAP_ITEMS = {
@@ -210,6 +220,28 @@ def make_clip_train_step(use_fused: bool | None = None, remat: bool = False,
         loss = (info_nce_fused(zi, zt, scale=scale) if fused
                 else oracle.info_nce_loss(zi, zt, temperature=1.0 / scale))
         loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return train_step
+
+
+def make_sharded_clip_train_step(group=None) -> Callable:
+    """``train_step(state, images, tokens) -> (state, {"loss": tensor})``
+    over the ranks of ``group`` (``None``: the default group) with the
+    dual InfoNCE; ``images`` and ``tokens`` are this rank's rows of the
+    global batch. CUDA tensors run the loss kernels, CPU tensors their
+    plain versions. Every rank returns the global loss and ends with the
+    same parameters."""
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   tokens: torch.Tensor):
+        state.optimizer.zero_grad()
+        zi, zt, scale = state.model(images, tokens)
+        loss = local_infonce_dual(zi, zt, scale, group)
+        loss.backward()
+        pmean_([p.grad for p in state.model.parameters()], group)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach()}

@@ -46,12 +46,26 @@ the strip loss) over an NCCL process group of world size 1 at
   the ``matmul`` group, BatchNorm's element-wise passes in ``other``),
   and counts launches and peak device memory.
 
+``--mode clip_dp`` (the data-parallel CLIP slice): one step of
+data-parallel CLIP ViT-B/16 (``make_sharded_clip_train_step``, the dual
+InfoNCE) over an NCCL process group of world size 1 at ``--batch`` pairs
+on fixed synthetic pairs,
+
+* times the step with CUDA events: step ms and images/s (B per step);
+* times apart each tower's forward and backward, the loss's forward and
+  backward with its collectives (the all-gather, the column-lse ``pmax``
+  and ``psum``, the loss ``psum``), the gradient ``pmean`` and the AdamW
+  update;
+* traces 3 steps as ``--mode train`` does, and counts launches and peak
+  device memory.
+
 Run on the card, from the repository root:
 
     python -m ntxent_tpu_torch.utils.profiling --bucket 64 --impls flash,xla
     python -m ntxent_tpu_torch.utils.profiling --mode train --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode clip --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode dp --batch 256
+    python -m ntxent_tpu_torch.utils.profiling --mode clip_dp --batch 256
 
 The last line of the output is one JSON object with every number.
 """
@@ -85,7 +99,10 @@ _KERNELS = (("flash_fwd_kernel", "flash_attention_fwd"),
             ("ntxent_bwd_general_kernel", "ntxent_bwd_general_cols"),
             ("infonce_dual_fwd_kernel", "infonce_dual_fwd"),
             ("infonce_loss_reduce", "infonce_dual_fwd"),
-            ("infonce_dual_bwd_kernel", "infonce_dual_bwd"))
+            ("infonce_dual_bwd_kernel", "infonce_dual_bwd"),
+            ("infonce_fwd_rect_kernel", "infonce_dual_fwd_rect"),
+            ("infonce_bwd_rows_kernel", "infonce_bwd_rows"),
+            ("infonce_bwd_cols_kernel", "infonce_bwd_cols"))
 MODEL, IMAGE_SIZE, SEED = "vit_b16", 224, 0
 RUNS, TRACE_RUNS = 10, 3
 
@@ -167,7 +184,10 @@ def launch_counters() -> dict:
             "ntxent_bwd_general_rows": ntxent.ntxent_bwd_general_rows,
             "ntxent_bwd_general_cols": ntxent.ntxent_bwd_general_cols,
             "infonce_dual_fwd": infonce.infonce_dual_fwd,
-            "infonce_dual_bwd": infonce.infonce_dual_bwd}
+            "infonce_dual_bwd": infonce.infonce_dual_bwd,
+            "infonce_dual_fwd_rect": infonce.infonce_dual_fwd_rect,
+            "infonce_bwd_rows": infonce.infonce_bwd_rows,
+            "infonce_bwd_cols": infonce.infonce_bwd_cols}
 
 
 def _traced_step(one_step) -> dict:
@@ -219,16 +239,11 @@ def train_profile(batch: int, device) -> dict:
             **_traced_step(one_step)}
 
 
-def clip_profile(batch: int, device) -> dict:
-    """The numbers of ``--mode clip`` for one batch (see the module
-    docstring)."""
+def _clip_setup(batch: int, device):
+    """CLIP ViT-B/16 (flash attention) with its AdamW state and fixed
+    synthetic pairs on ``device``: (state, images, tokens)."""
     from ..cli import build_clip_model, build_train_parser
-    from ..ops.infonce import info_nce_fused
-    from ..training import (
-        TrainerConfig,
-        create_clip_train_state,
-        make_clip_train_step,
-    )
+    from ..training import TrainerConfig, create_clip_train_state
 
     args = build_train_parser().parse_args(
         ["--objective", "clip", "--model", MODEL, "--vit-attention", "flash",
@@ -236,13 +251,23 @@ def clip_profile(batch: int, device) -> dict:
          "--token-len", "77", "--seed", str(SEED)])
     cfg = TrainerConfig(batch_size=batch, base_lr=5e-4, warmup_steps=1)
     state = create_clip_train_state(build_clip_model(args), cfg, device)
-    model = state.model
-    step = make_clip_train_step()
     gen = torch.Generator(device=device).manual_seed(SEED)
     images = torch.rand(batch, IMAGE_SIZE, IMAGE_SIZE, 3, generator=gen,
                         device=device)
     tokens = torch.randint(1, args.vocab_size, (batch, args.token_len),
                            generator=gen, device=device)
+    return state, images, tokens
+
+
+def _clip_step_profile(state, images, tokens, step, loss_fn,
+                       grad_reduce=None) -> dict:
+    """The numbers of a CLIP step: step ms on CUDA events, peak memory,
+    the parts timed apart (each tower's forward and backward, the loss's
+    forward and backward ``loss_fn(zi, zt, scale)``, ``grad_reduce`` of
+    the gradients if given, the AdamW update) and the traced breakdown."""
+    model = state.model
+    batch = images.shape[0]
+    device = images.device
 
     def one_step():
         step(state, images, tokens)
@@ -262,9 +287,8 @@ def clip_profile(batch: int, device) -> dict:
     scale = model.scale().detach().requires_grad_()
 
     def loss_fwd_bwd():
-        info_nce_fused(zi, zt, scale=scale).backward()
+        loss_fn(zi, zt, scale).backward()
 
-    one_step()  # leaves this step's gradients for the optimizer timing
     parts = {
         "image_tower_fwd_bwd": cuda_time_ms(
             tower(model.encode_image, images), runs=3, warmup=1),
@@ -272,13 +296,49 @@ def clip_profile(batch: int, device) -> dict:
             tower(model.encode_text, tokens), runs=3, warmup=1),
         "infonce_fwd_bwd": cuda_time_ms(loss_fwd_bwd, runs=5, warmup=1),
     }
-    one_step()
+    one_step()  # leaves this step's gradients for the timings below
+    if grad_reduce is not None:
+        grads = [p.grad for p in model.parameters()]
+        parts["grad_pmean"] = cuda_time_ms(lambda: grad_reduce(grads),
+                                           runs=5, warmup=1)
     # AdamW alone: the lr comes from the host count, nothing else changes
     parts["adamw_update"] = cuda_time_ms(state.optimizer.optimizer.step,
                                          runs=5, warmup=1)
     return {"batch": batch, "images_per_step": batch, "step_ms": step_ms,
             "images_per_s": batch / step_ms * 1e3, "peak_memory_bytes": peak,
             "parts_ms": parts, **_traced_step(one_step)}
+
+
+def clip_profile(batch: int, device) -> dict:
+    """The numbers of ``--mode clip`` for one batch (see the module
+    docstring)."""
+    from ..ops.infonce import info_nce_fused
+    from ..training import make_clip_train_step
+
+    state, images, tokens = _clip_setup(batch, device)
+    return _clip_step_profile(
+        state, images, tokens, make_clip_train_step(),
+        lambda zi, zt, scale: info_nce_fused(zi, zt, scale=scale))
+
+
+def clip_dp_profile(batch: int, device) -> dict:
+    """The numbers of ``--mode clip_dp`` for one batch (see the module
+    docstring)."""
+    import tempfile
+
+    from ..parallel import mesh
+    from ..parallel.dist_loss import local_infonce_dual
+    from ..training import make_sharded_clip_train_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_from_file(f"{tmp}/store", 0, 1, device)
+        try:
+            state, images, tokens = _clip_setup(batch, device)
+            return _clip_step_profile(
+                state, images, tokens, make_sharded_clip_train_step(None),
+                local_infonce_dual, grad_reduce=mesh.pmean_)
+        finally:
+            mesh.shutdown()
 
 
 def dp_profile(batch: int, device) -> dict:
@@ -365,22 +425,22 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--mode", default="forward",
-                   choices=["forward", "train", "clip", "dp"])
+                   choices=["forward", "train", "clip", "dp", "clip_dp"])
     p.add_argument("--bucket", type=int, default=64,
                    help="forward mode: batch size of the profiled forward")
     p.add_argument("--impls", default="flash,xla",
                    help="forward mode: comma list of --vit-attention values")
     p.add_argument("--batch", type=int, default=256,
-                   help="train, clip and dp modes: --batch of the profiled "
-                        "step")
+                   help="train, clip, dp and clip_dp modes: --batch of the "
+                        "profiled step")
     args = p.parse_args(argv)
 
     device = resolve_device("cuda")
-    if args.mode in ("train", "clip", "dp"):
+    if args.mode in ("train", "clip", "dp", "clip_dp"):
         card = card_power_line()
         print(f"card: {card}", flush=True)
         profile = {"train": train_profile, "clip": clip_profile,
-                   "dp": dp_profile}[args.mode]
+                   "dp": dp_profile, "clip_dp": clip_dp_profile}[args.mode]
         result = {"device": device_name(device), "card": card,
                   "model": "resnet50" if args.mode == "dp" else MODEL,
                   "image_size": IMAGE_SIZE, "mode": args.mode,

@@ -28,6 +28,7 @@ parameters after a step.
 """
 
 import multiprocessing
+import time
 
 import jax
 import jax.numpy as jnp
@@ -59,33 +60,40 @@ torch.set_num_threads(1)  # see test_torch_training.py
 
 WORLDS = (2, 4)
 TEMPERATURE = 0.1
-JOIN_TIMEOUT_S = 180
+# One deadline for a whole world, shared by all its ranks (a world of 2
+# takes under 15 s alone); each rank's collectives give up after
+# workers.PG_TIMEOUT, well before it.
+WORLD_DEADLINE_S = 120
 
 
 def _spawn(target, world, args, tmp):
     """Start ``world`` ranks of ``target(rank, world, store, *args)`` and
-    wait for them; a rank that fails or outlives the timeout fails the
-    test (and the others are killed)."""
+    wait for all of them until one shared deadline, WORLD_DEADLINE_S after
+    the start. At the deadline every rank still running is killed and the
+    test fails naming them; a rank that exits non-zero fails it too."""
     ctx = multiprocessing.get_context("spawn")
     store = str(tmp / "store")
     procs = [ctx.Process(target=target, args=(r, world, store, *args))
              for r in range(world)]
     for p in procs:
         p.start()
+    deadline = time.monotonic() + WORLD_DEADLINE_S
     try:
         for p in procs:
-            p.join(JOIN_TIMEOUT_S)
+            p.join(max(0.0, deadline - time.monotonic()))
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
         if hung:
             pytest.fail(f"ranks {hung} of a world of {world} did not finish "
-                        f"in {JOIN_TIMEOUT_S} s")
+                        f"within the world's deadline of {WORLD_DEADLINE_S} "
+                        "s; all were killed")
         codes = [p.exitcode for p in procs]
         assert codes == [0] * world, f"rank exit codes {codes}"
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
-                p.join()
+        for p in procs:
+            p.join()
 
 
 def _flatten(tree, prefix):

@@ -8,7 +8,8 @@ on the card, where the JAX package's model code cannot load:
 ``cuda``-marked tests hold each CUDA kernel (``ntxent_fwd``,
 ``ntxent_bwd_sym``, ``ntxent_fwd_general``, ``ntxent_bwd_general_rows``,
 ``ntxent_bwd_general_cols``, ``flash_attention_dq``,
-``flash_attention_dkv``, ``infonce_dual_fwd``, ``infonce_dual_bwd``) to
+``flash_attention_dkv``, ``infonce_dual_fwd``, ``infonce_dual_bwd``,
+``infonce_dual_fwd_rect``, ``infonce_bwd_rows``, ``infonce_bwd_cols``) to
 its plain version on the same card, and the differentiable wrappers'
 gradients to the same computation on the CPU; they skip here. The other
 tests run anywhere: the plain backward versions against torch autograd
@@ -34,7 +35,9 @@ Tolerances (max abs error against the plain version on the card):
 * InfoNCE, fp32 or bf16 za/zb: the same exact fp32 products summed in
   another order, logits up to the scale 17.5 -> 2e-4 on lse_a, lse_b and
   loss_sum/2N, 2e-4 on o_a and o_b (rows of G sum to at most 4 in
-  absolute value, times unit-norm embeddings).
+  absolute value, times unit-norm embeddings); the data-parallel modes
+  (rows x columns with global row ids) the same bounds, for the same
+  reasons.
 """
 
 import numpy as np
@@ -60,6 +63,10 @@ INFONCE_ATOL = 2e-4
 # that is no multiple of the 64-row tile, a narrower D, and N = 8192.
 INFONCE_SHAPES = [(256, 512), (1000, 512), (1000, 128), (8192, 512)]
 INFONCE_SCALE = 17.5  # not 1/T of the default temperature
+# (rows, cols, D) of the data-parallel InfoNCE kernels: one rank of a
+# 4-card world at global batch 256 and at 4096, and a ragged shape with
+# scattered row ids and a padding row.
+DP_INFONCE_SHAPES = [(64, 256, 512), (1024, 4096, 512), (101, 1000, 96)]
 # (bh, lq, lk, d, causal, q_offset, k_offset)
 BWD_CASES = {
     "train_shape": (48, 197, 197, 64, False, 0, 0),
@@ -218,8 +225,10 @@ def test_flash_backward_rejects_mismatched_shapes():
                             "ntx_ntxent_bwd_general_cols"]),
     ("flash_attention_bwd", ["ntx_flash_attention_dq",
                              "ntx_flash_attention_dkv"]),
-    ("infonce_dual_fwd", ["ntx_infonce_dual_fwd"]),
-    ("infonce_dual_bwd", ["ntx_infonce_dual_bwd"]),
+    ("infonce_dual_fwd", ["ntx_infonce_dual_fwd",
+                          "ntx_infonce_dual_fwd_rect"]),
+    ("infonce_dual_bwd", ["ntx_infonce_dual_bwd", "ntx_infonce_bwd_rows"]),
+    ("infonce_bwd_cols", ["ntx_infonce_bwd_cols"]),
 ])
 def test_training_kernels_build_from_repo_sources(tmp_path, name, symbols):
     cmd = _build.nvcc_command(name, tmp_path / "lib.so")
@@ -459,3 +468,47 @@ def test_cuda_info_nce_fused_gradients_match_the_cpu():
     for c, g in zip(cpu, gpu):
         torch.testing.assert_close(g.grad.cpu(), c.grad, atol=1e-6,
                                    rtol=1e-4)
+
+
+def _dp_row_ids(rows, cols, seed, device):
+    """The last rank's row ids where rows divide cols, else scattered ids
+    with a padding row (id = cols) last."""
+    if cols % rows == 0:
+        return (cols - rows + torch.arange(rows, dtype=torch.int32)).to(
+            device)
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randperm(cols, generator=gen)[:rows].to(torch.int32)
+    ids[-1] = cols
+    return ids.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", DP_INFONCE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_dp_infonce_kernels_match_plain_versions(shape, dtype):
+    dev = _cuda()
+    rows, cols, d = shape
+    tdt = getattr(torch, dtype)
+    za = _unit_rows(rows, d, seed=rows + d, device=dev, dtype=tdt)
+    zb = _unit_rows(cols, d, seed=cols + d, device=dev, dtype=tdt)
+    gid = _dp_row_ids(rows, cols, seed=rows, device=dev)
+    scale = torch.tensor(INFONCE_SCALE, device=dev)
+    wrappers = (I.infonce_dual_fwd_rect, I.infonce_bwd_rows,
+                I.infonce_bwd_cols)
+    before = [w.launches for w in wrappers]
+    lse_a, lse_b = I.infonce_dual_fwd_rect(za, zb, scale)
+    o_a = I.infonce_bwd_rows(za, zb, gid, scale, lse_a, lse_b)
+    o_b = I.infonce_bwd_cols(za, zb, gid, scale, lse_a, lse_b)
+    ref_a, ref_b = I.infonce_dual_fwd_rect_plain(za, zb, scale)
+    ref_oa = I.infonce_bwd_rows_plain(za, zb, gid, scale, lse_a, lse_b)
+    ref_ob = I.infonce_bwd_cols_plain(za, zb, gid, scale, lse_a, lse_b)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]
+    assert o_a.shape == (rows, d) and o_b.shape == (cols, d)
+    for got, want in ((lse_a, ref_a), (lse_b, ref_b), (o_a, ref_oa),
+                      (o_b, ref_ob)):
+        torch.testing.assert_close(got, want, atol=INFONCE_ATOL, rtol=0)
+    # one owner per output row, no atomics: bitwise repeatable
+    assert torch.equal(I.infonce_bwd_cols(za, zb, gid, scale, lse_a, lse_b),
+                       o_b)

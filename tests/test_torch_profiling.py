@@ -38,6 +38,12 @@ from ntxent_tpu_torch.utils import profiling
      "infonce_dual_fwd"),
     ("void (anonymous namespace)::infonce_dual_bwd_kernel<__nv_bfloat16>"
      "(...)", "infonce_dual_bwd"),
+    ("void (anonymous namespace)::infonce_fwd_rect_kernel<float>(...)",
+     "infonce_dual_fwd_rect"),
+    ("void (anonymous namespace)::infonce_bwd_rows_kernel<float>(...)",
+     "infonce_bwd_rows"),
+    ("void (anonymous namespace)::infonce_bwd_cols_kernel<__nv_bfloat16>"
+     "(...)", "infonce_bwd_cols"),
 ])
 def test_kernels_are_grouped_by_name(name, group):
     assert profiling._group(name) == group
@@ -46,7 +52,8 @@ def test_kernels_are_grouped_by_name(name, group):
 @pytest.mark.parametrize("argv", [["--bucket", "1"],
                                   ["--mode", "train", "--batch", "2"],
                                   ["--mode", "clip", "--batch", "2"],
-                                  ["--mode", "dp", "--batch", "2"]])
+                                  ["--mode", "dp", "--batch", "2"],
+                                  ["--mode", "clip_dp", "--batch", "2"]])
 def test_profiler_needs_a_card(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present")
@@ -57,8 +64,10 @@ def test_profiler_needs_a_card(argv):
 def test_every_kernel_wrapper_counts_launches():
     counters = profiling.launch_counters()
     assert sorted(counters) == ["flash_attention_dkv", "flash_attention_dq",
-                                "flash_attention_fwd", "infonce_dual_bwd",
-                                "infonce_dual_fwd", "ntxent_bwd_general_cols",
+                                "flash_attention_fwd", "infonce_bwd_cols",
+                                "infonce_bwd_rows", "infonce_dual_bwd",
+                                "infonce_dual_fwd", "infonce_dual_fwd_rect",
+                                "ntxent_bwd_general_cols",
                                 "ntxent_bwd_general_rows", "ntxent_bwd_sym",
                                 "ntxent_fwd", "ntxent_fwd_general"]
     assert all(isinstance(w.launches, int) for w in counters.values())
