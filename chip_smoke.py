@@ -97,6 +97,26 @@ Phases; any failure ends the run with a non-zero exit and no result:
 12b. its parity: one fp32 CLIP ViT-B/16 step (batch 4) of the
    data-parallel step at world 1 against the single-card CLIP step, TF32
    off;
+12c. shard-pair kernels: ``block_lse_dual`` (#7) and ``block_grads_dual``
+   (#8) against their plain versions at (R, C, D) = (512, 512, 128) (the
+   self tile of the pair path of this run), (128, 128, 128) and (2048,
+   2048, 128) (the k = 1 tile of one rank of 4 at global batch 256 and
+   4096) and a ragged (100, 260, 96) with scattered, shared and sentinel
+   ids, fp32 and bf16, bitwise repeatable; CUDA-event times beside the
+   bound;
+12d. triangular kernels: ``ntxent_fwd_tri`` (#2) and ``ntxent_bwd_tri``
+   (#3) against their plain versions and against #1 + #5 at 2N = 512, 8192
+   and 300 (D = 128), fp32 and bf16; one ``ntxent_loss_fused(...,
+   triangular=True)`` forward and backward launching #2 and #3 once each
+   and nothing else; times beside #1 + #5;
+12e. pair ranks emulated on one card: P = 2, 3, 4 and 8 at global batch
+   256 (255 for P = 3) through ``parallel.pair``'s per-rank functions,
+   the lse shares merged and the gradient buffers summed by hand, against
+   the single-card ``ntxent_fwd`` / ``ntxent_bwd_sym``;
+12f. data-parallel train with ``--dp-loss pair``: the ResNet-50 command
+   of phase 11 plus ``--dp-loss pair`` in the same NCCL group: exactly
+   1/1 launches per step of #7 and #8 and none of any other kernel; and
+   in phase 12 the world-1 fp32 pair step against the world-1 strip step;
 13. one JSON line describing each kernel of the paths;
 14. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -288,6 +308,37 @@ CLIP_DP_STEP_LAUNCHES = {"infonce_dual_fwd_rect": 1, "infonce_bwd_rows": 1,
 # kernels over more launches than the other timings: ten launches of a
 # ~0.1 ms kernel do not separate its modes' times.
 SYM_RETIME_RUNS = 200
+
+# Shard-pair kernels (#7 block_lse_dual, #8 block_grads_dual): (R, C, D,
+# world) of one tile. The self tile of a world of one at --batch 256 (the
+# data-parallel pair path of this run, k = 0), the k = 1 tile of rank 0
+# of a world of 4 at global batch 256 ("r4") and 4096 ("r4/4096"), and a
+# ragged tile (world None) with scattered ids, ids shared by rows and
+# columns (self entries) and sentinel rows and columns. Tolerance:
+# NTX_ATOL, for its reasons (the same exact products summed in another
+# order).
+PAIR_CASES = [(512, 512, 128, 1), (128, 128, 128, 4), (2048, 2048, 128, 4),
+              (100, 260, 96, None)]
+# Pair ranks emulated on one card one after another, their lse shares
+# merged as the pmax and psum do and their gradient buffers summed as the
+# psum does, against the single-card symmetric kernels: P = 2, 3, 4, 8 at
+# global batch 256 (255 for P = 3, which 256 does not divide), D = 128.
+# Tolerances: EMULATED_LOSS_ATOL and EMULATED_GRAD_RTOL.
+PAIR_WORLDS = (2, 3, 4, 8)
+DP_PAIR_ARGV = DP_ARGV + ["--dp-loss", "pair"]
+# Kernel launches per data-parallel pair step at world 1: the self tile's
+# dual stats and dual gradients once each; nothing else.
+DP_PAIR_STEP_LAUNCHES = {"block_lse_dual": 1, "block_grads_dual": 1}
+# Triangular kernels (#2 ntxent_fwd_tri, #3 ntxent_bwd_tri): (2N, D), the
+# symmetric path's shape, the north-star global batch 4096 and a 2N that
+# is no multiple of the 64-row tile. Against their plain versions at
+# NTX_ATOL; against the rectangular kernels (#1 + #5) on the same input,
+# the loss within TRI_LOSS_RTOL (the same terms summed in another order).
+TRI_SHAPES = [(512, 128), (8192, 128), (300, 128)]
+TRI_LOSS_RTOL = 1e-5
+# Launches of one ntxent_loss_fused(..., triangular=True) forward and
+# backward: #2 and #3 once each, nothing else.
+TRI_LAUNCHES = {"ntxent_fwd_tri": 1, "ntxent_bwd_tri": 1}
 
 SERVE_ARGV = ["--model", "vit_b16", "--vit-attention", "flash",
               "--image-size", "224", "--head", "embedding",
@@ -1261,9 +1312,12 @@ def phase_emulated_ranks() -> None:
              "loss and gradient")
 
 
-def phase_dp_train(card_line: str) -> dict:
+def phase_dp_train(card_line: str, argv=DP_ARGV,
+                   step_launches=DP_STEP_LAUNCHES, tag: str = "dp") -> dict:
     """Data-parallel ResNet-50 SimCLR through ntxent_tpu_torch.cli over
-    the NCCL group of world 1; returns the launches of each kernel."""
+    the NCCL group of world 1 (``argv``: the strip loss, or with
+    ``--dp-loss pair`` the pair loss); returns the launches of each
+    kernel."""
     import math
 
     import torch
@@ -1274,7 +1328,7 @@ def phase_dp_train(card_line: str) -> dict:
     from ntxent_tpu_torch.parallel import mesh
     from ntxent_tpu_torch.utils.profiling import launch_counters
 
-    args = cli.build_train_parser().parse_args(DP_ARGV)
+    args = cli.build_train_parser().parse_args(argv)
     counters = launch_counters()
     torch.cuda.reset_peak_memory_stats()
     for wrapper in counters.values():
@@ -1292,7 +1346,7 @@ def phase_dp_train(card_line: str) -> dict:
     if len(losses) != DP_STEPS or not all(map(math.isfinite, losses)):
         fail(f"data-parallel losses {losses}: expected {DP_STEPS} finite "
              "values")
-    want = {n: DP_STEP_LAUNCHES.get(n, 0) * DP_STEPS for n in counters}
+    want = {n: step_launches.get(n, 0) * DP_STEPS for n in counters}
     if launches != want:
         fail(f"kernel launches over {DP_STEPS} data-parallel steps "
              f"{launches}, expected {want}")
@@ -1307,7 +1361,8 @@ def phase_dp_train(card_line: str) -> dict:
     step_ms = 1e3 * sum(1.0 / h["steps_per_sec"]
                         for h in steady) / len(steady)
     images_per_s = 2 * args.batch / step_ms * 1e3
-    print(f"[dp] ResNet-50 SimCLR data-parallel over NCCL (world 1), batch "
+    print(f"[{tag}] ResNet-50 SimCLR data-parallel over NCCL (world 1), "
+          f"--dp-loss {args.dp_loss}, batch "
           f"{args.batch} (2 x {args.batch} views at 224 px), {DP_STEPS} "
           f"steps in {wall_s:.1f} s: losses {[round(x, 4) for x in losses]}; "
           f"launches per step "
@@ -1316,7 +1371,7 @@ def phase_dp_train(card_line: str) -> dict:
           f"have a nonzero weight gradient; comms over the run (calls, "
           f"bytes per device; 0 at world 1) "
           f"{ {op: c for (op, _), c in comms.items()} }", flush=True)
-    print(f"[dp] step {step_ms:.1f} ms (steps 2-{DP_STEPS}, host clock "
+    print(f"[{tag}] step {step_ms:.1f} ms (steps 2-{DP_STEPS}, host clock "
           f"around a synchronizing loss read), {images_per_s:.1f} images/s, "
           f"peak memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated) on {card_line}", flush=True)
@@ -1325,10 +1380,10 @@ def phase_dp_train(card_line: str) -> dict:
     return launches
 
 
-def _dp_parity_step(sharded: bool, views):
+def _dp_parity_step(sharded: bool, views, loss_impl: str = "strip"):
     """(loss, flat fp32 gradient) of one fp32 ResNet-50 step from the
-    weights of seed 0: the data-parallel step at world 1 or the
-    single-card step."""
+    weights of seed 0: the data-parallel step at world 1 (with the
+    ``loss_impl`` schedule) or the single-card step."""
     import torch
 
     from ntxent_tpu_torch.models import (
@@ -1350,7 +1405,8 @@ def _dp_parity_step(sharded: bool, views):
     cfg = TrainerConfig(batch_size=DP_PARITY_BATCH, warmup_steps=1)
     if sharded:
         cross_replica_batch_norm(model, torch.distributed.group.WORLD)
-        step = make_sharded_train_step(None, cfg.temperature)
+        step = make_sharded_train_step(None, cfg.temperature,
+                                       loss_impl=loss_impl)
     else:
         step = make_train_step(cfg.temperature, use_fused=True)
     state = create_train_state(model, cfg, torch.device("cuda"))
@@ -1361,8 +1417,9 @@ def _dp_parity_step(sharded: bool, views):
 
 
 def phase_dp_parity() -> None:
-    """The world-1 data-parallel step against the single-card step, fp32
-    ResNet-50, same weights and views, TF32 off."""
+    """The world-1 data-parallel step against the single-card step, and
+    the world-1 pair step against the world-1 strip step: fp32 ResNet-50,
+    same weights and views, TF32 off."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1372,18 +1429,23 @@ def phase_dp_parity() -> None:
         DP_PARITY_BATCH, 224, 224, 3)).astype(np.float32)) for _ in range(2)]
     loss_dp, g_dp = _dp_parity_step(True, views)
     loss_one, g_one = _dp_parity_step(False, views)
-    loss_err = abs(loss_dp - loss_one)
-    grad_err = ((g_dp - g_one).norm() / g_one.norm()).item()
-    ok = loss_err <= PARITY_LOSS_ATOL and grad_err <= PARITY_GRAD_RTOL
-    print(f"[dp-parity] ResNet-50 train step float32, batch "
-          f"{DP_PARITY_BATCH}: loss data-parallel (world 1) {loss_dp:.6f} vs "
-          f"single card {loss_one:.6f} (|err| {loss_err:.2e}, atol "
-          f"{PARITY_LOSS_ATOL:.2e}); gradient |g_dp - g_card| / |g_card| = "
-          f"{grad_err:.2e} (rtol {PARITY_GRAD_RTOL:.2e}) "
-          f"{'ok' if ok else 'MISMATCH'}", flush=True)
-    if not ok:
-        fail("the data-parallel step at world 1 disagrees with the "
-             "single-card step")
+    loss_pair, g_pair = _dp_parity_step(True, views, loss_impl="pair")
+    for tag, (loss_a, g_a), (loss_b, g_b), what in (
+            ("dp-parity", (loss_dp, g_dp), (loss_one, g_one),
+             "data-parallel (world 1) vs single card"),
+            ("dp-pair-parity", (loss_pair, g_pair), (loss_dp, g_dp),
+             "pair (world 1) vs strip (world 1)")):
+        loss_err = abs(loss_a - loss_b)
+        grad_err = ((g_a - g_b).norm() / g_b.norm()).item()
+        ok = loss_err <= PARITY_LOSS_ATOL and grad_err <= PARITY_GRAD_RTOL
+        print(f"[{tag}] ResNet-50 train step float32, batch "
+              f"{DP_PARITY_BATCH}: loss {what} {loss_a:.6f} vs {loss_b:.6f} "
+              f"(|err| {loss_err:.2e}, atol {PARITY_LOSS_ATOL:.2e}); "
+              f"relative gradient error {grad_err:.2e} (rtol "
+              f"{PARITY_GRAD_RTOL:.2e}) {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"the ResNet-50 steps disagree: {what}")
 
 
 def _dp_clip_ids(rows: int, cols: int, seed: int):
@@ -1723,6 +1785,311 @@ def phase_clip_dp_parity() -> None:
              "single-card CLIP step")
 
 
+def _pair_ids(rows: int, cols: int, world, seed: int):
+    """(row ids, column ids, total) on the card: rank 0's rows against
+    shard (1 mod world)'s columns of a world of ``world`` (the self tile
+    at world 1, the k = 1 tile beyond), or, for ``world`` None, scattered
+    ids out of 4 (rows + cols) with 20 shared by rows and columns, two
+    sentinel rows and three sentinel columns."""
+    import torch
+
+    from ntxent_tpu_torch.parallel.mesh import local_row_gids
+
+    if world is not None:
+        n = rows // 2
+        rid = local_row_gids(0, n, world)
+        cid = local_row_gids(1 % world, n, world)
+        return rid.cuda(), cid.cuda(), rows * world
+    total = 4 * (rows + cols)
+    perm = torch.randperm(total, generator=torch.Generator().manual_seed(
+        seed)).to(torch.int32)
+    rid = perm[:rows].clone()
+    cid = torch.cat([perm[rows - 20:rows], perm[rows:rows + cols - 20]])
+    rid[[3, 50]] = total
+    cid[[7, 8, 200]] = total
+    return rid.cuda(), cid.cuda(), total
+
+
+def _pair_bounds(rows: int, cols: int, d: int, itemsize: int):
+    """Bounds of #7 and #8 at (R, C, D): each input read once (z_rows,
+    z_cols, both ids; both lse for #8), each output written once (both
+    lse; both fp32 gradients for #8); 2 R C D and 6 R C D operations at
+    the fp32 peak (bf16 inputs are widened to fp32)."""
+    z = (rows + cols) * d * itemsize
+    ids = lse = (rows + cols) * 4
+    return (_bound(z + ids + lse, 2 * rows * cols * d, PEAK_FP32_FLOPS),
+            _bound(z + ids + lse + (rows + cols) * d * 4,
+                   6 * rows * cols * d, PEAK_FP32_FLOPS))
+
+
+def phase_pair_kernels() -> list[dict]:
+    """#7 and #8 against their plain versions at every shape and dtype,
+    each bitwise repeatable, then times at the fp32 shapes."""
+    import torch
+
+    from ntxent_tpu_torch.ops import ntxent as N
+    from ntxent_tpu_torch.utils.profiling import cuda_time_ms
+
+    t = NTX_TEMPERATURE
+    errs = {}
+    for rows, cols, d, world in PAIR_CASES:
+        rid, cid, total = _pair_ids(rows, cols, world, seed=rows)
+        for dtype in ("float32", "bfloat16"):
+            zr = _unit_rows(rows, d, dtype, seed=rows + d)
+            zc = _unit_rows(cols, d, dtype, seed=cols + d + 3)
+            args = (zr, zc, rid, cid)
+            lse_r, lse_c = N.block_lse_dual_plain(*args, t, total)
+
+            def run():
+                return (*N.block_lse_dual(*args, t, total),
+                        *N.block_grads_dual(*args, lse_r, lse_c, t, total))
+
+            got, again = run(), run()
+            ref = (lse_r, lse_c,
+                   *N.block_grads_dual_plain(*args, lse_r, lse_c, t, total))
+            torch.cuda.synchronize()
+            stats_err = max((got[i] - ref[i]).abs().max().item()
+                            for i in (0, 1))
+            grads_err = max((got[i] - ref[i]).abs().max().item()
+                            for i in (2, 3))
+            repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+            ok = max(stats_err, grads_err) <= NTX_ATOL and repeat
+            print(f"[pair-kernel] R={rows} C={cols} D={d} {dtype} (total "
+                  f"{total}): block_lse_dual max|err| {stats_err:.3e}, "
+                  f"block_grads_dual {grads_err:.3e} (atol {NTX_ATOL:g}); "
+                  f"both lse and both gradients bitwise repeatable "
+                  f"{repeat} {'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail(f"the shard-pair kernels disagree with their plain "
+                     f"versions at R={rows} C={cols} D={d} {dtype}")
+            if (rows, dtype) == (512, "float32"):
+                errs = {"block_lse_dual": stats_err,
+                        "block_grads_dual": grads_err}
+            del zr, zc, got, again, ref
+
+    times = {}
+    for rows, cols, d, world in PAIR_CASES[:3]:
+        rid, cid, total = _pair_ids(rows, cols, world, seed=0)
+        args = (_unit_rows(rows, d, "float32", seed=1),
+                _unit_rows(cols, d, "float32", seed=2), rid, cid)
+        lse_r, lse_c = N.block_lse_dual(*args, t, total)
+        runs = 3 if rows > 1024 else 10
+        ms = (cuda_time_ms(lambda: N.block_lse_dual(*args, t, total), runs),
+              cuda_time_ms(lambda: N.block_grads_dual(
+                  *args, lse_r, lse_c, t, total), runs))
+        plain = (cuda_time_ms(lambda: N.block_lse_dual_plain(
+            *args, t, total), runs),
+            cuda_time_ms(lambda: N.block_grads_dual_plain(
+                *args, lse_r, lse_c, t, total), runs))
+        bounds = _pair_bounds(rows, cols, d, 4)
+        print(f"[pair-kernel] R={rows} C={cols} D={d} fp32: block_lse_dual "
+              f"{ms[0]:.4f} ms (plain {plain[0]:.4f}, bound "
+              f"{bounds[0][0]:.5f} by {bounds[0][1]}), block_grads_dual "
+              f"{ms[1]:.4f} ms (plain {plain[1]:.4f}, bound "
+              f"{bounds[1][0]:.5f} by {bounds[1][1]}); no single PyTorch "
+              f"call computes them, so there is no library time",
+              flush=True)
+        times[rows] = (ms, plain, bounds)
+        del args
+    names = ("block_lse_dual", "block_grads_dual")
+    replaces = (
+        "ntxent_tpu/ops/ntxent_pallas.py:1037 (_dual_stats_kernel, "
+        "block_lse_dual :1094)",
+        "ntxent_tpu/ops/ntxent_pallas.py:1159 (_dual_grads_kernel, "
+        "block_grads_dual :1213)")
+    sources = ("ntxent_tpu_torch/csrc/ntxent_dual_stats.cu",
+               "ntxent_tpu_torch/csrc/ntxent_dual_grads.cu")
+    out = []
+    for i, name in enumerate(names):
+        ms, plain, bounds = times[512]
+        entry = {"name": name, "route": "cuda", "source": sources[i],
+                 "replaces": replaces[i], "checked": True, "launches": None,
+                 "max_abs_err": errs[name], "ms": ms[i],
+                 "plain_ms": plain[i], "bound_ms": bounds[i][0],
+                 "bound_by": bounds[i][1], "library_ms": None}
+        for rows, tag in ((128, "rank4"), (2048, "rank4_b4096")):
+            ms, plain, bounds = times[rows]
+            entry |= {f"{tag}_ms": ms[i], f"{tag}_plain_ms": plain[i],
+                      f"{tag}_bound_ms": bounds[i][0]}
+        out.append(entry)
+    return out
+
+
+def phase_pair_emulated_ranks() -> None:
+    """P = 2, 3, 4, 8 pair ranks one after another on the card, through
+    the pair loss's own per-rank functions (``parallel.pair``): each
+    rank's lse shares, merged over ranks as the pmax and psum do, and each
+    rank's gradient buffer, summed as the psum does; the positives added
+    by hand; against the single-card ntxent_fwd / ntxent_bwd_sym."""
+    import torch
+
+    from ntxent_tpu_torch.ops import ntxent as N
+    from ntxent_tpu_torch.parallel import pair
+    from ntxent_tpu_torch.parallel.mesh import local_row_gids
+
+    t, d = NTX_TEMPERATURE, 128
+    for p in PAIR_WORLDS:
+        batch = EMULATED_BATCH - EMULATED_BATCH % p
+        two_n, n = 2 * batch, batch // p
+        z = _unit_rows(two_n, d, "float32", seed=17 + p)  # [view 1; view 2]
+        gids = [local_row_gids(r, n, p, z.device) for r in range(p)]
+        z_g = torch.cat([z[g.long()] for g in gids])  # the all-gather
+        shares = torch.stack([
+            pair.rank_lse_part(z[g.long()], g, z_g, r, p, t)
+            for r, g in enumerate(gids)])
+        m = shares.amax(dim=0)                                 # pmax
+        lse = m + torch.log(torch.exp(shares - m).sum(dim=0))  # psum
+        buf = sum(pair.rank_grad_buffer(z[g.long()], g, z_g, r, p, lse, t)
+                  for r, g in enumerate(gids))                 # psum
+        rows = torch.arange(two_n, device=z.device)
+        pos = (rows + batch) % two_n
+        pos_logits = (z * z[pos]).sum(dim=1) * (1.0 / t)
+        loss = (lse - pos_logits).sum() / two_n
+        grad = buf - 2.0 * z[pos]  # d(-positives)/dz times T
+        loss_sym, lse_sym = N.ntxent_fwd(z, t)
+        grad_sym = N.ntxent_bwd_sym(z, lse_sym, t)
+        torch.cuda.synchronize()
+        loss_err = abs(loss.item() - loss_sym.item() / two_n)
+        grad_err = ((grad - grad_sym).norm() / grad_sym.norm()).item()
+        ok = loss_err <= EMULATED_LOSS_ATOL and grad_err <= EMULATED_GRAD_RTOL
+        print(f"[pair-ranks] P = {p} pair ranks emulated at global batch "
+              f"{batch} (2N = {two_n}, D = {d}, {len(pair._tile_schedule(p))}"
+              f" tiles a rank): merged loss {loss.item():.6f} vs single card "
+              f"{loss_sym.item() / two_n:.6f} (|err| {loss_err:.2e}, atol "
+              f"{EMULATED_LOSS_ATOL:g}); gradient |g_ranks - g_card| / "
+              f"|g_card| = {grad_err:.2e} (rtol {EMULATED_GRAD_RTOL:g}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the emulated pair ranks (P = {p}) do not give the "
+                 "single-card loss and gradient")
+
+
+def _tri_bounds(rows: int, d: int, itemsize: int):
+    """Bounds of #2 and #3 at (2N, D): each input read once (z; the lse for
+    #3), each output written once (lse and the loss; the fp32 gradient);
+    (2N)^2 D and 3 (2N)^2 D operations at the fp32 peak."""
+    z = rows * d * itemsize
+    return (_bound(z + rows * 4 + 4, rows * rows * d, PEAK_FP32_FLOPS),
+            _bound(z + rows * 4 + rows * d * 4, 3 * rows * rows * d,
+                   PEAK_FP32_FLOPS))
+
+
+def phase_tri_kernels() -> tuple[list[dict], dict]:
+    """#2 and #3 against their plain versions and against the rectangular
+    kernels (#1 + #5) at every shape and dtype, the loss bitwise
+    repeatable; one ``ntxent_loss_fused(..., triangular=True)`` forward and
+    backward (the triangular path) with its launches counted; times
+    beside #1 + #5. Returns the kernel entries and the path's launches."""
+    import torch
+
+    from ntxent_tpu_torch.ops import ntxent as N
+    from ntxent_tpu_torch.utils.profiling import cuda_time_ms, launch_counters
+
+    t = NTX_TEMPERATURE
+    errs = {}
+    for rows, d in TRI_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            z = _unit_rows(rows, d, dtype, seed=rows + d + 5)
+            loss, lse = N.ntxent_fwd_tri(z, t)
+            again, _ = N.ntxent_fwd_tri(z, t)
+            loss_ref, lse_ref = N.ntxent_fwd_tri_plain(z, t)
+            grad = N.ntxent_bwd_tri(z, lse_ref, t)
+            grad_ref = N.ntxent_bwd_tri_plain(z, lse_ref, t)
+            loss_rect, lse_rect = N.ntxent_fwd(z, t)
+            grad_rect = N.ntxent_bwd_sym(z, lse_rect, t)
+            grad_tri = N.ntxent_bwd_tri(z, lse, t)
+            torch.cuda.synchronize()
+            fwd_err = max((lse - lse_ref).abs().max().item(),
+                          abs(loss.item() - loss_ref.item()) / rows)
+            bwd_err = (grad - grad_ref).abs().max().item()
+            rect_loss = abs(loss.item() - loss_rect.item()) / abs(
+                loss_rect.item())
+            rect_grad = ((grad_tri - grad_rect).norm()
+                         / grad_rect.norm()).item()
+            repeat = again.item() == loss.item()
+            ok = (max(fwd_err, bwd_err) <= NTX_ATOL and repeat
+                  and rect_loss <= TRI_LOSS_RTOL
+                  and rect_grad <= EMULATED_GRAD_RTOL)
+            print(f"[tri-kernel] 2N={rows} D={d} {dtype}: ntxent_fwd_tri "
+                  f"max|err| {fwd_err:.3e}, ntxent_bwd_tri {bwd_err:.3e} "
+                  f"(atol {NTX_ATOL:g}); against #1 + #5: loss "
+                  f"{rect_loss:.2e} relative (rtol {TRI_LOSS_RTOL:g}), "
+                  f"gradient {rect_grad:.2e} relative (rtol "
+                  f"{EMULATED_GRAD_RTOL:g}); loss bitwise repeatable "
+                  f"{repeat} {'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail(f"the triangular kernels disagree at 2N={rows} D={d} "
+                     f"{dtype}")
+            if (rows, dtype) == (512, "float32"):
+                errs = {"ntxent_fwd_tri": fwd_err, "ntxent_bwd_tri": bwd_err}
+            del z, grad, grad_ref, grad_rect, grad_tri
+
+    # the triangular path: the public loss's forward and backward
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    z = _unit_rows(*TRI_SHAPES[0], "float32", seed=9).requires_grad_()
+    loss = N.ntxent_loss_fused(z, t, triangular=True)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in counters.items()}
+    want = {name: TRI_LAUNCHES.get(name, 0) for name in counters}
+    finite = bool(torch.isfinite(loss)) and bool(
+        torch.isfinite(z.grad).all())
+    print(f"[tri] ntxent_loss_fused(z, {t}, triangular=True).backward() at "
+          f"2N={TRI_SHAPES[0][0]}: loss {loss.item():.6f}, launches "
+          f"{ {n: c for n, c in launches.items() if c} } (every other "
+          f"kernel 0), finite loss and gradient {finite}", flush=True)
+    if launches != want or not finite:
+        fail(f"the triangular loss launched {launches}, expected {want} "
+             f"(finite: {finite})")
+
+    times = {}
+    for rows, d in TRI_SHAPES[:2]:
+        z = _unit_rows(rows, d, "float32", seed=1)
+        _, lse = N.ntxent_fwd(z, t)
+        runs = 3 if rows > 4096 else 10
+        ms = (cuda_time_ms(lambda: N.ntxent_fwd_tri(z, t), runs),
+              cuda_time_ms(lambda: N.ntxent_bwd_tri(z, lse, t), runs))
+        plain = (cuda_time_ms(lambda: N.ntxent_fwd_tri_plain(z, t), runs),
+                 cuda_time_ms(lambda: N.ntxent_bwd_tri_plain(z, lse, t),
+                              runs))
+        rect = (cuda_time_ms(lambda: N.ntxent_fwd(z, t), runs),
+                cuda_time_ms(lambda: N.ntxent_bwd_sym(z, lse, t), runs))
+        bounds = _tri_bounds(rows, d, 4)
+        print(f"[tri-kernel] 2N={rows} D={d} fp32: ntxent_fwd_tri "
+              f"{ms[0]:.4f} ms (plain {plain[0]:.4f}, bound "
+              f"{bounds[0][0]:.5f} by {bounds[0][1]}; #1 symmetric "
+              f"{rect[0]:.4f}), ntxent_bwd_tri {ms[1]:.4f} ms (plain "
+              f"{plain[1]:.4f}, bound {bounds[1][0]:.5f} by {bounds[1][1]}; "
+              f"#5 {rect[1]:.4f}); no single PyTorch call computes them, so "
+              f"there is no library time", flush=True)
+        times[rows] = (ms, plain, bounds, rect)
+        del z
+    names = ("ntxent_fwd_tri", "ntxent_bwd_tri")
+    replaces = (
+        "ntxent_tpu/ops/ntxent_pallas.py:237 (_fwd_tri_kernel, "
+        "_fwd_tri_call :308)",
+        "ntxent_tpu/ops/ntxent_pallas.py:350 (_bwd_tri_kernel, "
+        "_bwd_tri_call :406)")
+    sources = ("ntxent_tpu_torch/csrc/ntxent_tri_fwd.cu",
+               "ntxent_tpu_torch/csrc/ntxent_tri_bwd.cu")
+    out = []
+    for i, name in enumerate(names):
+        ms, plain, bounds, rect = times[512]
+        big = times[8192]
+        out.append({"name": name, "route": "cuda", "source": sources[i],
+                    "replaces": replaces[i], "checked": True,
+                    "launches": None, "max_abs_err": errs[name],
+                    "ms": ms[i], "plain_ms": plain[i],
+                    "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
+                    "library_ms": None, "rectangular_ms": rect[i],
+                    "n8192_ms": big[0][i], "n8192_plain_ms": big[1][i],
+                    "n8192_bound_ms": big[2][i][0],
+                    "n8192_rectangular_ms": big[3][i]})
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -1735,12 +2102,15 @@ def main() -> int:
     name, smi = phase_card()
     phase_build()
     dp_clip_kernels, sym_retimed_ms = phase_dp_clip_kernels()
+    tri_kernels, tri_launches = phase_tri_kernels()
     kernels = [phase_kernels(), *phase_ntxent_kernels(),
                *phase_flash_backward(), *phase_infonce_kernels(),
-               *phase_general_kernels(), *dp_clip_kernels]
+               *phase_general_kernels(), *dp_clip_kernels,
+               *phase_pair_kernels(), *tri_kernels]
     kernels[1]["retimed_ms"] = sym_retimed_ms
     phase_emulated_ranks()
     phase_dp_clip_emulated_ranks()
+    phase_pair_emulated_ranks()
     serve_launches = phase_serve(smi)
     train_launches = phase_train(smi)
     phase_step_parity()
@@ -1752,24 +2122,31 @@ def main() -> int:
         mesh.init_from_file(f"{tmp}/store", 0, 1, device="cuda")
         try:
             dp_launches = phase_dp_train(smi)
+            dp_pair_launches = phase_dp_train(
+                smi, DP_PAIR_ARGV, DP_PAIR_STEP_LAUNCHES, "dp-pair")
             phase_dp_parity()
             clip_dp_launches = phase_clip_dp_train(smi)
             phase_clip_dp_parity()
         finally:
             mesh.shutdown()
-    paths = (train_launches, clip_launches, dp_launches, clip_dp_launches)
+    paths = (train_launches, clip_launches, dp_launches, clip_dp_launches,
+             dp_pair_launches, tri_launches)
     for kernel in kernels:
-        # launches on the train path that runs the kernel (SimCLR for the
+        # launches on the path that runs the kernel (SimCLR for the
         # symmetric NT-Xent and flash kernels, CLIP for the square InfoNCE
         # kernels, the data-parallel ResNet-50 for the general NT-Xent
         # kernels, the data-parallel CLIP for the rectangular InfoNCE
-        # kernels), and on each train path that is not SimCLR's
+        # kernels, the data-parallel ResNet-50 with --dp-loss pair for the
+        # shard-pair kernels, one triangular loss's forward and backward
+        # for the triangular kernels), and on each path but SimCLR's
         wrapper = kernel["name"]
         kernel["launches"] = next((path[wrapper] for path in paths
                                    if path[wrapper]), 0)
         kernel["clip_launches"] = clip_launches[wrapper]
         kernel["dp_launches"] = dp_launches[wrapper]
         kernel["clip_dp_launches"] = clip_dp_launches[wrapper]
+        kernel["dp_pair_launches"] = dp_pair_launches[wrapper]
+        kernel["tri_launches"] = tri_launches[wrapper]
     kernels[0]["serve_launches"] = serve_launches
     print(smi)
     print(json.dumps({"kernels": kernels}))

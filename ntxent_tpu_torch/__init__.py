@@ -29,14 +29,37 @@ Ported so far:
   ``ops.infonce.info_nce_dual_partial``) over the rectangular InfoNCE
   forward kernel, its rows backward kernel and the columns backward
   kernel, with the column logsumexp merged across ranks;
-* the loss oracles (``ops.oracle``) and the reference-compatible API
-  (``api``), which also exports ``info_nce_fused`` and ``info_nce_loss``
-  as the JAX package's top level does;
+* the pair-parallel NT-Xent (``--dp-loss pair``, ``parallel.pair``) over
+  the dual shard-pair kernels, and the triangular symmetric loss
+  (``ntxent_loss_fused(triangular=True)``) over the upper-triangle
+  forward and backward kernels;
+* the loss oracles (``ops.oracle``), the reference-compatible API
+  (``api``) and the JAX package's thirteen top-level names, exported
+  here as they are there; ``losses.NTXentLoss`` is the loss as an
+  ``nn.Module``;
 * ``weights.load_flax_variables`` and ``weights.flax_paths`` to carry the
   JAX package's weights and parameter paths across.
 """
 
-from .api import info_nce_fused, info_nce_loss
+from .api import (
+    backward,
+    check_tensor_core_support,
+    cosine_normalize,
+    forward,
+    info_nce_fused,
+    info_nce_loss,
+    ntxent,
+    ntxent_loss,
+    ntxent_loss_and_lse,
+    ntxent_loss_compat,
+    ntxent_loss_fused,
+    ntxent_loss_paired,
+    ntxent_partial_fused,
+)
 
-__all__ = ["__version__", "info_nce_fused", "info_nce_loss"]
-__version__ = "0.5.0"
+__all__ = ["__version__", "backward", "check_tensor_core_support",
+           "cosine_normalize", "forward", "info_nce_fused", "info_nce_loss",
+           "ntxent", "ntxent_loss", "ntxent_loss_and_lse",
+           "ntxent_loss_compat", "ntxent_loss_fused", "ntxent_loss_paired",
+           "ntxent_partial_fused"]
+__version__ = "0.6.0"

@@ -14,9 +14,13 @@ similarity accumulation). ``forward(..., fused=True)`` goes through
 ``ntxent_loss_fused``: the CUDA kernels on a GPU tensor, their plain
 versions on a CPU tensor.
 
-As ``ntxent_tpu`` does, it also exports the cross-modal (CLIP) losses:
-``info_nce_fused`` (the InfoNCE kernels) and ``info_nce_loss`` (the
-oracle).
+As ``ntxent_tpu`` does, it also exports the rest of the loss core: the
+fused NT-Xent (``ntxent_loss_fused``, rectangular or triangular;
+``ntxent_loss_and_lse``; the data-parallel building block
+``ntxent_partial_fused``), the oracles (``ntxent_loss``,
+``ntxent_loss_paired``, ``ntxent_loss_compat``, ``cosine_normalize``) and
+the cross-modal (CLIP) losses, ``info_nce_fused`` (the InfoNCE kernels)
+and ``info_nce_loss`` (the oracle).
 """
 
 from __future__ import annotations
@@ -25,12 +29,25 @@ import torch
 
 from .ops import oracle
 from .ops.infonce import info_nce_fused
-from .ops.ntxent import ntxent_loss_fused
-from .ops.oracle import info_nce_loss
+from .ops.ntxent import (
+    ntxent_loss_and_lse,
+    ntxent_loss_fused,
+    ntxent_partial_fused,
+)
+from .ops.oracle import (
+    cosine_normalize,
+    info_nce_loss,
+    ntxent_loss,
+    ntxent_loss_compat,
+    ntxent_loss_paired,
+)
 from .utils.capability import check_tensor_core_support
 
-__all__ = ["backward", "check_tensor_core_support", "forward",
-           "info_nce_fused", "info_nce_loss", "ntxent"]
+__all__ = ["backward", "check_tensor_core_support", "cosine_normalize",
+           "forward", "info_nce_fused", "info_nce_loss", "ntxent",
+           "ntxent_loss", "ntxent_loss_and_lse", "ntxent_loss_compat",
+           "ntxent_loss_fused", "ntxent_loss_paired",
+           "ntxent_partial_fused"]
 
 
 def _prep(z, use_mixed_precision: bool) -> torch.Tensor:

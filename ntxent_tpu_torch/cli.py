@@ -4,9 +4,10 @@ counterparts.
 Same flag names and defaults as ``ntxent_tpu/cli.py`` for what the port
 supports, plus ``--device`` (cuda by default; raises without a GPU):
 
-* ``serve_main`` (``build_serve_parser``): ViT towers, JSON ``/metrics``;
-  random weights from ``--seed``, as ``ntxent-serve`` serves without
-  ``--ckpt-dir``.
+* ``serve_main`` (``build_serve_parser``): the SimCLR model of ``--model``
+  (``resnet50`` by default, as ``ntxent-serve``; every ResNet, ``tiny``
+  and the ViTs) in eval mode, JSON ``/metrics``; random weights from
+  ``--seed``, as ``ntxent-serve`` serves without ``--ckpt-dir``.
 * ``train_main`` (``build_train_parser``): training with random weights
   from ``--seed``:
 
@@ -17,8 +18,10 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
     ``WORLD_SIZE`` > 1 (``cli.py:824-842``): one rank per card
     (``cuda:LOCAL_RANK``, NCCL) or per CPU process under ``--device cpu``
     (gloo), ``--batch`` global, cross-replica BatchNorm, the strip loss
-    (``--dp-loss strip``), only rank 0 logging. A world of one takes the
-    single-card step, as the JAX CLI does on one device;
+    (``--dp-loss strip``) or the balanced shard-pair loss (``--dp-loss
+    pair``), only rank 0 logging. A world of one takes the single-card
+    step, as the JAX CLI does on one device (``--dp-loss pair`` is then
+    ignored with a warning);
   - ``--objective clip``: a CLIP dual encoder (ViT image tower, causal
     text tower; ``--model tiny`` for both towers at width 32) with
     InfoNCE at a learnable logit scale and AdamW, on synthetic pairs or
@@ -29,9 +32,11 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
     ``--batch`` global, each rank its rows of every batch, the dual
     InfoNCE (only the text embeddings gathered), only rank 0 logging.
 
-  Flags of what is not ported yet (models, datasets, parallelism,
-  checkpoints, the guard, remat, accumulation) exit with a message naming
-  the ROADMAP.md item.
+Every flag of the JAX CLI's ``ntxent-train`` and ``ntxent-serve`` parses
+here. A flag of what is not ported yet (datasets, model parallelism,
+checkpoints, resilience, observability, the adaptive ladder, the int8
+rung, ...) exits, when set, with a message naming its ROADMAP.md item;
+``--platform cpu|gpu`` selects ``--device``.
 
 Run: ``python -m ntxent_tpu_torch.cli --model vit_b16 --vit-attention
 flash --image-size 224 --head embedding --port 8080`` (serving),
@@ -112,6 +117,64 @@ RESNETS = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50,
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+# The JAX CLI's --model choices; those not ported yet exit with the item.
+MODEL_CHOICES = ["resnet18", "resnet34", "resnet50", "resnet50x2",
+                 "resnet101", "resnet152", "vit_t16", "vit_s16",
+                 "vit_b16", "vit_l16", "tiny"]
+
+# What serving does not port yet, by the ROADMAP.md item that will.
+SERVE_ITEMS = {
+    "ckpt": "ROADMAP.md Queue A 7(a) (reading checkpoints: --ckpt-dir "
+            "and what shapes its restore)",
+    "stem": ROADMAP_ITEMS["stem"],
+    "supervise": "ROADMAP.md Queue A 8(c) (serving supervision: restarts, "
+                 "the stall watchdog, --port-file, checkpoint watching)",
+    "int8": "ROADMAP.md Queue A 8(d) (the int8 serving rung)",
+    "ladder": "ROADMAP.md Queue A 8(e) (the adaptive bucket ladder)",
+    "obs": "ROADMAP.md Queue A 8(f) (serving telemetry: --log-jsonl, "
+           "--run-id)",
+}
+# (dest, the JAX CLI's default, item): serve flags that exit when set.
+SERVE_UNPORTED = [
+    ("ckpt_dir", None, "ckpt"), ("accum_steps", 1, "ckpt"),
+    ("stem", "conv", "stem"), ("adaptive_buckets", False, "ladder"),
+    ("ladder_max_buckets", 6, "ladder"),
+    ("ladder_min_requests", 200, "ladder"),
+    ("ladder_interval", 2.0, "ladder"), ("max_restarts", 0, "supervise"),
+    ("stall_timeout", None, "supervise"), ("port_file", None, "supervise"),
+    ("watch_ckpt", False, "supervise"), ("watch_poll", 2.0, "supervise"),
+    ("watch_delay", 0.0, "supervise"), ("log_jsonl", None, "obs"),
+    ("run_id", None, "obs"),
+]
+
+
+def _add_platform(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--platform", default=None, metavar="cpu|gpu",
+                   help="the JAX CLI's platform flag: cpu runs on the CPU, "
+                        "gpu (or cuda) on the card; it sets --device")
+
+
+def _apply_platform(args) -> None:
+    """``--platform`` of the JAX CLI selects the device the port runs on."""
+    if args.platform is None:
+        return
+    devices = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+    if args.platform not in devices:
+        raise SystemExit(f"--platform {args.platform}: the port runs on the "
+                         "CUDA card (gpu) or the CPU (cpu)")
+    args.device = devices[args.platform]
+
+
+def _exit_on_unported(prog: str, args, table, items) -> None:
+    """Exit naming the item of the first flag of ``table`` (dest, default,
+    item) that is set to anything but its default."""
+    for dest, default, item in table:
+        if getattr(args, dest) != default:
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"{prog}: {flag} is not ported yet: "
+                             f"{items[item]}")
+
+
 def build_serve_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ntxent-serve (torch)",
@@ -119,9 +182,16 @@ def build_serve_parser() -> argparse.ArgumentParser:
                     "engine + micro-batching scheduler over HTTP (/embed, "
                     "/healthz, /readyz, /metrics)")
     m = p.add_argument_group("model")
-    m.add_argument("--model", default="vit_b16", choices=sorted(ENCODERS))
+    m.add_argument("--model", default="resnet50", choices=MODEL_CHOICES,
+                   help="the SimCLR encoder (a ResNet's BatchNorm normalizes "
+                        "with its running statistics)")
     m.add_argument("--image-size", type=int, default=32,
-                   help="served input resolution")
+                   help="served input resolution (a ResNet takes the CIFAR "
+                        "stem at 64 and below)")
+    m.add_argument("--stem", default="conv",
+                   choices=["conv", "space_to_depth"],
+                   help="ResNet ImageNet stem (space_to_depth is not "
+                        "ported)")
     m.add_argument("--vit-attention", default="xla", choices=["xla", "flash"],
                    help="flash: the hand-written flash-attention kernel; "
                         "xla: plain PyTorch attention on the same weights")
@@ -131,6 +201,11 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    choices=["features", "embedding"],
                    help="what /embed returns: encoder features or the "
                         "projected L2-normalized contrastive embedding")
+    m.add_argument("--ckpt-dir", default=None,
+                   help="restore weights from a training checkpoint (not "
+                        "ported)")
+    m.add_argument("--accum-steps", type=int, default=1,
+                   help="shapes a checkpoint's restore (not ported)")
 
     s = p.add_argument_group("serving")
     s.add_argument("--host", default="127.0.0.1")
@@ -139,6 +214,12 @@ def build_serve_parser() -> argparse.ArgumentParser:
     s.add_argument("--buckets", default="1,4,16,64,128",
                    help="batch-size ladder; requests pad up to the nearest "
                         "rung, the largest rung is the chunking cap")
+    s.add_argument("--adaptive-buckets", action="store_true",
+                   help="learn the ladder from live traffic (not ported)")
+    s.add_argument("--ladder-max-buckets", type=int, default=6)
+    s.add_argument("--ladder-min-requests", type=int, default=200)
+    s.add_argument("--ladder-interval", type=float, default=2.0,
+                   metavar="SECONDS")
     s.add_argument("--max-batch", type=int, default=None,
                    help="coalescing cap per device call (default: the "
                         "largest bucket)")
@@ -154,15 +235,48 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "largest bucket)")
     s.add_argument("--no-warmup", action="store_true",
                    help="skip running every bucket once at startup")
-    s.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
+    s.add_argument("--dtype", "--serve-dtype", dest="dtype",
+                   default="float32", choices=[*sorted(DTYPES), "int8"],
                    help="input dtype handed to the model (the tower "
-                        "computes in bf16 either way)")
+                        "computes in bf16 either way; the int8 rung is not "
+                        "ported)")
     s.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
 
+    r = p.add_argument_group("resilience and fleet worker (not ported)")
+    r.add_argument("--stall-timeout", type=float, default=None,
+                   metavar="SECONDS")
+    r.add_argument("--max-restarts", type=int, default=0)
+    r.add_argument("--port-file", default=None, metavar="PATH")
+    r.add_argument("--watch-ckpt", action="store_true")
+    r.add_argument("--watch-poll", type=float, default=2.0,
+                   metavar="SECONDS")
+    r.add_argument("--watch-delay", type=float, default=0.0,
+                   metavar="SECONDS")
+
+    o = p.add_argument_group("observability (not ported)")
+    o.add_argument("--log-jsonl", default=None, metavar="PATH")
+    o.add_argument("--run-id", default=None, metavar="ID")
+
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
+    _add_platform(p)
     return p
+
+
+def _check_serve_args(args) -> None:
+    """Exit, naming the ROADMAP item, on a serve flag not ported yet, and
+    on what the JAX CLI refuses (``cli.py:355-364``)."""
+    _apply_platform(args)
+    _exit_on_unported("ntxent-serve (torch)", args, SERVE_UNPORTED,
+                      SERVE_ITEMS)
+    if args.dtype == "int8":
+        raise SystemExit(f"ntxent-serve (torch): --dtype int8 is not ported "
+                         f"yet: {SERVE_ITEMS['int8']}")
+    if args.vit_attention != "xla" and not args.model.startswith("vit"):
+        raise SystemExit(f"--vit-attention {args.vit_attention} applies to "
+                         f"ViT encoders only (got --model {args.model}); it "
+                         "would be silently ignored")
 
 
 def _buckets(text: str) -> tuple[int, ...]:
@@ -200,6 +314,7 @@ def build_model(args) -> SimCLRModel:
 def build_server(args) -> EmbeddingServer:
     """Model, engine and server from parsed ``args``; the ladder is warm
     unless ``--no-warmup``. Call ``start()`` or ``serve_forever()``."""
+    _check_serve_args(args)
     buckets = _buckets(args.buckets)
     device = resolve_device(args.device)
     engine = InferenceEngine(
@@ -208,8 +323,7 @@ def build_server(args) -> EmbeddingServer:
         buckets=buckets, dtype=DTYPES[args.dtype], device=device)
     if not args.no_warmup:
         engine.warmup()
-    logger.info("serving %s (%s attention) on %s", args.model,
-                args.vit_attention, device_name(device))
+    logger.info("serving %s on %s", _model_label(args), device_name(device))
     return EmbeddingServer(
         engine, host=args.host, port=args.port, max_batch=args.max_batch,
         max_delay_s=args.max_delay_ms / 1e3, queue_size=args.queue_size,
@@ -240,10 +354,25 @@ def serve_main(argv=None) -> int:
 # ntxent-train
 # --------------------------------------------------------------------------
 
-# The JAX CLI's --model choices; those not ported yet exit with the item.
-MODEL_CHOICES = ["resnet18", "resnet34", "resnet50", "resnet50x2",
-                 "resnet101", "resnet152", "vit_t16", "vit_s16",
-                 "vit_b16", "vit_l16", "tiny"]
+# (dest, the JAX CLI's default, item): train flags that exit when set.
+TRAIN_UNPORTED = [
+    ("ckpt_every", 500, "resilience"), ("async_ckpt", False, "resilience"),
+    ("ckpt_keep_last", 3, "resilience"),
+    ("ckpt_keep_every", None, "resilience"),
+    ("restore_step", None, "resilience"),
+    ("ckpt_save_ef", False, "resilience"),
+    ("ckpt_mirror", None, "resilience"),
+    ("no_ckpt_verify", False, "resilience"), ("chaos", None, "resilience"),
+    ("stall_timeout", None, "resilience"), ("prefetch", 0, "pipeline"),
+    ("lag_metrics", False, "pipeline"), ("ring_chunks", None, "chunked"),
+    ("measure_overlap", False, "chunked"), ("model_par", 2, "mp"),
+    ("tp_loss_axes", "data", "mp"), ("moe_aux_weight", 0.01, "mp"),
+    ("coordinator", None, "mp"), ("num_processes", None, "mp"),
+    ("process_id", None, "mp"), ("dcn_slices", 1, "mp"),
+    ("metrics_port", None, "obs"), ("log_jsonl", None, "obs"),
+    ("trace_dir", None, "obs"), ("trace_steps", 5, "obs"),
+    ("slow_step_factor", 3.0, "obs"),
+]
 
 
 def build_train_parser() -> argparse.ArgumentParser:
@@ -276,6 +405,7 @@ def build_train_parser() -> argparse.ArgumentParser:
     m.add_argument("--proj-hidden-dim", type=int, default=2048)
     m.add_argument("--proj-dim", type=int, default=128)
     m.add_argument("--moe-experts", type=int, default=0)
+    m.add_argument("--moe-aux-weight", type=float, default=0.01)
 
     t = p.add_argument_group("training")
     t.add_argument("--objective", default="simclr",
@@ -288,13 +418,19 @@ def build_train_parser() -> argparse.ArgumentParser:
     t.add_argument("--clip-parallel", default="dp", choices=["dp", "tp"],
                    help="clip multi-device strategy: dp = data parallelism "
                         "with the dual InfoNCE (tp is not ported)")
+    t.add_argument("--model-par", type=int, default=2)
+    t.add_argument("--tp-loss-axes", default="data", choices=["data", "both"])
     t.add_argument("--parallel", default="dp", choices=["dp", "tp"])
     t.add_argument("--fsdp", action="store_true")
     t.add_argument("--dp-loss", default="strip",
                    choices=["strip", "pair", "chunked"],
                    help="data-parallel NT-Xent schedule: strip (local rows "
-                        "x global columns on every rank; pair and chunked "
-                        "are not ported)")
+                        "x global columns on every rank) or pair (the "
+                        "balanced shard-pair schedule: each global tile "
+                        "formed once across the world; chunked is not "
+                        "ported)")
+    t.add_argument("--ring-chunks", type=int, default=None, metavar="C")
+    t.add_argument("--measure-overlap", action="store_true")
     t.add_argument("--collective-dtype", default="float32",
                    choices=["float32", "bf16", "bfloat16", "int8"],
                    help="wire dtype of the data-parallel collectives "
@@ -307,20 +443,53 @@ def build_train_parser() -> argparse.ArgumentParser:
     t.add_argument("--warmup-steps", type=int, default=100)
     t.add_argument("--accum-steps", type=int, default=1)
     t.add_argument("--remat", action="store_true")
-    t.add_argument("--ckpt-dir", default=None)
     t.add_argument("--log-every", type=int, default=50)
-    t.add_argument("--max-restarts", type=int, default=0)
-    t.add_argument("--nan-policy", default="off",
-                   choices=["off", "skip", "backoff", "rollback"])
     t.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
+
+    r = p.add_argument_group("checkpoints, resilience and the input "
+                             "pipeline (not ported)")
+    r.add_argument("--ckpt-dir", default=None)
+    r.add_argument("--ckpt-every", type=int, default=500)
+    r.add_argument("--async-ckpt", action="store_true")
+    r.add_argument("--ckpt-keep-last", type=int, default=3, metavar="K")
+    r.add_argument("--ckpt-keep-every", type=int, default=None, metavar="N")
+    r.add_argument("--restore-step", type=int, default=None, metavar="N")
+    r.add_argument("--ckpt-save-ef", action="store_true")
+    r.add_argument("--ckpt-mirror", default=None, metavar="DIR")
+    r.add_argument("--no-ckpt-verify", action="store_true")
+    r.add_argument("--max-restarts", type=int, default=0)
+    r.add_argument("--nan-policy", default="off",
+                   choices=["off", "skip", "backoff", "rollback"])
+    r.add_argument("--chaos", default=None, metavar="SPEC")
+    r.add_argument("--stall-timeout", type=float, default=None,
+                   metavar="SECONDS")
+    r.add_argument("--prefetch", type=int, default=0, metavar="DEPTH")
+    r.add_argument("--lag-metrics", action="store_true")
+
+    o = p.add_argument_group("observability (not ported)")
+    o.add_argument("--metrics-port", type=int, default=None, metavar="PORT")
+    o.add_argument("--log-jsonl", default=None, metavar="PATH")
+    o.add_argument("--trace-dir", default=None, metavar="DIR")
+    o.add_argument("--trace-steps", type=int, default=5)
+    o.add_argument("--slow-step-factor", type=float, default=3.0)
+
+    h = p.add_argument_group("multi-host rendezvous (not ported: torchrun's "
+                             "environment describes the world)")
+    h.add_argument("--dcn-slices", type=int, default=1)
+    h.add_argument("--coordinator", default=None)
+    h.add_argument("--num-processes", type=int, default=None)
+    h.add_argument("--process-id", type=int, default=None)
+
     p.add_argument("--seed", type=int, default=0)
+    _add_platform(p)
     return p
 
 
 def _check_train_args(args) -> None:
     """Exit, naming the ROADMAP item, on anything not ported yet (and, for
     CLIP, on what the JAX CLI refuses)."""
+    _apply_platform(args)
     clip = args.objective == "clip"
     if clip and args.model.startswith("resnet"):
         raise SystemExit("--objective clip takes a ViT image tower "
@@ -354,6 +523,8 @@ def _check_train_args(args) -> None:
         if hit:
             raise SystemExit(f"ntxent-train (torch): {flag} is not ported "
                              f"yet: {ROADMAP_ITEMS[item]}")
+    _exit_on_unported("ntxent-train (torch)", args, TRAIN_UNPORTED,
+                      ROADMAP_ITEMS)
     if not clip and args.vit_attention != "xla" \
             and not args.model.startswith("vit"):
         raise SystemExit(f"--vit-attention {args.vit_attention} applies to "
@@ -526,6 +697,9 @@ def train(args, data_parallel: bool | None = None):
         state, history = _train_clip(args, device)
         _log_final(history)
         return state, history
+    if args.dp_loss != "strip":
+        logger.warning("--dp-loss %s ignored: single-device run has no "
+                       "shard-pair schedule", args.dp_loss)
     cfg = _train_config(args)
     state = create_train_state(build_model(args), cfg, device)
     step = make_train_step(cfg.temperature)
@@ -555,7 +729,8 @@ def _model_label(args) -> str:
 def _train_data_parallel(args):
     """The data-parallel branch (``cli.py:824-842``): one rank per card
     (NCCL) or per CPU process (gloo), weights from ``--seed`` on every
-    rank, cross-replica BatchNorm, the strip loss, rank 0 logging."""
+    rank, cross-replica BatchNorm, the ``--dp-loss`` schedule (strip or
+    pair), rank 0 logging."""
     world = _world_size(args)
     device = mesh.init_from_env(args.device)
     info = mesh.process_info()
@@ -564,7 +739,8 @@ def _train_data_parallel(args):
     model = cross_replica_batch_norm(build_model(args),
                                      torch.distributed.group.WORLD)
     state = create_train_state(model, cfg, device)
-    step = make_sharded_train_step(None, cfg.temperature)
+    step = make_sharded_train_step(None, cfg.temperature,
+                                   loss_impl=args.dp_loss)
     if lead:
         logger.info("topology: %s", info)
         logger.info("training %s data-parallel over %d ranks (%s, %s "

@@ -70,23 +70,6 @@ namespace {
 
 using namespace infonce;
 
-// Sum / max over the 16 threads of a row group (lanes differ in bits 0-3).
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  return v;
-}
-
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
 // One CTA: rows row0 .. row0 + 63 of a (n_a x d) over every column tile of
 // b (n_b x d); writes lse[row] for its rows. kLoss: also the sum over its
 // rows of lse - s[row, row] (the diagonal positive) into *partial.

@@ -1,5 +1,6 @@
-// Shared by csrc/infonce_dual_bwd.cu and csrc/infonce_bwd_cols.cu: one
-// CTA's share of an InfoNCE gradient, out = G . other over 64 output rows.
+// Shared by csrc/infonce_dual_bwd.cu, csrc/infonce_bwd_cols.cu and
+// csrc/ntxent_dual_grads.cu: one CTA's share of an InfoNCE (or NT-Xent
+// shard-pair) gradient, out = G . other over 64 output rows.
 //
 // "own" (n_own, D) holds the CTA's output vectors, "other" (n_other, D) the
 // vectors it walks. For own vector r and other vector j:
@@ -17,6 +18,16 @@
 // Which side is "own" decides only which output is formed: with rows as
 // own, out = G . z_cols; with columns as own, out = G^T . z_rows, G being
 // symmetric in its two terms.
+//
+// kDual = true is the NT-Xent shard-pair G of csrc/ntxent_dual_grads.cu
+// (_dual_grads_kernel): both sides carry ids, there is no positive term,
+// and each term's logit is masked to -1e30 where the OTHER side's id is
+// >= n_valid or equals its own:
+//   G[r, j] = exp(min(x_r - lse_own[r], 0)) * valid_own[r]
+//           + exp(min(x_c - lse_other[j], 0)) * valid_other[j],
+//   x_r = -1e30 if id(other_j) >= n_valid or id(other_j) = id(own_r),
+//   x_c = -1e30 if id(own_r) >= n_valid or id(other_j) = id(own_r),
+// else both are s[r, j]. It too is symmetric in its two terms.
 //
 // Design. The CTA walks every 64-vector tile of "other": the s tile by the
 // register-blocked product of infonce_tile.cuh, G to shared memory, then
@@ -44,7 +55,7 @@ __host__ __device__ __forceinline__ size_t smem_floats(int d) {
   return size_t(kTile) * acc_stride(d) + 2 * kTile * kLd + kTile * kLdG;
 }
 
-template <typename T>
+template <typename T, bool kDual = false>
 __device__ void grad_rows(const T* __restrict__ own,
                           const T* __restrict__ other,
                           const int* __restrict__ own_id,
@@ -95,9 +106,17 @@ __device__ void grad_rows(const T* __restrict__ own,
       for (int j = 0; j < 4; ++j) {
         const int col = col0 + tx + 16 * j;
         const float x = s[i][j] * scale;
-        const float pos = id_c[j] == id_r[i] ? 1.f : 0.f;
-        const float g = (exp0(x - lse_r[i]) - pos) * v_r[i] +
-                        (exp0(x - lse_c[j]) - pos) * v_c[j];
+        float g;
+        if constexpr (kDual) {
+          const bool self = id_c[j] == id_r[i];
+          const float x_r = (self || id_c[j] >= n_valid) ? kNegInf : x;
+          const float x_c = (self || id_r[i] >= n_valid) ? kNegInf : x;
+          g = exp0(x_r - lse_r[i]) * v_r[i] + exp0(x_c - lse_c[j]) * v_c[j];
+        } else {
+          const float pos = id_c[j] == id_r[i] ? 1.f : 0.f;
+          g = (exp0(x - lse_r[i]) - pos) * v_r[i] +
+              (exp0(x - lse_c[j]) - pos) * v_c[j];
+        }
         gs[(ty + 16 * i) * kLdG + tx + 16 * j] =
             (row < n_own && col < n_other) ? g : 0.f;
       }

@@ -1,7 +1,8 @@
-// Shared by the InfoNCE kernels (csrc/infonce_dual_fwd.cu,
-// csrc/infonce_grad.cuh): the register-blocked fp32 product of one 64 x 64
-// tile of s = a . b^T, a (n_a, D) and b (n_b, D), over D in 32-wide slices
-// staged in shared memory.
+// Shared by the InfoNCE and NT-Xent tile kernels (csrc/infonce_dual_fwd.cu,
+// csrc/infonce_grad.cuh, csrc/ntxent_dual_stats.cu, csrc/ntxent_tri_*.cu):
+// the register-blocked fp32 product of one 64 x 64 tile of s = a . b^T,
+// a (n_a, D) and b (n_b, D), over D in 32-wide slices staged in shared
+// memory.
 //
 // 256 threads as 16 x 16; thread (ty, tx) owns rows ty + 16 i and columns
 // tx + 16 j (i, j < 4) of the tile. A slice is staged as fp32 with row
@@ -34,6 +35,24 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 }
 
 __device__ __forceinline__ float exp0(float x) { return expf(fminf(x, 0.f)); }
+
+// Max / sum over the 16 threads of a row group of tile_products (lanes
+// that differ in bits 0-3), in a fixed shuffle order.
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
 
 // Rows row0 .. row0 + 63, columns k0 .. k0 + 31 of src (n x d) as fp32,
 // row stride kLd; zero outside src.

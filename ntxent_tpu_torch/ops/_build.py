@@ -34,6 +34,10 @@ SOURCES: dict[str, Path] = {
     "infonce_dual_fwd": _PACKAGE / "csrc" / "infonce_dual_fwd.cu",
     "infonce_dual_bwd": _PACKAGE / "csrc" / "infonce_dual_bwd.cu",
     "infonce_bwd_cols": _PACKAGE / "csrc" / "infonce_bwd_cols.cu",
+    "ntxent_dual_stats": _PACKAGE / "csrc" / "ntxent_dual_stats.cu",
+    "ntxent_dual_grads": _PACKAGE / "csrc" / "ntxent_dual_grads.cu",
+    "ntxent_tri_fwd": _PACKAGE / "csrc" / "ntxent_tri_fwd.cu",
+    "ntxent_tri_bwd": _PACKAGE / "csrc" / "ntxent_tri_bwd.cu",
 }
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 

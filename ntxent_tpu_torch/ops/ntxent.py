@@ -2,10 +2,10 @@
 
 Counterpart of ``ntxent_tpu/ops/ntxent_pallas.py`` in two modes.
 
-Symmetric (``ntxent_loss_fused`` with ``triangular=False``): canonical
-NT-Xent over stacked views z (2N, D), positive of row i at (i + N) mod 2N,
-the self-similarity diagonal masked to -1e30, O(N) residuals (only the
-row logsumexp survives the forward).
+Symmetric (``ntxent_loss_fused``): canonical NT-Xent over stacked views
+z (2N, D), positive of row i at (i + N) mod 2N, the self-similarity
+diagonal masked to -1e30, O(N) residuals (only the row logsumexp survives
+the forward).
 
 * ``ntxent_fwd(z, temperature) -> (loss_sum, lse)`` launches
   ``csrc/ntxent_fwd.cu`` on a CUDA tensor; ``ntxent_fwd_plain`` is the
@@ -13,7 +13,16 @@ row logsumexp survives the forward).
 * ``ntxent_bwd_sym(z, lse, temperature) -> grad`` (fp32, before the
   ``g / T`` scale) launches ``csrc/ntxent_bwd_sym.cu``;
   ``ntxent_bwd_sym_plain`` is its plain version;
-* ``ntxent_loss_fused(z, temperature)`` is the differentiable mean loss.
+* ``ntxent_fwd_tri`` and ``ntxent_bwd_tri``: the same two functions over
+  the upper-triangle tiles only (``csrc/ntxent_tri_fwd.cu``,
+  ``csrc/ntxent_tri_bwd.cu``); ``ntxent_fwd_tri_plain`` and
+  ``ntxent_bwd_tri_plain`` fold per-64-column-block partials as the
+  kernels do;
+* ``ntxent_loss_fused(z, temperature, triangular=False)`` is the
+  differentiable mean loss: the rectangular kernels, or with
+  ``triangular=True`` the triangular ones;
+* ``ntxent_loss_and_lse(z, temperature)`` is the mean loss and the row
+  logsumexp of the rectangular forward, with no autograd.
 
 General (``ntxent_partial_fused``, ``block_lse``, ``block_grads``): rows
 z_rows (R, D) with global ids ``row_gid``, columns z_cols (C, D) with
@@ -34,6 +43,22 @@ row whose id is >= ``cols_actual`` (the padding sentinel 2N) adds no loss.
   differentiable partial loss SUM over the local rows, the data-parallel
   strip loss's building block (``ntxent_pallas.py:871``).
 
+Shard-pair (``block_lse_dual``, ``block_grads_dual``): one tile of the
+symmetric global matrix between rows z_rows (R, D) and columns z_cols
+(C, D), both with global ids; a padding vector carries the sentinel id
+``total``. The row side masks a column whose id is >= total or equals
+the row's, the column side a row whose id is >= total or equals the
+column's; there is no positive term. They are the building blocks of the
+pair-parallel loss (``parallel.pair``).
+
+* ``block_lse_dual(...) -> (lse_rows, lse_cols)`` launches
+  ``csrc/ntxent_dual_stats.cu``; ``block_lse_dual_plain`` is its plain
+  version;
+* ``block_grads_dual(..., lse_rows, lse_cols, ...) -> (G @ z_cols,
+  G^T @ z_rows)`` (fp32, before the caller's cotangent / T) launches
+  ``csrc/ntxent_dual_grads.cu``; ``block_grads_dual_plain`` is its plain
+  version.
+
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version. Each wrapper counts its launches in ``.launches``. The tile
 shape belongs to the CUDA kernels: there is no block chooser here.
@@ -49,15 +74,21 @@ import torch
 
 from . import _build
 
-__all__ = ["ntxent_bwd_general_cols", "ntxent_bwd_general_cols_plain",
-           "ntxent_bwd_general_rows", "ntxent_bwd_general_rows_plain",
-           "ntxent_bwd_sym", "ntxent_bwd_sym_plain", "ntxent_fwd",
-           "ntxent_fwd_general", "ntxent_fwd_general_plain",
-           "ntxent_fwd_plain", "ntxent_loss_fused", "ntxent_partial_fused"]
+__all__ = ["block_grads_dual", "block_grads_dual_plain", "block_lse_dual",
+           "block_lse_dual_plain", "ntxent_bwd_general_cols",
+           "ntxent_bwd_general_cols_plain", "ntxent_bwd_general_rows",
+           "ntxent_bwd_general_rows_plain", "ntxent_bwd_sym",
+           "ntxent_bwd_sym_plain", "ntxent_bwd_tri", "ntxent_bwd_tri_plain",
+           "ntxent_fwd", "ntxent_fwd_general", "ntxent_fwd_general_plain",
+           "ntxent_fwd_plain", "ntxent_fwd_tri", "ntxent_fwd_tri_plain",
+           "ntxent_loss_and_lse", "ntxent_loss_fused",
+           "ntxent_partial_fused"]
 
 _NEG_INF = -1e30
 MAX_DIM = 256  # widest embedding the kernels stage in shared memory
 ROWS_PER_CTA = 32  # rows of one thread block in csrc/ntxent_fwd.cu
+TILE = 64  # rows of one tile of the triangular kernels (csrc/ntxent_tri_*)
+MERGE_ROWS = 256  # rows of one merge block of csrc/ntxent_tri_fwd.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -69,6 +100,17 @@ def _inv_t(temperature: float) -> float:
 def _exp0(x: torch.Tensor) -> torch.Tensor:
     """``exp(min(x, 0))``: every argument is mathematically <= 0."""
     return torch.exp(torch.clamp(x, max=0.0))
+
+
+def _log_l(l: torch.Tensor) -> torch.Tensor:
+    """``log(max(l, 1e-37))``: a finite lse for a fully masked row."""
+    return torch.log(torch.clamp(l, min=1e-37))
+
+
+def _lse(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Max-shifted logsumexp of masked logits along ``dim``."""
+    m = x.amax(dim=dim)
+    return m + _log_l(_exp0(x - m.unsqueeze(dim)).sum(dim=dim))
 
 
 def _check(z: torch.Tensor) -> None:
@@ -100,9 +142,7 @@ def ntxent_fwd_plain(z: torch.Tensor, temperature: float):
     (widened) inputs, max-shifted ``_exp0`` sum, ``log(max(l, 1e-37))``."""
     _check(z)
     s, positives, _ = _masked_similarity(z, temperature)
-    m = s.amax(dim=1)
-    l = _exp0(s - m[:, None]).sum(dim=1)
-    lse = m + torch.log(torch.clamp(l, min=1e-37))
+    lse = _lse(s, 1)
     return (lse - positives).sum(), lse
 
 
@@ -208,33 +248,196 @@ def ntxent_bwd_sym(z: torch.Tensor, lse: torch.Tensor,
 ntxent_bwd_sym.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Triangular mode: the upper-triangle tiles only
+# ---------------------------------------------------------------------------
+
+
+def _tile_blocks(x: torch.Tensor) -> torch.Tensor:
+    """(2N, 2N) -> (2N, nb, TILE): the columns in 64-wide blocks, the last
+    block padded with -1e30 (columns that do not exist)."""
+    x = torch.nn.functional.pad(x, (0, -x.shape[1] % TILE), value=_NEG_INF)
+    return x.view(x.shape[0], -1, TILE)
+
+
+def ntxent_fwd_tri_plain(z: torch.Tensor, temperature: float):
+    """(loss_sum, lse) with ``csrc/ntxent_tri_fwd.cu``'s arithmetic: one
+    (m, l) partial per row and 64-column block, merged over the blocks
+    (``m = max``, ``l = sum l_c exp0(m_c - m)``), ``lse = m + log(max(l,
+    1e-37))``. The same function as ``ntxent_fwd_plain``."""
+    _check(z)
+    s, positives, _ = _masked_similarity(z, temperature)
+    blocks = _tile_blocks(s)
+    m_c = blocks.amax(dim=2)                                 # (2N, nb)
+    l_c = _exp0(blocks - m_c[..., None]).sum(dim=2)
+    m = m_c.amax(dim=1)
+    lse = m + _log_l((l_c * _exp0(m_c - m[:, None])).sum(dim=1))
+    return (lse - positives).sum(), lse
+
+
+def ntxent_bwd_tri_plain(z: torch.Tensor, lse: torch.Tensor,
+                         temperature: float) -> torch.Tensor:
+    """fp32 ``G @ z`` with ``csrc/ntxent_tri_bwd.cu``'s arithmetic: one
+    partial ``G[:, block] @ z[block]`` per 64-column block, summed over
+    the blocks in order. The same function as ``ntxent_bwd_sym_plain``."""
+    _check(z)
+    if lse.shape != (z.shape[0],):
+        raise ValueError(f"lse must be ({z.shape[0]},), got "
+                         f"{tuple(lse.shape)}")
+    s, _, onehot = _masked_similarity(z, temperature)
+    g = (_exp0(s - lse[:, None]) - onehot) + (_exp0(s - lse[None, :])
+                                              - onehot)
+    zf = z.float()
+    pad = -zf.shape[0] % TILE
+    z_blocks = torch.nn.functional.pad(zf, (0, 0, 0, pad)).view(
+        -1, TILE, zf.shape[1])                               # (nb, TILE, D)
+    g_blocks = torch.nn.functional.pad(g, (0, pad)).view(
+        g.shape[0], -1, TILE)                                # (2N, nb, TILE)
+    parts = torch.einsum("rct,ctd->crd", g_blocks, z_blocks)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+@functools.cache
+def _tri_fwd_kernel():
+    fn = _build.load("ntxent_tri_fwd").ntx_ntxent_tri_fwd
+    # z, lse, part, block_sum, loss; rows, d, dtype; inv_t; device; stream
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _tri_bwd_kernel():
+    fn = _build.load("ntxent_tri_bwd").ntx_ntxent_tri_bwd
+    # z, lse, part, grad; rows, d, dtype; inv_t; device; stream
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ntxent_fwd_tri(z: torch.Tensor, temperature: float):
+    """(loss_sum, lse) of the symmetric NT-Xent over the upper-triangle
+    tiles only.
+
+    A CUDA tensor launches ``csrc/ntxent_tri_fwd.cu`` (counted in
+    ``ntxent_fwd_tri.launches``); a CPU tensor runs
+    ``ntxent_fwd_tri_plain``."""
+    _check(z)
+    if z.device.type == "cpu":
+        return ntxent_fwd_tri_plain(z, temperature)
+    if z.device.type != "cuda":
+        raise ValueError(f"ntxent_fwd_tri runs on cuda or cpu, got "
+                         f"{z.device}")
+    _check_kernel_input(z)
+    rows, d = z.shape
+    lse = torch.empty(rows, dtype=torch.float32, device=z.device)
+    part = torch.empty(3 * -(-rows // TILE) * rows, dtype=torch.float32,
+                       device=z.device)
+    block_sum = torch.empty(-(-rows // MERGE_ROWS), dtype=torch.float32,
+                            device=z.device)
+    loss = torch.empty((), dtype=torch.float32, device=z.device)
+    err = _tri_fwd_kernel()(z.data_ptr(), lse.data_ptr(), part.data_ptr(),
+                            block_sum.data_ptr(), loss.data_ptr(), rows, d,
+                            _DTYPE_CODES[z.dtype], _inv_t(temperature),
+                            z.device.index,
+                            torch.cuda.current_stream(z.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ntxent_fwd_tri launch failed: CUDA error {err}")
+    ntxent_fwd_tri.launches += 1
+    return loss, lse
+
+
+ntxent_fwd_tri.launches = 0
+
+
+def ntxent_bwd_tri(z: torch.Tensor, lse: torch.Tensor,
+                   temperature: float) -> torch.Tensor:
+    """(2N, D) fp32 ``G @ z`` over the upper-triangle tiles only (the
+    gradient of loss_sum before ``1 / T``).
+
+    A CUDA tensor launches ``csrc/ntxent_tri_bwd.cu`` (counted in
+    ``ntxent_bwd_tri.launches``), whose per-tile partials take
+    ceil(2N / 64) 2N D fp32 of scratch; a CPU tensor runs the plain
+    version."""
+    _check(z)
+    if lse.shape != (z.shape[0],) or lse.device != z.device:
+        raise ValueError(f"lse must be ({z.shape[0]},) on {z.device}, got "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    if z.device.type == "cpu":
+        return ntxent_bwd_tri_plain(z, lse, temperature)
+    if z.device.type != "cuda":
+        raise ValueError(f"ntxent_bwd_tri runs on cuda or cpu, got "
+                         f"{z.device}")
+    _check_kernel_input(z)
+    rows, d = z.shape
+    lse = lse.float().contiguous()
+    part = torch.empty(-(-rows // TILE) * rows * d, dtype=torch.float32,
+                       device=z.device)
+    grad = torch.empty(z.shape, dtype=torch.float32, device=z.device)
+    err = _tri_bwd_kernel()(z.data_ptr(), lse.data_ptr(), part.data_ptr(),
+                            grad.data_ptr(), rows, d, _DTYPE_CODES[z.dtype],
+                            _inv_t(temperature), z.device.index,
+                            torch.cuda.current_stream(z.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ntxent_bwd_tri launch failed: CUDA error {err}")
+    ntxent_bwd_tri.launches += 1
+    return grad
+
+
+ntxent_bwd_tri.launches = 0
+
+
 class _NtxentSym(torch.autograd.Function):
     """loss_sum with the kernels' exact backward (ntxent_pallas.py:724-774):
     the forward saves (z, lse); the backward returns
-    ``grad * (g / T)`` cast to z's dtype."""
+    ``grad * (g / T)`` cast to z's dtype. ``triangular`` takes the
+    upper-triangle kernels (#2, #3) in place of the rectangular ones (#1,
+    #5)."""
 
     @staticmethod
-    def forward(ctx, z, temperature):
-        loss_sum, lse = ntxent_fwd(z, temperature)
+    def forward(ctx, z, temperature, triangular):
+        fwd = ntxent_fwd_tri if triangular else ntxent_fwd
+        loss_sum, lse = fwd(z, temperature)
         ctx.save_for_backward(z, lse)
-        ctx.temperature = temperature
+        ctx.temperature, ctx.triangular = temperature, triangular
         return loss_sum
 
     @staticmethod
     def backward(ctx, g):
         z, lse = ctx.saved_tensors
-        grad = ntxent_bwd_sym(z, lse, ctx.temperature)
-        return (grad * (g.float() / ctx.temperature)).to(z.dtype), None
+        bwd = ntxent_bwd_tri if ctx.triangular else ntxent_bwd_sym
+        grad = bwd(z, lse, ctx.temperature)
+        return (grad * (g.float() / ctx.temperature)).to(z.dtype), None, None
 
 
-def ntxent_loss_fused(z: torch.Tensor,
-                      temperature: float = 0.07) -> torch.Tensor:
+def ntxent_loss_fused(z: torch.Tensor, temperature: float = 0.07,
+                      triangular: bool = False) -> torch.Tensor:
     """Fused canonical NT-Xent mean loss over stacked views z (2N, D).
 
     Same semantics as ``ops.oracle.ntxent_loss``, O(N) memory, exact
     gradient through the backward kernel. ``temperature`` is a Python
-    float."""
-    return _NtxentSym.apply(z.contiguous(), float(temperature)) / z.shape[0]
+    float. ``triangular=True`` forms each similarity tile once, over the
+    upper triangle, and folds it into both of its row blocks
+    (``ntxent_fwd_tri``, ``ntxent_bwd_tri``: half the forward's products,
+    three quarters of the backward's); the result differs from the
+    rectangular kernels' by summation order only."""
+    return _NtxentSym.apply(z.contiguous(), float(temperature),
+                            bool(triangular)) / z.shape[0]
+
+
+def ntxent_loss_and_lse(z: torch.Tensor, temperature: float = 0.07):
+    """(mean loss, lse (2N,)) of the rectangular forward (``ntxent_fwd``)
+    with no autograd (``ntxent_pallas.py:904``): from lse, row i of the
+    masked softmax is ``exp(s_i - lse_i)``, made on demand instead of
+    stored."""
+    with torch.no_grad():
+        loss_sum, lse = ntxent_fwd(z.contiguous(), float(temperature))
+    return loss_sum / z.shape[0], lse
 
 
 # ---------------------------------------------------------------------------
@@ -292,9 +495,7 @@ def ntxent_fwd_general_plain(z_rows, z_cols, row_gid, temperature,
                                         cols_actual, n_half)
     masked, raw, onehot, valid = _general_terms(
         z_rows, z_cols, row_gid, temperature, col_gid, cols_actual, n_half)
-    m = masked.amax(dim=1)
-    l = _exp0(masked - m[:, None]).sum(dim=1)
-    lse = m + torch.log(torch.clamp(l, min=1e-37))
+    lse = _lse(masked, 1)
     positives = (raw * onehot).sum(dim=1)
     loss = torch.where(valid, lse - positives, torch.zeros_like(lse))
     return loss.sum(), lse
@@ -523,3 +724,188 @@ def ntxent_partial_fused(z_rows: torch.Tensor, z_cols: torch.Tensor,
                          f"{tuple(z_cols.shape)}")
     return _NtxentPartial.apply(z_rows.contiguous(), z_cols.contiguous(),
                                 row_gid, float(temperature))
+
+
+# ---------------------------------------------------------------------------
+# Shard-pair mode: one tile of the symmetric matrix, both directions
+# ---------------------------------------------------------------------------
+
+
+def _dual_args(z_rows, z_cols, row_gid, col_gid):
+    if z_rows.ndim != 2 or z_cols.ndim != 2 \
+            or z_rows.shape[1] != z_cols.shape[1]:
+        raise ValueError(f"rows (R, D) and columns (C, D) must share D, got "
+                         f"{tuple(z_rows.shape)} and {tuple(z_cols.shape)}")
+    if z_rows.shape[0] < 1 or z_cols.shape[0] < 1:
+        raise ValueError("a shard-pair tile needs at least one row and one "
+                         "column")
+    if z_rows.dtype != z_cols.dtype or z_rows.device != z_cols.device:
+        raise ValueError(f"rows and columns must share dtype and device, got "
+                         f"{z_rows.dtype} on {z_rows.device} and "
+                         f"{z_cols.dtype} on {z_cols.device}")
+    for name, ids, n in (("row_gid", row_gid, z_rows.shape[0]),
+                         ("col_gid", col_gid, z_cols.shape[0])):
+        if ids.shape != (n,) or ids.device != z_rows.device \
+                or ids.is_floating_point():
+            raise ValueError(f"{name} must be ({n},) integers on "
+                             f"{z_rows.device}, got {tuple(ids.shape)} "
+                             f"{ids.dtype} on {ids.device}")
+
+
+def _dual_terms(z_rows, z_cols, row_gid, col_gid, temperature, total):
+    """(s_row, s_col, valid_row, valid_col) of ``_dual_stats_kernel``:
+    the scaled similarity masked for each direction, and which ids are
+    not the padding sentinel."""
+    s = (z_rows.float() @ z_cols.float().T) * _inv_t(temperature)
+    rid = row_gid.long()[:, None]
+    cid = col_gid.long()[None, :]
+    self_hit = cid == rid
+    s_row = s.masked_fill((cid >= total) | self_hit, _NEG_INF)
+    s_col = s.masked_fill((rid >= total) | self_hit, _NEG_INF)
+    return s_row, s_col, rid[:, 0] < total, cid[0] < total
+
+
+def block_lse_dual_plain(z_rows, z_cols, row_gid, col_gid, temperature,
+                         total):
+    """(lse_rows (R,), lse_cols (C,)) fp32: each row's logsumexp over the
+    tile's columns, each column's over the tile's rows (the mirror tile's
+    row direction), each with its direction's mask."""
+    _dual_args(z_rows, z_cols, row_gid, col_gid)
+    s_row, s_col, _, _ = _dual_terms(z_rows, z_cols, row_gid, col_gid,
+                                     temperature, total)
+    return _lse(s_row, 1), _lse(s_col, 0)
+
+
+def block_grads_dual_plain(z_rows, z_cols, row_gid, col_gid, lse_rows,
+                           lse_cols, temperature, total):
+    """(G @ z_cols (R, D), G^T @ z_rows (C, D)) fp32 with ``G =
+    exp0(s_row - lse_rows) valid_row + exp0(s_col - lse_cols) valid_col``
+    (``_dual_grads_kernel``): no positive term."""
+    _dual_args(z_rows, z_cols, row_gid, col_gid)
+    if lse_rows.shape != (z_rows.shape[0],) \
+            or lse_cols.shape != (z_cols.shape[0],):
+        raise ValueError(f"lse_rows and lse_cols must be ({z_rows.shape[0]},)"
+                         f" and ({z_cols.shape[0]},), got "
+                         f"{tuple(lse_rows.shape)} and "
+                         f"{tuple(lse_cols.shape)}")
+    s_row, s_col, valid_r, valid_c = _dual_terms(
+        z_rows, z_cols, row_gid, col_gid, temperature, total)
+    g = (_exp0(s_row - lse_rows.float()[:, None]) * valid_r.float()[:, None]
+         + _exp0(s_col - lse_cols.float()[None, :]) * valid_c.float()[None])
+    return g @ z_cols.float(), g.T @ z_rows.float()
+
+
+@functools.cache
+def _dual_stats_kernel():
+    fn = _build.load("ntxent_dual_stats").ntx_ntxent_dual_stats
+    # z_rows, z_cols, row_gid, col_gid, lse_rows, lse_cols; rows, cols, d,
+    # dtype; inv_t; total, device; stream
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _dual_grads_kernel():
+    fn = _build.load("ntxent_dual_grads").ntx_ntxent_dual_grads
+    # z_rows, z_cols, row_gid, col_gid, lse_rows, lse_cols, grad_rows,
+    # grad_cols; rows, cols, d, dtype; inv_t; total, device; stream
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _dual_kernel_input(name, z_rows, z_cols):
+    if z_rows.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, got {z_rows.device}")
+    _check_kernel_input(z_rows)
+    _check_kernel_input(z_cols)
+
+
+def block_lse_dual(z_rows: torch.Tensor, z_cols: torch.Tensor,
+                   row_gid: torch.Tensor, col_gid: torch.Tensor,
+                   temperature: float, total: int):
+    """(lse_rows, lse_cols) of ONE shard-pair tile from a single walk
+    (``ntxent_pallas.py:1094``): lse_rows[a] is the logsumexp over this
+    tile's columns for row a, lse_cols[b] over this tile's rows for column
+    b. Fold results across a rank's tiles with logaddexp; weight a tile
+    by adding log(w) to both outputs. Not differentiable: the pair loss
+    calls ``block_grads_dual`` itself.
+
+    A CUDA tensor launches ``csrc/ntxent_dual_stats.cu`` (counted in
+    ``block_lse_dual.launches``); a CPU tensor runs the plain version."""
+    _dual_args(z_rows, z_cols, row_gid, col_gid)
+    if z_rows.device.type == "cpu":
+        return block_lse_dual_plain(z_rows, z_cols, row_gid, col_gid,
+                                    temperature, total)
+    _dual_kernel_input("block_lse_dual", z_rows, z_cols)
+    rows, cols = z_rows.shape[0], z_cols.shape[0]
+    lse_rows = torch.empty(rows, dtype=torch.float32, device=z_rows.device)
+    lse_cols = torch.empty(cols, dtype=torch.float32, device=z_rows.device)
+    row_gid, col_gid = _ids(row_gid), _ids(col_gid)
+    err = _dual_stats_kernel()(
+        z_rows.data_ptr(), z_cols.data_ptr(), row_gid.data_ptr(),
+        col_gid.data_ptr(), lse_rows.data_ptr(), lse_cols.data_ptr(), rows,
+        cols, z_rows.shape[1], _DTYPE_CODES[z_rows.dtype],
+        _inv_t(temperature), int(total), z_rows.device.index,
+        torch.cuda.current_stream(z_rows.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block_lse_dual launch failed: CUDA error {err}")
+    block_lse_dual.launches += 1
+    return lse_rows, lse_cols
+
+
+block_lse_dual.launches = 0
+
+
+def block_grads_dual(z_rows: torch.Tensor, z_cols: torch.Tensor,
+                     row_gid: torch.Tensor, col_gid: torch.Tensor,
+                     lse_rows: torch.Tensor, lse_cols: torch.Tensor,
+                     temperature: float, total: int):
+    """Both sides' gradient contributions of one shard-pair tile, times T
+    (``ntxent_pallas.py:1213``): with ``S = sum of the global rows' lse``
+    and the tile's rows and columns carrying their GLOBAL lse,
+    ``(dS/dz_rows, dS/dz_cols) * T`` restricted to this tile's softmax
+    terms (no positive term), fp32. The caller multiplies by ``cotangent
+    / T`` once and adds the local positives' gradient.
+
+    A CUDA tensor launches ``csrc/ntxent_dual_grads.cu`` (counted in
+    ``block_grads_dual.launches``); a CPU tensor runs the plain
+    version."""
+    _dual_args(z_rows, z_cols, row_gid, col_gid)
+    if z_rows.device.type == "cpu":
+        return block_grads_dual_plain(z_rows, z_cols, row_gid, col_gid,
+                                      lse_rows, lse_cols, temperature, total)
+    _dual_kernel_input("block_grads_dual", z_rows, z_cols)
+    rows, cols = z_rows.shape[0], z_cols.shape[0]
+    if lse_rows.shape != (rows,) or lse_cols.shape != (cols,) \
+            or lse_rows.device != z_rows.device \
+            or lse_cols.device != z_rows.device:
+        raise ValueError(f"lse_rows and lse_cols must be ({rows},) and "
+                         f"({cols},) on {z_rows.device}")
+    lse_rows = lse_rows.float().contiguous()
+    lse_cols = lse_cols.float().contiguous()
+    row_gid, col_gid = _ids(row_gid), _ids(col_gid)
+    grad_rows = torch.empty(z_rows.shape, dtype=torch.float32,
+                            device=z_rows.device)
+    grad_cols = torch.empty(z_cols.shape, dtype=torch.float32,
+                            device=z_rows.device)
+    err = _dual_grads_kernel()(
+        z_rows.data_ptr(), z_cols.data_ptr(), row_gid.data_ptr(),
+        col_gid.data_ptr(), lse_rows.data_ptr(), lse_cols.data_ptr(),
+        grad_rows.data_ptr(), grad_cols.data_ptr(), rows, cols,
+        z_rows.shape[1], _DTYPE_CODES[z_rows.dtype], _inv_t(temperature),
+        int(total), z_rows.device.index,
+        torch.cuda.current_stream(z_rows.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block_grads_dual launch failed: CUDA error "
+                           f"{err}")
+    block_grads_dual.launches += 1
+    return grad_rows, grad_cols
+
+
+block_grads_dual.launches = 0

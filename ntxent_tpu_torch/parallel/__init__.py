@@ -1,7 +1,8 @@
 """Data parallelism of the port over ``torch.distributed``: process
 groups, autograd-aware collectives with comms accounting
-(``parallel.mesh``) and the data-parallel NT-Xent and InfoNCE losses
-(``parallel.dist_loss``)."""
+(``parallel.mesh``), the data-parallel NT-Xent and InfoNCE losses
+(``parallel.dist_loss``) and the pair-parallel NT-Xent
+(``parallel.pair``)."""
 
 from .dist_loss import (
     local_infonce_dual,
@@ -24,6 +25,7 @@ from .mesh import (
     process_info,
     psum,
 )
+from .pair import make_pair_ntxent, ntxent_loss_pair, pair_body
 
 __all__ = [
     "CommsAccounting",
@@ -34,9 +36,12 @@ __all__ = [
     "local_infonce_dual",
     "local_ntxent_allgather",
     "local_row_gids",
+    "make_pair_ntxent",
     "make_sharded_infonce",
     "make_sharded_ntxent",
     "ntxent_loss_distributed",
+    "ntxent_loss_pair",
+    "pair_body",
     "pmax",
     "pmean",
     "process_info",

@@ -1,6 +1,7 @@
 """Data-parallel NT-Xent and InfoNCE over ``torch.distributed``,
 counterpart of the strip schedule and of the dual InfoNCE of
-``ntxent_tpu/parallel/dist_loss.py``.
+``ntxent_tpu/parallel/dist_loss.py``; the pair schedule lives in
+``parallel.pair``.
 
 NT-Xent: every rank runs the encoder on its shard of the global batch,
 all-gathers the embeddings of both views, computes only its local rows x
@@ -31,17 +32,16 @@ import torch
 from ..ops.infonce import info_nce_dual_partial
 from ..ops.ntxent import ntxent_partial_fused
 from .mesh import all_gather, local_row_gids, psum, rank, world_size
+from .pair import pair_body
 
 __all__ = ["local_infonce_dual", "local_ntxent_allgather",
            "make_sharded_infonce", "make_sharded_ntxent",
            "ntxent_loss_distributed", "resolve_local_infonce",
            "resolve_local_ntxent"]
 
-# The other schedules of ``--dp-loss``, by the ROADMAP.md item that ports
-# them.
+# The other schedule of ``--dp-loss``, by the ROADMAP.md item that ports
+# it.
 NOT_PORTED = {
-    "pair": "ROADMAP.md Queue A 4 (pair and triangular loss schedules: "
-            "kernels #7 and #8)",
     "chunked": "ROADMAP.md Queue A 3(d) (--dp-loss chunked, the "
                "ring-overlap schedule)",
 }
@@ -70,11 +70,15 @@ def local_ntxent_allgather(z1_local: torch.Tensor, z2_local: torch.Tensor,
 
 
 def resolve_local_ntxent(impl: str):
-    """The per-rank NT-Xent body for an impl name (``dist_loss.py:199``).
-    ``"pair"`` and ``"chunked"`` are not ported and raise, naming their
-    items; ``ntxent-train`` refuses them at its flag."""
+    """The per-rank NT-Xent body for an impl name (``dist_loss.py:199``):
+    ``"strip"`` or ``"pair"`` (``parallel.pair.pair_body``), with the
+    signature ``(z1_local, z2_local, temperature, group)``. ``"chunked"``
+    is not ported and raises, naming its item; ``ntxent-train`` refuses it
+    at its flag."""
     if impl == "strip":
         return local_ntxent_allgather
+    if impl == "pair":
+        return pair_body
     if impl in NOT_PORTED:
         raise NotImplementedError(f"--dp-loss {impl} is not ported yet: "
                                   f"{NOT_PORTED[impl]}")

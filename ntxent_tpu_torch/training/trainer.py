@@ -16,12 +16,13 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   InfoNCE kernels on CUDA tensors (``ops.infonce.info_nce_fused``) and
   the oracle at temperature ``1 / scale`` on the CPU, as the JAX step
   does;
-* ``make_sharded_train_step(group, temperature)`` (``trainer.py:425``,
-  without the guard, the int8/bf16 wire or the MoE loss): each rank runs
-  both of its local views through the model in one forward (BatchNorm
-  statistics across ranks once ``models.cross_replica_batch_norm`` gave
-  the model the group), the strip loss (``parallel.dist_loss``), the
-  backward, the ``pmean`` of the gradients (``_ef_reduce_rule``) and of
+* ``make_sharded_train_step(group, temperature, loss_impl="strip")``
+  (``trainer.py:421-427``, without the guard, the int8/bf16 wire or the
+  MoE loss): each rank runs both of its local views through the model in
+  one forward (BatchNorm statistics across ranks once
+  ``models.cross_replica_batch_norm`` gave the model the group), the
+  data-parallel loss of ``loss_impl`` (``parallel.dist_loss``: ``"strip"``,
+  or ``"pair"``, the balanced shard-pair schedule), the backward, the ``pmean`` of the gradients (``_ef_reduce_rule``) and of
   the BatchNorm running statistics, and the same LARS update on every
   rank. Each rank differentiates its own copy of the psum'd loss, so its
   gradients are P times its share and their pmean is the gradient of the
@@ -58,7 +59,7 @@ from ..models.layers import BatchNorm
 from ..ops import oracle
 from ..ops.infonce import info_nce_fused
 from ..ops.ntxent import ntxent_loss_fused
-from ..parallel.dist_loss import local_infonce_dual, local_ntxent_allgather
+from ..parallel.dist_loss import local_infonce_dual, resolve_local_ntxent
 from ..parallel.mesh import pmean_
 from .adamw import AdamW
 from .lars import LARS, cosine_warmup_schedule, exclusion_mask
@@ -79,7 +80,14 @@ ROADMAP_ITEMS = {
     "resilience": "ROADMAP.md Queue A 7 (checkpoints and training "
                   "resilience)",
     "data": "ROADMAP.md Queue A 7 (datasets beyond --dataset synthetic)",
-    "mp": "ROADMAP.md Queue A 9 (model parallelism and MoE)",
+    "pipeline": "ROADMAP.md Queue A 7(b) (the async input pipeline: "
+                "--prefetch, --lag-metrics)",
+    "mp": "ROADMAP.md Queue A 9 (model parallelism and MoE; multi-host "
+          "worlds come from torchrun's environment)",
+    "chunked": "ROADMAP.md Queue A 3(d) (--dp-loss chunked, the "
+               "ring-overlap schedule: --ring-chunks, --measure-overlap)",
+    "obs": "ROADMAP.md Queue A 11 (observability: the metrics endpoint, "
+           "the event log, traces)",
 }
 
 
@@ -160,18 +168,21 @@ def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
     return train_step
 
 
-def make_sharded_train_step(group=None,
-                            temperature: float = 0.1) -> Callable:
+def make_sharded_train_step(group=None, temperature: float = 0.1,
+                            loss_impl: str = "strip") -> Callable:
     """``train_step(state, v1, v2) -> (state, {"loss": tensor})`` over the
-    ranks of ``group`` (``None``: the default group) with the strip loss;
-    ``v1``, ``v2`` are this rank's rows of the global batch. Every rank
-    returns the global loss and ends with the same parameters."""
+    ranks of ``group`` (``None``: the default group) with the NT-Xent
+    schedule ``loss_impl`` (``"strip"`` or ``"pair"``; an unknown or
+    unported name raises here); ``v1``, ``v2`` are this rank's rows of the
+    global batch. Every rank returns the global loss and ends with the
+    same parameters."""
+    loss_body = resolve_local_ntxent(loss_impl)
 
     def train_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
         state.optimizer.zero_grad()
         z = apply_two_views(state.model, v1, v2)
         n = v1.shape[0]
-        loss = local_ntxent_allgather(z[:n], z[n:], temperature, group)
+        loss = loss_body(z[:n], z[n:], temperature, group)
         loss.backward()
         pmean_([p.grad for p in state.model.parameters()], group)
         pmean_([b for m in state.model.modules() if isinstance(m, BatchNorm)

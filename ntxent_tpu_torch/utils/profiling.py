@@ -1,7 +1,7 @@
 """Where the port's serving forward and training steps spend device time.
 
-Three modes, each on the model of its slice (ViT-B/16 at 224 px, random
-weights from seed 0):
+Five modes, each on the model of its slice (ViT-B/16 or ResNet-50 at
+224 px, random weights from seed 0):
 
 ``--mode forward`` (the default; serving): for one batch-size bucket and
 each attention impl,
@@ -36,12 +36,14 @@ vocabulary, embedding 512) at ``--batch`` pairs on fixed synthetic pairs,
 
 ``--mode dp`` (the data-parallel slice): one step of data-parallel
 ResNet-50 SimCLR (``make_sharded_train_step``, cross-replica BatchNorm,
-the strip loss) over an NCCL process group of world size 1 at
-``--batch`` (2B views at 224 px) on a fixed pair of augmented views,
+the ``--dp-loss`` schedule: ``strip`` by default, or ``pair``) over an
+NCCL process group of world size 1 at ``--batch`` (2B views at 224 px)
+on a fixed pair of augmented views,
 
 * times the step with CUDA events: step ms and images/s (2B per step);
-* times apart the encoder's forward and backward, the strip loss's
-  forward and backward, and the gradient pmean with the LARS update;
+* times apart the encoder's forward and backward, the loss's forward and
+  backward with its collectives, and the gradient pmean with the LARS
+  update;
 * traces 3 steps as ``--mode train`` does (cuDNN's convolutions fall in
   the ``matmul`` group, BatchNorm's element-wise passes in ``other``),
   and counts launches and peak device memory.
@@ -65,6 +67,8 @@ Run on the card, from the repository root:
     python -m ntxent_tpu_torch.utils.profiling --mode train --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode clip --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode dp --batch 256
+    python -m ntxent_tpu_torch.utils.profiling --mode dp --dp-loss pair \
+        --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode clip_dp --batch 256
 
 The last line of the output is one JSON object with every number.
@@ -73,6 +77,7 @@ The last line of the output is one JSON object with every number.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -84,7 +89,14 @@ __all__ = ["cuda_time_ms", "kernel_breakdown", "main"]
 
 _GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
 # Device-function name of each hand-written kernel -> its wrapper's name.
-_KERNELS = (("flash_fwd_kernel", "flash_attention_fwd"),
+_KERNELS = (("ntxent_dual_stats_kernel", "block_lse_dual"),
+            ("ntxent_dual_grads_kernel", "block_grads_dual"),
+            ("tri_tiles_fwd_kernel", "ntxent_fwd_tri"),
+            ("tri_fwd_merge_kernel", "ntxent_fwd_tri"),
+            ("tri_loss_reduce", "ntxent_fwd_tri"),
+            ("tri_tiles_bwd_kernel", "ntxent_bwd_tri"),
+            ("tri_bwd_sum_kernel", "ntxent_bwd_tri"),
+            ("flash_fwd_kernel", "flash_attention_fwd"),
             ("flash_dq_kernel", "flash_attention_dq"),
             ("flash_dkv_kernel", "flash_attention_dkv"),
             ("ntxent_fwd_kernel<float, true>", "ntxent_fwd_general"),
@@ -183,6 +195,10 @@ def launch_counters() -> dict:
             "ntxent_fwd_general": ntxent.ntxent_fwd_general,
             "ntxent_bwd_general_rows": ntxent.ntxent_bwd_general_rows,
             "ntxent_bwd_general_cols": ntxent.ntxent_bwd_general_cols,
+            "ntxent_fwd_tri": ntxent.ntxent_fwd_tri,
+            "ntxent_bwd_tri": ntxent.ntxent_bwd_tri,
+            "block_lse_dual": ntxent.block_lse_dual,
+            "block_grads_dual": ntxent.block_grads_dual,
             "infonce_dual_fwd": infonce.infonce_dual_fwd,
             "infonce_dual_bwd": infonce.infonce_dual_bwd,
             "infonce_dual_fwd_rect": infonce.infonce_dual_fwd_rect,
@@ -341,7 +357,7 @@ def clip_dp_profile(batch: int, device) -> dict:
             mesh.shutdown()
 
 
-def dp_profile(batch: int, device) -> dict:
+def dp_profile(batch: int, device, dp_loss: str = "strip") -> dict:
     """The numbers of ``--mode dp`` for one batch (see the module
     docstring)."""
     import tempfile
@@ -349,7 +365,7 @@ def dp_profile(batch: int, device) -> dict:
     from ..cli import build_model, build_train_parser
     from ..models import cross_replica_batch_norm
     from ..parallel import mesh
-    from ..parallel.dist_loss import local_ntxent_allgather
+    from ..parallel.dist_loss import resolve_local_ntxent
     from ..training import (
         TrainerConfig,
         augment_batch_pair,
@@ -369,7 +385,9 @@ def dp_profile(batch: int, device) -> dict:
             model = cross_replica_batch_norm(build_model(args),
                                              torch.distributed.group.WORLD)
             state = create_train_state(model, cfg, device)
-            step = make_sharded_train_step(None, cfg.temperature)
+            step = make_sharded_train_step(None, cfg.temperature,
+                                           loss_impl=dp_loss)
+            loss_body = resolve_local_ntxent(dp_loss)
             gen = torch.Generator(device=device).manual_seed(SEED)
             images = torch.rand(batch, IMAGE_SIZE, IMAGE_SIZE, 3,
                                 generator=gen, device=device)
@@ -392,7 +410,7 @@ def dp_profile(batch: int, device) -> dict:
             z2 = z[batch:].clone().requires_grad_()
 
             def loss_fwd_bwd():
-                local_ntxent_allgather(z1, z2, cfg.temperature).backward()
+                loss_body(z1, z2, cfg.temperature).backward()
 
             one_step()  # leaves this step's gradients for the update timing
 
@@ -403,14 +421,14 @@ def dp_profile(batch: int, device) -> dict:
             parts = {
                 "encoder_fwd_bwd": cuda_time_ms(encoder_fwd_bwd, runs=3,
                                                 warmup=1),
-                "strip_loss_fwd_bwd": cuda_time_ms(loss_fwd_bwd, runs=5,
-                                                   warmup=1),
+                f"{dp_loss}_loss_fwd_bwd": cuda_time_ms(loss_fwd_bwd,
+                                                        runs=5, warmup=1),
             }
             one_step()
             parts["grad_pmean_lars_update"] = cuda_time_ms(
                 reduce_and_update, runs=5, warmup=1)
             return {"batch": batch, "views_per_step": 2 * batch,
-                    "step_ms": step_ms,
+                    "dp_loss": dp_loss, "step_ms": step_ms,
                     "images_per_s": 2 * batch / step_ms * 1e3,
                     "peak_memory_bytes": peak, "parts_ms": parts,
                     **_traced_step(one_step)}
@@ -433,6 +451,8 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=256,
                    help="train, clip, dp and clip_dp modes: --batch of the "
                         "profiled step")
+    p.add_argument("--dp-loss", default="strip", choices=["strip", "pair"],
+                   help="dp mode: the data-parallel NT-Xent schedule")
     args = p.parse_args(argv)
 
     device = resolve_device("cuda")
@@ -440,7 +460,9 @@ def main(argv=None) -> int:
         card = card_power_line()
         print(f"card: {card}", flush=True)
         profile = {"train": train_profile, "clip": clip_profile,
-                   "dp": dp_profile, "clip_dp": clip_dp_profile}[args.mode]
+                   "dp": functools.partial(dp_profile,
+                                           dp_loss=args.dp_loss),
+                   "clip_dp": clip_dp_profile}[args.mode]
         result = {"device": device_name(device), "card": card,
                   "model": "resnet50" if args.mode == "dp" else MODEL,
                   "image_size": IMAGE_SIZE, "mode": args.mode,

@@ -229,6 +229,10 @@ def test_flash_backward_rejects_mismatched_shapes():
                           "ntx_infonce_dual_fwd_rect"]),
     ("infonce_dual_bwd", ["ntx_infonce_dual_bwd", "ntx_infonce_bwd_rows"]),
     ("infonce_bwd_cols", ["ntx_infonce_bwd_cols"]),
+    ("ntxent_dual_stats", ["ntx_ntxent_dual_stats"]),
+    ("ntxent_dual_grads", ["ntx_ntxent_dual_grads"]),
+    ("ntxent_tri_fwd", ["ntx_ntxent_tri_fwd"]),
+    ("ntxent_tri_bwd", ["ntx_ntxent_tri_bwd"]),
 ])
 def test_training_kernels_build_from_repo_sources(tmp_path, name, symbols):
     cmd = _build.nvcc_command(name, tmp_path / "lib.so")

@@ -44,6 +44,20 @@ from ntxent_tpu_torch.utils import profiling
      "infonce_bwd_rows"),
     ("void (anonymous namespace)::infonce_bwd_cols_kernel<__nv_bfloat16>"
      "(...)", "infonce_bwd_cols"),
+    ("void (anonymous namespace)::ntxent_dual_stats_kernel<float>(...)",
+     "block_lse_dual"),
+    ("void (anonymous namespace)::ntxent_dual_grads_kernel<__nv_bfloat16>"
+     "(...)", "block_grads_dual"),
+    ("void (anonymous namespace)::tri_tiles_fwd_kernel<float>(...)",
+     "ntxent_fwd_tri"),
+    ("(anonymous namespace)::tri_fwd_merge_kernel(float const*, ...)",
+     "ntxent_fwd_tri"),
+    ("(anonymous namespace)::tri_loss_reduce(float const*, int, float*)",
+     "ntxent_fwd_tri"),
+    ("void (anonymous namespace)::tri_tiles_bwd_kernel<__nv_bfloat16>(...)",
+     "ntxent_bwd_tri"),
+    ("(anonymous namespace)::tri_bwd_sum_kernel(float const*, ...)",
+     "ntxent_bwd_tri"),
 ])
 def test_kernels_are_grouped_by_name(name, group):
     assert profiling._group(name) == group
@@ -53,6 +67,8 @@ def test_kernels_are_grouped_by_name(name, group):
                                   ["--mode", "train", "--batch", "2"],
                                   ["--mode", "clip", "--batch", "2"],
                                   ["--mode", "dp", "--batch", "2"],
+                                  ["--mode", "dp", "--dp-loss", "pair",
+                                   "--batch", "2"],
                                   ["--mode", "clip_dp", "--batch", "2"]])
 def test_profiler_needs_a_card(argv):
     if torch.cuda.is_available():
@@ -63,11 +79,13 @@ def test_profiler_needs_a_card(argv):
 
 def test_every_kernel_wrapper_counts_launches():
     counters = profiling.launch_counters()
-    assert sorted(counters) == ["flash_attention_dkv", "flash_attention_dq",
+    assert sorted(counters) == ["block_grads_dual", "block_lse_dual",
+                                "flash_attention_dkv", "flash_attention_dq",
                                 "flash_attention_fwd", "infonce_bwd_cols",
                                 "infonce_bwd_rows", "infonce_dual_bwd",
                                 "infonce_dual_fwd", "infonce_dual_fwd_rect",
                                 "ntxent_bwd_general_cols",
                                 "ntxent_bwd_general_rows", "ntxent_bwd_sym",
-                                "ntxent_fwd", "ntxent_fwd_general"]
+                                "ntxent_bwd_tri", "ntxent_fwd",
+                                "ntxent_fwd_general", "ntxent_fwd_tri"]
     assert all(isinstance(w.launches, int) for w in counters.values())

@@ -45,6 +45,7 @@ pytestmark = pytest.mark.serving
 
 IMAGE = 16
 SHAPE = (IMAGE, IMAGE, 3)
+EMBED_ATOL = 2e-2  # bf16 embeddings, as the CLI's ViT serve test holds
 SMALL = dict(patch_size=4, hidden_dim=32, depth=2, num_heads=4, mlp_dim=64)
 
 
@@ -346,6 +347,71 @@ def test_cli_server_on_cpu_serves_embeddings():
                                    atol=2e-2)
     finally:
         server.close()
+
+
+def test_serve_defaults_to_resnet50_as_in_the_jax_cli():
+    from ntxent_tpu.cli import build_serve_parser as jax_serve_parser
+
+    args = cli.build_serve_parser().parse_args([])
+    assert args.model == jax_serve_parser().parse_args([]).model == \
+        "resnet50"
+    args.image_size = 224
+    model = cli.build_model(args)
+    assert type(model.backbone).__name__ == "ResNet"
+    assert model.backbone.hidden_dim == 2048
+    assert not model.backbone.small_images
+
+
+RESNET_SERVE_ARGV = ["--model", "tiny", "--image-size", "8", "--head",
+                     "embedding", "--buckets", "1,4", "--port", "0",
+                     "--proj-hidden-dim", "32", "--proj-dim", "16",
+                     "--device", "cpu"]
+
+
+def test_resnet_embed_over_http_matches_the_jax_serving_engine():
+    """``ntxent-serve --model tiny`` (a one-stage ResNet) on the flax
+    variables of the JAX CLI's same model, against the JAX serving
+    engine's embeddings: BatchNorm on the running statistics in both.
+    Both compute in bf16 -> EMBED tolerance 2e-2."""
+    from ntxent_tpu.cli import _make_encoder
+    from ntxent_tpu.serving import InferenceEngine as JaxEngine
+
+    jmodel = JaxSimCLR(encoder=_make_encoder("tiny", 8), proj_hidden_dim=32,
+                       proj_dim=16)
+    variables = jax.tree_util.tree_map(np.array, jax.device_get(
+        jmodel.init(jax.random.PRNGKey(4), jnp.zeros((1, 8, 8, 3)),
+                    train=False)))
+    stats = variables["batch_stats"]
+    rng = np.random.default_rng(5)
+    variables["batch_stats"] = jax.tree_util.tree_map(  # non-trivial stats
+        lambda v: (rng.uniform(0.5, 1.5, v.shape) if v.ndim and
+                   v.min() == 1 else rng.normal(0, 0.1, v.shape)
+                   ).astype(np.float32), stats)
+    x = rng.uniform(size=(3, 8, 8, 3)).astype(np.float32)
+    want = JaxEngine(lambda v, b: jmodel.apply(v, b, train=False),
+                     variables, (8, 8, 3), buckets=(1, 4)).embed(x)
+    args = cli.build_serve_parser().parse_args(RESNET_SERVE_ARGV)
+    server = cli.build_server(args)
+    load_flax_variables(server.engine.model, variables)
+    server.start()
+    try:
+        code, _, body = _post(f"http://127.0.0.1:{server.port}/embed",
+                              {"inputs": x.tolist()})
+    finally:
+        server.close()
+    assert code == 200 and body["rows"] == 3 and body["dim"] == 16
+    np.testing.assert_allclose(np.asarray(body["embeddings"]), want,
+                               rtol=0, atol=EMBED_ATOL)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--stem", "space_to_depth"], r"ROADMAP.md Queue A 6\(b\)"),
+    (["--ckpt-dir", "ckpt"], r"ROADMAP.md Queue A 7\(a\)"),
+    (["--vit-attention", "flash"], "ViT encoders only")])
+def test_resnet_serve_refuses_what_it_cannot_serve(flags, match):
+    args = cli.build_serve_parser().parse_args(RESNET_SERVE_ARGV + flags)
+    with pytest.raises(SystemExit, match=match):
+        cli.build_server(args)
 
 
 def test_bad_bucket_list_exits():

@@ -1,10 +1,10 @@
-"""Rank processes of ``test_torch_distributed.py`` and
-``test_torch_clip_dp.py``: worlds of gloo ranks on the CPU that meet over
-a ``FileStore``.
+"""Rank processes of ``test_torch_distributed.py``,
+``test_torch_clip_dp.py`` and ``test_torch_pair.py``: worlds of gloo
+ranks on the CPU that meet over a ``FileStore``.
 
 This module imports torch and the port, never JAX: each rank is a fresh
 interpreter that imports only what it unpickles (``run``, ``run_clip``,
-``run_cli`` and this module). Inputs come from an ``.npz`` the test wrote;
+``run_pair``, ``run_cli`` and this module). Inputs come from an ``.npz`` the test wrote;
 each rank writes its results to ``<out>/rank<r>.npz``. A rank's
 collectives give up after ``PG_TIMEOUT``, well inside the test's deadline
 for the whole world.
@@ -34,6 +34,7 @@ from ntxent_tpu_torch.parallel import (
     local_infonce_dual,
     mesh,
     ntxent_loss_distributed,
+    ntxent_loss_pair,
 )
 from ntxent_tpu_torch.training import (
     TrainerConfig,
@@ -93,9 +94,12 @@ def loss_job(rank: int, world: int, inp) -> dict:
             **_comms(mesh.comms_accounting().delta(mark), "loss_comms")}
 
 
-def step_job(rank: int, world: int, inp) -> dict:
+def _steps(rank: int, world: int, inp, loss_impl: str,
+           prefix: str = "") -> dict:
     """Train steps of the ``tiny`` SimCLR model (fp32) from the flax
-    variables of the input on this rank's rows of each step's views."""
+    variables of the input on this rank's rows of each step's views, with
+    the NT-Xent schedule ``loss_impl``; result keys start with
+    ``prefix``."""
     variables = {"params": nest(inp, "params"),
                  "batch_stats": nest(inp, "batch_stats")}
     proj = [int(x) for x in inp["proj"]]
@@ -105,7 +109,8 @@ def step_job(rank: int, world: int, inp) -> dict:
     cross_replica_batch_norm(model, torch.distributed.group.WORLD)
     cfg = _config(inp)
     state = create_train_state(model, cfg, torch.device("cpu"))
-    step = make_sharded_train_step(None, cfg.temperature)
+    step = make_sharded_train_step(None, cfg.temperature,
+                                   loss_impl=loss_impl)
     losses, delta = [], {}
     for v1, v2 in zip(inp["v1"], inp["v2"]):
         mark = mesh.comms_accounting().totals()
@@ -113,10 +118,40 @@ def step_job(rank: int, world: int, inp) -> dict:
                               _shard(v2, rank, world))
         delta = mesh.comms_accounting().delta(mark)
         losses.append(float(metrics["loss"]))
-    out = {"losses": np.array(losses), **_comms(delta, "step_comms")}
+    out = {f"{prefix}losses": np.array(losses),
+           **_comms(delta, f"{prefix}step_comms")}
     for name, t in state.model.state_dict().items():
-        out["state:" + name] = t.numpy()
+        out[f"{prefix}state:" + name] = t.numpy()
     return out
+
+
+def step_job(rank: int, world: int, inp) -> dict:
+    """Train steps of the ``tiny`` SimCLR model with the strip loss."""
+    return _steps(rank, world, inp, "strip")
+
+
+def pair_loss_job(rank: int, world: int, inp) -> dict:
+    """The pair-parallel loss of the global views z1, z2, the gradients of
+    this rank's shards and the loss's comms; and the strip loss of the
+    same views in the same world."""
+    z1 = _shard(inp["z1"], rank, world).requires_grad_()
+    z2 = _shard(inp["z2"], rank, world).requires_grad_()
+    t = float(inp["t"])
+    mark = mesh.comms_accounting().totals()
+    loss = ntxent_loss_pair(z1, z2, temperature=t)
+    loss.backward()
+    delta = mesh.comms_accounting().delta(mark)
+    strip = ntxent_loss_distributed(z1.detach(), z2.detach(), temperature=t)
+    return {"pair_loss": loss.detach().numpy(), "pair_g1": z1.grad.numpy(),
+            "pair_g2": z2.grad.numpy(), "strip_loss": strip.numpy(),
+            **_comms(delta, "pair_loss_comms")}
+
+
+def pair_steps_job(rank: int, world: int, inp) -> dict:
+    """Train steps of the ``tiny`` SimCLR model with the pair loss and,
+    from the same weights, with the strip loss."""
+    return {**_steps(rank, world, inp, "pair", "pair_"),
+            **_steps(rank, world, inp, "strip", "strip_")}
 
 
 def tiny_clip() -> CLIPModel:
@@ -208,6 +243,21 @@ def run_clip(rank: int, world: int, store: str, inputs: str, out: str,
     _join(store, rank, world)
     try:
         _run_jobs((clip_loss_job, clip_step_job), rank, world, inputs, out)
+        if cli_argv is not None and _train_main(rank, world, cli_argv, out):
+            sys.exit(1)
+    finally:
+        mesh.shutdown()
+
+
+def run_pair(rank: int, world: int, store: str, inputs: str, out: str,
+             steps: bool, cli_argv: list | None = None) -> None:
+    """One rank: join the world, run the pair loss (and, with ``steps``,
+    the pair and strip train steps), write the results, then, given
+    ``cli_argv``, run ``ntxent-train`` in the same world."""
+    _join(store, rank, world)
+    try:
+        jobs = (pair_loss_job, pair_steps_job) if steps else (pair_loss_job,)
+        _run_jobs(jobs, rank, world, inputs, out)
         if cli_argv is not None and _train_main(rank, world, cli_argv, out):
             sys.exit(1)
     finally:
