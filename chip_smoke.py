@@ -117,6 +117,40 @@ Phases; any failure ends the run with a non-zero exit and no result:
    of phase 11 plus ``--dp-loss pair`` in the same NCCL group: exactly
    1/1 launches per step of #7 and #8 and none of any other kernel; and
    in phase 12 the world-1 fp32 pair step against the world-1 strip step;
+12g. the carried-statistics fold kernel ``flash_fold`` (#12) against its
+   plain version: consecutive folds with a carried state at (BH, L, D) =
+   (8, 8192, 64) bf16 non-causal and causal with q_offset == k_offset,
+   (8, 4096, 128) fp32 causal with q_offset > k_offset (partly masked),
+   and a ragged (4, 1000, 64); after each, a block wholly after the rows
+   (q_offset < k_offset) whose carry must come out bit for bit, and a
+   control (the last block folded into a fresh carry must miss); at the
+   long-context path's hop (8, 32768, 64) and the P = 4 hop (8, 8192, 64)
+   against the plain version run in row chunks, and times beside the
+   bound, with the dQ and dK/dV kernels (#13, #14) there;
+12h. ring attention of P = 2, 4, 8 ranks emulated on one card at (B 1, L
+   8192, H 8, D 64), bf16 and fp32, causal and not: the flash ring against
+   the jnp ring and flash_attention of the whole sequence (out, dq, dk,
+   dv), exactly P folds (#12) per rank forward and P dQ and dK/dV hops
+   per rank backward, no forward kernel (#11);
+12i. the ring NT-Xent of P = 2, 4, 8 ranks emulated at 2N = 8192, D =
+   128 (``emulated_ring_ntxent``: the ring's per-hop ``lse_hop`` over #1
+   general, ``block_grads`` over #6) against ntxent_loss_fused, P
+   launches of each per rank;
+12j. the long-context path in the NCCL group of world 1:
+   ``LongContextTransformer`` (vocabulary 49408, hidden 512, depth 8, 8
+   heads, MLP 2048, max_len 32768, bf16) at B 1, L 32768 under
+   ``make_ring_attention(group, causal=True, impl="flash")``: three
+   forward and backward passes of the probe sum(out^2), host-clock timed,
+   each launching exactly 8/8/8 of #12/#13/#14 and nothing else, every
+   parameter's gradient finite; the output and gradients against the same
+   weights under ``flash_attention`` and under 4 emulated ring ranks; an
+   fp32 model at depth 2, L 1024 against the CPU;
+12k. in the same group: Ulysses attention at world 1 against
+   ``attention_oracle``, the flash ring with two transfer chunks against
+   one, ``make_ring_ntxent(group, impl="fused")`` and ``impl="auto"``
+   against ``ntxent_loss_fused`` (1/1/1 launches of #1 general and #6
+   rows and columns), and the ring InfoNCE (dual and twoblock) against
+   ``info_nce_fused``;
 13. one JSON line describing each kernel of the paths;
 14. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -339,6 +373,61 @@ TRI_LOSS_RTOL = 1e-5
 # Launches of one ntxent_loss_fused(..., triangular=True) forward and
 # backward: #2 and #3 once each, nothing else.
 TRI_LAUNCHES = {"ntxent_fwd_tri": 1, "ntxent_bwd_tri": 1}
+
+# The long-context slice. Fold kernel (#12) cases: (name, (BH, Lq, Lk,
+# D), dtype, causal, q_offset, k_offsets of consecutive folds). Against
+# the plain version: m, the same fp32 maxima of exact products -> 1e-4;
+# l, the same fp32 terms summed in another order -> 1e-4 relative; acc /
+# l (the attention output) as |a - b| / |b| over the whole tensor, the
+# emulated rings' RING_RTOL: fp32 summation order -> 1e-5; bf16, p
+# rounded to bf16 (2**-8 relative) at the running max of a 64-key tile
+# where the plain version folds the block in one step -> 1e-2. A relative
+# norm and not an absolute limit, since a typical |acc / l| over 8192
+# randn keys is about 0.01. The control: a fold that dropped the carry
+# must miss by more than that.
+FOLD_CASES = [
+    ("noncausal_bf16", (8, 8192, 8192, 64), "bfloat16", False, 0, (0, 8192)),
+    ("partly_masked_fp32", (8, 4096, 4096, 128), "float32", True, 6144,
+     (0, 4096)),
+    ("diagonal_bf16", (8, 8192, 8192, 64), "bfloat16", True, 8192,
+     (0, 8192)),
+    ("ragged_bf16", (4, 1000, 1000, 64), "bfloat16", True, 1000, (0, 1000)),
+]
+FOLD_M_ATOL, FOLD_L_RTOL = 1e-4, 1e-4
+FOLD_O_RTOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# The plain fold at the path's hop runs in row chunks: the whole (8,
+# 32768, 32768) fp32 score matrix would not fit on the card.
+FOLD_PLAIN_CHUNKS = 8
+# The path: batch 1 x 8 heads of 64 at L = 32768 (the tower's max_len).
+LONGCTX_BATCH, LONGCTX_LEN, LONGCTX_BH, LONGCTX_HEAD_DIM = 1, 32768, 8, 64
+LONGCTX_PASSES = 3
+# One forward and backward at world 1: per block one fold, one dQ and one
+# dK/dV hop; nothing else.
+LONGCTX_LAUNCHES = {"flash_fold": 8, "flash_attention_dq": 8,
+                    "flash_attention_dkv": 8}
+# The same bf16 weights under another plan: each block's attention output
+# may differ by a bf16 rounding of p at another running maximum (2**-8
+# relative at most per element); over 8 blocks the gaps add up to
+# 8 * 2**-8 -> 3e-2 relative on the output, twice that (6e-2) on the
+# gradient vector, which goes through the blocks twice. The fp32 model
+# against the CPU: the train parity tolerances (PARITY_LOSS_ATOL on the
+# output, PARITY_GRAD_RTOL).
+LONGCTX_OUT_RTOL, LONGCTX_GRAD_RTOL = 3e-2, 6e-2
+LONGCTX_PARITY_LEN = 1024
+# Emulated rings: (B, L, H, D), the rank counts, and the largest relative
+# error |a - b| / |b| of out, dq, dk, dv against flash_attention of the
+# whole sequence and against the jnp ring: fp32 summation order -> 1e-5;
+# bf16, p rounded at other running maxima and ds at other lse roundings
+# -> 1e-2.
+RING_SHAPE = dict(b=1, l=8192, h=8, d=64)
+RING_WORLDS = (2, 4, 8)
+RING_RTOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# The ring NT-Xent's global batch and the ring InfoNCE's pairs; the
+# kernels a fused ring NT-Xent launches once a hop per rank.
+RING_NTX_2N = 8192
+RING_NTX_KERNELS = ("ntxent_fwd_general", "ntxent_bwd_general_rows",
+                    "ntxent_bwd_general_cols")
+RING_INFONCE_N = 1024
 
 SERVE_ARGV = ["--model", "vit_b16", "--vit-attention", "flash",
               "--image-size", "224", "--head", "embedding",
@@ -2090,6 +2179,577 @@ def phase_tri_kernels() -> tuple[list[dict], dict]:
     return out, launches
 
 
+def _rel(a, b) -> float:
+    """|a - b| / |b| over whole tensors, in fp32."""
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _fold_bound(bh, lq, lk, d, itemsize, pairs, peak):
+    """#12's bound: q, k, v read once, (m, l, acc) read and written once;
+    4 D operations (q.k and p.v) per live (query, key) pair."""
+    moved = (bh * lq * d + 2 * bh * lk * d) * itemsize \
+        + 2 * (2 * bh * lq * 4 + bh * lq * d * 4)
+    return _bound(moved, 4 * d * bh * pairs, peak)
+
+
+def _causal_pairs(lq, lk, q_off, k_off) -> int:
+    """Live (query, key) pairs of a causal block: key position <= query
+    position."""
+    import numpy as np
+
+    qpos = q_off + np.arange(lq)
+    return int(np.clip(qpos - k_off + 1, 0, lk).sum())
+
+
+def _fold_carry(bh, lq, d):
+    import torch
+
+    return (torch.full((bh, lq), -1e30, device="cuda"),
+            torch.zeros(bh, lq, device="cuda"),
+            torch.zeros(bh, lq, d, device="cuda"))
+
+
+def _fold_errors(got, want) -> tuple[float, float, float, float]:
+    """(m max|err|, l max relative error, acc / l relative error over the
+    whole tensor, acc / l max|err|) of a fold against its plain version;
+    every row has seen a key, so l > 0."""
+    o_got = got[2] / got[1][..., None]
+    o_want = want[2] / want[1][..., None]
+    return ((got[0] - want[0]).abs().max().item(),
+            ((got[1] - want[1]).abs() / want[1]).max().item(),
+            _rel(o_got, o_want), (o_got - o_want).abs().max().item())
+
+
+def _fold_ok(errs, dtype) -> bool:
+    return (errs[0] <= FOLD_M_ATOL and errs[1] <= FOLD_L_RTOL
+            and errs[2] <= FOLD_O_RTOL[dtype])
+
+
+def _fold_report(errs, dtype) -> str:
+    return (f"m max|err| {errs[0]:.2e} (atol {FOLD_M_ATOL:g}), l max rel "
+            f"err {errs[1]:.2e} (rtol {FOLD_L_RTOL:g}), acc/l |a - b| / |b| "
+            f"{errs[2]:.2e} (rtol {FOLD_O_RTOL[dtype]:g}), acc/l max|err| "
+            f"{errs[3]:.2e}")
+
+
+def _flat_qkv(bh, lq, lk, d, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return tuple(torch.randn(bh, n, d, generator=gen, device="cuda").to(dt)
+                 for n in (lq, lk, lk))
+
+
+def phase_fold_kernel() -> tuple[dict, dict]:
+    """flash_fold (#12) against flash_fold_plain: consecutive folds with a
+    carried state at every case's offsets, then a block wholly after the
+    rows, whose carry must come out bit for bit, and the control (the
+    plain fold of the last block from a fresh carry must miss); then at
+    the long-context path's world-1 hop and at the P = 4 hop, the kernel
+    against the plain version (run in row chunks), its time beside its
+    bound and the plain version's; the dQ and dK/dV kernels (#13, #14) at
+    the same hops. Returns #12's entry and the ring times of #13/#14."""
+    import torch
+
+    from ntxent_tpu_torch.ops import attention as A
+    from ntxent_tpu_torch.utils.capability import set_fp32_precision
+    from ntxent_tpu_torch.utils.profiling import cuda_time_ms
+
+    set_fp32_precision()
+    for i, (name, (bh, lq, lk, d), dtype, causal, q_off, k_offs) in \
+            enumerate(FOLD_CASES):
+        q, _, _ = _flat_qkv(bh, lq, lk, d, dtype, 500 + i)
+        carry = want = _fold_carry(bh, lq, d)
+        errs = (0.0, 0.0, 0.0, 0.0)
+        for j, k_off in enumerate(k_offs):
+            _, k, v = _flat_qkv(bh, lq, lk, d, dtype, 600 + 10 * i + j)
+            kw = dict(q_offset=q_off, k_offset=k_off, causal=causal)
+            carry = A.flash_fold(q, k, v, *carry, **kw)
+            want = A.flash_fold_plain(q, k, v, *want, **kw)
+            torch.cuda.synchronize()
+            errs = tuple(map(max, errs, _fold_errors(carry, want)))
+        # the control: the last block folded into a fresh carry
+        control = _fold_errors(carry, A.flash_fold_plain(
+            q, k, v, *_fold_carry(bh, lq, d), **kw))[2]
+        after = A.flash_fold(q, k, v, *carry, q_offset=q_off,
+                             k_offset=q_off + lq, causal=True)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(after, carry))
+        ok = (_fold_ok(errs, dtype) and bitwise
+              and control > FOLD_O_RTOL[dtype])
+        print(f"[fold-kernel] {name} (BH={bh}, Lq={lq}, Lk={lk}, D={d}, "
+              f"{dtype}, {'causal' if causal else 'full'}, q_offset "
+              f"{q_off}, k_offsets {list(k_offs)}): "
+              f"{_fold_report(errs, dtype)}; a fold that dropped the carry "
+              f"would miss by {control:.2e}; a hop wholly in the rows' "
+              f"future leaves the carry bit for bit: {bitwise} "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"flash_fold disagrees with its plain version in case "
+                 f"{name}")
+        del q, k, v, carry, want, after
+
+    times = {}
+    for label, length in (("path", LONGCTX_LEN), ("p4_hop", LONGCTX_LEN // 4)):
+        bh, d = LONGCTX_BH, LONGCTX_HEAD_DIM
+        q, k, v = _flat_qkv(bh, length, length, d, "bfloat16", 700)
+        carry = _fold_carry(bh, length, d)
+        kw = dict(q_offset=0, k_offset=0, causal=True)
+        got = A.flash_fold(q, k, v, *carry, **kw)
+        ms = cuda_time_ms(lambda: A.flash_fold(q, k, v, *carry, **kw),
+                          runs=5, warmup=1)
+        rows = length // FOLD_PLAIN_CHUNKS
+
+        def plain():  # the same work in row chunks that fit the card
+            parts = [A.flash_fold_plain(
+                q[:, sl], k, v, carry[0][:, sl], carry[1][:, sl],
+                carry[2][:, sl], q_offset=c * rows, k_offset=0, causal=True)
+                for c, sl in ((c, slice(c * rows, (c + 1) * rows))
+                              for c in range(FOLD_PLAIN_CHUNKS))]
+            return tuple(torch.cat(t, dim=1) for t in zip(*parts))
+
+        want = plain()
+        plain_ms = cuda_time_ms(plain, runs=1, warmup=0)
+        errs = _fold_errors(got, want)
+        ok = _fold_ok(errs, "bfloat16")
+        del got, want
+        pairs = _causal_pairs(length, length, 0, 0)
+        bound = _fold_bound(bh, length, length, d, 2, pairs, PEAK_BF16_FLOPS)
+        do = _flat_qkv(bh, length, length, d, "bfloat16", 701)[0]
+        lse = torch.zeros(bh, length, device="cuda")
+        delta = torch.zeros(bh, length, device="cuda")
+        dq_ms = cuda_time_ms(lambda: A.flash_attention_dq(
+            q, k, v, do, lse, delta, **kw), runs=3, warmup=1)
+        dkv_ms = cuda_time_ms(lambda: A.flash_attention_dkv(
+            q, k, v, do, lse, delta, **kw), runs=3, warmup=1)
+        inputs = 4 * bh * length * d * 2 + 2 * bh * length * 4
+        dq_bound = _bound(inputs + bh * length * d * 4,
+                          3 * 2 * d * bh * pairs, PEAK_BF16_FLOPS)
+        dkv_bound = _bound(inputs + 2 * bh * length * d * 4,
+                           4 * 2 * d * bh * pairs, PEAK_BF16_FLOPS)
+        print(f"[fold-kernel] {label} hop (BH={bh}, L={length}, D={d}, bf16, "
+              f"causal, q_offset = k_offset = 0): against the plain version "
+              f"{_fold_report(errs, 'bfloat16')} {'ok' if ok else 'MISMATCH'}"
+              f"; flash_fold {ms:.4f} ms (plain {plain_ms:.4f} ms in "
+              f"{FOLD_PLAIN_CHUNKS} row chunks, bound {bound[0]:.4f} by "
+              f"{bound[1]}; no single PyTorch call folds into a carried "
+              f"state); flash_attention_dq {dq_ms:.4f} ms (bound "
+              f"{dq_bound[0]:.4f}), flash_attention_dkv {dkv_ms:.4f} ms "
+              f"(bound {dkv_bound[0]:.4f})", flush=True)
+        if not ok:
+            fail(f"flash_fold disagrees with its plain version at the "
+                 f"{label} hop")
+        times[label] = dict(ms=ms, plain_ms=plain_ms, bound=bound,
+                            err=errs[3], dq=(dq_ms, dq_bound),
+                            dkv=(dkv_ms, dkv_bound))
+        del q, k, v, do, carry
+        torch.cuda.empty_cache()
+    path, p4 = times["path"], times["p4_hop"]
+    entry = {"name": "flash_fold", "route": "cuda",
+             "source": "ntxent_tpu_torch/csrc/flash_attention_fold.cu",
+             "replaces": "ntxent_tpu/ops/attention_pallas.py:217 "
+                         "(_fold_kernel, flash_fold :261)",
+             "checked": True, "launches": None, "max_abs_err": path["err"],
+             "ms": path["ms"], "plain_ms": path["plain_ms"],
+             "bound_ms": path["bound"][0], "bound_by": path["bound"][1],
+             "library_ms": None, "p4_hop_ms": p4["ms"],
+             "p4_hop_plain_ms": p4["plain_ms"],
+             "p4_hop_bound_ms": p4["bound"][0]}
+    ring = {name: {"longctx_hop_ms": path[key][0],
+                   "longctx_hop_bound_ms": path[key][1][0],
+                   "p4_hop_ms": p4[key][0],
+                   "p4_hop_bound_ms": p4[key][1][0]}
+            for name, key in (("flash_attention_dq", "dq"),
+                              ("flash_attention_dkv", "dkv"))}
+    return entry, ring
+
+
+def _attention_grads(fn, q, k, v, do):
+    """(out, dq, dk, dv) of ``fn`` for the cotangent ``do``."""
+    import torch
+
+    out = fn(q, k, v)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), do))
+
+
+def phase_emulated_rings() -> None:
+    """Ring attention of P = 2, 4, 8 ranks emulated on one card at (B 1,
+    L 8192, H 8, D 64), bf16 and fp32, causal and not: the flash ring
+    (#12 forward, #13/#14 backward) against the jnp ring and against
+    flash_attention on the whole sequence, out, dq, dk and dv; exactly P
+    folds per rank forward and P dQ and dK/dV hops per rank backward, no
+    forward kernel (#11)."""
+    import torch
+
+    from ntxent_tpu_torch.ops.attention import flash_attention
+    from ntxent_tpu_torch.utils.capability import set_fp32_precision
+    from ntxent_tpu_torch.utils.profiling import (
+        emulated_ring_attention,
+        launch_counters,
+    )
+
+    set_fp32_precision()
+    counters = launch_counters()
+    s = RING_SHAPE
+    for dtype in ("bfloat16", "float32"):
+        for causal in (False, True):
+            gen = torch.Generator(device="cuda").manual_seed(800)
+            q, k, v, do = (torch.randn(s["b"], s["l"], s["h"], s["d"],
+                                       generator=gen, device="cuda")
+                           .to(getattr(torch, dtype)) for _ in range(4))
+            for t in (q, k, v):
+                t.requires_grad_()
+            ref = _attention_grads(
+                lambda a, b, c: flash_attention(a, b, c, causal=causal),
+                q, k, v, do)
+            for p in RING_WORLDS:
+                for wrapper in counters.values():
+                    wrapper.launches = 0
+                out = emulated_ring_attention(p, causal=causal)(q, k, v)
+                fwd = {n: w.launches for n, w in counters.items()}
+                grads = torch.autograd.grad(out, (q, k, v), do)
+                torch.cuda.synchronize()
+                both = {n: w.launches for n, w in counters.items()}
+                flash = (out.detach(), *grads)
+                jnp = _attention_grads(
+                    emulated_ring_attention(p, causal=causal, impl="jnp"),
+                    q, k, v, do)
+                want_fwd = {n: p * p if n == "flash_fold" else 0
+                            for n in counters}
+                want_both = {n: p * p if n in ("flash_fold",
+                                               "flash_attention_dq",
+                                               "flash_attention_dkv") else 0
+                             for n in counters}
+                err_ref = max(_rel(a, b) for a, b in zip(flash, ref))
+                err_jnp = max(_rel(a, b) for a, b in zip(flash, jnp))
+                tol = RING_RTOL[dtype]
+                ok = (fwd == want_fwd and both == want_both
+                      and err_ref <= tol and err_jnp <= tol)
+                print(f"[ring] P = {p} ranks emulated, (B={s['b']}, "
+                      f"L={s['l']}, H={s['h']}, D={s['d']}) {dtype} "
+                      f"{'causal' if causal else 'full'}: flash ring vs "
+                      f"flash_attention of the whole sequence "
+                      f"{err_ref:.2e}, vs the jnp ring {err_jnp:.2e} (the "
+                      f"largest relative error of out, dq, dk, dv; rtol "
+                      f"{tol:g}); launches forward "
+                      f"{ {n: c for n, c in fwd.items() if c} }, forward "
+                      f"and backward { {n: c for n, c in both.items() if c} }"
+                      f" ({p} a rank each) {'ok' if ok else 'MISMATCH'}",
+                      flush=True)
+                if not ok:
+                    fail(f"the emulated ring of {p} ranks ({dtype}, causal "
+                         f"{causal}) disagrees or launched {both}")
+                del out, grads, flash, jnp
+            del q, k, v, do, ref
+    torch.cuda.empty_cache()
+
+
+def _set_attention(model, fn) -> None:
+    model.attention_fn = fn
+    for block in model.blocks:
+        block.attn.attention_fn = fn
+
+
+def _long_context_pass(model, tokens):
+    """(output, every parameter's gradient) of one forward and backward of
+    the probe sum(out^2)."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    out = model(tokens)
+    out.float().pow(2).sum().backward()
+    torch.cuda.synchronize()
+    return out.detach(), [p.grad for p in model.parameters()]
+
+
+def phase_long_context(card_line: str) -> dict:
+    """The long-context path at full width over the NCCL group of world 1:
+    three forward and backward passes of LongContextTransformer under
+    make_ring_attention(group, causal=True, impl="flash"), each launching
+    exactly 8/8/8 of #12/#13/#14 and nothing else; every parameter's
+    gradient finite; the output and gradients against the same weights
+    under flash_attention and under 4 emulated ring ranks; then an fp32
+    model at depth 2, L = 1024 against the CPU. Returns the launches of
+    one pass."""
+    import copy
+    from functools import partial
+
+    import torch
+
+    from ntxent_tpu_torch.ops.attention import flash_attention
+    from ntxent_tpu_torch.parallel import make_ring_attention
+    from ntxent_tpu_torch.utils.capability import set_fp32_precision
+    from ntxent_tpu_torch.utils.profiling import (
+        build_long_context,
+        emulated_ring_attention,
+        launch_counters,
+        long_context_tokens,
+    )
+
+    set_fp32_precision()
+    torch.cuda.empty_cache()
+    plan = make_ring_attention(torch.distributed.group.WORLD, causal=True,
+                               impl="flash")
+    model = build_long_context("cuda", plan)
+    tokens = long_context_tokens("cuda", LONGCTX_LEN, LONGCTX_BATCH)
+    counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(LONGCTX_PASSES):
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        out, grads = _long_context_pass(model, tokens)
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = {name: w.launches for name, w in counters.items()}
+        want = {n: LONGCTX_LAUNCHES.get(n, 0) for n in counters}
+        if launches != want:
+            fail(f"a long-context pass launched {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    names = [n for n, _ in model.named_parameters()]
+    bad = [n for n, g in zip(names, grads)
+           if g is None or not torch.isfinite(g).all()]
+    if bad or not torch.isfinite(out).all() or out.shape != (
+            LONGCTX_BATCH, LONGCTX_LEN, 512):
+        fail(f"long-context output {tuple(out.shape)} finite "
+             f"{bool(torch.isfinite(out).all())}; parameters without a "
+             f"finite gradient: {bad}")
+    grads = torch.cat([g.reshape(-1) for g in grads])
+    print(f"[longctx] LongContextTransformer (vocab 49408, 512/8/8/2048, "
+          f"max_len 32768, bf16) B={LONGCTX_BATCH}, L={LONGCTX_LEN}, causal "
+          f"ring attention (flash) over the NCCL group of world 1: "
+          f"{LONGCTX_PASSES} forward + backward passes "
+          f"{[round(t, 1) for t in times]} ms (host clock, synchronized); "
+          f"{LONGCTX_BATCH * LONGCTX_LEN / (min(times[1:]) / 1e3):.0f} "
+          f"tokens/s at the fastest later pass; launches per pass "
+          f"{ {n: c for n, c in launches.items() if c} } (every other "
+          f"kernel 0); every parameter has a finite gradient; peak memory "
+          f"{peak / 2**30:.2f} GiB on {card_line}", flush=True)
+    for label, fn in (("flash_attention", partial(flash_attention,
+                                                  causal=True)),
+                      ("4 emulated ring ranks",
+                       emulated_ring_attention(4, causal=True))):
+        _set_attention(model, fn)
+        out_b, grads_b = _long_context_pass(model, tokens)
+        grads_b = torch.cat([g.reshape(-1) for g in grads_b])
+        out_err, grad_err = _rel(out, out_b), _rel(grads, grads_b)
+        ok = out_err <= LONGCTX_OUT_RTOL and grad_err <= LONGCTX_GRAD_RTOL
+        print(f"[longctx] the same weights under {label}: output "
+              f"|a - b| / |b| {out_err:.2e} (rtol {LONGCTX_OUT_RTOL:g}), "
+              f"gradient {grad_err:.2e} (rtol {LONGCTX_GRAD_RTOL:g}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the ring plan disagrees with {label}")
+        del out_b, grads_b
+    del model, out, grads
+    torch.cuda.empty_cache()
+
+    # fp32 at depth 2, L = 1024: the card against the CPU
+    model = build_long_context("cuda", plan, depth=2, dtype=torch.float32)
+    cpu = copy.deepcopy(model).cpu()
+    short = tokens[:, :LONGCTX_PARITY_LEN]
+    out, grads = _long_context_pass(model, short)
+    out_c, grads_c = _long_context_pass(cpu, short.cpu())
+    out_err = (out.cpu() - out_c).abs().max().item()
+    grad_err = _rel(torch.cat([g.reshape(-1).cpu() for g in grads]),
+                    torch.cat([g.reshape(-1) for g in grads_c]))
+    ok = out_err <= PARITY_LOSS_ATOL and grad_err <= PARITY_GRAD_RTOL
+    print(f"[longctx] fp32, depth 2, L = {LONGCTX_PARITY_LEN}: card vs CPU "
+          f"output max|err| {out_err:.2e} (atol {PARITY_LOSS_ATOL:g}), "
+          f"gradient |g_card - g_cpu| / |g_cpu| {grad_err:.2e} (rtol "
+          f"{PARITY_GRAD_RTOL:g}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the fp32 long-context model on the card disagrees with the CPU")
+    del model, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ntxent_grad(fn, z) -> tuple:
+    """(loss, gradient of z) of ``fn(z1, z2)`` on the stacked views z =
+    [z1; z2]."""
+    import torch
+
+    zr = z.clone().requires_grad_()
+    n = z.shape[0] // 2
+    loss = fn(zr[:n], zr[n:])
+    grad, = torch.autograd.grad(loss, zr)
+    return loss.item(), grad
+
+
+def _fused_ntxent(t):
+    """ntxent_loss_fused of the views (z1, z2), the one-card reference."""
+    import torch
+
+    from ntxent_tpu_torch.ops.ntxent import ntxent_loss_fused
+
+    return lambda z1, z2: ntxent_loss_fused(torch.cat([z1, z2]), t)
+
+
+def phase_world1_plans() -> None:
+    """At world 1 over the NCCL group: Ulysses attention equals
+    attention_oracle (its all-to-alls are the identity), and the flash ring
+    with transfer_chunks=2 gives the same output and gradients as with one
+    chunk, bit for bit; the ring NT-Xent's entry point, impl "fused" and
+    "auto", equals ntxent_loss_fused in loss and gradient and launches #1
+    general and #6 rows and columns once each."""
+    import torch
+
+    from ntxent_tpu_torch.parallel import (
+        attention_oracle,
+        make_ring_attention,
+        make_ring_ntxent,
+        make_ulysses_attention,
+    )
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    group = torch.distributed.group.WORLD
+    s = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(900)
+    q, k, v, do = (torch.randn(s["b"], s["l"], s["h"], s["d"], generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_()
+    uly = _attention_grads(make_ulysses_attention(group, causal=True),
+                           q, k, v, do)
+    ref = _attention_grads(lambda a, b, c: attention_oracle(a, b, c,
+                                                            causal=True),
+                           q, k, v, do)
+    uly_ok = all(torch.equal(a, b) for a, b in zip(uly, ref))
+    one, two = (_attention_grads(make_ring_attention(
+        group, causal=True, impl="flash", transfer_chunks=c), q, k, v, do)
+        for c in (1, 2))
+    chunks_ok = all(torch.equal(a, b) for a, b in zip(one, two))
+    print(f"[world1] Ulysses at world 1 equals attention_oracle (out, dq, "
+          f"dk, dv; {s}, bf16, causal) bit for bit: {uly_ok}; the flash "
+          f"ring with transfer_chunks=2 equals one chunk bit for bit: "
+          f"{chunks_ok}", flush=True)
+    if not (uly_ok and chunks_ok):
+        fail("Ulysses or the chunked ring disagrees at world 1")
+    del q, k, v, do, uly, ref, one, two
+
+    t = NTX_TEMPERATURE
+    z = _unit_rows(RING_NTX_2N, 128, "float32", seed=32)
+    ref_loss, ref_grad = _ntxent_grad(_fused_ntxent(t), z)
+    counters = launch_counters()
+    for impl in ("fused", "auto"):
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        loss, grad = _ntxent_grad(make_ring_ntxent(group, t, impl=impl), z)
+        launches = {name: w.launches for name, w in counters.items()}
+        want = {n: 1 if n in RING_NTX_KERNELS else 0 for n in counters}
+        loss_err, grad_err = abs(loss - ref_loss), _rel(grad, ref_grad)
+        ok = (loss_err <= EMULATED_LOSS_ATOL
+              and grad_err <= EMULATED_GRAD_RTOL and launches == want)
+        print(f"[world1] make_ring_ntxent(group, {t}, impl={impl!r}) at "
+              f"world 1 (2N = {RING_NTX_2N}, D = 128, fp32): loss "
+              f"{loss:.6f} vs ntxent_loss_fused {ref_loss:.6f} (|err| "
+              f"{loss_err:.2e}, atol {EMULATED_LOSS_ATOL:g}); gradient "
+              f"{grad_err:.2e} relative (rtol {EMULATED_GRAD_RTOL:g}); "
+              f"launches { {n: c for n, c in launches.items() if c} } "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the ring NT-Xent ({impl}) at world 1 disagrees or "
+                 f"launched {launches}")
+
+
+def phase_ring_ntxent_emulated() -> dict:
+    """The fused ring NT-Xent of P = 2, 4, 8 ranks emulated on one card at
+    global 2N = 8192, D = 128 (``emulated_ring_ntxent``: each rank's hops
+    through the ring's own ``lse_hop`` with block_lse (#1 general), its
+    second pass with block_grads (#6 rows and columns), the column
+    gradients carried to their block's rank); against ntxent_loss_fused
+    and its gradient. Returns the kernels' times at the P = 4 hop."""
+    from ntxent_tpu_torch.ops import ntxent as N
+    from ntxent_tpu_torch.parallel.mesh import local_row_gids
+    from ntxent_tpu_torch.utils.profiling import (
+        cuda_time_ms,
+        emulated_ring_ntxent,
+        launch_counters,
+    )
+
+    t, d = NTX_TEMPERATURE, 128
+    two_n = RING_NTX_2N
+    z = _unit_rows(two_n, d, "float32", seed=31)  # [view 1; view 2]
+    ref_loss, ref_grad = _ntxent_grad(_fused_ntxent(t), z)
+    counters = launch_counters()
+    for p in RING_WORLDS:
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        loss, grad = _ntxent_grad(emulated_ring_ntxent(p, t), z)
+        launches = {name: w.launches for name, w in counters.items()}
+        loss_err = abs(loss - ref_loss)
+        grad_err = _rel(grad, ref_grad)
+        want = {n_: p * p if n_ in RING_NTX_KERNELS else 0
+                for n_ in counters}
+        ok = (loss_err <= EMULATED_LOSS_ATOL
+              and grad_err <= EMULATED_GRAD_RTOL and launches == want)
+        print(f"[ring-ntxent] P = {p} ranks emulated (2N = {two_n}, D = {d}, "
+              f"fused: block_lse / block_grads): loss {loss:.6f} vs "
+              f"ntxent_loss_fused {ref_loss:.6f} (|err| {loss_err:.2e}, "
+              f"atol {EMULATED_LOSS_ATOL:g}); gradient {grad_err:.2e} "
+              f"relative (rtol {EMULATED_GRAD_RTOL:g}); launches "
+              f"{ {k: c for k, c in launches.items() if c} } ({p} a rank "
+              f"each) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the emulated ring NT-Xent of {p} ranks disagrees or "
+                 f"launched {launches}")
+    # the P = 4 hop: 2n = 2048 rows against a 2048-column block
+    n = two_n // 2 // 4
+    gid0, gid1 = (local_row_gids(r, n, 4, z.device) for r in (0, 1))
+    z0, z1 = z[gid0.long()], z[gid1.long()]
+    lse0 = N.block_lse(z0, z1, gid0, gid1, t, two_n)
+    lse_ms = cuda_time_ms(lambda: N.block_lse(z0, z1, gid0, gid1, t, two_n))
+    grads_ms = cuda_time_ms(lambda: N.block_grads(z0, z1, gid0, gid1, lse0,
+                                                  t, two_n))
+    print(f"[ring-ntxent] the P = 4 hop (2048 rows x 2048 columns, D = {d}, "
+          f"fp32): block_lse (#1 general) {lse_ms:.4f} ms, block_grads (#6 "
+          f"rows + columns) {grads_ms:.4f} ms", flush=True)
+    return {"ntxent_fwd_general": {"ring_hop_ms": lse_ms},
+            "ntxent_bwd_general_rows": {"ring_hop_rows_and_cols_ms":
+                                        grads_ms}}
+
+
+def phase_ring_infonce() -> None:
+    """The ring InfoNCE, dual and twoblock, at world 1 over the NCCL group
+    against the port's dual InfoNCE (info_nce_fused, #9/#10) on the same
+    pairs and a learnable scale: loss and the gradients of both
+    embeddings and of the scale."""
+    import torch
+
+    from ntxent_tpu_torch.ops.infonce import info_nce_fused
+    from ntxent_tpu_torch.parallel import make_ring_infonce
+
+    group = torch.distributed.group.WORLD
+    za, zb = (_unit_rows(RING_INFONCE_N, 512, "float32", seed=s)
+              for s in (41, 42))
+
+    def loss_and_grads(fn):
+        a, b = za.clone().requires_grad_(), zb.clone().requires_grad_()
+        scale = torch.tensor(DP_CLIP_SCALE, device="cuda",
+                             requires_grad=True)
+        loss = fn(a, b, scale)
+        return (loss.detach(), *torch.autograd.grad(loss, (a, b, scale)))
+
+    ref = loss_and_grads(lambda a, b, s: info_nce_fused(a, b, scale=s))
+    for impl in ("dual", "twoblock"):
+        got = loss_and_grads(make_ring_infonce(group, impl=impl))
+        loss_err = abs(got[0].item() - ref[0].item())
+        grad_err = max(_rel(g, w) for g, w in zip(got[1:], ref[1:]))
+        ok = (loss_err <= EMULATED_LOSS_ATOL
+              and grad_err <= EMULATED_GRAD_RTOL)
+        print(f"[ring-infonce] {impl} ring at world 1 (N = {RING_INFONCE_N}, "
+              f"D = 512, scale {DP_CLIP_SCALE:.4f}): loss {got[0].item():.6f}"
+              f" vs info_nce_fused {ref[0].item():.6f} (|err| "
+              f"{loss_err:.2e}); gradients of za, zb and the scale "
+              f"{grad_err:.2e} relative (rtol {EMULATED_GRAD_RTOL:g}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the {impl} ring InfoNCE disagrees with info_nce_fused")
+
+
 def main() -> int:
     import torch
 
@@ -2103,14 +2763,17 @@ def main() -> int:
     phase_build()
     dp_clip_kernels, sym_retimed_ms = phase_dp_clip_kernels()
     tri_kernels, tri_launches = phase_tri_kernels()
+    fold_kernel, ring_times = phase_fold_kernel()
     kernels = [phase_kernels(), *phase_ntxent_kernels(),
                *phase_flash_backward(), *phase_infonce_kernels(),
                *phase_general_kernels(), *dp_clip_kernels,
-               *phase_pair_kernels(), *tri_kernels]
+               *phase_pair_kernels(), *tri_kernels, fold_kernel]
     kernels[1]["retimed_ms"] = sym_retimed_ms
     phase_emulated_ranks()
     phase_dp_clip_emulated_ranks()
     phase_pair_emulated_ranks()
+    phase_emulated_rings()
+    ring_times |= phase_ring_ntxent_emulated()
     serve_launches = phase_serve(smi)
     train_launches = phase_train(smi)
     phase_step_parity()
@@ -2127,10 +2790,13 @@ def main() -> int:
             phase_dp_parity()
             clip_dp_launches = phase_clip_dp_train(smi)
             phase_clip_dp_parity()
+            longctx_launches = phase_long_context(smi)
+            phase_world1_plans()
+            phase_ring_infonce()
         finally:
             mesh.shutdown()
     paths = (train_launches, clip_launches, dp_launches, clip_dp_launches,
-             dp_pair_launches, tri_launches)
+             dp_pair_launches, tri_launches, longctx_launches)
     for kernel in kernels:
         # launches on the path that runs the kernel (SimCLR for the
         # symmetric NT-Xent and flash kernels, CLIP for the square InfoNCE
@@ -2138,7 +2804,8 @@ def main() -> int:
         # kernels, the data-parallel CLIP for the rectangular InfoNCE
         # kernels, the data-parallel ResNet-50 with --dp-loss pair for the
         # shard-pair kernels, one triangular loss's forward and backward
-        # for the triangular kernels), and on each path but SimCLR's
+        # for the triangular kernels, one long-context forward and backward
+        # for the fold kernel), and on each path but SimCLR's
         wrapper = kernel["name"]
         kernel["launches"] = next((path[wrapper] for path in paths
                                    if path[wrapper]), 0)
@@ -2147,6 +2814,8 @@ def main() -> int:
         kernel["clip_dp_launches"] = clip_dp_launches[wrapper]
         kernel["dp_pair_launches"] = dp_pair_launches[wrapper]
         kernel["tri_launches"] = tri_launches[wrapper]
+        kernel["longctx_launches"] = longctx_launches[wrapper]
+        kernel |= ring_times.get(wrapper, {})
     kernels[0]["serve_launches"] = serve_launches
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -33,6 +33,12 @@ Ported so far:
   the dual shard-pair kernels, and the triangular symmetric loss
   (``ntxent_loss_fused(triangular=True)``) over the upper-triangle
   forward and backward kernels;
+* long-context attention (``models.LongContextTransformer``) under
+  sequence-parallel ring attention (``parallel.make_ring_attention``:
+  the carried-statistics fold kernel a hop forward, the flash dQ and
+  dK/dV kernels a hop backward) or Ulysses all-to-all attention, and the
+  ring NT-Xent (over the general NT-Xent kernels) and ring InfoNCE
+  (``parallel.ring``);
 * the loss oracles (``ops.oracle``), the reference-compatible API
   (``api``) and the JAX package's thirteen top-level names, exported
   here as they are there; ``losses.NTXentLoss`` is the loss as an
@@ -62,4 +68,4 @@ __all__ = ["__version__", "backward", "check_tensor_core_support",
            "ntxent", "ntxent_loss", "ntxent_loss_and_lse",
            "ntxent_loss_compat", "ntxent_loss_fused", "ntxent_loss_paired",
            "ntxent_partial_fused"]
-__version__ = "0.6.0"
+__version__ = "0.7.0"

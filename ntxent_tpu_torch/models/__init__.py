@@ -5,10 +5,15 @@ from .layers import (
     BatchNorm,
     Dense,
     LayerNorm,
+    SeqParallelSelfAttention,
     cross_replica_batch_norm,
     init_weights,
 )
-from .long_context import SeqParallelSelfAttention
+from .long_context import (
+    LongContextBlock,
+    LongContextTransformer,
+    default_attention,
+)
 from .projection import ProjectionHead, SimCLRModel
 from .resnet import (
     BasicBlock,
@@ -39,6 +44,8 @@ __all__ = [
     "Dense",
     "EncoderBlock",
     "LayerNorm",
+    "LongContextBlock",
+    "LongContextTransformer",
     "MlpBlock",
     "ProjectionHead",
     "ResNet",
@@ -57,5 +64,6 @@ __all__ = [
     "ViT_Ti16",
     "VisionTransformer",
     "cross_replica_batch_norm",
+    "default_attention",
     "init_weights",
 ]

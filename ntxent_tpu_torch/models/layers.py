@@ -7,6 +7,12 @@ default) as flax's ``nn.Dense(dtype=..., param_dtype=float32)`` does;
 use_fast_variance=False)``, statistics in fp32, over every dimension but
 dim 1, optionally across the ranks of a process group.
 
+``SeqParallelSelfAttention`` (the JAX ``models/long_context.py``
+module of that name) is the attention layer of every tower: q/k/v
+projections to (B, L, H, D), an attention function over that layout, and
+the output projection, named ``query``/``key``/``value``/``out`` as in
+flax, so one set of weights serves every attention function.
+
 Initialization mirrors flax's initializers (LeCun-normal truncated at
 two standard deviations for kernels, zeros for biases) and draws from an
 explicit ``torch.Generator``: ``init_weights(model, generator)``.
@@ -15,15 +21,21 @@ explicit ``torch.Generator``: ``init_weights(model, generator)``.
 from __future__ import annotations
 
 import math
+from collections.abc import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import flash_attention
 from ..parallel.mesh import pmean
 
-__all__ = ["BatchNorm", "Dense", "LayerNorm", "cross_replica_batch_norm",
+__all__ = ["AttentionFn", "BatchNorm", "Dense", "LayerNorm",
+           "SeqParallelSelfAttention", "cross_replica_batch_norm",
            "init_weights", "lecun_normal_"]
+
+# (q, k, v) -> out, all (B, L, H, D); called with mask= only when given
+AttentionFn = Callable[..., torch.Tensor]
 
 # Standard deviation of a unit normal truncated to [-2, 2]: flax divides
 # by it so that the truncated draw keeps variance 1/fan_in.
@@ -69,6 +81,40 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
                             self.bias, self.eps)
+
+
+class SeqParallelSelfAttention(nn.Module):
+    """QKV projection + attention call + output projection.
+
+    ``attention_fn`` defaults to ``flash_attention``: the Hopper kernel
+    for tensors on the GPU, its plain version on the CPU.
+    """
+
+    def __init__(self, hidden: int, num_heads: int,
+                 dtype: torch.dtype = torch.bfloat16,
+                 attention_fn: AttentionFn | None = None):
+        super().__init__()
+        if hidden % num_heads:
+            raise ValueError(f"hidden {hidden} not divisible by heads "
+                             f"{num_heads}")
+        self.num_heads = num_heads
+        self.head_dim = hidden // num_heads
+        self.attention_fn = attention_fn or flash_attention
+        self.query = Dense(hidden, hidden, dtype=dtype)
+        self.key = Dense(hidden, hidden, dtype=dtype)
+        self.value = Dense(hidden, hidden, dtype=dtype)
+        self.out = Dense(hidden, hidden, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        b, l, hidden = x.shape
+
+        def heads(proj):
+            return proj(x).view(b, l, self.num_heads, self.head_dim)
+
+        qkv = (heads(self.query), heads(self.key), heads(self.value))
+        out = (self.attention_fn(*qkv) if mask is None
+               else self.attention_fn(*qkv, mask=mask))
+        return self.out(out.reshape(b, l, hidden))
 
 
 class BatchNorm(nn.Module):

@@ -24,8 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention
-from .layers import Dense, LayerNorm
-from .long_context import SeqParallelSelfAttention
+from .layers import Dense, LayerNorm, SeqParallelSelfAttention
 
 __all__ = ["EncoderBlock", "MlpBlock", "VisionTransformer", "ViT_B16",
            "ViT_L16", "ViT_S16", "ViT_Ti16", "dot_product_attention"]

@@ -28,6 +28,7 @@ BUILD_DIR = _PACKAGE.parent / "build" / "torch_kernels"
 SOURCES: dict[str, Path] = {
     "flash_attention_fwd": _PACKAGE / "csrc" / "flash_attention_fwd.cu",
     "flash_attention_bwd": _PACKAGE / "csrc" / "flash_attention_bwd.cu",
+    "flash_attention_fold": _PACKAGE / "csrc" / "flash_attention_fold.cu",
     "ntxent_fwd": _PACKAGE / "csrc" / "ntxent_fwd.cu",
     "ntxent_bwd_sym": _PACKAGE / "csrc" / "ntxent_bwd_sym.cu",
     "ntxent_bwd_general": _PACKAGE / "csrc" / "ntxent_bwd_general.cu",

@@ -9,7 +9,11 @@ Counterpart of ``ntxent_tpu/ops/attention_pallas.py``. On the flattened
 * ``flash_attention_dq`` and ``flash_attention_dkv`` are the backward
   (``csrc/flash_attention_bwd.cu``; plain versions
   ``attention_dq_plain`` and ``attention_dkv_plain``), from the saved
-  lse and ``delta = rowsum(dO * O)``, with fp32 outputs.
+  lse and ``delta = rowsum(dO * O)``, with fp32 outputs;
+* ``flash_fold`` is one fold of a K/V block into carried fp32
+  statistics ``(m, l, acc)``, unnormalized (``csrc/flash_attention_fold.cu``;
+  plain version ``flash_fold_plain``): the per-hop step of the ring
+  attention (``parallel.ring_attention``).
 
 A tensor on the GPU launches the CUDA kernel or raises; a tensor on the
 CPU takes the plain version. There is no fallback from a kernel to its
@@ -32,10 +36,11 @@ from .blocks import round_up
 
 __all__ = ["attention_dkv_plain", "attention_dq_plain", "attention_plain",
            "flash_attention", "flash_attention_dkv", "flash_attention_dq",
-           "flash_attention_fwd", "resolve_attention_scale"]
+           "flash_attention_fwd", "flash_fold", "flash_fold_plain",
+           "resolve_attention_scale"]
 
 _NEG_INF = -1e30
-BLOCK_Q = 64  # q rows per thread block in csrc/flash_attention_fwd.cu
+BLOCK_Q = 64  # q rows per thread block (csrc/flash_attention_tile.cuh)
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
@@ -291,6 +296,99 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
 
 
 flash_attention_dkv.launches = 0
+
+
+def flash_fold_plain(q, k, v, m, l, acc, *, q_offset: int = 0,
+                     k_offset: int = 0, scale=None, causal: bool = False):
+    """Plain PyTorch version of ``flash_fold`` with the kernel's numerics
+    (attention_pallas.py:217-258), the whole block folded in one step where
+    the kernel walks 64-key tiles (the same function in exact arithmetic):
+    fp32 scores, masked ones -1e30; ``m_new = max(m, rowmax s)``; ``p = 0``
+    where ``s <= -5e29``, else ``exp(min(s - m_new, 0))``; ``alpha =
+    exp(min(m - m_new, 0))``; ``l = l alpha + sum p``; ``acc = acc alpha +
+    (p cast to v's dtype) . v``. Returns new tensors; a row that sees no
+    key keeps its carry bit for bit."""
+    sc = resolve_attention_scale(scale, q.shape[-1])
+    s = _scores(q, k, sc, causal, q_offset, k_offset)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.where(s <= _NEG_INF * 0.5, 0.0,
+                    torch.exp(torch.clamp(s - m_new[..., None], max=0.0)))
+    alpha = torch.exp(torch.clamp(m - m_new, max=0.0))
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
+                                                    v.float())
+    return m_new, l_new, acc_new
+
+
+def _check_fold(q, k, v, m, l, acc) -> None:
+    _check_flat(q, k, v)
+    if m.shape != q.shape[:2] or l.shape != q.shape[:2] \
+            or acc.shape != q.shape:
+        raise ValueError(f"expected m, l {tuple(q.shape[:2])} and acc "
+                         f"{tuple(q.shape)}, got {tuple(m.shape)}, "
+                         f"{tuple(l.shape)}, {tuple(acc.shape)}")
+    if any(t.dtype != torch.float32 for t in (m, l, acc)):
+        raise TypeError(f"the carried (m, l, acc) are float32, got "
+                        f"{m.dtype}, {l.dtype}, {acc.dtype}")
+    if any(t.device != q.device for t in (m, l, acc)):
+        raise ValueError("m, l and acc must be on q's device")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_fold runs on cuda or cpu, got {q.device}")
+
+
+@functools.cache
+def _fold_kernel():
+    """The C entry point of csrc/flash_attention_fold.cu."""
+    fn = _build.load("flash_attention_fold").ntx_flash_attention_fold
+    # q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out; bh, lq, lk,
+    # head_dim, dtype; scale; causal, q_off, k_off, device; stream
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_fold(q, k, v, m, l, acc, *, q_offset: int = 0, k_offset: int = 0,
+               scale=None, causal: bool = False):
+    """Fold one K/V block into running flash statistics; returns the new
+    ``(m, l, acc)``.
+
+    q (BH, Lq, D), k/v (BH, Lk, D) in one dtype; the carry m, l (BH, Lq)
+    and acc (BH, Lq, D) in fp32, as left by earlier folds (start: m =
+    -1e30, l = 0, acc = 0). ``q_offset``/``k_offset`` are the blocks'
+    global positions for causal masking and may take any sign. The
+    result is unnormalized: ``lse = m + log(max(l, 1e-37))`` and ``out =
+    acc / l`` (l == 0 -> 1) after the last fold. The outputs are new
+    tensors; the carry is not written.
+
+    On CUDA tensors this launches ``csrc/flash_attention_fold.cu``
+    (counted in ``flash_fold.launches``); on CPU tensors it runs
+    ``flash_fold_plain``."""
+    _check_fold(q, k, v, m, l, acc)
+    sc = resolve_attention_scale(scale, q.shape[-1])
+    kw = dict(q_offset=q_offset, k_offset=k_offset, scale=sc, causal=causal)
+    if q.device.type == "cpu":
+        return flash_fold_plain(q, k, v, m, l, acc, **kw)
+    _check_kernel_args(q, k, v, q_offset, k_offset)
+    for name, t in (("m", m), ("l", l), ("acc", acc)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             "aligned")
+    bh, lq, d = q.shape
+    outs = (torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc))
+    err = _fold_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(),
+        acc.data_ptr(), *(o.data_ptr() for o in outs), bh, lq, k.shape[1], d,
+        _DTYPE_CODES[q.dtype], sc, int(causal), int(q_offset), int(k_offset),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fold launch failed: CUDA error {err}")
+    flash_fold.launches += 1
+    return outs
+
+
+flash_fold.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

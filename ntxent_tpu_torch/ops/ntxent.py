@@ -74,14 +74,14 @@ import torch
 
 from . import _build
 
-__all__ = ["block_grads_dual", "block_grads_dual_plain", "block_lse_dual",
-           "block_lse_dual_plain", "ntxent_bwd_general_cols",
-           "ntxent_bwd_general_cols_plain", "ntxent_bwd_general_rows",
-           "ntxent_bwd_general_rows_plain", "ntxent_bwd_sym",
-           "ntxent_bwd_sym_plain", "ntxent_bwd_tri", "ntxent_bwd_tri_plain",
-           "ntxent_fwd", "ntxent_fwd_general", "ntxent_fwd_general_plain",
-           "ntxent_fwd_plain", "ntxent_fwd_tri", "ntxent_fwd_tri_plain",
-           "ntxent_loss_and_lse", "ntxent_loss_fused",
+__all__ = ["block_grads", "block_grads_dual", "block_grads_dual_plain",
+           "block_lse", "block_lse_dual", "block_lse_dual_plain",
+           "ntxent_bwd_general_cols", "ntxent_bwd_general_cols_plain",
+           "ntxent_bwd_general_rows", "ntxent_bwd_general_rows_plain",
+           "ntxent_bwd_sym", "ntxent_bwd_sym_plain", "ntxent_bwd_tri",
+           "ntxent_bwd_tri_plain", "ntxent_fwd", "ntxent_fwd_general",
+           "ntxent_fwd_general_plain", "ntxent_fwd_plain", "ntxent_fwd_tri",
+           "ntxent_fwd_tri_plain", "ntxent_loss_and_lse", "ntxent_loss_fused",
            "ntxent_partial_fused"]
 
 _NEG_INF = -1e30
@@ -724,6 +724,44 @@ def ntxent_partial_fused(z_rows: torch.Tensor, z_cols: torch.Tensor,
                          f"{tuple(z_cols.shape)}")
     return _NtxentPartial.apply(z_rows.contiguous(), z_cols.contiguous(),
                                 row_gid, float(temperature))
+
+
+# ---------------------------------------------------------------------------
+# Ring mode: local rows against one visiting column block
+# ---------------------------------------------------------------------------
+
+
+def block_lse(z_rows: torch.Tensor, z_cols: torch.Tensor,
+              row_gid: torch.Tensor, col_gid: torch.Tensor,
+              temperature: float, total_cols: int) -> torch.Tensor:
+    """(R,) fp32 logsumexp of each row over ONE column block of the global
+    similarity matrix (``ntxent_pallas.py:941``), self-columns masked by
+    global id: the fold step of the fused ring NT-Xent
+    (``parallel.ring``). The general forward (#1) with the block's column
+    ids and ``cols_actual = n_half = total_cols``, which points every
+    row's positive past the real ids (the ring adds the positives
+    itself). The kernels mask the ragged edge of a block, so nothing is
+    padded with sentinel ids. A CUDA tensor launches #1 (counted in
+    ``ntxent_fwd_general.launches``); a CPU tensor takes its plain
+    version."""
+    total = int(total_cols)
+    return ntxent_fwd_general(z_rows.contiguous(), z_cols.contiguous(),
+                              row_gid, temperature, col_gid, total, total)[1]
+
+
+def block_grads(z_rows: torch.Tensor, z_cols: torch.Tensor,
+                row_gid: torch.Tensor, col_gid: torch.Tensor,
+                lse_rows: torch.Tensor, temperature: float,
+                total_cols: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(P @ z_cols, P^T @ z_rows)`` in fp32 for ``P = exp(s - lse_rows)``
+    over this column block (``ntxent_pallas.py:981``): the gradients of
+    ``sum_r lse_r`` restricted to the block, times the temperature; the
+    caller multiplies by ``cotangent / T`` once. The general backward's
+    rows and columns kernels (#6) in the mode of ``block_lse``."""
+    total = int(total_cols)
+    args = (z_rows.contiguous(), z_cols.contiguous(), row_gid, lse_rows,
+            temperature, col_gid, total, total)
+    return ntxent_bwd_general_rows(*args), ntxent_bwd_general_cols(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -22,12 +22,25 @@ counterpart of the parts of ``ntxent_tpu/parallel/mesh.py`` it needs.
   InfoNCE column-lse merge runs it inside a ``torch.autograd.Function``).
 * ``pmean_(tensors)``: an in-place mean over ranks of a list of fp32
   tensors (gradients, BatchNorm statistics) in one all-reduce.
+* ``ppermute(x, perm_or_shift, group)`` (``:807``): the ring hop, each
+  rank sending to ``rank + shift`` (or along the ``(source, destination)``
+  pairs of a permutation) over ``dist.batch_isend_irecv``; differentiable,
+  its backward the inverse hop. ``ppermute_start`` issues the hop and
+  returns a handle to wait on, so that a ring can send a block before it
+  folds it. ``chunk_bounds`` and ``ppermute_chunked`` (``:836, 850``)
+  split a hop into independent sends along one dimension. At P = 1 a hop
+  is the identity, as JAX's ``ppermute`` with the permutation
+  ``[(0, 0)]``.
+* ``all_to_all(x, split_dim, concat_dim, group)`` (``:900``, tiled):
+  differentiable, its backward the reverse all-to-all.
 
 Comms accounting (``comms_accounting()``) records every forward
 collective with the JAX shims' formulas, per device, on the payload it
 sends: an all-gather ``(P - 1) * bytes`` (P - 1 remote shards arrive),
 an all-reduce (``psum``, ``pmean``, ``pmax``) ``2 (P - 1) / P * bytes``
-(the ring algorithm). Keys are
+(the ring algorithm), a ``ppermute`` the full payload of each hop (at
+P = 1 too, as the shim records it), an ``all_to_all`` ``(P - 1) / P *
+bytes``. Keys are
 ``(op, axis)`` with the axis ``"data"``, as in the JAX package, so a
 step's ``delta`` compares with the JAX step's. Backward collectives are
 not recorded, as the shims do not record them either.
@@ -44,10 +57,11 @@ import torch.distributed as dist
 
 from ..utils.capability import resolve_device
 
-__all__ = ["AXIS", "CommsAccounting", "all_gather", "comms_accounting",
-           "init_from_env", "init_from_file", "local_row_gids", "pmax",
-           "pmean", "pmean_", "process_info", "psum", "rank", "shutdown",
-           "world_size"]
+__all__ = ["AXIS", "CommsAccounting", "all_gather", "all_to_all",
+           "chunk_bounds", "comms_accounting", "init_from_env",
+           "init_from_file", "local_row_gids", "pmax", "pmean", "pmean_",
+           "ppermute", "ppermute_chunked", "ppermute_start", "process_info",
+           "psum", "rank", "shutdown", "world_size"]
 
 AXIS = "data"  # the accounting's axis label: the JAX mesh's data axis
 _TIMEOUT = datetime.timedelta(minutes=10)
@@ -285,3 +299,172 @@ def pmean_(tensors, group=None, op: str = "pmean") -> None:
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
         offset += t.numel()
+
+
+# ---------------------------------------------------------------------------
+# Ring hops and the all-to-all
+# ---------------------------------------------------------------------------
+
+
+def _peers(perm_or_shift, group) -> tuple[int | None, int | None]:
+    """(destination, source) of this rank's hop: ``rank + shift`` and
+    ``rank - shift`` modulo P for an int, else the pairs of a
+    permutation ``[(source, destination), ...]`` (None: no such peer)."""
+    p, r = world_size(group), rank(group)
+    if isinstance(perm_or_shift, int):
+        return (r + perm_or_shift) % p, (r - perm_or_shift) % p
+    pairs = [(int(a), int(b)) for a, b in perm_or_shift]
+    if len({a for a, _ in pairs}) != len(pairs) \
+            or len({b for _, b in pairs}) != len(pairs) \
+            or any(not 0 <= x < p for pair in pairs for x in pair):
+        raise ValueError(f"not a permutation of {p} ranks: {pairs}")
+    dst = next((b for a, b in pairs if a == r), None)
+    src = next((a for a, b in pairs if b == r), None)
+    return dst, src
+
+
+def _inverse(perm_or_shift):
+    if isinstance(perm_or_shift, int):
+        return -perm_or_shift
+    return [(b, a) for a, b in perm_or_shift]
+
+
+class PermuteHandle:
+    """A hop in flight (``ppermute_start``): ``wait()`` returns what
+    arrived, one tensor for each one sent, its slices joined again."""
+
+    def __init__(self, works, received, bounds, dim):
+        self._works, self._received = works, received
+        self._bounds, self._dim = bounds, dim
+
+    def wait(self) -> list[torch.Tensor]:
+        for work in self._works:
+            work.wait()
+        parts = iter(self._received)
+        return [torch.cat([next(parts) for _ in bounds], dim=self._dim)
+                if len(bounds) > 1 else next(parts)
+                for bounds in self._bounds]
+
+
+def chunk_bounds(n: int, chunks: int) -> list[tuple[int, int]]:
+    """``[lo, hi)`` bounds splitting ``n`` rows into ``chunks`` contiguous
+    pieces, the remainder riding the leading ones (sizes differ by at most
+    one; every piece non-empty)."""
+    c = max(1, min(int(chunks), int(n))) if n else 1
+    base, rem = divmod(int(n), c)
+    bounds, lo = [], 0
+    for i in range(c):
+        hi = lo + base + (1 if i < rem else 0)
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def ppermute_start(tensors, perm_or_shift=1, group=None,
+                   record: bool = True, chunks: int = 1,
+                   dim: int = 0) -> PermuteHandle:
+    """Issue one hop of each tensor (see ``ppermute``) and return at once;
+    ``wait()`` on the handle gives the tensors that arrived. A rank that
+    receives nothing gets zeros, as from ``lax.ppermute``. ``chunks``
+    sends each tensor as that many contiguous slices along ``dim``
+    (``chunk_bounds``). ``record`` adds each slice's payload to the
+    accounting (``"ppermute"``, one call each)."""
+    bounds = [chunk_bounds(t.shape[dim], chunks) for t in tensors]
+    parts = [(t.narrow(dim, lo, hi - lo) if len(b) > 1 else t).contiguous()
+             for t, b in zip(tensors, bounds) for lo, hi in b]
+    if record:
+        for t in parts:
+            _comms.record("ppermute", AXIS, _nbytes([t]))
+    dst, src = _peers(perm_or_shift, group)
+    if world_size(group) == 1 or (dst == rank(group) and src == dst):
+        return PermuteHandle([], parts if dst is not None else
+                             [torch.zeros_like(t) for t in parts],
+                             bounds, dim)
+    _require_group()
+    received = [torch.zeros_like(t) if src is None else torch.empty_like(t)
+                for t in parts]
+    ops = []
+    for t, out in zip(parts, received):
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, t, dist.get_global_rank(
+                group, dst) if group is not None else dst, group))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(
+                group, src) if group is not None else src, group))
+    return PermuteHandle(dist.batch_isend_irecv(ops) if ops else [],
+                         received, bounds, dim)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm_or_shift, group, chunks, dim):
+        ctx.args = (perm_or_shift, group, chunks, dim)
+        return ppermute_start([x], perm_or_shift, group, chunks=chunks,
+                              dim=dim).wait()[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose of a hop is the inverse hop, not recorded (the
+        # shims record no backward collective of JAX's AD)
+        perm, group, chunks, dim = ctx.args
+        return ppermute_start([g], _inverse(perm), group, record=False,
+                              chunks=chunks, dim=dim).wait()[0], \
+            None, None, None, None
+
+
+def ppermute(x: torch.Tensor, perm_or_shift=1, group=None) -> torch.Tensor:
+    """One ring hop (``lax.ppermute``): this rank's ``x`` goes to rank
+    ``rank + shift`` (modulo P) and the tensor of ``rank - shift``
+    arrives; or along the ``(source, destination)`` pairs of a
+    permutation. Differentiable: the cotangent makes the inverse hop.
+    Records the full payload (``"ppermute"``)."""
+    return _PPermute.apply(x, perm_or_shift, group, 1, 0)
+
+
+def ppermute_chunked(x: torch.Tensor, perm_or_shift=1, group=None,
+                     chunks: int = 1, dim: int = 0) -> torch.Tensor:
+    """One hop of ``x`` as ``chunks`` independent sends of contiguous
+    slices along ``dim`` (``mesh.py:850``, which slices dim 0): the same
+    bytes, one recorded call per slice; differentiable."""
+    return _PPermute.apply(x, perm_or_shift, group, max(int(chunks or 1), 1),
+                           dim)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+                group) -> torch.Tensor:
+    p = world_size(group)
+    if p == 1:
+        return x
+    _require_group()
+    if x.shape[split_dim] % p:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split over {p} ranks")
+    parts = [t.contiguous() for t in x.chunk(p, dim=split_dim)]
+    received = [torch.empty_like(t) for t in parts]
+    dist.all_to_all(received, parts, group=group)
+    return torch.cat(received, dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(g, concat_dim, split_dim, ctx.group), None, None,
+                None)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+               group=None) -> torch.Tensor:
+    """``lax.all_to_all(..., tiled=True)``: ``x`` is cut into P equal
+    pieces along ``split_dim``, piece j goes to rank j, and the pieces
+    that arrive are concatenated along ``concat_dim`` in rank order.
+    Differentiable (the backward is the reverse all-to-all). Records
+    ``(P - 1) / P`` of the payload (``"all_to_all"``)."""
+    p = world_size(group)
+    _comms.record("all_to_all", AXIS, (p - 1) / p * _nbytes([x]))
+    return _AllToAll.apply(x, split_dim, concat_dim, group)

@@ -61,6 +61,21 @@ on fixed synthetic pairs,
 * traces 3 steps as ``--mode train`` does, and counts launches and peak
   device memory.
 
+``--mode longctx`` (the long-context slice): one forward and backward
+of the probe ``sum(out^2)`` through ``LongContextTransformer`` at the
+JAX package's defaults (hidden 512, depth 8, 8 heads, MLP 2048,
+``max_len`` 32768, bf16 over fp32 weights) with the CLIP text vocabulary
+of 49408 ids, batch 1 at L = 32768, causal, under
+``make_ring_attention(group, causal=True, impl="flash")`` over an NCCL
+process group of world size 1; with ``--ring-emulate P``, under P ring
+ranks emulated in one process instead (``emulated_ring_attention``),
+
+* times the pass with CUDA events: ms per forward and backward and
+  tokens/s;
+* traces 3 passes: device busy share, the device ms of the fold (#12),
+  dQ (#13) and dK/dV (#14) kernels and the other groups, and counts each
+  kernel's launches per pass and the peak device memory.
+
 Run on the card, from the repository root:
 
     python -m ntxent_tpu_torch.utils.profiling --bucket 64 --impls flash,xla
@@ -70,6 +85,9 @@ Run on the card, from the repository root:
     python -m ntxent_tpu_torch.utils.profiling --mode dp --dp-loss pair \
         --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode clip_dp --batch 256
+    python -m ntxent_tpu_torch.utils.profiling --mode longctx
+    python -m ntxent_tpu_torch.utils.profiling --mode longctx \
+        --ring-emulate 4
 
 The last line of the output is one JSON object with every number.
 """
@@ -85,6 +103,12 @@ from collections import defaultdict
 
 import torch
 
+from ..ops import attention
+from ..ops.ntxent import _log_l, block_grads
+from ..parallel import ring as ring_losses
+from ..parallel import ring_attention
+from ..parallel.mesh import local_row_gids
+
 __all__ = ["cuda_time_ms", "kernel_breakdown", "main"]
 
 _GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
@@ -97,6 +121,7 @@ _KERNELS = (("ntxent_dual_stats_kernel", "block_lse_dual"),
             ("tri_tiles_bwd_kernel", "ntxent_bwd_tri"),
             ("tri_bwd_sum_kernel", "ntxent_bwd_tri"),
             ("flash_fwd_kernel", "flash_attention_fwd"),
+            ("flash_fold_kernel", "flash_fold"),
             ("flash_dq_kernel", "flash_attention_dq"),
             ("flash_dkv_kernel", "flash_attention_dkv"),
             ("ntxent_fwd_kernel<float, true>", "ntxent_fwd_general"),
@@ -116,6 +141,11 @@ _KERNELS = (("ntxent_dual_stats_kernel", "block_lse_dual"),
             ("infonce_bwd_rows_kernel", "infonce_bwd_rows"),
             ("infonce_bwd_cols_kernel", "infonce_bwd_cols"))
 MODEL, IMAGE_SIZE, SEED = "vit_b16", 224, 0
+# The long-context slice: the JAX tower's defaults, the CLIP text
+# vocabulary, batch 1 at the tower's max_len.
+LONGCTX = dict(vocab_size=49408, hidden_dim=512, depth=8, num_heads=8,
+               mlp_dim=2048, max_len=32768)
+LONGCTX_BATCH = 1
 RUNS, TRACE_RUNS = 10, 3
 
 
@@ -190,6 +220,7 @@ def launch_counters() -> dict:
     return {"flash_attention_fwd": attention.flash_attention_fwd,
             "flash_attention_dq": attention.flash_attention_dq,
             "flash_attention_dkv": attention.flash_attention_dkv,
+            "flash_fold": attention.flash_fold,
             "ntxent_fwd": ntxent.ntxent_fwd,
             "ntxent_bwd_sym": ntxent.ntxent_bwd_sym,
             "ntxent_fwd_general": ntxent.ntxent_fwd_general,
@@ -436,14 +467,224 @@ def dp_profile(batch: int, device, dp_loss: str = "strip") -> dict:
             mesh.shutdown()
 
 
+def _shard(x: torch.Tensor, r: int, length: int) -> torch.Tensor:
+    """Rank r's sequence shard of a flat (BH, L, ...) tensor."""
+    return x[:, r * length:(r + 1) * length].contiguous()
+
+
+class _EmulatedRing(torch.autograd.Function):
+    """P ring ranks run one after another in one process: each rank's hop
+    schedule (``ring_attention.hop_fold``, ``hop_grads``) over the
+    sequence shards of the whole (flat) q, k, v, the blocks it would
+    receive read in place. Forward: rank r folds the blocks of r, r - 1,
+    ... at their global offsets. Backward: each rank's second pass, every
+    block's (dK, dV) summed over the ranks it visits, as it arrives home
+    in the real ring."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, rings):
+        p, l_loc = len(rings), qf.shape[1] // len(rings)
+        outs, lses = [], []
+        for ring in rings:
+            r = ring.rank
+            stats = ring_attention._init_stats(qf.shape[0], l_loc,
+                                               qf.shape[2], qf.device)
+            for hop in range(p):
+                src = ring.source(hop)
+                stats = ring_attention.hop_fold(
+                    ring, _shard(qf, r, l_loc), _shard(kf, src, l_loc),
+                    _shard(vf, src, l_loc), r * l_loc, src * l_loc, stats)
+            out, lse = ring_attention.ring_output(stats, qf.dtype)
+            outs.append(out)
+            lses.append(lse)
+        out = torch.cat(outs, dim=1)
+        ctx.save_for_backward(qf, kf, vf, out, torch.cat(lses, dim=1))
+        ctx.rings = rings
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qf, kf, vf, out, lse = ctx.saved_tensors
+        rings = ctx.rings
+        p, l_loc = len(rings), qf.shape[1] // len(rings)
+        dof = g.contiguous().to(qf.dtype)
+        delta = torch.sum(dof.float() * out.float(), dim=-1)
+        dq, dk, dv = (torch.zeros(x.shape, dtype=torch.float32,
+                                  device=x.device) for x in (qf, kf, vf))
+        for ring in rings:
+            r = ring.rank
+            for hop in range(p):
+                src = ring.source(hop)
+                dq_c, dk_c, dv_c = ring_attention.hop_grads(
+                    ring, _shard(qf, r, l_loc), _shard(kf, src, l_loc),
+                    _shard(vf, src, l_loc),
+                    *(_shard(x, r, l_loc) for x in (dof, lse, delta)),
+                    r * l_loc, src * l_loc)
+                dq[:, r * l_loc:(r + 1) * l_loc] += dq_c
+                dk[:, src * l_loc:(src + 1) * l_loc] += dk_c
+                dv[:, src * l_loc:(src + 1) * l_loc] += dv_c
+        return dq.to(qf.dtype), dk.to(kf.dtype), dv.to(vf.dtype), None
+
+
+def emulated_ring_attention(ranks: int, *, causal: bool = False,
+                            scale=None, impl: str = "flash"):
+    """``fn(q, k, v)`` on the whole (B, L, H, D) sequence that computes
+    what ``make_ring_attention`` computes over ``ranks`` ranks, each rank
+    one after another in this process (one card cannot hold two NCCL
+    ranks): the same per-hop kernels at the same global offsets, ``ranks``
+    folds per rank forward and ``ranks`` dQ and dK/dV hops per rank
+    backward. L % ranks == 0."""
+
+    def fn(q, k, v):
+        b, length, h, d = q.shape
+        if length % ranks:
+            raise ValueError(f"L = {length} does not split over {ranks} "
+                             "ranks")
+        sc = attention.resolve_attention_scale(scale, d)
+        rings = tuple(ring_attention._Ring(None, ranks, r, bool(causal), sc,
+                                           impl, 1) for r in range(ranks))
+        out = _EmulatedRing.apply(attention._flat(q), attention._flat(k),
+                                  attention._flat(v), rings)
+        return attention._unflat(out, b, h)
+
+    return fn
+
+
+class _EmulatedRingLseSum(torch.autograd.Function):
+    """The lse part of the fused ring NT-Xent (``ring._RingLseSum``) of P
+    ranks run one after another in one process. zs: (P, 2n, D) each
+    rank's stacked views, gids: (P, 2n) their global row ids. Forward:
+    rank r folds the blocks of r, r - 1, ... with ``ring.lse_hop`` (#1);
+    returns (P,), each rank's sum of its rows' lse. Backward: each rank's
+    ``block_grads`` (#6) of the same hops, every block's column gradient
+    summed over the ranks it visits, as it arrives home in the real
+    ring."""
+
+    @staticmethod
+    def forward(ctx, zs, gids, temperature):
+        p, rows = zs.shape[:2]
+        lses = []
+        for r in range(p):
+            stats = ring_losses._stats(rows, zs.device)
+            for hop in range(p):
+                src = (r - hop) % p
+                stats = ring_losses.lse_hop(zs[r], zs[src], gids[r],
+                                            gids[src], temperature, p * rows,
+                                            stats)
+            lses.append(stats[0] + _log_l(stats[1]))
+        lse = torch.stack(lses)
+        ctx.save_for_backward(zs, gids, lse)
+        ctx.temperature = temperature
+        return lse.sum(dim=1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        zs, gids, lse = ctx.saved_tensors
+        t = ctx.temperature
+        p, rows = zs.shape[:2]
+        grows = torch.zeros(zs.shape, dtype=torch.float32, device=zs.device)
+        gblk = torch.zeros_like(grows)
+        for r in range(p):
+            for hop in range(p):
+                src = (r - hop) % p
+                g_rows, g_cols = block_grads(zs[r], zs[src], gids[r],
+                                             gids[src], lse[r], t, p * rows)
+                grows[r] += g_rows
+                gblk[src] += g_cols
+        return torch.stack([
+            ring_losses.lse_sum_grad(grows[r], gblk[r], ct[r], t, zs.dtype)
+            for r in range(p)]), None, None
+
+
+def emulated_ring_ntxent(ranks: int, temperature: float = 0.07):
+    """``fn(z1, z2)`` on the global views (N, D) that computes what
+    ``make_ring_ntxent(impl="fused")`` computes over ``ranks`` ranks, each
+    rank one after another in this process: the same per-hop kernels,
+    ``ranks`` of #1 and of #6 rows and columns per rank. Returns the
+    global mean loss; its gradient is the global one (the real ring's
+    rank holds P times its share). N % ranks == 0."""
+    t = float(temperature)
+
+    def fn(z1, z2):
+        if z1.shape[0] % ranks:
+            raise ValueError(f"N = {z1.shape[0]} does not split over "
+                             f"{ranks} ranks")
+        n = z1.shape[0] // ranks
+        views = [(z1[r * n:(r + 1) * n], z2[r * n:(r + 1) * n])
+                 for r in range(ranks)]
+        zs = torch.stack([torch.cat(v) for v in views])
+        gids = torch.stack([local_row_gids(r, n, ranks, z1.device)
+                            for r in range(ranks)])
+        lse_sums = _EmulatedRingLseSum.apply(zs, gids, t)
+        return sum(ring_losses.rank_loss_sum(a, b, t, lse_sums[r])
+                   for r, (a, b) in enumerate(views)) / (2 * z1.shape[0])
+
+    return fn
+
+
+def build_long_context(device, attention_fn, depth: int | None = None,
+                       dtype=torch.bfloat16):
+    """The long-context slice's model (``LONGCTX``, ``depth`` blocks if
+    given) on ``device``, weights drawn from ``SEED``."""
+    from ..models import LongContextTransformer, init_weights
+
+    sizes = dict(LONGCTX, **({} if depth is None else {"depth": depth}))
+    model = LongContextTransformer(**sizes, dtype=dtype,
+                                   attention_fn=attention_fn)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    return model.to(device)
+
+
+def long_context_tokens(device, length: int = LONGCTX["max_len"],
+                        batch: int = LONGCTX_BATCH) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(SEED)
+    return torch.randint(0, LONGCTX["vocab_size"], (batch, length),
+                         generator=gen).to(device)
+
+
+def longctx_profile(device, ring_emulate: int = 0) -> dict:
+    """The numbers of ``--mode longctx`` (see the module docstring)."""
+    import tempfile
+
+    from ..parallel import make_ring_attention, mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_from_file(f"{tmp}/store", 0, 1, device)
+        try:
+            plan = (emulated_ring_attention(ring_emulate, causal=True)
+                    if ring_emulate else
+                    make_ring_attention(None, causal=True, impl="flash"))
+            model = build_long_context(device, plan)
+            tokens = long_context_tokens(device)
+
+            def one_pass():
+                model.zero_grad(set_to_none=True)
+                model(tokens).float().pow(2).sum().backward()
+
+            torch.cuda.reset_peak_memory_stats(device)
+            pass_ms = cuda_time_ms(one_pass, runs=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated(device)
+            traced = _traced_step(one_pass)
+            n_tokens = tokens.numel()
+            return {"tokens_per_pass": n_tokens,
+                    "ring_ranks": ring_emulate or 1,
+                    "emulated": bool(ring_emulate), "pass_ms": pass_ms,
+                    "tokens_per_s": n_tokens / pass_ms * 1e3,
+                    "peak_memory_bytes": peak,
+                    "launches_per_pass": traced.pop("launches_per_step"),
+                    **traced}
+        finally:
+            mesh.shutdown()
+
+
 def main(argv=None) -> int:
     from ..cli import build_model, build_serve_parser
-    from ..ops import attention
     from .capability import card_power_line, device_name, resolve_device
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--mode", default="forward",
-                   choices=["forward", "train", "clip", "dp", "clip_dp"])
+                   choices=["forward", "train", "clip", "dp", "clip_dp",
+                            "longctx"])
     p.add_argument("--bucket", type=int, default=64,
                    help="forward mode: batch size of the profiled forward")
     p.add_argument("--impls", default="flash,xla",
@@ -453,9 +694,32 @@ def main(argv=None) -> int:
                         "profiled step")
     p.add_argument("--dp-loss", default="strip", choices=["strip", "pair"],
                    help="dp mode: the data-parallel NT-Xent schedule")
+    p.add_argument("--ring-emulate", type=int, default=0, metavar="P",
+                   help="longctx mode: P ring ranks emulated in one "
+                        "process (0: the ring of the world-1 group)")
     args = p.parse_args(argv)
 
     device = resolve_device("cuda")
+    if args.mode == "longctx":
+        card = card_power_line()
+        print(f"card: {card}", flush=True)
+        result = {"device": device_name(device), "card": card,
+                  "mode": "longctx", "model": LONGCTX,
+                  **longctx_profile(device, args.ring_emulate)}
+        print(f"[longctx] {result['ring_ranks']} ring rank(s)"
+              f"{' emulated' if result['emulated'] else ''}: "
+              f"{result['pass_ms']:.3f} ms per forward and backward, "
+              f"{result['tokens_per_s']:.1f} tokens/s; device busy "
+              f"{result['device_busy_share']:.3f}; device ms by group "
+              f"{json.dumps(result['groups_ms_per_run'])}; launches per "
+              f"pass {json.dumps(result['launches_per_pass'])}; peak "
+              f"memory {result['peak_memory_bytes'] / 2**30:.2f} GiB",
+              flush=True)
+        for k in result["top_kernels"]:
+            print(f"[longctx]   {k['ms_per_run']:8.3f} ms "
+                  f"x{k['calls_per_run']:.0f}  {k['name']}")
+        print(json.dumps(result))
+        return 0
     if args.mode in ("train", "clip", "dp", "clip_dp"):
         card = card_power_line()
         print(f"card: {card}", flush=True)

@@ -5,8 +5,8 @@
 (what ``jax.device_get`` returns), and copies them into the matching
 port module: ``SimCLRModel`` (ViT or ResNet backbone), ``CLIPModel``
 (ViT image tower), ``VisionTransformer``, ``ResNet``, ``TextTransformer``,
-``EncoderBlock``, ``SeqParallelSelfAttention``, ``MlpBlock`` or
-``ProjectionHead``. The layout differences it handles:
+``LongContextTransformer``, ``EncoderBlock``, ``SeqParallelSelfAttention``,
+``MlpBlock`` or ``ProjectionHead``. The layout differences it handles:
 
 * ``Dense`` kernels are (in, out); torch weights are (out, in).
 * ``patch_embed`` is an HWIO conv kernel (p, p, C, hidden) over NHWC
@@ -23,6 +23,9 @@ port module: ``SimCLRModel`` (ViT or ResNet backbone), ``CLIPModel``
 * ``cls_token`` and ``pos_embed`` keep their (1, ., hidden) shapes; the
   text tower's ``Embed_0/embedding`` is the (vocab, hidden) table as is,
   and CLIP's ``logit_scale`` a scalar.
+* ``LongContextTransformer``'s blocks are ``LongContextBlock_i`` with
+  ``LayerNorm_0``, ``SeqParallelSelfAttention_0``, ``LayerNorm_1`` and
+  ``MlpBlock_0``, its final norm the tower's ``LayerNorm_0``.
 
 Every flax leaf must be consumed and every torch tensor filled, with
 matching shapes; anything else raises.
@@ -41,7 +44,8 @@ import torch
 from torch import nn
 
 from .models.clip import CLIPModel, TextTransformer
-from .models.long_context import SeqParallelSelfAttention
+from .models.layers import SeqParallelSelfAttention
+from .models.long_context import LongContextTransformer
 from .models.projection import ProjectionHead, SimCLRModel
 from .models.resnet import ResNet
 from .models.vit import EncoderBlock, MlpBlock, VisionTransformer
@@ -107,11 +111,11 @@ def _mlp(module, p, s, path) -> dict:
             | _prefixed("fc2", _dense(p, path + ("Dense_1",))))
 
 
-def _block(module, p, s, path) -> dict:
+def _block(module, p, s, path,
+           attention="MultiHeadDotProductAttention_0") -> dict:
     return (_prefixed("ln1", _layer_norm(p, path + ("LayerNorm_0",)))
-            | _prefixed("attn", _attention(
-                module.attn, p, s,
-                path + ("MultiHeadDotProductAttention_0",)))
+            | _prefixed("attn", _attention(module.attn, p, s,
+                                           path + (attention,)))
             | _prefixed("ln2", _layer_norm(p, path + ("LayerNorm_1",)))
             | _prefixed("mlp", _mlp(module.mlp, p, s,
                                     path + ("MlpBlock_0",))))
@@ -138,6 +142,16 @@ def _text(module, p, s, path) -> dict:
     return {"embedding": p.get(*path, "Embed_0", "embedding"),
             "pos_embed": p.get(*path, "pos_embed")} | _blocks(module, p, s,
                                                              path)
+
+
+def _long_context(module, p, s, path) -> dict:
+    out = {"embedding": p.get(*path, "Embed_0", "embedding"),
+           "pos_embedding": p.get(*path, "pos_embedding")}
+    for i, block in enumerate(module.blocks):
+        out |= _prefixed(f"blocks.{i}", _block(
+            block, p, s, path + (f"LongContextBlock_{i}",),
+            attention="SeqParallelSelfAttention_0"))
+    return out | _prefixed("out_ln", _layer_norm(p, path + ("LayerNorm_0",)))
 
 
 def _clip(module, p, s, path) -> dict:
@@ -205,6 +219,7 @@ def _simclr(module, p, s, path) -> dict:
 _CONVERTERS = ((SimCLRModel, _simclr), (CLIPModel, _clip),
                (VisionTransformer, _vit), (ResNet, _resnet),
                (TextTransformer, _text),
+               (LongContextTransformer, _long_context),
                (EncoderBlock, _block), (SeqParallelSelfAttention, _attention),
                (MlpBlock, _mlp), (ProjectionHead, _head))
 

@@ -89,4 +89,6 @@ def test_scan_sees_every_module():
             "training/augment.py", "training/datasets.py",
             "training/trainer.py", "utils/profiling.py", "models/resnet.py",
             "parallel/__init__.py", "parallel/mesh.py",
-            "parallel/dist_loss.py"} <= names
+            "parallel/dist_loss.py", "parallel/pair.py",
+            "parallel/ring_attention.py", "parallel/ring.py",
+            "models/long_context.py", "models/layers.py"} <= names

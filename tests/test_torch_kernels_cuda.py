@@ -8,13 +8,13 @@ on the card, where the JAX package's model code cannot load:
 ``cuda``-marked tests hold each CUDA kernel (``ntxent_fwd``,
 ``ntxent_bwd_sym``, ``ntxent_fwd_general``, ``ntxent_bwd_general_rows``,
 ``ntxent_bwd_general_cols``, ``flash_attention_dq``,
-``flash_attention_dkv``, ``infonce_dual_fwd``, ``infonce_dual_bwd``,
-``infonce_dual_fwd_rect``, ``infonce_bwd_rows``, ``infonce_bwd_cols``) to
-its plain version on the same card, and the differentiable wrappers'
-gradients to the same computation on the CPU; they skip here. The other
-tests run anywhere: the plain backward versions against torch autograd
-of the plain forwards, the CPU dispatch, the input checks and the build
-table.
+``flash_attention_dkv``, ``flash_fold``, ``infonce_dual_fwd``,
+``infonce_dual_bwd``, ``infonce_dual_fwd_rect``, ``infonce_bwd_rows``,
+``infonce_bwd_cols``) to its plain version on the same card, and the
+differentiable wrappers' gradients to the same computation on the CPU;
+they skip here. The other tests run anywhere: the plain backward
+versions against torch autograd of the plain forwards, the CPU dispatch,
+the input checks and the build table.
 
 Tolerances (max abs error against the plain version on the card):
 
@@ -32,6 +32,11 @@ Tolerances (max abs error against the plain version on the card):
   dq by up to 2**-8 |ds| |k| -> 3e-2 on dq; dk/dv keep p and ds to
   ~16 bits (the kernel's hi/lo split) against the plain version's fp32
   -> 1e-2.
+* flash fold (#12): m within 1e-4 (the same fp32 maxima of exact
+  products), l within 1e-4 relative, and acc / l within |a - b| / |b|
+  of 1e-5 over the tensor in fp32 (summation order) and 1e-2 in bf16 (p
+  rounded to bf16 at another running max); a hop wholly in the rows'
+  future leaves the carry bit for bit.
 * InfoNCE, fp32 or bf16 za/zb: the same exact fp32 products summed in
   another order, logits up to the scale 17.5 -> 2e-4 on lse_a, lse_b and
   loss_sum/2N, 2e-4 on o_a and o_b (rows of G sum to at most 4 in
@@ -225,6 +230,7 @@ def test_flash_backward_rejects_mismatched_shapes():
                             "ntx_ntxent_bwd_general_cols"]),
     ("flash_attention_bwd", ["ntx_flash_attention_dq",
                              "ntx_flash_attention_dkv"]),
+    ("flash_attention_fold", ["ntx_flash_attention_fold"]),
     ("infonce_dual_fwd", ["ntx_infonce_dual_fwd",
                           "ntx_infonce_dual_fwd_rect"]),
     ("infonce_dual_bwd", ["ntx_infonce_dual_bwd", "ntx_infonce_bwd_rows"]),
@@ -516,3 +522,51 @@ def test_cuda_dp_infonce_kernels_match_plain_versions(shape, dtype):
     # one owner per output row, no atomics: bitwise repeatable
     assert torch.equal(I.infonce_bwd_cols(za, zb, gid, scale, lse_a, lse_b),
                        o_b)
+
+
+# (BH, Lq, Lk, D, dtype, causal, q_offset, k_offsets of three folds)
+FOLD_CASES = {
+    "noncausal_bf16": (8, 1024, 1024, 64, "bfloat16", False, 0,
+                       (0, 1024, 2048)),
+    "partly_masked_fp32": (4, 300, 500, 128, "float32", True, 900,
+                           (0, 500, 1000)),
+    "diagonal_bf16": (4, 200, 200, 64, "bfloat16", True, 200,
+                      (0, 200, 200)),
+}
+# acc / l against the plain version as |a - b| / |b| over the tensor: fp32
+# summation order -> 1e-5; bf16, p rounded to bf16 at another running
+# maximum -> 1e-2 (a typical |acc / l| is 1 / sqrt(keys), too small for an
+# absolute limit)
+FOLD_O_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FOLD_CASES))
+def test_cuda_flash_fold_matches_its_plain_version(case):
+    dev = _cuda()
+    bh, lq, lk, d, dtype, causal, q_off, k_offs = FOLD_CASES[case]
+    gen = torch.Generator().manual_seed(lq + lk)
+    dt = getattr(torch, dtype)
+    q = torch.randn(bh, lq, d, generator=gen).to(dev, dt)
+    carry = (torch.full((bh, lq), -1e30, device=dev),
+             torch.zeros(bh, lq, device=dev),
+             torch.zeros(bh, lq, d, device=dev))
+    want = carry
+    for k_off in k_offs:
+        k, v = (torch.randn(bh, lk, d, generator=gen).to(dev, dt)
+                for _ in range(2))
+        kw = dict(q_offset=q_off, k_offset=k_off, causal=causal)
+        carry = A.flash_fold(q, k, v, *carry, **kw)
+        want = A.flash_fold_plain(q, k, v, *want, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(carry[0], want[0], atol=1e-4, rtol=0)
+        torch.testing.assert_close(carry[1], want[1], atol=0, rtol=1e-4)
+        o_got = carry[2] / carry[1][..., None]
+        o_want = want[2] / want[1][..., None]
+        assert ((o_got - o_want).norm() / o_want.norm()).item() \
+            <= FOLD_O_RTOL[dtype]
+    # a block wholly after every row: the carry goes out bit for bit
+    after = A.flash_fold(q, k, v, *carry, q_offset=q_off,
+                         k_offset=q_off + lq, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(after, carry))

@@ -16,6 +16,8 @@ from ntxent_tpu_torch.utils import profiling
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
     ("void (anonymous namespace)::flash_dq_kernel<__nv_bfloat16, 64>(...)",
      "flash_attention_dq"),
+    ("void (anonymous namespace)::flash_fold_kernel<__nv_bfloat16, 64>"
+     "(...)", "flash_fold"),
     ("void (anonymous namespace)::flash_dkv_kernel<__nv_bfloat16, 64>(...)",
      "flash_attention_dkv"),
     ("void (anonymous namespace)::ntxent_fwd_kernel<float>(...)",
@@ -69,7 +71,10 @@ def test_kernels_are_grouped_by_name(name, group):
                                   ["--mode", "dp", "--batch", "2"],
                                   ["--mode", "dp", "--dp-loss", "pair",
                                    "--batch", "2"],
-                                  ["--mode", "clip_dp", "--batch", "2"]])
+                                  ["--mode", "clip_dp", "--batch", "2"],
+                                  ["--mode", "longctx"],
+                                  ["--mode", "longctx", "--ring-emulate",
+                                   "4"]])
 def test_profiler_needs_a_card(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present")
@@ -81,7 +86,8 @@ def test_every_kernel_wrapper_counts_launches():
     counters = profiling.launch_counters()
     assert sorted(counters) == ["block_grads_dual", "block_lse_dual",
                                 "flash_attention_dkv", "flash_attention_dq",
-                                "flash_attention_fwd", "infonce_bwd_cols",
+                                "flash_attention_fwd", "flash_fold",
+                                "infonce_bwd_cols",
                                 "infonce_bwd_rows", "infonce_dual_bwd",
                                 "infonce_dual_fwd", "infonce_dual_fwd_rect",
                                 "ntxent_bwd_general_cols",
@@ -89,3 +95,44 @@ def test_every_kernel_wrapper_counts_launches():
                                 "ntxent_bwd_tri", "ntxent_fwd",
                                 "ntxent_fwd_general", "ntxent_fwd_tri"]
     assert all(isinstance(w.launches, int) for w in counters.values())
+
+
+@pytest.mark.parametrize("ranks", [2, 4, 8])
+@pytest.mark.parametrize("impl", ["flash", "jnp"])
+def test_emulated_ring_is_the_ring_of_that_many_ranks(ranks, impl):
+    """The emulated ranks of ``--ring-emulate`` (and of chip_smoke.py's
+    ring phases) give full causal attention and its gradients, within
+    1e-5 (the same fp32 products summed in another order), on the CPU's
+    plain versions of the hop kernels."""
+    from ntxent_tpu_torch.parallel import attention_oracle
+
+    gen = torch.Generator().manual_seed(ranks)
+    qkv = [(0.5 * torch.randn(1, 64, 4, 16, generator=gen)).requires_grad_()
+           for _ in range(3)]
+    want = attention_oracle(*qkv, causal=True)
+    want_g = torch.autograd.grad(want.pow(2).sum(), qkv)
+    got = profiling.emulated_ring_attention(ranks, causal=True,
+                                            impl=impl)(*qkv)
+    got_g = torch.autograd.grad(got.pow(2).sum(), qkv)
+    for g, w in zip((got, *got_g), (want, *want_g)):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("ranks", [2, 4, 8])
+def test_emulated_ring_ntxent_is_the_global_loss(ranks):
+    """The emulated ranks of chip_smoke.py's ring NT-Xent phase give the
+    NT-Xent of the global batch and its gradient, within 1e-5 (the same
+    fp32 terms summed in another order), on the CPU's plain versions of
+    the block kernels."""
+    from ntxent_tpu_torch.ops.oracle import cosine_normalize, ntxent_loss
+
+    gen = torch.Generator().manual_seed(ranks)
+    z = cosine_normalize(torch.randn(2 * 8 * ranks, 16, generator=gen))
+    z.requires_grad_()
+    want = ntxent_loss(z, 0.1)
+    want_g, = torch.autograd.grad(want, z)
+    n = z.shape[0] // 2
+    got = profiling.emulated_ring_ntxent(ranks, 0.1)(z[:n], z[n:])
+    got_g, = torch.autograd.grad(got, z)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got_g, want_g, atol=1e-5, rtol=0)

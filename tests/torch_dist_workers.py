@@ -1,13 +1,15 @@
 """Rank processes of ``test_torch_distributed.py``,
-``test_torch_clip_dp.py`` and ``test_torch_pair.py``: worlds of gloo
-ranks on the CPU that meet over a ``FileStore``.
+``test_torch_clip_dp.py``, ``test_torch_pair.py``,
+``test_torch_ring_attention.py``, ``test_torch_long_context.py`` and
+``test_torch_ring.py``: worlds of gloo ranks on the CPU that meet over a
+``FileStore``.
 
 This module imports torch and the port, never JAX: each rank is a fresh
 interpreter that imports only what it unpickles (``run``, ``run_clip``,
-``run_pair``, ``run_cli`` and this module). Inputs come from an ``.npz`` the test wrote;
-each rank writes its results to ``<out>/rank<r>.npz``. A rank's
-collectives give up after ``PG_TIMEOUT``, well inside the test's deadline
-for the whole world.
+``run_pair``, ``run_ring``, ``run_cli`` and this module). Inputs come
+from an ``.npz`` the test wrote; each rank writes its results to
+``<out>/rank<r>.npz``. A rank's collectives give up after
+``PG_TIMEOUT``, well inside the test's deadline for the whole world.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from ntxent_tpu_torch import cli
 from ntxent_tpu_torch.models import (
     CLIPModel,
+    LongContextTransformer,
     ResNet,
     SimCLRModel,
     TextTransformer,
@@ -32,6 +35,10 @@ from ntxent_tpu_torch.models import (
 )
 from ntxent_tpu_torch.parallel import (
     local_infonce_dual,
+    make_ring_attention,
+    make_ring_infonce,
+    make_ring_ntxent,
+    make_ulysses_attention,
     mesh,
     ntxent_loss_distributed,
     ntxent_loss_pair,
@@ -46,6 +53,13 @@ from ntxent_tpu_torch.training import (
 from ntxent_tpu_torch.weights import load_flax_variables
 
 PG_TIMEOUT = datetime.timedelta(seconds=60)
+# The long-context tower of the tests (the JAX package's
+# tests/test_long_context.py sizes), fp32.
+TINY_LONG_CONTEXT = dict(vocab_size=64, hidden_dim=32, depth=2, num_heads=8,
+                         mlp_dim=64, max_len=32)
+# Ring attention (impl, causal, transfer chunks) cases of the rank jobs.
+RING_CASES = [(impl, causal, chunks) for impl in ("jnp", "flash")
+              for causal in (False, True) for chunks in (1, 2)]
 # The tiny CLIP of the tests (the JAX CLI's ``--model tiny`` towers at
 # width 32, 16 px images, 16 tokens of a 100-id vocabulary).
 TINY_CLIP = dict(image=16, tokens=16, vocab=100, width=32)
@@ -200,6 +214,114 @@ def clip_step_job(rank: int, world: int, inp) -> dict:
     return out
 
 
+def _seq_shard(x: np.ndarray, rank: int, world: int) -> torch.Tensor:
+    n = x.shape[1] // world
+    return torch.from_numpy(
+        np.ascontiguousarray(x[:, rank * n:(rank + 1) * n]))
+
+
+def _attention_result(key, fn, rank, world, inp) -> dict:
+    """Output and q/k/v gradients of ``fn`` on this rank's sequence shard
+    of the inputs for the probe ``sum(out^2)``, and the comms of the
+    forward and of the backward."""
+    q, k, v = (_seq_shard(inp[f"ra_{n}"], rank, world).requires_grad_()
+               for n in "qkv")
+    mark = mesh.comms_accounting().totals()
+    out = fn(q, k, v)
+    fwd = mesh.comms_accounting().delta(mark)
+    mark = mesh.comms_accounting().totals()
+    out.float().pow(2).sum().backward()
+    bwd = mesh.comms_accounting().delta(mark)
+    return {f"{key}:out": out.detach().numpy(), f"{key}:gq": q.grad.numpy(),
+            f"{key}:gk": k.grad.numpy(), f"{key}:gv": v.grad.numpy(),
+            **_comms(fwd, f"{key}:fwd_comms"),
+            **_comms(bwd, f"{key}:bwd_comms")}
+
+
+def ring_attention_job(rank: int, world: int, inp) -> dict:
+    """Ring attention (both impls, causal or not, one or two transfer
+    chunks) and Ulysses attention on the sequence shards."""
+    out = {}
+    for impl, causal, chunks in RING_CASES:
+        fn = make_ring_attention(causal=causal, impl=impl,
+                                 transfer_chunks=chunks)
+        out |= _attention_result(f"ring:{impl}:{causal}:{chunks}", fn, rank,
+                                 world, inp)
+    for causal in (False, True):
+        out |= _attention_result(f"ulysses:{causal}",
+                                 make_ulysses_attention(causal=causal), rank,
+                                 world, inp)
+    # a hop in three chunks along dim 1, and its gradient (the inverse hop)
+    x = _seq_shard(inp["ra_q"], rank, world).requires_grad_()
+    mark = mesh.comms_accounting().totals()
+    y = mesh.ppermute_chunked(x, 1, None, chunks=3, dim=1)
+    (y * (rank + 1)).sum().backward()
+    return out | {"chunked:y": y.detach().numpy(),
+                  "chunked:grad": x.grad.numpy(),
+                  **_comms(mesh.comms_accounting().delta(mark),
+                           "chunked:comms")}
+
+
+def long_context_job(rank: int, world: int, inp) -> dict:
+    """The tiny long-context tower from the flax parameters under the ring
+    (jnp and flash) and Ulysses plans on this rank's token shard: its
+    output shard and its share of every parameter's gradient of the probe
+    ``sum(out^2)``."""
+    out = {}
+    plans = {"ring_jnp": make_ring_attention(causal=True),
+             "ring_flash": make_ring_attention(causal=True, impl="flash"),
+             "ulysses": make_ulysses_attention(causal=True)}
+    tokens = _seq_shard(inp["lc_tokens"], rank, world).long()
+    for name, plan in plans.items():
+        model = load_flax_variables(
+            LongContextTransformer(**TINY_LONG_CONTEXT, dtype=torch.float32,
+                                   attention_fn=plan),
+            {"params": nest(inp, "lc")})
+        y = model(tokens)
+        y.pow(2).sum().backward()
+        out[f"lc:{name}:out"] = y.detach().numpy()
+        for pname, param in model.named_parameters():
+            out[f"lc:{name}:grad:{pname}"] = param.grad.numpy()
+    return out
+
+
+def ring_loss_job(rank: int, world: int, inp) -> dict:
+    """The ring NT-Xent (fused and jnp) of the global views z1, z2 and the
+    ring InfoNCE (dual and twoblock) of za, zb at a tensor scale: losses,
+    gradients of this rank's shards (and of the scale), comms."""
+    out = {}
+    t = float(inp["t"])
+    for impl in ("fused", "jnp"):
+        z1 = _shard(inp["z1"], rank, world).requires_grad_()
+        z2 = _shard(inp["z2"], rank, world).requires_grad_()
+        mark = mesh.comms_accounting().totals()
+        loss = make_ring_ntxent(None, t, impl=impl)(z1, z2)
+        loss.backward()
+        out |= {f"ntxent:{impl}:loss": loss.detach().numpy(),
+                f"ntxent:{impl}:g1": z1.grad.numpy(),
+                f"ntxent:{impl}:g2": z2.grad.numpy(),
+                **_comms(mesh.comms_accounting().delta(mark),
+                         f"ntxent:{impl}:comms")}
+    for impl in ("dual", "twoblock"):
+        za = _shard(inp["za"], rank, world).requires_grad_()
+        zb = _shard(inp["zb"], rank, world).requires_grad_()
+        scale = torch.tensor(float(inp["scale"]), requires_grad=True)
+        mark = mesh.comms_accounting().totals()
+        loss = make_ring_infonce(None, impl=impl)(za, zb, scale)
+        loss.backward()
+        out |= {f"infonce:{impl}:loss": loss.detach().numpy(),
+                f"infonce:{impl}:ga": za.grad.numpy(),
+                f"infonce:{impl}:gb": zb.grad.numpy(),
+                f"infonce:{impl}:gs": scale.grad.numpy(),
+                **_comms(mesh.comms_accounting().delta(mark),
+                         f"infonce:{impl}:comms")}
+    return out
+
+
+RING_JOBS = {"attention": ring_attention_job,
+             "long_context": long_context_job, "losses": ring_loss_job}
+
+
 def _join(store: str, rank: int, world: int) -> None:
     torch.set_num_threads(1)
     mesh.init_from_file(store, rank, world, device="cpu", timeout=PG_TIMEOUT)
@@ -260,6 +382,18 @@ def run_pair(rank: int, world: int, store: str, inputs: str, out: str,
         _run_jobs(jobs, rank, world, inputs, out)
         if cli_argv is not None and _train_main(rank, world, cli_argv, out):
             sys.exit(1)
+    finally:
+        mesh.shutdown()
+
+
+def run_ring(rank: int, world: int, store: str, inputs: str, out: str,
+             jobs: list) -> None:
+    """One rank: join the world, run the named ring jobs (``RING_JOBS``),
+    write the results."""
+    _join(store, rank, world)
+    try:
+        _run_jobs([RING_JOBS[name] for name in jobs], rank, world, inputs,
+                  out)
     finally:
         mesh.shutdown()
 
