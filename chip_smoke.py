@@ -9,7 +9,9 @@ Phases; any failure ends the run with a non-zero exit and no result:
 
 1. card: its name and power limit;
 2. build: every CUDA kernel source in ``ntxent_tpu_torch/csrc``, one
-   ``nvcc`` per source, all started together, timed;
+   ``nvcc`` per source, all started together, timed; the registers and
+   spill bytes ptxas reports for every kernel it compiled (among them
+   the TMA/wgmma #11 and #14 in bf16, at head_dim 64 and 128);
 2a. data-parallel InfoNCE kernels: ``infonce_dual_fwd_rect`` (#9's
    rectangular stats-only mode), ``infonce_bwd_rows`` (#5's cross-modal
    mode) and ``infonce_bwd_cols`` (#4) against their plain versions at
@@ -22,10 +24,15 @@ Phases; any failure ends the run with a non-zero exit and no result:
 3. kernels: each hand-written kernel against its plain version on the
    card -- ``flash_attention_fwd`` (the ViT-B/16 serving and training
    shapes in bf16 and fp32, causal cases with q_offset != k_offset and
-   ragged lengths, head_dim 128); ``ntxent_fwd`` and ``ntxent_bwd_sym``
+   ragged lengths, head_dim 128; in bf16 at the training shape, over
+   four seeds, its rms error against an fp32 truth over the plain
+   version's, and that of a control that rounds once more, which must
+   miss);
+   ``ntxent_fwd`` and ``ntxent_bwd_sym``
    (2N = 512 and 8192 at D = 128, and a ragged 2N = 1000 at D = 96, in
    fp32 and bf16); ``flash_attention_dq`` and ``flash_attention_dkv``
-   (the training shape in bf16 and fp32 and the causal offset cases) --
+   (the training shape in bf16 and fp32 and the causal offset cases, and
+   a wholly masked ring hop whose dk and dv must be zero bit for bit) --
    ``infonce_dual_fwd`` and ``infonce_dual_bwd`` (N = 256, 1000, 8192 at
    D = 512 and 128, fp32 and bf16, a logit scale of 17.5 passed as a
    device tensor; the loss bitwise repeatable) -- then CUDA-event times
@@ -126,7 +133,11 @@ Phases; any failure ends the run with a non-zero exit and no result:
    control (the last block folded into a fresh carry must miss); at the
    long-context path's hop (8, 32768, 64) and the P = 4 hop (8, 8192, 64)
    against the plain version run in row chunks, and times beside the
-   bound, with the dQ and dK/dV kernels (#13, #14) there;
+   bound, with the dQ and dK/dV kernels (#13, #14) there, held against
+   their plain versions run in q-row chunks with the true lse and delta
+   (a control without the first chunk must miss), and SDPA's causal
+   forward and backward of the same block (the backward is #13's and
+   #14's library time at the hop);
 12h. ring attention of P = 2, 4, 8 ranks emulated on one card at (B 1, L
    8192, H 8, D 64), bf16 and fp32, causal and not: the flash ring against
    the jnp ring and flash_attention of the whole sequence (out, dq, dk,
@@ -201,6 +212,15 @@ KERNEL_CASES = [
 # inputs -> 1e-3.
 O_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_ATOL = 1e-3
+# The bf16 forward against an fp32 truth (the fp32 softmax of the same
+# bf16 inputs, p never rounded) at the training shape, over seeds: its
+# rms error over the plain version's. On the H100 the kernel read
+# 0.9821-0.9822 over these seeds (it rounds p at a running maximum, the
+# plain version at the final one) and a control that rounds acc to bf16
+# once more before the division 1.2554-1.2556; the factor sits between
+# them, near their geometric mean -> 1.1, and the control must exceed it.
+TRUTH_SEEDS = (101, 102, 103, 104)
+TRUTH_RMS_FACTOR = 1.1
 # Embeddings are unit vectors computed in bf16: batching and padding may
 # change the GEMM shapes and so the rounding, never more than this.
 EMBED_ATOL = 2e-2
@@ -395,9 +415,9 @@ FOLD_CASES = [
 ]
 FOLD_M_ATOL, FOLD_L_RTOL = 1e-4, 1e-4
 FOLD_O_RTOL = {"bfloat16": 1e-2, "float32": 1e-5}
-# The plain fold at the path's hop runs in row chunks: the whole (8,
-# 32768, 32768) fp32 score matrix would not fit on the card.
-FOLD_PLAIN_CHUNKS = 8
+# The plain fold, dQ and dK/dV at the path's hop run in q-row chunks: the
+# whole (8, 32768, 32768) fp32 score matrix would not fit on the card.
+HOP_PLAIN_CHUNKS = 8
 # The path: batch 1 x 8 heads of 64 at L = 32768 (the tower's max_len).
 LONGCTX_BATCH, LONGCTX_LEN, LONGCTX_BH, LONGCTX_HEAD_DIM = 1, 32768, 8, 64
 LONGCTX_PASSES = 3
@@ -472,8 +492,10 @@ def phase_build() -> None:
     logs = _build.build()
     print(f"[build] {len(_build.SOURCES)} kernel source(s) ready in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
+    for name in _build.SOURCES:
+        if name not in logs:
+            print(f"[build] {name}: built before this run, no ptxas report")
+        for line in logs.get(name, "").splitlines():
             if any(key in line for key in ("entry function", "registers",
                                            "spill")):
                 print(f"[build] {name}: {line.strip()}")
@@ -490,6 +512,19 @@ def _qkv(shape, dtype, seed):
                            device="cuda").to(getattr(torch, dtype))
 
     return rand(shape["lq"]), rand(shape["lk"]), rand(shape["lk"])
+
+
+def _forward_rounded_twice(q, k, v):
+    """The truth gate's control: the plain forward's arithmetic with one
+    rounding more, the unnormalized accumulator stored in v's dtype
+    before the division (an epilogue that kept acc in bf16)."""
+    import torch
+
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        / q.shape[-1] ** 0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    acc = torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
+    return (acc.float() / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
 def phase_kernels() -> dict:
@@ -522,6 +557,32 @@ def phase_kernels() -> dict:
                  f"in case {name}")
         if name == "serve_bf16":
             serve_err = o_err
+
+    for seed in TRUTH_SEEDS:
+        q, k, v = _qkv(TRAIN_SHAPE, "bfloat16", seed=seed)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        truth = torch.softmax(scores / TRAIN_SHAPE["d"] ** 0.5, -1) \
+            @ v.float()
+        del scores
+        outs = {"kernel": attention.flash_attention_fwd(q, k, v)[0],
+                "plain": attention.attention_plain(q, k, v)[0],
+                "control": _forward_rounded_twice(q, k, v)}
+        rms = {name: (o.float() - truth).pow(2).mean().sqrt().item()
+               for name, o in outs.items()}
+        ratio = rms["kernel"] / rms["plain"]
+        control = rms["control"] / rms["plain"]
+        ok = ratio <= TRUTH_RMS_FACTOR < control
+        print(f"[kernel] train_bf16 seed {seed} against an fp32 truth: rms "
+              f"error kernel {rms['kernel']:.6e}, plain version "
+              f"{rms['plain']:.6e}, ratio {ratio:.5f} (at most "
+              f"{TRUTH_RMS_FACTOR:g}); the control rounding acc once more "
+              f"{rms['control']:.6e}, ratio {control:.5f} (must exceed it) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"flash_attention_fwd's bf16 output against the fp32 truth "
+                 f"(seed {seed}): ratio {ratio:.5f}, control {control:.5f}, "
+                 f"factor {TRUTH_RMS_FACTOR:g}")
+        del q, k, v, truth, outs
 
     times = {}
     for label, s in (("serve", SERVE_SHAPE), ("train", TRAIN_SHAPE)):
@@ -775,6 +836,21 @@ def phase_flash_backward() -> list[dict]:
             errs = {"flash_attention_dq": dq_err,
                     "flash_attention_dkv": dkv_err}
         del args, dq, dk, dv, dq_ref, dk_ref, dv_ref
+
+    # A ring hop wholly after its queries: every kv tile of dK/dV has no
+    # live q tile and must write zeros bit for bit.
+    for dtype in ("bfloat16", "float32"):
+        shape = dict(b=1, lq=1024, lk=1024, h=8, d=64)
+        args, kw = _bwd_inputs(shape, dtype, True, 0, 1024, 400)
+        dk, dv = attention.flash_attention_dkv(*args, **kw)
+        torch.cuda.synchronize()
+        zeros = bool(torch.equal(dk, torch.zeros_like(dk))
+                     and torch.equal(dv, torch.zeros_like(dv)))
+        print(f"[kernel] flash backward wholly masked hop ({dtype}): dk, dv "
+              f"zero bit for bit: {zeros}", flush=True)
+        if not zeros:
+            fail(f"flash_attention_dkv wrote nonzeros on a wholly masked hop "
+                 f"({dtype})")
 
     s = TRAIN_SHAPE
     args, kw = _bwd_inputs(s, "bfloat16", False, 0, 0, 300)
@@ -2241,6 +2317,68 @@ def _flat_qkv(bh, lq, lk, d, dtype, seed):
                  for n in (lq, lk, lk))
 
 
+def _hop_backward(q, k, v, do) -> dict:
+    """#13 and #14 at a causal hop (q_offset = k_offset = 0) against their
+    plain versions, run in q-row chunks that fit the card: the true lse
+    and delta from the plain forward of each chunk; dq joined and (dk,
+    dv) summed over the chunks. Returns the stats, the max|err| and
+    |a - b| / |b| of each, the control (the plain sums without the first
+    q chunk, which must miss) and the plain versions' times."""
+    import torch
+
+    from ntxent_tpu_torch.ops import attention as A
+    from ntxent_tpu_torch.utils.profiling import cuda_time_ms
+
+    rows = q.shape[1] // HOP_PLAIN_CHUNKS
+    parts = [(c * rows, slice(c * rows, (c + 1) * rows))
+             for c in range(HOP_PLAIN_CHUNKS)]
+    lse, delta = [], []
+    for off, sl in parts:
+        o, chunk_lse = A.attention_plain(q[:, sl], k, v, causal=True,
+                                         q_offset=off)
+        lse.append(chunk_lse)
+        delta.append((do[:, sl].float() * o.float()).sum(-1))
+        del o
+    lse, delta = torch.cat(lse, 1), torch.cat(delta, 1)
+
+    def chunk(off, sl):
+        return ((q[:, sl], k, v, do[:, sl], lse[:, sl], delta[:, sl]),
+                dict(causal=True, q_offset=off))
+
+    def plain_dq(chunks=parts):
+        return torch.cat([A.attention_dq_plain(*a, **kw)
+                          for a, kw in (chunk(*p) for p in chunks)], 1)
+
+    def plain_dkv(chunks=parts):
+        dk = dv = 0
+        for a, kw in (chunk(*p) for p in chunks):
+            gk, gv = A.attention_dkv_plain(*a, **kw)
+            dk, dv = dk + gk, dv + gv
+        return dk, dv
+
+    dq_want, (dk_want, dv_want) = plain_dq(), plain_dkv()
+    dq_plain_ms = cuda_time_ms(plain_dq, runs=1, warmup=0)
+    dkv_plain_ms = cuda_time_ms(plain_dkv, runs=1, warmup=0)
+    kw = dict(causal=True, q_offset=0, k_offset=0)
+    dq = A.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = A.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    out = {"stats": (lse, delta), "dq_plain_ms": dq_plain_ms,
+           "dkv_plain_ms": dkv_plain_ms,
+           "dq_err": (dq - dq_want).abs().max().item(),
+           "dq_rel": _rel(dq, dq_want),
+           "dkv_err": max((dk - dk_want).abs().max().item(),
+                          (dv - dv_want).abs().max().item()),
+           "dkv_rel": max(_rel(dk, dk_want), _rel(dv, dv_want))}
+    dq_want = torch.cat([torch.zeros_like(dq_want[:, parts[0][1]]),
+                         plain_dq(parts[1:])], 1)
+    dk_want, dv_want = plain_dkv(parts[1:])
+    out["dq_control"] = (dq - dq_want).abs().max().item()
+    out["dkv_control"] = max((dk - dk_want).abs().max().item(),
+                             (dv - dv_want).abs().max().item())
+    return out
+
+
 def phase_fold_kernel() -> tuple[dict, dict]:
     """flash_fold (#12) against flash_fold_plain: consecutive folds with a
     carried state at every case's offsets, then a block wholly after the
@@ -2249,8 +2387,9 @@ def phase_fold_kernel() -> tuple[dict, dict]:
     the long-context path's world-1 hop and at the P = 4 hop, the kernel
     against the plain version (run in row chunks), its time beside its
     bound and the plain version's; the dQ and dK/dV kernels (#13, #14) at
-    the same hops. Returns #12's entry and the ring times of #13/#14."""
+    the same hops against theirs (``_hop_backward``). Returns #12's entry and the ring times of #13/#14."""
     import torch
+    import torch.nn.functional as F
 
     from ntxent_tpu_torch.ops import attention as A
     from ntxent_tpu_torch.utils.capability import set_fp32_precision
@@ -2299,14 +2438,14 @@ def phase_fold_kernel() -> tuple[dict, dict]:
         got = A.flash_fold(q, k, v, *carry, **kw)
         ms = cuda_time_ms(lambda: A.flash_fold(q, k, v, *carry, **kw),
                           runs=5, warmup=1)
-        rows = length // FOLD_PLAIN_CHUNKS
+        rows = length // HOP_PLAIN_CHUNKS
 
         def plain():  # the same work in row chunks that fit the card
             parts = [A.flash_fold_plain(
                 q[:, sl], k, v, carry[0][:, sl], carry[1][:, sl],
                 carry[2][:, sl], q_offset=c * rows, k_offset=0, causal=True)
                 for c, sl in ((c, slice(c * rows, (c + 1) * rows))
-                              for c in range(FOLD_PLAIN_CHUNKS))]
+                              for c in range(HOP_PLAIN_CHUNKS))]
             return tuple(torch.cat(t, dim=1) for t in zip(*parts))
 
         want = plain()
@@ -2317,12 +2456,24 @@ def phase_fold_kernel() -> tuple[dict, dict]:
         pairs = _causal_pairs(length, length, 0, 0)
         bound = _fold_bound(bh, length, length, d, 2, pairs, PEAK_BF16_FLOPS)
         do = _flat_qkv(bh, length, length, d, "bfloat16", 701)[0]
-        lse = torch.zeros(bh, length, device="cuda")
-        delta = torch.zeros(bh, length, device="cuda")
+        bwd = _hop_backward(q, k, v, do)
+        stats = bwd.pop("stats")
         dq_ms = cuda_time_ms(lambda: A.flash_attention_dq(
-            q, k, v, do, lse, delta, **kw), runs=3, warmup=1)
+            q, k, v, do, *stats, **kw), runs=3, warmup=1)
         dkv_ms = cuda_time_ms(lambda: A.flash_attention_dkv(
-            q, k, v, do, lse, delta, **kw), runs=3, warmup=1)
+            q, k, v, do, *stats, **kw), runs=3, warmup=1)
+        # SDPA's causal attention of the same (1, 8, L, 64) block: its
+        # forward, and its backward (dq, dk, dv in one call), the library
+        # time of #13 and #14 at the hop; the port never calls it.
+        q4, k4, v4, do4 = (t.view(1, bh, length, d).detach().requires_grad_()
+                           for t in (q, k, v, do))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        sdpa_fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), runs=3, warmup=1)
+        sdpa_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            out4, (q4, k4, v4), do4.detach(), retain_graph=True), runs=3,
+            warmup=1)
+        del q4, k4, v4, do4, out4
         inputs = 4 * bh * length * d * 2 + 2 * bh * length * 4
         dq_bound = _bound(inputs + bh * length * d * 4,
                           3 * 2 * d * bh * pairs, PEAK_BF16_FLOPS)
@@ -2332,18 +2483,38 @@ def phase_fold_kernel() -> tuple[dict, dict]:
               f"causal, q_offset = k_offset = 0): against the plain version "
               f"{_fold_report(errs, 'bfloat16')} {'ok' if ok else 'MISMATCH'}"
               f"; flash_fold {ms:.4f} ms (plain {plain_ms:.4f} ms in "
-              f"{FOLD_PLAIN_CHUNKS} row chunks, bound {bound[0]:.4f} by "
+              f"{HOP_PLAIN_CHUNKS} row chunks, bound {bound[0]:.4f} by "
               f"{bound[1]}; no single PyTorch call folds into a carried "
               f"state); flash_attention_dq {dq_ms:.4f} ms (bound "
               f"{dq_bound[0]:.4f}), flash_attention_dkv {dkv_ms:.4f} ms "
-              f"(bound {dkv_bound[0]:.4f})", flush=True)
+              f"(bound {dkv_bound[0]:.4f}); SDPA causal forward "
+              f"{sdpa_fwd_ms:.4f} ms, backward (dq, dk, dv together) "
+              f"{sdpa_bwd_ms:.4f} ms", flush=True)
         if not ok:
             fail(f"flash_fold disagrees with its plain version at the "
                  f"{label} hop")
+        tol = BWD_ATOL["bfloat16"]
+        bwd_ok = (bwd["dq_err"] <= tol["dq"] < bwd["dq_control"]
+                  and bwd["dkv_err"] <= tol["dkv"] < bwd["dkv_control"])
+        print(f"[fold-kernel] {label} hop backward against the plain "
+              f"versions (true lse and delta, {HOP_PLAIN_CHUNKS} q-row "
+              f"chunks): dq max|err| {bwd['dq_err']:.3e} (atol "
+              f"{tol['dq']:g}), |a - b| / |b| {bwd['dq_rel']:.2e}; dk/dv "
+              f"max|err| {bwd['dkv_err']:.3e} (atol {tol['dkv']:g}), "
+              f"|a - b| / |b| {bwd['dkv_rel']:.2e}; without the first q "
+              f"chunk the plain dq would miss by {bwd['dq_control']:.3e} and "
+              f"dk/dv by {bwd['dkv_control']:.3e}; plain dq "
+              f"{bwd['dq_plain_ms']:.4f} ms, plain dk/dv "
+              f"{bwd['dkv_plain_ms']:.4f} ms {'ok' if bwd_ok else 'MISMATCH'}",
+              flush=True)
+        if not bwd_ok:
+            fail(f"flash_attention_dq/_dkv disagree with their plain versions "
+                 f"at the {label} hop, or the control did not miss")
         times[label] = dict(ms=ms, plain_ms=plain_ms, bound=bound,
                             err=errs[3], dq=(dq_ms, dq_bound),
-                            dkv=(dkv_ms, dkv_bound))
-        del q, k, v, do, carry
+                            dkv=(dkv_ms, dkv_bound), sdpa_fwd=sdpa_fwd_ms,
+                            sdpa_bwd=sdpa_bwd_ms, bwd=bwd)
+        del q, k, v, do, carry, stats
         torch.cuda.empty_cache()
     path, p4 = times["path"], times["p4_hop"]
     entry = {"name": "flash_fold", "route": "cuda",
@@ -2355,11 +2526,20 @@ def phase_fold_kernel() -> tuple[dict, dict]:
              "bound_ms": path["bound"][0], "bound_by": path["bound"][1],
              "library_ms": None, "p4_hop_ms": p4["ms"],
              "p4_hop_plain_ms": p4["plain_ms"],
-             "p4_hop_bound_ms": p4["bound"][0]}
+             "p4_hop_bound_ms": p4["bound"][0],
+             # SDPA's whole causal attention, not a fold: a yardstick only
+             "longctx_hop_sdpa_fwd_ms": path["sdpa_fwd"],
+             "p4_hop_sdpa_fwd_ms": p4["sdpa_fwd"]}
     ring = {name: {"longctx_hop_ms": path[key][0],
+                   "longctx_hop_plain_ms": path["bwd"][f"{key}_plain_ms"],
                    "longctx_hop_bound_ms": path[key][1][0],
+                   "longctx_hop_library_ms": path["sdpa_bwd"],
+                   "longctx_hop_max_abs_err": path["bwd"][f"{key}_err"],
                    "p4_hop_ms": p4[key][0],
-                   "p4_hop_bound_ms": p4[key][1][0]}
+                   "p4_hop_plain_ms": p4["bwd"][f"{key}_plain_ms"],
+                   "p4_hop_bound_ms": p4[key][1][0],
+                   "p4_hop_library_ms": p4["sdpa_bwd"],
+                   "p4_hop_max_abs_err": p4["bwd"][f"{key}_err"]}
             for name, key in (("flash_attention_dq", "dq"),
                               ("flash_attention_dkv", "dkv"))}
     return entry, ring

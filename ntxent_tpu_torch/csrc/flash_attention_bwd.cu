@@ -17,45 +17,70 @@
 //         (attention_pallas.py:153);
 //   dv  = sum_i p^T . dO,  dk = sum_i ds^T . Q  -- in fp32, as the TPU
 //         kernel computes them (attention_pallas.py:191-204).
-// All three outputs are fp32; the caller casts them to the input dtype.
-// Tiles that lie entirely above the causal diagonal are skipped.
+// All three outputs are fp32 (the ring sums dk and dv across hops); the
+// caller casts them to the input dtype. Tiles that lie entirely above the
+// causal diagonal are skipped.
 //
-// Design. The TPU grids walk their innermost axis sequentially with the
-// accumulator in VMEM scratch. Here that axis is a loop inside one CTA:
-// dQ has one CTA per (b*h, 64-row q tile) looping over kv tiles; dK/dV one
-// CTA per (b*h, 64-row kv tile) looping over q tiles, as the TPU grid's
-// innermost axis does. 4 warps; every tile is staged once in shared memory
-// per loop step.
-//   bf16: s = Q K^T and dp = dO V^T run on the tensor cores (WMMA 16x16x16,
-//   fp32 accumulate; bf16 x bf16 products are exact in fp32, so these
-//   equal the TPU kernel's fp32 products of widened inputs up to summation
-//   order). ds is rounded to bf16 for ds . K exactly as the TPU kernel
-//   rounds it. For dV and dK the TPU kernel keeps p and ds in fp32; the
-//   tensor cores take bf16, so each is split into hi = bf16(x) and
-//   lo = bf16(x - hi) and both halves are multiplied (p^T dO = p_hi^T dO +
-//   p_lo^T dO): the operand keeps ~16 mantissa bits instead of 8, a
-//   relative error near 2^-17 per product, far inside the bf16 rounding of
-//   the final dk/dv.
-//   fp32: every product is plain FMA (no TF32), a lane pair per row.
+// dQ (#13). One CTA per (b*h, 64-row q tile) loops over the kv tiles, as
+// the TPU grid's innermost axis does; 4 warps, each tile staged through
+// shared memory by synchronous 16-byte loads. bf16: s = Q K^T and
+// dp = dO V^T on the tensor cores (WMMA 16x16x16, fp32 accumulate; bf16
+// x bf16 products are exact in fp32, so these equal the TPU kernel's fp32
+// products up to summation order) through shared memory, ds rounded to
+// bf16 for ds . K exactly as the TPU kernel rounds it. fp32: plain FMA
+// (no TF32), a lane pair per row.
+//
+// dK/dV (#14). One CTA per (b*h, 64-row kv tile) loops over the live q
+// tiles, from first_live_q_tile to the end.
+//   bf16 (flash_dkv_kernel_tma; FlashAttention-3's shape): one consumer
+//   warpgroup and one producer warp. The producer loads K and V once by
+//   TMA and streams Q, dO and the q rows' lse and delta through a ring of
+//   kRing shared-memory stages (TMA for the tiles, completing on an
+//   mbarrier; plain loads for the fp32 rows, which TMA cannot describe).
+//   The consumers compute transposed, so that accumulator rows are kv
+//   rows: s^T = K Q^T and dp^T = V dO^T are wgmma m64n64k16 from shared
+//   memory (both operands K-major, as stored); p^T and
+//   ds^T = p^T (dp^T - delta) scale are formed in registers, lse and
+//   delta broadcast along the columns. For dV and dK the TPU kernel keeps
+//   p and ds in fp32; the tensor cores take bf16, so each is split into
+//   hi = bf16(x) and lo = bf16(x - hi) in registers (the pair keeps ~16
+//   mantissa bits, a relative error near 2^-17 per product) and both
+//   halves go in as register A operands of dV += P^T dO and
+//   dK += dS^T Q (wgmma m64nDk16, dO and Q as MN-major B). Nothing of s,
+//   dp, p or ds touches shared memory; dk and dv leave from the
+//   accumulators, one owner per row. A kv tile with no live q tile (a
+//   wholly masked ring hop) loads nothing, waits on nothing and writes
+//   zeros. Causal grids run tile-major across heads, so the heavy small
+//   kv tiles of every head launch first. As in #11 the elementwise work
+//   bounds a tile in practice: exp on the SFU (sm90::exp0), branch-free
+//   masks, and each p/ds pair packed to its fragments as soon as it is
+//   formed (probs_t), which keeps D = 64 within the registers of 2 CTAs
+//   an SM.
+//   fp32: every product is plain FMA (no TF32), a lane pair per kv row.
 //
 // Bound at the training shape (ViT-B/16, batch 256 x 2 views: B*H = 6144,
 // L = 197, D = 64, bf16): dQ does 3 products of 2*B*H*L^2*D = 30.5 GFLOP
 // each (91.6 GFLOP, 93 us at 989 TFLOP/s bf16) over 4 * 155 MB of
-// q/k/v/dO plus 4.8 MB of lse/delta and a 310 MB fp32 dq (1.0 GB, 0.31 ms
-// at 3.35 TB/s): memory-bound. dK/dV does 6 products with the hi/lo split
-// (4 products of the same work counted once, 122 GFLOP) and writes two
-// fp32 outputs (1.24 GB, 0.37 ms): memory-bound too. The loads are
-// synchronous 16-byte copies; cp.async/TMA pipelining and wgmma are later
-// work.
+// q/k/v/dO plus 4.8 MB of lse/delta and a 310 MB fp32 dq (0.94 GB, 0.28
+// ms at 3.35 TB/s): memory-bound. dK/dV does 4 products counted once
+// (122 GFLOP, 0.12 ms) and writes two fp32 outputs (1.25 GB, 0.37 ms):
+// memory-bound too, so its design reads each Q/dO tile once per kv tile
+// with the next stages in flight and keeps every intermediate on chip.
+// At the long-context hop (B*H = 8, L = 32768, D = 64, causal) the live
+// half of the same 4 products is 2.2 TFLOP (2.2 ms): compute-bound, the
+// regime wgmma is for.
 //
 // Supported: float32 or bfloat16, head_dim 64 or 128, contiguous inputs
-// with 16-byte aligned bases. The C entry points return cudaGetLastError().
+// with 16-byte aligned bases. The C entry points return cudaGetLastError()
+// (or the error of building a tensor map).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 
 #include <cstddef>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -166,11 +191,14 @@ __device__ __forceinline__ void wmma_abt(const __nv_bfloat16* a_s,
   }
 }
 
-__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16* hi,
-                                           __nv_bfloat16* lo) {
-  const __nv_bfloat16 h = __float2bfloat16(x);
-  *hi = h;
-  *lo = __float2bfloat16(x - __bfloat162float(h));
+// Two fp32 values as bf16 pairs hi = bf16(x) and lo = bf16(x - hi): the
+// pair keeps ~16 bits of each value.
+__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16(x0);
+  const __nv_bfloat16 h1 = __float2bfloat16(x1);
+  hi = sm90::pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
+  lo = sm90::pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
 }
 
 // Number of kv tiles a causal q tile [q0, q0 + 64) sees (the rest lie above
@@ -360,33 +388,29 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV: one CTA per (b*h, kv tile), looping over q tiles.
+// dK/dV, fp32: one CTA per (b*h, kv tile), looping over q tiles (FMA).
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 struct DkvSmem {
-  using L = Ld<T, D>;
-  static constexpr bool kTc = TensorCore<T>::value;
-  // bf16: s, dp (fp32) + p_hi, p_lo, ds_hi, ds_lo (bf16);
-  // fp32: p^T, ds^T (fp32).
-  static constexpr size_t kWork =
-      kTc ? 2 * L::kScore + 4 * L::kProb : 2 * L::kProb32;
+  using L = Ld<float, D>;
+  static constexpr size_t kWork = 2 * L::kProb32;  // p^T, ds^T (fp32)
   static constexpr size_t kRowStats = 2 * kBlock * sizeof(float);
   static constexpr size_t kBytes = 4 * L::kTile + kWork + kRowStats;
-  static_assert(2 * size_t(kBlock) * L::kO * sizeof(float) <= kBytes,
-                "output staging must fit in the tile buffers");
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int lq, int lk, int kv_tiles,
                      float scale, int causal, int q_off, int k_off) {
+  using T = float;
   using L = Ld<T, D>;
-  using S = DkvSmem<T, D>;
+  using S = DkvSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* k_s = reinterpret_cast<T*>(smem);
   T* v_s = reinterpret_cast<T*>(smem + L::kTile);
@@ -407,24 +431,13 @@ __global__ void __launch_bounds__(kThreads)
   load_tile<T, D>(k_s, k + (size_t(bh) * lk + k0) * D, min(kBlock, lk - k0));
   load_tile<T, D>(v_s, v + (size_t(bh) * lk + k0) * D, min(kBlock, lk - k0));
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float>
-      dk_tc[TensorCore<T>::value ? D / 16 : 1],
-      dv_tc[TensorCore<T>::value ? D / 16 : 1];
-  float dk_acc[TensorCore<T>::value ? 1 : D / 2];
-  float dv_acc[TensorCore<T>::value ? 1 : D / 2];
-  if constexpr (TensorCore<T>::value) {
+  float dk_acc[D / 2];
+  float dv_acc[D / 2];
 #pragma unroll
-    for (int t = 0; t < D / 16; ++t) {
-      wmma::fill_fragment(dk_tc[t], 0.f);
-      wmma::fill_fragment(dv_tc[t], 0.f);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  }
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-  // A lane pair owns one row: a q row of the score tile (bf16) or a kv
-  // row of the transposed tile (fp32); `half` picks 32 of its 64 columns.
+  // A lane pair owns one kv row of the transposed tile; `half` picks 32
+  // of its 64 q columns.
   const int row = warp * kRowsPerWarp + lane / 2;
   const int half = lane & 1;
 
@@ -442,131 +455,277 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    if constexpr (TensorCore<T>::value) {
-      float* s_s = reinterpret_cast<float*>(work);
-      float* dp_s = reinterpret_cast<float*>(work + L::kScore);
-      __nv_bfloat16* p_hi =
-          reinterpret_cast<__nv_bfloat16*>(work + 2 * L::kScore);
-      __nv_bfloat16* p_lo = p_hi + kBlock * L::kP;
-      __nv_bfloat16* ds_hi = p_lo + kBlock * L::kP;
-      __nv_bfloat16* ds_lo = ds_hi + kBlock * L::kP;
-      // Rows of s and dp are q rows; each warp fills and reads its own.
-      wmma_abt<D>(q_s, k_s, s_s, warp);
-      wmma_abt<D>(do_s, v_s, dp_s, warp);
-      __syncwarp();
-      const bool q_valid = q0 + row < lq;
-      const int qpos = q_off + q0 + row;
-      const float lse_r = lse_s[row];
-      const float delta_r = delta_s[row];
-#pragma unroll 8
-      for (int c = 0; c < kHalfCols; ++c) {
-        const int col = half * kHalfCols + c;
-        const int kcol = k0 + col;
-        float s = s_s[row * L::kS + col] * scale;
-        if (kcol >= lk) s = kNegInf;
-        if (causal && k_off + kcol > qpos) s = kNegInf;
-        float p = prob(s, lse_r);
-        float ds = p * (dp_s[row * L::kS + col] - delta_r) * scale;
-        if (!q_valid) p = ds = 0.f;
-        split_bf16(p, p_hi + row * L::kP + col, p_lo + row * L::kP + col);
-        split_bf16(ds, ds_hi + row * L::kP + col, ds_lo + row * L::kP + col);
-      }
-      __syncthreads();  // dV/dK below read every warp's q rows
-      // This warp's 16 kv rows: dV += P^T dO, dK += dS^T Q over 64 q rows.
-#pragma unroll
-      for (int kk = 0; kk < kBlock; kk += 16) {
-        // P^T as a column-major A: element (kv i, q j) = P[j][i].
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major>
-            a_hi, a_lo, b_hi, b_lo;
-        const int off = kk * L::kP + warp * kRowsPerWarp;
-        wmma::load_matrix_sync(a_hi, p_hi + off, L::kP);
-        wmma::load_matrix_sync(a_lo, p_lo + off, L::kP);
-        wmma::load_matrix_sync(b_hi, ds_hi + off, L::kP);
-        wmma::load_matrix_sync(b_lo, ds_lo + off, L::kP);
-#pragma unroll
-        for (int t = 0; t < D / 16; ++t) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              m;
-          wmma::load_matrix_sync(m, do_s + kk * L::kT + t * 16, L::kT);
-          wmma::mma_sync(dv_tc[t], a_hi, m, dv_tc[t]);
-          wmma::mma_sync(dv_tc[t], a_lo, m, dv_tc[t]);
-          wmma::load_matrix_sync(m, q_s + kk * L::kT + t * 16, L::kT);
-          wmma::mma_sync(dk_tc[t], b_hi, m, dk_tc[t]);
-          wmma::mma_sync(dk_tc[t], b_lo, m, dk_tc[t]);
-        }
-      }
-    } else {
-      float* pt_s = reinterpret_cast<float*>(work);             // [kv][q]
-      float* dst_s = reinterpret_cast<float*>(work + L::kProb32);
-      const int kcol = k0 + row;
-      const T* k_row = k_s + row * L::kT;
-      const T* v_row = v_s + row * L::kT;
-      for (int c = 0; c < kHalfCols; ++c) {
-        const int qc = half * kHalfCols + c;
-        const T* q_row = q_s + qc * L::kT;
-        const T* do_row = do_s + qc * L::kT;
-        float s = 0.f;
-        float dp = 0.f;
+    float* pt_s = reinterpret_cast<float*>(work);             // [kv][q]
+    float* dst_s = reinterpret_cast<float*>(work + L::kProb32);
+    const int kcol = k0 + row;
+    const T* k_row = k_s + row * L::kT;
+    const T* v_row = v_s + row * L::kT;
+    for (int c = 0; c < kHalfCols; ++c) {
+      const int qc = half * kHalfCols + c;
+      const T* q_row = q_s + qc * L::kT;
+      const T* do_row = do_s + qc * L::kT;
+      float s = 0.f;
+      float dp = 0.f;
 #pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(to_float(q_row[d]), to_float(k_row[d]), s);
-          dp = fmaf(to_float(do_row[d]), to_float(v_row[d]), dp);
-        }
-        s *= scale;
-        if (kcol >= lk) s = kNegInf;
-        if (causal && k_off + kcol > q_off + q0 + qc) s = kNegInf;
-        float p = prob(s, lse_s[qc]);
-        float ds = p * (dp - delta_s[qc]) * scale;
-        if (q0 + qc >= lq) p = ds = 0.f;
-        pt_s[row * L::kS + qc] = p;
-        dst_s[row * L::kS + qc] = ds;
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(to_float(q_row[d]), to_float(k_row[d]), s);
+        dp = fmaf(to_float(do_row[d]), to_float(v_row[d]), dp);
       }
-      __syncwarp();
-      const float* p_row = pt_s + row * L::kS;
-      const float* ds_row = dst_s + row * L::kS;
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
-        const int d = half * (D / 2) + i;
-        float av = dv_acc[i];
-        float ak = dk_acc[i];
-#pragma unroll 16
-        for (int c = 0; c < kBlock; ++c) {
-          av = fmaf(p_row[c], to_float(do_s[c * L::kT + d]), av);
-          ak = fmaf(ds_row[c], to_float(q_s[c * L::kT + d]), ak);
-        }
-        dv_acc[i] = av;
-        dk_acc[i] = ak;
-      }
-      __syncwarp();
+      s *= scale;
+      if (kcol >= lk) s = kNegInf;
+      if (causal && k_off + kcol > q_off + q0 + qc) s = kNegInf;
+      float p = prob(s, lse_s[qc]);
+      float ds = p * (dp - delta_s[qc]) * scale;
+      if (q0 + qc >= lq) p = ds = 0.f;
+      pt_s[row * L::kS + qc] = p;
+      dst_s[row * L::kS + qc] = ds;
     }
+    __syncwarp();
+    const float* p_row = pt_s + row * L::kS;
+    const float* ds_row = dst_s + row * L::kS;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      const int d = half * (D / 2) + i;
+      float av = dv_acc[i];
+      float ak = dk_acc[i];
+#pragma unroll 16
+      for (int c = 0; c < kBlock; ++c) {
+        av = fmaf(p_row[c], to_float(do_s[c * L::kT + d]), av);
+        ak = fmaf(ds_row[c], to_float(q_s[c * L::kT + d]), ak);
+      }
+      dv_acc[i] = av;
+      dk_acc[i] = ak;
+    }
+    __syncwarp();
   }
-  __syncthreads();  // every warp is done with the tiles: reuse them below
+  __syncthreads();
 
   const int rows = min(kBlock, lk - k0);
   float* dk_out = dk + (size_t(bh) * lk + k0) * D;
   float* dv_out = dv + (size_t(bh) * lk + k0) * D;
-  if constexpr (TensorCore<T>::value) {
-    float* stage_k = reinterpret_cast<float*>(smem);
-    float* stage_v = stage_k + kBlock * L::kO;
-#pragma unroll
-    for (int t = 0; t < D / 16; ++t) {
-      wmma::store_matrix_sync(stage_k + warp * kRowsPerWarp * L::kO + t * 16,
-                              dk_tc[t], L::kO, wmma::mem_row_major);
-      wmma::store_matrix_sync(stage_v + warp * kRowsPerWarp * L::kO + t * 16,
-                              dv_tc[t], L::kO, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int e = tid; e < rows * D; e += kThreads) {
-      dk_out[e] = stage_k[(e / D) * L::kO + e % D];
-      dv_out[e] = stage_v[(e / D) * L::kO + e % D];
-    }
-  } else if (row < rows) {
+  if (row < rows) {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) {
       dk_out[size_t(row) * D + half * (D / 2) + i] = dk_acc[i];
       dv_out[size_t(row) * D + half * (D / 2) + i] = dv_acc[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV, bf16: TMA ring, producer warp, wgmma consumer warpgroup.
+// ---------------------------------------------------------------------------
+
+constexpr int kRing = 3;  // Q/dO/lse/delta ring depth
+
+template <int D>
+struct DkvTmaSmem {
+  static constexpr int kTile = kBlock * D * 2;  // one 64-row bf16 tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kTile;
+  // stage s: Q at kQ + 2 s kTile, dO after it
+  static constexpr int kQ = 2 * kTile;
+  static constexpr int kStats = kQ + 2 * kRing * kTile;  // stage s: lse, delta
+  static constexpr int kBars = kStats + kRing * 2 * kBlock * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * kRing) * 8;
+  static constexpr int kLaunch = kBytes + 1024;  // room to align to 1024
+};
+
+// p^T and ds^T of one 64 x 64 tile from s^T and dp^T, split into
+// hi = bf16(x) and lo = bf16(x - hi) pairs as the register A operands of
+// dV += P^T dO and dK += dS^T Q. This thread holds kv rows at positions
+// kv and kv + 8 and q columns 8g + c and 8g + c + 1 of every 8-column
+// group g, whose lse and delta are in st[0, 64) and st[64, 128); each
+// pair is packed as soon as it is formed, so s^T and dp^T die as the
+// fragments grow. The masks are branch-free and run on every tile: a
+// second copy without them for interior tiles measured no faster and
+// spilled at D = 64.
+__device__ __forceinline__ void probs_t(
+    const float (&sc)[32], const float (&dp)[32], const float* st,
+    float scale, int q0, int kv, int c, int lq, int lk, int causal,
+    int q_off, int k_off, uint32_t (&p_hi)[16], uint32_t (&p_lo)[16],
+    uint32_t (&ds_hi)[16], uint32_t (&ds_lo)[16]) {
+  // Column n = 8g + e holds query q0 + c + n: past Lq when n >= past; row
+  // h's key comes after it (causal) when n < before[h].
+  const int past = lq - q0 - c;
+  const int before[2] = {k_off + kv - q_off - q0 - c,
+                         k_off + kv + 8 - q_off - q0 - c};
+  const bool row_past[2] = {kv >= lk, kv + 8 >= lk};
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const float2 lse_q = *reinterpret_cast<const float2*>(st + c + 8 * g);
+    const float2 delta_q =
+        *reinterpret_cast<const float2*>(st + kBlock + c + 8 * g);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * g + e;
+        float x = sc[4 * g + 2 * h + e] * scale;
+        x = (row_past[h] | (causal & (n < before[h]))) ? kNegInf : x;
+        const float lse_e = e ? lse_q.y : lse_q.x;
+        const float delta_e = e ? delta_q.y : delta_q.x;
+        p[e] = x <= kNegInf * 0.5f ? 0.f : sm90::exp0(x - lse_e);
+        ds[e] = p[e] * (dp[4 * g + 2 * h + e] - delta_e) * scale;
+        p[e] = n >= past ? 0.f : p[e];
+        ds[e] = n >= past ? 0.f : ds[e];
+      }
+      split_pack(p[0], p[1], p_hi[2 * g + h], p_lo[2 * g + h]);
+      split_pack(ds[0], ds[1], ds_hi[2 * g + h], ds_lo[2 * g + h]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads, D == 64 ? 2 : 1)
+    flash_dkv_kernel_tma(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int bh_count, int lq, int lk, int kv_tiles,
+                         float scale, int causal, int q_off, int k_off) {
+  using L = DkvTmaSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::aligned_smem(smem_raw);
+  float* stats = reinterpret_cast<float*>(smem + L::kStats);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;   // a Q/dO/lse/delta stage has landed
+  uint64_t* empty = full + kRing;  // the consumers are done with it
+
+  // Causal: kv tile j walks the q tiles from about j to the end, so a small
+  // j is heavy; tile-major order launches every head's heavy tiles first.
+  // Otherwise head-major, so a head's CTAs share its Q and dO in L2.
+  const int bh = causal ? blockIdx.x % bh_count : blockIdx.x / kv_tiles;
+  const int k0 = (causal ? blockIdx.x / bh_count : blockIdx.x % kv_tiles) *
+                 kBlock;
+  const int first = first_live_q_tile(causal, q_off, k_off, k0);
+  const int n = (lq + kBlock - 1) / kBlock - first;  // <= 0: wholly masked
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::bar_init(kv_full, 1);
+    for (int s = 0; s < kRing; ++s) {
+      sm90::bar_init(&full[s], 32 + 1);  // 32 lanes' copies + lane 0's TMA
+      sm90::bar_init(&empty[s], sm90::kWarpgroup);
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= sm90::kWarpgroup) {
+    // The producer warp: lane 0 issues TMA; every lane copies its share of
+    // the stage's lse and delta by cp.async (a (B*H, Lq) fp32 row is no
+    // TMA tensor at Lq = 197: its 788-byte stride is not a multiple of 16)
+    // and arrives when its copies land, so no lane waits on a load.
+    const int lane = tid - sm90::kWarpgroup;
+    if (n > 0 && lane == 0) {
+      sm90::prefetch_map(&tm_q);
+      sm90::prefetch_map(&tm_do);
+      sm90::bar_expect(kv_full, 2 * L::kTile);
+      sm90::tma_tile<D>(smem + L::kK, &tm_k, kv_full, k0, bh);
+      sm90::tma_tile<D>(smem + L::kV, &tm_v, kv_full, k0, bh);
+    }
+    for (int t = 0; t < n; ++t) {
+      const int s = t % kRing;
+      if (t >= kRing) sm90::bar_wait(&empty[s], (t / kRing - 1) & 1);
+      const int q0 = (first + t) * kBlock;
+      float* st = stats + s * 2 * kBlock;
+      for (int i = lane; i < kBlock; i += 32) {
+        const bool valid = q0 + i < lq;
+        const size_t at = valid ? size_t(bh) * lq + q0 + i : 0;
+        sm90::copy_word(st + i, lse + at, valid);  // 0 past Lq
+        sm90::copy_word(st + kBlock + i, delta + at, valid);
+      }
+      sm90::bar_arrive_copies(&full[s]);
+      if (lane == 0) {
+        unsigned char* q_s = smem + L::kQ + 2 * s * L::kTile;
+        sm90::bar_expect(&full[s], 2 * L::kTile);
+        sm90::tma_tile<D>(q_s, &tm_q, &full[s], q0, bh);
+        sm90::tma_tile<D>(q_s + L::kTile, &tm_do, &full[s], q0, bh);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup computes transposed, so that accumulator rows
+  // are kv rows: this thread holds kv rows r and r + 8 of the tile and q
+  // columns 8i + c and 8i + c + 1.
+  const int lane = tid % 32;
+  const int r = (tid / 32) * 16 + lane / 4;
+  const int c = 2 * (lane % 4);
+  float dk_acc[D / 2];
+  float dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  if (n > 0) sm90::bar_wait(kv_full, 0);
+  for (int t = 0; t < n; ++t) {
+    const int s = t % kRing;
+    sm90::bar_wait(&full[s], (t / kRing) & 1);
+    const unsigned char* q_s = smem + L::kQ + 2 * s * L::kTile;
+    const unsigned char* do_s = q_s + L::kTile;
+    const float* st = stats + s * 2 * kBlock;
+    const int q0 = (first + t) * kBlock;
+
+    float sc[32];  // s^T = K Q^T
+    float dp[32];  // dp^T = V dO^T
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      sm90::mma_ss_n64(sc, sm90::desc_k(smem + L::kK, kk),
+                       sm90::desc_k(q_s, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      sm90::mma_ss_n64(dp, sm90::desc_k(smem + L::kV, kk),
+                       sm90::desc_k(do_s, kk), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::hold(sc);
+    sm90::hold(dp);
+
+    uint32_t p_hi[16], p_lo[16], ds_hi[16], ds_lo[16];
+    probs_t(sc, dp, st, scale, q0, k0 + r, c, lq, lk, causal, q_off, k_off,
+            p_hi, p_lo, ds_hi, ds_lo);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t b_do = sm90::desc_mn(do_s, kk);
+      const uint64_t b_q = sm90::desc_mn(q_s, kk);
+      sm90::mma_rs<D>(dv_acc, p_hi + 4 * kk, b_do);
+      sm90::mma_rs<D>(dv_acc, p_lo + 4 * kk, b_do);
+      sm90::mma_rs<D>(dk_acc, ds_hi + 4 * kk, b_q);
+      sm90::mma_rs<D>(dk_acc, ds_lo + 4 * kk, b_q);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::hold(dv_acc);
+    sm90::hold(dk_acc);
+    sm90::hold(p_hi);
+    sm90::hold(p_lo);
+    sm90::hold(ds_hi);
+    sm90::hold(ds_lo);
+    sm90::bar_arrive(&empty[s]);
+  }
+
+  // One owner per output row: fp32 dk and dv straight from the
+  // accumulators (zeros for a tile with no live q tile).
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kv = k0 + r + 8 * h;
+    if (kv >= lk) continue;
+    float* dk_row = dk + (size_t(bh) * lk + kv) * D + c;
+    float* dv_row = dv + (size_t(bh) * lk + kv) * D + c;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<float2*>(dk_row + 8 * i) =
+          make_float2(dk_acc[4 * i + 2 * h], dk_acc[4 * i + 2 * h + 1]);
+      *reinterpret_cast<float2*>(dv_row + 8 * i) =
+          make_float2(dv_acc[4 * i + 2 * h], dv_acc[4 * i + 2 * h + 1]);
     }
   }
 }
@@ -591,25 +750,52 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int lq, int lk,
                        float scale, int causal, int q_off, int k_off,
                        cudaStream_t stream) {
-  constexpr size_t bytes = DkvSmem<T, D>::kBytes;
+  constexpr size_t bytes = DkvSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const int kv_tiles = (lk + kBlock - 1) / kBlock;
-  flash_dkv_kernel<T, D><<<dim3(bh * kv_tiles), dim3(kThreads), bytes,
-                           stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_dkv_kernel<D><<<dim3(bh * kv_tiles), dim3(kThreads), bytes,
+                        stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), lq, lk, kv_tiles,
       scale, causal, q_off, k_off);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tma(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int bh,
+                           int lq, int lk, float scale, int causal,
+                           int q_off, int k_off, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err = sm90::tensor_map(&tm_q, q, bh, lq, D);
+  if (err == cudaSuccess) err = sm90::tensor_map(&tm_k, k, bh, lk, D);
+  if (err == cudaSuccess) err = sm90::tensor_map(&tm_v, v, bh, lk, D);
+  if (err == cudaSuccess) err = sm90::tensor_map(&tm_do, dout, bh, lq, D);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_dkv_kernel_tma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DkvTmaSmem<D>::kLaunch);
+  }
+  if (err != cudaSuccess) return err;
+  const int kv_tiles = (lk + kBlock - 1) / kBlock;
+  flash_dkv_kernel_tma<D><<<dim3(bh * kv_tiles), dim3(sm90::kThreads),
+                            DkvTmaSmem<D>::kLaunch, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), bh, lq, lk, kv_tiles, scale, causal, q_off,
+      k_off);
   return cudaGetLastError();
 }
 
@@ -649,13 +835,13 @@ extern "C" int ntx_flash_attention_dkv(const void* q, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NTX_DKV(T, D)                                                      \
-  return launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, bh, lq, lk,  \
-                          scale, causal, q_off, k_off, s)
-  if (dtype == 0 && head_dim == 64) NTX_DKV(float, 64);
-  if (dtype == 0 && head_dim == 128) NTX_DKV(float, 128);
-  if (dtype == 1 && head_dim == 64) NTX_DKV(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) NTX_DKV(__nv_bfloat16, 128);
+#define NTX_DKV(launch, D)                                                 \
+  return launch<D>(q, k, v, dout, lse, delta, dk, dv, bh, lq, lk, scale,    \
+                   causal, q_off, k_off, s)
+  if (dtype == 0 && head_dim == 64) NTX_DKV(launch_dkv, 64);
+  if (dtype == 0 && head_dim == 128) NTX_DKV(launch_dkv, 128);
+  if (dtype == 1 && head_dim == 64) NTX_DKV(launch_dkv_tma, 64);
+  if (dtype == 1 && head_dim == 128) NTX_DKV(launch_dkv_tma, 128);
 #undef NTX_DKV
   return cudaErrorInvalidValue;
 }

@@ -29,9 +29,9 @@
 // D = 64, bf16, causal): 2 * 2 * 8 * 32768^2 * 64 / 2 = 1.10 TFLOP, 1.11
 // ms at the bf16 tensor-core peak of 989 TFLOP/s; q, k, v (0.1 GB) and
 // (m, l, acc) in and out (0.27 GB) are 0.11 ms at 3.35 TB/s. The call is
-// compute-bound; like #11 it reads each K/V tile once per q tile with
-// synchronous 16-byte loads and WMMA through shared memory (cp.async/TMA
-// and wgmma are later work).
+// compute-bound; it reads each K/V tile once per q tile with synchronous
+// 16-byte loads and WMMA through shared memory (the TMA/wgmma walk of
+// #11's bf16 variant, flash_attention_sm90.cuh, is later work here).
 //
 // Supported: dtype float32 or bfloat16 for q/k/v, head_dim 64 or 128, q,
 // k, v, acc contiguous (B*H, L, D) and m, l contiguous (B*H, Lq) fp32, all

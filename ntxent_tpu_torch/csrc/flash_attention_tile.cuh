@@ -1,6 +1,7 @@
-// The tile machinery shared by the flash-attention forward
-// (flash_attention_fwd.cu, kernel #11) and the carried-statistics fold
-// (flash_attention_fold.cu, kernel #12).
+// The tile machinery of the carried-statistics fold (flash_attention_fold.cu,
+// kernel #12, both dtypes) and of the fp32 variant of the flash-attention
+// forward (flash_attention_fwd.cu, kernel #11); #11's bf16 variant walks
+// its tiles with TMA and wgmma instead (flash_attention_sm90.cuh).
 //
 // One CTA owns one (batch*head, 64-row q tile); 4 warps, each warp 16 q
 // rows, a lane pair one row. The q tile stays in shared memory; each K/V

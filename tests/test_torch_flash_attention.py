@@ -170,3 +170,31 @@ def test_cuda_kernel_matches_plain_version(dtype, d, causal):
     torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
     assert isinstance(_build.load("flash_attention_fwd"), ctypes.CDLL)
+
+
+# The edges of the bf16 forward kernel's tiles: lengths around the 64-row
+# tile, head_dim 64 and 128, causal with k_offset 70, so the first 70
+# query rows have no live key (o = 0, lse = -1e30 + log(1e-37)) and kv
+# tiles that lie wholly after a q tile are skipped.
+EDGE_LENGTHS = (1, 63, 64, 65, 197, 300)
+EDGE_K_OFFSET = 70
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("length", EDGE_LENGTHS)
+def test_cuda_forward_kernel_edges_match_plain_version(length, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(length + d)
+    q, k, v = (torch.randn(6, length, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    kw = dict(causal=True, q_offset=0, k_offset=EDGE_K_OFFSET)
+    o, lse = tattn.flash_attention_fwd(q, k, v, **kw)
+    o_ref, lse_ref = tattn.attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    dead = min(length, EDGE_K_OFFSET)  # rows with no live key
+    assert torch.all(o[:, :dead] == 0)
+    assert torch.all(lse[:, :dead] <= -1e29)

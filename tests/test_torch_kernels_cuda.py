@@ -223,7 +223,15 @@ def test_flash_backward_rejects_mismatched_shapes():
                               torch.zeros(2, 5))
 
 
+def _included_headers(source):
+    """The csrc/*.cuh headers a kernel source includes."""
+    return [source.parent / line.split('"')[1]
+            for line in source.read_text().splitlines()
+            if line.startswith('#include "')]
+
+
 @pytest.mark.parametrize("name,symbols", [
+    ("flash_attention_fwd", ["ntx_flash_attention_fwd"]),
     ("ntxent_fwd", ["ntx_ntxent_fwd", "ntx_ntxent_fwd_general"]),
     ("ntxent_bwd_sym", ["ntx_ntxent_bwd_sym"]),
     ("ntxent_bwd_general", ["ntx_ntxent_bwd_general_rows",
@@ -247,8 +255,25 @@ def test_training_kernels_build_from_repo_sources(tmp_path, name, symbols):
     assert str(source) in cmd and source.is_file()
     text = source.read_text()
     assert "torch/" not in text and "atomicAdd" not in text
+    for header in _included_headers(source):
+        assert header.suffix == ".cuh" and header.is_file()
+        body = header.read_text()
+        assert "torch/" not in body and "atomicAdd" not in body
     for symbol in symbols:
         assert f'extern "C" int {symbol}(' in text
+
+
+@pytest.mark.parametrize("name", ["flash_attention_fwd",
+                                  "flash_attention_bwd"])
+def test_hopper_flash_kernels_issue_tma_and_wgmma(name):
+    """#11 and #14 load their tiles by TMA and multiply with wgmma (the
+    instructions sit in the csrc/*.cuh header their sources include)."""
+    source = _build.SOURCES[name]
+    text = "\n".join(f.read_text()
+                     for f in [source, *_included_headers(source)])
+    assert "wgmma.mma_async" in text
+    assert "cp.async.bulk.tensor" in text
+    assert "mbarrier" in text
 
 
 def test_flash_attention_carries_gradient_on_the_cpu():
@@ -391,6 +416,56 @@ def test_cuda_flash_backward_kernels_match_plain_versions(case, dtype):
     torch.testing.assert_close(dq, dq_ref, atol=tol["dq"], rtol=0)
     torch.testing.assert_close(dk, dk_ref, atol=tol["dkv"], rtol=0)
     torch.testing.assert_close(dv, dv_ref, atol=tol["dkv"], rtol=0)
+
+
+# The edges of the bf16 dK/dV kernel's tiles: lengths around the 64-row
+# tile, head_dim 64 and 128, causal with k_offset 70, so the first 70
+# query rows have no live key and the kv tiles from position L on have
+# no live query.
+EDGE_LENGTHS = (1, 63, 64, 65, 197, 300)
+EDGE_K_OFFSET = 70
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("length", EDGE_LENGTHS)
+def test_cuda_dkv_kernel_edges_match_plain_version(length, d):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(length + d)
+    q, k, v, do = (torch.randn(6, length, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    kw = dict(causal=True, q_offset=0, k_offset=EDGE_K_OFFSET)
+    o, lse = A.attention_plain(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = A.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+    dk_ref, dv_ref = A.attention_dkv_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dk, dk_ref, atol=BWD_ATOL["bfloat16"]["dkv"],
+                               rtol=0)
+    torch.testing.assert_close(dv, dv_ref, atol=BWD_ATOL["bfloat16"]["dkv"],
+                               rtol=0)
+    # keys after the last query (position length - 1) see no query
+    dead = max(0, length - EDGE_K_OFFSET)
+    assert torch.all(dk[:, dead:] == 0) and torch.all(dv[:, dead:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_dkv_kernel_wholly_masked_hop_gives_exact_zeros(d, dtype):
+    """A ring hop whose keys all come after its queries: every kv tile has
+    no live q tile, loads nothing and writes dk = dv = 0 bit for bit."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v, do = (torch.randn(8, 1024, d, generator=gen, device=dev)
+                   .to(getattr(torch, dtype)) for _ in range(4))
+    lse, delta = (torch.randn(8, 1024, generator=gen, device=dev)
+                  for _ in range(2))
+    dk, dv = A.flash_attention_dkv(q, k, v, do, lse, delta, causal=True,
+                                   q_offset=0, k_offset=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, torch.zeros_like(dk))
+    assert torch.equal(dv, torch.zeros_like(dv))
 
 
 @pytest.mark.cuda
