@@ -11,7 +11,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
 2. build: every CUDA kernel source in ``ntxent_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together, timed; the registers and
    spill bytes ptxas reports for every kernel it compiled (among them
-   the TMA/wgmma #11 and #14 in bf16, at head_dim 64 and 128);
+   the TMA/wgmma #11, #12, #13 and #14 in bf16, at head_dim 64 and
+   128);
 2a. data-parallel InfoNCE kernels: ``infonce_dual_fwd_rect`` (#9's
    rectangular stats-only mode), ``infonce_bwd_rows`` (#5's cross-modal
    mode) and ``infonce_bwd_cols`` (#4) against their plain versions at
@@ -32,7 +33,10 @@ Phases; any failure ends the run with a non-zero exit and no result:
    (2N = 512 and 8192 at D = 128, and a ragged 2N = 1000 at D = 96, in
    fp32 and bf16); ``flash_attention_dq`` and ``flash_attention_dkv``
    (the training shape in bf16 and fp32 and the causal offset cases, and
-   a wholly masked ring hop whose dk and dv must be zero bit for bit) --
+   a wholly masked ring hop whose dk and dv must be zero bit for bit; in
+   bf16 the TMA/wgmma dQ, over four seeds at the training shape, against
+   an fp32 truth as the forward is, its control accumulating dq in bf16)
+   --
    ``infonce_dual_fwd`` and ``infonce_dual_bwd`` (N = 256, 1000, 8192 at
    D = 512 and 128, fp32 and bf16, a logit scale of 17.5 passed as a
    device tensor; the loss bitwise repeatable) -- then CUDA-event times
@@ -54,8 +58,10 @@ Phases; any failure ends the run with a non-zero exit and no result:
 6. step parity: one train step of ViT-B/16 (batch 4) on the card against
    the same step on the CPU (the kernels' plain versions) from identical
    weights and views: loss and relative gradient-norm error, in fp32
-   within fixed tolerances and in the path's bf16 within twice the gap
-   bf16 rounding opens on the CPU itself;
+   within fixed tolerances; the path's bf16 step is printed as a reading
+   beside the gap bf16 rounding opens on the CPU itself (the bf16
+   kernels' accuracy is gated against an fp32 truth in phases 3 and
+   12g);
 7. CLIP train: ``ntxent-train --objective clip --model vit_b16
    --vit-attention flash --image-size 224 --batch 256 --steps 5
    --base-lr 5e-4 --warmup-steps 1`` through ``ntxent_tpu_torch.cli``: a
@@ -124,20 +130,23 @@ Phases; any failure ends the run with a non-zero exit and no result:
    of phase 11 plus ``--dp-loss pair`` in the same NCCL group: exactly
    1/1 launches per step of #7 and #8 and none of any other kernel; and
    in phase 12 the world-1 fp32 pair step against the world-1 strip step;
-12g. the carried-statistics fold kernel ``flash_fold`` (#12) against its
-   plain version: consecutive folds with a carried state at (BH, L, D) =
-   (8, 8192, 64) bf16 non-causal and causal with q_offset == k_offset,
-   (8, 4096, 128) fp32 causal with q_offset > k_offset (partly masked),
-   and a ragged (4, 1000, 64); after each, a block wholly after the rows
-   (q_offset < k_offset) whose carry must come out bit for bit, and a
-   control (the last block folded into a fresh carry must miss); at the
-   long-context path's hop (8, 32768, 64) and the P = 4 hop (8, 8192, 64)
-   against the plain version run in row chunks, and times beside the
-   bound, with the dQ and dK/dV kernels (#13, #14) there, held against
-   their plain versions run in q-row chunks with the true lse and delta
-   (a control without the first chunk must miss), and SDPA's causal
-   forward and backward of the same block (the backward is #13's and
-   #14's library time at the hop);
+12g. the carried-statistics fold kernel ``flash_fold`` (#12; in bf16 the
+   TMA/wgmma walk of #11 with the carry in its register accumulator)
+   against its plain version: consecutive folds with a carried state at
+   (BH, L, D) = (8, 8192, 64) bf16 non-causal and causal with q_offset
+   == k_offset, (8, 4096, 128) fp32 causal with q_offset > k_offset
+   (partly masked), and a ragged (4, 1000, 64); after each, a block
+   wholly after the rows (q_offset < k_offset) whose carry must come out
+   bit for bit, and a control (the last block folded into a fresh carry
+   must miss); over four seeds, two bf16 folds at the P = 4 hop (a past
+   block, then the causal diagonal) against an fp32 truth, its control
+   rounding acc to bf16 between them; at the long-context path's hop (8,
+   32768, 64) and the P = 4 hop (8, 8192, 64) against the plain version
+   run in row chunks, and times beside the bound, with the dQ and dK/dV
+   kernels (#13, #14) there, held against their plain versions run in
+   q-row chunks with the true lse and delta (a control without the first
+   chunk must miss), and SDPA's causal forward and backward of the same
+   block (the backward is #13's and #14's library time at the hop);
 12h. ring attention of P = 2, 4, 8 ranks emulated on one card at (B 1, L
    8192, H 8, D 64), bf16 and fp32, causal and not: the flash ring against
    the jnp ring and flash_attention of the whole sequence (out, dq, dk,
@@ -164,6 +173,11 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``info_nce_fused``;
 13. one JSON line describing each kernel of the paths;
 14. the last line: ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --truth`` runs phases 1 and 2 and then prints the
+three bf16 kernels' fp32-truth readings (#11, #13, #12) without gating
+them: run over the kernels a change replaces, they are the readings a
+gate's factor is set between.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -221,6 +235,22 @@ LSE_ATOL = 1e-3
 # them, near their geometric mean -> 1.1, and the control must exceed it.
 TRUTH_SEEDS = (101, 102, 103, 104)
 TRUTH_RMS_FACTOR = 1.1
+# dQ (#13) and the fold (#12) against an fp32 truth in the same way, each
+# over TRUTH_SEEDS: the same bf16 inputs through fp32 arithmetic with
+# nothing rounded (p, ds and P in fp32). dQ at the training shape, from
+# the plain forward's lse and delta; its control accumulates the plain
+# dq in bf16 across 64-key tiles. The fold: two consecutive folds at the
+# P = 4 hop (FOLD_TRUTH_SHAPE), a whole block of the past and then the
+# causal diagonal block (q_offset == k_offset), normalized to acc / l;
+# its control rounds acc to bf16 between the two folds. On the H100 the
+# WMMA kernels these replaced read: dQ 1.00000 over the four seeds (it
+# rounds ds as the plain version does), its control 1.9604-1.9618; the
+# fold 0.9834-0.9844 (p rounded at a 64-key tile's running maximum), its
+# control 1.3140-1.3253. Each factor sits between its two readings, near
+# their geometric mean.
+DQ_TRUTH_RMS_FACTOR = 1.4
+FOLD_TRUTH_RMS_FACTOR = 1.14
+FOLD_TRUTH_SHAPE = (8, 8192, 64)
 # Embeddings are unit vectors computed in bf16: batching and padding may
 # change the GEMM shapes and so the rounding, never more than this.
 EMBED_ATOL = 2e-2
@@ -275,17 +305,17 @@ STEP_LAUNCHES = {"ntxent_fwd": 1, "ntxent_bwd_sym": 1,
 # fp32: both sides compute in fp32 (FMA kernels, no TF32) and differ by
 # summation order only, amplified through 12 blocks, the projection head
 # and the loss's gradient -> 1e-4 on the loss, 1e-2 on the relative
-# gradient norm. bf16, the path's dtype: at initialization the embeddings
-# of random images nearly coincide (loss ~ log(2B - 1)), so the loss and
-# its gradient are made of differences between embeddings of the size of
-# bf16 rounding, which the two devices round in other places (on one CPU
-# the bf16 step's loss moves by 0.2 with the thread count alone). So the
-# bf16 step is held to twice the gap that bf16 rounding itself opens on
-# the CPU: its bf16 step against its fp32 step, on loss and gradient.
+# gradient norm. bf16, the path's dtype, is a printed reading and no
+# gate: at initialization the embeddings of random images nearly coincide
+# (loss ~ log(2B - 1)), so the loss and its gradient are made of
+# differences between embeddings of the size of bf16 rounding, which the
+# two devices round in other places (on one CPU the bf16 step's loss
+# moves by 0.2 with the thread count alone), and kernels of one accuracy
+# fell on both sides of any limit on it. The bf16 kernels' accuracy is
+# held by their fp32-truth gates (TRUTH_GATES) instead.
 PARITY_BATCH = 4
 PARITY_LOSS_ATOL = 1e-4
 PARITY_GRAD_RTOL = 1e-2
-PARITY_BF16_FACTOR = 2.0
 
 CLIP_STEPS = 5
 CLIP_ARGV = ["--objective", "clip", "--model", "vit_b16", "--vit-attention",
@@ -514,17 +544,140 @@ def _qkv(shape, dtype, seed):
     return rand(shape["lq"]), rand(shape["lk"]), rand(shape["lk"])
 
 
-def _forward_rounded_twice(q, k, v):
-    """The truth gate's control: the plain forward's arithmetic with one
-    rounding more, the unnormalized accumulator stored in v's dtype
-    before the division (an epilogue that kept acc in bf16)."""
+def _fwd_truth_rms(seed: int) -> dict:
+    """#11 at the training shape in bf16 against the fp32 softmax of the
+    same inputs (p never rounded); the control is the plain forward's
+    arithmetic with one rounding more, the unnormalized accumulator
+    stored in v's dtype before the division (an epilogue that kept acc
+    in bf16)."""
     import torch
 
+    from ntxent_tpu_torch.ops import attention
+
+    q, k, v = _qkv(TRAIN_SHAPE, "bfloat16", seed=seed)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
-        / q.shape[-1] ** 0.5
+        / TRAIN_SHAPE["d"] ** 0.5
+    truth = torch.softmax(s, -1) @ v.float()
     p = torch.exp(s - s.amax(-1, keepdim=True))
+    del s
     acc = torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
-    return (acc.float() / p.sum(-1, keepdim=True)).to(q.dtype)
+    control = (acc.float() / p.sum(-1, keepdim=True)).to(q.dtype)
+    del p, acc
+    return {"kernel": _rms(attention.flash_attention_fwd(q, k, v)[0], truth),
+            "plain": _rms(attention.attention_plain(q, k, v)[0], truth),
+            "control": _rms(control, truth)}
+
+
+def _truth_gate(label: str, wrapper: str, rms_of_seed, factor: float,
+                control: str, gate: bool = True) -> None:
+    """Hold a bf16 kernel to an fp32 truth over TRUTH_SEEDS: its rms
+    error over the plain version's must be at most ``factor``, and the
+    control's (one rounding more) must exceed it. ``rms_of_seed(seed)``
+    returns the rms errors of "kernel", "plain" and "control". With
+    ``gate`` false the readings are printed and nothing fails."""
+    for seed in TRUTH_SEEDS:
+        rms = rms_of_seed(seed)
+        ratio = rms["kernel"] / rms["plain"]
+        over = rms["control"] / rms["plain"]
+        ok = ratio <= factor < over
+        verdict = ("ok" if ok else "MISMATCH") if gate else "(not gated)"
+        print(f"[kernel] {label} seed {seed} against an fp32 truth: rms "
+              f"error kernel {rms['kernel']:.6e}, plain version "
+              f"{rms['plain']:.6e}, ratio {ratio:.5f} (at most {factor:g}); "
+              f"the control ({control}) {rms['control']:.6e}, ratio "
+              f"{over:.5f} (must exceed it) {verdict}", flush=True)
+        if gate and not ok:
+            fail(f"{wrapper}'s bf16 result against the fp32 truth (seed "
+                 f"{seed}): ratio {ratio:.5f}, control {over:.5f}, factor "
+                 f"{factor:g}")
+
+
+def _rms(a, b) -> float:
+    return (a.float() - b.float()).pow(2).mean().sqrt().item()
+
+
+def _dq_truth_rms(seed: int) -> dict:
+    """#13 at the training shape in bf16 against dq in fp32 with ds never
+    rounded, from the plain forward's lse and delta; the control
+    accumulates the plain dq in bf16 across 64-key tiles."""
+    import torch
+
+    from ntxent_tpu_torch.ops import attention as A
+
+    q, k, v = _qkv(TRAIN_SHAPE, "bfloat16", seed=seed)
+    do = _qkv(TRAIN_SHAPE, "bfloat16", seed=seed + 1000)[0]
+    o, lse = A.attention_plain(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+    sc = A.resolve_attention_scale(None, q.shape[-1])
+    _, ds = A._bwd_probs(q, k, v, do, lse, delta, sc, False, 0, 0)
+    kf = k.float()
+    truth = torch.matmul(ds, kf)
+    ds = ds.to(k.dtype).float()
+    control = torch.zeros_like(truth, dtype=torch.bfloat16)
+    for j in range(0, k.shape[1], 64):
+        control = (control.float() + torch.matmul(
+            ds[..., j:j + 64], kf[:, j:j + 64])).to(torch.bfloat16)
+    del ds, kf
+    args = (q, k, v, do, lse, delta)
+    return {"kernel": _rms(A.flash_attention_dq(*args), truth),
+            "plain": _rms(A.attention_dq_plain(*args), truth),
+            "control": _rms(control, truth)}
+
+
+def _fold_truth_rms(seed: int) -> dict:
+    """#12 in bf16: two consecutive folds at FOLD_TRUTH_SHAPE (a whole
+    block of the past, then the causal diagonal block), acc / l, against
+    the fp32 softmax of the same inputs over both blocks (P never
+    rounded); the control rounds acc to bf16 between the two folds."""
+    import torch
+
+    from ntxent_tpu_torch.ops import attention as A
+
+    bh, length, d = FOLD_TRUTH_SHAPE
+    q, k1, v1 = _flat_qkv(bh, length, length, d, "bfloat16", seed)
+    _, k2, v2 = _flat_qkv(bh, length, length, d, "bfloat16", seed + 1000)
+    first = dict(q_offset=length, k_offset=0, causal=True)
+    second = dict(q_offset=length, k_offset=length, causal=True)
+
+    def out(carry):
+        return carry[2] / carry[1][..., None]
+
+    kernel = A.flash_fold(q, k1, v1, *_fold_carry(bh, length, d), **first)
+    kernel = out(A.flash_fold(q, k2, v2, *kernel, **second))
+    plain = A.flash_fold_plain(q, k1, v1, *_fold_carry(bh, length, d),
+                               **first)
+    rounded = (plain[0], plain[1], plain[2].to(torch.bfloat16).float())
+    plain = out(A.flash_fold_plain(q, k2, v2, *plain, **second))
+    control = out(A.flash_fold_plain(q, k2, v2, *rounded, **second))
+    del rounded
+    kf, vf = torch.cat([k1, k2], 1).float(), torch.cat([v1, v2], 1).float()
+    sq = {"kernel": 0.0, "plain": 0.0, "control": 0.0}
+    rows = length // 4
+    for r in range(0, length, rows):  # the truth in row chunks
+        s = torch.matmul(q[:, r:r + rows].float(), kf.transpose(-1, -2)) \
+            * d ** -0.5
+        live = torch.arange(2 * length, device=q.device)[None, :] \
+            <= length + r + torch.arange(rows, device=q.device)[:, None]
+        truth = torch.softmax(s.masked_fill(~live, float("-inf")), -1) @ vf
+        del s
+        for name, o in (("kernel", kernel), ("plain", plain),
+                        ("control", control)):
+            sq[name] += (o[:, r:r + rows] - truth).pow(2).sum().item()
+    return {name: (total / kernel.numel()) ** 0.5
+            for name, total in sq.items()}
+
+
+# (label, wrapper, rms of a seed, factor, control) of each bf16 kernel's
+# fp32-truth gate: #11, #13 and #12.
+TRUTH_GATES = [
+    ("train_bf16", "flash_attention_fwd", _fwd_truth_rms, TRUTH_RMS_FACTOR,
+     "acc rounded to bf16 once more"),
+    ("dq train_bf16", "flash_attention_dq", _dq_truth_rms,
+     DQ_TRUTH_RMS_FACTOR, "dq accumulated in bf16 across 64-key tiles"),
+    ("fold P4 hop", "flash_fold", _fold_truth_rms, FOLD_TRUTH_RMS_FACTOR,
+     "acc rounded to bf16 between the two folds"),
+]
 
 
 def phase_kernels() -> dict:
@@ -558,31 +711,7 @@ def phase_kernels() -> dict:
         if name == "serve_bf16":
             serve_err = o_err
 
-    for seed in TRUTH_SEEDS:
-        q, k, v = _qkv(TRAIN_SHAPE, "bfloat16", seed=seed)
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        truth = torch.softmax(scores / TRAIN_SHAPE["d"] ** 0.5, -1) \
-            @ v.float()
-        del scores
-        outs = {"kernel": attention.flash_attention_fwd(q, k, v)[0],
-                "plain": attention.attention_plain(q, k, v)[0],
-                "control": _forward_rounded_twice(q, k, v)}
-        rms = {name: (o.float() - truth).pow(2).mean().sqrt().item()
-               for name, o in outs.items()}
-        ratio = rms["kernel"] / rms["plain"]
-        control = rms["control"] / rms["plain"]
-        ok = ratio <= TRUTH_RMS_FACTOR < control
-        print(f"[kernel] train_bf16 seed {seed} against an fp32 truth: rms "
-              f"error kernel {rms['kernel']:.6e}, plain version "
-              f"{rms['plain']:.6e}, ratio {ratio:.5f} (at most "
-              f"{TRUTH_RMS_FACTOR:g}); the control rounding acc once more "
-              f"{rms['control']:.6e}, ratio {control:.5f} (must exceed it) "
-              f"{'ok' if ok else 'MISMATCH'}", flush=True)
-        if not ok:
-            fail(f"flash_attention_fwd's bf16 output against the fp32 truth "
-                 f"(seed {seed}): ratio {ratio:.5f}, control {control:.5f}, "
-                 f"factor {TRUTH_RMS_FACTOR:g}")
-        del q, k, v, truth, outs
+    _truth_gate(*TRUTH_GATES[0])
 
     times = {}
     for label, s in (("serve", SERVE_SHAPE), ("train", TRAIN_SHAPE)):
@@ -851,6 +980,7 @@ def phase_flash_backward() -> list[dict]:
         if not zeros:
             fail(f"flash_attention_dkv wrote nonzeros on a wholly masked hop "
                  f"({dtype})")
+    _truth_gate(*TRUTH_GATES[1])
 
     s = TRAIN_SHAPE
     args, kw = _bwd_inputs(s, "bfloat16", False, 0, 0, 300)
@@ -1126,8 +1256,8 @@ def _parity_step(dtype: str, device: str, views) -> tuple[float, object]:
 
 def phase_step_parity() -> None:
     """One train step on the card vs the same step on the CPU (the
-    kernels' plain versions): fp32 within fixed tolerances, the path's
-    bf16 within twice the CPU's own bf16-vs-fp32 gap (see PARITY_*)."""
+    kernels' plain versions): fp32 within fixed tolerances; the path's
+    bf16 printed beside the CPU's own bf16-vs-fp32 gap (see PARITY_*)."""
     import torch
 
     rng = np.random.default_rng(0)
@@ -1148,18 +1278,19 @@ def phase_step_parity() -> None:
     noise = gap(("bfloat16", "cpu"), ("float32", "cpu"))
     print(f"[parity] bf16 rounding on the CPU (its bf16 step vs its fp32 "
           f"step): loss {noise[0]:.2e}, gradient {noise[1]:.2e}", flush=True)
-    limits = {"float32": (PARITY_LOSS_ATOL, PARITY_GRAD_RTOL),
-              "bfloat16": tuple(PARITY_BF16_FACTOR * x for x in noise)}
-    for dtype, (loss_tol, grad_tol) in limits.items():
+    for dtype in ("float32", "bfloat16"):
         loss_err, grad_err = gap((dtype, "cuda"), (dtype, "cpu"))
-        ok = loss_err <= loss_tol and grad_err <= grad_tol
+        if dtype == "float32":
+            ok = loss_err <= PARITY_LOSS_ATOL and grad_err <= PARITY_GRAD_RTOL
+            verdict = (f"(atol {PARITY_LOSS_ATOL:.2e}, rtol "
+                       f"{PARITY_GRAD_RTOL:.2e}) {'ok' if ok else 'MISMATCH'}")
+        else:
+            ok, verdict = True, "(a reading, not gated)"
         print(f"[parity] ViT-B/16 train step {dtype}, batch {PARITY_BATCH}: "
               f"loss card {steps[dtype, 'cuda'][0]:.6f} vs CPU "
-              f"{steps[dtype, 'cpu'][0]:.6f} (|err| {loss_err:.2e}, atol "
-              f"{loss_tol:.2e}); gradient |g_card - g_cpu| / |g_cpu| = "
-              f"{grad_err:.2e} (rtol {grad_tol:.2e}); CPU step "
-              f"{cpu_s[dtype]:.1f} s {'ok' if ok else 'MISMATCH'}",
-              flush=True)
+              f"{steps[dtype, 'cpu'][0]:.6f} (|err| {loss_err:.2e}); "
+              f"gradient |g_card - g_cpu| / |g_cpu| = {grad_err:.2e}; CPU "
+              f"step {cpu_s[dtype]:.1f} s {verdict}", flush=True)
         if not ok:
             fail(f"the card's {dtype} train step disagrees with the CPU's")
 
@@ -2428,6 +2559,7 @@ def phase_fold_kernel() -> tuple[dict, dict]:
             fail(f"flash_fold disagrees with its plain version in case "
                  f"{name}")
         del q, k, v, carry, want, after
+    _truth_gate(*TRUTH_GATES[2])
 
     times = {}
     for label, length in (("path", LONGCTX_LEN), ("p4_hop", LONGCTX_LEN // 4)):
@@ -2941,6 +3073,15 @@ def main() -> int:
 
     name, smi = phase_card()
     phase_build()
+    if sys.argv[1:] == ["--truth"]:
+        # the bf16 kernels' fp32-truth readings alone, ungated: how each
+        # factor is set from the kernels a change replaces
+        from ntxent_tpu_torch.utils.capability import set_fp32_precision
+
+        set_fp32_precision()
+        for gate in TRUTH_GATES:
+            _truth_gate(*gate, gate=False)
+        return 0
     dp_clip_kernels, sym_retimed_ms = phase_dp_clip_kernels()
     tri_kernels, tri_launches = phase_tri_kernels()
     fold_kernel, ring_times = phase_fold_kernel()

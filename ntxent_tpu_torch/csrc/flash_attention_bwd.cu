@@ -21,14 +21,26 @@
 // caller casts them to the input dtype. Tiles that lie entirely above the
 // causal diagonal are skipped.
 //
-// dQ (#13). One CTA per (b*h, 64-row q tile) loops over the kv tiles, as
-// the TPU grid's innermost axis does; 4 warps, each tile staged through
-// shared memory by synchronous 16-byte loads. bf16: s = Q K^T and
-// dp = dO V^T on the tensor cores (WMMA 16x16x16, fp32 accumulate; bf16
-// x bf16 products are exact in fp32, so these equal the TPU kernel's fp32
-// products up to summation order) through shared memory, ds rounded to
-// bf16 for ds . K exactly as the TPU kernel rounds it. fp32: plain FMA
-// (no TF32), a lane pair per row.
+// dQ (#13). One CTA per (b*h, 64-row q tile) loops over the live kv
+// tiles, as the TPU grid's innermost axis does.
+//   bf16 (flash_dq_kernel_tma): #11's walk with one product more. One
+//   consumer warpgroup and one producer warp. The producer loads Q and dO
+//   once by TMA, with the rows' lse and delta by cp.async (fp32 rows with
+//   a ragged stride, which TMA cannot describe), and streams the live K/V
+//   tiles through a ring of kDqStages shared-memory stages. The consumers
+//   issue S = Q K^T and dP = dO V^T as wgmma m64n64k16 from shared memory
+//   (all operands K-major, as stored), form p and
+//   ds = p (dp - delta) scale in registers, round ds to bf16 exactly once
+//   as the TPU kernel does (attention_pallas.py:153), and issue
+//   dQ += dS K as wgmma m64nDk16 with dS as the register A operand and K
+//   as the MN-major B. dq stays in the register accumulator for the whole
+//   walk and leaves once, in fp32, one owner per row. The masks run only
+//   on edge tiles (keys past Lk, the causal diagonal); causal grids run
+//   tile-major across heads, the heaviest (last) q tiles first; a q tile
+//   with no live kv tile (a wholly masked ring hop) loads nothing, waits
+//   on nothing and writes zeros.
+//   fp32: plain FMA (no TF32), a lane pair per row, each tile staged
+//   through shared memory by synchronous 16-byte loads.
 //
 // dK/dV (#14). One CTA per (b*h, 64-row kv tile) loops over the live q
 // tiles, from first_live_q_tile to the end.
@@ -67,8 +79,8 @@
 // memory-bound too, so its design reads each Q/dO tile once per kv tile
 // with the next stages in flight and keeps every intermediate on chip.
 // At the long-context hop (B*H = 8, L = 32768, D = 64, causal) the live
-// half of the same 4 products is 2.2 TFLOP (2.2 ms): compute-bound, the
-// regime wgmma is for.
+// half of dQ's 3 products is 1.65 TFLOP (1.67 ms) and of dK/dV's 4
+// products 2.2 TFLOP (2.2 ms): compute-bound, the regime wgmma is for.
 //
 // Supported: float32 or bfloat16, head_dim 64 or 128, contiguous inputs
 // with 16-byte aligned bases. The C entry points return cudaGetLastError()
@@ -76,7 +88,6 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include <cstddef>
 
@@ -84,39 +95,12 @@
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kBlock = 64;  // q rows and kv rows per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kBlock / kWarps;  // 16: one WMMA row strip
+constexpr int kRowsPerWarp = kBlock / kWarps;  // 16
 constexpr int kHalfCols = kBlock / 2;          // tile columns per lane
 constexpr float kNegInf = -1e30f;
-
-template <typename T>
-struct TensorCore {
-  static constexpr bool value = false;
-};
-template <>
-struct TensorCore<__nv_bfloat16> {
-  static constexpr bool value = true;
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
 
 __device__ __forceinline__ float exp0(float x) { return expf(fminf(x, 0.f)); }
 
@@ -125,69 +109,31 @@ __device__ __forceinline__ float prob(float s, float lse) {
   return s <= kNegInf * 0.5f ? 0.f : exp0(s - lse);
 }
 
-// Row strides (elements). Rows are padded by 16 bytes against bank
-// conflicts; every region is a multiple of 128 bytes, so each WMMA tile
-// pointer is 32-byte aligned.
-template <typename T, int D>
+// Row strides (fp32 elements) of the FMA kernels' shared memory. Rows
+// are padded by 16 bytes against bank conflicts.
+template <int D>
 struct Ld {
-  static constexpr int kPadT = 16 / sizeof(T);
-  static constexpr int kT = D + kPadT;         // q, k, v, dO rows
-  static constexpr int kP = kBlock + kPadT;    // p / ds rows (in T)
-  static constexpr int kS = kBlock + 4;        // fp32 score rows
-  static constexpr int kO = D + 4;             // fp32 output staging rows
-  static constexpr size_t kTile = size_t(kBlock) * kT * sizeof(T);
-  static constexpr size_t kScore = size_t(kBlock) * kS * sizeof(float);
-  static constexpr size_t kProb = size_t(kBlock) * kP * sizeof(T);
+  static constexpr int kT = D + 4;       // q, k, v, dO rows
+  static constexpr int kS = kBlock + 4;  // p / ds rows
+  static constexpr size_t kTile = size_t(kBlock) * kT * sizeof(float);
   static constexpr size_t kProb32 = size_t(kBlock) * kS * sizeof(float);
 };
 
-// Copy `rows_valid` rows of a 64-row tile (global row stride D) into
+// Copy `rows_valid` rows of a 64-row fp32 tile (global row stride D) into
 // shared memory in 16-byte chunks; rows past the end are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int rows_valid) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunksPerRow = D / kVec;
+  constexpr int kChunksPerRow = D / 4;
   constexpr int kChunks = kBlock * kChunksPerRow;
   for (int c = threadIdx.x; c < kChunks; c += kThreads) {
     const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    const int col = (c % kChunksPerRow) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < rows_valid) {
-      val = *reinterpret_cast<const uint4*>(src + size_t(r) * D + col);
+      val = *reinterpret_cast<const float4*>(src + size_t(r) * D + col);
     }
-    *reinterpret_cast<uint4*>(dst + r * Ld<T, D>::kT + col) = val;
-  }
-}
-
-// out[16 rows of this warp][64] = a[16 rows] . b^T, b a 64-row tile.
-template <int D>
-__device__ __forceinline__ void wmma_abt(const __nv_bfloat16* a_s,
-                                         const __nv_bfloat16* b_s,
-                                         float* out_s, int warp) {
-  using L = Ld<__nv_bfloat16, D>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBlock / 16];
-#pragma unroll
-  for (int n = 0; n < kBlock / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        a;
-    wmma::load_matrix_sync(a, a_s + warp * kRowsPerWarp * L::kT + kk, L::kT);
-#pragma unroll
-    for (int n = 0; n < kBlock / 16; ++n) {
-      // b^T as a column-major B: element (kk + i, 16n + j) = b[16n + j][kk + i].
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major>
-          b;
-      wmma::load_matrix_sync(b, b_s + n * 16 * L::kT + kk, L::kT);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < kBlock / 16; ++n) {
-    wmma::store_matrix_sync(out_s + warp * kRowsPerWarp * L::kS + n * 16,
-                            acc[n], L::kS, wmma::mem_row_major);
+    *reinterpret_cast<float4*>(dst + r * Ld<D>::kT + col) = val;
   }
 }
 
@@ -223,48 +169,43 @@ __device__ __forceinline__ int first_live_q_tile(int causal, int q_off,
 }
 
 // ---------------------------------------------------------------------------
-// dQ: one CTA per (b*h, q tile), looping over kv tiles.
+// dQ, fp32: one CTA per (b*h, q tile), looping over kv tiles (FMA).
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 struct DqSmem {
-  using L = Ld<T, D>;
-  static constexpr bool kTc = TensorCore<T>::value;
-  static constexpr size_t kScores = kTc ? 2 * L::kScore : 0;  // s, dp
-  static constexpr size_t kDs = kTc ? L::kProb : L::kProb32;
-  static constexpr size_t kBytes = 4 * L::kTile + kScores + kDs;
+  using L = Ld<D>;
+  static constexpr size_t kBytes = 4 * L::kTile + L::kProb32;
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int lq, int lk, int q_tiles, float scale, int causal,
                     int q_off, int k_off) {
-  using L = Ld<T, D>;
-  using S = DqSmem<T, D>;
+  using L = Ld<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* do_s = reinterpret_cast<T*>(smem + L::kTile);
-  T* k_s = reinterpret_cast<T*>(smem + 2 * L::kTile);
-  T* v_s = reinterpret_cast<T*>(smem + 3 * L::kTile);
-  float* s_s = reinterpret_cast<float*>(smem + 4 * L::kTile);
-  float* dp_s = reinterpret_cast<float*>(smem + 4 * L::kTile + L::kScore);
-  unsigned char* ds_raw = smem + 4 * L::kTile + S::kScores;
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* do_s = reinterpret_cast<float*>(smem + L::kTile);
+  float* k_s = reinterpret_cast<float*>(smem + 2 * L::kTile);
+  float* v_s = reinterpret_cast<float*>(smem + 3 * L::kTile);
+  float* ds_s = reinterpret_cast<float*>(smem + 4 * L::kTile);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x % q_tiles) * kBlock;
-  const T* k_bh = k + size_t(bh) * lk * D;
-  const T* v_bh = v + size_t(bh) * lk * D;
+  const float* k_bh = k + size_t(bh) * lk * D;
+  const float* v_bh = v + size_t(bh) * lk * D;
 
-  load_tile<T, D>(q_s, q + (size_t(bh) * lq + q0) * D, min(kBlock, lq - q0));
-  load_tile<T, D>(do_s, dout + (size_t(bh) * lq + q0) * D,
-                  min(kBlock, lq - q0));
+  load_tile<D>(q_s, q + (size_t(bh) * lq + q0) * D, min(kBlock, lq - q0));
+  load_tile<D>(do_s, dout + (size_t(bh) * lq + q0) * D,
+               min(kBlock, lq - q0));
 
   // A lane pair owns one q row: `half` picks its 32 of the 64 columns.
   const int row = warp * kRowsPerWarp + lane / 2;
@@ -274,115 +215,263 @@ __global__ void __launch_bounds__(kThreads)
   const float lse_r = row_valid ? lse[size_t(bh) * lq + q0 + row] : 0.f;
   const float delta_r = row_valid ? delta[size_t(bh) * lq + q0 + row] : 0.f;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_tc[D / 16];
-  float acc[TensorCore<T>::value ? 1 : D / 2];
-  if constexpr (TensorCore<T>::value) {
+  float acc[D / 2];
 #pragma unroll
-    for (int t = 0; t < D / 16; ++t) wmma::fill_fragment(acc_tc[t], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   const int kv_tiles =
       live_kv_tiles((lk + kBlock - 1) / kBlock, causal, q_off, q0, k_off);
   for (int j = 0; j < kv_tiles; ++j) {
     const int k0 = j * kBlock;
     __syncthreads();  // the previous tile's readers are done with k_s/v_s
-    load_tile<T, D>(k_s, k_bh + size_t(k0) * D, min(kBlock, lk - k0));
-    load_tile<T, D>(v_s, v_bh + size_t(k0) * D, min(kBlock, lk - k0));
+    load_tile<D>(k_s, k_bh + size_t(k0) * D, min(kBlock, lk - k0));
+    load_tile<D>(v_s, v_bh + size_t(k0) * D, min(kBlock, lk - k0));
     __syncthreads();
 
-    if constexpr (TensorCore<T>::value) {
-      __nv_bfloat16* ds_s = reinterpret_cast<__nv_bfloat16*>(ds_raw);
-      wmma_abt<D>(q_s, k_s, s_s, warp);
-      wmma_abt<D>(do_s, v_s, dp_s, warp);
-      __syncwarp();
-#pragma unroll 8
-      for (int c = 0; c < kHalfCols; ++c) {
-        const int col = half * kHalfCols + c;
-        const int kcol = k0 + col;
-        float s = s_s[row * L::kS + col] * scale;
-        if (kcol >= lk) s = kNegInf;
-        if (causal && k_off + kcol > qpos) s = kNegInf;
-        const float p = prob(s, lse_r);
-        const float ds = p * (dp_s[row * L::kS + col] - delta_r) * scale;
-        ds_s[row * L::kP + col] = __float2bfloat16(ds);
-      }
-      __syncwarp();
-      // acc[16 rows x D] += ds[16 x 64] . K[64 x D]
-#pragma unroll
-      for (int t = 0; t < D / 16; ++t) {
-#pragma unroll
-        for (int kk = 0; kk < kBlock; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              b;
-          wmma::load_matrix_sync(a, ds_s + warp * kRowsPerWarp * L::kP + kk,
-                                 L::kP);
-          wmma::load_matrix_sync(b, k_s + kk * L::kT + t * 16, L::kT);
-          wmma::mma_sync(acc_tc[t], a, b, acc_tc[t]);
-        }
-      }
-    } else {
-      float* ds_s = reinterpret_cast<float*>(ds_raw);
-      const T* q_row = q_s + row * L::kT;
-      const T* do_row = do_s + row * L::kT;
-      for (int c = 0; c < kHalfCols; ++c) {
-        const int col = half * kHalfCols + c;
-        const int kcol = k0 + col;
-        const T* k_row = k_s + col * L::kT;
-        const T* v_row = v_s + col * L::kT;
-        float s = 0.f;
-        float dp = 0.f;
+    const float* q_row = q_s + row * L::kT;
+    const float* do_row = do_s + row * L::kT;
+    for (int c = 0; c < kHalfCols; ++c) {
+      const int col = half * kHalfCols + c;
+      const int kcol = k0 + col;
+      const float* k_row = k_s + col * L::kT;
+      const float* v_row = v_s + col * L::kT;
+      float s = 0.f;
+      float dp = 0.f;
 #pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(to_float(q_row[d]), to_float(k_row[d]), s);
-          dp = fmaf(to_float(do_row[d]), to_float(v_row[d]), dp);
-        }
-        s *= scale;
-        if (kcol >= lk) s = kNegInf;
-        if (causal && k_off + kcol > qpos) s = kNegInf;
-        const float p = prob(s, lse_r);
-        ds_s[row * L::kS + col] = p * (dp - delta_r) * scale;
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(q_row[d], k_row[d], s);
+        dp = fmaf(do_row[d], v_row[d], dp);
       }
-      __syncwarp();
-      const float* ds_row = ds_s + row * L::kS;
+      s *= scale;
+      if (kcol >= lk) s = kNegInf;
+      if (causal && k_off + kcol > qpos) s = kNegInf;
+      const float p = prob(s, lse_r);
+      ds_s[row * L::kS + col] = p * (dp - delta_r) * scale;
+    }
+    __syncwarp();
+    const float* ds_row = ds_s + row * L::kS;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
-        const int d = half * (D / 2) + i;
-        float a = acc[i];
+    for (int i = 0; i < D / 2; ++i) {
+      const int d = half * (D / 2) + i;
+      float a = acc[i];
 #pragma unroll 16
-        for (int c = 0; c < kBlock; ++c) {
-          a = fmaf(ds_row[c], to_float(k_s[c * L::kT + d]), a);
-        }
-        acc[i] = a;
+      for (int c = 0; c < kBlock; ++c) {
+        a = fmaf(ds_row[c], k_s[c * L::kT + d], a);
       }
+      acc[i] = a;
     }
     __syncwarp();
   }
-  __syncthreads();  // every warp is done with the tiles: reuse them below
 
-  float* out = dq + (size_t(bh) * lq + q0) * D;
-  if constexpr (TensorCore<T>::value) {
-    float* stage = reinterpret_cast<float*>(smem);
+  if (row_valid) {
+    float* out = dq + (size_t(bh) * lq + q0 + row) * D + half * (D / 2);
 #pragma unroll
-    for (int t = 0; t < D / 16; ++t) {
-      wmma::store_matrix_sync(stage + warp * kRowsPerWarp * L::kO + t * 16,
-                              acc_tc[t], L::kO, wmma::mem_row_major);
-    }
-    __syncthreads();
-    const int rows = min(kBlock, lq - q0);
-    for (int e = tid; e < rows * D; e += kThreads) {
-      out[e] = stage[(e / D) * L::kO + e % D];
-    }
-  } else if (row_valid) {
+    for (int i = 0; i < D / 2; ++i) out[i] = acc[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ, bf16: TMA ring, producer warp, wgmma consumer warpgroup.
+// ---------------------------------------------------------------------------
+
+constexpr int kDqStages = 2;  // K/V ring depth
+
+template <int D>
+struct DqTmaSmem {
+  static constexpr int kTile = kBlock * D * 2;  // one 64-row bf16 tile
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kTile;
+  // stage s: K at kKV + 2 s kTile, V after it
+  static constexpr int kKV = 2 * kTile;
+  static constexpr int kStats = kKV + 2 * kDqStages * kTile;  // lse, delta
+  static constexpr int kBars = kStats + 2 * kBlock * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * kDqStages) * 8;
+  static constexpr int kLaunch = kBytes + 1024;  // room to align to 1024
+};
+
+// ds of one 64 x 64 tile from s and dp, packed to bf16 pairs as the
+// register A operand of dQ += dS K (the fragment layout of
+// flash_attention_sm90.cuh): this thread's entries of rows r and r + 8,
+// query positions qpos and qpos + 8, whose lse and delta are lse[h] and
+// delta[h]. p = 0 where s <= -5e29, else exp(min(s - lse, 0));
+// ds = p (dp - delta) scale, rounded to bf16 once. kEdge: the tile holds
+// keys past Lk or meets the causal diagonal, so the masks run.
+template <bool kEdge>
+__device__ __forceinline__ void dq_probs(const float (&sc)[32],
+                                         const float (&dp)[32],
+                                         const float (&lse)[2],
+                                         const float (&delta)[2],
+                                         float scale, int k0, int c, int lk,
+                                         int causal, int qpos, int k_off,
+                                         uint32_t (&ds)[16]) {
+  // Entry 2i + e holds key k0 + c + n, n = 8 (i / 2) + e, of row h = i % 2:
+  // past Lk when n >= past, after row h's query when n > after[h].
+  const int past = lk - k0 - c;
+  const int after[2] = {qpos - k_off - k0 - c, qpos + 8 - k_off - k0 - c};
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) {
-      out[size_t(row) * D + half * (D / 2) + i] = acc[i];
+  for (int i = 0; i < 16; ++i) {
+    const int h = i % 2;
+    float d[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * (i / 2) + e;
+      float x = sc[2 * i + e] * scale;
+      if constexpr (kEdge) {
+        const bool masked = (n >= past) | (causal & (n > after[h]));
+        x = masked ? kNegInf : x;
+      }
+      const float p = x <= kNegInf * 0.5f ? 0.f : sm90::exp0(x - lse[h]);
+      d[e] = p * (dp[2 * i + e] - delta[h]) * scale;
+    }
+    ds[i] = sm90::pack_bf16(d[0], d[1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads, 2)
+    flash_dq_kernel_tma(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int bh_count, int lq, int lk,
+                        int q_tiles, float scale, int causal, int q_off,
+                        int k_off) {
+  using L = DqTmaSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::aligned_smem(smem_raw);
+  float* stats = reinterpret_cast<float*>(smem + L::kStats);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;         // a K/V stage has landed
+  uint64_t* empty = full + kDqStages;  // the consumers are done with it
+
+  // Causal: q tile i walks the kv tiles up to about i, so the last q tiles
+  // are heavy; tile-major order launches every head's heaviest first.
+  // Otherwise head-major, so a head's CTAs share its K and V in L2.
+  const int bh = causal ? blockIdx.x % bh_count : blockIdx.x / q_tiles;
+  const int q0 = (causal ? q_tiles - 1 - blockIdx.x / bh_count
+                         : blockIdx.x % q_tiles) * kBlock;
+  const int kv_tiles =
+      live_kv_tiles((lk + kBlock - 1) / kBlock, causal, q_off, q0, k_off);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::bar_init(q_full, 32 + 1);  // 32 lanes' copies + lane 0's TMA
+    for (int s = 0; s < kDqStages; ++s) {
+      sm90::bar_init(&full[s], 1);
+      sm90::bar_init(&empty[s], sm90::kWarpgroup);
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= sm90::kWarpgroup) {
+    // The producer warp: every lane copies its share of the rows' lse and
+    // delta by cp.async and arrives when its copies land; lane 0 issues
+    // the TMA loads.
+    const int lane = tid - sm90::kWarpgroup;
+    if (kv_tiles == 0) return;
+    for (int i = lane; i < kBlock; i += 32) {
+      const bool valid = q0 + i < lq;
+      const size_t at = valid ? size_t(bh) * lq + q0 + i : 0;
+      sm90::copy_word(stats + i, lse + at, valid);  // 0 past Lq
+      sm90::copy_word(stats + kBlock + i, delta + at, valid);
+    }
+    sm90::bar_arrive_copies(q_full);
+    if (lane != 0) return;
+    sm90::prefetch_map(&tm_k);
+    sm90::prefetch_map(&tm_v);
+    sm90::bar_expect(q_full, 2 * L::kTile);
+    sm90::tma_tile<D>(smem + L::kQ, &tm_q, q_full, q0, bh);
+    sm90::tma_tile<D>(smem + L::kDo, &tm_do, q_full, q0, bh);
+    for (int j = 0; j < kv_tiles; ++j) {
+      const int s = j % kDqStages;
+      if (j >= kDqStages) sm90::bar_wait(&empty[s], (j / kDqStages - 1) & 1);
+      unsigned char* k_s = smem + L::kKV + 2 * s * L::kTile;
+      sm90::bar_expect(&full[s], 2 * L::kTile);
+      sm90::tma_tile<D>(k_s, &tm_k, &full[s], j * kBlock, bh);
+      sm90::tma_tile<D>(k_s + L::kTile, &tm_v, &full[s], j * kBlock, bh);
+    }
+    return;
+  }
+
+  // The consumer warpgroup. This thread holds rows r and r + 8 of the
+  // tile, columns 8i + c and 8i + c + 1 of every 8-column group.
+  const int lane = tid % 32;
+  const int r = (tid / 32) * 16 + lane / 4;
+  const int c = 2 * (lane % 4);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (kv_tiles > 0) {
+    sm90::bar_wait(q_full, 0);
+    const float lse_r[2] = {stats[r], stats[r + 8]};
+    const float delta_r[2] = {stats[kBlock + r], stats[kBlock + r + 8]};
+    const int qpos = q_off + q0 + r;
+    for (int j = 0; j < kv_tiles; ++j) {
+      const int s = j % kDqStages;
+      sm90::bar_wait(&full[s], (j / kDqStages) & 1);
+      const unsigned char* k_s = smem + L::kKV + 2 * s * L::kTile;
+      const unsigned char* v_s = k_s + L::kTile;
+
+      float sc[32];  // s = Q K^T
+      float dp[32];  // dp = dO V^T
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::mma_ss_n64(sc, sm90::desc_k(smem + L::kQ, kk),
+                         sm90::desc_k(k_s, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::mma_ss_n64(dp, sm90::desc_k(smem + L::kDo, kk),
+                         sm90::desc_k(v_s, kk), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::hold(sc);
+      sm90::hold(dp);
+
+      const int k0 = j * kBlock;
+      // Only a tile with keys past Lk, or one that meets the causal
+      // diagonal (its last key after its first query), needs the masks.
+      const bool edge = k0 + kBlock > lk ||
+                        (causal && static_cast<long long>(k_off) + k0 +
+                                           kBlock - 1 >
+                                       static_cast<long long>(q_off) + q0);
+      uint32_t ds[16];
+      if (edge) {
+        dq_probs<true>(sc, dp, lse_r, delta_r, scale, k0, c, lk, causal,
+                       qpos, k_off, ds);
+      } else {
+        dq_probs<false>(sc, dp, lse_r, delta_r, scale, k0, c, lk, causal,
+                        qpos, k_off, ds);
+      }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        sm90::mma_rs<D>(acc, ds + 4 * kk, sm90::desc_mn(k_s, kk));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::hold(acc);
+      sm90::hold(ds);
+      sm90::bar_arrive(&empty[s]);
+    }
+  }
+
+  // One owner per output row: fp32 dq straight from the accumulator
+  // (zeros for a q tile with no live kv tile).
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r + 8 * h;
+    if (row >= lq) continue;
+    float* out = dq + (size_t(bh) * lq + row) * D + c;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<float2*>(out + 8 * i) =
+          make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
     }
   }
 }
@@ -393,7 +482,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 struct DkvSmem {
-  using L = Ld<float, D>;
+  using L = Ld<D>;
   static constexpr size_t kWork = 2 * L::kProb32;  // p^T, ds^T (fp32)
   static constexpr size_t kRowStats = 2 * kBlock * sizeof(float);
   static constexpr size_t kBytes = 4 * L::kTile + kWork + kRowStats;
@@ -409,7 +498,7 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ dv, int lq, int lk, int kv_tiles,
                      float scale, int causal, int q_off, int k_off) {
   using T = float;
-  using L = Ld<T, D>;
+  using L = Ld<D>;
   using S = DkvSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* k_s = reinterpret_cast<T*>(smem);
@@ -428,8 +517,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* q_bh = q + size_t(bh) * lq * D;
   const T* do_bh = dout + size_t(bh) * lq * D;
 
-  load_tile<T, D>(k_s, k + (size_t(bh) * lk + k0) * D, min(kBlock, lk - k0));
-  load_tile<T, D>(v_s, v + (size_t(bh) * lk + k0) * D, min(kBlock, lk - k0));
+  load_tile<D>(k_s, k + (size_t(bh) * lk + k0) * D, min(kBlock, lk - k0));
+  load_tile<D>(v_s, v + (size_t(bh) * lk + k0) * D, min(kBlock, lk - k0));
 
   float dk_acc[D / 2];
   float dv_acc[D / 2];
@@ -446,8 +535,8 @@ __global__ void __launch_bounds__(kThreads)
        ++i) {
     const int q0 = i * kBlock;
     __syncthreads();  // the previous tile's readers are done with q_s/do_s
-    load_tile<T, D>(q_s, q_bh + size_t(q0) * D, min(kBlock, lq - q0));
-    load_tile<T, D>(do_s, do_bh + size_t(q0) * D, min(kBlock, lq - q0));
+    load_tile<D>(q_s, q_bh + size_t(q0) * D, min(kBlock, lq - q0));
+    load_tile<D>(do_s, do_bh + size_t(q0) * D, min(kBlock, lq - q0));
     if (tid < kBlock) {
       const bool valid = q0 + tid < lq;
       lse_s[tid] = valid ? lse[size_t(bh) * lq + q0 + tid] : 0.f;
@@ -468,8 +557,8 @@ __global__ void __launch_bounds__(kThreads)
       float dp = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) {
-        s = fmaf(to_float(q_row[d]), to_float(k_row[d]), s);
-        dp = fmaf(to_float(do_row[d]), to_float(v_row[d]), dp);
+        s = fmaf(q_row[d], k_row[d], s);
+        dp = fmaf(do_row[d], v_row[d], dp);
       }
       s *= scale;
       if (kcol >= lk) s = kNegInf;
@@ -490,8 +579,8 @@ __global__ void __launch_bounds__(kThreads)
       float ak = dk_acc[i];
 #pragma unroll 16
       for (int c = 0; c < kBlock; ++c) {
-        av = fmaf(p_row[c], to_float(do_s[c * L::kT + d]), av);
-        ak = fmaf(ds_row[c], to_float(q_s[c * L::kT + d]), ak);
+        av = fmaf(p_row[c], do_s[c * L::kT + d], av);
+        ak = fmaf(ds_row[c], q_s[c * L::kT + d], ak);
       }
       dv_acc[i] = av;
       dk_acc[i] = ak;
@@ -730,23 +819,48 @@ __global__ void __launch_bounds__(sm90::kThreads, D == 64 ? 2 : 1)
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int lq, int lk, float scale,
                       int causal, int q_off, int k_off, cudaStream_t stream) {
-  constexpr size_t bytes = DqSmem<T, D>::kBytes;
+  constexpr size_t bytes = DqSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const int q_tiles = (lq + kBlock - 1) / kBlock;
-  flash_dq_kernel<T, D><<<dim3(bh * q_tiles), dim3(kThreads), bytes,
-                          stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_dq_kernel<D><<<dim3(bh * q_tiles), dim3(kThreads), bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq), lq, lk, q_tiles, scale, causal, q_off, k_off);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_tma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int bh, int lq,
+                          int lk, float scale, int causal, int q_off,
+                          int k_off, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err = sm90::tensor_map(&tm_q, q, bh, lq, D);
+  if (err == cudaSuccess) err = sm90::tensor_map(&tm_k, k, bh, lk, D);
+  if (err == cudaSuccess) err = sm90::tensor_map(&tm_v, v, bh, lk, D);
+  if (err == cudaSuccess) err = sm90::tensor_map(&tm_do, dout, bh, lq, D);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_dq_kernel_tma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DqTmaSmem<D>::kLaunch);
+  }
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (lq + kBlock - 1) / kBlock;
+  flash_dq_kernel_tma<D><<<dim3(bh * q_tiles), dim3(sm90::kThreads),
+                           DqTmaSmem<D>::kLaunch, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), bh, lq, lk,
+      q_tiles, scale, causal, q_off, k_off);
   return cudaGetLastError();
 }
 
@@ -813,13 +927,13 @@ extern "C" int ntx_flash_attention_dq(const void* q, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NTX_DQ(T, D)                                                        \
-  return launch_dq<T, D>(q, k, v, dout, lse, delta, dq, bh, lq, lk, scale, \
-                         causal, q_off, k_off, s)
-  if (dtype == 0 && head_dim == 64) NTX_DQ(float, 64);
-  if (dtype == 0 && head_dim == 128) NTX_DQ(float, 128);
-  if (dtype == 1 && head_dim == 64) NTX_DQ(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) NTX_DQ(__nv_bfloat16, 128);
+#define NTX_DQ(launch, D)                                                  \
+  return launch<D>(q, k, v, dout, lse, delta, dq, bh, lq, lk, scale, causal, \
+                   q_off, k_off, s)
+  if (dtype == 0 && head_dim == 64) NTX_DQ(launch_dq, 64);
+  if (dtype == 0 && head_dim == 128) NTX_DQ(launch_dq, 128);
+  if (dtype == 1 && head_dim == 64) NTX_DQ(launch_dq_tma, 64);
+  if (dtype == 1 && head_dim == 128) NTX_DQ(launch_dq_tma, 128);
 #undef NTX_DQ
   return cudaErrorInvalidValue;
 }

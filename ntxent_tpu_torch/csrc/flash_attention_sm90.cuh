@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
-// #11 (flash_attention_fwd.cu) and #14 (the dK/dV kernel of
-// flash_attention_bwd.cu): tensor maps and TMA tile loads, mbarriers,
-// wgmma shared-memory descriptors and the wgmma instructions they issue.
+// #11 (flash_attention_fwd.cu), #12 (flash_attention_fold.cu), #13 and
+// #14 (the dQ and dK/dV kernels of flash_attention_bwd.cu): tensor maps
+// and TMA tile loads, mbarriers, wgmma shared-memory descriptors and the
+// wgmma instructions they issue; and the forward walk that #11 and #12
+// share (fwd_produce, fwd_consume).
 //
 // Tiles. A flat (B*H, L, D) bf16 tensor is described to TMA as the 3-D
 // tensor (D, L, B*H), so a box never crosses into the next head and rows
@@ -41,6 +43,7 @@ constexpr int kBoxCols = 64;  // bf16 columns of one 128-byte swizzled row
 constexpr int kBoxBytes = kRows * kBoxCols * 2;
 constexpr int kWarpgroup = 128;
 constexpr int kThreads = kWarpgroup + 32;  // consumers + one producer warp
+constexpr float kNegInf = -1e30f;          // a masked score
 
 // --- host: the tensor map of a flat (B*H, L, D) bf16 tensor ---------------
 
@@ -346,6 +349,201 @@ __device__ __forceinline__ void mma_rs(float (&d)[D / 2], const uint32_t* a,
     mma_rs_n64(d, a[0], a[1], a[2], a[3], b, accumulate);
   } else {
     mma_rs_n128(d, a[0], a[1], a[2], a[3], b, accumulate);
+  }
+}
+
+// --- device: the forward walk of #11 and #12 -----------------------------
+//
+// One CTA per (batch*head, 64-row q tile). The producer warp's lane 0
+// loads the q tile once and streams the live K/V tiles through a ring of
+// kStages shared-memory stages by TMA, each stage completing on an
+// mbarrier and released by the consumers on another. Per K/V tile the
+// consumer warpgroup issues S = Q K^T as wgmma m64n64k16 from shared
+// memory (Q and K both K-major, as stored), takes the row max and sum
+// from the accumulator fragment with quad shuffles, rescales the output
+// accumulator in registers, converts p to bf16 in registers and issues
+// O += P V as wgmma m64nDk16 with P as the register A operand and V as
+// the MN-major B. The running (m, l) and O stay in registers for the
+// whole walk; no s, p or accumulator byte goes through shared memory.
+
+constexpr int kStages = 2;  // K/V ring depth
+
+template <int D>
+struct FwdSmem {
+  static constexpr int kTile = kRows * D * 2;  // one 64-row tile
+  static constexpr int kQ = 0;
+  static constexpr int kKV = kTile;  // stage s: K at kKV + 2 s kTile, V next
+  static constexpr int kBars = kKV + 2 * kStages * kTile;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kLaunch = kBytes + 1024;  // room to align to 1024
+};
+
+// The walk's barriers: the q tile's, then full[kStages] (a K/V stage has
+// landed) and empty[kStages] (the consumers are done with it). Every
+// thread of the CTA calls this before it splits into producer and
+// consumers.
+template <int D>
+__device__ __forceinline__ uint64_t* fwd_barriers(unsigned char* smem) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + FwdSmem<D>::kBars);
+  if (threadIdx.x == 0) {
+    bar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&bars[1 + s], 1);
+      bar_init(&bars[1 + kStages + s], kWarpgroup);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+  return bars;
+}
+
+// The producer warp: its lane 0 issues every TMA load of the walk.
+template <int D>
+__device__ __forceinline__ void fwd_produce(unsigned char* smem,
+                                            uint64_t* bars,
+                                            const CUtensorMap* tm_q,
+                                            const CUtensorMap* tm_k,
+                                            const CUtensorMap* tm_v, int bh,
+                                            int q0, int kv_tiles) {
+  using L = FwdSmem<D>;
+  if (threadIdx.x != kWarpgroup || kv_tiles == 0) return;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
+  prefetch_map(tm_k);
+  prefetch_map(tm_v);
+  bar_expect(bars, L::kTile);
+  tma_tile<D>(smem + L::kQ, tm_q, bars, q0, bh);
+  for (int j = 0; j < kv_tiles; ++j) {
+    const int s = j % kStages;
+    if (j >= kStages) bar_wait(&empty[s], (j / kStages - 1) & 1);
+    unsigned char* k_s = smem + L::kKV + 2 * s * L::kTile;
+    bar_expect(&full[s], 2 * L::kTile);
+    tma_tile<D>(k_s, tm_k, &full[s], j * kRows, bh);
+    tma_tile<D>(k_s + L::kTile, tm_v, &full[s], j * kRows, bh);
+  }
+}
+
+// The online-softmax step of one 64 x 64 score tile, on this thread's 32
+// entries of rows r and r + 8 (query positions qpos and qpos + 8): scale,
+// mask (kEdge: the tile holds keys past Lk or meets the causal diagonal),
+// m_new = max(m, row max) over the quad, p = 0 where s <= -5e29 else
+// exp(min(s - m_new, 0)) in place of s, alpha = exp(min(m - m_new, 0)),
+// l = l alpha + row sum, m = m_new.
+template <bool kEdge>
+__device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2],
+                                               float scale, int k0, int c,
+                                               int lk, int causal, int qpos,
+                                               int k_off) {
+  // Entry i holds key k0 + c + n, n = 8 (i / 4) + i % 2: it lies past Lk
+  // when n >= past, and after row h's query when n > after[h] (causal).
+  const int past = lk - k0 - c;
+  const int after[2] = {qpos - k_off - k0 - c, qpos + 8 - k_off - k0 - c};
+  float row_max[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i / 2) % 2;
+    const int n = 8 * (i / 4) + i % 2;
+    float x = sc[i] * scale;
+    if constexpr (kEdge) {
+      const bool masked = (n >= past) | (causal & (n > after[h]));
+      x = masked ? kNegInf : x;
+    }
+    sc[i] = x;
+    row_max[h] = fmaxf(row_max[h], x);
+  }
+  float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_max[h] = fmaxf(row_max[h],
+                       __shfl_xor_sync(0xffffffffu, row_max[h], 1));
+    row_max[h] = fmaxf(row_max[h],
+                       __shfl_xor_sync(0xffffffffu, row_max[h], 2));
+    row_max[h] = fmaxf(m[h], row_max[h]);  // m_new
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i / 2) % 2;
+    const float x = sc[i];
+    const float p = x <= kNegInf * 0.5f ? 0.f : exp0(x - row_max[h]);
+    sc[i] = p;
+    row_sum[h] += p;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
+    alpha[h] = exp0(m[h] - row_max[h]);
+    l[h] = l[h] * alpha[h] + row_sum[h];
+    m[h] = row_max[h];
+  }
+}
+
+// The consumer warpgroup: fold kv_tiles K/V tiles into this thread's
+// rows r and r + 8 of the tile starting at q row q0 -- the running (m, l)
+// and acc (columns 8i + c and 8i + c + 1 of every 8-column group), which
+// hold the starting state on entry (empty, or a carry).
+template <int D>
+__device__ __forceinline__ void fwd_consume(unsigned char* smem,
+                                            uint64_t* bars, int kv_tiles,
+                                            int lk, int q0, int r, int c,
+                                            float scale, int causal,
+                                            int q_off, int k_off,
+                                            float (&acc)[D / 2],
+                                            float (&m)[2], float (&l)[2]) {
+  using L = FwdSmem<D>;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
+  if (kv_tiles > 0) bar_wait(bars, 0);
+  for (int j = 0; j < kv_tiles; ++j) {
+    const int s = j % kStages;
+    bar_wait(&full[s], (j / kStages) & 1);
+    const unsigned char* k_s = smem + L::kKV + 2 * s * L::kTile;
+    const unsigned char* v_s = k_s + L::kTile;
+
+    float sc[32];  // s = q . k^T, 64 x 64
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      mma_ss_n64(sc, desc_k(smem + L::kQ, kk), desc_k(k_s, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(sc);
+
+    const int k0 = j * kRows;
+    float alpha[2];
+    // Only a tile with keys past Lk, or one that meets the causal
+    // diagonal (its last key after its first query), needs the masks.
+    const bool edge = k0 + kRows > lk ||
+                      (causal && static_cast<long long>(k_off) + k0 +
+                                         kRows - 1 >
+                                     static_cast<long long>(q_off) + q0);
+    if (edge) {
+      online_softmax<true>(sc, m, l, alpha, scale, k0, c, lk, causal,
+                           q_off + q0 + r, k_off);
+    } else {
+      online_softmax<false>(sc, m, l, alpha, scale, k0, c, lk, causal,
+                            q_off + q0 + r, k_off);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+
+    // p in bf16 (V's dtype) as the register A operand of O += P V.
+    uint32_t pa[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mma_rs<D>(acc, pa + 4 * kk, desc_mn(v_s, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(acc);
+    hold(pa);
+    bar_arrive(&empty[s]);
   }
 }
 

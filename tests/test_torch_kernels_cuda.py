@@ -263,17 +263,61 @@ def test_training_kernels_build_from_repo_sources(tmp_path, name, symbols):
         assert f'extern "C" int {symbol}(' in text
 
 
+# The bf16 launch of each flash source: the entry point's bf16 branches
+# and the TMA/wgmma kernel they reach.
+BF16_ROUTES = {
+    "flash_attention_fwd": (["dtype == 1 && head_dim == 64)\n    return "
+                             "launch_tma<64>",
+                             "dtype == 1 && head_dim == 128)\n    return "
+                             "launch_tma<128>"],
+                            "flash_fwd_kernel_tma<D><<<"),
+    "flash_attention_bwd": (["dtype == 1 && head_dim == 64) "
+                             "NTX_DQ(launch_dq_tma, 64)",
+                             "dtype == 1 && head_dim == 128) "
+                             "NTX_DQ(launch_dq_tma, 128)",
+                             "dtype == 1 && head_dim == 64) "
+                             "NTX_DKV(launch_dkv_tma, 64)",
+                             "dtype == 1 && head_dim == 128) "
+                             "NTX_DKV(launch_dkv_tma, 128)"],
+                            "flash_dq_kernel_tma<D><<<"),
+    "flash_attention_fold": (["dtype == 1 && head_dim == 64) "
+                              "NTX_FOLD(launch_tma, 64)",
+                              "dtype == 1 && head_dim == 128) "
+                              "NTX_FOLD(launch_tma, 128)"],
+                             "flash_fold_kernel_tma<D><<<"),
+}
+
+
 @pytest.mark.parametrize("name", ["flash_attention_fwd",
-                                  "flash_attention_bwd"])
+                                  "flash_attention_bwd",
+                                  "flash_attention_fold"])
 def test_hopper_flash_kernels_issue_tma_and_wgmma(name):
-    """#11 and #14 load their tiles by TMA and multiply with wgmma (the
-    instructions sit in the csrc/*.cuh header their sources include)."""
+    """#11, #12, #13 and #14 in bf16 load their tiles by TMA and multiply
+    with wgmma: each source's bf16 branches launch its TMA kernel, and
+    the instructions sit in csrc/flash_attention_sm90.cuh, which it
+    includes."""
     source = _build.SOURCES[name]
-    text = "\n".join(f.read_text()
-                     for f in [source, *_included_headers(source)])
+    headers = _included_headers(source)
+    assert source.parent / "flash_attention_sm90.cuh" in headers
+    text = "\n".join(f.read_text() for f in [source, *headers])
     assert "wgmma.mma_async" in text
     assert "cp.async.bulk.tensor" in text
     assert "mbarrier" in text
+    branches, launch = BF16_ROUTES[name]
+    body = source.read_text()
+    for branch in branches:
+        assert branch in body
+    assert launch in body
+
+
+def test_no_kernel_source_uses_wmma():
+    """Every bf16 flash kernel runs on wgmma; no csrc file keeps the
+    older WMMA API."""
+    csrc = _build.SOURCES["flash_attention_fwd"].parent
+    sources = sorted(csrc.iterdir())
+    assert len(sources) >= len(_build.SOURCES)
+    for path in sources:
+        assert "wmma" not in path.read_text().lower(), path.name
 
 
 def test_flash_attention_carries_gradient_on_the_cpu():
@@ -418,10 +462,10 @@ def test_cuda_flash_backward_kernels_match_plain_versions(case, dtype):
     torch.testing.assert_close(dv, dv_ref, atol=tol["dkv"], rtol=0)
 
 
-# The edges of the bf16 dK/dV kernel's tiles: lengths around the 64-row
-# tile, head_dim 64 and 128, causal with k_offset 70, so the first 70
-# query rows have no live key and the kv tiles from position L on have
-# no live query.
+# The edges of the bf16 dK/dV, dQ and fold kernels' tiles: lengths around
+# the 64-row tile, head_dim 64 and 128, causal with k_offset 70, so the
+# first 70 query rows have no live key and the kv tiles from position L
+# on have no live query.
 EDGE_LENGTHS = (1, 63, 64, 65, 197, 300)
 EDGE_K_OFFSET = 70
 
@@ -447,6 +491,79 @@ def test_cuda_dkv_kernel_edges_match_plain_version(length, d):
     # keys after the last query (position length - 1) see no query
     dead = max(0, length - EDGE_K_OFFSET)
     assert torch.all(dk[:, dead:] == 0) and torch.all(dv[:, dead:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("length", EDGE_LENGTHS)
+def test_cuda_dq_kernel_edges_match_plain_version(length, d):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(length + d)
+    q, k, v, do = (torch.randn(6, length, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    kw = dict(causal=True, q_offset=0, k_offset=EDGE_K_OFFSET)
+    o, lse = A.attention_plain(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = A.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+    dq_ref = A.attention_dq_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dq, dq_ref, atol=BWD_ATOL["bfloat16"]["dq"],
+                               rtol=0)
+    # queries before the first key (position 70) see no key
+    assert torch.all(dq[:, :EDGE_K_OFFSET] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("length", EDGE_LENGTHS)
+def test_cuda_fold_kernel_edges_match_plain_version(length, d):
+    """Two bf16 folds at the tile edges: a block of keys 0 .. L - 1, then
+    one at k_offset 70 whose keys the first 70 rows do not see (their
+    carry must pass bit for bit), then a block wholly after every row."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(length + d)
+    q, k1, v1, k2, v2 = (torch.randn(6, length, d, generator=gen,
+                                     device=dev).to(torch.bfloat16)
+                         for _ in range(5))
+    fresh = (torch.full((6, length), -1e30, device=dev),
+             torch.zeros(6, length, device=dev),
+             torch.zeros(6, length, d, device=dev))
+    first = A.flash_fold(q, k1, v1, *fresh, causal=True)
+    want = A.flash_fold_plain(q, k1, v1, *fresh, causal=True)
+    kw = dict(causal=True, q_offset=0, k_offset=EDGE_K_OFFSET)
+    got = A.flash_fold(q, k2, v2, *first, **kw)
+    want = A.flash_fold_plain(q, k2, v2, *want, **kw)
+    after = A.flash_fold(q, k2, v2, *got, causal=True, q_offset=0,
+                         k_offset=length)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=0, rtol=1e-4)
+    o_got = got[2] / got[1][..., None]
+    o_want = want[2] / want[1][..., None]
+    assert ((o_got - o_want).norm() / o_want.norm()).item() \
+        <= FOLD_O_RTOL["bfloat16"]
+    blind = slice(0, EDGE_K_OFFSET)
+    assert all(torch.equal(a[:, blind], b[:, blind])
+               for a, b in zip(got, first))
+    assert all(torch.equal(a, b) for a, b in zip(after, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_dq_kernel_wholly_masked_hop_gives_exact_zeros(d, dtype):
+    """A ring hop whose keys all come after its queries: no q tile has a
+    live kv tile; each loads nothing and writes dq = 0 bit for bit."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v, do = (torch.randn(8, 1024, d, generator=gen, device=dev)
+                   .to(getattr(torch, dtype)) for _ in range(4))
+    lse, delta = (torch.randn(8, 1024, generator=gen, device=dev)
+                  for _ in range(2))
+    dq = A.flash_attention_dq(q, k, v, do, lse, delta, causal=True,
+                              q_offset=0, k_offset=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, torch.zeros_like(dq))
 
 
 @pytest.mark.cuda

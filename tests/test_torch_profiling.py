@@ -20,6 +20,10 @@ from ntxent_tpu_torch.utils import profiling
      "(...)", "flash_fold"),
     ("void (anonymous namespace)::flash_dkv_kernel<__nv_bfloat16, 64>(...)",
      "flash_attention_dkv"),
+    ("void (anonymous namespace)::flash_dq_kernel_tma<64>(CUtensorMap_st, "
+     "...)", "flash_attention_dq"),
+    ("void (anonymous namespace)::flash_fold_kernel_tma<64>(CUtensorMap_st, "
+     "...)", "flash_fold"),
     ("void (anonymous namespace)::ntxent_fwd_kernel<float>(...)",
      "ntxent_fwd"),
     ("(anonymous namespace)::ntxent_loss_reduce(float const*, int, float*)",
