@@ -27,7 +27,7 @@
 //   consumer warpgroup and one producer warp. The producer loads Q and dO
 //   once by TMA, with the rows' lse and delta by cp.async (fp32 rows with
 //   a ragged stride, which TMA cannot describe), and streams the live K/V
-//   tiles through a ring of kDqStages shared-memory stages. The consumers
+//   tiles through a ring of kStages shared-memory stages. The consumers
 //   issue S = Q K^T and dP = dO V^T as wgmma m64n64k16 from shared memory
 //   (all operands K-major, as stored), form p and
 //   ds = p (dp - delta) scale in registers, round ds to bf16 exactly once
@@ -274,7 +274,7 @@ __global__ void __launch_bounds__(kThreads)
 // dQ, bf16: TMA ring, producer warp, wgmma consumer warpgroup.
 // ---------------------------------------------------------------------------
 
-constexpr int kDqStages = 2;  // K/V ring depth
+using sm90::kStages;  // K/V ring depth, as in #11's walk
 
 template <int D>
 struct DqTmaSmem {
@@ -283,9 +283,9 @@ struct DqTmaSmem {
   static constexpr int kDo = kTile;
   // stage s: K at kKV + 2 s kTile, V after it
   static constexpr int kKV = 2 * kTile;
-  static constexpr int kStats = kKV + 2 * kDqStages * kTile;  // lse, delta
+  static constexpr int kStats = kKV + 2 * kStages * kTile;  // lse, delta
   static constexpr int kBars = kStats + 2 * kBlock * 4;
-  static constexpr int kBytes = kBars + (1 + 2 * kDqStages) * 8;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
   static constexpr int kLaunch = kBytes + 1024;  // room to align to 1024
 };
 
@@ -304,23 +304,17 @@ __device__ __forceinline__ void dq_probs(const float (&sc)[32],
                                          float scale, int k0, int c, int lk,
                                          int causal, int qpos, int k_off,
                                          uint32_t (&ds)[16]) {
-  // Entry 2i + e holds key k0 + c + n, n = 8 (i / 2) + e, of row h = i % 2:
-  // past Lk when n >= past, after row h's query when n > after[h].
-  const int past = lk - k0 - c;
-  const int after[2] = {qpos - k_off - k0 - c, qpos + 8 - k_off - k0 - c};
+  // Entry 2i + e holds column n = 8 (i / 2) + e of row h = i % 2.
+  const sm90::QueryRowMask mask(lk, k0, c, qpos, k_off);
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int h = i % 2;
     float d[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int n = 8 * (i / 2) + e;
       float x = sc[2 * i + e] * scale;
-      if constexpr (kEdge) {
-        const bool masked = (n >= past) | (causal & (n > after[h]));
-        x = masked ? kNegInf : x;
-      }
-      const float p = x <= kNegInf * 0.5f ? 0.f : sm90::exp0(x - lse[h]);
+      if constexpr (kEdge) x = mask(x, 8 * (i / 2) + e, h, causal);
+      const float p = sm90::prob(x, lse[h]);
       d[e] = p * (dp[2 * i + e] - delta[h]) * scale;
     }
     ds[i] = sm90::pack_bf16(d[0], d[1]);
@@ -344,7 +338,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 2)
   float* stats = reinterpret_cast<float*>(smem + L::kStats);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full = q_full + 1;         // a K/V stage has landed
-  uint64_t* empty = full + kDqStages;  // the consumers are done with it
+  uint64_t* empty = full + kStages;  // the consumers are done with it
 
   // Causal: q tile i walks the kv tiles up to about i, so the last q tiles
   // are heavy; tile-major order launches every head's heaviest first.
@@ -357,7 +351,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 2)
   const int tid = threadIdx.x;
   if (tid == 0) {
     sm90::bar_init(q_full, 32 + 1);  // 32 lanes' copies + lane 0's TMA
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       sm90::bar_init(&full[s], 1);
       sm90::bar_init(&empty[s], sm90::kWarpgroup);
     }
@@ -385,8 +379,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 2)
     sm90::tma_tile<D>(smem + L::kQ, &tm_q, q_full, q0, bh);
     sm90::tma_tile<D>(smem + L::kDo, &tm_do, q_full, q0, bh);
     for (int j = 0; j < kv_tiles; ++j) {
-      const int s = j % kDqStages;
-      if (j >= kDqStages) sm90::bar_wait(&empty[s], (j / kDqStages - 1) & 1);
+      const int s = j % kStages;
+      if (j >= kStages) sm90::bar_wait(&empty[s], (j / kStages - 1) & 1);
       unsigned char* k_s = smem + L::kKV + 2 * s * L::kTile;
       sm90::bar_expect(&full[s], 2 * L::kTile);
       sm90::tma_tile<D>(k_s, &tm_k, &full[s], j * kBlock, bh);
@@ -410,8 +404,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 2)
     const float delta_r[2] = {stats[kBlock + r], stats[kBlock + r + 8]};
     const int qpos = q_off + q0 + r;
     for (int j = 0; j < kv_tiles; ++j) {
-      const int s = j % kDqStages;
-      sm90::bar_wait(&full[s], (j / kDqStages) & 1);
+      const int s = j % kStages;
+      sm90::bar_wait(&full[s], (j / kStages) & 1);
       const unsigned char* k_s = smem + L::kKV + 2 * s * L::kTile;
       const unsigned char* v_s = k_s + L::kTile;
 
@@ -434,14 +428,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 2)
       sm90::hold(dp);
 
       const int k0 = j * kBlock;
-      // Only a tile with keys past Lk, or one that meets the causal
-      // diagonal (its last key after its first query), needs the masks.
-      const bool edge = k0 + kBlock > lk ||
-                        (causal && static_cast<long long>(k_off) + k0 +
-                                           kBlock - 1 >
-                                       static_cast<long long>(q_off) + q0);
       uint32_t ds[16];
-      if (edge) {
+      if (sm90::edge_tile(k0, lk, causal, q_off, q0, k_off)) {
         dq_probs<true>(sc, dp, lse_r, delta_r, scale, k0, c, lk, causal,
                        qpos, k_off, ds);
       } else {
@@ -634,12 +622,8 @@ __device__ __forceinline__ void probs_t(
     float scale, int q0, int kv, int c, int lq, int lk, int causal,
     int q_off, int k_off, uint32_t (&p_hi)[16], uint32_t (&p_lo)[16],
     uint32_t (&ds_hi)[16], uint32_t (&ds_lo)[16]) {
-  // Column n = 8g + e holds query q0 + c + n: past Lq when n >= past; row
-  // h's key comes after it (causal) when n < before[h].
-  const int past = lq - q0 - c;
-  const int before[2] = {k_off + kv - q_off - q0 - c,
-                         k_off + kv + 8 - q_off - q0 - c};
-  const bool row_past[2] = {kv >= lk, kv + 8 >= lk};
+  // Entry 4g + 2h + e holds column n = 8g + e of row h.
+  const sm90::KeyRowMask mask(lq, lk, q0, kv, c, q_off, k_off);
 #pragma unroll
   for (int g = 0; g < 8; ++g) {
     const float2 lse_q = *reinterpret_cast<const float2*>(st + c + 8 * g);
@@ -651,14 +635,13 @@ __device__ __forceinline__ void probs_t(
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int n = 8 * g + e;
-        float x = sc[4 * g + 2 * h + e] * scale;
-        x = (row_past[h] | (causal & (n < before[h]))) ? kNegInf : x;
+        const float x = mask(sc[4 * g + 2 * h + e] * scale, n, h, causal);
         const float lse_e = e ? lse_q.y : lse_q.x;
         const float delta_e = e ? delta_q.y : delta_q.x;
-        p[e] = x <= kNegInf * 0.5f ? 0.f : sm90::exp0(x - lse_e);
+        p[e] = sm90::prob(x, lse_e);
         ds[e] = p[e] * (dp[4 * g + 2 * h + e] - delta_e) * scale;
-        p[e] = n >= past ? 0.f : p[e];
-        ds[e] = n >= past ? 0.f : ds[e];
+        p[e] = n >= mask.q_past ? 0.f : p[e];
+        ds[e] = n >= mask.q_past ? 0.f : ds[e];
       }
       split_pack(p[0], p[1], p_hi[2 * g + h], p_lo[2 * g + h]);
       split_pack(ds[0], ds[1], ds_hi[2 * g + h], ds_lo[2 * g + h]);

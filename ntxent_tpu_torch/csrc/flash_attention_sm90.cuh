@@ -352,6 +352,62 @@ __device__ __forceinline__ void mma_rs(float (&d)[D / 2], const uint32_t* a,
   }
 }
 
+// --- device: the masks and probabilities of #11, #12, #13 and #14 --------
+//
+// A score is masked to -1e30 when its key lies past Lk or, causal, after
+// its query (k_off + j > q_off + i); p = 0 where s <= -5e29, else
+// exp(min(s - m, 0)) against the row's running max or its lse
+// (attention_pallas.py:95-112, :138-147). Each kernel's fragment holds
+// its entries at compile-time columns n = 0..63 of a 64 x 64 tile, so the
+// masks reduce to comparing n with per-row thresholds formed once a tile.
+
+__device__ __forceinline__ float prob(float x, float m) {
+  return x <= kNegInf * 0.5f ? 0.f : exp0(x - m);
+}
+
+// Only a tile with keys past Lk, or one that meets the causal diagonal
+// (its last key after its first query), needs the masks.
+__device__ __forceinline__ bool edge_tile(int k0, int lk, int causal,
+                                          int q_off, int q0, int k_off) {
+  return k0 + kRows > lk ||
+         (causal && static_cast<long long>(k_off) + k0 + kRows - 1 >
+                        static_cast<long long>(q_off) + q0);
+}
+
+// Rows are queries (#11, #12, #13): this thread's entries of rows r and
+// r + 8 of the tile, query positions qpos and qpos + 8, column n holding
+// key k0 + c + n. It lies past Lk when n >= past, after row h's query
+// when n > after[h].
+struct QueryRowMask {
+  int past, after[2];
+  __device__ __forceinline__ QueryRowMask(int lk, int k0, int c, int qpos,
+                                          int k_off)
+      : past(lk - k0 - c),
+        after{qpos - k_off - k0 - c, qpos + 8 - k_off - k0 - c} {}
+  __device__ __forceinline__ float operator()(float x, int n, int h,
+                                              int causal) const {
+    return ((n >= past) | (causal & (n > after[h]))) ? kNegInf : x;
+  }
+};
+
+// Rows are keys (#14): this thread's kv rows kv and kv + 8 of the tile,
+// column n holding query q0 + c + n. Row h's key lies past Lk when
+// key_past[h], after column n's query when n < before[h]; the query lies
+// past Lq when n >= q_past, and its p and ds are zeroed.
+struct KeyRowMask {
+  int q_past, before[2];
+  bool key_past[2];
+  __device__ __forceinline__ KeyRowMask(int lq, int lk, int q0, int kv,
+                                        int c, int q_off, int k_off)
+      : q_past(lq - q0 - c),
+        before{k_off + kv - q_off - q0 - c, k_off + kv + 8 - q_off - q0 - c},
+        key_past{kv >= lk, kv + 8 >= lk} {}
+  __device__ __forceinline__ float operator()(float x, int n, int h,
+                                              int causal) const {
+    return (key_past[h] | (causal & (n < before[h]))) ? kNegInf : x;
+  }
+};
+
 // --- device: the forward walk of #11 and #12 -----------------------------
 //
 // One CTA per (batch*head, 64-row q tile). The producer warp's lane 0
@@ -436,20 +492,14 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m)[2],
                                                float scale, int k0, int c,
                                                int lk, int causal, int qpos,
                                                int k_off) {
-  // Entry i holds key k0 + c + n, n = 8 (i / 4) + i % 2: it lies past Lk
-  // when n >= past, and after row h's query when n > after[h] (causal).
-  const int past = lk - k0 - c;
-  const int after[2] = {qpos - k_off - k0 - c, qpos + 8 - k_off - k0 - c};
+  // Entry i holds column n = 8 (i / 4) + i % 2 of row h = (i / 2) % 2.
+  const QueryRowMask mask(lk, k0, c, qpos, k_off);
   float row_max[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int h = (i / 2) % 2;
-    const int n = 8 * (i / 4) + i % 2;
     float x = sc[i] * scale;
-    if constexpr (kEdge) {
-      const bool masked = (n >= past) | (causal & (n > after[h]));
-      x = masked ? kNegInf : x;
-    }
+    if constexpr (kEdge) x = mask(x, 8 * (i / 4) + i % 2, h, causal);
     sc[i] = x;
     row_max[h] = fmaxf(row_max[h], x);
   }
@@ -465,8 +515,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m)[2],
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int h = (i / 2) % 2;
-    const float x = sc[i];
-    const float p = x <= kNegInf * 0.5f ? 0.f : exp0(x - row_max[h]);
+    const float p = prob(sc[i], row_max[h]);
     sc[i] = p;
     row_sum[h] += p;
   }
@@ -514,13 +563,7 @@ __device__ __forceinline__ void fwd_consume(unsigned char* smem,
 
     const int k0 = j * kRows;
     float alpha[2];
-    // Only a tile with keys past Lk, or one that meets the causal
-    // diagonal (its last key after its first query), needs the masks.
-    const bool edge = k0 + kRows > lk ||
-                      (causal && static_cast<long long>(k_off) + k0 +
-                                         kRows - 1 >
-                                     static_cast<long long>(q_off) + q0);
-    if (edge) {
+    if (edge_tile(k0, lk, causal, q_off, q0, k_off)) {
       online_softmax<true>(sc, m, l, alpha, scale, k0, c, lk, causal,
                            q_off + q0 + r, k_off);
     } else {

@@ -320,6 +320,35 @@ def test_no_kernel_source_uses_wmma():
         assert "wmma" not in path.read_text().lower(), path.name
 
 
+# Where each flash source takes the masks and p from the shared header.
+MASK_USES = {
+    "flash_attention_fwd": ["sm90::fwd_consume<D>("],
+    "flash_attention_fold": ["sm90::fwd_consume<D>("],
+    "flash_attention_bwd": ["sm90::QueryRowMask mask(",
+                            "sm90::KeyRowMask mask(", "sm90::prob(",
+                            "sm90::edge_tile("],
+}
+
+
+@pytest.mark.parametrize("name", sorted(MASK_USES))
+def test_hopper_flash_kernels_share_one_mask_rule(name):
+    """The bf16 #11, #12, #13 and #14 take the length and causal masks,
+    the edge-tile test and p = exp(min(s - m, 0)) from
+    csrc/flash_attention_sm90.cuh, where each is defined once; no source
+    re-derives the masks' thresholds."""
+    source = _build.SOURCES[name]
+    header = source.parent / "flash_attention_sm90.cuh"
+    body = header.read_text()
+    for helper in ("float prob(float x, float m)", "bool edge_tile(",
+                   "struct QueryRowMask", "struct KeyRowMask"):
+        assert body.count(helper) == 1, helper
+    assert "QueryRowMask mask(" in body and "edge_tile(k0, lk" in body
+    text = source.read_text()
+    for use in MASK_USES[name]:
+        assert use in text, use
+    assert "n > after" not in text and "n < before" not in text
+
+
 def test_flash_attention_carries_gradient_on_the_cpu():
     gen = torch.Generator().manual_seed(5)
     q, k, v = (torch.randn(2, 9, 3, 8, generator=gen).requires_grad_()
