@@ -12,7 +12,7 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``nvcc`` per source, all started together, timed; the registers and
    spill bytes ptxas reports for every kernel it compiled (among them
    the TMA/wgmma #11, #12, #13 and #14 in bf16, at head_dim 64 and
-   128);
+   128, and the TF32 wgmma #1 and #5);
 2a. data-parallel InfoNCE kernels: ``infonce_dual_fwd_rect`` (#9's
    rectangular stats-only mode), ``infonce_bwd_rows`` (#5's cross-modal
    mode) and ``infonce_bwd_cols`` (#4) against their plain versions at
@@ -31,7 +31,10 @@ Phases; any failure ends the run with a non-zero exit and no result:
    miss);
    ``ntxent_fwd`` and ``ntxent_bwd_sym``
    (2N = 512 and 8192 at D = 128, and a ragged 2N = 1000 at D = 96, in
-   fp32 and bf16); ``flash_attention_dq`` and ``flash_attention_dkv``
+   fp32 and bf16; TF32 tensor-core kernels, held in fp32 at 2N = 512 and
+   8192 at least 10x below a TF32 control's lse and gradient errors, their
+   walks' ptxas registers and spills printed, timed at 2N = 512 and
+   8192); ``flash_attention_dq`` and ``flash_attention_dkv``
    (the training shape in bf16 and fp32 and the causal offset cases, and
    a wholly masked ring hop whose dk and dv must be zero bit for bit; in
    bf16 the TMA/wgmma dQ, over four seeds at the training shape, against
@@ -199,10 +202,13 @@ import urllib.request
 import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, the bf16
-# tensor-core rate and the fp32 rate outside the tensor cores.
+# tensor-core rate and the fastest fp32-accurate product: three TF32
+# passes (3xTF32, hi.hi + hi.lo + lo.hi) at the 495 TFLOP/s TF32 rate.
+# The 67 TFLOP/s CUDA-core fp32 rate is no least time: #1 and #5 run on
+# the tensor cores in 3xTF32 and would read above 100% of it.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_FLOPS = 495e12 / 3
 
 # Serving shape of ViT-B/16 at bucket 64: B=64, L=197, H=12, D=64.
 SERVE_SHAPE = dict(b=64, lq=197, lk=197, h=12, d=64)
@@ -266,6 +272,12 @@ NTX_ATOL = 2e-4
 # ragged 2N with D != 2B.
 NTX_SHAPES = [(512, 128), (8192, 128), (1000, 96)]
 NTX_TEMPERATURE = 0.1
+# The TF32 control of #1 and #5 at the first two NTX_SHAPES in fp32: the
+# plain versions on z rounded to TF32 once (one TF32 pass, tf32_split's
+# hi). The kernels' lse and gradient errors must lie this factor below
+# the control's: a kernel that dropped a lo product would sit at the
+# control's error, within NTX_ATOL.
+TF32_CONTROL_FACTOR = 10
 # Flash backward against its plain version. fp32: summation order only
 # -> 1e-4. bf16: ds is rounded to bf16 before ds . K on both sides, and a
 # one-ulp flip of a rounded ds between the two summation orders moves dq
@@ -535,7 +547,8 @@ def phase_card() -> tuple[str, str]:
     return name, smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every kernel; returns nvcc's reports by kernel name."""
     from ntxent_tpu_torch.ops import _build
 
     t0 = time.monotonic()
@@ -549,6 +562,7 @@ def phase_build() -> None:
             if any(key in line for key in ("entry function", "registers",
                                            "spill")):
                 print(f"[build] {name}: {line.strip()}")
+    return logs
 
 
 def _qkv(shape, dtype, seed):
@@ -769,9 +783,48 @@ def _unit_rows(rows, d, dtype, seed):
     return torch.nn.functional.normalize(z, dim=1).to(getattr(torch, dtype))
 
 
-def phase_ntxent_kernels() -> list[dict]:
-    """ntxent_fwd and ntxent_bwd_sym against their plain versions, then
-    times at the path's shape (2N = 512, D = 128, fp32)."""
+def _ptxas_walks(logs: dict, name: str) -> list[str]:
+    """One line per TF32 walk kernel in a build report: its mangled name,
+    ptxas's spill and register lines."""
+    lines = logs.get(name, "").splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "_walk" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+            report = [ln.split(":")[-1].strip() for ln in lines[i + 1:i + 4]
+                      if "registers" in ln or "spill" in ln]
+            out.append(f"{kernel}: {' | '.join(report)}")
+    return out
+
+
+def _tf32_control(z, t) -> tuple[tuple[float, float], tuple[float, float]]:
+    """(lse, gradient) max abs errors against the fp32 plain versions of
+    #1 + #5 on z, and of one TF32 pass (the plain versions on z rounded to
+    TF32)."""
+    import torch
+
+    from ntxent_tpu_torch.ops import ntxent
+
+    _, lse_ref = ntxent.ntxent_fwd_plain(z, t)
+    grad_ref = ntxent.ntxent_bwd_sym_plain(z, lse_ref, t)
+    _, lse = ntxent.ntxent_fwd(z, t)
+    grad = ntxent.ntxent_bwd_sym(z, lse, t)
+    z_tf32 = ntxent.tf32_split(z)[0]
+    _, lse_c = ntxent.ntxent_fwd_plain(z_tf32, t)
+    grad_c = ntxent.ntxent_bwd_sym_plain(z_tf32, lse_c, t)
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        return (a - b).abs().max().item()
+
+    return ((err(lse, lse_ref), err(grad, grad_ref)),
+            (err(lse_c, lse_ref), err(grad_c, grad_ref)))
+
+
+def phase_ntxent_kernels(build_logs: dict) -> list[dict]:
+    """ntxent_fwd and ntxent_bwd_sym against their plain versions, the
+    TF32 control, ptxas's report of their walks, then times at the path's
+    shape (2N = 512, D = 128, fp32) and at 2N = 8192."""
     import torch
 
     from ntxent_tpu_torch.ops import ntxent
@@ -802,43 +855,76 @@ def phase_ntxent_kernels() -> list[dict]:
                      f"versions at 2N={rows} D={d} {dtype}")
             if (rows, d, dtype) == (512, 128, "float32"):
                 errs = {"ntxent_fwd": fwd_err, "ntxent_bwd_sym": bwd_err}
+            del z, grad, grad_ref
 
-    rows, d = NTX_SHAPES[0]
-    z = _unit_rows(rows, d, "float32", seed=0)
-    _, lse = ntxent.ntxent_fwd(z, t)
-    fwd_ms = cuda_time_ms(lambda: ntxent.ntxent_fwd(z, t))
-    fwd_plain = cuda_time_ms(lambda: ntxent.ntxent_fwd_plain(z, t))
-    bwd_ms = cuda_time_ms(lambda: ntxent.ntxent_bwd_sym(z, lse, t))
-    bwd_plain = cuda_time_ms(lambda: ntxent.ntxent_bwd_sym_plain(z, lse, t))
-    zb = rows * d * 4
-    fwd_bound = _bound(zb + rows * 4 + 4, 2 * rows * rows * d,
-                       PEAK_FP32_FLOPS)
-    bwd_bound = _bound(2 * zb + rows * 4, 4 * rows * rows * d,
-                       PEAK_FP32_FLOPS)
-    print(f"[kernel] ntxent path shape (2N={rows}, D={d}, fp32): fwd "
-          f"{fwd_ms:.4f} ms (plain {fwd_plain:.4f}, bound "
-          f"{fwd_bound[0]:.5f} by {fwd_bound[1]}), bwd {bwd_ms:.4f} ms "
-          f"(plain {bwd_plain:.4f}, bound {bwd_bound[0]:.5f} by "
-          f"{bwd_bound[1]}); no single PyTorch call computes NT-Xent, so "
-          f"there is no library time", flush=True)
+    for rows, d in NTX_SHAPES[:2]:
+        z = _unit_rows(rows, d, "float32", seed=rows + d)
+        kernel, control = _tf32_control(z, t)
+        ok = all(k <= NTX_ATOL and TF32_CONTROL_FACTOR * k <= c
+                 for k, c in zip(kernel, control))
+        print(f"[kernel] ntxent TF32 control 2N={rows} D={d} fp32: kernels "
+              f"lse {kernel[0]:.3e} grad {kernel[1]:.3e}, one TF32 pass lse "
+              f"{control[0]:.3e} grad {control[1]:.3e} (ratios "
+              f"{control[0] / max(kernel[0], 1e-30):.1f}, "
+              f"{control[1] / max(kernel[1], 1e-30):.1f}; at least "
+              f"{TF32_CONTROL_FACTOR}) {'ok' if ok else 'MISSED'}",
+              flush=True)
+        if not ok:
+            fail(f"the NT-Xent kernels are not {TF32_CONTROL_FACTOR}x more "
+                 f"accurate than one TF32 pass at 2N={rows}")
+        del z
+    for name in ("ntxent_fwd", "ntxent_bwd_sym"):
+        for line in _ptxas_walks(build_logs, name):
+            print(f"[kernel] ptxas {name}: {line}", flush=True)
+
+    timed = {}
+    for rows, d in NTX_SHAPES[:2]:
+        z = _unit_rows(rows, d, "float32", seed=0)
+        _, lse = ntxent.ntxent_fwd(z, t)
+        runs = 3 if rows > 4096 else 10
+        fwd_ms = cuda_time_ms(lambda: ntxent.ntxent_fwd(z, t))
+        fwd_plain = cuda_time_ms(lambda: ntxent.ntxent_fwd_plain(z, t), runs)
+        bwd_ms = cuda_time_ms(lambda: ntxent.ntxent_bwd_sym(z, lse, t))
+        bwd_plain = cuda_time_ms(
+            lambda: ntxent.ntxent_bwd_sym_plain(z, lse, t), runs)
+        zb = rows * d * 4
+        fwd_bound = _bound(zb + rows * 4 + 4, 2 * rows * rows * d,
+                           PEAK_FP32_FLOPS)
+        bwd_bound = _bound(2 * zb + rows * 4, 4 * rows * rows * d,
+                           PEAK_FP32_FLOPS)
+        splits = ntxent.column_splits(
+            rows, rows, torch.cuda.get_device_properties(0)
+            .multi_processor_count)
+        print(f"[kernel] ntxent (2N={rows}, D={d}, fp32; {splits[0]} column "
+              f"split(s) of {splits[1]}): fwd {fwd_ms:.4f} ms (plain "
+              f"{fwd_plain:.4f}, bound {fwd_bound[0]:.5f} by "
+              f"{fwd_bound[1]}), bwd {bwd_ms:.4f} ms (plain "
+              f"{bwd_plain:.4f}, bound {bwd_bound[0]:.5f} by "
+              f"{bwd_bound[1]}); no single PyTorch call computes NT-Xent, "
+              f"so there is no library time", flush=True)
+        timed[rows] = ((fwd_ms, fwd_plain, fwd_bound),
+                       (bwd_ms, bwd_plain, bwd_bound))
+        del z
     common = {"route": "cuda", "checked": True, "launches": None,
               "library_ms": None}
-    return [
+    out = [
         {"name": "ntxent_fwd", **common,
          "source": "ntxent_tpu_torch/csrc/ntxent_fwd.cu",
          "replaces": "ntxent_tpu/ops/ntxent_pallas.py:130 (_fwd_kernel, "
                      "_fwd_call :190)",
-         "max_abs_err": errs["ntxent_fwd"], "ms": fwd_ms,
-         "plain_ms": fwd_plain, "bound_ms": fwd_bound[0],
-         "bound_by": fwd_bound[1]},
+         "max_abs_err": errs["ntxent_fwd"]},
         {"name": "ntxent_bwd_sym", **common,
          "source": "ntxent_tpu_torch/csrc/ntxent_bwd_sym.cu",
          "replaces": "ntxent_tpu/ops/ntxent_pallas.py:445 (_bwd_sym_kernel, "
                      "_bwd_sym_call :612)",
-         "max_abs_err": errs["ntxent_bwd_sym"], "ms": bwd_ms,
-         "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
-         "bound_by": bwd_bound[1]},
+         "max_abs_err": errs["ntxent_bwd_sym"]},
     ]
+    for i, entry in enumerate(out):
+        (ms, plain, bound), big = timed[512][i], timed[8192][i]
+        entry |= {"ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+                  "bound_by": bound[1], "n8192_ms": big[0],
+                  "n8192_plain_ms": big[1], "n8192_bound_ms": big[2][0]}
+    return out
 
 
 def phase_infonce_kernels() -> list[dict]:
@@ -3147,7 +3233,7 @@ def main() -> int:
     import ntxent_tpu_torch  # noqa: F401 — fail before any result line
 
     name, smi = phase_card()
-    phase_build()
+    build_logs = phase_build()
     if sys.argv[1:] == ["--truth"]:
         # the bf16 kernels' fp32-truth readings alone, ungated: how each
         # factor is set from the kernels a change replaces
@@ -3165,7 +3251,7 @@ def main() -> int:
     dp_clip_kernels, sym_retimed_ms = phase_dp_clip_kernels()
     tri_kernels, tri_launches = phase_tri_kernels()
     fold_kernel, ring_times = phase_fold_kernel()
-    kernels = [phase_kernels(), *phase_ntxent_kernels(),
+    kernels = [phase_kernels(), *phase_ntxent_kernels(build_logs),
                *phase_flash_backward(), *phase_infonce_kernels(),
                *phase_general_kernels(), *dp_clip_kernels,
                *phase_pair_kernels(), *tri_kernels, fold_kernel]

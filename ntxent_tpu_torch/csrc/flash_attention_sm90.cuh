@@ -3,7 +3,10 @@
 // #14 (the dQ and dK/dV kernels of flash_attention_bwd.cu): tensor maps
 // and TMA tile loads, mbarriers, wgmma shared-memory descriptors and the
 // wgmma instructions they issue; and the forward walk that #11 and #12
-// share (fwd_produce, fwd_consume).
+// share (fwd_produce, fwd_consume). The TF32 NT-Xent kernels #1 and #5
+// (ntxent_tf32.cuh) share the tensor-map encoder, the mbarriers and the
+// K-major descriptor, and add 2-D fp32 maps and boxes (tensor_map_f32,
+// tma_box_2d).
 //
 // Tiles. A flat (B*H, L, D) bf16 tensor is described to TMA as the 3-D
 // tensor (D, L, B*H), so a box never crosses into the next head and rows
@@ -56,8 +59,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int bh,
-                              int len, int d) {
+inline cudaError_t encoder(EncodeTiled* out) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -75,6 +77,15 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int bh,
     }
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int bh,
+                              int len, int d) {
+  EncodeTiled encode;
+  const cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(len), cuuint64_t(bh)};
   const cuuint64_t strides[2] = {cuuint64_t(d) * 2,
                                  cuuint64_t(d) * 2 * cuuint64_t(len)};
@@ -85,6 +96,28 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int bh,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // rows past L read as zeros
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a row-major (height, width) fp32 matrix whose rows
+// are `width` floats apart (width a multiple of 4: TMA's 16-byte stride
+// rule), in boxes of box_h rows x box_w columns (box_w * 4 <= 128 bytes
+// in the 128-byte swizzle); a box's rows past `height` read as zeros.
+inline cudaError_t tensor_map_f32(CUtensorMap* map, const float* base,
+                                  int width, int height, int box_w,
+                                  int box_h) {
+  EncodeTiled encode;
+  const cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {cuuint64_t(width), cuuint64_t(height)};
+  const cuuint64_t strides[1] = {cuuint64_t(width) * 4};
+  const cuuint32_t box[2] = {cuuint32_t(box_w), cuuint32_t(box_h)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -177,6 +210,18 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-D map: rows row .. row + box_h - 1, columns col ..
+// col + box_w - 1.
+__device__ __forceinline__ void tma_box_2d(void* dst, const CUtensorMap* map,
+                                           uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 // A 64-row tile of D columns (D / 64 boxes).
 template <int D>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
@@ -200,10 +245,12 @@ __device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
 
 // K-major view of a tile, k16 step kk: 8-row groups 1024 bytes apart,
 // 32 bytes of K a step, the second box for D = 128 (kk >= 4). The
-// leading offset is unused in a swizzled K-major layout.
-__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile,
-                                           int kk) {
-  return descriptor(smem_u32(tile) + (kk / 4) * kBoxBytes + (kk % 4) * 32,
+// leading offset is unused in a swizzled K-major layout. A k8 step of
+// TF32 is 32 bytes of K as well; a tile whose boxes hold other than 64
+// rows passes their size.
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int kk,
+                                           int box_bytes = kBoxBytes) {
+  return descriptor(smem_u32(tile) + (kk / 4) * box_bytes + (kk % 4) * 32,
                     16, 1024);
 }
 

@@ -1,4 +1,5 @@
-// NT-Xent forward for Hopper (sm_90a), bound to PyTorch via ctypes.
+// NT-Xent forward for Hopper (sm_90a) on TF32 tensor cores, bound to
+// PyTorch via ctypes.
 //
 // Replaces the Pallas TPU kernel ntxent_tpu/ops/ntxent_pallas.py:130
 // (_fwd_kernel, launched by _fwd_call at ntxent_pallas.py:190) in both of
@@ -23,254 +24,440 @@
 //   loss_sum = sum over rows with gid_i < cols_actual of (lse[i] - pos_i)
 //     (padding rows carry the sentinel id 2N and drop out).
 //
-// Design. The TPU kernel walks a sequential (row tile, column tile) grid
-// and accumulates the loss in one SMEM scalar across grid steps. Hopper
-// blocks run in no order, so the column axis becomes a loop inside one
-// thread block (one CTA per 32-row tile, 8 threads per row, each thread
-// 8 columns of a 64-column tile; the tile's column ids are staged beside
-// it), and the loss is reduced in two fixed orders: each CTA sums its
-// rows in row order into partial[tile], then one warp of a second kernel
-// sums the partials in a fixed strided order and a fixed shuffle tree. No
-// atomics: the loss is bitwise repeatable. The symmetric mode is the
-// general one with z_rows = z_cols and the indices for ids, an
-// instantiation that stages no ids.
+// Design (ntxent_tf32.cuh holds the walk). Four launches: the
+// operand-prep pass (hi, lo of z; twice in the general mode, rows and
+// columns); the walk, one CTA per (64-row tile, column split), s by wgmma
+// m64n64k8 TF32 from a TMA ring (3xTF32 for fp32 z, one pass for bf16),
+// the online softmax on the accumulator fragment, and one (m, l, pos)
+// partial per row and split; a merge kernel that folds each row's partials
+// in split order (m = max, l = l e^(m - m') + l_c e^(m_c - m'): the rule
+// of ntxent_tri_fwd.cu's tri_fwd_merge_kernel), applies the 1e-37 floor,
+// writes lse and sums its 256 rows' losses in row order; and one warp that
+// adds those sums in a fixed order. The TPU kernel's sequential column
+// axis becomes a loop inside each CTA plus the split across CTAs, which
+// fills the SMs at 2N = 512 (8 row tiles x 16 splits of 32 columns). No
+// atomics: the loss is bitwise repeatable.
 //
-// Arithmetic is plain fp32 FMA (no TF32: the fp32 contract of the JAX
-// kernel holds); bf16 inputs are widened to fp32 as they are staged, so
-// their products are exact as on the MXU.
-//
-// Bound. 2 R C D operations against (R + C) D inputs: at the symmetric
-// training shape (2N = 512, D = 128, fp32) 67 MFLOP, 1.0 us at the 67
-// TFLOP/s fp32 (non-tensor) peak, and 0.08 us of bytes at 3.35 TB/s; at
-// one rank's strip of a 4-card world at global batch 4096 (R = 2048,
-// C = 8192, D = 128) 4.3 GFLOP, 64 us. Compute-bound on paper; at the
-// small shapes launch- and latency-bound (16 CTAs at R = 512).
+// Bound. 2 R C D operations, each product three TF32 passes (the card's
+// fastest fp32-accurate product: 495 / 3 = 165 TFLOP/s), against (R + C)
+// D inputs: at the symmetric training shape (2N = 512, D = 128, fp32) 67
+// MFLOP, 0.41 us; at 2N = 8192, 104 us; at one rank's strip of a 4-card
+// world at global batch 4096 (R = 2048, C = 8192), 26 us. Bytes are far
+// below (8192 x 128 fp32 is 4 MB, 1.3 us at 3.35 TB/s). At 2N = 512 the
+// four launches and the walk's latency bound it.
 //
 // Supported: float32 or bfloat16 rows and columns (the same dtype),
 // contiguous (rows, D), 1 <= D <= 256; the symmetric mode needs an even
 // row count >= 2. int32 ids. The C entry points return cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-
-#include <climits>
-#include <cstddef>
+#include "ntxent_tf32.cuh"
 
 namespace {
 
-constexpr int kRows = 32;                       // rows per CTA
-constexpr int kCols = 64;                       // columns per tile
-constexpr int kThreadsPerRow = 8;
-constexpr int kColsPerThread = kCols / kThreadsPerRow;
-constexpr int kThreads = kRows * kThreadsPerRow;  // 256
-constexpr int kMaxD = 256;
-constexpr float kNegInf = -1e30f;
-constexpr int kNoColumn = INT_MAX;  // id of a column past C: always masked
+using namespace ntx;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// Rows past n_rows give no partial. part holds three planes (m, l, pos),
+// each (splits, n_rows).
+template <bool kSplit, class Ids>
+__device__ __forceinline__ void fwd_walk(const CUtensorMap* tm_rh,
+                                         const CUtensorMap* tm_rl,
+                                         const CUtensorMap* tm_ch,
+                                         const CUtensorMap* tm_cl,
+                                         const Ids& ids, float* part,
+                                         const Plan& p, int n_rows,
+                                         int n_cols, int split_cols,
+                                         float inv_t) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = sm90::aligned_smem(raw);
+  uint64_t* bars = walk_barriers(smem, p);
+  Ring ring(smem, bars, p);
+  const int row0 = blockIdx.x * kTile;
+  const int split = blockIdx.y;
+  const int cb = split * split_cols;
+  const int ce = min(cb + split_cols, n_cols);
+  const int tiles = (ce - cb + kTile - 1) / kTile;
 
-__device__ __forceinline__ float exp0(float x) { return expf(fminf(x, 0.f)); }
-
-// Stage `rows_valid` rows of z (row stride d) as fp32 with row stride
-// d + 1 (odd: column-strided reads hit distinct banks); other rows are 0.
-template <typename T>
-__device__ void stage(float* dst, const T* src, int rows, int rows_valid,
-                      int d) {
-  const int ld = d + 1;
-  for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
-    const int r = e / d;
-    const int c = e % d;
-    dst[r * ld + c] = r < rows_valid ? to_float(src[size_t(r) * d + c]) : 0.f;
-  }
-}
-
-// kIds: rows and columns carry ids (row_gid, and col_gid unless null);
-// otherwise (the symmetric mode) the ids are the indices, computed in
-// registers with no staging.
-template <typename T, bool kIds>
-__global__ void __launch_bounds__(kThreads)
-    ntxent_fwd_kernel(const T* __restrict__ z_rows,
-                      const T* __restrict__ z_cols,
-                      const int* __restrict__ row_gid,
-                      const int* __restrict__ col_gid,
-                      float* __restrict__ lse, float* __restrict__ partial,
-                      int n_rows, int n_cols, int d, float inv_t,
-                      int cols_actual, int n_half) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* zr = smem;                  // kRows x ld
-  float* zc = smem + kRows * ld;     // kCols x ld
-  __shared__ float row_loss[kRows];
-  __shared__ int cid[kCols];
-
-  const int tid = threadIdx.x;
-  const int r = tid / kThreadsPerRow;  // row within the tile
-  const int g = tid % kThreadsPerRow;  // column group: g, g + 8, ...
-  const int row0 = blockIdx.x * kRows;
-  const int row = row0 + r;
-  const int gid =
-      row < n_rows ? (kIds ? row_gid[row] : row) : cols_actual;
-  const int pos_gid = gid < n_half ? gid + n_half : gid - n_half;
-
-  stage(zr, z_rows + size_t(row0) * d, kRows, min(kRows, n_rows - row0), d);
-
-  float m = kNegInf;
-  float l = 0.f;
-  float pos = 0.f;
-  const int col_tiles = (n_cols + kCols - 1) / kCols;
-  for (int j = 0; j < col_tiles; ++j) {
-    const int col0 = j * kCols;
-    __syncthreads();  // the previous tile's readers are done with zc, cid
-    stage(zc, z_cols + size_t(col0) * d, kCols, min(kCols, n_cols - col0), d);
-    if (kIds && tid < kCols) {
-      const int col = col0 + tid;
-      cid[tid] = col < n_cols ? (col_gid ? col_gid[col] : col) : kNoColumn;
-    }
-    __syncthreads();
-
-    float s[kColsPerThread];
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) s[c] = 0.f;
-    const float* zrow = zr + r * ld;
-    for (int k = 0; k < d; ++k) {
-      const float a = zrow[k];
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) {
-        s[c] = fmaf(a, zc[(g + c * kThreadsPerRow) * ld + k], s[c]);
+  if (threadIdx.x >= kWarpgroup) {  // the producer warp
+    if (threadIdx.x == kWarpgroup) {
+      load_rows<kSplit>(smem, bars, p, tm_rh, tm_rl, row0);
+      for (int t = 0; t < tiles; ++t) {
+        load_cols<kSplit>(ring, p, tm_ch, tm_cl, cb + t * kTile);
       }
     }
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) {
-      const int col = col0 + g + c * kThreadsPerRow;
-      const int id = kIds ? cid[g + c * kThreadsPerRow]
-                          : (col < n_cols ? col : kNoColumn);
-      const float raw = s[c] * inv_t;
-      if (id == pos_gid) pos += raw;
-      s[c] = (id >= cols_actual || id == gid) ? kNegInf : raw;
-      tile_max = fmaxf(tile_max, s[c]);
-    }
-#pragma unroll
-    for (int off = 1; off < kThreadsPerRow; off <<= 1) {
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-    }
-    const float m_new = fmaxf(m, tile_max);
-    float tile_sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) tile_sum += exp0(s[c] - m_new);
-#pragma unroll
-    for (int off = 1; off < kThreadsPerRow; off <<= 1) {
-      tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, off);
-    }
-    l = l * expf(m - m_new) + tile_sum;
-    m = m_new;
+    return;
   }
-  // The positive sits in at most one thread of the row's group.
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r = 16 * warp + lane / 4;
+  const int q = lane % 4;
+  int gid[2], pos_gid[2];
+  float m[2], l[2], pos[2];
 #pragma unroll
-  for (int off = 1; off < kThreadsPerRow; off <<= 1) {
-    pos += __shfl_xor_sync(0xffffffffu, pos, off);
+  for (int h = 0; h < 2; ++h) {
+    gid[h] = ids.row(row0 + r + 8 * h);
+    pos_gid[h] = ids.positive(gid[h]);
+    m[h] = kNegInf;
+    l[h] = 0.f;
+    pos[h] = 0.f;
   }
-  if (g == 0) {
+  bar_wait(bars, 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int col0 = cb + t * kTile;
+    int cid[16];  // entry 2i + e: column col0 + 8i + 2q + e
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * (j / 2) + 2 * q + j % 2;
+      cid[j] = col < ce ? ids.col(col) : kNoColumn;
+    }
+    float s[32];
+    s_tile<kSplit>(smem, p, ring, s);
+
+    float row_max[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {  // row r + 8h, column 8 (i / 4) + 2q + i % 2
+      const int h = (i / 2) % 2;
+      const int id = cid[2 * (i / 4) + i % 2];
+      const float raw_s = s[i] * inv_t;
+      if (id == pos_gid[h]) pos[h] += raw_s;
+      s[i] = masked(ids, id, gid[h]) ? kNegInf : raw_s;
+      row_max[h] = fmaxf(row_max[h], s[i]);
+    }
+    float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row_max[h] = fmaxf(row_max[h],
+                         __shfl_xor_sync(0xffffffffu, row_max[h], 1));
+      row_max[h] = fmaxf(row_max[h],
+                         __shfl_xor_sync(0xffffffffu, row_max[h], 2));
+      row_max[h] = fmaxf(m[h], row_max[h]);  // m_new
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) % 2;
+      row_sum[h] += exp0(s[i] - row_max[h]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
+      row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
+      l[h] = l[h] * expf(m[h] - row_max[h]) + row_sum[h];
+      m[h] = row_max[h];
+    }
+  }
+  // The positive sits in at most one thread of the row's quad.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    pos[h] += __shfl_xor_sync(0xffffffffu, pos[h], 1);
+    pos[h] += __shfl_xor_sync(0xffffffffu, pos[h], 2);
+    const int row = row0 + r + 8 * h;
+    if (q == 0 && row < n_rows) {
+      const size_t plane = size_t(gridDim.y) * n_rows;
+      const size_t at = size_t(split) * n_rows + row;
+      part[at] = m[h];
+      part[plane + at] = l[h];
+      part[2 * plane + at] = pos[h];
+    }
+  }
+}
+
+// Row r's partials folded in split order into lse[r]; the CTA's sum of
+// lse - pos over its rows with ids < cols_actual, in row order, into
+// block_sum[blockIdx.x].
+template <class Ids>
+__device__ __forceinline__ void fwd_merge(const float* __restrict__ part,
+                                          float* __restrict__ lse,
+                                          float* __restrict__ block_sum,
+                                          const Ids& ids, int n_rows,
+                                          int splits) {
+  __shared__ float row_loss[kMergeThreads];
+  const int row = blockIdx.x * kMergeThreads + threadIdx.x;
+  float loss = 0.f;
+  if (row < n_rows) {
+    const size_t plane = size_t(splits) * n_rows;
+    float m = kNegInf;
+    float l = 0.f;
+    float p = 0.f;
+    for (int c = 0; c < splits; ++c) {
+      const size_t at = size_t(c) * n_rows + row;
+      const float m_c = part[at];
+      const float m_new = fmaxf(m, m_c);
+      l = l * exp0(m - m_new) + part[plane + at] * exp0(m_c - m_new);
+      m = m_new;
+      p += part[2 * plane + at];
+    }
     const float row_lse = m + logf(fmaxf(l, 1e-37f));
-    if (row < n_rows) lse[row] = row_lse;
-    row_loss[r] = (row < n_rows && gid < cols_actual) ? row_lse - pos : 0.f;
+    lse[row] = row_lse;
+    if (ids.row(row) < ids.cols_actual()) loss = row_lse - p;
   }
+  row_loss[threadIdx.x] = loss;
   __syncthreads();
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     float sum = 0.f;
-    for (int i = 0; i < kRows; ++i) sum += row_loss[i];
-    partial[blockIdx.x] = sum;
+    for (int i = 0; i < kMergeThreads; ++i) sum += row_loss[i];
+    block_sum[blockIdx.x] = sum;
   }
 }
 
-// One warp sums the per-tile partials in a fixed order.
-__global__ void ntxent_loss_reduce(const float* __restrict__ partial,
-                                   int count, float* __restrict__ loss) {
-  float sum = 0.f;
-  for (int i = threadIdx.x; i < count; i += 32) sum += partial[i];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  }
-  if (threadIdx.x == 0) loss[0] = sum;
+// The kernels of each mode carry its name (the profiler groups by it).
+
+template <typename T, bool kSplit>
+__global__ void __launch_bounds__(kPrepThreads)
+    ntxent_fwd_sym_prep(const T* __restrict__ z, int n, int d,
+                        float* __restrict__ hi, float* __restrict__ lo) {
+  prep_tile<T, kSplit>(z, n, d, hi, lo, nullptr, nullptr);
 }
 
-template <typename T, bool kIds>
-cudaError_t launch(const void* z_rows, const void* z_cols, const int* row_gid,
-                   const int* col_gid, void* lse, void* partial, void* loss,
-                   int n_rows, int n_cols, int d, float inv_t,
-                   int cols_actual, int n_half, cudaStream_t stream) {
-  const size_t smem = size_t(kRows + kCols) * (d + 1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ntxent_fwd_kernel<T, kIds>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+template <bool kSplit>
+__global__ void __launch_bounds__(kThreads, 1)
+    ntxent_fwd_sym_walk(const __grid_constant__ CUtensorMap tm_h,
+                        const __grid_constant__ CUtensorMap tm_l,
+                        SymIds ids, float* __restrict__ part, Plan p, int n,
+                        int split_cols, float inv_t) {
+  fwd_walk<kSplit>(&tm_h, &tm_l, &tm_h, &tm_l, ids, part, p, n, n,
+                   split_cols, inv_t);
+}
+
+__global__ void __launch_bounds__(kMergeThreads)
+    ntxent_fwd_sym_merge(const float* __restrict__ part,
+                         float* __restrict__ lse,
+                         float* __restrict__ block_sum, SymIds ids,
+                         int splits) {
+  fwd_merge(part, lse, block_sum, ids, ids.n, splits);
+}
+
+__global__ void ntxent_fwd_sym_reduce(const float* __restrict__ block_sum,
+                                      int count, float* __restrict__ loss) {
+  reduce_sums(block_sum, count, loss);
+}
+
+template <typename T, bool kSplit>
+__global__ void __launch_bounds__(kPrepThreads)
+    ntxent_fwd_general_prep(const T* __restrict__ z, int n, int d,
+                            float* __restrict__ hi, float* __restrict__ lo) {
+  prep_tile<T, kSplit>(z, n, d, hi, lo, nullptr, nullptr);
+}
+
+template <bool kSplit>
+__global__ void __launch_bounds__(kThreads, 1)
+    ntxent_fwd_general_walk(const __grid_constant__ CUtensorMap tm_rh,
+                            const __grid_constant__ CUtensorMap tm_rl,
+                            const __grid_constant__ CUtensorMap tm_ch,
+                            const __grid_constant__ CUtensorMap tm_cl,
+                            GeneralIds ids, float* __restrict__ part, Plan p,
+                            int n_cols, int split_cols, float inv_t) {
+  fwd_walk<kSplit>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, ids, part, p, ids.n_rows,
+                   n_cols, split_cols, inv_t);
+}
+
+__global__ void __launch_bounds__(kMergeThreads)
+    ntxent_fwd_general_merge(const float* __restrict__ part,
+                             float* __restrict__ lse,
+                             float* __restrict__ block_sum, GeneralIds ids,
+                             int splits) {
+  fwd_merge(part, lse, block_sum, ids, ids.n_rows, splits);
+}
+
+__global__ void ntxent_fwd_general_reduce(const float* __restrict__ block_sum,
+                                          int count,
+                                          float* __restrict__ loss) {
+  reduce_sums(block_sum, count, loss);
+}
+
+// The buffers of one launch: z's hi and lo, (rows, Dp) fp32 each (lo only
+// for fp32 z; the columns' pair too in the general mode, n_cols > 0),
+// part 3 * splits * rows fp32, block_sum ceil(rows / 256) fp32, cut from
+// one scratch allocation; lse and loss are the caller's.
+struct Buffers {
+  float *hi_r, *lo_r, *hi_c, *lo_c, *part, *block_sum, *lse, *loss;
+};
+
+Buffers carve(Carver& c, int n_rows, int n_cols, int d, bool split,
+              int splits) {
+  Buffers b{};
+  const size_t dp = padded_d(d);
+  b.hi_r = c.take(n_rows * dp);
+  b.lo_r = c.take(split ? n_rows * dp : 0);
+  b.hi_c = c.take(n_cols * dp);
+  b.lo_c = c.take(split ? n_cols * dp : 0);
+  b.part = c.take(size_t(3) * splits * n_rows);
+  b.block_sum = c.take((n_rows + kMergeThreads - 1) / kMergeThreads);
+  return b;
+}
+
+template <bool kSplit>
+cudaError_t maps(CUtensorMap* h, CUtensorMap* l, float* hi, float* lo,
+                 int rows, int d) {
+  cudaError_t err = sm90::tensor_map_f32(h, hi, padded_d(d), rows, kBoxK,
+                                         kTile);
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(l, kSplit ? lo : hi, padded_d(d), rows,
+                               kBoxK, kTile);
+  }
+  return err;
+}
+
+template <typename T>
+cudaError_t launch_sym(const T* z, const Buffers& b, int n, int d,
+                       float inv_t, int splits, int split_cols,
+                       cudaStream_t stream) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  const dim3 prep_grid((n + 31) / 32, padded_d(d) / 32);
+  ntxent_fwd_sym_prep<T, kSplit><<<prep_grid, kPrepThreads, 0, stream>>>(
+      z, n, d, b.hi_r, b.lo_r);
+  cudaError_t err = cudaGetLastError();
+  CUtensorMap tm_h, tm_l;
+  if (err == cudaSuccess) {
+    err = maps<kSplit>(&tm_h, &tm_l, b.hi_r, b.lo_r, n, d);
+  }
+  const Plan p = make_plan(d, kSplit, kBoxBytes * (kSplit ? 2 : 1));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(ntxent_fwd_sym_walk<kSplit>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.bytes + 1024);
+  }
   if (err != cudaSuccess) return err;
-  const int tiles = (n_rows + kRows - 1) / kRows;
-  ntxent_fwd_kernel<T, kIds><<<tiles, kThreads, smem, stream>>>(
-      static_cast<const T*>(z_rows), static_cast<const T*>(z_cols), row_gid,
-      col_gid, static_cast<float*>(lse), static_cast<float*>(partial),
-      n_rows, n_cols, d, inv_t, cols_actual, n_half);
+  const SymIds ids{n};
+  ntxent_fwd_sym_walk<kSplit>
+      <<<dim3((n + kTile - 1) / kTile, splits), kThreads, p.bytes + 1024,
+         stream>>>(tm_h, tm_l, ids, b.part, p, n, split_cols, inv_t);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ntxent_loss_reduce<<<1, 32, 0, stream>>>(static_cast<const float*>(partial),
-                                           tiles, static_cast<float*>(loss));
+  const int merges = (n + kMergeThreads - 1) / kMergeThreads;
+  ntxent_fwd_sym_merge<<<merges, kMergeThreads, 0, stream>>>(
+      b.part, b.lse, b.block_sum, ids, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ntxent_fwd_sym_reduce<<<1, 32, 0, stream>>>(b.block_sum, merges, b.loss);
   return cudaGetLastError();
 }
 
-template <bool kIds>
-cudaError_t dispatch(const void* z_rows, const void* z_cols,
-                     const int* row_gid, const int* col_gid, void* lse,
-                     void* partial, void* loss, int n_rows, int n_cols, int d,
-                     int dtype, float inv_t, int cols_actual, int n_half,
-                     int device, void* stream) {
-  if (n_rows < 1 || n_cols < 1 || d < 1 || d > kMaxD) {
+template <typename T>
+cudaError_t launch_general(const T* z_rows, const T* z_cols,
+                           const GeneralIds& ids, const Buffers& b,
+                           int n_cols, int d, float inv_t, int splits,
+                           int split_cols, cudaStream_t stream) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  const int n_rows = ids.n_rows;
+  ntxent_fwd_general_prep<T, kSplit>
+      <<<dim3((n_rows + 31) / 32, padded_d(d) / 32), kPrepThreads, 0,
+         stream>>>(z_rows, n_rows, d, b.hi_r, b.lo_r);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ntxent_fwd_general_prep<T, kSplit>
+      <<<dim3((n_cols + 31) / 32, padded_d(d) / 32), kPrepThreads, 0,
+         stream>>>(z_cols, n_cols, d, b.hi_c, b.lo_c);
+  err = cudaGetLastError();
+  CUtensorMap tm_rh, tm_rl, tm_ch, tm_cl;
+  if (err == cudaSuccess) {
+    err = maps<kSplit>(&tm_rh, &tm_rl, b.hi_r, b.lo_r, n_rows, d);
+  }
+  if (err == cudaSuccess) {
+    err = maps<kSplit>(&tm_ch, &tm_cl, b.hi_c, b.lo_c, n_cols, d);
+  }
+  const Plan p = make_plan(d, kSplit, kBoxBytes * (kSplit ? 2 : 1));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(ntxent_fwd_general_walk<kSplit>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.bytes + 1024);
+  }
+  if (err != cudaSuccess) return err;
+  ntxent_fwd_general_walk<kSplit>
+      <<<dim3((n_rows + kTile - 1) / kTile, splits), kThreads,
+         p.bytes + 1024, stream>>>(tm_rh, tm_rl, tm_ch, tm_cl, ids, b.part,
+                                   p, n_cols, split_cols, inv_t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int merges = (n_rows + kMergeThreads - 1) / kMergeThreads;
+  ntxent_fwd_general_merge<<<merges, kMergeThreads, 0, stream>>>(
+      b.part, b.lse, b.block_sum, ids, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ntxent_fwd_general_reduce<<<1, 32, 0, stream>>>(b.block_sum, merges,
+                                                   b.loss);
+  return cudaGetLastError();
+}
+
+bool valid_split(int cols, int splits, int split_cols) {
+  return splits >= 1 && split_cols >= 1 &&
+         static_cast<long long>(splits - 1) * split_cols < cols &&
+         static_cast<long long>(splits) * split_cols >= cols;
+}
+
+}  // namespace
+
+// Floats of scratch one call takes: symmetric with n_cols = 0, general
+// with the column count.
+extern "C" long long ntx_ntxent_fwd_scratch(int n_rows, int n_cols, int d,
+                                            int dtype, int splits) {
+  Carver c{nullptr};
+  carve(c, n_rows, n_cols, d, dtype == 0, splits);
+  return static_cast<long long>(c.used);
+}
+
+// Symmetric mode. dtype: 0 = float32, 1 = bfloat16. The columns are cut
+// into `splits` runs of `split_cols` (the last one shorter), each non-empty
+// and together covering 0 .. rows - 1. `scratch` holds
+// ntx_ntxent_fwd_scratch(rows, 0, d, dtype, splits) floats. Returns a
+// cudaError_t (0 = success).
+extern "C" int ntx_ntxent_fwd(const void* z, void* lse, void* loss,
+                              void* scratch, int n_rows, int d, int dtype,
+                              float inv_t, int splits, int split_cols,
+                              int device, void* stream) {
+  if (n_rows < 2 || n_rows % 2 || d < 1 || d > kMaxD ||
+      !valid_split(n_rows, splits, split_cols)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Carver c{static_cast<float*>(scratch)};
+  Buffers b = carve(c, n_rows, 0, d, dtype == 0, splits);
+  b.lse = static_cast<float*>(lse);
+  b.loss = static_cast<float*>(loss);
   if (dtype == 0) {
-    return launch<float, kIds>(z_rows, z_cols, row_gid, col_gid, lse,
-                               partial, loss, n_rows, n_cols, d, inv_t,
-                               cols_actual, n_half, s);
+    return launch_sym(static_cast<const float*>(z), b, n_rows, d, inv_t,
+                      splits, split_cols, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16, kIds>(z_rows, z_cols, row_gid, col_gid,
-                                       lse, partial, loss, n_rows, n_cols, d,
-                                       inv_t, cols_actual, n_half, s);
+    return launch_sym(static_cast<const __nv_bfloat16*>(z), b, n_rows, d,
+                      inv_t, splits, split_cols, s);
   }
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// Symmetric mode. dtype: 0 = float32, 1 = bfloat16. `partial` holds
-// ceil(rows / 32) floats of scratch. Returns a cudaError_t (0 = success).
-extern "C" int ntx_ntxent_fwd(const void* z, void* lse, void* partial,
-                              void* loss, int n_rows, int d, int dtype,
-                              float inv_t, int device, void* stream) {
-  if (n_rows < 2 || n_rows % 2) return cudaErrorInvalidValue;
-  return dispatch<false>(z, z, nullptr, nullptr, lse, partial, loss, n_rows,
-                         n_rows, d, dtype, inv_t, n_rows, n_rows / 2, device,
-                         stream);
-}
-
 // General mode: rows z_rows (n_rows, d) with int32 ids row_gid, columns
-// z_cols (n_cols, d) with int32 ids col_gid (null: the column index).
-// `partial` holds ceil(n_rows / 32) floats of scratch.
-extern "C" int ntx_ntxent_fwd_general(const void* z_rows, const void* z_cols,
-                                      const void* row_gid,
-                                      const void* col_gid, void* lse,
-                                      void* partial, void* loss, int n_rows,
-                                      int n_cols, int d, int dtype,
-                                      float inv_t, int cols_actual,
-                                      int n_half, int device, void* stream) {
-  if (row_gid == nullptr) return cudaErrorInvalidValue;
-  return dispatch<true>(z_rows, z_cols, static_cast<const int*>(row_gid),
-                        static_cast<const int*>(col_gid), lse, partial, loss,
-                        n_rows, n_cols, d, dtype, inv_t, cols_actual, n_half,
-                        device, stream);
+// z_cols (n_cols, d) with int32 ids col_gid (null: the column index). The
+// columns split as in the symmetric mode. `scratch` holds
+// ntx_ntxent_fwd_scratch(n_rows, n_cols, d, dtype, splits) floats.
+extern "C" int ntx_ntxent_fwd_general(
+    const void* z_rows, const void* z_cols, const void* row_gid,
+    const void* col_gid, void* lse, void* loss, void* scratch, int n_rows,
+    int n_cols, int d, int dtype, float inv_t, int cols_actual, int n_half,
+    int splits, int split_cols, int device, void* stream) {
+  if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || d < 1 || d > kMaxD ||
+      !valid_split(n_cols, splits, split_cols)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GeneralIds ids{static_cast<const int*>(row_gid),
+                       static_cast<const int*>(col_gid), n_rows, cols_actual,
+                       n_half};
+  Carver c{static_cast<float*>(scratch)};
+  Buffers b = carve(c, n_rows, n_cols, d, dtype == 0, splits);
+  b.lse = static_cast<float*>(lse);
+  b.loss = static_cast<float*>(loss);
+  if (dtype == 0) {
+    return launch_general(static_cast<const float*>(z_rows),
+                          static_cast<const float*>(z_cols), ids, b, n_cols,
+                          d, inv_t, splits, split_cols, s);
+  }
+  if (dtype == 1) {
+    return launch_general(static_cast<const __nv_bfloat16*>(z_rows),
+                          static_cast<const __nv_bfloat16*>(z_cols), ids, b,
+                          n_cols, d, inv_t, splits, split_cols, s);
+  }
+  return cudaErrorInvalidValue;
 }

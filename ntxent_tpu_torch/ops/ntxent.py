@@ -13,6 +13,12 @@ the forward).
 * ``ntxent_bwd_sym(z, lse, temperature) -> grad`` (fp32, before the
   ``g / T`` scale) launches ``csrc/ntxent_bwd_sym.cu``;
   ``ntxent_bwd_sym_plain`` is its plain version;
+* these two and the general forward run on TF32 tensor cores (3xTF32 for
+  fp32 z, ``csrc/ntxent_tf32.cuh``), each CTA over one split of the
+  columns that ``column_splits`` plans; ``tf32_split`` and
+  ``ntxent_fwd_split_plain`` mirror the operand split and the split-and-
+  merge order in plain PyTorch for the tests and ``chip_smoke.py``'s
+  TF32 control (no wrapper calls them);
 * ``ntxent_fwd_tri`` and ``ntxent_bwd_tri``: the same two functions over
   the upper-triangle tiles only (``csrc/ntxent_tri_fwd.cu``,
   ``csrc/ntxent_tri_bwd.cu``); ``ntxent_fwd_tri_plain`` and
@@ -61,7 +67,8 @@ pair-parallel loss (``parallel.pair``).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version. Each wrapper counts its launches in ``.launches``. The tile
-shape belongs to the CUDA kernels: there is no block chooser here.
+shape belongs to the CUDA kernels; the column split of #1 and #5 is
+planned here (``column_splits``) and handed to them.
 """
 
 from __future__ import annotations
@@ -76,19 +83,23 @@ from . import _build
 
 __all__ = ["block_grads", "block_grads_dual", "block_grads_dual_plain",
            "block_lse", "block_lse_dual", "block_lse_dual_plain",
-           "ntxent_bwd_general_cols", "ntxent_bwd_general_cols_plain",
-           "ntxent_bwd_general_rows", "ntxent_bwd_general_rows_plain",
-           "ntxent_bwd_sym", "ntxent_bwd_sym_plain", "ntxent_bwd_tri",
-           "ntxent_bwd_tri_plain", "ntxent_fwd", "ntxent_fwd_general",
-           "ntxent_fwd_general_plain", "ntxent_fwd_plain", "ntxent_fwd_tri",
+           "column_splits", "ntxent_bwd_general_cols",
+           "ntxent_bwd_general_cols_plain", "ntxent_bwd_general_rows",
+           "ntxent_bwd_general_rows_plain", "ntxent_bwd_sym",
+           "ntxent_bwd_sym_plain", "ntxent_bwd_tri", "ntxent_bwd_tri_plain",
+           "ntxent_fwd", "ntxent_fwd_general", "ntxent_fwd_general_plain",
+           "ntxent_fwd_plain", "ntxent_fwd_split_plain", "ntxent_fwd_tri",
            "ntxent_fwd_tri_plain", "ntxent_loss_and_lse", "ntxent_loss_fused",
-           "ntxent_partial_fused"]
+           "ntxent_partial_fused", "tf32_split"]
 
 _NEG_INF = -1e30
 MAX_DIM = 256  # widest embedding the kernels stage in shared memory
-ROWS_PER_CTA = 32  # rows of one thread block in csrc/ntxent_fwd.cu
-TILE = 64  # rows of one tile of the triangular kernels (csrc/ntxent_tri_*)
+# rows of one tile of the triangular kernels (csrc/ntxent_tri_*) and of
+# #1 and #5 (csrc/ntxent_tf32.cuh); columns of their column tiles
+TILE = 64
 MERGE_ROWS = 256  # rows of one merge block of csrc/ntxent_tri_fwd.cu
+SPLIT_UNIT = 32  # columns: the grain of column_splits
+SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -157,6 +168,62 @@ def ntxent_bwd_sym_plain(z: torch.Tensor, lse: torch.Tensor,
     return g @ z.float()
 
 
+def column_splits(rows: int, cols: int, sms: int = SM_COUNT):
+    """(splits, split_cols) of #1 and #5's grid: the columns cut into
+    runs of ``split_cols`` (a multiple of 32; the last run shorter), so
+    that ceil(rows / 64) row tiles x ``splits`` CTAs come near one wave of
+    ``sms`` SMs. Every run is non-empty and the runs cover the columns once;
+    a grid of one wave or more (2N = 8192) keeps one split."""
+    row_tiles = -(-rows // TILE)
+    units = -(-cols // SPLIT_UNIT)
+    want = max(1, min(units, sms // row_tiles))
+    per = -(-units // want)
+    return -(-units // per), per * SPLIT_UNIT
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) of fp32 ``x``: hi rounded to TF32 (10 explicit mantissa
+    bits, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``), lo =
+    x - hi, so hi + lo == x bit for bit. The plain mirror of the kernels'
+    operand split; ``hi`` alone is one TF32 pass."""
+    bits = x.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, x.float() - hi
+
+
+def ntxent_fwd_split_plain(z_rows, z_cols, row_gid, temperature,
+                           splits, split_cols, col_gid=None,
+                           cols_actual=None, n_half=None):
+    """(loss_sum, lse (R,)) of the general mode in the kernels' order:
+    one (m, l, pos) partial per row and run of ``split_cols`` columns,
+    folded in run order (``m = max``, ``l = l exp0(m - m') + l_c exp0(m_c
+    - m')``), ``lse = m + log(max(l, 1e-37))``. The same function as
+    ``ntxent_fwd_general_plain``; the symmetric mode is this one with the
+    indices for ids."""
+    cols_actual, n_half = _general_args(z_rows, z_cols, row_gid, col_gid,
+                                        cols_actual, n_half)
+    masked, raw, onehot, valid = _general_terms(
+        z_rows, z_cols, row_gid, temperature, col_gid, cols_actual, n_half)
+    m = torch.full_like(masked[:, 0], _NEG_INF)
+    l = torch.zeros_like(m)
+    p = torch.zeros_like(m)
+    for start in range(0, splits * split_cols, split_cols):
+        x = masked[:, start:start + split_cols]
+        m_c = x.amax(dim=1)
+        l_c = _exp0(x - m_c[:, None]).sum(dim=1)
+        m_new = torch.maximum(m, m_c)
+        l = l * _exp0(m - m_new) + l_c * _exp0(m_c - m_new)
+        m = m_new
+        p = p + (raw * onehot)[:, start:start + split_cols].sum(dim=1)
+    lse = m + _log_l(l)
+    return torch.where(valid, lse - p, torch.zeros_like(lse)).sum(), lse
+
+
 def _check_kernel_input(z: torch.Tensor) -> None:
     if z.dtype not in _DTYPE_CODES:
         raise TypeError(f"the NT-Xent kernels take float32 or bfloat16 z, "
@@ -171,9 +238,11 @@ def _check_kernel_input(z: torch.Tensor) -> None:
 @functools.cache
 def _fwd_kernel():
     fn = _build.load("ntxent_fwd").ntx_ntxent_fwd
-    # z, lse, partial, loss; rows, d, dtype; inv_t; device; stream
+    # z, lse, loss, scratch; rows, d, dtype; inv_t; splits, split_cols,
+    # device; stream
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -181,11 +250,32 @@ def _fwd_kernel():
 @functools.cache
 def _bwd_kernel():
     fn = _build.load("ntxent_bwd_sym").ntx_ntxent_bwd_sym
-    # z, lse, grad; rows, d, dtype; inv_t; device; stream
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    # z, lse, grad, scratch; rows, d, dtype; inv_t; splits, split_cols,
+    # device; stream
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _scratch_size(name: str):
+    """The library's report of the floats of scratch one call takes (the
+    layout of the operand copies and partials lives in the library)."""
+    fn = getattr(_build.load(name), f"ntx_{name}_scratch")
+    fn.argtypes = [ctypes.c_int] * (5 if name == "ntxent_fwd" else 4)
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def _scratch(z: torch.Tensor, name: str, *args: int) -> torch.Tensor:
+    return torch.empty(_scratch_size(name)(*args), dtype=torch.float32,
+                       device=z.device)
+
+
+def _splits(z: torch.Tensor, rows: int, cols: int):
+    return column_splits(rows, cols, _sm_count(z.device.index))
 
 
 def ntxent_fwd(z: torch.Tensor, temperature: float):
@@ -200,13 +290,15 @@ def ntxent_fwd(z: torch.Tensor, temperature: float):
         raise ValueError(f"ntxent_fwd runs on cuda or cpu, got {z.device}")
     _check_kernel_input(z)
     rows, d = z.shape
+    dtype = _DTYPE_CODES[z.dtype]
+    splits, split_cols = _splits(z, rows, rows)
+    scratch = _scratch(z, "ntxent_fwd", rows, 0, d, dtype, splits)
     lse = torch.empty(rows, dtype=torch.float32, device=z.device)
-    partial = torch.empty(-(-rows // ROWS_PER_CTA), dtype=torch.float32,
-                          device=z.device)
     loss = torch.empty((), dtype=torch.float32, device=z.device)
-    err = _fwd_kernel()(z.data_ptr(), lse.data_ptr(), partial.data_ptr(),
-                        loss.data_ptr(), rows, d, _DTYPE_CODES[z.dtype],
-                        _inv_t(temperature), z.device.index,
+    err = _fwd_kernel()(z.data_ptr(), lse.data_ptr(), loss.data_ptr(),
+                        scratch.data_ptr(), rows, d, dtype,
+                        _inv_t(temperature), splits, split_cols,
+                        z.device.index,
                         torch.cuda.current_stream(z.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ntxent_fwd launch failed: CUDA error {err}")
@@ -222,7 +314,10 @@ def ntxent_bwd_sym(z: torch.Tensor, lse: torch.Tensor,
     """(2N, D) fp32 ``G @ z`` (the gradient of loss_sum before ``1 / T``).
 
     A CUDA tensor launches ``csrc/ntxent_bwd_sym.cu`` (counted in
-    ``ntxent_bwd_sym.launches``); a CPU tensor runs the plain version."""
+    ``ntxent_bwd_sym.launches``), whose operand copies take about 4 2N D
+    fp32 of scratch (fp32 z; half for bf16) and, with more than one column
+    split, a partial gradient per split; a CPU tensor runs the plain
+    version."""
     _check(z)
     if lse.shape != (z.shape[0],) or lse.device != z.device:
         raise ValueError(f"lse must be ({z.shape[0]},) on {z.device}, got "
@@ -233,11 +328,16 @@ def ntxent_bwd_sym(z: torch.Tensor, lse: torch.Tensor,
         raise ValueError(f"ntxent_bwd_sym runs on cuda or cpu, got "
                          f"{z.device}")
     _check_kernel_input(z)
+    rows, d = z.shape
     lse = lse.float().contiguous()
+    dtype = _DTYPE_CODES[z.dtype]
+    splits, split_cols = _splits(z, rows, rows)
+    scratch = _scratch(z, "ntxent_bwd_sym", rows, d, dtype, splits)
     grad = torch.empty(z.shape, dtype=torch.float32, device=z.device)
     err = _bwd_kernel()(z.data_ptr(), lse.data_ptr(), grad.data_ptr(),
-                        z.shape[0], z.shape[1], _DTYPE_CODES[z.dtype],
-                        _inv_t(temperature), z.device.index,
+                        scratch.data_ptr(), rows, d, dtype,
+                        _inv_t(temperature), splits, split_cols,
+                        z.device.index,
                         torch.cuda.current_stream(z.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ntxent_bwd_sym launch failed: CUDA error {err}")
@@ -543,10 +643,10 @@ def _ptr(t) -> int | None:
 @functools.cache
 def _fwd_general_kernel():
     fn = _build.load("ntxent_fwd").ntx_ntxent_fwd_general
-    # z_rows, z_cols, row_gid, col_gid, lse, partial, loss; rows, cols, d,
-    # dtype; inv_t; cols_actual, n_half, device; stream
+    # z_rows, z_cols, row_gid, col_gid, lse, loss, scratch; rows, cols, d,
+    # dtype; inv_t; cols_actual, n_half, splits, split_cols, device; stream
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -583,17 +683,18 @@ def ntxent_fwd_general(z_rows, z_cols, row_gid, temperature, col_gid=None,
                          f"{z_rows.device}")
     _check_kernel_input(z_rows)
     _check_kernel_input(z_cols)
-    rows, d = z_rows.shape
+    (rows, d), cols = z_rows.shape, z_cols.shape[0]
     row_gid, col_gid = _ids(row_gid), _ids(col_gid)
+    dtype = _DTYPE_CODES[z_rows.dtype]
+    splits, split_cols = _splits(z_rows, rows, cols)
+    scratch = _scratch(z_rows, "ntxent_fwd", rows, cols, d, dtype, splits)
     lse = torch.empty(rows, dtype=torch.float32, device=z_rows.device)
-    partial = torch.empty(-(-rows // ROWS_PER_CTA), dtype=torch.float32,
-                          device=z_rows.device)
     loss = torch.empty((), dtype=torch.float32, device=z_rows.device)
     err = _fwd_general_kernel()(
         z_rows.data_ptr(), z_cols.data_ptr(), row_gid.data_ptr(),
-        _ptr(col_gid), lse.data_ptr(), partial.data_ptr(), loss.data_ptr(),
-        rows, z_cols.shape[0], d, _DTYPE_CODES[z_rows.dtype],
-        _inv_t(temperature), cols_actual, n_half, z_rows.device.index,
+        _ptr(col_gid), lse.data_ptr(), loss.data_ptr(), scratch.data_ptr(),
+        rows, cols, d, dtype, _inv_t(temperature), cols_actual, n_half,
+        splits, split_cols, z_rows.device.index,
         torch.cuda.current_stream(z_rows.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ntxent_fwd_general launch failed: CUDA error "

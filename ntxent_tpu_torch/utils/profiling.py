@@ -1,7 +1,7 @@
 """Where the port's serving forward and training steps spend device time.
 
-Five modes, each on the model of its slice (ViT-B/16 or ResNet-50 at
-224 px, random weights from seed 0):
+Seven modes, all but the last on the model of its slice (ViT-B/16 or
+ResNet-50 at 224 px, random weights from seed 0):
 
 ``--mode forward`` (the default; serving): for one batch-size bucket and
 each attention impl,
@@ -76,6 +76,15 @@ ranks emulated in one process instead (``emulated_ring_attention``),
   dQ (#13) and dK/dV (#14) kernels and the other groups, and counts each
   kernel's launches per pass and the peak device memory.
 
+``--mode ntxent`` (the NT-Xent kernels alone): #1 and #5 in fp32 at D =
+128, 2N = 512 (the SimCLR path at ``--batch 256``) and 8192 (the
+headline shape of ``BASELINE.json``), and #1's general mode at the
+strip's (R, C) of one rank of 4 at global batch 256, of world 1 at 256
+and of one rank of 4 at 4096,
+
+* times each call with CUDA events (20 calls after warmup), and the
+  host's ms of one call at 2N = 512 (no synchronisation in the loop).
+
 Run on the card, from the repository root:
 
     python -m ntxent_tpu_torch.utils.profiling --bucket 64 --impls flash,xla
@@ -88,6 +97,7 @@ Run on the card, from the repository root:
     python -m ntxent_tpu_torch.utils.profiling --mode longctx
     python -m ntxent_tpu_torch.utils.profiling --mode longctx \
         --ring-emulate 4
+    python -m ntxent_tpu_torch.utils.profiling --mode ntxent
 
 The last line of the output is one JSON object with every number.
 """
@@ -124,11 +134,11 @@ _KERNELS = (("ntxent_dual_stats_kernel", "block_lse_dual"),
             ("flash_fold_kernel", "flash_fold"),
             ("flash_dq_kernel", "flash_attention_dq"),
             ("flash_dkv_kernel", "flash_attention_dkv"),
-            ("ntxent_fwd_kernel<float, true>", "ntxent_fwd_general"),
-            ("ntxent_fwd_kernel<__nv_bfloat16, true>", "ntxent_fwd_general"),
-            ("ntxent_fwd_kernel", "ntxent_fwd"),
-            ("ntxent_loss_reduce", "ntxent_fwd"),
-            ("ntxent_bwd_sym_kernel", "ntxent_bwd_sym"),
+            # the TF32 kernels of #1 and #5 (prep, walk, merge, reduce,
+            # sum): each name carries its mode
+            ("ntxent_fwd_general_", "ntxent_fwd_general"),
+            ("ntxent_fwd_sym_", "ntxent_fwd"),
+            ("ntxent_bwd_sym_", "ntxent_bwd_sym"),
             ("ntxent_bwd_general_kernel<float, false>",
              "ntxent_bwd_general_rows"),
             ("ntxent_bwd_general_kernel<__nv_bfloat16, false>",
@@ -147,6 +157,8 @@ LONGCTX = dict(vocab_size=49408, hidden_dim=512, depth=8, num_heads=8,
                mlp_dim=2048, max_len=32768)
 LONGCTX_BATCH = 1
 RUNS, TRACE_RUNS = 10, 3
+NTXENT_ROWS = (512, 8192)  # 2N of --mode ntxent
+NTXENT_STRIPS = ((128, 512), (512, 512), (2048, 8192))  # (R, C), general
 
 
 def cuda_time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
@@ -677,6 +689,47 @@ def longctx_profile(device, ring_emulate: int = 0) -> dict:
             mesh.shutdown()
 
 
+def ntxent_profile(device) -> dict:
+    """CUDA-event ms of #1 and #5 (fp32, D = 128) at each 2N of
+    ``NTXENT_ROWS``, the host ms of one call at the first, and #1's
+    general mode at each (R, C) of ``NTXENT_STRIPS`` (rank 3's rows of a
+    world of C / R ranks)."""
+    from ..ops import ntxent
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def unit_rows(rows):
+        z = torch.randn(rows, 128, generator=gen, device=device)
+        return torch.nn.functional.normalize(z, dim=1)
+
+    out = {}
+    for rows in NTXENT_ROWS:
+        z = unit_rows(rows)
+        _, lse = ntxent.ntxent_fwd(z, 0.1)
+        out[f"fwd_{rows}_ms"] = cuda_time_ms(
+            lambda: ntxent.ntxent_fwd(z, 0.1), 20)
+        out[f"bwd_{rows}_ms"] = cuda_time_ms(
+            lambda: ntxent.ntxent_bwd_sym(z, lse, 0.1), 20)
+        if rows == NTXENT_ROWS[0]:
+            for name, fn in (("fwd", lambda: ntxent.ntxent_fwd(z, 0.1)),
+                             ("bwd",
+                              lambda: ntxent.ntxent_bwd_sym(z, lse, 0.1))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    fn()
+                out[f"{name}_{rows}_host_ms"] = (
+                    (time.perf_counter() - t0) / 50 * 1e3)
+                torch.cuda.synchronize()
+    for rows, cols in NTXENT_STRIPS:
+        z_rows, z_cols = unit_rows(rows), unit_rows(cols)
+        gid = local_row_gids(min(3, cols // rows - 1), rows // 2,
+                             cols // rows, device)
+        out[f"general_{rows}x{cols}_ms"] = cuda_time_ms(
+            lambda: ntxent.ntxent_fwd_general(z_rows, z_cols, gid, 0.1), 20)
+    return out
+
+
 def main(argv=None) -> int:
     from ..cli import build_model, build_serve_parser
     from .capability import card_power_line, device_name, resolve_device
@@ -684,7 +737,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--mode", default="forward",
                    choices=["forward", "train", "clip", "dp", "clip_dp",
-                            "longctx"])
+                            "longctx", "ntxent"])
     p.add_argument("--bucket", type=int, default=64,
                    help="forward mode: batch size of the profiled forward")
     p.add_argument("--impls", default="flash,xla",
@@ -700,6 +753,16 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     device = resolve_device("cuda")
+    if args.mode == "ntxent":
+        card = card_power_line()
+        print(f"card: {card}", flush=True)
+        result = {"device": device_name(device), "card": card,
+                  "mode": "ntxent", **ntxent_profile(device)}
+        times = {k: round(v, 4) for k, v in result.items()
+                 if k.endswith("_ms")}
+        print(f"[ntxent] ms a call: {json.dumps(times)}", flush=True)
+        print(json.dumps(result))
+        return 0
     if args.mode == "longctx":
         card = card_power_line()
         print(f"card: {card}", flush=True)

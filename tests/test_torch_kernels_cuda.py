@@ -18,10 +18,14 @@ the input checks and the build table.
 
 Tolerances (max abs error against the plain version on the card):
 
-* NT-Xent, fp32 z: the same fp32 products summed in another order ->
-  2e-4 on lse and loss_sum/2N (logits up to 1/T = 10), 2e-4 on the
-  gradient; bf16 z: products of bf16 values are exact in fp32 on both
-  sides, so the same bounds hold.
+* NT-Xent, fp32 z: the kernels form products in 3xTF32 (about 22 bits)
+  and the plain version in fp32, summed in another order -> 2e-4 on lse
+  and loss_sum/2N (logits up to 1/T = 10), 2e-4 on the gradient; bf16 z:
+  products of bf16 values are exact in TF32 and fp32 on both sides, so
+  the same bounds hold. The TF32 control (the plain version on z rounded
+  to TF32 once, one TF32 pass) must err at least 10x more than the
+  kernels on lse and on the gradient: a kernel that dropped a lo product
+  would sit at the control's error, which NTX_ATOL alone would not show.
 * general NT-Xent (rows x columns with global ids), fp32 or bf16: the
   same products in another order -> the symmetric bounds, 2e-4 on lse,
   loss_sum/R and both gradients.
@@ -60,6 +64,10 @@ BWD_ATOL = {"float32": dict(dq=1e-4, dkv=1e-4),
 # (2N, D): the training path's shape, the north-star global batch, and a
 # ragged 2N with D != 2B.
 NTX_SHAPES = [(512, 128), (8192, 128), (1000, 96)]
+# Embedding widths at the edges of the kernels' range (1 <= D <= 256): D
+# padded to 32 with zeros, and D = 256 in two chunks of the backward.
+NTX_EDGE_DIMS = [1, 5, 256]
+TF32_CONTROL_FACTOR = 10
 # (R, C, D) of the general kernels: one rank's strip of a 4-card world at
 # global batch 256 and at 4096, and a ragged shape with D != 2B.
 GENERAL_SHAPES = [(128, 512, 128), (2048, 8192, 128), (100, 1000, 96)]
@@ -386,6 +394,68 @@ def test_cuda_ntxent_kernels_match_plain_versions(shape, dtype):
     # No atomics: the loss is bitwise repeatable.
     again, _ = N.ntxent_fwd(z, 0.1)
     assert again.item() == loss_sum.item()
+
+
+def _ntxent_errors(z, lse, grad, t=0.1):
+    """(lse, grad) max abs errors of a kernel's or a control's readings
+    against the plain versions on z."""
+    _, lse_ref = N.ntxent_fwd_plain(z, t)
+    grad_ref = N.ntxent_bwd_sym_plain(z, lse_ref, t)
+    return ((lse - lse_ref).abs().max().item(),
+            (grad - grad_ref).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [512, 8192])
+def test_cuda_ntxent_kernels_beat_the_tf32_control(rows):
+    """fp32 z: the 3xTF32 kernels' lse and gradient errors sit at least
+    10x below those of one TF32 pass (the plain version on z rounded to
+    TF32, tf32_split's hi), and under NTX_ATOL."""
+    dev = _cuda()
+    z = _unit_rows(rows, 128, seed=rows + 1, device=dev)
+    _, lse = N.ntxent_fwd(z, 0.1)
+    grad = N.ntxent_bwd_sym(z, lse, 0.1)
+    kernel = _ntxent_errors(z, lse, grad)
+    z_tf32 = N.tf32_split(z)[0]
+    _, lse_c = N.ntxent_fwd_plain(z_tf32, 0.1)
+    control = _ntxent_errors(z, lse_c,
+                             N.ntxent_bwd_sym_plain(z_tf32, lse_c, 0.1))
+    torch.cuda.synchronize()
+    for k, c in zip(kernel, control):
+        assert k <= NTX_ATOL
+        assert TF32_CONTROL_FACTOR * k <= c, (kernel, control)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", NTX_EDGE_DIMS)
+def test_cuda_ntxent_kernels_take_every_width(d, dtype):
+    dev = _cuda()
+    z = _unit_rows(300, d, seed=d, device=dev, dtype=getattr(torch, dtype))
+    loss_sum, lse = N.ntxent_fwd(z, 0.1)
+    grad = N.ntxent_bwd_sym(z, lse, 0.1)
+    loss_ref, lse_ref = N.ntxent_fwd_plain(z, 0.1)
+    torch.cuda.synchronize()
+    lse_err, grad_err = _ntxent_errors(z, lse, grad)
+    assert abs(loss_sum.item() - loss_ref.item()) / 300 <= NTX_ATOL
+    assert lse_err <= NTX_ATOL and grad_err <= NTX_ATOL, (lse_err, grad_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", NTX_EDGE_DIMS)
+def test_cuda_general_ntxent_forward_takes_every_width(d):
+    dev = _cuda()
+    zr = _unit_rows(100, d, seed=d, device=dev)
+    zc = _unit_rows(1000, d, seed=d + 1, device=dev)
+    row_gid, col_gid, total, n_half = _general_case(100, 1000, 6, dev, True)
+    kw = dict(col_gid=col_gid, cols_actual=total, n_half=n_half)
+    loss_sum, lse = N.ntxent_fwd_general(zr, zc, row_gid, 0.1, **kw)
+    loss_ref, lse_ref = N.ntxent_fwd_general_plain(zr, zc, row_gid, 0.1,
+                                                   **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, lse_ref, atol=NTX_ATOL, rtol=0)
+    torch.testing.assert_close(loss_sum / 100, loss_ref / 100,
+                               atol=NTX_ATOL, rtol=0)
 
 
 @pytest.mark.cuda

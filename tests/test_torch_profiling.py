@@ -1,9 +1,12 @@
 """The port's forward profiler (ntxent_tpu_torch.utils.profiling): what
 runs here without a card."""
 
+import re
+
 import pytest
 import torch
 
+from ntxent_tpu_torch.ops import _build
 from ntxent_tpu_torch.utils import profiling
 
 
@@ -24,15 +27,15 @@ from ntxent_tpu_torch.utils import profiling
      "...)", "flash_attention_dq"),
     ("void (anonymous namespace)::flash_fold_kernel_tma<64>(CUtensorMap_st, "
      "...)", "flash_fold"),
-    ("void (anonymous namespace)::ntxent_fwd_kernel<float>(...)",
+    ("void (anonymous namespace)::ntxent_fwd_sym_walk<true>(...)",
      "ntxent_fwd"),
-    ("(anonymous namespace)::ntxent_loss_reduce(float const*, int, float*)",
-     "ntxent_fwd"),
-    ("void (anonymous namespace)::ntxent_bwd_sym_kernel<float>(...)",
+    ("(anonymous namespace)::ntxent_fwd_sym_reduce(float const*, int, "
+     "float*)", "ntxent_fwd"),
+    ("void (anonymous namespace)::ntxent_bwd_sym_walk<true, 128>(...)",
      "ntxent_bwd_sym"),
-    ("void (anonymous namespace)::ntxent_fwd_kernel<float, true>(...)",
+    ("void (anonymous namespace)::ntxent_fwd_general_walk<true>(...)",
      "ntxent_fwd_general"),
-    ("void (anonymous namespace)::ntxent_fwd_kernel<float, false>(...)",
+    ("void (anonymous namespace)::ntxent_fwd_sym_walk<false>(...)",
      "ntxent_fwd"),
     ("void (anonymous namespace)::ntxent_bwd_general_kernel<float, false>"
      "(...)", "ntxent_bwd_general_rows"),
@@ -69,6 +72,22 @@ def test_kernels_are_grouped_by_name(name, group):
     assert profiling._group(name) == group
 
 
+@pytest.mark.parametrize("source", ["ntxent_fwd", "ntxent_bwd_sym"])
+def test_tf32_ntxent_kernels_group_under_their_wrappers(source):
+    """Every kernel of the TF32 #1 and #5 (prep, walk, merge, reduce,
+    sum; the tensor-map parameters in their names) groups under the
+    wrapper that launches it, never under cuBLAS's "matmul"."""
+    text = _build.SOURCES[source].read_text()
+    names = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
+                       r"\s+(\w+)\(", text)
+    assert len(names) >= 3
+    for name in names:
+        demangled = (f"void (anonymous namespace)::{name}<true>("
+                     f"CUtensorMap_st, CUtensorMap_st, ...)")
+        wrapper = "ntxent_fwd_general" if "_general_" in name else source
+        assert profiling._group(demangled) == wrapper, name
+
+
 @pytest.mark.parametrize("argv", [["--bucket", "1"],
                                   ["--mode", "train", "--batch", "2"],
                                   ["--mode", "clip", "--batch", "2"],
@@ -78,7 +97,8 @@ def test_kernels_are_grouped_by_name(name, group):
                                   ["--mode", "clip_dp", "--batch", "2"],
                                   ["--mode", "longctx"],
                                   ["--mode", "longctx", "--ring-emulate",
-                                   "4"]])
+                                   "4"],
+                                  ["--mode", "ntxent"]])
 def test_profiler_needs_a_card(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present")
