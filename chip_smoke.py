@@ -22,6 +22,15 @@ Phases; any failure ends the run with a non-zero exit and no result:
    padding row, fp32 and bf16, bitwise repeatable; CUDA-event times
    beside the bound; and the symmetric ``ntxent_fwd`` re-timed over 200
    launches;
+2b. the two-pass InfoNCE kernels: ``ntxent_fwd_general`` (#1) and
+   ``ntxent_bwd_general_rows`` / ``_cols`` (#6) in their InfoNCE mode
+   (``diag_pos``, the logit scale read on the card) against their plain
+   versions at (R, C, D) = (256, 256, 512) (the two-pass CLIP path of
+   this run), (1024, 4096, 512) (one rank of 4 at batch 4096) and a ragged
+   (101, 1000, 96) with scattered ids and a padding row, fp32 and bf16,
+   scales 14.3 and 100, within NTX_ATOL scaled to the largest logit,
+   bitwise repeatable; in fp32 at least 10x below a one-pass TF32
+   control; CUDA-event times beside the bound;
 3. kernels: each hand-written kernel against its plain version on the
    card -- ``flash_attention_fwd`` (the ViT-B/16 serving and training
    shapes in bf16 and fp32, causal cases with q_offset != k_offset and
@@ -38,7 +47,11 @@ Phases; any failure ends the run with a non-zero exit and no result:
    (the training shape in bf16 and fp32 and the causal offset cases, and
    a wholly masked ring hop whose dk and dv must be zero bit for bit; in
    bf16 the TMA/wgmma dQ, over four seeds at the training shape, against
-   an fp32 truth as the forward is, its control accumulating dq in bf16)
+   an fp32 truth as the forward is, its control accumulating dq in bf16;
+   and the bf16 dK/dV's dk and dv over the same seeds against an fp32
+   truth, over a reference that rounds p and ds to bf16 pairs as the
+   kernel does, its control carrying dk and dv in bf16 pairs across
+   64-row q tiles)
    --
    ``infonce_dual_fwd`` and ``infonce_dual_bwd`` (N = 256, 1000, 8192 at
    D = 512 and 128, fp32 and bf16, a logit scale of 17.5 passed as a
@@ -91,7 +104,10 @@ Phases; any failure ends the run with a non-zero exit and no result:
    and gradient; then four CLIP ranks at global batch 256 (D = 512):
    each rank's rectangular forward, the column lse merged by hand, each
    rank's rows and columns gradients, against the single-card
-   ``info_nce_fused`` loss and gradients;
+   ``info_nce_fused`` loss and gradients; then P = 2 and 4 ranks of the
+   two-pass loss (``info_nce_partial_fused`` for each direction, as
+   ``local_infonce_allgather`` calls it) against the same single-card
+   loss and gradients, 2P launches of #1 and #6 rows and columns;
 11. data-parallel train: ResNet-50 SimCLR through
    ``cli.train(..., data_parallel=True)`` over a real NCCL process group
    of world size 1 (a ``FileStore``), ``--image-size 224 --batch 256
@@ -112,7 +128,12 @@ Phases; any failure ends the run with a non-zero exit and no result:
    peak memory;
 12b. its parity: one fp32 CLIP ViT-B/16 step (batch 4) of the
    data-parallel step at world 1 against the single-card CLIP step, TF32
-   off;
+   off; then the same CLIP ViT-B/16 at --batch 256 through
+   ``make_sharded_clip_train_step(group, loss_impl="twopass")`` for 3
+   steps against the "dual" step from the same weights and batches: the
+   losses, each parameter's change, and exactly 2/2/2 launches a step of
+   #1 and #6 rows and columns, 12/12/12 of the flash kernels and none of
+   #4, #5 cross-modal, #9 or #10; step ms of both;
 12c. shard-pair kernels: ``block_lse_dual`` (#7) and ``block_grads_dual``
    (#8) against their plain versions at (R, C, D) = (512, 512, 128) (the
    self tile of the pair path of this run), (128, 128, 128) and (2048,
@@ -161,7 +182,8 @@ Phases; any failure ends the run with a non-zero exit and no result:
 12i. the ring NT-Xent of P = 2, 4, 8 ranks emulated at 2N = 8192, D =
    128 (``emulated_ring_ntxent``: the ring's per-hop ``lse_hop`` over #1
    general, ``block_grads`` over #6) against ntxent_loss_fused, P
-   launches of each per rank;
+   launches of each per rank; #6 at the P = 4 hop against its plain
+   versions, and its times there;
 12j. the long-context path in the NCCL group of world 1:
    ``LongContextTransformer`` (vocabulary 49408, hidden 512, depth 8, 8
    heads, MLP 2048, max_len 32768, bf16) at B 1, L 32768 under
@@ -181,16 +203,17 @@ Phases; any failure ends the run with a non-zero exit and no result:
 14. the last line: ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --truth`` runs phases 1 and 2 and then prints the
-three bf16 kernels' fp32-truth readings (#11, #13, #12) and the per-tile
-readings of #13 and #14 at the two hops of 12g, without gating them: run
-over the kernels a change replaces, they are the readings a gate's
-factor or tolerance is set between.
+four bf16 kernels' fp32-truth readings (#11, #13, #12, #14's dk and dv)
+and the per-tile readings of #13 and #14 at the two hops of 12g, without
+gating them: run over the kernels a change replaces, they are the
+readings a gate's factor or tolerance is set between.
 
 It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
 import tempfile
@@ -261,6 +284,19 @@ TRUTH_RMS_FACTOR = 1.1
 DQ_TRUTH_RMS_FACTOR = 1.4
 FOLD_TRUTH_RMS_FACTOR = 1.14
 FOLD_TRUTH_SHAPE = (8, 8192, 64)
+# dK/dV (#14) against an fp32 truth at the training shape, each of dk and
+# dv over TRUTH_SEEDS: the plain version itself (p and ds in fp32, nothing
+# rounded), from the plain forward's lse and delta. The kernel keeps p
+# and ds as bf16 pairs hi = bf16(x), lo = bf16(x - hi) (about 16 bits), so
+# the reference is that rounding in plain arithmetic (p and ds rounded to
+# the pairs, the products and sums in fp32), and the control rounds the
+# running dk and dv to the same pairs after each 64-row q tile (a kernel
+# that carried its sums in bf16 pairs). On the H100 the kernel as it
+# stands (PR 8's TMA/wgmma #14) read, over the four seeds, dk 1.03995-
+# 1.04006 and dv 1.02852-1.02861, the controls dk 1.97771-1.98016 and dv
+# 1.97587-1.97804 (`chip_smoke.py --truth`). The factor sits between the
+# two readings, near their geometric mean (1.43), as DQ_TRUTH_RMS_FACTOR.
+DKV_TRUTH_RMS_FACTOR = 1.4
 # Embeddings are unit vectors computed in bf16: batching and padding may
 # change the GEMM shapes and so the rounding, never more than this.
 EMBED_ATOL = 2e-2
@@ -404,6 +440,59 @@ CLIP_DP_ARGV = ["--objective", "clip", "--model", "vit_b16",
 CLIP_DP_STEP_LAUNCHES = {"infonce_dual_fwd_rect": 1, "infonce_bwd_rows": 1,
                          "infonce_bwd_cols": 1, "flash_attention_fwd": 12,
                          "flash_attention_dq": 12, "flash_attention_dkv": 12}
+# The two-pass data-parallel InfoNCE (loss_impl="twopass"): #1 and #6 in
+# their InfoNCE mode (diag_pos: the diagonal is the positive and is not
+# masked; a logit scale read on the device). (R, C, D): a world of one at
+# CLIP's --batch 256 (embedding 512, the path of this run), one rank of 4
+# at a global batch of 4096, and a ragged shape with scattered row ids and
+# a padding row (id = C). Scales: CLIP's initial exp(logit_scale) (1 /
+# 0.07, 14.3) and its cap (100).
+TWOPASS_SHAPES = [(256, 256, 512), (1024, 4096, 512), (101, 1000, 96)]
+TWOPASS_SCALES = (14.3, 100.0)
+
+
+def _twopass_atol(scale: float) -> float:
+    """NTX_ATOL holds the kernels to their plain versions at logits up to
+    1/T = 10; an error of the products grows with the logits, which reach
+    the scale here: NTX_ATOL * max(1, scale / 10) on lse, loss_sum/R and
+    both gradients (2.9e-4 at 14.3, 2e-3 at 100)."""
+    return NTX_ATOL * max(1.0, scale / 10)
+
+
+# Ranks of the two-pass loss emulated on one card at global batch 256 (D =
+# 512): the summed partial losses and the gradients of za, zb and the
+# scale against the single-card info_nce_fused, at DP_CLIP_LOSS_ATOL and
+# DP_CLIP_GRAD_RTOL (the same terms summed in another order).
+TWOPASS_WORLDS = (2, 4)
+# The full-width CLIP ViT-B/16 step with loss_impl="twopass" over the NCCL
+# group of world 1 at --batch 256, against the "dual" step from the same
+# weights and batches: step 1 runs at the warmup's lr of 0, steps 2-3
+# train. Launches a step: #1 and #6 rows and columns twice (once for each
+# direction), the image tower's flash kernels as the dual step launches
+# them, and no other loss kernel.
+TWOPASS_STEPS = 3
+TWOPASS_STEP_LAUNCHES = {"ntxent_fwd_general": 2,
+                         "ntxent_bwd_general_rows": 2,
+                         "ntxent_bwd_general_cols": 2,
+                         "flash_attention_fwd": 12, "flash_attention_dq": 12,
+                         "flash_attention_dkv": 12}
+# The two steps differ only in the loss kernels (the same fp32 embeddings
+# into other kernels, summed in another order: ~1e-6 on a mean loss of
+# ~log 256): each step's loss within PARITY_LOSS_ATOL, in the path's bf16
+# towers and in fp32 ones. The parameters are held in fp32 (TF32 off), as
+# every step parity of this script is: each parameter's change over the
+# steps within PARITY_GRAD_RTOL of the dual step's. In the bf16 towers
+# they are a printed reading and no gate: AdamW divides each gradient by
+# its own root mean square, so where a weight's gradient at
+# initialization is of the size of bf16 rounding (the attention queries
+# of a late block: the keys nearly coincide) the ulp that the cast into
+# the bf16 backward flips becomes a change of up to the lr (the first
+# card run read 0.16 of a query weight's change). The attention key
+# biases have a gradient of 0 in exact arithmetic (test_torch_clip_dp.py),
+# so both updates are AdamW steps of rounding noise: they are held to
+# AdamW's step bound, 2 lr an entry per training step, not to each other.
+TWOPASS_LR = 5e-4
+
 # The symmetric ntxent_fwd re-timed beside the data-parallel InfoNCE
 # kernels over more launches than the other timings: ten launches of a
 # ~0.1 ms kernel do not separate its modes' times.
@@ -603,21 +692,24 @@ def _fwd_truth_rms(seed: int) -> dict:
 
 
 def _truth_gate(label: str, wrapper: str, rms_of_seed, factor: float,
-                control: str, gate: bool = True) -> None:
+                control: str, reference: str = "plain version",
+                gate: bool = True) -> None:
     """Hold a bf16 kernel to an fp32 truth over TRUTH_SEEDS: its rms
-    error over the plain version's must be at most ``factor``, and the
+    error over the reference's (the plain version, or the kernel's
+    rounding in plain arithmetic) must be at most ``factor``, and the
     control's (one rounding more) must exceed it. ``rms_of_seed(seed)``
-    returns the rms errors of "kernel", "plain" and "control". With
-    ``gate`` false the readings are printed and nothing fails."""
+    returns the rms errors of "kernel", "plain" (the reference) and
+    "control". With ``gate`` false the readings are printed and nothing
+    fails."""
     for seed in TRUTH_SEEDS:
         rms = rms_of_seed(seed)
         ratio = rms["kernel"] / rms["plain"]
         over = rms["control"] / rms["plain"]
-        ok = ratio <= factor < over
+        ok = gate and ratio <= factor < over
         verdict = ("ok" if ok else "MISMATCH") if gate else "(not gated)"
         print(f"[kernel] {label} seed {seed} against an fp32 truth: rms "
-              f"error kernel {rms['kernel']:.6e}, plain version "
-              f"{rms['plain']:.6e}, ratio {ratio:.5f} (at most {factor:g}); "
+              f"error kernel {rms['kernel']:.6e}, {reference} "
+              f"{rms['plain']:.6e}, ratio {ratio:.5f} (at most {factor}); "
               f"the control ({control}) {rms['control']:.6e}, ratio "
               f"{over:.5f} (must exceed it) {verdict}", flush=True)
         if gate and not ok:
@@ -657,6 +749,51 @@ def _dq_truth_rms(seed: int) -> dict:
     return {"kernel": _rms(A.flash_attention_dq(*args), truth),
             "plain": _rms(A.attention_dq_plain(*args), truth),
             "control": _rms(control, truth)}
+
+
+def _bf16_pair(x):
+    """x rounded to a pair of bf16 values, hi = bf16(x) and lo = bf16(x -
+    hi), as fp32 hi + lo: the operand rounding of #14."""
+    import torch
+
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+@functools.lru_cache(maxsize=1)  # one seed's dk and dv readings
+def _dkv_truth(seed: int) -> dict:
+    """{"dk"/"dv": rms errors} of #14 at the training shape in bf16
+    against the fp32 plain version (p and ds never rounded), from the
+    plain forward's lse and delta: the kernel's; "plain", the kernel's
+    rounding of p and ds to bf16 pairs in plain arithmetic; "control",
+    that with the running sums rounded to bf16 pairs after each 64-row q
+    tile."""
+    import torch
+
+    from ntxent_tpu_torch.ops import attention as A
+
+    q, k, v = _qkv(TRAIN_SHAPE, "bfloat16", seed=seed)
+    do = _qkv(TRAIN_SHAPE, "bfloat16", seed=seed + 1000)[0]
+    o, lse = A.attention_plain(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+    dk, dv = A.flash_attention_dkv(q, k, v, do, lse, delta)
+    sc = A.resolve_attention_scale(None, q.shape[-1])
+    p, ds = A._bwd_probs(q, k, v, do, lse, delta, sc, False, 0, 0)
+    out = {}
+    for name, x, y, got in (("dk", ds, q.float(), dk),
+                            ("dv", p, do.float(), dv)):
+        truth = torch.matmul(x.transpose(-1, -2), y)
+        pair = _bf16_pair(x)
+        plain = torch.matmul(pair.transpose(-1, -2), y)
+        control = torch.zeros_like(truth)
+        for j in range(0, x.shape[1], 64):
+            control = _bf16_pair(control + torch.matmul(
+                pair[:, j:j + 64].transpose(-1, -2), y[:, j:j + 64]))
+        out[name] = {"kernel": _rms(got, truth), "plain": _rms(plain, truth),
+                     "control": _rms(control, truth)}
+        del truth, pair, plain, control
+    return out
 
 
 def _fold_truth_rms(seed: int) -> dict:
@@ -702,8 +839,8 @@ def _fold_truth_rms(seed: int) -> dict:
             for name, total in sq.items()}
 
 
-# (label, wrapper, rms of a seed, factor, control) of each bf16 kernel's
-# fp32-truth gate: #11, #13 and #12.
+# (label, wrapper, rms of a seed, factor, control[, reference]) of each
+# bf16 kernel's fp32-truth gate: #11, #13, #12 and #14 (dk and dv).
 TRUTH_GATES = [
     ("train_bf16", "flash_attention_fwd", _fwd_truth_rms, TRUTH_RMS_FACTOR,
      "acc rounded to bf16 once more"),
@@ -711,6 +848,14 @@ TRUTH_GATES = [
      DQ_TRUTH_RMS_FACTOR, "dq accumulated in bf16 across 64-key tiles"),
     ("fold P4 hop", "flash_fold", _fold_truth_rms, FOLD_TRUTH_RMS_FACTOR,
      "acc rounded to bf16 between the two folds"),
+    ("dk train_bf16", "flash_attention_dkv",
+     lambda seed: _dkv_truth(seed)["dk"], DKV_TRUTH_RMS_FACTOR,
+     "dk carried in bf16 pairs across 64-row q tiles",
+     "p and ds in bf16 pairs"),
+    ("dv train_bf16", "flash_attention_dkv",
+     lambda seed: _dkv_truth(seed)["dv"], DKV_TRUTH_RMS_FACTOR,
+     "dv carried in bf16 pairs across 64-row q tiles",
+     "p and ds in bf16 pairs"),
 ]
 
 
@@ -1087,6 +1232,8 @@ def phase_flash_backward() -> list[dict]:
             fail(f"flash_attention_dkv wrote nonzeros on a wholly masked hop "
                  f"({dtype})")
     _truth_gate(*TRUTH_GATES[1])
+    _truth_gate(*TRUTH_GATES[3])
+    _truth_gate(*TRUTH_GATES[4])
 
     s = TRAIN_SHAPE
     args, kw = _bwd_inputs(s, "bfloat16", False, 0, 0, 300)
@@ -1550,11 +1697,12 @@ def _general_ids(rows, cols, scattered, seed):
     return row_gid.cuda(), col_gid.cuda(), total, total // 2
 
 
-def _general_bounds(rows, cols, d):
+def _general_bounds(rows, cols, d, extra=0):
     """Bounds of #1 general and of each #6 kernel at fp32 (R, C, D): each
-    input read once (z_rows, z_cols, the row ids; the lse for #6), each
-    output written once; 2 R C D and 4 R C D fp32 operations."""
-    inputs = (rows + cols) * d * 4 + rows * 4
+    input read once (z_rows, z_cols, the row ids, ``extra`` bytes such as
+    a scale; the lse for #6), each output written once; 2 R C D and 4 R C
+    D fp32 operations."""
+    inputs = (rows + cols) * d * 4 + rows * 4 + extra
     return (_bound(inputs + rows * 4 + 4, 2 * rows * cols * d,
                    PEAK_FP32_FLOPS),
             _bound(inputs + rows * 4 + rows * d * 4, 4 * rows * cols * d,
@@ -1671,6 +1819,330 @@ def phase_general_kernels() -> list[dict]:
                       f"{tag}_bound_ms": bounds[i][0]}
         out.append(entry)
     return out
+
+
+def _twopass_run(za, zb, gid, scale, plain=False):
+    """(loss_sum, lse, grad rows, grad cols) of #1 and #6 in the InfoNCE
+    mode (temperature 1, the scale on the card), from the kernels or from
+    their plain versions."""
+    from ntxent_tpu_torch.ops import ntxent as N
+
+    kw = dict(diag_pos=True, scale=scale)
+    fwd, rows, cols = ((N.ntxent_fwd_general_plain,
+                        N.ntxent_bwd_general_rows_plain,
+                        N.ntxent_bwd_general_cols_plain) if plain else
+                       (N.ntxent_fwd_general, N.ntxent_bwd_general_rows,
+                        N.ntxent_bwd_general_cols))
+    loss, lse = fwd(za, zb, gid, 1.0, **kw)
+    return (loss, lse, rows(za, zb, gid, lse, 1.0, **kw),
+            cols(za, zb, gid, lse, 1.0, **kw))
+
+
+def phase_twopass_kernels() -> dict:
+    """#1 and #6 in their InfoNCE mode against their plain versions at
+    every TWOPASS_SHAPES entry, fp32 and bf16, at both TWOPASS_SCALES,
+    bitwise repeatable; in fp32 at the first two shapes at least
+    TF32_CONTROL_FACTOR below a one-pass TF32 control; then times at the
+    first two. Returns the fields this mode adds to each kernel's entry."""
+    import torch
+
+    from ntxent_tpu_torch.ops import ntxent as N
+    from ntxent_tpu_torch.utils.profiling import cuda_time_ms
+
+    names = ("ntxent_fwd_general", "ntxent_bwd_general_rows",
+             "ntxent_bwd_general_cols")
+    out = {name: {} for name in names}
+    for rows, cols, d in TWOPASS_SHAPES:
+        gid = _dp_clip_ids(rows, cols, seed=rows)
+        for dtype in ("float32", "bfloat16"):
+            za = _unit_rows(rows, d, dtype, seed=rows + d)
+            zb = _unit_rows(cols, d, dtype, seed=cols + d + 1)
+            for value in TWOPASS_SCALES:
+                scale = torch.tensor(value, device="cuda")
+                got = _twopass_run(za, zb, gid, scale)
+                again = _twopass_run(za, zb, gid, scale)
+                want = _twopass_run(za, zb, gid, scale, plain=True)
+                torch.cuda.synchronize()
+                errs = [abs(got[0].item() - want[0].item()) / rows] + [
+                    (g - w).abs().max().item()
+                    for g, w in zip(got[1:], want[1:])]
+                fwd_err = max(errs[:2])
+                repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+                atol = _twopass_atol(value)
+                ok = max(errs) <= atol and repeat
+                print(f"[twopass-kernel] R={rows} C={cols} D={d} {dtype} "
+                      f"scale {value:g}: #1 fwd max|err| {fwd_err:.3e}, #6 "
+                      f"rows {errs[2]:.3e}, cols {errs[3]:.3e} (atol "
+                      f"{atol:.2e}); bitwise repeatable {repeat} "
+                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    fail(f"#1 and #6 in the InfoNCE mode disagree with their "
+                         f"plain versions at R={rows} C={cols} D={d} {dtype} "
+                         f"scale {value:g}")
+                if (rows, cols, dtype, value) == (256, 256, "float32",
+                                                  TWOPASS_SCALES[0]):
+                    for name, err in zip(names, (fwd_err, *errs[2:])):
+                        out[name]["twopass_max_abs_err"] = err
+            del za, zb
+
+    for rows, cols, d in TWOPASS_SHAPES[:2]:
+        gid = _dp_clip_ids(rows, cols, seed=rows)
+        za = _unit_rows(rows, d, "float32", seed=rows)
+        zb = _unit_rows(cols, d, "float32", seed=cols + 1)
+        scale = torch.tensor(TWOPASS_SCALES[0], device="cuda")
+        want = _twopass_run(za, zb, gid, scale, plain=True)
+        got = _twopass_run(za, zb, gid, scale)
+        ctl = _twopass_run(N.tf32_split(za)[0], N.tf32_split(zb)[0], gid,
+                           scale, plain=True)
+        torch.cuda.synchronize()
+        pairs = [((g - w).abs().max().item(), (c - w).abs().max().item())
+                 for g, c, w in zip(got[1:], ctl[1:], want[1:])]
+        ok = all(TF32_CONTROL_FACTOR * k <= c for k, c in pairs)
+        print(f"[twopass-kernel] TF32 control R={rows} C={cols} D={d} fp32 "
+              f"scale {TWOPASS_SCALES[0]:g}: kernels lse / rows / cols "
+              f"{' / '.join(f'{k:.3e}' for k, _ in pairs)}, one TF32 pass "
+              f"{' / '.join(f'{c:.3e}' for _, c in pairs)} (ratios "
+              f"{', '.join(f'{c / max(k, 1e-30):.1f}' for k, c in pairs)}; "
+              f"at least {TF32_CONTROL_FACTOR}) {'ok' if ok else 'MISSED'}",
+              flush=True)
+        if not ok:
+            fail(f"#1 and #6 in the InfoNCE mode are not "
+                 f"{TF32_CONTROL_FACTOR}x more accurate than one TF32 pass "
+                 f"at R={rows} C={cols}")
+
+        lse = got[1]
+        kw = dict(diag_pos=True, scale=scale)
+        args = (za, zb, gid)
+        runs = 3 if cols > 1024 else 10
+        calls = ((lambda: N.ntxent_fwd_general(*args, 1.0, **kw),
+                  lambda: N.ntxent_fwd_general_plain(*args, 1.0, **kw)),
+                 (lambda: N.ntxent_bwd_general_rows(*args, lse, 1.0, **kw),
+                  lambda: N.ntxent_bwd_general_rows_plain(*args, lse, 1.0,
+                                                          **kw)),
+                 (lambda: N.ntxent_bwd_general_cols(*args, lse, 1.0, **kw),
+                  lambda: N.ntxent_bwd_general_cols_plain(*args, lse, 1.0,
+                                                          **kw)))
+        bounds = _general_bounds(rows, cols, d, extra=4)
+        tag = "twopass" if rows == cols else "twopass_rank4_b4096"
+        parts = []
+        for name, (kernel, plain), bound in zip(names, calls, bounds):
+            ms = cuda_time_ms(kernel)
+            plain_ms = cuda_time_ms(plain, runs)
+            out[name] |= {f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms,
+                          f"{tag}_bound_ms": bound[0]}
+            parts.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+                         f"{bound[0]:.5f} by {bound[1]})")
+        print(f"[twopass-kernel] R={rows} C={cols} D={d} fp32, InfoNCE mode: "
+              f"{'; '.join(parts)}; no single PyTorch call computes them, so "
+              f"there is no library time", flush=True)
+        del za, zb, want, got, ctl
+    return out
+
+
+def phase_twopass_emulated_ranks() -> None:
+    """P = 2 and 4 ranks of the two-pass loss at global batch 256 (D =
+    512) one after another on the card, through info_nce_partial_fused as
+    local_infonce_allgather calls it: each rank's za rows against all zb
+    and its zb rows against all za, with their global ids; the partial
+    losses summed, the gradients of each rank's rows and of the gathered
+    columns summed by autograd (what the all-gathers' reduce-scatters do),
+    against the single-card info_nce_fused loss and its gradients of za,
+    zb and the scale."""
+    import torch
+
+    from ntxent_tpu_torch.ops import infonce as I
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    batch, d = EMULATED_BATCH, 512
+    za0 = _unit_rows(batch, d, "float32", seed=13)
+    zb0 = _unit_rows(batch, d, "float32", seed=14)
+
+    def leaves():
+        return (za0.clone().requires_grad_(), zb0.clone().requires_grad_(),
+                torch.tensor(DP_CLIP_SCALE, dtype=torch.float32,
+                             device="cuda", requires_grad=True))
+
+    a, b, s = leaves()
+    ref = I.info_nce_fused(a, b, scale=s)
+    ref.backward()
+    want = (a.grad, b.grad, s.grad)
+    counters = launch_counters()
+    for p in TWOPASS_WORLDS:
+        n = batch // p
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        za, zb, scale = leaves()
+        loss = 0.0
+        for rank in range(p):
+            gid = rank * n + torch.arange(n, dtype=torch.int32,
+                                          device="cuda")
+            rows = slice(rank * n, (rank + 1) * n)
+            loss = loss + I.info_nce_partial_fused(za[rows], zb, gid,
+                                                   scale=scale) \
+                + I.info_nce_partial_fused(zb[rows], za, gid, scale=scale)
+        loss = loss / (2 * batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = {k: c for k, c in ((k, w.launches)
+                                      for k, w in counters.items()) if c}
+        loss_err = abs(loss.item() - ref.item())
+        grad_errs = [((g - w).norm() / w.norm()).item()
+                     for g, w in zip((za.grad, zb.grad, scale.grad), want)]
+        expect = {k: 2 * p for k in TWOPASS_STEP_LAUNCHES
+                  if not k.startswith("flash")}
+        ok = (loss_err <= DP_CLIP_LOSS_ATOL
+              and max(grad_errs) <= DP_CLIP_GRAD_RTOL and launches == expect)
+        print(f"[twopass-ranks] P = {p} ranks emulated at global batch "
+              f"{batch} (D = {d}): summed partial losses / 2N "
+              f"{loss.item():.6f} vs single card {ref.item():.6f} (|err| "
+              f"{loss_err:.2e}, atol {DP_CLIP_LOSS_ATOL:g}); relative "
+              f"gradient errors za {grad_errs[0]:.2e}, zb {grad_errs[1]:.2e}, "
+              f"scale {grad_errs[2]:.2e} (rtol {DP_CLIP_GRAD_RTOL:g}); "
+              f"launches {launches} {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"the {p} emulated ranks of the two-pass InfoNCE disagree "
+                 f"with the single-card loss and gradients or launched "
+                 f"{launches}")
+
+
+def _clip_steps(step, initial, steps: int):
+    """Run ``steps`` CLIP steps of ``step`` from a copy of the CPU model
+    ``initial`` on the synthetic pairs of CLIP_DP_ARGV: (losses, launches,
+    the final parameters on the host, ms a step after the first)."""
+    import copy
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.training import create_clip_train_state
+    from ntxent_tpu_torch.training.datasets import (
+        PairedArrayLoader,
+        PairedPipeline,
+    )
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    args = cli.build_train_parser().parse_args(CLIP_DP_ARGV)
+    images, tokens = cli._clip_data(args)
+    state = create_clip_train_state(copy.deepcopy(initial),
+                                    cli._clip_config(args),
+                                    torch.device("cuda"))
+    data = iter(PairedPipeline(PairedArrayLoader(images, tokens, args.batch,
+                                                 seed=args.seed),
+                               torch.device("cuda")))
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = step(state, *batch)
+        losses.append(metrics["loss"].item())
+        times.append(time.monotonic() - t0)
+    launches = {name: w.launches for name, w in counters.items()}
+    params = {n: p.detach().float().cpu()
+              for n, p in state.model.named_parameters()}
+    del state
+    torch.cuda.empty_cache()
+    return losses, launches, params, 1e3 * sum(times[1:]) / (steps - 1)
+
+
+def _update_errors(params, want, before):
+    """(worst relative difference of a parameter's change from ``want``'s,
+    its name, the largest change of an attention key bias)."""
+    worst, worst_name, noise = 0.0, "", 0.0
+    for name, p in params.items():
+        delta, delta_w = p - before[name], want[name] - before[name]
+        if name.endswith("attn.key.bias"):
+            noise = max(noise, delta.abs().max().item(),
+                        delta_w.abs().max().item())
+            continue
+        err = ((delta - delta_w).norm() / delta_w.norm().clamp(
+            min=1e-30)).item()
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name, noise
+
+
+def phase_twopass_train(card_line: str) -> dict:
+    """The full-width CLIP ViT-B/16 step with loss_impl="twopass" over the
+    NCCL group of world 1 at --batch 256, TWOPASS_STEPS steps, against the
+    "dual" step from the same weights and batches: in the path's bf16
+    towers finite losses within PARITY_LOSS_ATOL a step and exactly
+    TWOPASS_STEP_LAUNCHES a step; in fp32 towers the losses and each
+    parameter's change (see TWOPASS_LR's comment). Returns the launches
+    of each kernel on the bf16 path."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.models import (
+        CLIPModel,
+        TextTransformer,
+        ViT_B16,
+        init_weights,
+    )
+    from ntxent_tpu_torch.training import make_sharded_clip_train_step
+
+    args = cli.build_train_parser().parse_args(CLIP_DP_ARGV)
+    cli._clip_data(args)  # resolves the image size and the token length
+    group = torch.distributed.group.WORLD
+    bf16 = cli.build_clip_model(args)
+    fp32 = init_weights(
+        CLIPModel(ViT_B16(image_size=args.image_size, attention_impl="flash",
+                          dtype=torch.float32),
+                  TextTransformer(vocab_size=args.vocab_size,
+                                  max_len=args.token_len,
+                                  dtype=torch.float32)),
+        torch.Generator().manual_seed(args.seed))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    noise_bound = 2 * TWOPASS_LR * (TWOPASS_STEPS - 1)
+    launches, ok = None, True
+    for dtype, initial in (("bf16", bf16), ("fp32", fp32)):
+        before = {n: p.detach().float()
+                  for n, p in initial.named_parameters()}
+        (losses_d, _, params_d, ms_d), (losses, got, params, ms) = (
+            _clip_steps(make_sharded_clip_train_step(group, impl), initial,
+                        TWOPASS_STEPS) for impl in ("dual", "twopass"))
+        loss_err = max(abs(a - b) for a, b in zip(losses, losses_d))
+        worst, worst_name, noise = _update_errors(params, params_d, before)
+        gated = dtype == "fp32"
+        step_ok = (all(map(math.isfinite, losses))
+                   and loss_err <= PARITY_LOSS_ATOL
+                   and (not gated or (worst <= PARITY_GRAD_RTOL
+                                      and noise <= noise_bound)))
+        if dtype == "bf16":
+            launches = got
+            want = {n: TWOPASS_STEP_LAUNCHES.get(n, 0) * TWOPASS_STEPS
+                    for n in got}
+            step_ok = step_ok and launches == want
+        ok = ok and step_ok
+        print(f"[twopass] CLIP ViT-B/16 {dtype} towers, data-parallel over "
+              f"NCCL (world 1), batch {args.batch} pairs, loss_impl="
+              f"\"twopass\" vs \"dual\" from the same weights and batches, "
+              f"{TWOPASS_STEPS} steps: losses "
+              f"{[round(x, 6) for x in losses]} vs "
+              f"{[round(x, 6) for x in losses_d]} (max |err| {loss_err:.2e}, "
+              f"atol {PARITY_LOSS_ATOL:g}); each parameter's change within "
+              f"{worst:.2e} of the dual step's "
+              f"({f'rtol {PARITY_GRAD_RTOL:g}' if gated else 'a reading'}; "
+              f"worst {worst_name}), the attention key biases' largest "
+              f"change {noise:.2e} (AdamW's bound {noise_bound:g}); "
+              + (f"launches per step "
+                 f"{ {n: c // TWOPASS_STEPS for n, c in got.items() if c} } "
+                 f"(every other kernel 0) " if dtype == "bf16" else "")
+              + ("ok" if step_ok else "MISMATCH"), flush=True)
+        print(f"[twopass] {dtype} step {ms:.1f} ms, dual step {ms_d:.1f} ms "
+              f"(steps 2-{TWOPASS_STEPS}, host clock around a synchronizing "
+              f"loss read), {args.batch / ms * 1e3:.1f} images/s on "
+              f"{card_line}", flush=True)
+    if not ok:
+        fail("the two-pass CLIP step disagrees with the dual step or "
+             f"launched {launches}")
+    return launches
 
 
 def phase_emulated_ranks() -> None:
@@ -3174,15 +3646,32 @@ def phase_ring_ntxent_emulated() -> dict:
     gid0, gid1 = (local_row_gids(r, n, 4, z.device) for r in (0, 1))
     z0, z1 = z[gid0.long()], z[gid1.long()]
     lse0 = N.block_lse(z0, z1, gid0, gid1, t, two_n)
+    # #6 at the hop against its plain versions (the ring's mode: the
+    # block's column ids, cols_actual = n_half = 2N), NTX_ATOL
+    hop = (z0, z1, gid0, lse0, t, gid1, two_n, two_n)
+    got = N.block_grads(z0, z1, gid0, gid1, lse0, t, two_n)
+    want = (N.ntxent_bwd_general_rows_plain(*hop),
+            N.ntxent_bwd_general_cols_plain(*hop))
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    ok = max(errs) <= NTX_ATOL
+    print(f"[ring-ntxent] the P = 4 hop: #6 rows max|err| {errs[0]:.3e}, "
+          f"cols {errs[1]:.3e} against the plain versions (atol "
+          f"{NTX_ATOL:g}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("#6 disagrees with its plain versions at the ring's P = 4 hop")
     lse_ms = cuda_time_ms(lambda: N.block_lse(z0, z1, gid0, gid1, t, two_n))
     grads_ms = cuda_time_ms(lambda: N.block_grads(z0, z1, gid0, gid1, lse0,
                                                   t, two_n))
+    rows_ms, cols_ms = (cuda_time_ms(lambda: fn(*hop)) for fn in (
+        N.ntxent_bwd_general_rows, N.ntxent_bwd_general_cols))
     print(f"[ring-ntxent] the P = 4 hop (2048 rows x 2048 columns, D = {d}, "
           f"fp32): block_lse (#1 general) {lse_ms:.4f} ms, block_grads (#6 "
-          f"rows + columns) {grads_ms:.4f} ms", flush=True)
+          f"rows + columns) {grads_ms:.4f} ms (rows {rows_ms:.4f}, columns "
+          f"{cols_ms:.4f})", flush=True)
     return {"ntxent_fwd_general": {"ring_hop_ms": lse_ms},
             "ntxent_bwd_general_rows": {"ring_hop_rows_and_cols_ms":
-                                        grads_ms}}
+                                        grads_ms, "ring_hop_ms": rows_ms},
+            "ntxent_bwd_general_cols": {"ring_hop_ms": cols_ms}}
 
 
 def phase_ring_infonce() -> None:
@@ -3232,7 +3721,7 @@ def main() -> int:
         return 1
     import ntxent_tpu_torch  # noqa: F401 — fail before any result line
 
-    name, smi = phase_card()
+    kind, smi = phase_card()
     build_logs = phase_build()
     if sys.argv[1:] == ["--truth"]:
         # the bf16 kernels' fp32-truth readings alone, ungated: how each
@@ -3248,6 +3737,7 @@ def main() -> int:
             del bwd
             torch.cuda.empty_cache()
         return 0
+    twopass_fields = phase_twopass_kernels()
     dp_clip_kernels, sym_retimed_ms = phase_dp_clip_kernels()
     tri_kernels, tri_launches = phase_tri_kernels()
     fold_kernel, ring_times = phase_fold_kernel()
@@ -3258,6 +3748,7 @@ def main() -> int:
     kernels[1]["retimed_ms"] = sym_retimed_ms
     phase_emulated_ranks()
     phase_dp_clip_emulated_ranks()
+    phase_twopass_emulated_ranks()
     phase_pair_emulated_ranks()
     phase_emulated_rings()
     ring_times |= phase_ring_ntxent_emulated()
@@ -3277,6 +3768,7 @@ def main() -> int:
             phase_dp_parity()
             clip_dp_launches = phase_clip_dp_train(smi)
             phase_clip_dp_parity()
+            twopass_launches = phase_twopass_train(smi)
             longctx_launches = phase_long_context(smi)
             phase_world1_plans()
             phase_ring_infonce()
@@ -3284,6 +3776,8 @@ def main() -> int:
             mesh.shutdown()
     paths = (train_launches, clip_launches, dp_launches, clip_dp_launches,
              dp_pair_launches, tri_launches, longctx_launches)
+    for wrapper, fields in twopass_fields.items():
+        ring_times.setdefault(wrapper, {}).update(fields)
     for kernel in kernels:
         # launches on the path that runs the kernel (SimCLR for the
         # symmetric NT-Xent and flash kernels, CLIP for the square InfoNCE
@@ -3292,7 +3786,8 @@ def main() -> int:
         # kernels, the data-parallel ResNet-50 with --dp-loss pair for the
         # shard-pair kernels, one triangular loss's forward and backward
         # for the triangular kernels, one long-context forward and backward
-        # for the fold kernel), and on each path but SimCLR's
+        # for the fold kernel), and on each path but SimCLR's (the two-pass
+        # CLIP step's: the general NT-Xent kernels twice a step)
         wrapper = kernel["name"]
         kernel["launches"] = next((path[wrapper] for path in paths
                                    if path[wrapper]), 0)
@@ -3302,12 +3797,13 @@ def main() -> int:
         kernel["dp_pair_launches"] = dp_pair_launches[wrapper]
         kernel["tri_launches"] = tri_launches[wrapper]
         kernel["longctx_launches"] = longctx_launches[wrapper]
+        kernel["clip_twopass_launches"] = twopass_launches[wrapper]
         kernel |= ring_times.get(wrapper, {})
     kernels[0]["serve_launches"] = serve_launches
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

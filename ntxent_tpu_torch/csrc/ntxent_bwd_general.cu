@@ -1,279 +1,392 @@
-// NT-Xent general backward for Hopper (sm_90a), bound to PyTorch via
-// ctypes: the rows kernel and the columns kernel.
+// NT-Xent general backward for Hopper (sm_90a) on TF32 tensor cores, bound
+// to PyTorch via ctypes: the rows kernel and the columns kernel.
 //
 // Replaces _bwd_general_call (ntxent_tpu/ops/ntxent_pallas.py:648), which
 // is two Pallas TPU kernels: _bwd_rows_kernel (ntxent_pallas.py:552,
 // pallas_call at :658) and _bwd_cols_kernel (:580, pallas_call at :679).
 // For rows z_rows (R, D) with global ids row_gid, columns z_cols (C, D)
-// with global ids col_gid (null: the column index) and the forward's ROW
-// logsumexp lse (R,), as those kernels do:
-//   s[i, j]  = (z_rows_i . z_cols_j) * inv_t in fp32, columns whose id is
-//              >= cols_actual or equals the row's id masked to -1e30;
+// with global ids col_gid (null: the column index), the forward's ROW
+// logsumexp lse (R,) and the fp32 logit scale at `scale` on the device
+// (null: 1), as those kernels do:
+//   s[i, j]  = (z_rows_i . z_cols_j) * (inv_t * scale) in fp32, columns
+//              whose id is >= cols_actual or, without diag_pos, equals the
+//              row's id masked to -1e30;
 //   P[i, j]  = exp(min(s[i, j] - lse[i], 0));
-//   E[i, j]  = 1 iff the column's id is pos(row_gid_i) (_pos_gid);
+//   E[i, j]  = 1 iff the column's id is pos(row_gid_i) (_pos_gid: the
+//              paired view, or the diagonal with diag_pos);
 //   G[i, j]  = (P - E) * valid_row_i, valid_row_i = row_gid_i < cols_actual;
 //   rows:  grad_rows = G @ z_cols     (R, D);
 //   cols:  grad_cols = G^T @ z_rows   (C, D);
-// both fp32 and before the caller's g / T scale. Rows past R and columns
-// past C do not exist (the TPU kernels' zero padding contributes nothing).
+// both fp32 and before the caller's g / T (and scale) factor. Rows past R
+// and columns past C do not exist (the TPU kernels' zero padding adds
+// nothing).
 //
-// Design. The TPU grid's sequential inner axis becomes a loop inside one
-// CTA. One templated kernel serves both: a CTA owns 32 output vectors
-// ("own": rows of z_rows for the rows kernel, of z_cols for the columns
-// kernel), 8 threads each, and walks the other array in 64-vector tiles
-// staged in shared memory (widened to fp32) with their ids and, for the
-// columns kernel, their row lse. Each thread computes 8 entries of the
-// 32 x 64 s tile, writes G to shared memory, then accumulates its own
-// vector's D / 8 output columns in registers. The columns kernel computes
-// s as z_cols_j . z_rows_i in the same k order as the forward, so the
-// products are bitwise those of the rows kernel. Each output vector has
-// one owner: no atomics, and the result is repeatable. Arithmetic is fp32
-// FMA (no TF32).
+// Design. Both kernels are instances of the backward walk of
+// ntxent_tf32.cuh (bwd_walk, #5's): an operand-prep pass writes the TF32
+// hi and lo of the side that owns the outputs ("own") and of the other
+// side, which it also writes transposed (the K-major B of G . z); one CTA
+// per (64-row tile of own, column split of other, chunk of D of at most
+// 128) forms s by 3xTF32 wgmma from a TMA ring, G in the accumulator
+// fragment, and adds G . z_other with G as the register A operand, each
+// 64-column tile in a fresh accumulator added into a shared-memory sum;
+// with more than one split a sum kernel adds the splits' partials in
+// order. They differ in G only:
+//   rows: own = z_rows, other = z_cols. s = z_r z_c^T; G = exp0(s -
+//     lse_own) - E, zero on a row whose id is >= cols_actual (RowsG);
+//   cols: own = z_cols, other = z_rows. The tile is s^T = z_c z_r^T; G^T
+//     = exp0(s^T - lse_other) - E, the lse and the validity taken from the
+//     other side, as #5 takes its column lse (ColsG).
+// One owner per output, no atomics: repeatable bit for bit. The masks are
+// -1e30, as in the TPU kernel.
 //
-// Bound, each kernel: 4 R C D operations (s and the product with G)
+// Bound, each kernel: 4 R C D operations (s and the product with G), each
+// product three TF32 passes (165 TFLOP/s for fp32-accurate products),
 // against (R + C) D inputs, R ids and lse, and an (R or C) x D fp32
-// output. At one rank's strip of a 4-card world at global batch 256
-// (R = 128, C = 512, D = 128): 33.6 MFLOP, 0.5 us at the 67 TFLOP/s fp32
-// peak: launch- and latency-bound (4 and 16 CTAs). At global batch 4096
-// on 4 cards (R = 2048, C = 8192, D = 128): 8.6 GFLOP, 128 us.
+// output. At the data-parallel ResNet-50 strip of a world of one at batch
+// 256 (R = C = 512, D = 128): 134 MFLOP, 0.81 us; one rank of 4 at batch
+// 4096 (R = 2048, C = 8192, D = 128): 52 us; the ring NT-Xent's P = 4 hop
+// (2048, 2048, 128): 13 us; the two-pass InfoNCE of CLIP at batch 256 on
+// one card (256, 256, 512): 0.81 us, one rank of 4 at batch 4096 (1024,
+// 4096, 512): 52 us. At D = 512 the four chunks of D each form s again:
+// 2.5 times the products of one pass.
 //
 // Supported: float32 or bfloat16 z_rows and z_cols (the same dtype),
-// contiguous, 1 <= D <= 256, int32 ids. The C entry points return
+// contiguous, 1 <= D <= 512, int32 ids. The C entry points return
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-
-#include <climits>
-#include <cstddef>
+#include "ntxent_tf32.cuh"
 
 namespace {
 
-constexpr int kOwn = 32;                         // output vectors per CTA
-constexpr int kOther = 64;                       // other vectors per tile
-constexpr int kThreadsPerOwn = 8;
-constexpr int kOtherPerThread = kOther / kThreadsPerOwn;
-constexpr int kThreads = kOwn * kThreadsPerOwn;  // 256
-constexpr int kMaxD = 256;
-constexpr int kMaxDPerThread = kMaxD / kThreadsPerOwn;  // 32
-constexpr int kLdG = kOther + 1;
-constexpr float kNegInf = -1e30f;
+using namespace ntx;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// G of the rows kernel: own = the rows (ids, lse, validity), other = the
+// columns (ids only).
+struct RowsG {
+  GeneralIds ids;
+  const float* __restrict__ lse;
+  float inv_t;
+  int n_own;
+  int gid[2], pos_gid[2];
+  float lse_r[2];
+  int cid[16];  // entry 2i + e: column col0 + 8i + 2q + e
 
-__device__ __forceinline__ float exp0(float x) { return expf(fminf(x, 0.f)); }
-
-__device__ __forceinline__ int pos_of(int gid, int n_half) {
-  return gid < n_half ? gid + n_half : gid - n_half;
-}
-
-template <typename T>
-__device__ void stage(float* dst, const T* src, int rows, int rows_valid,
-                      int d) {
-  const int ld = d + 1;
-  for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
-    const int r = e / d;
-    const int c = e % d;
-    dst[r * ld + c] = r < rows_valid ? to_float(src[size_t(r) * d + c]) : 0.f;
-  }
-}
-
-// kCols = false: own = rows (z_own = z_rows, own ids = row_gid, lse per
-// own vector); true: own = columns (z_own = z_cols, own ids = col_gid or
-// the index, lse per other vector).
-template <typename T, bool kCols>
-__global__ void __launch_bounds__(kThreads)
-    ntxent_bwd_general_kernel(const T* __restrict__ z_own,
-                              const T* __restrict__ z_other,
-                              const int* __restrict__ own_gid,
-                              const int* __restrict__ other_gid,
-                              const float* __restrict__ lse,
-                              float* __restrict__ grad, int n_own,
-                              int n_other, int d, float inv_t,
-                              int cols_actual, int n_half) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* za = smem;                      // kOwn x ld
-  float* zb = za + kOwn * ld;            // kOther x ld
-  float* g_s = zb + kOther * ld;         // kOwn x kLdG
-  float* lse_b = g_s + kOwn * kLdG;      // kOther (columns kernel)
-  int* id_b = reinterpret_cast<int*>(lse_b + kOther);  // kOther
-
-  const int tid = threadIdx.x;
-  const int r = tid / kThreadsPerOwn;
-  const int g = tid % kThreadsPerOwn;
-  const int own0 = blockIdx.x * kOwn;
-  const int own = own0 + r;
-  const bool own_in = own < n_own;
-  // Rows kernel: own ids are row ids (row_gid is never null). Columns
-  // kernel: own ids are column ids (null: the index).
-  const int own_id = own_in ? (own_gid ? own_gid[own] : own) : 0;
-  const float lse_own = (!kCols && own_in) ? lse[own] : 0.f;
-  const bool row_valid_own = !kCols && own_in && own_id < cols_actual;
-  const int pos_own = pos_of(own_id, n_half);
-
-  stage(za, z_own + size_t(own0) * d, kOwn, min(kOwn, n_own - own0), d);
-
-  float acc[kMaxDPerThread];
+  __device__ __forceinline__ void rows(int r) {
 #pragma unroll
-  for (int i = 0; i < kMaxDPerThread; ++i) acc[i] = 0.f;
-
-  const int tiles = (n_other + kOther - 1) / kOther;
-  for (int j = 0; j < tiles; ++j) {
-    const int b0 = j * kOther;
-    __syncthreads();  // the previous tile's readers are done with zb, g_s
-    stage(zb, z_other + size_t(b0) * d, kOther, min(kOther, n_other - b0),
-          d);
-    if (tid < kOther) {
-      const int b = b0 + tid;
-      const bool in = b < n_other;
-      // Rows kernel: other ids are column ids (null: the index), and a
-      // missing column gets an id that masks it. Columns kernel: other
-      // ids are row ids.
-      id_b[tid] = in ? (other_gid ? other_gid[b] : b) : INT_MAX;
-      lse_b[tid] = (kCols && in) ? lse[b] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kOtherPerThread];
-#pragma unroll
-    for (int c = 0; c < kOtherPerThread; ++c) s[c] = 0.f;
-    const float* arow = za + r * ld;
-    for (int k = 0; k < d; ++k) {
-      const float a = arow[k];
-#pragma unroll
-      for (int c = 0; c < kOtherPerThread; ++c) {
-        s[c] = kCols
-                   ? fmaf(zb[(g + c * kThreadsPerOwn) * ld + k], a, s[c])
-                   : fmaf(a, zb[(g + c * kThreadsPerOwn) * ld + k], s[c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kOtherPerThread; ++c) {
-      const int cl = g + c * kThreadsPerOwn;
-      const bool other_in = b0 + cl < n_other;
-      const int other_id = id_b[cl];
-      int rgid, cid;
-      float row_lse;
-      bool row_valid;
-      int pos;
-      if (kCols) {
-        rgid = other_id;
-        cid = own_id;
-        row_lse = lse_b[cl];
-        row_valid = other_in && rgid < cols_actual;
-        pos = pos_of(rgid, n_half);
-      } else {
-        rgid = own_id;
-        cid = other_id;
-        row_lse = lse_own;
-        row_valid = row_valid_own;
-        pos = pos_own;
-      }
-      float x = s[c] * inv_t;
-      if (cid >= cols_actual || cid == rgid) x = kNegInf;
-      const float e = cid == pos ? 1.f : 0.f;
-      const bool exists = own_in && other_in;
-      g_s[r * kLdG + cl] =
-          (exists && row_valid) ? exp0(x - row_lse) - e : 0.f;
-    }
-    __syncthreads();
-
-    // grad[own, g + 8i] += sum_b G[own, b] * z_other[b0 + b, g + 8i]
-    const float* grow = g_s + r * kLdG;
-    for (int c = 0; c < kOther; ++c) {
-      const float gv = grow[c];
-      const float* zcol = zb + c * ld;
-#pragma unroll
-      for (int i = 0; i < kMaxDPerThread; ++i) {
-        const int k = g + i * kThreadsPerOwn;
-        if (k < d) acc[i] = fmaf(gv, zcol[k], acc[i]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      gid[h] = ids.row(row);
+      pos_gid[h] = ids.positive(gid[h]);
+      lse_r[h] = row < n_own ? lse[row] : 0.f;
     }
   }
-  if (own_in) {
-    float* out = grad + size_t(own) * d;
+  __device__ __forceinline__ void tile(int col0, int ce, int q) {
 #pragma unroll
-    for (int i = 0; i < kMaxDPerThread; ++i) {
-      const int k = g + i * kThreadsPerOwn;
-      if (k < d) out[k] = acc[i];
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * (j / 2) + 2 * q + j % 2;
+      cid[j] = col < ce ? ids.col(col) : kNoColumn;
     }
   }
+  __device__ __forceinline__ float g(float s, int i, int h, int col,
+                                     bool live) const {
+    const int id = cid[2 * (i / 4) + i % 2];
+    const float x = masked(ids, id, gid[h]) ? kNegInf : s * inv_t;
+    const float e = id == pos_gid[h] ? 1.f : 0.f;
+    const float out = exp0(x - lse_r[h]) - e;
+    return (!live || gid[h] >= ids.cols_actual()) ? 0.f : out;
+  }
+};
+
+// G^T of the columns kernel: own = the columns (ids), other = the rows
+// (ids, lse, validity).
+struct ColsG {
+  GeneralIds ids;
+  const float* __restrict__ lse;
+  float inv_t;
+  int n_own;
+  int cid[2];
+  int rid[16];  // entry 2i + e: row col0 + 8i + 2q + e of the other side
+  float lse_o[16];
+
+  __device__ __forceinline__ void rows(int r) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = r + 8 * h;
+      cid[h] = col < n_own ? ids.col(col) : kNoColumn;
+    }
+  }
+  __device__ __forceinline__ void tile(int col0, int ce, int q) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int row = col0 + 8 * (j / 2) + 2 * q + j % 2;
+      const bool live = row < ce;
+      rid[j] = live ? ids.row(row) : ids.cols_actual();
+      lse_o[j] = live ? lse[row] : 0.f;
+    }
+  }
+  __device__ __forceinline__ float g(float s, int i, int h, int col,
+                                     bool live) const {
+    const int j = 2 * (i / 4) + i % 2;
+    const int gid = rid[j];
+    const float x = masked(ids, cid[h], gid) ? kNegInf : s * inv_t;
+    const float e = cid[h] == ids.positive(gid) ? 1.f : 0.f;
+    const float out = exp0(x - lse_o[j]) - e;
+    return (!live || gid >= ids.cols_actual()) ? 0.f : out;
+  }
+};
+
+// The kernels of each side carry its name (the profiler groups by it).
+
+template <typename T, bool kSplit>
+__global__ void __launch_bounds__(kPrepThreads)
+    ntxent_bwd_general_rows_prep(const T* __restrict__ z, int n, int d,
+                                 float* __restrict__ hi,
+                                 float* __restrict__ lo,
+                                 float* __restrict__ hi_t,
+                                 float* __restrict__ lo_t) {
+  prep_tile<T, kSplit>(z, n, d, hi, lo, hi_t, lo_t);
 }
 
-template <typename T, bool kCols>
-cudaError_t launch(const void* z_own, const void* z_other,
-                   const int* own_gid, const int* other_gid,
-                   const float* lse, float* grad, int n_own, int n_other,
-                   int d, float inv_t, int cols_actual, int n_half,
-                   cudaStream_t stream) {
-  const size_t smem = (size_t(kOwn + kOther) * (d + 1) + kOwn * kLdG +
-                       2 * kOther) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ntxent_bwd_general_kernel<T, kCols>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <typename T, bool kSplit>
+__global__ void __launch_bounds__(kPrepThreads)
+    ntxent_bwd_general_cols_prep(const T* __restrict__ z, int n, int d,
+                                 float* __restrict__ hi,
+                                 float* __restrict__ lo,
+                                 float* __restrict__ hi_t,
+                                 float* __restrict__ lo_t) {
+  prep_tile<T, kSplit>(z, n, d, hi, lo, hi_t, lo_t);
+}
+
+template <bool kSplit, int ND>
+__global__ void __launch_bounds__(kThreads, 1)
+    ntxent_bwd_general_rows_walk(
+        const __grid_constant__ CUtensorMap own_h,
+        const __grid_constant__ CUtensorMap own_l,
+        const __grid_constant__ CUtensorMap oth_h,
+        const __grid_constant__ CUtensorMap oth_l,
+        const __grid_constant__ CUtensorMap oth_ht,
+        const __grid_constant__ CUtensorMap oth_lt, GeneralIds ids,
+        const float* __restrict__ lse, const float* __restrict__ scale,
+        float* __restrict__ out, Plan p, int n_own, int n_other, int d,
+        int split_cols, float inv_t) {
+  RowsG g{ids, lse, scaled_inv_t(inv_t, scale), n_own};
+  bwd_walk<kSplit, ND>(&own_h, &own_l, &oth_h, &oth_l, &oth_ht, &oth_lt, g,
+                       out, p, n_own, n_other, d, split_cols);
+}
+
+template <bool kSplit, int ND>
+__global__ void __launch_bounds__(kThreads, 1)
+    ntxent_bwd_general_cols_walk(
+        const __grid_constant__ CUtensorMap own_h,
+        const __grid_constant__ CUtensorMap own_l,
+        const __grid_constant__ CUtensorMap oth_h,
+        const __grid_constant__ CUtensorMap oth_l,
+        const __grid_constant__ CUtensorMap oth_ht,
+        const __grid_constant__ CUtensorMap oth_lt, GeneralIds ids,
+        const float* __restrict__ lse, const float* __restrict__ scale,
+        float* __restrict__ out, Plan p, int n_own, int n_other, int d,
+        int split_cols, float inv_t) {
+  ColsG g{ids, lse, scaled_inv_t(inv_t, scale), n_own};
+  bwd_walk<kSplit, ND>(&own_h, &own_l, &oth_h, &oth_l, &oth_ht, &oth_lt, g,
+                       out, p, n_own, n_other, d, split_cols);
+}
+
+__global__ void ntxent_bwd_general_rows_sum(const float* __restrict__ part,
+                                            float* __restrict__ grad,
+                                            size_t count, int splits) {
+  split_sum(part, grad, count, splits);
+}
+
+__global__ void ntxent_bwd_general_cols_sum(const float* __restrict__ part,
+                                            float* __restrict__ grad,
+                                            size_t count, int splits) {
+  split_sum(part, grad, count, splits);
+}
+
+// The scratch of one launch: own's hi and lo (n_own, Dp), the other side's
+// hi and lo (n_other, Dp) and their transposes (DT, Cp) fp32 (Dp = D
+// rounded up to 32, DT = Dp rounded up to d_chunk(D), Cp = n_other rounded
+// up to 64; the lo copies only for fp32 z), and with more than one split
+// the partial gradients, splits * n_own * D fp32.
+struct Buffers {
+  float *own_h, *own_l, *oth_h, *oth_l, *oth_ht, *oth_lt, *part;
+};
+
+Buffers carve(Carver& c, int n_own, int n_other, int d, bool split,
+              int splits) {
+  Buffers b{};
+  const size_t own = size_t(n_own) * padded_d(d);
+  const size_t oth = size_t(n_other) * padded_d(d);
+  const size_t oth_t = size_t(padded_dt(d)) * padded_cols(n_other);
+  b.own_h = c.take(own);
+  b.own_l = c.take(split ? own : 0);
+  b.oth_h = c.take(oth);
+  b.oth_l = c.take(split ? oth : 0);
+  b.oth_ht = c.take(oth_t);
+  b.oth_lt = c.take(split ? oth_t : 0);
+  b.part = c.take(splits > 1 ? size_t(splits) * n_own * d : 0);
+  return b;
+}
+
+struct Call {
+  const void* own;
+  const void* other;
+  GeneralIds ids;
+  const float* lse;
+  const float* scale;
+  float* grad;
+  int n_own, n_other, d, splits, split_cols;
+  float inv_t;
+};
+
+template <typename T, int ND, bool kCols>
+cudaError_t launch(const Call& a, const Buffers& b, cudaStream_t stream) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  const int dp = padded_d(a.d);
+  const int dt = padded_dt(a.d);
+  const int cp = padded_cols(a.n_other);
+  auto prep = kCols ? ntxent_bwd_general_cols_prep<T, kSplit>
+                    : ntxent_bwd_general_rows_prep<T, kSplit>;
+  auto walk = kCols ? ntxent_bwd_general_cols_walk<kSplit, ND>
+                    : ntxent_bwd_general_rows_walk<kSplit, ND>;
+  auto sum = kCols ? ntxent_bwd_general_cols_sum
+                   : ntxent_bwd_general_rows_sum;
+  prep<<<dim3((a.n_own + 31) / 32, dp / 32), kPrepThreads, 0, stream>>>(
+      static_cast<const T*>(a.own), a.n_own, a.d, b.own_h, b.own_l, nullptr,
+      nullptr);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int tiles = (n_own + kOwn - 1) / kOwn;
-  ntxent_bwd_general_kernel<T, kCols><<<tiles, kThreads, smem, stream>>>(
-      static_cast<const T*>(z_own), static_cast<const T*>(z_other), own_gid,
-      other_gid, lse, grad, n_own, n_other, d, inv_t, cols_actual, n_half);
+  prep<<<dim3(cp / 32, dt / 32), kPrepThreads, 0, stream>>>(
+      static_cast<const T*>(a.other), a.n_other, a.d, b.oth_h, b.oth_l,
+      b.oth_ht, b.oth_lt);
+  err = cudaGetLastError();
+  CUtensorMap own_h, own_l, oth_h, oth_l, oth_ht, oth_lt;
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&own_h, b.own_h, dp, a.n_own, kBoxK, kTile);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&own_l, kSplit ? b.own_l : b.own_h, dp,
+                               a.n_own, kBoxK, kTile);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&oth_h, b.oth_h, dp, a.n_other, kBoxK, kTile);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&oth_l, kSplit ? b.oth_l : b.oth_h, dp,
+                               a.n_other, kBoxK, kTile);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&oth_ht, b.oth_ht, cp, dt, kBoxK, ND);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&oth_lt, kSplit ? b.oth_lt : b.oth_ht, cp, dt,
+                               kBoxK, ND);
+  }
+  const Plan p = make_plan(a.d, kSplit, bwd_half_bytes<ND>(kSplit),
+                           bwd_sum_bytes<ND>());
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(walk,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.bytes + 1024);
+  }
+  if (err != cudaSuccess) return err;
+  walk<<<dim3((a.n_own + kTile - 1) / kTile, a.splits, dt / ND), kThreads,
+         p.bytes + 1024, stream>>>(
+      own_h, own_l, oth_h, oth_l, oth_ht, oth_lt, a.ids, a.lse, a.scale,
+      a.splits == 1 ? a.grad : b.part, p, a.n_own, a.n_other, a.d,
+      a.split_cols, a.inv_t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  const size_t count = size_t(a.n_own) * a.d;
+  const int blocks = static_cast<int>((count + 255) / 256);
+  sum<<<blocks < 1024 ? blocks : 1024, 256, 0, stream>>>(b.part, a.grad,
+                                                        count, a.splits);
   return cudaGetLastError();
 }
 
+template <typename T, bool kCols>
+cudaError_t dispatch(const Call& a, const Buffers& b, cudaStream_t s) {
+  switch (d_chunk(a.d)) {
+    case 32:
+      return launch<T, 32, kCols>(a, b, s);
+    case 64:
+      return launch<T, 64, kCols>(a, b, s);
+    default:
+      return launch<T, 128, kCols>(a, b, s);
+  }
+}
+
 template <bool kCols>
-cudaError_t dispatch(const void* z_own, const void* z_other,
-                     const void* own_gid, const void* other_gid,
-                     const void* lse, void* grad, int n_own, int n_other,
-                     int d, int dtype, float inv_t, int cols_actual,
-                     int n_half, int device, void* stream) {
-  if (n_own < 1 || n_other < 1 || d < 1 || d > kMaxD) {
+cudaError_t run(const void* z_rows, const void* z_cols, const void* row_gid,
+                const void* col_gid, const void* lse, const void* scale,
+                void* grad, void* scratch, int n_rows, int n_cols, int d,
+                int dtype, float inv_t, int cols_actual, int n_half,
+                int diag_pos, int splits, int split_cols, int device,
+                void* stream) {
+  const int n_own = kCols ? n_cols : n_rows;
+  const int n_other = kCols ? n_rows : n_cols;
+  if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || d < 1 ||
+      d > kMaxD || splits < 1 || split_cols < 1 ||
+      static_cast<long long>(splits - 1) * split_cols >= n_other ||
+      static_cast<long long>(splits) * split_cols < n_other ||
+      (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const GeneralIds ids{static_cast<const int*>(row_gid),
+                       static_cast<const int*>(col_gid), n_rows, cols_actual,
+                       n_half, diag_pos};
+  const Call a{kCols ? z_cols : z_rows, kCols ? z_rows : z_cols, ids,
+               static_cast<const float*>(lse),
+               static_cast<const float*>(scale), static_cast<float*>(grad),
+               n_own, n_other, d, splits, split_cols, inv_t};
+  Carver c{static_cast<float*>(scratch)};
+  const Buffers b = carve(c, n_own, n_other, d, dtype == 0, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* oid = static_cast<const int*>(own_gid);
-  const int* bid = static_cast<const int*>(other_gid);
-  const float* l = static_cast<const float*>(lse);
-  float* out = static_cast<float*>(grad);
-  if (dtype == 0) {
-    return launch<float, kCols>(z_own, z_other, oid, bid, l, out, n_own,
-                                n_other, d, inv_t, cols_actual, n_half, s);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16, kCols>(z_own, z_other, oid, bid, l, out,
-                                        n_own, n_other, d, inv_t,
-                                        cols_actual, n_half, s);
-  }
-  return cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch<float, kCols>(a, b, s);
+  return dispatch<__nv_bfloat16, kCols>(a, b, s);
 }
 
 }  // namespace
 
-// grad_rows (n_rows, d) fp32 = G @ z_cols. row_gid (int32) is required,
-// col_gid (int32) may be null. dtype: 0 = float32, 1 = bfloat16.
-extern "C" int ntx_ntxent_bwd_general_rows(
-    const void* z_rows, const void* z_cols, const void* row_gid,
-    const void* col_gid, const void* lse, void* grad_rows, int n_rows,
-    int n_cols, int d, int dtype, float inv_t, int cols_actual, int n_half,
-    int device, void* stream) {
-  if (row_gid == nullptr) return cudaErrorInvalidValue;
-  return dispatch<false>(z_rows, z_cols, row_gid, col_gid, lse, grad_rows,
-                         n_rows, n_cols, d, dtype, inv_t, cols_actual,
-                         n_half, device, stream);
+// Floats of scratch one call takes: n_own rows own the outputs (R for the
+// rows kernel, C for the columns kernel), n_other the other side.
+extern "C" long long ntx_ntxent_bwd_general_scratch(int n_own, int n_other,
+                                                    int d, int dtype,
+                                                    int splits) {
+  Carver c{nullptr};
+  carve(c, n_own, n_other, d, dtype == 0, splits);
+  return static_cast<long long>(c.used);
 }
 
-// grad_cols (n_cols, d) fp32 = G^T @ z_rows, from the row lse only.
+// grad_rows (n_rows, d) fp32 = G @ z_cols. row_gid (int32) is required,
+// col_gid (int32) may be null, scale (fp32, on the device) may be null.
+// dtype: 0 = float32, 1 = bfloat16. The columns are cut into `splits`
+// runs of `split_cols` (the last one shorter), each non-empty. `scratch`
+// holds ntx_ntxent_bwd_general_scratch(n_rows, n_cols, d, dtype, splits)
+// floats.
+extern "C" int ntx_ntxent_bwd_general_rows(
+    const void* z_rows, const void* z_cols, const void* row_gid,
+    const void* col_gid, const void* lse, const void* scale, void* grad_rows,
+    void* scratch, int n_rows, int n_cols, int d, int dtype, float inv_t,
+    int cols_actual, int n_half, int diag_pos, int splits, int split_cols,
+    int device, void* stream) {
+  return run<false>(z_rows, z_cols, row_gid, col_gid, lse, scale, grad_rows,
+                    scratch, n_rows, n_cols, d, dtype, inv_t, cols_actual,
+                    n_half, diag_pos, splits, split_cols, device, stream);
+}
+
+// grad_cols (n_cols, d) fp32 = G^T @ z_rows, from the row lse only. The
+// rows are cut into `splits` runs of `split_cols`; `scratch` holds
+// ntx_ntxent_bwd_general_scratch(n_cols, n_rows, d, dtype, splits) floats.
 extern "C" int ntx_ntxent_bwd_general_cols(
     const void* z_rows, const void* z_cols, const void* row_gid,
-    const void* col_gid, const void* lse, void* grad_cols, int n_rows,
-    int n_cols, int d, int dtype, float inv_t, int cols_actual, int n_half,
+    const void* col_gid, const void* lse, const void* scale, void* grad_cols,
+    void* scratch, int n_rows, int n_cols, int d, int dtype, float inv_t,
+    int cols_actual, int n_half, int diag_pos, int splits, int split_cols,
     int device, void* stream) {
-  if (row_gid == nullptr) return cudaErrorInvalidValue;
-  return dispatch<true>(z_cols, z_rows, col_gid, row_gid, lse, grad_cols,
-                        n_cols, n_rows, d, dtype, inv_t, cols_actual, n_half,
-                        device, stream);
+  return run<true>(z_rows, z_cols, row_gid, col_gid, lse, scale, grad_cols,
+                   scratch, n_rows, n_cols, d, dtype, inv_t, cols_actual,
+                   n_half, diag_pos, splits, split_cols, device, stream);
 }

@@ -15,33 +15,17 @@
 // Every row of the symmetric layout is real (no tile padding here), so
 // the valid_row / valid_col factors of the TPU kernel are 1.
 //
-// Design (ntxent_tf32.cuh holds the walk). The operand-prep pass writes
-// z's hi and lo (rows, Dp) and, transposed, (DT, Cp): grad = G . z takes
-// z as the B operand with K = the columns, which is MN-major as z lies,
-// and TF32 wgmma takes only K-major operands. One CTA per (64-row tile,
-// column split, chunk of D of at most 128): per 64-column tile it forms s
-// as the forward does (3xTF32 for fp32 z), G in the accumulator fragment,
-// G's hi and lo (G is fp32, not exact in TF32), and adds G . z by wgmma
-// m64nNk8 with G as the register A operand and the transposed tile, two K
-// boxes of 32 columns, as B: three products for fp32 z (G_lo z_hi, G_hi
-// z_lo, then G_hi z_hi), two for bf16 (z_lo = 0).
-//
-// Sums. The tensor core adds into its fp32 accumulator without rounding
-// to nearest, so a chain of 3 x 8 x 2N / 64 products (3072 at 2N = 8192)
-// drifts (4e-5 on the gradient at 2N = 8192 on an H100; one
-// TF32 pass errs 2.5e-4). Each 64-column tile therefore starts a fresh
-// accumulator, and each thread adds it to its own running sum in shared
-// memory (64 x 128 fp32, 32 KB) with a rounded fp32 add: 24 products
-// to a chain.
-//
-// G from registers. The fp32 accumulator holds row r's columns 2q and
-// 2q + 1 of each 8-column group (q = lane % 4); a TF32 A fragment holds K
-// q and q + 4. So the prep pass stores the transposed z with each group's
-// columns in the order (0, 2, 4, 6, 1, 3, 5, 7): K index q + 4e is column
-// 2q + e, and the accumulator's registers d[4i], d[4i + 2], d[4i + 1],
-// d[4i + 3] are the A fragment of k8 step i as they lie. Chosen over
-// staging G through shared memory: no store, fence or 32 KB of G tiles,
-// and the permutation costs nothing in a pass that writes the copy anyway.
+// Design (ntxent_tf32.cuh holds the walk, bwd_walk, which #6 shares).
+// The operand-prep pass writes z's hi and lo (rows, Dp) and, transposed,
+// (DT, Cp): grad = G . z takes z as the B operand with K = the columns,
+// which is MN-major as z lies, and TF32 wgmma takes only K-major operands.
+// One CTA per (64-row tile, column split, chunk of D of at most 128): per
+// 64-column tile it forms s as the forward does (3xTF32 for fp32 z), G
+// (SymG below) in the accumulator fragment, and adds G . z with G as the
+// register A operand; each tile's product starts a fresh accumulator that
+// is added into a running sum in shared memory (the tensor core does not
+// round its fp32 accumulator to nearest: a 3072-product chain drifted
+// 4e-5 at 2N = 8192 on an H100, one TF32 pass errs 2.5e-4).
 //
 // Splits. With one split each CTA writes its rows' gradient; with more,
 // each writes a partial (splits, 2N, D) and a sum kernel adds the splits
@@ -57,13 +41,49 @@
 // at D = 128 (224 KB), 2 at D = 256 (224 KB).
 //
 // Supported: float32 or bfloat16 z, contiguous (rows, D), rows even >= 2,
-// 1 <= D <= 256. The C entry point returns cudaGetLastError().
+// 1 <= D <= 512 (past D = 256 in fp32 the row tile streams through the
+// ring, ntxent_tf32.cuh). The C entry point returns cudaGetLastError().
 
 #include "ntxent_tf32.cuh"
 
 namespace {
 
 using namespace ntx;
+
+// G of the symmetric layout: p_row - pos + p_col - pos, zero on a column
+// past the split.
+struct SymG {
+  const float* __restrict__ lse;
+  int n;
+  float inv_t;
+  int row[2], pos_col[2];
+  float lse_r[2];
+  float lse_c[16];  // entry 2i + e: column col0 + 8i + 2q + e
+
+  __device__ __forceinline__ void rows(int r) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row[h] = r + 8 * h;
+      pos_col[h] = row[h] < n / 2 ? row[h] + n / 2 : row[h] - n / 2;
+      lse_r[h] = row[h] < n ? lse[row[h]] : 0.f;
+    }
+  }
+  __device__ __forceinline__ void tile(int col0, int ce, int q) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * (j / 2) + 2 * q + j % 2;
+      lse_c[j] = col < ce ? lse[col] : 0.f;
+    }
+  }
+  __device__ __forceinline__ float g(float s, int i, int h, int col,
+                                     bool live) const {
+    const float x = (!live || col == row[h]) ? kNegInf : s * inv_t;
+    const float pos = col == pos_col[h] ? 1.f : 0.f;
+    const float out = (exp0(x - lse_r[h]) - pos) +
+                      (exp0(x - lse_c[2 * (i / 4) + i % 2]) - pos);
+    return (!live || row[h] >= n) ? 0.f : out;
+  }
+};
 
 template <bool kSplit, int ND>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -74,140 +94,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const float* __restrict__ lse,
                         float* __restrict__ out, Plan p, int n, int d,
                         int split_cols, float inv_t) {
-  constexpr int kHalfBytes = ND * 128;  // one K box of the transposed tile
-  extern __shared__ unsigned char raw[];
-  unsigned char* smem = sm90::aligned_smem(raw);
-  uint64_t* bars = walk_barriers(smem, p);
-  Ring ring(smem, bars, p);
-  const int row0 = blockIdx.x * kTile;
-  const int split = blockIdx.y;
-  const int d0 = blockIdx.z * ND;
-  const int cb = split * split_cols;
-  const int ce = min(cb + split_cols, n);
-  const int tiles = (ce - cb + kTile - 1) / kTile;
-
-  if (threadIdx.x >= kWarpgroup) {  // the producer warp
-    if (threadIdx.x == kWarpgroup) {
-      load_rows<kSplit>(smem, bars, p, &tm_h, &tm_l, row0);
-      for (int t = 0; t < tiles; ++t) {
-        const int col0 = cb + t * kTile;
-        load_cols<kSplit>(ring, p, &tm_h, &tm_l, col0);
-        for (int half = 0; half < 2; ++half) {
-          uint64_t* bar;
-          unsigned char* slot =
-              ring.load(kHalfBytes * (kSplit ? 2 : 1), &bar);
-          tma_box_2d(slot, &tm_ht, bar, col0 + half * kBoxK, d0);
-          if constexpr (kSplit) {
-            tma_box_2d(slot + kHalfBytes, &tm_lt, bar, col0 + half * kBoxK,
-                       d0);
-          }
-        }
-      }
-    }
-    return;
-  }
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r = 16 * warp + lane / 4;
-  const int q = lane % 4;
-  const int n_half = n / 2;
-  int row[2], pos_col[2];
-  float lse_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row[h] = row0 + r + 8 * h;
-    pos_col[h] = row[h] < n_half ? row[h] + n_half : row[h] - n_half;
-    lse_r[h] = row[h] < n ? lse[row[h]] : 0.f;
-  }
-  float acc[ND / 2];
-  // This thread's running sum of acc[j], at sum[j * kWarpgroup + tid].
-  float* sum = reinterpret_cast<float*>(smem + p.extra) + threadIdx.x;
-#pragma unroll
-  for (int j = 0; j < ND / 2; ++j) sum[j * kWarpgroup] = 0.f;
-
-  bar_wait(bars, 0);
-  for (int t = 0; t < tiles; ++t) {
-    const int col0 = cb + t * kTile;
-    float lse_c[16];  // entry 2i + e: column col0 + 8i + 2q + e
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = col0 + 8 * (j / 2) + 2 * q + j % 2;
-      lse_c[j] = col < ce ? lse[col] : 0.f;
-    }
-    float s[32];
-    s_tile<kSplit>(smem, p, ring, s);
-
-    // G in place of s, split into TF32 hi and lo.
-    uint32_t g_hi[32], g_lo[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {  // row r + 8h, column 8 (i / 4) + 2q + i % 2
-      const int h = (i / 2) % 2;
-      const int col = col0 + 8 * (i / 4) + 2 * q + i % 2;
-      const bool live = col < ce;
-      const float x = (!live || col == row[h]) ? kNegInf : s[i] * inv_t;
-      const float pos = col == pos_col[h] ? 1.f : 0.f;
-      float g = (exp0(x - lse_r[h]) - pos) +
-                (exp0(x - lse_c[2 * (i / 4) + i % 2]) - pos);
-      if (!live || row[h] >= n) g = 0.f;
-      g_hi[i] = tf32_bits(g);
-      g_lo[i] = __float_as_uint(g - __uint_as_float(g_hi[i]));
-    }
-
-    for (int half = 0; half < 2; ++half) {
-      const unsigned char* zt_hi = ring.acquire();
-      const unsigned char* zt_lo = zt_hi + kHalfBytes;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int i = 4 * half + kk;  // k8 step: columns 8i .. 8i + 7
-        const uint32_t a_hi[4] = {g_hi[4 * i], g_hi[4 * i + 2],
-                                  g_hi[4 * i + 1], g_hi[4 * i + 3]};
-        const uint32_t a_lo[4] = {g_lo[4 * i], g_lo[4 * i + 2],
-                                  g_lo[4 * i + 1], g_lo[4 * i + 3]};
-        mma_tf32_rs<ND>(acc, a_lo, desc_k(zt_hi, kk), i > 0);
-        if constexpr (kSplit) {
-          mma_tf32_rs<ND>(acc, a_hi, desc_k(zt_lo, kk), 1);
-        }
-        mma_tf32_rs<ND>(acc, a_hi, desc_k(zt_hi, kk), 1);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      hold(acc);
-      hold(g_hi);
-      hold(g_lo);
-      ring.release();
-    }
-#pragma unroll
-    for (int j = 0; j < ND / 2; ++j) sum[j * kWarpgroup] += acc[j];
-  }
-  // sum[4i + 2h + e]: row r + 8h, column d0 + 8i + 2q + e of grad.
-#pragma unroll
-  for (int i = 0; i < ND / 8; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int k = d0 + 8 * i + 2 * q + e;
-        if (row[h] < n && k < d) {
-          out[(size_t(split) * n + row[h]) * d + k] =
-              sum[(4 * i + 2 * h + e) * kWarpgroup];
-        }
-      }
-    }
-  }
+  SymG g{lse, n, inv_t};
+  bwd_walk<kSplit, ND>(&tm_h, &tm_l, &tm_h, &tm_l, &tm_ht, &tm_lt, g, out, p,
+                       n, n, d, split_cols);
 }
 
 // Each gradient entry: the splits' partials added in split order.
 __global__ void ntxent_bwd_sym_sum(const float* __restrict__ part,
                                    float* __restrict__ grad, size_t count,
                                    int splits) {
-  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < count;
-       i += size_t(gridDim.x) * blockDim.x) {
-    float sum = part[i];
-    for (int s = 1; s < splits; ++s) sum += part[s * count + i];
-    grad[i] = sum;
-  }
+  split_sum(part, grad, count, splits);
 }
 
 template <typename T, bool kSplit>
@@ -266,11 +162,8 @@ cudaError_t launch(const T* z, const float* lse, float* grad,
     err = sm90::tensor_map_f32(&tm_lt, kSplit ? b.lo_t : b.hi_t, cp, dt,
                                kBoxK, ND);
   }
-  const int half_bytes = ND * 128 * (kSplit ? 2 : 1);
-  const int box_bytes = kBoxBytes * (kSplit ? 2 : 1);
-  const Plan p = make_plan(d, kSplit,
-                           half_bytes > box_bytes ? half_bytes : box_bytes,
-                           ND * kWarpgroup * 2);
+  const Plan p = make_plan(d, kSplit, bwd_half_bytes<ND>(kSplit),
+                           bwd_sum_bytes<ND>());
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(ntxent_bwd_sym_walk<kSplit, ND>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -10,17 +10,22 @@
 //   * general (ntx_ntxent_fwd_general): rows z_rows (R, D) with global ids
 //     row_gid, columns z_cols (C, D) with global ids col_gid, or their
 //     indices when col_gid is null (the path of ntxent_partial_fused, the
-//     data-parallel strip loss, and of block_lse, the ring's fold).
+//     data-parallel strip loss, and of block_lse, the ring's fold), in
+//     the NT-Xent mode or, with diag_pos, the InfoNCE mode of
+//     info_nce_partial_fused (the two-pass data-parallel InfoNCE), with a
+//     logit scale read from the device (the TPU kernel's SMEM scale).
 // Per row i it computes what that kernel computes:
-//   s[i, j] = (z_i . z_j) * inv_t in fp32, whatever the input dtype;
-//   columns whose id is >= cols_actual or equals the row's id masked to
-//     -1e30 (_masked_sim_tile); columns past C do not exist;
+//   s[i, j] = (z_i . z_j) * (inv_t * scale) in fp32, whatever the input
+//     dtype (scale 1 unless given);
+//   columns whose id is >= cols_actual or, without diag_pos, equals the
+//     row's id masked to -1e30 (_masked_sim_tile); columns past C do not
+//     exist;
 //   online logsumexp over column tiles: m = max, l = l * exp(m_old - m_new)
 //     + sum exp(min(s - m_new, 0)) (the _exp0 clamp);
 //   lse[i] = m + log(max(l, 1e-37)) (the _log_l floor);
 //   the positive logit: the unmasked s[i, j] of the column whose id is
-//     pos(gid_i) = gid_i + n_half if gid_i < n_half else gid_i - n_half
-//     (_pos_gid);
+//     pos(gid_i) = gid_i + n_half if gid_i < n_half else gid_i - n_half,
+//     or gid_i itself with diag_pos (_pos_gid);
 //   loss_sum = sum over rows with gid_i < cols_actual of (lse[i] - pos_i)
 //     (padding rows carry the sentinel id 2N and drop out).
 //
@@ -42,13 +47,17 @@
 // fastest fp32-accurate product: 495 / 3 = 165 TFLOP/s), against (R + C)
 // D inputs: at the symmetric training shape (2N = 512, D = 128, fp32) 67
 // MFLOP, 0.41 us; at 2N = 8192, 104 us; at one rank's strip of a 4-card
-// world at global batch 4096 (R = 2048, C = 8192), 26 us. Bytes are far
-// below (8192 x 128 fp32 is 4 MB, 1.3 us at 3.35 TB/s). At 2N = 512 the
-// four launches and the walk's latency bound it.
+// world at global batch 4096 (R = 2048, C = 8192), 26 us; the two-pass
+// InfoNCE of CLIP (D = 512) at batch 256 on one card (R = C = 256), 0.41
+// us, and one rank of 4 at batch 4096 (R = 1024, C = 4096), 26 us. Bytes
+// are far below (8192 x 128 fp32 is 4 MB, 1.3 us at 3.35 TB/s). At 2N =
+// 512 the four launches and the walk's latency bound it.
 //
 // Supported: float32 or bfloat16 rows and columns (the same dtype),
-// contiguous (rows, D), 1 <= D <= 256; the symmetric mode needs an even
-// row count >= 2. int32 ids. The C entry points return cudaGetLastError().
+// contiguous (rows, D), 1 <= D <= 512 (past D = 256 in fp32 the row tile
+// streams through the ring, ntxent_tf32.cuh); the symmetric mode needs an
+// even row count >= 2. int32 ids. The C entry points return
+// cudaGetLastError().
 
 #include "ntxent_tf32.cuh"
 
@@ -66,7 +75,7 @@ __device__ __forceinline__ void fwd_walk(const CUtensorMap* tm_rh,
                                          const Ids& ids, float* part,
                                          const Plan& p, int n_rows,
                                          int n_cols, int split_cols,
-                                         float inv_t) {
+                                         float inv_t, const float* scale) {
   extern __shared__ unsigned char raw[];
   unsigned char* smem = sm90::aligned_smem(raw);
   uint64_t* bars = walk_barriers(smem, p);
@@ -81,7 +90,8 @@ __device__ __forceinline__ void fwd_walk(const CUtensorMap* tm_rh,
     if (threadIdx.x == kWarpgroup) {
       load_rows<kSplit>(smem, bars, p, tm_rh, tm_rl, row0);
       for (int t = 0; t < tiles; ++t) {
-        load_cols<kSplit>(ring, p, tm_ch, tm_cl, cb + t * kTile);
+        load_cols<kSplit>(ring, p, tm_ch, tm_cl, cb + t * kTile, tm_rh,
+                          tm_rl, row0);
       }
     }
     return;
@@ -91,6 +101,7 @@ __device__ __forceinline__ void fwd_walk(const CUtensorMap* tm_rh,
   const int lane = threadIdx.x % 32;
   const int r = 16 * warp + lane / 4;
   const int q = lane % 4;
+  const float inv = scaled_inv_t(inv_t, scale);
   int gid[2], pos_gid[2];
   float m[2], l[2], pos[2];
 #pragma unroll
@@ -101,7 +112,7 @@ __device__ __forceinline__ void fwd_walk(const CUtensorMap* tm_rh,
     l[h] = 0.f;
     pos[h] = 0.f;
   }
-  bar_wait(bars, 0);
+  wait_rows(bars, p);
   for (int t = 0; t < tiles; ++t) {
     const int col0 = cb + t * kTile;
     int cid[16];  // entry 2i + e: column col0 + 8i + 2q + e
@@ -118,7 +129,7 @@ __device__ __forceinline__ void fwd_walk(const CUtensorMap* tm_rh,
     for (int i = 0; i < 32; ++i) {  // row r + 8h, column 8 (i / 4) + 2q + i % 2
       const int h = (i / 2) % 2;
       const int id = cid[2 * (i / 4) + i % 2];
-      const float raw_s = s[i] * inv_t;
+      const float raw_s = s[i] * inv;
       if (id == pos_gid[h]) pos[h] += raw_s;
       s[i] = masked(ids, id, gid[h]) ? kNegInf : raw_s;
       row_max[h] = fmaxf(row_max[h], s[i]);
@@ -215,7 +226,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                         SymIds ids, float* __restrict__ part, Plan p, int n,
                         int split_cols, float inv_t) {
   fwd_walk<kSplit>(&tm_h, &tm_l, &tm_h, &tm_l, ids, part, p, n, n,
-                   split_cols, inv_t);
+                   split_cols, inv_t, nullptr);
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
@@ -245,9 +256,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const __grid_constant__ CUtensorMap tm_ch,
                             const __grid_constant__ CUtensorMap tm_cl,
                             GeneralIds ids, float* __restrict__ part, Plan p,
-                            int n_cols, int split_cols, float inv_t) {
+                            int n_cols, int split_cols, float inv_t,
+                            const float* __restrict__ scale) {
   fwd_walk<kSplit>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, ids, part, p, ids.n_rows,
-                   n_cols, split_cols, inv_t);
+                   n_cols, split_cols, inv_t, scale);
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
@@ -310,7 +322,7 @@ cudaError_t launch_sym(const T* z, const Buffers& b, int n, int d,
   if (err == cudaSuccess) {
     err = maps<kSplit>(&tm_h, &tm_l, b.hi_r, b.lo_r, n, d);
   }
-  const Plan p = make_plan(d, kSplit, kBoxBytes * (kSplit ? 2 : 1));
+  const Plan p = make_plan(d, kSplit);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(ntxent_fwd_sym_walk<kSplit>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -334,9 +346,9 @@ cudaError_t launch_sym(const T* z, const Buffers& b, int n, int d,
 
 template <typename T>
 cudaError_t launch_general(const T* z_rows, const T* z_cols,
-                           const GeneralIds& ids, const Buffers& b,
-                           int n_cols, int d, float inv_t, int splits,
-                           int split_cols, cudaStream_t stream) {
+                           const GeneralIds& ids, const float* scale,
+                           const Buffers& b, int n_cols, int d, float inv_t,
+                           int splits, int split_cols, cudaStream_t stream) {
   constexpr bool kSplit = std::is_same<T, float>::value;
   const int n_rows = ids.n_rows;
   ntxent_fwd_general_prep<T, kSplit>
@@ -355,7 +367,7 @@ cudaError_t launch_general(const T* z_rows, const T* z_cols,
   if (err == cudaSuccess) {
     err = maps<kSplit>(&tm_ch, &tm_cl, b.hi_c, b.lo_c, n_cols, d);
   }
-  const Plan p = make_plan(d, kSplit, kBoxBytes * (kSplit ? 2 : 1));
+  const Plan p = make_plan(d, kSplit);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(ntxent_fwd_general_walk<kSplit>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -365,7 +377,7 @@ cudaError_t launch_general(const T* z_rows, const T* z_cols,
   ntxent_fwd_general_walk<kSplit>
       <<<dim3((n_rows + kTile - 1) / kTile, splits), kThreads,
          p.bytes + 1024, stream>>>(tm_rh, tm_rl, tm_ch, tm_cl, ids, b.part,
-                                   p, n_cols, split_cols, inv_t);
+                                   p, n_cols, split_cols, inv_t, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merges = (n_rows + kMergeThreads - 1) / kMergeThreads;
@@ -427,14 +439,17 @@ extern "C" int ntx_ntxent_fwd(const void* z, void* lse, void* loss,
 }
 
 // General mode: rows z_rows (n_rows, d) with int32 ids row_gid, columns
-// z_cols (n_cols, d) with int32 ids col_gid (null: the column index). The
-// columns split as in the symmetric mode. `scratch` holds
-// ntx_ntxent_fwd_scratch(n_rows, n_cols, d, dtype, splits) floats.
+// z_cols (n_cols, d) with int32 ids col_gid (null: the column index), the
+// fp32 logit scale at `scale` on the device (null: 1), the InfoNCE mode
+// with diag_pos != 0. The columns split as in the symmetric mode.
+// `scratch` holds ntx_ntxent_fwd_scratch(n_rows, n_cols, d, dtype, splits)
+// floats.
 extern "C" int ntx_ntxent_fwd_general(
     const void* z_rows, const void* z_cols, const void* row_gid,
-    const void* col_gid, void* lse, void* loss, void* scratch, int n_rows,
-    int n_cols, int d, int dtype, float inv_t, int cols_actual, int n_half,
-    int splits, int split_cols, int device, void* stream) {
+    const void* col_gid, const void* scale, void* lse, void* loss,
+    void* scratch, int n_rows, int n_cols, int d, int dtype, float inv_t,
+    int cols_actual, int n_half, int diag_pos, int splits, int split_cols,
+    int device, void* stream) {
   if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || d < 1 || d > kMaxD ||
       !valid_split(n_cols, splits, split_cols)) {
     return cudaErrorInvalidValue;
@@ -444,20 +459,21 @@ extern "C" int ntx_ntxent_fwd_general(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const GeneralIds ids{static_cast<const int*>(row_gid),
                        static_cast<const int*>(col_gid), n_rows, cols_actual,
-                       n_half};
+                       n_half, diag_pos};
+  const float* sc = static_cast<const float*>(scale);
   Carver c{static_cast<float*>(scratch)};
   Buffers b = carve(c, n_rows, n_cols, d, dtype == 0, splits);
   b.lse = static_cast<float*>(lse);
   b.loss = static_cast<float*>(loss);
   if (dtype == 0) {
     return launch_general(static_cast<const float*>(z_rows),
-                          static_cast<const float*>(z_cols), ids, b, n_cols,
-                          d, inv_t, splits, split_cols, s);
+                          static_cast<const float*>(z_cols), ids, sc, b,
+                          n_cols, d, inv_t, splits, split_cols, s);
   }
   if (dtype == 1) {
     return launch_general(static_cast<const __nv_bfloat16*>(z_rows),
-                          static_cast<const __nv_bfloat16*>(z_cols), ids, b,
-                          n_cols, d, inv_t, splits, split_cols, s);
+                          static_cast<const __nv_bfloat16*>(z_cols), ids, sc,
+                          b, n_cols, d, inv_t, splits, split_cols, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,18 +1,20 @@
 // Hopper (sm_90a) TF32 tensor-core walk of the NT-Xent kernels #1
-// (ntxent_fwd.cu: the symmetric and the general forward) and #5 in its
-// symmetric mode (ntxent_bwd_sym.cu). The tensor-map encoder, TMA, the
-// mbarriers and the K-major descriptor come from flash_attention_sm90.cuh.
+// (ntxent_fwd.cu: the symmetric and the general forward), #5 in its
+// symmetric mode (ntxent_bwd_sym.cu) and #6 (ntxent_bwd_general.cu: the
+// general backward's rows and columns kernels). The tensor-map encoder,
+// TMA, the mbarriers and the K-major descriptor come from
+// flash_attention_sm90.cuh.
 //
 // Operands. wgmma takes TF32 A and B only K-major, so an operand-prep
 // kernel reads z once and writes fp32 copies laid out for TMA's 128-byte
 // swizzle: hi = z rounded to TF32 (cvt.rna) and, for fp32 z, lo = z - hi
 // (exact), as (rows, Dp) matrices, Dp = D rounded up to 32 (one 128-byte
-// swizzle row; zeros past D, so every D from 1 to 256 takes the same
+// swizzle row; zeros past D, so every D from 1 to 512 takes the same
 // boxes and no row stride breaks TMA's 16-byte rule). The backward also
-// writes them transposed, (DT, Cp) with Cp = rows rounded up to 64 and DT
-// = Dp rounded up to the chunk of D one CTA accumulates (32, 64 or 128),
-// as the K-major B of grad = G . z. bf16 z widens exactly (lo = 0, not
-// written or read).
+// writes the other side transposed, (DT, Cp) with Cp = rows rounded up to
+// 64 and DT = Dp rounded up to the chunk of D one CTA accumulates (32,
+// 64 or 128), as the K-major B of grad = G . z. bf16 z widens exactly
+// (lo = 0, not written or read).
 //
 // 3xTF32. A product of fp32 x and y is hi_x hi_y + (hi_x lo_y + lo_x
 // hi_y), the small terms summed in an accumulator of their own and added
@@ -22,20 +24,33 @@
 //
 // Walk. One CTA (a consumer warpgroup and a producer warp) owns 64 rows
 // and one split of the columns (ops/ntxent.py's planner, about one wave of
-// the SMs). The producer's lane 0 loads the row tile (hi, lo) once and
-// streams the split's 64-column tiles through a ring of stages in K boxes
-// of 32 columns (8 KB of hi and 8 KB of lo a stage), so every D up to 256
-// fits: at D = 256 the row tile takes 128 KB and 4 stages 64 KB (the
-// backward: 2 stages of 32 KB beside 32 KB of sums). s = z_r z_c^T is
-// wgmma m64n64k8 from shared memory; each thread holds rows r = 16 warp +
-// lane / 4 and r + 8, columns 8i + 2q and 8i + 2q + 1 (q = lane % 4) of
-// every 8-column group.
+// the SMs). The producer's lane 0 streams the split's 64-column tiles
+// through a ring of stages in K boxes of 32 columns (8 KB of hi and 8 KB
+// of lo a box). The row tile (hi, lo) is loaded once and kept when it
+// leaves room for two stages (make_plan): fp32 up to D = 256, where it
+// takes 128 KB beside 4 stages of 16 KB (the backward: 2 stages of 32 KB
+// beside 32 KB of sums), and bf16 up to 512. Past that (fp32 at D = 288
+// to 512: 144-256 KB of row tile, more than a CTA's 227 KB with a ring)
+// the row tile's K boxes come through the ring beside the column tile's,
+// a stage holding both (32 KB), and are read again from L2 for every
+// column tile: the products per stage stay those of a resident tile. s =
+// z_r z_c^T is wgmma m64n64k8 from shared memory; each thread holds rows
+// r = 16 warp + lane / 4 and r + 8, columns 8i + 2q and 8i + 2q + 1 (q =
+// lane % 4) of every 8-column group.
 //
-// Masks (Ids: a policy, so that later modes add their own): a column
-// whose id is >= cols_actual or equals the row's id is -1e30; a column
-// past the split or past C has no id (kNoColumn, masked); a row past R
-// takes the sentinel id cols_actual and adds no loss. The positive of a
-// row is the column whose id is positive(gid).
+// Masks (Ids: a policy; SymIds and GeneralIds): a column whose id is >=
+// cols_actual or, in the NT-Xent mode, equals the row's id is -1e30; a
+// column past the split or past C has no id (kNoColumn, masked); a row
+// past R takes the sentinel id cols_actual and adds no loss. The positive
+// of a row is the column whose id is positive(gid): the paired view
+// (gid +- n_half) in the NT-Xent mode, the diagonal (gid itself) in the
+// InfoNCE mode (diag_pos, _masked_sim_tile :96-112 and _pos_gid :115-123
+// of ntxent_pallas.py), where the diagonal is not masked.
+//
+// Logit scale. The general kernels take an fp32 scale from a device
+// pointer (null: 1); every consumer thread reads it once and folds it
+// into 1/T (inv_t * scale, as the TPU kernel reads it from SMEM, :151),
+// so a learnable scale costs no host sync.
 
 #pragma once
 
@@ -64,7 +79,7 @@ constexpr int kTile = 64;                     // rows of a tile
 constexpr int kBoxK = 32;                     // fp32 of one 128-byte row
 constexpr int kBoxBytes = kTile * kBoxK * 4;  // one 64-row K box, 8 KB
 constexpr int kMaxStages = 4;
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 512;
 constexpr int kSmemMax = 232448;  // shared memory one block may use
 constexpr int kWarpgroup = sm90::kWarpgroup;
 constexpr int kThreads = sm90::kThreads;  // the warpgroup + the producer
@@ -90,29 +105,40 @@ __host__ __device__ constexpr int padded_cols(int n) {
 }
 
 // The dynamic shared memory of a walk: the row tile (hi, then lo: Dp / 32
-// boxes each), `stages` ring slots, `extra` bytes of the kernel's own,
-// then the barriers (the row tile's, full[kMaxStages],
+// boxes each) unless it streams, `stages` ring slots, `extra` bytes of
+// the kernel's own, then the barriers (the row tile's, full[kMaxStages],
 // empty[kMaxStages]). A launch asks 1024 bytes more to align the base to
 // the swizzle's 1024-byte boundary.
 struct Plan {
   int nkb;         // K boxes of a row
-  int row_bytes;   // the row tile
+  int box_bytes;   // one K box of a 64-row tile: hi, then lo for fp32
+  int row_bytes;   // the resident row tile; 0: its boxes stream
   int slot_bytes;  // one ring stage
   int stages;
   int extra;       // offset of the kernel's own bytes
   int bars;        // offset of the barriers
   int bytes;
+  __host__ __device__ bool streams() const { return row_bytes == 0; }
 };
 
-inline Plan make_plan(int d, bool split, int slot_bytes, int extra = 0) {
+// `other_slot`: the largest other load the kernel puts in one stage.
+inline Plan make_plan(int d, bool split, int other_slot = 0,
+                      int extra = 0) {
   Plan p;
   p.nkb = padded_d(d) / kBoxK;
-  p.row_bytes = p.nkb * kBoxBytes * (split ? 2 : 1);
-  p.slot_bytes = slot_bytes;
+  p.box_bytes = kBoxBytes * (split ? 2 : 1);
+  p.row_bytes = p.nkb * p.box_bytes;
   const int bar_bytes = (1 + 2 * kMaxStages) * 8;
-  const int room = kSmemMax - 1024 - bar_bytes - p.row_bytes - extra;
-  p.stages = room / slot_bytes < kMaxStages ? room / slot_bytes : kMaxStages;
-  p.extra = p.row_bytes + p.stages * slot_bytes;
+  const int room = kSmemMax - 1024 - bar_bytes - extra;
+  int slot = p.box_bytes > other_slot ? p.box_bytes : other_slot;
+  if (room - p.row_bytes < 2 * slot) {  // stream the row boxes too
+    p.row_bytes = 0;
+    slot = 2 * p.box_bytes > other_slot ? 2 * p.box_bytes : other_slot;
+  }
+  p.slot_bytes = slot;
+  const int left = room - p.row_bytes;
+  p.stages = left / slot < kMaxStages ? left / slot : kMaxStages;
+  p.extra = p.row_bytes + p.stages * slot;
   p.bars = p.extra + extra;
   p.bytes = p.bars + bar_bytes;
   return p;
@@ -197,23 +223,24 @@ __device__ __forceinline__ void prep_tile(const T* __restrict__ z, int n,
 // --- device: the masking and positive policies ----------------------------
 
 // The symmetric layout: rows and columns are the same n vectors, their ids
-// their indices.
+// their indices; the NT-Xent mode.
 struct SymIds {
   int n;
   __device__ __forceinline__ int row(int r) const { return r < n ? r : n; }
   __device__ __forceinline__ int col(int c) const { return c; }
   __device__ __forceinline__ int cols_actual() const { return n; }
+  __device__ __forceinline__ bool diag_pos() const { return false; }
   __device__ __forceinline__ int positive(int gid) const {
     return gid < n / 2 ? gid + n / 2 : gid - n / 2;
   }
 };
 
 // The general mode: rows with ids row_gid, columns with ids col_gid (null:
-// the column index).
+// the column index); with `diag`, the InfoNCE mode.
 struct GeneralIds {
   const int* row_gid;
   const int* col_gid;
-  int n_rows, actual, n_half;
+  int n_rows, actual, n_half, diag;
   __device__ __forceinline__ int row(int r) const {
     return r < n_rows ? row_gid[r] : actual;
   }
@@ -221,7 +248,9 @@ struct GeneralIds {
     return col_gid ? col_gid[c] : c;
   }
   __device__ __forceinline__ int cols_actual() const { return actual; }
+  __device__ __forceinline__ bool diag_pos() const { return diag != 0; }
   __device__ __forceinline__ int positive(int gid) const {
+    if (diag) return gid;
     return gid < n_half ? gid + n_half : gid - n_half;
   }
 };
@@ -229,7 +258,13 @@ struct GeneralIds {
 // _masked_sim_tile's rule, whatever the ids.
 template <class Ids>
 __device__ __forceinline__ bool masked(const Ids& ids, int id, int gid) {
-  return id >= ids.cols_actual() || id == gid;
+  return id >= ids.cols_actual() || (!ids.diag_pos() && id == gid);
+}
+
+// 1/T times the logit scale at `scale` (null: 1/T itself).
+__device__ __forceinline__ float scaled_inv_t(float inv_t,
+                                              const float* scale) {
+  return scale != nullptr ? inv_t * __ldg(scale) : inv_t;
 }
 
 // --- device: TF32 wgmma ---------------------------------------------------
@@ -410,12 +445,13 @@ struct Ring {
   }
 };
 
-// Producer: the row tile's boxes (hi, then lo) at row0.
+// Producer: the row tile's boxes (hi, then lo) at row0, when it stays.
 template <bool kSplit>
 __device__ __forceinline__ void load_rows(unsigned char* smem,
                                           uint64_t* bar, const Plan& p,
                                           const CUtensorMap* hi,
                                           const CUtensorMap* lo, int row0) {
+  if (p.streams()) return;
   bar_expect(bar, p.row_bytes);
   for (int kb = 0; kb < p.nkb; ++kb) {
     tma_box_2d(smem + kb * kBoxBytes, hi, bar, kb * kBoxK, row0);
@@ -425,17 +461,34 @@ __device__ __forceinline__ void load_rows(unsigned char* smem,
   }
 }
 
-// Producer: the K boxes (hi, lo) of the 64-column tile at col0.
+// Consumer: wait for the row tile, when it stays.
+__device__ __forceinline__ void wait_rows(uint64_t* bars, const Plan& p) {
+  if (!p.streams()) bar_wait(bars, 0);
+}
+
+// Producer: the K boxes (hi, lo) of the 64-column tile at col0, each in a
+// stage of its own; a streaming row tile's box (at row0) beside it.
 template <bool kSplit>
 __device__ __forceinline__ void load_cols(Ring& ring, const Plan& p,
                                           const CUtensorMap* hi,
-                                          const CUtensorMap* lo, int col0) {
+                                          const CUtensorMap* lo, int col0,
+                                          const CUtensorMap* row_hi,
+                                          const CUtensorMap* row_lo,
+                                          int row0) {
+  const bool rows = p.streams();
   for (int kb = 0; kb < p.nkb; ++kb) {
     uint64_t* bar;
-    unsigned char* slot = ring.load(kBoxBytes * (kSplit ? 2 : 1), &bar);
+    unsigned char* slot = ring.load(p.box_bytes * (rows ? 2 : 1), &bar);
     tma_box_2d(slot, hi, bar, kb * kBoxK, col0);
     if constexpr (kSplit) {
       tma_box_2d(slot + kBoxBytes, lo, bar, kb * kBoxK, col0);
+    }
+    if (rows) {
+      tma_box_2d(slot + p.box_bytes, row_hi, bar, kb * kBoxK, row0);
+      if constexpr (kSplit) {
+        tma_box_2d(slot + p.box_bytes + kBoxBytes, row_lo, bar, kb * kBoxK,
+                   row0);
+      }
     }
   }
 }
@@ -446,21 +499,23 @@ template <bool kSplit>
 __device__ __forceinline__ void s_tile(const unsigned char* rows,
                                        const Plan& p, Ring& ring,
                                        float (&s)[32]) {
-  const unsigned char* rows_lo = rows + p.nkb * kBoxBytes;
   float small[32];
   for (int kb = 0; kb < p.nkb; ++kb) {
     const unsigned char* hi = ring.acquire();
     const unsigned char* lo = hi + kBoxBytes;
+    const unsigned char* a_hi =
+        p.streams() ? hi + p.box_bytes : rows + kb * kBoxBytes;
+    const unsigned char* a_lo =
+        p.streams() ? a_hi + kBoxBytes : rows + (p.nkb + kb) * kBoxBytes;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const int k = 4 * kb + kk;
       const int acc = kb > 0 || kk > 0;
       if constexpr (kSplit) {
-        mma_tf32_ss_n64(small, desc_k(rows, k), desc_k(lo, kk), acc);
-        mma_tf32_ss_n64(small, desc_k(rows_lo, k), desc_k(hi, kk), 1);
+        mma_tf32_ss_n64(small, desc_k(a_hi, kk), desc_k(lo, kk), acc);
+        mma_tf32_ss_n64(small, desc_k(a_lo, kk), desc_k(hi, kk), 1);
       }
-      mma_tf32_ss_n64(s, desc_k(rows, k), desc_k(hi, kk), acc);
+      mma_tf32_ss_n64(s, desc_k(a_hi, kk), desc_k(hi, kk), acc);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -472,6 +527,180 @@ __device__ __forceinline__ void s_tile(const unsigned char* rows,
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] += small[i];
   }
+}
+
+// --- device: the backward walk ---------------------------------------------
+
+// grad[own] = sum over the split's columns of G[own, col] z_other[col], for
+// one 64-row tile of `own` (blockIdx.x), one column split (blockIdx.y) and
+// one chunk of ND columns of D (blockIdx.z). Per 64-column tile: s = z_own
+// z_other^T as the forward forms it, G in its place from the policy, G's
+// TF32 hi and lo (G is fp32, not exact in TF32), and grad += G . z_other
+// by wgmma m64nNDk8 with G as the register A operand and the transposed
+// other side, two K boxes of 32 columns, as B: three products for fp32
+// (G_lo z_hi, G_hi z_lo, then G_hi z_hi), two for bf16 (z_lo = 0).
+//
+// G from registers. The fp32 accumulator holds row r's columns 2q and
+// 2q + 1 of each 8-column group (q = lane % 4); a TF32 A fragment holds K
+// q and q + 4. So the prep pass stores the transposed z with each group's
+// columns in the order (0, 2, 4, 6, 1, 3, 5, 7): K index q + 4e is column
+// 2q + e, and the accumulator's registers d[4i], d[4i + 2], d[4i + 1],
+// d[4i + 3] are the A fragment of k8 step i as they lie.
+//
+// Sums. The tensor core adds into its fp32 accumulator without rounding
+// to nearest, so a long chain of products drifts (4e-5 on the gradient at
+// 2N = 8192 on an H100 over a 3072-product chain). Each 64-column tile
+// therefore starts a fresh accumulator, and each thread adds it to its own
+// running sum in shared memory (ND / 2 floats a thread, p.extra on) with
+// a rounded fp32 add: 24 products to a chain.
+//
+// The policy G (one per kernel) holds what G needs besides s:
+//   rows(row0 + r): the thread's own rows r and r + 8 (h = 0, 1);
+//   tile(col0, ce, q): the tile's columns 8i + 2q + e (entry 2i + e),
+//     those at or past ce not live;
+//   g(s, i, h, col, live): G of accumulator entry i (row r + 8h, column
+//     col = col0 + 8 (i / 4) + 2q + i % 2) from the raw product s.
+// Rows past n_own and columns past n_other come in from TMA as zeros.
+// out: (splits, n_own, d) fp32, or the gradient itself with one split.
+template <bool kSplit, int ND, class G>
+__device__ __forceinline__ void bwd_walk(const CUtensorMap* own_h,
+                                         const CUtensorMap* own_l,
+                                         const CUtensorMap* oth_h,
+                                         const CUtensorMap* oth_l,
+                                         const CUtensorMap* oth_ht,
+                                         const CUtensorMap* oth_lt, G& g,
+                                         float* __restrict__ out,
+                                         const Plan& p, int n_own,
+                                         int n_other, int d,
+                                         int split_cols) {
+  constexpr int kHalfBytes = ND * 128;  // one K box of the transposed tile
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = sm90::aligned_smem(raw);
+  uint64_t* bars = walk_barriers(smem, p);
+  Ring ring(smem, bars, p);
+  const int row0 = blockIdx.x * kTile;
+  const int split = blockIdx.y;
+  const int d0 = blockIdx.z * ND;
+  const int cb = split * split_cols;
+  const int ce = min(cb + split_cols, n_other);
+  const int tiles = (ce - cb + kTile - 1) / kTile;
+
+  if (threadIdx.x >= kWarpgroup) {  // the producer warp
+    if (threadIdx.x == kWarpgroup) {
+      load_rows<kSplit>(smem, bars, p, own_h, own_l, row0);
+      for (int t = 0; t < tiles; ++t) {
+        const int col0 = cb + t * kTile;
+        load_cols<kSplit>(ring, p, oth_h, oth_l, col0, own_h, own_l, row0);
+        for (int half = 0; half < 2; ++half) {
+          uint64_t* bar;
+          unsigned char* slot =
+              ring.load(kHalfBytes * (kSplit ? 2 : 1), &bar);
+          tma_box_2d(slot, oth_ht, bar, col0 + half * kBoxK, d0);
+          if constexpr (kSplit) {
+            tma_box_2d(slot + kHalfBytes, oth_lt, bar, col0 + half * kBoxK,
+                       d0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r = 16 * warp + lane / 4;
+  const int q = lane % 4;
+  g.rows(row0 + r);
+  float acc[ND / 2];
+  // This thread's running sum of acc[j], at sum[j * kWarpgroup + tid].
+  float* sum = reinterpret_cast<float*>(smem + p.extra) + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < ND / 2; ++j) sum[j * kWarpgroup] = 0.f;
+
+  wait_rows(bars, p);
+  for (int t = 0; t < tiles; ++t) {
+    const int col0 = cb + t * kTile;
+    g.tile(col0, ce, q);
+    float s[32];
+    s_tile<kSplit>(smem, p, ring, s);
+
+    // G in place of s, split into TF32 hi and lo.
+    uint32_t g_hi[32], g_lo[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {  // row r + 8h, column 8 (i / 4) + 2q + i % 2
+      const int h = (i / 2) % 2;
+      const int col = col0 + 8 * (i / 4) + 2 * q + i % 2;
+      const float x = g.g(s[i], i, h, col, col < ce);
+      g_hi[i] = tf32_bits(x);
+      g_lo[i] = __float_as_uint(x - __uint_as_float(g_hi[i]));
+    }
+
+    for (int half = 0; half < 2; ++half) {
+      const unsigned char* zt_hi = ring.acquire();
+      const unsigned char* zt_lo = zt_hi + kHalfBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int i = 4 * half + kk;  // k8 step: columns 8i .. 8i + 7
+        const uint32_t a_hi[4] = {g_hi[4 * i], g_hi[4 * i + 2],
+                                  g_hi[4 * i + 1], g_hi[4 * i + 3]};
+        const uint32_t a_lo[4] = {g_lo[4 * i], g_lo[4 * i + 2],
+                                  g_lo[4 * i + 1], g_lo[4 * i + 3]};
+        mma_tf32_rs<ND>(acc, a_lo, desc_k(zt_hi, kk), i > 0);
+        if constexpr (kSplit) {
+          mma_tf32_rs<ND>(acc, a_hi, desc_k(zt_lo, kk), 1);
+        }
+        mma_tf32_rs<ND>(acc, a_hi, desc_k(zt_hi, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(acc);
+      hold(g_hi);
+      hold(g_lo);
+      ring.release();
+    }
+#pragma unroll
+    for (int j = 0; j < ND / 2; ++j) sum[j * kWarpgroup] += acc[j];
+  }
+  // sum[4i + 2h + e]: row r + 8h, column d0 + 8i + 2q + e of grad.
+#pragma unroll
+  for (int i = 0; i < ND / 8; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + r + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = d0 + 8 * i + 2 * q + e;
+        if (row < n_own && k < d) {
+          out[(size_t(split) * n_own + row) * d + k] =
+              sum[(4 * i + 2 * h + e) * kWarpgroup];
+        }
+      }
+    }
+  }
+}
+
+// Each gradient entry: the splits' partials added in split order.
+__device__ __forceinline__ void split_sum(const float* __restrict__ part,
+                                          float* __restrict__ grad,
+                                          size_t count, int splits) {
+  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < count;
+       i += size_t(gridDim.x) * blockDim.x) {
+    float sum = part[i];
+    for (int s = 1; s < splits; ++s) sum += part[s * count + i];
+    grad[i] = sum;
+  }
+}
+
+// The ring stage a backward takes for one half of the transposed tile,
+// and the bytes of its running sums.
+template <int ND>
+constexpr int bwd_half_bytes(bool split) {
+  return ND * 128 * (split ? 2 : 1);
+}
+template <int ND>
+constexpr int bwd_sum_bytes() {
+  return ND * kWarpgroup * 2;
 }
 
 // One warp sums `count` partial sums in a fixed order.

@@ -48,9 +48,14 @@ version. Each wrapper counts its launches in ``.launches`` (one per call:
 the square kernels cover both directions in one launch). The TPU package's
 two-pass backward for large N on one device (``_bwd_sym_call`` in
 cross-modal mode, taken when its accumulators outgrow VMEM) is the same
-function as #10; the square backward kernel serves every N there. The
-two-pass partial loss (``info_nce_partial_fused``) is not ported
-(ROADMAP.md Queue A 3(f)).
+function as #10; the square backward kernel serves every N there.
+
+The two-pass data-parallel form (``info_nce_partial_fused``,
+``infonce_pallas.py:547``): one direction's partial loss SUM of a rank's
+rows against the all-gathered other modality, over the general NT-Xent
+kernels in their InfoNCE mode (``ops.ntxent``: #1 and #6 with
+``diag_pos`` and the device scale); ``parallel.dist_loss.
+local_infonce_allgather`` runs it once for each direction.
 """
 
 from __future__ import annotations
@@ -62,8 +67,10 @@ import numpy as np
 import torch
 
 from . import _build
+from .ntxent import _NtxentPartial
 
-__all__ = ["info_nce_dual_partial", "info_nce_fused", "infonce_bwd_cols",
+__all__ = ["info_nce_dual_partial", "info_nce_fused",
+           "info_nce_partial_fused", "infonce_bwd_cols",
            "infonce_bwd_cols_plain", "infonce_bwd_rows",
            "infonce_bwd_rows_plain", "infonce_dual_bwd",
            "infonce_dual_bwd_plain", "infonce_dual_fwd",
@@ -509,3 +516,25 @@ def info_nce_dual_partial(za_local: torch.Tensor, zb_g: torch.Tensor,
     return _InfoNceDualPartial.apply(za_local.contiguous(), zb_g.contiguous(),
                                      row_gid.to(za_local.device), scale,
                                      group)
+
+
+def info_nce_partial_fused(z_rows: torch.Tensor, z_cols: torch.Tensor,
+                           row_gid: torch.Tensor, *,
+                           scale: torch.Tensor | float = 1.0
+                           ) -> torch.Tensor:
+    """One-direction partial InfoNCE **sum** over rows of the global
+    matrix (``infonce_pallas.py:547``).
+
+    Returns ``sum_i [logsumexp_j s_ij - s_i,gid(i)]`` where ``s = scale *
+    z_rows @ z_cols.T`` and the positive of local row i is global column
+    ``row_gid[i]``, the diagonal of the global matrix; a row whose id is
+    >= C (the padding sentinel) adds nothing. The general forward (#1) and
+    backward (#6) in their InfoNCE mode at temperature 1, the scale read on
+    the device. Differentiable with respect to both operands and a tensor
+    ``scale``."""
+    if z_rows.ndim != 2 or row_gid.shape != (z_rows.shape[0],):
+        raise ValueError(f"row_gid must be ({z_rows.shape[0]},), got "
+                         f"{tuple(row_gid.shape)}")
+    scale = resolve_scale(1.0, scale, z_rows.device)
+    return _NtxentPartial.apply(z_rows.contiguous(), z_cols.contiguous(),
+                                row_gid.to(z_rows.device), scale, 1.0, True)

@@ -36,6 +36,11 @@ global ids ``col_gid`` (default: the column index); a column is masked
 where its id is >= ``cols_actual`` or equals the row's id, the positive
 of a row is the column whose id is ``_pos_gid`` of the row's id, and a
 row whose id is >= ``cols_actual`` (the padding sentinel 2N) adds no loss.
+With ``diag_pos=True`` (the InfoNCE mode of ``info_nce_partial_fused``,
+``ops.infonce``) the row's own id is not masked and is its positive.
+``scale`` (a 0-d or (1,) fp32 tensor on the tensors' device, CLIP's
+learnable ``exp(logit_scale)``; ``None``: 1) multiplies 1/T; the kernels
+read it on the device.
 
 * ``ntxent_fwd_general(...) -> (loss_sum, lse)`` launches the general
   mode of ``csrc/ntxent_fwd.cu`` (its own launch counter);
@@ -47,7 +52,9 @@ row whose id is >= ``cols_actual`` (the padding sentinel 2N) adds no loss.
   ``ntxent_bwd_general_cols_plain`` are their plain versions;
 * ``ntxent_partial_fused(z_rows, z_cols, row_gid, temperature)`` is the
   differentiable partial loss SUM over the local rows, the data-parallel
-  strip loss's building block (``ntxent_pallas.py:871``).
+  strip loss's building block (``ntxent_pallas.py:871``); its autograd
+  function ``_NtxentPartial`` also carries the InfoNCE mode and the scale
+  and its gradient (``_ntxent_partial``, ``ntxent_pallas.py:818-868``).
 
 Shard-pair (``block_lse_dual``, ``block_grads_dual``): one tile of the
 symmetric global matrix between rows z_rows (R, D) and columns z_cols
@@ -67,7 +74,7 @@ pair-parallel loss (``parallel.pair``).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version. Each wrapper counts its launches in ``.launches``. The tile
-shape belongs to the CUDA kernels; the column split of #1 and #5 is
+shape belongs to the CUDA kernels; the column split of #1, #5 and #6 is
 planned here (``column_splits``) and handed to them.
 """
 
@@ -83,7 +90,7 @@ from . import _build
 
 __all__ = ["block_grads", "block_grads_dual", "block_grads_dual_plain",
            "block_lse", "block_lse_dual", "block_lse_dual_plain",
-           "column_splits", "ntxent_bwd_general_cols",
+           "column_splits", "general_bwd_splits", "ntxent_bwd_general_cols",
            "ntxent_bwd_general_cols_plain", "ntxent_bwd_general_rows",
            "ntxent_bwd_general_rows_plain", "ntxent_bwd_sym",
            "ntxent_bwd_sym_plain", "ntxent_bwd_tri", "ntxent_bwd_tri_plain",
@@ -93,7 +100,7 @@ __all__ = ["block_grads", "block_grads_dual", "block_grads_dual_plain",
            "ntxent_partial_fused", "tf32_split"]
 
 _NEG_INF = -1e30
-MAX_DIM = 256  # widest embedding the kernels stage in shared memory
+MAX_DIM = 512  # widest embedding the kernels take (CLIP's is 512)
 # rows of one tile of the triangular kernels (csrc/ntxent_tri_*) and of
 # #1 and #5 (csrc/ntxent_tf32.cuh); columns of their column tiles
 TILE = 64
@@ -181,6 +188,24 @@ def column_splits(rows: int, cols: int, sms: int = SM_COUNT):
     return -(-units // per), per * SPLIT_UNIT
 
 
+def _d_chunks(d: int) -> int:
+    """Chunks of D the backward walks (#5, #6) cut the gradient into, one
+    per CTA in the grid's third dimension (``d_chunk`` and ``padded_dt``
+    of ``csrc/ntxent_tf32.cuh``): each chunk forms s again."""
+    dp = -(-d // SPLIT_UNIT) * SPLIT_UNIT
+    chunk = 32 if dp <= 32 else 64 if dp <= 64 else 128
+    return -(-dp // chunk)
+
+
+def general_bwd_splits(own: int, other: int, d: int,
+                       sms: int = SM_COUNT):
+    """(splits, split_cols) of a #6 kernel: the other side's rows cut as
+    ``column_splits`` cuts columns, so that the row tiles of the side that
+    owns the outputs, times the splits, times the chunks of D come near
+    one wave of ``sms`` SMs."""
+    return column_splits(own, other, max(1, sms // _d_chunks(d)))
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -264,7 +289,7 @@ def _scratch_size(name: str):
     """The library's report of the floats of scratch one call takes (the
     layout of the operand copies and partials lives in the library)."""
     fn = getattr(_build.load(name), f"ntx_{name}_scratch")
-    fn.argtypes = [ctypes.c_int] * (5 if name == "ntxent_fwd" else 4)
+    fn.argtypes = [ctypes.c_int] * (4 if name == "ntxent_bwd_sym" else 5)
     fn.restype = ctypes.c_longlong
     return fn
 
@@ -573,28 +598,52 @@ def _general_args(z_rows, z_cols, row_gid, col_gid, cols_actual, n_half):
             cols // 2 if n_half is None else int(n_half))
 
 
+def _check_scale(scale, device):
+    """The logit scale as the kernels read it: ``None``, or a 0-d or (1,)
+    fp32 tensor on ``device``."""
+    if scale is None:
+        return None
+    if not isinstance(scale, torch.Tensor) or scale.numel() != 1 \
+            or scale.dtype != torch.float32 or scale.device != device:
+        raise ValueError(f"scale must be a 0-d or (1,) float32 tensor on "
+                         f"{device}, got {scale!r}")
+    return scale
+
+
 def _general_terms(z_rows, z_cols, row_gid, temperature, col_gid,
-                   cols_actual, n_half):
+                   cols_actual, n_half, diag_pos=False, scale=None):
     """(masked scaled similarity, raw scaled similarity, positive one-hot
-    E, valid-row mask) of ``_masked_sim_tile`` / ``_pos_gid``."""
-    s = (z_rows.float() @ z_cols.float().T) * _inv_t(temperature)
+    E, valid-row mask) of ``_masked_sim_tile`` / ``_pos_gid``; with a
+    scale the logits are ``s * (1/T * scale)``, the factor in fp32 as the
+    kernels form it."""
+    inv_t = _inv_t(temperature)
+    if scale is not None:
+        inv_t = torch.tensor(inv_t, dtype=torch.float32,
+                             device=z_rows.device) * scale.reshape(())
+    s = (z_rows.float() @ z_cols.float().T) * inv_t
     rid = row_gid.long()[:, None]
     cid = (torch.arange(z_cols.shape[0], device=z_rows.device)
            if col_gid is None else col_gid.long())[None, :]
-    masked = s.masked_fill((cid >= cols_actual) | (cid == rid), _NEG_INF)
-    pos = torch.where(rid < n_half, rid + n_half, rid - n_half)
+    mask = cid >= cols_actual
+    if not diag_pos:
+        mask = mask | (cid == rid)
+    masked = s.masked_fill(mask, _NEG_INF)
+    pos = rid if diag_pos else torch.where(rid < n_half, rid + n_half,
+                                           rid - n_half)
     return masked, s, (cid == pos).float(), rid[:, 0] < cols_actual
 
 
 def ntxent_fwd_general_plain(z_rows, z_cols, row_gid, temperature,
-                             col_gid=None, cols_actual=None, n_half=None):
+                             col_gid=None, cols_actual=None, n_half=None,
+                             diag_pos=False, scale=None):
     """(loss_sum, lse (R,)) of the general mode with the kernel's numerics:
     fp32 similarity of the (widened) inputs, max-shifted ``_exp0`` sum,
     ``log(max(l, 1e-37))``; rows with ids >= cols_actual add no loss."""
     cols_actual, n_half = _general_args(z_rows, z_cols, row_gid, col_gid,
                                         cols_actual, n_half)
     masked, raw, onehot, valid = _general_terms(
-        z_rows, z_cols, row_gid, temperature, col_gid, cols_actual, n_half)
+        z_rows, z_cols, row_gid, temperature, col_gid, cols_actual, n_half,
+        diag_pos, _check_scale(scale, z_rows.device))
     lse = _lse(masked, 1)
     positives = (raw * onehot).sum(dim=1)
     loss = torch.where(valid, lse - positives, torch.zeros_like(lse))
@@ -602,7 +651,7 @@ def ntxent_fwd_general_plain(z_rows, z_cols, row_gid, temperature,
 
 
 def _general_g(z_rows, z_cols, row_gid, lse, temperature, col_gid,
-               cols_actual, n_half):
+               cols_actual, n_half, diag_pos, scale):
     """G = (P - E) * valid_row with P = exp0(s - lse[row])."""
     cols_actual, n_half = _general_args(z_rows, z_cols, row_gid, col_gid,
                                         cols_actual, n_half)
@@ -611,25 +660,29 @@ def _general_g(z_rows, z_cols, row_gid, lse, temperature, col_gid,
                          f"{z_rows.device}, got {tuple(lse.shape)} on "
                          f"{lse.device}")
     masked, _, onehot, valid = _general_terms(
-        z_rows, z_cols, row_gid, temperature, col_gid, cols_actual, n_half)
+        z_rows, z_cols, row_gid, temperature, col_gid, cols_actual, n_half,
+        diag_pos, _check_scale(scale, z_rows.device))
     p = _exp0(masked - lse.float()[:, None])
     return (p - onehot) * valid.float()[:, None]
 
 
 def ntxent_bwd_general_rows_plain(z_rows, z_cols, row_gid, lse, temperature,
                                   col_gid=None, cols_actual=None,
-                                  n_half=None) -> torch.Tensor:
+                                  n_half=None, diag_pos=False,
+                                  scale=None) -> torch.Tensor:
     """(R, D) fp32 ``G @ z_cols`` (``_bwd_rows_kernel``)."""
     return _general_g(z_rows, z_cols, row_gid, lse, temperature, col_gid,
-                      cols_actual, n_half) @ z_cols.float()
+                      cols_actual, n_half, diag_pos, scale) @ z_cols.float()
 
 
 def ntxent_bwd_general_cols_plain(z_rows, z_cols, row_gid, lse, temperature,
                                   col_gid=None, cols_actual=None,
-                                  n_half=None) -> torch.Tensor:
+                                  n_half=None, diag_pos=False,
+                                  scale=None) -> torch.Tensor:
     """(C, D) fp32 ``G^T @ z_rows`` (``_bwd_cols_kernel``)."""
     return _general_g(z_rows, z_cols, row_gid, lse, temperature, col_gid,
-                      cols_actual, n_half).T @ z_rows.float()
+                      cols_actual, n_half, diag_pos,
+                      scale).T @ z_rows.float()
 
 
 def _ids(ids):
@@ -640,14 +693,19 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+# z_rows, z_cols, row_gid, col_gid, then the rest of each general entry
+# point's pointers (fwd: scale, lse, loss, scratch; bwd: lse, scale, grad,
+# scratch); rows, cols, d, dtype; inv_t; cols_actual, n_half, diag_pos,
+# splits, split_cols, device; stream
+_GENERAL_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                     + [ctypes.c_float] + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p])
+
+
 @functools.cache
 def _fwd_general_kernel():
     fn = _build.load("ntxent_fwd").ntx_ntxent_fwd_general
-    # z_rows, z_cols, row_gid, col_gid, lse, loss, scratch; rows, cols, d,
-    # dtype; inv_t; cols_actual, n_half, splits, split_cols, device; stream
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+    fn.argtypes = _GENERAL_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -656,17 +714,14 @@ def _fwd_general_kernel():
 def _bwd_general_kernel(side: str):
     fn = getattr(_build.load("ntxent_bwd_general"),
                  f"ntx_ntxent_bwd_general_{side}")
-    # z_rows, z_cols, row_gid, col_gid, lse, grad; rows, cols, d, dtype;
-    # inv_t; cols_actual, n_half, device; stream
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
+    fn.argtypes = _GENERAL_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
 def ntxent_fwd_general(z_rows, z_cols, row_gid, temperature, col_gid=None,
-                       cols_actual=None, n_half=None):
+                       cols_actual=None, n_half=None, diag_pos=False,
+                       scale=None):
     """(loss_sum, lse): fp32 scalar and (R,) fp32 row logsumexp of the
     general mode.
 
@@ -675,9 +730,11 @@ def ntxent_fwd_general(z_rows, z_cols, row_gid, temperature, col_gid=None,
     ``ntxent_fwd_general_plain``."""
     cols_actual, n_half = _general_args(z_rows, z_cols, row_gid, col_gid,
                                         cols_actual, n_half)
+    scale = _check_scale(scale, z_rows.device)
     if z_rows.device.type == "cpu":
         return ntxent_fwd_general_plain(z_rows, z_cols, row_gid, temperature,
-                                        col_gid, cols_actual, n_half)
+                                        col_gid, cols_actual, n_half,
+                                        diag_pos, scale)
     if z_rows.device.type != "cuda":
         raise ValueError(f"ntxent_fwd_general runs on cuda or cpu, got "
                          f"{z_rows.device}")
@@ -685,6 +742,7 @@ def ntxent_fwd_general(z_rows, z_cols, row_gid, temperature, col_gid=None,
     _check_kernel_input(z_cols)
     (rows, d), cols = z_rows.shape, z_cols.shape[0]
     row_gid, col_gid = _ids(row_gid), _ids(col_gid)
+    scale = None if scale is None else scale.contiguous()
     dtype = _DTYPE_CODES[z_rows.dtype]
     splits, split_cols = _splits(z_rows, rows, cols)
     scratch = _scratch(z_rows, "ntxent_fwd", rows, cols, d, dtype, splits)
@@ -692,9 +750,10 @@ def ntxent_fwd_general(z_rows, z_cols, row_gid, temperature, col_gid=None,
     loss = torch.empty((), dtype=torch.float32, device=z_rows.device)
     err = _fwd_general_kernel()(
         z_rows.data_ptr(), z_cols.data_ptr(), row_gid.data_ptr(),
-        _ptr(col_gid), lse.data_ptr(), loss.data_ptr(), scratch.data_ptr(),
-        rows, cols, d, dtype, _inv_t(temperature), cols_actual, n_half,
-        splits, split_cols, z_rows.device.index,
+        _ptr(col_gid), _ptr(scale), lse.data_ptr(), loss.data_ptr(),
+        scratch.data_ptr(), rows, cols, d, dtype, _inv_t(temperature),
+        cols_actual, n_half, int(bool(diag_pos)), splits, split_cols,
+        z_rows.device.index,
         torch.cuda.current_stream(z_rows.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ntxent_fwd_general launch failed: CUDA error "
@@ -707,22 +766,34 @@ ntxent_fwd_general.launches = 0
 
 
 def _bwd_general(side, z_rows, z_cols, row_gid, lse, temperature, col_gid,
-                 cols_actual, n_half):
+                 cols_actual, n_half, diag_pos, scale):
     """Launch the rows or the columns kernel of the general backward."""
     if z_rows.device.type != "cuda":
         raise ValueError(f"ntxent_bwd_general_{side} runs on cuda or cpu, "
                          f"got {z_rows.device}")
+    if lse.shape != (z_rows.shape[0],) or lse.device != z_rows.device:
+        raise ValueError(f"lse must be ({z_rows.shape[0]},) on "
+                         f"{z_rows.device}, got {tuple(lse.shape)} on "
+                         f"{lse.device}")
     _check_kernel_input(z_rows)
     _check_kernel_input(z_cols)
     row_gid, col_gid = _ids(row_gid), _ids(col_gid)
+    scale = None if scale is None else scale.contiguous()
     lse = lse.float().contiguous()
-    out = z_rows if side == "rows" else z_cols
-    grad = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    (rows, d), cols = z_rows.shape, z_cols.shape[0]
+    own, other = (rows, cols) if side == "rows" else (cols, rows)
+    dtype = _DTYPE_CODES[z_rows.dtype]
+    splits, split_cols = general_bwd_splits(own, other, d,
+                                            _sm_count(z_rows.device.index))
+    scratch = _scratch(z_rows, "ntxent_bwd_general", own, other, d, dtype,
+                       splits)
+    grad = torch.empty((own, d), dtype=torch.float32, device=z_rows.device)
     err = _bwd_general_kernel(side)(
         z_rows.data_ptr(), z_cols.data_ptr(), row_gid.data_ptr(),
-        _ptr(col_gid), lse.data_ptr(), grad.data_ptr(), z_rows.shape[0],
-        z_cols.shape[0], z_rows.shape[1], _DTYPE_CODES[z_rows.dtype],
-        _inv_t(temperature), cols_actual, n_half, z_rows.device.index,
+        _ptr(col_gid), lse.data_ptr(), _ptr(scale), grad.data_ptr(),
+        scratch.data_ptr(), rows, cols, d, dtype, _inv_t(temperature),
+        cols_actual, n_half, int(bool(diag_pos)), splits, split_cols,
+        z_rows.device.index,
         torch.cuda.current_stream(z_rows.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ntxent_bwd_general_{side} launch failed: CUDA "
@@ -731,22 +802,24 @@ def _bwd_general(side, z_rows, z_cols, row_gid, lse, temperature, col_gid,
 
 
 def ntxent_bwd_general_rows(z_rows, z_cols, row_gid, lse, temperature,
-                            col_gid=None, cols_actual=None,
-                            n_half=None) -> torch.Tensor:
+                            col_gid=None, cols_actual=None, n_half=None,
+                            diag_pos=False, scale=None) -> torch.Tensor:
     """(R, D) fp32 ``G @ z_cols`` (the gradient of loss_sum with respect to
-    z_rows before ``1 / T``).
+    z_rows before ``scale / T``).
 
     A CUDA tensor launches the rows kernel of ``csrc/ntxent_bwd_general.cu``
     (counted in ``ntxent_bwd_general_rows.launches``); a CPU tensor runs
     the plain version."""
     cols_actual, n_half = _general_args(z_rows, z_cols, row_gid, col_gid,
                                         cols_actual, n_half)
+    scale = _check_scale(scale, z_rows.device)
     if z_rows.device.type == "cpu":
         return ntxent_bwd_general_rows_plain(z_rows, z_cols, row_gid, lse,
                                              temperature, col_gid,
-                                             cols_actual, n_half)
+                                             cols_actual, n_half, diag_pos,
+                                             scale)
     grad = _bwd_general("rows", z_rows, z_cols, row_gid, lse, temperature,
-                        col_gid, cols_actual, n_half)
+                        col_gid, cols_actual, n_half, diag_pos, scale)
     ntxent_bwd_general_rows.launches += 1
     return grad
 
@@ -755,10 +828,10 @@ ntxent_bwd_general_rows.launches = 0
 
 
 def ntxent_bwd_general_cols(z_rows, z_cols, row_gid, lse, temperature,
-                            col_gid=None, cols_actual=None,
-                            n_half=None) -> torch.Tensor:
+                            col_gid=None, cols_actual=None, n_half=None,
+                            diag_pos=False, scale=None) -> torch.Tensor:
     """(C, D) fp32 ``G^T @ z_rows`` from the row lse (the gradient of
-    loss_sum with respect to z_cols before ``1 / T``).
+    loss_sum with respect to z_cols before ``scale / T``).
 
     A CUDA tensor launches the columns kernel of
     ``csrc/ntxent_bwd_general.cu`` (counted in
@@ -766,12 +839,14 @@ def ntxent_bwd_general_cols(z_rows, z_cols, row_gid, lse, temperature,
     version."""
     cols_actual, n_half = _general_args(z_rows, z_cols, row_gid, col_gid,
                                         cols_actual, n_half)
+    scale = _check_scale(scale, z_rows.device)
     if z_rows.device.type == "cpu":
         return ntxent_bwd_general_cols_plain(z_rows, z_cols, row_gid, lse,
                                              temperature, col_gid,
-                                             cols_actual, n_half)
+                                             cols_actual, n_half, diag_pos,
+                                             scale)
     grad = _bwd_general("cols", z_rows, z_cols, row_gid, lse, temperature,
-                        col_gid, cols_actual, n_half)
+                        col_gid, cols_actual, n_half, diag_pos, scale)
     ntxent_bwd_general_cols.launches += 1
     return grad
 
@@ -780,32 +855,47 @@ ntxent_bwd_general_cols.launches = 0
 
 
 class _NtxentPartial(torch.autograd.Function):
-    """Partial loss_sum with the kernels' exact backward
-    (``_ntxent_partial_fwd``/``_bwd``, ntxent_pallas.py:829-868): the
-    forward saves (z_rows, z_cols, row_gid, lse); the backward returns
-    ``grad * (g / T)`` for both embeddings, each in its own dtype."""
+    """Partial loss_sum with the kernels' exact backward and a logit scale
+    (``_ntxent_partial``, ntxent_pallas.py:818-868). ``apply(z_rows,
+    z_cols, row_gid, scale, temperature, diag_pos)``: ``scale`` is
+    ``None`` (NT-Xent) or a 0-d or (1,) fp32 tensor, the effective 1/T
+    ``scale / T``. The forward saves (z_rows, z_cols, row_gid, lse and the
+    scale); the backward returns ``grad * (g / T * scale)`` for both
+    embeddings, each in its own dtype, and the scale's gradient ``(g / T)
+    sum(gr * z_rows)`` with ``gr`` the rows kernel's output, so the rows
+    kernel runs when z_rows or the scale needs a gradient."""
 
     @staticmethod
-    def forward(ctx, z_rows, z_cols, row_gid, temperature):
+    def forward(ctx, z_rows, z_cols, row_gid, scale, temperature, diag_pos):
         loss_sum, lse = ntxent_fwd_general(z_rows, z_cols, row_gid,
-                                           temperature)
-        ctx.save_for_backward(z_rows, z_cols, row_gid, lse)
-        ctx.temperature = temperature
+                                           temperature, diag_pos=diag_pos,
+                                           scale=scale)
+        ctx.save_for_backward(z_rows, z_cols, row_gid, lse, scale)
+        ctx.temperature, ctx.diag_pos = temperature, diag_pos
         return loss_sum
 
     @staticmethod
     def backward(ctx, g):
-        z_rows, z_cols, row_gid, lse = ctx.saved_tensors
+        z_rows, z_cols, row_gid, lse, scale = ctx.saved_tensors
         coef = g.float() / ctx.temperature
+        factor = coef if scale is None else coef * scale.float()
         args = (z_rows, z_cols, row_gid, lse, ctx.temperature)
-        grad_rows = grad_cols = None
-        if ctx.needs_input_grad[0]:
-            grad_rows = (ntxent_bwd_general_rows(*args) * coef).to(
-                z_rows.dtype)
-        if ctx.needs_input_grad[1]:
-            grad_cols = (ntxent_bwd_general_cols(*args) * coef).to(
+        kw = dict(diag_pos=ctx.diag_pos, scale=scale)
+        need_rows, need_cols, _, need_scale = ctx.needs_input_grad[:4]
+        grad_rows = grad_cols = grad_scale = None
+        if need_rows or need_scale:
+            gr = ntxent_bwd_general_rows(*args, **kw)
+            if need_rows:
+                grad_rows = (gr * factor).to(z_rows.dtype)
+            if need_scale:
+                # d loss_sum / d scale = (1/T) sum_ij G_ij (zr_i . zc_j)
+                #                      = (1/T) sum_i (G @ zc)_i . zr_i
+                grad_scale = (coef * torch.sum(gr * z_rows.float())).reshape(
+                    scale.shape).to(scale.dtype)
+        if need_cols:
+            grad_cols = (ntxent_bwd_general_cols(*args, **kw) * factor).to(
                 z_cols.dtype)
-        return grad_rows, grad_cols, None, None
+        return grad_rows, grad_cols, None, grad_scale, None, None
 
 
 def ntxent_partial_fused(z_rows: torch.Tensor, z_cols: torch.Tensor,
@@ -824,7 +914,7 @@ def ntxent_partial_fused(z_rows: torch.Tensor, z_cols: torch.Tensor,
         raise ValueError(f"NT-Xent needs an even global row count, got "
                          f"{tuple(z_cols.shape)}")
     return _NtxentPartial.apply(z_rows.contiguous(), z_cols.contiguous(),
-                                row_gid, float(temperature))
+                                row_gid, None, float(temperature), False)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ Ulysses attention (``parallel.ring_attention``) and the ring NT-Xent and
 InfoNCE (``parallel.ring``)."""
 
 from .dist_loss import (
+    local_infonce_allgather,
     local_infonce_dual,
     local_ntxent_allgather,
     make_sharded_infonce,
@@ -52,6 +53,7 @@ __all__ = [
     "init_from_env",
     "info_nce_loss_ring",
     "init_from_file",
+    "local_infonce_allgather",
     "local_infonce_dual",
     "local_ntxent_allgather",
     "local_row_gids",

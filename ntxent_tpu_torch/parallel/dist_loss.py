@@ -11,12 +11,18 @@ general backward, #6) and sums the partial losses over ranks. The
 gradient of the gathered columns flows back through the all-gather as a
 reduce-scatter (``parallel.mesh``).
 
-InfoNCE (CLIP, ``local_infonce_dual``): every rank gathers the text
-embeddings only, walks its image rows x global text columns block once
-for both softmax directions (``ops.infonce.info_nce_dual_partial``: #9's
-rectangular mode forward, #5's cross-modal mode and #4 backward), merges
-the column statistics across ranks with a ``pmax`` and a ``psum`` of an
-(N,) vector, and sums the partial losses over ranks.
+InfoNCE (CLIP), two bodies (``resolve_local_infonce``):
+
+* ``local_infonce_dual`` (``"dual"``): every rank gathers the text
+  embeddings only, walks its image rows x global text columns block once
+  for both softmax directions (``ops.infonce.info_nce_dual_partial``:
+  #9's rectangular mode forward, #5's cross-modal mode and #4 backward),
+  merges the column statistics across ranks with a ``pmax`` and a
+  ``psum`` of an (N,) vector, and sums the partial losses over ranks;
+* ``local_infonce_allgather`` (``"twopass"``): every rank gathers both
+  modalities and computes each direction's local rows x global columns
+  block on its own (``ops.infonce.info_nce_partial_fused``: #1 and #6 in
+  their InfoNCE mode), then sums the two partial losses over ranks.
 
 Unlike the JAX functions, which take the global (sharded) views inside a
 ``shard_map``, these take the rank's local views: a rank holds only its
@@ -29,12 +35,13 @@ import functools
 
 import torch
 
-from ..ops.infonce import info_nce_dual_partial
+from ..ops.infonce import info_nce_dual_partial, info_nce_partial_fused
 from ..ops.ntxent import ntxent_partial_fused
 from .mesh import all_gather, local_row_gids, psum, rank, world_size
 from .pair import pair_body
 
-__all__ = ["local_infonce_dual", "local_ntxent_allgather",
+__all__ = ["local_infonce_allgather", "local_infonce_dual",
+           "local_ntxent_allgather",
            "make_sharded_infonce", "make_sharded_ntxent",
            "ntxent_loss_distributed", "resolve_local_infonce",
            "resolve_local_ntxent"]
@@ -44,12 +51,6 @@ __all__ = ["local_infonce_dual", "local_ntxent_allgather",
 NOT_PORTED = {
     "chunked": "ROADMAP.md Queue A 3(d) (--dp-loss chunked, the "
                "ring-overlap schedule)",
-}
-# The InfoNCE impls beside "dual", by the ROADMAP.md item that ports them.
-INFONCE_NOT_PORTED = {
-    "twopass": "ROADMAP.md Queue A 3(f) (local_infonce_allgather: "
-               "info_nce_partial_fused over #1 and #6 with diag_pos and a "
-               "traced scale)",
 }
 
 
@@ -118,15 +119,38 @@ def local_infonce_dual(za_local: torch.Tensor, zb_local: torch.Tensor,
     return psum(part, group) / (2 * zb_g.shape[0])
 
 
+def local_infonce_allgather(za_local: torch.Tensor, zb_local: torch.Tensor,
+                            scale: torch.Tensor,
+                            group=None) -> torch.Tensor:
+    """The global-batch symmetric InfoNCE mean loss from one rank's pairs
+    (n, D) each, in two passes (``dist_loss.py:279``): all-gather both
+    modalities (each gather's backward is the reduce-scatter of its
+    gradient), the partial sum of this rank's za rows against the gathered
+    zb and of its zb rows against the gathered za, both with the global
+    ids ``rank n + [0, n)``, ``psum`` over ranks, divided by 2N. ``scale``
+    (CLIP's learnable ``exp(logit_scale)``) is a differentiable tensor.
+    Every rank returns the same value."""
+    n_local = za_local.shape[0]
+    za_g = all_gather(za_local, group)                            # (N, D)
+    zb_g = all_gather(zb_local, group)
+    gid = rank(group) * n_local + torch.arange(
+        n_local, dtype=torch.int32, device=za_local.device)
+    loss_a = info_nce_partial_fused(za_local, zb_g, gid, scale=scale)
+    loss_b = info_nce_partial_fused(zb_local, za_g, gid, scale=scale)
+    return psum(loss_a + loss_b, group) / (2 * za_g.shape[0])
+
+
 def resolve_local_infonce(impl: str):
-    """The per-rank InfoNCE body for an impl name (``dist_loss.py:326``).
-    ``"twopass"`` is not ported and raises, naming its item."""
-    if impl == "dual":
-        return local_infonce_dual
-    if impl in INFONCE_NOT_PORTED:
-        raise NotImplementedError(f"the {impl} InfoNCE is not ported yet: "
-                                  f"{INFONCE_NOT_PORTED[impl]}")
-    raise ValueError(f"unknown InfoNCE impl {impl!r}")
+    """The per-rank InfoNCE body for an impl name (``dist_loss.py:326``):
+    ``"dual"`` or ``"twopass"``, with the signature ``(za_local,
+    zb_local, scale, group)``."""
+    impls = {"dual": local_infonce_dual,
+             "twopass": local_infonce_allgather}
+    try:
+        return impls[impl]
+    except KeyError:
+        raise ValueError(f"unknown InfoNCE impl {impl!r}; choose from "
+                         f"{sorted(impls)}") from None
 
 
 def make_sharded_infonce(group=None, impl: str = "dual"):

@@ -27,11 +27,12 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   rank. Each rank differentiates its own copy of the psum'd loss, so its
   gradients are P times its share and their pmean is the gradient of the
   global loss, as under JAX's ``shard_map``;
-* ``make_sharded_clip_train_step(group)`` (``trainer.py:625``, the
-  float32 wire, without remat or the MoE loss): each rank runs both towers
-  on its (images, tokens) shard, the dual InfoNCE
-  (``parallel.dist_loss.local_infonce_dual``: only the text embeddings
-  are gathered), the backward, one ``pmean`` of every gradient (the logit
+* ``make_sharded_clip_train_step(group, loss_impl)`` (``trainer.py:625``,
+  the float32 wire, without remat or the MoE loss): each rank runs both
+  towers on its (images, tokens) shard, the InfoNCE body of ``loss_impl``
+  (``"dual"``, ``parallel.dist_loss.local_infonce_dual``: only the text
+  embeddings are gathered; ``"twopass"``, ``local_infonce_allgather``:
+  both are gathered, each direction walked on its own), the backward, one ``pmean`` of every gradient (the logit
   scale's included) and the same AdamW update on every rank. As in the
   SimCLR step, each rank's gradients are P times its share (the psum of
   the loss and the all-gather's reduce-scatter carry the factor), so their
@@ -59,7 +60,7 @@ from ..models.layers import BatchNorm
 from ..ops import oracle
 from ..ops.infonce import info_nce_fused
 from ..ops.ntxent import ntxent_loss_fused
-from ..parallel.dist_loss import local_infonce_dual, resolve_local_ntxent
+from ..parallel.dist_loss import resolve_local_infonce, resolve_local_ntxent
 from ..parallel.mesh import pmean_
 from .adamw import AdamW
 from .lars import LARS, cosine_warmup_schedule, exclusion_mask
@@ -238,19 +239,24 @@ def make_clip_train_step(use_fused: bool | None = None, remat: bool = False,
     return train_step
 
 
-def make_sharded_clip_train_step(group=None) -> Callable:
+def make_sharded_clip_train_step(group=None,
+                                 loss_impl: str = "dual") -> Callable:
     """``train_step(state, images, tokens) -> (state, {"loss": tensor})``
-    over the ranks of ``group`` (``None``: the default group) with the
-    dual InfoNCE; ``images`` and ``tokens`` are this rank's rows of the
-    global batch. CUDA tensors run the loss kernels, CPU tensors their
-    plain versions. Every rank returns the global loss and ends with the
-    same parameters."""
+    over the ranks of ``group`` (``None``: the default group); ``images``
+    and ``tokens`` are this rank's rows of the global batch. The loss body
+    is ``parallel.dist_loss.resolve_local_infonce(loss_impl)``
+    (``trainer.py:658``): ``"dual"`` gathers the text embeddings and walks
+    the block once for both directions, ``"twopass"`` gathers both
+    modalities and walks it once for each. CUDA tensors run the loss
+    kernels, CPU tensors their plain versions. Every rank returns the
+    global loss and ends with the same parameters."""
+    local_loss = resolve_local_infonce(loss_impl)
 
     def train_step(state: TrainState, images: torch.Tensor,
                    tokens: torch.Tensor):
         state.optimizer.zero_grad()
         zi, zt, scale = state.model(images, tokens)
-        loss = local_infonce_dual(zi, zt, scale, group)
+        loss = local_loss(zi, zt, scale, group)
         loss.backward()
         pmean_([p.grad for p in state.model.parameters()], group)
         state.optimizer.step()

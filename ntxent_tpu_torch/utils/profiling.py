@@ -77,10 +77,17 @@ ranks emulated in one process instead (``emulated_ring_attention``),
   kernel's launches per pass and the peak device memory.
 
 ``--mode ntxent`` (the NT-Xent kernels alone): #1 and #5 in fp32 at D =
-128, 2N = 512 (the SimCLR path at ``--batch 256``) and 8192 (the
-headline shape of ``BASELINE.json``), and #1's general mode at the
-strip's (R, C) of one rank of 4 at global batch 256, of world 1 at 256
-and of one rank of 4 at 4096,
+128, 2N = 512 (the SimCLR path at ``--batch 256``, T = 0.1), 4096 (the
+reference's headline shape: ``bench.py`` times z (4096, 128) at T =
+0.07) and 8192 (T = 0.1), and ``ntxent_loss_fused``'s forward and
+backward at each; #1's general mode and #6's rows and columns kernels at
+the (R, C, D) of ``NTXENT_STRIPS``: in the NT-Xent mode one rank of 4 at
+global batch 256, world 1 at 256, the ring NT-Xent's P = 4 hop and one
+rank of 4 at 4096 (D = 128), and in the InfoNCE mode (``diag_pos``, the
+scale 14.3 on the device) the two-pass CLIP of world 1 at batch 256 and
+one rank of 4 at 4096 (D = 512), which a tree whose kernels take D <= 256
+skips (its ``ops.ntxent.MAX_DIM``): copied into an older tree, the module
+times what that tree can run,
 
 * times each call with CUDA events (20 calls after warmup), and the
   host's ms of one call at 2N = 512 (no synchronisation in the loop).
@@ -94,6 +101,8 @@ Run on the card, from the repository root:
     python -m ntxent_tpu_torch.utils.profiling --mode dp --dp-loss pair \
         --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode clip_dp --batch 256
+    python -m ntxent_tpu_torch.utils.profiling --mode clip_dp --batch 256 \
+        --infonce twopass
     python -m ntxent_tpu_torch.utils.profiling --mode longctx
     python -m ntxent_tpu_torch.utils.profiling --mode longctx \
         --ring-emulate 4
@@ -134,16 +143,13 @@ _KERNELS = (("ntxent_dual_stats_kernel", "block_lse_dual"),
             ("flash_fold_kernel", "flash_fold"),
             ("flash_dq_kernel", "flash_attention_dq"),
             ("flash_dkv_kernel", "flash_attention_dkv"),
-            # the TF32 kernels of #1 and #5 (prep, walk, merge, reduce,
-            # sum): each name carries its mode
+            # the TF32 kernels of #1, #5 and #6 (prep, walk, merge,
+            # reduce, sum): each name carries its mode or side
             ("ntxent_fwd_general_", "ntxent_fwd_general"),
             ("ntxent_fwd_sym_", "ntxent_fwd"),
             ("ntxent_bwd_sym_", "ntxent_bwd_sym"),
-            ("ntxent_bwd_general_kernel<float, false>",
-             "ntxent_bwd_general_rows"),
-            ("ntxent_bwd_general_kernel<__nv_bfloat16, false>",
-             "ntxent_bwd_general_rows"),
-            ("ntxent_bwd_general_kernel", "ntxent_bwd_general_cols"),
+            ("ntxent_bwd_general_rows_", "ntxent_bwd_general_rows"),
+            ("ntxent_bwd_general_cols_", "ntxent_bwd_general_cols"),
             ("infonce_dual_fwd_kernel", "infonce_dual_fwd"),
             ("infonce_loss_reduce", "infonce_dual_fwd"),
             ("infonce_dual_bwd_kernel", "infonce_dual_bwd"),
@@ -157,8 +163,14 @@ LONGCTX = dict(vocab_size=49408, hidden_dim=512, depth=8, num_heads=8,
                mlp_dim=2048, max_len=32768)
 LONGCTX_BATCH = 1
 RUNS, TRACE_RUNS = 10, 3
-NTXENT_ROWS = (512, 8192)  # 2N of --mode ntxent
-NTXENT_STRIPS = ((128, 512), (512, 512), (2048, 8192))  # (R, C), general
+# (2N, T) of --mode ntxent: the SimCLR path, the reference's headline
+# (bench.py), the north-star global batch
+NTXENT_ROWS = ((512, 0.1), (4096, 0.07), (8192, 0.1))
+# (R, C, D, InfoNCE mode) of the general kernels in --mode ntxent
+NTXENT_STRIPS = ((128, 512, 128, False), (512, 512, 128, False),
+                 (2048, 2048, 128, False), (2048, 8192, 128, False),
+                 (256, 256, 512, True), (1024, 4096, 512, True))
+TWOPASS_SCALE = 14.3  # about CLIP's initial exp(logit_scale)
 
 
 def cuda_time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
@@ -380,22 +392,23 @@ def clip_profile(batch: int, device) -> dict:
         lambda zi, zt, scale: info_nce_fused(zi, zt, scale=scale))
 
 
-def clip_dp_profile(batch: int, device) -> dict:
+def clip_dp_profile(batch: int, device, infonce: str = "dual") -> dict:
     """The numbers of ``--mode clip_dp`` for one batch (see the module
-    docstring)."""
+    docstring), the InfoNCE body ``infonce`` ("dual" or "twopass")."""
     import tempfile
 
     from ..parallel import mesh
-    from ..parallel.dist_loss import local_infonce_dual
+    from ..parallel.dist_loss import resolve_local_infonce
     from ..training import make_sharded_clip_train_step
 
     with tempfile.TemporaryDirectory() as tmp:
         mesh.init_from_file(f"{tmp}/store", 0, 1, device)
         try:
             state, images, tokens = _clip_setup(batch, device)
-            return _clip_step_profile(
-                state, images, tokens, make_sharded_clip_train_step(None),
-                local_infonce_dual, grad_reduce=mesh.pmean_)
+            return {"infonce": infonce, **_clip_step_profile(
+                state, images, tokens,
+                make_sharded_clip_train_step(None, infonce),
+                resolve_local_infonce(infonce), grad_reduce=mesh.pmean_)}
         finally:
             mesh.shutdown()
 
@@ -690,30 +703,36 @@ def longctx_profile(device, ring_emulate: int = 0) -> dict:
 
 
 def ntxent_profile(device) -> dict:
-    """CUDA-event ms of #1 and #5 (fp32, D = 128) at each 2N of
-    ``NTXENT_ROWS``, the host ms of one call at the first, and #1's
-    general mode at each (R, C) of ``NTXENT_STRIPS`` (rank 3's rows of a
-    world of C / R ranks)."""
+    """CUDA-event ms of #1 and #5 (fp32, D = 128) and of
+    ``ntxent_loss_fused``'s forward and backward at each (2N, T) of
+    ``NTXENT_ROWS``, the host ms of one call at the first, and #1's general
+    mode and #6's two kernels at each (R, C, D) of ``NTXENT_STRIPS`` (rank
+    3's rows of a world of C / R ranks in the NT-Xent mode, rank C / R -
+    1's in the InfoNCE mode)."""
     from ..ops import ntxent
 
     gen = torch.Generator(device=device).manual_seed(SEED)
 
-    def unit_rows(rows):
-        z = torch.randn(rows, 128, generator=gen, device=device)
+    def unit_rows(rows, d=128):
+        z = torch.randn(rows, d, generator=gen, device=device)
         return torch.nn.functional.normalize(z, dim=1)
 
     out = {}
-    for rows in NTXENT_ROWS:
+    for rows, t in NTXENT_ROWS:
         z = unit_rows(rows)
-        _, lse = ntxent.ntxent_fwd(z, 0.1)
+        _, lse = ntxent.ntxent_fwd(z, t)
         out[f"fwd_{rows}_ms"] = cuda_time_ms(
-            lambda: ntxent.ntxent_fwd(z, 0.1), 20)
+            lambda: ntxent.ntxent_fwd(z, t), 20)
         out[f"bwd_{rows}_ms"] = cuda_time_ms(
-            lambda: ntxent.ntxent_bwd_sym(z, lse, 0.1), 20)
-        if rows == NTXENT_ROWS[0]:
-            for name, fn in (("fwd", lambda: ntxent.ntxent_fwd(z, 0.1)),
+            lambda: ntxent.ntxent_bwd_sym(z, lse, t), 20)
+        zg = z.clone().requires_grad_()
+        out[f"loss_fwd_bwd_{rows}_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(ntxent.ntxent_loss_fused(zg, t), zg),
+            20)
+        if rows == NTXENT_ROWS[0][0]:
+            for name, fn in (("fwd", lambda: ntxent.ntxent_fwd(z, t)),
                              ("bwd",
-                              lambda: ntxent.ntxent_bwd_sym(z, lse, 0.1))):
+                              lambda: ntxent.ntxent_bwd_sym(z, lse, t))):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for _ in range(50):
@@ -721,12 +740,27 @@ def ntxent_profile(device) -> dict:
                 out[f"{name}_{rows}_host_ms"] = (
                     (time.perf_counter() - t0) / 50 * 1e3)
                 torch.cuda.synchronize()
-    for rows, cols in NTXENT_STRIPS:
-        z_rows, z_cols = unit_rows(rows), unit_rows(cols)
-        gid = local_row_gids(min(3, cols // rows - 1), rows // 2,
-                             cols // rows, device)
-        out[f"general_{rows}x{cols}_ms"] = cuda_time_ms(
-            lambda: ntxent.ntxent_fwd_general(z_rows, z_cols, gid, 0.1), 20)
+    for rows, cols, d, infonce in NTXENT_STRIPS:
+        if d > ntxent.MAX_DIM:
+            continue  # an older tree's kernels do not take this width
+        z_rows, z_cols = unit_rows(rows, d), unit_rows(cols, d)
+        if infonce:
+            gid = cols - rows + torch.arange(rows, device=device)
+            t, kw = 1.0, dict(diag_pos=True, scale=torch.tensor(
+                TWOPASS_SCALE, device=device))
+            tag = f"infonce_{rows}x{cols}x{d}"
+        else:
+            gid = local_row_gids(min(3, cols // rows - 1), rows // 2,
+                                 cols // rows, device)
+            t, kw, tag = 0.1, {}, f"{rows}x{cols}"
+        args = (z_rows, z_cols, gid)
+        _, lse = ntxent.ntxent_fwd_general(*args, t, **kw)
+        out[f"general_{tag}_ms"] = cuda_time_ms(
+            lambda: ntxent.ntxent_fwd_general(*args, t, **kw), 20)
+        for side in ("rows", "cols"):
+            fn = getattr(ntxent, f"ntxent_bwd_general_{side}")
+            out[f"{side}_{tag}_ms"] = cuda_time_ms(
+                lambda: fn(*args, lse, t, **kw), 20)
     return out
 
 
@@ -747,6 +781,8 @@ def main(argv=None) -> int:
                         "profiled step")
     p.add_argument("--dp-loss", default="strip", choices=["strip", "pair"],
                    help="dp mode: the data-parallel NT-Xent schedule")
+    p.add_argument("--infonce", default="dual", choices=["dual", "twopass"],
+                   help="clip_dp mode: the data-parallel InfoNCE body")
     p.add_argument("--ring-emulate", type=int, default=0, metavar="P",
                    help="longctx mode: P ring ranks emulated in one "
                         "process (0: the ring of the world-1 group)")
@@ -789,7 +825,9 @@ def main(argv=None) -> int:
         profile = {"train": train_profile, "clip": clip_profile,
                    "dp": functools.partial(dp_profile,
                                            dp_loss=args.dp_loss),
-                   "clip_dp": clip_dp_profile}[args.mode]
+                   "clip_dp": functools.partial(clip_dp_profile,
+                                                infonce=args.infonce)}[
+            args.mode]
         result = {"device": device_name(device), "card": card,
                   "model": "resnet50" if args.mode == "dp" else MODEL,
                   "image_size": IMAGE_SIZE, "mode": args.mode,

@@ -585,8 +585,8 @@ def test_resolve_local_infonce():
         dist_loss.local_infonce_dual
     assert dist_loss.make_sharded_infonce().func is \
         dist_loss.local_infonce_dual
-    with pytest.raises(NotImplementedError, match=r"Queue A 3\(f\)"):
-        dist_loss.resolve_local_infonce("twopass")
+    assert dist_loss.resolve_local_infonce("twopass") is \
+        dist_loss.local_infonce_allgather
     with pytest.raises(ValueError):
         dist_loss.resolve_local_infonce("ring")
 

@@ -28,7 +28,11 @@ Tolerances (max abs error against the plain version on the card):
   would sit at the control's error, which NTX_ATOL alone would not show.
 * general NT-Xent (rows x columns with global ids), fp32 or bf16: the
   same products in another order -> the symmetric bounds, 2e-4 on lse,
-  loss_sum/R and both gradients.
+  loss_sum/R and both gradients. In the InfoNCE mode (``diag_pos``, a
+  device scale) the logits reach the scale instead of 1/T = 10, and an
+  error of the products grows with them: NTX_ATOL * max(1, scale / 10)
+  (2.9e-4 at CLIP's initial 14.3, 2e-3 at 100); the TF32 control as
+  above.
 * flash backward, fp32: summation order only -> 1e-4 on dq/dk/dv of
   unit-scale inputs. bf16: s and dp are exact-product fp32 sums on both
   sides; ds is rounded to bf16 before ds . K on both sides, but a
@@ -64,9 +68,10 @@ BWD_ATOL = {"float32": dict(dq=1e-4, dkv=1e-4),
 # (2N, D): the training path's shape, the north-star global batch, and a
 # ragged 2N with D != 2B.
 NTX_SHAPES = [(512, 128), (8192, 128), (1000, 96)]
-# Embedding widths at the edges of the kernels' range (1 <= D <= 256): D
-# padded to 32 with zeros, and D = 256 in two chunks of the backward.
-NTX_EDGE_DIMS = [1, 5, 256]
+# Embedding widths at the edges of the kernels' range (1 <= D <= 512): D
+# padded to 32 with zeros, D = 256 in two chunks of the backward, and
+# D = 288 and 512, where the fp32 row tile streams through the ring.
+NTX_EDGE_DIMS = [1, 5, 256, 288, 512]
 TF32_CONTROL_FACTOR = 10
 # (R, C, D) of the general kernels: one rank's strip of a 4-card world at
 # global batch 256 and at 4096, and a ragged shape with D != 2B.
@@ -861,3 +866,141 @@ def test_cuda_flash_fold_matches_its_plain_version(case):
                          k_offset=q_off + lq, causal=True)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(after, carry))
+
+
+# ---------------------------------------------------------------------------
+# The InfoNCE mode of #1 and #6 (info_nce_partial_fused)
+# ---------------------------------------------------------------------------
+
+# (R, C, D): the two-pass CLIP path at batch 256 on one card, one rank of 4
+# at batch 4096, a ragged shape with scattered row ids and a padding row.
+TWOPASS_SHAPES = [(256, 256, 512), (1024, 4096, 512), (101, 1000, 96)]
+TWOPASS_SCALES = [14.3, 100.0]  # CLIP's initial exp(logit_scale), its cap
+
+
+def _twopass_atol(scale):
+    return NTX_ATOL * max(1.0, scale / 10)
+
+
+def _twopass(za, zb, gid, scale, plain=False):
+    """(loss_sum, lse, grad rows, grad cols) of #1 and #6 in the InfoNCE
+    mode, from the kernels or their plain versions."""
+    kw = dict(diag_pos=True, scale=scale)
+    fwd, rows, cols = ((N.ntxent_fwd_general_plain,
+                        N.ntxent_bwd_general_rows_plain,
+                        N.ntxent_bwd_general_cols_plain) if plain else
+                       (N.ntxent_fwd_general, N.ntxent_bwd_general_rows,
+                        N.ntxent_bwd_general_cols))
+    loss, lse = fwd(za, zb, gid, 1.0, **kw)
+    return (loss, lse, rows(za, zb, gid, lse, 1.0, **kw),
+            cols(za, zb, gid, lse, 1.0, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", TWOPASS_SCALES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", TWOPASS_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_general_kernels_infonce_mode_match_plain_versions(shape, dtype,
+                                                                scale):
+    dev = _cuda()
+    rows, cols, d = shape
+    tdt = getattr(torch, dtype)
+    za = _unit_rows(rows, d, seed=rows + d, device=dev, dtype=tdt)
+    zb = _unit_rows(cols, d, seed=cols + d, device=dev, dtype=tdt)
+    gid = _dp_row_ids(rows, cols, seed=rows, device=dev)
+    sc = torch.tensor(scale, device=dev)
+    wrappers = (N.ntxent_fwd_general, N.ntxent_bwd_general_rows,
+                N.ntxent_bwd_general_cols)
+    before = [w.launches for w in wrappers]
+    got = _twopass(za, zb, gid, sc)
+    want = _twopass(za, zb, gid, sc, plain=True)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]
+    atol = _twopass_atol(scale)
+    torch.testing.assert_close(got[0] / rows, want[0] / rows, atol=atol,
+                               rtol=0)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, atol=atol, rtol=0)
+    again = _twopass(za, zb, gid, sc)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TWOPASS_SHAPES[:2],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_general_kernels_infonce_mode_beat_the_tf32_control(shape):
+    """fp32: the 3xTF32 #1 and #6 err at least 10x less than one TF32 pass
+    (the plain versions on za, zb rounded to TF32) on lse and on both
+    gradients."""
+    dev = _cuda()
+    rows, cols, d = shape
+    za = _unit_rows(rows, d, seed=rows, device=dev)
+    zb = _unit_rows(cols, d, seed=cols + 1, device=dev)
+    gid = _dp_row_ids(rows, cols, seed=rows, device=dev)
+    sc = torch.tensor(TWOPASS_SCALES[0], device=dev)
+    want = _twopass(za, zb, gid, sc, plain=True)
+    got = _twopass(za, zb, gid, sc)
+    ctl = _twopass(N.tf32_split(za)[0], N.tf32_split(zb)[0], gid, sc,
+                   plain=True)
+    torch.cuda.synchronize()
+    for g, c, w in zip(got[1:], ctl[1:], want[1:]):
+        k, e = (g - w).abs().max().item(), (c - w).abs().max().item()
+        assert k <= _twopass_atol(TWOPASS_SCALES[0])
+        assert TF32_CONTROL_FACTOR * k <= e, (k, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", NTX_EDGE_DIMS)
+def test_cuda_general_ntxent_backward_takes_every_width(d):
+    dev = _cuda()
+    zr = _unit_rows(100, d, seed=d, device=dev)
+    zc = _unit_rows(1000, d, seed=d + 1, device=dev)
+    row_gid, col_gid, total, n_half = _general_case(100, 1000, 6, dev, True)
+    kw = dict(col_gid=col_gid, cols_actual=total, n_half=n_half)
+    _, lse = N.ntxent_fwd_general_plain(zr, zc, row_gid, 0.1, **kw)
+    for kernel, plain in ((N.ntxent_bwd_general_rows,
+                           N.ntxent_bwd_general_rows_plain),
+                          (N.ntxent_bwd_general_cols,
+                           N.ntxent_bwd_general_cols_plain)):
+        got = kernel(zr, zc, row_gid, lse, 0.1, **kw)
+        want = plain(zr, zc, row_gid, lse, 0.1, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=NTX_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_tf32_walks_refuse_d_over_512():
+    dev = _cuda()
+    z = _unit_rows(64, 513, seed=0, device=dev)
+    gid = torch.arange(64, device=dev)
+    lse = torch.zeros(64, device=dev)
+    for call in (lambda: N.ntxent_fwd(z, 0.1),
+                 lambda: N.ntxent_bwd_sym(z, lse, 0.1),
+                 lambda: N.ntxent_fwd_general(z, z, gid, 0.1),
+                 lambda: N.ntxent_bwd_general_rows(z, z, gid, lse, 0.1),
+                 lambda: N.ntxent_bwd_general_cols(z, z, gid, lse, 0.1)):
+        with pytest.raises(ValueError, match="D <= 512"):
+            call()
+
+
+@pytest.mark.cuda
+def test_cuda_info_nce_partial_fused_gradients_match_the_cpu():
+    """The two-pass partial sum: za, zb and the learnable scale get the
+    CPU's gradients."""
+    dev = _cuda()
+    za, zb = _unit_rows(256, 512, seed=23), _unit_rows(256, 512, seed=24)
+    gid = torch.arange(256, dtype=torch.int32)
+    scale = torch.tensor(TWOPASS_SCALES[0])
+    cpu = [t.clone().requires_grad_() for t in (za, zb, scale)]
+    gpu = [t.to(dev).requires_grad_() for t in (za, zb, scale)]
+    loss_cpu = I.info_nce_partial_fused(cpu[0], cpu[1], gid, scale=cpu[2])
+    loss_gpu = I.info_nce_partial_fused(gpu[0], gpu[1], gid.to(dev),
+                                        scale=gpu[2])
+    (loss_cpu / 256).backward()
+    (loss_gpu / 256).backward()
+    torch.testing.assert_close(loss_gpu.cpu() / 256, loss_cpu.detach() / 256,
+                               atol=1e-5, rtol=0)
+    for c, g in zip(cpu, gpu):
+        torch.testing.assert_close(g.grad.cpu(), c.grad, atol=1e-6,
+                                   rtol=1e-4)

@@ -77,6 +77,25 @@ def test_column_splits_keep_one_run_when_the_rows_fill_the_card():
     assert N.column_splits(2048, 8192, SMS) == (4, 2048)
 
 
+@pytest.mark.parametrize("own,other,d", [(256, 256, 512), (1024, 4096, 512),
+                                         (2048, 8192, 128), (101, 1000, 96),
+                                         (8192, 2048, 128)])
+def test_general_bwd_splits_cover_the_other_side_and_fill_one_wave(own, other,
+                                                                  d):
+    """#6's grid: the other side's rows cut as column_splits cuts columns,
+    and (own row tiles) x (splits) x (chunks of D) near one wave: at D =
+    512 four chunks of 128, each forming s again, so a quarter of the
+    splits column_splits would plan."""
+    splits, width = N.general_bwd_splits(own, other, d, SMS)
+    runs = [range(s * width, min((s + 1) * width, other))
+            for s in range(splits)]
+    assert all(len(run) > 0 for run in runs)
+    assert sorted(c for run in runs for c in run) == list(range(other))
+    chunks = {512: 4, 128: 1, 96: 1}[d]
+    assert (splits, width) == N.column_splits(own, other, SMS // chunks)
+    assert -(-own // N.TILE) * splits * chunks <= 2 * SMS
+
+
 # ---------------------------------------------------------------------------
 # The TF32 split
 # ---------------------------------------------------------------------------

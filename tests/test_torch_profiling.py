@@ -37,10 +37,10 @@ from ntxent_tpu_torch.utils import profiling
      "ntxent_fwd_general"),
     ("void (anonymous namespace)::ntxent_fwd_sym_walk<false>(...)",
      "ntxent_fwd"),
-    ("void (anonymous namespace)::ntxent_bwd_general_kernel<float, false>"
+    ("void (anonymous namespace)::ntxent_bwd_general_rows_walk<true, 128>"
      "(...)", "ntxent_bwd_general_rows"),
-    ("void (anonymous namespace)::ntxent_bwd_general_kernel<float, true>"
-     "(...)", "ntxent_bwd_general_cols"),
+    ("void (anonymous namespace)::ntxent_bwd_general_cols_prep<__nv_"
+     "bfloat16, false>(...)", "ntxent_bwd_general_cols"),
     ("void (anonymous namespace)::infonce_dual_fwd_kernel<float>(...)",
      "infonce_dual_fwd"),
     ("(anonymous namespace)::infonce_loss_reduce(float const*, int, float*)",

@@ -1,5 +1,6 @@
 """Rank processes of ``test_torch_distributed.py``,
-``test_torch_clip_dp.py``, ``test_torch_pair.py``,
+``test_torch_clip_dp.py``, ``test_torch_infonce_twopass.py``,
+``test_torch_pair.py``,
 ``test_torch_ring_attention.py``, ``test_torch_long_context.py`` and
 ``test_torch_ring.py``: worlds of gloo ranks on the CPU that meet over a
 ``FileStore``.
@@ -34,7 +35,6 @@ from ntxent_tpu_torch.models import (
     cross_replica_batch_norm,
 )
 from ntxent_tpu_torch.parallel import (
-    local_infonce_dual,
     make_ring_attention,
     make_ring_infonce,
     make_ring_ntxent,
@@ -42,6 +42,7 @@ from ntxent_tpu_torch.parallel import (
     mesh,
     ntxent_loss_distributed,
     ntxent_loss_pair,
+    resolve_local_infonce,
 )
 from ntxent_tpu_torch.training import (
     TrainerConfig,
@@ -180,14 +181,20 @@ def tiny_clip() -> CLIPModel:
     return CLIPModel(image, text, embed_dim=c["width"])
 
 
+def _loss_impl(inp) -> str:
+    """The InfoNCE body of the input (``loss_impl``; default "dual")."""
+    return str(inp["loss_impl"]) if "loss_impl" in inp.files else "dual"
+
+
 def clip_loss_job(rank: int, world: int, inp) -> dict:
-    """The data-parallel InfoNCE of the global pairs za, zb at a tensor
-    scale, and the gradients of this rank's shards and of the scale."""
+    """The data-parallel InfoNCE (the input's ``loss_impl``) of the global
+    pairs za, zb at a tensor scale, and the gradients of this rank's
+    shards and of the scale."""
     za = _shard(inp["za"], rank, world).requires_grad_()
     zb = _shard(inp["zb"], rank, world).requires_grad_()
     scale = torch.tensor(float(inp["scale"]), requires_grad=True)
     mark = mesh.comms_accounting().totals()
-    loss = local_infonce_dual(za, zb, scale)
+    loss = resolve_local_infonce(_loss_impl(inp))(za, zb, scale, None)
     loss.backward()
     return {"loss": loss.detach().numpy(), "ga": za.grad.numpy(),
             "gb": zb.grad.numpy(), "gs": scale.grad.numpy(),
@@ -200,7 +207,7 @@ def clip_step_job(rank: int, world: int, inp) -> dict:
     model = load_flax_variables(tiny_clip(), {"params": nest(inp, "params")})
     cfg = _config(inp)
     state = create_clip_train_state(model, cfg, torch.device("cpu"))
-    step = make_sharded_clip_train_step(None)
+    step = make_sharded_clip_train_step(None, _loss_impl(inp))
     losses, delta = [], {}
     for images, tokens in zip(inp["images"], inp["tokens"]):
         mark = mesh.comms_accounting().totals()
