@@ -12,16 +12,18 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``nvcc`` per source, all started together, timed; the registers and
    spill bytes ptxas reports for every kernel it compiled (among them
    the TMA/wgmma #11, #12, #13 and #14 in bf16, at head_dim 64 and
-   128, and the TF32 wgmma #1 and #5);
+   128, and the TF32 wgmma #1, #4, #5 and #6);
 2a. data-parallel InfoNCE kernels: ``infonce_dual_fwd_rect`` (#9's
    rectangular stats-only mode), ``infonce_bwd_rows`` (#5's cross-modal
    mode) and ``infonce_bwd_cols`` (#4) against their plain versions at
    (rows, cols, D) = (256, 256, 512) (the path of this run), (64, 256,
    512) (one rank of 4 at batch 256), (1024, 4096, 512) (one rank of 4 at
    batch 4096) and a ragged (101, 1000, 96) with scattered ids and a
-   padding row, fp32 and bf16, bitwise repeatable; CUDA-event times
-   beside the bound; and the symmetric ``ntxent_fwd`` re-timed over 200
-   launches;
+   padding row, fp32 and bf16, bitwise repeatable; #5 cross-modal and #4
+   (TF32 wgmma walks) in fp32 at the first three shapes at
+   least 10x below a one-pass TF32 control, their walks' ptxas registers
+   and spills printed; CUDA-event times beside the bound; and the
+   symmetric ``ntxent_fwd`` re-timed over 200 launches;
 2b. the two-pass InfoNCE kernels: ``ntxent_fwd_general`` (#1) and
    ``ntxent_bwd_general_rows`` / ``_cols`` (#6) in their InfoNCE mode
    (``diag_pos``, the logit scale read on the card) against their plain
@@ -2361,10 +2363,39 @@ def _dp_clip_bounds(rows: int, cols: int, d: int, itemsize: int):
                    PEAK_FP32_FLOPS))
 
 
-def phase_dp_clip_kernels() -> tuple[list[dict], float]:
-    """#9 rectangular, #5 cross-modal and #4 against their plain versions,
-    then times at every fp32 shape but the ragged one; and the symmetric
-    #1 re-timed in the same call. Returns the kernel entries and the
+def _dp_clip_tf32_control(rows: int, cols: int, d: int, scale):
+    """(kernel, control) max abs errors of #5 cross-modal and of #4 in
+    fp32 against their plain versions, all at the plain forward's lse: the
+    kernels, and one TF32 pass (the plain versions on za, zb rounded to
+    TF32 once)."""
+    import torch
+
+    from ntxent_tpu_torch.ops import infonce as I
+    from ntxent_tpu_torch.ops import ntxent
+
+    gid = _dp_clip_ids(rows, cols, seed=rows)
+    za = _unit_rows(rows, d, "float32", seed=rows)
+    zb = _unit_rows(cols, d, "float32", seed=cols + 1)
+    lse = I.infonce_dual_fwd_rect_plain(za, zb, scale)
+    za_c, zb_c = ntxent.tf32_split(za)[0], ntxent.tf32_split(zb)[0]
+    out = []
+    for kernel, plain in ((I.infonce_bwd_rows, I.infonce_bwd_rows_plain),
+                          (I.infonce_bwd_cols, I.infonce_bwd_cols_plain)):
+        want = plain(za, zb, gid, scale, *lse)
+        got = kernel(za, zb, gid, scale, *lse)
+        ctl = plain(za_c, zb_c, gid, scale, *lse)
+        torch.cuda.synchronize()
+        out.append(((got - want).abs().max().item(),
+                    (ctl - want).abs().max().item()))
+    return out
+
+
+def phase_dp_clip_kernels(build_logs: dict) -> tuple[list[dict], float]:
+    """#9 rectangular, #5 cross-modal and #4 against their plain versions;
+    in fp32 at every shape but the ragged one #5 and #4 at least
+    TF32_CONTROL_FACTOR below a one-pass TF32 control; ptxas's report of
+    their walks; then times at the same shapes; and the symmetric #1
+    re-timed in the same call. Returns the kernel entries and the
     symmetric #1's ms."""
     import torch
 
@@ -2417,6 +2448,23 @@ def phase_dp_clip_kernels() -> tuple[list[dict], float]:
                         "infonce_bwd_cols": cols_err}
             del za, zb, got, again, ref_oa, ref_ob
 
+    for rows, cols, d in DP_CLIP_SHAPES[:3]:
+        pairs = _dp_clip_tf32_control(rows, cols, d, scale)
+        ok = all(TF32_CONTROL_FACTOR * k <= c for k, c in pairs)
+        print(f"[dp-clip-kernel] TF32 control R={rows} C={cols} D={d} fp32: "
+              f"kernels #5 rows / #4 cols "
+              f"{' / '.join(f'{k:.3e}' for k, _ in pairs)}, one TF32 pass "
+              f"{' / '.join(f'{c:.3e}' for _, c in pairs)} (ratios "
+              f"{', '.join(f'{c / max(k, 1e-30):.1f}' for k, c in pairs)}; "
+              f"at least {TF32_CONTROL_FACTOR}) {'ok' if ok else 'MISSED'}",
+              flush=True)
+        if not ok:
+            fail(f"#5 cross-modal and #4 are not {TF32_CONTROL_FACTOR}x more "
+                 f"accurate than one TF32 pass at R={rows} C={cols}")
+    for name in ("infonce_dual_bwd", "infonce_bwd_cols"):
+        for line in _ptxas_walks(build_logs, name):
+            print(f"[dp-clip-kernel] ptxas {name}: {line}", flush=True)
+
     times = {}
     for rows, cols, d in DP_CLIP_SHAPES[:3]:
         za = _unit_rows(rows, d, "float32", seed=1)
@@ -2455,12 +2503,14 @@ def phase_dp_clip_kernels() -> tuple[list[dict], float]:
         "ntxent_tpu/ops/infonce_pallas.py:75 (_dual_fwd_kernel in its "
         "rectangular stats_only mode, _dual_fwd_call :165)",
         "ntxent_tpu/ops/ntxent_pallas.py:445 (_bwd_sym_kernel in its "
-        "cross-modal mode, _bwd_sym_call :612)",
+        "cross-modal mode, _bwd_sym_call :612, pallas_call :625)",
         "ntxent_tpu/ops/ntxent_pallas.py:479 (_bwd_sym_cols_kernel, "
-        "_bwd_sym_cols_call :516)")
+        "_bwd_sym_cols_call :516, pallas_call :528)")
+    # the TF32 walks of #5 cross-modal and #4 live in one header, which
+    # csrc/infonce_dual_bwd.cu and csrc/infonce_bwd_cols.cu instantiate
     sources = ("ntxent_tpu_torch/csrc/infonce_dual_fwd.cu",
-               "ntxent_tpu_torch/csrc/infonce_dual_bwd.cu",
-               "ntxent_tpu_torch/csrc/infonce_bwd_cols.cu")
+               "ntxent_tpu_torch/csrc/infonce_cross_bwd.cuh",
+               "ntxent_tpu_torch/csrc/infonce_cross_bwd.cuh")
     out = []
     for i, name in enumerate(names):
         ms, plain, bounds = times[256, 256]
@@ -3738,7 +3788,7 @@ def main() -> int:
             torch.cuda.empty_cache()
         return 0
     twopass_fields = phase_twopass_kernels()
-    dp_clip_kernels, sym_retimed_ms = phase_dp_clip_kernels()
+    dp_clip_kernels, sym_retimed_ms = phase_dp_clip_kernels(build_logs)
     tri_kernels, tri_launches = phase_tri_kernels()
     fold_kernel, ring_times = phase_fold_kernel()
     kernels = [phase_kernels(), *phase_ntxent_kernels(build_logs),

@@ -28,34 +28,42 @@
 // of widened inputs, no TF32.
 //
 // Bound at the training shape (N = 256, D = 512, fp32): 6 N^2 D = 201
-// MFLOP, 3.0 us at the 67 TFLOP/s fp32 peak; za, zb, lse and the two
-// outputs are 2 MB, 0.63 us at 3.35 TB/s. Compute-bound on paper,
-// launch-bound in practice (8 CTAs).
+// MFLOP, 1.2 us at the 165 TFLOP/s of fp32-accurate products (3xTF32 on
+// the tensor cores); za, zb, lse and the two outputs are 2 MB, 0.63 us at
+// 3.35 TB/s. Compute-bound on paper, launch-bound in practice (8 CTAs).
 //
-// Rows kernel (ntx_infonce_bwd_rows). Replaces the Pallas TPU kernel
-// ntxent_tpu/ops/ntxent_pallas.py:445 (_bwd_sym_kernel, launched by
-// _bwd_sym_call at ntxent_pallas.py:625) in its cross-modal mode
-// (diag_pos=True, z_cols, lse_cols, a traced scale), as
-// _infonce_dual_local_bwd runs it for the row side of the data-parallel
+// Rows kernel (ntx_infonce_bwd_rows), on TF32 tensor cores. Replaces the
+// Pallas TPU kernel ntxent_tpu/ops/ntxent_pallas.py:445 (_bwd_sym_kernel,
+// launched by _bwd_sym_call at ntxent_pallas.py:612, pallas_call :625) in
+// its cross-modal mode (diag_pos=True, z_cols, lse_cols, a traced scale),
+// as _infonce_dual_local_bwd runs it for the row side of the data-parallel
 // CLIP loss (infonce_pallas.py:504-505): one rank's rows za (n_r, D) with
 // global ids row_gid against the gathered zb (n_c, D), the row lse lse_a
 // (n_r,) and the merged global column lse lse_b (n_c,):
 //   G[i, j] = (exp0(s - lse_a[i]) - pos) * valid_row_i + (exp0(s - lse_b[j]) - pos),
 //   pos = 1 iff j = row_gid[i], valid_row_i = row_gid[i] < n_c;
 //   o_a = G . zb   (fp32 (n_r, D)).
-// It is the row side of the square kernel with ids on the rows
-// (infonce_grad.cuh), one CTA per 64 rows; the column side is
-// csrc/infonce_bwd_cols.cu. Bound, fp32: 4 n_r n_c D operations against
-// (n_r + n_c) D inputs and an (n_r, D) output, plus ids and lse, in
-// bytes. One rank of 4 at
-// global batch 256 (n_r = 64, n_c = 256, D = 512): 33.6 MFLOP, 0.5 us at
-// the 67 TFLOP/s fp32 peak; at global batch 4096 (1024, 4096): 8.6 GFLOP,
-// 128 us. Latency-bound: one CTA per 64 rows walks all n_c columns.
+// A padding row (id = n_c) keeps its column term. Design
+// (infonce_cross_bwd.cuh): the walk of ntxent_tf32.cuh (bwd_walk), as #6's
+// rows kernel runs it; one CTA per (64 rows of za, split of zb's columns,
+// chunk of D of at most 128) forms s by 3xTF32 wgmma (two products for
+// bf16) from a TMA ring, G in the accumulator with lse_b loaded per tile
+// (CrossRowsG), and adds G . zb with G as the register A operand, a fresh
+// accumulator per 64-column tile; a sum kernel adds the splits in order.
+// One owner per output, no atomics: repeatable bit for bit. The column
+// side is csrc/infonce_bwd_cols.cu. Bound, fp32: 4 n_r n_c D operations,
+// each product three TF32 passes (165 TFLOP/s for fp32-accurate
+// products), against (n_r + n_c) D inputs, the ids and both lse and an
+// (n_r, D) output. World 1 at batch 256 (256, 256, 512): 134 MFLOP, 0.81
+// us; one rank of 4 at global batch 256 (64, 256, 512): 0.24 us by bytes
+// (0.79 MB at 3.35 TB/s); at global batch 4096 (1024, 4096, 512): 8.6
+// GFLOP, 52 us. At D = 512 the four chunks of D each form s again.
 //
 // Supported: float32 or bfloat16 za, zb, contiguous, 1 <= D <= 512; the
 // square kernel takes (N, D) each, the rows kernel (n_r, D) and (n_c, D)
 // with int32 row ids. The C entry points return cudaGetLastError().
 
+#include "infonce_cross_bwd.cuh"
 #include "infonce_grad.cuh"
 
 namespace {
@@ -80,22 +88,6 @@ __global__ void __launch_bounds__(kThreads)
             swap ? o_b : o_a, n, n, n, d, blockIdx.x * kTile, smem);
 }
 
-// Rows mode: o_a[i] = sum_j G[i, j] zb_j for rows of za with global ids.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    infonce_bwd_rows_kernel(const T* __restrict__ za,
-                            const T* __restrict__ zb,
-                            const int* __restrict__ row_gid,
-                            const float* __restrict__ scale_ptr,
-                            const float* __restrict__ lse_a,
-                            const float* __restrict__ lse_b,
-                            float* __restrict__ o_a, int n_rows, int n_cols,
-                            int d) {
-  extern __shared__ float smem[];
-  grad_rows(za, zb, row_gid, nullptr, lse_a, lse_b, *scale_ptr, o_a, n_rows,
-            n_cols, n_cols, d, blockIdx.x * kTile, smem);
-}
-
 template <typename T>
 cudaError_t launch(const void* za, const void* zb, const void* scale,
                    const void* lse_a, const void* lse_b, void* o_a, void* o_b,
@@ -109,23 +101,6 @@ cudaError_t launch(const void* za, const void* zb, const void* scale,
       static_cast<const float*>(scale), static_cast<const float*>(lse_a),
       static_cast<const float*>(lse_b), static_cast<float*>(o_a),
       static_cast<float*>(o_b), n, d);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_rows(const void* za, const void* zb, const void* row_gid,
-                        const void* scale, const void* lse_a,
-                        const void* lse_b, void* o_a, int n_rows, int n_cols,
-                        int d, cudaStream_t stream) {
-  size_t smem;
-  cudaError_t err = opt_in_smem(infonce_bwd_rows_kernel<T>, d, &smem);
-  if (err != cudaSuccess) return err;
-  const int tiles = (n_rows + kTile - 1) / kTile;
-  infonce_bwd_rows_kernel<T><<<tiles, kThreads, smem, stream>>>(
-      static_cast<const T*>(za), static_cast<const T*>(zb),
-      static_cast<const int*>(row_gid), static_cast<const float*>(scale),
-      static_cast<const float*>(lse_a), static_cast<const float*>(lse_b),
-      static_cast<float*>(o_a), n_rows, n_cols, d);
   return cudaGetLastError();
 }
 
@@ -152,28 +127,27 @@ extern "C" int ntx_infonce_dual_bwd(const void* za, const void* zb,
   return cudaErrorInvalidValue;
 }
 
+// Floats of scratch one call of the rows kernel takes: n_own = n_r (za
+// owns the outputs), n_other = n_c.
+extern "C" long long ntx_infonce_bwd_rows_scratch(int n_own, int n_other,
+                                                  int d, int dtype,
+                                                  int splits) {
+  return ntx::bwd_scratch_floats(n_own, n_other, d, dtype, splits);
+}
+
 // The rows kernel: o_a (n_rows, d) fp32 = G . zb. row_gid: n_rows int32
 // global ids (required); lse_a (n_rows,), lse_b (n_cols,) fp32. dtype as
-// above.
+// above. zb's columns are cut into `splits` runs of `split_cols` (the
+// last one shorter), each non-empty; `scratch` holds
+// ntx_infonce_bwd_rows_scratch(n_rows, n_cols, d, dtype, splits) floats.
 extern "C" int ntx_infonce_bwd_rows(const void* za, const void* zb,
                                     const void* row_gid, const void* scale,
                                     const void* lse_a, const void* lse_b,
-                                    void* o_a, int n_rows, int n_cols, int d,
-                                    int dtype, int device, void* stream) {
-  if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || d < 1 ||
-      d > kMaxD) {
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_rows<float>(za, zb, row_gid, scale, lse_a, lse_b, o_a,
-                              n_rows, n_cols, d, s);
-  }
-  if (dtype == 1) {
-    return launch_rows<__nv_bfloat16>(za, zb, row_gid, scale, lse_a, lse_b,
-                                      o_a, n_rows, n_cols, d, s);
-  }
-  return cudaErrorInvalidValue;
+                                    void* o_a, void* scratch, int n_rows,
+                                    int n_cols, int d, int dtype, int splits,
+                                    int split_cols, int device,
+                                    void* stream) {
+  return infonce_cross::run<false>(za, zb, row_gid, scale, lse_a, lse_b,
+                                   o_a, scratch, n_rows, n_cols, d, dtype,
+                                   splits, split_cols, device, stream);
 }

@@ -157,6 +157,14 @@ __global__ void __launch_bounds__(kPrepThreads)
   prep_tile<T, kSplit>(z, n, d, hi, lo, hi_t, lo_t);
 }
 
+// What both walks take besides the maps and the layout.
+struct Args {
+  GeneralIds ids;
+  const float* lse;
+  const float* scale;
+  float inv_t;
+};
+
 template <bool kSplit, int ND>
 __global__ void __launch_bounds__(kThreads, 1)
     ntxent_bwd_general_rows_walk(
@@ -165,11 +173,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const __grid_constant__ CUtensorMap oth_h,
         const __grid_constant__ CUtensorMap oth_l,
         const __grid_constant__ CUtensorMap oth_ht,
-        const __grid_constant__ CUtensorMap oth_lt, GeneralIds ids,
-        const float* __restrict__ lse, const float* __restrict__ scale,
+        const __grid_constant__ CUtensorMap oth_lt, Args a,
         float* __restrict__ out, Plan p, int n_own, int n_other, int d,
-        int split_cols, float inv_t) {
-  RowsG g{ids, lse, scaled_inv_t(inv_t, scale), n_own};
+        int split_cols) {
+  RowsG g{a.ids, a.lse, scaled_inv_t(a.inv_t, a.scale), n_own};
   bwd_walk<kSplit, ND>(&own_h, &own_l, &oth_h, &oth_l, &oth_ht, &oth_lt, g,
                        out, p, n_own, n_other, d, split_cols);
 }
@@ -182,11 +189,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const __grid_constant__ CUtensorMap oth_h,
         const __grid_constant__ CUtensorMap oth_l,
         const __grid_constant__ CUtensorMap oth_ht,
-        const __grid_constant__ CUtensorMap oth_lt, GeneralIds ids,
-        const float* __restrict__ lse, const float* __restrict__ scale,
+        const __grid_constant__ CUtensorMap oth_lt, Args a,
         float* __restrict__ out, Plan p, int n_own, int n_other, int d,
-        int split_cols, float inv_t) {
-  ColsG g{ids, lse, scaled_inv_t(inv_t, scale), n_own};
+        int split_cols) {
+  ColsG g{a.ids, a.lse, scaled_inv_t(a.inv_t, a.scale), n_own};
   bwd_walk<kSplit, ND>(&own_h, &own_l, &oth_h, &oth_l, &oth_ht, &oth_lt, g,
                        out, p, n_own, n_other, d, split_cols);
 }
@@ -203,109 +209,30 @@ __global__ void ntxent_bwd_general_cols_sum(const float* __restrict__ part,
   split_sum(part, grad, count, splits);
 }
 
-// The scratch of one launch: own's hi and lo (n_own, Dp), the other side's
-// hi and lo (n_other, Dp) and their transposes (DT, Cp) fp32 (Dp = D
-// rounded up to 32, DT = Dp rounded up to d_chunk(D), Cp = n_other rounded
-// up to 64; the lo copies only for fp32 z), and with more than one split
-// the partial gradients, splits * n_own * D fp32.
-struct Buffers {
-  float *own_h, *own_l, *oth_h, *oth_l, *oth_ht, *oth_lt, *part;
-};
-
-Buffers carve(Carver& c, int n_own, int n_other, int d, bool split,
-              int splits) {
-  Buffers b{};
-  const size_t own = size_t(n_own) * padded_d(d);
-  const size_t oth = size_t(n_other) * padded_d(d);
-  const size_t oth_t = size_t(padded_dt(d)) * padded_cols(n_other);
-  b.own_h = c.take(own);
-  b.own_l = c.take(split ? own : 0);
-  b.oth_h = c.take(oth);
-  b.oth_l = c.take(split ? oth : 0);
-  b.oth_ht = c.take(oth_t);
-  b.oth_lt = c.take(split ? oth_t : 0);
-  b.part = c.take(splits > 1 ? size_t(splits) * n_own * d : 0);
-  return b;
-}
-
 struct Call {
   const void* own;
   const void* other;
-  GeneralIds ids;
-  const float* lse;
-  const float* scale;
+  Args args;
   float* grad;
   int n_own, n_other, d, splits, split_cols;
-  float inv_t;
 };
 
 template <typename T, int ND, bool kCols>
-cudaError_t launch(const Call& a, const Buffers& b, cudaStream_t stream) {
+cudaError_t launch(const Call& a, const BwdBuffers& b, cudaStream_t s) {
   constexpr bool kSplit = std::is_same<T, float>::value;
-  const int dp = padded_d(a.d);
-  const int dt = padded_dt(a.d);
-  const int cp = padded_cols(a.n_other);
   auto prep = kCols ? ntxent_bwd_general_cols_prep<T, kSplit>
                     : ntxent_bwd_general_rows_prep<T, kSplit>;
   auto walk = kCols ? ntxent_bwd_general_cols_walk<kSplit, ND>
                     : ntxent_bwd_general_rows_walk<kSplit, ND>;
   auto sum = kCols ? ntxent_bwd_general_cols_sum
                    : ntxent_bwd_general_rows_sum;
-  prep<<<dim3((a.n_own + 31) / 32, dp / 32), kPrepThreads, 0, stream>>>(
-      static_cast<const T*>(a.own), a.n_own, a.d, b.own_h, b.own_l, nullptr,
-      nullptr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  prep<<<dim3(cp / 32, dt / 32), kPrepThreads, 0, stream>>>(
-      static_cast<const T*>(a.other), a.n_other, a.d, b.oth_h, b.oth_l,
-      b.oth_ht, b.oth_lt);
-  err = cudaGetLastError();
-  CUtensorMap own_h, own_l, oth_h, oth_l, oth_ht, oth_lt;
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&own_h, b.own_h, dp, a.n_own, kBoxK, kTile);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&own_l, kSplit ? b.own_l : b.own_h, dp,
-                               a.n_own, kBoxK, kTile);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&oth_h, b.oth_h, dp, a.n_other, kBoxK, kTile);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&oth_l, kSplit ? b.oth_l : b.oth_h, dp,
-                               a.n_other, kBoxK, kTile);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&oth_ht, b.oth_ht, cp, dt, kBoxK, ND);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&oth_lt, kSplit ? b.oth_lt : b.oth_ht, cp, dt,
-                               kBoxK, ND);
-  }
-  const Plan p = make_plan(a.d, kSplit, bwd_half_bytes<ND>(kSplit),
-                           bwd_sum_bytes<ND>());
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(walk,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               p.bytes + 1024);
-  }
-  if (err != cudaSuccess) return err;
-  walk<<<dim3((a.n_own + kTile - 1) / kTile, a.splits, dt / ND), kThreads,
-         p.bytes + 1024, stream>>>(
-      own_h, own_l, oth_h, oth_l, oth_ht, oth_lt, a.ids, a.lse, a.scale,
-      a.splits == 1 ? a.grad : b.part, p, a.n_own, a.n_other, a.d,
-      a.split_cols, a.inv_t);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.splits == 1) return err;
-  const size_t count = size_t(a.n_own) * a.d;
-  const int blocks = static_cast<int>((count + 255) / 256);
-  sum<<<blocks < 1024 ? blocks : 1024, 256, 0, stream>>>(b.part, a.grad,
-                                                        count, a.splits);
-  return cudaGetLastError();
+  return bwd_launch<T, ND>(a.own, a.other, a.n_own, a.n_other, a.d, a.splits,
+                           a.split_cols, a.grad, b, prep, walk, sum, a.args,
+                           s);
 }
 
 template <typename T, bool kCols>
-cudaError_t dispatch(const Call& a, const Buffers& b, cudaStream_t s) {
+cudaError_t dispatch(const Call& a, const BwdBuffers& b, cudaStream_t s) {
   switch (d_chunk(a.d)) {
     case 32:
       return launch<T, 32, kCols>(a, b, s);
@@ -326,9 +253,7 @@ cudaError_t run(const void* z_rows, const void* z_cols, const void* row_gid,
   const int n_own = kCols ? n_cols : n_rows;
   const int n_other = kCols ? n_rows : n_cols;
   if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || d < 1 ||
-      d > kMaxD || splits < 1 || split_cols < 1 ||
-      static_cast<long long>(splits - 1) * split_cols >= n_other ||
-      static_cast<long long>(splits) * split_cols < n_other ||
+      d > kMaxD || !bwd_splits_cover(n_other, splits, split_cols) ||
       (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
@@ -337,12 +262,13 @@ cudaError_t run(const void* z_rows, const void* z_cols, const void* row_gid,
   const GeneralIds ids{static_cast<const int*>(row_gid),
                        static_cast<const int*>(col_gid), n_rows, cols_actual,
                        n_half, diag_pos};
-  const Call a{kCols ? z_cols : z_rows, kCols ? z_rows : z_cols, ids,
-               static_cast<const float*>(lse),
-               static_cast<const float*>(scale), static_cast<float*>(grad),
-               n_own, n_other, d, splits, split_cols, inv_t};
+  const Call a{kCols ? z_cols : z_rows, kCols ? z_rows : z_cols,
+               Args{ids, static_cast<const float*>(lse),
+                    static_cast<const float*>(scale), inv_t},
+               static_cast<float*>(grad), n_own, n_other, d, splits,
+               split_cols};
   Carver c{static_cast<float*>(scratch)};
-  const Buffers b = carve(c, n_own, n_other, d, dtype == 0, splits);
+  const BwdBuffers b = bwd_carve(c, n_own, n_other, d, dtype == 0, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float, kCols>(a, b, s);
   return dispatch<__nv_bfloat16, kCols>(a, b, s);
@@ -355,9 +281,7 @@ cudaError_t run(const void* z_rows, const void* z_cols, const void* row_gid,
 extern "C" long long ntx_ntxent_bwd_general_scratch(int n_own, int n_other,
                                                     int d, int dtype,
                                                     int splits) {
-  Carver c{nullptr};
-  carve(c, n_own, n_other, d, dtype == 0, splits);
-  return static_cast<long long>(c.used);
+  return bwd_scratch_floats(n_own, n_other, d, dtype, splits);
 }
 
 // grad_rows (n_rows, d) fp32 = G @ z_cols. row_gid (int32) is required,

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) TF32 tensor-core walk of the NT-Xent kernels #1
 // (ntxent_fwd.cu: the symmetric and the general forward), #5 in its
-// symmetric mode (ntxent_bwd_sym.cu) and #6 (ntxent_bwd_general.cu: the
-// general backward's rows and columns kernels). The tensor-map encoder,
+// symmetric mode (ntxent_bwd_sym.cu), #6 (ntxent_bwd_general.cu: the
+// general backward's rows and columns kernels), and #5 in its cross-modal
+// mode and #4 (infonce_cross_bwd.cuh: the data-parallel CLIP backward's
+// rows and columns kernels). The tensor-map encoder,
 // TMA, the mbarriers and the K-major descriptor come from
 // flash_attention_sm90.cuh.
 //
@@ -701,6 +703,115 @@ constexpr int bwd_half_bytes(bool split) {
 template <int ND>
 constexpr int bwd_sum_bytes() {
   return ND * kWarpgroup * 2;
+}
+
+// --- host: one general backward launch (#6, #5 cross-modal, #4) ------------
+
+// The scratch of one launch: own's hi and lo (n_own, Dp), the other side's
+// hi and lo (n_other, Dp) and their transposes (DT, Cp) fp32 (Dp = D
+// rounded up to 32, DT = Dp rounded up to d_chunk(D), Cp = n_other rounded
+// up to 64; the lo copies only for fp32 inputs), and with more than one
+// split the partial gradients, splits * n_own * D fp32.
+struct BwdBuffers {
+  float *own_h, *own_l, *oth_h, *oth_l, *oth_ht, *oth_lt, *part;
+};
+
+inline BwdBuffers bwd_carve(Carver& c, int n_own, int n_other, int d,
+                            bool split, int splits) {
+  BwdBuffers b{};
+  const size_t own = size_t(n_own) * padded_d(d);
+  const size_t oth = size_t(n_other) * padded_d(d);
+  const size_t oth_t = size_t(padded_dt(d)) * padded_cols(n_other);
+  b.own_h = c.take(own);
+  b.own_l = c.take(split ? own : 0);
+  b.oth_h = c.take(oth);
+  b.oth_l = c.take(split ? oth : 0);
+  b.oth_ht = c.take(oth_t);
+  b.oth_lt = c.take(split ? oth_t : 0);
+  b.part = c.take(splits > 1 ? size_t(splits) * n_own * d : 0);
+  return b;
+}
+
+// Floats of scratch one launch takes (dtype 0: fp32, with lo copies).
+inline long long bwd_scratch_floats(int n_own, int n_other, int d, int dtype,
+                                    int splits) {
+  Carver c{nullptr};
+  bwd_carve(c, n_own, n_other, d, dtype == 0, splits);
+  return static_cast<long long>(c.used);
+}
+
+// The other side cut into `splits` runs of `split_cols`, the last one
+// shorter, each non-empty.
+inline bool bwd_splits_cover(int n_other, int splits, int split_cols) {
+  return splits >= 1 && split_cols >= 1 &&
+         static_cast<long long>(splits - 1) * split_cols < n_other &&
+         static_cast<long long>(splits) * split_cols >= n_other;
+}
+
+// One backward of a side: the operand prep of own and of the other side
+// (also transposed), their six tensor maps, the walk over (64-row tiles of
+// own, splits, chunks of D) and, with more than one split, the sum of the
+// partials. The walk kernel takes the six maps, the kernel's own `args`,
+// the output, the plan, n_own, n_other, d and split_cols.
+template <typename T, int ND, class Prep, class Walk, class Sum, class Args>
+cudaError_t bwd_launch(const void* own, const void* other, int n_own,
+                       int n_other, int d, int splits, int split_cols,
+                       float* grad, const BwdBuffers& b, Prep prep, Walk walk,
+                       Sum sum, const Args& args, cudaStream_t stream) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  const int dp = padded_d(d);
+  const int dt = padded_dt(d);
+  const int cp = padded_cols(n_other);
+  prep<<<dim3((n_own + 31) / 32, dp / 32), kPrepThreads, 0, stream>>>(
+      static_cast<const T*>(own), n_own, d, b.own_h, b.own_l, nullptr,
+      nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  prep<<<dim3(cp / 32, dt / 32), kPrepThreads, 0, stream>>>(
+      static_cast<const T*>(other), n_other, d, b.oth_h, b.oth_l, b.oth_ht,
+      b.oth_lt);
+  err = cudaGetLastError();
+  CUtensorMap own_h, own_l, oth_h, oth_l, oth_ht, oth_lt;
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&own_h, b.own_h, dp, n_own, kBoxK, kTile);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&own_l, kSplit ? b.own_l : b.own_h, dp, n_own,
+                               kBoxK, kTile);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&oth_h, b.oth_h, dp, n_other, kBoxK, kTile);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&oth_l, kSplit ? b.oth_l : b.oth_h, dp,
+                               n_other, kBoxK, kTile);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&oth_ht, b.oth_ht, cp, dt, kBoxK, ND);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&oth_lt, kSplit ? b.oth_lt : b.oth_ht, cp, dt,
+                               kBoxK, ND);
+  }
+  const Plan p = make_plan(d, kSplit, bwd_half_bytes<ND>(kSplit),
+                           bwd_sum_bytes<ND>());
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(walk,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.bytes + 1024);
+  }
+  if (err != cudaSuccess) return err;
+  walk<<<dim3((n_own + kTile - 1) / kTile, splits, dt / ND), kThreads,
+         p.bytes + 1024, stream>>>(own_h, own_l, oth_h, oth_l, oth_ht,
+                                   oth_lt, args, splits == 1 ? grad : b.part,
+                                   p, n_own, n_other, d, split_cols);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t count = size_t(n_own) * d;
+  const int blocks = static_cast<int>((count + 255) / 256);
+  sum<<<blocks < 1024 ? blocks : 1024, 256, 0, stream>>>(b.part, grad, count,
+                                                        splits);
+  return cudaGetLastError();
 }
 
 // One warp sums `count` partial sums in a fixed order.

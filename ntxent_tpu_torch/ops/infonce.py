@@ -32,7 +32,10 @@ against the all-gathered ``zb_g`` (N, D):
   mode, ``csrc/infonce_dual_bwd.cu``) and ``infonce_bwd_cols(...) -> o_b``
   (``G.T @ za_local``, N columns: #4, ``csrc/infonce_bwd_cols.cu``), with
   ``G`` the combined gradient of the local rows at the merged global
-  column lse;
+  column lse; both run on the TF32 walk of the general backward
+  (``csrc/infonce_cross_bwd.cuh`` over ``csrc/ntxent_tf32.cuh``, 3xTF32
+  for fp32), the other side cut into the splits ``ops.ntxent.
+  general_bwd_splits`` plans;
 * ``info_nce_dual_partial(za_local, zb_g, row_gid, group, scale=)``: the
   differentiable partial loss SUM of the local pairs. Its forward merges
   the column lse across ranks (``pmax`` and ``psum`` of an (N,) vector);
@@ -67,7 +70,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .ntxent import _NtxentPartial
+from .ntxent import _NtxentPartial, _sm_count, general_bwd_splits
 
 __all__ = ["info_nce_dual_partial", "info_nce_fused",
            "info_nce_partial_fused", "infonce_bwd_cols",
@@ -234,15 +237,19 @@ def _bwd_kernel():
 
 @functools.cache
 def _bwd_side_kernel(side: str):
-    lib, name = {"rows": ("infonce_dual_bwd", "ntx_infonce_bwd_rows"),
-                 "cols": ("infonce_bwd_cols", "ntx_infonce_bwd_cols")}[side]
-    fn = getattr(_build.load(lib), name)
-    # za, zb, row_gid, scale, lse_a, lse_b, out; n_rows, n_cols, d, dtype,
-    # device; stream
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    lib = _build.load({"rows": "infonce_dual_bwd",
+                       "cols": "infonce_bwd_cols"}[side])
+    fn = getattr(lib, f"ntx_infonce_bwd_{side}")
+    # za, zb, row_gid, scale, lse_a, lse_b, out, scratch; n_rows, n_cols,
+    # d, dtype, splits, split_cols, device; stream
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    scratch = getattr(lib, f"ntx_infonce_bwd_{side}_scratch")
+    # n_own, n_other, d, dtype, splits
+    scratch.argtypes = [ctypes.c_int] * 5
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
 
 
 def _on_cuda(name: str, t: torch.Tensor) -> bool:
@@ -352,7 +359,8 @@ infonce_dual_fwd_rect.launches = 0
 
 def _bwd_side(side: str, wrapper, za, zb, row_gid, scale, lse_a, lse_b):
     """Validate and launch the rows (``G @ zb``) or columns (``G.T @ za``)
-    kernel; returns its fp32 output."""
+    kernel over the splits of the other side that ``general_bwd_splits``
+    plans; returns its fp32 output."""
     n_a, n_b = za.shape[0], zb.shape[0]
     for name, t, n in (("row_gid", row_gid, n_a), ("lse_a", lse_a, n_a),
                        ("lse_b", lse_b, n_b)):
@@ -363,13 +371,19 @@ def _bwd_side(side: str, wrapper, za, zb, row_gid, scale, lse_a, lse_b):
     row_gid = row_gid.to(torch.int32).contiguous()
     lse_a = lse_a.float().contiguous()
     lse_b = lse_b.float().contiguous()
-    out = torch.empty((n_a if side == "rows" else n_b, za.shape[1]),
-                      dtype=torch.float32, device=za.device)
-    err = _bwd_side_kernel(side)(
+    d, dtype = za.shape[1], _DTYPE_CODES[za.dtype]
+    own, other = (n_a, n_b) if side == "rows" else (n_b, n_a)
+    splits, split_cols = general_bwd_splits(own, other, d,
+                                            _sm_count(za.device.index))
+    kernel, scratch_size = _bwd_side_kernel(side)
+    scratch = torch.empty(scratch_size(own, other, d, dtype, splits),
+                          dtype=torch.float32, device=za.device)
+    out = torch.empty((own, d), dtype=torch.float32, device=za.device)
+    err = kernel(
         za.data_ptr(), zb.data_ptr(), row_gid.data_ptr(), scale.data_ptr(),
-        lse_a.data_ptr(), lse_b.data_ptr(), out.data_ptr(), n_a, n_b,
-        za.shape[1], _DTYPE_CODES[za.dtype], za.device.index,
-        torch.cuda.current_stream(za.device).cuda_stream)
+        lse_a.data_ptr(), lse_b.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), n_a, n_b, d, dtype, splits, split_cols,
+        za.device.index, torch.cuda.current_stream(za.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
                            f"{err}")

@@ -86,8 +86,11 @@ global batch 256, world 1 at 256, the ring NT-Xent's P = 4 hop and one
 rank of 4 at 4096 (D = 128), and in the InfoNCE mode (``diag_pos``, the
 scale 14.3 on the device) the two-pass CLIP of world 1 at batch 256 and
 one rank of 4 at 4096 (D = 512), which a tree whose kernels take D <= 256
-skips (its ``ops.ntxent.MAX_DIM``): copied into an older tree, the module
-times what that tree can run,
+skips (its ``ops.ntxent.MAX_DIM``), and the data-parallel CLIP
+backward (#5 cross-modal, #4) at the (R, C, D) of ``DP_CLIP_STRIPS``
+(world 1 and one rank of 4 at batch 256, one rank of 4 at 4096, D =
+512, the scale 14.3): copied into an older tree, the module times what
+that tree can run,
 
 * times each call with CUDA events (20 calls after warmup), and the
   host's ms of one call at 2N = 512 (no synchronisation in the loop).
@@ -154,8 +157,9 @@ _KERNELS = (("ntxent_dual_stats_kernel", "block_lse_dual"),
             ("infonce_loss_reduce", "infonce_dual_fwd"),
             ("infonce_dual_bwd_kernel", "infonce_dual_bwd"),
             ("infonce_fwd_rect_kernel", "infonce_dual_fwd_rect"),
-            ("infonce_bwd_rows_kernel", "infonce_bwd_rows"),
-            ("infonce_bwd_cols_kernel", "infonce_bwd_cols"))
+            # the TF32 kernels of #5 cross-modal and #4 (prep, walk, sum)
+            ("infonce_bwd_rows_", "infonce_bwd_rows"),
+            ("infonce_bwd_cols_", "infonce_bwd_cols"))
 MODEL, IMAGE_SIZE, SEED = "vit_b16", 224, 0
 # The long-context slice: the JAX tower's defaults, the CLIP text
 # vocabulary, batch 1 at the tower's max_len.
@@ -171,6 +175,10 @@ NTXENT_STRIPS = ((128, 512, 128, False), (512, 512, 128, False),
                  (2048, 2048, 128, False), (2048, 8192, 128, False),
                  (256, 256, 512, True), (1024, 4096, 512, True))
 TWOPASS_SCALE = 14.3  # about CLIP's initial exp(logit_scale)
+# (R, C, D) of the data-parallel CLIP backward (#5 cross-modal, #4) in
+# --mode ntxent: world 1 and one rank of 4 at batch 256, one rank of 4 at
+# batch 4096
+DP_CLIP_STRIPS = ((256, 256, 512), (64, 256, 512), (1024, 4096, 512))
 
 
 def cuda_time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
@@ -708,8 +716,11 @@ def ntxent_profile(device) -> dict:
     ``NTXENT_ROWS``, the host ms of one call at the first, and #1's general
     mode and #6's two kernels at each (R, C, D) of ``NTXENT_STRIPS`` (rank
     3's rows of a world of C / R ranks in the NT-Xent mode, rank C / R -
-    1's in the InfoNCE mode)."""
+    1's in the InfoNCE mode), and #5 cross-modal and #4 at each (R, C, D)
+    of ``DP_CLIP_STRIPS`` (rank C / R - 1's rows)."""
     from ..ops import ntxent
+    from ..ops.infonce import (infonce_bwd_cols, infonce_bwd_rows,
+                               infonce_dual_fwd_rect)
 
     gen = torch.Generator(device=device).manual_seed(SEED)
 
@@ -761,6 +772,15 @@ def ntxent_profile(device) -> dict:
             fn = getattr(ntxent, f"ntxent_bwd_general_{side}")
             out[f"{side}_{tag}_ms"] = cuda_time_ms(
                 lambda: fn(*args, lse, t, **kw), 20)
+    scale = torch.tensor(TWOPASS_SCALE, device=device)
+    for rows, cols, d in DP_CLIP_STRIPS:
+        za, zb = unit_rows(rows, d), unit_rows(cols, d)
+        gid = cols - rows + torch.arange(rows, device=device)
+        args = (za, zb, gid, scale, *infonce_dual_fwd_rect(za, zb, scale))
+        for side, fn in (("rows", infonce_bwd_rows),
+                         ("cols", infonce_bwd_cols)):
+            out[f"dp_clip_{side}_{rows}x{cols}x{d}_ms"] = cuda_time_ms(
+                lambda: fn(*args), 20)
     return out
 
 

@@ -50,7 +50,8 @@ Tolerances (max abs error against the plain version on the card):
   loss_sum/2N, 2e-4 on o_a and o_b (rows of G sum to at most 4 in
   absolute value, times unit-norm embeddings); the data-parallel modes
   (rows x columns with global row ids) the same bounds, for the same
-  reasons.
+  reasons. #5's cross-modal mode and #4 run on the TF32 walk (3xTF32
+  for fp32) and are held to the TF32 control as the NT-Xent kernels are.
 """
 
 import numpy as np
@@ -81,10 +82,11 @@ INFONCE_ATOL = 2e-4
 # that is no multiple of the 64-row tile, a narrower D, and N = 8192.
 INFONCE_SHAPES = [(256, 512), (1000, 512), (1000, 128), (8192, 512)]
 INFONCE_SCALE = 17.5  # not 1/T of the default temperature
-# (rows, cols, D) of the data-parallel InfoNCE kernels: one rank of a
-# 4-card world at global batch 256 and at 4096, and a ragged shape with
-# scattered row ids and a padding row.
-DP_INFONCE_SHAPES = [(64, 256, 512), (1024, 4096, 512), (101, 1000, 96)]
+# (rows, cols, D) of the data-parallel InfoNCE kernels: world 1 at
+# global batch 256, one rank of a 4-card world at 256 and at 4096, and a
+# ragged shape with scattered row ids and a padding row.
+DP_INFONCE_SHAPES = [(256, 256, 512), (64, 256, 512), (1024, 4096, 512),
+                     (101, 1000, 96)]
 # (bh, lq, lk, d, causal, q_offset, k_offset)
 BWD_CASES = {
     "train_shape": (48, 197, 197, 64, False, 0, 0),
@@ -818,6 +820,54 @@ def test_cuda_dp_infonce_kernels_match_plain_versions(shape, dtype):
     # one owner per output row, no atomics: bitwise repeatable
     assert torch.equal(I.infonce_bwd_cols(za, zb, gid, scale, lse_a, lse_b),
                        o_b)
+    assert torch.equal(I.infonce_bwd_rows(za, zb, gid, scale, lse_a, lse_b),
+                       o_a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DP_INFONCE_SHAPES[:3],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_dp_infonce_backward_beats_the_tf32_control(shape):
+    """fp32: the 3xTF32 #5 cross-modal and #4 err at least 10x less
+    than one TF32 pass (the plain versions on za, zb rounded to TF32) at
+    the same lse."""
+    dev = _cuda()
+    rows, cols, d = shape
+    za = _unit_rows(rows, d, seed=rows, device=dev)
+    zb = _unit_rows(cols, d, seed=cols + 1, device=dev)
+    gid = _dp_row_ids(rows, cols, seed=rows, device=dev)
+    scale = torch.tensor(INFONCE_SCALE, device=dev)
+    lse = I.infonce_dual_fwd_rect_plain(za, zb, scale)
+    za_c, zb_c = N.tf32_split(za)[0], N.tf32_split(zb)[0]
+    for kernel, plain in ((I.infonce_bwd_rows, I.infonce_bwd_rows_plain),
+                          (I.infonce_bwd_cols, I.infonce_bwd_cols_plain)):
+        want = plain(za, zb, gid, scale, *lse)
+        got = kernel(za, zb, gid, scale, *lse)
+        ctl = plain(za_c, zb_c, gid, scale, *lse)
+        torch.cuda.synchronize()
+        k, c = (got - want).abs().max().item(), (ctl - want).abs().max().item()
+        assert k <= INFONCE_ATOL
+        assert TF32_CONTROL_FACTOR * k <= c, (kernel.__name__, k, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", NTX_EDGE_DIMS)
+def test_cuda_dp_infonce_backward_takes_every_width(d):
+    """D padded to 32, one to four chunks of D, and the fp32 row tile
+    streaming through the ring past D = 256, on a ragged shape with a
+    padding row."""
+    dev = _cuda()
+    za = _unit_rows(101, d, seed=d, device=dev)
+    zb = _unit_rows(1000, d, seed=d + 1, device=dev)
+    gid = _dp_row_ids(101, 1000, seed=d, device=dev)
+    scale = torch.tensor(INFONCE_SCALE, device=dev)
+    lse = I.infonce_dual_fwd_rect_plain(za, zb, scale)
+    for kernel, plain in ((I.infonce_bwd_rows, I.infonce_bwd_rows_plain),
+                          (I.infonce_bwd_cols, I.infonce_bwd_cols_plain)):
+        got = kernel(za, zb, gid, scale, *lse)
+        want = plain(za, zb, gid, scale, *lse)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=INFONCE_ATOL, rtol=0)
 
 
 # (BH, Lq, Lk, D, dtype, causal, q_offset, k_offsets of three folds)

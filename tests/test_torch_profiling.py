@@ -53,6 +53,18 @@ from ntxent_tpu_torch.utils import profiling
      "infonce_bwd_rows"),
     ("void (anonymous namespace)::infonce_bwd_cols_kernel<__nv_bfloat16>"
      "(...)", "infonce_bwd_cols"),
+    ("void infonce_cross::infonce_bwd_rows_walk<true, 128>(CUtensorMap_st, "
+     "...)", "infonce_bwd_rows"),
+    ("void infonce_cross::infonce_bwd_rows_prep<float, true>(float const*, "
+     "...)", "infonce_bwd_rows"),
+    ("infonce_cross::infonce_bwd_rows_sum(float const*, float*, unsigned "
+     "long, int)", "infonce_bwd_rows"),
+    ("void infonce_cross::infonce_bwd_cols_walk<false, 64>(CUtensorMap_st, "
+     "...)", "infonce_bwd_cols"),
+    ("void infonce_cross::infonce_bwd_cols_prep<__nv_bfloat16, false>(...)",
+     "infonce_bwd_cols"),
+    ("infonce_cross::infonce_bwd_cols_sum(float const*, float*, unsigned "
+     "long, int)", "infonce_bwd_cols"),
     ("void (anonymous namespace)::ntxent_dual_stats_kernel<float>(...)",
      "block_lse_dual"),
     ("void (anonymous namespace)::ntxent_dual_grads_kernel<__nv_bfloat16>"
@@ -86,6 +98,22 @@ def test_tf32_ntxent_kernels_group_under_their_wrappers(source):
                      f"CUtensorMap_st, CUtensorMap_st, ...)")
         wrapper = "ntxent_fwd_general" if "_general_" in name else source
         assert profiling._group(demangled) == wrapper, name
+
+
+def test_tf32_infonce_backward_kernels_group_under_their_wrappers():
+    """Every kernel of the TF32 #5 cross-modal and #4 (prep, walk, sum;
+    ``csrc/infonce_cross_bwd.cuh``) groups under the wrapper of its side,
+    never under cuBLAS's "matmul"."""
+    header = _build.SOURCES["infonce_bwd_cols"].parent / \
+        "infonce_cross_bwd.cuh"
+    names = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
+                       r"\s+(\w+)\(", header.read_text())
+    assert len(names) == 6
+    for name in names:
+        demangled = (f"void infonce_cross::{name}<true, 128>("
+                     f"CUtensorMap_st, CUtensorMap_st, ...)")
+        side = "rows" if "_rows_" in name else "cols"
+        assert profiling._group(demangled) == f"infonce_bwd_{side}", name
 
 
 @pytest.mark.parametrize("argv", [["--bucket", "1"],
