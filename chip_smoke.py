@@ -12,18 +12,18 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``nvcc`` per source, all started together, timed; the registers and
    spill bytes ptxas reports for every kernel it compiled (among them
    the TMA/wgmma #11, #12, #13 and #14 in bf16, at head_dim 64 and
-   128, and the TF32 wgmma #1, #4, #5 and #6);
+   128, and the TF32 wgmma #1, #4, #5, #6, #9 and #10);
 2a. data-parallel InfoNCE kernels: ``infonce_dual_fwd_rect`` (#9's
    rectangular stats-only mode), ``infonce_bwd_rows`` (#5's cross-modal
    mode) and ``infonce_bwd_cols`` (#4) against their plain versions at
    (rows, cols, D) = (256, 256, 512) (the path of this run), (64, 256,
    512) (one rank of 4 at batch 256), (1024, 4096, 512) (one rank of 4 at
    batch 4096) and a ragged (101, 1000, 96) with scattered ids and a
-   padding row, fp32 and bf16, bitwise repeatable; #5 cross-modal and #4
-   (TF32 wgmma walks) in fp32 at the first three shapes at
-   least 10x below a one-pass TF32 control, their walks' ptxas registers
-   and spills printed; CUDA-event times beside the bound; and the
-   symmetric ``ntxent_fwd`` re-timed over 200 launches;
+   padding row, fp32 and bf16, bitwise repeatable; #9 rectangular, #5
+   cross-modal and #4 (TF32 wgmma walks) in fp32 at the first three
+   shapes at least 10x below a one-pass TF32 control, their walks' ptxas
+   registers and spills printed; CUDA-event times beside the bound; and
+   the symmetric ``ntxent_fwd`` re-timed over 200 launches;
 2b. the two-pass InfoNCE kernels: ``ntxent_fwd_general`` (#1) and
    ``ntxent_bwd_general_rows`` / ``_cols`` (#6) in their InfoNCE mode
    (``diag_pos``, the logit scale read on the card) against their plain
@@ -57,7 +57,10 @@ Phases; any failure ends the run with a non-zero exit and no result:
    --
    ``infonce_dual_fwd`` and ``infonce_dual_bwd`` (N = 256, 1000, 8192 at
    D = 512 and 128, fp32 and bf16, a logit scale of 17.5 passed as a
-   device tensor; the loss bitwise repeatable) -- then CUDA-event times
+   device tensor; the loss bitwise repeatable; TF32 wgmma walks, held in
+   fp32 at N = 256, 1000 and 8192 (D = 512) at least 10x below a TF32
+   control's lse and gradient errors, their walks' ptxas registers and
+   spills printed) -- then CUDA-event times
    of each kernel, its plain version and, where one PyTorch call computes
    the same function, that call (a yardstick the port never calls),
    beside the bound;
@@ -1074,10 +1077,38 @@ def phase_ntxent_kernels(build_logs: dict) -> list[dict]:
     return out
 
 
-def phase_infonce_kernels() -> list[dict]:
+def _infonce_tf32_control(n: int, d: int, scale):
+    """((lse, gradient) of #9 + #10, (lse, gradient) of one TF32 pass): max
+    abs errors in fp32 against the plain versions, the gradients all at
+    the plain forward's lse; the control is the plain versions on za, zb
+    rounded to TF32 once."""
+    import torch
+
+    from ntxent_tpu_torch.ops import infonce as I
+    from ntxent_tpu_torch.ops import ntxent
+
+    za = _unit_rows(n, d, "float32", seed=n + d)
+    zb = _unit_rows(n, d, "float32", seed=n + d + 1)
+    _, lse_a, lse_b = I.infonce_dual_fwd_plain(za, zb, scale)
+    o_ref = I.infonce_dual_bwd_plain(za, zb, scale, lse_a, lse_b)
+    _, got_a, got_b = I.infonce_dual_fwd(za, zb, scale)
+    o_got = I.infonce_dual_bwd(za, zb, scale, lse_a, lse_b)
+    za_c, zb_c = ntxent.tf32_split(za)[0], ntxent.tf32_split(zb)[0]
+    _, ctl_a, ctl_b = I.infonce_dual_fwd_plain(za_c, zb_c, scale)
+    o_ctl = I.infonce_dual_bwd_plain(za_c, zb_c, scale, lse_a, lse_b)
+    torch.cuda.synchronize()
+
+    def err(pairs):
+        return max((a - b).abs().max().item() for a, b in pairs)
+
+    return ((err([(got_a, lse_a), (got_b, lse_b)]), err(zip(o_got, o_ref))),
+            (err([(ctl_a, lse_a), (ctl_b, lse_b)]), err(zip(o_ctl, o_ref))))
+
+
+def phase_infonce_kernels(build_logs: dict) -> list[dict]:
     """infonce_dual_fwd and infonce_dual_bwd against their plain versions,
-    then times at the CLIP path's shape (N = 256, D = 512, fp32) and at
-    N = 8192."""
+    the TF32 control, ptxas's report of their walks, then times at the
+    CLIP path's shape (N = 256, D = 512, fp32) and at N = 8192."""
     import torch
 
     from ntxent_tpu_torch.ops import infonce
@@ -1118,6 +1149,25 @@ def phase_infonce_kernels() -> list[dict]:
                         "infonce_dual_bwd": bwd_err}
             del za, zb, o_a, o_b, o_a_ref, o_b_ref
 
+    for n, d in INFONCE_SHAPES[:3]:
+        kernel, control = _infonce_tf32_control(n, d, scale)
+        ok = all(k <= INFONCE_ATOL and TF32_CONTROL_FACTOR * k <= c
+                 for k, c in zip(kernel, control))
+        print(f"[kernel] infonce TF32 control N={n} D={d} fp32: kernels lse "
+              f"{kernel[0]:.3e} grad {kernel[1]:.3e}, one TF32 pass lse "
+              f"{control[0]:.3e} grad {control[1]:.3e} (ratios "
+              f"{control[0] / max(kernel[0], 1e-30):.1f}, "
+              f"{control[1] / max(kernel[1], 1e-30):.1f}; at least "
+              f"{TF32_CONTROL_FACTOR}) {'ok' if ok else 'MISSED'}",
+              flush=True)
+        if not ok:
+            fail(f"#9 and #10 are not {TF32_CONTROL_FACTOR}x more accurate "
+                 f"than one TF32 pass at N={n} D={d}")
+    for name in ("infonce_dual_fwd", "infonce_dual_bwd"):
+        for line in _ptxas_walks(build_logs, name):
+            if "infonce_dual" in line or "infonce_fwd_rect" in line:
+                print(f"[kernel] ptxas {name}: {line}", flush=True)
+
     d = 512
     times = {}
     for n in INFONCE_TIMED_N:
@@ -1156,7 +1206,7 @@ def phase_infonce_kernels() -> list[dict]:
         {"name": "infonce_dual_fwd", **common,
          "source": "ntxent_tpu_torch/csrc/infonce_dual_fwd.cu",
          "replaces": "ntxent_tpu/ops/infonce_pallas.py:75 (_dual_fwd_kernel, "
-                     "_dual_fwd_call :165)",
+                     "_dual_fwd_call :165, pallas_call :174)",
          "max_abs_err": errs["infonce_dual_fwd"], "ms": fwd_ms,
          "plain_ms": fwd_plain, "bound_ms": fwd_bound[0],
          "bound_by": fwd_bound[1], "n8192_ms": big[0],
@@ -1164,7 +1214,7 @@ def phase_infonce_kernels() -> list[dict]:
         {"name": "infonce_dual_bwd", **common,
          "source": "ntxent_tpu_torch/csrc/infonce_dual_bwd.cu",
          "replaces": "ntxent_tpu/ops/infonce_pallas.py:204 (_dual_bwd_kernel, "
-                     "_dual_bwd_call :266)",
+                     "_dual_bwd_call :266, pallas_call :274)",
          "max_abs_err": errs["infonce_dual_bwd"], "ms": bwd_ms,
          "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "n8192_ms": big[3],
@@ -2364,10 +2414,10 @@ def _dp_clip_bounds(rows: int, cols: int, d: int, itemsize: int):
 
 
 def _dp_clip_tf32_control(rows: int, cols: int, d: int, scale):
-    """(kernel, control) max abs errors of #5 cross-modal and of #4 in
-    fp32 against their plain versions, all at the plain forward's lse: the
-    kernels, and one TF32 pass (the plain versions on za, zb rounded to
-    TF32 once)."""
+    """(kernel, control) max abs errors of #9 rectangular (both lse), #5
+    cross-modal and #4 in fp32 against their plain versions, the gradients
+    all at the plain forward's lse: the kernels, and one TF32 pass (the
+    plain versions on za, zb rounded to TF32 once)."""
     import torch
 
     from ntxent_tpu_torch.ops import infonce as I
@@ -2378,7 +2428,11 @@ def _dp_clip_tf32_control(rows: int, cols: int, d: int, scale):
     zb = _unit_rows(cols, d, "float32", seed=cols + 1)
     lse = I.infonce_dual_fwd_rect_plain(za, zb, scale)
     za_c, zb_c = ntxent.tf32_split(za)[0], ntxent.tf32_split(zb)[0]
-    out = []
+    got = I.infonce_dual_fwd_rect(za, zb, scale)
+    ctl = I.infonce_dual_fwd_rect_plain(za_c, zb_c, scale)
+    torch.cuda.synchronize()
+    out = [(max((g - w).abs().max().item() for g, w in zip(got, lse)),
+            max((c - w).abs().max().item() for c, w in zip(ctl, lse)))]
     for kernel, plain in ((I.infonce_bwd_rows, I.infonce_bwd_rows_plain),
                           (I.infonce_bwd_cols, I.infonce_bwd_cols_plain)):
         want = plain(za, zb, gid, scale, *lse)
@@ -2392,7 +2446,7 @@ def _dp_clip_tf32_control(rows: int, cols: int, d: int, scale):
 
 def phase_dp_clip_kernels(build_logs: dict) -> tuple[list[dict], float]:
     """#9 rectangular, #5 cross-modal and #4 against their plain versions;
-    in fp32 at every shape but the ragged one #5 and #4 at least
+    in fp32 at every shape but the ragged one all three at least
     TF32_CONTROL_FACTOR below a one-pass TF32 control; ptxas's report of
     their walks; then times at the same shapes; and the symmetric #1
     re-timed in the same call. Returns the kernel entries and the
@@ -2452,16 +2506,17 @@ def phase_dp_clip_kernels(build_logs: dict) -> tuple[list[dict], float]:
         pairs = _dp_clip_tf32_control(rows, cols, d, scale)
         ok = all(TF32_CONTROL_FACTOR * k <= c for k, c in pairs)
         print(f"[dp-clip-kernel] TF32 control R={rows} C={cols} D={d} fp32: "
-              f"kernels #5 rows / #4 cols "
+              f"kernels #9 rect lse / #5 rows / #4 cols "
               f"{' / '.join(f'{k:.3e}' for k, _ in pairs)}, one TF32 pass "
               f"{' / '.join(f'{c:.3e}' for _, c in pairs)} (ratios "
               f"{', '.join(f'{c / max(k, 1e-30):.1f}' for k, c in pairs)}; "
               f"at least {TF32_CONTROL_FACTOR}) {'ok' if ok else 'MISSED'}",
               flush=True)
         if not ok:
-            fail(f"#5 cross-modal and #4 are not {TF32_CONTROL_FACTOR}x more "
-                 f"accurate than one TF32 pass at R={rows} C={cols}")
-    for name in ("infonce_dual_bwd", "infonce_bwd_cols"):
+            fail(f"#9 rectangular, #5 cross-modal and #4 are not "
+                 f"{TF32_CONTROL_FACTOR}x more accurate than one TF32 pass "
+                 f"at R={rows} C={cols}")
+    for name in ("infonce_dual_fwd", "infonce_dual_bwd", "infonce_bwd_cols"):
         for line in _ptxas_walks(build_logs, name):
             print(f"[dp-clip-kernel] ptxas {name}: {line}", flush=True)
 
@@ -2501,7 +2556,7 @@ def phase_dp_clip_kernels(build_logs: dict) -> tuple[list[dict], float]:
     names = ("infonce_dual_fwd_rect", "infonce_bwd_rows", "infonce_bwd_cols")
     replaces = (
         "ntxent_tpu/ops/infonce_pallas.py:75 (_dual_fwd_kernel in its "
-        "rectangular stats_only mode, _dual_fwd_call :165)",
+        "rectangular stats_only mode, _dual_fwd_call :165, pallas_call :174)",
         "ntxent_tpu/ops/ntxent_pallas.py:445 (_bwd_sym_kernel in its "
         "cross-modal mode, _bwd_sym_call :612, pallas_call :625)",
         "ntxent_tpu/ops/ntxent_pallas.py:479 (_bwd_sym_cols_kernel, "
@@ -3792,7 +3847,7 @@ def main() -> int:
     tri_kernels, tri_launches = phase_tri_kernels()
     fold_kernel, ring_times = phase_fold_kernel()
     kernels = [phase_kernels(), *phase_ntxent_kernels(build_logs),
-               *phase_flash_backward(), *phase_infonce_kernels(),
+               *phase_flash_backward(), *phase_infonce_kernels(build_logs),
                *phase_general_kernels(), *dp_clip_kernels,
                *phase_pair_kernels(), *tri_kernels, fold_kernel]
     kernels[1]["retimed_ms"] = sym_retimed_ms

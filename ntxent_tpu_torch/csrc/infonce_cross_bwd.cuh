@@ -1,7 +1,8 @@
-// The data-parallel CLIP backward on the TF32 walk of ntxent_tf32.cuh:
-// the rows kernel (#5's cross-modal mode, csrc/infonce_dual_bwd.cu) and
-// the columns kernel (#4, csrc/infonce_bwd_cols.cu). Each source includes
-// this header and launches its own side only.
+// The CLIP backward on the TF32 walk of ntxent_tf32.cuh: the data-parallel
+// rows kernel (#5's cross-modal mode, csrc/infonce_dual_bwd.cu) and
+// columns kernel (#4, csrc/infonce_bwd_cols.cu), each launching its own
+// side, and the square #10 (csrc/infonce_dual_bwd.cu), both sides in one
+// grid with the ids 0 .. N - 1 (a null row_gid).
 //
 // For one rank's rows za (n_r, D) with global ids row_gid, the gathered
 // zb (n_c, D), the row lse lse_a (n_r,), the merged global column lse
@@ -41,11 +42,15 @@ using namespace ntx;
 
 // What both walks take besides the maps and the layout.
 struct Inputs {
-  const int* __restrict__ row_gid;  // (n_r,)
+  const int* __restrict__ row_gid;  // (n_r,); null: the row index (#10)
   const float* __restrict__ lse_a;  // (n_r,)
   const float* __restrict__ lse_b;  // (n_c,)
   const float* __restrict__ scale;  // one fp32 on the device
   int n_r, n_c;
+
+  __device__ __forceinline__ int id(int row) const {
+    return row_gid != nullptr ? row_gid[row] : row;
+  }
 };
 
 // G of the rows kernel: own = za's rows (ids, lse_a, validity), other =
@@ -63,7 +68,7 @@ struct CrossRowsG {
     for (int h = 0; h < 2; ++h) {
       const int row = r + 8 * h;
       real[h] = row < in.n_r;
-      gid[h] = real[h] ? in.row_gid[row] : -1;
+      gid[h] = real[h] ? in.id(row) : -1;
       lse_r[h] = real[h] ? in.lse_a[row] : 0.f;
       valid[h] = gid[h] < in.n_c ? 1.f : 0.f;
     }
@@ -107,7 +112,7 @@ struct CrossColsG {
     for (int j = 0; j < 16; ++j) {
       const int row = col0 + 8 * (j / 2) + 2 * q + j % 2;
       const bool live = row < ce;
-      rid[j] = live ? in.row_gid[row] : -1;
+      rid[j] = live ? in.id(row) : -1;
       lse_o[j] = live ? in.lse_a[row] : 0.f;
     }
   }
@@ -235,7 +240,7 @@ cudaError_t run(const void* za, const void* zb, const void* row_gid,
   const int n_own = kCols ? n_c : n_r;
   const int n_other = kCols ? n_r : n_c;
   if (row_gid == nullptr || scale == nullptr || n_r < 1 || n_c < 1 ||
-      d < 1 || d > kMaxD || !bwd_splits_cover(n_other, splits, split_cols) ||
+      d < 1 || d > kMaxD || !splits_cover(n_other, splits, split_cols) ||
       (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }

@@ -1,36 +1,42 @@
-// Cross-modal InfoNCE (CLIP) backward for Hopper (sm_90a), bound to
-// PyTorch via ctypes.
+// Cross-modal InfoNCE (CLIP) backward for Hopper (sm_90a) on TF32 tensor
+// cores, bound to PyTorch via ctypes: the square backward (#10) and the
+// data-parallel rows kernel (#5's cross-modal mode).
 //
-// Replaces the Pallas TPU kernel ntxent_tpu/ops/infonce_pallas.py:204
-// (_dual_bwd_kernel, launched by _dual_bwd_call at infonce_pallas.py:274)
-// as _infonce_bwd runs it. From za, zb (N, D), the logit scale (a device
+// Square (ntx_infonce_dual_bwd). Replaces the Pallas TPU kernel
+// ntxent_tpu/ops/infonce_pallas.py:204 (_dual_bwd_kernel, launched by
+// _dual_bwd_call at infonce_pallas.py:266, pallas_call :274) as
+// _infonce_bwd runs it. From za, zb (N, D), the logit scale (a device
 // scalar) and the forward's lse_a, lse_b it computes, as that kernel does,
 //   s[i, j] = (za_i . zb_j) * scale in fp32;
 //   G[i, j] = (exp(min(s - lse_a[i], 0)) - I) + (exp(min(s - lse_b[j], 0)) - I)
 //             (the total dL/ds before the caller's g / 2N; the diagonal I
 //             is the positive and is not masked);
 //   o_a = G . zb,  o_b = G^T . za   (fp32, (N, D) each).
-// The TPU kernel's valid_row / valid_col factors are 1 on every real entry:
-// the ragged edge is masked here by bounds instead (G = 0 past N).
+// Every id is below N, so the TPU kernel's valid_row and valid_col are 1
+// and this G is the G of the data-parallel pair below with the ids 0 ..
+// N - 1: o_a is the rows walk (CrossRowsG), o_b the columns walk
+// (CrossColsG) of infonce_cross_bwd.cuh. (The TPU kernel shares one G per
+// tile between G . zb and G^T . za; with one owner per output and no
+// atomics, a CTA that owns rows of o_a cannot also own o_b's, so each side
+// forms s again: 8 N^2 D operations against the TPU kernel's 6 N^2 D.)
 //
-// Design. The TPU kernel forms one s tile and one G tile and adds G . zb_j
-// into a full-length row accumulator and G^T . za_i into a full-length
-// column accumulator, both carried across its sequential grid. Hopper
-// blocks run in no order, so each output row must have one owner: o_b is
-// computed as the row side of the swapped problem, since with za <-> zb
-// and lse_a <-> lse_b exchanged, G becomes G^T (blockIdx.y = 1 in the same
-// launch). One launch; each CTA owns 64 output rows of one side and walks
-// every 64-column tile (infonce_grad.cuh: the s tile by the
-// register-blocked product of infonce_tile.cuh, G to shared memory, then
-// G . b_tile into the CTA's (64, D) fp32 accumulator in shared memory).
-// No atomics: the result is repeatable. The work is 8 N^2 D against the
-// TPU kernel's 6 N^2 D (s is formed once per side). Arithmetic is fp32 FMA
-// of widened inputs, no TF32.
+// Design. Three launches: one operand prep writes za's and zb's TF32 hi
+// and lo and their transposes (PrepPair); one walk launch covers both
+// sides, its leading CTAs taking the rows policy and the rest the columns
+// policy, each a bwd_walk over (64-row tile of its own side, split of the
+// other side, chunk of D of at most 128): s by 3xTF32 wgmma (two products
+// for bf16) from a TMA ring, G in the accumulator fragment, and G . z_other
+// with G as the register A operand, a fresh accumulator per 64-column tile
+// added into a shared-memory sum; and, with more than one split, one sum
+// kernel adds the splits of both outputs in split order. Both sides take
+// the plan of ops/ntxent.py's general_bwd_splits at half the SMs each, so
+// the grid stays near one wave. Repeatable bit for bit.
 //
 // Bound at the training shape (N = 256, D = 512, fp32): 6 N^2 D = 201
-// MFLOP, 1.2 us at the 165 TFLOP/s of fp32-accurate products (3xTF32 on
-// the tensor cores); za, zb, lse and the two outputs are 2 MB, 0.63 us at
-// 3.35 TB/s. Compute-bound on paper, launch-bound in practice (8 CTAs).
+// MFLOP (the TPU kernel's work), 1.2 us at the 165 TFLOP/s of
+// fp32-accurate products (3xTF32 on the tensor cores); za, zb, lse and the
+// two outputs are 2 MB, 0.63 us at 3.35 TB/s. N = 8192: 206 GFLOP, 1.25
+// ms. At D = 512 each of the four chunks of D forms s again.
 //
 // Rows kernel (ntx_infonce_bwd_rows), on TF32 tensor cores. Replaces the
 // Pallas TPU kernel ntxent_tpu/ops/ntxent_pallas.py:445 (_bwd_sym_kernel,
@@ -46,85 +52,203 @@
 // A padding row (id = n_c) keeps its column term. Design
 // (infonce_cross_bwd.cuh): the walk of ntxent_tf32.cuh (bwd_walk), as #6's
 // rows kernel runs it; one CTA per (64 rows of za, split of zb's columns,
-// chunk of D of at most 128) forms s by 3xTF32 wgmma (two products for
-// bf16) from a TMA ring, G in the accumulator with lse_b loaded per tile
-// (CrossRowsG), and adds G . zb with G as the register A operand, a fresh
-// accumulator per 64-column tile; a sum kernel adds the splits in order.
-// One owner per output, no atomics: repeatable bit for bit. The column
-// side is csrc/infonce_bwd_cols.cu. Bound, fp32: 4 n_r n_c D operations,
-// each product three TF32 passes (165 TFLOP/s for fp32-accurate
-// products), against (n_r + n_c) D inputs, the ids and both lse and an
-// (n_r, D) output. World 1 at batch 256 (256, 256, 512): 134 MFLOP, 0.81
-// us; one rank of 4 at global batch 256 (64, 256, 512): 0.24 us by bytes
-// (0.79 MB at 3.35 TB/s); at global batch 4096 (1024, 4096, 512): 8.6
-// GFLOP, 52 us. At D = 512 the four chunks of D each form s again.
+// chunk of D of at most 128), G with lse_b loaded per tile (CrossRowsG); a
+// sum kernel adds the splits in order. The column side is
+// csrc/infonce_bwd_cols.cu. Bound, fp32: 4 n_r n_c D operations against
+// (n_r + n_c) D inputs, the ids and both lse and an (n_r, D) output. World
+// 1 at batch 256 (256, 256, 512): 134 MFLOP, 0.81 us; one rank of 4 at
+// global batch 256 (64, 256, 512): 0.24 us by bytes (0.79 MB at 3.35
+// TB/s); at global batch 4096 (1024, 4096, 512): 8.6 GFLOP, 52 us.
 //
-// Supported: float32 or bfloat16 za, zb, contiguous, 1 <= D <= 512; the
-// square kernel takes (N, D) each, the rows kernel (n_r, D) and (n_c, D)
-// with int32 row ids. The C entry points return cudaGetLastError().
+// Supported: float32 or bfloat16 za, zb (the same dtype), contiguous,
+// 1 <= D <= 512; the square kernel takes (N, D) each, the rows kernel
+// (n_r, D) and (n_c, D) with int32 row ids. The C entry points return
+// cudaGetLastError().
 
 #include "infonce_cross_bwd.cuh"
-#include "infonce_grad.cuh"
 
 namespace {
 
-using namespace infonce;
+using namespace ntx;
+using infonce_cross::CrossColsG;
+using infonce_cross::CrossRowsG;
+using infonce_cross::Inputs;
 
-// Square mode. blockIdx.y = 0: o_a[i] = sum_j G[i, j] zb_j; 1:
-// o_b[j] = sum_i G[i, j] za_i as the row side of the swapped problem.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    infonce_dual_bwd_kernel(const T* __restrict__ za,
-                            const T* __restrict__ zb,
-                            const float* __restrict__ scale_ptr,
-                            const float* __restrict__ lse_a,
-                            const float* __restrict__ lse_b,
-                            float* __restrict__ o_a, float* __restrict__ o_b,
-                            int n, int d) {
-  extern __shared__ float smem[];
-  const bool swap = blockIdx.y == 1;
-  grad_rows(swap ? zb : za, swap ? za : zb, nullptr, nullptr,
-            swap ? lse_b : lse_a, swap ? lse_a : lse_b, *scale_ptr,
-            swap ? o_b : o_a, n, n, n, d, blockIdx.x * kTile, smem);
+template <typename T, bool kSplit>
+__global__ void __launch_bounds__(kPrepThreads)
+    infonce_dual_bwd_prep(const PrepPair<T> a) {
+  prep_pair<T, kSplit>(a);
+}
+
+// Both sides in one grid. blockIdx.x below tiles * splits: the rows side
+// (own = za, o_a = G . zb), above: the columns side (own = zb, o_b = G^T .
+// za); within a side, x = split * tiles + tile. blockIdx.y: the chunk of D.
+template <bool kSplit, int ND>
+__global__ void __launch_bounds__(kThreads, 1)
+    infonce_dual_bwd_walk(const __grid_constant__ BwdMaps rows,
+                          const __grid_constant__ BwdMaps cols, Inputs in,
+                          float* __restrict__ out_a,
+                          float* __restrict__ out_b, Plan p, int d,
+                          int split_cols, int tiles, int splits) {
+  const int n = in.n_r;
+  const int side_ctas = tiles * splits;
+  const bool col_side = static_cast<int>(blockIdx.x) >= side_ctas;
+  const int x = col_side ? blockIdx.x - side_ctas : blockIdx.x;
+  const int tile = x % tiles;
+  const int split = x / tiles;
+  const float logit_scale = scaled_inv_t(1.f, in.scale);
+  if (!col_side) {
+    CrossRowsG g{in, logit_scale};
+    bwd_walk_at<kSplit, ND>(&rows.own_h, &rows.own_l, &rows.oth_h,
+                            &rows.oth_l, &rows.oth_ht, &rows.oth_lt, g, out_a,
+                            p, n, n, d, split_cols, tile, split, blockIdx.y);
+  } else {
+    CrossColsG g{in, logit_scale};
+    bwd_walk_at<kSplit, ND>(&cols.own_h, &cols.own_l, &cols.oth_h,
+                            &cols.oth_l, &cols.oth_ht, &cols.oth_lt, g, out_b,
+                            p, n, n, d, split_cols, tile, split, blockIdx.y);
+  }
+}
+
+// Each entry of o_a, then of o_b: the splits' partials added in order.
+__global__ void infonce_dual_bwd_sum(const float* __restrict__ part_a,
+                                     const float* __restrict__ part_b,
+                                     float* __restrict__ o_a,
+                                     float* __restrict__ o_b, size_t count,
+                                     int splits) {
+  split_sum(part_a, o_a, count, splits);
+  split_sum(part_b, o_b, count, splits);
+}
+
+// The scratch of one call: za's and zb's hi and lo (N, Dp) and their
+// transposes (DT, Cp) fp32 (the lo copies only for fp32), and with more
+// than one split the partial outputs, splits * N * D fp32 each side. The
+// rows side reads za as own and zb as the other side, the columns side
+// the reverse.
+struct Buffers {
+  BwdBuffers rows, cols;
+};
+
+Buffers carve(Carver& c, int n, int d, bool split, int splits) {
+  const size_t ops = size_t(n) * padded_d(d);
+  const size_t ops_t = size_t(padded_dt(d)) * padded_cols(n);
+  const size_t part = splits > 1 ? size_t(splits) * n * d : 0;
+  Buffers b{};
+  b.rows.own_h = b.cols.oth_h = c.take(ops);  // za
+  b.rows.own_l = b.cols.oth_l = c.take(split ? ops : 0);
+  b.cols.own_h = b.rows.oth_h = c.take(ops);  // zb
+  b.cols.own_l = b.rows.oth_l = c.take(split ? ops : 0);
+  b.cols.oth_ht = c.take(ops_t);  // za^T
+  b.cols.oth_lt = c.take(split ? ops_t : 0);
+  b.rows.oth_ht = c.take(ops_t);  // zb^T
+  b.rows.oth_lt = c.take(split ? ops_t : 0);
+  b.rows.part = c.take(part);
+  b.cols.part = c.take(part);
+  return b;
+}
+
+struct Call {
+  const void *za, *zb;
+  Inputs in;
+  float *o_a, *o_b;
+  int n, d, splits, split_cols;
+};
+
+template <typename T, int ND>
+cudaError_t launch(const Call& a, const Buffers& b, cudaStream_t stream) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  const int n = a.n;
+  const int d = a.d;
+  const int blocks = padded_cols(n) / 32;
+  const PrepPair<T> pair{
+      {static_cast<const T*>(a.za), static_cast<const T*>(a.zb)},
+      {n, n},
+      {b.rows.own_h, b.cols.own_h},
+      {b.rows.own_l, b.cols.own_l},
+      {b.cols.oth_ht, b.rows.oth_ht},
+      {b.cols.oth_lt, b.rows.oth_lt},
+      d,
+      blocks};
+  infonce_dual_bwd_prep<T, kSplit>
+      <<<dim3(2 * blocks, padded_dt(d) / 32), kPrepThreads, 0, stream>>>(
+          pair);
+  cudaError_t err = cudaGetLastError();
+  BwdMaps rows, cols;
+  if (err == cudaSuccess) err = bwd_maps<kSplit, ND>(&rows, b.rows, n, n, d);
+  if (err == cudaSuccess) err = bwd_maps<kSplit, ND>(&cols, b.cols, n, n, d);
+  const Plan p = bwd_plan<ND>(d, kSplit);
+  auto walk = infonce_dual_bwd_walk<kSplit, ND>;
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(walk,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.bytes + 1024);
+  }
+  if (err != cudaSuccess) return err;
+  const int tiles = (n + kTile - 1) / kTile;
+  const bool one = a.splits == 1;
+  walk<<<dim3(2 * tiles * a.splits, padded_dt(d) / ND), kThreads,
+         p.bytes + 1024, stream>>>(rows, cols, a.in,
+                                   one ? a.o_a : b.rows.part,
+                                   one ? a.o_b : b.cols.part, p, d,
+                                   a.split_cols, tiles, a.splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || one) return err;
+  const size_t count = size_t(n) * d;
+  infonce_dual_bwd_sum<<<sum_blocks(count), 256, 0, stream>>>(
+      b.rows.part, b.cols.part, a.o_a, a.o_b, count, a.splits);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* za, const void* zb, const void* scale,
-                   const void* lse_a, const void* lse_b, void* o_a, void* o_b,
-                   int n, int d, cudaStream_t stream) {
-  size_t smem;
-  cudaError_t err = opt_in_smem(infonce_dual_bwd_kernel<T>, d, &smem);
-  if (err != cudaSuccess) return err;
-  const int tiles = (n + kTile - 1) / kTile;
-  infonce_dual_bwd_kernel<T><<<dim3(tiles, 2), kThreads, smem, stream>>>(
-      static_cast<const T*>(za), static_cast<const T*>(zb),
-      static_cast<const float*>(scale), static_cast<const float*>(lse_a),
-      static_cast<const float*>(lse_b), static_cast<float*>(o_a),
-      static_cast<float*>(o_b), n, d);
-  return cudaGetLastError();
+cudaError_t dispatch(const Call& a, const Buffers& b, cudaStream_t s) {
+  switch (d_chunk(a.d)) {
+    case 32:
+      return launch<T, 32>(a, b, s);
+    case 64:
+      return launch<T, 64>(a, b, s);
+    default:
+      return launch<T, 128>(a, b, s);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. `scale` points to one fp32 on the
-// device. Returns a cudaError_t (0 = success).
+// Floats of scratch one square call takes (dtype 0: fp32, with lo copies).
+extern "C" long long ntx_infonce_dual_bwd_scratch(int n, int d, int dtype,
+                                                  int splits) {
+  Carver c{nullptr};
+  carve(c, n, d, dtype == 0, splits);
+  return static_cast<long long>(c.used);
+}
+
+// The square backward: o_a, o_b (n, d) fp32 of za, zb (n, d), lse_a and
+// lse_b (n,) fp32. dtype: 0 = float32, 1 = bfloat16. `scale` points to
+// one fp32 on the device. The other side of each is cut into `splits`
+// runs of `split_cols` (the last one shorter), each non-empty; `scratch`
+// holds ntx_infonce_dual_bwd_scratch(n, d, dtype, splits) floats. Returns
+// a cudaError_t (0 = success).
 extern "C" int ntx_infonce_dual_bwd(const void* za, const void* zb,
                                     const void* scale, const void* lse_a,
                                     const void* lse_b, void* o_a, void* o_b,
-                                    int n, int d, int dtype, int device,
+                                    void* scratch, int n, int d, int dtype,
+                                    int splits, int split_cols, int device,
                                     void* stream) {
-  if (n < 1 || d < 1 || d > kMaxD) return cudaErrorInvalidValue;
+  if (scale == nullptr || n < 1 || d < 1 || d > kMaxD ||
+      !splits_cover(n, splits, split_cols) || (dtype != 0 && dtype != 1)) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const Inputs in{nullptr, static_cast<const float*>(lse_a),
+                  static_cast<const float*>(lse_b),
+                  static_cast<const float*>(scale), n, n};
+  const Call a{za, zb, in, static_cast<float*>(o_a), static_cast<float*>(o_b),
+               n, d, splits, split_cols};
+  Carver c{static_cast<float*>(scratch)};
+  const Buffers b = carve(c, n, d, dtype == 0, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch<float>(za, zb, scale, lse_a, lse_b, o_a, o_b, n, d, s);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(za, zb, scale, lse_a, lse_b, o_a, o_b, n, d,
-                                 s);
-  }
-  return cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch<float>(a, b, s);
+  return dispatch<__nv_bfloat16>(a, b, s);
 }
 
 // Floats of scratch one call of the rows kernel takes: n_own = n_r (za

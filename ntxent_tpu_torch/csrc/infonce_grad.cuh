@@ -1,33 +1,21 @@
-// Shared by csrc/infonce_dual_bwd.cu, csrc/infonce_bwd_cols.cu and
-// csrc/ntxent_dual_grads.cu: one CTA's share of an InfoNCE (or NT-Xent
-// shard-pair) gradient, out = G . other over 64 output rows.
+// The shard-pair gradient of #8 (csrc/ntxent_dual_grads.cu,
+// _dual_grads_kernel): one CTA's share of out = G . other over 64 output
+// rows, on the fp32 FMA tile of infonce_tile.cuh.
 //
 // "own" (n_own, D) holds the CTA's output vectors, "other" (n_other, D) the
-// vectors it walks. For own vector r and other vector j:
-//   s[r, j] = (own_r . other_j) * scale in fp32;
-//   G[r, j] = (exp(min(s - lse_own[r], 0)) - pos) * valid_own[r]
-//           + (exp(min(s - lse_other[j], 0)) - pos) * valid_other[j],
-//   pos = 1 iff id(own_r) = id(other_j);
-//   out[r] = sum_j G[r, j] other_j   (fp32 (n_own, D)).
-// An id is the vector's entry of its id array, or its index where the
-// array is null; valid is 1 for a vector without ids, and id < n_valid for
-// one with ids (a padding row carries the sentinel n_valid). That is the
-// combined G of the TPU kernels (_dual_bwd_kernel, _bwd_sym_kernel and
-// _bwd_sym_cols_kernel in their cross-modal mode): the row term at the row
-// lse times valid_row, the column term at the column lse times valid_col.
-// Which side is "own" decides only which output is formed: with rows as
-// own, out = G . z_cols; with columns as own, out = G^T . z_rows, G being
-// symmetric in its two terms.
-//
-// kDual = true is the NT-Xent shard-pair G of csrc/ntxent_dual_grads.cu
-// (_dual_grads_kernel): both sides carry ids, there is no positive term,
-// and each term's logit is masked to -1e30 where the OTHER side's id is
-// >= n_valid or equals its own:
+// vectors it walks; both sides carry ids (an id is the vector's entry of
+// its id array, or its index where the array is null). For own vector r
+// and other vector j, with s[r, j] = (own_r . other_j) * scale in fp32:
 //   G[r, j] = exp(min(x_r - lse_own[r], 0)) * valid_own[r]
 //           + exp(min(x_c - lse_other[j], 0)) * valid_other[j],
 //   x_r = -1e30 if id(other_j) >= n_valid or id(other_j) = id(own_r),
 //   x_c = -1e30 if id(own_r) >= n_valid or id(other_j) = id(own_r),
-// else both are s[r, j]. It too is symmetric in its two terms.
+// else both are s[r, j]; valid is 1 for a vector without ids and id <
+// n_valid for one with ids (a padding row carries the sentinel n_valid);
+//   out[r] = sum_j G[r, j] other_j   (fp32 (n_own, D)).
+// G is symmetric in its two terms, so which side is "own" decides only
+// which output is formed: with rows as own, out = G . z_cols; with columns
+// as own, out = G^T . z_rows.
 //
 // Design. The CTA walks every 64-vector tile of "other": the s tile by the
 // register-blocked product of infonce_tile.cuh, G to shared memory, then
@@ -55,7 +43,7 @@ __host__ __device__ __forceinline__ size_t smem_floats(int d) {
   return size_t(kTile) * acc_stride(d) + 2 * kTile * kLd + kTile * kLdG;
 }
 
-template <typename T, bool kDual = false>
+template <typename T>
 __device__ void grad_rows(const T* __restrict__ own,
                           const T* __restrict__ other,
                           const int* __restrict__ own_id,
@@ -106,17 +94,11 @@ __device__ void grad_rows(const T* __restrict__ own,
       for (int j = 0; j < 4; ++j) {
         const int col = col0 + tx + 16 * j;
         const float x = s[i][j] * scale;
-        float g;
-        if constexpr (kDual) {
-          const bool self = id_c[j] == id_r[i];
-          const float x_r = (self || id_c[j] >= n_valid) ? kNegInf : x;
-          const float x_c = (self || id_r[i] >= n_valid) ? kNegInf : x;
-          g = exp0(x_r - lse_r[i]) * v_r[i] + exp0(x_c - lse_c[j]) * v_c[j];
-        } else {
-          const float pos = id_c[j] == id_r[i] ? 1.f : 0.f;
-          g = (exp0(x - lse_r[i]) - pos) * v_r[i] +
-              (exp0(x - lse_c[j]) - pos) * v_c[j];
-        }
+        const bool self = id_c[j] == id_r[i];
+        const float x_r = (self || id_c[j] >= n_valid) ? kNegInf : x;
+        const float x_c = (self || id_r[i] >= n_valid) ? kNegInf : x;
+        const float g =
+            exp0(x_r - lse_r[i]) * v_r[i] + exp0(x_c - lse_c[j]) * v_c[j];
         gs[(ty + 16 * i) * kLdG + tx + 16 * j] =
             (row < n_own && col < n_other) ? g : 0.f;
       }

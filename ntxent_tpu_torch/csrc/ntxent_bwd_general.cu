@@ -253,7 +253,7 @@ cudaError_t run(const void* z_rows, const void* z_cols, const void* row_gid,
   const int n_own = kCols ? n_cols : n_rows;
   const int n_other = kCols ? n_rows : n_cols;
   if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || d < 1 ||
-      d > kMaxD || !bwd_splits_cover(n_other, splits, split_cols) ||
+      d > kMaxD || !splits_cover(n_other, splits, split_cols) ||
       (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }

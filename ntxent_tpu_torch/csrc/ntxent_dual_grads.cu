@@ -22,9 +22,9 @@
 // in full-length column scratch carried across its sequential grid. Here
 // each output vector has one owner: the first ceil(R / 64) CTAs own 64 rows
 // and walk every column tile, the rest own 64 columns and walk every row
-// tile, both through the device function of infonce_grad.cuh in its
-// kDual mode (G is symmetric in its two terms, so the column owners form
-// G^T with the operands swapped). s is formed twice (once per side) where
+// tile, both through the device function of infonce_grad.cuh (grad_rows;
+// G is symmetric in its two terms, so the column owners form G^T with the
+// operands swapped). s is formed twice (once per side) where
 // the TPU formed it once; no atomics, so the result is repeatable. fp32
 // FMA of widened inputs, no TF32. The accumulator lives in opt-in dynamic
 // shared memory (infonce::smem_floats(d), 70 KB at D = 128).
@@ -62,13 +62,11 @@ __global__ void __launch_bounds__(kThreads)
   const bool cols = static_cast<int>(blockIdx.x) >= tiles_r;
   const int row0 = (cols ? blockIdx.x - tiles_r : blockIdx.x) * kTile;
   if (cols) {
-    grad_rows<T, true>(z_cols, z_rows, col_gid, row_gid, lse_cols, lse_rows,
-                       inv_t, g_cols, n_cols, n_rows, total, d, row0,
-                       smem);
+    grad_rows<T>(z_cols, z_rows, col_gid, row_gid, lse_cols, lse_rows,
+                 inv_t, g_cols, n_cols, n_rows, total, d, row0, smem);
   } else {
-    grad_rows<T, true>(z_rows, z_cols, row_gid, col_gid, lse_rows, lse_cols,
-                       inv_t, g_rows, n_rows, n_cols, total, d, row0,
-                       smem);
+    grad_rows<T>(z_rows, z_cols, row_gid, col_gid, lse_rows, lse_cols,
+                 inv_t, g_rows, n_rows, n_cols, total, d, row0, smem);
   }
 }
 

@@ -29,9 +29,10 @@
 //   loss_sum = sum over rows with gid_i < cols_actual of (lse[i] - pos_i)
 //     (padding rows carry the sentinel id 2N and drop out).
 //
-// Design (ntxent_tf32.cuh holds the walk). Four launches: the
-// operand-prep pass (hi, lo of z; twice in the general mode, rows and
-// columns); the walk, one CTA per (64-row tile, column split), s by wgmma
+// Design (ntxent_tf32.cuh holds the walk and its launcher, fwd_launch,
+// which #9 shares). Four launches: the operand-prep pass (hi, lo of z; of
+// the rows and the columns in the general mode); the walk, one CTA per
+// (64-row tile, column split), s by wgmma
 // m64n64k8 TF32 from a TMA ring (3xTF32 for fp32 z, one pass for bf16),
 // the online softmax on the accumulator fragment, and one (m, l, pos)
 // partial per row and split; a merge kernel that folds each row's partials
@@ -65,17 +66,26 @@ namespace {
 
 using namespace ntx;
 
-// Rows past n_rows give no partial. part holds three planes (m, l, pos),
-// each (splits, n_rows).
+// What the walk takes besides the maps and the layout: the ids, the
+// partials (three planes (m, l, pos), each (splits, n_rows)), 1/T and the
+// logit scale on the device (null: 1).
+template <class Ids>
+struct FwdArgs {
+  Ids ids;
+  float* part;
+  float inv_t;
+  const float* scale;
+};
+
+// Rows past n_rows give no partial.
 template <bool kSplit, class Ids>
 __device__ __forceinline__ void fwd_walk(const CUtensorMap* tm_rh,
                                          const CUtensorMap* tm_rl,
                                          const CUtensorMap* tm_ch,
                                          const CUtensorMap* tm_cl,
-                                         const Ids& ids, float* part,
+                                         const FwdArgs<Ids>& a,
                                          const Plan& p, int n_rows,
-                                         int n_cols, int split_cols,
-                                         float inv_t, const float* scale) {
+                                         int n_cols, int split_cols) {
   extern __shared__ unsigned char raw[];
   unsigned char* smem = sm90::aligned_smem(raw);
   uint64_t* bars = walk_barriers(smem, p);
@@ -88,20 +98,18 @@ __device__ __forceinline__ void fwd_walk(const CUtensorMap* tm_rh,
 
   if (threadIdx.x >= kWarpgroup) {  // the producer warp
     if (threadIdx.x == kWarpgroup) {
-      load_rows<kSplit>(smem, bars, p, tm_rh, tm_rl, row0);
-      for (int t = 0; t < tiles; ++t) {
-        load_cols<kSplit>(ring, p, tm_ch, tm_cl, cb + t * kTile, tm_rh,
-                          tm_rl, row0);
-      }
+      fwd_produce<kSplit>(smem, bars, p, ring, tm_rh, tm_rl, tm_ch, tm_cl,
+                          row0, cb, tiles);
     }
     return;
   }
 
+  const Ids& ids = a.ids;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r = 16 * warp + lane / 4;
   const int q = lane % 4;
-  const float inv = scaled_inv_t(inv_t, scale);
+  const float inv = scaled_inv_t(a.inv_t, a.scale);
   int gid[2], pos_gid[2];
   float m[2], l[2], pos[2];
 #pragma unroll
@@ -134,27 +142,7 @@ __device__ __forceinline__ void fwd_walk(const CUtensorMap* tm_rh,
       s[i] = masked(ids, id, gid[h]) ? kNegInf : raw_s;
       row_max[h] = fmaxf(row_max[h], s[i]);
     }
-    float row_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      row_max[h] = fmaxf(row_max[h],
-                         __shfl_xor_sync(0xffffffffu, row_max[h], 1));
-      row_max[h] = fmaxf(row_max[h],
-                         __shfl_xor_sync(0xffffffffu, row_max[h], 2));
-      row_max[h] = fmaxf(m[h], row_max[h]);  // m_new
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i / 2) % 2;
-      row_sum[h] += exp0(s[i] - row_max[h]);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
-      row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
-      l[h] = l[h] * expf(m[h] - row_max[h]) + row_sum[h];
-      m[h] = row_max[h];
-    }
+    online_rows(s, row_max, m, l);
   }
   // The positive sits in at most one thread of the row's quad.
 #pragma unroll
@@ -165,9 +153,9 @@ __device__ __forceinline__ void fwd_walk(const CUtensorMap* tm_rh,
     if (q == 0 && row < n_rows) {
       const size_t plane = size_t(gridDim.y) * n_rows;
       const size_t at = size_t(split) * n_rows + row;
-      part[at] = m[h];
-      part[plane + at] = l[h];
-      part[2 * plane + at] = pos[h];
+      a.part[at] = m[h];
+      a.part[plane + at] = l[h];
+      a.part[2 * plane + at] = pos[h];
     }
   }
 }
@@ -191,10 +179,7 @@ __device__ __forceinline__ void fwd_merge(const float* __restrict__ part,
     float p = 0.f;
     for (int c = 0; c < splits; ++c) {
       const size_t at = size_t(c) * n_rows + row;
-      const float m_c = part[at];
-      const float m_new = fmaxf(m, m_c);
-      l = l * exp0(m - m_new) + part[plane + at] * exp0(m_c - m_new);
-      m = m_new;
+      fold_partial(m, l, part[at], part[plane + at]);
       p += part[2 * plane + at];
     }
     const float row_lse = m + logf(fmaxf(l, 1e-37f));
@@ -214,19 +199,20 @@ __device__ __forceinline__ void fwd_merge(const float* __restrict__ part,
 
 template <typename T, bool kSplit>
 __global__ void __launch_bounds__(kPrepThreads)
-    ntxent_fwd_sym_prep(const T* __restrict__ z, int n, int d,
-                        float* __restrict__ hi, float* __restrict__ lo) {
-  prep_tile<T, kSplit>(z, n, d, hi, lo, nullptr, nullptr);
+    ntxent_fwd_sym_prep(const PrepPair<T> a) {
+  prep_pair<T, kSplit>(a);
 }
 
 template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
-    ntxent_fwd_sym_walk(const __grid_constant__ CUtensorMap tm_h,
-                        const __grid_constant__ CUtensorMap tm_l,
-                        SymIds ids, float* __restrict__ part, Plan p, int n,
-                        int split_cols, float inv_t) {
-  fwd_walk<kSplit>(&tm_h, &tm_l, &tm_h, &tm_l, ids, part, p, n, n,
-                   split_cols, inv_t, nullptr);
+    ntxent_fwd_sym_walk(const __grid_constant__ CUtensorMap tm_rh,
+                        const __grid_constant__ CUtensorMap tm_rl,
+                        const __grid_constant__ CUtensorMap tm_ch,
+                        const __grid_constant__ CUtensorMap tm_cl,
+                        FwdArgs<SymIds> a, Plan p, int n_rows, int n_cols,
+                        int split_cols) {
+  fwd_walk<kSplit>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, a, p, n_rows, n_cols,
+                   split_cols);
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
@@ -244,9 +230,8 @@ __global__ void ntxent_fwd_sym_reduce(const float* __restrict__ block_sum,
 
 template <typename T, bool kSplit>
 __global__ void __launch_bounds__(kPrepThreads)
-    ntxent_fwd_general_prep(const T* __restrict__ z, int n, int d,
-                            float* __restrict__ hi, float* __restrict__ lo) {
-  prep_tile<T, kSplit>(z, n, d, hi, lo, nullptr, nullptr);
+    ntxent_fwd_general_prep(const PrepPair<T> a) {
+  prep_pair<T, kSplit>(a);
 }
 
 template <bool kSplit>
@@ -255,11 +240,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const __grid_constant__ CUtensorMap tm_rl,
                             const __grid_constant__ CUtensorMap tm_ch,
                             const __grid_constant__ CUtensorMap tm_cl,
-                            GeneralIds ids, float* __restrict__ part, Plan p,
-                            int n_cols, int split_cols, float inv_t,
-                            const float* __restrict__ scale) {
-  fwd_walk<kSplit>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, ids, part, p, ids.n_rows,
-                   n_cols, split_cols, inv_t, scale);
+                            FwdArgs<GeneralIds> a, Plan p, int n_rows,
+                            int n_cols, int split_cols) {
+  fwd_walk<kSplit>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, a, p, n_rows, n_cols,
+                   split_cols);
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
@@ -276,37 +260,22 @@ __global__ void ntxent_fwd_general_reduce(const float* __restrict__ block_sum,
   reduce_sums(block_sum, count, loss);
 }
 
-// The buffers of one launch: z's hi and lo, (rows, Dp) fp32 each (lo only
-// for fp32 z; the columns' pair too in the general mode, n_cols > 0),
-// part 3 * splits * rows fp32, block_sum ceil(rows / 256) fp32, cut from
-// one scratch allocation; lse and loss are the caller's.
+// The buffers of one launch: the operand copies (fwd_carve: the columns'
+// only in the general mode, n_cols > 0), part 3 * splits * rows fp32,
+// block_sum ceil(rows / 256) fp32, cut from one scratch allocation; lse
+// and loss are the caller's.
 struct Buffers {
-  float *hi_r, *lo_r, *hi_c, *lo_c, *part, *block_sum, *lse, *loss;
+  FwdBuffers ops;
+  float *part, *block_sum, *lse, *loss;
 };
 
 Buffers carve(Carver& c, int n_rows, int n_cols, int d, bool split,
               int splits) {
   Buffers b{};
-  const size_t dp = padded_d(d);
-  b.hi_r = c.take(n_rows * dp);
-  b.lo_r = c.take(split ? n_rows * dp : 0);
-  b.hi_c = c.take(n_cols * dp);
-  b.lo_c = c.take(split ? n_cols * dp : 0);
+  b.ops = fwd_carve(c, n_rows, n_cols, d, split);
   b.part = c.take(size_t(3) * splits * n_rows);
   b.block_sum = c.take((n_rows + kMergeThreads - 1) / kMergeThreads);
   return b;
-}
-
-template <bool kSplit>
-cudaError_t maps(CUtensorMap* h, CUtensorMap* l, float* hi, float* lo,
-                 int rows, int d) {
-  cudaError_t err = sm90::tensor_map_f32(h, hi, padded_d(d), rows, kBoxK,
-                                         kTile);
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(l, kSplit ? lo : hi, padded_d(d), rows,
-                               kBoxK, kTile);
-  }
-  return err;
 }
 
 template <typename T>
@@ -314,26 +283,11 @@ cudaError_t launch_sym(const T* z, const Buffers& b, int n, int d,
                        float inv_t, int splits, int split_cols,
                        cudaStream_t stream) {
   constexpr bool kSplit = std::is_same<T, float>::value;
-  const dim3 prep_grid((n + 31) / 32, padded_d(d) / 32);
-  ntxent_fwd_sym_prep<T, kSplit><<<prep_grid, kPrepThreads, 0, stream>>>(
-      z, n, d, b.hi_r, b.lo_r);
-  cudaError_t err = cudaGetLastError();
-  CUtensorMap tm_h, tm_l;
-  if (err == cudaSuccess) {
-    err = maps<kSplit>(&tm_h, &tm_l, b.hi_r, b.lo_r, n, d);
-  }
-  const Plan p = make_plan(d, kSplit);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(ntxent_fwd_sym_walk<kSplit>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               p.bytes + 1024);
-  }
-  if (err != cudaSuccess) return err;
   const SymIds ids{n};
-  ntxent_fwd_sym_walk<kSplit>
-      <<<dim3((n + kTile - 1) / kTile, splits), kThreads, p.bytes + 1024,
-         stream>>>(tm_h, tm_l, ids, b.part, p, n, split_cols, inv_t);
-  err = cudaGetLastError();
+  cudaError_t err = fwd_launch<T>(
+      z, nullptr, n, n, d, splits, split_cols, b.ops,
+      ntxent_fwd_sym_prep<T, kSplit>, ntxent_fwd_sym_walk<kSplit>,
+      FwdArgs<SymIds>{ids, b.part, inv_t, nullptr}, 0, stream);
   if (err != cudaSuccess) return err;
   const int merges = (n + kMergeThreads - 1) / kMergeThreads;
   ntxent_fwd_sym_merge<<<merges, kMergeThreads, 0, stream>>>(
@@ -351,34 +305,10 @@ cudaError_t launch_general(const T* z_rows, const T* z_cols,
                            int splits, int split_cols, cudaStream_t stream) {
   constexpr bool kSplit = std::is_same<T, float>::value;
   const int n_rows = ids.n_rows;
-  ntxent_fwd_general_prep<T, kSplit>
-      <<<dim3((n_rows + 31) / 32, padded_d(d) / 32), kPrepThreads, 0,
-         stream>>>(z_rows, n_rows, d, b.hi_r, b.lo_r);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ntxent_fwd_general_prep<T, kSplit>
-      <<<dim3((n_cols + 31) / 32, padded_d(d) / 32), kPrepThreads, 0,
-         stream>>>(z_cols, n_cols, d, b.hi_c, b.lo_c);
-  err = cudaGetLastError();
-  CUtensorMap tm_rh, tm_rl, tm_ch, tm_cl;
-  if (err == cudaSuccess) {
-    err = maps<kSplit>(&tm_rh, &tm_rl, b.hi_r, b.lo_r, n_rows, d);
-  }
-  if (err == cudaSuccess) {
-    err = maps<kSplit>(&tm_ch, &tm_cl, b.hi_c, b.lo_c, n_cols, d);
-  }
-  const Plan p = make_plan(d, kSplit);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(ntxent_fwd_general_walk<kSplit>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               p.bytes + 1024);
-  }
-  if (err != cudaSuccess) return err;
-  ntxent_fwd_general_walk<kSplit>
-      <<<dim3((n_rows + kTile - 1) / kTile, splits), kThreads,
-         p.bytes + 1024, stream>>>(tm_rh, tm_rl, tm_ch, tm_cl, ids, b.part,
-                                   p, n_cols, split_cols, inv_t, scale);
-  err = cudaGetLastError();
+  cudaError_t err = fwd_launch<T>(
+      z_rows, z_cols, n_rows, n_cols, d, splits, split_cols, b.ops,
+      ntxent_fwd_general_prep<T, kSplit>, ntxent_fwd_general_walk<kSplit>,
+      FwdArgs<GeneralIds>{ids, b.part, inv_t, scale}, 0, stream);
   if (err != cudaSuccess) return err;
   const int merges = (n_rows + kMergeThreads - 1) / kMergeThreads;
   ntxent_fwd_general_merge<<<merges, kMergeThreads, 0, stream>>>(
@@ -388,12 +318,6 @@ cudaError_t launch_general(const T* z_rows, const T* z_cols,
   ntxent_fwd_general_reduce<<<1, 32, 0, stream>>>(b.block_sum, merges,
                                                    b.loss);
   return cudaGetLastError();
-}
-
-bool valid_split(int cols, int splits, int split_cols) {
-  return splits >= 1 && split_cols >= 1 &&
-         static_cast<long long>(splits - 1) * split_cols < cols &&
-         static_cast<long long>(splits) * split_cols >= cols;
 }
 
 }  // namespace
@@ -417,7 +341,7 @@ extern "C" int ntx_ntxent_fwd(const void* z, void* lse, void* loss,
                               float inv_t, int splits, int split_cols,
                               int device, void* stream) {
   if (n_rows < 2 || n_rows % 2 || d < 1 || d > kMaxD ||
-      !valid_split(n_rows, splits, split_cols)) {
+      !splits_cover(n_rows, splits, split_cols)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -451,7 +375,7 @@ extern "C" int ntx_ntxent_fwd_general(
     int cols_actual, int n_half, int diag_pos, int splits, int split_cols,
     int device, void* stream) {
   if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || d < 1 || d > kMaxD ||
-      !valid_split(n_cols, splits, split_cols)) {
+      !splits_cover(n_cols, splits, split_cols)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) TF32 tensor-core walk of the NT-Xent kernels #1
 // (ntxent_fwd.cu: the symmetric and the general forward), #5 in its
 // symmetric mode (ntxent_bwd_sym.cu), #6 (ntxent_bwd_general.cu: the
-// general backward's rows and columns kernels), and #5 in its cross-modal
+// general backward's rows and columns kernels), #5 in its cross-modal
 // mode and #4 (infonce_cross_bwd.cuh: the data-parallel CLIP backward's
-// rows and columns kernels). The tensor-map encoder,
-// TMA, the mbarriers and the K-major descriptor come from
-// flash_attention_sm90.cuh.
+// rows and columns kernels), and the CLIP kernels #9 (infonce_dual_fwd.cu:
+// the dual forward, on #1's walk and launcher, fwd_launch) and #10
+// (infonce_dual_bwd.cu: both cross-modal backward walks in one grid). The
+// tensor-map encoder, TMA, the mbarriers and the K-major descriptor come
+// from flash_attention_sm90.cuh.
 //
 // Operands. wgmma takes TF32 A and B only K-major, so an operand-prep
 // kernel reads z once and writes fp32 copies laid out for TMA's 128-byte
@@ -180,22 +182,21 @@ __device__ __forceinline__ float exp0(float x) { return expf(fminf(x, 0.f)); }
 
 // --- device: the operand-prep pass ----------------------------------------
 
-// One 32 x 32 tile of z (rows c0 = 32 blockIdx.x .., columns k0 = 32
-// blockIdx.y ..): hi (and lo) into the (rows, Dp) copies; with hi_t, also
-// into the transposed (DT, Cp) copies, whose columns are permuted within
-// each group of 8: position p holds row (p & ~7) | (2 (p & 3) + (p >> 2
-// & 1)). That is the K order in which the fp32 accumulator of s, turned
-// into G, is already a TF32 A fragment (see the backward).
+// One 32 x 32 tile of z (rows c0 .., columns k0 ..): hi (and lo) into the
+// (rows, Dp) copies; with hi_t, also into the transposed (DT, Cp) copies,
+// whose columns are permuted within each group of 8: position p holds row
+// (p & ~7) | (2 (p & 3) + (p >> 2 & 1)). That is the K order in which the
+// fp32 accumulator of s, turned into G, is already a TF32 A fragment (see
+// the backward).
 template <typename T, bool kSplit>
-__device__ __forceinline__ void prep_tile(const T* __restrict__ z, int n,
-                                          int d, float* __restrict__ hi,
-                                          float* __restrict__ lo,
-                                          float* __restrict__ hi_t,
-                                          float* __restrict__ lo_t) {
+__device__ __forceinline__ void prep_tile_at(const T* __restrict__ z, int n,
+                                             int d, float* __restrict__ hi,
+                                             float* __restrict__ lo,
+                                             float* __restrict__ hi_t,
+                                             float* __restrict__ lo_t, int c0,
+                                             int k0) {
   __shared__ float tile[32][33];
   const int dp = padded_d(d);
-  const int c0 = blockIdx.x * 32;
-  const int k0 = blockIdx.y * 32;
   const int tx = threadIdx.x % 32;
   const int ty = threadIdx.x / 32;
   for (int y = ty; y < 32; y += kPrepThreads / 32) {
@@ -220,6 +221,41 @@ __device__ __forceinline__ void prep_tile(const T* __restrict__ z, int n,
     hi_t[at] = h;
     if constexpr (kSplit) lo_t[at] = x - h;
   }
+}
+
+// The tile at c0 = 32 blockIdx.x, k0 = 32 blockIdx.y.
+template <typename T, bool kSplit>
+__device__ __forceinline__ void prep_tile(const T* __restrict__ z, int n,
+                                          int d, float* __restrict__ hi,
+                                          float* __restrict__ lo,
+                                          float* __restrict__ hi_t,
+                                          float* __restrict__ lo_t) {
+  prep_tile_at<T, kSplit>(z, n, d, hi, lo, hi_t, lo_t, blockIdx.x * 32,
+                          blockIdx.y * 32);
+}
+
+// Two operands prepared in one launch: the first `blocks0` blocks of the
+// grid's x take side 0, the rest side 1 (null hi_t: no transposed copy).
+template <typename T>
+struct PrepPair {
+  const T* z[2];
+  int n[2];
+  float* hi[2];
+  float* lo[2];
+  float* hi_t[2];
+  float* lo_t[2];
+  int d, blocks0;
+};
+
+template <typename T, bool kSplit>
+__device__ __forceinline__ void prep_pair(const PrepPair<T>& a) {
+  const bool one = static_cast<int>(blockIdx.x) >= a.blocks0;
+  const int x = one ? blockIdx.x - a.blocks0 : blockIdx.x;
+  prep_tile_at<T, kSplit>(one ? a.z[1] : a.z[0], one ? a.n[1] : a.n[0], a.d,
+                          one ? a.hi[1] : a.hi[0], one ? a.lo[1] : a.lo[0],
+                          one ? a.hi_t[1] : a.hi_t[0],
+                          one ? a.lo_t[1] : a.lo_t[0], x * 32,
+                          blockIdx.y * 32);
 }
 
 // --- device: the masking and positive policies ----------------------------
@@ -267,6 +303,21 @@ __device__ __forceinline__ bool masked(const Ids& ids, int id, int gid) {
 __device__ __forceinline__ float scaled_inv_t(float inv_t,
                                               const float* scale) {
   return scale != nullptr ? inv_t * __ldg(scale) : inv_t;
+}
+
+// A partial (m_c, l_c) folded into (m, l): m = max, l = l e^(m - m') +
+// l_c e^(m_c - m') (the merge rule of every split or tile partial).
+__device__ __forceinline__ void fold_partial(float& m, float& l, float m_c,
+                                             float l_c) {
+  const float m_new = fmaxf(m, m_c);
+  l = l * exp0(m - m_new) + l_c * exp0(m_c - m_new);
+  m = m_new;
+}
+
+// The consumer warpgroup's own barrier (named barrier 1; the producer warp
+// takes no part).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kWarpgroup) : "memory");
 }
 
 // --- device: TF32 wgmma ---------------------------------------------------
@@ -495,6 +546,24 @@ __device__ __forceinline__ void load_cols(Ring& ring, const Plan& p,
   }
 }
 
+// Producer of a forward walk (#1, #9): the row tile, when it stays, then
+// the split's `tiles` column tiles from column cb on.
+template <bool kSplit>
+__device__ __forceinline__ void fwd_produce(unsigned char* smem,
+                                            uint64_t* bars, const Plan& p,
+                                            Ring& ring,
+                                            const CUtensorMap* tm_rh,
+                                            const CUtensorMap* tm_rl,
+                                            const CUtensorMap* tm_ch,
+                                            const CUtensorMap* tm_cl,
+                                            int row0, int cb, int tiles) {
+  load_rows<kSplit>(smem, bars, p, tm_rh, tm_rl, row0);
+  for (int t = 0; t < tiles; ++t) {
+    load_cols<kSplit>(ring, p, tm_ch, tm_cl, cb + t * kTile, tm_rh, tm_rl,
+                      row0);
+  }
+}
+
 // Consumer: s = z_rows . z_cols^T of the row tile and the next column tile
 // in the ring (fp32 accumulator fragment), 3xTF32 for fp32 z.
 template <bool kSplit>
@@ -531,11 +600,42 @@ __device__ __forceinline__ void s_tile(const unsigned char* rows,
   }
 }
 
+// The row direction of one tile, as the forward walks (#1, #9) fold it:
+// s is the masked, scaled accumulator fragment (row r + 8h, column 8 (i /
+// 4) + 2q + i % 2), row_max[h] the max of the thread's entries of row r +
+// 8h. The row's four lanes (q) combine by shuffle; then the online fold m'
+// = max(m, tile max), l = l e^(m - m') + sum exp0(s - m').
+__device__ __forceinline__ void online_rows(const float (&s)[32],
+                                            float (&row_max)[2],
+                                            float (&m)[2], float (&l)[2]) {
+  float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_max[h] = fmaxf(row_max[h],
+                       __shfl_xor_sync(0xffffffffu, row_max[h], 1));
+    row_max[h] = fmaxf(row_max[h],
+                       __shfl_xor_sync(0xffffffffu, row_max[h], 2));
+    row_max[h] = fmaxf(m[h], row_max[h]);  // m'
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i / 2) % 2;
+    row_sum[h] += exp0(s[i] - row_max[h]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
+    row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
+    l[h] = l[h] * expf(m[h] - row_max[h]) + row_sum[h];
+    m[h] = row_max[h];
+  }
+}
+
 // --- device: the backward walk ---------------------------------------------
 
 // grad[own] = sum over the split's columns of G[own, col] z_other[col], for
-// one 64-row tile of `own` (blockIdx.x), one column split (blockIdx.y) and
-// one chunk of ND columns of D (blockIdx.z). Per 64-column tile: s = z_own
+// one 64-row tile of `own` (`tile`), one column split (`split`) and one
+// chunk of ND columns of D (`chunk`). Per 64-column tile: s = z_own
 // z_other^T as the forward forms it, G in its place from the policy, G's
 // TF32 hi and lo (G is fp32, not exact in TF32), and grad += G . z_other
 // by wgmma m64nNDk8 with G as the register A operand and the transposed
@@ -565,24 +665,19 @@ __device__ __forceinline__ void s_tile(const unsigned char* rows,
 // Rows past n_own and columns past n_other come in from TMA as zeros.
 // out: (splits, n_own, d) fp32, or the gradient itself with one split.
 template <bool kSplit, int ND, class G>
-__device__ __forceinline__ void bwd_walk(const CUtensorMap* own_h,
-                                         const CUtensorMap* own_l,
-                                         const CUtensorMap* oth_h,
-                                         const CUtensorMap* oth_l,
-                                         const CUtensorMap* oth_ht,
-                                         const CUtensorMap* oth_lt, G& g,
-                                         float* __restrict__ out,
-                                         const Plan& p, int n_own,
-                                         int n_other, int d,
-                                         int split_cols) {
+__device__ __forceinline__ void bwd_walk_at(
+    const CUtensorMap* own_h, const CUtensorMap* own_l,
+    const CUtensorMap* oth_h, const CUtensorMap* oth_l,
+    const CUtensorMap* oth_ht, const CUtensorMap* oth_lt, G& g,
+    float* __restrict__ out, const Plan& p, int n_own, int n_other, int d,
+    int split_cols, int tile, int split, int chunk) {
   constexpr int kHalfBytes = ND * 128;  // one K box of the transposed tile
   extern __shared__ unsigned char raw[];
   unsigned char* smem = sm90::aligned_smem(raw);
   uint64_t* bars = walk_barriers(smem, p);
   Ring ring(smem, bars, p);
-  const int row0 = blockIdx.x * kTile;
-  const int split = blockIdx.y;
-  const int d0 = blockIdx.z * ND;
+  const int row0 = tile * kTile;
+  const int d0 = chunk * ND;
   const int cb = split * split_cols;
   const int ce = min(cb + split_cols, n_other);
   const int tiles = (ce - cb + kTile - 1) / kTile;
@@ -682,6 +777,23 @@ __device__ __forceinline__ void bwd_walk(const CUtensorMap* own_h,
   }
 }
 
+// The CTA's tile, split and chunk from blockIdx.x, .y and .z.
+template <bool kSplit, int ND, class G>
+__device__ __forceinline__ void bwd_walk(const CUtensorMap* own_h,
+                                         const CUtensorMap* own_l,
+                                         const CUtensorMap* oth_h,
+                                         const CUtensorMap* oth_l,
+                                         const CUtensorMap* oth_ht,
+                                         const CUtensorMap* oth_lt, G& g,
+                                         float* __restrict__ out,
+                                         const Plan& p, int n_own,
+                                         int n_other, int d,
+                                         int split_cols) {
+  bwd_walk_at<kSplit, ND>(own_h, own_l, oth_h, oth_l, oth_ht, oth_lt, g, out,
+                          p, n_own, n_other, d, split_cols, blockIdx.x,
+                          blockIdx.y, blockIdx.z);
+}
+
 // Each gradient entry: the splits' partials added in split order.
 __device__ __forceinline__ void split_sum(const float* __restrict__ part,
                                           float* __restrict__ grad,
@@ -692,6 +804,12 @@ __device__ __forceinline__ void split_sum(const float* __restrict__ part,
     for (int s = 1; s < splits; ++s) sum += part[s * count + i];
     grad[i] = sum;
   }
+}
+
+// Blocks of 256 threads of a split sum over `count` entries.
+inline int sum_blocks(size_t count) {
+  const size_t blocks = (count + 255) / 256;
+  return blocks < 1024 ? static_cast<int>(blocks) : 1024;
 }
 
 // The ring stage a backward takes for one half of the transposed tile,
@@ -740,12 +858,59 @@ inline long long bwd_scratch_floats(int n_own, int n_other, int d, int dtype,
   return static_cast<long long>(c.used);
 }
 
-// The other side cut into `splits` runs of `split_cols`, the last one
-// shorter, each non-empty.
-inline bool bwd_splits_cover(int n_other, int splits, int split_cols) {
+// n columns (a backward: the other side's rows) cut into `splits` runs of
+// `split_cols`, the last one shorter, each non-empty.
+inline bool splits_cover(int n, int splits, int split_cols) {
   return splits >= 1 && split_cols >= 1 &&
-         static_cast<long long>(splits - 1) * split_cols < n_other &&
-         static_cast<long long>(splits) * split_cols >= n_other;
+         static_cast<long long>(splits - 1) * split_cols < n &&
+         static_cast<long long>(splits) * split_cols >= n;
+}
+
+// The hi and lo maps of a (rows, Dp) operand copy in 64-row K boxes (lo:
+// hi again for bf16, whose lo is neither written nor read).
+template <bool kSplit>
+cudaError_t operand_maps(CUtensorMap* h, CUtensorMap* l, const float* hi,
+                         const float* lo, int rows, int d) {
+  cudaError_t err =
+      sm90::tensor_map_f32(h, hi, padded_d(d), rows, kBoxK, kTile);
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(l, kSplit ? lo : hi, padded_d(d), rows, kBoxK,
+                               kTile);
+  }
+  return err;
+}
+
+// The six tensor maps of a backward walk.
+struct BwdMaps {
+  CUtensorMap own_h, own_l, oth_h, oth_l, oth_ht, oth_lt;
+};
+
+template <bool kSplit, int ND>
+cudaError_t bwd_maps(BwdMaps* m, const BwdBuffers& b, int n_own,
+                     int n_other, int d) {
+  const int cp = padded_cols(n_other);
+  const int dt = padded_dt(d);
+  cudaError_t err =
+      operand_maps<kSplit>(&m->own_h, &m->own_l, b.own_h, b.own_l, n_own, d);
+  if (err == cudaSuccess) {
+    err = operand_maps<kSplit>(&m->oth_h, &m->oth_l, b.oth_h, b.oth_l,
+                               n_other, d);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&m->oth_ht, b.oth_ht, cp, dt, kBoxK, ND);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&m->oth_lt, kSplit ? b.oth_lt : b.oth_ht, cp,
+                               dt, kBoxK, ND);
+  }
+  return err;
+}
+
+// The plan of a backward walk at chunk ND: its ring stages hold the
+// transposed halves beside the K boxes, its own bytes are the running sums.
+template <int ND>
+Plan bwd_plan(int d, bool split) {
+  return make_plan(d, split, bwd_half_bytes<ND>(split), bwd_sum_bytes<ND>());
 }
 
 // One backward of a side: the operand prep of own and of the other side
@@ -771,30 +936,9 @@ cudaError_t bwd_launch(const void* own, const void* other, int n_own,
       static_cast<const T*>(other), n_other, d, b.oth_h, b.oth_l, b.oth_ht,
       b.oth_lt);
   err = cudaGetLastError();
-  CUtensorMap own_h, own_l, oth_h, oth_l, oth_ht, oth_lt;
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&own_h, b.own_h, dp, n_own, kBoxK, kTile);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&own_l, kSplit ? b.own_l : b.own_h, dp, n_own,
-                               kBoxK, kTile);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&oth_h, b.oth_h, dp, n_other, kBoxK, kTile);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&oth_l, kSplit ? b.oth_l : b.oth_h, dp,
-                               n_other, kBoxK, kTile);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&oth_ht, b.oth_ht, cp, dt, kBoxK, ND);
-  }
-  if (err == cudaSuccess) {
-    err = sm90::tensor_map_f32(&oth_lt, kSplit ? b.oth_lt : b.oth_ht, cp, dt,
-                               kBoxK, ND);
-  }
-  const Plan p = make_plan(d, kSplit, bwd_half_bytes<ND>(kSplit),
-                           bwd_sum_bytes<ND>());
+  BwdMaps m;
+  if (err == cudaSuccess) err = bwd_maps<kSplit, ND>(&m, b, n_own, n_other, d);
+  const Plan p = bwd_plan<ND>(d, kSplit);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(walk,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -802,15 +946,78 @@ cudaError_t bwd_launch(const void* own, const void* other, int n_own,
   }
   if (err != cudaSuccess) return err;
   walk<<<dim3((n_own + kTile - 1) / kTile, splits, dt / ND), kThreads,
-         p.bytes + 1024, stream>>>(own_h, own_l, oth_h, oth_l, oth_ht,
-                                   oth_lt, args, splits == 1 ? grad : b.part,
-                                   p, n_own, n_other, d, split_cols);
+         p.bytes + 1024, stream>>>(m.own_h, m.own_l, m.oth_h, m.oth_l,
+                                   m.oth_ht, m.oth_lt, args,
+                                   splits == 1 ? grad : b.part, p, n_own,
+                                   n_other, d, split_cols);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t count = size_t(n_own) * d;
-  const int blocks = static_cast<int>((count + 255) / 256);
-  sum<<<blocks < 1024 ? blocks : 1024, 256, 0, stream>>>(b.part, grad, count,
-                                                        splits);
+  sum<<<sum_blocks(count), 256, 0, stream>>>(b.part, grad, count, splits);
+  return cudaGetLastError();
+}
+
+// --- host: one forward walk launch (#1, #9) ---------------------------------
+
+// The operand copies of a forward: the rows' hi and lo (n_rows, Dp) and
+// the columns' (n_cols, Dp; none when the columns are the rows, n_cols =
+// 0), fp32, the lo copies only for fp32 inputs.
+struct FwdBuffers {
+  float *hi_r, *lo_r, *hi_c, *lo_c;
+};
+
+inline FwdBuffers fwd_carve(Carver& c, int n_rows, int n_cols, int d,
+                            bool split) {
+  FwdBuffers b{};
+  const size_t dp = padded_d(d);
+  b.hi_r = c.take(n_rows * dp);
+  b.lo_r = c.take(split ? n_rows * dp : 0);
+  b.hi_c = c.take(n_cols * dp);
+  b.lo_c = c.take(split ? n_cols * dp : 0);
+  return b;
+}
+
+// One forward walk: the operand prep of the rows and, unless they are the
+// rows (cols null), of the columns in one launch, their tensor maps, and
+// the walk over (64-row tiles, column splits). The prep kernel takes a
+// PrepPair; the walk kernel the rows' and the columns' maps (hi, lo), the
+// kernel's own `args`, the plan, n_rows, n_cols and split_cols. `extra`:
+// the walk's own bytes of shared memory beside the ring.
+template <typename T, class Prep, class Walk, class Args>
+cudaError_t fwd_launch(const T* rows, const T* cols, int n_rows, int n_cols,
+                       int d, int splits, int split_cols, const FwdBuffers& b,
+                       Prep prep, Walk walk, const Args& args, int extra,
+                       cudaStream_t stream) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  const int blocks_r = (n_rows + 31) / 32;
+  const int blocks_c = cols != nullptr ? (n_cols + 31) / 32 : 0;
+  const PrepPair<T> pair{{rows, cols},       {n_rows, n_cols},
+                         {b.hi_r, b.hi_c},   {b.lo_r, b.lo_c},
+                         {nullptr, nullptr}, {nullptr, nullptr},
+                         d,                  blocks_r};
+  prep<<<dim3(blocks_r + blocks_c, padded_d(d) / 32), kPrepThreads, 0,
+         stream>>>(pair);
+  cudaError_t err = cudaGetLastError();
+  CUtensorMap rh, rl, ch, cl;
+  if (err == cudaSuccess) {
+    err = operand_maps<kSplit>(&rh, &rl, b.hi_r, b.lo_r, n_rows, d);
+  }
+  if (cols == nullptr) {
+    ch = rh;
+    cl = rl;
+  } else if (err == cudaSuccess) {
+    err = operand_maps<kSplit>(&ch, &cl, b.hi_c, b.lo_c, n_cols, d);
+  }
+  const Plan p = make_plan(d, kSplit, 0, extra);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(walk,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.bytes + 1024);
+  }
+  if (err != cudaSuccess) return err;
+  walk<<<dim3((n_rows + kTile - 1) / kTile, splits), kThreads,
+         p.bytes + 1024, stream>>>(rh, rl, ch, cl, args, p, n_rows, n_cols,
+                                   split_cols);
   return cudaGetLastError();
 }
 

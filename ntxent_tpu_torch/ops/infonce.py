@@ -12,12 +12,18 @@ embeddings' device (CLIP's learnable ``exp(logit_scale)``); the kernels
 read it through a pointer, so no step waits on the host for it.
 
 * ``infonce_dual_fwd(za, zb, scale) -> (loss_sum, lse_a, lse_b)``
-  launches ``csrc/infonce_dual_fwd.cu`` on CUDA tensors;
-  ``infonce_dual_fwd_plain`` is the same function in plain PyTorch;
+  launches ``csrc/infonce_dual_fwd.cu`` on CUDA tensors (#9: the TF32
+  walk of ``csrc/ntxent_tf32.cuh``, 3xTF32 for fp32, each s tile formed
+  once and folded into both directions, zb's columns cut into the splits
+  ``ops.ntxent.column_splits`` plans); ``infonce_dual_fwd_plain`` is the
+  same function in plain PyTorch;
 * ``infonce_dual_bwd(za, zb, scale, lse_a, lse_b) -> (o_a, o_b)``, fp32
   ``G @ zb`` and ``G.T @ za`` with ``G = P_row + P_col - 2I`` (the total
-  dL/ds before ``g / 2N``), launches ``csrc/infonce_dual_bwd.cu``;
-  ``infonce_dual_bwd_plain`` is its plain version;
+  dL/ds before ``g / 2N``), launches ``csrc/infonce_dual_bwd.cu`` (#10:
+  the rows and columns walks of ``csrc/infonce_cross_bwd.cuh`` with the
+  ids 0 .. N - 1, both sides in one grid, each planned by
+  ``general_bwd_splits`` at half the SMs); ``infonce_dual_bwd_plain`` is
+  its plain version;
 * ``info_nce_fused(za, zb, temperature, scale=None)`` is the
   differentiable mean loss, with gradients for za, zb and the scale.
 
@@ -47,11 +53,13 @@ package picks it only when its shared-G accumulators outgrow VMEM
 function is the same.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version. Each wrapper counts its launches in ``.launches`` (one per call:
-the square kernels cover both directions in one launch). The TPU package's
-two-pass backward for large N on one device (``_bwd_sym_call`` in
-cross-modal mode, taken when its accumulators outgrow VMEM) is the same
-function as #10; the square backward kernel serves every N there.
+version. Each wrapper counts one launch per call in ``.launches`` (a call
+is a few kernels: the operand prep, the walk, the merge or the split
+sum; the square kernels cover both directions in one call). The TPU
+package's two-pass backward for large N on one device (``_bwd_sym_call``
+in cross-modal mode, taken when its accumulators outgrow VMEM) is the
+same function as #10; the square backward serves every N there. What
+depends only on the shapes (the split plan, the scratch size) is cached.
 
 The two-pass data-parallel form (``info_nce_partial_fused``,
 ``infonce_pallas.py:547``): one direction's partial loss SUM of a rank's
@@ -70,7 +78,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .ntxent import _NtxentPartial, _sm_count, general_bwd_splits
+from .ntxent import (SM_COUNT, _NtxentPartial, _sm_count, column_splits,
+                     general_bwd_splits)
 
 __all__ = ["info_nce_dual_partial", "info_nce_fused",
            "info_nce_partial_fused", "infonce_bwd_cols",
@@ -81,7 +90,6 @@ __all__ = ["info_nce_dual_partial", "info_nce_fused",
            "infonce_dual_fwd_rect_plain", "resolve_scale"]
 
 MAX_DIM = 512  # widest embedding the kernels take (CLIP's is 512)
-ROWS_PER_CTA = 64  # rows of one thread block in csrc/infonce_dual_fwd.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -205,50 +213,80 @@ def _check_kernel_input(za: torch.Tensor, zb: torch.Tensor,
     return scale.detach().to(torch.float32).reshape(1).contiguous()
 
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+def _c_function(library: str, name: str, argtypes: list,
+                restype=ctypes.c_int):
+    """A C entry point of a kernel library, its argument types set."""
+    fn = getattr(_build.load(library), name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn
+
+
 @functools.cache
 def _fwd_kernel():
-    fn = _build.load("infonce_dual_fwd").ntx_infonce_dual_fwd
-    # za, zb, scale, lse_a, lse_b, partial, loss; n, d, dtype, device; stream
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    # za, zb, scale, lse_a, lse_b, loss, scratch; n, d, dtype, splits,
+    # split_cols, device; stream
+    return _c_function("infonce_dual_fwd", "ntx_infonce_dual_fwd",
+                       [_PTR] * 7 + [_INT] * 6 + [_PTR])
 
 
 @functools.cache
 def _fwd_rect_kernel():
-    fn = _build.load("infonce_dual_fwd").ntx_infonce_dual_fwd_rect
-    # za, zb, scale, lse_a, lse_b; n_a, n_b, d, dtype, device; stream
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    # za, zb, scale, lse_a, lse_b, scratch; n_a, n_b, d, dtype, splits,
+    # split_cols, device; stream
+    return _c_function("infonce_dual_fwd", "ntx_infonce_dual_fwd_rect",
+                       [_PTR] * 6 + [_INT] * 7 + [_PTR])
 
 
 @functools.cache
 def _bwd_kernel():
-    fn = _build.load("infonce_dual_bwd").ntx_infonce_dual_bwd
-    # za, zb, scale, lse_a, lse_b, o_a, o_b; n, d, dtype, device; stream
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    # za, zb, scale, lse_a, lse_b, o_a, o_b, scratch; n, d, dtype, splits,
+    # split_cols, device; stream
+    return _c_function("infonce_dual_bwd", "ntx_infonce_dual_bwd",
+                       [_PTR] * 8 + [_INT] * 6 + [_PTR])
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(n_a: int, n_b: int, d: int, dtype: int, index: int):
+    """(splits, split_cols, scratch floats) of #9: zb's columns cut as
+    ``column_splits`` plans for ``n_a`` rows."""
+    splits, split_cols = column_splits(n_a, n_b, _sm_count(index))
+    # n_a, n_b, d, dtype, splits
+    size = _c_function("infonce_dual_fwd", "ntx_infonce_dual_fwd_scratch",
+                       [_INT] * 5, ctypes.c_longlong)
+    return splits, split_cols, size(n_a, n_b, d, dtype, splits)
+
+
+def _dual_bwd_splits(n: int, d: int, sms: int = SM_COUNT):
+    """(splits, split_cols) of #10: each side's other side cut as
+    ``general_bwd_splits`` plans at half the SMs, since the two sides share
+    one grid."""
+    return general_bwd_splits(n, n, d, max(1, sms // 2))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(n: int, d: int, dtype: int, index: int):
+    """(splits, split_cols, scratch floats) of #10 (``_dual_bwd_splits``)."""
+    splits, split_cols = _dual_bwd_splits(n, d, _sm_count(index))
+    # n, d, dtype, splits
+    size = _c_function("infonce_dual_bwd", "ntx_infonce_dual_bwd_scratch",
+                       [_INT] * 4, ctypes.c_longlong)
+    return splits, split_cols, size(n, d, dtype, splits)
 
 
 @functools.cache
 def _bwd_side_kernel(side: str):
-    lib = _build.load({"rows": "infonce_dual_bwd",
-                       "cols": "infonce_bwd_cols"}[side])
-    fn = getattr(lib, f"ntx_infonce_bwd_{side}")
+    library = {"rows": "infonce_dual_bwd", "cols": "infonce_bwd_cols"}[side]
     # za, zb, row_gid, scale, lse_a, lse_b, out, scratch; n_rows, n_cols,
     # d, dtype, splits, split_cols, device; stream
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    scratch = getattr(lib, f"ntx_infonce_bwd_{side}_scratch")
+    fn = _c_function(library, f"ntx_infonce_bwd_{side}",
+                     [_PTR] * 8 + [_INT] * 7 + [_PTR])
     # n_own, n_other, d, dtype, splits
-    scratch.argtypes = [ctypes.c_int] * 5
-    scratch.restype = ctypes.c_longlong
+    scratch = _c_function(library, f"ntx_infonce_bwd_{side}_scratch",
+                          [_INT] * 5, ctypes.c_longlong)
     return fn, scratch
 
 
@@ -272,18 +310,16 @@ def infonce_dual_fwd(za: torch.Tensor, zb: torch.Tensor,
     if not _on_cuda("infonce_dual_fwd", za):
         return infonce_dual_fwd_plain(za, zb, scale)
     scale = _check_kernel_input(za, zb, scale)
-    n, d = za.shape
-    dev = za.device
+    (n, d), dev, dtype = za.shape, za.device, _DTYPE_CODES[za.dtype]
+    splits, split_cols, size = _fwd_plan(n, n, d, dtype, dev.index)
     lse_a = torch.empty(n, dtype=torch.float32, device=dev)
     lse_b = torch.empty(n, dtype=torch.float32, device=dev)
-    partial = torch.empty(2 * -(-n // ROWS_PER_CTA), dtype=torch.float32,
-                          device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
+    scratch = torch.empty(size, dtype=torch.float32, device=dev)
     err = _fwd_kernel()(za.data_ptr(), zb.data_ptr(), scale.data_ptr(),
-                        lse_a.data_ptr(), lse_b.data_ptr(),
-                        partial.data_ptr(), loss.data_ptr(), n, d,
-                        _DTYPE_CODES[za.dtype], dev.index,
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        lse_a.data_ptr(), lse_b.data_ptr(), loss.data_ptr(),
+                        scratch.data_ptr(), n, d, dtype, splits, split_cols,
+                        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"infonce_dual_fwd launch failed: CUDA error "
                            f"{err}")
@@ -311,13 +347,16 @@ def infonce_dual_bwd(za: torch.Tensor, zb: torch.Tensor, scale: torch.Tensor,
     scale = _check_kernel_input(za, zb, scale)
     lse_a = lse_a.float().contiguous()
     lse_b = lse_b.float().contiguous()
-    o_a = torch.empty(za.shape, dtype=torch.float32, device=za.device)
-    o_b = torch.empty(za.shape, dtype=torch.float32, device=za.device)
+    d, dev, dtype = za.shape[1], za.device, _DTYPE_CODES[za.dtype]
+    splits, split_cols, size = _bwd_plan(n, d, dtype, dev.index)
+    o_a = torch.empty(za.shape, dtype=torch.float32, device=dev)
+    o_b = torch.empty(za.shape, dtype=torch.float32, device=dev)
+    scratch = torch.empty(size, dtype=torch.float32, device=dev)
     err = _bwd_kernel()(za.data_ptr(), zb.data_ptr(), scale.data_ptr(),
                         lse_a.data_ptr(), lse_b.data_ptr(), o_a.data_ptr(),
-                        o_b.data_ptr(), n, za.shape[1],
-                        _DTYPE_CODES[za.dtype], za.device.index,
-                        torch.cuda.current_stream(za.device).cuda_stream)
+                        o_b.data_ptr(), scratch.data_ptr(), n, d, dtype,
+                        splits, split_cols, dev.index,
+                        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"infonce_dual_bwd launch failed: CUDA error "
                            f"{err}")
@@ -341,11 +380,15 @@ def infonce_dual_fwd_rect(za: torch.Tensor, zb: torch.Tensor,
         return infonce_dual_fwd_rect_plain(za, zb, scale)
     scale = _check_kernel_input(za, zb, scale)
     (n_a, d), n_b, dev = za.shape, zb.shape[0], za.device
+    dtype = _DTYPE_CODES[za.dtype]
+    splits, split_cols, size = _fwd_plan(n_a, n_b, d, dtype, dev.index)
     lse_a = torch.empty(n_a, dtype=torch.float32, device=dev)
     lse_b = torch.empty(n_b, dtype=torch.float32, device=dev)
+    scratch = torch.empty(size, dtype=torch.float32, device=dev)
     err = _fwd_rect_kernel()(za.data_ptr(), zb.data_ptr(), scale.data_ptr(),
-                             lse_a.data_ptr(), lse_b.data_ptr(), n_a, n_b, d,
-                             _DTYPE_CODES[za.dtype], dev.index,
+                             lse_a.data_ptr(), lse_b.data_ptr(),
+                             scratch.data_ptr(), n_a, n_b, d, dtype, splits,
+                             split_cols, dev.index,
                              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"infonce_dual_fwd_rect launch failed: CUDA "

@@ -89,11 +89,15 @@ one rank of 4 at 4096 (D = 512), which a tree whose kernels take D <= 256
 skips (its ``ops.ntxent.MAX_DIM``), and the data-parallel CLIP
 backward (#5 cross-modal, #4) at the (R, C, D) of ``DP_CLIP_STRIPS``
 (world 1 and one rank of 4 at batch 256, one rank of 4 at 4096, D =
-512, the scale 14.3): copied into an older tree, the module times what
+512, the scale 14.3), and the CLIP kernels #9 (square) and #10 at the
+(N, D) of ``INFONCE_SQUARE`` (CLIP at batch 256, N = 8192) and #9's
+rectangular mode at the (R, C, D) of ``INFONCE_RECT`` (one rank of 4 at
+batch 256 and 4096): copied into an older tree, the module times what
 that tree can run,
 
 * times each call with CUDA events (20 calls after warmup), and the
-  host's ms of one call at 2N = 512 (no synchronisation in the loop).
+  host's ms of one call at 2N = 512 and of #9 and #10 at N = 256 (no
+  synchronisation in the loop).
 
 Run on the card, from the repository root:
 
@@ -153,10 +157,12 @@ _KERNELS = (("ntxent_dual_stats_kernel", "block_lse_dual"),
             ("ntxent_bwd_sym_", "ntxent_bwd_sym"),
             ("ntxent_bwd_general_rows_", "ntxent_bwd_general_rows"),
             ("ntxent_bwd_general_cols_", "ntxent_bwd_general_cols"),
-            ("infonce_dual_fwd_kernel", "infonce_dual_fwd"),
+            # the TF32 kernels of #9 (prep, walk, merge, reduce; the
+            # rectangular mode's carry its name) and #10 (prep, walk, sum)
+            ("infonce_dual_fwd_", "infonce_dual_fwd"),
             ("infonce_loss_reduce", "infonce_dual_fwd"),
-            ("infonce_dual_bwd_kernel", "infonce_dual_bwd"),
-            ("infonce_fwd_rect_kernel", "infonce_dual_fwd_rect"),
+            ("infonce_fwd_rect_", "infonce_dual_fwd_rect"),
+            ("infonce_dual_bwd_", "infonce_dual_bwd"),
             # the TF32 kernels of #5 cross-modal and #4 (prep, walk, sum)
             ("infonce_bwd_rows_", "infonce_bwd_rows"),
             ("infonce_bwd_cols_", "infonce_bwd_cols"))
@@ -179,6 +185,10 @@ TWOPASS_SCALE = 14.3  # about CLIP's initial exp(logit_scale)
 # --mode ntxent: world 1 and one rank of 4 at batch 256, one rank of 4 at
 # batch 4096
 DP_CLIP_STRIPS = ((256, 256, 512), (64, 256, 512), (1024, 4096, 512))
+# (N, D) of #9 square and #10 in --mode ntxent: CLIP at batch 256, N = 8192
+INFONCE_SQUARE = ((256, 512), (8192, 512))
+# (R, C, D) of #9's rectangular mode: one rank of 4 at batch 256 and 4096
+INFONCE_RECT = ((64, 256, 512), (1024, 4096, 512))
 
 
 def cuda_time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
@@ -194,6 +204,18 @@ def cuda_time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / runs
+
+
+def _host_ms(fn, runs: int = 50) -> float:
+    """Mean host ms of one ``fn()`` enqueue (no synchronisation in the
+    loop)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    ms = (time.perf_counter() - t0) / runs * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def _group(name: str) -> str:
@@ -717,9 +739,13 @@ def ntxent_profile(device) -> dict:
     mode and #6's two kernels at each (R, C, D) of ``NTXENT_STRIPS`` (rank
     3's rows of a world of C / R ranks in the NT-Xent mode, rank C / R -
     1's in the InfoNCE mode), and #5 cross-modal and #4 at each (R, C, D)
-    of ``DP_CLIP_STRIPS`` (rank C / R - 1's rows)."""
+    of ``DP_CLIP_STRIPS`` (rank C / R - 1's rows), #9 and #10 at each
+    (N, D) of ``INFONCE_SQUARE`` (with the host ms of one call at the
+    first) and #9's rectangular mode at each (R, C, D) of
+    ``INFONCE_RECT``."""
     from ..ops import ntxent
     from ..ops.infonce import (infonce_bwd_cols, infonce_bwd_rows,
+                               infonce_dual_bwd, infonce_dual_fwd,
                                infonce_dual_fwd_rect)
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -741,16 +767,10 @@ def ntxent_profile(device) -> dict:
             lambda: torch.autograd.grad(ntxent.ntxent_loss_fused(zg, t), zg),
             20)
         if rows == NTXENT_ROWS[0][0]:
-            for name, fn in (("fwd", lambda: ntxent.ntxent_fwd(z, t)),
-                             ("bwd",
-                              lambda: ntxent.ntxent_bwd_sym(z, lse, t))):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(50):
-                    fn()
-                out[f"{name}_{rows}_host_ms"] = (
-                    (time.perf_counter() - t0) / 50 * 1e3)
-                torch.cuda.synchronize()
+            out[f"fwd_{rows}_host_ms"] = _host_ms(
+                lambda: ntxent.ntxent_fwd(z, t))
+            out[f"bwd_{rows}_host_ms"] = _host_ms(
+                lambda: ntxent.ntxent_bwd_sym(z, lse, t))
     for rows, cols, d, infonce in NTXENT_STRIPS:
         if d > ntxent.MAX_DIM:
             continue  # an older tree's kernels do not take this width
@@ -781,6 +801,21 @@ def ntxent_profile(device) -> dict:
                          ("cols", infonce_bwd_cols)):
             out[f"dp_clip_{side}_{rows}x{cols}x{d}_ms"] = cuda_time_ms(
                 lambda: fn(*args), 20)
+    for n, d in INFONCE_SQUARE:
+        za, zb = unit_rows(n, d), unit_rows(n, d)
+        _, lse_a, lse_b = infonce_dual_fwd(za, zb, scale)
+        fwd = functools.partial(infonce_dual_fwd, za, zb, scale)
+        bwd = functools.partial(infonce_dual_bwd, za, zb, scale, lse_a,
+                                lse_b)
+        out[f"infonce_fwd_{n}x{d}_ms"] = cuda_time_ms(fwd, 20)
+        out[f"infonce_bwd_{n}x{d}_ms"] = cuda_time_ms(bwd, 20)
+        if n == INFONCE_SQUARE[0][0]:
+            out[f"infonce_fwd_{n}x{d}_host_ms"] = _host_ms(fwd)
+            out[f"infonce_bwd_{n}x{d}_host_ms"] = _host_ms(bwd)
+    for rows, cols, d in INFONCE_RECT:
+        za, zb = unit_rows(rows, d), unit_rows(cols, d)
+        out[f"infonce_rect_{rows}x{cols}x{d}_ms"] = cuda_time_ms(
+            functools.partial(infonce_dual_fwd_rect, za, zb, scale), 20)
     return out
 
 

@@ -22,7 +22,8 @@ over ``csrc/ntxent_tf32.cuh``), which runs without a card:
   side once;
 * the sources: both entry points launch ``bwd_walk`` through
   ``infonce_cross_bwd.cuh`` with the scratch and split arguments, and
-  the FMA walk of ``infonce_grad.cuh`` is left to the square #10.
+  the FMA walk of ``infonce_grad.cuh`` is left to #8's shard-pair mode
+  (the square #10 runs these walks too: ``test_torch_infonce_dual_sm90``).
 
 Tolerance: the emulation's products are fp32-accurate (3xTF32 drops
 lo.lo, 2^-22 relative) and the Pallas calls' are fp32, summed in other
@@ -260,17 +261,23 @@ def test_entry_points_run_the_tf32_walk(side, source):
 
 
 def test_only_the_square_kernel_keeps_the_fma_walk():
-    """``infonce_grad.cuh``'s grad_rows serves the square #10 only: the
-    columns source does not include it, and in the rows source every
-    grad_rows call sits in the square kernel."""
-    cols = _build.SOURCES["infonce_bwd_cols"].read_text()
-    assert "infonce_grad.cuh" not in cols and "grad_rows" not in cols
-    rows = _build.SOURCES["infonce_dual_bwd"].read_text()
-    square = rows[rows.index("infonce_dual_bwd_kernel("):]
-    square = square[:square.index("\n}\n")]
-    assert rows.count("grad_rows(") == square.count("grad_rows(") == 1
-    header = (_build.SOURCES["infonce_bwd_cols"].parent
-              / "infonce_cross_bwd.cuh").read_text()
+    """``infonce_grad.cuh``'s grad_rows is left to #8's shard-pair mode
+    alone: the square #10 now runs the TF32 walks of this header too, so
+    no InfoNCE source or header calls or includes the FMA walk, every
+    grad_rows call sits in ``ntxent_dual_grads.cu``, and the header keeps
+    no cross-modal (positive) term."""
+    csrc = _build.SOURCES["infonce_bwd_cols"].parent
+    for name in ("infonce_dual_fwd", "infonce_dual_bwd", "infonce_bwd_cols"):
+        text = _build.SOURCES[name].read_text()
+        assert "infonce_grad.cuh" not in text and "grad_rows(" not in text
+    callers = {name for name, path in _build.SOURCES.items()
+               if "grad_rows<" in path.read_text()}
+    assert callers == {"ntxent_dual_grads"}
+    dual = _build.SOURCES["ntxent_dual_grads"].read_text()
+    assert dual.count("grad_rows<T>(") == 2
+    fma = (csrc / "infonce_grad.cuh").read_text()
+    assert "float pos" not in fma and "kDual" not in fma
+    header = (csrc / "infonce_cross_bwd.cuh").read_text()
     assert "bwd_walk<kSplit, ND>" in header and "grad_rows" not in header
     kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
                          r"\s+(\w+)\(", header)

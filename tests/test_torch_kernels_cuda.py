@@ -50,8 +50,9 @@ Tolerances (max abs error against the plain version on the card):
   loss_sum/2N, 2e-4 on o_a and o_b (rows of G sum to at most 4 in
   absolute value, times unit-norm embeddings); the data-parallel modes
   (rows x columns with global row ids) the same bounds, for the same
-  reasons. #5's cross-modal mode and #4 run on the TF32 walk (3xTF32
-  for fp32) and are held to the TF32 control as the NT-Xent kernels are.
+  reasons. #9 (both modes), #10, #5's cross-modal mode and #4 run on the
+  TF32 walks (3xTF32 for fp32) and are held to the TF32 control as the
+  NT-Xent kernels are.
 """
 
 import numpy as np
@@ -760,6 +761,57 @@ def test_cuda_infonce_kernels_match_plain_versions(shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 1000, 8192])
+def test_cuda_infonce_kernels_beat_the_tf32_control(n):
+    """fp32 at D = 512: the 3xTF32 #9 and #10 err at least 10x less on lse
+    and on the gradients than one TF32 pass (the plain versions on za, zb
+    rounded to TF32), the gradients at the plain forward's lse."""
+    dev = _cuda()
+    za = _unit_rows(n, 512, seed=n, device=dev)
+    zb = _unit_rows(n, 512, seed=n + 1, device=dev)
+    scale = torch.tensor(INFONCE_SCALE, device=dev)
+    _, *lse = I.infonce_dual_fwd_plain(za, zb, scale)
+    za_c, zb_c = N.tf32_split(za)[0], N.tf32_split(zb)[0]
+    got = (*I.infonce_dual_fwd(za, zb, scale)[1:],
+           *I.infonce_dual_bwd(za, zb, scale, *lse))
+    ctl = (*I.infonce_dual_fwd_plain(za_c, zb_c, scale)[1:],
+           *I.infonce_dual_bwd_plain(za_c, zb_c, scale, *lse))
+    want = (*lse, *I.infonce_dual_bwd_plain(za, zb, scale, *lse))
+    torch.cuda.synchronize()
+    for part in (slice(0, 2), slice(2, 4)):  # lse, then the gradients
+        k = max((g - w).abs().max().item()
+                for g, w in zip(got[part], want[part]))
+        c = max((g - w).abs().max().item()
+                for g, w in zip(ctl[part], want[part]))
+        assert k <= INFONCE_ATOL
+        assert TF32_CONTROL_FACTOR * k <= c, (part, k, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", NTX_EDGE_DIMS)
+def test_cuda_infonce_kernels_take_every_width(d):
+    """D padded to 32, one to four chunks of D in #10, and the fp32 row
+    tile streaming through the ring past D = 256, at a ragged N in both
+    modes of #9."""
+    dev = _cuda()
+    za = _unit_rows(1000, d, seed=d, device=dev)
+    zb = _unit_rows(1000, d, seed=d + 1, device=dev)
+    scale = torch.tensor(INFONCE_SCALE, device=dev)
+    loss, lse_a, lse_b = I.infonce_dual_fwd(za, zb, scale)
+    o_a, o_b = I.infonce_dual_bwd(za, zb, scale, lse_a, lse_b)
+    rect = I.infonce_dual_fwd_rect(za[:101], zb, scale)
+    loss_ref, *lse_ref = I.infonce_dual_fwd_plain(za, zb, scale)
+    o_ref = I.infonce_dual_bwd_plain(za, zb, scale, lse_a, lse_b)
+    rect_ref = I.infonce_dual_fwd_rect_plain(za[:101], zb, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(loss / 2000, loss_ref / 2000,
+                               atol=INFONCE_ATOL, rtol=0)
+    for got, want in zip((lse_a, lse_b, o_a, o_b, *rect),
+                         (*lse_ref, *o_ref, *rect_ref)):
+        torch.testing.assert_close(got, want, atol=INFONCE_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
 def test_cuda_info_nce_fused_gradients_match_the_cpu():
     """za, zb and the learnable scale get the CPU's gradients."""
     dev = _cuda()
@@ -818,6 +870,8 @@ def test_cuda_dp_infonce_kernels_match_plain_versions(shape, dtype):
                       (o_b, ref_ob)):
         torch.testing.assert_close(got, want, atol=INFONCE_ATOL, rtol=0)
     # one owner per output row, no atomics: bitwise repeatable
+    again_a, again_b = I.infonce_dual_fwd_rect(za, zb, scale)
+    assert torch.equal(again_a, lse_a) and torch.equal(again_b, lse_b)
     assert torch.equal(I.infonce_bwd_cols(za, zb, gid, scale, lse_a, lse_b),
                        o_b)
     assert torch.equal(I.infonce_bwd_rows(za, zb, gid, scale, lse_a, lse_b),
@@ -848,6 +902,28 @@ def test_cuda_dp_infonce_backward_beats_the_tf32_control(shape):
         k, c = (got - want).abs().max().item(), (ctl - want).abs().max().item()
         assert k <= INFONCE_ATOL
         assert TF32_CONTROL_FACTOR * k <= c, (kernel.__name__, k, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DP_INFONCE_SHAPES[:3],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_dp_infonce_forward_beats_the_tf32_control(shape):
+    """fp32: the 3xTF32 #9 rectangular errs at least 10x less on both lse
+    than one TF32 pass."""
+    dev = _cuda()
+    rows, cols, d = shape
+    za = _unit_rows(rows, d, seed=rows, device=dev)
+    zb = _unit_rows(cols, d, seed=cols + 1, device=dev)
+    scale = torch.tensor(INFONCE_SCALE, device=dev)
+    want = I.infonce_dual_fwd_rect_plain(za, zb, scale)
+    got = I.infonce_dual_fwd_rect(za, zb, scale)
+    ctl = I.infonce_dual_fwd_rect_plain(N.tf32_split(za)[0],
+                                        N.tf32_split(zb)[0], scale)
+    torch.cuda.synchronize()
+    k = max((g - w).abs().max().item() for g, w in zip(got, want))
+    c = max((g - w).abs().max().item() for g, w in zip(ctl, want))
+    assert k <= INFONCE_ATOL
+    assert TF32_CONTROL_FACTOR * k <= c, (k, c)
 
 
 @pytest.mark.cuda

@@ -41,14 +41,14 @@ from ntxent_tpu_torch.utils import profiling
      "(...)", "ntxent_bwd_general_rows"),
     ("void (anonymous namespace)::ntxent_bwd_general_cols_prep<__nv_"
      "bfloat16, false>(...)", "ntxent_bwd_general_cols"),
-    ("void (anonymous namespace)::infonce_dual_fwd_kernel<float>(...)",
-     "infonce_dual_fwd"),
+    ("void (anonymous namespace)::infonce_dual_fwd_walk<true>("
+     "CUtensorMap_st, ...)", "infonce_dual_fwd"),
     ("(anonymous namespace)::infonce_loss_reduce(float const*, int, float*)",
      "infonce_dual_fwd"),
-    ("void (anonymous namespace)::infonce_dual_bwd_kernel<__nv_bfloat16>"
-     "(...)", "infonce_dual_bwd"),
-    ("void (anonymous namespace)::infonce_fwd_rect_kernel<float>(...)",
-     "infonce_dual_fwd_rect"),
+    ("void (anonymous namespace)::infonce_dual_bwd_walk<false, 128>("
+     "ntx::BwdMaps, ...)", "infonce_dual_bwd"),
+    ("void (anonymous namespace)::infonce_fwd_rect_walk<true>("
+     "CUtensorMap_st, ...)", "infonce_dual_fwd_rect"),
     ("void (anonymous namespace)::infonce_bwd_rows_kernel<float>(...)",
      "infonce_bwd_rows"),
     ("void (anonymous namespace)::infonce_bwd_cols_kernel<__nv_bfloat16>"
@@ -114,6 +114,21 @@ def test_tf32_infonce_backward_kernels_group_under_their_wrappers():
                      f"CUtensorMap_st, CUtensorMap_st, ...)")
         side = "rows" if "_rows_" in name else "cols"
         assert profiling._group(demangled) == f"infonce_bwd_{side}", name
+
+
+@pytest.mark.parametrize("source", ["infonce_dual_fwd", "infonce_dual_bwd"])
+def test_tf32_infonce_dual_kernels_group_under_their_wrappers(source):
+    """Every kernel of the TF32 #9 (both modes: prep, walk, merge, reduce)
+    and #10 (prep, walk, sum) groups under the wrapper that launches it,
+    never under cuBLAS's "matmul"."""
+    names = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
+                       r"\s+(\w+)\(", _build.SOURCES[source].read_text())
+    assert len(names) >= 3
+    for name in names:
+        demangled = (f"void (anonymous namespace)::{name}<true>("
+                     f"CUtensorMap_st, CUtensorMap_st, ...)")
+        wrapper = "infonce_dual_fwd_rect" if "_rect_" in name else source
+        assert profiling._group(demangled) == wrapper, name
 
 
 @pytest.mark.parametrize("argv", [["--bucket", "1"],
