@@ -12,7 +12,7 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``nvcc`` per source, all started together, timed; the registers and
    spill bytes ptxas reports for every kernel it compiled (among them
    the TMA/wgmma #11, #12, #13 and #14 in bf16, at head_dim 64 and
-   128, and the TF32 wgmma #1, #4, #5, #6, #9 and #10);
+   128, and the TF32 wgmma #1, #4-#10);
 2a. data-parallel InfoNCE kernels: ``infonce_dual_fwd_rect`` (#9's
    rectangular stats-only mode), ``infonce_bwd_rows`` (#5's cross-modal
    mode) and ``infonce_bwd_cols`` (#4) against their plain versions at
@@ -140,12 +140,14 @@ Phases; any failure ends the run with a non-zero exit and no result:
    #1 and #6 rows and columns, 12/12/12 of the flash kernels and none of
    #4, #5 cross-modal, #9 or #10; step ms of both;
 12c. shard-pair kernels: ``block_lse_dual`` (#7) and ``block_grads_dual``
-   (#8) against their plain versions at (R, C, D) = (512, 512, 128) (the
-   self tile of the pair path of this run), (128, 128, 128) and (2048,
-   2048, 128) (the k = 1 tile of one rank of 4 at global batch 256 and
-   4096) and a ragged (100, 260, 96) with scattered, shared and sentinel
-   ids, fp32 and bf16, bitwise repeatable; CUDA-event times beside the
-   bound;
+   (#8; TF32 wgmma walks, #9's and #10's) against their plain versions at
+   (R, C, D) = (512, 512, 128) (the self tile of the pair path of this
+   run), (128, 128, 128) and (2048, 2048, 128) (the k = 1 tile of one rank
+   of 4 at global batch 256 and 4096) and a ragged (100, 260, 96) with
+   scattered, shared and sentinel ids, fp32 and bf16, bitwise repeatable;
+   in fp32 at (512, 512, 128) and (2048, 2048, 128) at least 10x below a
+   one-pass TF32 control's lse and gradient errors, their walks' ptxas
+   registers and spills printed; CUDA-event times beside the bound;
 12d. triangular kernels: ``ntxent_fwd_tri`` (#2) and ``ntxent_bwd_tri``
    (#3) against their plain versions and against #1 + #5 at 2N = 512, 8192
    and 300 (D = 128), fp32 and bf16; one ``ntxent_loss_fused(...,
@@ -2792,8 +2794,9 @@ def _pair_ids(rows: int, cols: int, world, seed: int):
 def _pair_bounds(rows: int, cols: int, d: int, itemsize: int):
     """Bounds of #7 and #8 at (R, C, D): each input read once (z_rows,
     z_cols, both ids; both lse for #8), each output written once (both
-    lse; both fp32 gradients for #8); 2 R C D and 6 R C D operations at
-    the fp32 peak (bf16 inputs are widened to fp32)."""
+    lse; both fp32 gradients for #8); 2 R C D and 6 R C D operations (the
+    TPU kernels' work) at the fp32-accurate 3xTF32 rate (bf16 inputs are
+    widened to fp32)."""
     z = (rows + cols) * d * itemsize
     ids = lse = (rows + cols) * 4
     return (_bound(z + ids + lse, 2 * rows * cols * d, PEAK_FP32_FLOPS),
@@ -2801,9 +2804,41 @@ def _pair_bounds(rows: int, cols: int, d: int, itemsize: int):
                    6 * rows * cols * d, PEAK_FP32_FLOPS))
 
 
-def phase_pair_kernels() -> list[dict]:
+def _pair_tf32_control(rows: int, cols: int, d: int, world):
+    """((lse, gradient) of #7 + #8, (lse, gradient) of one TF32 pass): max
+    abs errors in fp32 against the plain versions at the tile's ids, the
+    gradients all at the plain lse; the control is the plain versions on
+    z_rows, z_cols rounded to TF32 once."""
+    import torch
+
+    from ntxent_tpu_torch.ops import ntxent as N
+
+    t = NTX_TEMPERATURE
+    rid, cid, total = _pair_ids(rows, cols, world, seed=rows)
+    zr = _unit_rows(rows, d, "float32", seed=rows + d)
+    zc = _unit_rows(cols, d, "float32", seed=cols + d + 3)
+    lse = N.block_lse_dual_plain(zr, zc, rid, cid, t, total)
+    grads = N.block_grads_dual_plain(zr, zc, rid, cid, *lse, t, total)
+    got_lse = N.block_lse_dual(zr, zc, rid, cid, t, total)
+    got_grads = N.block_grads_dual(zr, zc, rid, cid, *lse, t, total)
+    zr_c, zc_c = N.tf32_split(zr)[0], N.tf32_split(zc)[0]
+    ctl_lse = N.block_lse_dual_plain(zr_c, zc_c, rid, cid, t, total)
+    ctl_grads = N.block_grads_dual_plain(zr_c, zc_c, rid, cid, *lse, t,
+                                         total)
+    torch.cuda.synchronize()
+
+    def err(got, want):
+        return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+    return ((err(got_lse, lse), err(got_grads, grads)),
+            (err(ctl_lse, lse), err(ctl_grads, grads)))
+
+
+def phase_pair_kernels(build_logs: dict) -> list[dict]:
     """#7 and #8 against their plain versions at every shape and dtype,
-    each bitwise repeatable, then times at the fp32 shapes."""
+    each bitwise repeatable; in fp32 at the self tile and at r4/4096 at
+    least TF32_CONTROL_FACTOR below a one-pass TF32 control; ptxas's
+    report of their walks; then times at the fp32 shapes."""
     import torch
 
     from ntxent_tpu_torch.ops import ntxent as N
@@ -2845,6 +2880,24 @@ def phase_pair_kernels() -> list[dict]:
                 errs = {"block_lse_dual": stats_err,
                         "block_grads_dual": grads_err}
             del zr, zc, got, again, ref
+
+    for rows, cols, d, world in (PAIR_CASES[0], PAIR_CASES[2]):
+        kernel, control = _pair_tf32_control(rows, cols, d, world)
+        ok = all(k <= NTX_ATOL and TF32_CONTROL_FACTOR * k <= c
+                 for k, c in zip(kernel, control))
+        print(f"[pair-kernel] TF32 control R={rows} C={cols} D={d} fp32: "
+              f"kernels lse {kernel[0]:.3e} grad {kernel[1]:.3e}, one TF32 "
+              f"pass lse {control[0]:.3e} grad {control[1]:.3e} (ratios "
+              f"{control[0] / max(kernel[0], 1e-30):.1f}, "
+              f"{control[1] / max(kernel[1], 1e-30):.1f}; at least "
+              f"{TF32_CONTROL_FACTOR}) {'ok' if ok else 'MISSED'}",
+              flush=True)
+        if not ok:
+            fail(f"#7 and #8 are not {TF32_CONTROL_FACTOR}x more accurate "
+                 f"than one TF32 pass at R={rows} C={cols}")
+    for name in ("ntxent_dual_stats", "ntxent_dual_grads"):
+        for line in _ptxas_walks(build_logs, name):
+            print(f"[pair-kernel] ptxas {name}: {line}", flush=True)
 
     times = {}
     for rows, cols, d, world in PAIR_CASES[:3]:
@@ -3849,7 +3902,8 @@ def main() -> int:
     kernels = [phase_kernels(), *phase_ntxent_kernels(build_logs),
                *phase_flash_backward(), *phase_infonce_kernels(build_logs),
                *phase_general_kernels(), *dp_clip_kernels,
-               *phase_pair_kernels(), *tri_kernels, fold_kernel]
+               *phase_pair_kernels(build_logs), *tri_kernels,
+               fold_kernel]
     kernels[1]["retimed_ms"] = sym_retimed_ms
     phase_emulated_ranks()
     phase_dp_clip_emulated_ranks()

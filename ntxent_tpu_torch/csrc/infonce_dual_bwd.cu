@@ -20,10 +20,11 @@
 // atomics, a CTA that owns rows of o_a cannot also own o_b's, so each side
 // forms s again: 8 N^2 D operations against the TPU kernel's 6 N^2 D.)
 //
-// Design. Three launches: one operand prep writes za's and zb's TF32 hi
-// and lo and their transposes (PrepPair); one walk launch covers both
-// sides, its leading CTAs taking the rows policy and the rest the columns
-// policy, each a bwd_walk over (64-row tile of its own side, split of the
+// Design (dual_bwd_launch of dual_tf32.cuh, which #8 shares). Three
+// launches: one operand prep writes za's and zb's TF32 hi and lo and their
+// transposes (PrepPair); one walk launch covers both sides, its leading
+// CTAs taking the rows policy and the rest the columns policy, each a
+// bwd_walk_at over (64-row tile of its own side, split of the
 // other side, chunk of D of at most 128): s by 3xTF32 wgmma (two products
 // for bf16) from a TMA ring, G in the accumulator fragment, and G . z_other
 // with G as the register A operand, a fresh accumulator per 64-column tile
@@ -65,6 +66,7 @@
 // (n_r, D) and (n_c, D) with int32 row ids. The C entry points return
 // cudaGetLastError().
 
+#include "dual_tf32.cuh"
 #include "infonce_cross_bwd.cuh"
 
 namespace {
@@ -80,33 +82,29 @@ __global__ void __launch_bounds__(kPrepThreads)
   prep_pair<T, kSplit>(a);
 }
 
-// Both sides in one grid. blockIdx.x below tiles * splits: the rows side
-// (own = za, o_a = G . zb), above: the columns side (own = zb, o_b = G^T .
-// za); within a side, x = split * tiles + tile. blockIdx.y: the chunk of D.
+// Both sides in one grid (dual_tf32.cuh): side a the rows side (own = za,
+// o_a = G . zb), side b the columns side (own = zb, o_b = G^T . za).
+// blockIdx.y: the chunk of D.
 template <bool kSplit, int ND>
 __global__ void __launch_bounds__(kThreads, 1)
     infonce_dual_bwd_walk(const __grid_constant__ BwdMaps rows,
                           const __grid_constant__ BwdMaps cols, Inputs in,
                           float* __restrict__ out_a,
-                          float* __restrict__ out_b, Plan p, int d,
-                          int split_cols, int tiles, int splits) {
-  const int n = in.n_r;
-  const int side_ctas = tiles * splits;
-  const bool col_side = static_cast<int>(blockIdx.x) >= side_ctas;
-  const int x = col_side ? blockIdx.x - side_ctas : blockIdx.x;
-  const int tile = x % tiles;
-  const int split = x / tiles;
+                          float* __restrict__ out_b, Plan p, DualGrid grid) {
+  const DualCta c = dual_cta(grid);
   const float logit_scale = scaled_inv_t(1.f, in.scale);
-  if (!col_side) {
+  if (!c.b) {
     CrossRowsG g{in, logit_scale};
     bwd_walk_at<kSplit, ND>(&rows.own_h, &rows.own_l, &rows.oth_h,
-                            &rows.oth_l, &rows.oth_ht, &rows.oth_lt, g, out_a,
-                            p, n, n, d, split_cols, tile, split, blockIdx.y);
+                            &rows.oth_l, &rows.oth_ht, &rows.oth_lt, g,
+                            out_a, p, grid.n_a, grid.n_b, grid.d,
+                            grid.split_cols_a, c.tile, c.split, blockIdx.y);
   } else {
     CrossColsG g{in, logit_scale};
     bwd_walk_at<kSplit, ND>(&cols.own_h, &cols.own_l, &cols.oth_h,
-                            &cols.oth_l, &cols.oth_ht, &cols.oth_lt, g, out_b,
-                            p, n, n, d, split_cols, tile, split, blockIdx.y);
+                            &cols.oth_l, &cols.oth_ht, &cols.oth_lt, g,
+                            out_b, p, grid.n_b, grid.n_a, grid.d,
+                            grid.split_cols_b, c.tile, c.split, blockIdx.y);
   }
 }
 
@@ -114,94 +112,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 __global__ void infonce_dual_bwd_sum(const float* __restrict__ part_a,
                                      const float* __restrict__ part_b,
                                      float* __restrict__ o_a,
-                                     float* __restrict__ o_b, size_t count,
-                                     int splits) {
-  split_sum(part_a, o_a, count, splits);
-  split_sum(part_b, o_b, count, splits);
-}
-
-// The scratch of one call: za's and zb's hi and lo (N, Dp) and their
-// transposes (DT, Cp) fp32 (the lo copies only for fp32), and with more
-// than one split the partial outputs, splits * N * D fp32 each side. The
-// rows side reads za as own and zb as the other side, the columns side
-// the reverse.
-struct Buffers {
-  BwdBuffers rows, cols;
-};
-
-Buffers carve(Carver& c, int n, int d, bool split, int splits) {
-  const size_t ops = size_t(n) * padded_d(d);
-  const size_t ops_t = size_t(padded_dt(d)) * padded_cols(n);
-  const size_t part = splits > 1 ? size_t(splits) * n * d : 0;
-  Buffers b{};
-  b.rows.own_h = b.cols.oth_h = c.take(ops);  // za
-  b.rows.own_l = b.cols.oth_l = c.take(split ? ops : 0);
-  b.cols.own_h = b.rows.oth_h = c.take(ops);  // zb
-  b.cols.own_l = b.rows.oth_l = c.take(split ? ops : 0);
-  b.cols.oth_ht = c.take(ops_t);  // za^T
-  b.cols.oth_lt = c.take(split ? ops_t : 0);
-  b.rows.oth_ht = c.take(ops_t);  // zb^T
-  b.rows.oth_lt = c.take(split ? ops_t : 0);
-  b.rows.part = c.take(part);
-  b.cols.part = c.take(part);
-  return b;
+                                     float* __restrict__ o_b, DualGrid g) {
+  dual_sum(part_a, part_b, o_a, o_b, g);
 }
 
 struct Call {
   const void *za, *zb;
   Inputs in;
   float *o_a, *o_b;
-  int n, d, splits, split_cols;
+  DualGrid g;
 };
 
 template <typename T, int ND>
-cudaError_t launch(const Call& a, const Buffers& b, cudaStream_t stream) {
+cudaError_t launch(const Call& a, const DualBwdBuffers& b,
+                   cudaStream_t stream) {
   constexpr bool kSplit = std::is_same<T, float>::value;
-  const int n = a.n;
-  const int d = a.d;
-  const int blocks = padded_cols(n) / 32;
-  const PrepPair<T> pair{
-      {static_cast<const T*>(a.za), static_cast<const T*>(a.zb)},
-      {n, n},
-      {b.rows.own_h, b.cols.own_h},
-      {b.rows.own_l, b.cols.own_l},
-      {b.cols.oth_ht, b.rows.oth_ht},
-      {b.cols.oth_lt, b.rows.oth_lt},
-      d,
-      blocks};
-  infonce_dual_bwd_prep<T, kSplit>
-      <<<dim3(2 * blocks, padded_dt(d) / 32), kPrepThreads, 0, stream>>>(
-          pair);
-  cudaError_t err = cudaGetLastError();
-  BwdMaps rows, cols;
-  if (err == cudaSuccess) err = bwd_maps<kSplit, ND>(&rows, b.rows, n, n, d);
-  if (err == cudaSuccess) err = bwd_maps<kSplit, ND>(&cols, b.cols, n, n, d);
-  const Plan p = bwd_plan<ND>(d, kSplit);
-  auto walk = infonce_dual_bwd_walk<kSplit, ND>;
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(walk,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               p.bytes + 1024);
-  }
-  if (err != cudaSuccess) return err;
-  const int tiles = (n + kTile - 1) / kTile;
-  const bool one = a.splits == 1;
-  walk<<<dim3(2 * tiles * a.splits, padded_dt(d) / ND), kThreads,
-         p.bytes + 1024, stream>>>(rows, cols, a.in,
-                                   one ? a.o_a : b.rows.part,
-                                   one ? a.o_b : b.cols.part, p, d,
-                                   a.split_cols, tiles, a.splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || one) return err;
-  const size_t count = size_t(n) * d;
-  infonce_dual_bwd_sum<<<sum_blocks(count), 256, 0, stream>>>(
-      b.rows.part, b.cols.part, a.o_a, a.o_b, count, a.splits);
-  return cudaGetLastError();
+  return dual_bwd_launch<T, ND>(a.za, a.zb, a.g, a.o_a, a.o_b, b,
+                                infonce_dual_bwd_prep<T, kSplit>,
+                                infonce_dual_bwd_walk<kSplit, ND>,
+                                infonce_dual_bwd_sum, a.in, stream);
 }
 
 template <typename T>
-cudaError_t dispatch(const Call& a, const Buffers& b, cudaStream_t s) {
-  switch (d_chunk(a.d)) {
+cudaError_t dispatch(const Call& a, const DualBwdBuffers& b,
+                     cudaStream_t s) {
+  switch (d_chunk(a.g.d)) {
     case 32:
       return launch<T, 32>(a, b, s);
     case 64:
@@ -217,7 +152,7 @@ cudaError_t dispatch(const Call& a, const Buffers& b, cudaStream_t s) {
 extern "C" long long ntx_infonce_dual_bwd_scratch(int n, int d, int dtype,
                                                   int splits) {
   Carver c{nullptr};
-  carve(c, n, d, dtype == 0, splits);
+  dual_bwd_carve(c, n, n, d, dtype == 0, splits, splits);
   return static_cast<long long>(c.used);
 }
 
@@ -243,9 +178,10 @@ extern "C" int ntx_infonce_dual_bwd(const void* za, const void* zb,
                   static_cast<const float*>(lse_b),
                   static_cast<const float*>(scale), n, n};
   const Call a{za, zb, in, static_cast<float*>(o_a), static_cast<float*>(o_b),
-               n, d, splits, split_cols};
+               dual_grid(n, n, d, splits, split_cols, splits, split_cols)};
   Carver c{static_cast<float*>(scratch)};
-  const Buffers b = carve(c, n, d, dtype == 0, splits);
+  const DualBwdBuffers b =
+      dual_bwd_carve(c, n, n, d, dtype == 0, splits, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(a, b, s);
   return dispatch<__nv_bfloat16>(a, b, s);

@@ -24,23 +24,22 @@
 //
 // Design. The TPU kernel forms each s tile once and folds it into both
 // directions' online softmax, the columns' carried across its sequential
-// grid. Here one walk of ntxent_tf32.cuh (#1's: operand prep, TMA ring,
-// wgmma) forms each s tile once too, and folds it both ways in the same
-// registers. Four launches (three in the stats-only mode):
+// grid. Here the dual walk of dual_tf32.cuh (on #1's walk of
+// ntxent_tf32.cuh: operand prep, TMA ring, wgmma) forms each s tile once
+// too, and folds it both ways in the same registers. Four launches (three
+// in the stats-only mode):
 //   prep   TF32 hi and lo of za and of zb, one launch (PrepPair);
 //   walk   one CTA per (64-row tile of za, split of zb's columns, planned
 //          by ops/ntxent.py's column_splits); per 64-column tile s = za .
 //          zb^T * scale by wgmma m64n64k8 from the ring (3xTF32 for fp32,
-//          one pass for bf16, whose lo is 0). The row direction: the online
-//          (m, l) of #1 (online_rows), one (m, l, pos) partial per row and
-//          split. The column direction: each column's max over the tile's
-//          64 rows and the sum of exp0(s - max) against it. A CTA visits a
-//          column tile once, so this needs no rescale, only a reduction
-//          over rows: a thread's two rows, the 8 row-lanes of its column
-//          (shuffles over lane bits 2-4), then the 4 warps through shared
-//          memory (two 2 KB buffers by tile parity, so one barrier a phase
-//          suffices), summed in warp order. One (m, l) partial per column
-//          and row tile;
+//          one pass for bf16, whose lo is 0). The column direction: each
+//          column's max over the tile's 64 rows and the sum of exp0(s -
+//          max) against it, reduced over the row-lanes by shuffle and over
+//          the warps through shared memory, one (m, l) partial per column
+//          and row tile. The row direction: the online (m, l) of #1
+//          (online_rows), one (m, l, pos) partial per row and split. The
+//          mask (LiveMask) leaves out columns past the split or past n_b
+//          and rows past n_a, in both directions alike;
 //   merge  index i: row i's split partials in split order, column i's row
 //          tile partials in tile order (fold_partial), the floor, lse_a[i]
 //          and lse_b[i]; square: the block's (lse_a - s_ii) + (lse_b - s_ii)
@@ -62,17 +61,11 @@
 // fp32 the row tile streams through the ring). The C entry points return
 // cudaGetLastError().
 
-#include "ntxent_tf32.cuh"
+#include "dual_tf32.cuh"
 
 namespace {
 
 using namespace ntx;
-
-constexpr int kWarps = kWarpgroup / 32;  // the consumer warps
-// The column reduction's shared memory beside the ring: per tile parity,
-// the warps' column maxima, then their sums, 64 columns a warp.
-constexpr int kColFloats = kWarps * kTile;
-constexpr int kColBytes = 2 * 2 * kColFloats * 4;
 
 // What the walk takes besides the maps and the layout: the scale on the
 // device; part_r, three planes (m, l, pos), each (splits, n_a); part_c,
@@ -83,200 +76,24 @@ struct DualArgs {
   float* part_c;
 };
 
-// The column index of accumulator entry j = 2g + e of lane q: 8g + 2q + e.
-__device__ __forceinline__ int col_of(int j, int q) {
-  return 8 * (j / 2) + 2 * q + j % 2;
-}
-
-// x[j] of this thread combined with the 8 row-lanes of its column (lane
-// bits 2-4) by `op`, in a fixed shuffle order.
-template <class Op>
-__device__ __forceinline__ void over_row_lanes(float (&x)[16], Op op) {
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      x[j] = op(x[j], __shfl_xor_sync(0xffffffffu, x[j], off));
-    }
-  }
-}
-
-template <bool kSplit, bool kLoss>
-__device__ __forceinline__ void dual_walk(const CUtensorMap* tm_rh,
-                                          const CUtensorMap* tm_rl,
-                                          const CUtensorMap* tm_ch,
-                                          const CUtensorMap* tm_cl,
-                                          const DualArgs& a, const Plan& p,
-                                          int n_a, int n_b, int split_cols) {
-  extern __shared__ unsigned char raw[];
-  unsigned char* smem = sm90::aligned_smem(raw);
-  uint64_t* bars = walk_barriers(smem, p);
-  Ring ring(smem, bars, p);
-  const int row0 = blockIdx.x * kTile;
-  const int split = blockIdx.y;
-  const int cb = split * split_cols;
-  const int ce = min(cb + split_cols, n_b);
-  const int tiles = (ce - cb + kTile - 1) / kTile;
-
-  if (threadIdx.x >= kWarpgroup) {  // the producer warp
-    if (threadIdx.x == kWarpgroup) {
-      fwd_produce<kSplit>(smem, bars, p, ring, tm_rh, tm_rl, tm_ch, tm_cl,
-                          row0, cb, tiles);
-    }
-    return;
-  }
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r = 16 * warp + lane / 4;
-  const int q = lane % 4;
-  const float scale = __ldg(a.scale);
-  float* col_stats = reinterpret_cast<float*>(smem + p.extra);
+// #9's mask: every entry counts in both directions but those of columns
+// past the split or past n_b and of rows past n_a.
+struct LiveMask {
+  int n_a, ce;
   bool live[2];
-  float m[2], l[2], pos[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    live[h] = row0 + r + 8 * h < n_a;
-    m[h] = kNegInf;
-    l[h] = 0.f;
-    pos[h] = 0.f;
-  }
-  wait_rows(bars, p);
-  for (int t = 0; t < tiles; ++t) {
-    const int col0 = cb + t * kTile;
-    float s[32];
-    s_tile<kSplit>(smem, p, ring, s);
 
-    // Entry i: row r + 8h, column col0 + col_of(j, q). Columns past the
-    // split mask the row direction, rows past n_a the column direction;
-    // an entry is read only in the direction whose output it feeds.
-    float row_max[2] = {kNegInf, kNegInf};
-    float col[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) col[j] = kNegInf;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i / 2) % 2;
-      const int j = 2 * (i / 4) + i % 2;
-      const int c = col0 + col_of(j, q);
-      const float x = s[i] * scale;
-      if (kLoss && c < ce && c == row0 + r + 8 * h) pos[h] += x;
-      s[i] = (c < ce && live[h]) ? x : kNegInf;
-      row_max[h] = fmaxf(row_max[h], s[i]);
-      col[j] = fmaxf(col[j], s[i]);
-    }
-
-    // The column direction: each column's max over the tile's rows, then
-    // the sum of exp0(s - max).
-    float* maxes = col_stats + (t & 1) * 2 * kColFloats;
-    float* sums = maxes + kColFloats;
-    over_row_lanes(col, [](float x, float y) { return fmaxf(x, y); });
-    if (lane < 4) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) maxes[warp * kTile + col_of(j, q)] = col[j];
-    }
-    consumers_sync();
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = col_of(j, q);
-      col[j] = fmaxf(fmaxf(maxes[c], maxes[kTile + c]),
-                     fmaxf(maxes[2 * kTile + c], maxes[3 * kTile + c]));
-    }
-    float sum[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) sum[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int j = 2 * (i / 4) + i % 2;
-      sum[j] += exp0(s[i] - col[j]);
-    }
-    over_row_lanes(sum, [](float x, float y) { return x + y; });
-    if (lane < 4) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) sums[warp * kTile + col_of(j, q)] = sum[j];
-    }
-    consumers_sync();
-    const int c = threadIdx.x;
-    if (c < kTile && col0 + c < ce) {
-      const float mc = fmaxf(fmaxf(maxes[c], maxes[kTile + c]),
-                             fmaxf(maxes[2 * kTile + c], maxes[3 * kTile + c]));
-      const float lc = ((sums[c] + sums[kTile + c]) + sums[2 * kTile + c]) +
-                       sums[3 * kTile + c];
-      const size_t at = size_t(blockIdx.x) * n_b + col0 + c;
-      a.part_c[at] = mc;
-      a.part_c[size_t(gridDim.x) * n_b + at] = lc;
-    }
-
-    // The row direction, as #1's walk folds it.
-    online_rows(s, row_max, m, l);
+  __device__ __forceinline__ void rows(int r) {
+    live[0] = r < n_a;
+    live[1] = r + 8 < n_a;
   }
-  // The diagonal sits in at most one thread of the row's quad.
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    pos[h] += __shfl_xor_sync(0xffffffffu, pos[h], 1);
-    pos[h] += __shfl_xor_sync(0xffffffffu, pos[h], 2);
-    const int row = row0 + r + 8 * h;
-    if (q == 0 && row < n_a) {
-      const size_t plane = size_t(gridDim.y) * n_a;
-      const size_t at = size_t(split) * n_a + row;
-      a.part_r[at] = m[h];
-      a.part_r[plane + at] = l[h];
-      if (kLoss) a.part_r[2 * plane + at] = pos[h];
-    }
+  __device__ __forceinline__ void tile(int, int ce_, int) { ce = ce_; }
+  __device__ __forceinline__ bool row_in(int h, int, int c) const {
+    return c < ce && live[h];
   }
-}
-
-// Index i: row i's split partials folded in split order into lse_a[i],
-// column i's row-tile partials in tile order into lse_b[i]. kLoss (square,
-// n_a = n_b): the block's sum of (lse_a - pos) + (lse_b - pos) over its
-// indices, in index order, into block_sum[blockIdx.x].
-template <bool kLoss>
-__device__ __forceinline__ void dual_merge(const float* __restrict__ part_r,
-                                           const float* __restrict__ part_c,
-                                           float* __restrict__ lse_a,
-                                           float* __restrict__ lse_b,
-                                           float* __restrict__ block_sum,
-                                           int n_a, int n_b, int splits) {
-  __shared__ float terms[kMergeThreads];
-  const int i = blockIdx.x * kMergeThreads + threadIdx.x;
-  float term = 0.f;
-  float pos = 0.f;
-  if (i < n_a) {
-    const size_t plane = size_t(splits) * n_a;
-    float m = kNegInf;
-    float l = 0.f;
-    for (int c = 0; c < splits; ++c) {
-      const size_t at = size_t(c) * n_a + i;
-      fold_partial(m, l, part_r[at], part_r[plane + at]);
-      if (kLoss) pos += part_r[2 * plane + at];
-    }
-    const float lse = m + logf(fmaxf(l, 1e-37f));
-    lse_a[i] = lse;
-    term = lse - pos;
+  __device__ __forceinline__ bool col_in(int h, int j, int c) const {
+    return row_in(h, j, c);
   }
-  if (i < n_b) {
-    const int row_tiles = (n_a + kTile - 1) / kTile;
-    const size_t plane = size_t(row_tiles) * n_b;
-    float m = kNegInf;
-    float l = 0.f;
-    for (int t = 0; t < row_tiles; ++t) {
-      const size_t at = size_t(t) * n_b + i;
-      fold_partial(m, l, part_c[at], part_c[plane + at]);
-    }
-    const float lse = m + logf(fmaxf(l, 1e-37f));
-    lse_b[i] = lse;
-    term += lse - pos;
-  }
-  if constexpr (kLoss) {
-    terms[threadIdx.x] = term;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float sum = 0.f;
-      for (int k = 0; k < kMergeThreads; ++k) sum += terms[k];
-      block_sum[blockIdx.x] = sum;
-    }
-  }
-}
+};
 
 // The kernels of each mode carry its name (the profiler groups by it).
 
@@ -294,8 +111,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap tm_cl,
                           DualArgs a, Plan p, int n_a, int n_b,
                           int split_cols) {
-  dual_walk<kSplit, true>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, a, p, n_a, n_b,
-                          split_cols);
+  LiveMask mask{n_a};
+  dual_walk<kSplit, true>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, mask,
+                          __ldg(a.scale), a.part_r, a.part_c, p, n_a,
+                          n_b, split_cols);
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
@@ -327,8 +146,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap tm_cl,
                           DualArgs a, Plan p, int n_a, int n_b,
                           int split_cols) {
-  dual_walk<kSplit, false>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, a, p, n_a, n_b,
-                           split_cols);
+  LiveMask mask{n_a};
+  dual_walk<kSplit, false>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, mask,
+                           __ldg(a.scale), a.part_r, a.part_c, p, n_a,
+                           n_b, split_cols);
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
@@ -340,24 +161,19 @@ __global__ void __launch_bounds__(kMergeThreads)
   dual_merge<false>(part_r, part_c, lse_a, lse_b, nullptr, n_a, n_b, splits);
 }
 
-// Merge blocks of one call: an index each for max(n_a, n_b) indices.
-int merge_blocks(int n_a, int n_b) {
-  return ((n_a > n_b ? n_a : n_b) + kMergeThreads - 1) / kMergeThreads;
-}
-
-// The scratch of one call: the operand copies (fwd_carve), part_r 3 *
-// splits * n_a, part_c 2 * ceil(n_a / 64) * n_b and block_sum
-// ceil(max(n_a, n_b) / 256) fp32.
+// The scratch of one call: the operand copies (fwd_carve), the walk's
+// partials (dual_carve: part_r 3 * splits * n_a, part_c 2 * ceil(n_a / 64)
+// * n_b) and block_sum ceil(max(n_a, n_b) / 256) fp32.
 struct Buffers {
   FwdBuffers ops;
-  float *part_r, *part_c, *block_sum;
+  DualParts parts;
+  float* block_sum;
 };
 
 Buffers carve(Carver& c, int n_a, int n_b, int d, bool split, int splits) {
   Buffers b{};
   b.ops = fwd_carve(c, n_a, n_b, d, split);
-  b.part_r = c.take(size_t(3) * splits * n_a);
-  b.part_c = c.take(size_t(2) * ((n_a + kTile - 1) / kTile) * n_b);
+  b.parts = dual_carve(c, n_a, n_b, splits, 3);
   b.block_sum = c.take(merge_blocks(n_a, n_b));
   return b;
 }
@@ -371,8 +187,8 @@ struct Call {
 template <typename T, bool kLoss>
 cudaError_t launch(const Call& a, const Buffers& b, cudaStream_t stream) {
   constexpr bool kSplit = std::is_same<T, float>::value;
-  const DualArgs args{static_cast<const float*>(a.scale), b.part_r,
-                      b.part_c};
+  const DualArgs args{static_cast<const float*>(a.scale), b.parts.part_r,
+                      b.parts.part_c};
   const T* za = static_cast<const T*>(a.za);
   const T* zb = static_cast<const T*>(a.zb);
   const int merges = merge_blocks(a.n_a, a.n_b);
@@ -384,7 +200,8 @@ cudaError_t launch(const Call& a, const Buffers& b, cudaStream_t stream) {
                         stream);
     if (err != cudaSuccess) return err;
     infonce_dual_fwd_merge<<<merges, kMergeThreads, 0, stream>>>(
-        b.part_r, b.part_c, a.lse_a, a.lse_b, b.block_sum, a.n_a, a.splits);
+        b.parts.part_r, b.parts.part_c, a.lse_a, a.lse_b, b.block_sum, a.n_a,
+        a.splits);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     infonce_loss_reduce<<<1, 32, 0, stream>>>(b.block_sum, merges, a.loss);
@@ -395,7 +212,8 @@ cudaError_t launch(const Call& a, const Buffers& b, cudaStream_t stream) {
                         stream);
     if (err != cudaSuccess) return err;
     infonce_fwd_rect_merge<<<merges, kMergeThreads, 0, stream>>>(
-        b.part_r, b.part_c, a.lse_a, a.lse_b, a.n_a, a.n_b, a.splits);
+        b.parts.part_r, b.parts.part_c, a.lse_a, a.lse_b, a.n_a, a.n_b,
+        a.splits);
   }
   return cudaGetLastError();
 }

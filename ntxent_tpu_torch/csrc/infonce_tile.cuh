@@ -1,8 +1,6 @@
-// Shared by the fp32 FMA tile kernels still on the first port's design:
-// the shard-pair kernels #7 (csrc/ntxent_dual_stats.cu) and #8
-// (csrc/ntxent_dual_grads.cu, through csrc/infonce_grad.cuh) and the
-// triangular #2 and #3 (csrc/ntxent_tri_*.cu): the register-blocked fp32
-// product of one 64 x 64 tile of s = a . b^T,
+// Shared by the fp32 FMA tile kernels still on the first port's design,
+// the triangular #2 and #3 (csrc/ntxent_tri_*.cu): the register-blocked
+// fp32 product of one 64 x 64 tile of s = a . b^T,
 // a (n_a, D) and b (n_b, D), over D in 32-wide slices staged in shared
 // memory.
 //

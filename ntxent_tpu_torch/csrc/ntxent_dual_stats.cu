@@ -1,5 +1,5 @@
-// NT-Xent dual statistics of one shard-pair tile for Hopper (sm_90a),
-// bound to PyTorch via ctypes.
+// NT-Xent dual statistics of one shard-pair tile for Hopper (sm_90a) on
+// TF32 tensor cores, bound to PyTorch via ctypes.
 //
 // Replaces the Pallas TPU kernel _dual_stats_kernel
 // (ntxent_tpu/ops/ntxent_pallas.py:1037, launched by block_lse_dual at
@@ -14,164 +14,217 @@
 //                 >= total or equals the column's id masked to -1e30
 //                 (the row direction of the mirror tile, which the pair
 //                 schedule never walks).
-// Each logsumexp is online over 64-vector tiles: m = max, l = l *
-// exp(m_old - m_new) + sum exp(min(s - m_new, 0)) (the _exp0 clamp), and
-// lse = m + log(max(l, 1e-37)) (the _log_l floor). A row whose every entry
-// is masked ends at m = -1e30, l = its count: lse = -1e30 in fp32, finite,
-// as on the TPU.
+// Each is summed as exp(min(s - m, 0)) (the _exp0 clamp) and closed as m +
+// log(max(l, 1e-37)) (the _log_l floor): a row or column whose every entry
+// is masked ends at -1e30, finite, as on the TPU. A real row or column
+// whose id is the sentinel still gets its logsumexp over the other side's
+// entries; only the other direction masks it.
 //
-// Design. The TPU kernel folds each s tile into full-length row AND column
-// scratch carried across its sequential grid. Hopper blocks run in no
-// order, so each output has one owner instead: the first ceil(R / 64)
-// CTAs own 64 rows each and walk every column tile; the next ceil(C / 64)
-// own 64 columns each and walk every row tile, computing s^T with the
-// operands swapped. Both sides mask with the same rule, "the other side's
-// id is >= total or equals mine", which is the row rule for row owners and
-// the column rule for column owners. s is the register-blocked fp32 FMA
-// product of infonce_tile.cuh (bf16 widened, no TF32), whose entries sum
-// over k in the same order whichever operand is a, so both sides see
-// bitwise the same logits. No atomics: repeatable. The matrix work is twice
-// the TPU kernel's (s formed once per side) and buys a single pass with no
-// merge.
+// Design. The TPU kernel forms each s tile once and folds it into the
+// rows' online softmax and, transposed, the columns', both carried across
+// its sequential grid. Here the dual walk of dual_tf32.cuh (#9's, on #1's
+// TF32 walk of ntxent_tf32.cuh) forms each s tile once too and folds it
+// both ways in the same registers. Three launches:
+//   prep   TF32 hi and lo of z_rows and of z_cols, one launch (PrepPair);
+//   walk   one CTA per (64-row tile of z_rows, split of z_cols's columns,
+//          planned by ops/ntxent.py's column_splits); per 64-column tile
+//          s = z_r . z_c^T * inv_t by wgmma m64n64k8 from a TMA ring
+//          (3xTF32 for fp32, one pass for bf16, whose lo is 0); each
+//          column's (max, sum exp0(s - max)) over the tile's 64 rows, then
+//          the rows' online (m, l) over the split. The masks (PairMask)
+//          come from ids in registers, 2 row ids and 16 column ids a
+//          thread: the column direction masks an entry whose row id is
+//          >= total or equals the column's, the row direction one whose
+//          column id is >= total or equals the row's; s is held once and
+//          turned into the row direction's entries after the column pass.
+//          A column past the split or past C has no id (kNoColumn, masked
+//          in the row direction and never written in the column one); a
+//          row past R takes the sentinel total. The self hit follows the
+//          ids, not the diagonal;
+//   merge  index i: row i's split partials in split order and column i's
+//          row-tile partials in tile order (fold_partial), the 1e-37 floor.
+// One owner per output, no atomics: bitwise repeatable. The matrix work is
+// the TPU kernel's, s formed once for both directions.
 //
-// Bound: 2 R C D fp32 operations (s formed once) against (R + C) D inputs,
-// (R + C) ids and (R + C) fp32 outputs. At one rank's self tile of a
-// 1-card world at batch 256 (R = C = 512, D = 128): 67.1 MFLOP, 1.0 us at
-// the 67 TFLOP/s fp32 peak, 16 CTAs: latency-bound. One rank of 4 at
-// global batch 4096 (R = C = 2048): 1.07 GFLOP, 16 us.
+// Bound: 2 R C D operations (s once), each product three TF32 passes in
+// fp32 (the card's fastest fp32-accurate product, 165 TFLOP/s), against
+// (R + C) D inputs, (R + C) ids and (R + C) fp32 outputs. At one rank's
+// self tile of a 1-card world at batch 256 (R = C = 512, D = 128): 67.1
+// MFLOP, 0.41 us; 8 row tiles x 16 splits of 32 columns, 128 CTAs:
+// latency-bound. One rank of 4 at global batch 4096 (R = C = 2048): 1.07
+// GFLOP, 6.5 us.
 //
 // Supported: float32 or bfloat16 z_rows and z_cols (the same dtype),
-// contiguous, R, C >= 1, 1 <= D <= 512, int32 ids. The C entry point
-// returns cudaGetLastError().
+// contiguous, R, C >= 1, 1 <= D <= 512 (past D = 256 in fp32 the row tile
+// streams through the ring), int32 ids. The C entry point returns
+// cudaGetLastError().
 
-#include "infonce_tile.cuh"
+#include "dual_tf32.cuh"
 
 namespace {
 
-using namespace infonce;
+using namespace ntx;
 
-// One CTA: own vectors row0 .. row0 + 63 of own (n_own x d) over every
-// tile of other (n_other x d); writes lse[row] for its own vectors.
-template <typename T>
-__device__ void dual_lse(const T* __restrict__ own,
-                         const T* __restrict__ other,
-                         const int* __restrict__ own_id,
-                         const int* __restrict__ other_id, float inv_t,
-                         float* __restrict__ lse, int n_own, int n_other,
-                         int d, int total, int row0, float* as, float* bs) {
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+// What the walk takes besides the maps and the layout: both sides' ids,
+// 1/T, the sentinel, and the partials (dual_carve, two planes a side).
+struct PairArgs {
+  const int* row_gid;
+  const int* col_gid;
+  float inv_t;
+  int total;
+  DualParts parts;
+};
 
-  float m[4], l[4];
-  int id_r[4];
+// The shard-pair masks: each direction masked by the OTHER side's id.
+struct PairMask {
+  const int* __restrict__ row_gid;
+  const int* __restrict__ col_gid;
+  int n_rows, total;
+  int rid[2];
+  int cid[16];  // entry j: column col0 + col_of(j, q)
+
+  __device__ __forceinline__ void rows(int r) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    id_r[i] = row < n_own ? own_id[row] : total;
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-  for (int col0 = 0; col0 < n_other; col0 += kTile) {
-    float acc[4][4];
-    tile_products(acc, as, bs, own, other, row0, col0, n_own, n_other, d);
-    int id_c[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      id_c[j] = col < n_other ? other_id[col] : total;  // total: masked
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float s[4];
-      float tile_max = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool masked = id_c[j] >= total || id_c[j] == id_r[i];
-        s[j] = masked ? kNegInf : acc[i][j] * inv_t;
-        tile_max = fmaxf(tile_max, s[j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(tile_max));
-      float tile_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) tile_sum += exp0(s[j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + group_sum(tile_sum);
-      m[i] = m_new;
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      rid[h] = row < n_rows ? row_gid[row] : total;
     }
   }
-  if (tx == 0) {
+  __device__ __forceinline__ void tile(int col0, int ce, int q) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty + 16 * i;
-      if (row < n_own) lse[row] = m[i] + logf(fmaxf(l[i], 1e-37f));
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + col_of(j, q);
+      cid[j] = col < ce ? col_gid[col] : kNoColumn;
     }
   }
+  __device__ __forceinline__ bool row_in(int h, int j, int) const {
+    return cid[j] < total && cid[j] != rid[h];
+  }
+  __device__ __forceinline__ bool col_in(int h, int j, int) const {
+    return rid[h] < total && rid[h] != cid[j];
+  }
+};
+
+// The kernels carry the wrapper's name (the profiler groups by it).
+
+template <typename T, bool kSplit>
+__global__ void __launch_bounds__(kPrepThreads)
+    ntxent_dual_stats_prep(const PrepPair<T> a) {
+  prep_pair<T, kSplit>(a);
 }
 
-// CTAs [0, tiles_r) own rows (lse_rows); the rest own columns (lse_cols).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ntxent_dual_stats_kernel(const T* __restrict__ z_rows,
-                             const T* __restrict__ z_cols,
-                             const int* __restrict__ row_gid,
-                             const int* __restrict__ col_gid,
-                             float* __restrict__ lse_rows,
-                             float* __restrict__ lse_cols, int n_rows,
-                             int n_cols, int d, float inv_t, int total,
-                             int tiles_r) {
-  __shared__ float as[kTile * kLd];
-  __shared__ float bs[kTile * kLd];
-  const bool cols = static_cast<int>(blockIdx.x) >= tiles_r;
-  const int row0 = (cols ? blockIdx.x - tiles_r : blockIdx.x) * kTile;
-  if (cols) {
-    dual_lse(z_cols, z_rows, col_gid, row_gid, inv_t, lse_cols, n_cols,
-             n_rows, d, total, row0, as, bs);
-  } else {
-    dual_lse(z_rows, z_cols, row_gid, col_gid, inv_t, lse_rows, n_rows,
-             n_cols, d, total, row0, as, bs);
-  }
+template <bool kSplit>
+__global__ void __launch_bounds__(kThreads, 1)
+    ntxent_dual_stats_walk(const __grid_constant__ CUtensorMap tm_rh,
+                           const __grid_constant__ CUtensorMap tm_rl,
+                           const __grid_constant__ CUtensorMap tm_ch,
+                           const __grid_constant__ CUtensorMap tm_cl,
+                           PairArgs a, Plan p, int n_rows, int n_cols,
+                           int split_cols) {
+  PairMask mask{a.row_gid, a.col_gid, n_rows, a.total};
+  dual_walk<kSplit, false>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, mask, a.inv_t,
+                           a.parts.part_r, a.parts.part_c, p, n_rows, n_cols,
+                           split_cols);
 }
 
+__global__ void __launch_bounds__(kMergeThreads)
+    ntxent_dual_stats_merge(const float* __restrict__ part_r,
+                            const float* __restrict__ part_c,
+                            float* __restrict__ lse_rows,
+                            float* __restrict__ lse_cols, int n_rows,
+                            int n_cols, int splits) {
+  dual_merge<false>(part_r, part_c, lse_rows, lse_cols, nullptr, n_rows,
+                    n_cols, splits);
+}
+
+// The scratch of one call: the operand copies (fwd_carve) and the walk's
+// partials (dual_carve: part_r 2 * splits * R, part_c 2 * ceil(R / 64) *
+// C fp32).
+struct Buffers {
+  FwdBuffers ops;
+  DualParts parts;
+};
+
+Buffers carve(Carver& c, int n_rows, int n_cols, int d, bool split,
+              int splits) {
+  Buffers b{};
+  b.ops = fwd_carve(c, n_rows, n_cols, d, split);
+  b.parts = dual_carve(c, n_rows, n_cols, splits, 2);
+  return b;
+}
+
+struct Call {
+  const void *z_rows, *z_cols;
+  const int *row_gid, *col_gid;
+  float *lse_rows, *lse_cols;
+  float inv_t;
+  int total, n_rows, n_cols, d, splits, split_cols;
+};
+
 template <typename T>
-cudaError_t launch(const void* z_rows, const void* z_cols,
-                   const int* row_gid, const int* col_gid, float* lse_rows,
-                   float* lse_cols, int n_rows, int n_cols, int d,
-                   float inv_t, int total, cudaStream_t stream) {
-  const int tiles_r = (n_rows + kTile - 1) / kTile;
-  const int tiles_c = (n_cols + kTile - 1) / kTile;
-  ntxent_dual_stats_kernel<T><<<tiles_r + tiles_c, kThreads, 0, stream>>>(
-      static_cast<const T*>(z_rows), static_cast<const T*>(z_cols), row_gid,
-      col_gid, lse_rows, lse_cols, n_rows, n_cols, d, inv_t, total, tiles_r);
+cudaError_t launch(const Call& a, const Buffers& b, cudaStream_t stream) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  const PairArgs args{a.row_gid, a.col_gid, a.inv_t, a.total, b.parts};
+  cudaError_t err = fwd_launch<T>(
+      static_cast<const T*>(a.z_rows), static_cast<const T*>(a.z_cols),
+      a.n_rows, a.n_cols, a.d, a.splits, a.split_cols, b.ops,
+      ntxent_dual_stats_prep<T, kSplit>, ntxent_dual_stats_walk<kSplit>,
+      args, kColBytes, stream);
+  if (err != cudaSuccess) return err;
+  ntxent_dual_stats_merge<<<merge_blocks(a.n_rows, a.n_cols), kMergeThreads,
+                            0, stream>>>(b.parts.part_r, b.parts.part_c,
+                                         a.lse_rows, a.lse_cols, a.n_rows,
+                                         a.n_cols, a.splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Floats of scratch one call takes (dtype 0: fp32, with lo copies).
+extern "C" long long ntx_ntxent_dual_stats_scratch(int n_rows, int n_cols,
+                                                   int d, int dtype,
+                                                   int splits) {
+  Carver c{nullptr};
+  carve(c, n_rows, n_cols, d, dtype == 0, splits);
+  return static_cast<long long>(c.used);
+}
+
 // lse_rows (n_rows,) and lse_cols (n_cols,) fp32 of one tile; row_gid and
-// col_gid int32, both required. dtype: 0 = float32, 1 = bfloat16.
+// col_gid int32, both required. dtype: 0 = float32, 1 = bfloat16. z_cols's
+// columns are cut into `splits` runs of `split_cols` (the last one
+// shorter), each non-empty; `scratch` holds
+// ntx_ntxent_dual_stats_scratch(n_rows, n_cols, d, dtype, splits) floats.
 extern "C" int ntx_ntxent_dual_stats(const void* z_rows, const void* z_cols,
                                      const void* row_gid,
                                      const void* col_gid, void* lse_rows,
-                                     void* lse_cols, int n_rows, int n_cols,
-                                     int d, int dtype, float inv_t,
-                                     int total, int device, void* stream) {
+                                     void* lse_cols, void* scratch,
+                                     int n_rows, int n_cols, int d,
+                                     int dtype, float inv_t, int total,
+                                     int splits, int split_cols, int device,
+                                     void* stream) {
   if (n_rows < 1 || n_cols < 1 || d < 1 || d > kMaxD || !row_gid ||
-      !col_gid) {
+      !col_gid || !splits_cover(n_cols, splits, split_cols) ||
+      (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const Call a{z_rows,
+               z_cols,
+               static_cast<const int*>(row_gid),
+               static_cast<const int*>(col_gid),
+               static_cast<float*>(lse_rows),
+               static_cast<float*>(lse_cols),
+               inv_t,
+               total,
+               n_rows,
+               n_cols,
+               d,
+               splits,
+               split_cols};
+  Carver c{static_cast<float*>(scratch)};
+  const Buffers b = carve(c, n_rows, n_cols, d, dtype == 0, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* rid = static_cast<const int*>(row_gid);
-  const int* cid = static_cast<const int*>(col_gid);
-  float* lr = static_cast<float*>(lse_rows);
-  float* lc = static_cast<float*>(lse_cols);
-  if (dtype == 0) {
-    return launch<float>(z_rows, z_cols, rid, cid, lr, lc, n_rows, n_cols, d,
-                         inv_t, total, s);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(z_rows, z_cols, rid, cid, lr, lc, n_rows,
-                                 n_cols, d, inv_t, total, s);
-  }
-  return cudaErrorInvalidValue;
+  if (dtype == 0) return launch<float>(a, b, s);
+  return launch<__nv_bfloat16>(a, b, s);
 }

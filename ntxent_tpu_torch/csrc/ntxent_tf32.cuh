@@ -3,11 +3,13 @@
 // symmetric mode (ntxent_bwd_sym.cu), #6 (ntxent_bwd_general.cu: the
 // general backward's rows and columns kernels), #5 in its cross-modal
 // mode and #4 (infonce_cross_bwd.cuh: the data-parallel CLIP backward's
-// rows and columns kernels), and the CLIP kernels #9 (infonce_dual_fwd.cu:
+// rows and columns kernels), the CLIP kernels #9 (infonce_dual_fwd.cu:
 // the dual forward, on #1's walk and launcher, fwd_launch) and #10
-// (infonce_dual_bwd.cu: both cross-modal backward walks in one grid). The
-// tensor-map encoder, TMA, the mbarriers and the K-major descriptor come
-// from flash_attention_sm90.cuh.
+// (infonce_dual_bwd.cu: both cross-modal backward walks in one grid), and
+// the shard-pair kernels #7 (ntxent_dual_stats.cu, #9's walk) and #8
+// (ntxent_dual_grads.cu, #10's grid); the two-sided walks of #7-#10 are
+// dual_tf32.cuh's. The tensor-map encoder, TMA, the mbarriers and the
+// K-major descriptor come from flash_attention_sm90.cuh.
 //
 // Operands. wgmma takes TF32 A and B only K-major, so an operand-prep
 // kernel reads z once and writes fp32 copies laid out for TMA's 128-byte

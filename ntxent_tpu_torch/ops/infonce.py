@@ -22,8 +22,8 @@ read it through a pointer, so no step waits on the host for it.
   dL/ds before ``g / 2N``), launches ``csrc/infonce_dual_bwd.cu`` (#10:
   the rows and columns walks of ``csrc/infonce_cross_bwd.cuh`` with the
   ids 0 .. N - 1, both sides in one grid, each planned by
-  ``general_bwd_splits`` at half the SMs); ``infonce_dual_bwd_plain`` is
-  its plain version;
+  ``dual_grads_splits``: ``general_bwd_splits`` at half the SMs);
+  ``infonce_dual_bwd_plain`` is its plain version;
 * ``info_nce_fused(za, zb, temperature, scale=None)`` is the
   differentiable mean loss, with gradients for za, zb and the scale.
 
@@ -78,8 +78,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .ntxent import (SM_COUNT, _NtxentPartial, _sm_count, column_splits,
-                     general_bwd_splits)
+from .ntxent import (_NtxentPartial, _sm_count, column_splits,
+                     dual_grads_splits, general_bwd_splits)
 
 __all__ = ["info_nce_dual_partial", "info_nce_fused",
            "info_nce_partial_fused", "infonce_bwd_cols",
@@ -260,17 +260,12 @@ def _fwd_plan(n_a: int, n_b: int, d: int, dtype: int, index: int):
     return splits, split_cols, size(n_a, n_b, d, dtype, splits)
 
 
-def _dual_bwd_splits(n: int, d: int, sms: int = SM_COUNT):
-    """(splits, split_cols) of #10: each side's other side cut as
-    ``general_bwd_splits`` plans at half the SMs, since the two sides share
-    one grid."""
-    return general_bwd_splits(n, n, d, max(1, sms // 2))
-
-
 @functools.lru_cache(maxsize=256)
 def _bwd_plan(n: int, d: int, dtype: int, index: int):
-    """(splits, split_cols, scratch floats) of #10 (``_dual_bwd_splits``)."""
-    splits, split_cols = _dual_bwd_splits(n, d, _sm_count(index))
+    """(splits, split_cols, scratch floats) of #10: both sides' plan of
+    ``ops.ntxent.dual_grads_splits`` (the two sides share one grid, as #8's
+    do)."""
+    splits, split_cols = dual_grads_splits(n, n, d, _sm_count(index))[0]
     # n, d, dtype, splits
     size = _c_function("infonce_dual_bwd", "ntx_infonce_dual_bwd_scratch",
                        [_INT] * 4, ctypes.c_longlong)

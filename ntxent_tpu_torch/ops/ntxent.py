@@ -65,12 +65,17 @@ column's; there is no positive term. They are the building blocks of the
 pair-parallel loss (``parallel.pair``).
 
 * ``block_lse_dual(...) -> (lse_rows, lse_cols)`` launches
-  ``csrc/ntxent_dual_stats.cu``; ``block_lse_dual_plain`` is its plain
-  version;
+  ``csrc/ntxent_dual_stats.cu`` (#9's dual walk on TF32 tensor cores:
+  each s tile formed once and folded into both directions, z_cols's
+  columns cut as ``column_splits`` plans); ``block_lse_dual_plain`` is its
+  plain version;
 * ``block_grads_dual(..., lse_rows, lse_cols, ...) -> (G @ z_cols,
   G^T @ z_rows)`` (fp32, before the caller's cotangent / T) launches
-  ``csrc/ntxent_dual_grads.cu``; ``block_grads_dual_plain`` is its plain
-  version.
+  ``csrc/ntxent_dual_grads.cu`` (#10's grid: both sides' TF32 backward
+  walks in one launch, each side's other side cut as
+  ``dual_grads_splits`` plans); ``block_grads_dual_plain`` is its plain
+  version. The split plans and scratch sizes of both are cached per
+  shape.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version. Each wrapper counts its launches in ``.launches``. The tile
@@ -90,7 +95,8 @@ from . import _build
 
 __all__ = ["block_grads", "block_grads_dual", "block_grads_dual_plain",
            "block_lse", "block_lse_dual", "block_lse_dual_plain",
-           "column_splits", "general_bwd_splits", "ntxent_bwd_general_cols",
+           "column_splits", "dual_grads_splits", "general_bwd_splits",
+           "ntxent_bwd_general_cols",
            "ntxent_bwd_general_cols_plain", "ntxent_bwd_general_rows",
            "ntxent_bwd_general_rows_plain", "ntxent_bwd_sym",
            "ntxent_bwd_sym_plain", "ntxent_bwd_tri", "ntxent_bwd_tri_plain",
@@ -289,7 +295,8 @@ def _scratch_size(name: str):
     """The library's report of the floats of scratch one call takes (the
     layout of the operand copies and partials lives in the library)."""
     fn = getattr(_build.load(name), f"ntx_{name}_scratch")
-    fn.argtypes = [ctypes.c_int] * (4 if name == "ntxent_bwd_sym" else 5)
+    args = {"ntxent_bwd_sym": 4, "ntxent_dual_grads": 6}.get(name, 5)
+    fn.argtypes = [ctypes.c_int] * args
     fn.restype = ctypes.c_longlong
     return fn
 
@@ -1027,10 +1034,10 @@ def block_grads_dual_plain(z_rows, z_cols, row_gid, col_gid, lse_rows,
 @functools.cache
 def _dual_stats_kernel():
     fn = _build.load("ntxent_dual_stats").ntx_ntxent_dual_stats
-    # z_rows, z_cols, row_gid, col_gid, lse_rows, lse_cols; rows, cols, d,
-    # dtype; inv_t; total, device; stream
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_int] * 2
+    # z_rows, z_cols, row_gid, col_gid, lse_rows, lse_cols, scratch; rows,
+    # cols, d, dtype; inv_t; total, splits, split_cols, device; stream
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -1040,12 +1047,42 @@ def _dual_stats_kernel():
 def _dual_grads_kernel():
     fn = _build.load("ntxent_dual_grads").ntx_ntxent_dual_grads
     # z_rows, z_cols, row_gid, col_gid, lse_rows, lse_cols, grad_rows,
-    # grad_cols; rows, cols, d, dtype; inv_t; total, device; stream
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_int] * 2
+    # grad_cols, scratch; rows, cols, d, dtype; inv_t; total, splits_r,
+    # split_cols_r, splits_c, split_cols_c, device; stream
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=256)
+def _dual_stats_plan(rows: int, cols: int, d: int, dtype: int, index: int):
+    """(splits, split_cols, scratch floats) of #7: z_cols's columns cut as
+    ``column_splits`` plans for ``rows`` rows."""
+    splits, split_cols = column_splits(rows, cols, _sm_count(index))
+    return (splits, split_cols,
+            _scratch_size("ntxent_dual_stats")(rows, cols, d, dtype, splits))
+
+
+def dual_grads_splits(rows: int, cols: int, d: int, sms: int = SM_COUNT):
+    """((splits, split_cols) of the row owners, of the column owners) of
+    #8: each side's other side cut as ``general_bwd_splits`` plans at half
+    the SMs, since the two sides share one grid."""
+    half = max(1, sms // 2)
+    return (general_bwd_splits(rows, cols, d, half),
+            general_bwd_splits(cols, rows, d, half))
+
+
+@functools.lru_cache(maxsize=256)
+def _dual_grads_plan(rows: int, cols: int, d: int, dtype: int, index: int):
+    """(splits_r, split_cols_r, splits_c, split_cols_c, scratch floats) of
+    #8 (``dual_grads_splits``)."""
+    (splits_r, cols_r), (splits_c, cols_c) = dual_grads_splits(
+        rows, cols, d, _sm_count(index))
+    size = _scratch_size("ntxent_dual_grads")(rows, cols, d, dtype,
+                                               splits_r, splits_c)
+    return splits_r, cols_r, splits_c, cols_c, size
 
 
 def _dual_kernel_input(name, z_rows, z_cols):
@@ -1072,16 +1109,20 @@ def block_lse_dual(z_rows: torch.Tensor, z_cols: torch.Tensor,
         return block_lse_dual_plain(z_rows, z_cols, row_gid, col_gid,
                                     temperature, total)
     _dual_kernel_input("block_lse_dual", z_rows, z_cols)
-    rows, cols = z_rows.shape[0], z_cols.shape[0]
-    lse_rows = torch.empty(rows, dtype=torch.float32, device=z_rows.device)
-    lse_cols = torch.empty(cols, dtype=torch.float32, device=z_rows.device)
+    (rows, d), cols, dev = z_rows.shape, z_cols.shape[0], z_rows.device
+    dtype = _DTYPE_CODES[z_rows.dtype]
+    splits, split_cols, size = _dual_stats_plan(rows, cols, d, dtype,
+                                                dev.index)
+    lse_rows = torch.empty(rows, dtype=torch.float32, device=dev)
+    lse_cols = torch.empty(cols, dtype=torch.float32, device=dev)
+    scratch = torch.empty(size, dtype=torch.float32, device=dev)
     row_gid, col_gid = _ids(row_gid), _ids(col_gid)
     err = _dual_stats_kernel()(
         z_rows.data_ptr(), z_cols.data_ptr(), row_gid.data_ptr(),
-        col_gid.data_ptr(), lse_rows.data_ptr(), lse_cols.data_ptr(), rows,
-        cols, z_rows.shape[1], _DTYPE_CODES[z_rows.dtype],
-        _inv_t(temperature), int(total), z_rows.device.index,
-        torch.cuda.current_stream(z_rows.device).cuda_stream)
+        col_gid.data_ptr(), lse_rows.data_ptr(), lse_cols.data_ptr(),
+        scratch.data_ptr(), rows, cols, d, dtype, _inv_t(temperature),
+        int(total), splits, split_cols, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_lse_dual launch failed: CUDA error {err}")
     block_lse_dual.launches += 1
@@ -1119,17 +1160,17 @@ def block_grads_dual(z_rows: torch.Tensor, z_cols: torch.Tensor,
     lse_rows = lse_rows.float().contiguous()
     lse_cols = lse_cols.float().contiguous()
     row_gid, col_gid = _ids(row_gid), _ids(col_gid)
-    grad_rows = torch.empty(z_rows.shape, dtype=torch.float32,
-                            device=z_rows.device)
-    grad_cols = torch.empty(z_cols.shape, dtype=torch.float32,
-                            device=z_rows.device)
+    d, dev, dtype = z_rows.shape[1], z_rows.device, _DTYPE_CODES[z_rows.dtype]
+    *plan, size = _dual_grads_plan(rows, cols, d, dtype, dev.index)
+    grad_rows = torch.empty(z_rows.shape, dtype=torch.float32, device=dev)
+    grad_cols = torch.empty(z_cols.shape, dtype=torch.float32, device=dev)
+    scratch = torch.empty(size, dtype=torch.float32, device=dev)
     err = _dual_grads_kernel()(
         z_rows.data_ptr(), z_cols.data_ptr(), row_gid.data_ptr(),
         col_gid.data_ptr(), lse_rows.data_ptr(), lse_cols.data_ptr(),
-        grad_rows.data_ptr(), grad_cols.data_ptr(), rows, cols,
-        z_rows.shape[1], _DTYPE_CODES[z_rows.dtype], _inv_t(temperature),
-        int(total), z_rows.device.index,
-        torch.cuda.current_stream(z_rows.device).cuda_stream)
+        grad_rows.data_ptr(), grad_cols.data_ptr(), scratch.data_ptr(),
+        rows, cols, d, dtype, _inv_t(temperature), int(total), *plan,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_grads_dual launch failed: CUDA error "
                            f"{err}")

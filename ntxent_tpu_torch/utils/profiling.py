@@ -92,12 +92,15 @@ backward (#5 cross-modal, #4) at the (R, C, D) of ``DP_CLIP_STRIPS``
 512, the scale 14.3), and the CLIP kernels #9 (square) and #10 at the
 (N, D) of ``INFONCE_SQUARE`` (CLIP at batch 256, N = 8192) and #9's
 rectangular mode at the (R, C, D) of ``INFONCE_RECT`` (one rank of 4 at
-batch 256 and 4096): copied into an older tree, the module times what
-that tree can run,
+batch 256 and 4096), and the shard-pair kernels #7 (``block_lse_dual``)
+and #8 (``block_grads_dual``) at the tiles of ``PAIR_TILES`` (the
+world-1 self tile of ``--dp-loss pair`` at batch 256, the k = 1 tile of
+rank 0 of 4 at global batch 256 and 4096, D = 128, T = 0.1): copied
+into an older tree, the module times what that tree can run,
 
 * times each call with CUDA events (20 calls after warmup), and the
-  host's ms of one call at 2N = 512 and of #9 and #10 at N = 256 (no
-  synchronisation in the loop).
+  host's ms of one call at 2N = 512, of #9 and #10 at N = 256 and of #7
+  and #8 at the self tile (no synchronisation in the loop).
 
 Run on the card, from the repository root:
 
@@ -139,9 +142,7 @@ __all__ = ["cuda_time_ms", "kernel_breakdown", "main"]
 
 _GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
 # Device-function name of each hand-written kernel -> its wrapper's name.
-_KERNELS = (("ntxent_dual_stats_kernel", "block_lse_dual"),
-            ("ntxent_dual_grads_kernel", "block_grads_dual"),
-            ("tri_tiles_fwd_kernel", "ntxent_fwd_tri"),
+_KERNELS = (("tri_tiles_fwd_kernel", "ntxent_fwd_tri"),
             ("tri_fwd_merge_kernel", "ntxent_fwd_tri"),
             ("tri_loss_reduce", "ntxent_fwd_tri"),
             ("tri_tiles_bwd_kernel", "ntxent_bwd_tri"),
@@ -165,7 +166,11 @@ _KERNELS = (("ntxent_dual_stats_kernel", "block_lse_dual"),
             ("infonce_dual_bwd_", "infonce_dual_bwd"),
             # the TF32 kernels of #5 cross-modal and #4 (prep, walk, sum)
             ("infonce_bwd_rows_", "infonce_bwd_rows"),
-            ("infonce_bwd_cols_", "infonce_bwd_cols"))
+            ("infonce_bwd_cols_", "infonce_bwd_cols"),
+            # the TF32 kernels of #7 (prep, walk, merge) and #8 (prep,
+            # walk, sum)
+            ("ntxent_dual_stats_", "block_lse_dual"),
+            ("ntxent_dual_grads_", "block_grads_dual"))
 MODEL, IMAGE_SIZE, SEED = "vit_b16", 224, 0
 # The long-context slice: the JAX tower's defaults, the CLIP text
 # vocabulary, batch 1 at the tower's max_len.
@@ -189,6 +194,10 @@ DP_CLIP_STRIPS = ((256, 256, 512), (64, 256, 512), (1024, 4096, 512))
 INFONCE_SQUARE = ((256, 512), (8192, 512))
 # (R, C, D) of #9's rectangular mode: one rank of 4 at batch 256 and 4096
 INFONCE_RECT = ((64, 256, 512), (1024, 4096, 512))
+# (R, C, D, world) of the shard-pair kernels #7 and #8 in --mode ntxent:
+# the self tile of a world of 1 at batch 256 (the --dp-loss pair path) and
+# the k = 1 tile of rank 0 of a world of 4 at global batch 256 and 4096
+PAIR_TILES = ((512, 512, 128, 1), (128, 128, 128, 4), (2048, 2048, 128, 4))
 
 
 def cuda_time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
@@ -741,8 +750,9 @@ def ntxent_profile(device) -> dict:
     1's in the InfoNCE mode), and #5 cross-modal and #4 at each (R, C, D)
     of ``DP_CLIP_STRIPS`` (rank C / R - 1's rows), #9 and #10 at each
     (N, D) of ``INFONCE_SQUARE`` (with the host ms of one call at the
-    first) and #9's rectangular mode at each (R, C, D) of
-    ``INFONCE_RECT``."""
+    first), #9's rectangular mode at each (R, C, D) of ``INFONCE_RECT``
+    and the shard-pair #7 and #8 at each tile of ``PAIR_TILES`` (with the
+    host ms of one call at the first)."""
     from ..ops import ntxent
     from ..ops.infonce import (infonce_bwd_cols, infonce_bwd_rows,
                                infonce_dual_bwd, infonce_dual_fwd,
@@ -816,6 +826,21 @@ def ntxent_profile(device) -> dict:
         za, zb = unit_rows(rows, d), unit_rows(cols, d)
         out[f"infonce_rect_{rows}x{cols}x{d}_ms"] = cuda_time_ms(
             functools.partial(infonce_dual_fwd_rect, za, zb, scale), 20)
+    for rows, cols, d, world in PAIR_TILES:
+        z_rows, z_cols = unit_rows(rows, d), unit_rows(cols, d)
+        rid = local_row_gids(0, rows // 2, world, device)
+        cid = local_row_gids(1 % world, cols // 2, world, device)
+        args = (z_rows, z_cols, rid, cid, 0.1, rows * world)
+        lse_r, lse_c = ntxent.block_lse_dual(*args)
+        stats = functools.partial(ntxent.block_lse_dual, *args)
+        grads = functools.partial(ntxent.block_grads_dual, *args[:4], lse_r,
+                                  lse_c, *args[4:])
+        tag = f"{rows}x{cols}x{d}"
+        out[f"pair_stats_{tag}_ms"] = cuda_time_ms(stats, 20)
+        out[f"pair_grads_{tag}_ms"] = cuda_time_ms(grads, 20)
+        if rows == PAIR_TILES[0][0]:
+            out[f"pair_stats_{tag}_host_ms"] = _host_ms(stats)
+            out[f"pair_grads_{tag}_host_ms"] = _host_ms(grads)
     return out
 
 

@@ -19,7 +19,7 @@ square dual backward, ``csrc/infonce_dual_bwd.cu``) on the TF32 walks of
 * #10 is the rows and the columns walks of ``csrc/infonce_cross_bwd.cuh``
   with the ids 0 .. N - 1: ``test_torch_infonce_sm90._emulate`` of both
   sides, held against the Pallas ``_dual_bwd_call`` in interpret mode on
-  the square shapes, at one split and at ``_dual_bwd_splits``' plan;
+  the square shapes, at one split and at ``dual_grads_splits``' plan;
 * one TF32 pass (hi alone, the kernels' control on the card) misses the
   tolerance by far in both;
 * the sources: #9 and #10 reach the TF32 walks (#9 forms s once a tile
@@ -220,7 +220,7 @@ def _bwd_plan(case, plan):
     n, _, d, _ = FWD_CASES[case]
     if plan == "one":
         return 1, -(-n // N.SPLIT_UNIT) * N.SPLIT_UNIT
-    return I._dual_bwd_splits(n, d, SMS)
+    return N.dual_grads_splits(n, n, d, SMS)[0]
 
 
 def _emulate_bwd(case, dtype, plan, passes=3):
@@ -267,12 +267,12 @@ def test_one_tf32_pass_misses_the_backward_tolerance():
                          ids=lambda s: "x".join(map(str, s)))
 def test_split_plans_cover_the_columns_once(shape):
     """#9 cuts zb's columns as ``column_splits`` plans; #10 cuts each
-    side's other side as ``_dual_bwd_splits`` plans, both sides together
+    side's other side as ``dual_grads_splits`` plans, both sides together
     near one wave of the SMs."""
     n_a, n_b, d = shape
     plans = [(N.column_splits(n_a, n_b, SMS), n_b)]
     if n_a == n_b:
-        plans.append((I._dual_bwd_splits(n_a, d, SMS), n_a))
+        plans.append((N.dual_grads_splits(n_a, n_a, d, SMS)[0], n_a))
         splits, _ = plans[-1][0]
         assert 2 * -(-n_a // TILE) * splits * N._d_chunks(d) <= 2 * SMS \
             or splits == 1
@@ -295,18 +295,23 @@ def _body(text, start):
 
 
 def test_dual_forward_forms_each_s_tile_once_on_the_tf32_walk():
-    """Both modes of #9 run ``dual_walk``: one ``s_tile`` (3xTF32 wgmma
-    from the ring) a column tile, folded into the rows' online softmax and
-    the columns' tile statistics; the launches go through ``fwd_launch``."""
+    """Both modes of #9 run ``dual_walk`` (``dual_tf32.cuh``, which #7
+    shares with its own mask): one ``s_tile`` (3xTF32 wgmma from the ring)
+    a column tile, folded into the rows' online softmax and the columns'
+    tile statistics; the launches go through ``fwd_launch``."""
     text = _build.SOURCES["infonce_dual_fwd"].read_text()
-    assert '#include "ntxent_tf32.cuh"' in text
+    assert '#include "dual_tf32.cuh"' in text
     assert "infonce_tile.cuh" not in text
-    walk = _body(text, "__device__ __forceinline__ void dual_walk(")
+    header = (_build.SOURCES["infonce_dual_fwd"].parent
+              / "dual_tf32.cuh").read_text()
+    assert '#include "ntxent_tf32.cuh"' in header
+    walk = _body(header, "__device__ __forceinline__ void dual_walk(")
     assert walk.count("s_tile<kSplit>(") == 1
     assert "online_rows(" in walk and walk.count("consumers_sync()") == 2
     for kernel, loss in (("infonce_dual_fwd_walk", "true"),
                          ("infonce_fwd_rect_walk", "false")):
         body = _body(text, f"    {kernel}(")
+        assert "LiveMask mask{" in body
         assert f"dual_walk<kSplit, {loss}>(" in body
         assert text.count(f"{kernel}<kSplit>,") == 1  # handed to fwd_launch
     assert text.count("fwd_launch<T>(") == 2
@@ -320,9 +325,11 @@ def test_dual_forward_forms_each_s_tile_once_on_the_tf32_walk():
 
 def test_dual_backward_runs_both_cross_walks_in_one_grid():
     """#10 is one prep, one walk launch whose CTAs take CrossRowsG or
-    CrossColsG (bwd_walk_at), and one split sum."""
+    CrossColsG (bwd_walk_at), and one split sum (``dual_bwd_launch`` of
+    ``dual_tf32.cuh``, which #8 shares)."""
     text = _build.SOURCES["infonce_dual_bwd"].read_text()
     assert '#include "infonce_cross_bwd.cuh"' in text
+    assert '#include "dual_tf32.cuh"' in text
     walk = _body(text, "    infonce_dual_bwd_walk(")
     assert "CrossRowsG g{" in walk and "CrossColsG g{" in walk
     assert walk.count("bwd_walk_at<kSplit, ND>(") == 2

@@ -21,9 +21,10 @@ over ``csrc/ntxent_tf32.cuh``), which runs without a card:
 * ``general_bwd_splits``, the planner of both sides, covers the other
   side once;
 * the sources: both entry points launch ``bwd_walk`` through
-  ``infonce_cross_bwd.cuh`` with the scratch and split arguments, and
-  the FMA walk of ``infonce_grad.cuh`` is left to #8's shard-pair mode
-  (the square #10 runs these walks too: ``test_torch_infonce_dual_sm90``).
+  ``infonce_cross_bwd.cuh`` with the scratch and split arguments (the
+  square #10 runs these walks too: ``test_torch_infonce_dual_sm90``), and
+  the FMA walk of ``infonce_grad.cuh`` is gone with its last caller, #8
+  (now on the TF32 walk: ``test_torch_pair_sm90``).
 
 Tolerance: the emulation's products are fp32-accurate (3xTF32 drops
 lo.lo, 2^-22 relative) and the Pallas calls' are fp32, summed in other
@@ -261,22 +262,16 @@ def test_entry_points_run_the_tf32_walk(side, source):
 
 
 def test_only_the_square_kernel_keeps_the_fma_walk():
-    """``infonce_grad.cuh``'s grad_rows is left to #8's shard-pair mode
-    alone: the square #10 now runs the TF32 walks of this header too, so
-    no InfoNCE source or header calls or includes the FMA walk, every
-    grad_rows call sits in ``ntxent_dual_grads.cu``, and the header keeps
-    no cross-modal (positive) term."""
+    """The FMA walk of ``infonce_grad.cuh`` (grad_rows) is gone: the
+    square #10 runs the TF32 walks of this header, and #8, its last
+    caller, runs them too (``dual_tf32.cuh``), so the header is deleted
+    and no source or header includes it or calls grad_rows."""
     csrc = _build.SOURCES["infonce_bwd_cols"].parent
-    for name in ("infonce_dual_fwd", "infonce_dual_bwd", "infonce_bwd_cols"):
-        text = _build.SOURCES[name].read_text()
-        assert "infonce_grad.cuh" not in text and "grad_rows(" not in text
-    callers = {name for name, path in _build.SOURCES.items()
-               if "grad_rows<" in path.read_text()}
-    assert callers == {"ntxent_dual_grads"}
-    dual = _build.SOURCES["ntxent_dual_grads"].read_text()
-    assert dual.count("grad_rows<T>(") == 2
-    fma = (csrc / "infonce_grad.cuh").read_text()
-    assert "float pos" not in fma and "kDual" not in fma
+    assert not (csrc / "infonce_grad.cuh").exists()
+    for path in sorted(csrc.glob("*.cu*")):
+        text = path.read_text()
+        for gone in ("infonce_grad.cuh", "grad_rows<", "grad_rows("):
+            assert gone not in text, (path.name, gone)
     header = (csrc / "infonce_cross_bwd.cuh").read_text()
     assert "bwd_walk<kSplit, ND>" in header and "grad_rows" not in header
     kernels = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"

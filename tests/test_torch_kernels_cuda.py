@@ -10,7 +10,8 @@ on the card, where the JAX package's model code cannot load:
 ``ntxent_bwd_general_cols``, ``flash_attention_dq``,
 ``flash_attention_dkv``, ``flash_fold``, ``infonce_dual_fwd``,
 ``infonce_dual_bwd``, ``infonce_dual_fwd_rect``, ``infonce_bwd_rows``,
-``infonce_bwd_cols``) to its plain version on the same card, and the
+``infonce_bwd_cols``, ``block_lse_dual``, ``block_grads_dual``) to its
+plain version on the same card, and the
 differentiable wrappers' gradients to the same computation on the CPU;
 they skip here. The other tests run anywhere: the plain backward
 versions against torch autograd of the plain forwards, the CPU dispatch,
@@ -53,6 +54,9 @@ Tolerances (max abs error against the plain version on the card):
   reasons. #9 (both modes), #10, #5's cross-modal mode and #4 run on the
   TF32 walks (3xTF32 for fp32) and are held to the TF32 control as the
   NT-Xent kernels are.
+* shard-pair (#7 ``block_lse_dual``, #8 ``block_grads_dual``), fp32 or
+  bf16: the NT-Xent bounds for the NT-Xent reasons, 2e-4 on both lse and
+  both gradients; both on the TF32 walks and held to the TF32 control.
 """
 
 import numpy as np
@@ -88,6 +92,13 @@ INFONCE_SCALE = 17.5  # not 1/T of the default temperature
 # ragged shape with scattered row ids and a padding row.
 DP_INFONCE_SHAPES = [(256, 256, 512), (64, 256, 512), (1024, 4096, 512),
                      (101, 1000, 96)]
+# (R, C, D, world) of the shard-pair kernels: the world-1 self tile of
+# --dp-loss pair at batch 256, the k = 1 tile of rank 0 of a world of 4 at
+# global batch 256 and 4096, and a ragged tile (world None) with
+# scattered ids, ids shared by rows and columns and sentinel rows and
+# columns (chip_smoke.py's PAIR_CASES).
+PAIR_CASES = [(512, 512, 128, 1), (128, 128, 128, 4), (2048, 2048, 128, 4),
+              (100, 260, 96, None)]
 # (bh, lq, lk, d, causal, q_offset, k_offset)
 BWD_CASES = {
     "train_shape": (48, 197, 197, 64, False, 0, 0),
@@ -259,8 +270,10 @@ def _included_headers(source):
                           "ntx_infonce_dual_fwd_rect"]),
     ("infonce_dual_bwd", ["ntx_infonce_dual_bwd", "ntx_infonce_bwd_rows"]),
     ("infonce_bwd_cols", ["ntx_infonce_bwd_cols"]),
-    ("ntxent_dual_stats", ["ntx_ntxent_dual_stats"]),
-    ("ntxent_dual_grads", ["ntx_ntxent_dual_grads"]),
+    ("ntxent_dual_stats", ["ntx_ntxent_dual_stats",
+                           "ntx_ntxent_dual_stats_scratch"]),
+    ("ntxent_dual_grads", ["ntx_ntxent_dual_grads",
+                           "ntx_ntxent_dual_grads_scratch"]),
     ("ntxent_tri_fwd", ["ntx_ntxent_tri_fwd"]),
     ("ntxent_tri_bwd", ["ntx_ntxent_tri_bwd"]),
 ])
@@ -276,7 +289,10 @@ def test_training_kernels_build_from_repo_sources(tmp_path, name, symbols):
         body = header.read_text()
         assert "torch/" not in body and "atomicAdd" not in body
     for symbol in symbols:
-        assert f'extern "C" int {symbol}(' in text
+        # a library's scratch size is a count of floats, its entry points
+        # return a cudaError_t
+        kind = "long long" if symbol.endswith("_scratch") else "int"
+        assert f'extern "C" {kind} {symbol}(' in text
 
 
 # The bf16 launch of each flash source: the entry point's bf16 branches
@@ -944,6 +960,101 @@ def test_cuda_dp_infonce_backward_takes_every_width(d):
         want = plain(za, zb, gid, scale, *lse)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=INFONCE_ATOL, rtol=0)
+
+
+def _pair_case(rows, cols, d, world, device, dtype=torch.float32):
+    """(z_rows, z_cols, row ids, column ids, total) of one shard-pair tile:
+    rank 0's rows against shard (1 mod world)'s columns, or, for world
+    None, ids scattered over 4 (rows + cols) with 20 shared by rows and
+    columns, two sentinel rows and three sentinel columns."""
+    from ntxent_tpu_torch.parallel.mesh import local_row_gids
+
+    if world is not None:
+        rid = local_row_gids(0, rows // 2, world)
+        cid = local_row_gids(1 % world, cols // 2, world)
+        total = rows * world
+    else:
+        total = 4 * (rows + cols)
+        perm = torch.randperm(total, generator=torch.Generator().manual_seed(
+            rows)).to(torch.int32)
+        rid = perm[:rows].clone()
+        cid = torch.cat([perm[rows - 20:rows], perm[rows:rows + cols - 20]])
+        rid[[3, 50]] = total
+        cid[[7, 8, 200]] = total
+    return (_unit_rows(rows, d, seed=rows + d, device=device, dtype=dtype),
+            _unit_rows(cols, d, seed=cols + d + 3, device=device,
+                       dtype=dtype),
+            rid.to(device), cid.to(device), total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PAIR_CASES,
+                         ids=lambda c: "x".join(map(str, c[:3])))
+def test_cuda_pair_kernels_match_plain_versions(case, dtype):
+    dev = _cuda()
+    zr, zc, rid, cid, total = _pair_case(*case, dev, getattr(torch, dtype))
+    args = (zr, zc, rid, cid)
+    before = (N.block_lse_dual.launches, N.block_grads_dual.launches)
+    lse = N.block_lse_dual(*args, 0.1, total)
+    want_lse = N.block_lse_dual_plain(*args, 0.1, total)
+    grads = N.block_grads_dual(*args, *want_lse, 0.1, total)
+    want_grads = N.block_grads_dual_plain(*args, *want_lse, 0.1, total)
+    torch.cuda.synchronize()
+    assert (N.block_lse_dual.launches, N.block_grads_dual.launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, want in zip((*lse, *grads), (*want_lse, *want_grads)):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, atol=NTX_ATOL, rtol=0)
+    # one owner per output, no atomics: bitwise repeatable
+    again = (*N.block_lse_dual(*args, 0.1, total),
+             *N.block_grads_dual(*args, *want_lse, 0.1, total))
+    assert all(torch.equal(a, b) for a, b in zip(again, (*lse, *grads)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [PAIR_CASES[0], PAIR_CASES[2]],
+                         ids=lambda c: "x".join(map(str, c[:3])))
+def test_cuda_pair_kernels_beat_the_tf32_control(case):
+    """fp32: the 3xTF32 #7 and #8 err at least 10x less than one TF32
+    pass (the plain versions on z_rows, z_cols rounded to TF32) on both lse
+    and on both gradients at the same lse."""
+    dev = _cuda()
+    zr, zc, rid, cid, total = _pair_case(*case, dev)
+    lse = N.block_lse_dual_plain(zr, zc, rid, cid, 0.1, total)
+    grads = N.block_grads_dual_plain(zr, zc, rid, cid, *lse, 0.1, total)
+    zr_c, zc_c = N.tf32_split(zr)[0], N.tf32_split(zc)[0]
+    for got, ctl, want in (
+            (N.block_lse_dual(zr, zc, rid, cid, 0.1, total),
+             N.block_lse_dual_plain(zr_c, zc_c, rid, cid, 0.1, total), lse),
+            (N.block_grads_dual(zr, zc, rid, cid, *lse, 0.1, total),
+             N.block_grads_dual_plain(zr_c, zc_c, rid, cid, *lse, 0.1,
+                                      total), grads)):
+        torch.cuda.synchronize()
+        k = max((g - w).abs().max().item() for g, w in zip(got, want))
+        c = max((g - w).abs().max().item() for g, w in zip(ctl, want))
+        assert k <= NTX_ATOL
+        assert TF32_CONTROL_FACTOR * k <= c, (k, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", NTX_EDGE_DIMS)
+def test_cuda_pair_kernels_take_every_width(d, dtype):
+    """D padded to 32, one to four chunks of D in #8, and the fp32 row
+    tile streaming through the ring past D = 256, on the ragged tile."""
+    dev = _cuda()
+    zr, zc, rid, cid, total = _pair_case(100, 260, d, None, dev,
+                                         getattr(torch, dtype))
+    args = (zr, zc, rid, cid)
+    want_lse = N.block_lse_dual_plain(*args, 0.1, total)
+    got = (*N.block_lse_dual(*args, 0.1, total),
+           *N.block_grads_dual(*args, *want_lse, 0.1, total))
+    want = (*want_lse,
+            *N.block_grads_dual_plain(*args, *want_lse, 0.1, total))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=NTX_ATOL, rtol=0)
 
 
 # (BH, Lq, Lk, D, dtype, causal, q_offset, k_offsets of three folds)

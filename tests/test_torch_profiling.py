@@ -65,10 +65,10 @@ from ntxent_tpu_torch.utils import profiling
      "infonce_bwd_cols"),
     ("infonce_cross::infonce_bwd_cols_sum(float const*, float*, unsigned "
      "long, int)", "infonce_bwd_cols"),
-    ("void (anonymous namespace)::ntxent_dual_stats_kernel<float>(...)",
-     "block_lse_dual"),
-    ("void (anonymous namespace)::ntxent_dual_grads_kernel<__nv_bfloat16>"
-     "(...)", "block_grads_dual"),
+    ("void (anonymous namespace)::ntxent_dual_stats_walk<true>("
+     "CUtensorMap_st, ...)", "block_lse_dual"),
+    ("void (anonymous namespace)::ntxent_dual_grads_walk<false, 128>("
+     "ntx::BwdMaps, ...)", "block_grads_dual"),
     ("void (anonymous namespace)::tri_tiles_fwd_kernel<float>(...)",
      "ntxent_fwd_tri"),
     ("(anonymous namespace)::tri_fwd_merge_kernel(float const*, ...)",
@@ -128,6 +128,22 @@ def test_tf32_infonce_dual_kernels_group_under_their_wrappers(source):
         demangled = (f"void (anonymous namespace)::{name}<true>("
                      f"CUtensorMap_st, CUtensorMap_st, ...)")
         wrapper = "infonce_dual_fwd_rect" if "_rect_" in name else source
+        assert profiling._group(demangled) == wrapper, name
+
+
+@pytest.mark.parametrize("source,wrapper",
+                         [("ntxent_dual_stats", "block_lse_dual"),
+                          ("ntxent_dual_grads", "block_grads_dual")])
+def test_tf32_pair_kernels_group_under_their_wrappers(source, wrapper):
+    """Every kernel of the TF32 #7 (prep, walk, merge) and #8 (prep, walk,
+    sum) groups under the wrapper that launches it, never under cuBLAS's
+    "matmul"."""
+    names = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
+                       r"\s+(\w+)\(", _build.SOURCES[source].read_text())
+    assert len(names) == 3
+    for name in names:
+        demangled = (f"void (anonymous namespace)::{name}<true>("
+                     f"CUtensorMap_st, CUtensorMap_st, ...)")
         assert profiling._group(demangled) == wrapper, name
 
 
