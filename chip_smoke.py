@@ -148,11 +148,18 @@ Phases; any failure ends the run with a non-zero exit and no result:
    in fp32 at (512, 512, 128) and (2048, 2048, 128) at least 10x below a
    one-pass TF32 control's lse and gradient errors, their walks' ptxas
    registers and spills printed; CUDA-event times beside the bound;
-12d. triangular kernels: ``ntxent_fwd_tri`` (#2) and ``ntxent_bwd_tri``
-   (#3) against their plain versions and against #1 + #5 at 2N = 512, 8192
-   and 300 (D = 128), fp32 and bf16; one ``ntxent_loss_fused(...,
-   triangular=True)`` forward and backward launching #2 and #3 once each
-   and nothing else; times beside #1 + #5;
+12d. triangular kernels: ``ntxent_fwd_tri`` (#2, #9's dual walk) and
+   ``ntxent_bwd_tri`` (#3, #5's walk with the transposed product; both on
+   TF32 wgmma over ``tri_runs``'s plan, whose busiest CTA is printed
+   against the mean tiles an SM) against their plain versions and against
+   #1 + #5 at 2N = 512, 8192 and 300 (D = 128) and 40 (D = 32), fp32 and
+   bf16, the loss and the gradient bitwise repeatable; in fp32 at 2N = 512
+   and 8192 at least 10x below a one-pass TF32 control's lse and gradient
+   errors, their walks' ptxas registers and spills printed; one
+   ``ntxent_loss_fused(..., triangular=True)`` forward and backward
+   launching #2 and #3 once each and nothing else; times at 2N = 512, 4096
+   (T = 0.07, the reference's ``bench.py`` shape) and 8192 beside #1 +
+   #5;
 12e. pair ranks emulated on one card: P = 2, 3, 4 and 8 at global batch
    256 (255 for P = 3) through ``parallel.pair``'s per-rank functions,
    the lse shares merged and the gradient buffers summed by hand, against
@@ -526,11 +533,13 @@ DP_PAIR_ARGV = DP_ARGV + ["--dp-loss", "pair"]
 # dual stats and dual gradients once each; nothing else.
 DP_PAIR_STEP_LAUNCHES = {"block_lse_dual": 1, "block_grads_dual": 1}
 # Triangular kernels (#2 ntxent_fwd_tri, #3 ntxent_bwd_tri): (2N, D), the
-# symmetric path's shape, the north-star global batch 4096 and a 2N that
-# is no multiple of the 64-row tile. Against their plain versions at
-# NTX_ATOL; against the rectangular kernels (#1 + #5) on the same input,
-# the loss within TRI_LOSS_RTOL (the same terms summed in another order).
-TRI_SHAPES = [(512, 128), (8192, 128), (300, 128)]
+# symmetric path's shape, the north-star global batch 4096, a 2N that is
+# no multiple of the 64-row tile, and N < 64 (both views in one tile).
+# Against their plain versions at NTX_ATOL; against the rectangular
+# kernels (#1 + #5) on the same input, the loss within TRI_LOSS_RTOL (the
+# same terms summed in another order). The first two also against the
+# TF32 control (TF32_CONTROL_FACTOR), in fp32.
+TRI_SHAPES = [(512, 128), (8192, 128), (300, 128), (40, 32)]
 TRI_LOSS_RTOL = 1e-5
 # Launches of one ntxent_loss_fused(..., triangular=True) forward and
 # backward: #2 and #3 once each, nothing else.
@@ -2999,33 +3008,79 @@ def phase_pair_emulated_ranks() -> None:
 def _tri_bounds(rows: int, d: int, itemsize: int):
     """Bounds of #2 and #3 at (2N, D): each input read once (z; the lse for
     #3), each output written once (lse and the loss; the fp32 gradient);
-    (2N)^2 D and 3 (2N)^2 D operations at the fp32 peak."""
+    (2N)^2 D and 3 (2N)^2 D operations at the 3xTF32 rate."""
     z = rows * d * itemsize
     return (_bound(z + rows * 4 + 4, rows * rows * d, PEAK_FP32_FLOPS),
             _bound(z + rows * 4 + rows * d * 4, 3 * rows * rows * d,
                    PEAK_FP32_FLOPS))
 
 
-def phase_tri_kernels() -> tuple[list[dict], dict]:
+def _tri_tf32_control(z, t):
+    """((lse, gradient) of #2 + #3, (lse, gradient) of one TF32 pass): max
+    abs errors in fp32 against the plain versions, the gradients all at the
+    plain forward's lse; the control is the plain versions on z rounded to
+    TF32 once."""
+    import torch
+
+    from ntxent_tpu_torch.ops import ntxent as N
+
+    _, lse_ref = N.ntxent_fwd_tri_plain(z, t)
+    grad_ref = N.ntxent_bwd_tri_plain(z, lse_ref, t)
+    _, lse = N.ntxent_fwd_tri(z, t)
+    grad = N.ntxent_bwd_tri(z, lse_ref, t)
+    z_c = N.tf32_split(z)[0]
+    _, lse_c = N.ntxent_fwd_tri_plain(z_c, t)
+    grad_c = N.ntxent_bwd_tri_plain(z_c, lse_ref, t)
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        return (a - b).abs().max().item()
+
+    return ((err(lse, lse_ref), err(grad, grad_ref)),
+            (err(lse_c, lse_ref), err(grad_c, grad_ref)))
+
+
+def _tri_plan_line(rows: int, sms: int) -> str:
+    """The plan of #2 (and of #3 at D <= 128) at 2N = rows: the busiest
+    CTA's tiles and pieces, the longest run, against the mean an SM."""
+    from ntxent_tpu_torch.ops import ntxent as N
+
+    runs = N.tri_runs(rows, sms)
+    tiles = runs.cta_tiles()
+    pieces = max(b - a for a, b in zip(runs.cta_start, runs.cta_start[1:]))
+    return (f"{len(tiles)} CTAs over {sum(tiles)} upper tiles: the busiest "
+            f"walks {max(tiles)} tiles in at most {pieces} pieces, the "
+            f"longest run {max(p[2] for p in runs.pieces)} tiles, against a "
+            f"mean of {sum(tiles) / sms:.2f} tiles an SM ({sms} SMs)")
+
+
+def phase_tri_kernels(build_logs: dict) -> tuple[list[dict], dict]:
     """#2 and #3 against their plain versions and against the rectangular
-    kernels (#1 + #5) at every shape and dtype, the loss bitwise
-    repeatable; one ``ntxent_loss_fused(..., triangular=True)`` forward and
-    backward (the triangular path) with its launches counted; times
-    beside #1 + #5. Returns the kernel entries and the path's launches."""
+    kernels (#1 + #5) at every shape and dtype, the loss and the gradient
+    bitwise repeatable; in fp32 at 2N = 512 and 8192 at least
+    TF32_CONTROL_FACTOR below a one-pass TF32 control; ptxas's report of
+    their walks; one ``ntxent_loss_fused(..., triangular=True)`` forward
+    and backward (the triangular path) with its launches counted; times
+    beside #1 + #5 at 2N = 512, 4096 (T = 0.07) and 8192. Returns the
+    kernel entries and the path's launches."""
     import torch
 
     from ntxent_tpu_torch.ops import ntxent as N
     from ntxent_tpu_torch.utils.profiling import cuda_time_ms, launch_counters
 
     t = NTX_TEMPERATURE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs = {}
     for rows, d in TRI_SHAPES:
+        print(f"[tri-plan] 2N={rows}: {_tri_plan_line(rows, sms)}",
+              flush=True)
         for dtype in ("float32", "bfloat16"):
             z = _unit_rows(rows, d, dtype, seed=rows + d + 5)
             loss, lse = N.ntxent_fwd_tri(z, t)
-            again, _ = N.ntxent_fwd_tri(z, t)
+            again, lse_again = N.ntxent_fwd_tri(z, t)
             loss_ref, lse_ref = N.ntxent_fwd_tri_plain(z, t)
             grad = N.ntxent_bwd_tri(z, lse_ref, t)
+            grad_again = N.ntxent_bwd_tri(z, lse_ref, t)
             grad_ref = N.ntxent_bwd_tri_plain(z, lse_ref, t)
             loss_rect, lse_rect = N.ntxent_fwd(z, t)
             grad_rect = N.ntxent_bwd_sym(z, lse_rect, t)
@@ -3038,9 +3093,11 @@ def phase_tri_kernels() -> tuple[list[dict], dict]:
                 loss_rect.item())
             rect_grad = ((grad_tri - grad_rect).norm()
                          / grad_rect.norm()).item()
-            repeat = again.item() == loss.item()
+            repeat = (again.item() == loss.item()
+                      and torch.equal(lse, lse_again))
+            repeat_grad = torch.equal(grad, grad_again)
             ok = (max(fwd_err, bwd_err) <= NTX_ATOL and repeat
-                  and rect_loss <= TRI_LOSS_RTOL
+                  and repeat_grad and rect_loss <= TRI_LOSS_RTOL
                   and rect_grad <= EMULATED_GRAD_RTOL)
             print(f"[tri-kernel] 2N={rows} D={d} {dtype}: ntxent_fwd_tri "
                   f"max|err| {fwd_err:.3e}, ntxent_bwd_tri {bwd_err:.3e} "
@@ -3048,13 +3105,34 @@ def phase_tri_kernels() -> tuple[list[dict], dict]:
                   f"{rect_loss:.2e} relative (rtol {TRI_LOSS_RTOL:g}), "
                   f"gradient {rect_grad:.2e} relative (rtol "
                   f"{EMULATED_GRAD_RTOL:g}); loss bitwise repeatable "
-                  f"{repeat} {'ok' if ok else 'MISMATCH'}", flush=True)
+                  f"{repeat}, gradient bitwise repeatable {repeat_grad} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
             if not ok:
                 fail(f"the triangular kernels disagree at 2N={rows} D={d} "
                      f"{dtype}")
             if (rows, dtype) == (512, "float32"):
                 errs = {"ntxent_fwd_tri": fwd_err, "ntxent_bwd_tri": bwd_err}
-            del z, grad, grad_ref, grad_rect, grad_tri
+            del z, grad, grad_again, grad_ref, grad_rect, grad_tri
+
+    for rows, d in TRI_SHAPES[:2]:
+        z = _unit_rows(rows, d, "float32", seed=rows + d)
+        kernel, control = _tri_tf32_control(z, t)
+        ok = all(k <= NTX_ATOL and TF32_CONTROL_FACTOR * k <= c
+                 for k, c in zip(kernel, control))
+        print(f"[tri-kernel] TF32 control 2N={rows} D={d} fp32: kernels "
+              f"lse {kernel[0]:.3e} grad {kernel[1]:.3e}, one TF32 pass lse "
+              f"{control[0]:.3e} grad {control[1]:.3e} (ratios "
+              f"{control[0] / max(kernel[0], 1e-30):.1f}, "
+              f"{control[1] / max(kernel[1], 1e-30):.1f}; at least "
+              f"{TF32_CONTROL_FACTOR}) {'ok' if ok else 'MISSED'}",
+              flush=True)
+        if not ok:
+            fail(f"#2 and #3 are not {TF32_CONTROL_FACTOR}x more accurate "
+                 f"than one TF32 pass at 2N={rows}")
+        del z
+    for name in ("ntxent_tri_fwd", "ntxent_tri_bwd"):
+        for line in _ptxas_walks(build_logs, name):
+            print(f"[tri-kernel] ptxas {name}: {line}", flush=True)
 
     # the triangular path: the public loss's forward and backward
     counters = launch_counters()
@@ -3077,25 +3155,27 @@ def phase_tri_kernels() -> tuple[list[dict], dict]:
              f"(finite: {finite})")
 
     times = {}
-    for rows, d in TRI_SHAPES[:2]:
+    for rows, tt in ((512, t), (4096, 0.07), (8192, t)):
+        d = 128
         z = _unit_rows(rows, d, "float32", seed=1)
-        _, lse = N.ntxent_fwd(z, t)
+        _, lse = N.ntxent_fwd(z, tt)
         runs = 3 if rows > 4096 else 10
-        ms = (cuda_time_ms(lambda: N.ntxent_fwd_tri(z, t), runs),
-              cuda_time_ms(lambda: N.ntxent_bwd_tri(z, lse, t), runs))
-        plain = (cuda_time_ms(lambda: N.ntxent_fwd_tri_plain(z, t), runs),
-                 cuda_time_ms(lambda: N.ntxent_bwd_tri_plain(z, lse, t),
+        ms = (cuda_time_ms(lambda: N.ntxent_fwd_tri(z, tt), 20),
+              cuda_time_ms(lambda: N.ntxent_bwd_tri(z, lse, tt), 20))
+        plain = (cuda_time_ms(lambda: N.ntxent_fwd_tri_plain(z, tt), runs),
+                 cuda_time_ms(lambda: N.ntxent_bwd_tri_plain(z, lse, tt),
                               runs))
-        rect = (cuda_time_ms(lambda: N.ntxent_fwd(z, t), runs),
-                cuda_time_ms(lambda: N.ntxent_bwd_sym(z, lse, t), runs))
+        rect = (cuda_time_ms(lambda: N.ntxent_fwd(z, tt), 20),
+                cuda_time_ms(lambda: N.ntxent_bwd_sym(z, lse, tt), 20))
         bounds = _tri_bounds(rows, d, 4)
-        print(f"[tri-kernel] 2N={rows} D={d} fp32: ntxent_fwd_tri "
+        print(f"[tri-kernel] 2N={rows} D={d} T={tt} fp32: ntxent_fwd_tri "
               f"{ms[0]:.4f} ms (plain {plain[0]:.4f}, bound "
               f"{bounds[0][0]:.5f} by {bounds[0][1]}; #1 symmetric "
               f"{rect[0]:.4f}), ntxent_bwd_tri {ms[1]:.4f} ms (plain "
               f"{plain[1]:.4f}, bound {bounds[1][0]:.5f} by {bounds[1][1]}; "
-              f"#5 {rect[1]:.4f}); no single PyTorch call computes them, so "
-              f"there is no library time", flush=True)
+              f"#5 {rect[1]:.4f}); #2 + #3 {ms[0] + ms[1]:.4f} against #1 + "
+              f"#5 {rect[0] + rect[1]:.4f}; no single PyTorch call computes "
+              f"them, so there is no library time", flush=True)
         times[rows] = (ms, plain, bounds, rect)
         del z
     names = ("ntxent_fwd_tri", "ntxent_bwd_tri")
@@ -3109,16 +3189,18 @@ def phase_tri_kernels() -> tuple[list[dict], dict]:
     out = []
     for i, name in enumerate(names):
         ms, plain, bounds, rect = times[512]
-        big = times[8192]
-        out.append({"name": name, "route": "cuda", "source": sources[i],
-                    "replaces": replaces[i], "checked": True,
-                    "launches": None, "max_abs_err": errs[name],
-                    "ms": ms[i], "plain_ms": plain[i],
-                    "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
-                    "library_ms": None, "rectangular_ms": rect[i],
-                    "n8192_ms": big[0][i], "n8192_plain_ms": big[1][i],
-                    "n8192_bound_ms": big[2][i][0],
-                    "n8192_rectangular_ms": big[3][i]})
+        entry = {"name": name, "route": "cuda", "source": sources[i],
+                 "replaces": replaces[i], "checked": True,
+                 "launches": None, "max_abs_err": errs[name],
+                 "ms": ms[i], "plain_ms": plain[i],
+                 "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
+                 "library_ms": None, "rectangular_ms": rect[i]}
+        for rows in (4096, 8192):
+            ms, plain, bounds, rect = times[rows]
+            entry |= {f"n{rows}_ms": ms[i], f"n{rows}_plain_ms": plain[i],
+                      f"n{rows}_bound_ms": bounds[i][0],
+                      f"n{rows}_rectangular_ms": rect[i]}
+        out.append(entry)
     return out, launches
 
 
@@ -3897,7 +3979,7 @@ def main() -> int:
         return 0
     twopass_fields = phase_twopass_kernels()
     dp_clip_kernels, sym_retimed_ms = phase_dp_clip_kernels(build_logs)
-    tri_kernels, tri_launches = phase_tri_kernels()
+    tri_kernels, tri_launches = phase_tri_kernels(build_logs)
     fold_kernel, ring_times = phase_fold_kernel()
     kernels = [phase_kernels(), *phase_ntxent_kernels(build_logs),
                *phase_flash_backward(), *phase_infonce_kernels(build_logs),

@@ -1,12 +1,14 @@
 // The two-sided walks of one tile on the TF32 walk of ntxent_tf32.cuh:
 // the dual statistics walk, which forms each s tile once and folds it
-// into both directions (#9, infonce_dual_fwd.cu; #7, ntxent_dual_stats.cu),
-// and the backward of both sides in one grid (#10, infonce_dual_bwd.cu;
-// #8, ntxent_dual_grads.cu).
+// into both directions (#9, infonce_dual_fwd.cu; #7, ntxent_dual_stats.cu;
+// #2, ntxent_tri_fwd.cu, over the upper triangle), and the backward of
+// both sides in one grid (#10, infonce_dual_bwd.cu; #8,
+// ntxent_dual_grads.cu).
 //
 // Dual statistics (dual_walk, dual_merge). One CTA per (64-row tile of
-// za, split of zb's columns) forms s = za . zb^T * mul for each 64-column
-// tile of its split (s_tile: 3xTF32 wgmma for fp32, one pass for bf16)
+// za, split of zb's columns), or per stretch of a triangular plan (its
+// pieces, ntxent_tf32.cuh), forms s = za . zb^T * mul for each 64-column
+// tile of its piece (s_tile: 3xTF32 wgmma for fp32, one pass for bf16)
 // and folds it both ways in the same registers:
 //   columns: each column's max over the tile's 64 rows and the sum of
 //     exp0(s - max) against it. A CTA visits a column tile once, so this
@@ -17,7 +19,8 @@
 //     partial per column and row tile;
 //   rows: then s turns, in place, into the row direction's entries and
 //     takes #1's online fold (online_rows): one (m, l) partial per row and
-//     split, and with kLoss the diagonal (#9's square positive).
+//     split, and with kLoss the positive (#9's square diagonal, #2's
+//     paired view).
 // s is held once whatever the two directions mask. A mask policy (one per
 // kernel) says which entries count in which direction:
 //   rows(row0 + r): the thread's own rows r and r + 8 (h = 0, 1);
@@ -25,7 +28,8 @@
 //     those at or past ce past the split or past n_b;
 //   col_in(h, j, c) / row_in(h, j, c): whether the entry of row r + 8h and
 //     column c = col0 + col_of(j, q) counts in the column / row direction;
-//     one that does not is -1e30 there.
+//     one that does not is -1e30 there;
+//   row_pos(h, j, c) (kLoss): whether that entry is the row's positive.
 // The merge folds, for index i, row i's split partials in split order and
 // column i's row-tile partials in tile order (fold_partial) and closes
 // each as m + log(max(l, 1e-37)): a direction whose every entry is masked
@@ -71,10 +75,16 @@ __device__ __forceinline__ void over_row_lanes(float (&x)[16], Op op) {
   }
 }
 
-// The walk of one CTA: blockIdx.x the 64-row tile of za, blockIdx.y the
-// split. part_r: planes (m, l) and with kLoss (pos), each (splits, n_a);
-// part_c: planes (m, l), each (row tiles, n_b).
-template <bool kSplit, bool kLoss, class M>
+// The walk of one CTA over its pieces (Pieces of ntxent_tf32.cuh: the one
+// (64-row tile of za, split) of a split grid, or the runs of a triangular
+// stretch). part_r: planes (m, l) and with kLoss (pos), each (row_slots,
+// n_a), a piece's at its slot; part_c: planes (m, l), each (col_slots,
+// n_b), a tile's at its row tile. With Pieces::kSelf the rows are the
+// columns: the diagonal tile (col0 == row0) takes no column pass (its row
+// pass covers both directions) and writes no column partial; the column
+// passes alternate their two buffers whatever tiles they skip. kLoss adds
+// each row's positive (mask.row_pos) in its row partial.
+template <bool kSplit, bool kLoss, class M, class Pieces>
 __device__ __forceinline__ void dual_walk(const CUtensorMap* tm_rh,
                                           const CUtensorMap* tm_rl,
                                           const CUtensorMap* tm_ch,
@@ -83,21 +93,22 @@ __device__ __forceinline__ void dual_walk(const CUtensorMap* tm_rh,
                                           float* __restrict__ part_r,
                                           float* __restrict__ part_c,
                                           const Plan& p, int n_a, int n_b,
-                                          int split_cols) {
+                                          const Pieces& pieces) {
   extern __shared__ unsigned char raw[];
   unsigned char* smem = sm90::aligned_smem(raw);
   uint64_t* bars = walk_barriers(smem, p);
   Ring ring(smem, bars, p);
-  const int row0 = blockIdx.x * kTile;
-  const int split = blockIdx.y;
-  const int cb = split * split_cols;
-  const int ce = min(cb + split_cols, n_b);
-  const int tiles = (ce - cb + kTile - 1) / kTile;
+  const int count = pieces.count();
 
   if (threadIdx.x >= kWarpgroup) {  // the producer warp
     if (threadIdx.x == kWarpgroup) {
-      fwd_produce<kSplit>(smem, bars, p, ring, tm_rh, tm_rl, tm_ch, tm_cl,
-                          row0, cb, tiles);
+      for (int k = 0; k < count; ++k) {
+        const Piece pc = pieces.at(k);
+        if (k > 0) wait_rows_free(bars, p, k);
+        fwd_produce<kSplit>(smem, bars, p, ring, tm_rh, tm_rl, tm_ch, tm_cl,
+                            pc.tile * kTile, pc.cb,
+                            (pc.ce - pc.cb + kTile - 1) / kTile);
+      }
     }
     return;
   }
@@ -107,103 +118,127 @@ __device__ __forceinline__ void dual_walk(const CUtensorMap* tm_rh,
   const int r = 16 * warp + lane / 4;
   const int q = lane % 4;
   float* col_stats = reinterpret_cast<float*>(smem + p.extra);
-  mask.rows(row0 + r);
-  float m[2], l[2], pos[2];
+  int passes = 0;  // column passes so far; the parity picks the buffers
+  for (int k = 0; k < count; ++k) {
+    const Piece pc = pieces.at(k);
+    const int row0 = pc.tile * kTile;
+    const int tiles = (pc.ce - pc.cb + kTile - 1) / kTile;
+    mask.rows(row0 + r);
+    float m[2], l[2], pos[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    m[h] = kNegInf;
-    l[h] = 0.f;
-    pos[h] = 0.f;
-  }
-  wait_rows(bars, p);
-  for (int t = 0; t < tiles; ++t) {
-    const int col0 = cb + t * kTile;
-    mask.tile(col0, ce, q);
-    float s[32];
-    s_tile<kSplit>(smem, p, ring, s);
+    for (int h = 0; h < 2; ++h) {
+      m[h] = kNegInf;
+      l[h] = 0.f;
+      pos[h] = 0.f;
+    }
+    wait_rows(bars, p, k);
+    for (int t = 0; t < tiles; ++t) {
+      const int col0 = pc.cb + t * kTile;
+      mask.tile(col0, pc.ce, q);
+      float s[32];
+      s_tile<kSplit>(smem, p, ring, s);
+      if (t == tiles - 1) free_rows(bars, p);
 
-    // Entry i: row r + 8h, column col0 + col_of(j, q). First the column
-    // direction: each column's max over the tile's rows, then the sum of
-    // exp0(s - max), its masked entries at -1e30.
-    float col[16];
+      // Entry i: row r + 8h, column col0 + col_of(j, q). First the column
+      // direction: each column's max over the tile's rows, then the sum of
+      // exp0(s - max), its masked entries at -1e30.
+      float col[16];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) col[j] = kNegInf;
+      for (int j = 0; j < 16; ++j) col[j] = kNegInf;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i / 2) % 2;
-      const int j = 2 * (i / 4) + i % 2;
-      const int c = col0 + col_of(j, q);
-      s[i] *= mul;
-      if (kLoss && c < ce && c == row0 + r + 8 * h) pos[h] += s[i];
-      if (mask.col_in(h, j, c)) col[j] = fmaxf(col[j], s[i]);
-    }
-    float* maxes = col_stats + (t & 1) * 2 * kColFloats;
-    float* sums = maxes + kColFloats;
-    over_row_lanes(col, [](float x, float y) { return fmaxf(x, y); });
-    if (lane < 4) {
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i / 2) % 2;
+        const int j = 2 * (i / 4) + i % 2;
+        const int c = col0 + col_of(j, q);
+        s[i] *= mul;
+        if constexpr (kLoss) {
+          if (mask.row_pos(h, j, c)) pos[h] += s[i];
+        }
+        if (mask.col_in(h, j, c)) col[j] = fmaxf(col[j], s[i]);
+      }
+      if (!Pieces::kSelf || col0 != row0) {  // tile-uniform
+        float* maxes = col_stats + (passes++ & 1) * 2 * kColFloats;
+        float* sums = maxes + kColFloats;
+        over_row_lanes(col, [](float x, float y) { return fmaxf(x, y); });
+        if (lane < 4) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) maxes[warp * kTile + col_of(j, q)] = col[j];
-    }
-    consumers_sync();
+          for (int j = 0; j < 16; ++j) {
+            maxes[warp * kTile + col_of(j, q)] = col[j];
+          }
+        }
+        consumers_sync();
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = col_of(j, q);
-      col[j] = fmaxf(fmaxf(maxes[c], maxes[kTile + c]),
-                     fmaxf(maxes[2 * kTile + c], maxes[3 * kTile + c]));
-    }
-    float sum[16];
+        for (int j = 0; j < 16; ++j) {
+          const int c = col_of(j, q);
+          col[j] = fmaxf(fmaxf(maxes[c], maxes[kTile + c]),
+                         fmaxf(maxes[2 * kTile + c], maxes[3 * kTile + c]));
+        }
+        float sum[16];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) sum[j] = 0.f;
+        for (int j = 0; j < 16; ++j) sum[j] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i / 2) % 2;
-      const int j = 2 * (i / 4) + i % 2;
-      const float x =
-          mask.col_in(h, j, col0 + col_of(j, q)) ? s[i] : kNegInf;
-      sum[j] += exp0(x - col[j]);
-    }
-    over_row_lanes(sum, [](float x, float y) { return x + y; });
-    if (lane < 4) {
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i / 2) % 2;
+          const int j = 2 * (i / 4) + i % 2;
+          const float x =
+              mask.col_in(h, j, col0 + col_of(j, q)) ? s[i] : kNegInf;
+          sum[j] += exp0(x - col[j]);
+        }
+        over_row_lanes(sum, [](float x, float y) { return x + y; });
+        if (lane < 4) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) sums[warp * kTile + col_of(j, q)] = sum[j];
-    }
-    consumers_sync();
-    const int c = threadIdx.x;
-    if (c < kTile && col0 + c < ce) {
-      const float mc = fmaxf(fmaxf(maxes[c], maxes[kTile + c]),
-                             fmaxf(maxes[2 * kTile + c], maxes[3 * kTile + c]));
-      const float lc = ((sums[c] + sums[kTile + c]) + sums[2 * kTile + c]) +
-                       sums[3 * kTile + c];
-      const size_t at = size_t(blockIdx.x) * n_b + col0 + c;
-      part_c[at] = mc;
-      part_c[size_t(gridDim.x) * n_b + at] = lc;
-    }
+          for (int j = 0; j < 16; ++j) {
+            sums[warp * kTile + col_of(j, q)] = sum[j];
+          }
+        }
+        consumers_sync();
+        const int c = threadIdx.x;
+        if (c < kTile && col0 + c < pc.ce) {
+          const float mc =
+              fmaxf(fmaxf(maxes[c], maxes[kTile + c]),
+                    fmaxf(maxes[2 * kTile + c], maxes[3 * kTile + c]));
+          const float lc = ((sums[c] + sums[kTile + c]) + sums[2 * kTile + c]) +
+                           sums[3 * kTile + c];
+          const size_t at = size_t(pc.tile) * n_b + col0 + c;
+          part_c[at] = mc;
+          part_c[size_t(pieces.col_slots) * n_b + at] = lc;
+        }
+      }
 
-    // Then the row direction, in place, as #1's walk folds it.
-    float row_max[2] = {kNegInf, kNegInf};
+      // Then the row direction, in place, as #1's walk folds it.
+      float row_max[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i / 2) % 2;
-      const int j = 2 * (i / 4) + i % 2;
-      s[i] = mask.row_in(h, j, col0 + col_of(j, q)) ? s[i] : kNegInf;
-      row_max[h] = fmaxf(row_max[h], s[i]);
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i / 2) % 2;
+        const int j = 2 * (i / 4) + i % 2;
+        s[i] = mask.row_in(h, j, col0 + col_of(j, q)) ? s[i] : kNegInf;
+        row_max[h] = fmaxf(row_max[h], s[i]);
+      }
+      online_rows(s, row_max, m, l);
     }
-    online_rows(s, row_max, m, l);
-  }
-  // The diagonal sits in at most one thread of the row's quad.
+    // The positive sits in at most one thread of the row's quad.
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    pos[h] += __shfl_xor_sync(0xffffffffu, pos[h], 1);
-    pos[h] += __shfl_xor_sync(0xffffffffu, pos[h], 2);
-    const int row = row0 + r + 8 * h;
-    if (q == 0 && row < n_a) {
-      const size_t plane = size_t(gridDim.y) * n_a;
-      const size_t at = size_t(split) * n_a + row;
-      part_r[at] = m[h];
-      part_r[plane + at] = l[h];
-      if (kLoss) part_r[2 * plane + at] = pos[h];
+    for (int h = 0; h < 2; ++h) {
+      pos[h] += __shfl_xor_sync(0xffffffffu, pos[h], 1);
+      pos[h] += __shfl_xor_sync(0xffffffffu, pos[h], 2);
+      const int row = row0 + r + 8 * h;
+      if (q == 0 && row < n_a) {
+        const size_t plane = size_t(pieces.row_slots) * n_a;
+        const size_t at = size_t(pc.slot) * n_a + row;
+        part_r[at] = m[h];
+        part_r[plane + at] = l[h];
+        if (kLoss) part_r[2 * plane + at] = pos[h];
+      }
     }
   }
+}
+
+// The one piece of CTA (blockIdx.x, blockIdx.y) of a split grid of the
+// dual walk: row tile blockIdx.x of za, split blockIdx.y of zb's n_b
+// columns.
+__device__ __forceinline__ SplitPiece dual_split(int n_b, int split_cols) {
+  return split_piece(blockIdx.x, blockIdx.y, split_cols, n_b, gridDim.y,
+                     gridDim.x);
 }
 
 // Index i: row i's split partials folded in split order into lse_a[i],

@@ -81,10 +81,13 @@ struct DualArgs {
 struct LiveMask {
   int n_a, ce;
   bool live[2];
+  int row[2];
 
   __device__ __forceinline__ void rows(int r) {
     live[0] = r < n_a;
     live[1] = r + 8 < n_a;
+    row[0] = r;
+    row[1] = r + 8;
   }
   __device__ __forceinline__ void tile(int, int ce_, int) { ce = ce_; }
   __device__ __forceinline__ bool row_in(int h, int, int c) const {
@@ -92,6 +95,10 @@ struct LiveMask {
   }
   __device__ __forceinline__ bool col_in(int h, int j, int c) const {
     return row_in(h, j, c);
+  }
+  // The square mode's positive: the diagonal, in the split that owns it.
+  __device__ __forceinline__ bool row_pos(int h, int, int c) const {
+    return c < ce && c == row[h];
   }
 };
 
@@ -114,7 +121,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   LiveMask mask{n_a};
   dual_walk<kSplit, true>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, mask,
                           __ldg(a.scale), a.part_r, a.part_c, p, n_a,
-                          n_b, split_cols);
+                          n_b, dual_split(n_b, split_cols));
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
@@ -149,7 +156,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   LiveMask mask{n_a};
   dual_walk<kSplit, false>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, mask,
                            __ldg(a.scale), a.part_r, a.part_c, p, n_a,
-                           n_b, split_cols);
+                           n_b, dual_split(n_b, split_cols));
 }
 
 __global__ void __launch_bounds__(kMergeThreads)

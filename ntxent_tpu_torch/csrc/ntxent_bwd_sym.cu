@@ -21,7 +21,7 @@
 // which is MN-major as z lies, and TF32 wgmma takes only K-major operands.
 // One CTA per (64-row tile, column split, chunk of D of at most 128): per
 // 64-column tile it forms s as the forward does (3xTF32 for fp32 z), G
-// (SymG below) in the accumulator fragment, and adds G . z with G as the
+// (SymG of ntxent_tf32.cuh) in the accumulator fragment, and adds G . z with G as the
 // register A operand; each tile's product starts a fresh accumulator that
 // is added into a running sum in shared memory (the tensor core does not
 // round its fp32 accumulator to nearest: a 3072-product chain drifted
@@ -49,41 +49,6 @@
 namespace {
 
 using namespace ntx;
-
-// G of the symmetric layout: p_row - pos + p_col - pos, zero on a column
-// past the split.
-struct SymG {
-  const float* __restrict__ lse;
-  int n;
-  float inv_t;
-  int row[2], pos_col[2];
-  float lse_r[2];
-  float lse_c[16];  // entry 2i + e: column col0 + 8i + 2q + e
-
-  __device__ __forceinline__ void rows(int r) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      row[h] = r + 8 * h;
-      pos_col[h] = row[h] < n / 2 ? row[h] + n / 2 : row[h] - n / 2;
-      lse_r[h] = row[h] < n ? lse[row[h]] : 0.f;
-    }
-  }
-  __device__ __forceinline__ void tile(int col0, int ce, int q) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = col0 + 8 * (j / 2) + 2 * q + j % 2;
-      lse_c[j] = col < ce ? lse[col] : 0.f;
-    }
-  }
-  __device__ __forceinline__ float g(float s, int i, int h, int col,
-                                     bool live) const {
-    const float x = (!live || col == row[h]) ? kNegInf : s * inv_t;
-    const float pos = col == pos_col[h] ? 1.f : 0.f;
-    const float out = (exp0(x - lse_r[h]) - pos) +
-                      (exp0(x - lse_c[2 * (i / 4) + i % 2]) - pos);
-    return (!live || row[h] >= n) ? 0.f : out;
-  }
-};
 
 template <bool kSplit, int ND>
 __global__ void __launch_bounds__(kThreads, 1)

@@ -124,7 +124,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   PairMask mask{a.row_gid, a.col_gid, n_rows, a.total};
   dual_walk<kSplit, false>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, mask, a.inv_t,
                            a.parts.part_r, a.parts.part_c, p, n_rows, n_cols,
-                           split_cols);
+                           dual_split(n_cols, split_cols));
 }
 
 __global__ void __launch_bounds__(kMergeThreads)

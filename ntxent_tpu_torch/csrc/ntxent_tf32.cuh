@@ -7,7 +7,10 @@
 // the dual forward, on #1's walk and launcher, fwd_launch) and #10
 // (infonce_dual_bwd.cu: both cross-modal backward walks in one grid), and
 // the shard-pair kernels #7 (ntxent_dual_stats.cu, #9's walk) and #8
-// (ntxent_dual_grads.cu, #10's grid); the two-sided walks of #7-#10 are
+// (ntxent_dual_grads.cu, #10's grid), and the triangular kernels #2
+// (ntxent_tri_fwd.cu, #9's walk over the upper triangle) and #3
+// (ntxent_tri_bwd.cu, #5's walk over the upper triangle with the
+// transposed product); the two-sided walks of #2 and #7-#10 are
 // dual_tf32.cuh's. The tensor-map encoder, TMA, the mbarriers and the
 // K-major descriptor come from flash_attention_sm90.cuh.
 //
@@ -30,7 +33,8 @@
 //
 // Walk. One CTA (a consumer warpgroup and a producer warp) owns 64 rows
 // and one split of the columns (ops/ntxent.py's planner, about one wave of
-// the SMs). The producer's lane 0 streams the split's 64-column tiles
+// the SMs); a triangular CTA walks a few such pieces one after another
+// (Pieces below). The producer's lane 0 streams the split's 64-column tiles
 // through a ring of stages in K boxes of 32 columns (8 KB of hi and 8 KB
 // of lo a box). The row tile (hi, lo) is loaded once and kept when it
 // leaves room for two stages (make_plan): fp32 up to D = 256, where it
@@ -93,6 +97,7 @@ constexpr int kPrepThreads = 256;         // a 32 x 32 tile, 8 rows a pass
 constexpr int kMergeThreads = 256;        // rows of one merge CTA
 constexpr float kNegInf = -1e30f;
 constexpr int kNoColumn = INT_MAX;  // id of a column past the split or C
+constexpr int kRowsFree = 1 + 2 * kMaxStages;  // barrier: the row tile read
 
 // --- layout, shared by the host and the kernels -------------------------
 
@@ -113,8 +118,9 @@ __host__ __device__ constexpr int padded_cols(int n) {
 // The dynamic shared memory of a walk: the row tile (hi, then lo: Dp / 32
 // boxes each) unless it streams, `stages` ring slots, `extra` bytes of
 // the kernel's own, then the barriers (the row tile's, full[kMaxStages],
-// empty[kMaxStages]). A launch asks 1024 bytes more to align the base to
-// the swizzle's 1024-byte boundary.
+// empty[kMaxStages], and the row tile's free barrier, kRowsFree). A launch
+// asks 1024 bytes more to align the base to the swizzle's 1024-byte
+// boundary.
 struct Plan {
   int nkb;         // K boxes of a row
   int box_bytes;   // one K box of a 64-row tile: hi, then lo for fp32
@@ -134,7 +140,7 @@ inline Plan make_plan(int d, bool split, int other_slot = 0,
   p.nkb = padded_d(d) / kBoxK;
   p.box_bytes = kBoxBytes * (split ? 2 : 1);
   p.row_bytes = p.nkb * p.box_bytes;
-  const int bar_bytes = (1 + 2 * kMaxStages) * 8;
+  const int bar_bytes = (kRowsFree + 1) * 8;
   const int room = kSmemMax - 1024 - bar_bytes - extra;
   int slot = p.box_bytes > other_slot ? p.box_bytes : other_slot;
   if (room - p.row_bytes < 2 * slot) {  // stream the row boxes too
@@ -301,6 +307,42 @@ __device__ __forceinline__ bool masked(const Ids& ids, int id, int gid) {
   return id >= ids.cols_actual() || (!ids.diag_pos() && id == gid);
 }
 
+// G of the symmetric backward (#5, and #3 over the upper triangle): p_row -
+// pos + p_col - pos, zero on a column past the piece and on a row past n;
+// a bwd_walk policy (see there). G is symmetric: G[a, b] = G[b, a].
+struct SymG {
+  const float* __restrict__ lse;
+  int n;
+  float inv_t;
+  int row[2], pos_col[2];
+  float lse_r[2];
+  float lse_c[16];  // entry 2i + e: column col0 + 8i + 2q + e
+
+  __device__ __forceinline__ void rows(int r) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row[h] = r + 8 * h;
+      pos_col[h] = row[h] < n / 2 ? row[h] + n / 2 : row[h] - n / 2;
+      lse_r[h] = row[h] < n ? lse[row[h]] : 0.f;
+    }
+  }
+  __device__ __forceinline__ void tile(int col0, int ce, int q) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * (j / 2) + 2 * q + j % 2;
+      lse_c[j] = col < ce ? lse[col] : 0.f;
+    }
+  }
+  __device__ __forceinline__ float g(float s, int i, int h, int col,
+                                     bool live) const {
+    const float x = (!live || col == row[h]) ? kNegInf : s * inv_t;
+    const float pos = col == pos_col[h] ? 1.f : 0.f;
+    const float out = (exp0(x - lse_r[h]) - pos) +
+                      (exp0(x - lse_c[2 * (i / 4) + i % 2]) - pos);
+    return (!live || row[h] >= n) ? 0.f : out;
+  }
+};
+
 // 1/T times the logit scale at `scale` (null: 1/T itself).
 __device__ __forceinline__ float scaled_inv_t(float inv_t,
                                               const float* scale) {
@@ -321,6 +363,83 @@ __device__ __forceinline__ void fold_partial(float& m, float& l, float m_c,
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kWarpgroup) : "memory");
 }
+
+// This thread's shared-memory stores made visible to the async proxy
+// (wgmma's operand reads) before a barrier hands them over.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// --- device: the pieces a CTA walks -----------------------------------------
+
+// One piece of a walk: the 64-row tile `tile`, the columns (a backward: the
+// other side's rows) cb .. ce - 1 against it, and the slot of its row
+// partials (the split, or the run of a triangular row tile).
+struct Piece {
+  int tile, cb, ce, slot;
+};
+
+// The one piece of a CTA of a split grid (#1, #4-#10): its row tile and
+// split; row_slots splits and col_slots row tiles size the partials.
+struct SplitPiece {
+  static constexpr bool kSelf = false;  // rows and columns differ (TriPieces)
+  Piece piece;
+  int row_slots, col_slots;
+  __device__ __forceinline__ int count() const { return 1; }
+  __device__ __forceinline__ Piece at(int) const { return piece; }
+};
+
+__device__ __forceinline__ SplitPiece split_piece(int tile, int split,
+                                                  int split_cols, int n_cols,
+                                                  int splits, int tiles) {
+  const int cb = split * split_cols;
+  return {{tile, cb, min(cb + split_cols, n_cols), split}, splits, tiles};
+}
+
+// The triangular kernels' plan (ops/ntxent.py's tri_runs) as one int32
+// table on the device: `pieces` rows of (row tile i, first column tile
+// j0 >= i, tiles, slot), numbered CTA by CTA; then the first piece of each
+// CTA (ctas + 1 entries); then the pieces of each of the nb row tiles. A
+// row tile's pieces (its runs) take slots 0, 1, .. in column order;
+// `slots` is the most any row tile has.
+struct TriPlan {
+  const int* table;
+  int pieces, ctas, slots, nb;
+  __device__ __forceinline__ int runs_of(int tile) const {
+    return __ldg(table + 4 * pieces + ctas + 1 + tile);
+  }
+};
+
+// The pieces of CTA blockIdx.x of a triangular walk over n vectors: the
+// upper tiles (i, j), j >= i, of its stretch, each row tile's in one
+// piece. kSelf: the rows are the columns, so the diagonal tile (col0 ==
+// row0) is folded in the row direction only, and each tile off it is also
+// its mirror (j, i).
+struct TriPieces {
+  static constexpr bool kSelf = true;
+  const int* first;  // this CTA's first piece
+  int n_pieces, n, row_slots, col_slots;
+
+  __device__ __forceinline__ TriPieces(const TriPlan& plan, int n_)
+      : n(n_), row_slots(plan.slots), col_slots(plan.nb) {
+    const int* start = plan.table + 4 * plan.pieces + blockIdx.x;
+    const int a = __ldg(start);
+    first = plan.table + 4 * a;
+    n_pieces = __ldg(start + 1) - a;
+  }
+  __device__ __forceinline__ int count() const { return n_pieces; }
+  __device__ __forceinline__ Piece at(int k) const {
+    const int* e = first + 4 * k;
+    const int j0 = __ldg(e + 1);
+    return {__ldg(e), j0 * kTile, min((j0 + __ldg(e + 2)) * kTile, n),
+            __ldg(e + 3)};
+  }
+  // The slot of tile (i, j), j > i, among the nb (nb - 1) / 2 tiles above
+  // the diagonal in row-major order.
+  __device__ __forceinline__ int tile_slot(int i, int j) const {
+    return i * col_slots - i * (i + 1) / 2 + j - i - 1;
+  }
+};
 
 // --- device: TF32 wgmma ---------------------------------------------------
 
@@ -346,6 +465,71 @@ __device__ __forceinline__ void mma_tf32_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= A . B in TF32, A and B both K-major in shared memory.
+__device__ __forceinline__ void mma_tf32_ss_n32(float (&d)[16], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A . B in TF32, A and B both K-major in shared memory.
+__device__ __forceinline__ void mma_tf32_ss_n128(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x N] (+)= A . B for N = 32, 64 or 128, both from shared memory.
+template <int N>
+__device__ __forceinline__ void mma_tf32_ss(float (&d)[N / 2], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  if constexpr (N == 32) {
+    mma_tf32_ss_n32(d, a, b, accumulate);
+  } else if constexpr (N == 64) {
+    mma_tf32_ss_n64(d, a, b, accumulate);
+  } else {
+    mma_tf32_ss_n128(d, a, b, accumulate);
+  }
 }
 
 // d[64 x 32] (+)= A . B in TF32, A in registers (a[0..3]: rows r and
@@ -459,6 +643,7 @@ __device__ __forceinline__ uint64_t* walk_barriers(unsigned char* smem,
       bar_init(&bars[1 + s], 1);
       bar_init(&bars[1 + kMaxStages + s], kWarpgroup);
     }
+    bar_init(&bars[kRowsFree], kWarpgroup);
     bar_init_fence();
   }
   __syncthreads();
@@ -516,9 +701,24 @@ __device__ __forceinline__ void load_rows(unsigned char* smem,
   }
 }
 
-// Consumer: wait for the row tile, when it stays.
-__device__ __forceinline__ void wait_rows(uint64_t* bars, const Plan& p) {
-  if (!p.streams()) bar_wait(bars, 0);
+// Consumer: wait for the row tile of the CTA's piece-th piece (Pieces
+// below), when it stays.
+__device__ __forceinline__ void wait_rows(uint64_t* bars, const Plan& p,
+                                          int piece = 0) {
+  if (!p.streams()) bar_wait(bars, piece & 1);
+}
+
+// Consumer: the last s tile of a piece has read the row tile, which the
+// producer may now overwrite with the next piece's.
+__device__ __forceinline__ void free_rows(uint64_t* bars, const Plan& p) {
+  if (!p.streams()) bar_arrive(&bars[kRowsFree]);
+}
+
+// Producer: before loading the row tile of the piece-th piece (> 0), wait
+// until the consumers have read the previous one.
+__device__ __forceinline__ void wait_rows_free(uint64_t* bars, const Plan& p,
+                                               int piece) {
+  if (!p.streams()) bar_wait(&bars[kRowsFree], (piece - 1) & 1);
 }
 
 // Producer: the K boxes (hi, lo) of the 64-column tile at col0, each in a
@@ -635,14 +835,15 @@ __device__ __forceinline__ void online_rows(const float (&s)[32],
 
 // --- device: the backward walk ---------------------------------------------
 
-// grad[own] = sum over the split's columns of G[own, col] z_other[col], for
-// one 64-row tile of `own` (`tile`), one column split (`split`) and one
-// chunk of ND columns of D (`chunk`). Per 64-column tile: s = z_own
-// z_other^T as the forward forms it, G in its place from the policy, G's
-// TF32 hi and lo (G is fp32, not exact in TF32), and grad += G . z_other
-// by wgmma m64nNDk8 with G as the register A operand and the transposed
-// other side, two K boxes of 32 columns, as B: three products for fp32
-// (G_lo z_hi, G_hi z_lo, then G_hi z_hi), two for bf16 (z_lo = 0).
+// grad[own] = sum over a piece's columns of G[own, col] z_other[col], for
+// the pieces of one CTA (Pieces: one (64-row tile of own, column split), or
+// the runs of a triangular stretch) and one chunk of ND columns of D
+// (`chunk`). Per 64-column tile: s = z_own z_other^T as the forward forms
+// it, G in its place from the policy, G's TF32 hi and lo (G is fp32, not
+// exact in TF32), and grad += G . z_other by wgmma m64nNDk8 with G as the
+// register A operand and the transposed other side, two K boxes of 32
+// columns, as B: three products for fp32 (G_lo z_hi, G_hi z_lo, then G_hi
+// z_hi), two for bf16 (z_lo = 0).
 //
 // G from registers. The fp32 accumulator holds row r's columns 2q and
 // 2q + 1 of each 8-column group (q = lane % 4); a TF32 A fragment holds K
@@ -658,6 +859,16 @@ __device__ __forceinline__ void online_rows(const float (&s)[32],
 // running sum in shared memory (ND / 2 floats a thread, p.extra on) with
 // a rounded fp32 add: 24 products to a chain.
 //
+// The transposed product (Pieces::kSelf, the triangular #3: own and other
+// are z, G symmetric). A tile (i, j) off the diagonal is also its mirror
+// (j, i), whose G is G^T: grad[block j] += G^T . z_i. TF32 wgmma takes A
+// only K-major, so G^T goes through shared memory (store_gt, 32 KB after
+// the running sums) and z_i's transposed halves come through the ring
+// after z_j's (L2 hits). The product starts a fresh accumulator (the
+// direct one's registers, already added to the sums), runs its 64 K
+// steps, 24 products to a chain, and goes to the tile's own slot of
+// out_t ((nb (nb - 1) / 2, 64, d) fp32, TriPieces::tile_slot).
+//
 // The policy G (one per kernel) holds what G needs besides s:
 //   rows(row0 + r): the thread's own rows r and r + 8 (h = 0, 1);
 //   tile(col0, ce, q): the tile's columns 8i + 2q + e (entry 2i + e),
@@ -665,39 +876,92 @@ __device__ __forceinline__ void online_rows(const float (&s)[32],
 //   g(s, i, h, col, live): G of accumulator entry i (row r + 8h, column
 //     col = col0 + 8 (i / 4) + 2q + i % 2) from the raw product s.
 // Rows past n_own and columns past n_other come in from TMA as zeros.
-// out: (splits, n_own, d) fp32, or the gradient itself with one split.
-template <bool kSplit, int ND, class G>
-__device__ __forceinline__ void bwd_walk_at(
+// out: (slots, n_own, d) fp32, a piece's sums at its slot; with one split
+// the gradient itself.
+template <bool kSplit, int ND>
+__device__ __forceinline__ void load_halves(Ring& ring,
+                                            const CUtensorMap* ht,
+                                            const CUtensorMap* lt, int col0,
+                                            int d0) {
+  constexpr int kHalfBytes = ND * 128;  // one K box of the transposed tile
+  for (int half = 0; half < 2; ++half) {
+    uint64_t* bar;
+    unsigned char* slot = ring.load(kHalfBytes * (kSplit ? 2 : 1), &bar);
+    tma_box_2d(slot, ht, bar, col0 + half * kBoxK, d0);
+    if constexpr (kSplit) {
+      tma_box_2d(slot + kHalfBytes, lt, bar, col0 + half * kBoxK, d0);
+    }
+  }
+}
+
+// The shared memory of G^T (store_gt): two 8 KB K boxes of hi, two of lo.
+constexpr int kGtBytes = 4 * kBoxBytes;
+
+// G's TF32 hi and lo of one tile, transposed into shared memory as the
+// K-major A operand of G^T . z_own: M = the tile's 64 columns, K = its 64
+// rows in the transposed copy's order (position k of each group of 8
+// holds row (k & ~7) | (2 (k & 3) + (k >> 2 & 1)), prep_tile_at), in the
+// 128-byte swizzle that desc_k reads (16-byte chunk c of 128-byte row m at
+// chunk c ^ (m & 7)). Entry 4g + 2h + e (row r + 8h, column 8g + 2q + e)
+// lies g 1024-byte row groups past the entry of column 2q + e: four
+// addresses a thread. A warp's stores hit 32 distinct banks. The
+// warpgroup syncs before (the last tile's product has read the buffer)
+// and after (every thread's part is in), the async-proxy fence between
+// the stores and wgmma's reads.
+__device__ __forceinline__ void store_gt(unsigned char* gt,
+                                         const uint32_t (&g_hi)[32],
+                                         const uint32_t (&g_lo)[32], int r,
+                                         int q) {
+  consumers_sync();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;  // K
+    const int k = (row & ~7) | ((row & 1) << 2) | ((row >> 1) & 3);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 2 * q + e;  // M
+      unsigned char* at = gt + (k / kBoxK) * kBoxBytes + col * 128 +
+                          ((((k % kBoxK) / 4) ^ col) * 16) + (k % 4) * 4;
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        *reinterpret_cast<uint32_t*>(at + g * 1024) = g_hi[4 * g + 2 * h + e];
+        *reinterpret_cast<uint32_t*>(at + 2 * kBoxBytes + g * 1024) =
+            g_lo[4 * g + 2 * h + e];
+      }
+    }
+  }
+  fence_async_shared();
+  consumers_sync();
+}
+
+template <bool kSplit, int ND, class G, class Pieces>
+__device__ __forceinline__ void bwd_walk_pieces(
     const CUtensorMap* own_h, const CUtensorMap* own_l,
     const CUtensorMap* oth_h, const CUtensorMap* oth_l,
     const CUtensorMap* oth_ht, const CUtensorMap* oth_lt, G& g,
-    float* __restrict__ out, const Plan& p, int n_own, int n_other, int d,
-    int split_cols, int tile, int split, int chunk) {
+    float* __restrict__ out, float* __restrict__ out_t, const Plan& p,
+    int n_own, int d, const Pieces& pieces, int chunk) {
+  constexpr bool kTrans = Pieces::kSelf;
   constexpr int kHalfBytes = ND * 128;  // one K box of the transposed tile
   extern __shared__ unsigned char raw[];
   unsigned char* smem = sm90::aligned_smem(raw);
   uint64_t* bars = walk_barriers(smem, p);
   Ring ring(smem, bars, p);
-  const int row0 = tile * kTile;
   const int d0 = chunk * ND;
-  const int cb = split * split_cols;
-  const int ce = min(cb + split_cols, n_other);
-  const int tiles = (ce - cb + kTile - 1) / kTile;
+  const int count = pieces.count();
 
   if (threadIdx.x >= kWarpgroup) {  // the producer warp
     if (threadIdx.x == kWarpgroup) {
-      load_rows<kSplit>(smem, bars, p, own_h, own_l, row0);
-      for (int t = 0; t < tiles; ++t) {
-        const int col0 = cb + t * kTile;
-        load_cols<kSplit>(ring, p, oth_h, oth_l, col0, own_h, own_l, row0);
-        for (int half = 0; half < 2; ++half) {
-          uint64_t* bar;
-          unsigned char* slot =
-              ring.load(kHalfBytes * (kSplit ? 2 : 1), &bar);
-          tma_box_2d(slot, oth_ht, bar, col0 + half * kBoxK, d0);
-          if constexpr (kSplit) {
-            tma_box_2d(slot + kHalfBytes, oth_lt, bar, col0 + half * kBoxK,
-                       d0);
+      for (int k = 0; k < count; ++k) {
+        const Piece pc = pieces.at(k);
+        const int row0 = pc.tile * kTile;
+        if (k > 0) wait_rows_free(bars, p, k);
+        load_rows<kSplit>(smem, bars, p, own_h, own_l, row0);
+        for (int col0 = pc.cb; col0 < pc.ce; col0 += kTile) {
+          load_cols<kSplit>(ring, p, oth_h, oth_l, col0, own_h, own_l, row0);
+          load_halves<kSplit, ND>(ring, oth_ht, oth_lt, col0, d0);
+          if (kTrans && col0 != row0) {
+            load_halves<kSplit, ND>(ring, oth_ht, oth_lt, row0, d0);
           }
         }
       }
@@ -709,74 +973,148 @@ __device__ __forceinline__ void bwd_walk_at(
   const int lane = threadIdx.x % 32;
   const int r = 16 * warp + lane / 4;
   const int q = lane % 4;
-  g.rows(row0 + r);
   float acc[ND / 2];
   // This thread's running sum of acc[j], at sum[j * kWarpgroup + tid].
   float* sum = reinterpret_cast<float*>(smem + p.extra) + threadIdx.x;
-#pragma unroll
-  for (int j = 0; j < ND / 2; ++j) sum[j * kWarpgroup] = 0.f;
+  unsigned char* gt = smem + p.extra + ND * kWarpgroup * 2;  // kTrans: G^T
 
-  wait_rows(bars, p);
-  for (int t = 0; t < tiles; ++t) {
-    const int col0 = cb + t * kTile;
-    g.tile(col0, ce, q);
-    float s[32];
-    s_tile<kSplit>(smem, p, ring, s);
-
-    // G in place of s, split into TF32 hi and lo.
-    uint32_t g_hi[32], g_lo[32];
+  for (int k = 0; k < count; ++k) {
+    const Piece pc = pieces.at(k);
+    const int row0 = pc.tile * kTile;
+    const int tiles = (pc.ce - pc.cb + kTile - 1) / kTile;
+    g.rows(row0 + r);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {  // row r + 8h, column 8 (i / 4) + 2q + i % 2
-      const int h = (i / 2) % 2;
-      const int col = col0 + 8 * (i / 4) + 2 * q + i % 2;
-      const float x = g.g(s[i], i, h, col, col < ce);
-      g_hi[i] = tf32_bits(x);
-      g_lo[i] = __float_as_uint(x - __uint_as_float(g_hi[i]));
-    }
+    for (int j = 0; j < ND / 2; ++j) sum[j * kWarpgroup] = 0.f;
 
-    for (int half = 0; half < 2; ++half) {
-      const unsigned char* zt_hi = ring.acquire();
-      const unsigned char* zt_lo = zt_hi + kHalfBytes;
-      wgmma_fence();
+    wait_rows(bars, p, k);
+    for (int t = 0; t < tiles; ++t) {
+      const int col0 = pc.cb + t * kTile;
+      g.tile(col0, pc.ce, q);
+      float s[32];
+      s_tile<kSplit>(smem, p, ring, s);
+      if (t == tiles - 1) free_rows(bars, p);
+
+      // G in place of s, split into TF32 hi and lo.
+      uint32_t g_hi[32], g_lo[32];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int i = 4 * half + kk;  // k8 step: columns 8i .. 8i + 7
-        const uint32_t a_hi[4] = {g_hi[4 * i], g_hi[4 * i + 2],
-                                  g_hi[4 * i + 1], g_hi[4 * i + 3]};
-        const uint32_t a_lo[4] = {g_lo[4 * i], g_lo[4 * i + 2],
-                                  g_lo[4 * i + 1], g_lo[4 * i + 3]};
-        mma_tf32_rs<ND>(acc, a_lo, desc_k(zt_hi, kk), i > 0);
-        if constexpr (kSplit) {
-          mma_tf32_rs<ND>(acc, a_hi, desc_k(zt_lo, kk), 1);
-        }
-        mma_tf32_rs<ND>(acc, a_hi, desc_k(zt_hi, kk), 1);
+      for (int i = 0; i < 32; ++i) {  // row r + 8h, column 8 (i / 4) + 2q + i % 2
+        const int h = (i / 2) % 2;
+        const int col = col0 + 8 * (i / 4) + 2 * q + i % 2;
+        const float x = g.g(s[i], i, h, col, col < pc.ce);
+        g_hi[i] = tf32_bits(x);
+        g_lo[i] = __float_as_uint(x - __uint_as_float(g_hi[i]));
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      hold(acc);
-      hold(g_hi);
-      hold(g_lo);
-      ring.release();
+      const bool trans = kTrans && col0 != row0;  // tile-uniform
+      if (trans) store_gt(gt, g_hi, g_lo, r, q);
+
+      for (int half = 0; half < 2; ++half) {
+        const unsigned char* zt_hi = ring.acquire();
+        const unsigned char* zt_lo = zt_hi + kHalfBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int i = 4 * half + kk;  // k8 step: columns 8i .. 8i + 7
+          const uint32_t a_hi[4] = {g_hi[4 * i], g_hi[4 * i + 2],
+                                    g_hi[4 * i + 1], g_hi[4 * i + 3]};
+          const uint32_t a_lo[4] = {g_lo[4 * i], g_lo[4 * i + 2],
+                                    g_lo[4 * i + 1], g_lo[4 * i + 3]};
+          mma_tf32_rs<ND>(acc, a_lo, desc_k(zt_hi, kk), i > 0);
+          if constexpr (kSplit) {
+            mma_tf32_rs<ND>(acc, a_hi, desc_k(zt_lo, kk), 1);
+          }
+          mma_tf32_rs<ND>(acc, a_hi, desc_k(zt_hi, kk), 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        hold(acc);
+        hold(g_hi);
+        hold(g_lo);
+        ring.release();
+      }
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) sum[j * kWarpgroup] += acc[j];
+
+      if constexpr (kTrans) {
+        if (trans) {  // grad[block j] += G^T . z_i, rows col0 .. col0 + 63
+          for (int half = 0; half < 2; ++half) {
+            const unsigned char* zt_hi = ring.acquire();
+            const unsigned char* zt_lo = zt_hi + kHalfBytes;
+            const unsigned char* a_hi = gt + half * kBoxBytes;
+            const unsigned char* a_lo = a_hi + 2 * kBoxBytes;
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              mma_tf32_ss<ND>(acc, desc_k(a_lo, kk), desc_k(zt_hi, kk),
+                              half > 0 || kk > 0);
+              if constexpr (kSplit) {
+                mma_tf32_ss<ND>(acc, desc_k(a_hi, kk), desc_k(zt_lo, kk), 1);
+              }
+              mma_tf32_ss<ND>(acc, desc_k(a_hi, kk), desc_k(zt_hi, kk), 1);
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            hold(acc);
+            ring.release();
+          }
+          // acc[4i + 2h + e]: row col0 + r + 8h, column d0 + 8i + 2q + e;
+          // with D even, the pair e = 0, 1 as one 8-byte store.
+          float* o = out_t + size_t(pieces.tile_slot(pc.tile, col0 / kTile)) *
+                                 kTile * d;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = r + 8 * h;
+            if (col0 + row >= n_own) continue;
+            float* dst = o + size_t(row) * d;
+#pragma unroll
+            for (int i = 0; i < ND / 8; ++i) {
+              const int kc = d0 + 8 * i + 2 * q;
+              if (d % 2 == 0) {
+                if (kc < d) {
+                  *reinterpret_cast<float2*>(dst + kc) =
+                      make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+                }
+              } else {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  if (kc + e < d) dst[kc + e] = acc[4 * i + 2 * h + e];
+                }
+              }
+            }
+          }
+        }
+      }
     }
+    // sum[4i + 2h + e]: row r + 8h, column d0 + 8i + 2q + e of grad.
 #pragma unroll
-    for (int j = 0; j < ND / 2; ++j) sum[j * kWarpgroup] += acc[j];
-  }
-  // sum[4i + 2h + e]: row r + 8h, column d0 + 8i + 2q + e of grad.
+    for (int i = 0; i < ND / 8; ++i) {
 #pragma unroll
-  for (int i = 0; i < ND / 8; ++i) {
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r + 8 * h;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + r + 8 * h;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int k = d0 + 8 * i + 2 * q + e;
-        if (row < n_own && k < d) {
-          out[(size_t(split) * n_own + row) * d + k] =
-              sum[(4 * i + 2 * h + e) * kWarpgroup];
+        for (int e = 0; e < 2; ++e) {
+          const int kc = d0 + 8 * i + 2 * q + e;
+          if (row < n_own && kc < d) {
+            out[(size_t(pc.slot) * n_own + row) * d + kc] =
+                sum[(4 * i + 2 * h + e) * kWarpgroup];
+          }
         }
       }
     }
   }
+}
+
+// The walk of one CTA of a split grid: the 64-row tile `tile` of own
+// against the columns of split `split`, one chunk of D.
+template <bool kSplit, int ND, class G>
+__device__ __forceinline__ void bwd_walk_at(
+    const CUtensorMap* own_h, const CUtensorMap* own_l,
+    const CUtensorMap* oth_h, const CUtensorMap* oth_l,
+    const CUtensorMap* oth_ht, const CUtensorMap* oth_lt, G& g,
+    float* __restrict__ out, const Plan& p, int n_own, int n_other, int d,
+    int split_cols, int tile, int split, int chunk) {
+  bwd_walk_pieces<kSplit, ND>(
+      own_h, own_l, oth_h, oth_l, oth_ht, oth_lt, g, out, nullptr, p, n_own,
+      d, split_piece(tile, split, split_cols, n_other, 0, 0), chunk);
 }
 
 // The CTA's tile, split and chunk from blockIdx.x, .y and .z.
@@ -981,15 +1319,16 @@ inline FwdBuffers fwd_carve(Carver& c, int n_rows, int n_cols, int d,
 
 // One forward walk: the operand prep of the rows and, unless they are the
 // rows (cols null), of the columns in one launch, their tensor maps, and
-// the walk over (64-row tiles, column splits). The prep kernel takes a
-// PrepPair; the walk kernel the rows' and the columns' maps (hi, lo), the
-// kernel's own `args`, the plan, n_rows, n_cols and split_cols. `extra`:
-// the walk's own bytes of shared memory beside the ring.
+// the walk over (64-row tiles, column splits), or over `ctas` CTAs of a
+// triangular plan. The prep kernel takes a PrepPair; the walk kernel the
+// rows' and the columns' maps (hi, lo), the kernel's own `args`, the plan,
+// n_rows, n_cols and split_cols. `extra`: the walk's own bytes of shared
+// memory beside the ring.
 template <typename T, class Prep, class Walk, class Args>
 cudaError_t fwd_launch(const T* rows, const T* cols, int n_rows, int n_cols,
                        int d, int splits, int split_cols, const FwdBuffers& b,
                        Prep prep, Walk walk, const Args& args, int extra,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, int ctas = 0) {
   constexpr bool kSplit = std::is_same<T, float>::value;
   const int blocks_r = (n_rows + 31) / 32;
   const int blocks_c = cols != nullptr ? (n_cols + 31) / 32 : 0;
@@ -1017,9 +1356,11 @@ cudaError_t fwd_launch(const T* rows, const T* cols, int n_rows, int n_cols,
                                p.bytes + 1024);
   }
   if (err != cudaSuccess) return err;
-  walk<<<dim3((n_rows + kTile - 1) / kTile, splits), kThreads,
-         p.bytes + 1024, stream>>>(rh, rl, ch, cl, args, p, n_rows, n_cols,
-                                   split_cols);
+  const dim3 grid = ctas > 0 ? dim3(ctas)
+                             : dim3((n_rows + kTile - 1) / kTile, splits);
+  walk<<<grid, kThreads, p.bytes + 1024, stream>>>(rh, rl, ch, cl, args, p,
+                                                   n_rows, n_cols,
+                                                   split_cols);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-// NT-Xent triangular symmetric backward for Hopper (sm_90a), bound to
-// PyTorch via ctypes.
+// NT-Xent triangular symmetric backward for Hopper (sm_90a) on TF32 tensor
+// cores, bound to PyTorch via ctypes.
 //
 // Replaces the Pallas TPU kernel _bwd_tri_kernel
 // (ntxent_tpu/ops/ntxent_pallas.py:350, launched by _bwd_tri_call at :406,
@@ -10,223 +10,234 @@
 //   G[i, j] = (exp(min(s - lse[i], 0)) - pos) + (exp(min(s - lse[j], 0))
 //             - pos), pos = 1 iff j = (i + N) mod 2N;
 //   grad    = G @ z (2N, D) fp32, before the caller's g / T scale.
-// G is symmetric, so only the upper-triangle tiles (i <= j, in 64-row
-// blocks) are formed, each driving grad[block i] += G_ij z_j and, for
-// j > i, grad[block j] += G_ij^T z_i: 3 (2N)^2 D operations where the
-// rectangular backward (#5) does 4.
+// G is symmetric, so only the upper tiles (i <= j, in 64-row blocks) are
+// formed, each driving grad[block i] += G_ij z_j and, for j > i,
+// grad[block j] += G_ij^T z_i: 3 (2N)^2 D products where the rectangular
+// backward (#5) does 4.
 //
 // Design. The TPU kernel adds both products into a full-length fp32
 // accumulator carried across its sequential grid. Hopper blocks run in no
-// order and this port uses no atomics, so one CTA per upper tile (i, j)
-// forms s once (infonce_tile.cuh's register-blocked fp32 FMA, bf16
-// widened, no TF32), G into shared memory, and writes its products as
-// partials: G_ij z_j to part[j][rows of block i] and, for j > i,
-// G_ij^T z_i to part[i][rows of block j]; every (column block, row) slot is
-// written by exactly one CTA. A second kernel sums each row's nb partials
-// in column-block order. The result is repeatable. Memory of the partials,
-// nb 2N D fp32 (nb = 2N / 64): 2.1 MB at 2N = 512, D = 128; 537 MB at
-// 2N = 8192, D = 128 (0.7% of an 80 GB card), read once by the sum. A
-// bounded design (a CTA walking a strip of tiles) would keep the partials
-// per strip instead of per tile, at fewer CTAs.
+// order and this port uses no atomics, so every output has one owner and
+// the partials are summed in a fixed order. Three launches:
+//   prep  z's TF32 hi and lo (rows, Dp) and the transposed copy (DT, Cp)
+//         with each 8-column group in the order 0, 2, 4, 6, 1, 3, 5, 7
+//         (the K-major B of grad = G . z), as #5's;
+//   walk  #5's backward walk (bwd_walk_pieces of ntxent_tf32.cuh, G from
+//         #5's SymG) over the plan of ops/ntxent.py's tri_runs, one CTA
+//         per (stretch of upper tiles, chunk of D of at most 128 columns);
+//         a stretch is a few pieces, each a run of
+//         consecutive column tiles j >= i of one row tile i. Per tile,
+//         s once (3xTF32 wgmma from the TMA ring; two products for bf16),
+//         G in the accumulator fragment (positives and the diagonal
+//         masked), and
+//         * the direct product grad[block i] += G . z_j, G as the register
+//           A operand, a fresh accumulator per tile added into the run's
+//           running sums in shared memory, written once a run: a per-run
+//           partial of block i;
+//         * for j > i the transposed product grad[block j] += G^T . z_i:
+//           G's TF32 hi and lo stored transposed into shared memory as
+//           the K-major A operand (TF32 wgmma takes no other), z_i's
+//           transposed halves streamed through the ring after z_j's (L2
+//           hits), 64 K steps in a fresh accumulator, written to the
+//           tile's own partial of block j;
+//   sum   grad[k] = block(k)'s per-run partials in run order, then the
+//         transposed partials of the tiles (t, block(k)), t < block(k), in
+//         tile order.
+// No atomics: the gradient is bitwise repeatable.
 //
-// Bound: 3 (2N)^2 D fp32 operations against 2N D inputs, 2N lse and 2N D
-// fp32 outputs. At 2N = 512, D = 128: 101 MFLOP, 1.5 us at the 67 TFLOP/s
-// fp32 peak (36 tile CTAs: latency-bound); at 2N = 8192: 25.8 GFLOP,
-// 385 us. The partials add 2 x 537 MB of traffic at 2N = 8192, 0.32 ms at
-// 3.35 TB/s.
+// Shared memory at D = 128, fp32 (make_plan): the row tile 64 KB, the
+// running sums 32 KB, G^T's hi and lo 32 KB and three ring stages of
+// 32 KB (224 KB); at D = 256 the row tile (128 KB) streams through the
+// ring beside the column tile's boxes (four stages), as at D = 288-512.
+//
+// Scratch: z's copies (about 4 2N D fp32), the per-run partials (most
+// runs of a row tile) 2N D fp32 and the transposed partials nb (nb - 1) /
+// 2 * 64 D fp32 (nb = ceil(2N / 64)): 1.8 MB at 2N = 512, D = 128; 266 MB
+// at 2N = 8192 (0.3% of an 80 GB card), written once by the walk and read
+// once by the sum.
+//
+// Bound: 3 (2N)^2 D operations, each product three TF32 passes in fp32
+// (165 TFLOP/s), against 2N D inputs, 2N lse and 2N D fp32 outputs. At
+// 2N = 512, D = 128: 101 MFLOP, 0.61 us (36 tiles: the launches bound it);
+// at 2N = 8192: 25.8 GFLOP, 156 us. The transposed partials add 2 x 266
+// MB of traffic at 2N = 8192, 0.16 ms at 3.35 TB/s.
 //
 // Supported: float32 or bfloat16 z, contiguous (2N, D), 2N even >= 2,
 // 1 <= D <= 512. The C entry point returns cudaGetLastError().
 
-#include "infonce_tile.cuh"
+#include "ntxent_tf32.cuh"
 
 namespace {
 
-using namespace infonce;
+using namespace ntx;
 
-constexpr int kLdG = kTile + 1;  // the G tile and one staged slice of z
-constexpr int kSumThreads = 256;
-static_assert(kTile * kLdG <= 2 * kTile * kLd,
-              "one staged z slice must fit the operand slices' space");
+// The kernels carry the wrapper's name (the profiler groups by it).
 
-__device__ __forceinline__ int pos_of(int row, int n_half) {
-  return row < n_half ? row + n_half : row - n_half;
+template <typename T, bool kSplit>
+__global__ void __launch_bounds__(kPrepThreads)
+    ntxent_bwd_tri_prep(const T* __restrict__ z, int n, int d,
+                        float* __restrict__ hi, float* __restrict__ lo,
+                        float* __restrict__ hi_t, float* __restrict__ lo_t) {
+  prep_tile<T, kSplit>(z, n, d, hi, lo, hi_t, lo_t);
 }
 
-// Rows row0 .. row0 + 63, columns k0 .. k0 + 63 of z (n x d) as fp32 with
-// row stride kLdG; zero outside z.
-template <typename T>
-__device__ void stage_block(float* dst, const T* z, int row0, int n, int d,
-                            int k0) {
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int r = e / kTile;
-    const int k = e % kTile;
-    const int gr = row0 + r;
-    const int gk = k0 + k;
-    dst[r * kLdG + k] =
-        (gr < n && gk < d) ? to_float(z[size_t(gr) * d + gk]) : 0.f;
-  }
+// blockIdx.x: the plan's CTA, blockIdx.y: the chunk of D. part: the
+// per-run partials (slots, n, d); part_t: the transposed partials.
+template <bool kSplit, int ND>
+__global__ void __launch_bounds__(kThreads, 1)
+    ntxent_bwd_tri_walk(const __grid_constant__ CUtensorMap tm_h,
+                        const __grid_constant__ CUtensorMap tm_l,
+                        const __grid_constant__ CUtensorMap tm_ht,
+                        const __grid_constant__ CUtensorMap tm_lt,
+                        const float* __restrict__ lse, TriPlan plan,
+                        float* __restrict__ part, float* __restrict__ part_t,
+                        Plan p, int n, int d, float inv_t) {
+  SymG g{lse, n, inv_t};
+  bwd_walk_pieces<kSplit, ND>(&tm_h, &tm_l, &tm_h, &tm_l, &tm_ht, &tm_lt, g,
+                              part, part_t, p, n, d, TriPieces(plan, n),
+                              blockIdx.y);
 }
 
-// Tile (i, j) = (blockIdx.y, blockIdx.x), j >= i; part is (nb, n, d).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    tri_tiles_bwd_kernel(const T* __restrict__ z,
-                         const float* __restrict__ lse,
-                         float* __restrict__ part, int n, int d,
-                         float inv_t) {
-  const int bi = blockIdx.y;
-  const int bj = blockIdx.x;
-  if (bj < bi) return;  // lower triangle: the mirror of an upper tile
-  // The operand slices of tile_products, then one staged 64 x 64 slice of
-  // z (kTile kLdG <= 2 kTile kLd floats).
-  __shared__ float ab[2 * kTile * kLd];
-  __shared__ float gs[kTile * kLdG];
-  float* as = ab;
-  float* bs = ab + kTile * kLd;
-  float* zs = ab;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int row0 = bi * kTile;
-  const int col0 = bj * kTile;
-  const int n_half = n / 2;
-
-  float s[4][4];
-  tile_products(s, as, bs, z, z, row0, col0, n, n, d);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    const float lse_r = row < n ? lse[row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      float g = 0.f;
-      if (row < n && col < n) {
-        const float x = row == col ? kNegInf : s[i][j] * inv_t;
-        const float pos = col == pos_of(row, n_half) ? 1.f : 0.f;
-        g = (exp0(x - lse_r) - pos) + (exp0(x - lse[col]) - pos);
-      }
-      gs[(ty + 16 * i) * kLdG + tx + 16 * j] = g;
-    }
-  }
-
-  const size_t slot_ij = size_t(bj) * n;  // partial of block j's columns
-  const size_t slot_ji = size_t(bi) * n;  // partial of block i's columns
-  for (int k0 = 0; k0 < d; k0 += kTile) {
-    // G_ij z_j -> rows of block i
-    __syncthreads();  // gs is written; zs's previous readers are done
-    stage_block(zs, z, col0, n, d, k0);
-    __syncthreads();
-    float o[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-    }
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float gv[4], zv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) gv[i] = gs[(ty + 16 * i) * kLdG + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) zv[j] = zs[c * kLdG + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(gv[i], zv[j], o[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + tx + 16 * j;
-        if (row < n && k < d) part[(slot_ij + row) * d + k] = o[i][j];
-      }
-    }
-    if (bj == bi) continue;  // the diagonal tile's transpose is itself
-    // G_ij^T z_i -> rows of block j
-    __syncthreads();
-    stage_block(zs, z, row0, n, d, k0);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-    }
-#pragma unroll 8
-    for (int r = 0; r < kTile; ++r) {
-      float gv[4], zv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) gv[i] = gs[r * kLdG + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) zv[j] = zs[r * kLdG + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(gv[i], zv[j], o[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = col0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + tx + 16 * j;
-        if (row < n && k < d) part[(slot_ji + row) * d + k] = o[i][j];
-      }
-    }
-  }
-}
-
-// grad[e] = sum over column blocks c, in order, of part[c][e] (e < n d).
-__global__ void __launch_bounds__(kSumThreads)
-    tri_bwd_sum_kernel(const float* __restrict__ part,
-                       float* __restrict__ grad, size_t count, int nb) {
-  const size_t e = size_t(blockIdx.x) * kSumThreads + threadIdx.x;
-  if (e >= count) return;
-  float sum = 0.f;
-  for (int c = 0; c < nb; ++c) sum += part[size_t(c) * count + e];
-  grad[e] = sum;
-}
-
-template <typename T>
-cudaError_t launch(const void* z, const float* lse, float* part,
-                   float* grad, int n, int d, float inv_t,
-                   cudaStream_t stream) {
-  const int nb = (n + kTile - 1) / kTile;
-  tri_tiles_bwd_kernel<T><<<dim3(nb, nb), kThreads, 0, stream>>>(
-      static_cast<const T*>(z), lse, part, n, d, inv_t);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+// grad[k][c] = the per-run partials of block(k) in run order, then the
+// transposed partials of tiles (t, block(k)), t < block(k), in tile order.
+__global__ void ntxent_bwd_tri_sum(const float* __restrict__ part,
+                                   const float* __restrict__ part_t,
+                                   float* __restrict__ grad, TriPlan plan,
+                                   int n, int d) {
   const size_t count = size_t(n) * d;
-  const unsigned sums =
-      static_cast<unsigned>((count + kSumThreads - 1) / kSumThreads);
-  tri_bwd_sum_kernel<<<sums, kSumThreads, 0, stream>>>(part, grad, count,
-                                                       nb);
+  for (size_t e = blockIdx.x * size_t(blockDim.x) + threadIdx.x; e < count;
+       e += size_t(gridDim.x) * blockDim.x) {
+    const int k = static_cast<int>(e / d);
+    const int c = static_cast<int>(e % d);
+    const int bk = k / kTile;
+    float sum = part[e];
+    for (int s = 1; s < plan.runs_of(bk); ++s) sum += part[s * count + e];
+    for (int t = 0; t < bk; ++t) {
+      const int slot = t * plan.nb - t * (t + 1) / 2 + bk - t - 1;
+      sum += part_t[(size_t(slot) * kTile + k % kTile) * d + c];
+    }
+    grad[e] = sum;
+  }
+}
+
+// The scratch of one call: z's hi and lo (rows, Dp) and their transposes
+// (DT, Cp) fp32 (the lo copies only for fp32 z), the per-run partials
+// slots * rows * d and the transposed partials nb (nb - 1) / 2 * 64 * d.
+struct Buffers {
+  float *hi, *lo, *hi_t, *lo_t, *part, *part_t;
+};
+
+Buffers carve(Carver& c, int n, int d, bool split, int slots) {
+  Buffers b{};
+  const size_t rows = size_t(n) * padded_d(d);
+  const size_t cols = size_t(padded_dt(d)) * padded_cols(n);
+  const size_t nb = (n + kTile - 1) / kTile;
+  b.hi = c.take(rows);
+  b.lo = c.take(split ? rows : 0);
+  b.hi_t = c.take(cols);
+  b.lo_t = c.take(split ? cols : 0);
+  b.part = c.take(size_t(slots) * n * d);
+  b.part_t = c.take(nb * (nb - 1) / 2 * kTile * d);
+  return b;
+}
+
+// The walk's plan: the ring stages hold a K box of the column tile or one
+// half of a transposed tile; its own bytes are the running sums and G^T.
+template <int ND>
+Plan tri_bwd_plan(int d, bool split) {
+  return make_plan(d, split, bwd_half_bytes<ND>(split),
+                   bwd_sum_bytes<ND>() + kGtBytes);
+}
+
+template <typename T, int ND>
+cudaError_t launch(const T* z, const float* lse, float* grad,
+                   const TriPlan& plan, const Buffers& b, int n, int d,
+                   float inv_t, cudaStream_t stream) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  const int dt = padded_dt(d);
+  const int cp = padded_cols(n);
+  ntxent_bwd_tri_prep<T, kSplit>
+      <<<dim3(cp / 32, dt / 32), kPrepThreads, 0, stream>>>(
+          z, n, d, b.hi, b.lo, b.hi_t, b.lo_t);
+  cudaError_t err = cudaGetLastError();
+  CUtensorMap tm_h, tm_l, tm_ht, tm_lt;
+  if (err == cudaSuccess) {
+    err = operand_maps<kSplit>(&tm_h, &tm_l, b.hi, b.lo, n, d);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&tm_ht, b.hi_t, cp, dt, kBoxK, ND);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::tensor_map_f32(&tm_lt, kSplit ? b.lo_t : b.hi_t, cp, dt,
+                               kBoxK, ND);
+  }
+  const Plan p = tri_bwd_plan<ND>(d, kSplit);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(ntxent_bwd_tri_walk<kSplit, ND>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.bytes + 1024);
+  }
+  if (err != cudaSuccess) return err;
+  ntxent_bwd_tri_walk<kSplit, ND>
+      <<<dim3(plan.ctas, dt / ND), kThreads, p.bytes + 1024, stream>>>(
+          tm_h, tm_l, tm_ht, tm_lt, lse, plan, b.part, b.part_t, p, n, d,
+          inv_t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ntxent_bwd_tri_sum<<<sum_blocks(size_t(n) * d), 256, 0, stream>>>(
+      b.part, b.part_t, grad, plan, n, d);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* z, const float* lse, float* grad,
+                     const TriPlan& plan, const Buffers& b, int n, int d,
+                     float inv_t, cudaStream_t s) {
+  const T* zt = static_cast<const T*>(z);
+  switch (d_chunk(d)) {
+    case 32:
+      return launch<T, 32>(zt, lse, grad, plan, b, n, d, inv_t, s);
+    case 64:
+      return launch<T, 64>(zt, lse, grad, plan, b, n, d, inv_t, s);
+    default:
+      return launch<T, 128>(zt, lse, grad, plan, b, n, d, inv_t, s);
+  }
 }
 
 }  // namespace
 
+// Floats of scratch one call takes (dtype 0: fp32, with lo copies); slots:
+// the most runs a row tile has in the plan.
+extern "C" long long ntx_ntxent_tri_bwd_scratch(int rows, int d, int dtype,
+                                                int slots) {
+  Carver c{nullptr};
+  carve(c, rows, d, dtype == 0, slots);
+  return static_cast<long long>(c.used);
+}
+
 // grad (rows, d) fp32 = G @ z from z (rows, d) and lse (rows,) fp32.
-// Scratch: part holds ceil(rows / 64) * rows * d floats. dtype:
-// 0 = float32, 1 = bfloat16.
+// plan: the device int32 table of TriPlan (ops/ntxent.py's tri_runs, one
+// CTA of `ctas` per chunk of D); `scratch` holds
+// ntx_ntxent_tri_bwd_scratch(rows, d, dtype, slots) floats. dtype: 0 =
+// float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int ntx_ntxent_tri_bwd(const void* z, const void* lse,
-                                  void* part, void* grad, int rows, int d,
-                                  int dtype, float inv_t, int device,
-                                  void* stream) {
-  if (rows < 2 || rows % 2 != 0 || d < 1 || d > kMaxD) {
+                                  const void* plan, void* grad,
+                                  void* scratch, int rows, int d, int dtype,
+                                  float inv_t, int pieces, int ctas,
+                                  int slots, int device, void* stream) {
+  if (rows < 2 || rows % 2 != 0 || d < 1 || d > kMaxD || plan == nullptr ||
+      pieces < ctas || ctas < 1 || slots < 1 || (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TriPlan tp{static_cast<const int*>(plan), pieces, ctas, slots,
+                   (rows + kTile - 1) / kTile};
+  Carver c{static_cast<float*>(scratch)};
+  const Buffers b = carve(c, rows, d, dtype == 0, slots);
   const float* l = static_cast<const float*>(lse);
-  float* p = static_cast<float*>(part);
   float* g = static_cast<float*>(grad);
-  if (dtype == 0) return launch<float>(z, l, p, g, rows, d, inv_t, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(z, l, p, g, rows, d, inv_t, s);
-  return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float>(z, l, g, tp, b, rows, d, inv_t, s);
+  return dispatch<__nv_bfloat16>(z, l, g, tp, b, rows, d, inv_t, s);
 }

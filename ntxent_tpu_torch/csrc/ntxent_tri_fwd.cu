@@ -1,223 +1,265 @@
-// NT-Xent triangular symmetric forward for Hopper (sm_90a), bound to
-// PyTorch via ctypes.
+// NT-Xent triangular symmetric forward for Hopper (sm_90a) on TF32 tensor
+// cores, bound to PyTorch via ctypes.
 //
 // Replaces the Pallas TPU kernel _fwd_tri_kernel
 // (ntxent_tpu/ops/ntxent_pallas.py:237, launched by _fwd_tri_call at :308,
 // pallas_call at :315), the forward of ntxent_loss_fused(triangular=True).
 // For stacked views z (2N, D), as that kernel computes:
 //   s[i, j]  = (z_i . z_j) * inv_t in fp32, the diagonal masked to -1e30;
-//   lse[i]   = logsumexp_j s[i, j];
+//   lse[i]   = logsumexp_j s[i, j] (exp(min(s - m, 0)), m + log(max(l,
+//              1e-37)));
 //   loss_sum = sum_i (lse[i] - s[i, pos(i)]), pos(i) = (i + N) mod 2N.
-// s is symmetric, so only the upper-triangle tiles (i <= j, in 64-row
-// blocks) are formed; each folds into row block i directly and, for
-// j > i, into row block j transposed: half the products of the
-// rectangular forward (#1).
+// s is symmetric, so only the upper tiles (i <= j, in 64-row blocks) are
+// formed, each folded into row block i directly and, for j > i, into row
+// block j transposed: (2N)^2 D products, half of the rectangular #1's.
 //
 // Design. The TPU kernel carries running (m, l, p) of every row in
-// full-length scratch across its sequential grid. Hopper blocks run in no
-// order, so nothing is carried: one CTA per upper tile (i, j) forms the
-// 64 x 64 tile once (infonce_tile.cuh's register-blocked fp32 FMA, bf16
-// widened, no TF32) into shared memory and writes one partial (m, l, p) for
-// each of its 64 rows of block i (over the tile's columns: part[j][row])
-// and, for j > i, one for each of its 64 rows of block j (over the tile's
-// rows, s^T: part[i][row]). Every (column block, row) slot is written by
-// exactly one CTA. A merge kernel then folds each row's nb partials in
-// column-block order (m = max; l = l e^(m - m') + l_c e^(m_c - m')), writes
-// lse = m + log(max(l, 1e-37)) and sums its 256 rows' lse - p in row order;
-// one warp adds the merge CTAs' sums in a fixed order. No atomics: the loss
-// is bitwise repeatable. The partials take 3 nb 2N fp32: 48 KB at 2N =
-// 512, 12.6 MB at 2N = 8192 (nb = 2N / 64).
+// full-length scratch across its sequential grid; Hopper blocks run in no
+// order, so each output has one owner and the partials are merged after.
+// Three launches and a one-warp reduce:
+//   prep   z's TF32 hi and lo (one copy serves as rows and columns);
+//   walk   the dual walk of dual_tf32.cuh (#9's and #7's) over the plan of
+//          ops/ntxent.py's tri_runs: about one CTA an SM, each walking a
+//          stretch of the upper tiles in row tiles 0, nb - 1, 1, nb - 2, ..
+//          order, one piece (a run of consecutive column tiles j >= i) per
+//          row tile it crosses; the row tile resident, the run's column
+//          tiles through the TMA ring. Each s tile is formed once by wgmma
+//          m64n64k8 (3xTF32 for fp32, one pass for bf16) and folded
+//          * into the rows (TriMask::row_in: the column < 2N and not the
+//            row): the run's online (m, l) and the positive of its 64 rows
+//            of block i, one (m, l, pos) partial per (row, run);
+//          * for j > i into the columns (col_in: the row < 2N and not the
+//            column): each column's (max, sum exp0(s - max)) over the
+//            tile's 64 rows, one (m, l) partial per (row tile i, column).
+//            The diagonal tile's row pass covers both directions: it takes
+//            no column pass and writes nothing there.
+//          Positives: row k's positive, column pos(k), lies in its own row
+//          direction when block(pos(k)) >= block(k) (the diagonal tile
+//          included); otherwise it is the entry (pos(k), k), which row
+//          pos(k) folds as its own positive in its row direction. The
+//          merge reads it there: the same register of the same s tile, so
+//          the column direction carries no positive plane;
+//   merge  index k: the row partials of block(k)'s runs in run order, then
+//          the column partials of row tiles t < block(k) in tile order
+//          (fold_partial), lse = m + log(max(l, 1e-37)); the positive from
+//          row k's runs or row pos(k)'s (as above); the block's sum of
+//          lse - pos over its 64 indices in index order;
+//   reduce one warp adds the blocks' sums in a fixed order.
+// No atomics: the loss is bitwise repeatable. Partials: 3 (most runs of a
+// row tile) 2N + 2 nb 2N fp32 (nb = ceil(2N / 64)): 0.13 MB at 2N = 512,
+// 8.5 MB at 2N = 8192 (3 runs a row tile at most).
 //
-// Bound: (2N)^2 D fp32 operations over the upper triangle (half of #1's 2
-// (2N)^2 D) against 2N D inputs and 2N + 1 fp32 outputs. At 2N = 512,
-// D = 128: 33.6 MFLOP, 0.5 us at the 67 TFLOP/s fp32 peak (36 tile CTAs:
-// latency-bound); at 2N = 8192: 8.6 GFLOP, 128 us.
+// Bound: (2N)^2 D operations (s once over the upper triangle), each
+// product three TF32 passes in fp32 (the card's fastest fp32-accurate
+// product, 165 TFLOP/s), against 2N D inputs and 2N + 1 fp32 outputs. At
+// 2N = 512, D = 128: 33.6 MFLOP, 0.20 us (36 tiles, one a CTA: the
+// launches bound it); at 2N = 8192: 8.6 GFLOP, 52 us (8256 tiles, 62.5 an
+// SM).
 //
 // Supported: float32 or bfloat16 z, contiguous (2N, D), 2N even >= 2,
-// 1 <= D <= 512. The C entry point returns cudaGetLastError().
+// 1 <= D <= 512 (past D = 256 in fp32 the row tile streams through the
+// ring). The C entry point returns cudaGetLastError().
 
-#include "infonce_tile.cuh"
+#include "dual_tf32.cuh"
 
 namespace {
 
-using namespace infonce;
+using namespace ntx;
 
-constexpr int kLdS = kTile + 1;    // the masked s tile in shared memory
-constexpr int kMergeThreads = 256;  // rows per merge CTA
-
-__device__ __forceinline__ int pos_of(int row, int n_half) {
-  return row < n_half ? row + n_half : row - n_half;
+__device__ __forceinline__ int pos_of(int row, int n) {
+  return row < n / 2 ? row + n / 2 : row - n / 2;
 }
 
-// One (m, l, p) partial of a row over the 64 entries t[0], t[stride], ...
-// of the masked s tile; `pos_at` is the positive's offset or -1.
-__device__ __forceinline__ void row_stats(const float* t, int stride,
-                                          int pos_at, float* m_out,
-                                          float* l_out, float* p_out) {
-  float m = kNegInf;
-  for (int c = 0; c < kTile; ++c) m = fmaxf(m, t[c * stride]);
-  float l = 0.f;
-  for (int c = 0; c < kTile; ++c) l += exp0(t[c * stride] - m);
-  *m_out = m;
-  *l_out = l;
-  *p_out = pos_at >= 0 ? t[pos_at * stride] : 0.f;
-}
+// What the walk takes besides the maps and the layout: the plan, the
+// partials (part_r: three planes (m, l, pos), each (slots, n); part_c: two
+// planes (m, l), each (nb, n)) and 1/T.
+struct TriArgs {
+  TriPlan plan;
+  float* part_r;
+  float* part_c;
+  float inv_t;
+};
 
-// Tile (i, j) = (blockIdx.y, blockIdx.x), j >= i; part holds three
-// (nb, n) planes: m, l and the positive's logit.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    tri_tiles_fwd_kernel(const T* __restrict__ z, float* __restrict__ part,
-                         int n, int d, float inv_t) {
-  const int bi = blockIdx.y;
-  const int bj = blockIdx.x;
-  if (bj < bi) return;  // lower triangle: the mirror of an upper tile
-  __shared__ float as[kTile * kLd];
-  __shared__ float bs[kTile * kLd];
-  __shared__ float st[kTile * kLdS];
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int row0 = bi * kTile;
-  const int col0 = bj * kTile;
+// The symmetric masks: an entry counts in the row direction unless its
+// column is past 2N (or the piece) or is the row, in the column direction
+// unless its row is past 2N or is the column; the positive of row r is
+// column pos(r).
+struct TriMask {
+  int n, ce;
+  int row[2], pos_col[2];
 
-  float acc[4][4];
-  tile_products(acc, as, bs, z, z, row0, col0, n, n, d);
+  __device__ __forceinline__ void rows(int r) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const int row = row0 + r;
-      const int col = col0 + c;
-      // a vector past n does not exist; the diagonal is masked. The same
-      // masked tile serves both directions: a row's positive is never
-      // masked (it exists and is not the row itself).
-      const bool masked = row >= n || col >= n || row == col;
-      st[r * kLdS + c] = masked ? kNegInf : acc[i][j] * inv_t;
+    for (int h = 0; h < 2; ++h) {
+      row[h] = r + 8 * h;
+      pos_col[h] = row[h] < n ? pos_of(row[h], n) : -1;
     }
   }
-  __syncthreads();
-
-  const int nb = gridDim.x;
-  const size_t plane = size_t(nb) * n;
-  const int n_half = n / 2;
-  const int t = threadIdx.x;
-  if (t < kTile) {  // row t of block i over the tile's columns
-    const int row = row0 + t;
-    if (row < n) {
-      const int pos = pos_of(row, n_half) - col0;
-      float m, l, p;
-      row_stats(st + t * kLdS, 1, (pos >= 0 && pos < kTile) ? pos : -1, &m,
-                &l, &p);
-      const size_t at = size_t(bj) * n + row;
-      part[at] = m;
-      part[plane + at] = l;
-      part[2 * plane + at] = p;
-    }
-  } else if (t < 2 * kTile && bj > bi) {  // row c of block j, transposed
-    const int c = t - kTile;
-    const int row = col0 + c;
-    if (row < n) {
-      const int pos = pos_of(row, n_half) - row0;
-      float m, l, p;
-      row_stats(st + c, kLdS, (pos >= 0 && pos < kTile) ? pos : -1, &m, &l,
-                &p);
-      const size_t at = size_t(bi) * n + row;
-      part[at] = m;
-      part[plane + at] = l;
-      part[2 * plane + at] = p;
-    }
+  __device__ __forceinline__ void tile(int, int ce_, int) { ce = ce_; }
+  __device__ __forceinline__ bool row_in(int h, int, int c) const {
+    return c < ce && c != row[h];
   }
+  __device__ __forceinline__ bool col_in(int h, int, int c) const {
+    return row[h] < n && c != row[h];
+  }
+  __device__ __forceinline__ bool row_pos(int h, int, int c) const {
+    return c == pos_col[h];
+  }
+};
+
+// The kernels carry the wrapper's name (the profiler groups by it).
+
+template <typename T, bool kSplit>
+__global__ void __launch_bounds__(kPrepThreads)
+    ntxent_fwd_tri_prep(const PrepPair<T> a) {
+  prep_pair<T, kSplit>(a);
 }
 
-// Row r's nb partials folded in column-block order into lse[r]; the CTA's
-// sum of lse - p over its rows, in row order, into block_sum[blockIdx.x].
-__global__ void __launch_bounds__(kMergeThreads)
-    tri_fwd_merge_kernel(const float* __restrict__ part,
+template <bool kSplit>
+__global__ void __launch_bounds__(kThreads, 1)
+    ntxent_fwd_tri_walk(const __grid_constant__ CUtensorMap tm_rh,
+                        const __grid_constant__ CUtensorMap tm_rl,
+                        const __grid_constant__ CUtensorMap tm_ch,
+                        const __grid_constant__ CUtensorMap tm_cl,
+                        TriArgs a, Plan p, int n, int, int) {
+  TriMask mask{n};
+  dual_walk<kSplit, true>(&tm_rh, &tm_rl, &tm_ch, &tm_cl, mask, a.inv_t,
+                          a.part_r, a.part_c, p, n, n, TriPieces(a.plan, n));
+}
+
+// Index k as the header says; the CTA's sum of lse - pos over its indices,
+// in index order, into block_sum[blockIdx.x]. A CTA takes 64 indices (one
+// row tile: 2N / 64 CTAs) and loads the column partials 8 row tiles at a
+// time ahead of folding them, since the fold is a chain of nb steps.
+__global__ void __launch_bounds__(kTile)
+    ntxent_fwd_tri_merge(const float* __restrict__ part_r,
+                         const float* __restrict__ part_c,
                          float* __restrict__ lse,
-                         float* __restrict__ block_sum, int n, int nb) {
-  __shared__ float row_loss[kMergeThreads];
-  const int row = blockIdx.x * kMergeThreads + threadIdx.x;
-  float loss = 0.f;
-  if (row < n) {
-    const size_t plane = size_t(nb) * n;
+                         float* __restrict__ block_sum, TriPlan plan,
+                         int n) {
+  constexpr int kAhead = 8;
+  __shared__ float terms[kTile];
+  const int k = blockIdx.x * kTile + threadIdx.x;
+  float term = 0.f;
+  if (k < n) {
+    const size_t plane_r = size_t(plan.slots) * n;
+    const size_t plane_c = size_t(plan.nb) * n;
+    const int bk = k / kTile;
     float m = kNegInf;
     float l = 0.f;
-    float p = 0.f;
-    for (int c = 0; c < nb; ++c) {
-      const size_t at = size_t(c) * n + row;
-      const float m_c = part[at];
-      const float m_new = fmaxf(m, m_c);
-      l = l * exp0(m - m_new) + part[plane + at] * exp0(m_c - m_new);
-      m = m_new;
-      p += part[2 * plane + at];
+    for (int s = 0; s < plan.runs_of(bk); ++s) {
+      const size_t at = size_t(s) * n + k;
+      fold_partial(m, l, part_r[at], part_r[plane_r + at]);
+    }
+    for (int t0 = 0; t0 < bk; t0 += kAhead) {
+      float mc[kAhead], lc[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const size_t at = size_t(t0 + u) * n + k;
+        mc[u] = t0 + u < bk ? part_c[at] : kNegInf;
+        lc[u] = t0 + u < bk ? part_c[plane_c + at] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        if (t0 + u < bk) fold_partial(m, l, mc[u], lc[u]);
+      }
     }
     const float row_lse = m + logf(fmaxf(l, 1e-37f));
-    lse[row] = row_lse;
-    loss = row_lse - p;
+    lse[k] = row_lse;
+    const int pk = pos_of(k, n);
+    const int owner = pk / kTile >= bk ? k : pk;  // where the positive is
+    float pos = 0.f;
+    for (int s = 0; s < plan.runs_of(owner / kTile); ++s) {
+      pos += part_r[2 * plane_r + size_t(s) * n + owner];
+    }
+    term = row_lse - pos;
   }
-  row_loss[threadIdx.x] = loss;
+  terms[threadIdx.x] = term;
   __syncthreads();
   if (threadIdx.x == 0) {
     float sum = 0.f;
-    for (int r = 0; r < kMergeThreads; ++r) sum += row_loss[r];
+    for (int i = 0; i < kTile; ++i) sum += terms[i];
     block_sum[blockIdx.x] = sum;
   }
 }
 
-// One warp sums the merge CTAs' sums in a fixed order.
-__global__ void tri_loss_reduce(const float* __restrict__ block_sum,
-                                int count, float* __restrict__ loss) {
-  float sum = 0.f;
-  for (int i = threadIdx.x; i < count; i += 32) sum += block_sum[i];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  }
-  if (threadIdx.x == 0) loss[0] = sum;
+__global__ void ntxent_fwd_tri_reduce(const float* __restrict__ block_sum,
+                                      int count, float* __restrict__ loss) {
+  reduce_sums(block_sum, count, loss);
+}
+
+// The scratch of one call: z's hi and lo (fwd_carve), part_r 3 * slots * n,
+// part_c 2 * nb * n and block_sum nb fp32 (nb = ceil(n / 64)).
+struct Buffers {
+  FwdBuffers ops;
+  float *part_r, *part_c, *block_sum;
+};
+
+Buffers carve(Carver& c, int n, int d, bool split, int slots) {
+  Buffers b{};
+  b.ops = fwd_carve(c, n, 0, d, split);
+  b.part_r = c.take(size_t(3) * slots * n);
+  b.part_c = c.take(size_t(2) * ((n + kTile - 1) / kTile) * n);
+  b.block_sum = c.take((n + kTile - 1) / kTile);
+  return b;
 }
 
 template <typename T>
-cudaError_t launch(const void* z, float* lse, float* part, float* block_sum,
-                   float* loss, int n, int d, float inv_t,
+cudaError_t launch(const T* z, const TriPlan& plan, const Buffers& b,
+                   float* lse, float* loss, int n, int d, float inv_t,
                    cudaStream_t stream) {
-  const int nb = (n + kTile - 1) / kTile;
-  tri_tiles_fwd_kernel<T><<<dim3(nb, nb), kThreads, 0, stream>>>(
-      static_cast<const T*>(z), part, n, d, inv_t);
-  cudaError_t err = cudaGetLastError();
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  const TriArgs args{plan, b.part_r, b.part_c, inv_t};
+  cudaError_t err = fwd_launch<T>(
+      z, nullptr, n, n, d, 1, n, b.ops, ntxent_fwd_tri_prep<T, kSplit>,
+      ntxent_fwd_tri_walk<kSplit>, args, kColBytes, stream, plan.ctas);
   if (err != cudaSuccess) return err;
-  const int merges = (n + kMergeThreads - 1) / kMergeThreads;
-  tri_fwd_merge_kernel<<<merges, kMergeThreads, 0, stream>>>(
-      part, lse, block_sum, n, nb);
+  ntxent_fwd_tri_merge<<<plan.nb, kTile, 0, stream>>>(
+      b.part_r, b.part_c, lse, b.block_sum, plan, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  tri_loss_reduce<<<1, 32, 0, stream>>>(block_sum, merges, loss);
+  ntxent_fwd_tri_reduce<<<1, 32, 0, stream>>>(b.block_sum, plan.nb, loss);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Floats of scratch one call takes (dtype 0: fp32, with lo copies); slots:
+// the most runs a row tile has in the plan.
+extern "C" long long ntx_ntxent_tri_fwd_scratch(int rows, int d, int dtype,
+                                                int slots) {
+  Carver c{nullptr};
+  carve(c, rows, d, dtype == 0, slots);
+  return static_cast<long long>(c.used);
+}
+
 // lse (rows,) fp32 and loss (one fp32, the loss SUM) of z (rows, d).
-// Scratch: part holds 3 * ceil(rows / 64) * rows floats, block_sum
-// ceil(rows / 256). dtype: 0 = float32, 1 = bfloat16.
-extern "C" int ntx_ntxent_tri_fwd(const void* z, void* lse, void* part,
-                                  void* block_sum, void* loss, int rows,
-                                  int d, int dtype, float inv_t, int device,
+// plan: the device int32 table of TriPlan (ops/ntxent.py's tri_runs:
+// `pieces` pieces over `ctas` CTAs, `slots` runs at most a row tile);
+// `scratch` holds ntx_ntxent_tri_fwd_scratch(rows, d, dtype, slots)
+// floats. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+extern "C" int ntx_ntxent_tri_fwd(const void* z, const void* plan,
+                                  void* lse, void* loss, void* scratch,
+                                  int rows, int d, int dtype, float inv_t,
+                                  int pieces, int ctas, int slots, int device,
                                   void* stream) {
-  if (rows < 2 || rows % 2 != 0 || d < 1 || d > kMaxD) {
+  if (rows < 2 || rows % 2 != 0 || d < 1 || d > kMaxD || plan == nullptr ||
+      pieces < ctas || ctas < 1 || slots < 1 || (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TriPlan tp{static_cast<const int*>(plan), pieces, ctas, slots,
+                   (rows + kTile - 1) / kTile};
+  Carver c{static_cast<float*>(scratch)};
+  const Buffers b = carve(c, rows, d, dtype == 0, slots);
   float* l = static_cast<float*>(lse);
-  float* p = static_cast<float*>(part);
-  float* b = static_cast<float*>(block_sum);
   float* out = static_cast<float*>(loss);
-  if (dtype == 0) return launch<float>(z, l, p, b, out, rows, d, inv_t, s);
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(z, l, p, b, out, rows, d, inv_t, s);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch(static_cast<const float*>(z), tp, b, l, out, rows, d,
+                  inv_t, s);
   }
-  return cudaErrorInvalidValue;
+  return launch(static_cast<const __nv_bfloat16*>(z), tp, b, l, out, rows, d,
+                inv_t, s);
 }

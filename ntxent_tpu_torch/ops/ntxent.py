@@ -20,10 +20,12 @@ the forward).
   merge order in plain PyTorch for the tests and ``chip_smoke.py``'s
   TF32 control (no wrapper calls them);
 * ``ntxent_fwd_tri`` and ``ntxent_bwd_tri``: the same two functions over
-  the upper-triangle tiles only (``csrc/ntxent_tri_fwd.cu``,
-  ``csrc/ntxent_tri_bwd.cu``); ``ntxent_fwd_tri_plain`` and
-  ``ntxent_bwd_tri_plain`` fold per-64-column-block partials as the
-  kernels do;
+  the upper-triangle tiles only (``csrc/ntxent_tri_fwd.cu``, #9's dual
+  walk; ``csrc/ntxent_tri_bwd.cu``, #5's walk with the transposed
+  product; both on TF32 tensor cores), each CTA walking one stretch of
+  the upper tiles that ``tri_runs`` plans; ``ntxent_fwd_tri_plain`` and
+  ``ntxent_bwd_tri_plain`` are the same functions in plain PyTorch, by
+  64-column blocks;
 * ``ntxent_loss_fused(z, temperature, triangular=False)`` is the
   differentiable mean loss: the rectangular kernels, or with
   ``triangular=True`` the triangular ones;
@@ -87,6 +89,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -103,14 +106,13 @@ __all__ = ["block_grads", "block_grads_dual", "block_grads_dual_plain",
            "ntxent_fwd", "ntxent_fwd_general", "ntxent_fwd_general_plain",
            "ntxent_fwd_plain", "ntxent_fwd_split_plain", "ntxent_fwd_tri",
            "ntxent_fwd_tri_plain", "ntxent_loss_and_lse", "ntxent_loss_fused",
-           "ntxent_partial_fused", "tf32_split"]
+           "ntxent_partial_fused", "tf32_split", "tri_runs"]
 
 _NEG_INF = -1e30
 MAX_DIM = 512  # widest embedding the kernels take (CLIP's is 512)
-# rows of one tile of the triangular kernels (csrc/ntxent_tri_*) and of
-# #1 and #5 (csrc/ntxent_tf32.cuh); columns of their column tiles
+# rows of one tile of the TF32 walks (csrc/ntxent_tf32.cuh); columns of
+# their column tiles
 TILE = 64
-MERGE_ROWS = 256  # rows of one merge block of csrc/ntxent_tri_fwd.cu
 SPLIT_UNIT = 32  # columns: the grain of column_splits
 SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -192,6 +194,64 @@ def column_splits(rows: int, cols: int, sms: int = SM_COUNT):
     want = max(1, min(units, sms // row_tiles))
     per = -(-units // want)
     return -(-units // per), per * SPLIT_UNIT
+
+
+class TriRuns(NamedTuple):
+    """The triangular kernels' plan: ``pieces`` (row tile i, first column
+    tile j0 >= i, tiles, slot), CTA by CTA; CTA b walks pieces
+    ``cta_start[b]`` .. ``cta_start[b + 1] - 1``; ``runs_of[i]``: the
+    pieces (runs) of row tile i, whose slots are 0, 1, .. in column
+    order."""
+    pieces: tuple
+    cta_start: tuple
+    runs_of: tuple
+
+    @property
+    def slots(self) -> int:
+        return max(self.runs_of)
+
+    def cta_tiles(self) -> list:
+        """The tiles each CTA walks."""
+        return [sum(p[2] for p in self.pieces[a:b])
+                for a, b in zip(self.cta_start, self.cta_start[1:])]
+
+    def table(self) -> list:
+        """The int32 table the kernels read (``TriPlan`` of
+        ``csrc/ntxent_tf32.cuh``)."""
+        return [x for piece in self.pieces for x in piece] \
+            + list(self.cta_start) + list(self.runs_of)
+
+
+def tri_runs(rows: int, sms: int = SM_COUNT) -> TriRuns:
+    """The upper tiles (i, j), j >= i, of ceil(rows / 64) row tiles cut
+    over about one wave of ``sms`` CTAs: the tiles in row order 0, nb - 1,
+    1, nb - 2, .. (a long row tile, then a short one), each row tile's in
+    column order, and CTA b walks the b-th of min(sms, tiles) stretches of
+    equal length (floor or ceil of tiles / CTAs). A stretch is one piece
+    per row tile it crosses. So the busiest CTA walks at most one tile
+    more than the mean, and pairing long with short row tiles keeps a
+    stretch to a few pieces (each reloads its row tile)."""
+    nb = -(-rows // TILE)
+    tiles = nb * (nb + 1) // 2
+    ctas = max(1, min(sms, tiles))
+    order = [i for pair in zip(range(nb), range(nb - 1, -1, -1))
+             for i in pair][:nb]
+    bounds = [b * tiles // ctas for b in range(ctas + 1)]
+    pieces, cta_start, runs_of = [], [0], [0] * nb
+    start = b = 0
+    for i in order:  # row tile i holds tiles start .. end - 1 of the walk
+        end = start + nb - i
+        while b < ctas and bounds[b] < end:
+            lo, hi = max(bounds[b], start), min(bounds[b + 1], end)
+            if lo < hi:
+                pieces.append((i, i + lo - start, hi - lo, runs_of[i]))
+                runs_of[i] += 1
+            if bounds[b + 1] > end:
+                break  # CTA b goes on into the next row tile
+            b += 1
+            cta_start.append(len(pieces))
+        start = end
+    return TriRuns(tuple(pieces), tuple(cta_start), tuple(runs_of))
 
 
 def _d_chunks(d: int) -> int:
@@ -295,7 +355,8 @@ def _scratch_size(name: str):
     """The library's report of the floats of scratch one call takes (the
     layout of the operand copies and partials lives in the library)."""
     fn = getattr(_build.load(name), f"ntx_{name}_scratch")
-    args = {"ntxent_bwd_sym": 4, "ntxent_dual_grads": 6}.get(name, 5)
+    args = {"ntxent_bwd_sym": 4, "ntxent_dual_grads": 6,
+            "ntxent_tri_fwd": 4, "ntxent_tri_bwd": 4}.get(name, 5)
     fn.argtypes = [ctypes.c_int] * args
     fn.restype = ctypes.c_longlong
     return fn
@@ -393,10 +454,12 @@ def _tile_blocks(x: torch.Tensor) -> torch.Tensor:
 
 
 def ntxent_fwd_tri_plain(z: torch.Tensor, temperature: float):
-    """(loss_sum, lse) with ``csrc/ntxent_tri_fwd.cu``'s arithmetic: one
-    (m, l) partial per row and 64-column block, merged over the blocks
-    (``m = max``, ``l = sum l_c exp0(m_c - m)``), ``lse = m + log(max(l,
-    1e-37))``. The same function as ``ntxent_fwd_plain``."""
+    """(loss_sum, lse) by 64-column blocks: one (m, l) partial per row and
+    block, merged over the blocks (``m = max``, ``l = sum l_c exp0(m_c -
+    m)``), ``lse = m + log(max(l, 1e-37))``. The same function as
+    ``ntxent_fwd_plain`` and as ``csrc/ntxent_tri_fwd.cu``, which folds
+    per-run and per-tile partials in another order (its order is
+    emulated in ``tests/test_torch_tri_sm90.py``)."""
     _check(z)
     s, positives, _ = _masked_similarity(z, temperature)
     blocks = _tile_blocks(s)
@@ -409,9 +472,11 @@ def ntxent_fwd_tri_plain(z: torch.Tensor, temperature: float):
 
 def ntxent_bwd_tri_plain(z: torch.Tensor, lse: torch.Tensor,
                          temperature: float) -> torch.Tensor:
-    """fp32 ``G @ z`` with ``csrc/ntxent_tri_bwd.cu``'s arithmetic: one
-    partial ``G[:, block] @ z[block]`` per 64-column block, summed over
-    the blocks in order. The same function as ``ntxent_bwd_sym_plain``."""
+    """fp32 ``G @ z`` by 64-column blocks: one partial ``G[:, block] @
+    z[block]`` per block, summed over the blocks in order. The same
+    function as ``ntxent_bwd_sym_plain`` and as ``csrc/ntxent_tri_bwd.cu``,
+    which sums per-run and transposed per-tile partials instead (its order
+    is emulated in ``tests/test_torch_tri_sm90.py``)."""
     _check(z)
     if lse.shape != (z.shape[0],):
         raise ValueError(f"lse must be ({z.shape[0]},), got "
@@ -432,24 +497,34 @@ def ntxent_bwd_tri_plain(z: torch.Tensor, lse: torch.Tensor,
     return out
 
 
+# z, then the plan and the outputs (fwd: plan, lse, loss; bwd: lse, plan,
+# grad), scratch; rows, d, dtype; inv_t; pieces, ctas, slots, device;
+# stream
+_TRI_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
 @functools.cache
-def _tri_fwd_kernel():
-    fn = _build.load("ntxent_tri_fwd").ntx_ntxent_tri_fwd
-    # z, lse, part, block_sum, loss; rows, d, dtype; inv_t; device; stream
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+def _tri_kernel(side: str):
+    fn = getattr(_build.load(f"ntxent_tri_{side}"), f"ntx_ntxent_tri_{side}")
+    fn.argtypes = _TRI_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-@functools.cache
-def _tri_bwd_kernel():
-    fn = _build.load("ntxent_tri_bwd").ntx_ntxent_tri_bwd
-    # z, lse, part, grad; rows, d, dtype; inv_t; device; stream
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+@functools.lru_cache(maxsize=64)
+def _tri_plan(side: str, rows: int, d: int, dtype: int, index: int):
+    """(plan table on the card, pieces, CTAs, slots, scratch floats) of #2
+    (``side="fwd"``) or #3 (``"bwd"``): ``tri_runs`` at the card's SMs,
+    divided among #3's chunks of D (its grid's second dimension)."""
+    sms = _sm_count(index)
+    if side == "bwd":
+        sms = max(1, sms // _d_chunks(d))
+    runs = tri_runs(rows, sms)
+    table = torch.tensor(runs.table(), dtype=torch.int32,
+                         device=torch.device("cuda", index))
+    size = _scratch_size(f"ntxent_tri_{side}")(rows, d, dtype, runs.slots)
+    return table, len(runs.pieces), len(runs.cta_start) - 1, runs.slots, size
 
 
 def ntxent_fwd_tri(z: torch.Tensor, temperature: float):
@@ -466,18 +541,15 @@ def ntxent_fwd_tri(z: torch.Tensor, temperature: float):
         raise ValueError(f"ntxent_fwd_tri runs on cuda or cpu, got "
                          f"{z.device}")
     _check_kernel_input(z)
-    rows, d = z.shape
-    lse = torch.empty(rows, dtype=torch.float32, device=z.device)
-    part = torch.empty(3 * -(-rows // TILE) * rows, dtype=torch.float32,
-                       device=z.device)
-    block_sum = torch.empty(-(-rows // MERGE_ROWS), dtype=torch.float32,
-                            device=z.device)
-    loss = torch.empty((), dtype=torch.float32, device=z.device)
-    err = _tri_fwd_kernel()(z.data_ptr(), lse.data_ptr(), part.data_ptr(),
-                            block_sum.data_ptr(), loss.data_ptr(), rows, d,
-                            _DTYPE_CODES[z.dtype], _inv_t(temperature),
-                            z.device.index,
-                            torch.cuda.current_stream(z.device).cuda_stream)
+    (rows, d), dev, dtype = z.shape, z.device, _DTYPE_CODES[z.dtype]
+    table, *plan, size = _tri_plan("fwd", rows, d, dtype, dev.index)
+    lse = torch.empty(rows, dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    err = _tri_kernel("fwd")(z.data_ptr(), table.data_ptr(), lse.data_ptr(),
+                             loss.data_ptr(), scratch.data_ptr(), rows, d,
+                             dtype, _inv_t(temperature), *plan, dev.index,
+                             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ntxent_fwd_tri launch failed: CUDA error {err}")
     ntxent_fwd_tri.launches += 1
@@ -493,9 +565,11 @@ def ntxent_bwd_tri(z: torch.Tensor, lse: torch.Tensor,
     gradient of loss_sum before ``1 / T``).
 
     A CUDA tensor launches ``csrc/ntxent_tri_bwd.cu`` (counted in
-    ``ntxent_bwd_tri.launches``), whose per-tile partials take
-    ceil(2N / 64) 2N D fp32 of scratch; a CPU tensor runs the plain
-    version."""
+    ``ntxent_bwd_tri.launches``), whose scratch holds z's operand copies
+    (about 4 2N D fp32), a partial per run of a row tile (a few 2N D
+    fp32) and one per tile above the diagonal (nb (nb - 1) / 2 64 D fp32,
+    nb = ceil(2N / 64): 266 MB at 2N = 8192, D = 128); a CPU tensor runs
+    the plain version."""
     _check(z)
     if lse.shape != (z.shape[0],) or lse.device != z.device:
         raise ValueError(f"lse must be ({z.shape[0]},) on {z.device}, got "
@@ -506,15 +580,15 @@ def ntxent_bwd_tri(z: torch.Tensor, lse: torch.Tensor,
         raise ValueError(f"ntxent_bwd_tri runs on cuda or cpu, got "
                          f"{z.device}")
     _check_kernel_input(z)
-    rows, d = z.shape
+    (rows, d), dev, dtype = z.shape, z.device, _DTYPE_CODES[z.dtype]
     lse = lse.float().contiguous()
-    part = torch.empty(-(-rows // TILE) * rows * d, dtype=torch.float32,
-                       device=z.device)
-    grad = torch.empty(z.shape, dtype=torch.float32, device=z.device)
-    err = _tri_bwd_kernel()(z.data_ptr(), lse.data_ptr(), part.data_ptr(),
-                            grad.data_ptr(), rows, d, _DTYPE_CODES[z.dtype],
-                            _inv_t(temperature), z.device.index,
-                            torch.cuda.current_stream(z.device).cuda_stream)
+    table, *plan, size = _tri_plan("bwd", rows, d, dtype, dev.index)
+    grad = torch.empty(z.shape, dtype=torch.float32, device=dev)
+    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    err = _tri_kernel("bwd")(z.data_ptr(), lse.data_ptr(), table.data_ptr(),
+                             grad.data_ptr(), scratch.data_ptr(), rows, d,
+                             dtype, _inv_t(temperature), *plan, dev.index,
+                             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ntxent_bwd_tri launch failed: CUDA error {err}")
     ntxent_bwd_tri.launches += 1

@@ -142,12 +142,7 @@ __all__ = ["cuda_time_ms", "kernel_breakdown", "main"]
 
 _GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
 # Device-function name of each hand-written kernel -> its wrapper's name.
-_KERNELS = (("tri_tiles_fwd_kernel", "ntxent_fwd_tri"),
-            ("tri_fwd_merge_kernel", "ntxent_fwd_tri"),
-            ("tri_loss_reduce", "ntxent_fwd_tri"),
-            ("tri_tiles_bwd_kernel", "ntxent_bwd_tri"),
-            ("tri_bwd_sum_kernel", "ntxent_bwd_tri"),
-            ("flash_fwd_kernel", "flash_attention_fwd"),
+_KERNELS = (("flash_fwd_kernel", "flash_attention_fwd"),
             ("flash_fold_kernel", "flash_fold"),
             ("flash_dq_kernel", "flash_attention_dq"),
             ("flash_dkv_kernel", "flash_attention_dkv"),
@@ -170,7 +165,11 @@ _KERNELS = (("tri_tiles_fwd_kernel", "ntxent_fwd_tri"),
             # the TF32 kernels of #7 (prep, walk, merge) and #8 (prep,
             # walk, sum)
             ("ntxent_dual_stats_", "block_lse_dual"),
-            ("ntxent_dual_grads_", "block_grads_dual"))
+            ("ntxent_dual_grads_", "block_grads_dual"),
+            # the TF32 kernels of #2 (prep, walk, merge, reduce) and #3
+            # (prep, walk, sum)
+            ("ntxent_fwd_tri_", "ntxent_fwd_tri"),
+            ("ntxent_bwd_tri_", "ntxent_bwd_tri"))
 MODEL, IMAGE_SIZE, SEED = "vit_b16", 224, 0
 # The long-context slice: the JAX tower's defaults, the CLIP text
 # vocabulary, batch 1 at the tower's max_len.
@@ -741,10 +740,25 @@ def longctx_profile(device, ring_emulate: int = 0) -> dict:
             mesh.shutdown()
 
 
+def _tri_plan_stats(tri_runs, rows: int, device) -> dict:
+    """#2's plan at 2N = rows on this card, printed and returned: the
+    busiest CTA's tiles, the longest run and the mean tiles an SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    runs = tri_runs(rows, sms)
+    tiles = runs.cta_tiles()
+    plan = {f"tri_busiest_cta_tiles_{rows}": max(tiles),
+            f"tri_longest_run_{rows}": max(p[2] for p in runs.pieces),
+            f"tri_mean_tiles_per_sm_{rows}": sum(tiles) / sms}
+    print(f"[ntxent] 2N={rows}: #2's plan {plan}", flush=True)
+    return plan
+
+
 def ntxent_profile(device) -> dict:
-    """CUDA-event ms of #1 and #5 (fp32, D = 128) and of
-    ``ntxent_loss_fused``'s forward and backward at each (2N, T) of
-    ``NTXENT_ROWS``, the host ms of one call at the first, and #1's general
+    """CUDA-event ms of #1 and #5 (fp32, D = 128), of the triangular #2 and
+    #3, and of ``ntxent_loss_fused``'s forward and backward, rectangular
+    and triangular, at each (2N, T) of ``NTXENT_ROWS`` (with #2's plan:
+    the busiest CTA's tiles and the longest run against the mean tiles an
+    SM), the host ms of one call at the first, and #1's general
     mode and #6's two kernels at each (R, C, D) of ``NTXENT_STRIPS`` (rank
     3's rows of a world of C / R ranks in the NT-Xent mode, rank C / R -
     1's in the InfoNCE mode), and #5 cross-modal and #4 at each (R, C, D)
@@ -776,11 +790,22 @@ def ntxent_profile(device) -> dict:
         out[f"loss_fwd_bwd_{rows}_ms"] = cuda_time_ms(
             lambda: torch.autograd.grad(ntxent.ntxent_loss_fused(zg, t), zg),
             20)
+        tri_fwd = functools.partial(ntxent.ntxent_fwd_tri, z, t)
+        tri_bwd = functools.partial(ntxent.ntxent_bwd_tri, z, lse, t)
+        out[f"tri_fwd_{rows}_ms"] = cuda_time_ms(tri_fwd, 20)
+        out[f"tri_bwd_{rows}_ms"] = cuda_time_ms(tri_bwd, 20)
+        out[f"tri_loss_fwd_bwd_{rows}_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(
+                ntxent.ntxent_loss_fused(zg, t, triangular=True), zg), 20)
+        if hasattr(ntxent, "tri_runs"):  # an older tree has no planner
+            out |= _tri_plan_stats(ntxent.tri_runs, rows, device)
         if rows == NTXENT_ROWS[0][0]:
             out[f"fwd_{rows}_host_ms"] = _host_ms(
                 lambda: ntxent.ntxent_fwd(z, t))
             out[f"bwd_{rows}_host_ms"] = _host_ms(
                 lambda: ntxent.ntxent_bwd_sym(z, lse, t))
+            out[f"tri_fwd_{rows}_host_ms"] = _host_ms(tri_fwd)
+            out[f"tri_bwd_{rows}_host_ms"] = _host_ms(tri_bwd)
     for rows, cols, d, infonce in NTXENT_STRIPS:
         if d > ntxent.MAX_DIM:
             continue  # an older tree's kernels do not take this width

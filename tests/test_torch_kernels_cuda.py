@@ -274,8 +274,10 @@ def _included_headers(source):
                            "ntx_ntxent_dual_stats_scratch"]),
     ("ntxent_dual_grads", ["ntx_ntxent_dual_grads",
                            "ntx_ntxent_dual_grads_scratch"]),
-    ("ntxent_tri_fwd", ["ntx_ntxent_tri_fwd"]),
-    ("ntxent_tri_bwd", ["ntx_ntxent_tri_bwd"]),
+    ("ntxent_tri_fwd", ["ntx_ntxent_tri_fwd",
+                        "ntx_ntxent_tri_fwd_scratch"]),
+    ("ntxent_tri_bwd", ["ntx_ntxent_tri_bwd",
+                        "ntx_ntxent_tri_bwd_scratch"]),
 ])
 def test_training_kernels_build_from_repo_sources(tmp_path, name, symbols):
     cmd = _build.nvcc_command(name, tmp_path / "lib.so")
@@ -1055,6 +1057,49 @@ def test_cuda_pair_kernels_take_every_width(d, dtype):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=NTX_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [512, 4096])
+def test_cuda_tri_kernels_beat_the_tf32_control(rows):
+    """fp32: the 3xTF32 #2 and #3 err at least 10x less than one TF32 pass
+    (the plain versions on z rounded to TF32) on lse and on the gradient
+    at the same lse, and repeat bit for bit."""
+    dev = _cuda()
+    z = _unit_rows(rows, 128, rows, dev)
+    _, lse = N.ntxent_fwd_tri_plain(z, 0.1)
+    grad = N.ntxent_bwd_tri_plain(z, lse, 0.1)
+    z_c = N.tf32_split(z)[0]
+    got = (N.ntxent_fwd_tri(z, 0.1)[1], N.ntxent_bwd_tri(z, lse, 0.1))
+    again = (N.ntxent_fwd_tri(z, 0.1)[1], N.ntxent_bwd_tri(z, lse, 0.1))
+    ctl = (N.ntxent_fwd_tri_plain(z_c, 0.1)[1],
+           N.ntxent_bwd_tri_plain(z_c, lse, 0.1))
+    torch.cuda.synchronize()
+    for g, c, w, a in zip(got, ctl, (lse, grad), again):
+        k, e = (g - w).abs().max().item(), (c - w).abs().max().item()
+        assert k <= NTX_ATOL
+        assert TF32_CONTROL_FACTOR * k <= e, (k, e)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", NTX_EDGE_DIMS)
+def test_cuda_tri_kernels_take_every_width(d, dtype):
+    """D padded to 32, one to four chunks of D in #3, and the fp32 row
+    tile streaming through the ring past D = 256, at a 2N of no multiple
+    of 64 (2N = 300: the last row tile's padding rows)."""
+    dev = _cuda()
+    z = _unit_rows(300, d, d, dev, getattr(torch, dtype))
+    loss_p, lse_p = N.ntxent_fwd_tri_plain(z, 0.1)
+    loss, lse = N.ntxent_fwd_tri(z, 0.1)
+    grad = N.ntxent_bwd_tri(z, lse_p, 0.1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, lse_p, atol=NTX_ATOL, rtol=0)
+    torch.testing.assert_close(loss / 300, loss_p / 300, atol=NTX_ATOL,
+                               rtol=0)
+    torch.testing.assert_close(grad, N.ntxent_bwd_tri_plain(z, lse_p, 0.1),
+                               atol=NTX_ATOL, rtol=0)
 
 
 # (BH, Lq, Lk, D, dtype, causal, q_offset, k_offsets of three folds)

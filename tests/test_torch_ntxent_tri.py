@@ -3,7 +3,8 @@ against the JAX package.
 
 * ``ntxent_loss_fused(z, T, triangular=True)`` (the triangular forward
   #2 and backward #3; on the CPU their plain versions, which fold
-  per-64-column-block partials as the kernels do) against JAX's
+  per-64-column-block partials; the kernels' own order is emulated in
+  ``tests/test_torch_tri_sm90.py``) against JAX's
   ``ntxent_loss_fused(..., triangular=True)`` with its Pallas kernels in
   interpret mode: 2N = 16, 40 (no multiple of the JAX block) and 64,
   D = 32, T = 0.07 and 0.5, fp32. The loss within 1e-5 and the gradient

@@ -69,15 +69,15 @@ from ntxent_tpu_torch.utils import profiling
      "CUtensorMap_st, ...)", "block_lse_dual"),
     ("void (anonymous namespace)::ntxent_dual_grads_walk<false, 128>("
      "ntx::BwdMaps, ...)", "block_grads_dual"),
-    ("void (anonymous namespace)::tri_tiles_fwd_kernel<float>(...)",
+    ("void (anonymous namespace)::ntxent_fwd_tri_walk<true>("
+     "CUtensorMap_st, ...)", "ntxent_fwd_tri"),
+    ("(anonymous namespace)::ntxent_fwd_tri_merge(float const*, ...)",
      "ntxent_fwd_tri"),
-    ("(anonymous namespace)::tri_fwd_merge_kernel(float const*, ...)",
-     "ntxent_fwd_tri"),
-    ("(anonymous namespace)::tri_loss_reduce(float const*, int, float*)",
-     "ntxent_fwd_tri"),
-    ("void (anonymous namespace)::tri_tiles_bwd_kernel<__nv_bfloat16>(...)",
-     "ntxent_bwd_tri"),
-    ("(anonymous namespace)::tri_bwd_sum_kernel(float const*, ...)",
+    ("(anonymous namespace)::ntxent_fwd_tri_reduce(float const*, int, "
+     "float*)", "ntxent_fwd_tri"),
+    ("void (anonymous namespace)::ntxent_bwd_tri_walk<false, 128>("
+     "CUtensorMap_st, ...)", "ntxent_bwd_tri"),
+    ("(anonymous namespace)::ntxent_bwd_tri_sum(float const*, ...)",
      "ntxent_bwd_tri"),
 ])
 def test_kernels_are_grouped_by_name(name, group):
@@ -141,6 +141,22 @@ def test_tf32_pair_kernels_group_under_their_wrappers(source, wrapper):
     names = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
                        r"\s+(\w+)\(", _build.SOURCES[source].read_text())
     assert len(names) == 3
+    for name in names:
+        demangled = (f"void (anonymous namespace)::{name}<true>("
+                     f"CUtensorMap_st, CUtensorMap_st, ...)")
+        assert profiling._group(demangled) == wrapper, name
+
+
+@pytest.mark.parametrize("source,wrapper",
+                         [("ntxent_tri_fwd", "ntxent_fwd_tri"),
+                          ("ntxent_tri_bwd", "ntxent_bwd_tri")])
+def test_tf32_tri_kernels_group_under_their_wrappers(source, wrapper):
+    """Every kernel of the TF32 #2 (prep, walk, merge, reduce) and #3
+    (prep, walk, sum) groups under the wrapper that launches it, never
+    under cuBLAS's "matmul"."""
+    names = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
+                       r"\s+(\w+)\(", _build.SOURCES[source].read_text())
+    assert len(names) >= 3
     for name in names:
         demangled = (f"void (anonymous namespace)::{name}<true>("
                      f"CUtensorMap_st, CUtensorMap_st, ...)")
