@@ -213,7 +213,28 @@ Phases; any failure ends the run with a non-zero exit and no result:
    against ``ntxent_loss_fused`` (1/1/1 launches of #1 general and #6
    rows and columns), and the ring InfoNCE (dual and twoblock) against
    ``info_nce_fused``;
-13. one JSON line describing each kernel of the paths;
+12l. wide embeddings (after 12d): every loss kernel #1-#10 in every
+   mode (symmetric, general, InfoNCE, triangular, pair, square and
+   rectangular InfoNCE, cross-modal) at D = 768, 1000 and 1024 against
+   its plain version, fp32 and bf16, at 512 rows (the data-parallel CLIP
+   kernels at (64, 256)) and at 2N = 4096 x D = 1024, bitwise
+   repeatable, in fp32 against the TF32 control; fp32 times at 2N = 4096
+   beside the bound; then the fp32 #11-#14 (the FMA walks) timed at the
+   training shape beside their plain versions and bound; and after phase
+   5, ``train --proj-dim 1024`` at phase 5's width for 2 steps (1/1
+   launches of #1 and #5 a step);
+12m. checkpoints (after phase 8, in a temporary directory): ViT-B/16
+   SimCLR at phase 5's width, 6 steps with a save every 2 against 2
+   steps with ``--async-ckpt`` relaunched to 6, equal by the manifests'
+   CRC32 at steps 4 and 6, with save, async blocked and restore ms;
+   ``build_server --ckpt-dir`` at that directory embedding as the trained
+   model does; ``python -m ntxent_tpu_torch.cli train`` as a child,
+   SIGTERM after its step-2 line: exit 0, the stopped step the newest
+   valid one, and the relaunch at the uninterrupted step-6 CRC; CLIP
+   ViT-B/16 and (after 12) data-parallel ResNet-50 at world 1 resumed
+   (2 + 1 steps against 3, CRC for CRC);
+13. one JSON line describing each kernel of the paths (with each loss
+   kernel's D = 1024 times and each flash kernel's fp32 times);
 14. the last line: ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --truth`` runs phases 1 and 2 and then prints the
@@ -229,6 +250,7 @@ from __future__ import annotations
 
 import functools
 import json
+import shutil
 import sys
 import tempfile
 import threading
@@ -544,6 +566,50 @@ TRI_LOSS_RTOL = 1e-5
 # Launches of one ntxent_loss_fused(..., triangular=True) forward and
 # backward: #2 and #3 once each, nothing else.
 TRI_LAUNCHES = {"ntxent_fwd_tri": 1, "ntxent_bwd_tri": 1}
+
+# Wide embeddings (D > 512: CLIP ViT-L/14's 768, ViT-H/14's 1024, and a D
+# that is no multiple of 32): every loss kernel #1-#10 in every mode
+# against its plain version in fp32 and bf16, bitwise repeatable, at a
+# small shape (WIDE_SMALL rows and columns; the data-parallel CLIP
+# kernels at one rank of 4, WIDE_DP_CLIP_SMALL) and at WIDE_LARGE (2N =
+# 4096 rows and columns at D = 1024); in fp32 at every shape at least
+# TF32_CONTROL_FACTOR below one TF32 pass (a forward whose error is
+# within WIDE_LSE_ULPS fp32 ulps of its largest output passes that gate
+# too: its outputs' own rounding, which no walk can undercut, while one
+# TF32 pass's lse error shrinks as sqrt(D) averages its rounding out --
+# 7x at D = 1024; the gradients keep the factor with room); fp32 times at
+# WIDE_LARGE beside the bound. Tolerances: each kernel's own phase's (the
+# same exact products, more of them in each fp32 sum).
+WIDE_DIMS = (768, 1000, 1024)
+WIDE_SMALL = 512
+WIDE_LARGE = (4096, 1024)
+WIDE_DP_CLIP_SMALL = (64, 256)
+WIDE_TWOPASS_SCALE = 14.3
+WIDE_LSE_ULPS = 4
+# ``train --proj-dim 1024`` at TRAIN_ARGV's width for this many steps: the
+# symmetric #1 and #5 at (512, 1024) on the path.
+WIDE_TRAIN_STEPS = 2
+WIDE_PROJ_DIM = 1024
+
+# Checkpoints and resume at the paths' full width (the JAX package's
+# on-disk format, written under a temporary directory, at most
+# RESUME_KEEP steps kept). SimCLR (TRAIN_ARGV): run A trains RESUME_STEPS
+# steps saving every RESUME_EVERY; run B trains RESUME_FIRST steps with
+# --async-ckpt and a relaunch of the same command resumes it to
+# RESUME_STEPS; steps 4 and 6 of B must equal A's by the manifests' CRC32
+# of state.msgpack (the loss kernels and the flash kernels are bitwise
+# repeatable: fixed-order sums, no atomics). Preemption: the CLI as a
+# child with --async-ckpt, SIGTERM after its "step PREEMPT_AFTER" line:
+# exit 0, the newest valid step the one it stopped at, and a relaunch
+# ends at A's step-6 CRC. CLIP (CLIP_ARGV) and data-parallel ResNet-50
+# (DP_ARGV, NCCL world 1): PAIR_FIRST + 1 steps against PAIR_STEPS
+# uninterrupted, CRC for CRC. Serving: build_server with --ckpt-dir at
+# A's directory embeds a fixed batch as A's step-6 model does in eval
+# mode (EMBED_ATOL: the serve path's bf16 tolerance).
+RESUME_STEPS, RESUME_EVERY, RESUME_KEEP, RESUME_FIRST = 6, 2, 2, 2
+PREEMPT_AFTER = 2
+PAIR_STEPS, PAIR_FIRST = 3, 2
+CHILD_TIMEOUT_S = 420
 
 # The long-context slice. Fold kernel (#12) cases: (name, (BH, Lq, Lk,
 # D), dtype, causal, q_offset, k_offsets of consecutive folds). Against
@@ -3952,6 +4018,573 @@ def phase_ring_infonce() -> None:
             fail(f"the {impl} ring InfoNCE disagrees with info_nce_fused")
 
 
+def phase_flash_fp32() -> dict:
+    """The fp32 variants of #11-#14 (the FMA walks of
+    ``flash_attention_tile.cuh`` and the fp32 branches of
+    ``flash_attention_bwd.cu``) timed at the training shape (B*H = 6144,
+    L = 197, D = 64) beside their plain versions and their bound (fp32
+    operations at the fp32-accurate rate, PEAK_FP32_FLOPS). Returns each
+    wrapper's fp32 fields for the kernels line; their accuracy is held in
+    phases 3, 3b and 12g."""
+    import torch
+
+    from ntxent_tpu_torch.ops import attention as A
+    from ntxent_tpu_torch.utils.profiling import cuda_time_ms
+
+    t0 = time.monotonic()
+    s = TRAIN_SHAPE
+    bh, l, d = s["b"] * s["h"], s["lq"], s["d"]
+    q, k, v = _qkv(s, "float32", seed=500)
+    args, kw = _bwd_inputs(s, "float32", False, 0, 0, 501)
+    m = torch.full((bh, l), -1e30, device="cuda")
+    lsum = torch.zeros((bh, l), device="cuda")
+    acc = torch.zeros((bh, l, d), device="cuda")
+    qkv = 3 * bh * l * d * 4
+    pairs = bh * l * l * d
+    cases = {
+        "flash_attention_fwd": (lambda: A.flash_attention_fwd(q, k, v),
+                                lambda: A.attention_plain(q, k, v),
+                                qkv + bh * l * d * 4 + bh * l * 4,
+                                4 * pairs),
+        "flash_fold": (lambda: A.flash_fold(q, k, v, m, lsum, acc),
+                       lambda: A.flash_fold_plain(q, k, v, m, lsum, acc),
+                       qkv + 2 * (2 * bh * l * 4 + bh * l * d * 4),
+                       4 * pairs),
+        "flash_attention_dq": (
+            lambda: A.flash_attention_dq(*args, **kw),
+            lambda: A.attention_dq_plain(*args, **kw),
+            4 * bh * l * d * 4 + 2 * bh * l * 4 + bh * l * d * 4,
+            3 * 2 * pairs),
+        "flash_attention_dkv": (
+            lambda: A.flash_attention_dkv(*args, **kw),
+            lambda: A.attention_dkv_plain(*args, **kw),
+            4 * bh * l * d * 4 + 2 * bh * l * 4 + 2 * bh * l * d * 4,
+            4 * 2 * pairs),
+    }
+    fields = {}
+    for name, (kernel, plain, moved, flops) in cases.items():
+        ms = cuda_time_ms(kernel)
+        plain_ms = cuda_time_ms(plain, runs=3)
+        bound_ms, bound_by = _bound(moved, flops, PEAK_FP32_FLOPS)
+        print(f"[flash-fp32] {name} (B*H={bh}, L={l}, D={d}, fp32): "
+              f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} by "
+              f"{bound_by}; {ms / bound_ms:.1f}x the bound)", flush=True)
+        fields[name] = {"fp32_ms": ms, "fp32_plain_ms": plain_ms,
+                        "fp32_bound_ms": bound_ms}
+    print(f"[flash-fp32] phase {time.monotonic() - t0:.1f} s", flush=True)
+    return fields
+
+
+def _wide_families():
+    """The loss kernels by family: (label, wrapper names, tolerance,
+    inputs(dtype, rows, cols, d), fwd(inputs), fwd_plain(inputs), the
+    backward kernels [bwd(inputs, fwd_plain's outputs) -> tuple], their
+    plain versions, bounds(rows, cols, d) of the forward and of each
+    backward kernel). A forward's outputs end with the loss over the rows
+    where it has one; each backward runs at the plain forward's
+    statistics. Wrapper names: the forward's, then each backward's."""
+    import torch
+
+    from ntxent_tpu_torch.ops import infonce as I
+    from ntxent_tpu_torch.ops import ntxent as N
+
+    t = NTX_TEMPERATURE
+
+    def cuda_scale(x):
+        return torch.tensor(x, dtype=torch.float32, device="cuda")
+
+    def sym_in(dtype, rows, cols, d):
+        return (_unit_rows(rows, d, dtype, seed=rows + d),)
+
+    def sym_fwd(fwd):
+        def run(x):
+            loss, lse = fwd(x[0], t)
+            return lse, loss / x[0].shape[0]
+        return run
+
+    def sym_bounds(rows, cols, d):
+        zb = rows * d * 4
+        return (_bound(zb + rows * 4 + 4, 2 * rows * rows * d,
+                       PEAK_FP32_FLOPS),
+                _bound(2 * zb + rows * 4, 4 * rows * rows * d,
+                       PEAK_FP32_FLOPS))
+
+    def general_in(infonce):
+        def make(dtype, rows, cols, d):
+            zr = _unit_rows(rows, d, dtype, seed=rows + d)
+            zc = _unit_rows(cols, d, dtype, seed=cols + d + 1)
+            if infonce:
+                gid = cols - rows + torch.arange(rows, device="cuda")
+                return (zr, zc, gid), dict(
+                    diag_pos=True, scale=cuda_scale(WIDE_TWOPASS_SCALE))
+            row_gid, col_gid, total, n_half = _general_ids(
+                rows, cols, False, seed=rows)
+            return (zr, zc, row_gid), dict(col_gid=col_gid,
+                                           cols_actual=total, n_half=n_half)
+        return make
+
+    def general_t(kw):
+        return 1.0 if kw.get("diag_pos") else t
+
+    def general_fwd(fwd):
+        def run(x):
+            args, kw = x
+            loss, lse = fwd(*args, general_t(kw), **kw)
+            return lse, loss / args[0].shape[0]
+        return run
+
+    def general_bwd(*fns):
+        def one(fn):
+            def run(x, ref):
+                args, kw = x
+                return (fn(*args, ref[0], general_t(kw), **kw),)
+            return run
+        return [one(fn) for fn in fns]
+
+    def general_bounds(rows, cols, d):
+        fwd, g_rows, g_cols = _general_bounds(rows, cols, d)
+        return fwd, g_rows, g_cols
+
+    def pair_in(dtype, rows, cols, d):
+        rid, cid, total = _pair_ids(rows, cols, 1, seed=rows)
+        return (_unit_rows(rows, d, dtype, seed=rows + d),
+                _unit_rows(cols, d, dtype, seed=cols + d + 3), rid, cid,
+                total)
+
+    def infonce_in(dtype, rows, cols, d):
+        return (_unit_rows(rows, d, dtype, seed=rows + d),
+                _unit_rows(rows, d, dtype, seed=rows + d + 1),
+                cuda_scale(INFONCE_SCALE))
+
+    def infonce_fwd(fwd):
+        def run(x):
+            loss, lse_a, lse_b = fwd(*x)
+            return lse_a, lse_b, loss / x[0].shape[0]
+        return run
+
+    def infonce_bounds(rows, cols, d):
+        zbytes = 2 * rows * d * 4
+        return (_bound(zbytes + 4 + 2 * rows * 4 + 4, 2 * rows * rows * d,
+                       PEAK_FP32_FLOPS),
+                _bound(zbytes + 4 + 2 * rows * 4 + zbytes,
+                       6 * rows * rows * d, PEAK_FP32_FLOPS))
+
+    def dp_clip_in(dtype, rows, cols, d):
+        return (_unit_rows(rows, d, dtype, seed=rows + d),
+                _unit_rows(cols, d, dtype, seed=cols + d + 1),
+                _dp_clip_ids(rows, cols, seed=rows),
+                cuda_scale(DP_CLIP_SCALE))
+
+    def dp_clip_bwd(*fns):
+        def one(fn):
+            def run(x, ref):
+                za, zb, gid, scale = x
+                return (fn(za, zb, gid, scale, *ref),)
+            return run
+        return [one(fn) for fn in fns]
+
+    return [
+        ("symmetric #1 + #5", ("ntxent_fwd", "ntxent_bwd_sym"), NTX_ATOL,
+         sym_in, sym_fwd(N.ntxent_fwd), sym_fwd(N.ntxent_fwd_plain),
+         [lambda x, ref: (N.ntxent_bwd_sym(x[0], ref[0], t),)],
+         [lambda x, ref: (N.ntxent_bwd_sym_plain(x[0], ref[0], t),)],
+         sym_bounds),
+        ("general #1 + #6", ("ntxent_fwd_general", "ntxent_bwd_general_rows",
+                             "ntxent_bwd_general_cols"), NTX_ATOL,
+         general_in(False), general_fwd(N.ntxent_fwd_general),
+         general_fwd(N.ntxent_fwd_general_plain),
+         general_bwd(N.ntxent_bwd_general_rows, N.ntxent_bwd_general_cols),
+         general_bwd(N.ntxent_bwd_general_rows_plain,
+                     N.ntxent_bwd_general_cols_plain), general_bounds),
+        ("InfoNCE-mode #1 + #6", (), _twopass_atol(WIDE_TWOPASS_SCALE),
+         general_in(True), general_fwd(N.ntxent_fwd_general),
+         general_fwd(N.ntxent_fwd_general_plain),
+         general_bwd(N.ntxent_bwd_general_rows, N.ntxent_bwd_general_cols),
+         general_bwd(N.ntxent_bwd_general_rows_plain,
+                     N.ntxent_bwd_general_cols_plain), None),
+        ("triangular #2 + #3", ("ntxent_fwd_tri", "ntxent_bwd_tri"),
+         NTX_ATOL, sym_in, sym_fwd(N.ntxent_fwd_tri),
+         sym_fwd(N.ntxent_fwd_tri_plain),
+         [lambda x, ref: (N.ntxent_bwd_tri(x[0], ref[0], t),)],
+         [lambda x, ref: (N.ntxent_bwd_tri_plain(x[0], ref[0], t),)],
+         lambda rows, cols, d: _tri_bounds(rows, d, 4)),
+        ("pair #7 + #8", ("block_lse_dual", "block_grads_dual"), NTX_ATOL,
+         pair_in, lambda x: N.block_lse_dual(*x[:4], t, x[4]),
+         lambda x: N.block_lse_dual_plain(*x[:4], t, x[4]),
+         [lambda x, ref: N.block_grads_dual(*x[:4], *ref, t, x[4])],
+         [lambda x, ref: N.block_grads_dual_plain(*x[:4], *ref, t, x[4])],
+         lambda rows, cols, d: _pair_bounds(rows, cols, d, 4)),
+        ("square InfoNCE #9 + #10", ("infonce_dual_fwd", "infonce_dual_bwd"),
+         INFONCE_ATOL, infonce_in, infonce_fwd(I.infonce_dual_fwd),
+         infonce_fwd(I.infonce_dual_fwd_plain),
+         [lambda x, ref: I.infonce_dual_bwd(*x, *ref[:2])],
+         [lambda x, ref: I.infonce_dual_bwd_plain(*x, *ref[:2])],
+         infonce_bounds),
+        ("data-parallel CLIP #9 rect + #5 cross-modal + #4",
+         ("infonce_dual_fwd_rect", "infonce_bwd_rows", "infonce_bwd_cols"),
+         INFONCE_ATOL, dp_clip_in,
+         lambda x: I.infonce_dual_fwd_rect(x[0], x[1], x[3]),
+         lambda x: I.infonce_dual_fwd_rect_plain(x[0], x[1], x[3]),
+         dp_clip_bwd(I.infonce_bwd_rows, I.infonce_bwd_cols),
+         dp_clip_bwd(I.infonce_bwd_rows_plain, I.infonce_bwd_cols_plain),
+         lambda rows, cols, d: _dp_clip_bounds(rows, cols, d, 4)),
+    ]
+
+
+def _tf32_inputs(x):
+    """The inputs with every fp32 embedding rounded to TF32 once (ids,
+    scales and keyword arguments unchanged)."""
+    import torch
+
+    from ntxent_tpu_torch.ops import ntxent as N
+
+    if isinstance(x, tuple) and len(x) == 2 and isinstance(x[1], dict):
+        return (_tf32_inputs(x[0]), x[1])
+    return tuple(N.tf32_split(v)[0] if isinstance(v, torch.Tensor)
+                 and v.dtype == torch.float32 and v.dim() == 2 else v
+                 for v in x)
+
+
+def _max_err(got, want) -> float:
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(got, want))
+
+
+def phase_wide_d() -> dict:
+    """Every loss kernel at D = 768, 1000 and 1024 (WIDE_DIMS) against its
+    plain version, fp32 and bf16, small and large shapes, bitwise
+    repeatable, the fp32 TF32 control; fp32 times at WIDE_LARGE beside the
+    bound. Returns each wrapper's wide-D fields for the kernels line."""
+    import torch
+
+    from ntxent_tpu_torch.utils.profiling import cuda_time_ms
+
+    t0 = time.monotonic()
+    fields = {}
+    large_rows, large_d = WIDE_LARGE
+    for (label, names, atol, make, fwd, fwd_plain, bwds, bwds_plain,
+         bounds) in _wide_families():
+
+        def bwd(x, ref, fns):
+            return tuple(out for fn in fns for out in fn(x, ref))
+
+        dp_clip = names and names[0] == "infonce_dual_fwd_rect"
+        shapes = [((*WIDE_DP_CLIP_SMALL, d) if dp_clip
+                   else (WIDE_SMALL, WIDE_SMALL, d)) for d in WIDE_DIMS]
+        shapes.append((large_rows, large_rows, large_d))
+        worst = 0.0
+        for rows, cols, d in shapes:
+            for dtype in ("float32", "bfloat16"):
+                x = make(dtype, rows, cols, d)
+                ref_f = fwd_plain(x)
+                ref_b = bwd(x, ref_f, bwds_plain)
+                got_f, got_b = fwd(x), bwd(x, ref_f, bwds)
+                again_f, again_b = fwd(x), bwd(x, ref_f, bwds)
+                torch.cuda.synchronize()
+                fwd_err, bwd_err = _max_err(got_f, ref_f), _max_err(got_b,
+                                                                    ref_b)
+                repeat = all(torch.equal(a, b) for a, b in zip(
+                    (*got_f, *got_b), (*again_f, *again_b)))
+                ok = max(fwd_err, bwd_err) <= atol and repeat
+                control = ""
+                if dtype == "float32":
+                    xc = _tf32_inputs(x)
+                    ctl = (_max_err(fwd_plain(xc), ref_f),
+                           _max_err(bwd(xc, ref_f, bwds_plain), ref_b))
+                    ulps = WIDE_LSE_ULPS * float(np.spacing(np.float32(max(
+                        v.abs().max().item() for v in ref_f))))
+                    ok = ok and (TF32_CONTROL_FACTOR * fwd_err <= ctl[0]
+                                 or fwd_err <= ulps) \
+                        and TF32_CONTROL_FACTOR * bwd_err <= ctl[1]
+                    control = (f"; one TF32 pass {ctl[0]:.3e} / {ctl[1]:.3e}"
+                               f" (at least {TF32_CONTROL_FACTOR}x, or fwd "
+                               f"within {ulps:.2e} = {WIDE_LSE_ULPS} ulps)")
+                    worst = max(worst, fwd_err, bwd_err)
+                print(f"[wide-d] {label} R={rows} C={cols} D={d} {dtype}: "
+                      f"fwd max|err| {fwd_err:.3e}, bwd {bwd_err:.3e} (atol "
+                      f"{atol:g}){control}; bitwise repeatable {repeat} "
+                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    fail(f"the {label} kernels disagree with their plain "
+                         f"versions at R={rows} C={cols} D={d} {dtype}")
+                del x, ref_f, ref_b, got_f, got_b, again_f, again_b
+            torch.cuda.empty_cache()
+        if bounds is None:
+            continue
+        x = make("float32", large_rows, large_rows, large_d)
+        ref_f = fwd_plain(x)
+        calls = [(fwd, fwd_plain)] + [
+            (functools.partial(fn, ref=ref_f),
+             functools.partial(plain, ref=ref_f))
+            for fn, plain in zip(bwds, bwds_plain)]
+        bnds = bounds(large_rows, large_rows, large_d)
+        for name, (fn, plain), bound in zip(names, calls, bnds):
+            ms = cuda_time_ms(lambda: fn(x), 10)
+            plain_ms = cuda_time_ms(lambda: plain(x), 3)
+            print(f"[wide-d] {name} fp32 R=C={large_rows} D={large_d}: "
+                  f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {bound[0]:.5f} "
+                  f"by {bound[1]}); no single PyTorch call computes it, so "
+                  f"there is no library time", flush=True)
+            fields[name] = {"wide_d1024_ms": ms,
+                            "wide_d1024_plain_ms": plain_ms,
+                            "wide_d1024_bound_ms": bound[0],
+                            "wide_max_abs_err": worst}
+        del x, ref_f
+        torch.cuda.empty_cache()
+    print(f"[wide-d] phase {time.monotonic() - t0:.1f} s", flush=True)
+    return fields
+
+
+def phase_wide_train(card_line: str) -> dict:
+    """``train --proj-dim 1024`` at TRAIN_ARGV's width for WIDE_TRAIN_STEPS
+    steps: finite losses, the symmetric #1 and #5 once a step at D =
+    1024. Returns the launches."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    t0 = time.monotonic()
+    argv = _with_flags(TRAIN_ARGV, "--steps", str(WIDE_TRAIN_STEPS),
+                       "--proj-dim", str(WIDE_PROJ_DIM))
+    args = cli.build_train_parser().parse_args(argv)
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    state, history = cli.train(args)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in counters.items()}
+    losses = [h["loss"] for h in history]
+    if len(losses) != WIDE_TRAIN_STEPS or not all(map(math.isfinite,
+                                                       losses)):
+        fail(f"train --proj-dim {WIDE_PROJ_DIM} losses {losses}")
+    want = {n: STEP_LAUNCHES.get(n, 0) * WIDE_TRAIN_STEPS for n in counters}
+    if launches != want:
+        fail(f"train --proj-dim {WIDE_PROJ_DIM} launches {launches}, "
+             f"expected {want}")
+    print(f"[wide-train] ViT-B/16 flash, batch {args.batch}, --proj-dim "
+          f"{WIDE_PROJ_DIM}: {WIDE_TRAIN_STEPS} steps, losses "
+          f"{[round(x, 4) for x in losses]}, launches per step "
+          f"{ {n: c // WIDE_TRAIN_STEPS for n, c in launches.items() if c} } "
+          f"in {time.monotonic() - t0:.1f} s on {card_line}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _with_flags(argv: list, *pairs: str) -> list:
+    """``argv`` with each ``--flag value`` of ``pairs`` set (replaced where
+    the flag is there, appended where it is not)."""
+    out = list(argv)
+    for flag, value in zip(pairs[::2], pairs[1::2]):
+        if flag in out:
+            out[out.index(flag) + 1] = value
+        else:
+            out += [flag, value]
+    return out
+
+
+def _manifest_crcs(directory) -> dict:
+    """{step: [size, crc32] of state.msgpack} from a checkpoint
+    directory's manifests.json."""
+    from pathlib import Path
+
+    manifests = json.loads((Path(directory) / "manifests.json").read_text())
+    return {int(step): entry["files"]["state.msgpack"]
+            for step, entry in manifests.items()}
+
+
+def _ckpt_argv(argv, directory, steps, every=RESUME_EVERY,
+               keep=RESUME_KEEP) -> list:
+    return _with_flags(argv, "--steps", str(steps), "--ckpt-dir",
+                       str(directory), "--ckpt-every", str(every),
+                       "--ckpt-keep-last", str(keep))
+
+
+def _train_ckpt(argv, data_parallel=None):
+    """cli.train on ``argv``; returns (state, history, checkpoint stats),
+    the losses checked finite."""
+    import math
+
+    from ntxent_tpu_torch import cli
+
+    stats = {}
+    state, history = cli.train(cli.build_train_parser().parse_args(argv),
+                               data_parallel, checkpoint_stats=stats)
+    if not all(math.isfinite(h["loss"]) for h in history):
+        fail(f"non-finite losses {[h['loss'] for h in history]}")
+    return state, history, stats
+
+
+def _same_crc(label: str, want: dict, got: dict, steps) -> None:
+    for step in steps:
+        if step not in want or step not in got or want[step] != got[step]:
+            fail(f"{label}: state.msgpack of step {step} is "
+                 f"{got.get(step)} (size, crc32), the uninterrupted run's "
+                 f"{want.get(step)}")
+
+
+def _ms(values) -> str:
+    return "/".join(f"{v:.1f}" for v in values) or "none"
+
+
+def phase_resume(tmp: str, card_line: str):
+    """SimCLR ViT-B/16 at batch 256: run A (RESUME_STEPS steps, a save
+    every RESUME_EVERY) against run B (RESUME_FIRST steps with async
+    saves, relaunched to RESUME_STEPS), CRC for CRC at steps 4 and 6.
+    Returns A's directory and final state."""
+    t0 = time.monotonic()
+    dir_a, dir_b = f"{tmp}/resume_a", f"{tmp}/resume_b"
+    state_a, hist_a, stats_a = _train_ckpt(_ckpt_argv(TRAIN_ARGV, dir_a,
+                                                      RESUME_STEPS))
+    if [h["step"] for h in hist_a] != list(range(1, RESUME_STEPS + 1)):
+        fail(f"run A logged steps {[h['step'] for h in hist_a]}")
+    _, _, stats_b1 = _train_ckpt(_ckpt_argv(
+        TRAIN_ARGV, dir_b, RESUME_FIRST) + ["--async-ckpt"])
+    _, hist_b, stats_b2 = _train_ckpt(_ckpt_argv(
+        TRAIN_ARGV, dir_b, RESUME_STEPS) + ["--async-ckpt"])
+    if [h["step"] for h in hist_b] != list(range(RESUME_FIRST + 1,
+                                                 RESUME_STEPS + 1)):
+        fail(f"the relaunch logged steps {[h['step'] for h in hist_b]}")
+    crc_a = _manifest_crcs(dir_a)
+    _same_crc("resumed SimCLR run", crc_a, _manifest_crcs(dir_b),
+              (4, RESUME_STEPS))
+    print(f"[resume] ViT-B/16 SimCLR batch 256: run A {RESUME_STEPS} steps "
+          f"(saves every {RESUME_EVERY}), run B {RESUME_FIRST} steps "
+          f"--async-ckpt + relaunch to {RESUME_STEPS}: steps 4 and "
+          f"{RESUME_STEPS} equal by (size, crc32) {crc_a[RESUME_STEPS]}; "
+          f"state {stats_a['state_bytes']} bytes; sync save ms "
+          f"{_ms(stats_a['save_ms'])}; async blocked ms "
+          f"{_ms(stats_b1['blocked_ms'] + stats_b2['blocked_ms'])} (writer "
+          f"save ms {_ms(stats_b1['save_ms'] + stats_b2['save_ms'])}); "
+          f"restore ms {_ms(stats_b2['restore_ms'])}; on {card_line}; "
+          f"phase {time.monotonic() - t0:.1f} s", flush=True)
+    return dir_a, state_a, crc_a
+
+
+def phase_preempt(tmp: str, crc_a: dict) -> None:
+    """The CLI as a child, SIGTERM after its step-PREEMPT_AFTER line: exit
+    0 with the stopped step the newest valid one; a relaunch ends at run
+    A's step-6 CRC."""
+    import os
+    import re
+    import signal
+    import subprocess
+    from pathlib import Path
+
+    from ntxent_tpu_torch.training import CheckpointManager
+
+    t0 = time.monotonic()
+    directory = f"{tmp}/preempt"
+    cmd = [sys.executable, "-m", "ntxent_tpu_torch.cli", "train",
+           *_ckpt_argv(TRAIN_ARGV, directory, RESUME_STEPS), "--async-ckpt"]
+    root = str(Path(__file__).resolve().parent)
+
+    def child(stop_after: int | None) -> tuple[int, list]:
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                env=dict(os.environ))
+        lines, sent = [], False
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if stop_after is not None and not sent and re.search(
+                        rf"\bstep {stop_after} loss ", line):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = True
+                if time.monotonic() > deadline:
+                    break
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if stop_after is not None and not sent:
+            fail(f"the child never logged step {stop_after}: "
+                 f"{lines[-5:]}")
+        return rc, lines
+
+    rc, lines = child(PREEMPT_AFTER)
+    saved = [int(m.group(1)) for line in lines for m in [re.search(
+        r"run was preempted; checkpoint saved at step (\d+)", line)] if m]
+    if rc != 0 or len(saved) != 1:
+        fail(f"the preempted child exited {rc} with {saved} preemption "
+             f"lines; its last lines {lines[-8:]}")
+    newest = CheckpointManager(directory).latest_valid_step()
+    if newest != saved[0]:
+        fail(f"the preempted child stopped at step {saved[0]} but the "
+             f"newest valid step is {newest}")
+    t_stop = time.monotonic() - t0
+    rc, lines = child(None)
+    if rc != 0:
+        fail(f"the relaunched child exited {rc}: {lines[-8:]}")
+    _same_crc("preempted and relaunched run", crc_a,
+              _manifest_crcs(directory), (RESUME_STEPS,))
+    print(f"[preempt] SIGTERM after the child's step {PREEMPT_AFTER} line: "
+          f"exit 0, stopped and saved at step {saved[0]} (the newest valid "
+          f"step) in {t_stop:.1f} s; the relaunch resumed it to step "
+          f"{RESUME_STEPS}, equal to run A's by crc32; phase "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+
+def phase_resume_pair(tmp: str, argv, label: str,
+                      data_parallel=None) -> None:
+    """PAIR_FIRST + 1 steps against PAIR_STEPS uninterrupted, CRC for CRC
+    at the last step."""
+    t0 = time.monotonic()
+    whole, parts = f"{tmp}/{label}_whole", f"{tmp}/{label}_parts"
+    _, _, stats_w = _train_ckpt(_ckpt_argv(argv, whole, PAIR_STEPS,
+                                           every=PAIR_STEPS, keep=1),
+                                data_parallel)
+    _train_ckpt(_ckpt_argv(argv, parts, PAIR_FIRST, every=PAIR_STEPS,
+                           keep=1), data_parallel)
+    _, _, stats_r = _train_ckpt(_ckpt_argv(argv, parts, PAIR_STEPS,
+                                           every=PAIR_STEPS, keep=1),
+                                data_parallel)
+    want = _manifest_crcs(whole)
+    _same_crc(f"resumed {label} run", want, _manifest_crcs(parts),
+              (PAIR_STEPS,))
+    print(f"[resume-{label}] {PAIR_FIRST} + 1 steps equal {PAIR_STEPS} "
+          f"uninterrupted by (size, crc32) {want[PAIR_STEPS]}; save ms "
+          f"{_ms(stats_w['save_ms'])}, restore ms "
+          f"{_ms(stats_r['restore_ms'])}; phase {time.monotonic() - t0:.1f} "
+          f"s", flush=True)
+    import shutil
+
+    shutil.rmtree(whole)
+    shutil.rmtree(parts)
+
+
+def phase_serve_ckpt(directory: str, state) -> None:
+    """``build_server`` with ``--ckpt-dir`` at run A's directory embeds a
+    fixed batch as run A's final model does in eval mode."""
+    import torch
+
+    from ntxent_tpu_torch import cli
+
+    t0 = time.monotonic()
+    args = cli.build_serve_parser().parse_args(
+        _with_flags(SERVE_ARGV, "--ckpt-dir", directory) + ["--no-warmup"])
+    server = cli.build_server(args)
+    try:
+        x = np.random.default_rng(7).uniform(
+            -1, 1, (16, 224, 224, 3)).astype(np.float32)
+        got = server.engine.embed(x)
+        model = state.model.eval()
+        with torch.inference_mode():
+            want = model(torch.from_numpy(x).cuda()).float().cpu().numpy()
+        err = _check_embeddings("serve --ckpt-dir", got, want)
+    finally:
+        server.close()
+    print(f"[serve-ckpt] build_server --ckpt-dir at run A's step "
+          f"{RESUME_STEPS}: 16 embeddings max|err| {err:.2e} against the "
+          f"trained model in eval mode (atol {EMBED_ATOL:g}); phase "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3980,6 +4613,8 @@ def main() -> int:
     twopass_fields = phase_twopass_kernels()
     dp_clip_kernels, sym_retimed_ms = phase_dp_clip_kernels(build_logs)
     tri_kernels, tri_launches = phase_tri_kernels(build_logs)
+    wide_fields = phase_wide_d()
+    flash_fp32 = phase_flash_fp32()
     fold_kernel, ring_times = phase_fold_kernel()
     kernels = [phase_kernels(), *phase_ntxent_kernels(build_logs),
                *phase_flash_backward(), *phase_infonce_kernels(build_logs),
@@ -3995,9 +4630,18 @@ def main() -> int:
     ring_times |= phase_ring_ntxent_emulated()
     serve_launches = phase_serve(smi)
     train_launches = phase_train(smi)
+    phase_wide_train(smi)
     phase_step_parity()
     clip_launches = phase_clip_train(smi)
     phase_clip_parity()
+    with tempfile.TemporaryDirectory() as tmp:
+        dir_a, state_a, crc_a = phase_resume(tmp, smi)
+        phase_serve_ckpt(dir_a, state_a)
+        del state_a
+        torch.cuda.empty_cache()
+        phase_preempt(tmp, crc_a)
+        shutil.rmtree(dir_a)
+        phase_resume_pair(tmp, CLIP_ARGV, "clip")
     from ntxent_tpu_torch.parallel import mesh
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -4007,6 +4651,7 @@ def main() -> int:
             dp_pair_launches = phase_dp_train(
                 smi, DP_PAIR_ARGV, DP_PAIR_STEP_LAUNCHES, "dp-pair")
             phase_dp_parity()
+            phase_resume_pair(tmp, DP_ARGV, "dp", data_parallel=True)
             clip_dp_launches = phase_clip_dp_train(smi)
             phase_clip_dp_parity()
             twopass_launches = phase_twopass_train(smi)
@@ -4040,6 +4685,8 @@ def main() -> int:
         kernel["longctx_launches"] = longctx_launches[wrapper]
         kernel["clip_twopass_launches"] = twopass_launches[wrapper]
         kernel |= ring_times.get(wrapper, {})
+        kernel |= wide_fields.get(wrapper, {})
+        kernel |= flash_fp32.get(wrapper, {})
     kernels[0]["serve_launches"] = serve_launches
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -6,10 +6,17 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
 
 * ``serve_main`` (``build_serve_parser``): the SimCLR model of ``--model``
   (``resnet50`` by default, as ``ntxent-serve``; every ResNet, ``tiny``
-  and the ViTs) in eval mode, JSON ``/metrics``; random weights from
-  ``--seed``, as ``ntxent-serve`` serves without ``--ckpt-dir``.
-* ``train_main`` (``build_train_parser``): training with random weights
-  from ``--seed``:
+  and the ViTs) in eval mode, JSON ``/metrics``; the params and
+  batch_stats of the newest valid step of ``--ckpt-dir`` (a checkpoint of
+  either package), or random weights from ``--seed`` without it.
+* ``train_main`` (``build_train_parser``): training from random weights
+  drawn from ``--seed``, through ``training.fit`` under a
+  ``PreemptionGuard``: with ``--ckpt-dir`` it resumes the newest valid
+  step (or ``--restore-step``) with the input pipeline's position, saves
+  every ``--ckpt-every`` steps (``--async-ckpt``, ``--ckpt-keep-last``,
+  ``--ckpt-keep-every``, ``--ckpt-mirror``, ``--no-ckpt-verify``) and at
+  the end, and on SIGTERM saves the stopped step and exits 0; the format
+  is the JAX package's, so either package resumes the other's steps:
 
   - ``--objective simclr`` (the default): SimCLR of a ResNet (``--model
     resnet50``, the default, ``resnet18/34/50x2/101/152``, ``tiny``; the
@@ -34,7 +41,7 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
 
 Every flag of the JAX CLI's ``ntxent-train`` and ``ntxent-serve`` parses
 here. A flag of what is not ported yet (datasets, model parallelism,
-checkpoints, resilience, observability, the adaptive ladder, the int8
+training resilience, observability, the adaptive ladder, the int8
 rung, ...) exits, when set, with a message naming its ROADMAP.md item;
 ``--platform cpu|gpu`` selects ``--device``.
 
@@ -88,18 +95,20 @@ from .serving import EmbeddingServer, InferenceEngine
 from .training import (
     ROADMAP_ITEMS,
     ArraySource,
+    CheckpointManager,
     PairedArrayLoader,
     PairedPipeline,
+    PreemptionGuard,
     StreamingLoader,
     TrainerConfig,
     TwoViewPipeline,
     create_clip_train_state,
     create_train_state,
+    fit,
     make_clip_train_step,
     make_sharded_clip_train_step,
     make_sharded_train_step,
     make_train_step,
-    train_loop,
 )
 from .utils.capability import device_name, resolve_device
 
@@ -124,8 +133,6 @@ MODEL_CHOICES = ["resnet18", "resnet34", "resnet50", "resnet50x2",
 
 # What serving does not port yet, by the ROADMAP.md item that will.
 SERVE_ITEMS = {
-    "ckpt": "ROADMAP.md Queue A 7(a) (reading checkpoints: --ckpt-dir "
-            "and what shapes its restore)",
     "stem": ROADMAP_ITEMS["stem"],
     "supervise": "ROADMAP.md Queue A 8(c) (serving supervision: restarts, "
                  "the stall watchdog, --port-file, checkpoint watching)",
@@ -136,7 +143,6 @@ SERVE_ITEMS = {
 }
 # (dest, the JAX CLI's default, item): serve flags that exit when set.
 SERVE_UNPORTED = [
-    ("ckpt_dir", None, "ckpt"), ("accum_steps", 1, "ckpt"),
     ("stem", "conv", "stem"), ("adaptive_buckets", False, "ladder"),
     ("ladder_max_buckets", 6, "ladder"),
     ("ladder_min_requests", 200, "ladder"),
@@ -202,10 +208,13 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="what /embed returns: encoder features or the "
                         "projected L2-normalized contrastive embedding")
     m.add_argument("--ckpt-dir", default=None,
-                   help="restore weights from a training checkpoint (not "
-                        "ported)")
+                   help="serve the params and batch_stats of the newest "
+                        "valid checkpoint step here (either package's); "
+                        "an empty directory exits")
     m.add_argument("--accum-steps", type=int, default=1,
-                   help="shapes a checkpoint's restore (not ported)")
+                   help="the training run's accumulation (shapes the JAX "
+                        "optimizer state; serving reads only the params "
+                        "and batch_stats, so any value reads)")
 
     s = p.add_argument_group("serving")
     s.add_argument("--host", default="127.0.0.1")
@@ -317,8 +326,20 @@ def build_server(args) -> EmbeddingServer:
     _check_serve_args(args)
     buckets = _buckets(args.buckets)
     device = resolve_device(args.device)
+    model = build_model(args)
+    if args.ckpt_dir is not None:
+        if not os.path.isdir(args.ckpt_dir) \
+                or CheckpointManager(args.ckpt_dir).latest_step() is None:
+            raise SystemExit(f"no checkpoint under {args.ckpt_dir}")
+        manager = CheckpointManager(args.ckpt_dir)
+        step = manager.restore_variables(model)
+        logger.info("serving checkpoint step %d from %s", step,
+                    args.ckpt_dir)
+    else:
+        logger.warning("no --ckpt-dir: serving RANDOM weights (smoke/"
+                       "load-test mode)")
     engine = InferenceEngine(
-        build_model(args), (args.image_size, args.image_size, 3),
+        model, (args.image_size, args.image_size, 3),
         method="forward" if args.head == "embedding" else "features",
         buckets=buckets, dtype=DTYPES[args.dtype], device=device)
     if not args.no_warmup:
@@ -356,13 +377,7 @@ def serve_main(argv=None) -> int:
 
 # (dest, the JAX CLI's default, item): train flags that exit when set.
 TRAIN_UNPORTED = [
-    ("ckpt_every", 500, "resilience"), ("async_ckpt", False, "resilience"),
-    ("ckpt_keep_last", 3, "resilience"),
-    ("ckpt_keep_every", None, "resilience"),
-    ("restore_step", None, "resilience"),
-    ("ckpt_save_ef", False, "resilience"),
-    ("ckpt_mirror", None, "resilience"),
-    ("no_ckpt_verify", False, "resilience"), ("chaos", None, "resilience"),
+    ("chaos", None, "resilience"),
     ("stall_timeout", None, "resilience"), ("prefetch", 0, "pipeline"),
     ("lag_metrics", False, "pipeline"), ("ring_chunks", None, "chunked"),
     ("measure_overlap", False, "chunked"), ("model_par", 2, "mp"),
@@ -447,17 +462,36 @@ def build_train_parser() -> argparse.ArgumentParser:
     t.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
 
-    r = p.add_argument_group("checkpoints, resilience and the input "
-                             "pipeline (not ported)")
-    r.add_argument("--ckpt-dir", default=None)
-    r.add_argument("--ckpt-every", type=int, default=500)
-    r.add_argument("--async-ckpt", action="store_true")
-    r.add_argument("--ckpt-keep-last", type=int, default=3, metavar="K")
-    r.add_argument("--ckpt-keep-every", type=int, default=None, metavar="N")
-    r.add_argument("--restore-step", type=int, default=None, metavar="N")
-    r.add_argument("--ckpt-save-ef", action="store_true")
-    r.add_argument("--ckpt-mirror", default=None, metavar="DIR")
-    r.add_argument("--no-ckpt-verify", action="store_true")
+    c = p.add_argument_group("checkpoints (the JAX package's format)")
+    c.add_argument("--ckpt-dir", default=None,
+                   help="resume the newest valid step here and save into "
+                        "it; SIGTERM saves the stopped step and exits 0")
+    c.add_argument("--ckpt-every", type=int, default=500)
+    c.add_argument("--async-ckpt", action="store_true",
+                   help="snapshot to host and write on a background "
+                        "thread (the loop blocks only while a save is in "
+                        "flight); a SIGTERM stop still saves synchronously")
+    c.add_argument("--ckpt-keep-last", type=int, default=3, metavar="K",
+                   help="keep the newest K steps (0 keeps all); the newest "
+                        "valid step is never collected")
+    c.add_argument("--ckpt-keep-every", type=int, default=None, metavar="N",
+                   help="also keep every step divisible by N")
+    c.add_argument("--restore-step", type=int, default=None, metavar="N",
+                   help="resume from step N (a step no replica holds "
+                        "fails); the steps after N are deleted in both "
+                        "replicas")
+    c.add_argument("--ckpt-save-ef", action="store_true",
+                   help="keep the quantized collectives' error-feedback "
+                        "residual; the float32 wire has none, so this "
+                        "changes nothing until --collective-dtype is "
+                        "ported")
+    c.add_argument("--ckpt-mirror", default=None, metavar="DIR",
+                   help="copy every step to DIR; restore falls back to it")
+    c.add_argument("--no-ckpt-verify", action="store_true",
+                   help="write no CRC manifests (restore can then no longer "
+                        "tell a corrupt step)")
+    r = p.add_argument_group("resilience and the input pipeline (not "
+                             "ported)")
     r.add_argument("--max-restarts", type=int, default=0)
     r.add_argument("--nan-policy", default="off",
                    choices=["off", "skip", "backoff", "rollback"])
@@ -514,7 +548,6 @@ def _check_train_args(args) -> None:
         (args.moe_experts > 0, "--moe-experts", "mp"),
         (args.accum_steps > 1, "--accum-steps", "resilience"),
         (args.remat, "--remat", "resilience"),
-        (args.ckpt_dir is not None, "--ckpt-dir", "resilience"),
         (args.max_restarts > 0, "--max-restarts", "resilience"),
         (args.nan_policy != "off", f"--nan-policy {args.nan_policy}",
          "resilience"),
@@ -532,6 +565,11 @@ def _check_train_args(args) -> None:
                          "would be silently ignored")
     if args.batch < 1 or args.steps < 1 or args.log_every < 1:
         raise SystemExit("--batch, --steps and --log-every must be positive")
+    if args.ckpt_every < 1:
+        raise SystemExit("--ckpt-every must be positive")
+    if args.restore_step is not None and args.ckpt_dir is None:
+        raise SystemExit("--restore-step needs --ckpt-dir (there is no "
+                         "store to restore the named step from)")
 
 
 def _synthetic_pipeline(args, device, rank: int = 0,
@@ -622,7 +660,7 @@ def _clip_label(args) -> str:
             f"{args.token_len} tokens of {args.vocab_size} ids")
 
 
-def _train_clip(args, device):
+def _train_clip(args, device, stats):
     """The CLIP branch of ``train`` (``cli.py:1175``, single device)."""
     images, tokens = _clip_data(args)
     state = create_clip_train_state(build_clip_model(args),
@@ -631,9 +669,8 @@ def _train_clip(args, device):
     logger.info("training %s on %s: batch %d, %d steps, peak lr %g",
                 _clip_label(args), device_name(device), args.batch,
                 args.steps, args.base_lr)
-    return state, train_loop(state, PairedPipeline(loader, device),
-                             make_clip_train_step(), args.steps,
-                             log_every=args.log_every, views=1)
+    return _fit(args, state, PairedPipeline(loader, device),
+                make_clip_train_step(), stats, views=1)
 
 
 def _world_size(args) -> int:
@@ -647,7 +684,7 @@ def _world_size(args) -> int:
     return world
 
 
-def _train_clip_data_parallel(args):
+def _train_clip_data_parallel(args, stats):
     """The data-parallel CLIP branch (``cli.py:1338-1358``, ``--clip-parallel
     dp``): one rank per card (NCCL) or per CPU process (gloo), weights from
     ``--seed`` on every rank, each rank its rows of every global batch,
@@ -668,21 +705,22 @@ def _train_clip_data_parallel(args):
                     _clip_label(args), world,
                     torch.distributed.get_backend(), args.batch, args.steps,
                     args.base_lr)
-    history = train_loop(state, PairedPipeline(loader, device),
-                         make_sharded_clip_train_step(None), args.steps,
-                         log_every=args.log_every, views=1, ranks=world,
-                         log=lead)
+    state, history = _fit(args, state, PairedPipeline(loader, device),
+                          make_sharded_clip_train_step(None), stats,
+                          views=1, ranks=world, log=lead)
     if lead:
         _log_final(history)
     return state, history
 
 
-def train(args, data_parallel: bool | None = None):
+def train(args, data_parallel: bool | None = None,
+          checkpoint_stats: dict | None = None):
     """Train as ``train_main`` does from parsed ``args``; returns
     (TrainState, history). ``data_parallel=None`` takes the data-parallel
     branch when ``WORLD_SIZE`` > 1 in the environment; ``True`` takes it in
     any case, a world of one included (the process group is joined from
-    the environment unless the caller joined one already)."""
+    the environment unless the caller joined one already).
+    ``checkpoint_stats`` receives ``fit``'s checkpoint timings."""
     _check_train_args(args)
     if args.image_size is None and args.objective != "clip":
         args.image_size = 32
@@ -690,11 +728,11 @@ def train(args, data_parallel: bool | None = None):
         data_parallel = int(os.environ.get("WORLD_SIZE", "1")) > 1
     if data_parallel:
         if args.objective == "clip":
-            return _train_clip_data_parallel(args)
-        return _train_data_parallel(args)
+            return _train_clip_data_parallel(args, checkpoint_stats)
+        return _train_data_parallel(args, checkpoint_stats)
     device = resolve_device(args.device)
     if args.objective == "clip":
-        state, history = _train_clip(args, device)
+        state, history = _train_clip(args, device, checkpoint_stats)
         _log_final(history)
         return state, history
     if args.dp_loss != "strip":
@@ -706,8 +744,8 @@ def train(args, data_parallel: bool | None = None):
     logger.info("training %s on %s: batch %d, %d steps, peak lr %g",
                 _model_label(args), device_name(device), args.batch,
                 args.steps, cfg.learning_rate)
-    history = train_loop(state, _synthetic_pipeline(args, device), step,
-                         args.steps, log_every=args.log_every)
+    state, history = _fit(args, state, _synthetic_pipeline(args, device),
+                          step, checkpoint_stats)
     _log_final(history)
     return state, history
 
@@ -726,7 +764,7 @@ def _model_label(args) -> str:
     return args.model
 
 
-def _train_data_parallel(args):
+def _train_data_parallel(args, stats):
     """The data-parallel branch (``cli.py:824-842``): one rank per card
     (NCCL) or per CPU process (gloo), weights from ``--seed`` on every
     rank, cross-replica BatchNorm, the ``--dp-loss`` schedule (strip or
@@ -748,12 +786,44 @@ def _train_data_parallel(args):
                     _model_label(args), world,
                     torch.distributed.get_backend(), args.dp_loss,
                     args.batch, args.steps, cfg.learning_rate)
-    history = train_loop(state, _synthetic_pipeline(args, device, rank,
-                                                    world),
-                         step, args.steps, log_every=args.log_every,
-                         ranks=world, log=lead)
+    state, history = _fit(args, state,
+                          _synthetic_pipeline(args, device, rank, world),
+                          step, stats, ranks=world, log=lead)
     if lead:
         _log_final(history)
+    return state, history
+
+
+def _fit(args, state, data, step, stats: dict | None, views: int = 2,
+         ranks: int = 1, log: bool = True):
+    """``training.fit`` with the checkpoint flags, under a
+    ``PreemptionGuard`` (``cli.py:1031-1066``): a SIGTERM ends the run at
+    the next step boundary with the stopped step saved, and the run
+    returns normally (the process exits 0)."""
+    keep_last = args.ckpt_keep_last
+    with PreemptionGuard() as guard:
+        state, history = fit(
+            state, data, step, args.steps, checkpoint_dir=args.ckpt_dir,
+            checkpoint_every=args.ckpt_every, log_every=args.log_every,
+            stop_fn=guard.requested,
+            checkpoint_retry_policy=RetryPolicy(
+                max_attempts=3, base_delay_s=0.5, max_delay_s=10.0,
+                seed=args.seed),
+            checkpoint_verify_writes=not args.no_ckpt_verify,
+            async_checkpointing=args.async_ckpt,
+            checkpoint_keep_last=keep_last if keep_last else None,
+            checkpoint_keep_every=args.ckpt_keep_every,
+            checkpoint_mirror=args.ckpt_mirror,
+            restore_step=args.restore_step, views=views, ranks=ranks,
+            log=log, checkpoint_stats=stats)
+    if guard.preempted and log:
+        if args.ckpt_dir is None:
+            logger.warning("run was preempted at step %d; without "
+                           "--ckpt-dir nothing was saved", state.step)
+        else:
+            logger.warning("run was preempted; checkpoint saved at step %d "
+                           "— relaunch with the same flags to resume",
+                           state.step)
     return state, history
 
 

@@ -412,7 +412,8 @@ cudaError_t dual_bwd_launch(const void* za, const void* zb, const DualGrid& g,
       {b.b.oth_lt, b.a.oth_lt},
       g.d,
       blocks_a};
-  prep<<<dim3(blocks_a + blocks_b, padded_dt(g.d) / 32), kPrepThreads, 0,
+  prep<<<dim3(blocks_a + blocks_b, prep_grid_y(padded_dt(g.d))),
+         kPrepThreads, 0,
          stream>>>(pair);
   cudaError_t err = cudaGetLastError();
   BwdMaps ma, mb;

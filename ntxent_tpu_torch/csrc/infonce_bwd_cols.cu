@@ -40,7 +40,7 @@
 // of one pass.
 //
 // Supported: float32 or bfloat16 za, zb (the same dtype), contiguous,
-// 1 <= D <= 512, int32 row ids. The C entry points return
+// 1 <= D <= kMaxWidth, int32 row ids. The C entry points return
 // cudaGetLastError().
 
 #include "infonce_cross_bwd.cuh"

@@ -240,7 +240,7 @@ cudaError_t run(const void* za, const void* zb, const void* row_gid,
   const int n_own = kCols ? n_c : n_r;
   const int n_other = kCols ? n_r : n_c;
   if (row_gid == nullptr || scale == nullptr || n_r < 1 || n_c < 1 ||
-      d < 1 || d > kMaxD || !splits_cover(n_other, splits, split_cols) ||
+      !width_ok(d) || !splits_cover(n_other, splits, split_cols) ||
       (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }

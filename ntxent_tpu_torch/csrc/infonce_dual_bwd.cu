@@ -62,8 +62,8 @@
 // TB/s); at global batch 4096 (1024, 4096, 512): 8.6 GFLOP, 52 us.
 //
 // Supported: float32 or bfloat16 za, zb (the same dtype), contiguous,
-// 1 <= D <= 512; the square kernel takes (N, D) each, the rows kernel
-// (n_r, D) and (n_c, D) with int32 row ids. The C entry points return
+// 1 <= D <= kMaxWidth; the square kernel takes (N, D) each, the rows
+// kernel (n_r, D) and (n_c, D) with int32 row ids. The C entry points return
 // cudaGetLastError().
 
 #include "dual_tf32.cuh"
@@ -168,7 +168,7 @@ extern "C" int ntx_infonce_dual_bwd(const void* za, const void* zb,
                                     void* scratch, int n, int d, int dtype,
                                     int splits, int split_cols, int device,
                                     void* stream) {
-  if (scale == nullptr || n < 1 || d < 1 || d > kMaxD ||
+  if (scale == nullptr || n < 1 || !width_ok(d) ||
       !splits_cover(n, splits, split_cols) || (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }

@@ -57,9 +57,9 @@
 // GFLOP, 26 us. At N = 256 the launches and the walk's latency bound it.
 //
 // Supported: float32 or bfloat16 za and zb (the same dtype), contiguous
-// (n_a, D) and (n_b, D), n_a, n_b >= 1, 1 <= D <= 512 (past D = 256 in
-// fp32 the row tile streams through the ring). The C entry points return
-// cudaGetLastError().
+// (n_a, D) and (n_b, D), n_a, n_b >= 1, 1 <= D <= kMaxWidth (past D = 256
+// in fp32, 512 in bf16, the row tile streams through the ring). The C
+// entry points return cudaGetLastError().
 
 #include "dual_tf32.cuh"
 
@@ -228,8 +228,8 @@ cudaError_t launch(const Call& a, const Buffers& b, cudaStream_t stream) {
 template <bool kLoss>
 cudaError_t run(const Call& a, void* scratch, int dtype, int device,
                 void* stream) {
-  if (a.scale == nullptr || a.n_a < 1 || a.n_b < 1 || a.d < 1 ||
-      a.d > kMaxD || !splits_cover(a.n_b, a.splits, a.split_cols) ||
+  if (a.scale == nullptr || a.n_a < 1 || a.n_b < 1 || !width_ok(a.d) ||
+      !splits_cover(a.n_b, a.splits, a.split_cols) ||
       (kLoss && a.n_a != a.n_b) || (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }

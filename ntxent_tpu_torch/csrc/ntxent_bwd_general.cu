@@ -51,7 +51,7 @@
 // 2.5 times the products of one pass.
 //
 // Supported: float32 or bfloat16 z_rows and z_cols (the same dtype),
-// contiguous, 1 <= D <= 512, int32 ids. The C entry points return
+// contiguous, 1 <= D <= kMaxWidth, int32 ids. The C entry points return
 // cudaGetLastError().
 
 #include "ntxent_tf32.cuh"
@@ -252,8 +252,8 @@ cudaError_t run(const void* z_rows, const void* z_cols, const void* row_gid,
                 void* stream) {
   const int n_own = kCols ? n_cols : n_rows;
   const int n_other = kCols ? n_rows : n_cols;
-  if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || d < 1 ||
-      d > kMaxD || !splits_cover(n_other, splits, split_cols) ||
+  if (row_gid == nullptr || n_rows < 1 || n_cols < 1 ||
+      !width_ok(d) || !splits_cover(n_other, splits, split_cols) ||
       (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }

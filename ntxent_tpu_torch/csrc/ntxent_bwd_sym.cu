@@ -41,8 +41,9 @@
 // at D = 128 (224 KB), 2 at D = 256 (224 KB).
 //
 // Supported: float32 or bfloat16 z, contiguous (rows, D), rows even >= 2,
-// 1 <= D <= 512 (past D = 256 in fp32 the row tile streams through the
-// ring, ntxent_tf32.cuh). The C entry point returns cudaGetLastError().
+// 1 <= D <= kMaxWidth (past D = 256 in fp32, 512 in bf16, the row tile
+// streams through the ring, ntxent_tf32.cuh). The C entry point returns
+// cudaGetLastError().
 
 #include "ntxent_tf32.cuh"
 
@@ -109,7 +110,7 @@ cudaError_t launch(const T* z, const float* lse, float* grad,
   const int dt = padded_dt(d);
   const int cp = padded_cols(n);
   ntxent_bwd_sym_prep<T, kSplit>
-      <<<dim3(cp / 32, dt / 32), kPrepThreads, 0, stream>>>(
+      <<<dim3(cp / 32, prep_grid_y(dt)), kPrepThreads, 0, stream>>>(
           z, n, d, b.hi, b.lo, b.hi_t, b.lo_t);
   cudaError_t err = cudaGetLastError();
   CUtensorMap tm_h, tm_l, tm_ht, tm_lt;
@@ -185,7 +186,7 @@ extern "C" int ntx_ntxent_bwd_sym(const void* z, const void* lse, void* grad,
                                   void* scratch, int n_rows, int d, int dtype,
                                   float inv_t, int splits, int split_cols,
                                   int device, void* stream) {
-  if (n_rows < 2 || n_rows % 2 || d < 1 || d > kMaxD || splits < 1 ||
+  if (n_rows < 2 || n_rows % 2 || !width_ok(d) || splits < 1 ||
       split_cols < 1 ||
       static_cast<long long>(splits - 1) * split_cols >= n_rows ||
       static_cast<long long>(splits) * split_cols < n_rows) {

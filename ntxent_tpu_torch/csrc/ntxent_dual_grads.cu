@@ -51,7 +51,7 @@
 // rank of 4 at global batch 4096 (R = C = 2048): 3.2 GFLOP, 19.5 us.
 //
 // Supported: float32 or bfloat16 z_rows and z_cols (the same dtype),
-// contiguous, R, C >= 1, 1 <= D <= 512, int32 ids. The C entry point
+// contiguous, R, C >= 1, 1 <= D <= kMaxWidth, int32 ids. The C entry point
 // returns cudaGetLastError().
 
 #include "dual_tf32.cuh"
@@ -225,7 +225,7 @@ extern "C" int ntx_ntxent_dual_grads(
     int d, int dtype, float inv_t, int total, int splits_r,
     int split_cols_r, int splits_c, int split_cols_c, int device,
     void* stream) {
-  if (n_rows < 1 || n_cols < 1 || d < 1 || d > kMaxD || !row_gid ||
+  if (n_rows < 1 || n_cols < 1 || !width_ok(d) || !row_gid ||
       !col_gid || !splits_cover(n_cols, splits_r, split_cols_r) ||
       !splits_cover(n_rows, splits_c, split_cols_c) ||
       (dtype != 0 && dtype != 1)) {

@@ -55,9 +55,9 @@
 // GFLOP, 6.5 us.
 //
 // Supported: float32 or bfloat16 z_rows and z_cols (the same dtype),
-// contiguous, R, C >= 1, 1 <= D <= 512 (past D = 256 in fp32 the row tile
-// streams through the ring), int32 ids. The C entry point returns
-// cudaGetLastError().
+// contiguous, R, C >= 1, 1 <= D <= kMaxWidth (past D = 256 in fp32, 512
+// in bf16, the row tile streams through the ring), int32 ids. The C entry
+// point returns cudaGetLastError().
 
 #include "dual_tf32.cuh"
 
@@ -202,7 +202,7 @@ extern "C" int ntx_ntxent_dual_stats(const void* z_rows, const void* z_cols,
                                      int dtype, float inv_t, int total,
                                      int splits, int split_cols, int device,
                                      void* stream) {
-  if (n_rows < 1 || n_cols < 1 || d < 1 || d > kMaxD || !row_gid ||
+  if (n_rows < 1 || n_cols < 1 || !width_ok(d) || !row_gid ||
       !col_gid || !splits_cover(n_cols, splits, split_cols) ||
       (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;

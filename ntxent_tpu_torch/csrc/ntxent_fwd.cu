@@ -55,10 +55,10 @@
 // 512 the four launches and the walk's latency bound it.
 //
 // Supported: float32 or bfloat16 rows and columns (the same dtype),
-// contiguous (rows, D), 1 <= D <= 512 (past D = 256 in fp32 the row tile
-// streams through the ring, ntxent_tf32.cuh); the symmetric mode needs an
-// even row count >= 2. int32 ids. The C entry points return
-// cudaGetLastError().
+// contiguous (rows, D), 1 <= D <= kMaxWidth (past D = 256 in fp32, 512 in
+// bf16, the row tile streams through the ring, ntxent_tf32.cuh); the
+// symmetric mode needs an even row count >= 2. int32 ids. The C entry
+// points return cudaGetLastError().
 
 #include "ntxent_tf32.cuh"
 
@@ -340,7 +340,7 @@ extern "C" int ntx_ntxent_fwd(const void* z, void* lse, void* loss,
                               void* scratch, int n_rows, int d, int dtype,
                               float inv_t, int splits, int split_cols,
                               int device, void* stream) {
-  if (n_rows < 2 || n_rows % 2 || d < 1 || d > kMaxD ||
+  if (n_rows < 2 || n_rows % 2 || !width_ok(d) ||
       !splits_cover(n_rows, splits, split_cols)) {
     return cudaErrorInvalidValue;
   }
@@ -374,7 +374,7 @@ extern "C" int ntx_ntxent_fwd_general(
     void* scratch, int n_rows, int n_cols, int d, int dtype, float inv_t,
     int cols_actual, int n_half, int diag_pos, int splits, int split_cols,
     int device, void* stream) {
-  if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || d < 1 || d > kMaxD ||
+  if (row_gid == nullptr || n_rows < 1 || n_cols < 1 || !width_ok(d) ||
       !splits_cover(n_cols, splits, split_cols)) {
     return cudaErrorInvalidValue;
   }

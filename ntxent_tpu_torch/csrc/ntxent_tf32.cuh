@@ -18,9 +18,9 @@
 // kernel reads z once and writes fp32 copies laid out for TMA's 128-byte
 // swizzle: hi = z rounded to TF32 (cvt.rna) and, for fp32 z, lo = z - hi
 // (exact), as (rows, Dp) matrices, Dp = D rounded up to 32 (one 128-byte
-// swizzle row; zeros past D, so every D from 1 to 512 takes the same
-// boxes and no row stride breaks TMA's 16-byte rule). The backward also
-// writes the other side transposed, (DT, Cp) with Cp = rows rounded up to
+// swizzle row; zeros past D, so every D takes the same boxes and no row
+// stride breaks TMA's 16-byte rule). The backward also writes the other
+// side transposed, (DT, Cp) with Cp = rows rounded up to
 // 64 and DT = Dp rounded up to the chunk of D one CTA accumulates (32,
 // 64 or 128), as the K-major B of grad = G . z. bf16 z widens exactly
 // (lo = 0, not written or read).
@@ -39,11 +39,15 @@
 // of lo a box). The row tile (hi, lo) is loaded once and kept when it
 // leaves room for two stages (make_plan): fp32 up to D = 256, where it
 // takes 128 KB beside 4 stages of 16 KB (the backward: 2 stages of 32 KB
-// beside 32 KB of sums), and bf16 up to 512. Past that (fp32 at D = 288
-// to 512: 144-256 KB of row tile, more than a CTA's 227 KB with a ring)
-// the row tile's K boxes come through the ring beside the column tile's,
-// a stage holding both (32 KB), and are read again from L2 for every
-// column tile: the products per stage stay those of a resident tile. s =
+// beside 32 KB of sums), and bf16 up to 512. Past that (fp32 from D =
+// 288, bf16 from 544: a row tile of 144 KB or more, beyond a CTA's 227 KB
+// with a ring) the row tile's K boxes come through the ring beside the
+// column tile's, a stage holding both (32 KB fp32, 16 KB bf16), and are
+// read again from L2 for every column tile: the products per stage stay
+// those of a resident tile, and the shared memory no longer grows with D.
+// So any D runs: the widths past 512 (CLIP ViT-L/14's 768, ViT-H/14's
+// 1024) only add K boxes to the walk and, in a backward, chunks of D to
+// the grid (each forms s again). s =
 // z_r z_c^T is wgmma m64n64k8 from shared memory; each thread holds rows
 // r = 16 warp + lane / 4 and r + 8, columns 8i + 2q and 8i + 2q + 1 (q =
 // lane % 4) of every 8-column group.
@@ -89,7 +93,11 @@ constexpr int kTile = 64;                     // rows of a tile
 constexpr int kBoxK = 32;                     // fp32 of one 128-byte row
 constexpr int kBoxBytes = kTile * kBoxK * 4;  // one 64-row K box, 8 KB
 constexpr int kMaxStages = 4;
-constexpr int kMaxD = 512;
+constexpr int kMaxGridY = 65535;  // the y and z dimensions of a grid
+// The widest D: a backward's grid holds at most kMaxGridY chunks of D of
+// 128 columns in its third dimension (the operand prep loops past its
+// own grid, prep_tiles).
+constexpr int kMaxWidth = kMaxGridY * 128;
 constexpr int kSmemMax = 232448;  // shared memory one block may use
 constexpr int kWarpgroup = sm90::kWarpgroup;
 constexpr int kThreads = sm90::kThreads;  // the warpgroup + the producer
@@ -113,6 +121,13 @@ __host__ __device__ constexpr int padded_dt(int d) {
 }
 __host__ __device__ constexpr int padded_cols(int n) {
   return (n + kTile - 1) / kTile * kTile;
+}
+// An embedding width the kernels take: 1 <= D <= kMaxWidth.
+inline bool width_ok(int d) { return d >= 1 && d <= kMaxWidth; }
+// The prep grid's y: one block row for each 32-column K tile of `cols`
+// columns, at most kMaxGridY (prep_tiles loops over the rest).
+inline int prep_grid_y(int cols) {
+  return cols / 32 < kMaxGridY ? cols / 32 : kMaxGridY;
 }
 
 // The dynamic shared memory of a walk: the row tile (hi, then lo: Dp / 32
@@ -231,15 +246,30 @@ __device__ __forceinline__ void prep_tile_at(const T* __restrict__ z, int n,
   }
 }
 
-// The tile at c0 = 32 blockIdx.x, k0 = 32 blockIdx.y.
+// The tiles at c0 of the K tiles k0 = 32 blockIdx.y, in strides of the
+// grid's y, up to Dp (DT with a transposed copy): a grid of at most
+// kMaxGridY rows covers any D (prep_grid_y).
+template <typename T, bool kSplit>
+__device__ __forceinline__ void prep_tiles(const T* __restrict__ z, int n,
+                                           int d, float* __restrict__ hi,
+                                           float* __restrict__ lo,
+                                           float* __restrict__ hi_t,
+                                           float* __restrict__ lo_t, int c0) {
+  const int k_end = hi_t != nullptr ? padded_dt(d) : padded_d(d);
+  for (int k0 = blockIdx.y * 32; k0 < k_end; k0 += gridDim.y * 32) {
+    prep_tile_at<T, kSplit>(z, n, d, hi, lo, hi_t, lo_t, c0, k0);
+    __syncthreads();  // the next K tile reuses the staging tile
+  }
+}
+
+// The tiles at c0 = 32 blockIdx.x.
 template <typename T, bool kSplit>
 __device__ __forceinline__ void prep_tile(const T* __restrict__ z, int n,
                                           int d, float* __restrict__ hi,
                                           float* __restrict__ lo,
                                           float* __restrict__ hi_t,
                                           float* __restrict__ lo_t) {
-  prep_tile_at<T, kSplit>(z, n, d, hi, lo, hi_t, lo_t, blockIdx.x * 32,
-                          blockIdx.y * 32);
+  prep_tiles<T, kSplit>(z, n, d, hi, lo, hi_t, lo_t, blockIdx.x * 32);
 }
 
 // Two operands prepared in one launch: the first `blocks0` blocks of the
@@ -259,11 +289,10 @@ template <typename T, bool kSplit>
 __device__ __forceinline__ void prep_pair(const PrepPair<T>& a) {
   const bool one = static_cast<int>(blockIdx.x) >= a.blocks0;
   const int x = one ? blockIdx.x - a.blocks0 : blockIdx.x;
-  prep_tile_at<T, kSplit>(one ? a.z[1] : a.z[0], one ? a.n[1] : a.n[0], a.d,
-                          one ? a.hi[1] : a.hi[0], one ? a.lo[1] : a.lo[0],
-                          one ? a.hi_t[1] : a.hi_t[0],
-                          one ? a.lo_t[1] : a.lo_t[0], x * 32,
-                          blockIdx.y * 32);
+  prep_tiles<T, kSplit>(one ? a.z[1] : a.z[0], one ? a.n[1] : a.n[0], a.d,
+                        one ? a.hi[1] : a.hi[0], one ? a.lo[1] : a.lo[0],
+                        one ? a.hi_t[1] : a.hi_t[0],
+                        one ? a.lo_t[1] : a.lo_t[0], x * 32);
 }
 
 // --- device: the masking and positive policies ----------------------------
@@ -1267,12 +1296,12 @@ cudaError_t bwd_launch(const void* own, const void* other, int n_own,
   const int dp = padded_d(d);
   const int dt = padded_dt(d);
   const int cp = padded_cols(n_other);
-  prep<<<dim3((n_own + 31) / 32, dp / 32), kPrepThreads, 0, stream>>>(
-      static_cast<const T*>(own), n_own, d, b.own_h, b.own_l, nullptr,
-      nullptr);
+  prep<<<dim3((n_own + 31) / 32, prep_grid_y(dp)), kPrepThreads, 0,
+         stream>>>(static_cast<const T*>(own), n_own, d, b.own_h, b.own_l,
+                   nullptr, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  prep<<<dim3(cp / 32, dt / 32), kPrepThreads, 0, stream>>>(
+  prep<<<dim3(cp / 32, prep_grid_y(dt)), kPrepThreads, 0, stream>>>(
       static_cast<const T*>(other), n_other, d, b.oth_h, b.oth_l, b.oth_ht,
       b.oth_lt);
   err = cudaGetLastError();
@@ -1336,8 +1365,8 @@ cudaError_t fwd_launch(const T* rows, const T* cols, int n_rows, int n_cols,
                          {b.hi_r, b.hi_c},   {b.lo_r, b.lo_c},
                          {nullptr, nullptr}, {nullptr, nullptr},
                          d,                  blocks_r};
-  prep<<<dim3(blocks_r + blocks_c, padded_d(d) / 32), kPrepThreads, 0,
-         stream>>>(pair);
+  prep<<<dim3(blocks_r + blocks_c, prep_grid_y(padded_d(d))), kPrepThreads,
+         0, stream>>>(pair);
   cudaError_t err = cudaGetLastError();
   CUtensorMap rh, rl, ch, cl;
   if (err == cudaSuccess) {

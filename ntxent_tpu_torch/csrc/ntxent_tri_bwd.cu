@@ -63,7 +63,7 @@
 // MB of traffic at 2N = 8192, 0.16 ms at 3.35 TB/s.
 //
 // Supported: float32 or bfloat16 z, contiguous (2N, D), 2N even >= 2,
-// 1 <= D <= 512. The C entry point returns cudaGetLastError().
+// 1 <= D <= kMaxWidth. The C entry point returns cudaGetLastError().
 
 #include "ntxent_tf32.cuh"
 
@@ -157,7 +157,7 @@ cudaError_t launch(const T* z, const float* lse, float* grad,
   const int dt = padded_dt(d);
   const int cp = padded_cols(n);
   ntxent_bwd_tri_prep<T, kSplit>
-      <<<dim3(cp / 32, dt / 32), kPrepThreads, 0, stream>>>(
+      <<<dim3(cp / 32, prep_grid_y(dt)), kPrepThreads, 0, stream>>>(
           z, n, d, b.hi, b.lo, b.hi_t, b.lo_t);
   cudaError_t err = cudaGetLastError();
   CUtensorMap tm_h, tm_l, tm_ht, tm_lt;
@@ -225,7 +225,7 @@ extern "C" int ntx_ntxent_tri_bwd(const void* z, const void* lse,
                                   void* scratch, int rows, int d, int dtype,
                                   float inv_t, int pieces, int ctas,
                                   int slots, int device, void* stream) {
-  if (rows < 2 || rows % 2 != 0 || d < 1 || d > kMaxD || plan == nullptr ||
+  if (rows < 2 || rows % 2 != 0 || !width_ok(d) || plan == nullptr ||
       pieces < ctas || ctas < 1 || slots < 1 || (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }

@@ -57,8 +57,8 @@
 // SM).
 //
 // Supported: float32 or bfloat16 z, contiguous (2N, D), 2N even >= 2,
-// 1 <= D <= 512 (past D = 256 in fp32 the row tile streams through the
-// ring). The C entry point returns cudaGetLastError().
+// 1 <= D <= kMaxWidth (past D = 256 in fp32, 512 in bf16, the row tile
+// streams through the ring). The C entry point returns cudaGetLastError().
 
 #include "dual_tf32.cuh"
 
@@ -243,7 +243,7 @@ extern "C" int ntx_ntxent_tri_fwd(const void* z, const void* plan,
                                   int rows, int d, int dtype, float inv_t,
                                   int pieces, int ctas, int slots, int device,
                                   void* stream) {
-  if (rows < 2 || rows % 2 != 0 || d < 1 || d > kMaxD || plan == nullptr ||
+  if (rows < 2 || rows % 2 != 0 || !width_ok(d) || plan == nullptr ||
       pieces < ctas || ctas < 1 || slots < 1 || (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }

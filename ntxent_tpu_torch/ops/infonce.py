@@ -78,8 +78,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .ntxent import (_NtxentPartial, _sm_count, column_splits,
-                     dual_grads_splits, general_bwd_splits)
+from .ntxent import (_NtxentPartial, _sm_count, check_width, column_splits,
+                     device_scratch, dual_grads_splits, general_bwd_splits)
 
 __all__ = ["info_nce_dual_partial", "info_nce_fused",
            "info_nce_partial_fused", "infonce_bwd_cols",
@@ -89,7 +89,6 @@ __all__ = ["info_nce_dual_partial", "info_nce_fused",
            "infonce_dual_fwd_plain", "infonce_dual_fwd_rect",
            "infonce_dual_fwd_rect_plain", "resolve_scale"]
 
-MAX_DIM = 512  # widest embedding the kernels take (CLIP's is 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -202,9 +201,7 @@ def _check_kernel_input(za: torch.Tensor, zb: torch.Tensor,
     if za.dtype not in _DTYPE_CODES or zb.dtype != za.dtype:
         raise TypeError(f"the InfoNCE kernels take float32 or bfloat16 za "
                         f"and zb of one dtype, got {za.dtype}, {zb.dtype}")
-    if not 1 <= za.shape[1] <= MAX_DIM:
-        raise ValueError(f"the InfoNCE kernels take 1 <= D <= {MAX_DIM}, "
-                         f"got {za.shape[1]}")
+    check_width(za.shape[1], "InfoNCE")
     if not (za.is_contiguous() and zb.is_contiguous()):
         raise ValueError("za and zb must be contiguous")
     if scale.numel() != 1 or scale.device != za.device:
@@ -310,7 +307,7 @@ def infonce_dual_fwd(za: torch.Tensor, zb: torch.Tensor,
     lse_a = torch.empty(n, dtype=torch.float32, device=dev)
     lse_b = torch.empty(n, dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    scratch = device_scratch(dev, size, za.shape[1])
     err = _fwd_kernel()(za.data_ptr(), zb.data_ptr(), scale.data_ptr(),
                         lse_a.data_ptr(), lse_b.data_ptr(), loss.data_ptr(),
                         scratch.data_ptr(), n, d, dtype, splits, split_cols,
@@ -346,7 +343,7 @@ def infonce_dual_bwd(za: torch.Tensor, zb: torch.Tensor, scale: torch.Tensor,
     splits, split_cols, size = _bwd_plan(n, d, dtype, dev.index)
     o_a = torch.empty(za.shape, dtype=torch.float32, device=dev)
     o_b = torch.empty(za.shape, dtype=torch.float32, device=dev)
-    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    scratch = device_scratch(dev, size, za.shape[1])
     err = _bwd_kernel()(za.data_ptr(), zb.data_ptr(), scale.data_ptr(),
                         lse_a.data_ptr(), lse_b.data_ptr(), o_a.data_ptr(),
                         o_b.data_ptr(), scratch.data_ptr(), n, d, dtype,
@@ -379,7 +376,7 @@ def infonce_dual_fwd_rect(za: torch.Tensor, zb: torch.Tensor,
     splits, split_cols, size = _fwd_plan(n_a, n_b, d, dtype, dev.index)
     lse_a = torch.empty(n_a, dtype=torch.float32, device=dev)
     lse_b = torch.empty(n_b, dtype=torch.float32, device=dev)
-    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    scratch = device_scratch(dev, size, za.shape[1])
     err = _fwd_rect_kernel()(za.data_ptr(), zb.data_ptr(), scale.data_ptr(),
                              lse_a.data_ptr(), lse_b.data_ptr(),
                              scratch.data_ptr(), n_a, n_b, d, dtype, splits,
@@ -414,8 +411,8 @@ def _bwd_side(side: str, wrapper, za, zb, row_gid, scale, lse_a, lse_b):
     splits, split_cols = general_bwd_splits(own, other, d,
                                             _sm_count(za.device.index))
     kernel, scratch_size = _bwd_side_kernel(side)
-    scratch = torch.empty(scratch_size(own, other, d, dtype, splits),
-                          dtype=torch.float32, device=za.device)
+    scratch = device_scratch(za.device,
+                             scratch_size(own, other, d, dtype, splits), d)
     out = torch.empty((own, d), dtype=torch.float32, device=za.device)
     err = kernel(
         za.data_ptr(), zb.data_ptr(), row_gid.data_ptr(), scale.data_ptr(),

@@ -109,7 +109,10 @@ __all__ = ["block_grads", "block_grads_dual", "block_grads_dual_plain",
            "ntxent_partial_fused", "tf32_split", "tri_runs"]
 
 _NEG_INF = -1e30
-MAX_DIM = 512  # widest embedding the kernels take (CLIP's is 512)
+# The widest D the kernels take (kMaxWidth of csrc/ntxent_tf32.cuh: a
+# backward's grid holds 65535 chunks of 128 columns of D); short of it,
+# only device memory bounds D (``device_scratch``).
+MAX_WIDTH = 65535 * 128
 # rows of one tile of the TF32 walks (csrc/ntxent_tf32.cuh); columns of
 # their column tiles
 TILE = 64
@@ -315,13 +318,30 @@ def ntxent_fwd_split_plain(z_rows, z_cols, row_gid, temperature,
     return torch.where(valid, lse - p, torch.zeros_like(lse)).sum(), lse
 
 
+def check_width(d: int, kernels: str) -> None:
+    """Raise unless the kernels take embeddings of width ``d``."""
+    if not 1 <= d <= MAX_WIDTH:
+        raise ValueError(f"the {kernels} kernels take 1 <= D <= {MAX_WIDTH}, "
+                         f"got D = {d}")
+
+
+def device_scratch(device: torch.device, floats: int,
+                   d: int) -> torch.Tensor:
+    """One launch's fp32 scratch: the operand copies, which grow with D.
+    A width whose copies the device cannot hold raises, naming D."""
+    try:
+        return torch.empty(floats, dtype=torch.float32, device=device)
+    except torch.OutOfMemoryError as err:
+        raise torch.OutOfMemoryError(
+            f"D = {d}: the kernels' operand copies take {4 * floats} bytes, "
+            f"more than {device} can hold") from err
+
+
 def _check_kernel_input(z: torch.Tensor) -> None:
     if z.dtype not in _DTYPE_CODES:
         raise TypeError(f"the NT-Xent kernels take float32 or bfloat16 z, "
                         f"got {z.dtype}")
-    if not 1 <= z.shape[1] <= MAX_DIM:
-        raise ValueError(f"the NT-Xent kernels take 1 <= D <= {MAX_DIM}, "
-                         f"got {z.shape[1]}")
+    check_width(z.shape[1], "NT-Xent")
     if not z.is_contiguous():
         raise ValueError("z must be contiguous")
 
@@ -363,8 +383,7 @@ def _scratch_size(name: str):
 
 
 def _scratch(z: torch.Tensor, name: str, *args: int) -> torch.Tensor:
-    return torch.empty(_scratch_size(name)(*args), dtype=torch.float32,
-                       device=z.device)
+    return device_scratch(z.device, _scratch_size(name)(*args), z.shape[1])
 
 
 def _splits(z: torch.Tensor, rows: int, cols: int):
@@ -545,7 +564,7 @@ def ntxent_fwd_tri(z: torch.Tensor, temperature: float):
     table, *plan, size = _tri_plan("fwd", rows, d, dtype, dev.index)
     lse = torch.empty(rows, dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    scratch = device_scratch(dev, size, d)
     err = _tri_kernel("fwd")(z.data_ptr(), table.data_ptr(), lse.data_ptr(),
                              loss.data_ptr(), scratch.data_ptr(), rows, d,
                              dtype, _inv_t(temperature), *plan, dev.index,
@@ -584,7 +603,7 @@ def ntxent_bwd_tri(z: torch.Tensor, lse: torch.Tensor,
     lse = lse.float().contiguous()
     table, *plan, size = _tri_plan("bwd", rows, d, dtype, dev.index)
     grad = torch.empty(z.shape, dtype=torch.float32, device=dev)
-    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    scratch = device_scratch(dev, size, d)
     err = _tri_kernel("bwd")(z.data_ptr(), lse.data_ptr(), table.data_ptr(),
                              grad.data_ptr(), scratch.data_ptr(), rows, d,
                              dtype, _inv_t(temperature), *plan, dev.index,
@@ -1189,7 +1208,7 @@ def block_lse_dual(z_rows: torch.Tensor, z_cols: torch.Tensor,
                                                 dev.index)
     lse_rows = torch.empty(rows, dtype=torch.float32, device=dev)
     lse_cols = torch.empty(cols, dtype=torch.float32, device=dev)
-    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    scratch = device_scratch(dev, size, d)
     row_gid, col_gid = _ids(row_gid), _ids(col_gid)
     err = _dual_stats_kernel()(
         z_rows.data_ptr(), z_cols.data_ptr(), row_gid.data_ptr(),
@@ -1238,7 +1257,7 @@ def block_grads_dual(z_rows: torch.Tensor, z_cols: torch.Tensor,
     *plan, size = _dual_grads_plan(rows, cols, d, dtype, dev.index)
     grad_rows = torch.empty(z_rows.shape, dtype=torch.float32, device=dev)
     grad_cols = torch.empty(z_cols.shape, dtype=torch.float32, device=dev)
-    scratch = torch.empty(size, dtype=torch.float32, device=dev)
+    scratch = device_scratch(dev, size, d)
     err = _dual_grads_kernel()(
         z_rows.data_ptr(), z_cols.data_ptr(), row_gid.data_ptr(),
         col_gid.data_ptr(), lse_rows.data_ptr(), lse_cols.data_ptr(),

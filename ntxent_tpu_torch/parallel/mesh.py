@@ -61,7 +61,7 @@ __all__ = ["AXIS", "CommsAccounting", "all_gather", "all_to_all",
            "chunk_bounds", "comms_accounting", "init_from_env",
            "init_from_file", "local_row_gids", "pmax", "pmean", "pmean_",
            "ppermute", "ppermute_chunked", "ppermute_start", "process_info",
-           "psum", "rank", "shutdown", "world_size"]
+           "psum", "rank", "shutdown", "world_size", "world_topology"]
 
 AXIS = "data"  # the accounting's axis label: the JAX mesh's data axis
 _TIMEOUT = datetime.timedelta(minutes=10)
@@ -128,6 +128,20 @@ def process_info() -> dict:
     device per process."""
     return {"process_index": rank(), "process_count": world_size(),
             "local_device_count": 1, "global_device_count": world_size()}
+
+
+def world_topology() -> dict:
+    """The world a checkpoint is saved in or restored into, in the layout
+    of ``mesh_topology`` (``ntxent_tpu/parallel/mesh.py:1287``):
+    ``device_count`` (one device a rank: the world size), ``process_count``
+    and the process group's ``backend`` (None outside one). The port's
+    state is replicated on every rank, so it has no mesh shape or axis
+    names (None, which the JAX package reads as "no mesh"), and a save
+    at world P restores at world Q by plain placement."""
+    return {"device_count": world_size(), "shape": None,
+            "axis_names": None, "process_count": world_size(),
+            "backend": dist.get_backend() if dist.is_initialized()
+            else None}
 
 
 def local_row_gids(rank_: int, n_local: int, world: int,

@@ -1,5 +1,5 @@
 """Resilience helpers of the port."""
 
-from .retry import RetryPolicy
+from .retry import RetryBudgetExceeded, RetryPolicy
 
-__all__ = ["RetryPolicy"]
+__all__ = ["RetryBudgetExceeded", "RetryPolicy"]

@@ -1,9 +1,16 @@
 """Training of the port: SimCLR (LARS, two-view augmentation) and CLIP
 (AdamW, paired loading), each on one card or data-parallel over ranks,
-seeded loading and the train steps."""
+seeded loading, the train steps, checkpoints and resume (``fit``,
+``CheckpointManager``, ``AsyncCheckpointer``) and preemption."""
 
 from .adamw import AdamW
 from .augment import augment_batch_pair
+from .checkpoint import (
+    AsyncCheckpointer,
+    CheckpointManager,
+    RetentionPolicy,
+    snapshot_state,
+)
 from .datasets import (
     ArraySource,
     PairedArrayLoader,
@@ -12,12 +19,14 @@ from .datasets import (
     TwoViewPipeline,
 )
 from .lars import LARS, cosine_warmup_schedule, simclr_learning_rate
+from .preemption import PreemptionGuard
 from .trainer import (
     ROADMAP_ITEMS,
     TrainerConfig,
     TrainState,
     create_clip_train_state,
     create_train_state,
+    fit,
     make_clip_train_step,
     make_sharded_clip_train_step,
     make_sharded_train_step,
@@ -28,6 +37,10 @@ from .trainer import (
 __all__ = [
     "LARS",
     "AdamW",
+    "AsyncCheckpointer",
+    "CheckpointManager",
+    "PreemptionGuard",
+    "RetentionPolicy",
     "ROADMAP_ITEMS",
     "ArraySource",
     "PairedArrayLoader",
@@ -40,10 +53,12 @@ __all__ = [
     "cosine_warmup_schedule",
     "create_clip_train_state",
     "create_train_state",
+    "fit",
     "make_clip_train_step",
     "make_sharded_clip_train_step",
     "make_sharded_train_step",
     "make_train_step",
     "simclr_learning_rate",
+    "snapshot_state",
     "train_loop",
 ]

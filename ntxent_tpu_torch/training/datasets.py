@@ -12,6 +12,9 @@ of ``ntxent_tpu/training/datasets.py`` the single-card training path uses.
 * ``TwoViewPipeline``: loader batch -> device -> uint8 to [0, 1] (as at
   ``datasets.py:316-317``) -> two augmented views. The views' generator
   is seeded from (seed, epoch, offset): a seed gives the same views;
+* ``restore(state)`` on the loaders and both pipelines repositions them
+  at a ``state()`` (the checkpointed position): a resumed run sees the
+  batches and views an uninterrupted one sees;
 * data parallelism: a loader of ``rank`` of ``world_size`` gathers rows
   ``rank B/P ... (rank + 1) B/P`` of each global batch of ``B`` (the
   batch one process would make), and its pipeline draws the views'
@@ -78,6 +81,15 @@ class StreamingLoader:
         return {"epoch": self._epoch, "offset": self._offset,
                 "seed": self.seed}
 
+    def restore(self, state: dict) -> None:
+        """Reposition at ``state`` (as ``state()`` gave it): the next
+        batch is the one that followed it. An iterator already running
+        over the loader keeps its epoch's order, so a pipeline drops its
+        own on restore."""
+        self.seed = int(state["seed"])
+        self._epoch = int(state["epoch"])
+        self._offset = int(state["offset"])
+
     def batches_per_epoch(self) -> int:
         return len(self.source) // self.batch_size
 
@@ -118,6 +130,17 @@ class TwoViewPipeline:
         seed = np.random.SeedSequence(
             [self.seed, st["epoch"], st["offset"]]).generate_state(1)[0]
         return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def state(self) -> dict:
+        return self.loader.state()
+
+    def restore(self, state: dict) -> None:
+        """Reposition the loader (``datasets.py:348``); valid mid-iteration
+        too: the running iterator is dropped and rebuilt at the restored
+        position. The views' generator derives from (seed, epoch, offset),
+        so a resumed run draws the views an uninterrupted one draws."""
+        self.loader.restore(state)
+        self._it = None
 
     def __iter__(self):
         return self
@@ -161,6 +184,15 @@ class PairedPipeline:
     def __init__(self, loader: PairedArrayLoader, device: torch.device):
         self.loader = loader
         self.device = torch.device(device)
+        self._it = None
+
+    def state(self) -> dict:
+        return self.loader.state()
+
+    def restore(self, state: dict) -> None:
+        """Reposition the loader (``datasets.py:391``), dropping a running
+        iterator."""
+        self.loader.restore(state)
         self._it = None
 
     def __iter__(self):

@@ -38,12 +38,23 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   the loss and the all-gather's reduce-scatter carry the factor), so their
   pmean is the gradient of the global loss, as under JAX's ``shard_map``
   with ``check_vma=False``;
-* ``train_loop``: steps, loss, steps/s and images/s every ``log_every``.
+* ``train_loop``: steps, loss, steps/s and images/s every ``log_every``;
+  ``stop_fn`` ends the run at a step boundary, ``step_hook`` runs after
+  every step;
+* ``fit`` (``trainer.py:1167``): checkpoint-aware training over
+  ``training.checkpoint``: restore the newest valid step (or
+  ``restore_step``, newer steps truncated) with the input pipeline's
+  position, train to ``num_steps`` in all, save on the global step every
+  ``checkpoint_every`` and at the end or at ``stop_fn``'s stop (through
+  ``emergency_save`` under async saves). In a process group of more
+  than one rank, rank 0 picks the step every rank restores and alone
+  writes, a barrier follows its final save, and the ranks agree on a
+  stop (an all-reduce of the flag each step).
 
 Not in this slice (``make_train_step`` raises ``NotImplementedError``
 naming the ROADMAP.md item, and ``cli`` exits on the flags): the
 divergence guard, rematerialization, the MoE auxiliary loss, gradient
-accumulation, checkpoints. ``ROADMAP_ITEMS`` names every such item.
+accumulation. ``ROADMAP_ITEMS`` names every such item.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import time
 from collections.abc import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.layers import BatchNorm
@@ -62,14 +74,16 @@ from ..ops.infonce import info_nce_fused
 from ..ops.ntxent import ntxent_loss_fused
 from ..parallel.dist_loss import resolve_local_infonce, resolve_local_ntxent
 from ..parallel.mesh import pmean_
+from ..parallel.mesh import rank as mesh_rank
 from .adamw import AdamW
+from .checkpoint import AsyncCheckpointer, CheckpointManager
 from .lars import LARS, cosine_warmup_schedule, exclusion_mask
 from .lars import simclr_learning_rate
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["ROADMAP_ITEMS", "TrainState", "TrainerConfig",
-           "create_clip_train_state", "create_train_state",
+           "create_clip_train_state", "create_train_state", "fit",
            "make_clip_train_step", "make_sharded_clip_train_step",
            "make_sharded_train_step", "make_train_step", "train_loop"]
 
@@ -78,17 +92,20 @@ ROADMAP_ITEMS = {
     "stem": "ROADMAP.md Queue A 6(b) (the space-to-depth ResNet stem)",
     "wire": "ROADMAP.md Queue A 3(e) (quantized collectives: "
             "--collective-dtype bf16/int8 with error feedback)",
-    "resilience": "ROADMAP.md Queue A 7 (checkpoints and training "
-                  "resilience)",
-    "data": "ROADMAP.md Queue A 7 (datasets beyond --dataset synthetic)",
+    "resilience": "ROADMAP.md Queue A 7(c) (training resilience: the "
+                  "divergence guard, the supervisor, chaos, the stall "
+                  "watchdog, remat, gradient accumulation and the "
+                  "crash-replay audit)",
+    "data": "ROADMAP.md Queue A 7(b) (datasets beyond --dataset "
+            "synthetic)",
     "pipeline": "ROADMAP.md Queue A 7(b) (the async input pipeline: "
                 "--prefetch, --lag-metrics)",
     "mp": "ROADMAP.md Queue A 9 (model parallelism and MoE; multi-host "
           "worlds come from torchrun's environment)",
     "chunked": "ROADMAP.md Queue A 3(d) (--dp-loss chunked, the "
                "ring-overlap schedule: --ring-chunks, --measure-overlap)",
-    "obs": "ROADMAP.md Queue A 11 (observability: the metrics endpoint, "
-           "the event log, traces)",
+    "obs": "ROADMAP.md Queue A 11(b) (observability: the metrics "
+           "endpoint, the event log, traces)",
 }
 
 
@@ -274,21 +291,32 @@ def _sync(device: torch.device) -> None:
 def train_loop(state: TrainState, data_iter, train_step: Callable,
                num_steps: int, log_every: int = 50,
                views: int = 2, ranks: int = 1,
-               log: bool = True) -> list[dict]:
+               log: bool = True, stop_fn: Callable[[], bool] | None = None,
+               step_hook: Callable[[TrainState], None] | None = None
+               ) -> list[dict]:
     """Run ``num_steps`` steps; every ``log_every`` steps (and at the
     last) read the loss and log steps/s and images/s over the window.
     Images are those through the image encoder: ``views`` per row of the
     batch, 2 for SimCLR's two views, 1 for CLIP's (image, text) pairs,
     over all ``ranks`` of a data-parallel run (each holds the same number
     of rows). ``log=False`` keeps the records and logs nothing (every
-    rank but 0). Returns one record per log point."""
+    rank but 0). ``stop_fn`` is polled before every step and ends the run
+    when it returns True; ``step_hook(state)`` runs after every step (the
+    checkpoint cadence). Returns one record per log point."""
     history = []
     device = next(state.model.parameters()).device
     _sync(device)
     last_t, last_step = time.perf_counter(), 0
     for i in range(num_steps):
+        if stop_fn is not None and stop_fn():
+            if log:
+                logger.warning("stop requested: ending the run at step %d",
+                               state.step)
+            break
         v1, v2 = next(data_iter)
         state, metrics = train_step(state, v1, v2)
+        if step_hook is not None:
+            step_hook(state)
         if (i + 1) % log_every == 0 or i + 1 == num_steps:
             loss = float(metrics["loss"])  # synchronizes with the device
             now = time.perf_counter()
@@ -303,3 +331,164 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
                             entry["images_per_sec"])
             last_t, last_step = now, i + 1
     return history
+
+
+def _agreed_stop(stop_fn: Callable[[], bool], group,
+                 device: torch.device) -> Callable[[], bool]:
+    """``stop_fn`` agreed across the ranks of ``group``: True on every
+    rank once it is True on any (a MAX all-reduce of the flag), so every
+    rank stops after the same step."""
+    flag = torch.zeros(1, device=device)
+
+    def agreed() -> bool:
+        flag.fill_(1.0 if stop_fn() else 0.0)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        return bool(flag.item())
+
+    return agreed
+
+
+def _restore(manager, state: TrainState, restore_step: int | None,
+             group, distributed: bool):
+    """Restore into ``state`` the step ``fit`` resumes from; returns the
+    data state (or None) and whether a step was restored. Rank 0 chooses
+    (the newest valid step, or ``restore_step``) and every other rank
+    restores the step it chose; a restore that fails on rank 0 fails on
+    every rank, so no rank waits on the others."""
+    step, data_state, error = restore_step, None, None
+    if mesh_rank(group) == 0:
+        try:
+            if restore_step is not None or manager.latest_step() is not None:
+                state, data_state = manager.restore_with_data_state(
+                    state, restore_step)
+                step = state.step
+            else:
+                step = None
+        except Exception as e:  # told to the other ranks, then raised
+            error = e
+    if distributed:
+        box = [step, None if error is None else f"{type(error).__name__}: "
+                                                f"{error}"]
+        dist.broadcast_object_list(box, src=0, group=group)
+        step, failed = box
+        if error is None and failed is not None:
+            raise RuntimeError(f"rank 0 could not restore: {failed}")
+        if error is None and mesh_rank(group) != 0 and step is not None:
+            state, data_state = manager.restore_with_data_state(state, step)
+    if error is not None:
+        raise error
+    return data_state, step is not None
+
+
+def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
+        checkpoint_dir: str | None = None, checkpoint_every: int = 500,
+        log_every: int = 50, stop_fn: Callable[[], bool] | None = None,
+        checkpoint_retry_policy=None, checkpoint_verify_writes: bool = True,
+        async_checkpointing: bool = False,
+        checkpoint_keep_last: int | None = 3,
+        checkpoint_keep_every: int | None = None,
+        checkpoint_mirror: str | None = None,
+        restore_step: int | None = None, views: int = 2, ranks: int = 1,
+        log: bool = True, group=None, checkpoint_stats: dict | None = None):
+    """Checkpoint-aware training (``trainer.py:1167``): restore the newest
+    valid checkpoint of ``checkpoint_dir`` if there is one, train to
+    ``num_steps`` steps IN ALL, save every ``checkpoint_every`` global
+    steps and at the end. Returns ``(state, history)``.
+
+    ``restore_step`` pins the resume point to that step (a step no
+    replica holds raises) and deletes the steps after it in both
+    replicas: the replay owns the timeline. It needs ``checkpoint_dir``.
+    When ``data_iter`` has ``state()`` and ``restore()``, its position is
+    saved in each step and restored with it. ``stop_fn`` (a
+    ``PreemptionGuard``'s ``requested``) ends the run at a step boundary;
+    the stopped step is then saved, through ``emergency_save`` under
+    ``async_checkpointing`` (the writer drains and the step is written
+    before ``fit`` returns). ``checkpoint_keep_last`` /
+    ``checkpoint_keep_every`` / ``checkpoint_mirror`` /
+    ``checkpoint_verify_writes`` / ``checkpoint_retry_policy`` configure
+    the ``CheckpointManager``; ``views``, ``ranks`` and ``log`` are
+    ``train_loop``'s. In a process group of more than one rank (``group``,
+    None: the default one) rank 0 chooses the step every rank restores
+    and alone writes; a barrier follows the final save.
+    ``checkpoint_stats`` (a dict) receives the manager's ``stats`` when
+    ``fit`` returns: save and restore ms, the state's bytes and, under
+    async saves, the ms each save held the loop."""
+    if restore_step is not None and checkpoint_dir is None:
+        raise ValueError(f"restore_step={restore_step} requires "
+                         "checkpoint_dir (there is no store to restore the "
+                         "named step from)")
+    distributed = dist.is_initialized() and dist.get_world_size(group) > 1
+    device = next(state.model.parameters()).device
+    if distributed and stop_fn is not None:
+        stop_fn = _agreed_stop(stop_fn, group, device)
+    stateful = hasattr(data_iter, "state") and hasattr(data_iter, "restore")
+    manager = None
+    try:
+        if checkpoint_dir is not None:
+            manager = CheckpointManager(
+                checkpoint_dir, save_interval_steps=checkpoint_every,
+                retry_policy=checkpoint_retry_policy,
+                verify_writes=checkpoint_verify_writes,
+                max_to_keep=checkpoint_keep_last,
+                keep_every=checkpoint_keep_every,
+                mirror_dir=checkpoint_mirror)
+            if async_checkpointing:
+                manager = AsyncCheckpointer(manager)
+            data_state, restored = _restore(manager, state, restore_step,
+                                            group, distributed)
+            if restored:
+                if log:
+                    logger.info("resumed from checkpoint at step %d%s",
+                                state.step, " (explicit --restore-step)"
+                                if restore_step is not None else "")
+                if restore_step is not None and mesh_rank(group) == 0:
+                    stale = manager.truncate_after(state.step)
+                    if stale:
+                        logger.warning("restore_step=%d: deleted %d newer "
+                                       "checkpoint step(s) %s; the replay "
+                                       "owns the timeline from here",
+                                       restore_step, len(stale), stale)
+                if stateful and data_state is not None:
+                    data_iter.restore(data_state)
+                    if log:
+                        logger.info("data iterator repositioned: %s",
+                                    data_state)
+        done = state.step
+        remaining = num_steps - done
+        if remaining <= 0:
+            if log:
+                logger.info("nothing to do: checkpoint already at step %d",
+                            done)
+            return state, []
+
+        def step_hook(s: TrainState) -> None:
+            if manager is not None and manager.should_save(s.step):
+                manager.save(s.step, s, data_state=data_iter.state()
+                             if stateful else None)
+
+        history = train_loop(state, data_iter, train_step, remaining,
+                             log_every=log_every, views=views, ranks=ranks,
+                             log=log, stop_fn=stop_fn, step_hook=step_hook)
+        if manager is not None:
+            stopped = state.step - done < remaining
+            manager.wait_until_finished()
+            if manager.latest_step() != state.step:
+                data_state = data_iter.state() if stateful else None
+                if async_checkpointing and stopped:
+                    manager.emergency_save(state.step, state,
+                                           data_state=data_state)
+                else:
+                    manager.save(state.step, state, force=True,
+                                 data_state=data_state)
+            if distributed:
+                dist.barrier(group)
+        return state, history
+    finally:
+        if manager is not None:
+            manager.wait_until_finished()
+            manager.close()
+            if checkpoint_stats is not None:
+                if async_checkpointing:
+                    checkpoint_stats.update(manager.stats)
+                    manager = manager.manager
+                checkpoint_stats.update(manager.stats)

@@ -35,6 +35,17 @@ flax leaf (e.g. ``backbone.blocks.0.attn.query.weight`` ->
 ``("backbone", "block_0", "MultiHeadDotProductAttention_0", "query",
 "kernel")``), from the same layout tables: LARS derives its exclusion
 mask from those paths, as the JAX package does.
+
+The way back runs the same tables: a converter states the flax shape of
+every leaf it reshapes (``get(..., shape=...)``), and ``_Leaf`` records
+each transform so that ``flax_variables(model)`` can undo them, giving
+``{"params", "batch_stats"}`` in the flax layout. On top of both,
+``train_state_dict(state)`` writes the port's ``TrainState`` in the JAX
+``TrainState`` layout (``{"step", "params", "opt_state", "batch_stats",
+"ef_residual"}``, ``opt_state`` that of ``optax.lars`` or
+``optax.adamw``), which the checkpoints hold, and
+``load_train_state_dict(state, d)`` reads one back, whichever package
+wrote it.
 """
 
 from __future__ import annotations
@@ -50,7 +61,8 @@ from .models.projection import ProjectionHead, SimCLRModel
 from .models.resnet import ResNet
 from .models.vit import EncoderBlock, MlpBlock, VisionTransformer
 
-__all__ = ["flax_paths", "load_flax_variables"]
+__all__ = ["flax_paths", "flax_variables", "load_flax_variables",
+           "load_train_state_dict", "train_state_dict"]
 
 
 class _Tree:
@@ -59,7 +71,9 @@ class _Tree:
     def __init__(self, tree: dict, root: str):
         self.tree, self.root, self.used = tree, root, set()
 
-    def get(self, *path: str) -> np.ndarray:
+    def get(self, *path: str, shape: tuple | None = None) -> np.ndarray:
+        """The leaf at ``path``; ``shape`` (its flax shape, where a
+        converter reshapes it) serves the way back (``_Leaf``)."""
         node = self.tree
         for key in path:
             if not isinstance(node, dict) or key not in node:
@@ -95,12 +109,16 @@ def _layer_norm(p: _Tree, path: tuple) -> dict:
 
 
 def _attention(module, p, s, path) -> dict:
+    heads = (module.num_heads, module.head_dim)
+    hidden = module.num_heads * module.head_dim
     out = {}
     for name in ("query", "key", "value"):
-        kernel = p.get(*path, name, "kernel")  # (hidden, H, D)
+        kernel = p.get(*path, name, "kernel",
+                       shape=(hidden, *heads))  # (hidden, H, D)
         out[f"{name}.weight"] = kernel.reshape(kernel.shape[0], -1).T
-        out[f"{name}.bias"] = p.get(*path, name, "bias").reshape(-1)
-    kernel = p.get(*path, "out", "kernel")  # (H, D, hidden)
+        out[f"{name}.bias"] = p.get(*path, name, "bias",
+                                    shape=heads).reshape(-1)
+    kernel = p.get(*path, "out", "kernel", shape=(*heads, hidden))
     out["out.weight"] = kernel.reshape(-1, kernel.shape[-1]).T
     out["out.bias"] = p.get(*path, "out", "bias")
     return out
@@ -130,7 +148,10 @@ def _blocks(module, p, s, path) -> dict:
 
 
 def _vit(module, p, s, path) -> dict:
-    kernel = p.get(*path, "patch_embed", "kernel")  # HWIO
+    size = module.patch_size
+    kernel = p.get(*path, "patch_embed", "kernel", shape=(  # HWIO
+        size, size, module.patch_embed.in_features // size // size,
+        module.hidden_dim))
     return {"patch_embed.weight": kernel.reshape(-1, kernel.shape[-1]).T,
             "patch_embed.bias": p.get(*path, "patch_embed", "bias"),
             "cls_token": p.get(*path, "cls_token"),
@@ -233,45 +254,116 @@ def _converter(model: nn.Module):
 
 
 class _Leaf:
-    """Stands in for a flax leaf in ``flax_paths``: keeps its path through
-    the layout transforms (transpose, reshape) the converters apply."""
+    """Stands in for a flax leaf: its collection (``params`` or
+    ``batch_stats``), its path, its flax shape where the converter states
+    it, and the layout transforms (transpose, reshape) the converter
+    applies on the way to the torch tensor, so that ``to_flax`` can undo
+    them. ``flax_paths`` reads only the path."""
 
-    shape = (0,)  # read by the converters only to feed reshape
+    def __init__(self, root: str, path: tuple, shape: tuple | None = None,
+                 ops: tuple = ()):
+        self.root, self.path, self.shape, self.ops = root, path, shape, ops
 
-    def __init__(self, path: tuple):
-        self.path = path
+    def _then(self, op: tuple, shape) -> "_Leaf":
+        return _Leaf(self.root, self.path, shape, self.ops + (op,))
 
     @property
     def T(self) -> "_Leaf":
-        return self
+        return self._then(("T",), None if self.shape is None
+                          else self.shape[::-1])
 
     def reshape(self, *shape) -> "_Leaf":
-        return self
+        if self.shape is None:
+            raise TypeError(f"{'/'.join(self.path)}: the converter must state "
+                            "the flax shape of a leaf it reshapes")
+        size = int(np.prod(self.shape))
+        known = int(np.prod([d for d in shape if d != -1]))
+        new = tuple(size // known if d == -1 else d for d in shape)
+        return self._then(("reshape", self.shape), new)
 
-    transpose = reshape
+    def transpose(self, *axes) -> "_Leaf":
+        shape = None if self.shape is None \
+            else tuple(self.shape[a] for a in axes)
+        return self._then(("transpose", axes), shape)
+
+    def to_flax(self, value: np.ndarray) -> np.ndarray:
+        """The flax leaf whose converted torch tensor is ``value``."""
+        for op in reversed(self.ops):
+            if op[0] == "T":
+                value = value.T
+            elif op[0] == "reshape":
+                value = value.reshape(op[1])
+            else:
+                value = value.transpose(np.argsort(op[1]))
+        return value
 
 
 class _PathTree:
     """A flax tree of ``_Leaf`` placeholders: ``get`` answers any path."""
 
-    def get(self, *path: str) -> _Leaf:
-        return _Leaf(path)
+    def __init__(self, root: str = "params"):
+        self.root = root
+
+    def get(self, *path: str, shape: tuple | None = None) -> _Leaf:
+        return _Leaf(self.root, path, shape)
+
+
+def _layout(model: nn.Module) -> dict[str, _Leaf]:
+    """``{torch state-dict name: _Leaf}`` of every tensor of ``model``."""
+    return _converter(model)(model, _PathTree("params"),
+                             _PathTree("batch_stats"), ())
 
 
 def flax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
     """``{torch parameter name: flax params path}`` for every parameter
     of ``model`` (buffers such as BatchNorm statistics are not params)."""
-    leaves = _converter(model)(model, _PathTree(), _PathTree(), ())
+    leaves = _layout(model)
     return {name: leaves[name].path for name, _ in model.named_parameters()}
 
 
-def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
-    """Copy flax ``variables`` into ``model`` in place and return it."""
+def _nest(tree: dict, path: tuple, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` of its own (``.numpy()`` of a CPU tensor is a
+    view, which an in-place optimizer step would overwrite)."""
+    if t.dtype == torch.bfloat16:
+        raise TypeError("the train state holds bf16 tensors; the port keeps "
+                        "fp32 parameters and optimizer state")
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _to_flax(leaves: dict[str, _Leaf], tensors: dict) -> dict:
+    """``{"params": .., "batch_stats": ..}`` nested numpy trees of
+    ``tensors`` (torch name -> host array) in the flax layout."""
+    out = {"params": {}, "batch_stats": {}}
+    for name, value in tensors.items():
+        leaf = leaves[name]
+        _nest(out[leaf.root], leaf.path, leaf.to_flax(value))
+    return out
+
+
+def flax_variables(model: nn.Module) -> dict:
+    """The inverse of ``load_flax_variables``: ``{"params": ...,
+    "batch_stats": ...}`` of ``model`` as nested dicts of numpy arrays in
+    the flax layout (host copies of their own)."""
+    return _to_flax(_layout(model), {name: _host(t) for name, t in
+                                     model.state_dict().items()})
+
+
+def _torch_tensors(model: nn.Module, params: dict,
+                   batch_stats: dict) -> dict:
+    """``{torch state-dict name: numpy array}`` converted from flax
+    ``params`` and ``batch_stats``: every flax leaf consumed and every
+    torch tensor filled with its shape, or it raises."""
     convert = _converter(model)
-    params = _Tree(variables["params"], "params")
-    stats = _Tree(variables.get("batch_stats", {}), "batch_stats")
-    tensors = convert(model, params, stats, ())
-    for tree in (params, stats):
+    p_tree = _Tree(params, "params")
+    s_tree = _Tree(batch_stats, "batch_stats")
+    tensors = convert(model, p_tree, s_tree, ())
+    for tree in (p_tree, s_tree):
         unused = tree.leaves() - tree.used
         if unused:
             raise KeyError(f"flax {tree.root} leaves with no torch "
@@ -282,12 +374,137 @@ def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
     if missing:
         raise KeyError(f"torch tensors not covered by the flax variables: "
                        f"{sorted(missing)}")
+    out = {}
+    for key, target in state.items():
+        # np.ascontiguousarray would turn a 0-d leaf into shape (1,)
+        value = np.array(tensors[key], order="C")
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(f"{key}: flax shape {value.shape} vs torch "
+                             f"{tuple(target.shape)}")
+        out[key] = value
+    return out
+
+
+def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
+    """Copy flax ``variables`` into ``model`` in place and return it."""
+    tensors = _torch_tensors(model, variables["params"],
+                             variables.get("batch_stats", {}))
     with torch.no_grad():
-        for key, target in state.items():
-            # np.ascontiguousarray would turn a 0-d leaf into shape (1,)
-            value = np.array(tensors[key], order="C")
-            if tuple(value.shape) != tuple(target.shape):
-                raise ValueError(f"{key}: flax shape {value.shape} vs torch "
-                                 f"{tuple(target.shape)}")
-            target.copy_(torch.from_numpy(value))
+        for key, target in model.state_dict().items():
+            target.copy_(torch.from_numpy(tensors[key]))
     return model
+
+
+# ---------------------------------------------------------------------------
+# The train state in the JAX package's checkpoint layout
+# ---------------------------------------------------------------------------
+
+def _adamw_state(opt, name: str) -> dict:
+    return opt.optimizer.state.get(opt.params[name], {})
+
+
+def train_state_dict(state) -> dict:
+    """The port's ``TrainState`` as the JAX package's ``TrainState``
+    serializes it (``flax.serialization.to_state_dict``): ``{"step",
+    "params", "opt_state", "batch_stats", "ef_residual"}``, nested dicts
+    of numpy arrays, every array a host copy of its own. ``opt_state`` is
+    ``optax.lars``'s chain (``training/lars.py``: masked weight decay,
+    masked trust ratio, the schedule's ``count``, the momentum ``trace``
+    in the params layout) or ``optax.adamw``'s (``ScaleByAdamState``
+    ``count``, ``mu``, ``nu``; the empty weight-decay state; the
+    schedule's ``count``) after the optimizer's type. ``batch_stats`` is
+    None for a model without BatchNorm (CLIP), as the JAX CLIP state
+    leaves it; ``ef_residual`` is None (the float32 wire keeps none)."""
+    model, opt = state.model, state.optimizer
+    leaves = _layout(model)
+    tensors = {name: _host(t) for name, t in model.state_dict().items()}
+    variables = _to_flax(leaves, tensors)
+    count = np.array(opt.count, np.int32)
+    names = [name for name, _ in model.named_parameters()]
+
+    def params_tree(values: dict) -> dict:
+        return _to_flax(leaves, values)["params"]
+
+    if hasattr(opt, "trace"):  # LARS
+        opt_state = {"0": {"inner_state": {}}, "1": {"inner_state": {}},
+                     "2": {"count": count},
+                     "3": {"trace": params_tree(
+                         {n: _host(opt.trace[n]) for n in names})}}
+    else:  # AdamW
+
+        def moment(key: str) -> dict:
+            return params_tree({n: _host(_adamw_state(opt, n).get(
+                key, torch.zeros_like(opt.params[n]))) for n in names})
+
+        opt_state = {"0": {"count": count, "mu": moment("exp_avg"),
+                           "nu": moment("exp_avg_sq")},
+                     "1": {}, "2": {"count": count}}
+    if any(t.is_cuda for t in model.state_dict().values()):
+        torch.cuda.synchronize()  # every copy has landed on the host
+    return {"step": np.array(state.step, np.int32),
+            "params": variables["params"], "opt_state": opt_state,
+            "batch_stats": variables["batch_stats"] or None,
+            "ef_residual": None}
+
+
+def _count(node: dict, where: str) -> int:
+    try:
+        return int(np.asarray(node["count"]))
+    except (KeyError, TypeError) as e:
+        raise KeyError(f"opt_state has no {where} count") from e
+
+
+def load_train_state_dict(state, d: dict):
+    """Load a state dict of the JAX ``TrainState`` layout (as
+    ``train_state_dict`` writes it, or as the JAX package's checkpoints
+    hold it) into the port's ``state`` in place: the model's parameters
+    and BatchNorm statistics, the optimizer's count and momentum (LARS)
+    or moments (AdamW), the step. Every tensor is converted and checked
+    before the first is written, so a state that does not fit raises and
+    leaves ``state`` as it was. Returns ``state``."""
+    model, opt = state.model, state.optimizer
+    stats = d.get("batch_stats") or {}
+    tensors = _torch_tensors(model, d["params"], stats)
+    opt_state = d["opt_state"]
+    names = [name for name, _ in model.named_parameters()]
+
+    def torch_params(tree: dict) -> dict:
+        return _torch_tensors(model, tree, stats)
+
+    if hasattr(opt, "trace"):  # LARS
+        if set(opt_state) != {"0", "1", "2", "3"} \
+                or "trace" not in opt_state["3"]:
+            raise KeyError(f"opt_state {sorted(opt_state)} is not "
+                           "optax.lars's chain")
+        count = _count(opt_state["2"], "schedule")
+        trace = torch_params(opt_state["3"]["trace"])
+        moments = None
+    else:  # AdamW
+        if set(opt_state) != {"0", "1", "2"} or "mu" not in opt_state["0"]:
+            raise KeyError(f"opt_state {sorted(opt_state)} is not "
+                           "optax.adamw's chain")
+        count = _count(opt_state["2"], "schedule")
+        adam_count = _count(opt_state["0"], "ScaleByAdamState")
+        mu = torch_params(opt_state["0"]["mu"])
+        nu = torch_params(opt_state["0"]["nu"])
+        moments = (adam_count, mu, nu)
+    step = int(np.asarray(d["step"]))
+    with torch.no_grad():
+        for key, target in model.state_dict().items():
+            target.copy_(torch.from_numpy(tensors[key]))
+        if moments is None:
+            for n in names:
+                opt.trace[n].copy_(torch.from_numpy(trace[n]))
+        else:
+            adam_count, mu, nu = moments
+            scalar = torch.float64 if torch.get_default_dtype() \
+                == torch.float64 else torch.float32
+            for n in names:
+                p = opt.params[n]
+                opt.optimizer.state[p] = {
+                    "step": torch.tensor(float(adam_count), dtype=scalar),
+                    "exp_avg": torch.from_numpy(mu[n]).to(p.device),
+                    "exp_avg_sq": torch.from_numpy(nu[n]).to(p.device)}
+    opt.count = count
+    state.step = step
+    return state

@@ -2,6 +2,8 @@
 flags, on the CPU (the run of a gloo world of 2 is in
 ``test_torch_distributed.py``)."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -132,16 +134,8 @@ def test_row_ids_and_comms_accounting_without_a_group():
 # to a value other than the JAX default, with the ROADMAP.md item its exit
 # names.
 TRAIN_FLAGS = [
-    (["--ckpt-every", "100"], "Queue A 7"),
-    (["--async-ckpt"], "Queue A 7"),
-    (["--ckpt-keep-last", "5"], "Queue A 7"),
-    (["--ckpt-keep-every", "10"], "Queue A 7"),
-    (["--restore-step", "4"], "Queue A 7"),
-    (["--ckpt-save-ef"], "Queue A 7"),
-    (["--ckpt-mirror", "mirror"], "Queue A 7"),
-    (["--no-ckpt-verify"], "Queue A 7"),
-    (["--chaos", "nan@3"], "Queue A 7"),
-    (["--stall-timeout", "30"], "Queue A 7"),
+    (["--chaos", "nan@3"], r"Queue A 7\(c\)"),
+    (["--stall-timeout", "30"], r"Queue A 7\(c\)"),
     (["--prefetch", "2"], r"Queue A 7\(b\)"),
     (["--lag-metrics"], r"Queue A 7\(b\)"),
     (["--ring-chunks", "4"], r"Queue A 3\(d\)"),
@@ -153,15 +147,13 @@ TRAIN_FLAGS = [
     (["--num-processes", "2"], "Queue A 9"),
     (["--process-id", "1"], "Queue A 9"),
     (["--dcn-slices", "2"], "Queue A 9"),
-    (["--metrics-port", "0"], "Queue A 11"),
-    (["--log-jsonl", "run.jsonl"], "Queue A 11"),
-    (["--trace-dir", "traces"], "Queue A 11"),
-    (["--trace-steps", "3"], "Queue A 11"),
-    (["--slow-step-factor", "2"], "Queue A 11"),
+    (["--metrics-port", "0"], r"Queue A 11\(b\)"),
+    (["--log-jsonl", "run.jsonl"], r"Queue A 11\(b\)"),
+    (["--trace-dir", "traces"], r"Queue A 11\(b\)"),
+    (["--trace-steps", "3"], r"Queue A 11\(b\)"),
+    (["--slow-step-factor", "2"], r"Queue A 11\(b\)"),
 ]
 SERVE_FLAGS = [
-    (["--ckpt-dir", "ckpt"], r"Queue A 7\(a\)"),
-    (["--accum-steps", "2"], r"Queue A 7\(a\)"),
     (["--stem", "space_to_depth", "--image-size", "224"],
      r"Queue A 6\(b\)"),
     (["--adaptive-buckets"], r"Queue A 8\(e\)"),
@@ -199,6 +191,139 @@ def test_reference_flags_parse_and_exit_naming_their_item(command, flags,
         run = cli.build_server
     with pytest.raises(SystemExit, match=f"ROADMAP.md {match}"):
         run(args)
+
+
+def _train_ckpt(tmp_path, *flags, name="ck"):
+    """A tiny run with ``--ckpt-dir tmp_path/name``; returns its state,
+    history and the checkpoint directory."""
+    directory = tmp_path / name
+    args = cli.build_train_parser().parse_args(
+        TINY_ARGV + ["--ckpt-dir", str(directory), *flags])
+    state, history = cli.train(args)
+    return state, history, directory
+
+
+def _steps_on_disk(directory):
+    return sorted(int(p.name) for p in directory.iterdir()
+                  if p.is_dir() and p.name.isdigit())
+
+
+def _manifests(directory):
+    return json.loads((directory / "manifests.json").read_text())
+
+
+def _case_ckpt_every(tmp_path):
+    _, _, d = _train_ckpt(tmp_path, "--steps", "4", "--ckpt-every", "3",
+                          "--ckpt-keep-last", "0")
+    assert _steps_on_disk(d) == [1, 3, 4]  # first save, cadence, the end
+
+
+def _case_async_ckpt(tmp_path):
+    _, _, sync = _train_ckpt(tmp_path, "--steps", "3", "--ckpt-every", "1",
+                             name="sync")
+    _, _, d = _train_ckpt(tmp_path, "--steps", "3", "--ckpt-every", "1",
+                          "--async-ckpt")
+    assert _steps_on_disk(d) == [1, 2, 3]
+    assert _manifests(d) == _manifests(sync)  # the same bytes, written late
+
+
+def _case_ckpt_keep_last(tmp_path):
+    _, _, d = _train_ckpt(tmp_path, "--steps", "4", "--ckpt-every", "1",
+                          "--ckpt-keep-last", "2")
+    assert _steps_on_disk(d) == [3, 4]
+    assert sorted(_manifests(d)) == ["3", "4"]
+
+
+def _case_ckpt_keep_every(tmp_path):
+    _, _, d = _train_ckpt(tmp_path, "--steps", "5", "--ckpt-every", "1",
+                          "--ckpt-keep-last", "1", "--ckpt-keep-every", "2")
+    assert _steps_on_disk(d) == [2, 4, 5]
+
+
+def _case_restore_step(tmp_path):
+    _train_ckpt(tmp_path, "--steps", "4", "--ckpt-every", "1",
+                "--ckpt-keep-last", "0")
+    state, history, d = _train_ckpt(tmp_path, "--steps", "3", "--ckpt-every",
+                                    "1", "--ckpt-keep-last", "0",
+                                    "--restore-step", "1")
+    # resumed at 1, the steps after it deleted, the replay saved 2 and 3
+    assert [h["step"] for h in history] == [2, 3] and state.step == 3
+    assert _steps_on_disk(d) == [1, 2, 3]
+
+
+def _case_ckpt_save_ef(tmp_path):
+    from ntxent_tpu_torch.utils import msgpack
+
+    _, _, d = _train_ckpt(tmp_path, "--ckpt-save-ef")
+    tree = msgpack.from_bytes((d / "2" / "state.msgpack").read_bytes())
+    assert tree["ef_residual"] is None  # the float32 wire keeps none
+
+
+def _case_ckpt_mirror(tmp_path):
+    mirror = tmp_path / "mirror"
+    _, _, d = _train_ckpt(tmp_path, "--ckpt-mirror", str(mirror))
+    assert _steps_on_disk(mirror) == _steps_on_disk(d) == [1, 2]
+    assert _manifests(mirror) == _manifests(d)
+
+
+def _case_no_ckpt_verify(tmp_path):
+    _, _, d = _train_ckpt(tmp_path, "--no-ckpt-verify")
+    assert _steps_on_disk(d) == [1, 2]
+    assert not (d / "manifests.json").exists()
+
+
+def _serve(tmp_path, *flags):
+    args = cli.build_serve_parser().parse_args(
+        ["--device", "cpu", "--model", "tiny", "--port", "0", "--image-size",
+         "8", "--proj-hidden-dim", "16", "--proj-dim", "8", "--no-warmup",
+         *flags])
+    return cli.build_server(args)
+
+
+def _case_serve_ckpt_dir(tmp_path):
+    with pytest.raises(SystemExit, match="no checkpoint under"):
+        _serve(tmp_path, "--ckpt-dir", str(tmp_path / "empty"))
+    state, _, d = _train_ckpt(tmp_path)
+    server = _serve(tmp_path, "--ckpt-dir", str(d))
+    want = state.model.state_dict()
+    for name, value in server.engine.model.state_dict().items():
+        torch.testing.assert_close(value, want[name], rtol=0, atol=0)
+
+
+def _case_serve_accum_steps(tmp_path):
+    _, _, d = _train_ckpt(tmp_path)
+    server = _serve(tmp_path, "--ckpt-dir", str(d), "--accum-steps", "2")
+    out = server.engine.embed(np.zeros((2, 8, 8, 3), np.float32))
+    assert out.shape == (2, 256) and np.isfinite(out).all()  # features
+
+
+# The checkpoint flags each JAX parser takes, now ported: each case runs
+# the flag and checks what it does.
+CKPT_FLAG_CASES = {
+    "train_--ckpt-every": _case_ckpt_every,
+    "train_--async-ckpt": _case_async_ckpt,
+    "train_--ckpt-keep-last": _case_ckpt_keep_last,
+    "train_--ckpt-keep-every": _case_ckpt_keep_every,
+    "train_--restore-step": _case_restore_step,
+    "train_--ckpt-save-ef": _case_ckpt_save_ef,
+    "train_--ckpt-mirror": _case_ckpt_mirror,
+    "train_--no-ckpt-verify": _case_no_ckpt_verify,
+    "serve_--ckpt-dir": _case_serve_ckpt_dir,
+    "serve_--accum-steps": _case_serve_accum_steps,
+}
+
+
+@pytest.mark.parametrize("case", sorted(CKPT_FLAG_CASES))
+def test_checkpoint_flags_do_their_job(case, tmp_path, monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    CKPT_FLAG_CASES[case](tmp_path)
+
+
+def test_restore_step_without_a_checkpoint_dir_exits():
+    args = cli.build_train_parser().parse_args(TINY_ARGV + ["--restore-step",
+                                                            "2"])
+    with pytest.raises(SystemExit, match="--restore-step needs --ckpt-dir"):
+        cli.train(args)
 
 
 def test_every_flag_of_the_jax_parsers_parses_here():

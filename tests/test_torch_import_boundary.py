@@ -2,6 +2,8 @@
 
 ``ntxent_tpu_torch`` and ``chip_smoke.py`` must run on a machine with no
 JAX: they keep their own copies of what they need from ``ntxent_tpu``.
+That machine has no ``msgpack`` (nor ``ml_dtypes``) either: the port
+encodes flax's checkpoint format itself (``utils/msgpack.py``).
 A fresh interpreter imports the port's entry modules and checks what got
 loaded; a static scan of every source checks what could be.
 """
@@ -17,7 +19,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "ntxent_tpu_torch"
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "ntxent_tpu")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "ntxent_tpu",
+                   "msgpack", "ml_dtypes")
 
 
 def _forbidden(module: str) -> bool:
@@ -30,7 +33,9 @@ def _forbidden(module: str) -> bool:
 def test_prefix_rule():
     assert _forbidden("ntxent_tpu") and _forbidden("ntxent_tpu.serving")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert _forbidden("msgpack") and _forbidden("msgpack.fallback")
     assert not _forbidden("ntxent_tpu_torch")
+    assert not _forbidden("ntxent_tpu_torch.utils.msgpack")
     assert not _forbidden("ntxent_tpu_torch.serving.engine")
 
 
@@ -91,4 +96,6 @@ def test_scan_sees_every_module():
             "parallel/__init__.py", "parallel/mesh.py",
             "parallel/dist_loss.py", "parallel/pair.py",
             "parallel/ring_attention.py", "parallel/ring.py",
-            "models/long_context.py", "models/layers.py"} <= names
+            "models/long_context.py", "models/layers.py",
+            "training/checkpoint.py", "training/preemption.py",
+            "utils/msgpack.py"} <= names

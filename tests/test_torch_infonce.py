@@ -56,7 +56,10 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("n,d", [(8, 32), (64, 32), (100, 32), (8, 512),
-                                 (64, 512), (100, 512), (1536, 512)])
+                                 (64, 512), (100, 512), (1536, 512),
+                                 # the wide embeddings of CLIP ViT-L/14 and
+                                 # a D that is no multiple of 32
+                                 (64, 768), (40, 1000)])
 def test_info_nce_fused_matches_jax(n, d):
     za, zb = _pair(n, d, seed=n + d)
     want_loss, want = _jax_loss_and_grads(za, zb, SCALE)
@@ -159,9 +162,12 @@ def test_input_checks():
         I.infonce_dual_bwd(za, za, torch.tensor(1.0), torch.zeros(5),
                            torch.zeros(6))
     # what only the CUDA kernels refuse
-    with pytest.raises(ValueError, match="D <= 512"):
-        I._check_kernel_input(torch.zeros(4, 513), torch.zeros(4, 513),
+    # any width from 1 to the grid's limit, wide CLIP embeddings included
+    with pytest.raises(ValueError, match="D = 0"):
+        I._check_kernel_input(torch.zeros(4, 0), torch.zeros(4, 0),
                               torch.tensor(1.0))
+    I._check_kernel_input(torch.zeros(4, 1024), torch.zeros(4, 1024),
+                          torch.tensor(1.0))
     with pytest.raises(TypeError):
         I._check_kernel_input(torch.zeros(4, 8, dtype=torch.float16),
                               torch.zeros(4, 8, dtype=torch.float16),

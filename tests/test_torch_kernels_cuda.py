@@ -74,10 +74,12 @@ BWD_ATOL = {"float32": dict(dq=1e-4, dkv=1e-4),
 # (2N, D): the training path's shape, the north-star global batch, and a
 # ragged 2N with D != 2B.
 NTX_SHAPES = [(512, 128), (8192, 128), (1000, 96)]
-# Embedding widths at the edges of the kernels' range (1 <= D <= 512): D
-# padded to 32 with zeros, D = 256 in two chunks of the backward, and
-# D = 288 and 512, where the fp32 row tile streams through the ring.
-NTX_EDGE_DIMS = [1, 5, 256, 288, 512]
+# Embedding widths: D padded to 32 with zeros, D = 256 in two chunks of
+# the backward, D = 288 and 512, where the fp32 row tile streams through
+# the ring, and the wide D of CLIP ViT-L/14 (768) and ViT-H/14 (1024) and
+# a D that is no multiple of 32 (1000), where the bf16 row tile streams
+# too and a backward walks 6-8 chunks of D.
+NTX_EDGE_DIMS = [1, 5, 256, 288, 512, 768, 1000, 1024]
 TF32_CONTROL_FACTOR = 10
 # (R, C, D) of the general kernels: one rank's strip of a 4-card world at
 # global batch 256 and at 4096, and a ragged shape with D != 2B.
@@ -1252,17 +1254,19 @@ def test_cuda_general_ntxent_backward_takes_every_width(d):
 
 
 @pytest.mark.cuda
-def test_cuda_tf32_walks_refuse_d_over_512():
+def test_cuda_tf32_walks_raise_past_the_grid_width():
+    """Any D up to N.MAX_WIDTH runs (the backward grid's 65535 chunks of
+    128); a wider z raises, naming the width, before any launch."""
     dev = _cuda()
-    z = _unit_rows(64, 513, seed=0, device=dev)
-    gid = torch.arange(64, device=dev)
-    lse = torch.zeros(64, device=dev)
+    z = torch.zeros(2, N.MAX_WIDTH + 1, device=dev)
+    gid = torch.arange(2, device=dev)
+    lse = torch.zeros(2, device=dev)
     for call in (lambda: N.ntxent_fwd(z, 0.1),
                  lambda: N.ntxent_bwd_sym(z, lse, 0.1),
                  lambda: N.ntxent_fwd_general(z, z, gid, 0.1),
                  lambda: N.ntxent_bwd_general_rows(z, z, gid, lse, 0.1),
                  lambda: N.ntxent_bwd_general_cols(z, z, gid, lse, 0.1)):
-        with pytest.raises(ValueError, match="D <= 512"):
+        with pytest.raises(ValueError, match=f"D = {N.MAX_WIDTH + 1}"):
             call()
 
 

@@ -62,8 +62,9 @@ from test_torch_flash_attention import _flat as _flat_bhld
 from test_torch_flash_attention import _inputs as _attn_inputs
 
 # (2N, D): 2N a multiple of neither the JAX tiles (8 x 128) nor the CUDA
-# tiles (32 x 64), and D != 2B (SURVEY D7).
-SHAPES = [(100, 96), (300, 40)]
+# tiles (32 x 64), and D != 2B (SURVEY D7); then the wide projections of
+# ``train --proj-dim 768`` and ``1000`` (the kernels take any D).
+SHAPES = [(100, 96), (300, 40), (64, 768), (40, 1000)]
 BR, BC = 8, 128
 NTX_TOL = dict(lse=2e-5, loss=2e-5, grad=1e-5)
 BWD_TOL = {"float32": dict(dq=1e-5, dkv=1e-5),
@@ -179,6 +180,16 @@ def test_oracles_match_jax(name):
                     (got if isinstance(got, tuple) else (got,))):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
                                    atol=2e-5, rtol=1e-5)
+
+
+def test_kernel_input_check_takes_any_width():
+    """What the CUDA wrappers check before a launch: any D from 1 to the
+    grid's limit (wide projections included), nothing past it."""
+    for d in (1, 513, 768, 1000, 1024):
+        tntx._check_kernel_input(torch.zeros(4, d))
+    for d in (0, tntx.MAX_WIDTH + 1):
+        with pytest.raises(ValueError, match=f"D = {d}"):
+            tntx.check_width(d, "NT-Xent")
 
 
 def test_odd_row_count_is_rejected():

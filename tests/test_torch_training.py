@@ -452,7 +452,8 @@ def test_train_cli_defaults_match_the_jax_cli():
     ["--objective", "clip", "--remat"],
     ["--dataset", "npy"],
     ["--parallel", "tp"], ["--fsdp"], ["--remat"], ["--accum-steps", "2"],
-    ["--ckpt-dir", "ck"], ["--nan-policy", "skip"], ["--moe-experts", "4"],
+    ["--stall-timeout", "5"], ["--nan-policy", "skip"],
+    ["--moe-experts", "4"],
     ["--max-restarts", "1"], ["--dp-loss", "chunked"],
     ["--collective-dtype", "int8"]], ids=lambda f: f[0])
 def test_train_cli_names_the_roadmap_item_for_unported_flags(flags):
