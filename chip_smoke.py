@@ -233,6 +233,28 @@ Phases; any failure ends the run with a non-zero exit and no result:
    valid one, and the relaunch at the uninterrupted step-6 CRC; CLIP
    ViT-B/16 and (after 12) data-parallel ResNet-50 at world 1 resumed
    (2 + 1 steps against 3, CRC for CRC);
+12n. training resilience (after 12m, in its temporary directory): [guard]
+   a guarded SimCLR ViT-B/16 step at scale 1 equal bit for bit to the
+   plain step (params CRC), a NaN batch leaving parameters, momentum,
+   count and running statistics bit for bit with the step advanced and
+   step_ok false, 3 guarded steps back to back against 3 plain ones (the
+   per-step sync's ms), 1/1/12/12/12 launches a step for both, and
+   ``train --nan-policy backoff --chaos nan@2,nan@3 --steps 5`` backing
+   off to scale 0.5 with finite parameters; [remat] 2 SimCLR steps with
+   ``--remat`` against the plain ones (loss and params equal, or within
+   1e-6 of their largest magnitude; #11 24 a step, the rest unchanged;
+   step ms and peak memory of both) and (after 12) data-parallel
+   ResNet-50 at world 1 with ``--remat`` (the running statistics as the
+   plain run's); [accum] SimCLR and CLIP ViT-B/16 ``--accum-steps 2``, 3
+   steps saved mid-accumulation and relaunched to 4, equal to the
+   uninterrupted run by the state's CRC32; [supervise] run A's flags
+   with ``--max-restarts 1 --chaos crash@5,truncate@1``: a crash, a
+   restore past the truncated step 4 to step 2, run A's step-6 CRC;
+   [crash-audit] ``resilience.crashsim.CrashAudit`` of the single-card
+   ResNet-50 path at 224 px and batch 256 (children of ``python -m
+   ntxent_tpu_torch.cli train``, one at a time): 2 SIGKILLs, one inside
+   a save, no torn step, the survivor's final checkpoint equal to the
+   reference run's;
 13. one JSON line describing each kernel of the paths (with each loss
    kernel's D = 1024 times and each flash kernel's fp32 times);
 14. the last line: ``{"ok": true, "device": {...}}``.
@@ -610,6 +632,46 @@ RESUME_STEPS, RESUME_EVERY, RESUME_KEEP, RESUME_FIRST = 6, 2, 2, 2
 PREEMPT_AFTER = 2
 PAIR_STEPS, PAIR_FIRST = 3, 2
 CHILD_TIMEOUT_S = 420
+
+# Training resilience, at the SimCLR path's width (TRAIN_ARGV) unless
+# named. Guard: a guarded step at scale 1 and the plain step from the same
+# state and batch are equal bit for bit; a NaN batch leaves the
+# parameters, the momentum, the count and the running statistics bit for
+# bit, advances the step and reports step_ok false; rounds of
+# GUARD_TIMED_STEPS steps back to back, plain and guarded in the order
+# GUARD_ROUNDS (the plain ones queue without a host sync), time the
+# guard's per-step sync; then the CLI with GUARD_CHAOS backs off to scale
+# 0.5 and ends finite. Remat: REMAT_STEPS steps with --remat against the
+# plain step from the same state and batches, each timed (the first
+# holds first-call costs); the loss and parameters equal, or (should
+# cuBLAS pick another algorithm for the recompute) within REMAT_RTOL of
+# the largest magnitude; the recompute runs the attention forward again
+# (REMAT_STEP_LAUNCHES). The data-parallel ResNet-50 (DP_ARGV at world
+# 1) --remat for REMAT_DP_STEPS steps: the running statistics as the
+# plain run's, by the same rule. Accumulation:
+# --accum-steps ACCUM_K, ACCUM_FIRST steps saved (the last save on an odd
+# micro-step) and relaunched to ACCUM_STEPS, against an uninterrupted
+# ACCUM_STEPS-step run's state by the CRC32 of its msgpack bytes, SimCLR
+# and CLIP. Supervisor: run A's flags of [resume] plus SUPERVISE_FLAGS:
+# the crash at batch 5 restarts the run, truncate@1 corrupts step 4, the
+# restore falls back to step 2, and the run ends at run A's step-6 CRC.
+# Crash audit: AUDIT_KILLS SIGKILLed children of the single-card
+# ResNet-50 SimCLR path at BASELINE.json configs[1]'s width (#1, #5,
+# cuDNN), the first AUDIT_MIDSAVE inside a save, one child at a time
+# (each holds ~35 GiB); no torn step, the survivor equal to the
+# reference run's step-AUDIT_STEPS checkpoint.
+GUARD_TIMED_STEPS = 8
+GUARD_ROUNDS = ("plain", "guarded", "guarded", "plain")
+GUARD_CHAOS = ["--steps", "5", "--nan-policy", "backoff", "--chaos",
+               "nan@2,nan@3"]
+REMAT_STEPS, REMAT_DP_STEPS = 6, 2
+REMAT_RTOL = 1e-6
+REMAT_STEP_LAUNCHES = dict(STEP_LAUNCHES, flash_attention_fwd=24)
+ACCUM_K, ACCUM_FIRST, ACCUM_STEPS = 2, 3, 4
+SUPERVISE_FLAGS = ["--max-restarts", "1", "--chaos", "crash@5,truncate@1"]
+AUDIT_STEPS, AUDIT_KILLS, AUDIT_MIDSAVE = 6, 2, 1
+AUDIT_MODEL = dict(model="resnet50", image_size=224, batch=256,
+                   device="cuda")
 
 # The long-context slice. Fold kernel (#12) cases: (name, (BH, Lq, Lk,
 # D), dtype, causal, q_offset, k_offsets of consecutive folds). Against
@@ -4585,6 +4647,408 @@ def phase_serve_ckpt(directory: str, state) -> None:
           f"{time.monotonic() - t0:.1f} s", flush=True)
 
 
+class _LogTap:
+    """Collect the messages of every log record emitted inside the block
+    (the supervisor's, the guard's and the checkpoint manager's)."""
+
+    def __enter__(self):
+        import logging
+
+        self.messages = []
+        self._handler = logging.Handler()
+        self._handler.emit = lambda r: self.messages.append(r.getMessage())
+        root = logging.getLogger()
+        self._level = root.level
+        root.setLevel(min(self._level or logging.INFO, logging.INFO))
+        root.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        root = logging.getLogger()
+        root.removeHandler(self._handler)
+        root.setLevel(self._level)
+
+    def having(self, *parts: str) -> list[str]:
+        return [m for m in self.messages if all(p in m for p in parts)]
+
+
+def _state_crc(state) -> list:
+    """[size, crc32] of the state.msgpack a save of ``state`` would write
+    (the bytes the manifests record), computed in memory."""
+    import zlib
+
+    from ntxent_tpu_torch.training.checkpoint import snapshot_state
+    from ntxent_tpu_torch.utils import msgpack
+
+    size, crc = 0, 0
+
+    def write(piece):
+        nonlocal size, crc
+        size += len(piece)
+        crc = zlib.crc32(piece, crc)
+
+    msgpack.pack(snapshot_state(state).state_dict, write)
+    return [size, crc]
+
+
+def _params_crc(model) -> int:
+    import zlib
+
+    crc = 0
+    for p in model.parameters():
+        crc = zlib.crc32(p.detach().float().cpu().numpy().tobytes(), crc)
+    return crc
+
+
+def _tensors(state) -> list:
+    """Clones of the parameters, the momentum and the running statistics."""
+    from ntxent_tpu_torch.models import BatchNorm
+
+    out = [p.detach().clone() for p in state.model.parameters()]
+    out += [t.clone() for t in state.optimizer.trace.values()]
+    return out + [b.clone() for m in state.model.modules()
+                  if isinstance(m, BatchNorm)
+                  for b in (m.running_mean, m.running_var)]
+
+
+def _max_rel(got, want) -> float:
+    """The largest |a - b| over the largest |b| across tensor pairs."""
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    scale = max(float(b.float().abs().max()) for b in want)
+    return err / max(scale, 1e-30)
+
+
+def _simclr_setup(argv):
+    """(args, two states from the same weights of seed 0, batches) of the
+    SimCLR path at ``argv``'s width on the card."""
+    import copy
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.training import create_train_state
+
+    args = cli.build_train_parser().parse_args(argv)
+    args.image_size = args.image_size or 32
+    cfg = cli._train_config(args)
+    model = cli.build_model(args)
+    device = torch.device(args.device)
+    states = [create_train_state(copy.deepcopy(model), cfg, device),
+              create_train_state(model, cfg, device)]
+    return args, cfg, states, cli._synthetic_pipeline(args, device)
+
+
+def phase_guard(card_line: str) -> dict:
+    """The divergence guard on the SimCLR path; returns the guarded
+    step's launches a step."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.training import make_train_step
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    t0 = time.monotonic()
+    args, cfg, (plain, guarded), pipe = _simclr_setup(TRAIN_ARGV)
+    batches = [next(pipe) for _ in range(1 + GUARD_TIMED_STEPS)]
+    pstep = make_train_step(cfg.temperature)
+    gstep = make_train_step(cfg.temperature, guard=True)
+    plain, pm = pstep(plain, *batches[0])
+    guarded, gm = gstep(guarded, *batches[0], 1.0)
+    crcs = (_params_crc(plain.model), _params_crc(guarded.model))
+    # the guarded step's metrics are host copies: compare the values
+    if crcs[0] != crcs[1] or float(pm["loss"]) != float(gm["loss"]) \
+            or not bool(gm["step_ok"]):
+        fail(f"guarded step at scale 1: params crc32 {crcs[1]:#010x}, loss "
+             f"{float(gm['loss'])}; the plain step's {crcs[0]:#010x}, "
+             f"{float(pm['loss'])}")
+    before, count, step = _tensors(guarded), guarded.optimizer.count, \
+        guarded.step
+    v1, v2 = batches[1]
+    guarded, nm = gstep(guarded, torch.full_like(v1, float("nan")), v2, 1.0)
+    kept = all(torch.equal(a, b) for a, b in zip(_tensors(guarded), before))
+    if bool(nm["step_ok"]) or not kept or guarded.optimizer.count != count \
+            or guarded.step != step + 1:
+        fail(f"a NaN batch: step_ok {bool(nm['step_ok'])}, state kept bit "
+             f"for bit {kept}, count {guarded.optimizer.count} (was {count}),"
+             f" step {guarded.step} (was {step})")
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    runs = {"plain": [pstep, plain, ()], "guarded": [gstep, guarded, (1.0,)]}
+    ms = {"plain": [], "guarded": []}
+    for name in GUARD_ROUNDS:
+        step_fn, state, extra = runs[name]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for batch in batches[1:]:
+            state, metrics = step_fn(state, *batch, *extra)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t) * 1e3 / GUARD_TIMED_STEPS)
+        runs[name][1] = state
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            fail(f"the {name} steps' loss {loss}")
+    plain, guarded = runs["plain"][1], runs["guarded"][1]
+    steps = len(GUARD_ROUNDS) * GUARD_TIMED_STEPS
+    launches = {n: w.launches for n, w in counters.items()}
+    want = {n: STEP_LAUNCHES.get(n, 0) * steps for n in counters}
+    if launches != want:
+        fail(f"guard: launches over {steps} plain and guarded steps "
+             f"{launches}, expected {want}")
+    mean = {n: sum(v) / len(v) for n, v in ms.items()}
+    # the host time of one LARS update's launches, which both steps queue
+    # behind the backward (the guarded one reads ok after queueing it)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    guarded.optimizer.step()
+    lars_host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    del plain, guarded, batches
+    torch.cuda.empty_cache()
+    print(f"[guard] ViT-B/16 batch {args.batch}: a guarded step at scale 1 "
+          f"equals the plain step (params crc32 {crcs[0]:#010x}, loss "
+          f"{float(pm['loss']):.6f}); a NaN batch kept the parameters, "
+          f"momentum, count {count} and running statistics bit for bit, "
+          f"step {step} -> {step + 1}, step_ok false, grad_norm "
+          f"{float(nm['grad_norm'])}; rounds of {GUARD_TIMED_STEPS} steps "
+          f"back to back, {'/'.join(GUARD_ROUNDS)}: ms a step plain "
+          f"{'/'.join(f'{v:.3f}' for v in ms['plain'])}, guarded "
+          f"{'/'.join(f'{v:.3f}' for v in ms['guarded'])}; mean plain "
+          f"{mean['plain']:.3f}, guarded {mean['guarded']:.3f} "
+          f"({mean['guarded'] - mean['plain']:+.3f} ms, "
+          f"{100 * (mean['guarded'] / mean['plain'] - 1):+.2f}%: the "
+          f"per-step host sync, host clock; one LARS update's launches take "
+          f"{lars_host_ms:.3f} ms of host); launches a step "
+          f"{ {n: c // steps for n, c in launches.items() if c} }"
+          f" for both on {card_line}", flush=True)
+    with _LogTap() as tap:
+        state, history = cli.train(cli.build_train_parser().parse_args(
+            _with_flags(TRAIN_ARGV, *GUARD_CHAOS[:2]) + GUARD_CHAOS[2:]))
+    backoffs = tap.having("scale backed off to 0.5")
+    skips = tap.having("divergence guard: non-finite step")
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state.model.parameters())
+    if state.step != 5 or not backoffs or len(skips) != 2 or not finite:
+        fail(f"train {' '.join(GUARD_CHAOS)}: step {state.step}, skips "
+             f"{skips}, backoff {backoffs}, finite params {finite}")
+    print(f"[guard] train {' '.join(GUARD_CHAOS)}: 2 steps skipped, then "
+          f"'{backoffs[0]}'; losses "
+          f"{[round(h['loss'], 4) for h in history]}, every parameter "
+          f"finite; phase {time.monotonic() - t0:.1f} s", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return {n: c // steps for n, c in launches.items()}
+
+
+def phase_remat(card_line: str) -> dict:
+    """--remat against the plain step on the SimCLR path; returns the
+    remat step's launches a step."""
+    import torch
+
+    from ntxent_tpu_torch.training import make_train_step
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    t0 = time.monotonic()
+    args, cfg, states, pipe = _simclr_setup(TRAIN_ARGV)
+    batches = [next(pipe) for _ in range(REMAT_STEPS)]
+    counters = launch_counters()
+    runs = {}
+    for remat, state in zip((False, True), states):
+        step = make_train_step(cfg.temperature, remat=remat)
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # neither run inherits the other's blocks
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for batch in batches:
+            t = time.perf_counter()
+            state, metrics = step(state, *batch)
+            losses.append(metrics["loss"].clone())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        runs[remat] = dict(
+            losses=losses, ms=ms, peak=torch.cuda.max_memory_allocated(),
+            params=[p.detach() for p in state.model.parameters()],
+            launches={n: w.launches for n, w in counters.items()})
+    want = {n: REMAT_STEP_LAUNCHES.get(n, 0) * REMAT_STEPS for n in counters}
+    if runs[True]["launches"] != want:
+        fail(f"remat: launches over {REMAT_STEPS} steps "
+             f"{runs[True]['launches']}, expected {want}")
+    pairs = list(zip(runs[True]["losses"] + runs[True]["params"],
+                     runs[False]["losses"] + runs[False]["params"]))
+    exact = all(torch.equal(a, b) for a, b in pairs)
+    rel = 0.0 if exact else _max_rel(*zip(*pairs))
+    if rel > REMAT_RTOL:
+        fail(f"remat: loss and params {rel:.3e} of their largest magnitude "
+             f"from the plain step's (gate {REMAT_RTOL:g})")
+    warm = {r: runs[r]["ms"][1:] for r in runs}
+    warm = {r: sum(v) / len(v) for r, v in warm.items()}
+    print(f"[remat] ViT-B/16 batch {args.batch}, {REMAT_STEPS} steps: loss "
+          f"and params {'equal bit for bit' if exact else f'within {rel:.3e}'}"
+          f" of the plain step's (losses "
+          f"{[round(float(x), 6) for x in runs[True]['losses']]}); step ms "
+          f"plain {_ms(runs[False]['ms'])}, remat {_ms(runs[True]['ms'])} "
+          f"(host clock, synchronized; step 1 includes first-call costs); "
+          f"steps 2-{REMAT_STEPS} mean plain {warm[False]:.3f}, remat "
+          f"{warm[True]:.3f} ({100 * (warm[True] / warm[False] - 1):+.2f}%); "
+          f"peak memory plain "
+          f"{runs[False]['peak'] / 2**30:.2f} GiB, remat "
+          f"{runs[True]['peak'] / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated, both states resident); "
+          f"launches a step "
+          f"{ {n: c // REMAT_STEPS for n, c in runs[True]['launches'].items() if c} }"
+          f" on {card_line}; phase {time.monotonic() - t0:.1f} s", flush=True)
+    del states, runs, pairs, batches
+    torch.cuda.empty_cache()
+    return {n: c // REMAT_STEPS for n, c in want.items()}
+
+
+def phase_remat_dp() -> None:
+    """Data-parallel ResNet-50 at world 1 with --remat: the running
+    statistics as the plain run's."""
+    import torch
+
+    from ntxent_tpu_torch import cli
+
+    t0 = time.monotonic()
+    argv = _with_flags(DP_ARGV, "--steps", str(REMAT_DP_STEPS))
+    stats = []
+    for flags in ([], ["--remat"]):
+        state, _ = cli.train(cli.build_train_parser().parse_args(
+            argv + flags), data_parallel=True)
+        stats.append([b.clone() for n, b in state.model.named_buffers()
+                      if "running" in n])
+        del state
+        torch.cuda.empty_cache()
+    exact = all(torch.equal(a, b) for a, b in zip(*stats))
+    rel = 0.0 if exact else _max_rel(stats[1], stats[0])
+    if rel > REMAT_RTOL:
+        fail(f"data-parallel --remat: running statistics {rel:.3e} from the "
+             f"plain run's (gate {REMAT_RTOL:g})")
+    print(f"[remat] data-parallel ResNet-50 (NCCL world 1) --remat, "
+          f"{REMAT_DP_STEPS} steps: {len(stats[0])} running statistics "
+          f"{'equal bit for bit' if exact else f'within {rel:.3e}'} to the "
+          f"plain run's (one update a step); phase "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+
+def phase_accum(tmp: str, card_line: str) -> None:
+    """--accum-steps ACCUM_K resumed mid-accumulation equals the
+    uninterrupted run, SimCLR and CLIP."""
+    import torch
+
+    from ntxent_tpu_torch import cli
+
+    for label, argv in (("SimCLR", TRAIN_ARGV), ("CLIP", CLIP_ARGV)):
+        t0 = time.monotonic()
+        base = _with_flags(argv, "--accum-steps", str(ACCUM_K))
+        state, _ = cli.train(cli.build_train_parser().parse_args(
+            _with_flags(base, "--steps", str(ACCUM_STEPS))))
+        want = _state_crc(state)
+        del state
+        torch.cuda.empty_cache()
+        directory = f"{tmp}/accum_{label}"
+        part, _, stats_1 = _train_ckpt(_ckpt_argv(
+            base, directory, ACCUM_FIRST, every=ACCUM_FIRST, keep=1))
+        mini = part.optimizer.mini_step
+        del part
+        state, hist, stats_2 = _train_ckpt(_ckpt_argv(
+            base, directory, ACCUM_STEPS, every=ACCUM_FIRST, keep=1))
+        got = _manifest_crcs(directory)[ACCUM_STEPS]
+        opt = state.optimizer
+        if mini != ACCUM_FIRST % ACCUM_K or got != want \
+                or [h["step"] for h in hist] != [ACCUM_STEPS] \
+                or opt.gradient_step != ACCUM_STEPS // ACCUM_K:
+            fail(f"{label} --accum-steps {ACCUM_K}: saved at mini_step "
+                 f"{mini}, resumed to step {ACCUM_STEPS} at (size, crc32) "
+                 f"{got}, the uninterrupted run's {want}; gradient_step "
+                 f"{opt.gradient_step}")
+        print(f"[accum] {label} ViT-B/16 batch 256 --accum-steps {ACCUM_K}: "
+              f"{ACCUM_FIRST} steps saved at mini_step {mini}, relaunched to "
+              f"{ACCUM_STEPS} (gradient_step {opt.gradient_step}, inner "
+              f"count {opt.count}): (size, crc32) {got}, equal to the "
+              f"uninterrupted run's; save ms "
+              f"{_ms(stats_1['save_ms'] + stats_2['save_ms'])}, restore ms "
+              f"{_ms(stats_2['restore_ms'])} on {card_line}; phase "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        del state, opt
+        torch.cuda.empty_cache()
+        shutil.rmtree(directory)
+
+
+def phase_supervise(tmp: str, crc_a: dict) -> None:
+    """Run A's flags under the supervisor with SUPERVISE_FLAGS: it ends at
+    run A's step-RESUME_STEPS CRC."""
+    import torch
+
+    t0 = time.monotonic()
+    directory = f"{tmp}/supervise"
+    with _LogTap() as tap:
+        state, _, stats = _train_ckpt(_ckpt_argv(
+            TRAIN_ARGV, directory, RESUME_STEPS) + SUPERVISE_FLAGS)
+    died = tap.having("supervisor: attempt 1/2 died")
+    fallback = tap.having("corrupt in every replica")
+    resumed = tap.having("resumed from checkpoint at step")
+    done = tap.having("run complete at step")
+    if state.step != RESUME_STEPS or not died or not fallback \
+            or resumed != ["resumed from checkpoint at step 2"] or not done:
+        fail(f"supervised run: step {state.step}; logs {died} {fallback} "
+             f"{resumed} {done}")
+    _same_crc("supervised run", crc_a, _manifest_crcs(directory),
+              (RESUME_STEPS,))
+    print(f"[supervise] ViT-B/16 batch 256 {' '.join(SUPERVISE_FLAGS)} "
+          f"--ckpt-every {RESUME_EVERY} --steps {RESUME_STEPS}: attempt 1 "
+          f"died ('{died[0].split(' died')[0]}', ChaosError at batch 5); "
+          f"'{fallback[0]}'; attempt 2 {resumed[0]}; '{done[0]}': step "
+          f"{RESUME_STEPS} equal to run A's by (size, crc32) "
+          f"{crc_a[RESUME_STEPS]}; restore ms {_ms(stats['restore_ms'])}; "
+          f"phase {time.monotonic() - t0:.1f} s", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(directory)
+
+
+def phase_crash_audit(tmp: str, card_line: str) -> None:
+    """CrashAudit of the single-card ResNet-50 SimCLR path on the card, one
+    child process at a time."""
+    import gc
+
+    import torch
+
+    from ntxent_tpu_torch.resilience.crashsim import (
+        CrashAudit,
+        CrashAuditError,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = f"{tmp}/audit"
+    audit = CrashAudit(workdir, steps=AUDIT_STEPS, timeout_s=CHILD_TIMEOUT_S,
+                       **AUDIT_MODEL)
+    try:
+        report = audit.audit(kills=AUDIT_KILLS, midsave=AUDIT_MIDSAVE,
+                             lineages=1, workers=1)
+    except CrashAuditError as e:
+        fail(f"crash audit: {e}")
+    rounds = [(r["kill_at"], r["midsave"], len(r["tmp"]))
+              for r in report.rounds]
+    print(f"[crash-audit] ResNet-50 SimCLR --image-size 224 --batch 256, "
+          f"{AUDIT_STEPS} steps, --ckpt-every 1 --async-ckpt, children of "
+          f"python -m ntxent_tpu_torch.cli train on the card: "
+          f"{report.kills} SIGKILLs (kill step, mid-save, staging dirs) "
+          f"{rounds}, {report.completed_early} runs that ended before their "
+          f"kill, no torn step; survivor {report.survivor_fingerprint} "
+          f"equal to the reference's; {report.elapsed_s} s on {card_line}",
+          flush=True)
+    shutil.rmtree(workdir)
+
+
 def main() -> int:
     import torch
 
@@ -4642,6 +5106,11 @@ def main() -> int:
         phase_preempt(tmp, crc_a)
         shutil.rmtree(dir_a)
         phase_resume_pair(tmp, CLIP_ARGV, "clip")
+        guard_launches = phase_guard(smi)
+        remat_launches = phase_remat(smi)
+        phase_accum(tmp, smi)
+        phase_supervise(tmp, crc_a)
+        phase_crash_audit(tmp, smi)
     from ntxent_tpu_torch.parallel import mesh
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -4652,6 +5121,7 @@ def main() -> int:
                 smi, DP_PAIR_ARGV, DP_PAIR_STEP_LAUNCHES, "dp-pair")
             phase_dp_parity()
             phase_resume_pair(tmp, DP_ARGV, "dp", data_parallel=True)
+            phase_remat_dp()
             clip_dp_launches = phase_clip_dp_train(smi)
             phase_clip_dp_parity()
             twopass_launches = phase_twopass_train(smi)
@@ -4684,6 +5154,9 @@ def main() -> int:
         kernel["tri_launches"] = tri_launches[wrapper]
         kernel["longctx_launches"] = longctx_launches[wrapper]
         kernel["clip_twopass_launches"] = twopass_launches[wrapper]
+        # a step of the SimCLR path guarded, and under --remat
+        kernel["guard_launches"] = guard_launches[wrapper]
+        kernel["remat_launches"] = remat_launches[wrapper]
         kernel |= ring_times.get(wrapper, {})
         kernel |= wide_fields.get(wrapper, {})
         kernel |= flash_fp32.get(wrapper, {})

@@ -39,10 +39,26 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
     ``--batch`` global, each rank its rows of every batch, the dual
     InfoNCE (only the text embeddings gathered), only rank 0 logging.
 
+  Training resilience, on every branch as the JAX CLI has it
+  (``cli.py:949-1140``): ``--remat`` (the forward rebuilt in the
+  backward), ``--accum-steps K`` (an optimizer update every K
+  micro-batches), ``--nan-policy skip|backoff|rollback`` (the guarded
+  step and a ``DivergenceGuard``; SimCLR only: the CLIP steps carry no
+  guard, so CLIP warns and trains without it), ``--stall-timeout S`` (a
+  ``StallWatchdog``), ``--max-restarts N`` and ``--chaos SPEC`` (the run
+  under a ``resilience.supervisor.Supervisor``, restarting in-process
+  from the newest valid checkpoint; a supervised run that does not reach
+  ``--steps`` exits 1). ``--chaos`` injects the plan's faults
+  (``resilience.faults``): into the batches, the synthetic source's
+  reads (retried by the loader), the checkpoint writes and between
+  attempts; a bad spec exits before any device work. Under ``torchrun``
+  every rank holds its own injector, so a batch fault fires on every
+  rank at the same batch.
+
 Every flag of the JAX CLI's ``ntxent-train`` and ``ntxent-serve`` parses
 here. A flag of what is not ported yet (datasets, model parallelism,
-training resilience, observability, the adaptive ladder, the int8
-rung, ...) exits, when set, with a message naming its ROADMAP.md item;
+the input pipeline, observability, the adaptive ladder, the int8 rung,
+...) exits, when set, with a message naming its ROADMAP.md item;
 ``--platform cpu|gpu`` selects ``--device``.
 
 Run: ``python -m ntxent_tpu_torch.cli --model vit_b16 --vit-attention
@@ -60,6 +76,7 @@ ResNet-50 on four cards), ``python -m ntxent_tpu_torch.cli train
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -90,7 +107,13 @@ from .models.vit import (
 )
 from .parallel import mesh
 from .parallel.dist_loss import NOT_PORTED
-from .resilience.retry import RetryPolicy
+from .resilience import (
+    DivergenceGuard,
+    FaultInjector,
+    FaultPlan,
+    RetryPolicy,
+)
+from .resilience.supervisor import Supervisor
 from .serving import EmbeddingServer, InferenceEngine
 from .training import (
     ROADMAP_ITEMS,
@@ -111,6 +134,7 @@ from .training import (
     make_train_step,
 )
 from .utils.capability import device_name, resolve_device
+from .utils.watchdog import StallWatchdog
 
 logger = logging.getLogger(__name__)
 
@@ -377,8 +401,7 @@ def serve_main(argv=None) -> int:
 
 # (dest, the JAX CLI's default, item): train flags that exit when set.
 TRAIN_UNPORTED = [
-    ("chaos", None, "resilience"),
-    ("stall_timeout", None, "resilience"), ("prefetch", 0, "pipeline"),
+    ("prefetch", 0, "pipeline"),
     ("lag_metrics", False, "pipeline"), ("ring_chunks", None, "chunked"),
     ("measure_overlap", False, "chunked"), ("model_par", 2, "mp"),
     ("tp_loss_axes", "data", "mp"), ("moe_aux_weight", 0.01, "mp"),
@@ -456,8 +479,15 @@ def build_train_parser() -> argparse.ArgumentParser:
     t.add_argument("--base-lr", type=float, default=0.3)
     t.add_argument("--weight-decay", type=float, default=1e-6)
     t.add_argument("--warmup-steps", type=int, default=100)
-    t.add_argument("--accum-steps", type=int, default=1)
-    t.add_argument("--remat", action="store_true")
+    t.add_argument("--accum-steps", type=int, default=1,
+                   help="one optimizer update every K micro-batches (the "
+                        "mean of their gradients; negatives stay within a "
+                        "micro-batch)")
+    t.add_argument("--remat", action="store_true",
+                   help="rematerialize the whole encoder-and-head forward "
+                        "in the backward, the span jax.checkpoint wraps: one "
+                        "more forward a step; the recompute rebuilds every "
+                        "activation at once, so peak memory does not fall")
     t.add_argument("--log-every", type=int, default=50)
     t.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
@@ -490,16 +520,28 @@ def build_train_parser() -> argparse.ArgumentParser:
     c.add_argument("--no-ckpt-verify", action="store_true",
                    help="write no CRC manifests (restore can then no longer "
                         "tell a corrupt step)")
-    r = p.add_argument_group("resilience and the input pipeline (not "
-                             "ported)")
-    r.add_argument("--max-restarts", type=int, default=0)
+    r = p.add_argument_group("resilience")
+    r.add_argument("--max-restarts", type=int, default=0,
+                   help="restart in-process from the newest valid "
+                        "checkpoint after a crash, a divergence rollback, "
+                        "SIGTERM or a stall, at most N times")
     r.add_argument("--nan-policy", default="off",
-                   choices=["off", "skip", "backoff", "rollback"])
-    r.add_argument("--chaos", default=None, metavar="SPEC")
+                   choices=["off", "skip", "backoff", "rollback"],
+                   help="skip non-finite steps; backoff also halves the "
+                        "gradient scale after 2 in a row; rollback also "
+                        "restarts after 8 in an attempt (one host sync a "
+                        "step; SimCLR only)")
+    r.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="inject faults, e.g. 'nan@3,crash@5,truncate@1,"
+                        "diskfull@2,fetch@4,sigterm@6,kill@7' (runs "
+                        "supervised)")
     r.add_argument("--stall-timeout", type=float, default=None,
-                   metavar="SECONDS")
-    r.add_argument("--prefetch", type=int, default=0, metavar="DEPTH")
-    r.add_argument("--lag-metrics", action="store_true")
+                   metavar="SECONDS",
+                   help="dump every thread's stack after this long without "
+                        "a step; supervised, also stop and restart")
+    i = p.add_argument_group("input pipeline (not ported)")
+    i.add_argument("--prefetch", type=int, default=0, metavar="DEPTH")
+    i.add_argument("--lag-metrics", action="store_true")
 
     o = p.add_argument_group("observability (not ported)")
     o.add_argument("--metrics-port", type=int, default=None, metavar="PORT")
@@ -546,11 +588,6 @@ def _check_train_args(args) -> None:
         (args.parallel != "dp" or args.fsdp, "--parallel tp / --fsdp", "mp"),
         (clip and args.clip_parallel != "dp", "--clip-parallel tp", "mp"),
         (args.moe_experts > 0, "--moe-experts", "mp"),
-        (args.accum_steps > 1, "--accum-steps", "resilience"),
-        (args.remat, "--remat", "resilience"),
-        (args.max_restarts > 0, "--max-restarts", "resilience"),
-        (args.nan_policy != "off", f"--nan-policy {args.nan_policy}",
-         "resilience"),
     ]
     for hit, flag, item in unported:
         if hit:
@@ -565,23 +602,59 @@ def _check_train_args(args) -> None:
                          "would be silently ignored")
     if args.batch < 1 or args.steps < 1 or args.log_every < 1:
         raise SystemExit("--batch, --steps and --log-every must be positive")
-    if args.ckpt_every < 1:
-        raise SystemExit("--ckpt-every must be positive")
+    if args.ckpt_every < 1 or args.accum_steps < 1:
+        raise SystemExit("--ckpt-every and --accum-steps must be positive")
+    if args.max_restarts < 0:
+        raise SystemExit("--max-restarts must be >= 0")
+    if args.stall_timeout is not None and args.stall_timeout <= 0:
+        raise SystemExit("--stall-timeout must be positive")
     if args.restore_step is not None and args.ckpt_dir is None:
         raise SystemExit("--restore-step needs --ckpt-dir (there is no "
                          "store to restore the named step from)")
 
 
-def _synthetic_pipeline(args, device, rank: int = 0,
-                        world_size: int = 1) -> TwoViewPipeline:
+def _make_injector(args) -> FaultInjector | None:
+    """The ``FaultInjector`` of ``--chaos`` or None; a bad spec exits
+    before any device work (``cli.py:436-448``)."""
+    if not args.chaos:
+        return None
+    try:
+        plan = FaultPlan.parse(args.chaos, seed=args.seed)
+    except ValueError as e:
+        raise SystemExit(f"--chaos: {e}") from None
+    logger.warning("chaos mode: %s", plan)
+    return FaultInjector(plan)
+
+
+def _make_step_guard(nan_policy: str) -> DivergenceGuard | None:
+    """The ``DivergenceGuard`` of ``--nan-policy`` (``cli.py:510-520``);
+    None for ``off``."""
+    if nan_policy == "off":
+        return None
+    if nan_policy == "skip":
+        return DivergenceGuard(backoff_after=None, rollback_after=None)
+    if nan_policy == "backoff":
+        return DivergenceGuard(rollback_after=None)
+    return DivergenceGuard()  # rollback: every tier armed
+
+
+def _synthetic_pipeline(args, device, rank: int = 0, world_size: int = 1,
+                        injector: FaultInjector | None = None
+                        ) -> TwoViewPipeline:
     """``--dataset synthetic`` as the JAX CLI makes it
     (``RandomState(seed).rand``), streamed and augmented on ``device``;
-    rank ``rank`` of ``world_size`` gets its rows of each global batch."""
+    rank ``rank`` of ``world_size`` gets its rows of each global batch.
+    Each source read retries transient errors (``cli.py:560-561``); the
+    ``injector``'s ``fetch@n`` fails them."""
     rng = np.random.RandomState(args.seed)
     source = ArraySource(rng.rand(args.synthetic_samples, args.image_size,
                                   args.image_size, 3).astype(np.float32))
-    loader = StreamingLoader(source, args.batch, seed=args.seed, rank=rank,
-                             world_size=world_size)
+    if injector is not None:
+        source = injector.wrap_source(source)
+    loader = StreamingLoader(
+        source, args.batch, seed=args.seed, rank=rank, world_size=world_size,
+        retry_policy=RetryPolicy(max_attempts=3, base_delay_s=0.1,
+                                 max_delay_s=5.0, seed=args.seed))
     return TwoViewPipeline(loader, device, seed=args.seed + 1)
 
 
@@ -652,7 +725,14 @@ def _clip_config(args) -> TrainerConfig:
     return TrainerConfig(batch_size=args.batch, base_lr=args.base_lr,
                          weight_decay=args.weight_decay,
                          warmup_steps=args.warmup_steps,
-                         total_steps=args.steps)
+                         total_steps=args.steps,
+                         accum_steps=args.accum_steps)
+
+
+def _warn_clip_nan_policy(args) -> None:
+    if args.nan_policy != "off":
+        logger.warning("--nan-policy %s ignored: the CLIP steps carry no "
+                       "in-step divergence guard yet", args.nan_policy)
 
 
 def _clip_label(args) -> str:
@@ -660,17 +740,22 @@ def _clip_label(args) -> str:
             f"{args.token_len} tokens of {args.vocab_size} ids")
 
 
-def _train_clip(args, device, stats):
+def _train_clip(args, device, stats, injector):
     """The CLIP branch of ``train`` (``cli.py:1175``, single device)."""
     images, tokens = _clip_data(args)
-    state = create_clip_train_state(build_clip_model(args),
-                                    _clip_config(args), device)
+    _warn_clip_nan_policy(args)
+
+    def fresh():
+        return create_clip_train_state(build_clip_model(args),
+                                       _clip_config(args), device)
+
     loader = PairedArrayLoader(images, tokens, args.batch, seed=args.seed)
     logger.info("training %s on %s: batch %d, %d steps, peak lr %g",
                 _clip_label(args), device_name(device), args.batch,
                 args.steps, args.base_lr)
-    return _fit(args, state, PairedPipeline(loader, device),
-                make_clip_train_step(), stats, views=1)
+    return _fit(args, fresh(), PairedPipeline(loader, device),
+                make_clip_train_step(remat=args.remat), stats, views=1,
+                state_factory=fresh, injector=injector)
 
 
 def _world_size(args) -> int:
@@ -684,7 +769,7 @@ def _world_size(args) -> int:
     return world
 
 
-def _train_clip_data_parallel(args, stats):
+def _train_clip_data_parallel(args, stats, injector):
     """The data-parallel CLIP branch (``cli.py:1338-1358``, ``--clip-parallel
     dp``): one rank per card (NCCL) or per CPU process (gloo), weights from
     ``--seed`` on every rank, each rank its rows of every global batch,
@@ -694,8 +779,13 @@ def _train_clip_data_parallel(args, stats):
     info = mesh.process_info()
     rank, lead = info["process_index"], info["process_index"] == 0
     images, tokens = _clip_data(args)
-    state = create_clip_train_state(build_clip_model(args),
-                                    _clip_config(args), device)
+    if lead:
+        _warn_clip_nan_policy(args)
+
+    def fresh():
+        return create_clip_train_state(build_clip_model(args),
+                                       _clip_config(args), device)
+
     loader = PairedArrayLoader(images, tokens, args.batch, seed=args.seed,
                                rank=rank, world_size=world)
     if lead:
@@ -705,9 +795,11 @@ def _train_clip_data_parallel(args, stats):
                     _clip_label(args), world,
                     torch.distributed.get_backend(), args.batch, args.steps,
                     args.base_lr)
-    state, history = _fit(args, state, PairedPipeline(loader, device),
-                          make_sharded_clip_train_step(None), stats,
-                          views=1, ranks=world, log=lead)
+    state, history = _fit(args, fresh(), PairedPipeline(loader, device),
+                          make_sharded_clip_train_step(None,
+                                                       remat=args.remat),
+                          stats, views=1, ranks=world, log=lead,
+                          state_factory=fresh, injector=injector)
     if lead:
         _log_final(history)
     return state, history
@@ -722,30 +814,41 @@ def train(args, data_parallel: bool | None = None,
     the environment unless the caller joined one already).
     ``checkpoint_stats`` receives ``fit``'s checkpoint timings."""
     _check_train_args(args)
+    injector = _make_injector(args)
     if args.image_size is None and args.objective != "clip":
         args.image_size = 32
     if data_parallel is None:
         data_parallel = int(os.environ.get("WORLD_SIZE", "1")) > 1
     if data_parallel:
         if args.objective == "clip":
-            return _train_clip_data_parallel(args, checkpoint_stats)
-        return _train_data_parallel(args, checkpoint_stats)
+            return _train_clip_data_parallel(args, checkpoint_stats,
+                                             injector)
+        return _train_data_parallel(args, checkpoint_stats, injector)
     device = resolve_device(args.device)
     if args.objective == "clip":
-        state, history = _train_clip(args, device, checkpoint_stats)
+        state, history = _train_clip(args, device, checkpoint_stats,
+                                     injector)
         _log_final(history)
         return state, history
     if args.dp_loss != "strip":
         logger.warning("--dp-loss %s ignored: single-device run has no "
                        "shard-pair schedule", args.dp_loss)
     cfg = _train_config(args)
-    state = create_train_state(build_model(args), cfg, device)
-    step = make_train_step(cfg.temperature)
+
+    def fresh():
+        return create_train_state(build_model(args), cfg, device)
+
+    step = make_train_step(cfg.temperature, remat=args.remat,
+                           guard=args.nan_policy != "off")
     logger.info("training %s on %s: batch %d, %d steps, peak lr %g",
                 _model_label(args), device_name(device), args.batch,
                 args.steps, cfg.learning_rate)
-    state, history = _fit(args, state, _synthetic_pipeline(args, device),
-                          step, checkpoint_stats)
+    state, history = _fit(args, fresh(),
+                          _synthetic_pipeline(args, device,
+                                              injector=injector),
+                          step, checkpoint_stats, state_factory=fresh,
+                          step_guard=_make_step_guard(args.nan_policy),
+                          injector=injector)
     _log_final(history)
     return state, history
 
@@ -755,7 +858,8 @@ def _train_config(args) -> TrainerConfig:
                          base_lr=args.base_lr,
                          weight_decay=args.weight_decay,
                          warmup_steps=args.warmup_steps,
-                         total_steps=args.steps)
+                         total_steps=args.steps,
+                         accum_steps=args.accum_steps)
 
 
 def _model_label(args) -> str:
@@ -764,7 +868,7 @@ def _model_label(args) -> str:
     return args.model
 
 
-def _train_data_parallel(args, stats):
+def _train_data_parallel(args, stats, injector):
     """The data-parallel branch (``cli.py:824-842``): one rank per card
     (NCCL) or per CPU process (gloo), weights from ``--seed`` on every
     rank, cross-replica BatchNorm, the ``--dp-loss`` schedule (strip or
@@ -774,11 +878,15 @@ def _train_data_parallel(args, stats):
     info = mesh.process_info()
     rank, lead = info["process_index"], info["process_index"] == 0
     cfg = _train_config(args)
-    model = cross_replica_batch_norm(build_model(args),
-                                     torch.distributed.group.WORLD)
-    state = create_train_state(model, cfg, device)
+
+    def fresh():
+        model = cross_replica_batch_norm(build_model(args),
+                                         torch.distributed.group.WORLD)
+        return create_train_state(model, cfg, device)
+
     step = make_sharded_train_step(None, cfg.temperature,
-                                   loss_impl=args.dp_loss)
+                                   loss_impl=args.dp_loss, remat=args.remat,
+                                   guard=args.nan_policy != "off")
     if lead:
         logger.info("topology: %s", info)
         logger.info("training %s data-parallel over %d ranks (%s, %s "
@@ -786,45 +894,100 @@ def _train_data_parallel(args, stats):
                     _model_label(args), world,
                     torch.distributed.get_backend(), args.dp_loss,
                     args.batch, args.steps, cfg.learning_rate)
-    state, history = _fit(args, state,
-                          _synthetic_pipeline(args, device, rank, world),
-                          step, stats, ranks=world, log=lead)
+    state, history = _fit(args, fresh(),
+                          _synthetic_pipeline(args, device, rank, world,
+                                              injector),
+                          step, stats, ranks=world, log=lead,
+                          state_factory=fresh,
+                          step_guard=_make_step_guard(args.nan_policy),
+                          injector=injector)
     if lead:
         _log_final(history)
     return state, history
 
 
 def _fit(args, state, data, step, stats: dict | None, views: int = 2,
-         ranks: int = 1, log: bool = True):
-    """``training.fit`` with the checkpoint flags, under a
-    ``PreemptionGuard`` (``cli.py:1031-1066``): a SIGTERM ends the run at
-    the next step boundary with the stopped step saved, and the run
-    returns normally (the process exits 0)."""
+         ranks: int = 1, log: bool = True, state_factory=None,
+         step_guard: DivergenceGuard | None = None,
+         injector: FaultInjector | None = None):
+    """``training.fit`` with the checkpoint and resilience flags
+    (``cli.py:949-1140``). Without ``--max-restarts`` or ``--chaos``: one
+    ``fit`` under a ``PreemptionGuard`` (a SIGTERM ends the run at the
+    next step boundary with the stopped step saved, and the run returns
+    normally, exit 0), with ``--stall-timeout``'s watchdog when set.
+    Otherwise a ``Supervisor`` runs attempts of ``fit``, each on a fresh
+    state from ``state_factory`` after the first, the data chaos-wrapped
+    when ``injector`` is given; a run that does not reach ``--steps``
+    exits 1."""
     keep_last = args.ckpt_keep_last
-    with PreemptionGuard() as guard:
-        state, history = fit(
-            state, data, step, args.steps, checkpoint_dir=args.ckpt_dir,
-            checkpoint_every=args.ckpt_every, log_every=args.log_every,
-            stop_fn=guard.requested,
-            checkpoint_retry_policy=RetryPolicy(
-                max_attempts=3, base_delay_s=0.5, max_delay_s=10.0,
-                seed=args.seed),
-            checkpoint_verify_writes=not args.no_ckpt_verify,
-            async_checkpointing=args.async_ckpt,
-            checkpoint_keep_last=keep_last if keep_last else None,
-            checkpoint_keep_every=args.ckpt_keep_every,
-            checkpoint_mirror=args.ckpt_mirror,
-            restore_step=args.restore_step, views=views, ranks=ranks,
-            log=log, checkpoint_stats=stats)
-    if guard.preempted and log:
-        if args.ckpt_dir is None:
-            logger.warning("run was preempted at step %d; without "
-                           "--ckpt-dir nothing was saved", state.step)
-        else:
-            logger.warning("run was preempted; checkpoint saved at step %d "
-                           "— relaunch with the same flags to resume",
-                           state.step)
-    return state, history
+    kwargs = dict(
+        checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
+        log_every=args.log_every,
+        checkpoint_retry_policy=RetryPolicy(
+            max_attempts=3, base_delay_s=0.5, max_delay_s=10.0,
+            seed=args.seed),
+        checkpoint_verify_writes=not args.no_ckpt_verify,
+        async_checkpointing=args.async_ckpt,
+        checkpoint_keep_last=keep_last if keep_last else None,
+        checkpoint_keep_every=args.ckpt_keep_every,
+        checkpoint_mirror=args.ckpt_mirror, views=views, ranks=ranks,
+        log=log, checkpoint_stats=stats, step_guard=step_guard,
+        checkpoint_fault_hook=(injector.on_checkpoint_write
+                               if injector is not None else None))
+    if args.max_restarts <= 0 and injector is None:
+        watchdog = (StallWatchdog(timeout_s=args.stall_timeout)
+                    if args.stall_timeout else None)
+        with PreemptionGuard() as guard, \
+                (watchdog or contextlib.nullcontext()):
+            state, history = fit(state, data, step, args.steps,
+                                 stop_fn=guard.requested, watchdog=watchdog,
+                                 restore_step=args.restore_step, **kwargs)
+        if guard.preempted and log:
+            if args.ckpt_dir is None:
+                logger.warning("run was preempted at step %d; without "
+                               "--ckpt-dir nothing was saved", state.step)
+            else:
+                logger.warning("run was preempted; checkpoint saved at "
+                               "step %d — relaunch with the same flags to "
+                               "resume", state.step)
+        return state, history
+
+    if args.ckpt_dir is None and log:
+        logger.warning("supervised run without --ckpt-dir: every restart "
+                       "begins again from step 0 (no checkpoint to resume "
+                       "from)")
+    if injector is not None:
+        data = injector.wrap_iterator(data)
+    # attempt 0 trains the state given (no other reference keeps it
+    # alive); every later attempt a fresh one that fit restores into, so
+    # no tensor of a crashed attempt is reused
+    first, state = [state], None
+
+    def run_attempt(attempt, stop_fn, watchdog):
+        s = first.pop() if first else state_factory()
+        if step_guard is not None:
+            step_guard.reset_attempt()
+        return fit(s, data, step, args.steps, stop_fn=stop_fn,
+                   watchdog=watchdog,
+                   restore_step=args.restore_step if attempt == 0 else None,
+                   **kwargs)
+
+    # only rank 0 corrupts the shared directory between attempts
+    supervisor = Supervisor(
+        run_attempt, num_steps=args.steps,
+        checkpoint_dir=args.ckpt_dir if mesh.rank() == 0 else None,
+        max_restarts=args.max_restarts, stall_timeout_s=args.stall_timeout,
+        injector=injector)
+    result = supervisor.run()
+    if log and injector is not None and injector.fired:
+        logger.info("chaos faults fired: %s", ", ".join(injector.fired))
+    if log and step_guard is not None:
+        logger.info("divergence guard: %s", step_guard.stats)
+    if not result.completed:
+        logger.error("supervised run did NOT reach step %d (restart budget "
+                     "of %d spent)", args.steps, args.max_restarts)
+        raise SystemExit(1)
+    return result.state, result.history
 
 
 def _log_final(history) -> None:

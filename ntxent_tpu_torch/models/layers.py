@@ -20,7 +20,9 @@ explicit ``torch.Generator``: ``init_weights(model, generator)``.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from collections.abc import Callable
 
 import torch
@@ -32,7 +34,7 @@ from ..parallel.mesh import pmean
 
 __all__ = ["AttentionFn", "BatchNorm", "Dense", "LayerNorm",
            "SeqParallelSelfAttention", "cross_replica_batch_norm",
-           "init_weights", "lecun_normal_"]
+           "frozen_running_stats", "init_weights", "lecun_normal_"]
 
 # (q, k, v) -> out, all (B, L, H, D); called with mask= only when given
 AttentionFn = Callable[..., torch.Tensor]
@@ -129,7 +131,8 @@ class BatchNorm(nn.Module):
       over the ranks by a differentiable ``pmean``, so the backward carries
       the cross-rank terms. The running statistics move as flax's do:
       ``running = 0.9 running + 0.1 batch``, the *biased* variance kept
-      (``torch.nn.SyncBatchNorm`` keeps the unbiased one).
+      (``torch.nn.SyncBatchNorm`` keeps the unbiased one). Inside
+      ``frozen_running_stats()`` (a rematerialized forward) they stay.
 
     Both normalize as flax's ``_normalize``: ``(x - mean) * (rsqrt(var +
     eps) * scale) + bias``. ``zero_init`` starts the scale at 0 (the last
@@ -162,21 +165,43 @@ class BatchNorm(nn.Module):
             mean = self._average(xf.mean(dim=axes))
             centered = xf - mean.view(shape)
             var = self._average(centered.square().mean(dim=axes))
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_(
-                    (1.0 - self.momentum) * mean.detach())
-                self.running_var.mul_(self.momentum).add_(
-                    (1.0 - self.momentum) * var.detach())
+            if not getattr(_frozen, "depth", 0):
+                self._update_running(mean, var)
         else:
             var = self.running_var
             centered = xf - self.running_mean.view(shape)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return centered * mul.view(shape) + self.bias.view(shape)
 
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(self.momentum).add_(
+            (1.0 - self.momentum) * mean.detach())
+        self.running_var.mul_(self.momentum).add_(
+            (1.0 - self.momentum) * var.detach())
+
     def _average(self, stat: torch.Tensor) -> torch.Tensor:
         if self.group is None:
             return stat
         return pmean(stat, self.group, op="bn_pmean")
+
+
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Inside the block (on this thread) every ``BatchNorm`` in train mode
+    normalizes with its batch statistics but leaves its running
+    statistics as they are: a rematerialized forward, run again in the
+    backward, must not move them a second time (``jax.checkpoint`` is
+    functional and moves them once)."""
+    depth = getattr(_frozen, "depth", 0)
+    _frozen.depth = depth + 1
+    try:
+        yield
+    finally:
+        _frozen.depth = depth
 
 
 def cross_replica_batch_norm(model: nn.Module, group) -> nn.Module:

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import contextlib
 import threading
 
 import torch
@@ -168,9 +169,24 @@ class CommsAccounting:
     def __init__(self):
         self._lock = threading.Lock()
         self._totals: dict[tuple[str, str], list[float]] = {}
+        self._paused = threading.local()
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Record nothing on this thread inside the block: a
+        rematerialized forward repeats its collectives in the backward,
+        which the JAX shims, recording at trace time, count once."""
+        depth = getattr(self._paused, "depth", 0)
+        self._paused.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._paused.depth = depth
 
     def record(self, op: str, axis: str, nbytes: float,
                calls: int = 1) -> None:
+        if getattr(self._paused, "depth", 0):
+            return
         with self._lock:
             entry = self._totals.setdefault((op, axis), [0, 0.0])
             entry[0] += calls

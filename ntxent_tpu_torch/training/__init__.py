@@ -1,8 +1,10 @@
 """Training of the port: SimCLR (LARS, two-view augmentation) and CLIP
 (AdamW, paired loading), each on one card or data-parallel over ranks,
-seeded loading, the train steps, checkpoints and resume (``fit``,
-``CheckpointManager``, ``AsyncCheckpointer``) and preemption."""
+seeded loading, the train steps (guarded, rematerialized, accumulating:
+``MultiSteps``), checkpoints and resume (``fit``, ``CheckpointManager``,
+``AsyncCheckpointer``) and preemption."""
 
+from .accum import MultiSteps
 from .adamw import AdamW
 from .augment import augment_batch_pair
 from .checkpoint import (
@@ -22,6 +24,7 @@ from .lars import LARS, cosine_warmup_schedule, simclr_learning_rate
 from .preemption import PreemptionGuard
 from .trainer import (
     ROADMAP_ITEMS,
+    StepOutcome,
     TrainerConfig,
     TrainState,
     create_clip_train_state,
@@ -39,12 +42,14 @@ __all__ = [
     "AdamW",
     "AsyncCheckpointer",
     "CheckpointManager",
+    "MultiSteps",
     "PreemptionGuard",
     "RetentionPolicy",
     "ROADMAP_ITEMS",
     "ArraySource",
     "PairedArrayLoader",
     "PairedPipeline",
+    "StepOutcome",
     "StreamingLoader",
     "TrainState",
     "TrainerConfig",

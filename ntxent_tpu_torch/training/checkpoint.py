@@ -39,6 +39,11 @@ sizes and CRC32s. Either package restores the other's steps.
 * ``save`` returns False on a filesystem error (logged) and never raises:
   a skipped checkpoint is recoverable, a dead run is not. A
   ``RetryPolicy`` may wrap the physical write and read.
+* Fault injection: ``fault_hook`` runs at the start of every physical
+  write, on the async writer's thread too (``FaultInjector.
+  on_checkpoint_write``: ``diskfull@n`` raises ENOSPC there), and
+  ``NTXENT_CKPT_SLOW_MS`` sleeps that long after the state file is
+  written, so a crash audit can land a SIGKILL inside a save.
 * The state is replicated on every rank, so a step saved at world P
   restores at world Q by plain placement; the restore logs whether the
   world changed. Only rank 0 writes.
@@ -218,11 +223,22 @@ def _write_state(path: Path, tree) -> list[int]:
     return [size, crc]
 
 
+def _write_delay_s() -> float:
+    """The write throttle ``NTXENT_CKPT_SLOW_MS`` in seconds (0 unset or
+    unreadable)."""
+    try:
+        return max(0.0, float(os.environ.get("NTXENT_CKPT_SLOW_MS", "0"))
+                   ) / 1e3
+    except ValueError:
+        return 0.0
+
+
 class _Backend:
     """The physical store: atomic step directories under ``root``."""
 
-    def __init__(self, root: Path):
+    def __init__(self, root: Path, fault_hook: Callable | None = None):
         self.root = root
+        self.fault_hook = fault_hook
         self.last_write_manifest: tuple[int, dict] | None = None
         self.root.mkdir(parents=True, exist_ok=True)
         self.purge_tmp()
@@ -272,6 +288,8 @@ class _Backend:
              data_state: dict | None = None, force: bool = False) -> bool:
         """Write one step directory atomically; raises OSError on
         filesystem trouble. An existing step stays unless ``force``."""
+        if self.fault_hook is not None:
+            self.fault_hook()
         step = int(step)
         final = self.root / str(step)
         tmp = self.root / _staging_name(step)
@@ -279,6 +297,9 @@ class _Backend:
         try:
             files = {STATE_FILE: _write_state(tmp / STATE_FILE,
                                               snapshot.state_dict)}
+            delay = _write_delay_s()
+            if delay:
+                time.sleep(delay)
 
             def write(name: str, payload: bytes) -> None:
                 with open(tmp / name, "wb") as f:
@@ -326,19 +347,22 @@ class CheckpointManager:
     ``save_interval_steps`` the cadence of ``should_save`` (the first save
     of an empty directory always lands); ``verify_writes`` records the CRC
     manifests; ``mirror_dir`` replicates every step; ``retry_policy``
-    retries the physical write and read on transient errors."""
+    retries the physical write and read on transient errors;
+    ``fault_hook`` runs at the start of each physical write of the
+    primary copy."""
 
     def __init__(self, directory: str | Path, max_to_keep: int | None = 3,
                  save_interval_steps: int = 1, retry_policy=None,
                  verify_writes: bool = True, keep_every: int | None = None,
-                 mirror_dir: str | Path | None = None):
+                 mirror_dir: str | Path | None = None,
+                 fault_hook: Callable | None = None):
         self.directory = Path(directory).absolute()
         self.retry_policy = retry_policy
         self.verify_writes = verify_writes
         self.save_interval_steps = max(1, int(save_interval_steps))
         self.retention = RetentionPolicy(keep_last=max_to_keep,
                                          keep_every=keep_every)
-        self.manager = _Backend(self.directory)
+        self.manager = _Backend(self.directory, fault_hook=fault_hook)
         self.mirror_dir = Path(mirror_dir).absolute() \
             if mirror_dir is not None else None
         self._mirror = _Backend(self.mirror_dir) \

@@ -8,7 +8,9 @@ of ``ntxent_tpu/training/datasets.py`` the single-card training path uses.
   same batches in both packages. ``state()`` is the position of the next
   batch, (epoch, offset). Batches are gathered on the calling thread:
   the threaded read-ahead of the JAX loader is not ported (an in-memory
-  source needs none);
+  source needs none). With ``retry_policy`` each source read is retried
+  on transient errors (``datasets.py:232-250``; the target of the chaos
+  plan's ``fetch@n``);
 * ``TwoViewPipeline``: loader batch -> device -> uint8 to [0, 1] (as at
   ``datasets.py:316-317``) -> two augmented views. The views' generator
   is seeded from (seed, epoch, offset): a seed gives the same views;
@@ -60,10 +62,11 @@ class StreamingLoader:
     epoch after epoch, always whole batches (the remainder of an epoch is
     dropped, as with the JAX loader's default ``drop_remainder=True``).
     With ``world_size`` > 1 it yields rank ``rank``'s rows of each global
-    batch of ``batch_size``."""
+    batch of ``batch_size``. ``retry_policy`` (``resilience.RetryPolicy``)
+    retries each source read; without one a read error propagates."""
 
     def __init__(self, source, batch_size: int, seed: int = 0,
-                 rank: int = 0, world_size: int = 1):
+                 rank: int = 0, world_size: int = 1, retry_policy=None):
         if len(source) < batch_size:
             raise ValueError(f"source of {len(source)} < batch {batch_size}")
         if batch_size % world_size or not 0 <= rank < world_size:
@@ -74,8 +77,15 @@ class StreamingLoader:
         self.seed = seed
         self.local_batch = batch_size // world_size
         self.row_offset = rank * self.local_batch  # first row of this rank
+        self.retry_policy = retry_policy
         self._epoch = 0
         self._offset = 0  # batches already yielded within the epoch
+
+    def _fetch(self, idx: int) -> np.ndarray:
+        """One source read, retried per ``retry_policy``."""
+        if self.retry_policy is None:
+            return self.source[idx]
+        return self.retry_policy.call(self.source.__getitem__, idx)
 
     def state(self) -> dict:
         return {"epoch": self._epoch, "offset": self._offset,
@@ -112,7 +122,7 @@ class StreamingLoader:
     def __iter__(self) -> Iterator[np.ndarray]:
         for idxs in self._indices():
             rows = idxs[self.row_offset:self.row_offset + self.local_batch]
-            yield np.stack([self.source[int(i)] for i in rows])
+            yield np.stack([self._fetch(int(i)) for i in rows])
 
 
 class TwoViewPipeline:

@@ -99,6 +99,7 @@ class LARS:
         self.count = 0
         self.trace = {name: torch.zeros_like(p)
                       for name, p in self.params.items()}
+        self._saved = None  # snapshot()'s buffers
 
     @torch.no_grad()
     def step(self) -> float:
@@ -121,6 +122,26 @@ class LARS:
             p.add_(trace)
         self.count += 1
         return lr
+
+    @torch.no_grad()
+    def snapshot(self) -> tuple:
+        """Copies of what ``step()`` moves (the count, the parameters and
+        the momentum), for ``restore``. One multi-tensor copy into
+        buffers made at the first call, which the next snapshot reuses."""
+        moved = self._moved()
+        if self._saved is None:
+            self._saved = [torch.empty_like(t) for t in moved]
+        torch._foreach_copy_(self._saved, moved)
+        return self.count, self._saved
+
+    @torch.no_grad()
+    def restore(self, snapshot: tuple) -> None:
+        """Put back, bit for bit, what ``snapshot()`` copied."""
+        self.count, saved = snapshot
+        torch._foreach_copy_(self._moved(), saved)
+
+    def _moved(self) -> list[torch.Tensor]:
+        return [*self.params.values(), *self.trace.values()]
 
     def zero_grad(self) -> None:
         for p in self.params.values():

@@ -17,8 +17,8 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   the oracle at temperature ``1 / scale`` on the CPU, as the JAX step
   does;
 * ``make_sharded_train_step(group, temperature, loss_impl="strip")``
-  (``trainer.py:421-427``, without the guard, the int8/bf16 wire or the
-  MoE loss): each rank runs both of its local views through the model in
+  (``trainer.py:421-427``, without the int8/bf16 wire or the MoE
+  loss): each rank runs both of its local views through the model in
   one forward (BatchNorm statistics across ranks once
   ``models.cross_replica_batch_norm`` gave the model the group), the
   data-parallel loss of ``loss_impl`` (``parallel.dist_loss``: ``"strip"``,
@@ -28,7 +28,7 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   gradients are P times its share and their pmean is the gradient of the
   global loss, as under JAX's ``shard_map``;
 * ``make_sharded_clip_train_step(group, loss_impl)`` (``trainer.py:625``,
-  the float32 wire, without remat or the MoE loss): each rank runs both
+  the float32 wire, without the MoE loss): each rank runs both
   towers on its (images, tokens) shard, the InfoNCE body of ``loss_impl``
   (``"dual"``, ``parallel.dist_loss.local_infonce_dual``: only the text
   embeddings are gathered; ``"twopass"``, ``local_infonce_allgather``:
@@ -40,7 +40,9 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   with ``check_vma=False``;
 * ``train_loop``: steps, loss, steps/s and images/s every ``log_every``;
   ``stop_fn`` ends the run at a step boundary, ``step_hook`` runs after
-  every step;
+  every step, ``watchdog`` (``utils.watchdog.StallWatchdog``) is beaten
+  once a step and ``step_guard`` (``resilience.DivergenceGuard``) sees
+  each step's ``StepOutcome``;
 * ``fit`` (``trainer.py:1167``): checkpoint-aware training over
   ``training.checkpoint``: restore the newest valid step (or
   ``restore_step``, newer steps truncated) with the input pipeline's
@@ -49,16 +51,43 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   ``emergency_save`` under async saves). In a process group of more
   than one rank, rank 0 picks the step every rank restores and alone
   writes, a barrier follows its final save, and the ranks agree on a
-  stop (an all-reduce of the flag each step).
+  stop (an all-reduce of the flag each step). A ``DivergenceError`` of
+  the guard leaves ``fit`` without a final save.
 
-Not in this slice (``make_train_step`` raises ``NotImplementedError``
-naming the ROADMAP.md item, and ``cli`` exits on the flags): the
-divergence guard, rematerialization, the MoE auxiliary loss, gradient
-accumulation. ``ROADMAP_ITEMS`` names every such item.
+Training resilience (``trainer.py:52-104``, ``:133-138``, ``:202-224``):
+
+* ``guard=True`` (``make_train_step``, ``make_sharded_train_step``): the
+  step takes a trailing ``scale`` that multiplies the gradients, computes
+  their global norm and ``ok = isfinite(loss) & isfinite(norm)``; a bad
+  step applies no update (parameters, the optimizer's state and count,
+  the BatchNorm running statistics as they were before it) and still
+  advances ``state.step``. Metrics ``grad_norm`` and ``step_ok``. The
+  data-parallel step decides on the pmean'd gradients and the global
+  loss, so every rank decides alike. Reading ``ok`` is one host sync a
+  step (the JAX guard reads its outcome every step too), made after the
+  update is queued: the update runs from a snapshot that a bad step puts
+  back. The unguarded step adds none;
+* ``remat=True`` (all four factories): the whole encoder-and-head
+  forward runs under ``torch.utils.checkpoint`` and again in the
+  backward, the span ``jax.checkpoint`` wraps; the recompute leaves the
+  BatchNorm running statistics alone (``models.layers.
+  frozen_running_stats``) and records no collective a second time
+  (``mesh.CommsAccounting.paused``), so a step moves them once and
+  accounts as the plain step does;
+* ``TrainerConfig.accum_steps`` > 1: the optimizer is
+  ``accum.MultiSteps`` (``optax.MultiSteps``): each train step is one
+  micro-batch, the optimizer steps on the mean of every ``accum_steps``
+  (after the gradient pmean on the data-parallel steps); ``state.step``
+  and the BatchNorm statistics move every micro-step.
+
+Not in this slice (the factories raise ``NotImplementedError`` naming
+the ROADMAP.md item, and ``cli`` exits on the flags): the MoE auxiliary
+loss. ``ROADMAP_ITEMS`` names every such item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -67,14 +96,16 @@ from collections.abc import Callable
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..models.layers import BatchNorm
+from ..models.layers import BatchNorm, frozen_running_stats
 from ..ops import oracle
 from ..ops.infonce import info_nce_fused
 from ..ops.ntxent import ntxent_loss_fused
 from ..parallel.dist_loss import resolve_local_infonce, resolve_local_ntxent
-from ..parallel.mesh import pmean_
+from ..parallel.mesh import comms_accounting, pmean_
 from ..parallel.mesh import rank as mesh_rank
+from .accum import MultiSteps
 from .adamw import AdamW
 from .checkpoint import AsyncCheckpointer, CheckpointManager
 from .lars import LARS, cosine_warmup_schedule, exclusion_mask
@@ -82,7 +113,7 @@ from .lars import simclr_learning_rate
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ROADMAP_ITEMS", "TrainState", "TrainerConfig",
+__all__ = ["ROADMAP_ITEMS", "StepOutcome", "TrainState", "TrainerConfig",
            "create_clip_train_state", "create_train_state", "fit",
            "make_clip_train_step", "make_sharded_clip_train_step",
            "make_sharded_train_step", "make_train_step", "train_loop"]
@@ -92,10 +123,6 @@ ROADMAP_ITEMS = {
     "stem": "ROADMAP.md Queue A 6(b) (the space-to-depth ResNet stem)",
     "wire": "ROADMAP.md Queue A 3(e) (quantized collectives: "
             "--collective-dtype bf16/int8 with error feedback)",
-    "resilience": "ROADMAP.md Queue A 7(c) (training resilience: the "
-                  "divergence guard, the supervisor, chaos, the stall "
-                  "watchdog, remat, gradient accumulation and the "
-                  "crash-replay audit)",
     "data": "ROADMAP.md Queue A 7(b) (datasets beyond --dataset "
             "synthetic)",
     "pipeline": "ROADMAP.md Queue A 7(b) (the async input pipeline: "
@@ -115,6 +142,20 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 @dataclasses.dataclass(frozen=True)
+class StepOutcome:
+    """One completed step as the host sees it, handed to ``train_loop``'s
+    ``step_guard`` (``trainer.py:52``, read after its own step: the lag-1
+    outcome is ROADMAP.md Queue A 7(b)). ``ok=False``: the guarded step
+    found a non-finite loss or gradient norm and applied no update.
+    ``grad_norm`` is None for a step built without the guard."""
+
+    step: int
+    loss: float
+    grad_norm: float | None
+    ok: bool
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     batch_size: int = 256
     temperature: float = 0.1
@@ -122,6 +163,9 @@ class TrainerConfig:
     weight_decay: float = 1e-6
     warmup_steps: int = 100
     total_steps: int = 1000
+    # optimizer updates every accum_steps micro-batches (accum.MultiSteps);
+    # the negatives stay within each micro-batch
+    accum_steps: int = 1
 
     @property
     def learning_rate(self) -> float:
@@ -146,15 +190,101 @@ def create_train_state(model: nn.Module, config: TrainerConfig,
     optimizer = LARS(model.named_parameters(), schedule,
                      weight_decay=config.weight_decay,
                      mask=exclusion_mask(model))
-    return TrainState(model=model, optimizer=optimizer)
+    return TrainState(model=model, optimizer=_accumulating(optimizer,
+                                                           config))
+
+
+def _accumulating(optimizer, config: TrainerConfig):
+    """``optimizer`` itself, or ``MultiSteps`` over it when the config
+    accumulates (``trainer.py:163-164``)."""
+    if config.accum_steps > 1:
+        return MultiSteps(optimizer, config.accum_steps)
+    return optimizer
+
+
+def _recompute_contexts():
+    """``checkpoint``'s context_fn: nothing around the first forward; the
+    recompute in the backward moves no BatchNorm running statistic and
+    records no collective."""
+    return contextlib.nullcontext(), _recomputing()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    with frozen_running_stats(), comms_accounting().paused():
+        yield
+
+
+def _forward(remat: bool, fn: Callable, *inputs):
+    """``fn(*inputs)``, under ``torch.utils.checkpoint`` when ``remat``:
+    only the inputs are kept, the activations are rebuilt in the
+    backward. No RNG state is kept for the recompute: no tower draws
+    random numbers in its forward (no dropout)."""
+    if not remat:
+        return fn(*inputs)
+    return checkpoint(fn, *inputs, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=_recompute_contexts)
 
 
 def apply_two_views(model: nn.Module, v1: torch.Tensor,
-                    v2: torch.Tensor) -> torch.Tensor:
+                    v2: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """Both views through the model in ONE batched forward (BatchNorm
     statistics are shared across the 2B rows); returns the stacked
-    embeddings ``cat([z1, z2])``, (2B, D), the layout NT-Xent takes."""
-    return model(torch.cat([v1, v2], dim=0))
+    embeddings ``cat([z1, z2])``, (2B, D), the layout NT-Xent takes.
+    ``remat`` rematerializes the forward in the backward."""
+    return _forward(remat, model, torch.cat([v1, v2], dim=0))
+
+
+def _running_stats(model: nn.Module) -> list[torch.Tensor]:
+    return [b for m in model.modules() if isinstance(m, BatchNorm)
+            for b in (m.running_mean, m.running_var)]
+
+
+@torch.no_grad()
+def _guarded_update(state: TrainState, loss: torch.Tensor, scale: float,
+                    stats_before: list[torch.Tensor]) -> dict:
+    """The guard of a step whose gradients are in ``.grad``
+    (``trainer.py:77-104``): scale them, take their global norm and
+    ``ok``, and step the optimizer whatever ``ok`` is, from a snapshot of
+    what the step moves; a bad step puts the snapshot back, and the
+    BatchNorm running statistics as ``stats_before`` held them.
+    ``state.step`` advances either way.
+
+    Reading (loss, norm, ok) is the step's one host sync. On the card the
+    three values go to pinned memory behind an event recorded before the
+    update is queued, so the host waits for the backward, not for the
+    update, which the card runs while the host decides (the JAX step
+    selects the update on the device). The metrics are those host
+    copies."""
+    grads = [p.grad for p in state.model.parameters()]
+    torch._foreach_mul_(grads, scale)
+    grad_norm = torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(grads)))
+    ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
+    values = torch.stack([loss.float(), grad_norm.float(), ok.float()])
+    ready = None
+    if values.is_cuda:
+        host = torch.empty(3, pin_memory=True)
+        host.copy_(values, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+    else:
+        host = values
+    snapshot = state.optimizer.snapshot()
+    state.optimizer.step()
+    if ready is not None:
+        ready.synchronize()
+    if not bool(host[2]):
+        state.optimizer.restore(snapshot)
+        torch._foreach_copy_(_running_stats(state.model), stats_before)
+    state.step += 1
+    return {"loss": host[0].to(loss.dtype), "grad_norm": host[1],
+            "step_ok": host[2].bool()}
+
+
+def _stats_before(model: nn.Module) -> list[torch.Tensor]:
+    return [b.clone() for b in _running_stats(model)]
 
 
 def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
@@ -164,52 +294,77 @@ def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
 
     ``use_fused=None`` takes the fused loss on CUDA tensors and the
     oracle on CPU tensors; ``True`` forces the fused loss (on the CPU its
-    wrappers run the kernels' plain versions)."""
-    if remat:
-        raise _not_ported("rematerialization (remat=True)", "resilience")
-    if guard:
-        raise _not_ported("the divergence guard (guard=True)", "resilience")
+    wrappers run the kernels' plain versions). ``remat`` rematerializes
+    the forward in the backward. ``guard=True`` gives ``train_step(state,
+    v1, v2, scale=1.0)``, the guarded step (``_guarded_update``; metrics
+    also ``grad_norm`` and ``step_ok``), for ``train_loop(step_guard=
+    resilience.DivergenceGuard(...))``; it reads ``ok`` on the host once
+    a step."""
     if moe_aux_weight > 0.0:
         raise _not_ported("the MoE auxiliary loss", "mp")
 
-    def train_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
+    def loss_of(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
         fused = use_fused if use_fused is not None \
             else v1.device.type == "cuda"
         loss_fn = ntxent_loss_fused if fused else oracle.ntxent_loss
         state.optimizer.zero_grad()
-        loss = loss_fn(apply_two_views(state.model, v1, v2), temperature)
+        loss = loss_fn(apply_two_views(state.model, v1, v2, remat),
+                       temperature)
         loss.backward()
+        return loss.detach()
+
+    def train_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
+        loss = loss_of(state, v1, v2)
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}
 
-    return train_step
+    def guarded_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor,
+                     scale: float = 1.0):
+        before = _stats_before(state.model)
+        loss = loss_of(state, v1, v2)
+        return state, _guarded_update(state, loss, scale, before)
+
+    return guarded_step if guard else train_step
 
 
 def make_sharded_train_step(group=None, temperature: float = 0.1,
-                            loss_impl: str = "strip") -> Callable:
+                            loss_impl: str = "strip", remat: bool = False,
+                            guard: bool = False) -> Callable:
     """``train_step(state, v1, v2) -> (state, {"loss": tensor})`` over the
     ranks of ``group`` (``None``: the default group) with the NT-Xent
     schedule ``loss_impl`` (``"strip"`` or ``"pair"``; an unknown or
     unported name raises here); ``v1``, ``v2`` are this rank's rows of the
     global batch. Every rank returns the global loss and ends with the
-    same parameters."""
+    same parameters. ``remat`` and ``guard`` as in ``make_train_step``;
+    the guard decides after the gradient and statistics pmeans, on the
+    global loss (``trainer.py:524-580``), so a NaN on one rank's rows
+    skips the update on every rank."""
     loss_body = resolve_local_ntxent(loss_impl)
 
-    def train_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
+    def loss_of(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
         state.optimizer.zero_grad()
-        z = apply_two_views(state.model, v1, v2)
+        z = apply_two_views(state.model, v1, v2, remat)
         n = v1.shape[0]
         loss = loss_body(z[:n], z[n:], temperature, group)
         loss.backward()
         pmean_([p.grad for p in state.model.parameters()], group)
-        pmean_([b for m in state.model.modules() if isinstance(m, BatchNorm)
-                for b in (m.running_mean, m.running_var)], group)
+        pmean_(_running_stats(state.model), group)
+        return loss.detach()
+
+    def train_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
+        loss = loss_of(state, v1, v2)
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}
 
-    return train_step
+    def guarded_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor,
+                     scale: float = 1.0):
+        before = _stats_before(state.model)
+        loss = loss_of(state, v1, v2)
+        return state, _guarded_update(state, loss, scale, before)
+
+    return guarded_step if guard else train_step
 
 
 def create_clip_train_state(model: nn.Module, config: TrainerConfig,
@@ -222,7 +377,8 @@ def create_clip_train_state(model: nn.Module, config: TrainerConfig,
                                       config.total_steps)
     optimizer = AdamW(model.named_parameters(), schedule,
                       weight_decay=config.weight_decay)
-    return TrainState(model=model, optimizer=optimizer)
+    return TrainState(model=model, optimizer=_accumulating(optimizer,
+                                                           config))
 
 
 def make_clip_train_step(use_fused: bool | None = None, remat: bool = False,
@@ -234,9 +390,9 @@ def make_clip_train_step(use_fused: bool | None = None, remat: bool = False,
     that scale, so the scale's gradient flows. ``use_fused=None`` takes
     the fused loss on CUDA tensors and the oracle at temperature
     ``1 / scale`` on CPU tensors; ``True`` forces the fused loss (on the
-    CPU its wrappers run the kernels' plain versions)."""
-    if remat:
-        raise _not_ported("rematerialization (remat=True)", "resilience")
+    CPU its wrappers run the kernels' plain versions). ``remat``
+    rematerializes both towers in the backward (``_clip_towers``,
+    ``trainer.py:306-322``). No guard: the JAX CLIP steps carry none."""
     if moe_aux_weight > 0.0:
         raise _not_ported("the MoE auxiliary loss", "mp")
 
@@ -245,7 +401,7 @@ def make_clip_train_step(use_fused: bool | None = None, remat: bool = False,
         fused = use_fused if use_fused is not None \
             else images.device.type == "cuda"
         state.optimizer.zero_grad()
-        zi, zt, scale = state.model(images, tokens)
+        zi, zt, scale = _forward(remat, state.model, images, tokens)
         loss = (info_nce_fused(zi, zt, scale=scale) if fused
                 else oracle.info_nce_loss(zi, zt, temperature=1.0 / scale))
         loss.backward()
@@ -256,8 +412,8 @@ def make_clip_train_step(use_fused: bool | None = None, remat: bool = False,
     return train_step
 
 
-def make_sharded_clip_train_step(group=None,
-                                 loss_impl: str = "dual") -> Callable:
+def make_sharded_clip_train_step(group=None, loss_impl: str = "dual",
+                                 remat: bool = False) -> Callable:
     """``train_step(state, images, tokens) -> (state, {"loss": tensor})``
     over the ranks of ``group`` (``None``: the default group); ``images``
     and ``tokens`` are this rank's rows of the global batch. The loss body
@@ -266,13 +422,14 @@ def make_sharded_clip_train_step(group=None,
     the block once for both directions, ``"twopass"`` gathers both
     modalities and walks it once for each. CUDA tensors run the loss
     kernels, CPU tensors their plain versions. Every rank returns the
-    global loss and ends with the same parameters."""
+    global loss and ends with the same parameters. ``remat``
+    rematerializes both towers in the backward."""
     local_loss = resolve_local_infonce(loss_impl)
 
     def train_step(state: TrainState, images: torch.Tensor,
                    tokens: torch.Tensor):
         state.optimizer.zero_grad()
-        zi, zt, scale = state.model(images, tokens)
+        zi, zt, scale = _forward(remat, state.model, images, tokens)
         loss = local_loss(zi, zt, scale, group)
         loss.backward()
         pmean_([p.grad for p in state.model.parameters()], group)
@@ -288,11 +445,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _outcome(step: int, metrics: dict) -> StepOutcome:
+    return StepOutcome(
+        step=step, loss=float(metrics["loss"]),
+        grad_norm=(float(metrics["grad_norm"]) if "grad_norm" in metrics
+                   else None),
+        ok=bool(metrics.get("step_ok", True)))
+
+
 def train_loop(state: TrainState, data_iter, train_step: Callable,
                num_steps: int, log_every: int = 50,
                views: int = 2, ranks: int = 1,
                log: bool = True, stop_fn: Callable[[], bool] | None = None,
-               step_hook: Callable[[TrainState], None] | None = None
+               step_hook: Callable[[TrainState], None] | None = None,
+               watchdog=None, step_guard: Callable | None = None
                ) -> list[dict]:
     """Run ``num_steps`` steps; every ``log_every`` steps (and at the
     last) read the loss and log steps/s and images/s over the window.
@@ -302,8 +468,18 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
     of rows). ``log=False`` keeps the records and logs nothing (every
     rank but 0). ``stop_fn`` is polled before every step and ends the run
     when it returns True; ``step_hook(state)`` runs after every step (the
-    checkpoint cadence). Returns one record per log point."""
+    checkpoint cadence). Returns one record per log point.
+
+    After each step and before ``step_hook``: ``watchdog`` (a started
+    ``StallWatchdog``) is beaten, and ``step_guard`` is called with the
+    step's ``StepOutcome`` (it may raise ``DivergenceError``, before the
+    step could be saved). A guard with ``scale_value()`` hands its scale
+    to the step as a trailing argument (a step built with ``guard=True``).
+    Building the outcome reads the loss: one host sync a step, for
+    guarded runs only."""
     history = []
+    use_scale = step_guard is not None and hasattr(step_guard,
+                                                   "scale_value")
     device = next(state.model.parameters()).device
     _sync(device)
     last_t, last_step = time.perf_counter(), 0
@@ -314,7 +490,15 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
                                state.step)
             break
         v1, v2 = next(data_iter)
-        state, metrics = train_step(state, v1, v2)
+        if use_scale:
+            state, metrics = train_step(state, v1, v2,
+                                        step_guard.scale_value())
+        else:
+            state, metrics = train_step(state, v1, v2)
+        if watchdog is not None:
+            watchdog.beat()
+        if step_guard is not None:
+            step_guard(_outcome(state.step, metrics))
         if step_hook is not None:
             step_hook(state)
         if (i + 1) % log_every == 0 or i + 1 == num_steps:
@@ -389,7 +573,9 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
         checkpoint_keep_every: int | None = None,
         checkpoint_mirror: str | None = None,
         restore_step: int | None = None, views: int = 2, ranks: int = 1,
-        log: bool = True, group=None, checkpoint_stats: dict | None = None):
+        log: bool = True, group=None, checkpoint_stats: dict | None = None,
+        watchdog=None, step_guard: Callable | None = None,
+        checkpoint_fault_hook: Callable | None = None):
     """Checkpoint-aware training (``trainer.py:1167``): restore the newest
     valid checkpoint of ``checkpoint_dir`` if there is one, train to
     ``num_steps`` steps IN ALL, save every ``checkpoint_every`` global
@@ -412,7 +598,11 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
     and alone writes; a barrier follows the final save.
     ``checkpoint_stats`` (a dict) receives the manager's ``stats`` when
     ``fit`` returns: save and restore ms, the state's bytes and, under
-    async saves, the ms each save held the loop."""
+    async saves, the ms each save held the loop. ``watchdog`` and
+    ``step_guard`` go to ``train_loop``; a ``DivergenceError`` leaves
+    ``fit`` without the final save (the diverged state must not become
+    the newest step). ``checkpoint_fault_hook`` runs at the start of each
+    physical write (the chaos plan's ``diskfull@n``)."""
     if restore_step is not None and checkpoint_dir is None:
         raise ValueError(f"restore_step={restore_step} requires "
                          "checkpoint_dir (there is no store to restore the "
@@ -431,7 +621,8 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
                 verify_writes=checkpoint_verify_writes,
                 max_to_keep=checkpoint_keep_last,
                 keep_every=checkpoint_keep_every,
-                mirror_dir=checkpoint_mirror)
+                mirror_dir=checkpoint_mirror,
+                fault_hook=checkpoint_fault_hook)
             if async_checkpointing:
                 manager = AsyncCheckpointer(manager)
             data_state, restored = _restore(manager, state, restore_step,
@@ -468,7 +659,8 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
 
         history = train_loop(state, data_iter, train_step, remaining,
                              log_every=log_every, views=views, ranks=ranks,
-                             log=log, stop_fn=stop_fn, step_hook=step_hook)
+                             log=log, stop_fn=stop_fn, step_hook=step_hook,
+                             watchdog=watchdog, step_guard=step_guard)
         if manager is not None:
             stopped = state.step - done < remaining
             manager.wait_until_finished()

@@ -50,6 +50,8 @@ wrote it.
 
 from __future__ import annotations
 
+from collections.abc import Callable
+
 import numpy as np
 import torch
 from torch import nn
@@ -403,6 +405,24 @@ def _adamw_state(opt, name: str) -> dict:
     return opt.optimizer.state.get(opt.params[name], {})
 
 
+def _inner_opt_state(opt, names: list[str], params_tree) -> dict:
+    """optax's chain state of the port's LARS or AdamW."""
+    count = np.array(opt.count, np.int32)
+    if hasattr(opt, "trace"):  # LARS
+        return {"0": {"inner_state": {}}, "1": {"inner_state": {}},
+                "2": {"count": count},
+                "3": {"trace": params_tree(
+                    {n: _host(opt.trace[n]) for n in names})}}
+
+    def moment(key: str) -> dict:  # AdamW
+        return params_tree({n: _host(_adamw_state(opt, n).get(
+            key, torch.zeros_like(opt.params[n]))) for n in names})
+
+    return {"0": {"count": count, "mu": moment("exp_avg"),
+                  "nu": moment("exp_avg_sq")},
+            "1": {}, "2": {"count": count}}
+
+
 def train_state_dict(state) -> dict:
     """The port's ``TrainState`` as the JAX package's ``TrainState``
     serializes it (``flax.serialization.to_state_dict``): ``{"step",
@@ -412,33 +432,32 @@ def train_state_dict(state) -> dict:
     masked trust ratio, the schedule's ``count``, the momentum ``trace``
     in the params layout) or ``optax.adamw``'s (``ScaleByAdamState``
     ``count``, ``mu``, ``nu``; the empty weight-decay state; the
-    schedule's ``count``) after the optimizer's type. ``batch_stats`` is
+    schedule's ``count``) after the optimizer's type; under gradient
+    accumulation (``training.accum.MultiSteps``) ``optax.MultiSteps``'s
+    ``{"mini_step", "gradient_step", "inner_opt_state": <that chain>,
+    "acc_grads": <params layout>, "skip_state": {}}``. ``batch_stats`` is
     None for a model without BatchNorm (CLIP), as the JAX CLIP state
     leaves it; ``ef_residual`` is None (the float32 wire keeps none)."""
     model, opt = state.model, state.optimizer
     leaves = _layout(model)
     tensors = {name: _host(t) for name, t in model.state_dict().items()}
     variables = _to_flax(leaves, tensors)
-    count = np.array(opt.count, np.int32)
     names = [name for name, _ in model.named_parameters()]
 
     def params_tree(values: dict) -> dict:
         return _to_flax(leaves, values)["params"]
 
-    if hasattr(opt, "trace"):  # LARS
-        opt_state = {"0": {"inner_state": {}}, "1": {"inner_state": {}},
-                     "2": {"count": count},
-                     "3": {"trace": params_tree(
-                         {n: _host(opt.trace[n]) for n in names})}}
-    else:  # AdamW
-
-        def moment(key: str) -> dict:
-            return params_tree({n: _host(_adamw_state(opt, n).get(
-                key, torch.zeros_like(opt.params[n]))) for n in names})
-
-        opt_state = {"0": {"count": count, "mu": moment("exp_avg"),
-                           "nu": moment("exp_avg_sq")},
-                     "1": {}, "2": {"count": count}}
+    if hasattr(opt, "acc"):  # MultiSteps
+        opt_state = {
+            "mini_step": np.array(opt.mini_step, np.int32),
+            "gradient_step": np.array(opt.gradient_step, np.int32),
+            "inner_opt_state": _inner_opt_state(opt.inner, names,
+                                                params_tree),
+            "acc_grads": params_tree({n: _host(opt.acc[n])
+                                      for n in names}),
+            "skip_state": {}}
+    else:
+        opt_state = _inner_opt_state(opt, names, params_tree)
     if any(t.is_cuda for t in model.state_dict().values()):
         torch.cuda.synchronize()  # every copy has landed on the host
     return {"step": np.array(state.step, np.int32),
@@ -454,23 +473,10 @@ def _count(node: dict, where: str) -> int:
         raise KeyError(f"opt_state has no {where} count") from e
 
 
-def load_train_state_dict(state, d: dict):
-    """Load a state dict of the JAX ``TrainState`` layout (as
-    ``train_state_dict`` writes it, or as the JAX package's checkpoints
-    hold it) into the port's ``state`` in place: the model's parameters
-    and BatchNorm statistics, the optimizer's count and momentum (LARS)
-    or moments (AdamW), the step. Every tensor is converted and checked
-    before the first is written, so a state that does not fit raises and
-    leaves ``state`` as it was. Returns ``state``."""
-    model, opt = state.model, state.optimizer
-    stats = d.get("batch_stats") or {}
-    tensors = _torch_tensors(model, d["params"], stats)
-    opt_state = d["opt_state"]
-    names = [name for name, _ in model.named_parameters()]
-
-    def torch_params(tree: dict) -> dict:
-        return _torch_tensors(model, tree, stats)
-
+def _read_inner(opt, opt_state: dict, torch_params) -> Callable:
+    """Convert and check the chain state of ``opt`` (LARS or AdamW) in
+    ``opt_state``; returns the function that writes it into ``opt``."""
+    names = list(opt.params)
     if hasattr(opt, "trace"):  # LARS
         if set(opt_state) != {"0", "1", "2", "3"} \
                 or "trace" not in opt_state["3"]:
@@ -478,33 +484,74 @@ def load_train_state_dict(state, d: dict):
                            "optax.lars's chain")
         count = _count(opt_state["2"], "schedule")
         trace = torch_params(opt_state["3"]["trace"])
-        moments = None
-    else:  # AdamW
-        if set(opt_state) != {"0", "1", "2"} or "mu" not in opt_state["0"]:
+
+        def write() -> None:
+            for n in names:
+                opt.trace[n].copy_(torch.from_numpy(trace[n]))
+            opt.count = count
+
+        return write
+    if set(opt_state) != {"0", "1", "2"} or "mu" not in opt_state["0"]:
+        raise KeyError(f"opt_state {sorted(opt_state)} is not "
+                       "optax.adamw's chain")
+    count = _count(opt_state["2"], "schedule")
+    adam_count = _count(opt_state["0"], "ScaleByAdamState")
+    mu = torch_params(opt_state["0"]["mu"])
+    nu = torch_params(opt_state["0"]["nu"])
+
+    def write() -> None:  # AdamW
+        scalar = torch.float64 if torch.get_default_dtype() \
+            == torch.float64 else torch.float32
+        for n in names:
+            p = opt.params[n]
+            opt.optimizer.state[p] = {
+                "step": torch.tensor(float(adam_count), dtype=scalar),
+                "exp_avg": torch.from_numpy(mu[n]).to(p.device),
+                "exp_avg_sq": torch.from_numpy(nu[n]).to(p.device)}
+        opt.count = count
+
+    return write
+
+
+def load_train_state_dict(state, d: dict):
+    """Load a state dict of the JAX ``TrainState`` layout (as
+    ``train_state_dict`` writes it, or as the JAX package's checkpoints
+    hold it) into the port's ``state`` in place: the model's parameters
+    and BatchNorm statistics, the optimizer's count and momentum (LARS)
+    or moments (AdamW), under accumulation also ``MultiSteps``'s counters
+    and accumulated gradients, the step. Every tensor is converted and
+    checked before the first is written, so a state that does not fit
+    raises and leaves ``state`` as it was. Returns ``state``."""
+    model, opt = state.model, state.optimizer
+    stats = d.get("batch_stats") or {}
+    tensors = _torch_tensors(model, d["params"], stats)
+    opt_state = d["opt_state"]
+
+    def torch_params(tree: dict) -> dict:
+        return _torch_tensors(model, tree, stats)
+
+    if hasattr(opt, "acc"):  # MultiSteps
+        keys = {"mini_step", "gradient_step", "inner_opt_state",
+                "acc_grads"}
+        if not keys <= set(opt_state):
             raise KeyError(f"opt_state {sorted(opt_state)} is not "
-                           "optax.adamw's chain")
-        count = _count(opt_state["2"], "schedule")
-        adam_count = _count(opt_state["0"], "ScaleByAdamState")
-        mu = torch_params(opt_state["0"]["mu"])
-        nu = torch_params(opt_state["0"]["nu"])
-        moments = (adam_count, mu, nu)
+                           "optax.MultiSteps's state (--accum-steps of "
+                           "the run that wrote it?)")
+        write_inner = _read_inner(opt.inner, opt_state["inner_opt_state"],
+                                  torch_params)
+        acc = torch_params(opt_state["acc_grads"])
+        counters = (int(np.asarray(opt_state["mini_step"])),
+                    int(np.asarray(opt_state["gradient_step"])))
+    else:
+        write_inner = _read_inner(opt, opt_state, torch_params)
     step = int(np.asarray(d["step"]))
     with torch.no_grad():
         for key, target in model.state_dict().items():
             target.copy_(torch.from_numpy(tensors[key]))
-        if moments is None:
-            for n in names:
-                opt.trace[n].copy_(torch.from_numpy(trace[n]))
-        else:
-            adam_count, mu, nu = moments
-            scalar = torch.float64 if torch.get_default_dtype() \
-                == torch.float64 else torch.float32
-            for n in names:
-                p = opt.params[n]
-                opt.optimizer.state[p] = {
-                    "step": torch.tensor(float(adam_count), dtype=scalar),
-                    "exp_avg": torch.from_numpy(mu[n]).to(p.device),
-                    "exp_avg_sq": torch.from_numpy(nu[n]).to(p.device)}
-    opt.count = count
+        write_inner()
+        if hasattr(opt, "acc"):
+            for n, target in opt.acc.items():
+                target.copy_(torch.from_numpy(acc[n]))
+            opt.mini_step, opt.gradient_step = counters
     state.step = step
     return state

@@ -12,7 +12,11 @@ Tolerances:
   parameters and on the momentum or Adam moments after 2 + 2 steps;
 * a restore is exact: the same fp32 bits in both layouts;
 * serving: both towers run in bf16 (the serve path's dtype) -> the serve
-  phase's 2e-2 on unit-norm embeddings.
+  phase's 2e-2 on unit-norm embeddings;
+* gradient accumulation (``optax.MultiSteps``'s state written by either
+  package after an odd micro-step and resumed by the other): the whole
+  state in the JAX layout within 1e-5 of an uninterrupted trajectory,
+  as ``tests/test_torch_accum.py`` holds the optimizers.
 """
 
 import jax
@@ -21,6 +25,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from flax import serialization
 
 from ntxent_tpu import cli as jcli
 from ntxent_tpu.models import SimCLRModel as JaxSimCLR
@@ -267,3 +272,117 @@ def test_serve_ckpt_dir_embeds_what_the_jax_apply_embeds(tmp_path, head):
                         else JaxSimCLR.features)
     np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=2e-2,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Gradient accumulation: optax.MultiSteps's state, mid-accumulation
+# ---------------------------------------------------------------------------
+
+ACCUM_K = 2
+
+
+def _accum_fixture(opt):
+    from test_torch_accum import STATES
+
+    return STATES[opt](ACCUM_K)
+
+
+def _accum_grads(jstate, count):
+    from test_torch_accum import grads
+
+    return grads(_np(jstate.params), count, seed=11)
+
+
+@pytest.mark.parametrize("opt", ["lars", "adamw"])
+def test_a_port_accumulation_state_crosses_to_jax_and_back(opt, tmp_path):
+    """The port takes 3 micro-steps (k = 2: one update, one gradient
+    accumulated) and saves; the JAX package restores that step, takes 2
+    more and saves; the port restores that and takes 2 more. It ends
+    where 7 uninterrupted optax micro-steps end, within 1e-5 (the
+    optimizer tests' fp32 bound); each restore is exact."""
+    from test_torch_accum import (
+        assert_state_close,
+        jax_apply,
+        port_micro_step,
+    )
+
+    jstate, variables, state = _accum_fixture(opt)
+    stats = variables.get("batch_stats", {})
+    gs = _accum_grads(jstate, 7)
+    whole = jstate
+    for g in gs:
+        whole = jax_apply(whole, g)
+    for g in gs[:3]:
+        port_micro_step(state, g, stats)
+    assert state.optimizer.mini_step == 1
+    assert CheckpointManager(tmp_path / "a").save(3, state)
+
+    restored = JaxManager(tmp_path / "a").restore(_accum_fixture(opt)[0])
+    assert int(restored.step) == 3 and int(restored.opt_state.mini_step) == 1
+    _equal(_np(serialization.to_state_dict(restored)["opt_state"]),
+           train_state_dict(state)["opt_state"])
+    for g in gs[3:5]:
+        restored = jax_apply(restored, g)
+    manager = JaxManager(tmp_path / "b")
+    assert manager.save(5, restored, force=True)
+    manager.close()
+
+    state = _accum_fixture(opt)[2]
+    CheckpointManager(tmp_path / "b").restore(state)
+    assert state.step == 5 and state.optimizer.mini_step == 1
+    assert state.optimizer.gradient_step == 2
+    for g in gs[5:]:
+        port_micro_step(state, g, stats)
+    assert_state_close(train_state_dict(state),
+                       _np(serialization.to_state_dict(whole)))
+
+
+@pytest.mark.parametrize("opt", ["lars", "adamw"])
+def test_a_jax_accumulation_state_crosses_to_the_port_and_back(opt,
+                                                               tmp_path):
+    """The reverse: JAX 3 micro-steps, the port 2, JAX 2 more, against 7
+    uninterrupted port micro-steps, within 1e-5."""
+    from test_torch_accum import (
+        assert_state_close,
+        jax_apply,
+        port_micro_step,
+    )
+
+    jstate, variables, whole = _accum_fixture(opt)
+    stats = variables.get("batch_stats", {})
+    gs = _accum_grads(jstate, 7)
+    for g in gs:
+        port_micro_step(whole, g, stats)
+    for g in gs[:3]:
+        jstate = jax_apply(jstate, g)
+    manager = JaxManager(tmp_path / "a")
+    assert manager.save(3, jstate, force=True)
+    manager.close()
+
+    state = _accum_fixture(opt)[2]
+    CheckpointManager(tmp_path / "a").restore(state)
+    assert state.step == 3 and state.optimizer.mini_step == 1
+    for g in gs[3:5]:
+        port_micro_step(state, g, stats)
+    assert CheckpointManager(tmp_path / "b").save(5, state)
+
+    restored = JaxManager(tmp_path / "b").restore(_accum_fixture(opt)[0])
+    assert int(restored.opt_state.mini_step) == 1
+    for g in gs[5:]:
+        restored = jax_apply(restored, g)
+    assert_state_close(train_state_dict(whole),
+                       _np(serialization.to_state_dict(restored)))
+
+
+def test_an_accumulation_state_refuses_a_plain_optimizer(tmp_path):
+    """A step written with --accum-steps 2 does not load into a state
+    without accumulation (the optimizer layouts differ), nor the reverse:
+    the restore raises and names the layout."""
+    jstate, variables, state = _accum_fixture("lars")
+    assert CheckpointManager(tmp_path / "accum").save(1, state)
+    plain = _port_simclr_state(variables)
+    with pytest.raises(Exception, match="does not load"):
+        CheckpointManager(tmp_path / "accum").restore(plain)
+    assert CheckpointManager(tmp_path / "plain").save(1, plain)
+    with pytest.raises(Exception, match="does not load"):
+        CheckpointManager(tmp_path / "plain").restore(state)

@@ -134,8 +134,6 @@ def test_row_ids_and_comms_accounting_without_a_group():
 # to a value other than the JAX default, with the ROADMAP.md item its exit
 # names.
 TRAIN_FLAGS = [
-    (["--chaos", "nan@3"], r"Queue A 7\(c\)"),
-    (["--stall-timeout", "30"], r"Queue A 7\(c\)"),
     (["--prefetch", "2"], r"Queue A 7\(b\)"),
     (["--lag-metrics"], r"Queue A 7\(b\)"),
     (["--ring-chunks", "4"], r"Queue A 3\(d\)"),

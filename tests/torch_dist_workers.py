@@ -1,13 +1,13 @@
 """Rank processes of ``test_torch_distributed.py``,
 ``test_torch_clip_dp.py``, ``test_torch_infonce_twopass.py``,
-``test_torch_pair.py``,
+``test_torch_pair.py``, ``test_torch_resilience_dp.py``,
 ``test_torch_ring_attention.py``, ``test_torch_long_context.py`` and
 ``test_torch_ring.py``: worlds of gloo ranks on the CPU that meet over a
 ``FileStore``.
 
 This module imports torch and the port, never JAX: each rank is a fresh
 interpreter that imports only what it unpickles (``run``, ``run_clip``,
-``run_pair``, ``run_ring``, ``run_cli`` and this module). Inputs come
+``run_pair``, ``run_ring``, ``run_guard``, ``run_cli`` and this module). Inputs come
 from an ``.npz`` the test wrote; each rank writes its results to
 ``<out>/rank<r>.npz``. A rank's collectives give up after
 ``PG_TIMEOUT``, well inside the test's deadline for the whole world.
@@ -143,6 +143,37 @@ def _steps(rank: int, world: int, inp, loss_impl: str,
 def step_job(rank: int, world: int, inp) -> dict:
     """Train steps of the ``tiny`` SimCLR model with the strip loss."""
     return _steps(rank, world, inp, "strip")
+
+
+def guard_steps_job(rank: int, world: int, inp) -> dict:
+    """Guarded data-parallel steps of the ``tiny`` SimCLR model from the
+    input's flax variables; at step ``nan_step`` rank ``nan_rank``'s view-1
+    rows are NaN. Returns each step's loss and ``step_ok``, the LARS count
+    and the final state."""
+    variables = {"params": nest(inp, "params"),
+                 "batch_stats": nest(inp, "batch_stats")}
+    proj = [int(x) for x in inp["proj"]]
+    model = load_flax_variables(
+        SimCLRModel(ResNet((1,), small_images=True, dtype=torch.float32),
+                    *proj, dtype=torch.float32), variables)
+    cross_replica_batch_norm(model, torch.distributed.group.WORLD)
+    cfg = _config(inp)
+    state = create_train_state(model, cfg, torch.device("cpu"))
+    step = make_sharded_train_step(None, cfg.temperature, guard=True)
+    losses, ok = [], []
+    for i, (v1, v2) in enumerate(zip(inp["v1"], inp["v2"])):
+        a = _shard(v1, rank, world)
+        if i == int(inp["nan_step"]) and rank == int(inp["nan_rank"]):
+            a = torch.full_like(a, float("nan"))
+        state, metrics = step(state, a, _shard(v2, rank, world))
+        losses.append(float(metrics["loss"]))
+        ok.append(bool(metrics["step_ok"]))
+    out = {"guard_losses": np.array(losses), "guard_ok": np.array(ok),
+           "guard_count": np.array(state.optimizer.count),
+           "guard_step": np.array(state.step)}
+    for name, t in state.model.state_dict().items():
+        out["state:" + name] = t.numpy()
+    return out
 
 
 def pair_loss_job(rank: int, world: int, inp) -> dict:
@@ -388,6 +419,19 @@ def run_pair(rank: int, world: int, store: str, inputs: str, out: str,
         jobs = (pair_loss_job, pair_steps_job) if steps else (pair_loss_job,)
         _run_jobs(jobs, rank, world, inputs, out)
         if cli_argv is not None and _train_main(rank, world, cli_argv, out):
+            sys.exit(1)
+    finally:
+        mesh.shutdown()
+
+
+def run_guard(rank: int, world: int, store: str, inputs: str, out: str,
+              cli_argv: list) -> None:
+    """One rank: join the world, run the guarded steps, write the results,
+    then run ``ntxent-train`` with ``cli_argv`` in the same world."""
+    _join(store, rank, world)
+    try:
+        _run_jobs((guard_steps_job,), rank, world, inputs, out)
+        if _train_main(rank, world, cli_argv, out):
             sys.exit(1)
     finally:
         mesh.shutdown()
