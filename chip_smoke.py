@@ -255,6 +255,24 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ntxent_tpu_torch.cli train``, one at a time): 2 SIGKILLs, one inside
    a save, no torn step, the survivor's final checkpoint equal to the
    reference run's;
+12o. the input pipeline and evaluation (after 12n, in its temporary
+   directory): [data] a uint8 npy row store of (1280, 224, 224, 3) written
+   from a seed; the native and the threaded loader give the same first 6
+   batches byte for byte across the epoch boundary; ViT-B/16 SimCLR at
+   phase 5's width trained 6 steps from the store with --loader python,
+   --loader native, and --loader native --prefetch 2 --lag-metrics
+   --nan-policy skip --ckpt-dir: one state CRC32, 1/1/12/12/12 launches a
+   step each, step ms, data wait ms a step and images/s of each;
+   [data-lag] the plain loop, the synchronous guard and the lag-1 guard
+   timed in rounds of 8 steps, ending equal; [data-lag-nan] a --chaos NaN
+   batch under the third way ends bit for bit where the same run without
+   --lag-metrics ends, the guard naming the step; [eval] ntxent-eval on
+   the third way's checkpoint: the flash forward's features against the
+   plain attention forward's on the card, --protocol both, --protocol
+   finetune (12/12/12 of #11/#13/#14 a step, a finite loss), and CLIP
+   ViT-B/16 zero-shot on [resume-clip]'s checkpoint; [data-imagefolder]
+   512 PNGs of 256x320 in 4 class folders, 4 steps with --prefetch 0 and
+   2, the data wait a step;
 13. one JSON line describing each kernel of the paths (with each loss
    kernel's D = 1024 times and each flash kernel's fp32 times);
 14. the last line: ``{"ok": true, "device": {...}}``.
@@ -672,6 +690,49 @@ SUPERVISE_FLAGS = ["--max-restarts", "1", "--chaos", "crash@5,truncate@1"]
 AUDIT_STEPS, AUDIT_KILLS, AUDIT_MIDSAVE = 6, 2, 1
 AUDIT_MODEL = dict(model="resnet50", image_size=224, batch=256,
                    device="cuda")
+
+# The input pipeline (ROADMAP Queue A 7(b)) and evaluation (10), at the
+# SimCLR path's width (TRAIN_ARGV). [data]: a uint8 row store of
+# DATA_STORE (5 batches of 256 an epoch, 193 MB) written from DATA_SEED
+# with numpy; the native and the threaded loader give the same first
+# DATA_LOADER_BATCHES batches byte for byte, across the epoch boundary;
+# then DATA_STEPS steps on the store each way of DATA_WAYS: one state
+# CRC32 for all three, bit for bit (every op on the path repeats its
+# bits), and STEP_LAUNCHES a step each. [data-lag]: rounds of
+# GUARD_TIMED_STEPS steps of train_loop in the order DATA_LAG_ROUNDS:
+# the plain loop, the synchronous guard and the lag-1 guard, ending
+# equal bit for bit. [data-lag-nan]: way c with --chaos nan@DATA_NAN_AT
+# against way c without --lag-metrics: one CRC32, the guard naming the
+# step. [eval]: ntxent-eval (EVAL_ARGV) on way c's checkpoint: the
+# features of the flash forward (#11) against the plain attention
+# forward's on the card, both L2-normalized, within EMBED_ATOL (the
+# serve path's bf16 tolerance); --protocol both; EVAL_FINETUNE (#11/#13/
+# #14 12/12/12 a step, a finite loss); CLIP zero-shot on the CLIP
+# checkpoint of [resume-clip] with EVAL_PROMPTS prompts saved by np.save.
+# [data-imagefolder]: IMAGEFOLDER PNGs (count, classes, height, width)
+# decoded by the loader's threads, IMAGEFOLDER_STEPS steps with
+# --prefetch 0 and 2: the data wait a step.
+DATA_STORE = (1280, 224, 224, 3)
+DATA_SEED = 18
+DATA_LOADER_BATCHES = 6
+DATA_STEPS = 6
+DATA_WAYS = {"a": ["--loader", "python"],
+             "b": ["--loader", "native"],
+             "c": ["--loader", "native", "--prefetch", "2", "--lag-metrics",
+                   "--nan-policy", "skip"]}
+DATA_LAG_ROUNDS = ("plain", "guarded", "lagged", "lagged", "guarded",
+                   "plain")
+DATA_NAN_AT = 3
+EVAL_ARGV = ["--dataset", "synthetic", "--image-size", "224", "--model",
+             "vit_b16", "--vit-attention", "flash", "--device", "cuda"]
+EVAL_FINETUNE = ["--protocol", "finetune", "--finetune-steps", "4",
+                 "--finetune-batch", "64"]
+EVAL_CLIP_ARGV = ["--objective", "clip", "--model", "vit_b16",
+                  "--vit-attention", "flash", "--image-size", "224",
+                  "--device", "cuda"]
+EVAL_PROMPTS = (4, 77)
+IMAGEFOLDER = (512, 4, 256, 320)
+IMAGEFOLDER_STEPS = 4
 
 # The long-context slice. Fold kernel (#12) cases: (name, (BH, Lq, Lk,
 # D), dtype, causal, q_offset, k_offsets of consecutive folds). Against
@@ -4593,9 +4654,9 @@ def phase_preempt(tmp: str, crc_a: dict) -> None:
 
 
 def phase_resume_pair(tmp: str, argv, label: str,
-                      data_parallel=None) -> None:
+                      data_parallel=None) -> str:
     """PAIR_FIRST + 1 steps against PAIR_STEPS uninterrupted, CRC for CRC
-    at the last step."""
+    at the last step; returns the uninterrupted run's directory."""
     t0 = time.monotonic()
     whole, parts = f"{tmp}/{label}_whole", f"{tmp}/{label}_parts"
     _, _, stats_w = _train_ckpt(_ckpt_argv(argv, whole, PAIR_STEPS,
@@ -4614,10 +4675,8 @@ def phase_resume_pair(tmp: str, argv, label: str,
           f"{_ms(stats_w['save_ms'])}, restore ms "
           f"{_ms(stats_r['restore_ms'])}; phase {time.monotonic() - t0:.1f} "
           f"s", flush=True)
-    import shutil
-
-    shutil.rmtree(whole)
     shutil.rmtree(parts)
+    return whole
 
 
 def phase_serve_ckpt(directory: str, state) -> None:
@@ -4721,9 +4780,9 @@ def _max_rel(got, want) -> float:
     return err / max(scale, 1e-30)
 
 
-def _simclr_setup(argv):
-    """(args, two states from the same weights of seed 0, batches) of the
-    SimCLR path at ``argv``'s width on the card."""
+def _simclr_setup(argv, copies: int = 2):
+    """(args, ``copies`` states from the same weights of seed 0, batches)
+    of the SimCLR path at ``argv``'s width on the card."""
     import copy
 
     import torch
@@ -4736,9 +4795,10 @@ def _simclr_setup(argv):
     cfg = cli._train_config(args)
     model = cli.build_model(args)
     device = torch.device(args.device)
-    states = [create_train_state(copy.deepcopy(model), cfg, device),
-              create_train_state(model, cfg, device)]
-    return args, cfg, states, cli._synthetic_pipeline(args, device)
+    states = [create_train_state(copy.deepcopy(model), cfg, device)
+              for _ in range(copies - 1)]
+    states.append(create_train_state(model, cfg, device))
+    return args, cfg, states, cli._make_pipeline(args, device)
 
 
 def phase_guard(card_line: str) -> dict:
@@ -5048,6 +5108,367 @@ def phase_crash_audit(tmp: str, card_line: str) -> None:
           flush=True)
     shutil.rmtree(workdir)
 
+def _data_argv(store: str, way: str) -> list:
+    return _with_flags(TRAIN_ARGV, "--dataset", "npy", "--data-dir", store,
+                       "--steps", str(DATA_STEPS)) + DATA_WAYS[way]
+
+
+def _steady(history, key: str):
+    """The mean of ``key`` over the log records (one a step) between the
+    first step's and the last's: under --lag-metrics a record is written
+    when its step's outcome is read, after the next step was queued, so
+    the last record holds no step's queueing, only the wait for its
+    step."""
+    values = [h[key] for h in history[1:-1] if key in h]
+    return sum(values) / len(values) if values else None
+
+
+def _step_ms(history) -> float:
+    """The mean step ms over the same records as ``_steady``."""
+    return 1e3 * sum(1 / h["steps_per_sec"] for h in history[1:-1]) \
+        / (len(history) - 2)
+
+
+def phase_data(tmp: str, card_line: str):
+    """The npy row store through both loaders and the three ways of
+    DATA_WAYS; returns (the store, way c's checkpoint directory, the
+    launches a step)."""
+    import torch
+
+    from ntxent_tpu_torch.training import (
+        ArraySource,
+        NativeStreamingLoader,
+        StreamingLoader,
+    )
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    t0 = time.monotonic()
+    store = f"{tmp}/rows.npy"
+    np.save(store, np.random.default_rng(DATA_SEED).integers(
+        0, 256, DATA_STORE, dtype=np.uint8))
+    write_s = time.monotonic() - t0
+    mm = np.load(store, mmap_mode="r")
+    batch = int(TRAIN_ARGV[TRAIN_ARGV.index("--batch") + 1])
+    loaders = {"native": NativeStreamingLoader(mm, batch),
+               "python": StreamingLoader(ArraySource(mm), batch)}
+    its = {name: iter(loader) for name, loader in loaders.items()}
+    loader_ms = {name: 0.0 for name in its}
+    for i in range(DATA_LOADER_BATCHES):
+        got = {}
+        for name, it in its.items():
+            t = time.perf_counter()
+            got[name] = next(it)
+            loader_ms[name] += (time.perf_counter() - t) * 1e3
+        if got["native"].shape != (batch, *DATA_STORE[1:]) \
+                or not np.array_equal(got["native"], got["python"]):
+            fail(f"data: batch {i} of the native loader differs from the "
+                 "threaded loader's")
+    for it in its.values():
+        it.close()
+    print(f"[data] store {DATA_STORE} uint8 ({mm.nbytes} bytes, "
+          f"{DATA_STORE[0] // batch} batches of {batch} an epoch) written in "
+          f"{write_s:.1f} s; the native and the threaded loader give the "
+          f"same first {DATA_LOADER_BATCHES} batches byte for byte, across "
+          f"the epoch boundary; ms a batch (the first holds the read-ahead "
+          f"fill) native {loader_ms['native'] / DATA_LOADER_BATCHES:.1f}, "
+          f"threaded {loader_ms['python'] / DATA_LOADER_BATCHES:.1f}",
+          flush=True)
+    del mm, loaders, its
+    counters = launch_counters()
+    ckpt = f"{tmp}/data_c"
+    crcs, lines = {}, []
+    for way in DATA_WAYS:
+        argv = _data_argv(store, way)
+        if way == "c":
+            # saved at step 1 (an empty directory's first save, inside the
+            # first step's record) and after the loop: no save in the
+            # records of steps 2-6
+            argv += ["--ckpt-dir", ckpt, "--ckpt-every", "1000"]
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        state, history, _ = _train_ckpt(argv)
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in counters.items()}
+        want = {n: STEP_LAUNCHES.get(n, 0) * DATA_STEPS for n in counters}
+        if launches != want or state.step != DATA_STEPS:
+            fail(f"data way {way}: step {state.step}, launches {launches}, "
+                 f"expected {want}")
+        crcs[way] = _state_crc(state)
+        step_ms = _step_ms(history)
+        fetch = _steady(history, "fetch_ms")
+        lines.append(
+            f"way {way} ({' '.join(DATA_WAYS[way])}): step {step_ms:.3f} ms "
+            f"(steps 2-{DATA_STEPS - 1}; {2 * batch * 1e3 / step_ms:.1f} "
+            f"images/s), data wait {_steady(history, 'data_wait_ms'):.3f} "
+            f"ms a step" + (f" (prefetcher: host fetch {fetch:.3f} ms, "
+                            f"transfer dispatch "
+                            f"{_steady(history, 'transfer_ms'):.3f} ms)"
+                            if fetch is not None else "")
+            + f", state crc32 {crcs[way][1]:#010x}")
+        del state
+        torch.cuda.empty_cache()
+    if len({tuple(c) for c in crcs.values()}) != 1 \
+            or _manifest_crcs(ckpt)[DATA_STEPS] != crcs["c"]:
+        fail(f"data: the three ways end at (size, crc32) {crcs}; way c's "
+             f"checkpoint {_manifest_crcs(ckpt)}")
+    for line in lines:
+        print(f"[data] {line}", flush=True)
+    print(f"[data] the three ways end at one state, (size, crc32) "
+          f"{crcs['a']}, bit for bit, launches a step "
+          f"{ {n: c for n, c in STEP_LAUNCHES.items()} } each, on "
+          f"{card_line}; phase {time.monotonic() - t0:.1f} s", flush=True)
+    return store, ckpt, dict(STEP_LAUNCHES)
+
+
+def phase_data_lag(card_line: str) -> None:
+    """The lag-1 guard against the synchronous guard and the plain loop,
+    rounds of GUARD_TIMED_STEPS steps of train_loop on the same batches."""
+    import torch
+
+    from ntxent_tpu_torch.resilience import DivergenceGuard
+    from ntxent_tpu_torch.training import make_train_step, train_loop
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    t0 = time.monotonic()
+    args, cfg, states, pipe = _simclr_setup(TRAIN_ARGV, copies=3)
+    batches = [next(pipe) for _ in range(GUARD_TIMED_STEPS)]
+    pstep = make_train_step(cfg.temperature)
+    gstep = make_train_step(cfg.temperature, guard=True)
+    runs = {name: [state, step, lag] for name, state, step, lag in zip(
+        ("plain", "guarded", "lagged"), states, (pstep, gstep, gstep),
+        (0, 0, 1))}
+
+    def run(name, steps):
+        state, step, lag = runs[name]
+        guard = None if name == "plain" else DivergenceGuard(
+            backoff_after=None, rollback_after=None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_loop(state, iter(batches[:steps]), step, steps,
+                   log_every=steps, log=False, step_guard=guard,
+                   metrics_lag=lag)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / steps
+
+    for name in runs:  # first calls: libraries, the snapshot buffers
+        run(name, 1)
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    ms = {name: [] for name in runs}
+    for name in DATA_LAG_ROUNDS:
+        ms[name].append(run(name, GUARD_TIMED_STEPS))
+    steps = len(DATA_LAG_ROUNDS) * GUARD_TIMED_STEPS
+    launches = {n: w.launches for n, w in counters.items()}
+    want = {n: STEP_LAUNCHES.get(n, 0) * steps for n in counters}
+    crcs = {name: _params_crc(state.model) for name, (state, _, _)
+            in runs.items()}
+    if launches != want or len(set(crcs.values())) != 1:
+        fail(f"data-lag: launches {launches} (expected {want}); params "
+             f"crc32 {crcs}")
+    mean = {n: sum(v) / len(v) for n, v in ms.items()}
+    print(f"[data-lag] ViT-B/16 batch {args.batch}, rounds of "
+          f"{GUARD_TIMED_STEPS} train_loop steps {'/'.join(DATA_LAG_ROUNDS)}"
+          f": ms a step plain "
+          f"{'/'.join(f'{v:.3f}' for v in ms['plain'])}, guarded (a host "
+          f"sync a step) {'/'.join(f'{v:.3f}' for v in ms['guarded'])}, "
+          f"guarded under --lag-metrics (kept on the card, read a step "
+          f"late) {'/'.join(f'{v:.3f}' for v in ms['lagged'])}; mean plain "
+          f"{mean['plain']:.3f}, guarded {mean['guarded']:.3f} "
+          f"({100 * (mean['guarded'] / mean['plain'] - 1):+.2f}%), lagged "
+          f"{mean['lagged']:.3f} "
+          f"({100 * (mean['lagged'] / mean['plain'] - 1):+.2f}%); all "
+          f"three end at params crc32 {crcs['plain']:#010x}; host clock on "
+          f"{card_line}; phase {time.monotonic() - t0:.1f} s", flush=True)
+    del runs, states, batches
+    torch.cuda.empty_cache()
+
+
+def phase_data_lag_nan(store: str, card_line: str) -> None:
+    """Way c with a NaN batch against way c without --lag-metrics."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+
+    t0 = time.monotonic()
+    chaos = ["--chaos", f"nan@{DATA_NAN_AT}"]
+    results = {}
+    for label, argv in (
+            ("lag", _data_argv(store, "c") + chaos),
+            ("sync", [a for a in _data_argv(store, "c")
+                      if a != "--lag-metrics"] + chaos)):
+        with _LogTap() as tap:
+            state, history = cli.train(cli.build_train_parser().parse_args(
+                argv))
+        named = tap.having(f"non-finite step {DATA_NAN_AT} skipped")
+        losses = [h["loss"] for h in history]
+        if [math.isfinite(x) for x in losses] != [
+                i + 1 != DATA_NAN_AT for i in range(DATA_STEPS)]:
+            fail(f"data-lag-nan {label}: losses {losses}")
+        results[label] = (_state_crc(state), state.optimizer.count, named)
+        del state
+        torch.cuda.empty_cache()
+    (crc_l, count_l, named_l), (crc_s, count_s, named_s) = \
+        results["lag"], results["sync"]
+    if crc_l != crc_s or not named_l or not named_s \
+            or count_l != count_s or count_l != DATA_STEPS - 1:
+        fail(f"data-lag-nan: lag {results['lag']}, sync {results['sync']}")
+    print(f"[data-lag-nan] way c + --chaos nan@{DATA_NAN_AT}: '{named_l[0]}'"
+          f"; ends at (size, crc32) {crc_l}, count {count_l}, bit for bit "
+          f"where the run without --lag-metrics ends; on {card_line}; phase "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+
+def phase_eval(tmp: str, ckpt: str, clip_dir: str, card_line: str) -> dict:
+    """ntxent-eval on way c's checkpoint and on the CLIP checkpoint;
+    returns the launches of a fine-tuning step and of a feature batch."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.training import extract_features
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    t0 = time.monotonic()
+    counters = launch_counters()
+
+    def zero():
+        for wrapper in counters.values():
+            wrapper.launches = 0
+
+    def args_of(*extra):
+        return cli.build_eval_parser().parse_args(
+            EVAL_ARGV + ["--ckpt-dir", ckpt, *extra])
+
+    args = args_of()
+    device = torch.device(args.device)
+    _, _, xte, _ = cli._labeled_arrays(args)
+    features = {}
+    for impl in ("flash", "xla"):
+        model, step = cli.eval_model(args_of("--vit-attention", impl),
+                                     device)
+        zero()
+        t = time.perf_counter()
+        f = extract_features(model.features, xte, args.batch, device).float()
+        torch.cuda.synchronize()
+        features[impl] = (f / f.norm(dim=1, keepdim=True)).cpu().numpy(), \
+            (time.perf_counter() - t) * 1e3, counters[
+                "flash_attention_fwd"].launches
+        del model
+        torch.cuda.empty_cache()
+    batches = -(-len(xte) // args.batch)
+    err = float(np.abs(features["flash"][0] - features["xla"][0]).max())
+    if err > EMBED_ATOL or features["flash"][2] != 12 * batches \
+            or features["xla"][2] != 0:
+        fail(f"eval features: flash against plain attention {err:.2e} (atol "
+             f"{EMBED_ATOL:g}); #11 launches {features['flash'][2]} and "
+             f"{features['xla'][2]}, expected {12 * batches} and 0")
+    t = time.perf_counter()
+    both = cli.evaluate(args)
+    both_s = time.perf_counter() - t
+    ft_args = args_of(*EVAL_FINETUNE)
+    zero()
+    t = time.perf_counter()
+    tuned = cli.evaluate(ft_args)
+    tuned_s = time.perf_counter() - t
+    launches = {n: w.launches for n, w in counters.items()}
+    n_train, n_test = 384, len(xte)
+    # one forward of one image for the feature width, the steps, then the
+    # accuracies of both splits in batches
+    predict = 1 - (-n_train // ft_args.finetune_batch) \
+        - (-n_test // ft_args.finetune_batch)
+    steps = ft_args.finetune_steps
+    want = {n: 0 for n in counters}
+    want.update(flash_attention_fwd=12 * (steps + predict),
+                flash_attention_dq=12 * steps, flash_attention_dkv=12 * steps)
+    if launches != want or not math.isfinite(tuned["finetune_loss"]):
+        fail(f"eval finetune: launches {launches}, expected {want}; loss "
+             f"{tuned['finetune_loss']}")
+    prompts = f"{tmp}/prompts.npy"
+    zs_args = cli.build_eval_parser().parse_args(
+        EVAL_CLIP_ARGV + ["--ckpt-dir", clip_dir, "--protocol", "zeroshot",
+                          "--class-tokens", prompts])
+    np.save(prompts, np.random.default_rng(DATA_SEED).integers(
+        0, zs_args.vocab_size, EVAL_PROMPTS))
+    t = time.perf_counter()
+    zero_shot = cli.evaluate(zs_args)
+    zs_s = time.perf_counter() - t
+    if zero_shot["num_classes"] != EVAL_PROMPTS[0] \
+            or not 0 <= zero_shot["zeroshot_top1"] <= 1:
+        fail(f"eval zeroshot: {zero_shot}")
+    print(f"[eval] way c's step {step}, --dataset synthetic --image-size "
+          f"224: {len(xte)} test features of the flash forward against the "
+          f"plain attention forward on the card, L2-normalized: max |err| "
+          f"{err:.2e} (atol {EMBED_ATOL:g}); extraction "
+          f"{features['flash'][1]:.1f} ms flash, {features['xla'][1]:.1f} "
+          f"ms plain ({batches} batches of {args.batch}; #11 12 a batch)",
+          flush=True)
+    print(f"[eval] --protocol both: {both} in {both_s:.1f} s; "
+          f"{' '.join(EVAL_FINETUNE)}: {tuned} in {tuned_s:.1f} s, launches "
+          f"{ {n: c for n, c in launches.items() if c} } ({steps} steps: "
+          f"12/12/12 of #11/#13/#14 a step, and #11 12 a forward in "
+          f"{predict} forwards of the width probe and the accuracies); CLIP"
+          f" ViT-B/16 --protocol "
+          f"zeroshot with {EVAL_PROMPTS[0]} prompts of {EVAL_PROMPTS[1]} "
+          f"ids: {zero_shot} in {zs_s:.1f} s; on {card_line}; phase "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return {"eval_feature_launches": {"flash_attention_fwd": 12},
+            "finetune_launches": {"flash_attention_fwd": 12,
+                                  "flash_attention_dq": 12,
+                                  "flash_attention_dkv": 12}}
+
+
+def phase_data_imagefolder(tmp: str, card_line: str) -> None:
+    """An ImageNet-layout folder of PNGs decoded by the loader's threads,
+    trained with --prefetch 0 and 2: the data wait a step."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from PIL import Image
+
+    t0 = time.monotonic()
+    count, classes, height, width = IMAGEFOLDER
+    root = f"{tmp}/folder"
+    for c in range(classes):
+        os.makedirs(f"{root}/class_{c}")
+    rng = np.random.default_rng(DATA_SEED)
+    pixels = [rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+              for _ in range(count)]
+
+    def write(i):
+        Image.fromarray(pixels[i]).save(
+            f"{root}/class_{i % classes}/{i:04d}.png")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(count)))
+    write_s = time.monotonic() - t0
+    lines = []
+    for depth in (0, 2):
+        argv = _with_flags(TRAIN_ARGV, "--dataset", "imagefolder",
+                           "--data-dir", root, "--steps",
+                           str(IMAGEFOLDER_STEPS), "--prefetch", str(depth))
+        state, history, _ = _train_ckpt(argv)
+        fetch = _steady(history, "fetch_ms")
+        waits = "/".join(f"{h['data_wait_ms']:.1f}" for h in history)
+        lines.append(
+            f"--prefetch {depth}: data wait a step {waits} ms (steps "
+            f"1-{IMAGEFOLDER_STEPS}), step {_step_ms(history):.1f} ms (steps "
+            f"2-{IMAGEFOLDER_STEPS - 1})" + (f", prefetcher host fetch "
+                                              f"{fetch:.1f} ms"
+                            if fetch is not None else ""))
+        del state
+        torch.cuda.empty_cache()
+    print(f"[data-imagefolder] {count} PNGs of {height}x{width} in "
+          f"{classes} class folders (written in {write_s:.1f} s), decoded "
+          f"and centre-cropped to 224 by 8 loader threads, ViT-B/16 batch "
+          f"256: {'; '.join(lines)}; on {card_line}; phase "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    shutil.rmtree(root)
+
 
 def main() -> int:
     import torch
@@ -5105,12 +5526,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_preempt(tmp, crc_a)
         shutil.rmtree(dir_a)
-        phase_resume_pair(tmp, CLIP_ARGV, "clip")
+        clip_dir = phase_resume_pair(tmp, CLIP_ARGV, "clip")
         guard_launches = phase_guard(smi)
         remat_launches = phase_remat(smi)
         phase_accum(tmp, smi)
         phase_supervise(tmp, crc_a)
         phase_crash_audit(tmp, smi)
+        store, data_ckpt, data_launches = phase_data(tmp, smi)
+        phase_data_lag(smi)
+        phase_data_lag_nan(store, smi)
+        eval_launches = phase_eval(tmp, data_ckpt, clip_dir, smi)
+        shutil.rmtree(clip_dir)
+        shutil.rmtree(data_ckpt)
+        phase_data_imagefolder(tmp, smi)
     from ntxent_tpu_torch.parallel import mesh
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -5120,7 +5548,8 @@ def main() -> int:
             dp_pair_launches = phase_dp_train(
                 smi, DP_PAIR_ARGV, DP_PAIR_STEP_LAUNCHES, "dp-pair")
             phase_dp_parity()
-            phase_resume_pair(tmp, DP_ARGV, "dp", data_parallel=True)
+            shutil.rmtree(phase_resume_pair(tmp, DP_ARGV, "dp",
+                                            data_parallel=True))
             phase_remat_dp()
             clip_dp_launches = phase_clip_dp_train(smi)
             phase_clip_dp_parity()
@@ -5157,6 +5586,12 @@ def main() -> int:
         # a step of the SimCLR path guarded, and under --remat
         kernel["guard_launches"] = guard_launches[wrapper]
         kernel["remat_launches"] = remat_launches[wrapper]
+        # a step of the SimCLR path from the npy store (way c: native
+        # loader, prefetch, lag-1 guard); a feature batch and a fine-tuning
+        # step of ntxent-eval
+        kernel["data_launches"] = data_launches.get(wrapper, 0)
+        for key, per in eval_launches.items():
+            kernel[key] = per.get(wrapper, 0)
         kernel |= ring_times.get(wrapper, {})
         kernel |= wide_fields.get(wrapper, {})
         kernel |= flash_fp32.get(wrapper, {})

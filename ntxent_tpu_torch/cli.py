@@ -1,5 +1,5 @@
-"""Command line of the port: the ``ntxent-serve`` and ``ntxent-train``
-counterparts.
+"""Command line of the port: the ``ntxent-serve``, ``ntxent-train`` and
+``ntxent-eval`` counterparts.
 
 Same flag names and defaults as ``ntxent_tpu/cli.py`` for what the port
 supports, plus ``--device`` (cuda by default; raises without a GPU):
@@ -21,7 +21,9 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
   - ``--objective simclr`` (the default): SimCLR of a ResNet (``--model
     resnet50``, the default, ``resnet18/34/50x2/101/152``, ``tiny``; the
     CIFAR stem at ``--image-size`` <= 64) or a ViT tower on ``--dataset
-    synthetic``. On one card, or data-parallel under ``torchrun`` when
+    synthetic|cifar10|imagefolder|npy`` (``--data-dir``; an npy store
+    fixes ``--image-size``) through ``--loader python`` (threaded reads)
+    or ``native`` (C++ threads over the memmapped npy store). On one card, or data-parallel under ``torchrun`` when
     ``WORLD_SIZE`` > 1 (``cli.py:824-842``): one rank per card
     (``cuda:LOCAL_RANK``, NCCL) or per CPU process under ``--device cpu``
     (gloo), ``--batch`` global, cross-replica BatchNorm, the strip loss
@@ -39,6 +41,12 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
     ``--batch`` global, each rank its rows of every batch, the dual
     InfoNCE (only the text embeddings gathered), only rank 0 logging.
 
+  The input pipeline, on every branch (``cli.py:980-1011``):
+  ``--prefetch DEPTH`` copies the next loader batches to the card ahead
+  of the step (innermost: ``--chaos`` wraps the batches the steps
+  consume), ``--lag-metrics`` reads each step's loss and guard outcome
+  one step late (``train_loop(metrics_lag=1)``).
+
   Training resilience, on every branch as the JAX CLI has it
   (``cli.py:949-1140``): ``--remat`` (the forward rebuilt in the
   backward), ``--accum-steps K`` (an optimizer update every K
@@ -55,10 +63,17 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
   every rank holds its own injector, so a batch fault fires on every
   rank at the same batch.
 
-Every flag of the JAX CLI's ``ntxent-train`` and ``ntxent-serve`` parses
-here. A flag of what is not ported yet (datasets, model parallelism,
-the input pipeline, observability, the adaptive ladder, the int8 rung,
-...) exits, when set, with a message naming its ROADMAP.md item;
+* ``eval_main`` (``build_eval_parser``, ``main`` dispatches ``eval ...``):
+  the newest step of ``--ckpt-dir`` (either package's; ``--accum-steps``
+  shapes its optimizer state) evaluated by ``--protocol probe|knn|both``
+  (frozen features), ``finetune`` (SimCLR) or ``zeroshot`` (CLIP,
+  ``--class-tokens``) on labelled synthetic, CIFAR-10 or ImageFolder
+  data; one JSON line of accuracies.
+
+Every flag of the JAX CLI's ``ntxent-train``, ``ntxent-eval`` and
+``ntxent-serve`` parses here. A flag of what is not ported yet (model
+parallelism, observability, the adaptive ladder, the int8 rung, ...)
+exits, when set, with a message naming its ROADMAP.md item;
 ``--platform cpu|gpu`` selects ``--device``.
 
 Run: ``python -m ntxent_tpu_torch.cli --model vit_b16 --vit-attention
@@ -70,13 +85,18 @@ train --model resnet50 --image-size 224 --batch 256`` (data-parallel
 ResNet-50 on four cards), ``python -m ntxent_tpu_torch.cli train
 --objective clip --model vit_b16 --vit-attention flash --image-size 224
 --batch 256 --steps 100`` (CLIP), or the same under ``torchrun
---nproc_per_node 4 -m ntxent_tpu_torch.cli`` (data-parallel CLIP).
+--nproc_per_node 4 -m ntxent_tpu_torch.cli`` (data-parallel CLIP);
+``python -m ntxent_tpu_torch.cli train ... --dataset npy --data-dir
+rows.npy --loader native --prefetch 2 --lag-metrics --ckpt-dir ck`` then
+``python -m ntxent_tpu_torch.cli eval --model vit_b16 --image-size 224
+--ckpt-dir ck`` (train from a row store, then evaluate).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import logging
 import os
 import sys
@@ -119,6 +139,9 @@ from .training import (
     ROADMAP_ITEMS,
     ArraySource,
     CheckpointManager,
+    Cifar10Source,
+    ImageFolderSource,
+    NativeStreamingLoader,
     PairedArrayLoader,
     PairedPipeline,
     PreemptionGuard,
@@ -127,7 +150,11 @@ from .training import (
     TwoViewPipeline,
     create_clip_train_state,
     create_train_state,
+    extract_features,
+    finetune,
     fit,
+    knn_accuracy,
+    linear_probe,
     make_clip_train_step,
     make_sharded_clip_train_step,
     make_sharded_train_step,
@@ -138,8 +165,9 @@ from .utils.watchdog import StallWatchdog
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["build_clip_model", "build_model", "build_serve_parser",
-           "build_server", "build_train_parser", "serve_main", "train",
+__all__ = ["build_clip_model", "build_eval_parser", "build_model",
+           "build_serve_parser", "build_server", "build_train_parser",
+           "eval_main", "eval_model", "evaluate", "serve_main", "train",
            "train_main"]
 
 ENCODERS = {"vit_t16": ViT_Ti16, "vit_s16": ViT_S16, "vit_b16": ViT_B16,
@@ -401,8 +429,7 @@ def serve_main(argv=None) -> int:
 
 # (dest, the JAX CLI's default, item): train flags that exit when set.
 TRAIN_UNPORTED = [
-    ("prefetch", 0, "pipeline"),
-    ("lag_metrics", False, "pipeline"), ("ring_chunks", None, "chunked"),
+    ("ring_chunks", None, "chunked"),
     ("measure_overlap", False, "chunked"), ("model_par", 2, "mp"),
     ("tp_loss_axes", "data", "mp"), ("moe_aux_weight", 0.01, "mp"),
     ("coordinator", None, "mp"), ("num_processes", None, "mp"),
@@ -413,22 +440,27 @@ TRAIN_UNPORTED = [
 ]
 
 
-def build_train_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
-        prog="ntxent-train (torch)",
-        description="SimCLR (fused NT-Xent kernels) or CLIP (fused "
-                    "InfoNCE kernels) on one card or data-parallel under "
-                    "torchrun, on PyTorch/CUDA")
+def _add_common_args(p: argparse.ArgumentParser) -> None:
+    """The data and model flags ``ntxent-train`` and ``ntxent-eval``
+    share (``cli.py:33-78``), with ``--seed``, ``--platform`` and
+    ``--device``."""
     d = p.add_argument_group("data")
     d.add_argument("--dataset", default="synthetic",
                    choices=["synthetic", "cifar10", "imagefolder", "npy"],
-                   help="only synthetic is ported")
+                   help="cifar10: the cifar-10-batches-py pickles under "
+                        "--data-dir; imagefolder: --data-dir/<class>/<image> "
+                        "(decoded, shorter side resized, centre-cropped); "
+                        "npy: a (N, H, H, 3) array file read through a "
+                        "memmap (--data-dir is the .npy file)")
     d.add_argument("--data-dir", default=None)
     d.add_argument("--image-size", type=int, default=None,
-                   help="default: 32 (synthetic)")
+                   help="default: 224 for imagefolder, the store's for npy, "
+                        "32 otherwise")
     d.add_argument("--loader", default="python",
-                   choices=["python", "native"])
-    p.add_argument("--synthetic-samples", type=int, default=512)
+                   choices=["python", "native"],
+                   help="python: worker threads read the source; native: "
+                        "C++ threads gather the rows of a memmapped npy "
+                        "store (the same batches)")
 
     m = p.add_argument_group("model")
     m.add_argument("--model", default="resnet50", choices=MODEL_CHOICES)
@@ -444,6 +476,21 @@ def build_train_parser() -> argparse.ArgumentParser:
     m.add_argument("--proj-dim", type=int, default=128)
     m.add_argument("--moe-experts", type=int, default=0)
     m.add_argument("--moe-aux-weight", type=float, default=0.01)
+
+    p.add_argument("--seed", type=int, default=0)
+    _add_platform(p)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a GPU) or cpu")
+
+
+def build_train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ntxent-train (torch)",
+        description="SimCLR (fused NT-Xent kernels) or CLIP (fused "
+                    "InfoNCE kernels) on one card or data-parallel under "
+                    "torchrun, on PyTorch/CUDA")
+    _add_common_args(p)
+    p.add_argument("--synthetic-samples", type=int, default=512)
 
     t = p.add_argument_group("training")
     t.add_argument("--objective", default="simclr",
@@ -489,8 +536,6 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "more forward a step; the recompute rebuilds every "
                         "activation at once, so peak memory does not fall")
     t.add_argument("--log-every", type=int, default=50)
-    t.add_argument("--device", default="cuda",
-                   help="cuda (default; fails without a GPU) or cpu")
 
     c = p.add_argument_group("checkpoints (the JAX package's format)")
     c.add_argument("--ckpt-dir", default=None,
@@ -539,9 +584,14 @@ def build_train_parser() -> argparse.ArgumentParser:
                    metavar="SECONDS",
                    help="dump every thread's stack after this long without "
                         "a step; supervised, also stop and restart")
-    i = p.add_argument_group("input pipeline (not ported)")
-    i.add_argument("--prefetch", type=int, default=0, metavar="DEPTH")
-    i.add_argument("--lag-metrics", action="store_true")
+    i = p.add_argument_group("input pipeline")
+    i.add_argument("--prefetch", type=int, default=0, metavar="DEPTH",
+                   help="copy the next DEPTH loader batches to the card "
+                        "(pinned buffers, a side stream) ahead of the step")
+    i.add_argument("--lag-metrics", action="store_true",
+                   help="read each step's loss and guard outcome one step "
+                        "late, after the next step is queued (the guard "
+                        "then keeps a bad update out on the card)")
 
     o = p.add_argument_group("observability (not ported)")
     o.add_argument("--metrics-port", type=int, default=None, metavar="PORT")
@@ -556,9 +606,6 @@ def build_train_parser() -> argparse.ArgumentParser:
     h.add_argument("--coordinator", default=None)
     h.add_argument("--num-processes", type=int, default=None)
     h.add_argument("--process-id", type=int, default=None)
-
-    p.add_argument("--seed", type=int, default=0)
-    _add_platform(p)
     return p
 
 
@@ -575,6 +622,8 @@ def _check_train_args(args) -> None:
         raise SystemExit("--objective clip takes paired data via "
                          "--data-dir pairs.npz (images + tokens arrays); "
                          "--dataset applies to the simclr objective only")
+    if args.prefetch < 0:
+        raise SystemExit("--prefetch must be >= 0")
     if args.dp_loss in NOT_PORTED:
         raise SystemExit(f"ntxent-train (torch): --dp-loss {args.dp_loss} "
                          f"is not ported yet: {NOT_PORTED[args.dp_loss]}")
@@ -582,9 +631,9 @@ def _check_train_args(args) -> None:
         (args.stem != "conv", f"--stem {args.stem}", "stem"),
         (args.collective_dtype != "float32",
          f"--collective-dtype {args.collective_dtype}", "wire"),
-        (args.dataset != "synthetic", f"--dataset {args.dataset}", "data"),
-        (args.data_dir is not None and not clip, "--data-dir", "data"),
-        (args.loader != "python", f"--loader {args.loader}", "data"),
+        (args.lag_metrics and args.accum_steps > 1
+         and args.nan_policy != "off" and not clip,
+         "--lag-metrics with --accum-steps and --nan-policy", "lag_accum"),
         (args.parallel != "dp" or args.fsdp, "--parallel tp / --fsdp", "mp"),
         (clip and args.clip_parallel != "dp", "--clip-parallel tp", "mp"),
         (args.moe_experts > 0, "--moe-experts", "mp"),
@@ -638,24 +687,81 @@ def _make_step_guard(nan_policy: str) -> DivergenceGuard | None:
     return DivergenceGuard()  # rollback: every tier armed
 
 
-def _synthetic_pipeline(args, device, rank: int = 0, world_size: int = 1,
-                        injector: FaultInjector | None = None
-                        ) -> TwoViewPipeline:
-    """``--dataset synthetic`` as the JAX CLI makes it
-    (``RandomState(seed).rand``), streamed and augmented on ``device``;
-    rank ``rank`` of ``world_size`` gets its rows of each global batch.
-    Each source read retries transient errors (``cli.py:560-561``); the
-    ``injector``'s ``fetch@n`` fails them."""
+def _npy_store_shape(args) -> tuple:
+    """The array shape of ``--dataset npy``'s store (``cli.py:332-339``),
+    read through a memmap."""
+    if args.data_dir is None:
+        raise SystemExit("--dataset npy requires --data-dir")
+    return np.load(args.data_dir, mmap_mode="r").shape
+
+
+def _resolve_image_size(args) -> None:
+    """``--image-size`` of a SimCLR run (``cli.py:645-656``): an npy store
+    has no resize path, so the model takes the store's size (a different
+    explicit size exits); imagefolder defaults to 224, the rest to 32."""
+    if args.dataset == "npy":
+        store_size = int(_npy_store_shape(args)[1])
+        if args.image_size is not None and args.image_size != store_size:
+            raise SystemExit(
+                f"--image-size {args.image_size} disagrees with the npy "
+                f"store's row shape ({store_size}); omit the flag or "
+                f"re-export the store")
+        args.image_size = store_size
+    elif args.image_size is None:
+        args.image_size = 224 if args.dataset == "imagefolder" else 32
+
+
+def _source(args):
+    """The source of ``--dataset`` (``cli.py:536-554``); synthetic as the
+    JAX CLI draws it (``RandomState(seed).rand``)."""
+    if args.dataset in ("cifar10", "imagefolder") and args.data_dir is None:
+        raise SystemExit(f"--dataset {args.dataset} requires --data-dir")
+    if args.dataset == "cifar10":
+        return Cifar10Source(args.data_dir)
+    if args.dataset == "imagefolder":
+        return ImageFolderSource(args.data_dir, image_size=args.image_size)
+    if args.dataset == "npy":
+        return ArraySource(np.load(args.data_dir, mmap_mode="r"))
     rng = np.random.RandomState(args.seed)
-    source = ArraySource(rng.rand(args.synthetic_samples, args.image_size,
-                                  args.image_size, 3).astype(np.float32))
-    if injector is not None:
-        source = injector.wrap_source(source)
-    loader = StreamingLoader(
-        source, args.batch, seed=args.seed, rank=rank, world_size=world_size,
-        retry_policy=RetryPolicy(max_attempts=3, base_delay_s=0.1,
-                                 max_delay_s=5.0, seed=args.seed))
-    return TwoViewPipeline(loader, device, seed=args.seed + 1)
+    return ArraySource(rng.rand(args.synthetic_samples, args.image_size,
+                                args.image_size, 3).astype(np.float32))
+
+
+def _make_pipeline(args, device, rank: int = 0, world_size: int = 1,
+                   injector: FaultInjector | None = None) -> TwoViewPipeline:
+    """The SimCLR input pipeline (``cli.py:523-598``): the ``--dataset``
+    source, the ``--loader`` engine (rank ``rank`` of ``world_size`` gets
+    its rows of each global batch), views augmented on ``device`` and,
+    with ``--prefetch``, the loader batches on their way to the device
+    ahead of the step. Each source read retries transient errors
+    (``cli.py:560-561``), the ``injector``'s ``fetch@n`` fails them; the
+    native engine reads the file itself, so ``fetch@n`` is ignored
+    there, with the JAX CLI's warning."""
+    source = _source(args)
+    retry = RetryPolicy(max_attempts=3, base_delay_s=0.1, max_delay_s=5.0,
+                        seed=args.seed)
+    if args.loader == "native":
+        if injector is not None and injector.plan.fetch_calls:
+            logger.warning("--chaos fetch@N ignored: the native engine "
+                           "reads the mmap'd file directly (no per-item "
+                           "__getitem__ to inject into)")
+        try:
+            loader = NativeStreamingLoader(
+                source, args.batch, seed=args.seed, rank=rank,
+                world_size=world_size, retry_policy=retry)
+        except (TypeError, ValueError, OSError, RuntimeError) as e:
+            # not a memmap, or the engine did not build: one clean exit
+            raise SystemExit(f"--loader native: {e}") from None
+    else:
+        if injector is not None:
+            source = injector.wrap_source(source)
+        loader = StreamingLoader(source, args.batch, seed=args.seed,
+                                 rank=rank, world_size=world_size,
+                                 retry_policy=retry)
+    if args.prefetch and rank == 0:
+        logger.info("device prefetch: depth %d", args.prefetch)
+    return TwoViewPipeline(loader, device, seed=args.seed + 1,
+                           prefetch=args.prefetch)
 
 
 def _clip_data(args):
@@ -753,7 +859,7 @@ def _train_clip(args, device, stats, injector):
     logger.info("training %s on %s: batch %d, %d steps, peak lr %g",
                 _clip_label(args), device_name(device), args.batch,
                 args.steps, args.base_lr)
-    return _fit(args, fresh(), PairedPipeline(loader, device),
+    return _fit(args, fresh(), PairedPipeline(loader, device, args.prefetch),
                 make_clip_train_step(remat=args.remat), stats, views=1,
                 state_factory=fresh, injector=injector)
 
@@ -795,7 +901,8 @@ def _train_clip_data_parallel(args, stats, injector):
                     _clip_label(args), world,
                     torch.distributed.get_backend(), args.batch, args.steps,
                     args.base_lr)
-    state, history = _fit(args, fresh(), PairedPipeline(loader, device),
+    state, history = _fit(args, fresh(),
+                          PairedPipeline(loader, device, args.prefetch),
                           make_sharded_clip_train_step(None,
                                                        remat=args.remat),
                           stats, views=1, ranks=world, log=lead,
@@ -815,8 +922,12 @@ def train(args, data_parallel: bool | None = None,
     ``checkpoint_stats`` receives ``fit``'s checkpoint timings."""
     _check_train_args(args)
     injector = _make_injector(args)
-    if args.image_size is None and args.objective != "clip":
-        args.image_size = 32
+    if args.objective == "clip":
+        if args.loader != "python":
+            logger.warning("--loader %s ignored: the CLIP objective uses "
+                           "PairedArrayLoader", args.loader)
+    else:
+        _resolve_image_size(args)
     if data_parallel is None:
         data_parallel = int(os.environ.get("WORLD_SIZE", "1")) > 1
     if data_parallel:
@@ -844,8 +955,7 @@ def train(args, data_parallel: bool | None = None,
                 _model_label(args), device_name(device), args.batch,
                 args.steps, cfg.learning_rate)
     state, history = _fit(args, fresh(),
-                          _synthetic_pipeline(args, device,
-                                              injector=injector),
+                          _make_pipeline(args, device, injector=injector),
                           step, checkpoint_stats, state_factory=fresh,
                           step_guard=_make_step_guard(args.nan_policy),
                           injector=injector)
@@ -895,8 +1005,8 @@ def _train_data_parallel(args, stats, injector):
                     torch.distributed.get_backend(), args.dp_loss,
                     args.batch, args.steps, cfg.learning_rate)
     state, history = _fit(args, fresh(),
-                          _synthetic_pipeline(args, device, rank, world,
-                                              injector),
+                          _make_pipeline(args, device, rank, world,
+                                         injector),
                           step, stats, ranks=world, log=lead,
                           state_factory=fresh,
                           step_guard=_make_step_guard(args.nan_policy),
@@ -933,7 +1043,11 @@ def _fit(args, state, data, step, stats: dict | None, views: int = 2,
         checkpoint_mirror=args.ckpt_mirror, views=views, ranks=ranks,
         log=log, checkpoint_stats=stats, step_guard=step_guard,
         checkpoint_fault_hook=(injector.on_checkpoint_write
-                               if injector is not None else None))
+                               if injector is not None else None),
+        metrics_lag=1 if args.lag_metrics else 0)
+    if args.lag_metrics and log:
+        logger.info("lag-1 metrics drain: guard/telemetry reads run one "
+                    "step behind dispatch")
     if args.max_restarts <= 0 and injector is None:
         watchdog = (StallWatchdog(timeout_s=args.stall_timeout)
                     if args.stall_timeout else None)
@@ -1008,11 +1122,284 @@ def train_main(argv=None) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# ntxent-eval
+# --------------------------------------------------------------------------
+
+def build_eval_parser() -> argparse.ArgumentParser:
+    """Every flag of the JAX CLI's ``ntxent-eval`` (``cli.py:2564-2611``)
+    and ``--device``."""
+    p = argparse.ArgumentParser(
+        prog="ntxent-eval (torch)",
+        description="SSL evaluation of a pretrained checkpoint (either "
+                    "package's): linear probe, weighted kNN, fine-tuning "
+                    "or CLIP zero-shot, on PyTorch/CUDA")
+    _add_common_args(p)  # model/proj flags must match the training run
+    p.add_argument("--ckpt-dir", required=True)
+    p.add_argument("--objective", default="simclr",
+                   choices=["simclr", "clip"],
+                   help="what the checkpoint was trained with; clip "
+                        "evaluates the projected, L2-normalized image "
+                        "embeddings (encode_image) and needs --vocab-size "
+                        "and --token-len to match the run")
+    p.add_argument("--vocab-size", type=int, default=49408)
+    p.add_argument("--token-len", type=int, default=77)
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="match the training run's value (it shapes the "
+                        "checkpoint's optimizer state)")
+    p.add_argument("--protocol", default="both",
+                   choices=["probe", "knn", "both", "finetune", "zeroshot"],
+                   help="frozen-feature probe / kNN; finetune: the whole "
+                        "encoder (SimCLR checkpoints); zeroshot: CLIP "
+                        "checkpoints classify test images by the nearest "
+                        "class-prompt embedding (--class-tokens)")
+    p.add_argument("--class-tokens", default=None, metavar="NPY",
+                   help="zeroshot: (num_classes, token_len) int array of "
+                        "tokenized class prompts saved by np.save; row i "
+                        "is the prompt of label i")
+    p.add_argument("--finetune-steps", type=int, default=500)
+    p.add_argument("--finetune-lr", type=float, default=1e-3)
+    p.add_argument("--finetune-batch", type=int, default=64,
+                   help="fine-tuning minibatch (full backprop through the "
+                        "encoder)")
+    p.add_argument("--batch", type=int, default=256,
+                   help="feature-extraction batch")
+    p.add_argument("--probe-steps", type=int, default=500)
+    p.add_argument("--k", type=int, default=20)
+    p.add_argument("--max-train", type=int, default=10000,
+                   help="subsample caps keep eval wall time bounded")
+    p.add_argument("--max-test", type=int, default=2000)
+    return p
+
+
+def _labeled_arrays(args, test_only: bool = False):
+    """(train_images, train_labels, test_images, test_labels), float32
+    NHWC in [0, 1] (``cli.py:2612-2692``): CIFAR-10's train and test
+    batches, an image folder's even and odd images (the caps applied to
+    the indices before decoding), or 512 synthetic images of 4 classes
+    with a class-dependent mean shift (384 train, 128 test); then the
+    caps. ``test_only`` loads no train split."""
+    def subsample(images, labels, cap, seed):
+        if cap and len(images) > cap:
+            idx = np.random.RandomState(seed).choice(
+                len(images), cap, replace=False)
+            return images[idx], labels[idx]
+        return images, labels
+
+    def empty_like(x, y):
+        return (np.zeros((0,) + x.shape[1:], x.dtype),
+                np.zeros((0,), y.dtype))
+
+    if args.dataset == "cifar10":
+        if args.data_dir is None:
+            raise SystemExit("--dataset cifar10 requires --data-dir")
+        te = Cifar10Source(args.data_dir, train=False)
+        xte, yte = te.images, te.labels
+        if test_only:
+            xtr, ytr = empty_like(xte, yte)
+        else:
+            tr = Cifar10Source(args.data_dir, train=True)
+            xtr, ytr = tr.images, tr.labels
+    elif args.dataset == "imagefolder":
+        if args.data_dir is None:
+            raise SystemExit("--dataset imagefolder requires --data-dir")
+        src = ImageFolderSource(args.data_dir, image_size=args.image_size)
+
+        def pick(idxs, cap, seed):
+            if cap and len(idxs) > cap:
+                idxs = np.random.RandomState(seed).choice(
+                    idxs, cap, replace=False)
+            return np.sort(idxs)
+
+        te_idx = pick(np.arange(1, len(src), 2), args.max_test,
+                      args.seed + 1)
+        if len(te_idx) == 0:
+            raise SystemExit(
+                f"imagefolder {args.data_dir} has no test images (the "
+                "odd-index half is empty); need at least 2 images")
+        xte = np.stack([src[int(i)] for i in te_idx])
+        yte = src.labels[te_idx]
+        if test_only:
+            xtr, ytr = empty_like(xte, yte)
+        else:
+            tr_idx = pick(np.arange(0, len(src), 2), args.max_train,
+                          args.seed)
+            xtr = np.stack([src[int(i)] for i in tr_idx])
+            ytr = src.labels[tr_idx]
+    elif args.dataset == "npy":
+        raise SystemExit("--dataset npy has no labels; evaluation needs "
+                         "cifar10 or imagefolder")
+    else:
+        rng = np.random.RandomState(args.seed)
+        n, s = 512, args.image_size
+        labels = rng.randint(0, 4, n).astype(np.int32)
+        # a class-dependent mean shift makes the synthetic task learnable
+        imgs = (rng.rand(n, s, s, 3) * 0.5
+                + labels[:, None, None, None] * 0.125).astype(np.float32)
+        xtr, ytr = imgs[:384], labels[:384]
+        xte, yte = imgs[384:], labels[384:]
+    xtr, ytr = subsample(xtr, ytr, args.max_train, args.seed)
+    xte, yte = subsample(xte, yte, args.max_test, args.seed + 1)
+
+    def to_f32(x):
+        return (x.astype(np.float32) / 255.0 if x.dtype == np.uint8
+                else x.astype(np.float32))
+
+    return to_f32(xtr), ytr, to_f32(xte), yte
+
+
+def _check_eval_args(args) -> str | None:
+    """The JAX CLI's early refusals (``cli.py:2699-2717``): the message of
+    a protocol that does not fit the objective, else None. Exits naming
+    the ROADMAP item of a flag not ported."""
+    if args.protocol == "finetune" and args.objective == "clip":
+        return ("--protocol finetune needs a SimCLR-objective checkpoint "
+                "(an encoder with a features method)")
+    if args.protocol == "zeroshot":
+        if args.objective != "clip":
+            return ("--protocol zeroshot needs a CLIP-objective checkpoint "
+                    "(a text tower to embed the class prompts); got "
+                    f"--objective {args.objective}")
+        if not args.class_tokens:
+            return ("--protocol zeroshot requires --class-tokens "
+                    "(pre-tokenized class prompts; see --help)")
+    _apply_platform(args)
+    if args.stem != "conv":
+        raise SystemExit(f"ntxent-eval (torch): --stem {args.stem} is not "
+                         f"ported yet: {ROADMAP_ITEMS['stem']}")
+    if args.moe_experts > 0:
+        raise SystemExit("ntxent-eval (torch): --moe-experts is not ported "
+                         f"yet: {ROADMAP_ITEMS['mp']}")
+    if args.objective == "clip" and args.model.startswith("resnet"):
+        raise SystemExit("--objective clip checkpoints have ViT image "
+                         "towers (--model vit_*|tiny); no resnet CLIP "
+                         "checkpoint can exist")
+    return None
+
+
+def eval_model(args, device):
+    """The model of ``args`` (SimCLR or CLIP) with the newest step of
+    ``--ckpt-dir`` restored into the train state its run wrote (the
+    optimizer's layout from ``--accum-steps``), in eval mode; returns
+    (model, step)."""
+    if args.image_size is None:
+        args.image_size = 224 if args.dataset == "imagefolder" else 32
+    config = TrainerConfig(accum_steps=args.accum_steps)
+    if args.objective == "clip":
+        state = create_clip_train_state(build_clip_model(args), config,
+                                        device)
+    else:
+        state = create_train_state(build_model(args), config, device)
+    if not os.path.isdir(args.ckpt_dir) \
+            or CheckpointManager(args.ckpt_dir).latest_step() is None:
+        raise SystemExit(f"no checkpoint under {args.ckpt_dir}")
+    manager = CheckpointManager(args.ckpt_dir)
+    try:
+        state = manager.restore(state)
+    finally:
+        manager.close()
+    logger.info("restored step %d from %s", state.step, args.ckpt_dir)
+    return state.model.eval(), state.step
+
+
+def _zeroshot(args, model, step: int, device) -> dict:
+    """CLIP zero-shot top-1 (``cli.py:2813-2869``): each test image takes
+    the label of its nearest class-prompt embedding; every row of
+    ``--class-tokens`` competes, and only the test split is loaded."""
+    toks = np.load(args.class_tokens)
+    if toks.ndim != 2 or not np.issubdtype(toks.dtype, np.integer):
+        raise SystemExit(f"--class-tokens must be a 2-D integer array; got "
+                         f"{toks.dtype} {toks.shape}")
+    if toks.shape[1] != args.token_len:
+        raise SystemExit(f"--class-tokens rows are {toks.shape[1]} tokens "
+                         f"but the checkpoint's text tower takes "
+                         f"--token-len {args.token_len}")
+    if int(toks.min()) < 0 or int(toks.max()) >= args.vocab_size:
+        raise SystemExit(f"--class-tokens ids must be in [0, "
+                         f"{args.vocab_size}); got range "
+                         f"[{int(toks.min())}, {int(toks.max())}]")
+    _, _, xte, yte = _labeled_arrays(args, test_only=True)
+    n_prompt = int(toks.shape[0])
+    if len(yte) == 0:
+        raise SystemExit("zero-shot eval needs a non-empty test split; got "
+                         "0 test examples (check the dataset's test half)")
+    if int(yte.max()) >= n_prompt:
+        raise SystemExit(f"test labels reach {int(yte.max())} but "
+                         f"--class-tokens has only {n_prompt} prompt rows "
+                         "(row i = label i)")
+    with torch.no_grad():
+        # both encoders L2-normalize: the product is the cosine similarity
+        text = model.encode_text(torch.as_tensor(toks, device=device).long())
+        fte = extract_features(model.encode_image, xte, args.batch, device)
+        pred = (fte.float() @ text.float().T).argmax(1).cpu().numpy()
+    acc = float(np.mean(pred == yte))
+    logger.info("zero-shot top-1: %.4f over %d prompt classes", acc,
+                n_prompt)
+    return {"step": step, "zeroshot_top1": acc, "num_classes": n_prompt,
+            "num_test": int(len(yte))}
+
+
+def evaluate(args) -> dict:
+    """``eval_main``'s work from parsed ``args`` (refusals checked);
+    returns the JSON record it prints."""
+    device = resolve_device(args.device)
+    model, step = eval_model(args, device)
+    if args.protocol == "zeroshot":
+        return _zeroshot(args, model, step, device)
+    xtr, ytr, xte, yte = _labeled_arrays(args)
+    num_classes = int(max(int(ytr.max()), int(yte.max()))) + 1
+    generator = torch.Generator().manual_seed(args.seed)
+    if args.protocol == "finetune":
+        res = finetune(model, xtr, ytr, xte, yte, num_classes,
+                       steps=args.finetune_steps,
+                       batch_size=args.finetune_batch,
+                       learning_rate=args.finetune_lr, generator=generator)
+        logger.info("finetune top-1: %.4f", res["test_accuracy"])
+        return {"step": step, "finetune_top1": res["test_accuracy"],
+                "finetune_train_top1": res["train_accuracy"],
+                "finetune_loss": res["final_loss"]}
+    apply_features = (model.encode_image if args.objective == "clip"
+                      else model.features)
+    feats = extract_features(apply_features, np.concatenate([xtr, xte]),
+                             args.batch, device).float()
+    ftr, fte = feats[:len(xtr)], feats[len(xtr):]
+    logger.info("features: train %s test %s, %d classes",
+                tuple(ftr.shape), tuple(fte.shape), num_classes)
+    results = {"step": step}
+    if args.protocol in ("knn", "both"):
+        results["knn_top1"] = knn_accuracy(ftr, ytr, fte, yte, k=args.k)
+        logger.info("kNN (k=%d) top-1: %.4f", args.k, results["knn_top1"])
+    if args.protocol in ("probe", "both"):
+        probe = linear_probe(ftr, ytr, fte, yte, num_classes,
+                             steps=args.probe_steps, generator=generator)
+        results["probe_top1"] = probe["test_accuracy"]
+        logger.info("linear probe top-1: %.4f", results["probe_top1"])
+    return results
+
+
+def eval_main(argv=None) -> int:
+    """``ntxent-eval``: restore ``--ckpt-dir``, run ``--protocol``, print
+    one JSON line (``cli.py:2694-2908``)."""
+    args = build_eval_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    refusal = _check_eval_args(args)
+    if refusal is not None:
+        logger.error(refusal)
+        return 2
+    print(json.dumps(evaluate(args)), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
-    """``train ...`` runs ``train_main``; anything else ``serve_main``."""
+    """``train ...`` runs ``train_main``, ``eval ...`` ``eval_main``;
+    anything else ``serve_main``."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["train"]:
         return train_main(argv[1:])
+    if argv[:1] == ["eval"]:
+        return eval_main(argv[1:])
     return serve_main(argv)
 
 

@@ -9,6 +9,11 @@ PyTorch header, so a build takes seconds. Libraries go to
 use: a fresh checkout builds what it runs. A source may include the
 headers beside it (``csrc/*.cuh``); their bytes enter every hash.
 ``build()`` starts one ``nvcc`` per missing library, all at once.
+
+Host sources (``HOST_SOURCES``: the native loader's ``csrc/loader.cpp``)
+take the host compiler (``$CXX``, ``c++`` or ``g++``; ``-O3 -std=c++17
+-shared -fPIC -pthread``) into the same directory under the same scheme,
+at their first ``load_host``; nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "load", "nvcc_command"]
+__all__ = ["BUILD_DIR", "HOST_SOURCES", "SOURCES", "build", "build_host",
+           "host_compiler", "load", "load_host", "nvcc_command"]
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_kernels"
@@ -39,6 +45,9 @@ SOURCES: dict[str, Path] = {
     "ntxent_dual_grads": _PACKAGE / "csrc" / "ntxent_dual_grads.cu",
     "ntxent_tri_fwd": _PACKAGE / "csrc" / "ntxent_tri_fwd.cu",
     "ntxent_tri_bwd": _PACKAGE / "csrc" / "ntxent_tri_bwd.cu",
+}
+HOST_SOURCES: dict[str, Path] = {
+    "loader": _PACKAGE / "csrc" / "loader.cpp",
 }
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -114,4 +123,53 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return lib
+
+
+def host_compiler() -> str | None:
+    """The host C++ compiler: ``$CXX``, else ``c++`` or ``g++`` on PATH."""
+    for candidate in (os.environ.get("CXX"), "c++", "g++"):
+        found = candidate and shutil.which(candidate)
+        if found:
+            return found
+    return None
+
+
+def host_library_path(name: str) -> Path:
+    """The library of host source ``name``, named by a hash of it."""
+    digest = hashlib.sha1(HOST_SOURCES[name].read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile host source ``name`` unless built; written to a temporary
+    name and renamed, so a concurrent build never loads a partial file.
+    Raises ``RuntimeError`` with the compiler's output on failure."""
+    path = host_library_path(name)
+    if path.exists():
+        return path
+    cxx = host_compiler()
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (set CXX or put c++ on "
+                           f"PATH): {name} is built from source")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [cxx, "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-o",
+         str(tmp), str(HOST_SOURCES[name])], capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed for {name} (rc {proc.returncode}):"
+                           f"\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of host source ``name``, built first if needed."""
+    with _lock:
+        key = f"host:{name}"
+        lib = _loaded.get(key)
+        if lib is None:
+            lib = _loaded[key] = ctypes.CDLL(str(build_host(name)))
         return lib

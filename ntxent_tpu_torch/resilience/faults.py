@@ -44,6 +44,7 @@ import errno
 import logging
 import os
 import signal
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -173,6 +174,7 @@ class FaultInjector:
         self._fetches = 0
         self._ckpt_writes = 0
         self._attempts = 0
+        self._fetch_lock = threading.Lock()  # reads run on loader threads
         self.fired: list[str] = []
 
     # -- batch faults (wrap the training data iterator) ------------------
@@ -225,11 +227,14 @@ class FaultInjector:
         return _FlakySource(source, self)
 
     def on_fetch(self) -> None:
-        self._fetches += 1
-        if self._fetches in self.plan.fetch_calls:
-            self.fired.append(f"fetch@{self._fetches}")
+        with self._fetch_lock:
+            self._fetches += 1
+            n = self._fetches
+            if n in self.plan.fetch_calls:
+                self.fired.append(f"fetch@{n}")
+        if n in self.plan.fetch_calls:
             raise OSError(f"chaos: injected transient fetch failure "
-                          f"(call {self._fetches})")
+                          f"(call {n})")
 
     # -- checkpoint-writer faults (CheckpointManager fault_hook) ---------
     def on_checkpoint_write(self) -> None:

@@ -96,15 +96,64 @@ class LARS:
                      else dict(mask))
         if set(self.mask) != set(self.params):
             raise ValueError("the mask must name every parameter")
-        self.count = 0
+        self._count = 0
+        # the count on the device while kept steps run (step_kept), an
+        # upper bound of it on the host and the table of -lr it indexes
+        self._device_count = None
+        self._count_bound = 0
+        self._neg_lr = None
         self.trace = {name: torch.zeros_like(p)
                       for name, p in self.params.items()}
         self._saved = None  # snapshot()'s buffers
+
+    @property
+    def count(self) -> int:
+        """The update count (the schedule's step). After kept steps it
+        lives on the device, and reading it here waits for them."""
+        if self._device_count is not None:
+            self._count = int(self._device_count)
+            self._device_count = None
+        return self._count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count = int(value)
+        self._device_count = None
 
     @torch.no_grad()
     def step(self) -> float:
         """One update from the parameters' ``.grad``; returns the lr used."""
         lr = self.schedule(self.count)
+        self._update(-lr)
+        self._count += 1
+        return lr
+
+    @torch.no_grad()
+    def step_kept(self, ok: torch.Tensor) -> None:
+        """One update at the learning rate of the count on the device, which
+        then advances by ``ok`` (a device bool), so the host never waits:
+        the lag-1 guard's step, whose caller keeps the update out of the
+        parameters and momentum where ``ok`` is false. The rate is read
+        from a float32 table of ``-schedule(count)``, the value ``step()``
+        multiplies by, so both give the same bits."""
+        if self._device_count is None:
+            self._device_count = torch.full((), self._count,
+                                            dtype=torch.int64,
+                                            device=ok.device)
+            self._count_bound = self._count
+        if self._neg_lr is None or len(self._neg_lr) <= self._count_bound:
+            n = max(1024, 2 * (self._count_bound + 1))
+            self._neg_lr = torch.tensor(
+                [-self.schedule(c) for c in range(n)], dtype=torch.float32,
+                device=ok.device)
+        self._update(torch.index_select(
+            self._neg_lr, 0, self._device_count.view(1)).view(()))
+        self._device_count.add_(ok.to(torch.int64))
+        self._count_bound += 1
+
+    def _update(self, neg_lr) -> None:
+        """The update of every parameter at ``-lr`` (a float, or a 0-dim
+        float32 tensor on the parameters' device)."""
         for name, p in self.params.items():
             if p.grad is None:
                 raise RuntimeError(f"{name} has no gradient")
@@ -118,10 +167,8 @@ class LARS:
                                     self.trust_coefficient * p_norm / u_norm)
                 u = u * ratio
             trace = self.trace[name]
-            trace.mul_(self.momentum).add_(u * -lr)
+            trace.mul_(self.momentum).add_(u * neg_lr)
             p.add_(trace)
-        self.count += 1
-        return lr
 
     @torch.no_grad()
     def snapshot(self) -> tuple:

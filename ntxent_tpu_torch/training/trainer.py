@@ -38,11 +38,12 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   the loss and the all-gather's reduce-scatter carry the factor), so their
   pmean is the gradient of the global loss, as under JAX's ``shard_map``
   with ``check_vma=False``;
-* ``train_loop``: steps, loss, steps/s and images/s every ``log_every``;
-  ``stop_fn`` ends the run at a step boundary, ``step_hook`` runs after
-  every step, ``watchdog`` (``utils.watchdog.StallWatchdog``) is beaten
-  once a step and ``step_guard`` (``resilience.DivergenceGuard``) sees
-  each step's ``StepOutcome``;
+* ``train_loop``: steps, loss, steps/s, images/s and the data wait every
+  ``log_every``; ``stop_fn`` ends the run at a step boundary,
+  ``step_hook`` runs after every step, ``watchdog`` (``utils.watchdog.
+  StallWatchdog``) is beaten once a step and ``step_guard``
+  (``resilience.DivergenceGuard``) sees each step's ``StepOutcome``, one
+  step late under ``metrics_lag=1`` (the lag-1 drain);
 * ``fit`` (``trainer.py:1167``): checkpoint-aware training over
   ``training.checkpoint``: restore the newest valid step (or
   ``restore_step``, newer steps truncated) with the input pipeline's
@@ -66,7 +67,11 @@ Training resilience (``trainer.py:52-104``, ``:133-138``, ``:202-224``):
   loss, so every rank decides alike. Reading ``ok`` is one host sync a
   step (the JAX guard reads its outcome every step too), made after the
   update is queued: the update runs from a snapshot that a bad step puts
-  back. The unguarded step adds none;
+  back. The unguarded step adds none. Under ``train_loop(metrics_lag=1)``
+  the guarded step reads nothing: ``ok`` selects, on the device, the
+  update or the snapshot of every parameter, momentum and running
+  statistic, and the optimizer's count advances on the device by
+  ``ok`` (``LARS.step_kept``), as the JAX step's in-jit select does;
 * ``remat=True`` (all four factories): the whole encoder-and-head
   forward runs under ``torch.utils.checkpoint`` and again in the
   backward, the span ``jax.checkpoint`` wraps; the recompute leaves the
@@ -82,7 +87,9 @@ Training resilience (``trainer.py:52-104``, ``:133-138``, ``:202-224``):
 
 Not in this slice (the factories raise ``NotImplementedError`` naming
 the ROADMAP.md item, and ``cli`` exits on the flags): the MoE auxiliary
-loss. ``ROADMAP_ITEMS`` names every such item.
+loss, the lag-1 guard under gradient accumulation (``MultiSteps``
+decides on the host when the inner optimizer steps). ``ROADMAP_ITEMS``
+names every such item.
 """
 
 from __future__ import annotations
@@ -123,10 +130,8 @@ ROADMAP_ITEMS = {
     "stem": "ROADMAP.md Queue A 6(b) (the space-to-depth ResNet stem)",
     "wire": "ROADMAP.md Queue A 3(e) (quantized collectives: "
             "--collective-dtype bf16/int8 with error feedback)",
-    "data": "ROADMAP.md Queue A 7(b) (datasets beyond --dataset "
-            "synthetic)",
-    "pipeline": "ROADMAP.md Queue A 7(b) (the async input pipeline: "
-                "--prefetch, --lag-metrics)",
+    "lag_accum": "ROADMAP.md Queue A 7(e) (the lag-1 guard under "
+                 "--accum-steps: MultiSteps' counters on the device)",
     "mp": "ROADMAP.md Queue A 9 (model parallelism and MoE; multi-host "
           "worlds come from torchrun's environment)",
     "chunked": "ROADMAP.md Queue A 3(d) (--dp-loss chunked, the "
@@ -144,15 +149,17 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class StepOutcome:
     """One completed step as the host sees it, handed to ``train_loop``'s
-    ``step_guard`` (``trainer.py:52``, read after its own step: the lag-1
-    outcome is ROADMAP.md Queue A 7(b)). ``ok=False``: the guarded step
+    ``step_guard`` (``trainer.py:52-74``). ``ok=False``: the guarded step
     found a non-finite loss or gradient norm and applied no update.
-    ``grad_norm`` is None for a step built without the guard."""
+    ``grad_norm`` is None for a step built without the guard. ``lag`` is
+    how many steps after its dispatch the outcome was read (1 under
+    ``train_loop(metrics_lag=1)``)."""
 
     step: int
     loss: float
     grad_norm: float | None
     ok: bool
+    lag: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +184,9 @@ class TrainState:
     model: nn.Module
     optimizer: LARS | AdamW
     step: int = 0
+    # the lag-1 guard's flat snapshot, made at its first step
+    kept: _KeptUpdate | None = dataclasses.field(default=None, repr=False,
+                                                 compare=False)
 
 
 def create_train_state(model: nn.Module, config: TrainerConfig,
@@ -287,6 +297,83 @@ def _stats_before(model: nn.Module) -> list[torch.Tensor]:
     return [b.clone() for b in _running_stats(model)]
 
 
+class _KeptUpdate:
+    """What a step moves (the parameters, the momentum, the BatchNorm
+    running statistics), laid out in one flat buffer (each tensor's
+    ``.data`` becomes a view of it, so every holder of the tensor sees
+    the same values), with a flat snapshot beside it: ``save()`` is one
+    copy, ``keep_if(ok)`` one ``torch.where``, never arithmetic that lets
+    a NaN through (``trainer.py:91-101``)."""
+
+    def __init__(self, tensors: list[torch.Tensor]):
+        if len({t.data_ptr() for t in tensors}) != len(tensors):
+            raise TypeError("the lag-1 guard needs untied tensors")
+        with torch.no_grad():
+            self.live = torch.cat([t.reshape(-1) for t in tensors])
+            for t, view in zip(tensors, self.live.split(
+                    [t.numel() for t in tensors])):
+                t.data = view.view_as(t)
+        self.saved = torch.empty_like(self.live)
+
+    @torch.no_grad()
+    def save(self) -> None:
+        self.saved.copy_(self.live)
+
+    @torch.no_grad()
+    def keep_if(self, ok: torch.Tensor) -> None:
+        """Each tensor becomes ``ok ? itself : its snapshot``."""
+        torch.where(ok, self.live, self.saved, out=self.live)
+
+
+def _kept(state: TrainState) -> _KeptUpdate:
+    """The state's flat snapshot, laid out at its first lag-1 step."""
+    opt = state.optimizer
+    if isinstance(opt, MultiSteps):
+        raise _not_ported("the lag-1 guard with --accum-steps", "lag_accum")
+    if state.kept is None:
+        tensors = [*opt.params.values(), *opt.trace.values(),
+                   *_running_stats(state.model)]
+        if len({(t.dtype, t.device) for t in tensors}) != 1:
+            raise TypeError("the lag-1 guard snapshots tensors of one dtype "
+                            "and device")
+        state.kept = _KeptUpdate(tensors)
+    return state.kept
+
+
+@torch.no_grad()
+def _kept_update(state: TrainState, loss: torch.Tensor, scale: float,
+                 keep: _KeptUpdate) -> dict:
+    """The guard of the lag-1 loop (``trainer.py:77-104``): as
+    ``_guarded_update`` but decided on the device. The update runs at the
+    count on the device (``LARS.step_kept``), and ``keep`` puts back
+    what ``keep.save()`` held before the forward where ``ok`` is false.
+    Nothing is read on the host; the metrics are device tensors, which
+    the loop copies out and reads one step later."""
+    grads = [p.grad for p in state.model.parameters()]
+    torch._foreach_mul_(grads, scale)
+    grad_norm = torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(grads)))
+    ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
+    state.optimizer.step_kept(ok)
+    keep.keep_if(ok)
+    state.step += 1
+    return {"loss": loss, "grad_norm": grad_norm, "step_ok": ok}
+
+
+def _guarded(state: TrainState, loss_of: Callable, v1: torch.Tensor,
+             v2: torch.Tensor, scale: float, lag: bool) -> dict:
+    """A guarded step's metrics, ``loss_of`` run between the snapshot of
+    what a bad step puts back and the guard: on the host
+    (``_guarded_update``) or, with ``lag``, on the device
+    (``_kept_update``)."""
+    if lag:
+        keep = _kept(state)
+        keep.save()
+        return _kept_update(state, loss_of(state, v1, v2), scale, keep)
+    before = _stats_before(state.model)
+    return _guarded_update(state, loss_of(state, v1, v2), scale, before)
+
+
 def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
                     remat: bool = False, moe_aux_weight: float = 0.0,
                     guard: bool = False) -> Callable:
@@ -296,10 +383,12 @@ def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
     oracle on CPU tensors; ``True`` forces the fused loss (on the CPU its
     wrappers run the kernels' plain versions). ``remat`` rematerializes
     the forward in the backward. ``guard=True`` gives ``train_step(state,
-    v1, v2, scale=1.0)``, the guarded step (``_guarded_update``; metrics
-    also ``grad_norm`` and ``step_ok``), for ``train_loop(step_guard=
-    resilience.DivergenceGuard(...))``; it reads ``ok`` on the host once
-    a step."""
+    v1, v2, scale=1.0, lag=False)``, the guarded step (``_guarded_update``;
+    metrics also ``grad_norm`` and ``step_ok``), for ``train_loop(
+    step_guard=resilience.DivergenceGuard(...))``; it reads ``ok`` on the
+    host once a step. With ``lag=True`` (``train_loop(metrics_lag=1)``)
+    it reads nothing: the update is kept or dropped on the device
+    (``_kept_update``) and the metrics stay device tensors."""
     if moe_aux_weight > 0.0:
         raise _not_ported("the MoE auxiliary loss", "mp")
 
@@ -320,10 +409,8 @@ def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
         return state, {"loss": loss}
 
     def guarded_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor,
-                     scale: float = 1.0):
-        before = _stats_before(state.model)
-        loss = loss_of(state, v1, v2)
-        return state, _guarded_update(state, loss, scale, before)
+                     scale: float = 1.0, lag: bool = False):
+        return state, _guarded(state, loss_of, v1, v2, scale, lag)
 
     return guarded_step if guard else train_step
 
@@ -359,10 +446,8 @@ def make_sharded_train_step(group=None, temperature: float = 0.1,
         return state, {"loss": loss}
 
     def guarded_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor,
-                     scale: float = 1.0):
-        before = _stats_before(state.model)
-        loss = loss_of(state, v1, v2)
-        return state, _guarded_update(state, loss, scale, before)
+                     scale: float = 1.0, lag: bool = False):
+        return state, _guarded(state, loss_of, v1, v2, scale, lag)
 
     return guarded_step if guard else train_step
 
@@ -445,12 +530,36 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _outcome(step: int, metrics: dict) -> StepOutcome:
-    return StepOutcome(
-        step=step, loss=float(metrics["loss"]),
-        grad_norm=(float(metrics["grad_norm"]) if "grad_norm" in metrics
-                   else None),
-        ok=bool(metrics.get("step_ok", True)))
+class _Metrics:
+    """A step's metrics on their way to the host: on the card the values
+    go to pinned memory behind an event recorded after the step was
+    queued, so reading them waits for that step only, not for the steps
+    queued after it."""
+
+    def __init__(self, metrics: dict):
+        self.keys = [k for k in ("loss", "grad_norm", "step_ok")
+                     if k in metrics]
+        values = torch.stack([torch.as_tensor(metrics[k]).float()
+                              for k in self.keys])
+        self.event = None
+        if values.is_cuda:
+            self.host = torch.empty(len(self.keys), pin_memory=True)
+            self.host.copy_(values, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = values
+
+    def read(self) -> dict:
+        if self.event is not None:
+            self.event.synchronize()
+        return {k: float(v) for k, v in zip(self.keys, self.host.tolist())}
+
+
+def _outcome(step: int, values: dict, lag: int) -> StepOutcome:
+    return StepOutcome(step=step, loss=values["loss"],
+                       grad_norm=values.get("grad_norm"),
+                       ok=bool(values.get("step_ok", 1.0)), lag=lag)
 
 
 def train_loop(state: TrainState, data_iter, train_step: Callable,
@@ -458,8 +567,8 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
                views: int = 2, ranks: int = 1,
                log: bool = True, stop_fn: Callable[[], bool] | None = None,
                step_hook: Callable[[TrainState], None] | None = None,
-               watchdog=None, step_guard: Callable | None = None
-               ) -> list[dict]:
+               watchdog=None, step_guard: Callable | None = None,
+               metrics_lag: int = 0) -> list[dict]:
     """Run ``num_steps`` steps; every ``log_every`` steps (and at the
     last) read the loss and log steps/s and images/s over the window.
     Images are those through the image encoder: ``views`` per row of the
@@ -468,52 +577,122 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
     of rows). ``log=False`` keeps the records and logs nothing (every
     rank but 0). ``stop_fn`` is polled before every step and ends the run
     when it returns True; ``step_hook(state)`` runs after every step (the
-    checkpoint cadence). Returns one record per log point.
+    checkpoint cadence). Returns one record per log point (under
+    ``metrics_lag=1`` a window ends when its last step's outcome is
+    read), with the mean ms a step waited for its batch over the window
+    (``data_wait_ms``) and, when the data has ``last_timing()`` (a
+    prefetching pipeline), the mean host fetch and transfer dispatch ms of
+    its batches (``fetch_ms``, ``transfer_ms``).
 
-    After each step and before ``step_hook``: ``watchdog`` (a started
-    ``StallWatchdog``) is beaten, and ``step_guard`` is called with the
-    step's ``StepOutcome`` (it may raise ``DivergenceError``, before the
-    step could be saved). A guard with ``scale_value()`` hands its scale
-    to the step as a trailing argument (a step built with ``guard=True``).
-    Building the outcome reads the loss: one host sync a step, for
-    guarded runs only."""
+    After each step: ``watchdog`` (a started ``StallWatchdog``) is beaten,
+    and ``step_guard`` is called with the step's ``StepOutcome`` (it may
+    raise ``DivergenceError``, before the step could be saved). A guard
+    with ``scale_value()`` hands its scale to the step as a trailing
+    argument (a step built with ``guard=True``). Building the outcome
+    reads the loss: one host sync a step, for guarded runs only.
+
+    ``metrics_lag=1`` (``trainer.py:944-971``): step N-1's outcome is read
+    after step N is queued, so the host does not wait for the card
+    between steps. The guarded step then keeps a bad update out on the
+    device (``lag=True``). ``step_guard`` sees every outcome one step
+    late, never missed (the last is always drained, so a non-finite last
+    step still raises); a guard's new scale reaches the steps up to two
+    steps late; ``step_hook`` for step N runs after step N-1's outcome
+    was read."""
+    if metrics_lag not in (0, 1):
+        raise ValueError(f"metrics_lag must be 0 or 1, got {metrics_lag}")
     history = []
     use_scale = step_guard is not None and hasattr(step_guard,
                                                    "scale_value")
+    lag_kwargs = {"lag": True} if metrics_lag and use_scale else {}
     device = next(state.model.parameters()).device
     _sync(device)
-    last_t, last_step = time.perf_counter(), 0
-    for i in range(num_steps):
+    window = dict(start=time.perf_counter(), done=0, wait=0.0, fetch=0.0,
+                  transfer=0.0, timed=0)
+    rows, done = 0, 0
+
+    def check(step: int, metrics, wait: float, timing) -> dict | None:
+        """A completed step (``wait``: s it waited for its batch,
+        ``timing``: the data's ``last_timing()``): beat the watchdog, show
+        the guard its outcome; returns the host values read, if any."""
+        nonlocal done
+        done += 1
+        window["done"] += 1
+        window["wait"] += wait
+        if timing is not None:
+            window["fetch"] += timing[0]
+            window["transfer"] += timing[1]
+            window["timed"] += 1
+        if watchdog is not None:
+            watchdog.beat()
+        values = metrics.read() if isinstance(metrics, _Metrics) else None
+        if step_guard is not None:
+            if values is None:
+                values = _Metrics(metrics).read()
+            step_guard(_outcome(step, values, metrics_lag))
+        return values
+
+    def record(step: int, metrics, values, force: bool = False) -> None:
+        if not (done % log_every == 0 or done == num_steps or force):
+            return
+        loss = (values["loss"] if values is not None
+                else float(metrics["loss"]))  # synchronizes with the device
+        now = time.perf_counter()
+        sps = window["done"] / (now - window["start"])
+        entry = {"step": step, "loss": loss, "steps_per_sec": sps,
+                 "images_per_sec": sps * views * rows * ranks,
+                 "data_wait_ms": window["wait"] * 1e3 / window["done"]}
+        if window["timed"]:
+            entry["fetch_ms"] = window["fetch"] * 1e3 / window["timed"]
+            entry["transfer_ms"] = window["transfer"] * 1e3 / window["timed"]
+        history.append(entry)
+        if log:
+            logger.info("step %d loss %.4f (%.2f steps/s, %.1f "
+                        "images/s)", step, loss, sps,
+                        entry["images_per_sec"])
+        window.update(start=now, done=0, wait=0.0, fetch=0.0, transfer=0.0,
+                      timed=0)
+
+    def drain(pending, force: bool = False) -> None:
+        step, metrics = pending[:2]
+        record(step, metrics, check(*pending), force)
+
+    pending = None  # lag-1: a queued step's check() arguments
+    for _ in range(num_steps):
         if stop_fn is not None and stop_fn():
+            if pending is not None:
+                drain(pending, force=True)
+                pending = None
             if log:
                 logger.warning("stop requested: ending the run at step %d",
                                state.step)
             break
+        t_fetch = time.perf_counter()
         v1, v2 = next(data_iter)
+        wait = time.perf_counter() - t_fetch
+        timing = (data_iter.last_timing()
+                  if hasattr(data_iter, "last_timing") else None)
+        rows = v1.shape[0]
         if use_scale:
             state, metrics = train_step(state, v1, v2,
-                                        step_guard.scale_value())
+                                        step_guard.scale_value(),
+                                        **lag_kwargs)
         else:
             state, metrics = train_step(state, v1, v2)
-        if watchdog is not None:
-            watchdog.beat()
-        if step_guard is not None:
-            step_guard(_outcome(state.step, metrics))
+        if metrics_lag:
+            queued = (state.step, _Metrics(metrics), wait, timing)
+            if pending is not None:
+                drain(pending)  # step N-1's outcome, step N queued
+            if step_hook is not None:
+                step_hook(state)
+            pending = queued
+            continue
+        values = check(state.step, metrics, wait, timing)
         if step_hook is not None:
             step_hook(state)
-        if (i + 1) % log_every == 0 or i + 1 == num_steps:
-            loss = float(metrics["loss"])  # synchronizes with the device
-            now = time.perf_counter()
-            steps = i + 1 - last_step
-            sps = steps / (now - last_t)
-            entry = {"step": state.step, "loss": loss, "steps_per_sec": sps,
-                     "images_per_sec": sps * views * v1.shape[0] * ranks}
-            history.append(entry)
-            if log:
-                logger.info("step %d loss %.4f (%.2f steps/s, %.1f "
-                            "images/s)", entry["step"], loss, sps,
-                            entry["images_per_sec"])
-            last_t, last_step = now, i + 1
+        record(state.step, metrics, values)
+    if pending is not None:
+        drain(pending, force=True)  # the last outcome is always read
     return history
 
 
@@ -575,7 +754,8 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
         restore_step: int | None = None, views: int = 2, ranks: int = 1,
         log: bool = True, group=None, checkpoint_stats: dict | None = None,
         watchdog=None, step_guard: Callable | None = None,
-        checkpoint_fault_hook: Callable | None = None):
+        checkpoint_fault_hook: Callable | None = None,
+        metrics_lag: int = 0):
     """Checkpoint-aware training (``trainer.py:1167``): restore the newest
     valid checkpoint of ``checkpoint_dir`` if there is one, train to
     ``num_steps`` steps IN ALL, save every ``checkpoint_every`` global
@@ -602,7 +782,8 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
     ``step_guard`` go to ``train_loop``; a ``DivergenceError`` leaves
     ``fit`` without the final save (the diverged state must not become
     the newest step). ``checkpoint_fault_hook`` runs at the start of each
-    physical write (the chaos plan's ``diskfull@n``)."""
+    physical write (the chaos plan's ``diskfull@n``). ``metrics_lag`` goes
+    to ``train_loop``."""
     if restore_step is not None and checkpoint_dir is None:
         raise ValueError(f"restore_step={restore_step} requires "
                          "checkpoint_dir (there is no store to restore the "
@@ -660,7 +841,8 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
         history = train_loop(state, data_iter, train_step, remaining,
                              log_every=log_every, views=views, ranks=ranks,
                              log=log, stop_fn=stop_fn, step_hook=step_hook,
-                             watchdog=watchdog, step_guard=step_guard)
+                             watchdog=watchdog, step_guard=step_guard,
+                             metrics_lag=metrics_lag)
         if manager is not None:
             stopped = state.step - done < remaining
             manager.wait_until_finished()

@@ -1,6 +1,6 @@
 """Where the port's serving forward and training steps spend device time.
 
-Seven modes, all but the last on the model of its slice (ViT-B/16 or
+Eight modes, all but ``ntxent`` on the model of its slice (ViT-B/16 or
 ResNet-50 at 224 px, random weights from seed 0):
 
 ``--mode forward`` (the default; serving): for one batch-size bucket and
@@ -102,6 +102,18 @@ into an older tree, the module times what that tree can run,
   host's ms of one call at 2N = 512, of #9 and #10 at N = 256 and of #7
   and #8 at the self tile (no synchronisation in the loop).
 
+``--mode pipeline`` (the input pipeline): ``ntxent-train``'s SimCLR
+ViT-B/16 path at ``--batch`` for ``PIPELINE_STEPS`` steps through
+``cli.train``, with the train flags given after ``--`` (``--store N``
+first writes a uint8 npy row store of N rows at 224 px from seed 0 and
+adds ``--dataset npy --data-dir`` it),
+
+* the mean over the records of steps 2 .. PIPELINE_STEPS - 1 (host
+  clock; under ``--lag-metrics`` the last record holds no queueing) of
+  the step ms, the data wait ms a step and, under ``--prefetch``, the
+  host fetch and transfer dispatch ms; a tree whose ``train_loop``
+  records no data wait reports None for it.
+
 Run on the card, from the repository root:
 
     python -m ntxent_tpu_torch.utils.profiling --bucket 64 --impls flash,xla
@@ -117,6 +129,8 @@ Run on the card, from the repository root:
     python -m ntxent_tpu_torch.utils.profiling --mode longctx \
         --ring-emulate 4
     python -m ntxent_tpu_torch.utils.profiling --mode ntxent
+    python -m ntxent_tpu_torch.utils.profiling --mode pipeline --store 1280 \
+        -- --loader native --prefetch 2 --lag-metrics --nan-policy skip
 
 The last line of the output is one JSON object with every number.
 """
@@ -309,6 +323,47 @@ def _traced_step(one_step) -> dict:
     launches = {name: w.launches / (TRACE_RUNS + 1)
                 for name, w in counters.items()}
     return {"launches_per_step": launches, **breakdown}
+
+
+# --mode pipeline: steps of each run (records 2 .. PIPELINE_STEPS - 1 timed)
+PIPELINE_STEPS = 10
+
+
+def pipeline_profile(batch: int, device, flags: list[str],
+                     store_rows: int) -> dict:
+    """The numbers of ``--mode pipeline`` (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+
+    from ..cli import build_train_parser, train
+
+    argv = ["--model", MODEL, "--vit-attention", "flash", "--image-size",
+            str(IMAGE_SIZE), "--batch", str(batch), "--steps",
+            str(PIPELINE_STEPS), "--log-every", "1", "--device",
+            device.type, *flags]
+    with tempfile.TemporaryDirectory() as tmp:
+        if store_rows:
+            store = f"{tmp}/rows.npy"
+            np.save(store, np.random.default_rng(SEED).integers(
+                0, 256, (store_rows, IMAGE_SIZE, IMAGE_SIZE, 3),
+                dtype=np.uint8))
+            argv += ["--dataset", "npy", "--data-dir", store]
+        _, history = train(build_train_parser().parse_args(argv))
+        torch.cuda.synchronize()
+    timed = history[1:-1]
+    step_ms = [1e3 / h["steps_per_sec"] for h in timed]
+
+    def mean_of(key):
+        values = [h[key] for h in timed if key in h]
+        return sum(values) / len(values) if values else None
+
+    mean_ms = sum(step_ms) / len(step_ms)
+    return {"flags": flags, "store_rows": store_rows, "step_ms": mean_ms,
+            "step_ms_each": step_ms, "images_per_s": 2 * batch / mean_ms
+            * 1e3, "data_wait_ms": mean_of("data_wait_ms"),
+            "fetch_ms": mean_of("fetch_ms"),
+            "transfer_ms": mean_of("transfer_ms")}
 
 
 def train_profile(batch: int, device) -> dict:
@@ -876,7 +931,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--mode", default="forward",
                    choices=["forward", "train", "clip", "dp", "clip_dp",
-                            "longctx", "ntxent"])
+                            "longctx", "ntxent", "pipeline"])
     p.add_argument("--bucket", type=int, default=64,
                    help="forward mode: batch size of the profiled forward")
     p.add_argument("--impls", default="flash,xla",
@@ -891,9 +946,31 @@ def main(argv=None) -> int:
     p.add_argument("--ring-emulate", type=int, default=0, metavar="P",
                    help="longctx mode: P ring ranks emulated in one "
                         "process (0: the ring of the world-1 group)")
+    p.add_argument("--store", type=int, default=0, metavar="ROWS",
+                   help="pipeline mode: train from a uint8 npy row store "
+                        "of ROWS rows written from seed 0")
+    p.add_argument("train_flags", nargs=argparse.REMAINDER,
+                   help="pipeline mode: ntxent-train flags, after --")
     args = p.parse_args(argv)
 
     device = resolve_device("cuda")
+    if args.mode == "pipeline":
+        flags = [f for f in args.train_flags if f != "--"]
+        card = card_power_line()
+        print(f"card: {card}", flush=True)
+        result = {"device": device_name(device), "card": card,
+                  "mode": "pipeline", **pipeline_profile(
+                      args.batch, device, flags, args.store)}
+        store = f", an npy store of {args.store} rows" if args.store else ""
+        print(f"[pipeline] batch {args.batch}, flags "
+              f"{' '.join(flags) or 'none'}{store}: "
+              f"{result['step_ms']:.3f} ms a step (steps 2-"
+              f"{PIPELINE_STEPS - 1}), {result['images_per_s']:.1f} "
+              f"images/s, data wait {result['data_wait_ms']} ms, fetch "
+              f"{result['fetch_ms']} ms, transfer {result['transfer_ms']} ms",
+              flush=True)
+        print(json.dumps(result))
+        return 0
     if args.mode == "ntxent":
         card = card_power_line()
         print(f"card: {card}", flush=True)

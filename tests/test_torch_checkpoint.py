@@ -63,7 +63,7 @@ def _state(seed=0):
 def _pipeline(seed=0):
     args = _args("--seed", str(seed))
     args.image_size = 8
-    return cli._synthetic_pipeline(args, torch.device("cpu"))
+    return cli._make_pipeline(args, torch.device("cpu"))
 
 
 def _step():

@@ -134,8 +134,6 @@ def test_row_ids_and_comms_accounting_without_a_group():
 # to a value other than the JAX default, with the ROADMAP.md item its exit
 # names.
 TRAIN_FLAGS = [
-    (["--prefetch", "2"], r"Queue A 7\(b\)"),
-    (["--lag-metrics"], r"Queue A 7\(b\)"),
     (["--ring-chunks", "4"], r"Queue A 3\(d\)"),
     (["--measure-overlap"], r"Queue A 3\(d\)"),
     (["--model-par", "4"], "Queue A 9"),
@@ -317,6 +315,124 @@ def test_checkpoint_flags_do_their_job(case, tmp_path, monkeypatch):
     CKPT_FLAG_CASES[case](tmp_path)
 
 
+def _train(*flags):
+    args = cli.build_train_parser().parse_args(TINY_ARGV + list(flags))
+    return cli.train(args)
+
+
+def _same_state(a, b):
+    from ntxent_tpu_torch.weights import train_state_dict
+
+    def flat(tree, prefix=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, prefix + (k,))
+            elif v is not None:
+                yield prefix + (k,), np.asarray(v)
+
+    want = dict(flat(train_state_dict(a)))
+    got = dict(flat(train_state_dict(b)))
+    assert want.keys() == got.keys()
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=str(key))
+
+
+def _case_prefetch(tmp_path):
+    """--prefetch 2 trains bit for bit as the run without it, and reports
+    the prefetched batches' fetch and transfer times."""
+    plain, h0 = _train()
+    ahead, h1 = _train("--prefetch", "2")
+    _same_state(plain, ahead)
+    assert [h["loss"] for h in h0] == [h["loss"] for h in h1]
+    assert "fetch_ms" not in h0[0]
+    assert h1[0]["fetch_ms"] >= 0 and h1[0]["transfer_ms"] >= 0
+
+
+def _case_lag_metrics(tmp_path):
+    """--lag-metrics reads each outcome a step late and ends bit for bit
+    where the synchronous guard ends, a NaN batch skipped alike."""
+    chaos = ["--nan-policy", "skip", "--chaos", "nan@1", "--steps", "3"]
+    sync, _ = _train(*chaos)
+    lag, history = _train(*chaos, "--lag-metrics")
+    _same_state(sync, lag)
+    assert [h["step"] for h in history] == [1, 2, 3]
+    assert lag.optimizer.count == 2
+
+
+def _npy_store(tmp_path, rows=16, size=8):
+    path = tmp_path / "rows.npy"
+    np.save(path, np.random.default_rng(1).integers(
+        0, 256, (rows, size, size, 3), dtype=np.uint8))
+    return str(path)
+
+
+def _case_dataset_npy(tmp_path):
+    """--dataset npy trains on the store at its own size; another
+    --image-size exits."""
+    store = _npy_store(tmp_path, size=8)
+    argv = [a for a in TINY_ARGV]
+    argv[argv.index("--image-size") + 1] = "12"
+    with pytest.raises(SystemExit, match="disagrees with the npy store"):
+        cli.train(cli.build_train_parser().parse_args(
+            argv + ["--dataset", "npy", "--data-dir", store]))
+    args = cli.build_train_parser().parse_args(
+        [a for a in argv if a not in ("--image-size", "12")]
+        + ["--dataset", "npy", "--data-dir", store])
+    state, history = cli.train(args)
+    assert args.image_size == 8 and state.step == 2
+    assert all(np.isfinite(h["loss"]) for h in history)
+
+
+def _case_loader_native(tmp_path):
+    """--loader native trains bit for bit as --loader python on the same
+    store; a source that is not a memmap exits."""
+    store = _npy_store(tmp_path)
+    python, _ = _train("--dataset", "npy", "--data-dir", store)
+    native, _ = _train("--dataset", "npy", "--data-dir", store, "--loader",
+                       "native", "--prefetch", "2", "--lag-metrics")
+    _same_state(python, native)
+    with pytest.raises(SystemExit, match="--loader native: .*memmap"):
+        _train("--loader", "native")  # synthetic arrays live in memory
+
+
+def _case_dataset_cifar10(tmp_path):
+    from test_torch_datasets import _write_cifar
+
+    _write_cifar(tmp_path, np.random.default_rng(2), rows=2)
+    state, history = _train("--dataset", "cifar10", "--data-dir",
+                            str(tmp_path), "--image-size", "32")
+    assert state.step == 2 and all(np.isfinite(h["loss"]) for h in history)
+    with pytest.raises(SystemExit, match="requires --data-dir"):
+        _train("--dataset", "cifar10")
+
+
+def _case_dataset_imagefolder(tmp_path):
+    from test_torch_datasets import _write_image_folder
+
+    _write_image_folder(tmp_path, np.random.default_rng(3))
+    state, history = _train("--dataset", "imagefolder", "--data-dir",
+                            str(tmp_path))
+    assert state.step == 2 and all(np.isfinite(h["loss"]) for h in history)
+
+
+# The input pipeline's flags, ported from ROADMAP.md Queue A 7(b): each
+# case runs the flag and checks what it does.
+PIPELINE_FLAG_CASES = {
+    "train_--prefetch_2": _case_prefetch,
+    "train_--lag-metrics": _case_lag_metrics,
+    "train_--dataset_npy": _case_dataset_npy,
+    "train_--loader_native": _case_loader_native,
+    "train_--dataset_cifar10": _case_dataset_cifar10,
+    "train_--dataset_imagefolder": _case_dataset_imagefolder,
+}
+
+
+@pytest.mark.parametrize("case", sorted(PIPELINE_FLAG_CASES))
+def test_pipeline_flags_do_their_job(case, tmp_path, monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    PIPELINE_FLAG_CASES[case](tmp_path)
+
+
 def test_restore_step_without_a_checkpoint_dir_exits():
     args = cli.build_train_parser().parse_args(TINY_ARGV + ["--restore-step",
                                                             "2"])
@@ -334,6 +450,8 @@ def test_every_flag_of_the_jax_parsers_parses_here():
         cli.build_train_parser())
     assert options(jcli.build_serve_parser()) <= options(
         cli.build_serve_parser())
+    assert options(jcli.build_eval_parser()) <= options(
+        cli.build_eval_parser())
     # and at the JAX CLI's defaults nothing exits
     cli._check_train_args(cli.build_train_parser().parse_args(
         ["--device", "cpu"]))

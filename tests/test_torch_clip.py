@@ -358,7 +358,7 @@ def test_train_cli_clip_defaults():
 @pytest.mark.parametrize("flags,match", [
     (["--model", "resnet50"], "ViT image tower"),
     (["--dataset", "cifar10"], "paired data"),
-    (["--prefetch", "2"], r"ROADMAP.md Queue A 7\(b\)"),
+    (["--clip-parallel", "tp"], "ROADMAP.md Queue A 9"),
     (["--moe-experts", "4"], "ROADMAP.md Queue A 9"),
 ])
 def test_train_cli_clip_refusals(flags, match):

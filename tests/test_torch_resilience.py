@@ -196,7 +196,7 @@ def test_chaos_iterator_keeps_the_data_position():
     args = cli.build_train_parser().parse_args(TINY_ARGV)
     args.image_size = 8
     pipe = FaultInjector(FaultPlan.parse("nan@9")).wrap_iterator(
-        cli._synthetic_pipeline(args, torch.device("cpu")))
+        cli._make_pipeline(args, torch.device("cpu")))
     next(pipe)
     state = pipe.state()
     want = next(pipe)
@@ -593,7 +593,7 @@ def test_supervisor_stall_escalation_stops_and_restarts():
 
 def _pipeline(args):
     args.image_size = 8
-    return cli._synthetic_pipeline(args, torch.device("cpu"))
+    return cli._make_pipeline(args, torch.device("cpu"))
 
 
 def _tiny_state(args):

@@ -453,7 +453,7 @@ def test_train_cli_defaults_match_the_jax_cli():
 
 @pytest.mark.parametrize("flags", [
     ["--model", "resnet50", "--stem", "space_to_depth"],
-    ["--dataset", "npy"],
+    ["--ring-chunks", "4"],
     ["--parallel", "tp"], ["--fsdp"],
     ["--moe-experts", "4"],
     ["--dp-loss", "chunked"],
