@@ -273,8 +273,31 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ViT-B/16 zero-shot on [resume-clip]'s checkpoint; [data-imagefolder]
    512 PNGs of 256x320 in 4 class folders, 4 steps with --prefetch 0 and
    2, the data wait a step;
+12p. serving completeness and the lag-1 guard under accumulation (after
+   [serve-ckpt], on run A's checkpoint directory): [serve-int8] the
+   float32 and the int8 rung of the same ViT-B/16 weights on the same
+   rows: per-row cosine drift under 0.05, 12 #11 launches a chunk, the
+   bytes a 64-row chunk moves to the card, chunk ms and the host
+   quantization's ms; [serve-ladder] ``--adaptive-buckets`` driven by
+   requests of 5-9 and 20-40 rows, a ``refresh_ladder()`` while batcher
+   and HTTP clients are in flight: every answer within EMBED_ATOL of the
+   direct forward, no request-path first run across the swap, the
+   padding share down, both ladders printed; [serve-worker] the serve
+   entry point (``cli.serve_main``) with ``--port-file --watch-ckpt
+   --max-restarts 1 --stall-timeout 5 --log-jsonl --run-id smoke`` on a
+   copy of run A's first kept step: /readyz 503 while warming, the newer
+   step adopted and followed by X-Checkpoint-Step and the embeddings,
+   ``POST /rollback``, a device call held past the timeout (/healthz
+   "stalled", a restart, 200 again), latency p50/p99, the four spans of
+   every request and their valid Chrome trace, serving_run_info in the
+   Prometheus text; [accum-lag] ``--accum-steps 2 --lag-metrics
+   --nan-policy skip`` with a NaN micro-batch ends at the synchronous
+   guard's CRC32 (and the device fold equals ``step()``'s), and both
+   guards under --accum-steps 2 timed in turns on batches on the card;
 13. one JSON line describing each kernel of the paths (with each loss
-   kernel's D = 1024 times and each flash kernel's fp32 times);
+   kernel's D = 1024 times and each flash kernel's fp32 times, and #11's
+   launches on the int8, adaptive-ladder and worker serve paths), after
+   a line with the whole script's time;
 14. the last line: ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --truth`` runs phases 1 and 2 and then prints the
@@ -288,8 +311,10 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
+import os
 import shutil
 import sys
 import tempfile
@@ -814,6 +839,42 @@ SERVE_ARGV = ["--model", "vit_b16", "--vit-attention", "flash",
 CLIENT_THREADS = 4
 CLIENT_ROUNDS = 3
 ROW_COUNTS = (1, 3, 8)
+
+# Serving completeness (ROADMAP Queue A 8(b)-(f)), at SERVE_ARGV's width.
+# [serve-int8]: the float32 and the int8 rung of the same seeded weights
+# on INT8_ROWS rows (chunks of 64, a tail): the largest per-row cosine
+# distance under INT8_DRIFT_MAX (the JAX package's drift bar,
+# tests/test_quant.py:566-575), 12 #11 launches a chunk, the bytes each
+# chunk moves to the card. [serve-ladder]: --adaptive-buckets with
+# LADDER_FLAGS, requests of LADDER_SIZES rows (skewed away from the 1/4/
+# 16/64 prior) before, across and after a refresh_ladder() made while
+# clients are in flight: every answer 200 and within EMBED_ATOL of the
+# direct forward, no request-path first run across the swap, padding
+# down. [serve-worker]: the serve entry point with WORKER_FLAGS on a copy
+# of run A's first kept step: /readyz 503 while warming (the warmup held
+# until the probe saw it), the newer step adopted, X-Checkpoint-Step and
+# embeddings following it, POST /rollback, a device call held
+# STALL_HOLD_S past --stall-timeout: /healthz "stalled", a restart, 200
+# again; the JSONL's four spans per request, its Chrome trace valid,
+# serving_run_info{run_id="smoke"} in the Prometheus text. [accum-lag]:
+# --accum-steps 2 --lag-metrics --nan-policy skip with a NaN micro-batch
+# ends at the synchronous guard's CRC32.
+SERVE_IMAGE = 224  # SERVE_ARGV's --image-size
+SMOKE_DEVICE = "cuda"
+INT8_ROWS = 8 * 64 + 23
+INT8_DRIFT_MAX = 0.05
+LADDER_FLAGS = ["--adaptive-buckets", "--ladder-interval", "0",
+                "--ladder-min-requests", "10", "--max-delay-ms", "5"]
+LADDER_SIZES = ((5, 10), (20, 41))
+LADDER_REQUESTS = 24  # a round: before the swap, across it, after it
+STALL_TIMEOUT_S = 5.0
+STALL_HOLD_S = STALL_TIMEOUT_S + 2.0
+WORKER_FLAGS = ["--max-delay-ms", "5", "--max-restarts", "1",
+                "--stall-timeout", str(STALL_TIMEOUT_S), "--watch-ckpt",
+                "--watch-poll", "0.5", "--run-id", "smoke"]
+WORKER_ROWS = (1, 2, 4, 8)
+ACCUM_LAG_STEPS, ACCUM_LAG_NAN_AT = 6, 3
+ACCUM_LAG_ROUNDS = ("guarded", "lagged", "lagged", "guarded")
 
 
 def fail(msg: str):
@@ -4706,6 +4767,607 @@ def phase_serve_ckpt(directory: str, state) -> None:
           f"{time.monotonic() - t0:.1f} s", flush=True)
 
 
+def _post_full(url, body: bytes, rid: str):
+    """(status, headers, JSON payload) of a POST."""
+    req = urllib.request.Request(
+        url, data=body, method="POST",
+        headers={"Content-Type": "application/json", "X-Request-Id": rid})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _get_text(url) -> tuple[int, str]:
+    try:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _flash_launches():
+    from ntxent_tpu_torch.ops import attention
+
+    return attention.flash_attention_fwd
+
+
+@contextlib.contextmanager
+def _uncounted(wrapper):
+    """A reference forward between served requests: the wrapper's count
+    is what it was before, so it holds the serve path's launches only."""
+    saved = wrapper.launches
+    try:
+        yield
+    finally:
+        wrapper.launches = saved
+
+
+def _cosine_drift(a, b) -> float:
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                            * np.linalg.norm(b, axis=1))
+    return float((1.0 - cos).max())
+
+
+def phase_serve_int8(card_line: str) -> int:
+    """The float32 and the int8 rung of the same weights; returns the
+    int8 rung's #11 launches."""
+    from ntxent_tpu_torch import cli
+
+    t0 = time.monotonic()
+    flash = _flash_launches()
+    servers = {}
+    try:
+        for dtype in ("float32", "int8"):
+            servers[dtype] = cli.build_server(cli.build_serve_parser()
+                                              .parse_args(_with_flags(
+                                                  SERVE_ARGV, "--dtype",
+                                                  dtype)))
+        x = np.random.default_rng(19).uniform(
+            -1, 1, (INT8_ROWS, SERVE_IMAGE, SERVE_IMAGE, 3)).astype(np.float32)
+        out, launches, stats = {}, {}, {}
+        for dtype, server in servers.items():
+            engine = server.engine
+            depth = len(engine.model.backbone.blocks)
+            flash.launches = 0
+            out[dtype] = engine.embed(x)
+            chunks = engine.metrics.device_calls
+            launches[dtype] = flash.launches
+            if launches[dtype] != depth * chunks:
+                fail(f"serve-int8 {dtype}: flash_attention_fwd launched "
+                     f"{launches[dtype]} times over {chunks} chunks; "
+                     f"expected {depth} a chunk")
+            device = engine.metrics.to_dict()["latency_ms"]["device"]
+            stats[dtype] = (engine.h2d_bytes // chunks, chunks,
+                            device["p50_ms"], device["mean_ms"])
+        quantize_ms = []
+        for _ in range(5):  # the host half of the int8 rung, a 64-row chunk
+            t = time.perf_counter()
+            servers["int8"].engine._quantize_host(x[:64])
+            quantize_ms.append((time.perf_counter() - t) * 1e3)
+        f32, q8 = out["float32"], out["int8"]
+        norm_err = float(np.abs(np.linalg.norm(q8, axis=1) - 1.0).max())
+        drift = _cosine_drift(f32, q8)
+        if not np.all(np.isfinite(q8)) or norm_err > 1e-3 \
+                or drift >= INT8_DRIFT_MAX:
+            fail(f"serve-int8: drift {drift:.3e} (bar {INT8_DRIFT_MAX}), "
+                 f"|norm-1| {norm_err:.2e}")
+        (b32, c32, p32, m32), (b8, c8, p8, m8) = stats["float32"], \
+            stats["int8"]
+        print(f"[serve-int8] ViT-B/16 {INT8_ROWS} rows, buckets 1/4/16/64: "
+              f"int8 against float32 rung, largest per-row cosine distance "
+              f"{drift:.3e} (bar {INT8_DRIFT_MAX}); flash_attention_fwd "
+              f"{launches['int8']} launches over {c8} int8 chunks (12 a "
+              f"chunk); host-to-device bytes a 64-row chunk float32 {b32}, "
+              f"int8 {b8} ({b32 / b8:.2f}x less); chunk ms at bucket 64 "
+              f"(host clock around copy in, forward, copy out) float32 p50 "
+              f"{p32:.3f} / mean {m32:.3f} over {c32}, int8 p50 {p8:.3f} / "
+              f"mean {m8:.3f} over {c8}; host quantization of a 64-row "
+              f"chunk (outside that window) {_ms(quantize_ms)} ms; on "
+              f"{card_line}; phase "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        return launches["int8"]
+    finally:
+        for server in servers.values():
+            server.close()
+
+
+def _ladder_sizes(rng, n: int) -> list[int]:
+    return [int(rng.integers(*LADDER_SIZES[i % 2])) for i in range(n)]
+
+
+def phase_serve_ladder(card_line: str) -> int:
+    """--adaptive-buckets: skewed traffic, a refresh while clients are in
+    flight; returns #11's launches over the phase."""
+    import torch
+
+    from ntxent_tpu_torch import cli
+
+    t0 = time.monotonic()
+    flash = _flash_launches()
+    flash.launches = 0
+    server = cli.build_server(cli.build_serve_parser().parse_args(
+        SERVE_ARGV + LADDER_FLAGS)).start()
+    engine = server.engine
+    url = f"http://127.0.0.1:{server.port}"
+    depth = len(engine.model.backbone.blocks)
+    rng = np.random.default_rng(23)
+    prior = engine.buckets
+    try:
+        compiles0 = engine.metrics.compiles
+        results, errors = [], []
+
+        def submit(x):
+            try:
+                results.append((x, server.batcher.submit(x, timeout_s=120)))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{len(x)} rows: {type(e).__name__}: {e}")
+
+        def round_of(sizes, threads=2):
+            xs = [rng.uniform(-1, 1, (n, SERVE_IMAGE, SERVE_IMAGE, 3)).astype(np.float32)
+                  for n in sizes]  # drawn here: a Generator is one thread's
+            ths = [threading.Thread(target=lambda c=c: [submit(x)
+                                                        for x in c])
+                   for c in (xs[i::threads] for i in range(threads))]
+            for th in ths:
+                th.start()
+            return ths
+
+        def padding(before):
+            m = engine.metrics
+            real = m.rows_real - before[0]
+            padded = m.rows_padded - before[1]
+            return padded / (real + padded)
+
+        marks = (engine.metrics.rows_real, engine.metrics.rows_padded)
+        for th in round_of(_ladder_sizes(rng, LADDER_REQUESTS)):
+            th.join(600)
+        waste_before = padding(marks)
+        # across the swap: batcher clients and HTTP clients in flight
+        http = []
+
+        def http_client(x, body):
+            status, _, payload = _post_full(f"{url}/embed", body,
+                                            f"ladder-{len(x)}")
+            http.append((x.astype(np.float32), status, payload))
+
+        http_xs = [rng.uniform(-1, 1, (n, SERVE_IMAGE, SERVE_IMAGE, 3)).round(3)
+                   for n in (5, 7, 9)]
+        flying = round_of(_ladder_sizes(rng, LADDER_REQUESTS), threads=3)
+        flying += [threading.Thread(target=http_client, args=(x, json.dumps(
+            {"inputs": x.tolist(), "timeout_ms": 120000}).encode()))
+            for x in http_xs]
+        for th in flying[3:]:
+            th.start()
+        t_swap = time.monotonic()
+        swapped = engine.refresh_ladder()
+        swap_ms = (time.monotonic() - t_swap) * 1e3
+        for th in flying:
+            th.join(600)
+        learned = engine.buckets
+        marks = (engine.metrics.rows_real, engine.metrics.rows_padded)
+        for th in round_of(_ladder_sizes(rng, LADDER_REQUESTS)):
+            th.join(600)
+        waste_after = padding(marks)
+        if errors or not swapped or any(s != 200 for _, s, _ in http):
+            fail(f"serve-ladder: swapped {swapped}, errors {errors}, HTTP "
+                 f"{[s for _, s, _ in http]}")
+        m = engine.metrics
+        # the served path's own launches, read before any direct forward
+        launches = flash.launches
+        chunks, first_runs = m.device_calls, m.compiles + m.ladder_compiles
+        worst = 0.0
+        with torch.inference_mode(), _uncounted(flash):
+            for x, got in results + [(x, np.asarray(p["embeddings"]))
+                                     for x, _, p in http]:
+                want = engine.model(torch.from_numpy(x).to(
+                    engine.device)).float().cpu().numpy()
+                worst = max(worst, _check_embeddings("serve-ladder", got,
+                                                     want))
+        if m.compiles != compiles0 or waste_after >= waste_before \
+                or launches != depth * (chunks + first_runs):
+            fail(f"serve-ladder: request-path first runs {compiles0} -> "
+                 f"{m.compiles}, padding {waste_before:.4f} -> "
+                 f"{waste_after:.4f}, launches {launches} over "
+                 f"{chunks} chunks + {first_runs} first runs")
+        print(f"[serve-ladder] ViT-B/16 --adaptive-buckets: "
+              f"{len(results)} batcher requests and {len(http)} HTTP "
+              f"requests of {LADDER_SIZES[0][0]}-{LADDER_SIZES[0][1] - 1} "
+              f"and {LADDER_SIZES[1][0]}-{LADDER_SIZES[1][1] - 1} rows, all "
+              f"answered, max|err| vs the direct forward {worst:.3e}; "
+              f"ladder {list(prior)} -> {list(learned)} by a "
+              f"refresh_ladder() with clients in flight ({swap_ms:.1f} ms, "
+              f"{m.ladder_compiles} background first runs); request-path "
+              f"first runs {compiles0} before, {m.compiles} after; padding "
+              f"share {waste_before:.4f} before, {waste_after:.4f} after; "
+              f"flash_attention_fwd {launches} launches = {depth} x "
+              f"({chunks} chunks + {first_runs} first runs); on "
+              f"{card_line}; phase "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        return launches
+    finally:
+        server.close()
+
+
+def _step_model(directory: str, step: int):
+    """The served ViT-B/16 with ``step``'s params on the card, eval mode."""
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.training import CheckpointManager
+
+    model = cli.build_model(cli.build_serve_parser().parse_args(SERVE_ARGV))
+    CheckpointManager(directory).restore_variables(model, step=step)
+    return model.to(SMOKE_DEVICE).eval()
+
+
+def _worker_spans(path: str, rids: list) -> int:
+    """The four span kinds of every request id in ``rids``, and the
+    trace the JSONL exports; returns its event count."""
+    from ntxent_tpu_torch.obs import events, trace
+
+    spans = events.read_events(path, "span")
+    by_name = {}
+    for r in spans:
+        by_name.setdefault(r["name"], []).append(r)
+    batches = {}
+    for r in by_name.get("serve.batch", []):
+        for rid in r.get("request_ids", []):
+            batches.setdefault(rid, []).append(r["span_id"])
+    chunk_parents = {r.get("parent_id") for r in
+                     by_name.get("serve.device_chunk", [])}
+    for rid in rids:
+        kinds = {r["name"] for r in spans if r.get("request_id") == rid}
+        if not {"serve.request", "serve.queue_wait"} <= kinds \
+                or not batches.get(rid) \
+                or not set(batches[rid]) & chunk_parents:
+            fail(f"serve-worker: request {rid} has spans {sorted(kinds)}, "
+                 f"batches {batches.get(rid)}")
+    n = trace.validate_chrome_trace(trace.export_chrome_trace(path))
+    if n < 2 * len(rids):  # coalesced requests share batch and chunk
+        fail(f"serve-worker: the trace holds {n} events for {len(rids)} "
+             "requests")
+    return n
+
+
+def phase_serve_worker(tmp: str, dir_a: str, card_line: str) -> int:
+    """The serve entry point as a fleet worker on run A's steps; returns
+    #11's launches over the phase."""
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.serving import engine as serving_engine
+    from ntxent_tpu_torch.training import CheckpointManager
+
+    t0 = time.monotonic()
+    first, newer = sorted(CheckpointManager(dir_a).all_steps())[-2:]
+    watch, port_file = f"{tmp}/watch", f"{tmp}/serve.port"
+    jsonl = f"{tmp}/serve.jsonl"
+    os.makedirs(watch)
+    shutil.copy(f"{dir_a}/manifests.json", watch)
+
+    def publish(step):  # atomically: the watcher never sees half a step
+        shutil.copytree(f"{dir_a}/{step}", f"{watch}/.copy-{step}")
+        os.rename(f"{watch}/.copy-{step}", f"{watch}/{step}")
+
+    publish(first)
+    argv = _with_flags(SERVE_ARGV, "--max-delay-ms", "5") + WORKER_FLAGS + [
+        "--ckpt-dir", watch, "--port-file", port_file, "--log-jsonl", jsonl]
+    flash = _flash_launches()
+    flash.launches = 0
+    captured, rc = {}, []
+    probed = threading.Event()
+    real_build, real_warmup = cli.build_server, \
+        serving_engine.InferenceEngine.warmup
+
+    def build(args):
+        captured["server"] = server = real_build(args)
+        return server
+
+    def held_warmup(self):  # the boot probe sees the cold ladder first
+        probed.wait(300)
+        real_warmup(self)
+
+    cli.build_server = build
+    serving_engine.InferenceEngine.warmup = held_warmup
+    loop = threading.Thread(target=lambda: rc.append(cli.serve_main(argv)),
+                            name="serve-main")
+    loop.start()
+    server = None
+    try:
+        deadline = time.monotonic() + 300
+        while not os.path.exists(port_file):
+            if time.monotonic() > deadline or not loop.is_alive():
+                fail("serve-worker: no port file")
+            time.sleep(0.05)
+        url = f"http://127.0.0.1:{int(open(port_file).read())}"
+        ready_cold, cold = _get(f"{url}/readyz")
+        x = np.random.default_rng(29).uniform(
+            -1, 1, (4, SERVE_IMAGE, SERVE_IMAGE, 3)).round(3).astype(np.float32)
+        body = json.dumps({"inputs": x.tolist(),
+                           "timeout_ms": 120000}).encode()
+        embed_cold, cold_headers, _ = _post_full(f"{url}/embed", body, "c0")
+        probed.set()
+        t_warm = time.monotonic()
+        while _get(f"{url}/readyz")[0] != 200:
+            if time.monotonic() - t_warm > 300:
+                fail("serve-worker: /readyz never turned 200")
+            time.sleep(0.05)
+        warm_s = time.monotonic() - t_warm
+        if ready_cold != 503 or cold.get("status") != "warming" \
+                or embed_cold != 503 or "Retry-After" not in cold_headers:
+            fail(f"serve-worker: while warming /readyz {ready_cold} {cold}, "
+                 f"/embed {embed_cold}")
+        while "server" not in captured or captured["server"]._watchdog \
+                is None or captured["server"].batcher is None:
+            time.sleep(0.01)  # the supervised attempt serves
+        server = captured["server"]
+        engine, watcher = server.engine, server.reloader
+        rids, lat = [], []
+
+        def embed(rid, payload=body):
+            t = time.monotonic()
+            status, headers, out = _post_full(f"{url}/embed", payload, rid)
+            lat.append((time.monotonic() - t) * 1e3)
+            if status == 200:
+                rids.append(rid)
+            return status, headers, out
+
+        def check(label, step, want_model):
+            status, headers, out = embed(f"step-{label}")
+            if status != 200 or headers.get("X-Checkpoint-Step") \
+                    != str(step):
+                fail(f"serve-worker {label}: HTTP {status}, "
+                     f"X-Checkpoint-Step {headers.get('X-Checkpoint-Step')}"
+                     f", expected {step}")
+            with torch.inference_mode(), _uncounted(flash):
+                want = want_model(torch.from_numpy(x).to(SMOKE_DEVICE)).float() \
+                    .cpu().numpy()
+            return _check_embeddings(f"serve-worker {label}",
+                                     out["embeddings"], want)
+
+        model_first, model_newer = _step_model(dir_a, first), \
+            _step_model(dir_a, newer)
+        err = check("boot", first, model_first)
+        publish(newer)
+        t_seen = time.monotonic()
+        while json.loads(_get_text(f"{url}/healthz")[1])[
+                "checkpoint_step"] != newer:
+            if time.monotonic() - t_seen > 120:
+                fail(f"serve-worker: step {newer} never adopted")
+            time.sleep(0.05)
+        adopt_s = time.monotonic() - t_seen
+        err = max(err, check("adopted", newer, model_newer))
+        status, _, rolled = _post_full(f"{url}/rollback", json.dumps(
+            {"step": newer}).encode(), "rb")
+        if status != 200 or rolled != {"rolled_back": True,
+                                       "checkpoint_step": first,
+                                       "blocked_steps": [newer]}:
+            fail(f"serve-worker: /rollback {status} {rolled}")
+        err = max(err, check("rolled-back", first, model_first))
+        time.sleep(1.0)  # two polls: the blocked step stays out
+        if watcher.current_step != first:
+            fail(f"serve-worker: the blocked step {newer} came back")
+        del model_first, model_newer
+        torch.cuda.empty_cache()
+
+        # a forward held past --stall-timeout inside the engine's launch,
+        # under its forward lock, as a wedged device call holds it
+        real_launch = engine._launch
+        hold = {"armed": True}
+
+        def held(exe, args):
+            if hold.pop("armed", False):
+                time.sleep(STALL_HOLD_S)
+            return real_launch(exe, args)
+
+        engine._launch = held
+        held_result = []
+        t_hold = time.monotonic()
+        holder = threading.Thread(target=lambda: held_result.append(
+            embed("held")))
+        holder.start()
+        seen, t_stalled, t_back = [], None, None
+        while time.monotonic() - t_hold < 120:
+            status = json.loads(_get_text(f"{url}/healthz")[1])["status"]
+            if not seen or seen[-1] != status:
+                seen.append(status)
+            if status == "stalled" and t_stalled is None:
+                t_stalled = time.monotonic()
+            if t_stalled is not None and status == "serving":
+                t_back = time.monotonic()
+                break
+            time.sleep(0.02)
+        after, _, _ = embed("after-restart")
+        holder.join(120)
+        engine._launch = real_launch
+        if t_back is None or after != 200:
+            fail(f"serve-worker: /healthz went {seen}; the next request "
+                 f"answered {after}")
+        restart_ms = (t_back - t_stalled) * 1e3
+
+        # latency: concurrent clients after the restart
+        bodies = [(f"lat-{i}", json.dumps({"inputs": np.random.default_rng(
+            i).uniform(-1, 1, (WORKER_ROWS[i % 4], SERVE_IMAGE, SERVE_IMAGE,
+                3)).round(
+                3).tolist(), "timeout_ms": 120000}).encode())
+            for i in range(16)]
+        lat.clear()
+        ths = [threading.Thread(target=lambda c=c: [embed(r, b)
+                                                    for r, b in c])
+               for c in (bodies[i::4] for i in range(4))]
+        t_round = time.monotonic()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(600)
+        round_s = time.monotonic() - t_round
+        ordered = sorted(lat)
+        rows = sum(WORKER_ROWS[i % 4] for i in range(16))
+        code, prom = _get_text(f"{url}/metrics?format=prometheus")
+        if code != 200 or 'serving_run_info{run_id="smoke"} 1' not in prom:
+            fail("serve-worker: no serving_run_info{run_id=\"smoke\"} in "
+                 "the Prometheus text")
+        m = engine.metrics
+        launches, chunks, first_runs = flash.launches, m.device_calls, \
+            m.compiles + m.ladder_compiles
+        if launches != 12 * (chunks + first_runs):
+            fail(f"serve-worker: flash_attention_fwd {launches} launches "
+                 f"over {chunks} chunks and {first_runs} first runs")
+    finally:
+        cli.build_server = real_build
+        serving_engine.InferenceEngine.warmup = real_warmup
+        probed.set()
+        if server is not None:
+            server.shutdown()
+        loop.join(120)
+        shutil.rmtree(watch, ignore_errors=True)
+    if rc != [0]:
+        fail(f"serve-worker: serve_main returned {rc}")
+    n_events = _worker_spans(jsonl, rids)
+    print(f"[serve-worker] serve_main --port-file --watch-ckpt (run A's "
+          f"step {first}) --max-restarts 1 --stall-timeout "
+          f"{STALL_TIMEOUT_S:g} --log-jsonl --run-id smoke: /readyz 503 "
+          f"'warming' and /embed 503 + Retry-After until warm ({warm_s:.1f} "
+          f"s), then 200; step {newer} adopted {adopt_s * 1e3:.0f} ms after "
+          f"it landed (watcher swap ms {_ms(watcher.swap_ms)}); "
+          f"X-Checkpoint-Step and embeddings followed {first} -> {newer} -> "
+          f"{first} (POST /rollback, {newer} blocked), max|err| {err:.2e} "
+          f"vs each step's direct forward; a device call held "
+          f"{STALL_HOLD_S:g} s: /healthz {' -> '.join(seen)}, restart "
+          f"{restart_ms:.0f} ms after 'stalled', next request 200 (held "
+          f"request {held_result[0][0] if held_result else 'lost'}); "
+          f"latency over 16 concurrent requests of 1-8 rows p50 "
+          f"{ordered[len(ordered) // 2]:.1f} ms, p99 "
+          f"{ordered[min(len(ordered) - 1, int(0.99 * len(ordered)))]:.1f}"
+          f" ms, {rows / round_s:.1f} rows/s over HTTP with JSON bodies "
+          f"(client clock); spans serve.request/queue_wait/batch/device_chunk for "
+          f"all {len(rids)} answered requests, Chrome trace of {n_events} "
+          f"events valid; flash_attention_fwd {launches} launches = 12 x "
+          f"({chunks} chunks + {first_runs} first runs); on {card_line}; "
+          f"phase {time.monotonic() - t0:.1f} s", flush=True)
+    return launches
+
+
+def phase_accum_lag(card_line: str) -> dict:
+    """--accum-steps 2 --lag-metrics --nan-policy skip against the same run
+    without --lag-metrics; returns the lagged run's launches a step."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.training import MultiSteps
+    from ntxent_tpu_torch.training.lars import LARS
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    t0 = time.monotonic()
+    # the device fold divides as step() does (CUDA: a product with the
+    # float32 reciprocal of a host scalar), at every n of k = 7
+    g = torch.Generator().manual_seed(31)
+    params = {"w": torch.randn(1 << 20, generator=g).to(SMOKE_DEVICE)}
+    grads = [torch.randn(1 << 20, generator=g).to(SMOKE_DEVICE)
+             for _ in range(6)]
+    sync = MultiSteps(LARS(dict(params), lambda c: 0.1), 7)
+    kept = MultiSteps(LARS({"w": params["w"].clone()}, lambda c: 0.1), 7)
+    ok = torch.ones((), dtype=torch.bool, device=SMOKE_DEVICE)
+    for grad in grads:
+        sync.params["w"].grad = grad.clone()
+        sync.step()
+        kept.params["w"].grad = grad.clone()
+        kept.step_kept(ok)
+        if not torch.equal(sync.acc["w"], kept.acc["w"]):
+            fail(f"accum-lag: the device fold differs from step()'s at "
+                 f"n = {sync.mini_step}")
+    counters = launch_counters()
+    chaos = ["--accum-steps", "2", "--nan-policy", "skip", "--chaos",
+             f"nan@{ACCUM_LAG_NAN_AT}", "--steps", str(ACCUM_LAG_STEPS)]
+    results, launches = {}, {}
+    for label, extra in (("lagged", ["--lag-metrics"]), ("guarded", [])):
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        with _LogTap() as tap:
+            state, history = cli.train(cli.build_train_parser().parse_args(
+                _with_flags(TRAIN_ARGV, *chaos) + extra))
+        launches[label] = {n: w.launches for n, w in counters.items()}
+        named = tap.having(f"non-finite step {ACCUM_LAG_NAN_AT} skipped")
+        losses = [h["loss"] for h in history]
+        if [math.isfinite(v) for v in losses] != [
+                i + 1 != ACCUM_LAG_NAN_AT for i in range(ACCUM_LAG_STEPS)] \
+                or not named:
+            fail(f"accum-lag {label}: losses {losses}, log {named}")
+        opt = state.optimizer
+        results[label] = (_state_crc(state), opt.gradient_step,
+                          opt.mini_step, opt.count, _step_ms(history))
+        del state, opt
+        torch.cuda.empty_cache()
+    want = {n: STEP_LAUNCHES.get(n, 0) * ACCUM_LAG_STEPS for n in counters}
+    lag, sync_r = results["lagged"], results["guarded"]
+    pct = 100 * (lag[4] / sync_r[4] - 1)
+    if lag[:4] != sync_r[:4] or launches["lagged"] != want:
+        fail(f"accum-lag: lagged {lag[:4]}, guarded {sync_r[:4]}; launches "
+             f"{launches['lagged']} (expected {want})")
+    rounds = _accum_lag_rounds()
+    mean = {n: sum(v) / len(v) for n, v in rounds.items()}
+    print(f"[accum-lag] ViT-B/16 batch 256 --accum-steps 2 --nan-policy "
+          f"skip --chaos nan@{ACCUM_LAG_NAN_AT}, {ACCUM_LAG_STEPS} steps: "
+          f"with --lag-metrics ends at (size, crc32) {lag[0]}, gradient_step "
+          f"{lag[1]}, mini_step {lag[2]}, inner count {lag[3]}, bit for bit "
+          f"where the synchronous guard ends; the device fold equals "
+          f"step()'s at n = 1..6; the CLI runs' step ms (mean of the steady "
+          f"records, synthetic views made on the host) lagged {lag[4]:.3f},"
+          f" guarded {sync_r[4]:.3f} ({pct:+.2f}%); in turns, rounds of "
+          f"{GUARD_TIMED_STEPS} train_loop steps on batches on the card "
+          f"{'/'.join(ACCUM_LAG_ROUNDS)}: guarded (the inner update on the "
+          f"k-th micro-step only, a host sync a step) "
+          f"{'/'.join(f'{v:.3f}' for v in rounds['guarded'])}, lagged (the "
+          f"inner update every micro-step, kept by a select, nothing read "
+          f"on the host) {'/'.join(f'{v:.3f}' for v in rounds['lagged'])} "
+          f"ms a step, mean {mean['guarded']:.3f} against "
+          f"{mean['lagged']:.3f} "
+          f"({100 * (mean['lagged'] / mean['guarded'] - 1):+.2f}%), both "
+          f"ending at one params crc32; {STEP_LAUNCHES} launches a step; on "
+          f"{card_line}; phase {time.monotonic() - t0:.1f} s", flush=True)
+    return {n: v // ACCUM_LAG_STEPS for n, v in launches["lagged"].items()}
+
+
+def _accum_lag_rounds() -> dict:
+    """The synchronous and the lag-1 guard under --accum-steps 2, in turns
+    (ACCUM_LAG_ROUNDS of GUARD_TIMED_STEPS train_loop steps on the same
+    batches); returns each one's ms a step, round by round."""
+    import torch
+
+    from ntxent_tpu_torch.resilience import DivergenceGuard
+    from ntxent_tpu_torch.training import make_train_step, train_loop
+
+    args, cfg, states, pipe = _simclr_setup(_with_flags(
+        TRAIN_ARGV, "--accum-steps", "2"))
+    batches = [next(pipe) for _ in range(GUARD_TIMED_STEPS)]
+    step = make_train_step(cfg.temperature, guard=True)
+    runs = dict(zip(("guarded", "lagged"), states))
+
+    def run(name, steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_loop(runs[name], iter(batches[:steps]), step, steps,
+                   log_every=steps, log=False, metrics_lag=int(
+                       name == "lagged"), step_guard=DivergenceGuard(
+                       backoff_after=None, rollback_after=None))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / steps
+
+    for name in runs:  # first calls: libraries, the snapshot buffers
+        run(name, 2)
+    ms = {name: [] for name in runs}
+    for name in ACCUM_LAG_ROUNDS:
+        ms[name].append(run(name, GUARD_TIMED_STEPS))
+    crcs = {name: _params_crc(state.model) for name, state in runs.items()}
+    if len(set(crcs.values())) != 1:
+        fail(f"accum-lag rounds: params crc32 {crcs}")
+    del runs, states, batches
+    torch.cuda.empty_cache()
+    return ms
+
+
 class _LogTap:
     """Collect the messages of every log record emitted inside the block
     (the supervisor's, the guard's and the checkpoint manager's)."""
@@ -5473,6 +6135,8 @@ def phase_data_imagefolder(tmp: str, card_line: str) -> None:
 def main() -> int:
     import torch
 
+    t_start = time.monotonic()
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke test runs on "
               "the GPU only", file=sys.stderr)
@@ -5524,6 +6188,10 @@ def main() -> int:
         phase_serve_ckpt(dir_a, state_a)
         del state_a
         torch.cuda.empty_cache()
+        int8_launches = phase_serve_int8(smi)
+        ladder_launches = phase_serve_ladder(smi)
+        worker_launches = phase_serve_worker(tmp, dir_a, smi)
+        accum_lag_launches = phase_accum_lag(smi)
         phase_preempt(tmp, crc_a)
         shutil.rmtree(dir_a)
         clip_dir = phase_resume_pair(tmp, CLIP_ARGV, "clip")
@@ -5596,6 +6264,18 @@ def main() -> int:
         kernel |= wide_fields.get(wrapper, {})
         kernel |= flash_fp32.get(wrapper, {})
     kernels[0]["serve_launches"] = serve_launches
+    # #11 over the new serve paths: the int8 rung's chunks, the adaptive
+    # ladder's phase (chunks, background first runs, direct forwards) and
+    # the fleet worker's phase (chunks and first runs)
+    kernels[0]["serve_int8_launches"] = int8_launches
+    kernels[0]["serve_ladder_launches"] = ladder_launches
+    kernels[0]["serve_worker_launches"] = worker_launches
+    for kernel in kernels:
+        # a micro-step of SimCLR under --accum-steps 2 --lag-metrics
+        kernel["accum_lag_launches"] = accum_lag_launches.get(
+            kernel["name"], 0)
+    print(f"[total] chip_smoke.py ran {time.monotonic() - t_start:.1f} s "
+          "(the kernels' build included)", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

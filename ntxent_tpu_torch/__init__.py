@@ -11,7 +11,9 @@ Ported so far:
 
 * the serving path of a ViT SimCLR model (``cli.serve_main``,
   ``serving``, ``models``), whose attention runs the flash-attention
-  forward kernel (``ops.attention``);
+  forward kernel (``ops.attention``): the int8 rung, the adaptive bucket
+  ladder, supervised restarts, the checkpoint watcher, Prometheus
+  ``/metrics`` and request spans (``obs``);
 * single-card SimCLR training of a ViT (``cli.train_main``,
   ``training``): the fused NT-Xent forward and backward kernels
   (``ops.ntxent``), the flash-attention backward kernels, BatchNorm in

@@ -6,9 +6,15 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
 
 * ``serve_main`` (``build_serve_parser``): the SimCLR model of ``--model``
   (``resnet50`` by default, as ``ntxent-serve``; every ResNet, ``tiny``
-  and the ViTs) in eval mode, JSON ``/metrics``; the params and
-  batch_stats of the newest valid step of ``--ckpt-dir`` (a checkpoint of
-  either package), or random weights from ``--seed`` without it.
+  and the ViTs) in eval mode; the params and batch_stats of the newest
+  valid step of ``--ckpt-dir`` (a checkpoint of either package), or
+  random weights from ``--seed`` without it. ``--dtype int8`` serves the
+  quantized rung, ``--adaptive-buckets`` learns the ladder
+  (``--ladder-*``), ``--max-restarts`` and ``--stall-timeout`` supervise
+  the batcher, ``--watch-ckpt`` adopts new steps (``--watch-poll``,
+  ``--watch-delay``; ``POST /rollback``), ``--port-file`` binds before the
+  warmup and publishes the port, ``--log-jsonl`` and ``--run-id`` install
+  the event log (request spans) and label ``/metrics``.
 * ``train_main`` (``build_train_parser``): training from random weights
   drawn from ``--seed``, through ``training.fit`` under a
   ``PreemptionGuard``: with ``--ckpt-dir`` it resumes the newest valid
@@ -72,7 +78,7 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
 
 Every flag of the JAX CLI's ``ntxent-train``, ``ntxent-eval`` and
 ``ntxent-serve`` parses here. A flag of what is not ported yet (model
-parallelism, observability, the adaptive ladder, the int8 rung, ...)
+parallelism, training observability, the space-to-depth stem, ...)
 exits, when set, with a message naming its ROADMAP.md item;
 ``--platform cpu|gpu`` selects ``--device``.
 
@@ -133,8 +139,9 @@ from .resilience import (
     FaultPlan,
     RetryPolicy,
 )
+from .obs import events as obs_events
 from .resilience.supervisor import Supervisor
-from .serving import EmbeddingServer, InferenceEngine
+from .serving import CheckpointWatcher, EmbeddingServer, InferenceEngine
 from .training import (
     ROADMAP_ITEMS,
     ArraySource,
@@ -176,6 +183,7 @@ RESNETS = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50,
            "resnet50x2": ResNet50x2, "resnet101": ResNet101,
            "resnet152": ResNet152}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+SERVE_DTYPES = {**DTYPES, "int8": torch.int8}
 
 
 # The JAX CLI's --model choices; those not ported yet exit with the item.
@@ -184,26 +192,9 @@ MODEL_CHOICES = ["resnet18", "resnet34", "resnet50", "resnet50x2",
                  "vit_b16", "vit_l16", "tiny"]
 
 # What serving does not port yet, by the ROADMAP.md item that will.
-SERVE_ITEMS = {
-    "stem": ROADMAP_ITEMS["stem"],
-    "supervise": "ROADMAP.md Queue A 8(c) (serving supervision: restarts, "
-                 "the stall watchdog, --port-file, checkpoint watching)",
-    "int8": "ROADMAP.md Queue A 8(d) (the int8 serving rung)",
-    "ladder": "ROADMAP.md Queue A 8(e) (the adaptive bucket ladder)",
-    "obs": "ROADMAP.md Queue A 8(f) (serving telemetry: --log-jsonl, "
-           "--run-id)",
-}
+SERVE_ITEMS = {"stem": ROADMAP_ITEMS["stem"]}
 # (dest, the JAX CLI's default, item): serve flags that exit when set.
-SERVE_UNPORTED = [
-    ("stem", "conv", "stem"), ("adaptive_buckets", False, "ladder"),
-    ("ladder_max_buckets", 6, "ladder"),
-    ("ladder_min_requests", 200, "ladder"),
-    ("ladder_interval", 2.0, "ladder"), ("max_restarts", 0, "supervise"),
-    ("stall_timeout", None, "supervise"), ("port_file", None, "supervise"),
-    ("watch_ckpt", False, "supervise"), ("watch_poll", 2.0, "supervise"),
-    ("watch_delay", 0.0, "supervise"), ("log_jsonl", None, "obs"),
-    ("run_id", None, "obs"),
-]
+SERVE_UNPORTED = [("stem", "conv", "stem")]
 
 
 def _add_platform(p: argparse.ArgumentParser) -> None:
@@ -276,11 +267,22 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="batch-size ladder; requests pad up to the nearest "
                         "rung, the largest rung is the chunking cap")
     s.add_argument("--adaptive-buckets", action="store_true",
-                   help="learn the ladder from live traffic (not ported)")
-    s.add_argument("--ladder-max-buckets", type=int, default=6)
-    s.add_argument("--ladder-min-requests", type=int, default=200)
+                   help="learn the ladder from live traffic: a decayed "
+                        "histogram of chunk sizes feeds a DP that picks the "
+                        "rungs of least expected padding; a background "
+                        "worker runs each new rung once and swaps the "
+                        "ladder atomically (--buckets is the prior; its "
+                        "largest rung stays the chunking cap)")
+    s.add_argument("--ladder-max-buckets", type=int, default=6,
+                   help="rungs the optimizer may use, the fixed top one "
+                        "included")
+    s.add_argument("--ladder-min-requests", type=int, default=200,
+                   help="chunks observed before the first re-optimization "
+                        "may swap the ladder")
     s.add_argument("--ladder-interval", type=float, default=2.0,
-                   metavar="SECONDS")
+                   metavar="SECONDS",
+                   help="background re-optimization period (0: only "
+                        "explicit refresh_ladder() calls)")
     s.add_argument("--max-batch", type=int, default=None,
                    help="coalescing cap per device call (default: the "
                         "largest bucket)")
@@ -295,29 +297,54 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="per-request row cap (413 above it; default 8x the "
                         "largest bucket)")
     s.add_argument("--no-warmup", action="store_true",
-                   help="skip running every bucket once at startup")
+                   help="skip running every bucket once at startup (the "
+                        "first request of each bucket then pays its first "
+                        "run)")
     s.add_argument("--dtype", "--serve-dtype", dest="dtype",
-                   default="float32", choices=[*sorted(DTYPES), "int8"],
-                   help="input dtype handed to the model (the tower "
-                        "computes in bf16 either way; the int8 rung is not "
-                        "ported)")
+                   default="float32", choices=["float32", "bfloat16",
+                                               "int8"],
+                   help="input dtype of the chunks (the tower computes in "
+                        "bf16 either way); int8 quantizes each chunk on the "
+                        "host per example and dequantizes it on the card: "
+                        "~4x fewer bytes to the device")
     s.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
 
-    r = p.add_argument_group("resilience and fleet worker (not ported)")
+    r = p.add_argument_group("resilience and fleet worker")
     r.add_argument("--stall-timeout", type=float, default=None,
-                   metavar="SECONDS")
-    r.add_argument("--max-restarts", type=int, default=0)
-    r.add_argument("--port-file", default=None, metavar="PATH")
-    r.add_argument("--watch-ckpt", action="store_true")
+                   metavar="SECONDS",
+                   help="a device call silent this long dumps the thread "
+                        "stacks and (with --max-restarts) ends the "
+                        "attempt: the batcher drains and a fresh one "
+                        "starts")
+    r.add_argument("--max-restarts", type=int, default=0,
+                   help="supervised restarts after a stall (0: one "
+                        "attempt)")
+    r.add_argument("--port-file", default=None, metavar="PATH",
+                   help="bind BEFORE the warmup and publish the bound port "
+                        "to this file (/readyz answers 503 and /embed "
+                        "sheds with Retry-After until the ladder is warm)")
+    r.add_argument("--watch-ckpt", action="store_true",
+                   help="watch --ckpt-dir for new manifest-valid steps and "
+                        "swap them in (POST /rollback reverts and blocks a "
+                        "step); an empty directory serves random weights "
+                        "until the first step lands")
     r.add_argument("--watch-poll", type=float, default=2.0,
-                   metavar="SECONDS")
+                   metavar="SECONDS", help="checkpoint poll interval")
     r.add_argument("--watch-delay", type=float, default=0.0,
-                   metavar="SECONDS")
+                   metavar="SECONDS",
+                   help="adopt a new step only this long after first "
+                        "seeing it (staggers the workers of a fleet)")
 
-    o = p.add_argument_group("observability (not ported)")
-    o.add_argument("--log-jsonl", default=None, metavar="PATH")
-    o.add_argument("--run-id", default=None, metavar="ID")
+    o = p.add_argument_group("observability")
+    o.add_argument("--log-jsonl", default=None, metavar="PATH",
+                   help="append typed JSONL events (request, queue, batch "
+                        "and device-chunk spans sharing the request id; "
+                        "export with python -m ntxent_tpu_torch.obs.trace)")
+    o.add_argument("--run-id", default=None, metavar="ID",
+                   help="identity stamped on every event and in /metrics "
+                        "(serving_run_info{run_id=...}; default: random "
+                        "when --log-jsonl is given)")
 
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
@@ -331,9 +358,12 @@ def _check_serve_args(args) -> None:
     _apply_platform(args)
     _exit_on_unported("ntxent-serve (torch)", args, SERVE_UNPORTED,
                       SERVE_ITEMS)
-    if args.dtype == "int8":
-        raise SystemExit(f"ntxent-serve (torch): --dtype int8 is not ported "
-                         f"yet: {SERVE_ITEMS['int8']}")
+    if args.max_restarts < 0:
+        raise SystemExit("--max-restarts must be >= 0")
+    if args.stall_timeout is not None and args.stall_timeout <= 0:
+        raise SystemExit("--stall-timeout must be positive")
+    if args.watch_ckpt and args.ckpt_dir is None:
+        raise SystemExit("--watch-ckpt requires --ckpt-dir")
     if args.vit_attention != "xla" and not args.model.startswith("vit"):
         raise SystemExit(f"--vit-attention {args.vit_attention} applies to "
                          f"ViT encoders only (got --model {args.model}); it "
@@ -372,38 +402,95 @@ def build_model(args) -> SimCLRModel:
     return init_weights(model, torch.Generator().manual_seed(args.seed))
 
 
+def _restore_served(args, model) -> int | None:
+    """The step of ``--ckpt-dir`` loaded into ``model`` (None: random
+    weights). An empty or missing directory exits, unless
+    ``--watch-ckpt`` waits for its first step (``cli.py:1588-1598``)."""
+    if args.ckpt_dir is None:
+        logger.warning("no --ckpt-dir: serving RANDOM weights (smoke/"
+                       "load-test mode)")
+        return None
+    empty = not os.path.isdir(args.ckpt_dir) \
+        or CheckpointManager(args.ckpt_dir).latest_step() is None
+    if empty and not args.watch_ckpt:
+        raise SystemExit(f"no checkpoint under {args.ckpt_dir}")
+    if empty:
+        logger.warning("no checkpoint under %s yet: serving random weights "
+                       "and watching for the first valid step",
+                       args.ckpt_dir)
+        return None
+    step = CheckpointManager(args.ckpt_dir).restore_variables(model)
+    logger.info("serving checkpoint step %d from %s", step, args.ckpt_dir)
+    return step
+
+
 def build_server(args) -> EmbeddingServer:
-    """Model, engine and server from parsed ``args``; the ladder is warm
-    unless ``--no-warmup``. Call ``start()`` or ``serve_forever()``."""
+    """Model, engine and server from parsed ``args`` (``cli.py:1545-1718``).
+
+    The ladder is warm unless ``--no-warmup``. With ``--port-file`` the
+    server comes back started: it binds first (``/readyz`` 503 while
+    warming), publishes the port, then warms. ``--watch-ckpt`` sets
+    ``server.reloader`` (``serve_main`` starts it); ``--log-jsonl`` or
+    ``--run-id`` install an async event log. ``server.close()`` stops all
+    of it. Call ``start()`` (unless started) or ``serve_forever()``."""
     _check_serve_args(args)
     buckets = _buckets(args.buckets)
     device = resolve_device(args.device)
     model = build_model(args)
-    if args.ckpt_dir is not None:
-        if not os.path.isdir(args.ckpt_dir) \
-                or CheckpointManager(args.ckpt_dir).latest_step() is None:
-            raise SystemExit(f"no checkpoint under {args.ckpt_dir}")
-        manager = CheckpointManager(args.ckpt_dir)
-        step = manager.restore_variables(model)
-        logger.info("serving checkpoint step %d from %s", step,
-                    args.ckpt_dir)
-    else:
-        logger.warning("no --ckpt-dir: serving RANDOM weights (smoke/"
-                       "load-test mode)")
+    initial_step = _restore_served(args, model)
+    event_log = None
+    if args.log_jsonl or args.run_id:
+        # async: span emits ride the batcher's dispatch loop
+        event_log = obs_events.EventLog(args.log_jsonl, run_id=args.run_id,
+                                        async_io=True)
+        obs_events.install(event_log)
+        logger.info("serving telemetry: run_id=%s%s", event_log.run_id,
+                    f", events -> {args.log_jsonl}" if args.log_jsonl
+                    else "")
+    retry_policy = RetryPolicy(max_attempts=2, base_delay_s=0.05,
+                               max_delay_s=1.0, seed=args.seed)
     engine = InferenceEngine(
         model, (args.image_size, args.image_size, 3),
         method="forward" if args.head == "embedding" else "features",
-        buckets=buckets, dtype=DTYPES[args.dtype], device=device)
-    if not args.no_warmup:
-        engine.warmup()
-    logger.info("serving %s on %s", _model_label(args), device_name(device))
-    return EmbeddingServer(
+        buckets=buckets, dtype=SERVE_DTYPES[args.dtype], device=device,
+        retry_policy=retry_policy, adaptive=args.adaptive_buckets,
+        ladder_max_buckets=args.ladder_max_buckets,
+        ladder_min_requests=args.ladder_min_requests,
+        ladder_interval_s=(args.ladder_interval if args.adaptive_buckets
+                           else 0.0))
+    if event_log is not None:
+        engine.metrics.set_run_id(event_log.run_id)
+    if initial_step is not None:
+        engine.metrics.set_checkpoint_step(initial_step)
+    server = EmbeddingServer(
         engine, host=args.host, port=args.port, max_batch=args.max_batch,
         max_delay_s=args.max_delay_ms / 1e3, queue_size=args.queue_size,
-        retry_policy=RetryPolicy(base_delay_s=0.05, max_delay_s=1.0,
-                                 seed=args.seed),
+        retry_policy=retry_policy, stall_timeout_s=args.stall_timeout,
+        max_restarts=args.max_restarts,
         default_timeout_s=args.timeout_ms / 1e3,
         max_request_rows=args.max_request_rows)
+    server.event_log = event_log
+    if args.watch_ckpt:
+        server.reloader = CheckpointWatcher(
+            args.ckpt_dir, build_model(args), engine,
+            poll_s=args.watch_poll, delay_s=args.watch_delay,
+            initial_step=initial_step)
+    logger.info("serving %s on %s", _model_label(args), device_name(device))
+    if args.port_file:
+        # mark the ladder cold BEFORE the bind, so a probe racing it never
+        # sees ready, then publish the port, then warm
+        server.begin_warmup()
+        server.start()
+        tmp = args.port_file + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(str(server.port))
+        os.replace(tmp, args.port_file)
+        if not args.no_warmup:
+            engine.warmup()
+        server.end_warmup()
+    elif not args.no_warmup:
+        engine.warmup()
+    return server
 
 
 def serve_main(argv=None) -> int:
@@ -412,15 +499,19 @@ def serve_main(argv=None) -> int:
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
     server = build_server(args)
-    server.start()
+    if not server.listening:
+        server.start()
     print(f"serving on http://{server.host}:{server.port}", flush=True)
+    if server.reloader is not None:
+        server.reloader.start()
     try:
-        server.serve_forever()
+        completed = server.serve_forever()
     except KeyboardInterrupt:
         logger.info("interrupted: draining")
+        completed = True
     finally:
         server.close()
-    return 0
+    return 0 if completed else 1
 
 
 # --------------------------------------------------------------------------
@@ -631,9 +722,6 @@ def _check_train_args(args) -> None:
         (args.stem != "conv", f"--stem {args.stem}", "stem"),
         (args.collective_dtype != "float32",
          f"--collective-dtype {args.collective_dtype}", "wire"),
-        (args.lag_metrics and args.accum_steps > 1
-         and args.nan_policy != "off" and not clip,
-         "--lag-metrics with --accum-steps and --nan-policy", "lag_accum"),
         (args.parallel != "dp" or args.fsdp, "--parallel tp / --fsdp", "mp"),
         (clip and args.clip_parallel != "dp", "--clip-parallel tp", "mp"),
         (args.moe_experts > 0, "--moe-experts", "mp"),

@@ -12,6 +12,14 @@ result per request.
 * A request whose deadline passes while it is queued is completed with
   ``DeadlineExceededError`` at dispatch and never reaches the device.
 * A failing batch fails its requests, never the worker thread.
+* ``watchdog=`` (a ``utils.watchdog.StallWatchdog``): the worker beats it
+  on every iteration, idle ones included, so a silence means one thing:
+  a wedged device call (``server.EmbeddingServer.serve_forever``
+  restarts the batcher on it).
+* Spans (``obs.trace``; no-ops without an installed event log): the
+  worker wraps each coalesced dispatch in ``serve.batch`` (its request
+  ids in the span) and, after every requester is woken, emits each
+  request's ``serve.queue_wait``.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..obs import trace as _trace
 from ..resilience.retry import RetryPolicy
 from .engine import InferenceEngine
 
@@ -57,6 +66,7 @@ class _Pending:
     x: np.ndarray
     enqueued: float                       # monotonic
     deadline: float | None                # monotonic, None = no deadline
+    request_id: str | None = None         # minted at HTTP ingest
     done: threading.Event = field(default_factory=threading.Event)
     result: np.ndarray | None = None
     error: BaseException | None = None
@@ -78,7 +88,7 @@ class MicroBatcher:
     def __init__(self, engine: InferenceEngine, max_batch: int | None = None,
                  max_delay_s: float = 0.005, queue_size: int = 64,
                  retry_policy: RetryPolicy | None = None,
-                 poll_s: float = 0.05):
+                 watchdog=None, poll_s: float = 0.05):
         if queue_size < 1:
             raise ValueError(f"queue_size must be >= 1, got {queue_size}")
         if max_delay_s < 0:
@@ -89,6 +99,7 @@ class MicroBatcher:
         self.max_delay_s = float(max_delay_s)
         self.queue_size = int(queue_size)
         self.retry_policy = retry_policy
+        self.watchdog = watchdog
         self.poll_s = float(poll_s)
         self.metrics.queue_capacity = self.queue_size
         self._queue: deque[_Pending] = deque()
@@ -101,7 +112,8 @@ class MicroBatcher:
 
     # -- client side -----------------------------------------------------
     def submit_async(self, x: np.ndarray,
-                     timeout_s: float | None = None) -> _Pending:
+                     timeout_s: float | None = None,
+                     request_id: str | None = None) -> _Pending:
         x = np.asarray(x)
         if x.shape[1:] != self.engine.example_shape or x.shape[0] < 1:
             raise ValueError(
@@ -110,7 +122,8 @@ class MicroBatcher:
         now = time.monotonic()
         pending = _Pending(
             x=x, enqueued=now,
-            deadline=now + timeout_s if timeout_s is not None else None)
+            deadline=now + timeout_s if timeout_s is not None else None,
+            request_id=request_id)
         with self._lock:
             # Checked under the lock that the worker's exit and close()'s
             # drain also take: an accepted request is served or drained.
@@ -126,14 +139,16 @@ class MicroBatcher:
         self.metrics.request_accepted()
         return pending
 
-    def submit(self, x: np.ndarray,
-               timeout_s: float | None = None) -> np.ndarray:
+    def submit(self, x: np.ndarray, timeout_s: float | None = None,
+               request_id: str | None = None) -> np.ndarray:
         """Embed one request of shape ``(n,) + example_shape``.
 
         Raises ``QueueFullError`` (backpressure), ``DeadlineExceededError``
         (``timeout_s`` elapsed) or the device call's own error.
+        ``request_id`` links the worker's spans to the request.
         """
-        pending = self.submit_async(x, timeout_s=timeout_s)
+        pending = self.submit_async(x, timeout_s=timeout_s,
+                                    request_id=request_id)
         start = pending.enqueued
         # Grace on top of the deadline: the worker expires the request;
         # the extra poll intervals only cover rendezvous scheduling.
@@ -167,6 +182,8 @@ class MicroBatcher:
                 if self._closed.is_set():
                     return []
                 self._not_empty.wait(self.poll_s)
+                if self.watchdog is not None:
+                    self.watchdog.beat()  # idle is progress, not a stall
             batch = [self._queue.popleft()]
         rows = batch[0].x.shape[0]
         flush_at = time.monotonic() + self.max_delay_s
@@ -207,10 +224,13 @@ class MicroBatcher:
                     if not p.done.is_set():
                         p.finish(error=RuntimeError("internal batcher "
                                                     "error (see log)"))
+            if self.watchdog is not None:
+                self.watchdog.beat()  # a completed cycle is progress
 
     def _serve_batch(self, batch: list[_Pending]) -> None:
         now = time.monotonic()
         live: list[_Pending] = []
+        expired: list[_Pending] = []
         for p in batch:
             if p.deadline is not None and now >= p.deadline:
                 # Expired in the queue: complete it without device work.
@@ -218,27 +238,45 @@ class MicroBatcher:
                 p.finish(error=DeadlineExceededError(
                     "deadline expired while queued "
                     f"({(now - p.enqueued) * 1e3:.0f}ms waiting)"))
+                expired.append(p)
             else:
                 self.metrics.queue_wait((now - p.enqueued) * 1e3)
                 live.append(p)
-        if not live:
-            return
-        try:
-            x = (live[0].x if len(live) == 1
-                 else np.concatenate([p.x for p in live]))
-            out = self.engine.embed(x, n_requests=len(live))
-        except Exception as e:  # noqa: BLE001 — fail the batch, not the
-            # worker: the loop must outlive any one bad batch.
-            logger.exception("serving: device call failed for a batch of "
-                             "%d request(s)", len(live))
-            for p in live:
-                p.finish(error=e)
-            return
-        off = 0
+        if live:
+            try:
+                x = (live[0].x if len(live) == 1
+                     else np.concatenate([p.x for p in live]))
+                with _trace.span(
+                        "serve.batch", requests=len(live),
+                        rows=int(x.shape[0]),
+                        request_ids=[p.request_id for p in live
+                                     if p.request_id is not None]):
+                    out = self.engine.embed(x, n_requests=len(live))
+            except Exception as e:  # noqa: BLE001 — fail the batch, not
+                # the worker: the loop must outlive any one bad batch.
+                logger.exception("serving: device call failed for a batch "
+                                 "of %d request(s)", len(live))
+                for p in live:
+                    p.finish(error=e)
+            else:
+                off = 0
+                for p in live:
+                    n = p.x.shape[0]
+                    p.finish(result=out[off:off + n])
+                    off += n
+        # Queue-wait spans go out after every requester is woken (a
+        # synchronous event-log write between drain and dispatch would
+        # hold the queue); dur_ms still reaches back to the true wait.
         for p in live:
-            n = p.x.shape[0]
-            p.finish(result=out[off:off + n])
-            off += n
+            if p.request_id is not None:
+                _trace.emit_span("serve.queue_wait",
+                                 (now - p.enqueued) * 1e3,
+                                 request_id=p.request_id)
+        for p in expired:
+            if p.request_id is not None:
+                _trace.emit_span("serve.queue_wait",
+                                 (now - p.enqueued) * 1e3,
+                                 request_id=p.request_id, error="deadline")
 
     def _drain(self, reason: str) -> None:
         with self._lock:

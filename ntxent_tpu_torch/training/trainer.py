@@ -85,11 +85,16 @@ Training resilience (``trainer.py:52-104``, ``:133-138``, ``:202-224``):
   (after the gradient pmean on the data-parallel steps); ``state.step``
   and the BatchNorm statistics move every micro-step.
 
+Under ``train_loop(metrics_lag=1)`` with accumulation the micro-step is
+decided on the device too (``MultiSteps.step_kept``): every micro-step
+runs the inner update, a select keeps it only on the k-th and resets the
+accumulator there, and ``ok`` keeps the whole micro-step (accumulator and
+counters included) or none of it, as the JAX step's ``MultiSteps`` does
+under its in-jit select.
+
 Not in this slice (the factories raise ``NotImplementedError`` naming
 the ROADMAP.md item, and ``cli`` exits on the flags): the MoE auxiliary
-loss, the lag-1 guard under gradient accumulation (``MultiSteps``
-decides on the host when the inner optimizer steps). ``ROADMAP_ITEMS``
-names every such item.
+loss. ``ROADMAP_ITEMS`` names every such item.
 """
 
 from __future__ import annotations
@@ -130,8 +135,6 @@ ROADMAP_ITEMS = {
     "stem": "ROADMAP.md Queue A 6(b) (the space-to-depth ResNet stem)",
     "wire": "ROADMAP.md Queue A 3(e) (quantized collectives: "
             "--collective-dtype bf16/int8 with error feedback)",
-    "lag_accum": "ROADMAP.md Queue A 7(e) (the lag-1 guard under "
-                 "--accum-steps: MultiSteps' counters on the device)",
     "mp": "ROADMAP.md Queue A 9 (model parallelism and MoE; multi-host "
           "worlds come from torchrun's environment)",
     "chunked": "ROADMAP.md Queue A 3(d) (--dp-loss chunked, the "
@@ -298,14 +301,19 @@ def _stats_before(model: nn.Module) -> list[torch.Tensor]:
 
 
 class _KeptUpdate:
-    """What a step moves (the parameters, the momentum, the BatchNorm
-    running statistics), laid out in one flat buffer (each tensor's
-    ``.data`` becomes a view of it, so every holder of the tensor sees
-    the same values), with a flat snapshot beside it: ``save()`` is one
-    copy, ``keep_if(ok)`` one ``torch.where``, never arithmetic that lets
-    a NaN through (``trainer.py:91-101``)."""
+    """What a step moves (the parameters, the momentum, under
+    accumulation the accumulator and the counters, the BatchNorm running
+    statistics), laid out in one flat buffer (each tensor's ``.data``
+    becomes a view of it, so every holder of the tensor sees the same
+    values), with a flat snapshot beside it: ``save()`` is one copy,
+    ``keep_if(ok)`` one ``torch.where``, never arithmetic that lets a NaN
+    through (``trainer.py:91-101``). The buffer starts with the ``inner``
+    elements of the inner update (parameters, momentum), then the ``acc``
+    elements of the accumulator, which ``keep_update_if(emit)`` selects
+    as optax's ``MultiSteps`` does."""
 
-    def __init__(self, tensors: list[torch.Tensor]):
+    def __init__(self, tensors: list[torch.Tensor], inner: int = 0,
+                 acc: int = 0):
         if len({t.data_ptr() for t in tensors}) != len(tensors):
             raise TypeError("the lag-1 guard needs untied tensors")
         with torch.no_grad():
@@ -314,6 +322,7 @@ class _KeptUpdate:
                     [t.numel() for t in tensors])):
                 t.data = view.view_as(t)
         self.saved = torch.empty_like(self.live)
+        self.inner, self.acc = inner, acc
 
     @torch.no_grad()
     def save(self) -> None:
@@ -324,19 +333,35 @@ class _KeptUpdate:
         """Each tensor becomes ``ok ? itself : its snapshot``."""
         torch.where(ok, self.live, self.saved, out=self.live)
 
+    @torch.no_grad()
+    def keep_update_if(self, emit: torch.Tensor) -> None:
+        """The inner update stays only where ``emit``; the accumulator
+        becomes zero there (``MultiSteps``' ``cond``, as selects)."""
+        inner = self.live[:self.inner]
+        torch.where(emit, inner, self.saved[:self.inner], out=inner)
+        acc = self.live[self.inner:self.inner + self.acc]
+        torch.where(emit, torch.zeros((), dtype=acc.dtype,
+                                      device=acc.device), acc, out=acc)
+
 
 def _kept(state: TrainState) -> _KeptUpdate:
     """The state's flat snapshot, laid out at its first lag-1 step."""
     opt = state.optimizer
-    if isinstance(opt, MultiSteps):
-        raise _not_ported("the lag-1 guard with --accum-steps", "lag_accum")
     if state.kept is None:
-        tensors = [*opt.params.values(), *opt.trace.values(),
-                   *_running_stats(state.model)]
+        accum = isinstance(opt, MultiSteps)
+        inner = opt.inner if accum else opt
+        moved = [*inner.params.values(), *inner.trace.values()]
+        acc = list(opt.acc.values()) if accum else []
+        tail = _running_stats(state.model)
+        if accum:
+            tail.append(opt.device_counters(moved[0].device))
+        tensors = moved + acc + tail
         if len({(t.dtype, t.device) for t in tensors}) != 1:
             raise TypeError("the lag-1 guard snapshots tensors of one dtype "
                             "and device")
-        state.kept = _KeptUpdate(tensors)
+        state.kept = _KeptUpdate(tensors,
+                                 inner=sum(t.numel() for t in moved),
+                                 acc=sum(t.numel() for t in acc))
     return state.kept
 
 
@@ -354,7 +379,10 @@ def _kept_update(state: TrainState, loss: torch.Tensor, scale: float,
     grad_norm = torch.linalg.vector_norm(torch.stack(
         torch._foreach_norm(grads)))
     ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
-    state.optimizer.step_kept(ok)
+    if isinstance(state.optimizer, MultiSteps):
+        keep.keep_update_if(state.optimizer.step_kept(ok))
+    else:
+        state.optimizer.step_kept(ok)
     keep.keep_if(ok)
     state.step += 1
     return {"loss": loss, "grad_norm": grad_norm, "step_ok": ok}

@@ -152,20 +152,6 @@ TRAIN_FLAGS = [
 SERVE_FLAGS = [
     (["--stem", "space_to_depth", "--image-size", "224"],
      r"Queue A 6\(b\)"),
-    (["--adaptive-buckets"], r"Queue A 8\(e\)"),
-    (["--ladder-max-buckets", "4"], r"Queue A 8\(e\)"),
-    (["--ladder-min-requests", "30"], r"Queue A 8\(e\)"),
-    (["--ladder-interval", "0.5"], r"Queue A 8\(e\)"),
-    (["--max-restarts", "2"], r"Queue A 8\(c\)"),
-    (["--stall-timeout", "5"], r"Queue A 8\(c\)"),
-    (["--port-file", "port"], r"Queue A 8\(c\)"),
-    (["--watch-ckpt"], r"Queue A 8\(c\)"),
-    (["--watch-poll", "1"], r"Queue A 8\(c\)"),
-    (["--watch-delay", "1"], r"Queue A 8\(c\)"),
-    (["--log-jsonl", "serve.jsonl"], r"Queue A 8\(f\)"),
-    (["--run-id", "abc"], r"Queue A 8\(f\)"),
-    (["--dtype", "int8"], r"Queue A 8\(d\)"),
-    (["--serve-dtype", "int8"], r"Queue A 8\(d\)"),
 ]
 
 
@@ -187,6 +173,207 @@ def test_reference_flags_parse_and_exit_naming_their_item(command, flags,
         run = cli.build_server
     with pytest.raises(SystemExit, match=f"ROADMAP.md {match}"):
         run(args)
+
+
+# The serve flags this port runs (each exited naming its ROADMAP.md item
+# before): every one parses, builds a server on the CPU through
+# build_server, answers /embed, and shows its effect.
+SERVE_TINY = ["--device", "cpu", "--model", "tiny", "--image-size", "8",
+              "--buckets", "1,4", "--port", "0", "--proj-hidden-dim", "16",
+              "--proj-dim", "8", "--head", "embedding"]
+
+
+SERVE_LIMIT_S = 60.0  # each HTTP case's own time limit
+
+
+def _within_limit(fn, limit_s: float):
+    """Run ``fn`` on a daemon thread; fail if it is not done in
+    ``limit_s``, so a hang fails the case instead of cutting the run."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # re-raised on the test's thread
+            box["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    thread.join(limit_s)
+    assert not thread.is_alive(), f"no result within {limit_s} s: a hang"
+    if "error" in box:
+        raise box["error"]
+    return box.get("value")
+
+
+def _serve_post(server, rows=3):
+    import urllib.request
+
+    x = np.random.default_rng(rows).uniform(size=(rows, 8, 8, 3))
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{server.port}/embed", method="POST",
+        data=json.dumps({"inputs": x.tolist()}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        body = json.loads(resp.read())
+        assert resp.status == 200 and body["rows"] == rows
+        assert np.all(np.isfinite(body["embeddings"]))
+        return dict(resp.headers), body
+
+
+def _serve_get(server, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{server.port}{path}",
+                                timeout=60) as resp:
+        return resp.read().decode()
+
+
+def _supervised(server, check):
+    """``check`` while ``serve_forever`` runs in a thread; then a clean
+    shutdown."""
+    import threading
+    import time
+
+    result = {}
+    unsupervised = server.batcher  # start()'s, which the attempt replaces
+    loop = threading.Thread(
+        target=lambda: result.setdefault("ok", server.serve_forever()))
+    loop.start()
+    deadline = time.monotonic() + 10
+    while server.batcher in (None, unsupervised) \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    try:
+        check()
+    finally:
+        server.shutdown()
+        loop.join(20)
+    assert result.get("ok") is True
+
+
+def _check_adaptive(server, args):
+    engine = server.engine
+    assert engine.adaptive and engine.histogram is not None
+    for rows in (3, 3, 3):
+        _serve_post(server, rows)
+    assert engine.refresh_ladder(force=True)
+    assert engine.buckets == (3, 4)
+    _serve_post(server, 3)
+    assert engine.metrics.to_dict()["ladder"]["generation"] == 1
+
+
+def _check_ladder_knob(attr, want):
+    def check(server, args):
+        assert getattr(server.engine, attr) == want
+        _serve_post(server)
+    return check
+
+
+def _check_ladder_interval(server, args):
+    engine = server.engine
+    assert args.ladder_interval == 0.5
+    assert engine._ladder_thread is None  # only with --adaptive-buckets
+    _serve_post(server)
+
+
+def _check_max_restarts(server, args):
+    assert server.max_restarts == 2
+    _supervised(server, lambda: _serve_post(server))
+
+
+def _check_stall_timeout(server, args):
+    assert server.stall_timeout_s == 5.0
+
+    def check():
+        _serve_post(server)
+        health = json.loads(_serve_get(server, "/healthz"))
+        assert health["status"] == "serving"
+        assert server._watchdog is not None \
+            and server._watchdog.timeout_s == 5.0
+
+    _supervised(server, check)
+
+
+def _check_port_file(server, args):
+    assert server.listening and server.ready
+    with open(args.port_file) as f:
+        assert int(f.read()) == server.port
+    _serve_post(server)
+
+
+def _check_watch(server, args):
+    watcher = server.reloader
+    assert watcher is not None and watcher.current_step is None
+    assert (watcher.poll_s, watcher.delay_s) == (args.watch_poll,
+                                                args.watch_delay)
+    headers, _ = _serve_post(server)
+    assert "X-Checkpoint-Step" not in headers  # random weights
+
+
+def _check_log_jsonl(server, args):
+    from ntxent_tpu_torch.obs import events
+
+    headers, _ = _serve_post(server)
+    server.close()
+    names = {r["name"] for r in events.read_events(args.log_jsonl, "span")
+             if r.get("request_id") == headers["X-Request-Id"]}
+    assert {"serve.request", "serve.queue_wait"} <= names
+
+
+def _check_run_id(server, args):
+    _serve_post(server)
+    assert 'serving_run_info{run_id="abc"} 1' in _serve_get(
+        server, "/metrics?format=prometheus")
+    assert json.loads(_serve_get(server, "/metrics"))["run_id"] == "abc"
+
+
+def _check_int8(server, args):
+    assert server.engine.quantized
+    _serve_post(server, 4)
+    assert server.engine.h2d_bytes == 4 * 8 * 8 * 3 + 4 * 4
+
+
+LIFTED_SERVE_FLAGS = [
+    (["--adaptive-buckets"], _check_adaptive),
+    (["--ladder-max-buckets", "4"],
+     _check_ladder_knob("ladder_max_buckets", 4)),
+    (["--ladder-min-requests", "30"],
+     _check_ladder_knob("ladder_min_requests", 30)),
+    (["--ladder-interval", "0.5"], _check_ladder_interval),
+    (["--max-restarts", "2"], _check_max_restarts),
+    (["--stall-timeout", "5"], _check_stall_timeout),
+    (["--port-file", "{tmp}/port"], _check_port_file),
+    (["--watch-ckpt", "--ckpt-dir", "{tmp}/ck"], _check_watch),
+    (["--watch-poll", "1", "--watch-ckpt", "--ckpt-dir", "{tmp}/ck"],
+     _check_watch),
+    (["--watch-delay", "1", "--watch-ckpt", "--ckpt-dir", "{tmp}/ck"],
+     _check_watch),
+    (["--log-jsonl", "{tmp}/serve.jsonl"], _check_log_jsonl),
+    (["--run-id", "abc"], _check_run_id),
+    (["--dtype", "int8"], _check_int8),
+    (["--serve-dtype", "int8"], _check_int8),
+]
+
+
+@pytest.mark.parametrize("flags,check", LIFTED_SERVE_FLAGS,
+                         ids=[f[0] for f, _ in LIFTED_SERVE_FLAGS])
+def test_lifted_serve_flags_parse_and_run_on_the_cpu(tmp_path, flags, check):
+    flags = [f.format(tmp=tmp_path) for f in flags]
+    args = cli.build_serve_parser().parse_args(SERVE_TINY + flags)
+    server = cli.build_server(args)
+
+    def run():
+        if not server.listening:
+            server.start()
+        check(server, args)
+
+    try:
+        _within_limit(run, SERVE_LIMIT_S)
+    finally:
+        server.close()
 
 
 def _train_ckpt(tmp_path, *flags, name="ck"):

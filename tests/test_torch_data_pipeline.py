@@ -336,19 +336,25 @@ def test_lars_kept_step_equals_the_host_step_and_counts_on_the_device():
     assert b.optimizer.count == 7
 
 
-def test_lag1_guard_under_accumulation_names_its_item():
-    _, _, model = tiny_simclr_pair()
-    state = ttrain.create_train_state(model, ttrain.TrainerConfig(
-        **GUARD_CONFIG, accum_steps=2), torch.device("cpu"))
-    v1, v2 = map(torch.from_numpy, step_views(1)[0])
-    step = ttrain.make_train_step(0.2, guard=True)
-    with pytest.raises(NotImplementedError, match=r"Queue A 7\(e\)"):
-        step(state, v1, v2, 1.0, lag=True)
-    args = cli.build_train_parser().parse_args(
-        ["--device", "cpu", "--lag-metrics", "--accum-steps", "2",
-         "--nan-policy", "skip"])
-    with pytest.raises(SystemExit, match=r"ROADMAP.md Queue A 7\(e\)"):
-        cli.train(args)
+def test_lag1_guard_under_accumulation_runs_through_the_cli(monkeypatch):
+    """``train --lag-metrics --accum-steps 2 --nan-policy skip`` with a
+    NaN micro-batch ends where the run without ``--lag-metrics`` ends
+    (``test_torch_accum_lag.py`` holds the steps themselves)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv = ["--device", "cpu", "--model", "tiny", "--image-size", "8",
+            "--batch", "4", "--steps", "4", "--log-every", "1",
+            "--proj-hidden-dim", "16", "--proj-dim", "8",
+            "--synthetic-samples", "8", "--warmup-steps", "1",
+            "--accum-steps", "2", "--nan-policy", "skip", "--chaos",
+            "nan@2"]
+    lag, hist = cli.train(cli.build_train_parser().parse_args(
+        argv + ["--lag-metrics"]))
+    sync, _ = cli.train(cli.build_train_parser().parse_args(argv))
+    assert [np.isfinite(h["loss"]) for h in hist] == [True, False, True,
+                                                      True]
+    assert lag.optimizer.counters is not None
+    assert (lag.optimizer.mini_step, lag.optimizer.gradient_step) == (1, 1)
+    _assert_bitwise(sync, lag)
 
 
 # ---------------------------------------------------------------------------

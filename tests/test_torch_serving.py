@@ -264,7 +264,8 @@ def test_embed_over_http_matches_jax(jax_model_and_server):
 def test_http_status_routes_and_errors(jax_model_and_server):
     _, _, server, url = jax_model_and_server
     assert _get(f"{url}/healthz") == (200, {"status": "serving",
-                                            "ready": True})
+                                            "ready": True,
+                                            "checkpoint_step": None})
     assert _get(f"{url}/readyz")[0] == 200
     code, metrics = _get(f"{url}/metrics")
     assert code == 200
