@@ -294,6 +294,29 @@ Phases; any failure ends the run with a non-zero exit and no result:
    --nan-policy skip`` with a NaN micro-batch ends at the synchronous
    guard's CRC32 (and the device fold equals ``step()``'s), and both
    guards under --accum-steps 2 timed in turns on batches on the card;
+12q. the data-parallel wire (in the NCCL group of world 1, after 12):
+   [dp-chunked] phase 11's command with ``--dp-loss chunked --ring-chunks
+   4``: finite losses, exactly 4/4/4 launches a step of #1 general and #6
+   rows and columns (one a chunk) and none of any other kernel, every
+   weight's gradient nonzero, step ms, and the ``--measure-overlap`` A/B
+   (``measure_comms_overlap``: the strip against the chunked loss at
+   phase 11's rows); [dp-chunked-parity] the fp32 world-1 chunked step
+   against the world-1 strip step at phase 12's tolerances;
+   [chunked-emulated] P = 4 ranks of the chunked ring emulated at 2N =
+   8192, D = 128, 4 chunks a hop, against ntxent_loss_fused within
+   EMULATED_LOSS_ATOL and EMULATED_GRAD_RTOL, P * P * 4 launches of #1 and
+   of #6 rows and columns, and #1's and #6's times at one chunk of the P =
+   4 hop; [wire] phase 11's command under ``--collective-dtype bf16`` and
+   ``int8``, and with ``--dp-loss pair`` under int8: the strip's 1/1/1
+   launches a step (the pair's 1/1), every loss within WIRE_LOSS_ATOL of
+   phase 11's float32 run, the int8 residual nonzero,
+   ``quantize_int8`` on the card equal to the CPU's bit for bit, the
+   collective series by wire dtype (bytes 0 at world 1: the ring model),
+   step ms against phase 11's; [wire-clip] data-parallel CLIP ViT-B/16
+   under int8 for 2 steps (1/1/1 of #9 rectangular, #5 cross-modal and #4,
+   12/12/12 of the flash kernels a step, the residual nonzero);
+   [resume-ef] phase 11's command under int8 with ``--ckpt-save-ef``,
+   2 + 1 steps against 3, CRC for CRC with the residual in the state;
 13. one JSON line describing each kernel of the paths (with each loss
    kernel's D = 1024 times and each flash kernel's fp32 times, and #11's
    launches on the int8, adaptive-ladder and worker serve paths), after
@@ -513,6 +536,23 @@ DP_STEP_LAUNCHES = {"ntxent_fwd_general": 1, "ntxent_bwd_general_rows": 1,
 # the cross-replica BatchNorm's all-reduces at world 1 -> the fp32 train
 # parity tolerances.
 DP_PARITY_BATCH = 8
+# Queue A 3(d), the chunked ring-overlap loss at world 1: the rank's 2n =
+# 512 rows fold as DP_CHUNKS chunks (no hop at world 1), so a step
+# launches #1 general and #6 rows and columns once a chunk.
+DP_CHUNKS = 4
+DP_CHUNKED_ARGV = DP_ARGV + ["--dp-loss", "chunked", "--ring-chunks",
+                             str(DP_CHUNKS)]
+DP_CHUNKED_STEP_LAUNCHES = {n: DP_CHUNKS for n in DP_STEP_LAUNCHES}
+# The chunked ring of P ranks emulated on one card (2N, D, P, chunks):
+# EMULATED_LOSS_ATOL and EMULATED_GRAD_RTOL against ntxent_loss_fused.
+CHUNKED_EMULATED = (8192, 128, 4, 4)
+# Queue A 3(e), the wire: phase 11's command under each dtype. At world 1
+# the all-gather moves the rank's own rows through the wire's rounding
+# (bf16: 2^-9 relative; int8: half of amax / 127 a row), the losses at
+# the JAX default's warmup lr stay within WIRE_LOSS_ATOL of float32's.
+WIRE_RUNS = (("bf16", "strip"), ("int8", "strip"), ("int8", "pair"))
+WIRE_LOSS_ATOL = 5e-2
+WIRE_CLIP_STEPS = 2
 
 # Data-parallel CLIP kernels (#9 rectangular, #5 cross-modal, #4): (rows,
 # cols, D) of one rank's za rows against the gathered zb. A world of one
@@ -2500,11 +2540,13 @@ def phase_emulated_ranks() -> None:
 
 
 def phase_dp_train(card_line: str, argv=DP_ARGV,
-                   step_launches=DP_STEP_LAUNCHES, tag: str = "dp") -> dict:
+                   step_launches=DP_STEP_LAUNCHES, tag: str = "dp",
+                   out: dict | None = None) -> dict:
     """Data-parallel ResNet-50 SimCLR through ntxent_tpu_torch.cli over
     the NCCL group of world 1 (``argv``: the strip loss, or with
-    ``--dp-loss pair`` the pair loss); returns the launches of each
-    kernel."""
+    ``--dp-loss pair`` the pair loss, ``chunked``, a wire dtype); returns
+    the launches of each kernel. ``out`` receives the losses, the step ms
+    and the largest error-feedback residual (None without one)."""
     import math
 
     import torch
@@ -2562,15 +2604,21 @@ def phase_dp_train(card_line: str, argv=DP_ARGV,
           f"around a synchronizing loss read), {images_per_s:.1f} images/s, "
           f"peak memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated) on {card_line}", flush=True)
+    if out is not None:
+        out.update(losses=losses, step_ms=step_ms, residual=None if
+                   state.ef_residual is None else max(
+                       e.abs().max().item() for e in state.ef_residual))
     del state
     torch.cuda.empty_cache()
     return launches
 
 
-def _dp_parity_step(sharded: bool, views, loss_impl: str = "strip"):
+def _dp_parity_step(sharded: bool, views, loss_impl: str = "strip",
+                    ring_chunks: int | None = None):
     """(loss, flat fp32 gradient) of one fp32 ResNet-50 step from the
     weights of seed 0: the data-parallel step at world 1 (with the
-    ``loss_impl`` schedule) or the single-card step."""
+    ``loss_impl`` schedule, ``ring_chunks`` for chunked) or the
+    single-card step."""
     import torch
 
     from ntxent_tpu_torch.models import (
@@ -2593,7 +2641,8 @@ def _dp_parity_step(sharded: bool, views, loss_impl: str = "strip"):
     if sharded:
         cross_replica_batch_norm(model, torch.distributed.group.WORLD)
         step = make_sharded_train_step(None, cfg.temperature,
-                                       loss_impl=loss_impl)
+                                       loss_impl=loss_impl,
+                                       ring_chunks=ring_chunks)
     else:
         step = make_train_step(cfg.temperature, use_fused=True)
     state = create_train_state(model, cfg, torch.device("cuda"))
@@ -2605,8 +2654,8 @@ def _dp_parity_step(sharded: bool, views, loss_impl: str = "strip"):
 
 def phase_dp_parity() -> None:
     """The world-1 data-parallel step against the single-card step, and
-    the world-1 pair step against the world-1 strip step: fp32 ResNet-50,
-    same weights and views, TF32 off."""
+    the world-1 pair and chunked steps against the world-1 strip step:
+    fp32 ResNet-50, same weights and views, TF32 off."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2617,11 +2666,15 @@ def phase_dp_parity() -> None:
     loss_dp, g_dp = _dp_parity_step(True, views)
     loss_one, g_one = _dp_parity_step(False, views)
     loss_pair, g_pair = _dp_parity_step(True, views, loss_impl="pair")
+    loss_chunk, g_chunk = _dp_parity_step(True, views, loss_impl="chunked",
+                                          ring_chunks=DP_CHUNKS)
     for tag, (loss_a, g_a), (loss_b, g_b), what in (
             ("dp-parity", (loss_dp, g_dp), (loss_one, g_one),
              "data-parallel (world 1) vs single card"),
             ("dp-pair-parity", (loss_pair, g_pair), (loss_dp, g_dp),
-             "pair (world 1) vs strip (world 1)")):
+             "pair (world 1) vs strip (world 1)"),
+            ("dp-chunked-parity", (loss_chunk, g_chunk), (loss_dp, g_dp),
+             f"chunked, {DP_CHUNKS} chunks (world 1) vs strip (world 1)")):
         loss_err = abs(loss_a - loss_b)
         grad_err = ((g_a - g_b).norm() / g_b.norm()).item()
         ok = loss_err <= PARITY_LOSS_ATOL and grad_err <= PARITY_GRAD_RTOL
@@ -2633,6 +2686,227 @@ def phase_dp_parity() -> None:
               flush=True)
         if not ok:
             fail(f"the ResNet-50 steps disagree: {what}")
+
+
+def phase_dp_chunked(card_line: str) -> dict:
+    """[dp-chunked]: phase 11's command with ``--dp-loss chunked
+    --ring-chunks DP_CHUNKS`` (the launch, loss and gradient gates of
+    ``phase_dp_train``), then the ``--measure-overlap`` A/B at its rows,
+    which ``measure_comms_overlap`` times on CUDA events; returns the
+    launches."""
+    from ntxent_tpu_torch.training import measure_comms_overlap
+
+    out = {}
+    launches = phase_dp_train(card_line, DP_CHUNKED_ARGV,
+                              DP_CHUNKED_STEP_LAUNCHES, "dp-chunked", out)
+    batch = int(DP_ARGV[DP_ARGV.index("--batch") + 1])
+    overlap = measure_comms_overlap(None, batch, 128, ring_chunks=DP_CHUNKS)
+    print(f"[dp-chunked] --measure-overlap A/B at world 1 ({batch} rows a "
+          f"view, D = 128, fp32, forward and backward, CUDA events, median "
+          f"of 5): strip {overlap['monolithic_ms']:.4f} ms, chunked "
+          f"({overlap['chunks']} chunks) {overlap['chunked_ms']:.4f} ms, "
+          f"overlap {overlap['overlap_ms']:.4f} ms "
+          f"({overlap['overlap_frac']:.3f}); no hop at world 1, so this is "
+          f"the chunks' own cost; on {card_line}", flush=True)
+    return launches
+
+
+def phase_chunked_emulated() -> dict:
+    """[chunked-emulated]: the chunked ring of P ranks emulated on one card
+    (``emulated_ring_ntxent(P, T, chunks)``: every rank's hops folded as
+    ``chunks`` slices through the ring's ``lse_hop`` over #1 general, the
+    second pass's ``block_grads`` over #6 a slice) against
+    ntxent_loss_fused and its gradient, P * P * chunks launches of each;
+    then #1 and #6 at one chunk of the P = 4 hop against their plain
+    versions, and their times. Returns the times for the kernels' JSON."""
+    from ntxent_tpu_torch.ops import ntxent as N
+    from ntxent_tpu_torch.parallel.mesh import chunk_bounds, local_row_gids
+    from ntxent_tpu_torch.utils.profiling import (
+        cuda_time_ms,
+        emulated_ring_ntxent,
+        launch_counters,
+    )
+
+    two_n, d, p, chunks = CHUNKED_EMULATED
+    t = NTX_TEMPERATURE
+    z = _unit_rows(two_n, d, "float32", seed=37)  # [view 1; view 2]
+    ref_loss, ref_grad = _ntxent_grad(_fused_ntxent(t), z)
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    loss, grad = _ntxent_grad(emulated_ring_ntxent(p, t, chunks=chunks), z)
+    launches = {name: w.launches for name, w in counters.items()}
+    loss_err, grad_err = abs(loss - ref_loss), _rel(grad, ref_grad)
+    want = {n_: p * p * chunks if n_ in RING_NTX_KERNELS else 0
+            for n_ in counters}
+    ok = (loss_err <= EMULATED_LOSS_ATOL and grad_err <= EMULATED_GRAD_RTOL
+          and launches == want)
+    print(f"[chunked-emulated] P = {p} ranks of the chunked ring emulated "
+          f"(2N = {two_n}, D = {d}, {chunks} chunks a hop): loss "
+          f"{loss:.6f} vs ntxent_loss_fused {ref_loss:.6f} (|err| "
+          f"{loss_err:.2e}, atol {EMULATED_LOSS_ATOL:g}); gradient "
+          f"{grad_err:.2e} relative (rtol {EMULATED_GRAD_RTOL:g}); launches "
+          f"{ {k: c for k, c in launches.items() if c} } (P * P * chunks = "
+          f"{p * p * chunks} each) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"the emulated chunked ring of {p} ranks disagrees or launched "
+             f"{launches}")
+    # one chunk of the P = 4 hop: 2n = 2048 rows against 512 columns
+    n = two_n // 2 // p
+    gid0, gid1 = (local_row_gids(r, n, p, z.device) for r in (0, 1))
+    lo, hi = chunk_bounds(2 * n, chunks)[0]
+    z0, z1 = z[gid0.long()], z[gid1.long()][lo:hi].contiguous()
+    g1 = gid1[lo:hi].contiguous()
+    lse0 = N.block_lse(z0, z1, gid0, g1, t, two_n)
+    hop = (z0, z1, gid0, lse0, t, g1, two_n, two_n)
+    got = (N.ntxent_fwd_general(z0, z1, gid0, t, g1, two_n, two_n)[1],
+           *N.block_grads(z0, z1, gid0, g1, lse0, t, two_n))
+    want = (N.ntxent_fwd_general_plain(z0, z1, gid0, t, g1, two_n,
+                                       two_n)[1],
+            N.ntxent_bwd_general_rows_plain(*hop),
+            N.ntxent_bwd_general_cols_plain(*hop))
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    ok = max(errs) <= NTX_ATOL
+    lse_ms = cuda_time_ms(lambda: N.block_lse(z0, z1, gid0, g1, t, two_n))
+    rows_ms, cols_ms = (cuda_time_ms(lambda: fn(*hop)) for fn in (
+        N.ntxent_bwd_general_rows, N.ntxent_bwd_general_cols))
+    bounds = [b for b, _ in _general_bounds(2 * n, hi - lo, d)]
+    print(f"[chunked-emulated] one chunk of the P = {p} hop ({2 * n} rows x "
+          f"{hi - lo} columns, D = {d}, fp32): #1 lse max|err| "
+          f"{errs[0]:.3e}, #6 rows {errs[1]:.3e}, cols {errs[2]:.3e} against "
+          f"the plain versions (atol {NTX_ATOL:g}) {'ok' if ok else 'MISMATCH'}"
+          f"; #1 {lse_ms:.4f} ms (bound {bounds[0]:.5f}), #6 rows "
+          f"{rows_ms:.4f} ms (bound {bounds[1]:.5f}), cols {cols_ms:.4f} ms "
+          f"(bound {bounds[2]:.5f})", flush=True)
+    if not ok:
+        fail("#1 or #6 disagrees with its plain version at a chunk of the "
+             "P = 4 hop")
+    return {name: {"chunk_hop_ms": ms, "chunk_hop_bound_ms": bound}
+            for name, ms, bound in zip(
+                ("ntxent_fwd_general", "ntxent_bwd_general_rows",
+                 "ntxent_bwd_general_cols"), (lse_ms, rows_ms, cols_ms),
+                bounds)}
+
+
+def _wire_series() -> dict:
+    """{(series, op, dtype): value} of the collective counters with a
+    dtype label in the process-wide registry."""
+    import re
+
+    from ntxent_tpu_torch.obs.registry import default_registry
+
+    out = {}
+    for line in default_registry().render_prometheus().splitlines():
+        m = re.match(r'(collective_(?:calls|bytes)_total)\{(.*)\} (\S+)$',
+                     line)
+        if m and 'dtype="' in m.group(2):
+            labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(2)))
+            out[(m.group(1), labels["op"], labels["dtype"])] = float(
+                m.group(3))
+    return out
+
+
+def phase_wire(card_line: str, f32: dict) -> dict:
+    """[wire]: phase 11's command under each (dtype, --dp-loss) of
+    WIRE_RUNS (the launch, loss and gradient gates of ``phase_dp_train``):
+    every loss within WIRE_LOSS_ATOL of the float32 strip run's (``f32``,
+    phase 11's ``out``), int8's error-feedback residual nonzero, the
+    collective series by wire dtype, step ms against float32;
+    ``quantize_int8`` on the card against the CPU's, bit for bit. Returns
+    {"<dtype>" or "<dtype>_pair": launches}."""
+    import torch
+
+    from ntxent_tpu_torch.parallel.precision import quantize_int8
+
+    x = torch.randn(512, 128, generator=torch.Generator().manual_seed(41))
+    x[3] = 0.0
+    q_card, s_card = quantize_int8(x.cuda())
+    q_cpu, s_cpu = quantize_int8(x)
+    q_off = int((q_card.cpu() != q_cpu).sum())
+    s_off = int((s_card.cpu() != s_cpu).sum())
+    same = q_off == 0 and s_off == 0
+    print(f"[wire] quantize_int8 of a (512, 128) float32 block (a zero row "
+          f"included) on the card equals the CPU's bit for bit ({q_off} "
+          f"values and {s_off} scales differ): "
+          f"{'ok' if same else 'MISMATCH'}", flush=True)
+    if not same:
+        fail("quantize_int8 on the card differs from the CPU's")
+    launches = {}
+    for dtype, loss in WIRE_RUNS:
+        before, out = _wire_series(), {}
+        key = dtype if loss == "strip" else f"{dtype}_{loss}"
+        launches[key] = phase_dp_train(
+            card_line, DP_ARGV + ["--collective-dtype", dtype, "--dp-loss",
+                                  loss],
+            DP_STEP_LAUNCHES if loss == "strip" else DP_PAIR_STEP_LAUNCHES,
+            f"wire-{key}", out)
+        series = {k: v - before.get(k, 0.0)
+                  for k, v in _wire_series().items() if v != before.get(k)}
+        gaps = [abs(a - b) for a, b in zip(out["losses"], f32["losses"])]
+        ok = max(gaps) <= WIRE_LOSS_ATOL and (
+            dtype != "int8" or (out["residual"] or 0.0) > 0.0)
+        labels = ", ".join(f"{name}{{op={op},dtype={d}}} {v:g}"
+                           for (name, op, d), v in sorted(series.items()))
+        print(f"[wire] --collective-dtype {dtype} --dp-loss {loss}: losses "
+              f"vs float32 strip "
+              f"max|diff| {max(gaps):.2e} (atol {WIRE_LOSS_ATOL:g}); step "
+              f"{out['step_ms']:.1f} ms vs float32 {f32['step_ms']:.1f} ms; "
+              f"largest error-feedback residual {out['residual']}; "
+              f"collective series by wire dtype over the run (world 1: "
+              f"bytes 0): {labels} {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"the {dtype} wire's {loss} run: losses {out['losses']} "
+                 f"against {f32['losses']}, residual {out['residual']}")
+    return launches
+
+
+def phase_wire_clip(card_line: str) -> dict:
+    """[wire-clip]: data-parallel CLIP ViT-B/16 under int8 for
+    WIRE_CLIP_STEPS steps (the gates of ``phase_clip_dp_train``), the
+    error-feedback residual nonzero; returns the launches."""
+    out = {}
+    argv = _with_flags(CLIP_DP_ARGV, "--steps", str(WIRE_CLIP_STEPS)) + [
+        "--collective-dtype", "int8"]
+    launches = phase_clip_dp_train(card_line, argv, WIRE_CLIP_STEPS,
+                                   "wire-clip", out)
+    ok = (out["residual"] or 0.0) > 0.0
+    print(f"[wire-clip] largest error-feedback residual after "
+          f"{WIRE_CLIP_STEPS} int8 steps {out['residual']} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the int8 CLIP run carries no error-feedback residual")
+    return launches
+
+
+def phase_resume_ef(tmp: str) -> None:
+    """[resume-ef]: phase 11's command under int8 with ``--ckpt-save-ef``,
+    2 + 1 steps against 3 uninterrupted, CRC for CRC
+    (``phase_resume_pair``); the saved state holds the residual in the
+    JAX layout, (1,) + each parameter's shape at world 1, nonzero."""
+    from pathlib import Path
+
+    from ntxent_tpu_torch.utils import msgpack
+
+    argv = DP_ARGV + ["--collective-dtype", "int8", "--ckpt-save-ef"]
+    whole = Path(phase_resume_pair(tmp, argv, "ef", data_parallel=True))
+    state = msgpack.from_bytes((whole / str(PAIR_STEPS) / "state.msgpack")
+                               .read_bytes())
+    leaves = []
+
+    def walk(node):
+        for v in node.values():
+            walk(v) if isinstance(v, dict) else leaves.append(np.asarray(v))
+
+    walk(state.get("ef_residual") or {})
+    ok = bool(leaves) and all(v.shape[0] == 1 for v in leaves) and max(
+        float(np.abs(v).max()) for v in leaves) > 0
+    print(f"[resume-ef] the step-{PAIR_STEPS} state holds the residual of "
+          f"{len(leaves)} parameters, (1,) + shape each, nonzero "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the --ckpt-save-ef checkpoint holds no error-feedback residual")
+    shutil.rmtree(whole)
 
 
 def _dp_clip_ids(rows: int, cols: int, seed: int):
@@ -2899,9 +3173,13 @@ def phase_dp_clip_emulated_ranks() -> None:
              "single-card loss and gradients")
 
 
-def phase_clip_dp_train(card_line: str) -> dict:
+def phase_clip_dp_train(card_line: str, argv=CLIP_DP_ARGV,
+                        steps: int = CLIP_DP_STEPS, tag: str = "clip-dp",
+                        out: dict | None = None) -> dict:
     """Data-parallel CLIP ViT-B/16 through ntxent_tpu_torch.cli over the
-    NCCL group of world 1; returns the launches of each kernel."""
+    NCCL group of world 1 (``argv``, ``steps`` steps); returns the
+    launches of each kernel. ``out`` receives the step ms and the largest
+    error-feedback residual (None without one)."""
     import math
 
     import torch
@@ -2910,7 +3188,7 @@ def phase_clip_dp_train(card_line: str) -> dict:
     from ntxent_tpu_torch.parallel import mesh
     from ntxent_tpu_torch.utils.profiling import launch_counters
 
-    args = cli.build_train_parser().parse_args(CLIP_DP_ARGV)
+    args = cli.build_train_parser().parse_args(argv)
     counters = launch_counters()
     torch.cuda.reset_peak_memory_stats()
     for wrapper in counters.values():
@@ -2925,13 +3203,12 @@ def phase_clip_dp_train(card_line: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     losses = [h["loss"] for h in history]
-    if len(losses) != CLIP_DP_STEPS or not all(map(math.isfinite, losses)):
-        fail(f"data-parallel CLIP losses {losses}: expected {CLIP_DP_STEPS} "
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        fail(f"data-parallel CLIP losses {losses}: expected {steps} "
              "finite values")
-    want = {n: CLIP_DP_STEP_LAUNCHES.get(n, 0) * CLIP_DP_STEPS
-            for n in counters}
+    want = {n: CLIP_DP_STEP_LAUNCHES.get(n, 0) * steps for n in counters}
     if launches != want:
-        fail(f"kernel launches over {CLIP_DP_STEPS} data-parallel CLIP "
+        fail(f"kernel launches over {steps} data-parallel CLIP "
              f"steps {launches}, expected {want}")
     model = state.model
     g = model.logit_scale.grad
@@ -2947,20 +3224,25 @@ def phase_clip_dp_train(card_line: str) -> dict:
     steady = history[1:]
     step_ms = 1e3 * sum(1.0 / h["steps_per_sec"]
                         for h in steady) / len(steady)
-    print(f"[clip-dp] CLIP ViT-B/16 data-parallel over NCCL (world 1), "
-          f"batch {args.batch} pairs, {CLIP_DP_STEPS} steps in {wall_s:.1f} "
+    print(f"[{tag}] CLIP ViT-B/16 data-parallel over NCCL (world 1), "
+          f"--collective-dtype {args.collective_dtype}, "
+          f"batch {args.batch} pairs, {steps} steps in {wall_s:.1f} "
           f"s: losses {[round(x, 4) for x in losses]}; launches per step "
-          f"{ {n: c // CLIP_DP_STEPS for n, c in launches.items() if c} } "
+          f"{ {n: c // steps for n, c in launches.items() if c} } "
           f"(every other kernel 0); logit-scale gradient "
           f"{model.logit_scale.grad.item():.3e}; every q/k/v weight of both "
           f"towers has a nonzero gradient; comms over the run (calls, bytes "
           f"per device; 0 at world 1) "
           f"{ {op: c for (op, _), c in comms.items()} }", flush=True)
-    print(f"[clip-dp] step {step_ms:.1f} ms (steps 2-{CLIP_DP_STEPS}, host "
+    print(f"[{tag}] step {step_ms:.1f} ms (steps 2-{steps}, host "
           f"clock around a synchronizing loss read), "
           f"{args.batch / step_ms * 1e3:.1f} images/s, peak memory "
           f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) on "
           f"{card_line}", flush=True)
+    if out is not None:
+        out.update(step_ms=step_ms, residual=None if
+                   state.ef_residual is None else max(
+                       e.abs().max().item() for e in state.ef_residual))
     del state, model
     torch.cuda.empty_cache()
     return launches
@@ -6212,10 +6494,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         mesh.init_from_file(f"{tmp}/store", 0, 1, device="cuda")
         try:
-            dp_launches = phase_dp_train(smi)
+            t_wire, dp_f32 = time.monotonic(), {}
+            dp_launches = phase_dp_train(smi, out=dp_f32)
             dp_pair_launches = phase_dp_train(
                 smi, DP_PAIR_ARGV, DP_PAIR_STEP_LAUNCHES, "dp-pair")
             phase_dp_parity()
+            t_wire = time.monotonic() - t_wire
+            t0 = time.monotonic()
+            dp_chunked_launches = phase_dp_chunked(smi)
+            ring_times_chunked = phase_chunked_emulated()
+            wire_launches = phase_wire(smi, dp_f32)
+            wire_clip_launches = phase_wire_clip(smi)
+            phase_resume_ef(tmp)
+            print(f"[wire] the data-parallel wire's phases ran "
+                  f"{time.monotonic() - t0:.1f} s (phases 11, 12 and "
+                  f"12f: {t_wire:.1f} s)", flush=True)
             shutil.rmtree(phase_resume_pair(tmp, DP_ARGV, "dp",
                                             data_parallel=True))
             phase_remat_dp()
@@ -6229,7 +6522,8 @@ def main() -> int:
             mesh.shutdown()
     paths = (train_launches, clip_launches, dp_launches, clip_dp_launches,
              dp_pair_launches, tri_launches, longctx_launches)
-    for wrapper, fields in twopass_fields.items():
+    for wrapper, fields in (*twopass_fields.items(),
+                            *ring_times_chunked.items()):
         ring_times.setdefault(wrapper, {}).update(fields)
     for kernel in kernels:
         # launches on the path that runs the kernel (SimCLR for the
@@ -6251,6 +6545,13 @@ def main() -> int:
         kernel["tri_launches"] = tri_launches[wrapper]
         kernel["longctx_launches"] = longctx_launches[wrapper]
         kernel["clip_twopass_launches"] = twopass_launches[wrapper]
+        # the data-parallel wire: --dp-loss chunked --ring-chunks 4, the
+        # strip under bf16 and int8, the pair under int8, CLIP under int8
+        # (2 steps)
+        kernel["dp_chunked_launches"] = dp_chunked_launches[wrapper]
+        for dtype, per in wire_launches.items():
+            kernel[f"wire_{dtype}_launches"] = per[wrapper]
+        kernel["wire_clip_launches"] = wire_clip_launches[wrapper]
         # a step of the SimCLR path guarded, and under --remat
         kernel["guard_launches"] = guard_launches[wrapper]
         kernel["remat_launches"] = remat_launches[wrapper]

@@ -29,14 +29,20 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
     CIFAR stem at ``--image-size`` <= 64) or a ViT tower on ``--dataset
     synthetic|cifar10|imagefolder|npy`` (``--data-dir``; an npy store
     fixes ``--image-size``) through ``--loader python`` (threaded reads)
-    or ``native`` (C++ threads over the memmapped npy store). On one card, or data-parallel under ``torchrun`` when
-    ``WORLD_SIZE`` > 1 (``cli.py:824-842``): one rank per card
+    or ``native`` (C++ threads over the memmapped npy store). On one
+    card, or data-parallel under ``torchrun`` when ``WORLD_SIZE`` > 1
+    (``cli.py:824-870``): one rank per card
     (``cuda:LOCAL_RANK``, NCCL) or per CPU process under ``--device cpu``
     (gloo), ``--batch`` global, cross-replica BatchNorm, the strip loss
-    (``--dp-loss strip``) or the balanced shard-pair loss (``--dp-loss
-    pair``), only rank 0 logging. A world of one takes the single-card
-    step, as the JAX CLI does on one device (``--dp-loss pair`` is then
-    ignored with a warning);
+    (``--dp-loss strip``), the balanced shard-pair loss (``--dp-loss
+    pair``) or the chunked ring-overlap loss (``--dp-loss chunked``,
+    ``--ring-chunks C``; ``--measure-overlap`` logs the strip-against-
+    chunked A/B before training), the ``--collective-dtype
+    float32|bf16|int8`` wire (int8 with an error-feedback residual that
+    ``--ckpt-save-ef`` keeps in the checkpoints), only rank 0 logging. A
+    world of one takes the single-card step, as the JAX CLI does on one
+    device (``--dp-loss``, ``--collective-dtype`` and
+    ``--measure-overlap`` are then ignored with a warning);
   - ``--objective clip``: a CLIP dual encoder (ViT image tower, causal
     text tower; ``--model tiny`` for both towers at width 32) with
     InfoNCE at a learnable logit scale and AdamW, on synthetic pairs or
@@ -45,7 +51,8 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
     scale is the model's. On one card, or data-parallel under ``torchrun``
     when ``WORLD_SIZE`` > 1 (``--clip-parallel dp``, ``cli.py:1338-1358``):
     ``--batch`` global, each rank its rows of every batch, the dual
-    InfoNCE (only the text embeddings gathered), only rank 0 logging.
+    InfoNCE (only the text embeddings gathered), the
+    ``--collective-dtype`` wire, only rank 0 logging.
 
   The input pipeline, on every branch (``cli.py:980-1011``):
   ``--prefetch DEPTH`` copies the next loader batches to the card ahead
@@ -132,7 +139,6 @@ from .models.vit import (
     VisionTransformer,
 )
 from .parallel import mesh
-from .parallel.dist_loss import NOT_PORTED
 from .resilience import (
     DivergenceGuard,
     FaultInjector,
@@ -167,6 +173,7 @@ from .training import (
     make_sharded_train_step,
     make_train_step,
 )
+from .training.trainer import init_error_feedback, measure_comms_overlap
 from .utils.capability import device_name, resolve_device
 from .utils.watchdog import StallWatchdog
 
@@ -520,8 +527,7 @@ def serve_main(argv=None) -> int:
 
 # (dest, the JAX CLI's default, item): train flags that exit when set.
 TRAIN_UNPORTED = [
-    ("ring_chunks", None, "chunked"),
-    ("measure_overlap", False, "chunked"), ("model_par", 2, "mp"),
+    ("model_par", 2, "mp"),
     ("tp_loss_axes", "data", "mp"), ("moe_aux_weight", 0.01, "mp"),
     ("coordinator", None, "mp"), ("num_processes", None, "mp"),
     ("process_id", None, "mp"), ("dcn_slices", 1, "mp"),
@@ -601,16 +607,30 @@ def build_train_parser() -> argparse.ArgumentParser:
     t.add_argument("--dp-loss", default="strip",
                    choices=["strip", "pair", "chunked"],
                    help="data-parallel NT-Xent schedule: strip (local rows "
-                        "x global columns on every rank) or pair (the "
+                        "x global columns on every rank), pair (the "
                         "balanced shard-pair schedule: each global tile "
-                        "formed once across the world; chunked is not "
-                        "ported)")
-    t.add_argument("--ring-chunks", type=int, default=None, metavar="C")
-    t.add_argument("--measure-overlap", action="store_true")
+                        "formed once across the world) or chunked (the "
+                        "embedding all-gather becomes ring hops sent in "
+                        "chunks whose transfers overlap the folds; the "
+                        "same wire bytes)")
+    t.add_argument("--ring-chunks", type=int, default=None, metavar="C",
+                   help="chunks a ring hop of --dp-loss chunked sends "
+                        "(default: the cached autotune vote or the "
+                        "heuristic for the batch, width and world; ignored "
+                        "with a warning for other --dp-loss values)")
+    t.add_argument("--measure-overlap", action="store_true",
+                   help="before training, time the strip against the "
+                        "chunked loss on this world and log the overlap "
+                        "window (data-parallel runs)")
     t.add_argument("--collective-dtype", default="float32",
                    choices=["float32", "bf16", "bfloat16", "int8"],
-                   help="wire dtype of the data-parallel collectives "
-                        "(only float32 is ported)")
+                   help="wire dtype of the data-parallel collectives: bf16 "
+                        "halves the bytes; int8 quantizes the embedding "
+                        "gathers (straight-through gradients) and the "
+                        "gradient pmean (with error feedback: the "
+                        "compression residual carries into the next step) "
+                        "for about a quarter of the bytes; the BatchNorm "
+                        "statistics stay float32")
     t.add_argument("--batch", type=int, default=256)
     t.add_argument("--steps", type=int, default=1000)
     t.add_argument("--temperature", type=float, default=0.1)
@@ -647,10 +667,10 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "fails); the steps after N are deleted in both "
                         "replicas")
     c.add_argument("--ckpt-save-ef", action="store_true",
-                   help="keep the quantized collectives' error-feedback "
-                        "residual; the float32 wire has none, so this "
-                        "changes nothing until --collective-dtype is "
-                        "ported")
+                   help="keep the int8 wire's error-feedback residual in "
+                        "each step (every rank's, in the JAX layout); by "
+                        "default saves drop it and a resume starts it at "
+                        "zeros")
     c.add_argument("--ckpt-mirror", default=None, metavar="DIR",
                    help="copy every step to DIR; restore falls back to it")
     c.add_argument("--no-ckpt-verify", action="store_true",
@@ -715,13 +735,8 @@ def _check_train_args(args) -> None:
                          "--dataset applies to the simclr objective only")
     if args.prefetch < 0:
         raise SystemExit("--prefetch must be >= 0")
-    if args.dp_loss in NOT_PORTED:
-        raise SystemExit(f"ntxent-train (torch): --dp-loss {args.dp_loss} "
-                         f"is not ported yet: {NOT_PORTED[args.dp_loss]}")
     unported = [
         (args.stem != "conv", f"--stem {args.stem}", "stem"),
-        (args.collective_dtype != "float32",
-         f"--collective-dtype {args.collective_dtype}", "wire"),
         (args.parallel != "dp" or args.fsdp, "--parallel tp / --fsdp", "mp"),
         (clip and args.clip_parallel != "dp", "--clip-parallel tp", "mp"),
         (args.moe_experts > 0, "--moe-experts", "mp"),
@@ -934,6 +949,28 @@ def _clip_label(args) -> str:
             f"{args.token_len} tokens of {args.vocab_size} ids")
 
 
+def _warn_single_card(args, simclr: bool) -> None:
+    """The data-parallel flags a single-card run ignores, with the JAX
+    CLI's warnings (``cli.py:914-932``)."""
+    if simclr and args.dp_loss != "strip":
+        logger.warning("--dp-loss %s ignored: single-device run has no "
+                       "shard-pair schedule", args.dp_loss)
+    if args.collective_dtype != "float32":
+        logger.warning("--collective-dtype %s ignored: single-device run "
+                       "issues no collectives", args.collective_dtype)
+    if args.measure_overlap:
+        logger.warning("--measure-overlap ignored: the overlap A/B "
+                       "measures the data-parallel loss schedule")
+
+
+def _wire_log(args) -> None:
+    if args.collective_dtype != "float32":
+        logger.info("quantized collectives: %s wire payloads%s",
+                    args.collective_dtype,
+                    " + gradient error feedback"
+                    if args.collective_dtype == "int8" else "")
+
+
 def _train_clip(args, device, stats, injector):
     """The CLIP branch of ``train`` (``cli.py:1175``, single device)."""
     images, tokens = _clip_data(args)
@@ -977,12 +1014,18 @@ def _train_clip_data_parallel(args, stats, injector):
         _warn_clip_nan_policy(args)
 
     def fresh():
-        return create_clip_train_state(build_clip_model(args),
-                                       _clip_config(args), device)
+        state = create_clip_train_state(build_clip_model(args),
+                                        _clip_config(args), device)
+        return init_error_feedback(state) \
+            if args.collective_dtype == "int8" else state
 
     loader = PairedArrayLoader(images, tokens, args.batch, seed=args.seed,
                                rank=rank, world_size=world)
     if lead:
+        _wire_log(args)
+        if args.measure_overlap:
+            logger.warning("--measure-overlap ignored: the overlap A/B "
+                           "measures the SimCLR data-parallel loss schedule")
         logger.info("topology: %s", info)
         logger.info("training %s data-parallel over %d ranks (%s, dual "
                     "InfoNCE): global batch %d, %d steps, peak lr %g",
@@ -991,8 +1034,9 @@ def _train_clip_data_parallel(args, stats, injector):
                     args.base_lr)
     state, history = _fit(args, fresh(),
                           PairedPipeline(loader, device, args.prefetch),
-                          make_sharded_clip_train_step(None,
-                                                       remat=args.remat),
+                          make_sharded_clip_train_step(
+                              None, remat=args.remat,
+                              collective_dtype=args.collective_dtype),
                           stats, views=1, ranks=world, log=lead,
                           state_factory=fresh, injector=injector)
     if lead:
@@ -1024,14 +1068,12 @@ def train(args, data_parallel: bool | None = None,
                                              injector)
         return _train_data_parallel(args, checkpoint_stats, injector)
     device = resolve_device(args.device)
+    _warn_single_card(args, simclr=args.objective != "clip")
     if args.objective == "clip":
         state, history = _train_clip(args, device, checkpoint_stats,
                                      injector)
         _log_final(history)
         return state, history
-    if args.dp_loss != "strip":
-        logger.warning("--dp-loss %s ignored: single-device run has no "
-                       "shard-pair schedule", args.dp_loss)
     cfg = _train_config(args)
 
     def fresh():
@@ -1067,25 +1109,45 @@ def _model_label(args) -> str:
 
 
 def _train_data_parallel(args, stats, injector):
-    """The data-parallel branch (``cli.py:824-842``): one rank per card
+    """The data-parallel branch (``cli.py:824-870``): one rank per card
     (NCCL) or per CPU process (gloo), weights from ``--seed`` on every
-    rank, cross-replica BatchNorm, the ``--dp-loss`` schedule (strip or
-    pair), rank 0 logging."""
+    rank, cross-replica BatchNorm, the ``--dp-loss`` schedule (strip,
+    pair or chunked with ``--ring-chunks``), the ``--collective-dtype``
+    wire (int8 with an error-feedback residual in the state), the
+    ``--measure-overlap`` A/B before training, rank 0 logging."""
     world = _world_size(args)
     device = mesh.init_from_env(args.device)
     info = mesh.process_info()
     rank, lead = info["process_index"], info["process_index"] == 0
     cfg = _train_config(args)
+    ring_chunks = args.ring_chunks if args.dp_loss == "chunked" else None
+    if lead and args.ring_chunks is not None and args.dp_loss != "chunked":
+        logger.warning("--ring-chunks %d ignored: --dp-loss %s has no ring "
+                       "chunks (use --dp-loss chunked)", args.ring_chunks,
+                       args.dp_loss)
 
     def fresh():
         model = cross_replica_batch_norm(build_model(args),
                                          torch.distributed.group.WORLD)
-        return create_train_state(model, cfg, device)
+        state = create_train_state(model, cfg, device)
+        return init_error_feedback(state) \
+            if args.collective_dtype == "int8" else state
 
     step = make_sharded_train_step(None, cfg.temperature,
                                    loss_impl=args.dp_loss, remat=args.remat,
-                                   guard=args.nan_policy != "off")
+                                   guard=args.nan_policy != "off",
+                                   collective_dtype=args.collective_dtype,
+                                   ring_chunks=ring_chunks)
+    if args.measure_overlap:
+        overlap = measure_comms_overlap(None, args.batch // world,
+                                        args.proj_dim,
+                                        temperature=cfg.temperature,
+                                        ring_chunks=ring_chunks,
+                                        device=device)
+        if lead:
+            logger.info("comms overlap A/B: %s", overlap)
     if lead:
+        _wire_log(args)
         logger.info("topology: %s", info)
         logger.info("training %s data-parallel over %d ranks (%s, %s "
                     "loss): global batch %d, %d steps, peak lr %g",
@@ -1132,7 +1194,8 @@ def _fit(args, state, data, step, stats: dict | None, views: int = 2,
         log=log, checkpoint_stats=stats, step_guard=step_guard,
         checkpoint_fault_hook=(injector.on_checkpoint_write
                                if injector is not None else None),
-        metrics_lag=1 if args.lag_metrics else 0)
+        metrics_lag=1 if args.lag_metrics else 0,
+        checkpoint_save_ef=args.ckpt_save_ef)
     if args.lag_metrics and log:
         logger.info("lag-1 metrics drain: guard/telemetry reads run one "
                     "step behind dispatch")

@@ -31,6 +31,7 @@ from torch import nn
 
 from ..ops.attention import flash_attention
 from ..parallel.mesh import pmean
+from ..parallel.precision import collective_precision
 
 __all__ = ["AttentionFn", "BatchNorm", "Dense", "LayerNorm",
            "SeqParallelSelfAttention", "cross_replica_batch_norm",
@@ -183,7 +184,10 @@ class BatchNorm(nn.Module):
     def _average(self, stat: torch.Tensor) -> torch.Tensor:
         if self.group is None:
             return stat
-        return pmean(stat, self.group, op="bn_pmean")
+        # float32 under any wire policy: flax's BatchNorm calls lax.pmean
+        # past the quantizing shims
+        with collective_precision("float32"):
+            return pmean(stat, self.group, op="bn_pmean")
 
 
 _frozen = threading.local()

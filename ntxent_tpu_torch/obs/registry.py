@@ -26,7 +26,7 @@ import threading
 from collections import deque
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "quantile", "prometheus_name"]
+           "default_registry", "quantile", "prometheus_name"]
 
 _NAME_OK = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_OK = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -320,3 +320,12 @@ def _fmt(value: float) -> str:
     if float(value).is_integer() and abs(value) < 2 ** 53:
         return str(int(value))
     return repr(float(value))
+
+
+_DEFAULT = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-wide registry the collectives' counters publish to
+    (``ntxent_tpu/obs/registry.py:353``)."""
+    return _DEFAULT

@@ -1,6 +1,7 @@
 """Parallelism of the port over ``torch.distributed``: process groups,
 autograd-aware collectives with comms accounting (``parallel.mesh``), the
 data-parallel NT-Xent and InfoNCE losses (``parallel.dist_loss``), the
+wire policy of the collectives (``parallel.precision``), the
 pair-parallel NT-Xent (``parallel.pair``), sequence-parallel ring and
 Ulysses attention (``parallel.ring_attention``) and the ring NT-Xent and
 InfoNCE (``parallel.ring``)."""
@@ -9,6 +10,7 @@ from .dist_loss import (
     local_infonce_allgather,
     local_infonce_dual,
     local_ntxent_allgather,
+    local_ntxent_chunked,
     make_sharded_infonce,
     make_sharded_ntxent,
     ntxent_loss_distributed,
@@ -28,7 +30,11 @@ from .mesh import (
     ppermute,
     process_info,
     psum,
+    psum_scatter,
+    quantized_grad_reduce,
+    quantized_grad_reduce_,
 )
+from .precision import collective_dtype, collective_precision
 from .pair import make_pair_ntxent, ntxent_loss_pair, pair_body
 from .ring import (
     info_nce_loss_ring,
@@ -49,6 +55,8 @@ __all__ = [
     "all_to_all",
     "attention_oracle",
     "blockwise_attention",
+    "collective_dtype",
+    "collective_precision",
     "comms_accounting",
     "init_from_env",
     "info_nce_loss_ring",
@@ -56,6 +64,7 @@ __all__ = [
     "local_infonce_allgather",
     "local_infonce_dual",
     "local_ntxent_allgather",
+    "local_ntxent_chunked",
     "local_row_gids",
     "make_pair_ntxent",
     "make_ring_attention",
@@ -73,6 +82,9 @@ __all__ = [
     "ppermute",
     "process_info",
     "psum",
+    "psum_scatter",
+    "quantized_grad_reduce",
+    "quantized_grad_reduce_",
     "resolve_local_infonce",
     "resolve_local_ntxent",
 ]

@@ -11,6 +11,10 @@ general backward, #6) and sums the partial losses over ranks. The
 gradient of the gathered columns flows back through the all-gather as a
 reduce-scatter (``parallel.mesh``).
 
+The chunked schedule (``local_ntxent_chunked``, ``--dp-loss chunked``)
+replaces the all-gather by a ring of hops sent in chunks, each chunk's
+transfer overlapping the previous chunk's fold (``parallel.ring``).
+
 InfoNCE (CLIP), two bodies (``resolve_local_infonce``):
 
 * ``local_infonce_dual`` (``"dual"``): every rank gathers the text
@@ -39,20 +43,13 @@ from ..ops.infonce import info_nce_dual_partial, info_nce_partial_fused
 from ..ops.ntxent import ntxent_partial_fused
 from .mesh import all_gather, local_row_gids, psum, rank, world_size
 from .pair import pair_body
+from .ring import _ntxent_fused as ring_fused
 
 __all__ = ["local_infonce_allgather", "local_infonce_dual",
-           "local_ntxent_allgather",
+           "local_ntxent_allgather", "local_ntxent_chunked",
            "make_sharded_infonce", "make_sharded_ntxent",
            "ntxent_loss_distributed", "resolve_local_infonce",
            "resolve_local_ntxent"]
-
-# The other schedule of ``--dp-loss``, by the ROADMAP.md item that ports
-# it.
-NOT_PORTED = {
-    "chunked": "ROADMAP.md Queue A 3(d) (--dp-loss chunked, the "
-               "ring-overlap schedule)",
-}
-
 
 def local_ntxent_allgather(z1_local: torch.Tensor, z2_local: torch.Tensor,
                            temperature: float, group=None) -> torch.Tensor:
@@ -70,28 +67,56 @@ def local_ntxent_allgather(z1_local: torch.Tensor, z2_local: torch.Tensor,
     return psum(loss_sum, group) / z_global.shape[0]
 
 
+def local_ntxent_chunked(z1_local: torch.Tensor, z2_local: torch.Tensor,
+                         temperature: float, group=None,
+                         chunks: int | None = None) -> torch.Tensor:
+    """The global-batch NT-Xent mean loss from one rank's views (n, D)
+    each with the chunked ring-overlap schedule (``dist_loss.py:87``):
+    the same loss as ``local_ntxent_allgather``, but the all-gather never
+    happens. The rank's stacked block (2n, D) circulates around the ring
+    as ``chunks`` slices of rows (``ops.autotune.resolve_ring_chunks``
+    when None: clamped, cached or the heuristic, never measured); each
+    chunk's onward send is issued before its fold, so the transfer
+    overlaps the fold (``parallel.ring._RingLseSum``: ``block_lse``, #1,
+    per chunk and hop; ``block_grads``, #6, in the backward's second ring
+    pass, each chunk's column gradient riding home). The visiting rows'
+    global ids follow from the hop, so the forward sends exactly the
+    strip loss's two all-gathers' bytes, (P - 1) 2n D itemsize a rank,
+    each chunk on the wire policy by itself. Every rank returns the same
+    value."""
+    from ..ops.autotune import resolve_ring_chunks
+
+    n_local, dim = z1_local.shape
+    n_chunks = resolve_ring_chunks(2 * n_local, dim, world_size(group),
+                                   z1_local.dtype, chunks=chunks)
+    return ring_fused(z1_local, z2_local, temperature, group, n_chunks,
+                      ad=True)
+
+
 def resolve_local_ntxent(impl: str):
     """The per-rank NT-Xent body for an impl name (``dist_loss.py:199``):
-    ``"strip"`` or ``"pair"`` (``parallel.pair.pair_body``), with the
-    signature ``(z1_local, z2_local, temperature, group)``. ``"chunked"``
-    is not ported and raises, naming its item; ``ntxent-train`` refuses it
-    at its flag."""
-    if impl == "strip":
-        return local_ntxent_allgather
-    if impl == "pair":
-        return pair_body
-    if impl in NOT_PORTED:
-        raise NotImplementedError(f"--dp-loss {impl} is not ported yet: "
-                                  f"{NOT_PORTED[impl]}")
-    raise ValueError(f"unknown NT-Xent impl {impl!r}")
+    ``"strip"``, ``"pair"`` (``parallel.pair.pair_body``) or
+    ``"chunked"`` (``local_ntxent_chunked``, which also takes a trailing
+    ``chunks``), with the signature ``(z1_local, z2_local, temperature,
+    group)``."""
+    bodies = {"strip": local_ntxent_allgather, "pair": pair_body,
+              "chunked": local_ntxent_chunked}
+    try:
+        return bodies[impl]
+    except KeyError:
+        raise ValueError(f"unknown NT-Xent impl {impl!r}") from None
 
 
 def make_sharded_ntxent(group=None, temperature: float = 0.07,
-                        impl: str = "strip"):
+                        impl: str = "strip", ring_chunks: int | None = None):
     """``loss_fn(z1_local, z2_local) -> scalar``: the global-batch NT-Xent
-    over the ranks of ``group`` (``dist_loss.py:216``)."""
+    over the ranks of ``group`` (``dist_loss.py:216``). ``ring_chunks``
+    sets the chunk count of ``impl="chunked"`` (ignored by the others, as
+    in JAX)."""
+    extra = {"chunks": ring_chunks} if impl == "chunked" else {}
     return functools.partial(resolve_local_ntxent(impl),
-                             temperature=float(temperature), group=group)
+                             temperature=float(temperature), group=group,
+                             **extra)
 
 
 def ntxent_loss_distributed(z1_local: torch.Tensor, z2_local: torch.Tensor,

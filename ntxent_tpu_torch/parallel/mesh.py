@@ -33,14 +33,23 @@ counterpart of the parts of ``ntxent_tpu/parallel/mesh.py`` it needs.
   ``[(0, 0)]``.
 * ``all_to_all(x, split_dim, concat_dim, group)`` (``:900``, tiled):
   differentiable, its backward the reverse all-to-all.
+* ``psum_scatter(x, group)`` (``:866``, tiled, dim 0): the sum over
+  ranks, this rank's tile; differentiable (its backward all-gathers).
+* The wire policy (``parallel.precision.collective_precision``,
+  ``:412-905``): ``all_gather``, ``psum``, ``pmean``, ``pmean_``,
+  ``psum_scatter`` and the hops cast float payloads to bf16 or quantize
+  eligible ones to int8 around the wire (see the section below);
+  ``quantized_grad_reduce_(grads, residuals, group)`` (``:705``) is the
+  int8 gradient all-reduce with error feedback.
 
 Comms accounting (``comms_accounting()``) records every forward
 collective with the JAX shims' formulas, per device, on the payload it
 sends: an all-gather ``(P - 1) * bytes`` (P - 1 remote shards arrive),
 an all-reduce (``psum``, ``pmean``, ``pmax``) ``2 (P - 1) / P * bytes``
 (the ring algorithm), a ``ppermute`` the full payload of each hop (at
-P = 1 too, as the shim records it), an ``all_to_all`` ``(P - 1) / P *
-bytes``. Keys are
+P = 1 too, as the shim records it), an ``all_to_all`` and a
+``psum_scatter`` ``(P - 1) / P * bytes``, each at the dtype it rides the
+wire in (an int8 payload and its float32 scales are two calls). Keys are
 ``(op, axis)`` with the axis ``"data"``, as in the JAX package, so a
 step's ``delta`` compares with the JAX step's. Backward collectives are
 not recorded, as the shims do not record them either.
@@ -57,12 +66,20 @@ import torch
 import torch.distributed as dist
 
 from ..utils.capability import resolve_device
+from .precision import (
+    collective_dtype,
+    int8_scale,
+    quantizable,
+    quantize_int8,
+)
 
 __all__ = ["AXIS", "CommsAccounting", "all_gather", "all_to_all",
            "chunk_bounds", "comms_accounting", "init_from_env",
            "init_from_file", "local_row_gids", "pmax", "pmean", "pmean_",
            "ppermute", "ppermute_chunked", "ppermute_start", "process_info",
-           "psum", "rank", "shutdown", "world_size", "world_topology"]
+           "psum", "psum_scatter", "quantized_grad_reduce",
+           "quantized_grad_reduce_", "rank", "shutdown", "transpose_wire",
+           "world_size", "world_topology"]
 
 AXIS = "data"  # the accounting's axis label: the JAX mesh's data axis
 _TIMEOUT = datetime.timedelta(minutes=10)
@@ -164,7 +181,12 @@ def local_row_gids(rank_: int, n_local: int, world: int,
 class CommsAccounting:
     """Host-side totals of collective traffic, ``{(op, axis): (calls,
     bytes)}``; thread-safe. ``delta(mark)`` is the traffic since an
-    earlier ``totals()``: bracket a step with the two."""
+    earlier ``totals()``: bracket a step with the two. Every record also
+    bumps the registry counters ``collective_calls_total`` and
+    ``collective_bytes_total`` ``{op, axis}`` and, given the wire dtype,
+    their ``{op, axis, dtype}`` twins (``mesh.py:225-290``): the series
+    without the dtype label keep the totals, the labelled ones itemize
+    them, so a sum over the whole family counts everything twice."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -183,10 +205,33 @@ class CommsAccounting:
         finally:
             self._paused.depth = depth
 
+    @staticmethod
+    def _counters(op: str, axis: str, dtype: str | None = None):
+        from ..obs.registry import default_registry
+
+        labels = {"op": op, "axis": axis}
+        if dtype is not None:
+            labels["dtype"] = dtype
+        registry = default_registry()
+        return (registry.counter(
+                    "collective_calls_total",
+                    "collective ops issued (forward call sites)",
+                    labels=labels),
+                registry.counter(
+                    "collective_bytes_total",
+                    "bytes moved per device by collectives (ring model)",
+                    labels=labels))
+
     def record(self, op: str, axis: str, nbytes: float,
-               calls: int = 1) -> None:
+               calls: int = 1, dtype: str | None = None) -> None:
         if getattr(self._paused, "depth", 0):
             return
+        counters = [self._counters(op, axis)]
+        if dtype is not None:
+            counters.append(self._counters(op, axis, dtype))
+        for calls_c, bytes_c in counters:
+            calls_c.inc(calls)
+            bytes_c.inc(nbytes)
         with self._lock:
             entry = self._totals.setdefault((op, axis), [0, 0.0])
             entry[0] += calls
@@ -214,24 +259,77 @@ def comms_accounting() -> CommsAccounting:
     return _comms
 
 
-def _nbytes(tensors) -> float:
-    return float(sum(t.numel() * t.element_size() for t in tensors))
+def _record(op: str, tensors, factor: float, wire: str = "float32") -> None:
+    """Record one collective of the payload ``tensors`` at ``factor``
+    times their bytes as they ride the wire (float tensors as bf16 under a
+    bf16 wire), labelled with that dtype (``mixed`` when they differ)."""
+    def dtype(t: torch.Tensor) -> torch.dtype:
+        return torch.bfloat16 if wire == "bf16" and t.is_floating_point() \
+            else t.dtype
+
+    nbytes = sum(t.numel() * dtype(t).itemsize for t in tensors)
+    names = {str(dtype(t)).removeprefix("torch.") for t in tensors}
+    _comms.record(op, AXIS, factor * nbytes,
+                  dtype=names.pop() if len(names) == 1 else "mixed")
 
 
-def _record_all_reduce(op: str, tensors, group) -> None:
+def _record_int8(shape, op: str, factor: float) -> None:
+    """Record an int8 payload of ``shape`` and its float32 scales, one per
+    row of the last axis, as two calls."""
+    numel = 1
+    for d in shape:
+        numel *= int(d)
+    rows = numel // int(shape[-1]) if numel else 0
+    _comms.record(op, AXIS, factor * numel, dtype="int8")
+    _comms.record(op, AXIS, factor * rows * 4, dtype="float32")
+
+
+def _record_all_reduce(op: str, tensors, group,
+                       wire: str = "float32") -> None:
     p = world_size(group)
-    _comms.record(op, AXIS, 2.0 * (p - 1) / p * _nbytes(tensors))
+    _record(op, tensors, 2.0 * (p - 1) / p, wire)
 
 
 # ---------------------------------------------------------------------------
-# Differentiable collectives
+# The wire policy (``parallel.precision``)
 # ---------------------------------------------------------------------------
+#
+# Under ``collective_precision("bf16")`` float payloads are cast to
+# bfloat16 around the wire, under ``"int8"`` eligible payloads are
+# quantized (``precision.quantize_int8``). The accounting records what
+# rides the wire (int8 payloads and their float32 scales, or bf16) under
+# the collective's own name. The backward of a quantized gather or hop
+# is the full-precision transpose of the float one (a straight-through
+# estimator); that of a bf16 one is the bf16 transpose, as JAX's AD of
+# the casts gives. The int8 all-reduce is the two-phase schedule
+# (``mesh.py:551``): quantize the P chunks of every leaf, all-to-all,
+# dequantize and sum in float32, quantize the summed chunk again,
+# all-gather: four wire collectives however many leaves ride it, at the
+# int8 share of a float ring all-reduce at every P. ``pmax`` never
+# quantizes; small, integer and scalar payloads ride in full precision.
 
 
 def _require_group() -> None:
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_from_env or "
                            "init_from_file first")
+
+
+def _to_wire(x: torch.Tensor, wire: str) -> torch.Tensor:
+    return x.to(torch.bfloat16) if wire == "bf16" \
+        and x.is_floating_point() else x
+
+
+def _int8_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` quantized per row, all-gathered with its scales
+    and dequantized: ``cat([rank 0's, rank 1's, ...])`` in float32."""
+    p = world_size(group)
+    q, s = quantize_int8(x)
+    qg, sg = [torch.empty_like(q) for _ in range(p)], \
+        [torch.empty_like(s) for _ in range(p)]
+    dist.all_gather(qg, q, group=group)
+    dist.all_gather(sg, s, group=group)
+    return torch.cat([a.float() * b for a, b in zip(qg, sg)])
 
 
 def _reduce_scatter(g: torch.Tensor, group) -> torch.Tensor:
@@ -247,55 +345,234 @@ def _reduce_scatter(g: torch.Tensor, group) -> torch.Tensor:
     return total[r * n:(r + 1) * n].contiguous()
 
 
+def _gather_transpose(g: torch.Tensor, group, wire: str) -> torch.Tensor:
+    """The backward of a tiled all-gather: the reduce-scatter of the
+    cotangent, in bf16 under a bf16 wire, else in full precision (the
+    straight-through estimator of the int8 gather)."""
+    if wire == "bf16":
+        return _reduce_scatter(g.to(torch.bfloat16).contiguous(),
+                               group).to(g.dtype)
+    return _reduce_scatter(g.contiguous(), group)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        parts = [torch.empty_like(x) for _ in range(world_size(group))]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts, dim=0)
+    def forward(ctx, x, group, wire):
+        ctx.group, ctx.wire = group, wire
+        if wire == "int8":
+            return _int8_gather(x, group).to(x.dtype)
+        xw = _to_wire(x, wire)
+        parts = [torch.empty_like(xw) for _ in range(world_size(group))]
+        dist.all_gather(parts, xw, group=group)
+        return torch.cat(parts, dim=0).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g.contiguous(), ctx.group), None
-
-
-class _AllReduce(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, mean):
-        ctx.group, ctx.mean = group, mean
-        return _all_reduce(x, group, mean)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g, ctx.group, ctx.mean), None, None
-
-
-def _all_reduce(x: torch.Tensor, group, mean: bool) -> torch.Tensor:
-    y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, group=group)
-    return y / world_size(group) if mean else y
+        return _gather_transpose(g, ctx.group, ctx.wire), None, None
 
 
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """(n, ...) per rank -> (P n, ...), ranks in order along dim 0
-    (``lax.all_gather(..., tiled=True)``); differentiable."""
+    (``lax.all_gather(..., tiled=True)``); differentiable. Under int8 an
+    eligible ``x`` is quantized per row (``_int8_gather``,
+    ``mesh.py:486``), under bf16 cast."""
     _require_group()
-    _comms.record("all_gather", AXIS, (world_size(group) - 1) * _nbytes([x]))
-    return _AllGather.apply(x.contiguous(), group)
+    wire = collective_dtype()
+    factor = world_size(group) - 1
+    if wire == "int8" and quantizable(x):
+        _record_int8(x.shape, "all_gather", factor)
+    else:
+        wire = "bf16" if wire == "bf16" else "float32"
+        _record("all_gather", [x], factor, wire)
+    return _AllGather.apply(x.contiguous(), group, wire)
+
+
+# -- all-reduces --------------------------------------------------------------
+
+
+class _Plan:
+    """The gather maps of the two-phase schedule for leaves of ``counts``
+    elements over P ranks (``_qallreduce_leaves``, ``mesh.py:551``):
+    leaf i is cut into P chunks of ``c_i = ceil(n_i / P)`` elements (the
+    last padded with zeros) that sit side by side in its column block of
+    a (P, C) buffer, one scale a (chunk, leaf). ``orders[i]`` (None:
+    row-major) lists the elements of leaf i in the order the JAX package
+    flattens its leaf, the flax layout, so the chunks hold the same
+    elements. ``src`` gathers the buffer from the leaves' concatenation
+    (a zero appended for the padding), ``dst`` gathers each element back
+    from a (P, C) result, ``owner`` is each column's leaf."""
+
+    def __init__(self, counts, orders, p: int, device):
+        cs = [-(-n // p) for n in counts]
+        total, width = sum(counts), sum(cs)
+        src = torch.full((p, width), total, dtype=torch.long)
+        dst = torch.empty(total, dtype=torch.long)
+        if p * width > torch.iinfo(torch.int32).max:
+            raise ValueError(f"{total} values do not fit the int32 indices "
+                             "of the int8 all-reduce")
+        off = col = 0
+        for n, c, order in zip(counts, cs, orders):
+            order = torch.arange(n) if order is None else order.long().cpu()
+            block = torch.full((p * c,), total, dtype=torch.long)
+            block[:n] = off + order
+            src[:, col:col + c] = block.view(p, c)
+            at = torch.empty(n, dtype=torch.long)  # element k's position
+            at[order] = torch.arange(n)
+            dst[off:off + n] = (at // c) * width + col + at % c
+            off, col = off + n, col + c
+        self.counts, self.orders, self.segments = counts, orders, len(cs)
+        # int32 indices: half the bytes of int64 to hold and to read
+        self.src = src.to(device=device, dtype=torch.int32)
+        self.dst = dst.to(device=device, dtype=torch.int32)
+        self.owner = torch.repeat_interleave(
+            torch.arange(len(cs), dtype=torch.int32),
+            torch.tensor(cs)).to(device)
+        # each row's segment lengths, for the buffer of p rows and the
+        # summed row of phase 2
+        self.lengths = {rows: torch.tensor(cs * rows, device=device)
+                        for rows in {1, p}}
+
+
+_PLANS: dict[tuple, _Plan] = {}
+_MAX_PLANS = 4  # a plan's indices take ~1.5x the gradients' bytes
+
+
+def _plan(counts, orders, p: int, device) -> _Plan:
+    """The cached plan of these leaves; the oldest of more than
+    ``_MAX_PLANS`` is dropped (a restarted run brings new orders)."""
+    orders = list(orders) if orders is not None else [None] * len(counts)
+    key = (tuple(counts), tuple(map(id, orders)), p, str(device))
+    if key not in _PLANS:  # the plan holds the orders, so no id is reused
+        while len(_PLANS) >= _MAX_PLANS:
+            _PLANS.pop(next(iter(_PLANS)))
+        _PLANS[key] = _Plan(counts, orders, p, device)
+    return _PLANS[key]
+
+
+def _segment_quantize(buf: torch.Tensor, plan: _Plan):
+    """``quantize_int8`` of each (row, leaf) segment of ``buf`` (rows, C)
+    at once: the segments' amax by one ``segment_reduce`` (the segments
+    are contiguous runs of the row-major buffer; NaN propagates, as in
+    ``jnp.max``; a ``scatter_reduce`` into a few hundred outputs would
+    serialize on its atomics), the same scale and rounding, so the bits
+    equal one ``quantize_int8`` a segment. Returns (q, scales (rows,
+    segments))."""
+    rows = buf.shape[0]
+    amax = torch.segment_reduce(buf.abs().reshape(-1), "max",
+                                lengths=plan.lengths[rows], unsafe=True)
+    scale = int8_scale(amax.view(rows, plan.segments))
+    q = torch.clamp(torch.round(buf / scale.index_select(1, plan.owner)),
+                    -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(1, ...) per rank -> (P, ...), ranks in order."""
+    if world_size(group) == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def _q_allreduce(flat: torch.Tensor, counts, group, op: str, orders=None):
+    """(sum over ranks, this rank's phase-1 compression error), both
+    float32 in the layout of ``flat``, the concatenation of leaves of
+    ``counts`` elements: the two-phase int8 all-reduce of every leaf at
+    once (``_qallreduce_leaves``, ``mesh.py:551``), four wire collectives
+    in all, one scale a (rank chunk, leaf) (``_Plan``). The error
+    ``v - deq(q(v))`` is the term error feedback carries."""
+    p = world_size(group)
+    plan = _plan(counts, orders, p, flat.device)
+    buf = torch.cat([flat.float(), flat.new_zeros(1, dtype=torch.float32)])
+    buf = buf.index_select(0, plan.src.view(-1)).view(p, -1)  # (p, C)
+    owner = plan.owner
+    q, s = _segment_quantize(buf, plan)
+    err = buf - q.float() * s.index_select(1, owner)
+    _record(op, [q], (p - 1) / p)
+    _record(op, [s], (p - 1) / p)
+    qx = _all_to_all(q, 0, 0, group)      # row d: rank d's chunk for me
+    sx = _all_to_all(s, 0, 0, group)
+    seg = (qx.float() * sx.index_select(1, owner)).sum(dim=0)
+    q2, s2 = _segment_quantize(seg[None], plan)
+    _record(op, [q2[0]], p - 1)
+    _record(op, [s2[0]], p - 1)
+    qg, sg = _gather_rows(q2, group), _gather_rows(s2, group)
+    full = qg.float() * sg.index_select(1, owner)            # (p, C)
+    return (full.reshape(-1).index_select(0, plan.dst),
+            err.reshape(-1).index_select(0, plan.dst))
+
+
+def _all_reduce(x: torch.Tensor, group, mean: bool,
+                wire: str = "float32") -> torch.Tensor:
+    """Sum (or mean) over ranks of ``x`` at the wire dtype, in ``x``'s
+    dtype (a bf16 mean divides in bf16, as ``lax.pmean`` of a bf16 leaf
+    does)."""
+    y = _to_wire(x, wire).clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=group)
+    return (y / world_size(group) if mean else y).to(x.dtype)
+
+
+class _AllReduce(torch.autograd.Function):
+    """``psum``/``pmean``; the backward is the same reduction of the
+    cotangent at the same wire dtype (JAX's psum transposes to a psum
+    under ``shard_map``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, mean, wire):
+        ctx.group, ctx.mean, ctx.wire = group, mean, wire
+        return _all_reduce(x, group, mean, wire)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group, ctx.mean, ctx.wire), None, None, \
+            None
+
+
+class _Int8AllReduce(torch.autograd.Function):
+    """The int8 ``psum``/``pmean`` of one leaf (``_int8_reduce``,
+    ``mesh.py:621``); its backward passes the cotangent through (divided
+    by P for a mean), the rule of the JAX ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, group, mean, op):
+        ctx.p, ctx.mean = world_size(group), mean
+        out = _q_allreduce(x.reshape(-1), [x.numel()], group, op)[0]
+        return (out / ctx.p if mean else out).view_as(x).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g / ctx.p if ctx.mean else g), None, None, None
+
+
+def _reduce(x: torch.Tensor, group, mean: bool, op: str) -> torch.Tensor:
+    _require_group()
+    wire = collective_dtype()
+    if wire == "int8" and quantizable(x):
+        return _Int8AllReduce.apply(x, group, mean, op)
+    wire = "bf16" if wire == "bf16" else "float32"
+    _record_all_reduce(op, [x], group, wire)
+    return _AllReduce.apply(x, group, mean, wire)
 
 
 def psum(x: torch.Tensor, group=None, op: str = "psum") -> torch.Tensor:
-    """Sum over ranks; differentiable. ``op`` names it in the accounting."""
-    _require_group()
-    _record_all_reduce(op, [x], group)
-    return _AllReduce.apply(x, group, False)
+    """Sum over ranks; differentiable; at the policy's wire dtype. ``op``
+    names it in the accounting."""
+    return _reduce(x, group, False, op)
+
+
+def pmean(x: torch.Tensor, group=None, op: str = "pmean") -> torch.Tensor:
+    """Mean over ranks (``psum / P``); differentiable; at the policy's
+    wire dtype. ``op`` names it in the accounting (cross-replica
+    BatchNorm records ``"bn_pmean"`` and rides float32 under any policy:
+    flax's BatchNorm calls ``lax.pmean`` itself, past the shims)."""
+    return _reduce(x, group, True, op)
 
 
 @torch.no_grad()
 def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
     """Elementwise maximum over ranks (an all-reduce with ``MAX``, which
-    gloo and NCCL both run); not differentiable."""
+    gloo and NCCL both run); not differentiable, never quantized."""
     _require_group()
     _record_all_reduce("pmax", [x], group)
     y = x.clone(memory_format=torch.contiguous_format)
@@ -303,32 +580,143 @@ def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
     return y
 
 
-def pmean(x: torch.Tensor, group=None, op: str = "pmean") -> torch.Tensor:
-    """Mean over ranks (``psum / P``); differentiable. ``op`` names it in
-    the accounting (cross-replica BatchNorm records ``"bn_pmean"``:
-    flax's BatchNorm calls ``lax.pmean`` itself, past the shims)."""
-    _require_group()
-    _record_all_reduce(op, [x], group)
-    return _AllReduce.apply(x, group, True)
+def _flatten(tensors) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _write_back(tensors, flat: torch.Tensor) -> None:
+    """Copy the concatenation ``flat`` back into ``tensors``."""
+    parts = flat.split([t.numel() for t in tensors])
+    torch._foreach_copy_(tensors, [v.view_as(t)
+                                   for t, v in zip(tensors, parts)])
 
 
 @torch.no_grad()
-def pmean_(tensors, group=None, op: str = "pmean") -> None:
-    """Replace each fp32 tensor by its mean over ranks, in place, with one
-    all-reduce of their concatenation (one accounted call, as the JAX
-    shim's pmean of a pytree)."""
+def _flat_all_reduce(tensors, group, mean: bool, op: str,
+                     wire: str) -> None:
+    """One all-reduce of the concatenation of ``tensors``, in place."""
+    flat = _to_wire(_flatten(tensors), wire)
+    _record_all_reduce(op, [flat], group)
+    dist.all_reduce(flat, group=group)
+    if mean:
+        flat /= world_size(group)
+    _write_back(tensors, flat)
+
+
+def _split_eligible(tensors, orders):
+    """(eligible tensors, their orders, the rest): int8 takes float
+    tensors of at least ``MIN_QUANT_ELEMS`` elements."""
+    orders = list(orders) if orders is not None else [None] * len(tensors)
+    flags = [quantizable(t) for t in tensors]
+    return ([t for t, f in zip(tensors, flags) if f],
+            [o for o, f in zip(orders, flags) if f],
+            [t for t, f in zip(tensors, flags) if not f])
+
+
+@torch.no_grad()
+def pmean_(tensors, group=None, op: str = "pmean", orders=None) -> None:
+    """Replace each fp32 tensor by its mean over ranks, in place, as the
+    JAX shim's pmean of a pytree does, at the policy's wire dtype: one
+    all-reduce of their concatenation (bf16 under bf16); under int8 the
+    eligible tensors share one two-phase schedule (``orders``: each
+    tensor's elements in the JAX leaf's order, see ``_Plan``) and the
+    rest one float32 all-reduce."""
     tensors = list(tensors)
     _require_group()
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("pmean_ takes float32 tensors")
-    _record_all_reduce(op, tensors, group)
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=group)
-    flat /= world_size(group)
-    offset = 0
-    for t in tensors:
-        t.copy_(flat[offset:offset + t.numel()].view_as(t))
-        offset += t.numel()
+    wire = collective_dtype()
+    if wire != "int8":
+        _flat_all_reduce(tensors, group, True, op,
+                         "bf16" if wire == "bf16" else "float32")
+        return
+    elig, elig_orders, rest = _split_eligible(tensors, orders)
+    if rest:
+        _flat_all_reduce(rest, group, True, op, "float32")
+    if elig:
+        red, _ = _q_allreduce(_flatten(elig), [t.numel() for t in elig],
+                              group, op, elig_orders)
+        _write_back(elig, red / world_size(group))
+
+
+@torch.no_grad()
+def quantized_grad_reduce_(grads, residuals, group=None, mean: bool = True,
+                           orders=None) -> None:
+    """The int8 gradient all-reduce with error feedback
+    (``quantized_grad_reduce``, ``mesh.py:705``), in place: each eligible
+    gradient sends ``v = g + e`` through the two-phase schedule (all of
+    them at once; ``orders`` as in ``pmean_``), becomes the reduced value
+    (over P with ``mean``) and its residual ``e`` becomes ``v -
+    deq(q(v))``, what compression dropped this step, carried into the
+    next. The other gradients take one float32 all-reduce and keep their
+    residuals. ``residuals`` are float32 tensors shaped like ``grads``."""
+    grads, residuals = list(grads), list(residuals)
+    _require_group()
+    op = "pmean" if mean else "psum"
+    index = {id(g): i for i, g in enumerate(grads)}
+    elig, elig_orders, rest = _split_eligible(grads, orders)
+    if rest:
+        _flat_all_reduce(rest, group, mean, op, "float32")
+    if not elig:
+        return
+    kept = [residuals[index[id(g)]] for g in elig]
+    v = _flatten(elig).float() + _flatten(kept)
+    reduced, err = _q_allreduce(v, [g.numel() for g in elig], group, op,
+                                elig_orders)
+    _write_back(elig, reduced / world_size(group) if mean else reduced)
+    _write_back(kept, err)
+
+
+def quantized_grad_reduce(grads, residuals, group=None, mean: bool = True,
+                          orders=None):
+    """``(reduced, new residuals)``: ``quantized_grad_reduce_`` on copies
+    (``mesh.py:705``'s signature, with lists for pytrees)."""
+    out = [g.detach().clone() for g in grads]
+    new_e = [e.detach().clone() for e in residuals]
+    quantized_grad_reduce_(out, new_e, group, mean, orders)
+    return out, new_e
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, wire):
+        ctx.group, ctx.wire = group, wire
+        p = world_size(group)
+        if wire == "int8":
+            chunks = x.float().reshape(p, -1)
+            q, s = quantize_int8(chunks)
+            qx, sx = _all_to_all(q, 0, 0, group), _all_to_all(s, 0, 0, group)
+            seg = (qx.float() * sx).sum(dim=0)
+            return seg.reshape((x.shape[0] // p, *x.shape[1:])).to(x.dtype)
+        return _reduce_scatter(_to_wire(x, wire).contiguous(),
+                               group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        wire = "bf16" if ctx.wire == "bf16" else "float32"
+        return _AllGather.apply(g.contiguous(), ctx.group, wire), None, None
+
+
+def psum_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over ranks of ``x``, this rank's tile of dim 0
+    (``lax.psum_scatter(..., scatter_dimension=0, tiled=True)``,
+    ``mesh.py:866``): the reduce-scatter half of an all-reduce.
+    Differentiable (the backward all-gathers the cotangent). Under int8
+    an eligible ``x`` whose dim 0 divides over the ranks is quantized per
+    destination chunk and all-to-all'd, phase 1 of the two-phase
+    all-reduce (``_int8_scatter``)."""
+    _require_group()
+    p = world_size(group)
+    if x.shape[0] % p:
+        raise ValueError(f"psum_scatter: dim 0 of {tuple(x.shape)} does "
+                         f"not split over {p} ranks")
+    wire = collective_dtype()
+    if wire == "int8" and quantizable(x):
+        _record_int8((p, x.numel() // p), "psum_scatter", (p - 1) / p)
+    else:
+        wire = "bf16" if wire == "bf16" else "float32"
+        _record("psum_scatter", [x], (p - 1) / p, wire)
+    return _PsumScatter.apply(x, group, wire)
 
 
 # ---------------------------------------------------------------------------
@@ -361,16 +749,17 @@ def _inverse(perm_or_shift):
 
 class PermuteHandle:
     """A hop in flight (``ppermute_start``): ``wait()`` returns what
-    arrived, one tensor for each one sent, its slices joined again."""
+    arrived, one tensor for each one sent, its slices dequantized (int8)
+    or cast back (bf16) and joined again."""
 
-    def __init__(self, works, received, bounds, dim):
+    def __init__(self, works, received, bounds, dim, decode):
         self._works, self._received = works, received
-        self._bounds, self._dim = bounds, dim
+        self._bounds, self._dim, self._decode = bounds, dim, decode
 
     def wait(self) -> list[torch.Tensor]:
         for work in self._works:
             work.wait()
-        parts = iter(self._received)
+        parts = iter(self._decode(self._received))
         return [torch.cat([next(parts) for _ in bounds], dim=self._dim)
                 if len(bounds) > 1 else next(parts)
                 for bounds in self._bounds]
@@ -390,31 +779,62 @@ def chunk_bounds(n: int, chunks: int) -> list[tuple[int, int]]:
     return bounds
 
 
+def _encode(parts: list[torch.Tensor], wire: str):
+    """(what rides the wire, the function that restores the parts from
+    what arrived): int8 sends each eligible part as its quantized rows and
+    their scales (``_int8_permute``, ``mesh.py:514``), bf16 casts."""
+    if wire == "int8":
+        plan = [quantizable(t) for t in parts]
+        sent = []
+        for t, quant in zip(parts, plan):
+            sent += list(quantize_int8(t)) if quant else [t]
+        dtypes = [t.dtype for t in parts]
+
+        def decode(received):
+            it, out = iter(received), []
+            for quant, dtype in zip(plan, dtypes):
+                out.append((next(it).float() * next(it)).to(dtype)
+                           if quant else next(it))
+            return out
+
+        return sent, decode
+    if wire == "bf16":
+        dtypes = [t.dtype for t in parts]
+        return ([_to_wire(t, wire) for t in parts],
+                lambda received: [r.to(d) for r, d in zip(received, dtypes)])
+    return parts, lambda received: received
+
+
 def ppermute_start(tensors, perm_or_shift=1, group=None,
                    record: bool = True, chunks: int = 1,
-                   dim: int = 0) -> PermuteHandle:
+                   dim: int = 0, wire: str | None = None) -> PermuteHandle:
     """Issue one hop of each tensor (see ``ppermute``) and return at once;
     ``wait()`` on the handle gives the tensors that arrived. A rank that
     receives nothing gets zeros, as from ``lax.ppermute``. ``chunks``
     sends each tensor as that many contiguous slices along ``dim``
-    (``chunk_bounds``). ``record`` adds each slice's payload to the
-    accounting (``"ppermute"``, one call each)."""
+    (``chunk_bounds``). ``wire`` (None: the policy of this thread) is the
+    wire dtype of every slice. ``record`` adds each slice's wire payload
+    to the accounting (``"ppermute"``, one call for each tensor sent:
+    an int8 slice is two, its rows and its scales)."""
     bounds = [chunk_bounds(t.shape[dim], chunks) for t in tensors]
     parts = [(t.narrow(dim, lo, hi - lo) if len(b) > 1 else t).contiguous()
              for t, b in zip(tensors, bounds) for lo, hi in b]
+    sent, decode = _encode(parts, collective_dtype() if wire is None
+                           else wire)
+    sent = [t.contiguous() for t in sent]
     if record:
-        for t in parts:
-            _comms.record("ppermute", AXIS, _nbytes([t]))
+        for t in sent:
+            _record("ppermute", [t], 1.0)
     dst, src = _peers(perm_or_shift, group)
     if world_size(group) == 1 or (dst == rank(group) and src == dst):
-        return PermuteHandle([], parts if dst is not None else
-                             [torch.zeros_like(t) for t in parts],
-                             bounds, dim)
+        return PermuteHandle([], sent if dst is not None else
+                             [torch.zeros_like(t) for t in sent],
+                             bounds, dim, decode)
     _require_group()
     received = [torch.zeros_like(t) if src is None else torch.empty_like(t)
-                for t in parts]
+                for t in sent]
     ops = []
-    for t, out in zip(parts, received):
+    for t, out in zip(sent, received):
         if dst is not None:
             ops.append(dist.P2POp(dist.isend, t, dist.get_global_rank(
                 group, dst) if group is not None else dst, group))
@@ -422,42 +842,52 @@ def ppermute_start(tensors, perm_or_shift=1, group=None,
             ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(
                 group, src) if group is not None else src, group))
     return PermuteHandle(dist.batch_isend_irecv(ops) if ops else [],
-                         received, bounds, dim)
+                         received, bounds, dim, decode)
+
+
+def transpose_wire(wire: str) -> str:
+    """The wire of a hop's transpose: bf16 for a bf16 hop (the transpose
+    of the casts), float32 for an int8 one (the straight-through
+    estimator)."""
+    return "bf16" if wire == "bf16" else "float32"
 
 
 class _PPermute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, perm_or_shift, group, chunks, dim):
-        ctx.args = (perm_or_shift, group, chunks, dim)
+    def forward(ctx, x, perm_or_shift, group, chunks, dim, wire):
+        ctx.args = (perm_or_shift, group, chunks, dim, wire)
         return ppermute_start([x], perm_or_shift, group, chunks=chunks,
-                              dim=dim).wait()[0]
+                              dim=dim, wire=wire).wait()[0]
 
     @staticmethod
     def backward(ctx, g):
         # the transpose of a hop is the inverse hop, not recorded (the
         # shims record no backward collective of JAX's AD)
-        perm, group, chunks, dim = ctx.args
+        perm, group, chunks, dim, wire = ctx.args
         return ppermute_start([g], _inverse(perm), group, record=False,
-                              chunks=chunks, dim=dim).wait()[0], \
-            None, None, None, None
+                              chunks=chunks, dim=dim,
+                              wire=transpose_wire(wire)).wait()[0], \
+            None, None, None, None, None
 
 
 def ppermute(x: torch.Tensor, perm_or_shift=1, group=None) -> torch.Tensor:
     """One ring hop (``lax.ppermute``): this rank's ``x`` goes to rank
     ``rank + shift`` (modulo P) and the tensor of ``rank - shift``
     arrives; or along the ``(source, destination)`` pairs of a
-    permutation. Differentiable: the cotangent makes the inverse hop.
-    Records the full payload (``"ppermute"``)."""
-    return _PPermute.apply(x, perm_or_shift, group, 1, 0)
+    permutation. At the policy's wire dtype. Differentiable: the
+    cotangent makes the inverse hop (``transpose_wire``). Records the
+    full payload (``"ppermute"``)."""
+    return _PPermute.apply(x, perm_or_shift, group, 1, 0, collective_dtype())
 
 
 def ppermute_chunked(x: torch.Tensor, perm_or_shift=1, group=None,
                      chunks: int = 1, dim: int = 0) -> torch.Tensor:
     """One hop of ``x`` as ``chunks`` independent sends of contiguous
     slices along ``dim`` (``mesh.py:850``, which slices dim 0): the same
-    bytes, one recorded call per slice; differentiable."""
+    bytes, one recorded call per slice, each slice on the wire policy by
+    itself; differentiable."""
     return _PPermute.apply(x, perm_or_shift, group, max(int(chunks or 1), 1),
-                           dim)
+                           dim, collective_dtype())
 
 
 def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
@@ -496,5 +926,5 @@ def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
     Differentiable (the backward is the reverse all-to-all). Records
     ``(P - 1) / P`` of the payload (``"all_to_all"``)."""
     p = world_size(group)
-    _comms.record("all_to_all", AXIS, (p - 1) / p * _nbytes([x]))
+    _record("all_to_all", [x], (p - 1) / p)
     return _AllToAll.apply(x, split_dim, concat_dim, group)

@@ -13,7 +13,7 @@ weight 1/2 (``+log 1/2`` in lse space). Per tile the dual kernels
 walk into both sides' statistics and gradients. The column statistics
 merge over ranks with a ``pmax`` and a ``psum`` of a (2N,) vector in the
 forward, the gradient contributions with one ``psum`` of a (2N, D) buffer
-in the backward. Positives stay local (each row's paired view lives on
+in the backward, at the forward's wire policy (quantized under int8). Positives stay local (each row's paired view lives on
 the same rank) and are differentiated by autograd.
 
 Unlike the JAX body, which takes the global views inside a
@@ -30,6 +30,7 @@ import torch
 
 from ..ops.ntxent import block_grads_dual, block_lse_dual
 from .mesh import all_gather, local_row_gids, pmax, psum, rank, world_size
+from .precision import collective_dtype, collective_precision
 
 __all__ = ["make_pair_ntxent", "ntxent_loss_pair", "pair_body",
            "rank_grad_buffer", "rank_lse_part"]
@@ -141,6 +142,7 @@ class _PairLseSum(torch.autograd.Function):
         lse_all = m + torch.log(psum(torch.exp(lse_part - m), group))
         ctx.save_for_backward(z_local, my_gid, z_g, lse_all)
         ctx.temperature, ctx.group = temperature, group
+        ctx.wire = collective_dtype()
         return lse_all[my_gid.long()].sum()
 
     @staticmethod
@@ -149,7 +151,10 @@ class _PairLseSum(torch.autograd.Function):
         group = ctx.group
         buf = rank_grad_buffer(z_local, my_gid, z_g, rank(group),
                                world_size(group), lse_all, ctx.temperature)
-        grad_full = psum(buf, group)
+        # the forward's wire policy: JAX traces this psum under it, and
+        # autograd may run the backward on a thread of its own
+        with collective_precision(ctx.wire):
+            grad_full = psum(buf, group)
         grad = grad_full[my_gid.long()] * (ct.float() / ctx.temperature)
         return grad.to(z_local.dtype), None, None, None
 

@@ -16,7 +16,13 @@ only neighbour links carry traffic.
   (``ring.py:101``) with ``block_grads`` (#6): the row gradient
   accumulates at home while the column gradient of each visiting block
   circulates home with it. ``"auto"`` takes ``"fused"`` for CUDA tensors
-  and ``"jnp"`` on the CPU.
+  and ``"jnp"`` on the CPU. ``chunks`` sends each hop as that many slices
+  of rows, each slice's onward send issued before its fold (the chunked
+  schedule of ``--dp-loss chunked``, ``dist_loss.local_ntxent_chunked``,
+  which runs the fused ring in JAX AD's manner: its second pass records
+  nothing and the column gradients ride at full precision under int8).
+  Every hop rides the wire policy (``parallel.precision``) of the
+  forward.
 * ``make_ring_infonce(group, impl)``: ``"dual"`` circulates one block
   and its column statistics and folds each tile into both softmax
   directions; ``"twoblock"`` circulates both modalities' blocks. Plain
@@ -38,13 +44,16 @@ import torch
 from ..ops.infonce import resolve_scale
 from ..ops.ntxent import _exp0, _log_l, block_grads, block_lse
 from .mesh import (
+    chunk_bounds,
     local_row_gids,
     ppermute,
     ppermute_start,
     psum,
     rank,
+    transpose_wire,
     world_size,
 )
+from .precision import collective_dtype
 
 __all__ = ["info_nce_loss_ring", "make_ring_infonce", "make_ring_ntxent",
            "ntxent_loss_ring"]
@@ -68,9 +77,11 @@ def _ring_gids(group, n_local: int, device):
     return p, r, ids
 
 
-def _ntxent_jnp(z1, z2, temperature: float, group):
+def _ntxent_jnp(z1, z2, temperature: float, group, chunks: int = 1):
     """``_ring_body`` (``ring.py:46``): plain folds, gradients through the
-    hops."""
+    hops. Each hop sends the block as ``chunks`` slices of rows, chunk c's
+    onward send issued before chunk c is folded (the chunked schedule of
+    ``dist_loss.py:161-175``)."""
     n_local = z1.shape[0]
     p, r, ids = _ring_gids(group, n_local, z1.device)
     two_n = 2 * n_local * p
@@ -79,6 +90,7 @@ def _ntxent_jnp(z1, z2, temperature: float, group):
     my_gid = ids(r)
     pos = (z1.float() * z2.float()).sum(dim=-1) * inv_t
     pos = torch.cat([pos, pos])
+    bounds = chunk_bounds(z_local.shape[0], chunks)
 
     def fold(block, block_gid, m, l):
         s = (z_local.float() @ block.float().T) * inv_t
@@ -88,11 +100,15 @@ def _ntxent_jnp(z1, z2, temperature: float, group):
         return m_new, l
 
     m, l = _stats(z_local.shape[0], z1.device)
-    block = z_local
-    for hop in range(p - 1):
-        m, l = fold(block, ids((r - hop) % p), m, l)
-        block = ppermute(block, 1, group)
-    m, l = fold(block, ids((r - p + 1) % p), m, l)
+    blocks = [z_local[lo:hi] for lo, hi in bounds]
+    for hop in range(p):
+        gid = ids((r - hop) % p)
+        sent = []
+        for (lo, hi), block in zip(bounds, blocks):
+            if hop < p - 1:
+                sent.append(ppermute(block, 1, group))
+            m, l = fold(block, gid[lo:hi], m, l)
+        blocks = sent
     loss_sum = (m + _log_l(l) - pos).sum()
     return psum(loss_sum, group) / two_n
 
@@ -124,72 +140,100 @@ def rank_loss_sum(z1, z2, temperature: float, lse_sum):
 class _RingLseSum(torch.autograd.Function):
     """``S = sum_i lse_i`` over this rank's rows, the lse accumulated around
     the ring by ``block_lse`` (#1); the backward is a second ring pass with
-    ``block_grads`` (#6) (``_make_ring_lse_sum``, ``ring.py:101``)."""
+    ``block_grads`` (#6) (``_make_ring_lse_sum``, ``ring.py:101``).
+
+    Each hop sends the block as ``chunks`` slices of rows, chunk c's
+    onward send issued before chunk c is folded, so its transfer overlaps
+    the fold (``dist_loss.py:161-175``). The sends ride the wire policy of
+    the forward (``collective_dtype()`` read there): the backward sends
+    the blocks again under it, and the same quantize chain gives the
+    blocks the forward folded, bit for bit. The column gradient of each
+    block rides home with it. ``ad=False`` is the ring NT-Xent's custom
+    backward, whose hops the JAX shims record and send on the policy;
+    ``ad=True`` stands for JAX's AD of the chunked loss: the backward
+    records nothing and the column gradient rides on the hops' transpose
+    wire (full precision under int8, the straight-through estimator)."""
 
     @staticmethod
-    def forward(ctx, z_local, temperature, group, n_local):
+    def forward(ctx, z_local, temperature, group, n_local, chunks=1,
+                ad=False):
+        wire = collective_dtype()
         p, r, ids = _ring_gids(group, n_local, z_local.device)
         total, my_gid = z_local.shape[0] * p, ids(r)
+        bounds = chunk_bounds(z_local.shape[0], chunks)
         stats = _stats(z_local.shape[0], z_local.device)
-        block = z_local
+        blocks = [z_local[lo:hi] for lo, hi in bounds]
         for hop in range(p):
-            # the next hop's send goes out before this hop's fold
-            pending = (ppermute_start([block], 1, group) if hop < p - 1
-                       else None)
-            stats = lse_hop(z_local, block, my_gid, ids((r - hop) % p),
-                            temperature, total, stats)
-            if pending is not None:
-                block = pending.wait()[0]
+            gid = ids((r - hop) % p)
+            sent = []
+            for (lo, hi), block in zip(bounds, blocks):
+                # the chunk's onward send goes out before its fold
+                if hop < p - 1:
+                    sent.append(ppermute_start([block], 1, group, wire=wire))
+                stats = lse_hop(z_local, block, my_gid, gid[lo:hi],
+                                temperature, total, stats)
+            blocks = [h.wait()[0] for h in sent]
         lse = stats[0] + _log_l(stats[1])
         ctx.save_for_backward(z_local, lse)
-        ctx.args = (temperature, group, n_local)
+        ctx.args = (temperature, group, n_local, bounds, ad, wire)
         return lse.sum()
 
     @staticmethod
     def backward(ctx, ct):
         z_local, lse = ctx.saved_tensors
-        temperature, group, n_local = ctx.args
+        temperature, group, n_local, bounds, ad, wire = ctx.args
         p, r, ids = _ring_gids(group, n_local, z_local.device)
         total, my_gid = z_local.shape[0] * p, ids(r)
         grows = torch.zeros(z_local.shape, dtype=torch.float32,
                             device=z_local.device)
-        gblk = torch.zeros_like(grows)
-        block = z_local
+        gcols = [grows.new_zeros((hi - lo, z_local.shape[1]))
+                 for lo, hi in bounds]
+        col_wire = transpose_wire(wire) if ad else wire
+        blocks = [z_local[lo:hi] for lo, hi in bounds]
         for hop in range(p):
-            pending = (ppermute_start([block], 1, group) if hop < p - 1
-                       else None)
-            gr_k, gc_k = block_grads(z_local, block, my_gid,
-                                     ids((r - hop) % p), lse, temperature,
-                                     total)
-            grows += gr_k
+            gid = ids((r - hop) % p)
+            sent = []
+            for c, ((lo, hi), block) in enumerate(zip(bounds, blocks)):
+                if hop < p - 1:
+                    sent.append(ppermute_start([block], 1, group,
+                                               record=not ad, wire=wire))
+                gr_k, gc_k = block_grads(z_local, block, my_gid, gid[lo:hi],
+                                         lse, temperature, total)
+                grows += gr_k
+                gcols[c] = gcols[c] + gc_k
             # the column gradient rides with its block: after P hops it
             # is home, holding every rank's contribution
-            gblk = ppermute_start([gblk + gc_k], 1, group).wait()[0]
-            if pending is not None:
-                block = pending.wait()[0]
+            gcols = ppermute_start(gcols, 1, group, record=not ad,
+                                   wire=col_wire).wait()
+            blocks = [h.wait()[0] for h in sent]
+        gblk = torch.cat(gcols) if len(gcols) > 1 else gcols[0]
         return (lse_sum_grad(grows, gblk, ct, temperature, z_local.dtype),
-                None, None, None)
+                None, None, None, None, None)
 
 
-def _ntxent_fused(z1, z2, temperature: float, group):
+def _ntxent_fused(z1, z2, temperature: float, group, chunks: int = 1,
+                  ad: bool = False):
     """``_ring_body_fused`` (``ring.py:181``): the lse part through the
-    custom ring, the device-local positives through autograd."""
+    custom ring (``_RingLseSum``, ``chunks`` slices a hop; ``ad`` as
+    there), the device-local positives through autograd."""
     n_local = z1.shape[0]
     two_n = 2 * n_local * world_size(group)
     lse_sum = _RingLseSum.apply(torch.cat([z1, z2]).contiguous(),
-                                float(temperature), group, n_local)
+                                float(temperature), group, n_local,
+                                int(chunks), ad)
     return psum(rank_loss_sum(z1, z2, temperature, lse_sum), group) / two_n
 
 
 def make_ring_ntxent(group=None, temperature: float = 0.07,
-                     impl: str = "auto"):
+                     impl: str = "auto", chunks: int = 1):
     """The ring NT-Xent over the ranks of ``group``: ``fn(z1_local,
     z2_local) -> global mean loss``, the views (n, D) of this rank.
 
     ``impl``: ``"fused"`` folds with the block kernels and runs the custom
     second ring pass; ``"jnp"`` folds in plain PyTorch with gradients
     through the hops; ``"auto"`` takes ``"fused"`` for CUDA tensors and
-    ``"jnp"`` on the CPU."""
+    ``"jnp"`` on the CPU. ``chunks``: the slices of rows a hop sends
+    (``mesh.chunk_bounds``)."""
     if impl not in ("auto", "fused", "jnp"):
         raise ValueError(f"impl must be 'auto', 'fused' or 'jnp', got "
                          f"{impl!r}")
@@ -200,7 +244,7 @@ def make_ring_ntxent(group=None, temperature: float = 0.07,
         if impl == "auto":
             chosen = "fused" if z1_local.device.type == "cuda" else "jnp"
         body = _ntxent_fused if chosen == "fused" else _ntxent_jnp
-        return body(z1_local, z2_local, t, group)
+        return body(z1_local, z2_local, t, group, chunks)
 
     return ring_ntxent
 

@@ -46,10 +46,12 @@ from .trainer import (
     create_clip_train_state,
     create_train_state,
     fit,
+    init_error_feedback,
     make_clip_train_step,
     make_sharded_clip_train_step,
     make_sharded_train_step,
     make_train_step,
+    measure_comms_overlap,
     train_loop,
 )
 
@@ -85,12 +87,14 @@ __all__ = [
     "finetune",
     "fit",
     "grain_loader",
+    "init_error_feedback",
     "knn_accuracy",
     "linear_probe",
     "make_clip_train_step",
     "make_sharded_clip_train_step",
     "make_sharded_train_step",
     "make_train_step",
+    "measure_comms_overlap",
     "native_loader_available",
     "simclr_learning_rate",
     "snapshot_state",

@@ -68,6 +68,8 @@ import zlib
 from collections.abc import Callable
 from pathlib import Path
 
+import torch
+
 from ..parallel import mesh
 from ..resilience.retry import RetryBudgetExceeded
 from ..utils import msgpack
@@ -80,7 +82,7 @@ from ..weights import (
 logger = logging.getLogger(__name__)
 
 __all__ = ["AsyncCheckpointer", "CheckpointManager", "RetentionPolicy",
-           "Snapshot", "snapshot_state"]
+           "Snapshot", "gather_ef_residual", "snapshot_state"]
 
 MANIFEST_NAME = "manifests.json"
 STATE_FILE = "state.msgpack"
@@ -167,13 +169,57 @@ class Snapshot:
     topology: dict
 
 
-def snapshot_state(state) -> Snapshot:
+def gather_ef_residual(state, group=None) -> dict | None:
+    """Every rank's error-feedback residual, stacked: ``{parameter name:
+    (P,) + shape}`` host float32 arrays, rank r's slice at r (None when
+    the state carries none). A collective: every rank of ``group`` calls
+    it at once (one all-gather of the flat residual); a world of one
+    gathers nothing."""
+    if getattr(state, "ef_residual", None) is None:
+        return None
+    local = torch.cat([e.detach().reshape(-1) for e in state.ef_residual])
+    p = mesh.world_size(group)
+    if p > 1:
+        parts = [torch.empty_like(local) for _ in range(p)]
+        torch.distributed.all_gather(parts, local.contiguous(), group=group)
+        local = torch.stack(parts)
+    else:
+        local = local[None]
+    host = local.to("cpu", copy=True).numpy()
+    names = [n for n, _ in state.model.named_parameters()]
+    out, lo = {}, 0
+    for name, e in zip(names, state.ef_residual):
+        out[name] = host[:, lo:lo + e.numel()].reshape((p, *e.shape))
+        lo += e.numel()
+    return out
+
+
+def snapshot_state(state, keep_ef_residual: bool = False,
+                   ef_residual: dict | None = None) -> Snapshot:
     """A ``Snapshot`` of a port ``TrainState``: every tensor copied to the
     host (a copy of its own, never a view), the caller's only part of an
-    async save. A ``Snapshot`` passes through."""
+    async save. A ``Snapshot`` passes through.
+
+    Slim by default (``checkpoint.py:237-280``): a state that carries an
+    error-feedback residual is saved without the ``ef_residual`` field,
+    which a restore turns into zeros. ``keep_ef_residual`` saves it in
+    the JAX layout: ``ef_residual`` as ``gather_ef_residual`` stacked it
+    on every rank, or, in a world of one, this rank's own."""
     if isinstance(state, Snapshot):
         return state
-    state_dict = _sorted(train_state_dict(state))
+    has_ef = getattr(state, "ef_residual", None) is not None
+    if keep_ef_residual and has_ef and ef_residual is None:
+        if mesh.world_size() > 1:
+            raise ValueError("saving the error-feedback residual in a world "
+                             "of several ranks needs every rank's slice: "
+                             "pass ef_residual=gather_ef_residual(state), "
+                             "called on every rank")
+        ef_residual = gather_ef_residual(state)
+    state_dict = train_state_dict(
+        state, ef_residual if keep_ef_residual else None)
+    if has_ef and not keep_ef_residual:
+        del state_dict["ef_residual"]  # the JAX slim save drops the field
+    state_dict = _sorted(state_dict)
     topology = {"specs": {path: None for path in _leaf_paths(state_dict)},
                 "mesh": _mesh_record(), "version": 1}
     return Snapshot(state_dict, topology)
@@ -349,14 +395,18 @@ class CheckpointManager:
     manifests; ``mirror_dir`` replicates every step; ``retry_policy``
     retries the physical write and read on transient errors;
     ``fault_hook`` runs at the start of each physical write of the
-    primary copy."""
+    primary copy. ``save_ef_residual`` keeps the int8 wire's
+    error-feedback residual in each step (``--ckpt-save-ef``; slim saves
+    drop it, ``snapshot_state``)."""
 
     def __init__(self, directory: str | Path, max_to_keep: int | None = 3,
                  save_interval_steps: int = 1, retry_policy=None,
                  verify_writes: bool = True, keep_every: int | None = None,
                  mirror_dir: str | Path | None = None,
-                 fault_hook: Callable | None = None):
+                 fault_hook: Callable | None = None,
+                 save_ef_residual: bool = False):
         self.directory = Path(directory).absolute()
+        self.save_ef_residual = save_ef_residual
         self.retry_policy = retry_policy
         self.verify_writes = verify_writes
         self.save_interval_steps = max(1, int(save_interval_steps))
@@ -587,13 +637,19 @@ class CheckpointManager:
             self._has_any_step = True
         return True
 
+    def snapshot(self, state, ef_residual: dict | None = None) -> Snapshot:
+        return snapshot_state(state, self.save_ef_residual, ef_residual)
+
     def save(self, step: int, state, force: bool = False,
              data_state: dict | None = None, emergency: bool = False,
-             _prefiltered: bool = False) -> bool:
+             _prefiltered: bool = False,
+             ef_residual: dict | None = None) -> bool:
         """Save ``state`` (a ``TrainState`` or a ``Snapshot``) at ``step``
         with the input pipeline's ``data_state``. Returns False, after
         logging, when the write hits a filesystem error; the next cadence
-        point saves again. Only rank 0 of a process group writes."""
+        point saves again. Only rank 0 of a process group writes;
+        ``ef_residual`` is every rank's residual (``gather_ef_residual``)
+        when the manager keeps it in a world of several ranks."""
         step = int(step)
         if mesh.rank() != 0:
             return False
@@ -602,8 +658,8 @@ class CheckpointManager:
         t0 = time.perf_counter()
         try:
             saved = self._call(self.manager.save, step,
-                               snapshot_state(state), data_state=data_state,
-                               force=force)
+                               self.snapshot(state, ef_residual),
+                               data_state=data_state, force=force)
         except (OSError, RetryBudgetExceeded) as e:
             logger.error("checkpoint save at step %d failed (%s: %s); "
                          "continuing without it", step, type(e).__name__, e)
@@ -844,7 +900,8 @@ class AsyncCheckpointer:
                 self._queue.task_done()
 
     def save(self, step: int, state, force: bool = False,
-             data_state: dict | None = None) -> bool:
+             data_state: dict | None = None,
+             ef_residual: dict | None = None) -> bool:
         """Accept a save: snapshot now, write in the background. True when
         the save was queued."""
         if self._closed:
@@ -857,19 +914,21 @@ class AsyncCheckpointer:
             # bounded work, waited for before the snapshot: no more than
             # max_pending host copies of the state exist at once
             self._queue.join()
-        snapshot = snapshot_state(state)
+        snapshot = self.manager.snapshot(state, ef_residual)
         self._queue.put((step, snapshot, data_state, force))
         self.stats["blocked_ms"].append((time.perf_counter() - t0) * 1e3)
         return True
 
     def emergency_save(self, step: int, state,
-                       data_state: dict | None = None) -> bool:
+                       data_state: dict | None = None,
+                       ef_residual: dict | None = None) -> bool:
         """The preemption path: drain pending writes, then save ``state``
         synchronously. Never raises on filesystem trouble."""
         try:
             self.wait_until_finished()
             return self.manager.save(step, state, force=True,
-                                     data_state=data_state, emergency=True)
+                                     data_state=data_state, emergency=True,
+                                     ef_residual=ef_residual)
         except Exception:
             logger.exception("emergency checkpoint save at step %d died",
                              step)

@@ -16,28 +16,41 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   InfoNCE kernels on CUDA tensors (``ops.infonce.info_nce_fused``) and
   the oracle at temperature ``1 / scale`` on the CPU, as the JAX step
   does;
-* ``make_sharded_train_step(group, temperature, loss_impl="strip")``
-  (``trainer.py:421-427``, without the int8/bf16 wire or the MoE
-  loss): each rank runs both of its local views through the model in
-  one forward (BatchNorm statistics across ranks once
-  ``models.cross_replica_batch_norm`` gave the model the group), the
-  data-parallel loss of ``loss_impl`` (``parallel.dist_loss``: ``"strip"``,
-  or ``"pair"``, the balanced shard-pair schedule), the backward, the ``pmean`` of the gradients (``_ef_reduce_rule``) and of
-  the BatchNorm running statistics, and the same LARS update on every
-  rank. Each rank differentiates its own copy of the psum'd loss, so its
-  gradients are P times its share and their pmean is the gradient of the
-  global loss, as under JAX's ``shard_map``;
-* ``make_sharded_clip_train_step(group, loss_impl)`` (``trainer.py:625``,
-  the float32 wire, without the MoE loss): each rank runs both
-  towers on its (images, tokens) shard, the InfoNCE body of ``loss_impl``
+* ``make_sharded_train_step(group, temperature, loss_impl="strip",
+  collective_dtype="float32", ring_chunks=None)`` (``trainer.py:421-
+  600``, without the MoE loss): each rank runs both of its local views
+  through the model in one forward (BatchNorm statistics across ranks
+  once ``models.cross_replica_batch_norm`` gave the model the group), the
+  data-parallel loss of ``loss_impl`` (``parallel.dist_loss``:
+  ``"strip"``, ``"pair"``, the balanced shard-pair schedule, or
+  ``"chunked"``, the ring-overlap schedule in ``ring_chunks`` chunks a
+  hop), the backward, the ``pmean`` of the gradients (``_reduce_grads``,
+  ``_ef_reduce_rule``) and of the BatchNorm running statistics, and the
+  same LARS update on every rank. Each rank differentiates its own copy
+  of the psum'd loss, so its gradients are P times its share and their
+  pmean is the gradient of the global loss, as under JAX's ``shard_map``;
+* ``make_sharded_clip_train_step(group, loss_impl, collective_dtype=)``
+  (``trainer.py:625``, without the MoE loss): each rank runs both towers
+  on its (images, tokens) shard, the InfoNCE body of ``loss_impl``
   (``"dual"``, ``parallel.dist_loss.local_infonce_dual``: only the text
   embeddings are gathered; ``"twopass"``, ``local_infonce_allgather``:
-  both are gathered, each direction walked on its own), the backward, one ``pmean`` of every gradient (the logit
-  scale's included) and the same AdamW update on every rank. As in the
-  SimCLR step, each rank's gradients are P times its share (the psum of
-  the loss and the all-gather's reduce-scatter carry the factor), so their
-  pmean is the gradient of the global loss, as under JAX's ``shard_map``
-  with ``check_vma=False``;
+  both are gathered, each direction walked on its own), the backward,
+  one ``pmean`` of every gradient (the logit scale's included) and the
+  same AdamW update on every rank. As in the SimCLR step, each rank's
+  gradients are P times its share (the psum of the loss and the
+  all-gather's reduce-scatter carry the factor), so their pmean is the
+  gradient of the global loss, as under JAX's ``shard_map`` with
+  ``check_vma=False``;
+* the wire (``collective_dtype``, ``trainer.py:378-395``): the loss's
+  collectives, forward and backward, and the gradient pmean ride
+  ``parallel.precision.collective_precision``; under int8 a state with a
+  residual (``init_error_feedback``) reduces its gradients with error
+  feedback (``mesh.quantized_grad_reduce_``, each gradient chunked in its
+  JAX leaf's order, ``weights.flax_orders``); the running statistics'
+  pmean stays float32, and a skipped step keeps the pre-step residual
+  (the host guard restores it, the lag-1 guard keeps it in its flat
+  buffer); ``measure_comms_overlap`` times the strip against the chunked
+  loss (``trainer.py:809-880``);
 * ``train_loop``: steps, loss, steps/s, images/s and the data wait every
   ``log_every``; ``stop_fn`` ends the run at a step boundary,
   ``step_hook`` runs after every step, ``watchdog`` (``utils.watchdog.
@@ -101,8 +114,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import time
+import weakref
 from collections.abc import Callable
 
 import torch
@@ -115,11 +130,17 @@ from ..ops import oracle
 from ..ops.infonce import info_nce_fused
 from ..ops.ntxent import ntxent_loss_fused
 from ..parallel.dist_loss import resolve_local_infonce, resolve_local_ntxent
-from ..parallel.mesh import comms_accounting, pmean_
+from ..parallel.mesh import comms_accounting, pmean_, quantized_grad_reduce_
 from ..parallel.mesh import rank as mesh_rank
+from ..parallel.precision import collective_precision
+from ..weights import flax_orders
 from .accum import MultiSteps
 from .adamw import AdamW
-from .checkpoint import AsyncCheckpointer, CheckpointManager
+from .checkpoint import (
+    AsyncCheckpointer,
+    CheckpointManager,
+    gather_ef_residual,
+)
 from .lars import LARS, cosine_warmup_schedule, exclusion_mask
 from .lars import simclr_learning_rate
 
@@ -127,18 +148,15 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["ROADMAP_ITEMS", "StepOutcome", "TrainState", "TrainerConfig",
            "create_clip_train_state", "create_train_state", "fit",
-           "make_clip_train_step", "make_sharded_clip_train_step",
-           "make_sharded_train_step", "make_train_step", "train_loop"]
+           "init_error_feedback", "make_clip_train_step",
+           "make_sharded_clip_train_step", "make_sharded_train_step",
+           "make_train_step", "measure_comms_overlap", "train_loop"]
 
 # What training does not port yet, by the ROADMAP.md item that will.
 ROADMAP_ITEMS = {
     "stem": "ROADMAP.md Queue A 6(b) (the space-to-depth ResNet stem)",
-    "wire": "ROADMAP.md Queue A 3(e) (quantized collectives: "
-            "--collective-dtype bf16/int8 with error feedback)",
     "mp": "ROADMAP.md Queue A 9 (model parallelism and MoE; multi-host "
           "worlds come from torchrun's environment)",
-    "chunked": "ROADMAP.md Queue A 3(d) (--dp-loss chunked, the "
-               "ring-overlap schedule: --ring-chunks, --measure-overlap)",
     "obs": "ROADMAP.md Queue A 11(b) (observability: the metrics "
            "endpoint, the event log, traces)",
 }
@@ -190,6 +208,11 @@ class TrainState:
     # the lag-1 guard's flat snapshot, made at its first step
     kept: _KeptUpdate | None = dataclasses.field(default=None, repr=False,
                                                  compare=False)
+    # int8 error feedback: this rank's float32 compression residual of
+    # each parameter, in ``model.parameters()`` order (None on any other
+    # wire; ``init_error_feedback``)
+    ef_residual: list[torch.Tensor] | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
 
 def create_train_state(model: nn.Module, config: TrainerConfig,
@@ -254,6 +277,27 @@ def _running_stats(model: nn.Module) -> list[torch.Tensor]:
             for b in (m.running_mean, m.running_var)]
 
 
+def _moved(state: TrainState) -> list[torch.Tensor]:
+    """What a step moves besides the optimizer's state: the BatchNorm
+    running statistics and the error-feedback residual, which a skipped
+    step puts back (``trainer.py:542-544``)."""
+    return _running_stats(state.model) + list(state.ef_residual or [])
+
+
+def init_error_feedback(state: TrainState, group=None) -> TrainState:
+    """Give ``state`` a zero error-feedback residual for
+    ``collective_dtype="int8"`` (``trainer.py:171-200``): one float32
+    zeros tensor a parameter on its device, this rank's slice of the JAX
+    ``(P,) + param.shape`` stack (``group``, None: the default group,
+    only names the world the checkpoints stack it over). Checkpoints drop
+    it unless ``CheckpointManager(save_ef_residual=True)``; a restore
+    without one (or from another world size) starts at zeros."""
+    del group  # the residual is per rank; its world is the process group's
+    state.ef_residual = [torch.zeros_like(p, dtype=torch.float32)
+                         for p in state.model.parameters()]
+    return state
+
+
 @torch.no_grad()
 def _guarded_update(state: TrainState, loss: torch.Tensor, scale: float,
                     stats_before: list[torch.Tensor]) -> dict:
@@ -261,7 +305,8 @@ def _guarded_update(state: TrainState, loss: torch.Tensor, scale: float,
     (``trainer.py:77-104``): scale them, take their global norm and
     ``ok``, and step the optimizer whatever ``ok`` is, from a snapshot of
     what the step moves; a bad step puts the snapshot back, and the
-    BatchNorm running statistics as ``stats_before`` held them.
+    BatchNorm running statistics and the error-feedback residual as
+    ``stats_before`` held them.
     ``state.step`` advances either way.
 
     Reading (loss, norm, ok) is the step's one host sync. On the card the
@@ -290,14 +335,14 @@ def _guarded_update(state: TrainState, loss: torch.Tensor, scale: float,
         ready.synchronize()
     if not bool(host[2]):
         state.optimizer.restore(snapshot)
-        torch._foreach_copy_(_running_stats(state.model), stats_before)
+        torch._foreach_copy_(_moved(state), stats_before)
     state.step += 1
     return {"loss": host[0].to(loss.dtype), "grad_norm": host[1],
             "step_ok": host[2].bool()}
 
 
-def _stats_before(model: nn.Module) -> list[torch.Tensor]:
-    return [b.clone() for b in _running_stats(model)]
+def _stats_before(state: TrainState) -> list[torch.Tensor]:
+    return [b.clone() for b in _moved(state)]
 
 
 class _KeptUpdate:
@@ -352,7 +397,7 @@ def _kept(state: TrainState) -> _KeptUpdate:
         inner = opt.inner if accum else opt
         moved = [*inner.params.values(), *inner.trace.values()]
         acc = list(opt.acc.values()) if accum else []
-        tail = _running_stats(state.model)
+        tail = _moved(state)
         if accum:
             tail.append(opt.device_counters(moved[0].device))
         tensors = moved + acc + tail
@@ -398,7 +443,7 @@ def _guarded(state: TrainState, loss_of: Callable, v1: torch.Tensor,
         keep = _kept(state)
         keep.save()
         return _kept_update(state, loss_of(state, v1, v2), scale, keep)
-    before = _stats_before(state.model)
+    before = _stats_before(state)
     return _guarded_update(state, loss_of(state, v1, v2), scale, before)
 
 
@@ -443,27 +488,80 @@ def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
     return guarded_step if guard else train_step
 
 
+def _wire_dtype(collective_dtype: str) -> str:
+    """The wire policy's name, validated when a step is built (an unknown
+    dtype raises here, not at the first collective)."""
+    return collective_precision(collective_dtype).dtype
+
+
+_ORDERS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _flax_orders(model: nn.Module) -> list:
+    """``weights.flax_orders`` of ``model``, computed once."""
+    if model not in _ORDERS:
+        _ORDERS[model] = flax_orders(model)
+    return _ORDERS[model]
+
+
+def _reduce_grads(state: TrainState, group, wire: str) -> None:
+    """The gradient pmean under the wire policy (``_ef_reduce_rule``,
+    ``trainer.py:378-395``): int8 with a residual rides error feedback
+    (``mesh.quantized_grad_reduce_``), any other dtype pmeans under the
+    policy (int8 without a residual quantizes without feedback). Under
+    int8 each gradient is chunked in its JAX leaf's order, so the scales
+    are the JAX step's."""
+    grads = [p.grad for p in state.model.parameters()]
+    orders = _flax_orders(state.model) if wire == "int8" else None
+    if wire == "int8" and state.ef_residual is not None:
+        quantized_grad_reduce_(grads, state.ef_residual, group,
+                               orders=orders)
+        return
+    with collective_precision(wire):
+        pmean_(grads, group, orders=orders)
+
+
 def make_sharded_train_step(group=None, temperature: float = 0.1,
                             loss_impl: str = "strip", remat: bool = False,
-                            guard: bool = False) -> Callable:
+                            guard: bool = False,
+                            collective_dtype: str = "float32",
+                            ring_chunks: int | None = None) -> Callable:
     """``train_step(state, v1, v2) -> (state, {"loss": tensor})`` over the
     ranks of ``group`` (``None``: the default group) with the NT-Xent
-    schedule ``loss_impl`` (``"strip"`` or ``"pair"``; an unknown or
-    unported name raises here); ``v1``, ``v2`` are this rank's rows of the
+    schedule ``loss_impl`` (``"strip"``, ``"pair"`` or ``"chunked"``; an
+    unknown name raises here); ``v1``, ``v2`` are this rank's rows of the
     global batch. Every rank returns the global loss and ends with the
     same parameters. ``remat`` and ``guard`` as in ``make_train_step``;
     the guard decides after the gradient and statistics pmeans, on the
     global loss (``trainer.py:524-580``), so a NaN on one rank's rows
-    skips the update on every rank."""
+    skips the update on every rank.
+
+    ``ring_chunks`` is the chunk count of ``"chunked"``
+    (``ops.autotune.resolve_ring_chunks`` when None); with another
+    schedule it raises ``ValueError``, as in JAX (``trainer.py:482-486``).
+    ``collective_dtype`` (``"float32"``, ``"bf16"``/``"bfloat16"``,
+    ``"int8"``) is the wire of the loss's collectives (forward and
+    backward) and of the gradient pmean (``_reduce_grads``: error
+    feedback when the state carries ``ef_residual``, see
+    ``init_error_feedback``); the BatchNorm statistics' pmeans stay
+    float32. A skipped step keeps the pre-step residual."""
     loss_body = resolve_local_ntxent(loss_impl)
+    if ring_chunks is not None and loss_impl != "chunked":
+        raise ValueError(f"ring_chunks tunes the chunked ring-overlap "
+                         f"schedule; loss_impl={loss_impl!r} has no ring "
+                         "chunks, it would be silently ignored")
+    if loss_impl == "chunked":
+        loss_body = functools.partial(loss_body, chunks=ring_chunks)
+    wire = _wire_dtype(collective_dtype)
 
     def loss_of(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
         state.optimizer.zero_grad()
-        z = apply_two_views(state.model, v1, v2, remat)
-        n = v1.shape[0]
-        loss = loss_body(z[:n], z[n:], temperature, group)
-        loss.backward()
-        pmean_([p.grad for p in state.model.parameters()], group)
+        with collective_precision(wire):
+            z = apply_two_views(state.model, v1, v2, remat)
+            n = v1.shape[0]
+            loss = loss_body(z[:n], z[n:], temperature, group)
+            loss.backward()
+        _reduce_grads(state, group, wire)
         pmean_(_running_stats(state.model), group)
         return loss.detach()
 
@@ -526,7 +624,9 @@ def make_clip_train_step(use_fused: bool | None = None, remat: bool = False,
 
 
 def make_sharded_clip_train_step(group=None, loss_impl: str = "dual",
-                                 remat: bool = False) -> Callable:
+                                 remat: bool = False,
+                                 collective_dtype: str = "float32"
+                                 ) -> Callable:
     """``train_step(state, images, tokens) -> (state, {"loss": tensor})``
     over the ranks of ``group`` (``None``: the default group); ``images``
     and ``tokens`` are this rank's rows of the global batch. The loss body
@@ -536,21 +636,79 @@ def make_sharded_clip_train_step(group=None, loss_impl: str = "dual",
     modalities and walks it once for each. CUDA tensors run the loss
     kernels, CPU tensors their plain versions. Every rank returns the
     global loss and ends with the same parameters. ``remat``
-    rematerializes both towers in the backward."""
+    rematerializes both towers in the backward. ``collective_dtype``: the
+    wire of the loss's gathers and of the gradient pmean, with error
+    feedback when the state carries ``ef_residual``, as in
+    ``make_sharded_train_step`` (``trainer.py:625-700``)."""
     local_loss = resolve_local_infonce(loss_impl)
+    wire = _wire_dtype(collective_dtype)
 
     def train_step(state: TrainState, images: torch.Tensor,
                    tokens: torch.Tensor):
         state.optimizer.zero_grad()
-        zi, zt, scale = _forward(remat, state.model, images, tokens)
-        loss = local_loss(zi, zt, scale, group)
-        loss.backward()
-        pmean_([p.grad for p in state.model.parameters()], group)
+        with collective_precision(wire):
+            zi, zt, scale = _forward(remat, state.model, images, tokens)
+            loss = local_loss(zi, zt, scale, group)
+            loss.backward()
+        _reduce_grads(state, group, wire)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach()}
 
     return train_step
+
+
+def measure_comms_overlap(group, n_local: int, dim: int, *,
+                          temperature: float = 0.1,
+                          ring_chunks: int | None = None,
+                          include_backward: bool = True, repeats: int = 5,
+                          warmup: int = 2, seed: int = 0,
+                          device=None) -> dict:
+    """The A/B of the chunked ring schedule's overlap (``trainer.py:
+    809-880``): the strip loss (one all-gather a view) against the
+    chunked ring loss over the ranks of ``group`` on unit embeddings of
+    ``n_local`` rows a view and width ``dim`` (forward and backward when
+    ``include_backward``), each the median of ``repeats`` calls after
+    ``warmup``: on CUDA events on the card, on the host clock on the CPU.
+    Returns ``{"monolithic_ms", "chunked_ms", "overlap_ms",
+    "overlap_frac", "chunks", "backend"}`` with ``overlap_ms =
+    max(monolithic - chunked, 0)``. Its collectives are not recorded.
+    (The JAX helper also publishes the result on the step timeline; the
+    port's timeline is ROADMAP.md Queue A 11(b), so the caller logs it.)
+    """
+    from ..ops.autotune import resolve_ring_chunks, time_loss
+    from ..parallel.dist_loss import make_sharded_ntxent
+    from ..parallel.mesh import world_size
+
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device()) \
+            if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    device = torch.device(device)
+    gen = torch.Generator().manual_seed(int(seed) + mesh_rank(group))
+
+    def unit():
+        z = torch.randn((int(n_local), int(dim)), generator=gen)
+        return (z / z.norm(dim=-1, keepdim=True)).to(device) \
+            .requires_grad_(include_backward)
+
+    z1, z2 = unit(), unit()
+    chunks = resolve_ring_chunks(2 * int(n_local), int(dim),
+                                 world_size(group), torch.float32,
+                                 chunks=ring_chunks)
+
+    def timed(loss_fn) -> float:
+        return time_loss(loss_fn, z1, z2, include_backward, warmup, repeats)
+
+    with comms_accounting().paused():
+        mono = timed(make_sharded_ntxent(group, temperature, impl="strip"))
+        chunked = timed(make_sharded_ntxent(group, temperature,
+                                            impl="chunked",
+                                            ring_chunks=chunks))
+    overlap = max(mono - chunked, 0.0)
+    return {"monolithic_ms": mono, "chunked_ms": chunked,
+            "overlap_ms": overlap,
+            "overlap_frac": overlap / mono if mono else 0.0,
+            "chunks": int(chunks), "backend": device.type}
 
 
 def _sync(device: torch.device) -> None:
@@ -783,7 +941,7 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
         log: bool = True, group=None, checkpoint_stats: dict | None = None,
         watchdog=None, step_guard: Callable | None = None,
         checkpoint_fault_hook: Callable | None = None,
-        metrics_lag: int = 0):
+        metrics_lag: int = 0, checkpoint_save_ef: bool = False):
     """Checkpoint-aware training (``trainer.py:1167``): restore the newest
     valid checkpoint of ``checkpoint_dir`` if there is one, train to
     ``num_steps`` steps IN ALL, save every ``checkpoint_every`` global
@@ -811,7 +969,11 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
     ``fit`` without the final save (the diverged state must not become
     the newest step). ``checkpoint_fault_hook`` runs at the start of each
     physical write (the chaos plan's ``diskfull@n``). ``metrics_lag`` goes
-    to ``train_loop``."""
+    to ``train_loop``. ``checkpoint_save_ef`` keeps the error-feedback
+    residual in each step (``CheckpointManager(save_ef_residual=True)``);
+    in a world of several ranks rank 0's decision to save is then
+    broadcast and every rank's residual gathered to it before the save.
+    """
     if restore_step is not None and checkpoint_dir is None:
         raise ValueError(f"restore_step={restore_step} requires "
                          "checkpoint_dir (there is no store to restore the "
@@ -831,7 +993,8 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
                 max_to_keep=checkpoint_keep_last,
                 keep_every=checkpoint_keep_every,
                 mirror_dir=checkpoint_mirror,
-                fault_hook=checkpoint_fault_hook)
+                fault_hook=checkpoint_fault_hook,
+                save_ef_residual=checkpoint_save_ef)
             if async_checkpointing:
                 manager = AsyncCheckpointer(manager)
             data_state, restored = _restore(manager, state, restore_step,
@@ -861,10 +1024,29 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
                             done)
             return state, []
 
+        gather_ef = (distributed and checkpoint_save_ef
+                     and state.ef_residual is not None)
+
+        def residual(s: TrainState, want: bool):
+            """(rank 0's decision, ``{"ef_residual": every rank's
+            residual}`` for the save, or nothing): the gather is a
+            collective, so under ``gather_ef`` every rank takes rank 0's
+            decision."""
+            if not gather_ef:
+                return want, {}
+            flag = torch.tensor([float(want)], device=device)
+            dist.broadcast(flag, src=0, group=group)
+            want = bool(flag.item())
+            return want, ({"ef_residual": gather_ef_residual(s, group)}
+                          if want else {})
+
         def step_hook(s: TrainState) -> None:
-            if manager is not None and manager.should_save(s.step):
+            if manager is None:
+                return
+            want, ef = residual(s, manager.should_save(s.step))
+            if want:
                 manager.save(s.step, s, data_state=data_iter.state()
-                             if stateful else None)
+                             if stateful else None, **ef)
 
         history = train_loop(state, data_iter, train_step, remaining,
                              log_every=log_every, views=views, ranks=ranks,
@@ -874,14 +1056,15 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
         if manager is not None:
             stopped = state.step - done < remaining
             manager.wait_until_finished()
-            if manager.latest_step() != state.step:
+            want, ef = residual(state, manager.latest_step() != state.step)
+            if want:
                 data_state = data_iter.state() if stateful else None
                 if async_checkpointing and stopped:
                     manager.emergency_save(state.step, state,
-                                           data_state=data_state)
+                                           data_state=data_state, **ef)
                 else:
                     manager.save(state.step, state, force=True,
-                                 data_state=data_state)
+                                 data_state=data_state, **ef)
             if distributed:
                 dist.barrier(group)
         return state, history

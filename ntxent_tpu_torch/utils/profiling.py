@@ -36,7 +36,9 @@ vocabulary, embedding 512) at ``--batch`` pairs on fixed synthetic pairs,
 
 ``--mode dp`` (the data-parallel slice): one step of data-parallel
 ResNet-50 SimCLR (``make_sharded_train_step``, cross-replica BatchNorm,
-the ``--dp-loss`` schedule: ``strip`` by default, or ``pair``) over an
+the ``--dp-loss`` schedule: ``strip`` by default, ``pair``, or
+``chunked`` with ``--ring-chunks C``; the ``--collective-dtype`` wire,
+float32 by default, ``bf16`` or ``int8`` with error feedback) over an
 NCCL process group of world size 1 at ``--batch`` (2B views at 224 px)
 on a fixed pair of augmented views,
 
@@ -120,6 +122,8 @@ Run on the card, from the repository root:
     python -m ntxent_tpu_torch.utils.profiling --mode train --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode clip --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode dp --batch 256
+    python -m ntxent_tpu_torch.utils.profiling --mode dp --dp-loss chunked \
+        --ring-chunks 4 --collective-dtype int8 --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode dp --dp-loss pair \
         --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode clip_dp --batch 256
@@ -150,7 +154,7 @@ from ..ops import attention
 from ..ops.ntxent import _log_l, block_grads
 from ..parallel import ring as ring_losses
 from ..parallel import ring_attention
-from ..parallel.mesh import local_row_gids
+from ..parallel.mesh import chunk_bounds, local_row_gids
 
 __all__ = ["cuda_time_ms", "kernel_breakdown", "main"]
 
@@ -506,39 +510,69 @@ def clip_dp_profile(batch: int, device, infonce: str = "dual") -> dict:
             mesh.shutdown()
 
 
-def dp_profile(batch: int, device, dp_loss: str = "strip") -> dict:
+def _time_ms(fn, device, runs: int, warmup: int) -> float:
+    """``cuda_time_ms`` on the card; the host clock's mean on the CPU."""
+    if device.type == "cuda":
+        return cuda_time_ms(fn, runs=runs, warmup=warmup)
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / runs
+
+
+def dp_profile(batch: int, device, dp_loss: str = "strip",
+               ring_chunks: int | None = None,
+               collective_dtype: str = "float32", model: str = "resnet50",
+               image_size: int = IMAGE_SIZE) -> dict:
     """The numbers of ``--mode dp`` for one batch (see the module
-    docstring)."""
+    docstring): ``dp_loss`` strip, pair or chunked (``ring_chunks`` a
+    hop), the ``collective_dtype`` wire (int8 with an error-feedback
+    residual). On a CPU ``device`` (the tests' tiny ``model``) the times
+    are the host clock's and nothing is traced."""
     import tempfile
 
     from ..cli import build_model, build_train_parser
     from ..models import cross_replica_batch_norm
     from ..parallel import mesh
     from ..parallel.dist_loss import resolve_local_ntxent
+    from ..parallel.precision import collective_precision
     from ..training import (
         TrainerConfig,
         augment_batch_pair,
         create_train_state,
+        init_error_feedback,
         make_sharded_train_step,
     )
+    from ..training.trainer import _reduce_grads
 
     args = build_train_parser().parse_args(
-        ["--model", "resnet50", "--image-size", str(IMAGE_SIZE), "--batch",
+        ["--model", model, "--image-size", str(image_size), "--batch",
          str(batch), "--seed", str(SEED)])
+    card = device.type == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
         mesh.init_from_file(f"{tmp}/store", 0, 1, device)
         try:
             cfg = TrainerConfig(batch_size=batch,
                                 temperature=args.temperature,
                                 base_lr=args.base_lr, warmup_steps=1)
-            model = cross_replica_batch_norm(build_model(args),
-                                             torch.distributed.group.WORLD)
-            state = create_train_state(model, cfg, device)
+            net = cross_replica_batch_norm(build_model(args),
+                                           torch.distributed.group.WORLD)
+            state = create_train_state(net, cfg, device)
+            wire = collective_precision(collective_dtype).dtype
+            if wire == "int8":
+                state = init_error_feedback(state)
+            chunks = ring_chunks if dp_loss == "chunked" else None
             step = make_sharded_train_step(None, cfg.temperature,
-                                           loss_impl=dp_loss)
+                                           loss_impl=dp_loss,
+                                           collective_dtype=wire,
+                                           ring_chunks=chunks)
             loss_body = resolve_local_ntxent(dp_loss)
+            if dp_loss == "chunked":
+                loss_body = functools.partial(loss_body, chunks=chunks)
             gen = torch.Generator(device=device).manual_seed(SEED)
-            images = torch.rand(batch, IMAGE_SIZE, IMAGE_SIZE, 3,
+            images = torch.rand(batch, image_size, image_size, 3,
                                 generator=gen, device=device)
             v1, v2 = augment_batch_pair(images, gen)
             both = torch.cat([v1, v2])
@@ -546,41 +580,46 @@ def dp_profile(batch: int, device, dp_loss: str = "strip") -> dict:
             def one_step():
                 step(state, v1, v2)
 
-            torch.cuda.reset_peak_memory_stats(device)
-            step_ms = cuda_time_ms(one_step, runs=5, warmup=2)
-            peak = torch.cuda.max_memory_allocated(device)
+            if card:
+                torch.cuda.reset_peak_memory_stats(device)
+            step_ms = _time_ms(one_step, device, runs=5, warmup=2)
+            peak = torch.cuda.max_memory_allocated(device) if card else None
 
             def encoder_fwd_bwd():
-                model.zero_grad(set_to_none=True)
-                model(both).sum().backward()
+                net.zero_grad(set_to_none=True)
+                net(both).sum().backward()
 
-            z = model(both).detach()
+            z = net(both).detach()
             z1 = z[:batch].clone().requires_grad_()
             z2 = z[batch:].clone().requires_grad_()
 
             def loss_fwd_bwd():
-                loss_body(z1, z2, cfg.temperature).backward()
+                with collective_precision(wire):
+                    loss_body(z1, z2, cfg.temperature).backward()
 
             one_step()  # leaves this step's gradients for the update timing
 
             def reduce_and_update():
-                mesh.pmean_([p.grad for p in model.parameters()])
+                _reduce_grads(state, None, wire)
                 state.optimizer.step()
 
             parts = {
-                "encoder_fwd_bwd": cuda_time_ms(encoder_fwd_bwd, runs=3,
-                                                warmup=1),
-                f"{dp_loss}_loss_fwd_bwd": cuda_time_ms(loss_fwd_bwd,
-                                                        runs=5, warmup=1),
+                "encoder_fwd_bwd": _time_ms(encoder_fwd_bwd, device, runs=3,
+                                            warmup=1),
+                f"{dp_loss}_loss_fwd_bwd": _time_ms(loss_fwd_bwd, device,
+                                                    runs=5, warmup=1),
             }
             one_step()
-            parts["grad_pmean_lars_update"] = cuda_time_ms(
-                reduce_and_update, runs=5, warmup=1)
-            return {"batch": batch, "views_per_step": 2 * batch,
-                    "dp_loss": dp_loss, "step_ms": step_ms,
-                    "images_per_s": 2 * batch / step_ms * 1e3,
-                    "peak_memory_bytes": peak, "parts_ms": parts,
-                    **_traced_step(one_step)}
+            parts["grad_pmean_lars_update"] = _time_ms(
+                reduce_and_update, device, runs=5, warmup=1)
+            out = {"batch": batch, "views_per_step": 2 * batch,
+                   "dp_loss": dp_loss, "ring_chunks": chunks,
+                   "collective_dtype": wire, "step_ms": step_ms,
+                   "images_per_s": 2 * batch / step_ms * 1e3,
+                   "peak_memory_bytes": peak, "parts_ms": parts}
+            if card:
+                out.update(_traced_step(one_step))
+            return out
         finally:
             mesh.shutdown()
 
@@ -679,20 +718,22 @@ class _EmulatedRingLseSum(torch.autograd.Function):
     ring."""
 
     @staticmethod
-    def forward(ctx, zs, gids, temperature):
+    def forward(ctx, zs, gids, temperature, chunks):
         p, rows = zs.shape[:2]
+        bounds = chunk_bounds(rows, chunks)
         lses = []
         for r in range(p):
             stats = ring_losses._stats(rows, zs.device)
             for hop in range(p):
                 src = (r - hop) % p
-                stats = ring_losses.lse_hop(zs[r], zs[src], gids[r],
-                                            gids[src], temperature, p * rows,
-                                            stats)
+                for lo, hi in bounds:
+                    stats = ring_losses.lse_hop(
+                        zs[r], zs[src, lo:hi], gids[r], gids[src, lo:hi],
+                        temperature, p * rows, stats)
             lses.append(stats[0] + _log_l(stats[1]))
         lse = torch.stack(lses)
         ctx.save_for_backward(zs, gids, lse)
-        ctx.temperature = temperature
+        ctx.temperature, ctx.bounds = temperature, bounds
         return lse.sum(dim=1)
 
     @staticmethod
@@ -705,22 +746,28 @@ class _EmulatedRingLseSum(torch.autograd.Function):
         for r in range(p):
             for hop in range(p):
                 src = (r - hop) % p
-                g_rows, g_cols = block_grads(zs[r], zs[src], gids[r],
-                                             gids[src], lse[r], t, p * rows)
-                grows[r] += g_rows
-                gblk[src] += g_cols
+                for lo, hi in ctx.bounds:
+                    g_rows, g_cols = block_grads(
+                        zs[r], zs[src, lo:hi], gids[r], gids[src, lo:hi],
+                        lse[r], t, p * rows)
+                    grows[r] += g_rows
+                    gblk[src, lo:hi] += g_cols
         return torch.stack([
             ring_losses.lse_sum_grad(grows[r], gblk[r], ct[r], t, zs.dtype)
-            for r in range(p)]), None, None
+            for r in range(p)]), None, None, None
 
 
-def emulated_ring_ntxent(ranks: int, temperature: float = 0.07):
+def emulated_ring_ntxent(ranks: int, temperature: float = 0.07,
+                         chunks: int = 1):
     """``fn(z1, z2)`` on the global views (N, D) that computes what
-    ``make_ring_ntxent(impl="fused")`` computes over ``ranks`` ranks, each
-    rank one after another in this process: the same per-hop kernels,
-    ``ranks`` of #1 and of #6 rows and columns per rank. Returns the
-    global mean loss; its gradient is the global one (the real ring's
-    rank holds P times its share). N % ranks == 0."""
+    ``make_ring_ntxent(impl="fused", chunks=chunks)`` (and, with
+    ``chunks``, ``--dp-loss chunked``'s ``local_ntxent_chunked``)
+    computes over ``ranks`` ranks, each rank one after another in this
+    process: the same per-hop kernels, ``ranks * chunks`` of #1 and of #6
+    rows and columns per rank, each hop's block folded as ``chunks``
+    slices of rows. Returns the global mean loss; its gradient is the
+    global one (the real ring's rank holds P times its share). N % ranks
+    == 0."""
     t = float(temperature)
 
     def fn(z1, z2):
@@ -733,7 +780,7 @@ def emulated_ring_ntxent(ranks: int, temperature: float = 0.07):
         zs = torch.stack([torch.cat(v) for v in views])
         gids = torch.stack([local_row_gids(r, n, ranks, z1.device)
                             for r in range(ranks)])
-        lse_sums = _EmulatedRingLseSum.apply(zs, gids, t)
+        lse_sums = _EmulatedRingLseSum.apply(zs, gids, t, int(chunks))
         return sum(ring_losses.rank_loss_sum(a, b, t, lse_sums[r])
                    for r, (a, b) in enumerate(views)) / (2 * z1.shape[0])
 
@@ -939,8 +986,14 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=256,
                    help="train, clip, dp and clip_dp modes: --batch of the "
                         "profiled step")
-    p.add_argument("--dp-loss", default="strip", choices=["strip", "pair"],
+    p.add_argument("--dp-loss", default="strip",
+                   choices=["strip", "pair", "chunked"],
                    help="dp mode: the data-parallel NT-Xent schedule")
+    p.add_argument("--ring-chunks", type=int, default=None, metavar="C",
+                   help="dp mode with --dp-loss chunked: chunks a hop")
+    p.add_argument("--collective-dtype", default="float32",
+                   choices=["float32", "bf16", "bfloat16", "int8"],
+                   help="dp mode: the wire dtype of the collectives")
     p.add_argument("--infonce", default="dual", choices=["dual", "twopass"],
                    help="clip_dp mode: the data-parallel InfoNCE body")
     p.add_argument("--ring-emulate", type=int, default=0, metavar="P",
@@ -1005,8 +1058,10 @@ def main(argv=None) -> int:
         card = card_power_line()
         print(f"card: {card}", flush=True)
         profile = {"train": train_profile, "clip": clip_profile,
-                   "dp": functools.partial(dp_profile,
-                                           dp_loss=args.dp_loss),
+                   "dp": functools.partial(
+                       dp_profile, dp_loss=args.dp_loss,
+                       ring_chunks=args.ring_chunks,
+                       collective_dtype=args.collective_dtype),
                    "clip_dp": functools.partial(clip_dp_profile,
                                                 infonce=args.infonce)}[
             args.mode]

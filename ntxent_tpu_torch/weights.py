@@ -50,6 +50,7 @@ wrote it.
 
 from __future__ import annotations
 
+import logging
 from collections.abc import Callable
 
 import numpy as np
@@ -62,9 +63,13 @@ from .models.long_context import LongContextTransformer
 from .models.projection import ProjectionHead, SimCLRModel
 from .models.resnet import ResNet
 from .models.vit import EncoderBlock, MlpBlock, VisionTransformer
+from .parallel.mesh import rank, world_size
 
-__all__ = ["flax_paths", "flax_variables", "load_flax_variables",
-           "load_train_state_dict", "train_state_dict"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["flax_orders", "flax_paths", "flax_variables",
+           "load_flax_variables", "load_train_state_dict",
+           "train_state_dict"]
 
 
 class _Tree:
@@ -323,6 +328,26 @@ def flax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
     return {name: leaves[name].path for name, _ in model.named_parameters()}
 
 
+def flax_orders(model: nn.Module) -> list[torch.Tensor | None]:
+    """For each parameter of ``model`` (``named_parameters`` order) the
+    order in which the JAX package flattens its leaf: element j of the
+    flax leaf, row-major, is element ``order[j]`` of the torch tensor,
+    row-major; None where the layouts agree. The int8 wire chunks every
+    gradient in this order, as the JAX two-phase all-reduce chunks its
+    leaves (``parallel.mesh._Plan``)."""
+    leaves = _layout(model)
+    orders = []
+    for name, p in model.named_parameters():
+        leaf = leaves[name]
+        if not leaf.ops:
+            orders.append(None)
+            continue
+        index = np.arange(p.numel()).reshape(tuple(p.shape))
+        orders.append(torch.from_numpy(np.ascontiguousarray(
+            leaf.to_flax(index)).reshape(-1)))
+    return orders
+
+
 def _nest(tree: dict, path: tuple, value) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
@@ -423,7 +448,71 @@ def _inner_opt_state(opt, names: list[str], params_tree) -> dict:
             "1": {}, "2": {"count": count}}
 
 
-def train_state_dict(state) -> dict:
+def _ef_tree(leaves: dict, stacked: dict) -> dict:
+    """The error-feedback residual in the JAX layout: a params tree of
+    ``(P,) + flax shape`` float32 stacks (``trainer.py:108-120``) from
+    ``{torch parameter name: (P,) + torch shape}``."""
+    tree: dict = {}
+    for name, value in stacked.items():
+        leaf = leaves[name]
+        _nest(tree, leaf.path, np.stack([leaf.to_flax(v) for v in value])
+              .astype(np.float32))
+    return tree
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _ef_slice(state, saved, torch_params) -> list[np.ndarray] | None:
+    """This rank's slice of a saved residual (the JAX layout), converted
+    for ``state.ef_residual``; None, after a warning, when it cannot be
+    used: the state has no residual, the checkpoint none (a slim save),
+    or one of another world size. Follows ``_from_bytes_tolerant``
+    (``ntxent_tpu/training/checkpoint.py:494-560``): the residual is
+    carry-over compression noise, never worth failing a restore over."""
+    if state.ef_residual is None:
+        if saved is not None:
+            logger.warning("checkpoint carries error-feedback residual "
+                           "state the current run's state has no field "
+                           "for; dropping it")
+        return None
+    if saved is None:
+        logger.warning("checkpoint carries no error-feedback residual "
+                       "state (slim save, the default, or a float32 run); "
+                       "starting at zero residual")
+        return None
+    p = world_size()
+    leading = {np.shape(x)[0] if np.ndim(x) else None
+               for x in _flat_values(saved)}
+    if leading != {p}:
+        logger.warning("checkpoint's error-feedback residual (saved at "
+                       "world %s) does not match the current topology "
+                       "(world %d); resetting to zero residual",
+                       sorted(leading, key=str), p)
+        return None
+    try:
+        mine = torch_params(_tree_map(lambda x: np.asarray(x)[rank()],
+                                      saved))
+    except (KeyError, ValueError) as e:
+        logger.warning("checkpoint's error-feedback residual does not fit "
+                       "the current state (%s); resetting to zero residual",
+                       e)
+        return None
+    names = [n for n, _ in state.model.named_parameters()]
+    return [mine[n] for n in names]
+
+
+def _flat_values(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _flat_values(v)
+        else:
+            yield v
+
+
+def train_state_dict(state, ef_residual: dict | None = None) -> dict:
     """The port's ``TrainState`` as the JAX package's ``TrainState``
     serializes it (``flax.serialization.to_state_dict``): ``{"step",
     "params", "opt_state", "batch_stats", "ef_residual"}``, nested dicts
@@ -437,7 +526,11 @@ def train_state_dict(state) -> dict:
     ``{"mini_step", "gradient_step", "inner_opt_state": <that chain>,
     "acc_grads": <params layout>, "skip_state": {}}``. ``batch_stats`` is
     None for a model without BatchNorm (CLIP), as the JAX CLIP state
-    leaves it; ``ef_residual`` is None (the float32 wire keeps none)."""
+    leaves it. ``ef_residual`` is None, or, given ``{parameter name:
+    every rank's residual stacked, (P,) + shape}`` (what
+    ``training.checkpoint.gather_ef_residual`` returns), the int8 wire's
+    error-feedback residual in the JAX layout: a params tree of ``(P,) +
+    flax shape`` float32 stacks."""
     model, opt = state.model, state.optimizer
     leaves = _layout(model)
     tensors = {name: _host(t) for name, t in model.state_dict().items()}
@@ -463,7 +556,8 @@ def train_state_dict(state) -> dict:
     return {"step": np.array(state.step, np.int32),
             "params": variables["params"], "opt_state": opt_state,
             "batch_stats": variables["batch_stats"] or None,
-            "ef_residual": None}
+            "ef_residual": None if ef_residual is None
+            else _ef_tree(leaves, ef_residual)}
 
 
 def _count(node: dict, where: str) -> int:
@@ -519,9 +613,12 @@ def load_train_state_dict(state, d: dict):
     hold it) into the port's ``state`` in place: the model's parameters
     and BatchNorm statistics, the optimizer's count and momentum (LARS)
     or moments (AdamW), under accumulation also ``MultiSteps``'s counters
-    and accumulated gradients, the step. Every tensor is converted and
-    checked before the first is written, so a state that does not fit
-    raises and leaves ``state`` as it was. Returns ``state``."""
+    and accumulated gradients, the step, and, when ``state`` carries an
+    error-feedback residual, this rank's slice of the saved one (zeros,
+    with a warning, when the checkpoint holds none or one of another world
+    size). Every tensor is converted and checked before the first is
+    written, so a state that does not fit raises and leaves ``state`` as
+    it was. Returns ``state``."""
     model, opt = state.model, state.optimizer
     stats = d.get("batch_stats") or {}
     tensors = _torch_tensors(model, d["params"], stats)
@@ -544,6 +641,7 @@ def load_train_state_dict(state, d: dict):
                     int(np.asarray(opt_state["gradient_step"])))
     else:
         write_inner = _read_inner(opt, opt_state, torch_params)
+    residual = _ef_slice(state, d.get("ef_residual"), torch_params)
     step = int(np.asarray(d["step"]))
     with torch.no_grad():
         for key, target in model.state_dict().items():
@@ -553,5 +651,10 @@ def load_train_state_dict(state, d: dict):
             for n, target in opt.acc.items():
                 target.copy_(torch.from_numpy(acc[n]))
             opt.mini_step, opt.gradient_step = counters
+        for i, target in enumerate(state.ef_residual or []):
+            if residual is None:
+                target.zero_()
+            else:
+                target.copy_(torch.from_numpy(residual[i]))
     state.step = step
     return state

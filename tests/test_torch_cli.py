@@ -56,6 +56,31 @@ def test_tiny_resnet_trains_on_one_cpu_process(monkeypatch):
     assert ntxent.ntxent_fwd_general.launches == launches
 
 
+# ROADMAP.md items a later slice ported: their flags now run, and a run
+# on one card warns that it ignores them, as the JAX CLI does
+# (``cli.py:914-932``).
+DONE_ITEMS = (r"Queue A 3\(d\)", r"Queue A 3\(e\)")
+# the one-card warning of each such flag (none for --ring-chunks with the
+# default --dp-loss strip: the JAX CLI warns only in a data-parallel run)
+ONE_CARD_WARNINGS = {"--dp-loss": "--dp-loss chunked ignored",
+                     "--collective-dtype": "--collective-dtype bf16 ignored",
+                     "--measure-overlap": "--measure-overlap ignored",
+                     "--ring-chunks": None}
+
+
+def _trains_on_one_card(args, flag, caplog, monkeypatch):
+    warning = ONE_CARD_WARNINGS[flag]
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    launches = ntxent.ntxent_fwd_general.launches
+    with caplog.at_level("WARNING"):
+        _, history = cli.train(args)
+    assert [h["step"] for h in history] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert ntxent.ntxent_fwd_general.launches == launches  # one card's step
+    if warning is not None:
+        assert warning in caplog.text
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--dp-loss", "chunked"], r"Queue A 3\(d\)"),
     (["--stem", "space_to_depth"], r"Queue A 6\(b\)"),
@@ -63,8 +88,15 @@ def test_tiny_resnet_trains_on_one_cpu_process(monkeypatch):
     (["--parallel", "tp"], "Queue A 9"),
     (["--fsdp"], "Queue A 9"),
 ], ids=lambda f: "_".join(f) if isinstance(f, list) else None)
-def test_unported_data_parallel_flags_exit_naming_their_item(flags, match):
+def test_unported_data_parallel_flags_exit_naming_their_item(
+        flags, match, caplog, monkeypatch):
+    """Unported flags exit naming their item; those of a done item
+    (``DONE_ITEMS``: chunked and the wire dtypes, ported since) train on
+    one card with the JAX CLI's warning (``ONE_CARD_WARNINGS``)."""
     args = cli.build_train_parser().parse_args(TINY_ARGV + flags)
+    if match in DONE_ITEMS:
+        _trains_on_one_card(args, flags[0], caplog, monkeypatch)
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP.md {match}"):
         cli.train(args)
 
@@ -99,14 +131,20 @@ def test_torchrun_environment_is_required_to_join(monkeypatch):
     ("chunked", NotImplementedError, r"Queue A 3\(d\)"),
     ("ring", ValueError, "unknown NT-Xent impl")])
 def test_only_the_strip_schedule_is_ported(impl, error, match):
-    """The strip and (since the pair slice) the pair schedules resolve;
-    chunked raises naming its item, an unknown name as unknown."""
+    """The strip, pair (since the pair slice) and chunked (since Queue A
+    3(d), which ``match`` names; its ``error`` is no longer raised)
+    schedules resolve; an unknown name raises as unknown."""
     from ntxent_tpu_torch.parallel import dist_loss, pair
 
     assert dist_loss.resolve_local_ntxent("strip") is \
         dist_loss.local_ntxent_allgather
     if error is None:
         assert dist_loss.resolve_local_ntxent(impl) is pair.pair_body
+        return
+    if match in DONE_ITEMS:
+        loss = dist_loss.make_sharded_ntxent(None, 0.1, impl=impl)
+        assert loss.func is dist_loss.local_ntxent_chunked
+        assert not hasattr(dist_loss, "NOT_PORTED")
         return
     with pytest.raises(error, match=match):
         dist_loss.make_sharded_ntxent(None, 0.1, impl=impl)
@@ -134,8 +172,8 @@ def test_row_ids_and_comms_accounting_without_a_group():
 # to a value other than the JAX default, with the ROADMAP.md item its exit
 # names.
 TRAIN_FLAGS = [
-    (["--ring-chunks", "4"], r"Queue A 3\(d\)"),
-    (["--measure-overlap"], r"Queue A 3\(d\)"),
+    (["--ring-chunks", "4"], r"Queue A 3\(d\)"),  # done: runs, see below
+    (["--measure-overlap"], r"Queue A 3\(d\)"),   # done: runs, warned
     (["--model-par", "4"], "Queue A 9"),
     (["--tp-loss-axes", "both"], "Queue A 9"),
     (["--moe-aux-weight", "0.05"], "Queue A 9"),
@@ -160,13 +198,18 @@ SERVE_FLAGS = [
     [("train", f, m) for f, m in TRAIN_FLAGS]
     + [("serve", f, m) for f, m in SERVE_FLAGS],
     ids=lambda v: "_".join(v) if isinstance(v, list) else None)
-def test_reference_flags_parse_and_exit_naming_their_item(command, flags,
-                                                          match):
+def test_reference_flags_parse_and_exit_naming_their_item(
+        command, flags, match, caplog, monkeypatch):
     """Each flag parses (no "unrecognized arguments" or "invalid choice")
-    and, set, exits naming its ROADMAP.md item before any work."""
+    and, set, exits naming its ROADMAP.md item before any work; a flag of
+    a done item (``DONE_ITEMS``) trains on one card instead, with its
+    ``ONE_CARD_WARNINGS``."""
     if command == "train":
         args = cli.build_train_parser().parse_args(TINY_ARGV + flags)
         run = cli.train
+        if match in DONE_ITEMS:
+            _trains_on_one_card(args, flags[0], caplog, monkeypatch)
+            return
     else:
         args = cli.build_serve_parser().parse_args(
             ["--device", "cpu", "--model", "tiny", "--port", "0"] + flags)

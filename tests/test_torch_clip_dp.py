@@ -596,10 +596,29 @@ def test_resolve_local_infonce():
     (["--fsdp"], "ROADMAP.md Queue A 9"),
     (["--collective-dtype", "bf16"], r"ROADMAP.md Queue A 3\(e\)"),
 ])
-def test_train_cli_clip_data_parallel_refusals(flags, match):
+def test_train_cli_clip_data_parallel_refusals(flags, match, tmp_path,
+                                               caplog):
+    """Queue A 9's flags exit naming it; 3(e), the wire dtypes, is ported:
+    ``--collective-dtype bf16`` trains the data-parallel CLIP step in a
+    world of one, its gathers and gradient pmean in bf16."""
     args = cli.build_train_parser().parse_args(CLI_ARGV + flags)
-    with pytest.raises(SystemExit, match=match):
-        cli.train(args, data_parallel=True)
+    if "Queue A 9" in match:
+        with pytest.raises(SystemExit, match=match):
+            cli.train(args, data_parallel=True)
+        return
+    mesh.init_from_file(tmp_path / "store", 0, 1, device="cpu",
+                        timeout=datetime.timedelta(seconds=60))
+    try:
+        mark = mesh.comms_accounting().totals()
+        with caplog.at_level("INFO"):
+            _, history = cli.train(args, data_parallel=True)
+        comms = mesh.comms_accounting().delta(mark)
+    finally:
+        mesh.shutdown()
+    assert "quantized collectives: bf16 wire payloads" in caplog.text
+    assert [h["step"] for h in history] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert comms[("all_gather", "data")][0] == 2  # one a step
 
 
 def test_train_cli_clip_batch_must_divide_across_the_world(monkeypatch):

@@ -98,4 +98,24 @@ def test_scan_sees_every_module():
             "parallel/ring_attention.py", "parallel/ring.py",
             "models/long_context.py", "models/layers.py",
             "training/checkpoint.py", "training/preemption.py",
-            "utils/msgpack.py"} <= names
+            "utils/msgpack.py", "parallel/precision.py",
+            "ops/autotune.py"} <= names
+
+
+@pytest.mark.parametrize("module", ["ntxent_tpu_torch.parallel.precision",
+                                    "ntxent_tpu_torch.ops.autotune"])
+def test_the_wire_modules_import_alone_without_jax(module):
+    """The wire policy and the ring-chunk autotune keep their own copies of
+    ``ntxent_tpu/parallel/precision.py`` and the ring-chunk half of
+    ``ntxent_tpu/ops/autotune.py``: a fresh interpreter imports each and
+    loads nothing of JAX or the JAX package."""
+    code = (f"import json, sys, {module}\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []

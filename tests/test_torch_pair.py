@@ -182,8 +182,12 @@ def test_pair_schedule_covers_every_pair_with_unit_weight():
 
 
 def test_pair_is_resolved_and_only_chunked_is_not_ported():
+    """Every schedule resolves since chunked was ported (Queue A 3(d)):
+    ``NOT_PORTED`` is gone."""
     assert dist_loss.resolve_local_ntxent("pair") is pair.pair_body
-    assert set(dist_loss.NOT_PORTED) == {"chunked"}
+    assert dist_loss.resolve_local_ntxent("chunked") is \
+        dist_loss.local_ntxent_chunked
+    assert not hasattr(dist_loss, "NOT_PORTED")
 
 
 # ---------------------------------------------------------------------------

@@ -169,6 +169,10 @@ def test_tf32_tri_kernels_group_under_their_wrappers(source, wrapper):
                                   ["--mode", "dp", "--batch", "2"],
                                   ["--mode", "dp", "--dp-loss", "pair",
                                    "--batch", "2"],
+                                  ["--mode", "dp", "--dp-loss", "chunked",
+                                   "--ring-chunks", "4", "--batch", "2"],
+                                  ["--mode", "dp", "--collective-dtype",
+                                   "int8", "--batch", "2"],
                                   ["--mode", "clip_dp", "--batch", "2"],
                                   ["--mode", "longctx"],
                                   ["--mode", "longctx", "--ring-emulate",
@@ -235,3 +239,46 @@ def test_emulated_ring_ntxent_is_the_global_loss(ranks):
     got_g, = torch.autograd.grad(got, z)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     torch.testing.assert_close(got_g, want_g, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("ranks,chunks", [(2, 3), (4, 4), (3, 1)])
+def test_emulated_chunked_ring_is_the_global_loss(ranks, chunks):
+    """The emulated chunked ring of chip_smoke.py's ``[chunked-emulated]``
+    phase (each hop's block folded as ``chunks`` slices) gives the global
+    NT-Xent and its gradient within 1e-5, with ``ranks * ranks * chunks``
+    launches of the block kernels' wrappers."""
+    from ntxent_tpu_torch.ops import ntxent
+    from ntxent_tpu_torch.ops.oracle import cosine_normalize, ntxent_loss
+
+    gen = torch.Generator().manual_seed(10 * ranks + chunks)
+    z = cosine_normalize(torch.randn(2 * 8 * ranks, 16, generator=gen))
+    z.requires_grad_()
+    want = ntxent_loss(z, 0.1)
+    want_g, = torch.autograd.grad(want, z)
+    n = z.shape[0] // 2
+    got = profiling.emulated_ring_ntxent(ranks, 0.1, chunks=chunks)(
+        z[:n], z[n:])
+    got_g, = torch.autograd.grad(got, z)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got_g, want_g, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("flags", [
+    dict(dp_loss="chunked", ring_chunks=2),
+    dict(dp_loss="strip", collective_dtype="int8"),
+    dict(dp_loss="chunked", ring_chunks=3, collective_dtype="bf16")])
+def test_dp_mode_runs_at_a_tiny_size_on_the_cpu(flags):
+    """``--mode dp``'s profile with the wire options, on the tiny ResNet
+    at 8 px in a gloo world of one: host-clock times, no trace."""
+    torch.set_num_threads(1)
+    out = profiling.dp_profile(2, torch.device("cpu"), model="tiny",
+                               image_size=8, **flags)
+    assert out["dp_loss"] == flags["dp_loss"]
+    assert out["ring_chunks"] == flags.get("ring_chunks")
+    assert out["collective_dtype"] == flags.get("collective_dtype",
+                                                "float32")
+    assert out["step_ms"] > 0 and out["peak_memory_bytes"] is None
+    assert set(out["parts_ms"]) == {
+        "encoder_fwd_bwd", f"{flags['dp_loss']}_loss_fwd_bwd",
+        "grad_pmean_lars_update"}
+

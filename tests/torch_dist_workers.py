@@ -1,21 +1,24 @@
 """Rank processes of ``test_torch_distributed.py``,
 ``test_torch_clip_dp.py``, ``test_torch_infonce_twopass.py``,
 ``test_torch_pair.py``, ``test_torch_resilience_dp.py``,
-``test_torch_ring_attention.py``, ``test_torch_long_context.py`` and
-``test_torch_ring.py``: worlds of gloo ranks on the CPU that meet over a
-``FileStore``.
+``test_torch_ring_attention.py``, ``test_torch_long_context.py``,
+``test_torch_ring.py``, ``test_torch_quant_collectives.py``,
+``test_torch_error_feedback.py`` and ``test_torch_chunked.py``: worlds
+of gloo ranks on the CPU that meet over a ``FileStore``.
 
 This module imports torch and the port, never JAX: each rank is a fresh
 interpreter that imports only what it unpickles (``run``, ``run_clip``,
-``run_pair``, ``run_ring``, ``run_guard``, ``run_cli`` and this module). Inputs come
-from an ``.npz`` the test wrote; each rank writes its results to
-``<out>/rank<r>.npz``. A rank's collectives give up after
-``PG_TIMEOUT``, well inside the test's deadline for the whole world.
+``run_pair``, ``run_ring``, ``run_guard``, ``run_cli``, ``run_wire`` and
+this module). Inputs come from an ``.npz`` the test wrote; each rank
+writes its results to ``<out>/rank<r>.npz``. A rank's collectives give
+up after ``PG_TIMEOUT``, well inside the test's deadline for the whole
+world.
 """
 
 from __future__ import annotations
 
 import datetime
+import json
 import logging
 import os
 import sys
@@ -35,9 +38,11 @@ from ntxent_tpu_torch.models import (
     cross_replica_batch_norm,
 )
 from ntxent_tpu_torch.parallel import (
+    collective_precision,
     make_ring_attention,
     make_ring_infonce,
     make_ring_ntxent,
+    make_sharded_ntxent,
     make_ulysses_attention,
     mesh,
     ntxent_loss_distributed,
@@ -48,8 +53,10 @@ from ntxent_tpu_torch.training import (
     TrainerConfig,
     create_clip_train_state,
     create_train_state,
+    init_error_feedback,
     make_sharded_clip_train_step,
     make_sharded_train_step,
+    measure_comms_overlap,
 )
 from ntxent_tpu_torch.weights import load_flax_variables
 
@@ -85,10 +92,10 @@ def _shard(x: np.ndarray, rank: int, world: int) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x[rank * n:(rank + 1) * n]))
 
 
-def _config(inp) -> TrainerConfig:
-    """The ``TrainerConfig`` of the input's ``cfg:<field>`` entries."""
-    return TrainerConfig(**{key[len("cfg:"):]: inp[key].item()
-                            for key in inp.files if key.startswith("cfg:")})
+def _config(inp, prefix: str = "cfg:") -> TrainerConfig:
+    """The ``TrainerConfig`` of the input's ``<prefix><field>`` entries."""
+    return TrainerConfig(**{key[len(prefix):]: inp[key].item()
+                            for key in inp.files if key.startswith(prefix)})
 
 
 def _comms(delta: dict, prefix: str) -> dict:
@@ -356,6 +363,231 @@ def ring_loss_job(rank: int, world: int, inp) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The data-parallel wire: quantized collectives, error feedback, the chunked
+# ring (test_torch_quant_collectives.py, test_torch_error_feedback.py,
+# test_torch_chunked.py)
+# ---------------------------------------------------------------------------
+
+WIRE_DTYPES = ("float32", "bf16", "int8")
+# (chunks, wire) of the chunked loss's rank jobs
+CHUNKED_CASES = [(c, w) for c in (1, 3, 4) for w in ("float32", "int8")]
+
+
+def _tiny_simclr(inp, prefix: str = "") -> SimCLRModel:
+    variables = {"params": nest(inp, prefix + "params"),
+                 "batch_stats": nest(inp, prefix + "batch_stats")}
+    proj = [int(x) for x in inp["proj"]]
+    model = load_flax_variables(
+        SimCLRModel(ResNet((1,), small_images=True, dtype=torch.float32),
+                    *proj, dtype=torch.float32), variables)
+    return cross_replica_batch_norm(model, torch.distributed.group.WORLD)
+
+
+def collectives_job(rank: int, world: int, inp) -> dict:
+    """Every wire dtype through the shims: the gather of ``gx``'s rows
+    (value, comms, the gradient of the probe ``psum(sum(g * row index))``),
+    the pmean of ``rx``, the psum_scatter of the replicated ``sx``, a
+    scalar and an int32 psum under int8, the bf16 gather of ``bx``, and
+    the registry's collective series."""
+    out = {}
+    for wire in WIRE_DTYPES:
+        x = _shard(inp["gx"], rank, world).requires_grad_()
+        mark = mesh.comms_accounting().totals()
+        with collective_precision(wire):
+            g = mesh.all_gather(x)
+            d = mesh.comms_accounting().delta(mark)
+            rows = torch.arange(g.shape[0], dtype=torch.float32)[:, None]
+            mesh.psum((g * rows).sum()).backward()
+        out |= {f"gather:{wire}": g.detach().numpy(),
+                f"gather_grad:{wire}": x.grad.numpy(),
+                **_comms(d, f"gather_comms:{wire}")}
+        r = _shard(inp["rx"], rank, world)
+        mark = mesh.comms_accounting().totals()
+        with collective_precision(wire):
+            y = mesh.pmean(r)
+        out |= {f"pmean:{wire}": y.numpy(),
+                **_comms(mesh.comms_accounting().delta(mark),
+                         f"pmean_comms:{wire}")}
+        with collective_precision(wire):
+            out[f"scatter:{wire}"] = mesh.psum_scatter(
+                torch.from_numpy(inp["sx"])).numpy()
+    ones = _shard(inp["ones"], rank, world)
+    with collective_precision("int8"):
+        total = mesh.psum(ones.sum())
+        ids = mesh.psum(torch.arange(4, dtype=torch.int32))
+    out["exact"] = (total + ids.sum()).numpy()
+    b = _shard(inp["bx"], rank, world)
+    mark = mesh.comms_accounting().totals()
+    with collective_precision("bf16"):
+        gb = mesh.all_gather(b)
+    out |= {"bf16_gather_dtype": np.array(str(gb.dtype)),
+            **_comms(mesh.comms_accounting().delta(mark), "bf16_comms")}
+    from ntxent_tpu_torch.obs.registry import default_registry
+
+    out["prometheus"] = np.array(default_registry().render_prometheus())
+    return out
+
+
+def backward_thread_job(rank: int, world: int, inp) -> dict:
+    """The pair loss under int8 (its backward psum quantizes) and a bf16
+    gather (its backward is a bf16 reduce-scatter): gradients with the
+    backward on this thread and on another one, whose thread-local policy
+    is float32."""
+    import threading
+
+    out = {}
+    for name, wire in (("pair", "int8"), ("gather", "bf16")):
+        for where in ("same", "thread"):
+            z1 = _shard(inp["z1"], rank, world).requires_grad_()
+            z2 = _shard(inp["z2"], rank, world).requires_grad_()
+            with collective_precision(wire):
+                if name == "pair":
+                    loss = ntxent_loss_pair(z1, z2, temperature=0.1)
+                else:
+                    loss = (mesh.all_gather(z1).pow(2).sum()
+                            + mesh.all_gather(z2).sum())
+            if where == "same":
+                with collective_precision(wire):
+                    loss.backward()
+            else:
+                worker = threading.Thread(target=loss.backward)
+                worker.start()
+                worker.join()
+            out[f"{name}:{where}:g1"] = z1.grad.numpy()
+        with collective_precision("float32"):
+            z1 = _shard(inp["z1"], rank, world).requires_grad_()
+            z2 = _shard(inp["z2"], rank, world)
+            loss = (ntxent_loss_pair(z1, z2, temperature=0.1)
+                    if name == "pair" else mesh.all_gather(z1).pow(2).sum())
+            loss.backward()
+        out[f"{name}:float32:g1"] = z1.grad.numpy()
+    return out
+
+
+def ef_carry_job(rank: int, world: int, inp) -> dict:
+    """Three steps of the int8 gradient all-reduce with error feedback on
+    ``theta - target[rank]`` (theta moved by the reduced mean at lr
+    ``lr``): each step's reduced value and residual."""
+    target = torch.from_numpy(inp["targets"][rank])
+    theta = torch.zeros_like(target)
+    small = torch.from_numpy(inp["small"])
+    residual = [torch.zeros_like(target), torch.zeros_like(small)]
+    out = {}
+    for k in range(3):
+        mark = mesh.comms_accounting().totals()
+        grads, residual = mesh.quantized_grad_reduce(
+            [theta - target, small * (rank + 1)], residual)
+        out |= {f"ef:{k}:reduced": grads[0].numpy().copy(),
+                f"ef:{k}:small": grads[1].numpy().copy(),
+                f"ef:{k}:residual": residual[0].numpy().copy(),
+                **_comms(mesh.comms_accounting().delta(mark),
+                         f"ef:{k}:comms")}
+        theta = theta - float(inp["lr"]) * grads[0]
+    return out
+
+
+def wire_steps_job(rank: int, world: int, inp) -> dict:
+    """Two int8 steps of the ``tiny`` SimCLR model (error feedback, the
+    strip loss) and two of the tiny CLIP (error feedback, the dual loss)
+    from the input's flax weights: losses, final state, this rank's
+    residual, the step's comms."""
+    out = {}
+    cfg = _config(inp)
+    state = init_error_feedback(create_train_state(
+        _tiny_simclr(inp), cfg, torch.device("cpu")))
+    step = make_sharded_train_step(None, cfg.temperature,
+                                   collective_dtype="int8")
+    losses = []
+    for v1, v2 in zip(inp["v1"], inp["v2"]):
+        mark = mesh.comms_accounting().totals()
+        state, metrics = step(state, _shard(v1, rank, world),
+                              _shard(v2, rank, world))
+        delta = mesh.comms_accounting().delta(mark)
+        losses.append(float(metrics["loss"]))
+    out |= {"simclr:losses": np.array(losses),
+            **_comms(delta, "simclr:comms")}
+    names = [n for n, _ in state.model.named_parameters()]
+    for name, t in state.model.state_dict().items():
+        out["simclr:state:" + name] = t.numpy()
+    for name, e in zip(names, state.ef_residual):
+        out["simclr:ef:" + name] = e.numpy()
+
+    model = load_flax_variables(tiny_clip(),
+                                {"params": nest(inp, "clip_params")})
+    cstate = init_error_feedback(create_clip_train_state(
+        model, _config(inp, "clip_cfg:"), torch.device("cpu")))
+    cstep = make_sharded_clip_train_step(None, collective_dtype="int8")
+    losses = []
+    for images, tokens in zip(inp["images"], inp["tokens"]):
+        cstate, metrics = cstep(cstate, _shard(images, rank, world),
+                                _shard(tokens, rank, world).long())
+        losses.append(float(metrics["loss"]))
+    out["clip:losses"] = np.array(losses)
+    names = [n for n, _ in cstate.model.named_parameters()]
+    for name, t in cstate.model.state_dict().items():
+        out["clip:state:" + name] = t.numpy()
+    for name, e in zip(names, cstate.ef_residual):
+        out["clip:ef:" + name] = e.numpy()
+    return out
+
+
+def chunked_job(rank: int, world: int, inp) -> dict:
+    """The chunked loss of the global views z1, z2 at each of
+    ``CHUNKED_CASES`` and the strip loss under each wire: loss, gradients
+    of this rank's shards, the forward's comms; the plain ring fold with
+    chunks (``make_ring_ntxent(impl="jnp")``); the overlap A/B."""
+    out = {}
+    t = float(inp["t"])
+    cases = [("chunked", c, w) for c, w in CHUNKED_CASES] + \
+        [("strip", None, w) for w in ("float32", "int8")] + \
+        [("jnp", 3, "float32")]
+    for impl, chunks, wire in cases:
+        z1 = _shard(inp["z1"], rank, world).requires_grad_()
+        z2 = _shard(inp["z2"], rank, world).requires_grad_()
+        mark = mesh.comms_accounting().totals()
+        with collective_precision(wire):
+            if impl == "jnp":
+                loss = make_ring_ntxent(None, t, impl="jnp",
+                                        chunks=chunks)(z1, z2)
+            else:
+                loss = make_sharded_ntxent(None, t, impl=impl,
+                                           ring_chunks=chunks)(z1, z2)
+            fwd = mesh.comms_accounting().delta(mark)
+            loss.backward()
+        key = f"{impl}:{chunks}:{wire}"
+        out |= {f"{key}:loss": loss.detach().numpy(),
+                f"{key}:g1": z1.grad.numpy(), f"{key}:g2": z2.grad.numpy(),
+                **_comms(fwd, f"{key}:comms")}
+    overlap = measure_comms_overlap(None, int(inp["z1"].shape[0]) // world,
+                                    int(inp["z1"].shape[1]), repeats=2,
+                                    warmup=1, ring_chunks=2)
+    out["overlap"] = np.array(json.dumps(overlap))
+    return out
+
+
+WIRE_JOBS = {"collectives": collectives_job,
+             "backward_thread": backward_thread_job,
+             "ef_carry": ef_carry_job, "wire_steps": wire_steps_job,
+             "chunked": chunked_job}
+
+
+def run_wire(rank: int, world: int, store: str, inputs: str, out: str,
+             jobs: list, cli_runs: list | None = None) -> None:
+    """One rank: join the world, run the named wire jobs (``WIRE_JOBS``),
+    write the results, then each ``(log name, argv)`` of ``cli_runs``
+    through ``ntxent-train`` in the same world, logging to
+    ``<out>/<log name>.rank<r>.log``."""
+    _join(store, rank, world)
+    try:
+        _run_jobs([WIRE_JOBS[name] for name in jobs], rank, world, inputs,
+                  out)
+        for name, argv in cli_runs or []:
+            _train_main(rank, world, argv, out, f"{name}.rank{rank}.log")
+    finally:
+        mesh.shutdown()
+
+
 RING_JOBS = {"attention": ring_attention_job,
              "long_context": long_context_job, "losses": ring_loss_job}
 
@@ -382,18 +614,28 @@ def run(rank: int, world: int, store: str, inputs: str, out: str) -> None:
         mesh.shutdown()
 
 
-def _train_main(rank: int, world: int, argv: list, out: str) -> int:
+def _train_main(rank: int, world: int, argv: list, out: str,
+                log: str | None = None) -> int:
     """``ntxent-train`` in the joined group under a launcher's environment,
-    its log records written to ``<out>/rank<r>.log``."""
+    its log records written to ``<out>/<log>`` (default
+    ``rank<r>.log``)."""
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(world))
-    handler = logging.FileHandler(Path(out) / f"rank{rank}.log")
+    handler = logging.FileHandler(Path(out) / (log or f"rank{rank}.log"))
     handler.setFormatter(logging.Formatter("%(name)s: %(message)s"))
     logging.getLogger().addHandler(handler)
     logging.getLogger().setLevel(logging.INFO)
     # the group a launcher would have set up: train_main finds it joined
-    # and leaves it at its end
-    return cli.train_main(argv)
+    # and leaves it at its end, unless ``log`` names one run of several,
+    # which trains in the group and leaves it joined for the next
+    try:
+        if log is None:
+            return cli.train_main(argv)
+        cli.train(cli.build_train_parser().parse_args(argv))
+        return 0
+    finally:
+        logging.getLogger().removeHandler(handler)
+        handler.close()
 
 
 def run_clip(rank: int, world: int, store: str, inputs: str, out: str,
