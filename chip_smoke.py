@@ -317,6 +317,27 @@ Phases; any failure ends the run with a non-zero exit and no result:
    12/12/12 of the flash kernels a step, the residual nonzero);
    [resume-ef] phase 11's command under int8 with ``--ckpt-save-ef``,
    2 + 1 steps against 3, CRC for CRC with the residual in the state;
+12r. train-side telemetry and the space-to-depth stem (after 12o, in its
+   temporary directory): [obs-train] phase 5's command for 16 steps with
+   ``--metrics-port 0 --log-jsonl --trace-dir`` (the trigger and the
+   capture need the room): /metrics scraped mid-run
+   in JSON and Prometheus text (``train_steps_total``,
+   ``train_step_device_ms``, ``train_mfu`` in (0, 1)), every ``step``
+   event with data wait, device ms, steps/s and an MFU in (0, 1) from step
+   1's counted FLOPs, ``losses_from_jsonl`` equal to the logged losses,
+   ``touch TRIGGER`` giving a ``torch.profiler`` Chrome trace whose CUDA
+   kernels include #1's, #5's and #11-#14's walks, ``python -m
+   ntxent_tpu_torch.obs.trace`` exporting a step slice a step, 1/1/12/12/12
+   launches a step; then rounds of 8 train_loop steps timing the plain
+   loop, the timeline's synchronous path and the timeline under
+   ``--lag-metrics``; [stem] ResNet-50 at 224 px and batch 256 with
+   ``--stem space_to_depth`` and ``--stem conv`` from the same weights, 4
+   steps each with ``--log-jsonl``: the first step's losses within 1e-2,
+   #1/#5 1/1 a step, step ms and MFU of both; and in 12n's [supervise] a
+   stall: phase 5's command for 6 steps with ``--max-restarts 1
+   --stall-timeout 5 --log-jsonl`` and no checkpoints, batch 3 held 7 s:
+   the escalation's flight dump holds the run's step events before it,
+   one ``restart`` event, the restart trains to step 6;
 13. one JSON line describing each kernel of the paths (with each loss
    kernel's D = 1024 times and each flash kernel's fp32 times, and #11's
    launches on the int8, adaptive-ladder and worker serve paths), after
@@ -798,6 +819,48 @@ EVAL_CLIP_ARGV = ["--objective", "clip", "--model", "vit_b16",
 EVAL_PROMPTS = (4, 77)
 IMAGEFOLDER = (512, 4, 256, 320)
 IMAGEFOLDER_STEPS = 4
+
+# Train-side telemetry (ROADMAP Queue A 11(b)) and the space-to-depth stem
+# (6(b)). [obs-train]: the SimCLR path (TRAIN_ARGV) for OBS_STEPS steps
+# through the CLI with OBS_FLAGS: a scrape of /metrics mid-run in JSON
+# and Prometheus text shows OBS_SERIES; every step event carries
+# OBS_STEP_FIELDS with 0 < mfu < 1; the loss curve from the JSONL equals
+# the logged losses; touching TRIGGER once OBS_TRIGGER_AT steps are done
+# captures OBS_TRACE_STEPS steps as a torch.profiler Chrome trace whose
+# CUDA kernels include OBS_KERNELS (the hand-written ones, launched through
+# ctypes); ``python -m ntxent_tpu_torch.obs.trace`` exports the JSONL;
+# STEP_LAUNCHES a step over the whole run, the counted step 1 included.
+# Then rounds of GUARD_TIMED_STEPS train_loop steps in the order
+# OBS_ROUNDS time the plain loop, the timeline on the synchronous path and
+# the timeline under --lag-metrics. [stem]: ResNet-50 at STEM_ARGV's
+# width for STEM_STEPS steps with --stem space_to_depth and --stem conv
+# from the same weights and batches: the first step's losses within
+# STEM_LOSS_ATOL (bf16 stems summing in another order, through 49 more
+# layers), #1 and #5 1/1 a step and nothing else. [supervise] adds a stall:
+# TRAIN_ARGV with SUPERVISE_STALL_FLAGS and the SUPERVISE_STALL_AT-th
+# batch held SUPERVISE_STALL_HOLD_S, no --ckpt-dir (the crash above covers
+# the resume): the escalation's flight dump holds the tail of the run's
+# events, and the restart trains again to the step count.
+OBS_STEPS = 16  # the trigger lands on steps 4-9 (the scrape contends for
+                # the interpreter lock with the loop): room for the capture
+OBS_TRACE_STEPS = 2
+OBS_TRIGGER_AT = 4
+OBS_SERIES = ("train_steps_total", "train_step_device_ms", "train_mfu")
+OBS_STEP_FIELDS = ("data_wait_ms", "device_ms", "steps_per_sec", "mfu")
+OBS_KERNELS = ("ntxent_fwd_sym_walk", "ntxent_bwd_sym_walk",
+               "flash_fwd_kernel_tma", "flash_dq_kernel_tma",
+               "flash_dkv_kernel_tma")
+OBS_TRACE_CAT = "kernel"  # torch.profiler's category of CUDA kernels
+OBS_ROUNDS = ("plain", "sync", "lag", "lag", "sync", "plain")
+STEM_ARGV = ["--model", "resnet50", "--image-size", "224", "--batch", "256",
+             "--dataset", "synthetic", "--device", "cuda", "--log-every",
+             "1"]
+STEM_STEPS = 4
+STEM_LOSS_ATOL = 1e-2
+STEM_LAUNCHES = {"ntxent_fwd": 1, "ntxent_bwd_sym": 1}
+SUPERVISE_STALL_AT = 3
+SUPERVISE_STALL_FLAGS = ["--max-restarts", "1", "--stall-timeout", "5"]
+SUPERVISE_STALL_HOLD_S = 7.0
 
 # The long-context slice. Fold kernel (#12) cases: (name, (BH, Lq, Lk,
 # D), dtype, causal, q_offset, k_offsets of consecutive folds). Against
@@ -6016,6 +6079,85 @@ def phase_supervise(tmp: str, crc_a: dict) -> None:
     del state
     torch.cuda.empty_cache()
     shutil.rmtree(directory)
+    _supervise_stall(tmp)
+
+
+class _Held:
+    """The batches of ``inner``, the ``at``-th held ``hold_s`` first (a
+    wedged input pipeline)."""
+
+    def __init__(self, inner, at: int, hold_s: float):
+        self.inner, self.at, self.hold_s, self.n = inner, at, hold_s, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.n += 1
+        if self.n == self.at:
+            time.sleep(self.hold_s)
+        return next(self.inner)
+
+
+def _supervise_stall(tmp: str) -> None:
+    """Phase 5's command for RESUME_STEPS steps with SUPERVISE_STALL_FLAGS
+    and --log-jsonl, the SUPERVISE_STALL_AT-th batch held
+    SUPERVISE_STALL_HOLD_S: the stall escalation dumps the flight recorder
+    into the log's directory (the tail of the run's events) and the
+    restart, from step 0 (no --ckpt-dir), ends at RESUME_STEPS."""
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.obs.events import read_events
+    from ntxent_tpu_torch.training import create_train_state, make_train_step
+
+    t0 = time.monotonic()
+    root = f"{tmp}/supervise_stall"
+    args = cli.build_train_parser().parse_args(
+        _with_flags(TRAIN_ARGV, "--steps", str(RESUME_STEPS))
+        + SUPERVISE_STALL_FLAGS + ["--log-jsonl", f"{root}/run.jsonl"])
+    device = torch.device(args.device)
+    cfg = cli._train_config(args)
+
+    def fresh():
+        return create_train_state(cli.build_model(args), cfg, device)
+
+    telemetry = cli._setup_observability(args)
+    try:
+        state, _ = cli._fit(
+            args, fresh(), _Held(cli._make_pipeline(args, device),
+                                 SUPERVISE_STALL_AT, SUPERVISE_STALL_HOLD_S),
+            make_train_step(cfg.temperature), {}, state_factory=fresh,
+            timeline=telemetry.timeline)
+    finally:
+        telemetry.close()
+    dumps = {}
+    for name in os.listdir(root):
+        if name.startswith("flight_"):
+            header, *records = read_events(f"{root}/{name}")
+            dumps[header["reason"].split(":")[0]] = (header, records)
+    stall = dumps.get("stall")
+    steps = [r["step"] for r in (stall[1] if stall else [])
+             if r["event"] == "step"]
+    restarts = read_events(f"{root}/run.jsonl", "restart")
+    if state.step != RESUME_STEPS or stall is None \
+            or steps != list(range(1, SUPERVISE_STALL_AT)) \
+            or len(restarts) != 1 or not restarts[0]["stalled"]:
+        fail(f"supervised stall: step {state.step}; flight dumps "
+             f"{ {k: v[0] for k, v in dumps.items()} }, the stall's step "
+             f"events {steps}; restart events {restarts}")
+    print(f"[supervise] ViT-B/16 batch 256 {' '.join(SUPERVISE_STALL_FLAGS)}"
+          f" --log-jsonl, batch {SUPERVISE_STALL_AT} held "
+          f"{SUPERVISE_STALL_HOLD_S} s: "
+          f"'{stall[0]['reason']}' flight dump of the last "
+          f"{stall[0]['records']} events (step events {steps}, beside "
+          f"{sorted(dumps)}), one restart event (stalled, at step "
+          f"{restarts[0]['end_step']}), attempt 2 from step 0 to step "
+          f"{state.step}; phase "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
 
 
 def phase_crash_audit(tmp: str, card_line: str) -> None:
@@ -6414,6 +6556,271 @@ def phase_data_imagefolder(tmp: str, card_line: str) -> None:
     shutil.rmtree(root)
 
 
+class _Scraper(threading.Thread):
+    """Scrape the run's /metrics mid-run: the port from the CLI's log line,
+    then JSON and Prometheus text once the run has done a few steps;
+    touches the profiler's TRIGGER file once OBS_TRIGGER_AT steps are
+    done."""
+
+    def __init__(self, tap, trigger: str):
+        super().__init__(daemon=True)
+        self.tap, self.trigger = tap, trigger
+        self.done = threading.Event()
+        self.json = self.text = None
+        self.touched_at = None
+
+    def run(self):
+        port = None
+        while port is None and not self.done.is_set():
+            for m in self.tap.having("metrics endpoint: http://127.0.0.1:"):
+                port = int(m.split("127.0.0.1:")[1].split("/")[0])
+            time.sleep(0.05)
+        base = f"http://127.0.0.1:{port}/metrics"
+        while not self.done.is_set():
+            try:
+                snap = _get(base + "?format=json")[1]
+            except (OSError, ValueError):
+                time.sleep(0.05)
+                continue
+            steps = snap.get("train_steps_total", 0)
+            if steps >= OBS_TRIGGER_AT and self.touched_at is None:
+                open(self.trigger, "w").close()
+                self.touched_at = steps
+            if steps >= OBS_TRIGGER_AT + 1 and self.text is None:
+                self.json = snap
+                self.text = _get_text(base)[1]
+            if self.text is not None and self.touched_at is not None:
+                return
+            time.sleep(0.05)
+
+
+def _obs_rounds(flops: float) -> dict:
+    """ms a step of the plain loop, the timeline on the synchronous path
+    and under --lag-metrics, rounds of GUARD_TIMED_STEPS train_loop steps
+    (OBS_ROUNDS) on batches on the card (the timelines take step 1's count
+    as given, so no round counts); then one warm step counted
+    (``"count"``: FlopCounterMode's host cost)."""
+    import torch
+
+    from ntxent_tpu_torch import obs
+    from ntxent_tpu_torch.training import make_train_step, train_loop
+
+    args, cfg, (state,), pipe = _simclr_setup(TRAIN_ARGV, copies=1)
+    batches = [next(pipe) for _ in range(GUARD_TIMED_STEPS)]
+    step = make_train_step(cfg.temperature)
+
+    def run(name, steps):
+        timeline = None if name == "plain" else obs.StepTimeline(
+            registry=obs.MetricsRegistry())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_loop(state, iter(batches[:steps]), step, steps,
+                   log_every=steps, log=False, timeline=timeline,
+                   metrics_lag=int(name == "lag"),
+                   flops_per_step="auto" if name == "count" else flops)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / steps
+
+    ms = {name: [] for name in OBS_ROUNDS}
+    previous = obs.install(obs.EventLog(None))  # the events' cost included
+    try:
+        for name in ms:  # first calls
+            run(name, 1)
+        for name in OBS_ROUNDS:
+            ms[name].append(run(name, GUARD_TIMED_STEPS))
+        ms["count"] = [run("count", 1)]
+    finally:
+        obs.install(previous)
+    del state, batches
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_obs_train(tmp: str, card_line: str) -> dict:
+    """The SimCLR path with the telemetry flags through the CLI; returns
+    its launches a step."""
+    import math
+    import subprocess
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.obs.events import read_events
+    from ntxent_tpu_torch.resilience.crashsim import losses_from_jsonl
+    from ntxent_tpu_torch.training.trainer import peak_flops_per_chip
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    t0 = time.monotonic()
+    root = f"{tmp}/obs"
+    jsonl, traces = f"{root}/run.jsonl", f"{root}/traces"
+    argv = _with_flags(TRAIN_ARGV, "--steps", str(OBS_STEPS), "--log-every",
+                       "4") + ["--metrics-port", "0", "--log-jsonl", jsonl,
+                               "--trace-dir", traces, "--trace-steps",
+                               str(OBS_TRACE_STEPS)]
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    with _LogTap() as tap:
+        scraper = _Scraper(tap, f"{traces}/TRIGGER")
+        scraper.start()
+        try:
+            _, history, _ = _train_ckpt(argv)
+        finally:
+            scraper.done.set()
+            scraper.join(30.0)
+    launches = {n: w.launches for n, w in counters.items()}
+    want = {n: STEP_LAUNCHES.get(n, 0) * OBS_STEPS for n in counters}
+    if launches != want:
+        fail(f"obs-train: launches over {OBS_STEPS} steps {launches}, "
+             f"expected {want}")
+    if scraper.json is None or scraper.touched_at is None:
+        fail(f"obs-train: no mid-run scrape ({scraper.json is not None}) or "
+             f"no trigger ({scraper.touched_at})")
+    text = scraper.text
+    missing = [n for n in OBS_SERIES if n not in scraper.json
+               or f"\n{n}" not in "\n" + text and f"# TYPE {n}" not in text]
+    mfu = scraper.json.get("train_mfu", 0.0)
+    if missing or not 0.0 < mfu < 1.0:
+        fail(f"obs-train: the mid-run scrape lacks {missing}, train_mfu "
+             f"{mfu}")
+    steps = read_events(jsonl, "step")
+    (compile_rec,) = read_events(jsonl, "compile")
+    bad = [r for r in steps
+           if any(k not in r for k in OBS_STEP_FIELDS)
+           or not 0.0 < r["mfu"] < 1.0]
+    if [r["step"] for r in steps] != list(range(1, OBS_STEPS + 1)) or bad:
+        fail(f"obs-train: step events {[r.get('step') for r in steps]}, "
+             f"without {OBS_STEP_FIELDS} or an mfu in (0, 1): {bad[:2]}")
+    losses = losses_from_jsonl(jsonl)
+    logged = {h["step"]: h["loss"] for h in history}
+    if any(losses.get(s) != v for s, v in logged.items()) \
+            or not all(map(math.isfinite, losses.values())):
+        fail(f"obs-train: losses_from_jsonl {losses} against the logged "
+             f"{logged}")
+    kernels = set()
+    for path in os.listdir(traces):
+        if path.startswith("step"):
+            with open(f"{traces}/{path}/trace.json") as f:
+                events = json.load(f)["traceEvents"]
+            kernels |= {e["name"] for e in events
+                        if e.get("cat") == OBS_TRACE_CAT}
+    unseen = [k for k in OBS_KERNELS if not any(k in n for n in kernels)]
+    if not kernels or unseen:
+        fail(f"obs-train: the profiler trace's kernels {sorted(kernels)[:8]} "
+             f"lack {unseen}")
+    out = f"{root}/trace.json"
+    done = subprocess.run([sys.executable, "-m", "ntxent_tpu_torch.obs.trace",
+                           jsonl, "-o", out], capture_output=True,
+                          text=True, timeout=120,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if done.returncode != 0:
+        fail(f"obs-train: obs.trace exited {done.returncode}: "
+             f"{done.stderr[-400:]}")
+    with open(out) as f:
+        exported = json.load(f)["traceEvents"]
+    slices = sum(e.get("cat") == "step" for e in exported)
+    if slices != OBS_STEPS:
+        fail(f"obs-train: the exported trace has {slices} step slices")
+    flops, peak = compile_rec["flops"], peak_flops_per_chip()
+    # after the capture (CUPTI's start, the export) and its next step
+    steady = steps[int(scraper.touched_at) + OBS_TRACE_STEPS + 2:]
+    device_ms = "/".join(f"{r['device_ms']:.1f}" for r in steady)
+    wait_ms = "/".join(f"{r['data_wait_ms']:.1f}" for r in steady)
+    wall_ms = "/".join(f"{1e3 / r['steps_per_sec']:.1f}" for r in steady)
+    step_mfu = "/".join(f"{r['mfu']:.4f}" for r in steady)
+    per_step = {n: c // OBS_STEPS for n, c in launches.items() if c}
+    print(f"[obs-train] ViT-B/16 flash batch 256 {OBS_STEPS} steps with "
+          f"--metrics-port 0 --log-jsonl --trace-dir: mid-run scrape at "
+          f"step {scraper.json['train_steps_total']:.0f} (JSON and "
+          f"Prometheus) train_mfu {mfu:.4f}, train_step_device_ms p50 "
+          f"{scraper.json['train_step_device_ms']['p50']:.3f}; step 1 "
+          f"counted {flops:.4e} FLOPs a card (the first run "
+          f"{compile_rec['duration_ms']:.1f} ms); device ms a step (sync "
+          f"bracket) {device_ms}, data wait {wait_ms}, wall {wall_ms}, "
+          f"mfu {step_mfu} against "
+          f"{peak / 1e12:.1f} TFLOP/s; "
+          f"TRIGGER touched at step {scraper.touched_at:.0f}: a "
+          f"Chrome trace with {len(kernels)} CUDA kernel names, the "
+          f"hand-written {', '.join(OBS_KERNELS)} among them; losses_from_"
+          f"jsonl equal to the logged losses; obs.trace exported {slices} "
+          f"step slices; launches a step {per_step} on {card_line}",
+          flush=True)
+    ms = _obs_rounds(flops)
+    mean = {n: sum(v) / len(v) for n, v in ms.items()}
+    plain_mfu = flops / mean["plain"] * 1e3 / peak
+    print(f"[obs-train] rounds of {GUARD_TIMED_STEPS} train_loop steps "
+          f"{'/'.join(OBS_ROUNDS)} on batches on the card: ms a step plain "
+          f"{'/'.join(f'{v:.3f}' for v in ms['plain'])}, timeline (a sync a "
+          f"step) {'/'.join(f'{v:.3f}' for v in ms['sync'])}, timeline "
+          f"under --lag-metrics {'/'.join(f'{v:.3f}' for v in ms['lag'])}; "
+          f"mean plain {mean['plain']:.3f}, sync {mean['sync']:.3f} "
+          f"({100 * (mean['sync'] / mean['plain'] - 1):+.2f}%), lag "
+          f"{mean['lag']:.3f} ({100 * (mean['lag'] / mean['plain'] - 1):+.2f}"
+          f"%); MFU at the plain mean {plain_mfu:.4f}; a warm counted step "
+          f"{ms['count'][0]:.1f} ms; host clock on "
+          f"{card_line}; phase {time.monotonic() - t0:.1f} s",
+          flush=True)
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return {n: c // OBS_STEPS for n, c in launches.items()}
+
+
+def phase_stem(tmp: str, card_line: str) -> dict:
+    """ResNet-50 with --stem space_to_depth against --stem conv from the
+    same weights and batches, each with --log-jsonl (its MFU); returns the
+    space-to-depth run's launches a step."""
+    import torch
+
+    from ntxent_tpu_torch.models.resnet import SpaceToDepthStem
+    from ntxent_tpu_torch.obs.events import read_events
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    t0 = time.monotonic()
+    counters = launch_counters()
+    runs, mfu = {}, {}
+    for stem in ("space_to_depth", "conv"):
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        jsonl = f"{tmp}/stem_{stem}.jsonl"
+        state, history, _ = _train_ckpt(_with_flags(
+            STEM_ARGV, "--steps", str(STEM_STEPS), "--stem", stem,
+            "--log-jsonl", jsonl))
+        mfu[stem] = "/".join(f"{r['mfu']:.4f}"
+                             for r in read_events(jsonl, "step")[1:])
+        os.remove(jsonl)
+        launches = {n: w.launches for n, w in counters.items()}
+        want = {n: STEM_LAUNCHES.get(n, 0) * STEM_STEPS for n in counters}
+        if launches != want:
+            fail(f"stem {stem}: launches {launches}, expected {want}")
+        is_s2d = isinstance(state.model.backbone.stem_conv, SpaceToDepthStem)
+        if is_s2d != (stem == "space_to_depth"):
+            fail(f"stem {stem}: the model's stem is "
+                 f"{type(state.model.backbone.stem_conv).__name__}")
+        runs[stem] = history
+        if stem == "space_to_depth":
+            per_step = {n: c // STEM_STEPS for n, c in launches.items()}
+        del state
+        torch.cuda.empty_cache()
+    first = {stem: h[0]["loss"] for stem, h in runs.items()}
+    gap = abs(first["space_to_depth"] - first["conv"])
+    if not gap <= STEM_LOSS_ATOL:
+        fail(f"stem: the first step's losses {first} differ by {gap} > "
+             f"{STEM_LOSS_ATOL}")
+    print(f"[stem] ResNet-50 224 px batch 256, {STEM_STEPS} steps each from "
+          f"the same weights and batches: first-step loss space_to_depth "
+          f"{first['space_to_depth']:.6f}, conv {first['conv']:.6f} (|gap| "
+          f"{gap:.2e} <= {STEM_LOSS_ATOL}); step ms (steps "
+          f"2-{STEM_STEPS - 1}, host clock around the loss read) "
+          f"space_to_depth "
+          f"{_step_ms(runs['space_to_depth']):.1f}, conv "
+          f"{_step_ms(runs['conv']):.1f}, with the synchronous timeline; "
+          f"MFU steps 2-{STEM_STEPS} space_to_depth {mfu['space_to_depth']}"
+          f", conv {mfu['conv']}; #1/#5 1/1 a step, nothing else; "
+          f"on {card_line}; phase {time.monotonic() - t0:.1f} s",
+          flush=True)
+    return per_step
+
+
 def main() -> int:
     import torch
 
@@ -6489,6 +6896,8 @@ def main() -> int:
         shutil.rmtree(clip_dir)
         shutil.rmtree(data_ckpt)
         phase_data_imagefolder(tmp, smi)
+        obs_launches = phase_obs_train(tmp, smi)
+        stem_launches = phase_stem(tmp, smi)
     from ntxent_tpu_torch.parallel import mesh
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -6559,6 +6968,10 @@ def main() -> int:
         # loader, prefetch, lag-1 guard); a feature batch and a fine-tuning
         # step of ntxent-eval
         kernel["data_launches"] = data_launches.get(wrapper, 0)
+        # a step of the SimCLR path with the telemetry flags, and of
+        # ResNet-50 with --stem space_to_depth
+        kernel["obs_train_launches"] = obs_launches.get(wrapper, 0)
+        kernel["stem_launches"] = stem_launches.get(wrapper, 0)
         for key, per in eval_launches.items():
             kernel[key] = per.get(wrapper, 0)
         kernel |= ring_times.get(wrapper, {})

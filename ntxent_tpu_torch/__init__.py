@@ -21,7 +21,8 @@ Ported so far:
 * single-card CLIP training (``cli.train_main --objective clip``,
   ``models.clip``): the fused InfoNCE forward and backward kernels
   (``ops.infonce``), a causal text tower, AdamW;
-* ResNet SimCLR training (``models.resnet``, flax-exact BatchNorm), on
+* ResNet SimCLR training (``models.resnet``, flax-exact BatchNorm; the
+  ImageNet stem as a convolution or space-to-depth'd), on
   one card or data-parallel under ``torchrun`` (``parallel``: process
   groups, differentiable collectives with comms accounting, the strip
   loss over the general NT-Xent forward and backward kernels,
@@ -41,6 +42,9 @@ Ported so far:
   dK/dV kernels a hop backward) or Ulysses all-to-all attention, and the
   ring NT-Xent (over the general NT-Xent kernels) and ring InfoNCE
   (``parallel.ring``);
+* train-side telemetry (``obs``: the step timeline with its FLOP count
+  and MFU, the slow-step profiler, the metrics endpoint, the event log
+  and its flight dumps; the training layers' registry series);
 * the loss oracles (``ops.oracle``), the reference-compatible API
   (``api``) and the JAX package's thirteen top-level names, exported
   here as they are there; ``losses.NTXentLoss`` is the loss as an

@@ -26,7 +26,10 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
 
   - ``--objective simclr`` (the default): SimCLR of a ResNet (``--model
     resnet50``, the default, ``resnet18/34/50x2/101/152``, ``tiny``; the
-    CIFAR stem at ``--image-size`` <= 64) or a ViT tower on ``--dataset
+    CIFAR stem at ``--image-size`` <= 64, else the ImageNet stem, as a
+    7x7/2 convolution or with ``--stem space_to_depth`` as the 4x4/1
+    convolution of the space-to-depth'd image from the same weight) or a
+    ViT tower on ``--dataset
     synthetic|cifar10|imagefolder|npy`` (``--data-dir``; an npy store
     fixes ``--image-size``) through ``--loader python`` (threaded reads)
     or ``native`` (C++ threads over the memmapped npy store). On one
@@ -76,6 +79,19 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
   every rank holds its own injector, so a batch fault fires on every
   rank at the same batch.
 
+  Telemetry, as the JAX CLI has it (``cli.py:450-506``): any of
+  ``--metrics-port PORT`` (``/metrics`` in Prometheus text, ``?format=
+  json``, ``/healthz``; 0 picks a free port, logged), ``--log-jsonl PATH``
+  (typed JSONL events: the step timeline, compiles, retries, divergence,
+  restarts, checkpoints, traces) and ``--trace-dir DIR`` (a
+  ``torch.profiler`` capture of ``--trace-steps`` steps after a step
+  slower than ``--slow-step-factor`` x the rolling median, or after
+  ``touch DIR/TRIGGER`` or SIGUSR2) installs an event log and hands
+  ``fit`` a ``StepTimeline``: one ``torch.cuda.synchronize`` a step on the
+  synchronous path (none under ``--lag-metrics``) and step 1's FLOPs
+  counted for the MFU. With none of them the loop adds no sync and counts
+  nothing.
+
 * ``eval_main`` (``build_eval_parser``, ``main`` dispatches ``eval ...``):
   the newest step of ``--ckpt-dir`` (either package's; ``--accum-steps``
   shapes its optimizer state) evaluated by ``--protocol probe|knn|both``
@@ -85,9 +101,8 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
 
 Every flag of the JAX CLI's ``ntxent-train``, ``ntxent-eval`` and
 ``ntxent-serve`` parses here. A flag of what is not ported yet (model
-parallelism, training observability, the space-to-depth stem, ...)
-exits, when set, with a message naming its ROADMAP.md item;
-``--platform cpu|gpu`` selects ``--device``.
+parallelism and MoE) exits, when set, with a message naming its
+ROADMAP.md item; ``--platform cpu|gpu`` selects ``--device``.
 
 Run: ``python -m ntxent_tpu_torch.cli --model vit_b16 --vit-attention
 flash --image-size 224 --head embedding --port 8080`` (serving),
@@ -146,6 +161,9 @@ from .resilience import (
     RetryPolicy,
 )
 from .obs import events as obs_events
+from .obs.exporters import MetricsServer
+from .obs.profiler import ProfilerTrigger
+from .obs.timeline import StepTimeline
 from .resilience.supervisor import Supervisor
 from .serving import CheckpointWatcher, EmbeddingServer, InferenceEngine
 from .training import (
@@ -198,11 +216,8 @@ MODEL_CHOICES = ["resnet18", "resnet34", "resnet50", "resnet50x2",
                  "resnet101", "resnet152", "vit_t16", "vit_s16",
                  "vit_b16", "vit_l16", "tiny"]
 
-# What serving does not port yet, by the ROADMAP.md item that will.
-SERVE_ITEMS = {"stem": ROADMAP_ITEMS["stem"]}
-# (dest, the JAX CLI's default, item): serve flags that exit when set.
-SERVE_UNPORTED = [("stem", "conv", "stem")]
-
+_STEM_HELP = ("ResNet ImageNet stem: space_to_depth runs the 7x7/s2 conv "
+              "as a 4x4/s1 conv on space-to-depth input (the same weight)")
 
 def _add_platform(p: argparse.ArgumentParser) -> None:
     p.add_argument("--platform", default=None, metavar="cpu|gpu",
@@ -245,9 +260,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="served input resolution (a ResNet takes the CIFAR "
                         "stem at 64 and below)")
     m.add_argument("--stem", default="conv",
-                   choices=["conv", "space_to_depth"],
-                   help="ResNet ImageNet stem (space_to_depth is not "
-                        "ported)")
+                   choices=["conv", "space_to_depth"], help=_STEM_HELP)
     m.add_argument("--vit-attention", default="xla", choices=["xla", "flash"],
                    help="flash: the hand-written flash-attention kernel; "
                         "xla: plain PyTorch attention on the same weights")
@@ -360,11 +373,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 
 def _check_serve_args(args) -> None:
-    """Exit, naming the ROADMAP item, on a serve flag not ported yet, and
-    on what the JAX CLI refuses (``cli.py:355-364``)."""
+    """Exit on what the JAX CLI refuses (``cli.py:355-364``)."""
     _apply_platform(args)
-    _exit_on_unported("ntxent-serve (torch)", args, SERVE_UNPORTED,
-                      SERVE_ITEMS)
     if args.max_restarts < 0:
         raise SystemExit("--max-restarts must be >= 0")
     if args.stall_timeout is not None and args.stall_timeout <= 0:
@@ -388,14 +398,34 @@ def _buckets(text: str) -> tuple[int, ...]:
     return buckets
 
 
+def _check_stem(args) -> None:
+    """``--stem space_to_depth`` is a ResNet's ImageNet stem: other
+    encoders and the CIFAR stem (``--image-size`` <= 64) refuse it, as the
+    JAX CLI does (``cli.py:357-381``)."""
+    if args.stem == "conv":
+        return
+    if not args.model.startswith("resnet"):
+        raise SystemExit(f"--stem {args.stem} applies to ResNet encoders "
+                         f"only (got --model {args.model}); it would be "
+                         "silently ignored")
+    if args.image_size is not None and args.image_size <= 64:
+        raise SystemExit(
+            f"--stem {args.stem} applies to the ImageNet stem only; "
+            f"--image-size {args.image_size} selects the small-images "
+            "(3x3/s1) stem, which would silently ignore it")
+
+
 def _encoder(args):
     """The encoder of ``--model`` (``cli.py:341-395``): ``tiny`` is a
     one-stage ResNet on the CIFAR stem, a ResNet takes the CIFAR stem at
-    ``--image-size`` <= 64."""
+    ``--image-size`` <= 64 and otherwise the ImageNet stem of ``--stem``,
+    which the other encoders refuse, as the JAX CLI does."""
+    _check_stem(args)
     if args.model == "tiny":
         return ResNet((1,), small_images=True)
     if args.model in RESNETS:
-        return RESNETS[args.model](small_images=args.image_size <= 64)
+        return RESNETS[args.model](small_images=args.image_size <= 64,
+                                   stem=args.stem)
     return ENCODERS[args.model](image_size=args.image_size,
                                 attention_impl=args.vit_attention)
 
@@ -531,9 +561,6 @@ TRAIN_UNPORTED = [
     ("tp_loss_axes", "data", "mp"), ("moe_aux_weight", 0.01, "mp"),
     ("coordinator", None, "mp"), ("num_processes", None, "mp"),
     ("process_id", None, "mp"), ("dcn_slices", 1, "mp"),
-    ("metrics_port", None, "obs"), ("log_jsonl", None, "obs"),
-    ("trace_dir", None, "obs"), ("trace_steps", 5, "obs"),
-    ("slow_step_factor", 3.0, "obs"),
 ]
 
 
@@ -562,9 +589,7 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
     m = p.add_argument_group("model")
     m.add_argument("--model", default="resnet50", choices=MODEL_CHOICES)
     m.add_argument("--stem", default="conv",
-                   choices=["conv", "space_to_depth"],
-                   help="ResNet ImageNet stem (space_to_depth is not "
-                        "ported)")
+                   choices=["conv", "space_to_depth"], help=_STEM_HELP)
     m.add_argument("--vit-attention", default="xla", choices=["xla", "flash"],
                    help="flash: the hand-written flash-attention kernels "
                         "(forward and backward); xla: plain PyTorch "
@@ -704,12 +729,29 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "late, after the next step is queued (the guard "
                         "then keeps a bad update out on the card)")
 
-    o = p.add_argument_group("observability (not ported)")
-    o.add_argument("--metrics-port", type=int, default=None, metavar="PORT")
-    o.add_argument("--log-jsonl", default=None, metavar="PATH")
-    o.add_argument("--trace-dir", default=None, metavar="DIR")
-    o.add_argument("--trace-steps", type=int, default=5)
-    o.add_argument("--slow-step-factor", type=float, default=3.0)
+    o = p.add_argument_group("observability (obs/: metrics registry, JSONL "
+                             "event log, profiler)")
+    o.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                   help="serve the metrics registry over HTTP on this "
+                        "port (/metrics: Prometheus text, ?format=json "
+                        "for JSON; /healthz); 0 picks a free port "
+                        "(logged at startup)")
+    o.add_argument("--log-jsonl", default=None, metavar="PATH",
+                   help="append typed JSONL events (step timeline, "
+                        "retries, divergence, restarts, checkpoints, "
+                        "compiles, traces) to this file")
+    o.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="arm on-demand torch.profiler capture into DIR: a "
+                        "step slower than --slow-step-factor x the "
+                        "rolling median (or touching DIR/TRIGGER, or "
+                        "SIGUSR2) captures the next --trace-steps steps "
+                        "as a Chrome trace")
+    o.add_argument("--trace-steps", type=int, default=5,
+                   help="steps per profiler capture window")
+    o.add_argument("--slow-step-factor", type=float, default=3.0,
+                   help="slow-step trigger threshold (x rolling median "
+                        "device time; warmup and first-run steps never "
+                        "fire it)")
 
     h = p.add_argument_group("multi-host rendezvous (not ported: torchrun's "
                              "environment describes the world)")
@@ -736,7 +778,6 @@ def _check_train_args(args) -> None:
     if args.prefetch < 0:
         raise SystemExit("--prefetch must be >= 0")
     unported = [
-        (args.stem != "conv", f"--stem {args.stem}", "stem"),
         (args.parallel != "dp" or args.fsdp, "--parallel tp / --fsdp", "mp"),
         (clip and args.clip_parallel != "dp", "--clip-parallel tp", "mp"),
         (args.moe_experts > 0, "--moe-experts", "mp"),
@@ -971,7 +1012,7 @@ def _wire_log(args) -> None:
                     if args.collective_dtype == "int8" else "")
 
 
-def _train_clip(args, device, stats, injector):
+def _train_clip(args, device, stats, injector, timeline):
     """The CLIP branch of ``train`` (``cli.py:1175``, single device)."""
     images, tokens = _clip_data(args)
     _warn_clip_nan_policy(args)
@@ -986,7 +1027,7 @@ def _train_clip(args, device, stats, injector):
                 args.steps, args.base_lr)
     return _fit(args, fresh(), PairedPipeline(loader, device, args.prefetch),
                 make_clip_train_step(remat=args.remat), stats, views=1,
-                state_factory=fresh, injector=injector)
+                state_factory=fresh, injector=injector, timeline=timeline)
 
 
 def _world_size(args) -> int:
@@ -1000,7 +1041,7 @@ def _world_size(args) -> int:
     return world
 
 
-def _train_clip_data_parallel(args, stats, injector):
+def _train_clip_data_parallel(args, stats, injector, timeline):
     """The data-parallel CLIP branch (``cli.py:1338-1358``, ``--clip-parallel
     dp``): one rank per card (NCCL) or per CPU process (gloo), weights from
     ``--seed`` on every rank, each rank its rows of every global batch,
@@ -1038,7 +1079,8 @@ def _train_clip_data_parallel(args, stats, injector):
                               None, remat=args.remat,
                               collective_dtype=args.collective_dtype),
                           stats, views=1, ranks=world, log=lead,
-                          state_factory=fresh, injector=injector)
+                          state_factory=fresh, injector=injector,
+                          timeline=timeline)
     if lead:
         _log_final(history)
     return state, history
@@ -1051,7 +1093,9 @@ def train(args, data_parallel: bool | None = None,
     branch when ``WORLD_SIZE`` > 1 in the environment; ``True`` takes it in
     any case, a world of one included (the process group is joined from
     the environment unless the caller joined one already).
-    ``checkpoint_stats`` receives ``fit``'s checkpoint timings."""
+    ``checkpoint_stats`` receives ``fit``'s checkpoint timings. The
+    telemetry flags install their event log, metrics server and profiler
+    for the run (``_setup_observability``) and close them at its end."""
     _check_train_args(args)
     injector = _make_injector(args)
     if args.objective == "clip":
@@ -1060,18 +1104,30 @@ def train(args, data_parallel: bool | None = None,
                            "PairedArrayLoader", args.loader)
     else:
         _resolve_image_size(args)
+    _check_stem(args)  # before a process group is joined
     if data_parallel is None:
         data_parallel = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    obs = _setup_observability(args)
+    try:
+        return _train(args, data_parallel, checkpoint_stats, injector,
+                      obs.timeline)
+    finally:
+        obs.close()
+
+
+def _train(args, data_parallel: bool, checkpoint_stats, injector,
+           timeline):
     if data_parallel:
         if args.objective == "clip":
             return _train_clip_data_parallel(args, checkpoint_stats,
-                                             injector)
-        return _train_data_parallel(args, checkpoint_stats, injector)
+                                             injector, timeline)
+        return _train_data_parallel(args, checkpoint_stats, injector,
+                                    timeline)
     device = resolve_device(args.device)
     _warn_single_card(args, simclr=args.objective != "clip")
     if args.objective == "clip":
         state, history = _train_clip(args, device, checkpoint_stats,
-                                     injector)
+                                     injector, timeline)
         _log_final(history)
         return state, history
     cfg = _train_config(args)
@@ -1088,7 +1144,7 @@ def train(args, data_parallel: bool | None = None,
                           _make_pipeline(args, device, injector=injector),
                           step, checkpoint_stats, state_factory=fresh,
                           step_guard=_make_step_guard(args.nan_policy),
-                          injector=injector)
+                          injector=injector, timeline=timeline)
     _log_final(history)
     return state, history
 
@@ -1108,13 +1164,14 @@ def _model_label(args) -> str:
     return args.model
 
 
-def _train_data_parallel(args, stats, injector):
+def _train_data_parallel(args, stats, injector, timeline):
     """The data-parallel branch (``cli.py:824-870``): one rank per card
     (NCCL) or per CPU process (gloo), weights from ``--seed`` on every
     rank, cross-replica BatchNorm, the ``--dp-loss`` schedule (strip,
     pair or chunked with ``--ring-chunks``), the ``--collective-dtype``
     wire (int8 with an error-feedback residual in the state), the
-    ``--measure-overlap`` A/B before training, rank 0 logging."""
+    ``--measure-overlap`` A/B before training (published on the timeline
+    when there is one), rank 0 logging."""
     world = _world_size(args)
     device = mesh.init_from_env(args.device)
     info = mesh.process_info()
@@ -1143,7 +1200,7 @@ def _train_data_parallel(args, stats, injector):
                                         args.proj_dim,
                                         temperature=cfg.temperature,
                                         ring_chunks=ring_chunks,
-                                        device=device)
+                                        device=device, timeline=timeline)
         if lead:
             logger.info("comms overlap A/B: %s", overlap)
     if lead:
@@ -1160,7 +1217,7 @@ def _train_data_parallel(args, stats, injector):
                           step, stats, ranks=world, log=lead,
                           state_factory=fresh,
                           step_guard=_make_step_guard(args.nan_policy),
-                          injector=injector)
+                          injector=injector, timeline=timeline)
     if lead:
         _log_final(history)
     return state, history
@@ -1169,7 +1226,7 @@ def _train_data_parallel(args, stats, injector):
 def _fit(args, state, data, step, stats: dict | None, views: int = 2,
          ranks: int = 1, log: bool = True, state_factory=None,
          step_guard: DivergenceGuard | None = None,
-         injector: FaultInjector | None = None):
+         injector: FaultInjector | None = None, timeline=None):
     """``training.fit`` with the checkpoint and resilience flags
     (``cli.py:949-1140``). Without ``--max-restarts`` or ``--chaos``: one
     ``fit`` under a ``PreemptionGuard`` (a SIGTERM ends the run at the
@@ -1178,7 +1235,8 @@ def _fit(args, state, data, step, stats: dict | None, views: int = 2,
     Otherwise a ``Supervisor`` runs attempts of ``fit``, each on a fresh
     state from ``state_factory`` after the first, the data chaos-wrapped
     when ``injector`` is given; a run that does not reach ``--steps``
-    exits 1."""
+    exits 1. ``timeline`` (``_setup_observability``) goes to every
+    attempt's ``fit``."""
     keep_last = args.ckpt_keep_last
     kwargs = dict(
         checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
@@ -1195,7 +1253,7 @@ def _fit(args, state, data, step, stats: dict | None, views: int = 2,
         checkpoint_fault_hook=(injector.on_checkpoint_write
                                if injector is not None else None),
         metrics_lag=1 if args.lag_metrics else 0,
-        checkpoint_save_ef=args.ckpt_save_ef)
+        checkpoint_save_ef=args.ckpt_save_ef, timeline=timeline)
     if args.lag_metrics and log:
         logger.info("lag-1 metrics drain: guard/telemetry reads run one "
                     "step behind dispatch")
@@ -1253,6 +1311,57 @@ def _fit(args, state, data, step, stats: dict | None, views: int = 2,
                      "of %d spent)", args.steps, args.max_restarts)
         raise SystemExit(1)
     return result.state, result.history
+
+
+class _ObsContext:
+    """What the telemetry flags wired up (inert when none was given);
+    ``train`` closes it at the end of the run."""
+
+    def __init__(self):
+        self.event_log = None
+        self.server = None
+        self.profiler = None
+        self.timeline = None
+
+    def close(self) -> None:
+        if self.timeline is not None:
+            self.timeline.close()  # ends a capture in flight
+        if self.server is not None:
+            self.server.close()
+        if self.event_log is not None:
+            obs_events.install(None)
+            self.event_log.close()
+
+
+def _setup_observability(args) -> _ObsContext:
+    """Telemetry from the observability flags (``cli.py:474-506``). Any
+    one of them installs an event log process-wide (so the checkpoint and
+    resilience layers publish events even with only ``--metrics-port``)
+    and gives the run a ``StepTimeline``. With none, training keeps the
+    fast path: no timeline, no per-step sync, no FLOP count. In a world of
+    several ranks only rank 0 wires telemetry, as only it logs."""
+    ctx = _ObsContext()
+    if args.metrics_port is None and not args.log_jsonl \
+            and not args.trace_dir:
+        return ctx
+    if int(os.environ.get("RANK", "0")) != 0:
+        return ctx
+    ctx.event_log = obs_events.EventLog(args.log_jsonl)
+    obs_events.install(ctx.event_log)
+    logger.info("telemetry: run_id=%s%s", ctx.event_log.run_id,
+                f" events -> {args.log_jsonl}" if args.log_jsonl else "")
+    if args.metrics_port is not None:
+        ctx.server = MetricsServer(port=args.metrics_port).start()
+    if args.trace_dir:
+        ctx.profiler = ProfilerTrigger(
+            args.trace_dir, slow_factor=args.slow_step_factor,
+            capture_steps=args.trace_steps)
+        ctx.profiler.install_sigusr2()
+        logger.info("profiler armed: traces -> %s (touch %s or SIGUSR2 "
+                    "for a manual capture)", args.trace_dir,
+                    ctx.profiler.trigger_file)
+    ctx.timeline = StepTimeline(profiler=ctx.profiler)
+    return ctx
 
 
 def _log_final(history) -> None:
@@ -1415,9 +1524,6 @@ def _check_eval_args(args) -> str | None:
             return ("--protocol zeroshot requires --class-tokens "
                     "(pre-tokenized class prompts; see --help)")
     _apply_platform(args)
-    if args.stem != "conv":
-        raise SystemExit(f"ntxent-eval (torch): --stem {args.stem} is not "
-                         f"ported yet: {ROADMAP_ITEMS['stem']}")
     if args.moe_experts > 0:
         raise SystemExit("ntxent-eval (torch): --moe-experts is not ported "
                          f"yet: {ROADMAP_ITEMS['mp']}")

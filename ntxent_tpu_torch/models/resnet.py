@@ -24,9 +24,11 @@ size over shifted windows.
   the shape changes;
 * the ImageNet stem (7x7/2 conv, BatchNorm, ReLU, 3x3/2 max-pool) or, with
   ``small_images``, the CIFAR stem (3x3/1 conv, BatchNorm, ReLU);
+* ``stem="space_to_depth"`` (``SpaceToDepthStem``, ``resnet.py:31-80``):
+  the same 7x7/2 stem computed as a 4x4/1 convolution of the image
+  space-to-depth'd by 2, from the same (out, in, 7, 7) weight, so
+  checkpoints interchange with the conv stem;
 * ``ResNet18/34/50/50x2/101/152``; ``hidden_dim`` is the pooled width.
-
-The TPU's space-to-depth stem (``stem="space_to_depth"``) is not ported.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from .layers import BatchNorm, lecun_normal_
 
 __all__ = ["BasicBlock", "BottleneckBlock", "Conv", "ResNet", "ResNet18",
            "ResNet34", "ResNet50", "ResNet50x2", "ResNet101", "ResNet152",
-           "same_padding"]
+           "SpaceToDepthStem", "same_padding", "space_to_depth"]
 
 
 def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -82,6 +84,49 @@ class Conv(nn.Module):
         x, padding = _pad_same(x.to(self.dtype), self.kernel, self.stride)
         return F.conv2d(x, self.weight.to(self.dtype), stride=self.stride,
                         padding=padding)
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(B, C, H, W) -> (B, b*b*C, H/b, W/b) with the channels in
+    ``(a, b, c)`` phase-major order, ``out[:, (a*b + b')*C + c, i, j] =
+    x[:, c, b*i + a, b*j + b']``: the NCHW view of the JAX package's NHWC
+    ``_space_to_depth`` (``resnet.py:31``)."""
+    bsz, c, h, w = x.shape
+    x = x.reshape(bsz, c, h // block, block, w // block, block)
+    # (B, c, i, a, j, b') -> (B, a, b', c, i, j)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(
+        bsz, block * block * c, h // block, w // block)
+
+
+class SpaceToDepthStem(Conv):
+    """The ImageNet 7x7/2 stem convolution as a 4x4/1 convolution of the
+    space-to-depth'd image (``resnet.py:38-80``), the MLPerf TPU layout of
+    the same linear map.
+
+    The parameter stays the conv stem's (out, in, 7, 7) weight. Per apply
+    it is padded to 8x8 and phase-grouped into (out, 4 in, 4, 4) in the
+    ``(a, b, c)`` order ``space_to_depth`` gives the channels:
+    ``w'[o, (a, b, c), ki, kj] = w[o, c, 2 ki + a, 2 kj + b]`` (zero at the
+    padded 8th row and column). The image pads (1, 2) in H and W, the s2d
+    image of the conv stem's SAME (2, 3) at 224. The convolution is
+    cuDNN's, as ``lax.conv_general_dilated`` is XLA's in the JAX package.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_ch, out_ch, 7, 2, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[2] % 2 or x.shape[3] % 2:
+            raise ValueError(f"space-to-depth stem needs even H/W, got "
+                             f"{tuple(x.shape[2:])}")
+        w = F.pad(self.weight, (0, 1, 0, 1))  # (out, in, 8, 8)
+        o, c = w.shape[:2]
+        # (o, c, ki, a, kj, b) -> (o, a, b, c, ki, kj)
+        w = w.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+        w = w.reshape(o, 4 * c, 4, 4).to(self.dtype)
+        xs = F.pad(space_to_depth(x.to(self.dtype)), (1, 2, 1, 2))
+        return F.conv2d(xs, w)
 
 
 class _Block(nn.Module):
@@ -147,16 +192,22 @@ class ResNet(nn.Module):
                  small_images: bool = False, stem: str = "conv",
                  in_channels: int = 3):
         super().__init__()
-        if stem != "conv":
-            raise NotImplementedError(
-                f"stem={stem!r} is not ported: the space-to-depth stem is a "
-                "TPU layout of the same weights (ROADMAP.md Queue A 6(b))")
+        if stem not in ("conv", "space_to_depth"):
+            raise ValueError(f"unknown stem {stem!r}: expected 'conv' or "
+                             "'space_to_depth'")
+        if small_images and stem != "conv":
+            raise ValueError(f"stem={stem!r} requires the ImageNet stem; "
+                             "small_images=True uses the 3x3 CIFAR stem "
+                             "and would silently ignore it")
         self.dtype = dtype
         self.small_images = small_images
         width = 64 * width_multiplier
-        self.stem_conv = (Conv(in_channels, width, 3, dtype=dtype)
-                          if small_images
-                          else Conv(in_channels, width, 7, 2, dtype))
+        if small_images:
+            self.stem_conv = Conv(in_channels, width, 3, dtype=dtype)
+        elif stem == "space_to_depth":
+            self.stem_conv = SpaceToDepthStem(in_channels, width, dtype)
+        else:
+            self.stem_conv = Conv(in_channels, width, 7, 2, dtype)
         self.stem_bn = BatchNorm(width)
         blocks, in_ch = [], width
         for i, n_blocks in enumerate(stage_sizes):

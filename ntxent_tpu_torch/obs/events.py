@@ -1,6 +1,5 @@
 """Structured event log: typed JSONL records with run/attempt identity.
-Counterpart of ``ntxent_tpu/obs/events.py`` (stdlib; the flight-recorder
-dump is not ported yet: ROADMAP.md Queue A 11(b)).
+Counterpart of ``ntxent_tpu/obs/events.py`` (stdlib).
 
 Record shape (one JSON object per line)::
 
@@ -20,6 +19,12 @@ handle, so concurrent writers never interleave bytes and a reader can
 tail the file mid-run. ``async_io=True`` moves the serialization and the
 write onto one daemon writer thread (the serving stack's span emits ride
 the micro-batcher's dispatch loop, which must not wait for a disk).
+``mirror_logger=True`` also logs every record as ``key=value`` pairs
+(``utils.logging_utils.format_kv``).
+
+The flight recorder (``EventLog.dump_flight``, the hub's ``dump_flight``)
+writes the bounded in-memory tail to ``flight_<ts>-<id>.jsonl``: the
+postmortem of a stalled or preempted run, with or without ``--log-jsonl``.
 
 A process-wide hub (``install``/``get_event_log``/``emit``) lets deep
 instrumentation sites publish without plumbing a handle through every
@@ -39,8 +44,8 @@ from collections import deque
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["EVENT_TYPES", "EventLog", "emit", "get_event_log", "install",
-           "read_events", "set_attempt"]
+__all__ = ["EVENT_TYPES", "EventLog", "dump_flight", "emit",
+           "get_event_log", "install", "read_events", "set_attempt"]
 
 # span: one timed interval (obs/trace.py); compile: a serving bucket's
 # first run (serving/engine.py); rollout: a serving worker's checkpoint
@@ -65,10 +70,11 @@ class EventLog:
     """
 
     def __init__(self, path: str | None = None, run_id: str | None = None,
-                 tail: int = 256, async_io: bool = False,
-                 write_queue_max: int = 4096):
+                 mirror_logger: bool = False, tail: int = 256,
+                 async_io: bool = False, write_queue_max: int = 4096):
         self.path = path
         self.run_id = run_id or uuid.uuid4().hex[:8]
+        self.mirror_logger = mirror_logger
         self.dropped_writes = 0
         self._attempt = 0
         self._lock = threading.Lock()
@@ -136,11 +142,57 @@ class EventLog:
                 except OSError as e:  # a full disk must not end the run
                     logger.error("event log write failed (%s); record "
                                  "dropped: %s", e, line[:200])
+        if self.mirror_logger:
+            from ..utils.logging_utils import format_kv
+
+            logger.info("%s", format_kv(record))
         return record
 
     def counts(self) -> dict[str, int]:
         with self._lock:
             return dict(self._counts)
+
+    # -- flight recorder -------------------------------------------------
+    def dump_flight(self, directory: str | None = None,
+                    reason: str = "manual",
+                    routine: bool = False) -> str | None:
+        """Write the in-memory tail to ``flight_<ts>-<id>.jsonl``: a
+        ``flight`` header line, then the records. The directory: the
+        argument, then ``NTXENT_FLIGHT_DIR``, then the log file's own,
+        then the working directory, which ``routine=True`` (a preemption
+        signal: an expected shutdown) skips. Returns the path, or None
+        when skipped, the tail is empty or the write failed (a postmortem
+        never ends the process on a full disk)."""
+        with self._lock:
+            records = list(self._tail)
+        if not records:
+            return None
+        directory = (directory or os.environ.get("NTXENT_FLIGHT_DIR")
+                     or (os.path.dirname(os.path.abspath(self.path))
+                         if self.path else None))
+        if directory is None:
+            if routine:
+                return None
+            directory = "."
+        ts = time.strftime("%Y%m%d-%H%M%S")
+        path = os.path.join(directory,
+                            f"flight_{ts}-{uuid.uuid4().hex[:6]}.jsonl")
+        header = {"event": "flight", "reason": str(reason),
+                  "run_id": self.run_id, "attempt": self._attempt,
+                  "records": len(records),
+                  "wall": round(time.time(), 6)}
+        try:
+            os.makedirs(directory, exist_ok=True)
+            with open(path, "w") as f:
+                for record in [header] + records:
+                    f.write(json.dumps(_sanitize(record),
+                                       default=_jsonable) + "\n")
+        except OSError as e:
+            logger.error("flight recorder dump to %s failed: %s", path, e)
+            return None
+        logger.warning("flight recorder: dumped last %d events to %s "
+                       "(reason: %s)", len(records), path, reason)
+        return path
 
     def tail(self, n: int = 20) -> list[dict]:
         with self._lock:
@@ -303,3 +355,13 @@ def set_attempt(attempt: int) -> None:
     log = _event_log
     if log is not None:
         log.set_attempt(attempt)
+
+
+def dump_flight(reason: str = "manual", directory: str | None = None,
+                routine: bool = False) -> str | None:
+    """Dump the installed event log's tail (a no-op without one): the
+    supervisor's stall escalation and the preemption signal call this."""
+    log = _event_log
+    if log is not None:
+        return log.dump_flight(directory, reason=reason, routine=routine)
+    return None

@@ -345,9 +345,10 @@ def main(argv=None) -> int:
     ntxent_tpu_torch.obs.trace``)."""
     p = argparse.ArgumentParser(
         prog="python -m ntxent_tpu_torch.obs.trace",
-        description="Convert a run's typed JSONL event log (the serve "
-                    "CLI's --log-jsonl) into a Chrome-trace file; open it "
-                    "at https://ui.perfetto.dev or chrome://tracing.")
+        description="Convert a run's typed JSONL event log (the train or "
+                    "serve CLI's --log-jsonl) into a Chrome-trace file; "
+                    "open it at https://ui.perfetto.dev or "
+                    "chrome://tracing.")
     p.add_argument("jsonl", help="path to a JSONL event log")
     p.add_argument("-o", "--output", default="trace.json",
                    help="output trace file (default: trace.json)")

@@ -17,7 +17,8 @@ Counterpart of ``ntxent_tpu/ops/attention_pallas.py``. On the flattened
 
 A tensor on the GPU launches the CUDA kernel or raises; a tensor on the
 CPU takes the plain version. There is no fallback from a kernel to its
-plain version. Each wrapper counts its launches in ``.launches``.
+plain version. Each wrapper counts its launches in ``.launches`` and
+adds its kernel's FLOPs to an open ``ops.flops`` count.
 
 ``flash_attention`` is the public (B, L, H, D) entry, as in the JAX
 package, differentiable through the backward wrappers.
@@ -31,7 +32,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, flops
 from .blocks import round_up
 
 __all__ = ["attention_dkv_plain", "attention_dq_plain", "attention_plain",
@@ -152,6 +153,7 @@ def _launch(q, k, v, sc, causal, q_offset, k_offset):
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")
     flash_attention_fwd.launches += 1
+    flops.add(flops.flash_fwd(bh, lq, lk, d))
     return o, lse
 
 
@@ -269,6 +271,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     _bwd_launch(_bwd_kernels()[0], "flash_attention_dq", (dq,), q, k, v, do,
                 lse, delta, sc, causal, q_offset, k_offset)
     flash_attention_dq.launches += 1
+    flops.add(flops.flash_dq(*q.shape[:2], k.shape[1], q.shape[2]))
     return dq
 
 
@@ -292,6 +295,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     _bwd_launch(_bwd_kernels()[1], "flash_attention_dkv", (dk, dv), q, k, v,
                 do, lse, delta, sc, causal, q_offset, k_offset)
     flash_attention_dkv.launches += 1
+    flops.add(flops.flash_dkv(*q.shape[:2], k.shape[1], q.shape[2]))
     return dk, dv
 
 
@@ -385,6 +389,7 @@ def flash_fold(q, k, v, m, l, acc, *, q_offset: int = 0, k_offset: int = 0,
     if err != 0:
         raise RuntimeError(f"flash_fold launch failed: CUDA error {err}")
     flash_fold.launches += 1
+    flops.add(flops.flash_fwd(bh, lq, k.shape[1], d))
     return outs
 
 

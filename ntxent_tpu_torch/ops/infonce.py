@@ -55,7 +55,8 @@ function is the same.
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version. Each wrapper counts one launch per call in ``.launches`` (a call
 is a few kernels: the operand prep, the walk, the merge or the split
-sum; the square kernels cover both directions in one call). The TPU
+sum; the square kernels cover both directions in one call) and adds its
+FLOPs to an open ``ops.flops`` count. The TPU
 package's two-pass backward for large N on one device (``_bwd_sym_call``
 in cross-modal mode, taken when its accumulators outgrow VMEM) is the
 same function as #10; the square backward serves every N there. What
@@ -77,7 +78,7 @@ import functools
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, flops
 from .ntxent import (_NtxentPartial, _sm_count, check_width, column_splits,
                      device_scratch, dual_grads_splits, general_bwd_splits)
 
@@ -316,6 +317,7 @@ def infonce_dual_fwd(za: torch.Tensor, zb: torch.Tensor,
         raise RuntimeError(f"infonce_dual_fwd launch failed: CUDA error "
                            f"{err}")
     infonce_dual_fwd.launches += 1
+    flops.add(flops.scores(n, n, d))
     return loss, lse_a, lse_b
 
 
@@ -353,6 +355,7 @@ def infonce_dual_bwd(za: torch.Tensor, zb: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(f"infonce_dual_bwd launch failed: CUDA error "
                            f"{err}")
     infonce_dual_bwd.launches += 1
+    flops.add(flops.scores_and_products(n, n, d))
     return o_a, o_b
 
 
@@ -386,6 +389,7 @@ def infonce_dual_fwd_rect(za: torch.Tensor, zb: torch.Tensor,
         raise RuntimeError(f"infonce_dual_fwd_rect launch failed: CUDA "
                            f"error {err}")
     infonce_dual_fwd_rect.launches += 1
+    flops.add(flops.scores(n_a, n_b, d))
     return lse_a, lse_b
 
 
@@ -423,6 +427,7 @@ def _bwd_side(side: str, wrapper, za, zb, row_gid, scale, lse_a, lse_b):
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
                            f"{err}")
     wrapper.launches += 1
+    flops.add(flops.scores_and_product(n_a, n_b, d))
     return out
 
 

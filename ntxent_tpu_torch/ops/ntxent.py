@@ -80,7 +80,8 @@ pair-parallel loss (``parallel.pair``).
   shape.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version. Each wrapper counts its launches in ``.launches``. The tile
+version. Each wrapper counts its launches in ``.launches`` and adds its
+kernel's FLOPs to an open ``ops.flops`` count. The tile
 shape belongs to the CUDA kernels; the column split of #1, #5 and #6 is
 planned here (``column_splits``) and handed to them.
 """
@@ -94,7 +95,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, flops
 
 __all__ = ["block_grads", "block_grads_dual", "block_grads_dual_plain",
            "block_lse", "block_lse_dual", "block_lse_dual_plain",
@@ -415,6 +416,7 @@ def ntxent_fwd(z: torch.Tensor, temperature: float):
     if err != 0:
         raise RuntimeError(f"ntxent_fwd launch failed: CUDA error {err}")
     ntxent_fwd.launches += 1
+    flops.add(flops.scores(rows, rows, d))
     return loss, lse
 
 
@@ -454,6 +456,7 @@ def ntxent_bwd_sym(z: torch.Tensor, lse: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ntxent_bwd_sym launch failed: CUDA error {err}")
     ntxent_bwd_sym.launches += 1
+    flops.add(flops.scores_and_product(rows, rows, d))
     return grad
 
 
@@ -572,6 +575,7 @@ def ntxent_fwd_tri(z: torch.Tensor, temperature: float):
     if err != 0:
         raise RuntimeError(f"ntxent_fwd_tri launch failed: CUDA error {err}")
     ntxent_fwd_tri.launches += 1
+    flops.add(flops.triangle_fwd(rows, d))
     return loss, lse
 
 
@@ -611,6 +615,7 @@ def ntxent_bwd_tri(z: torch.Tensor, lse: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ntxent_bwd_tri launch failed: CUDA error {err}")
     ntxent_bwd_tri.launches += 1
+    flops.add(flops.triangle_bwd(rows, d))
     return grad
 
 
@@ -859,6 +864,7 @@ def ntxent_fwd_general(z_rows, z_cols, row_gid, temperature, col_gid=None,
         raise RuntimeError(f"ntxent_fwd_general launch failed: CUDA error "
                            f"{err}")
     ntxent_fwd_general.launches += 1
+    flops.add(flops.scores(rows, cols, d))
     return loss, lse
 
 
@@ -898,6 +904,7 @@ def _bwd_general(side, z_rows, z_cols, row_gid, lse, temperature, col_gid,
     if err != 0:
         raise RuntimeError(f"ntxent_bwd_general_{side} launch failed: CUDA "
                            f"error {err}")
+    flops.add(flops.scores_and_product(rows, cols, d))
     return grad
 
 
@@ -1219,6 +1226,7 @@ def block_lse_dual(z_rows: torch.Tensor, z_cols: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"block_lse_dual launch failed: CUDA error {err}")
     block_lse_dual.launches += 1
+    flops.add(flops.scores(rows, cols, d))
     return lse_rows, lse_cols
 
 
@@ -1268,6 +1276,7 @@ def block_grads_dual(z_rows: torch.Tensor, z_cols: torch.Tensor,
         raise RuntimeError(f"block_grads_dual launch failed: CUDA error "
                            f"{err}")
     block_grads_dual.launches += 1
+    flops.add(flops.scores_and_products(rows, cols, d))
     return grad_rows, grad_cols
 
 

@@ -22,10 +22,11 @@ default on the card, one child at a time, at the single-card SimCLR
 path's width (ResNet-50, 224 px, batch 256); ``--device cpu`` with the
 model flags the caller gives (``--model tiny --image-size 8 --batch 8``
 is the small case). ``python -m ntxent_tpu_torch.resilience.crashsim
---workdir DIR`` runs the audit. Not ported: the elastic audit across
-device counts and the multi-process incarnations (ROADMAP.md Queue A
-3(b) and 9), and the loss curves from ``--log-jsonl`` (Queue A 11(b)):
-the audit compares the fingerprints.
+--workdir DIR`` runs the audit. ``losses_from_jsonl`` reads a run's loss
+curve (``{global step: loss}``) from its ``--log-jsonl`` events, so curves
+of resumed incarnations merge by step. Not ported: the elastic audit
+across device counts, the multi-process incarnations and
+``restore_reshards_from_jsonl`` (ROADMAP.md Queue A 3(b) and 9).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from pathlib import Path
 logger = logging.getLogger(__name__)
 
 __all__ = ["AuditReport", "CrashAudit", "CrashAuditError",
-           "checkpoint_fingerprint", "parse_schedule",
+           "checkpoint_fingerprint", "losses_from_jsonl", "parse_schedule",
            "scan_checkpoint_dir"]
 
 _TMP_PREFIX = ".tmp-"
@@ -127,6 +128,20 @@ def scan_checkpoint_dir(ckpt_dir: Path) -> dict:
                  if p.is_dir() and p.name.startswith(_TMP_PREFIX)) \
         if ckpt_dir.is_dir() else []
     return {"torn": torn, "tmp": tmp}
+
+
+def losses_from_jsonl(path: Path) -> dict[int, float]:
+    """{global step: loss} from a JSONL event log's ``step`` events
+    (global step numbers: curves of resumed incarnations merge by key);
+    empty for a missing file."""
+    from ..obs.events import read_events
+
+    try:
+        records = read_events(str(path), "step")
+    except OSError:
+        return {}
+    return {int(rec["step"]): float(rec["loss"]) for rec in records
+            if "step" in rec and "loss" in rec}
 
 
 def parse_schedule(spec: str) -> list[tuple[int, int]]:

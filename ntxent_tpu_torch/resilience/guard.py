@@ -22,18 +22,35 @@ and takes a trailing ``scale`` that multiplies the gradients.
    restarts from the newest valid checkpoint.
 
 ``None`` for a threshold disables its tier (``--nan-policy
-skip|backoff|rollback``). The reference's registry series and
-``divergence`` events wait for the port's observability layer; the guard
-logs its decisions and keeps them in ``stats``.
+skip|backoff|rollback``). The decisions are logged, kept in ``stats``,
+counted in the JAX package's registry series (``train_divergence_
+{skips,backoffs,rollbacks}_total``, the ``train_grad_scale`` gauge) and
+emitted as ``divergence`` events (action skip, backoff or rollback, with
+the outcome's lag).
 """
 
 from __future__ import annotations
 
 import logging
 
+from ..obs import events as obs_events
+from ..obs.registry import default_registry
+
 logger = logging.getLogger(__name__)
 
 __all__ = ["DivergenceError", "DivergenceGuard"]
+
+_SKIPS = default_registry().counter(
+    "train_divergence_skips_total",
+    "non-finite steps skipped by the in-step guard")
+_BACKOFFS = default_registry().counter(
+    "train_divergence_backoffs_total",
+    "gradient-scale backoff escalations")
+_ROLLBACKS = default_registry().counter(
+    "train_divergence_rollbacks_total",
+    "DivergenceError rollbacks raised to the supervisor")
+_SCALE = default_registry().gauge(
+    "train_grad_scale", "current divergence-guard gradient scale")
 
 
 class DivergenceError(RuntimeError):
@@ -65,6 +82,7 @@ class DivergenceGuard:
         self.regrow_after = regrow_after
         self.min_scale = min_scale
         self.scale = float(init_scale)
+        _SCALE.set(self.scale)  # a run that never backs off scrapes 1.0
         self.consecutive_skips = 0
         self.total_skips = 0
         self._healthy_streak = 0
@@ -88,9 +106,20 @@ class DivergenceGuard:
     def _set_scale(self, scale: float) -> None:
         self.scale = scale
         self.stats["scale"] = scale
+        _SCALE.set(scale)
 
-    def _rollback(self, message: str) -> None:
+    def _emit(self, action: str, outcome) -> None:
+        obs_events.emit(
+            "divergence", action=action, step=int(outcome.step),
+            loss=outcome.loss, grad_norm=outcome.grad_norm,
+            consecutive=self.consecutive_skips,
+            total=self.total_skips, scale=self.scale, guarded=True,
+            lag=int(getattr(outcome, "lag", 0)))
+
+    def _rollback(self, outcome, message: str) -> None:
         self.stats["rollbacks"] += 1
+        _ROLLBACKS.inc()
+        self._emit("rollback", outcome)
         logger.error("divergence guard: %s", message)
         raise DivergenceError(message)
 
@@ -110,6 +139,7 @@ class DivergenceGuard:
         self.consecutive_skips += 1
         self.total_skips += 1
         self.stats["skips"] += 1
+        _SKIPS.inc()
         logger.warning(
             "divergence guard: non-finite step %d skipped (loss=%s, "
             "grad_norm=%s; %d consecutive, %d total)", outcome.step,
@@ -118,6 +148,7 @@ class DivergenceGuard:
         if self.rollback_after is not None \
                 and self.total_skips >= self.rollback_after:
             self._rollback(
+                outcome,
                 f"{self.total_skips} non-finite steps this attempt (budget "
                 f"{self.rollback_after}): rolling back to the last valid "
                 "checkpoint")
@@ -126,13 +157,18 @@ class DivergenceGuard:
                 and self.consecutive_skips % self.backoff_after == 0:
             self._set_scale(self.scale * self.backoff_factor)
             self.stats["backoffs"] += 1
+            _BACKOFFS.inc()
             logger.warning("divergence guard: %d consecutive skips, gradient "
                            "scale backed off to %g", self.consecutive_skips,
                            self.scale)
             if self.scale < self.min_scale:
                 if self.rollback_after is not None:
                     self._rollback(
+                        outcome,
                         f"gradient scale {self.scale:g} collapsed below "
                         f"{self.min_scale:g}: rolling back to the last "
                         "valid checkpoint")
                 self._set_scale(self.min_scale)
+            self._emit("backoff", outcome)
+        else:
+            self._emit("skip", outcome)

@@ -7,8 +7,9 @@ seeded jitter): the micro-batcher answers a full queue with 429 and a
 retries do. ``RetryPolicy.call`` / ``wrap`` retry a function on
 transient errors (``OSError``, ``TimeoutError``) under an attempt cap
 and an optional wall-clock budget; the checkpoint manager wraps its
-physical writes and reads in one. Retries are logged (the reference's
-``retry`` event and counters wait for the port's observability layer).
+physical writes and reads in one. A retry is logged, counted
+(``retries_total``; a give-up in ``retries_exhausted_total``) and emitted
+as a ``retry`` event.
 """
 
 from __future__ import annotations
@@ -21,9 +22,18 @@ import time
 from collections.abc import Callable
 from typing import Any
 
+from ..obs import events as obs_events
+from ..obs.registry import default_registry
+
 __all__ = ["DEFAULT_TRANSIENT", "RetryBudgetExceeded", "RetryPolicy"]
 
 logger = logging.getLogger(__name__)
+
+_RETRIES = default_registry().counter(
+    "retries_total", "transient faults retried by RetryPolicy")
+_EXHAUSTED = default_registry().counter(
+    "retries_exhausted_total",
+    "RetryPolicy give-ups (attempts or wall-clock budget spent)")
 
 # Filesystem and network hiccups (OSError covers ConnectionError and its
 # kin) and timeouts; not RuntimeError: a wedged backend stays wedged.
@@ -81,13 +91,23 @@ class RetryPolicy:
                 return fn(*args, **kwargs)
             except self.retry_on as e:
                 if attempt >= self.max_attempts:
+                    _EXHAUSTED.inc()
                     raise
                 delay = self.delay_for(attempt)
                 if self.budget_s is not None and \
                         self.monotonic() - start + delay > self.budget_s:
+                    _EXHAUSTED.inc()
                     raise RetryBudgetExceeded(
                         f"retry budget {self.budget_s:.1f}s exhausted after "
                         f"{attempt} attempt(s) of {name!r}") from e
+                _RETRIES.inc()
+                # "attempt" is the record's supervisor attempt; the retry
+                # ordinal rides as call_attempt
+                obs_events.emit(
+                    "retry", fn=name, call_attempt=attempt,
+                    max_attempts=self.max_attempts,
+                    error=f"{type(e).__name__}: {e}",
+                    delay_s=round(delay, 4))
                 logger.warning("transient failure in %r (attempt %d/%d): %s "
                                "-- retrying in %.2fs", name, attempt,
                                self.max_attempts, e, delay)

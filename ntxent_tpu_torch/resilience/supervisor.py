@@ -22,9 +22,12 @@ The caller's ``run_attempt(attempt, stop_fn, watchdog)`` is usually a
 closure over ``training.fit`` that builds a fresh ``TrainState`` each
 attempt (no tensor of a crashed attempt is reused) and hands ``stop_fn``
 and ``watchdog`` through; ``cli`` wires it for ``--max-restarts`` and
-``--chaos``. The reference's registry series, restart events and the
-flight-recorder dump on a stall wait for the port's observability layer;
-restarts and stalls are logged.
+``--chaos``. Attempts and restarts are counted in the JAX package's
+registry series (``supervisor_{attempts,restarts,topology_restarts}_
+total``; the last stays 0 until the elastic rebuild is ported), each
+restart is a ``restart`` event, each attempt stamps the event log's
+``attempt``, and a stall's escalation first dumps the flight recorder
+(``obs.events.dump_flight``).
 """
 
 from __future__ import annotations
@@ -34,12 +37,24 @@ import logging
 import time
 from collections.abc import Callable
 
+from ..obs import events as obs_events
+from ..obs.registry import default_registry
 from ..training.preemption import PreemptionGuard
 from ..utils.watchdog import StallWatchdog
 from .faults import TopologyChange
 from .retry import RetryPolicy
 
 logger = logging.getLogger(__name__)
+
+_RESTARTS = default_registry().counter(
+    "supervisor_restarts_total",
+    "in-process restarts after a detected fault")
+_ATTEMPTS = default_registry().counter(
+    "supervisor_attempts_total", "supervised attempts started")
+_TOPOLOGY_RESTARTS = default_registry().counter(
+    "supervisor_topology_restarts_total",
+    "restarts that rebuilt the mesh over a changed device set "
+    "(shrink@K / grow@K)")
 
 __all__ = ["AttemptRecord", "Supervisor", "SupervisorResult"]
 
@@ -109,6 +124,12 @@ class Supervisor:
         logger.error("supervisor: stall escalation after %.1fs of silence: "
                      "stopping the attempt at the next step boundary "
                      "(checkpoint and in-process restart)", quiet_s)
+        # the flight recorder first: the stalled attempt's last events are
+        # the postmortem, with or without --log-jsonl
+        try:
+            obs_events.dump_flight(reason=f"stall:{quiet_s:.1f}s")
+        except Exception:  # the dump never blocks the escalation
+            logger.exception("flight recorder dump failed on stall")
         guard.request()
 
     def run(self) -> SupervisorResult:
@@ -122,6 +143,9 @@ class Supervisor:
         for attempt in range(total_attempts):
             guard = PreemptionGuard()
             self._guard = guard
+            _ATTEMPTS.inc()
+            # rollback replays repeat step numbers: the attempt tells them
+            obs_events.set_attempt(attempt)
             error: str | None = None
             stalled = False
             topology: str | None = None
@@ -170,6 +194,11 @@ class Supervisor:
             if self.injector is not None:
                 self.injector.between_attempts(self.checkpoint_dir)
             delay = self.backoff.delay_for(attempt + 1)
+            _RESTARTS.inc()
+            obs_events.emit(
+                "restart", attempt=attempt, end_step=end_step,
+                preempted=bool(guard.preempted), stalled=bool(stalled),
+                error=error, topology=topology, delay_s=round(delay, 4))
             logger.warning(
                 "supervisor: attempt %d/%d ended at step %s (preempted=%s, "
                 "stalled=%s, error=%s): restarting from the last valid "

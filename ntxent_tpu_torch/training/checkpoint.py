@@ -48,9 +48,12 @@ sizes and CRC32s. Either package restores the other's steps.
   restores at world Q by plain placement; the restore logs whether the
   world changed. Only rank 0 writes.
 
-Save, restore and fallback are logged; the reference's registry series
-(``checkpoint_saves_total`` ...) wait for the port's observability layer.
-``stats`` keeps the save and restore times and the state's bytes.
+Save, restore and fallback are logged, counted in the JAX package's
+registry series (``checkpoint_saves_total`` to
+``checkpoint_mirror_restores_total``; the reshard pair waits for
+ROADMAP.md Queue A 3(b)) and emitted as ``checkpoint`` events (action
+save, fallback or restore). ``stats`` keeps the save and restore times and
+the state's bytes.
 """
 
 from __future__ import annotations
@@ -70,6 +73,8 @@ from pathlib import Path
 
 import torch
 
+from ..obs import events as obs_events
+from ..obs.registry import default_registry
 from ..parallel import mesh
 from ..resilience.retry import RetryBudgetExceeded
 from ..utils import msgpack
@@ -90,6 +95,43 @@ DATA_STATE_FILE = "data_state.json"
 META_FILE = "meta.json"
 TOPOLOGY_FILE = "topology.json"
 _TMP_PREFIX = ".tmp-"
+
+_SAVES = default_registry().counter(
+    "checkpoint_saves_total", "successful checkpoint saves")
+_SAVE_FAILURES = default_registry().counter(
+    "checkpoint_save_failures_total",
+    "checkpoint saves skipped on filesystem errors")
+_RESTORES = default_registry().counter(
+    "checkpoint_restores_total", "checkpoint restores")
+_FALLBACKS = default_registry().counter(
+    "checkpoint_corrupt_fallbacks_total",
+    "corrupt checkpoints skipped by the restore CRC fallback")
+_SAVE_MS = default_registry().histogram(
+    "checkpoint_save_ms", "wall time of one checkpoint save")
+_QUEUE_DEPTH = default_registry().gauge(
+    "checkpoint_queue_depth",
+    "async checkpoint saves queued or in flight")
+_ASYNC_SAVES = default_registry().counter(
+    "checkpoint_async_saves_total",
+    "saves handed to the background writer")
+_BLOCKED_MS = default_registry().histogram(
+    "checkpoint_save_blocked_ms",
+    "train-loop time spent waiting for an in-flight async save")
+_OVERLAP_MS = default_registry().histogram(
+    "checkpoint_save_overlap_ms",
+    "background-writer wall time per save (hidden under compute)")
+_GC_DELETED = default_registry().counter(
+    "checkpoint_gc_deleted_total",
+    "checkpoint steps removed by the retention policy")
+_MIRROR_COPIES = default_registry().counter(
+    "checkpoint_mirror_copies_total",
+    "checkpoint steps replicated to the mirror directory")
+_MIRROR_FAILURES = default_registry().counter(
+    "checkpoint_mirror_failures_total",
+    "mirror replications skipped on filesystem errors")
+_MIRROR_RESTORES = default_registry().counter(
+    "checkpoint_mirror_restores_total",
+    "restores served from the mirror after primary corruption/loss")
 
 
 def _crc32_file(path: Path, chunk: int = 1 << 20) -> int:
@@ -578,6 +620,7 @@ class CheckpointManager:
             self.delete_step(step, reason="retired")
             if self._step_dir(step) is None:
                 deleted.append(step)
+                _GC_DELETED.inc()
         if self._mirror is not None:
             self._gc_mirror(just_saved)
         if deleted:
@@ -608,8 +651,10 @@ class CheckpointManager:
                 self._record_manifest(
                     step, root=self.mirror_dir,
                     manifest=self._load_manifests().get(str(step)))
+            _MIRROR_COPIES.inc()
         except OSError as e:
             shutil.rmtree(tmp, ignore_errors=True)
+            _MIRROR_FAILURES.inc()
             logger.error("mirror replication of step %d failed (%s); the "
                          "primary save stands", step, e)
 
@@ -663,6 +708,9 @@ class CheckpointManager:
         except (OSError, RetryBudgetExceeded) as e:
             logger.error("checkpoint save at step %d failed (%s: %s); "
                          "continuing without it", step, type(e).__name__, e)
+            _SAVE_FAILURES.inc()
+            obs_events.emit("checkpoint", action="save", step=step,
+                            ok=False, error=f"{type(e).__name__}: {e}")
             self._has_any_step = self.manager.latest_step() is not None
             return False
         if saved:
@@ -683,6 +731,13 @@ class CheckpointManager:
             self.stats["save_ms"].append(ms)
             self.stats["state_bytes"] = \
                 self.manager.last_write_manifest[1]["files"][STATE_FILE][0]
+            _SAVES.inc()
+            _SAVE_MS.observe(ms)
+            obs_events.emit("checkpoint", action="save", step=step,
+                            ok=True, forced=bool(force),
+                            emergency=bool(emergency),
+                            duration_ms=round(ms, 3),
+                            verified=bool(self.verify_writes))
             logger.info("checkpoint saved at step %d -> %s in %.1f ms%s",
                         step, self.directory, ms,
                         " (emergency)" if emergency else "")
@@ -713,6 +768,7 @@ class CheckpointManager:
                              type(e).__name__, e)
                 continue
             if label == "mirror":
+                _MIRROR_RESTORES.inc()
                 logger.warning("restoring step %d from the MIRROR (%s): the "
                                "primary copy is corrupt or missing", step,
                                self.mirror_dir)
@@ -779,11 +835,18 @@ class CheckpointManager:
                     step = cand
                     break
                 except _UnreadableStepError as e:
+                    # not provable corruption: kept on disk, skipped
                     unreadable = e
+                    obs_events.emit("checkpoint", action="fallback",
+                                    step=int(cand), ok=False,
+                                    reason="unreadable")
                 except FileNotFoundError:
                     logger.error("checkpoint at step %d is corrupt in every "
                                  "replica; falling back to the previous one",
                                  cand)
+                    _FALLBACKS.inc()
+                    obs_events.emit("checkpoint", action="fallback",
+                                    step=int(cand), ok=False)
                     self.delete_step(cand)
             if chosen is None:
                 if unreadable is not None:
@@ -812,6 +875,11 @@ class CheckpointManager:
             != world["device_count"]
         ms = (time.perf_counter() - t0) * 1e3
         self.stats["restore_ms"].append(ms)
+        _RESTORES.inc()
+        obs_events.emit("checkpoint", action="restore", step=int(step),
+                        ok=True, source=source,
+                        reshard="gather_replace" if changed else "none",
+                        duration_ms=round(ms, 3))
         logger.info("checkpoint step %d restored from the %s copy in %.1f "
                     "ms; topology %s (saved at world %s, restored at world "
                     "%d)", step, source, ms,
@@ -888,6 +956,7 @@ class AsyncCheckpointer:
                 if job is None:
                     return
                 step, snapshot, data_state, force = job
+                t0 = time.perf_counter()
                 try:
                     self.manager.save(step, snapshot, force=force,
                                       data_state=data_state,
@@ -896,8 +965,10 @@ class AsyncCheckpointer:
                     self.last_error = e
                     logger.exception("async checkpoint writer: the save at "
                                      "step %d died", step)
+                _OVERLAP_MS.observe((time.perf_counter() - t0) * 1e3)
             finally:
                 self._queue.task_done()
+                _QUEUE_DEPTH.set(self._queue.qsize())
 
     def save(self, step: int, state, force: bool = False,
              data_state: dict | None = None,
@@ -914,9 +985,12 @@ class AsyncCheckpointer:
             # bounded work, waited for before the snapshot: no more than
             # max_pending host copies of the state exist at once
             self._queue.join()
+            _BLOCKED_MS.observe((time.perf_counter() - t0) * 1e3)
         snapshot = self.manager.snapshot(state, ef_residual)
         self._queue.put((step, snapshot, data_state, force))
         self.stats["blocked_ms"].append((time.perf_counter() - t0) * 1e3)
+        _QUEUE_DEPTH.set(self._queue.qsize())
+        _ASYNC_SAVES.inc()
         return True
 
     def emergency_save(self, step: int, state,

@@ -7,7 +7,11 @@ checkpoint) happens on the main thread at the next step boundary, where
 ``fit``'s ``stop_fn`` polls ``PreemptionGuard.requested``. Under async
 checkpointing the stop sends ``fit``'s final save through
 ``AsyncCheckpointer.emergency_save``, so the stopped step is on disk
-before the process exits.
+before the process exits. The first poll that sees the signal also dumps
+the flight recorder (``obs.events.dump_flight(reason="signal",
+routine=True)``): from the polling thread, never the handler, and only
+where telemetry already lives (the ``--log-jsonl`` directory or
+``NTXENT_FLIGHT_DIR``).
 """
 
 from __future__ import annotations
@@ -51,6 +55,14 @@ class PreemptionGuard:
             self._announced = True
             logger.warning("shutdown signal received: finishing current "
                            "step, saving checkpoint, then exiting")
+            # best effort: the save this poll unblocks never waits on a
+            # full disk
+            try:
+                from ..obs import events as obs_events
+
+                obs_events.dump_flight(reason="signal", routine=True)
+            except Exception:
+                logger.exception("flight recorder dump failed on signal")
         return self._event.is_set()
 
     @property

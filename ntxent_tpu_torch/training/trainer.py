@@ -56,7 +56,13 @@ of the data-parallel SimCLR step of ``ntxent_tpu/training/trainer.py``.
   ``step_hook`` runs after every step, ``watchdog`` (``utils.watchdog.
   StallWatchdog``) is beaten once a step and ``step_guard``
   (``resilience.DivergenceGuard``) sees each step's ``StepOutcome``, one
-  step late under ``metrics_lag=1`` (the lag-1 drain);
+  step late under ``metrics_lag=1`` (the lag-1 drain); ``timeline``
+  (``obs.StepTimeline``, ``trainer.py:995-1160``) records every step's
+  data wait, device and hook time, and step 1's FLOPs for the MFU
+  (``count_step_flops``);
+* ``peak_flops_per_chip`` / ``peak_hbm_bytes_per_chip`` /
+  ``estimate_mfu`` (``trainer.py:1376-1408``): the card's bf16 dense peak
+  and memory rate by its name;
 * ``fit`` (``trainer.py:1167``): checkpoint-aware training over
   ``training.checkpoint``: restore the newest valid step (or
   ``restore_step``, newer steps truncated) with the input pipeline's
@@ -126,6 +132,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..models.layers import BatchNorm, frozen_running_stats
+from ..ops import flops as kernel_flops
 from ..ops import oracle
 from ..ops.infonce import info_nce_fused
 from ..ops.ntxent import ntxent_loss_fused
@@ -147,18 +154,17 @@ from .lars import simclr_learning_rate
 logger = logging.getLogger(__name__)
 
 __all__ = ["ROADMAP_ITEMS", "StepOutcome", "TrainState", "TrainerConfig",
-           "create_clip_train_state", "create_train_state", "fit",
+           "count_step_flops", "create_clip_train_state",
+           "create_train_state", "estimate_mfu", "fit",
            "init_error_feedback", "make_clip_train_step",
            "make_sharded_clip_train_step", "make_sharded_train_step",
-           "make_train_step", "measure_comms_overlap", "train_loop"]
+           "make_train_step", "measure_comms_overlap",
+           "peak_flops_per_chip", "peak_hbm_bytes_per_chip", "train_loop"]
 
 # What training does not port yet, by the ROADMAP.md item that will.
 ROADMAP_ITEMS = {
-    "stem": "ROADMAP.md Queue A 6(b) (the space-to-depth ResNet stem)",
     "mp": "ROADMAP.md Queue A 9 (model parallelism and MoE; multi-host "
           "worlds come from torchrun's environment)",
-    "obs": "ROADMAP.md Queue A 11(b) (observability: the metrics "
-           "endpoint, the event log, traces)",
 }
 
 
@@ -663,7 +669,7 @@ def measure_comms_overlap(group, n_local: int, dim: int, *,
                           ring_chunks: int | None = None,
                           include_backward: bool = True, repeats: int = 5,
                           warmup: int = 2, seed: int = 0,
-                          device=None) -> dict:
+                          device=None, timeline=None) -> dict:
     """The A/B of the chunked ring schedule's overlap (``trainer.py:
     809-880``): the strip loss (one all-gather a view) against the
     chunked ring loss over the ranks of ``group`` on unit embeddings of
@@ -673,8 +679,9 @@ def measure_comms_overlap(group, n_local: int, dim: int, *,
     Returns ``{"monolithic_ms", "chunked_ms", "overlap_ms",
     "overlap_frac", "chunks", "backend"}`` with ``overlap_ms =
     max(monolithic - chunked, 0)``. Its collectives are not recorded.
-    (The JAX helper also publishes the result on the step timeline; the
-    port's timeline is ROADMAP.md Queue A 11(b), so the caller logs it.)
+    With ``timeline`` (``obs.StepTimeline``) the result is also published
+    (``set_comms_overlap``: the overlap gauges and one ``comms_overlap``
+    event).
     """
     from ..ops.autotune import resolve_ring_chunks, time_loss
     from ..parallel.dist_loss import make_sharded_ntxent
@@ -705,10 +712,84 @@ def measure_comms_overlap(group, n_local: int, dim: int, *,
                                             impl="chunked",
                                             ring_chunks=chunks))
     overlap = max(mono - chunked, 0.0)
+    if timeline is not None:
+        timeline.set_comms_overlap(overlap, monolithic_ms=mono,
+                                   chunked_ms=chunked, chunks=chunks)
     return {"monolithic_ms": mono, "chunked_ms": chunked,
             "overlap_ms": overlap,
             "overlap_frac": overlap / mono if mono else 0.0,
             "chunks": int(chunks), "backend": device.type}
+
+
+# (name fragments, bf16 dense FLOP/s, memory bytes/s): NVIDIA's data
+# sheets; the SXM card's name says HBM3
+_PEAKS = ((("h100", "pcie"), 756e12, 2.0e12),
+          (("h100", "hbm3"), 989.4e12, 3.35e12),
+          (("h100", "sxm"), 989.4e12, 3.35e12))
+# the JAX package's placeholders for an unknown accelerator (the CPU too)
+_UNKNOWN_PEAK = (100e12, 819e9)
+
+
+@functools.cache
+def _peaks(name: str) -> tuple[float, float]:
+    lowered = name.lower()
+    for keys, peak, rate in _PEAKS:
+        if all(k in lowered for k in keys):
+            return peak, rate
+    logger.warning("no peak rates known for %r: MFU and the roofline use "
+                   "the placeholders %.3g FLOP/s and %.3g B/s", name,
+                   *_UNKNOWN_PEAK)
+    return _UNKNOWN_PEAK
+
+
+def _device_name() -> str:
+    return (torch.cuda.get_device_name() if torch.cuda.is_available()
+            else "cpu")
+
+
+def peak_flops_per_chip() -> float:
+    """Peak bf16 dense FLOP/s of the card (``trainer.py:1376``): an H100
+    SXM (HBM3) 989.4e12, an H100 PCIe 756e12; any other name, the CPU
+    included, the JAX package's placeholder 100e12, with a warning."""
+    return _peaks(_device_name())[0]
+
+
+def estimate_mfu(flops_per_step: float, steps_per_sec: float) -> float:
+    return flops_per_step * steps_per_sec / peak_flops_per_chip()
+
+
+def peak_hbm_bytes_per_chip() -> float:
+    """Peak memory rate (bytes/s) of the card (``trainer.py:1392``): an
+    H100 SXM 3.35e12, an H100 PCIe 2.0e12; otherwise the JAX package's
+    placeholder 819e9. With ``peak_flops_per_chip`` it gives a step's
+    roofline: below the intensity peak_flops / peak_bytes no tiling
+    reaches full MFU."""
+    return _peaks(_device_name())[1]
+
+
+class _StepFlops:
+    flops: float | None = None
+
+
+@contextlib.contextmanager
+def count_step_flops():
+    """``with count_step_flops() as count:`` one step's FLOPs in
+    ``count.flops`` when the block ends, the counterpart of the JAX
+    package's XLA cost analysis of the AOT step (``trainer.py:736-763``):
+    aten's matmuls and convolutions under
+    ``torch.utils.flop_counter.FlopCounterMode`` (2 FLOPs a
+    multiply-add, as XLA counts them; backward and ``--remat``'s
+    recompute included) plus the hand-written kernels' own tally
+    (``ops.flops``: the counter does not see a ``ctypes`` launch). XLA
+    also counts element-wise work, which neither does. On a data-parallel
+    rank the count is that rank's, per card as JAX's is per chip."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    count = _StepFlops()
+    counter = FlopCounterMode(display=False)
+    with counter, kernel_flops.counting() as tally:
+        yield count
+    count.flops = float(counter.get_total_flops()) + tally.flops
 
 
 def _sync(device: torch.device) -> None:
@@ -754,7 +835,8 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
                log: bool = True, stop_fn: Callable[[], bool] | None = None,
                step_hook: Callable[[TrainState], None] | None = None,
                watchdog=None, step_guard: Callable | None = None,
-               metrics_lag: int = 0) -> list[dict]:
+               metrics_lag: int = 0, timeline=None,
+               flops_per_step: float | str | None = "auto") -> list[dict]:
     """Run ``num_steps`` steps; every ``log_every`` steps (and at the
     last) read the loss and log steps/s and images/s over the window.
     Images are those through the image encoder: ``views`` per row of the
@@ -768,7 +850,8 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
     read), with the mean ms a step waited for its batch over the window
     (``data_wait_ms``) and, when the data has ``last_timing()`` (a
     prefetching pipeline), the mean host fetch and transfer dispatch ms of
-    its batches (``fetch_ms``, ``transfer_ms``).
+    its batches (``fetch_ms``, ``transfer_ms``), and ``mfu`` once the
+    step's FLOPs are known.
 
     After each step: ``watchdog`` (a started ``StallWatchdog``) is beaten,
     and ``step_guard`` is called with the step's ``StepOutcome`` (it may
@@ -776,6 +859,24 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
     with ``scale_value()`` hands its scale to the step as a trailing
     argument (a step built with ``guard=True``). Building the outcome
     reads the loss: one host sync a step, for guarded runs only.
+
+    ``timeline`` (``obs.StepTimeline``, ``trainer.py:995-1160``) records
+    every step with global step numbers (``state.step``): the data wait
+    (split into host fetch and transfer with ``last_timing()``), the
+    device time, the hook's time, the loss and the guard's outcome. On
+    the synchronous path the device time is a ``torch.cuda.synchronize``
+    bracket, one host sync a step paid only with a timeline (the JAX
+    loop's ``block_until_ready``); under ``metrics_lag=1`` it is dispatch
+    to ready, read on the drained step's own event: no sync is added.
+    With a timeline step 1 is the counted one: the comms accounting delta
+    around it goes to ``set_comms_per_step`` and, with
+    ``flops_per_step="auto"``, its FLOPs are counted
+    (``count_step_flops``), the card synchronized after it, and the
+    ``compile`` event records its wall time: the port's first run (the
+    kernel libraries loaded, cuBLAS's heuristics, the allocator warmed),
+    which stands where the JAX loop's AOT compile does. A float
+    ``flops_per_step`` is taken as given, None disables the MFU. Without
+    a timeline nothing is counted and nothing synchronized.
 
     ``metrics_lag=1`` (``trainer.py:944-971``): step N-1's outcome is read
     after step N is queued, so the host does not wait for the card
@@ -796,6 +897,16 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
     window = dict(start=time.perf_counter(), done=0, wait=0.0, fetch=0.0,
                   transfer=0.0, timed=0)
     rows, done = 0, 0
+    comms_mark, count_flops = None, False
+    if timeline is not None:
+        timeline.new_attempt()  # a restart's gap is no step time
+        comms_mark = comms_accounting().totals()
+        count_flops = flops_per_step == "auto"
+        timeline.set_flops_per_step(
+            None if count_flops or flops_per_step is None
+            else float(flops_per_step))
+    step_flops = (None if flops_per_step in ("auto", None)
+                  else float(flops_per_step))
 
     def check(step: int, metrics, wait: float, timing) -> dict | None:
         """A completed step (``wait``: s it waited for its batch,
@@ -818,6 +929,18 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
             step_guard(_outcome(step, values, metrics_lag))
         return values
 
+    def observe(step: int, values: dict, wait: float, timing,
+                device_s: float, hook_s: float) -> None:
+        """The timeline's record of a completed step."""
+        ok = values.get("step_ok")
+        timeline.record_step(
+            step=step, loss=values["loss"], data_wait_s=wait,
+            device_s=device_s, hook_s=hook_s,
+            host_fetch_s=timing[0] if timing is not None else None,
+            transfer_s=timing[1] if timing is not None else None,
+            ok=None if ok is None else bool(ok),
+            grad_norm=values.get("grad_norm"))
+
     def record(step: int, metrics, values, force: bool = False) -> None:
         if not (done % log_every == 0 or done == num_steps or force):
             return
@@ -831,6 +954,8 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
         if window["timed"]:
             entry["fetch_ms"] = window["fetch"] * 1e3 / window["timed"]
             entry["transfer_ms"] = window["transfer"] * 1e3 / window["timed"]
+        if step_flops:
+            entry["mfu"] = estimate_mfu(step_flops, sps)
         history.append(entry)
         if log:
             logger.info("step %d loss %.4f (%.2f steps/s, %.1f "
@@ -840,10 +965,22 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
                       timed=0)
 
     def drain(pending, force: bool = False) -> None:
-        step, metrics = pending[:2]
-        record(step, metrics, check(*pending), force)
+        """Lag-1: read a queued step's outcome; its device time runs from
+        its dispatch to the moment its metrics were ready."""
+        step, metrics, wait, timing, t_dispatch, hook_s = pending
+        values = check(step, metrics, wait, timing)
+        if timeline is not None:
+            observe(step, values, wait, timing,
+                    time.perf_counter() - t_dispatch, hook_s)
+        record(step, metrics, values, force)
 
-    pending = None  # lag-1: a queued step's check() arguments
+    def run(v1, v2):
+        if use_scale:
+            return train_step(state, v1, v2, step_guard.scale_value(),
+                              **lag_kwargs)
+        return train_step(state, v1, v2)
+
+    pending = None  # lag-1: a queued step, for drain()
     for _ in range(num_steps):
         if stop_fn is not None and stop_fn():
             if pending is not None:
@@ -859,23 +996,47 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
         timing = (data_iter.last_timing()
                   if hasattr(data_iter, "last_timing") else None)
         rows = v1.shape[0]
-        if use_scale:
-            state, metrics = train_step(state, v1, v2,
-                                        step_guard.scale_value(),
-                                        **lag_kwargs)
+        t_step = time.perf_counter()
+        if count_flops:
+            # step 1 with a timeline: its FLOPs, then its wall time as the
+            # compile event (the card synchronized once)
+            count_flops = False
+            with count_step_flops() as counted:
+                state, metrics = run(v1, v2)
+            _sync(device)
+            step_flops = counted.flops
+            timeline.set_flops_per_step(step_flops)
+            timeline.record_compile((time.perf_counter() - t_step) * 1e3,
+                                    step_flops)
+            if log:
+                logger.info("counted step cost: %.3e FLOPs a card",
+                            step_flops)
         else:
-            state, metrics = train_step(state, v1, v2)
+            state, metrics = run(v1, v2)
+        if comms_mark is not None:
+            timeline.set_comms_per_step(
+                comms_accounting().delta(comms_mark))
+            comms_mark = None
         if metrics_lag:
-            queued = (state.step, _Metrics(metrics), wait, timing)
+            queued = (state.step, _Metrics(metrics), wait, timing, t_step)
             if pending is not None:
                 drain(pending)  # step N-1's outcome, step N queued
+            t_hook = time.perf_counter()
             if step_hook is not None:
                 step_hook(state)
-            pending = queued
+            pending = queued + (time.perf_counter() - t_hook,)
             continue
+        if timeline is not None:
+            _sync(device)  # the device bracket: with a timeline only
+        device_s = time.perf_counter() - t_step
         values = check(state.step, metrics, wait, timing)
+        t_hook = time.perf_counter()
         if step_hook is not None:
             step_hook(state)
+        if timeline is not None:
+            values = values or _Metrics(metrics).read()
+            observe(state.step, values, wait, timing, device_s,
+                    time.perf_counter() - t_hook)
         record(state.step, metrics, values)
     if pending is not None:
         drain(pending, force=True)  # the last outcome is always read
@@ -941,7 +1102,8 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
         log: bool = True, group=None, checkpoint_stats: dict | None = None,
         watchdog=None, step_guard: Callable | None = None,
         checkpoint_fault_hook: Callable | None = None,
-        metrics_lag: int = 0, checkpoint_save_ef: bool = False):
+        metrics_lag: int = 0, checkpoint_save_ef: bool = False,
+        timeline=None):
     """Checkpoint-aware training (``trainer.py:1167``): restore the newest
     valid checkpoint of ``checkpoint_dir`` if there is one, train to
     ``num_steps`` steps IN ALL, save every ``checkpoint_every`` global
@@ -968,11 +1130,12 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
     ``step_guard`` go to ``train_loop``; a ``DivergenceError`` leaves
     ``fit`` without the final save (the diverged state must not become
     the newest step). ``checkpoint_fault_hook`` runs at the start of each
-    physical write (the chaos plan's ``diskfull@n``). ``metrics_lag`` goes
-    to ``train_loop``. ``checkpoint_save_ef`` keeps the error-feedback
-    residual in each step (``CheckpointManager(save_ef_residual=True)``);
-    in a world of several ranks rank 0's decision to save is then
-    broadcast and every rank's residual gathered to it before the save.
+    physical write (the chaos plan's ``diskfull@n``). ``metrics_lag`` and
+    ``timeline`` go to ``train_loop``. ``checkpoint_save_ef`` keeps the
+    error-feedback residual in each step
+    (``CheckpointManager(save_ef_residual=True)``); in a world of several
+    ranks rank 0's decision to save is then broadcast and every rank's
+    residual gathered to it before the save.
     """
     if restore_step is not None and checkpoint_dir is None:
         raise ValueError(f"restore_step={restore_step} requires "
@@ -1052,7 +1215,7 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
                              log_every=log_every, views=views, ranks=ranks,
                              log=log, stop_fn=stop_fn, step_hook=step_hook,
                              watchdog=watchdog, step_guard=step_guard,
-                             metrics_lag=metrics_lag)
+                             metrics_lag=metrics_lag, timeline=timeline)
         if manager is not None:
             stopped = state.step - done < remaining
             manager.wait_until_finished()

@@ -17,9 +17,8 @@ silence into a diagnosis and an action:
   Supervisor`` resets the latch at each attempt.
 
 The watchdog kills nothing itself; ``on_stall`` holds the policy (the
-supervisor's stops the attempt at a step boundary). The reference's
-``watchdog_stalls_total`` series waits for the port's observability
-layer; a stall is logged.
+supervisor's stops the attempt at a step boundary). A stall is logged
+and counted in ``watchdog_stalls_total``.
 """
 
 from __future__ import annotations
@@ -96,6 +95,16 @@ class StallWatchdog:
             quiet = self.silent_for()
             if quiet >= self.timeout_s and not self.stalled.is_set():
                 self.stalled.set()
+                # countable stall evidence beside the stack dump; shielded:
+                # telemetry failing must not kill the monitor thread
+                try:
+                    from ..obs.registry import default_registry
+
+                    default_registry().counter(
+                        "watchdog_stalls_total",
+                        "silent-loop stalls detected").inc()
+                except Exception:
+                    logger.exception("watchdog stall counter failed")
                 logger.error("training stalled: no progress for %.1fs "
                              "(timeout %.1fs); dumping thread stacks",
                              quiet, self.timeout_s)

@@ -58,27 +58,53 @@ def test_tiny_resnet_trains_on_one_cpu_process(monkeypatch):
 
 # ROADMAP.md items a later slice ported: their flags now run, and a run
 # on one card warns that it ignores them, as the JAX CLI does
-# (``cli.py:914-932``).
-DONE_ITEMS = (r"Queue A 3\(d\)", r"Queue A 3\(e\)")
+# (``cli.py:914-932``). Queue A 6(b) (the space-to-depth stem) and 11(b)
+# (train-side telemetry) are done too: their flags train and do their job.
+DONE_ITEMS = (r"Queue A 3\(d\)", r"Queue A 3\(e\)", r"Queue A 6\(b\)",
+              r"Queue A 11\(b\)")
 # the one-card warning of each such flag (none for --ring-chunks with the
 # default --dp-loss strip: the JAX CLI warns only in a data-parallel run)
 ONE_CARD_WARNINGS = {"--dp-loss": "--dp-loss chunked ignored",
                      "--collective-dtype": "--collective-dtype bf16 ignored",
                      "--measure-overlap": "--measure-overlap ignored",
-                     "--ring-chunks": None}
+                     "--ring-chunks": None, "--stem": None,
+                     "--metrics-port": None, "--log-jsonl": None,
+                     "--trace-dir": None, "--trace-steps": None,
+                     "--slow-step-factor": None}
+# what a done flag needs besides TINY_ARGV: the stem is a ResNet's ImageNet
+# stem, so a ResNet-18 above the CIFAR stem's 64 px
+ONE_CARD_EXTRA = {"--stem": ["--model", "resnet18", "--image-size", "72"]}
 
 
-def _trains_on_one_card(args, flag, caplog, monkeypatch):
+def _trains_on_one_card(args, flag, caplog, monkeypatch, tmp_path):
+    """A done flag trains on one card (in ``tmp_path``: relative telemetry
+    paths land there) and shows its effect."""
     warning = ONE_CARD_WARNINGS[flag]
     monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.chdir(tmp_path)
     launches = ntxent.ntxent_fwd_general.launches
-    with caplog.at_level("WARNING"):
-        _, history = cli.train(args)
+    with caplog.at_level("INFO"):
+        state, history = cli.train(args)
     assert [h["step"] for h in history] == [1, 2]
     assert all(np.isfinite(h["loss"]) for h in history)
     assert ntxent.ntxent_fwd_general.launches == launches  # one card's step
     if warning is not None:
         assert warning in caplog.text
+    if flag == "--stem":
+        assert type(state.model.backbone.stem_conv).__name__ \
+            == "SpaceToDepthStem"
+    if flag == "--metrics-port":
+        assert "metrics endpoint: http://127.0.0.1:" in caplog.text
+    if flag == "--log-jsonl":
+        steps = [json.loads(line) for line in open(tmp_path / args.log_jsonl)
+                 if '"step"' in line]
+        assert [r["step"] for r in steps if r["event"] == "step"] == [1, 2]
+    if flag == "--trace-dir":
+        assert (tmp_path / args.trace_dir).is_dir()
+        assert "profiler armed" in caplog.text
+    if flag in ("--trace-steps", "--slow-step-factor"):
+        # without --trace-dir they arm nothing, as in the JAX CLI
+        assert "profiler armed" not in caplog.text
 
 
 @pytest.mark.parametrize("flags,match", [
@@ -89,13 +115,15 @@ def _trains_on_one_card(args, flag, caplog, monkeypatch):
     (["--fsdp"], "Queue A 9"),
 ], ids=lambda f: "_".join(f) if isinstance(f, list) else None)
 def test_unported_data_parallel_flags_exit_naming_their_item(
-        flags, match, caplog, monkeypatch):
+        flags, match, caplog, monkeypatch, tmp_path):
     """Unported flags exit naming their item; those of a done item
-    (``DONE_ITEMS``: chunked and the wire dtypes, ported since) train on
-    one card with the JAX CLI's warning (``ONE_CARD_WARNINGS``)."""
-    args = cli.build_train_parser().parse_args(TINY_ARGV + flags)
+    (``DONE_ITEMS``: chunked, the wire dtypes and the stem, ported since)
+    train on one card with the JAX CLI's warning
+    (``ONE_CARD_WARNINGS``)."""
+    args = cli.build_train_parser().parse_args(
+        TINY_ARGV + flags + ONE_CARD_EXTRA.get(flags[0], []))
     if match in DONE_ITEMS:
-        _trains_on_one_card(args, flags[0], caplog, monkeypatch)
+        _trains_on_one_card(args, flags[0], caplog, monkeypatch, tmp_path)
         return
     with pytest.raises(SystemExit, match=f"ROADMAP.md {match}"):
         cli.train(args)
@@ -168,9 +196,9 @@ def test_row_ids_and_comms_accounting_without_a_group():
         mesh.psum(torch.ones(2))
 
 
-# Every flag the JAX CLI's parsers take and the port does not run yet, set
-# to a value other than the JAX default, with the ROADMAP.md item its exit
-# names.
+# Every flag the JAX CLI's parsers take and the port did not run, set to a
+# value other than the JAX default, with the ROADMAP.md item its exit
+# names (a done item's flags run: ``DONE_ITEMS``).
 TRAIN_FLAGS = [
     (["--ring-chunks", "4"], r"Queue A 3\(d\)"),  # done: runs, see below
     (["--measure-overlap"], r"Queue A 3\(d\)"),   # done: runs, warned
@@ -199,23 +227,52 @@ SERVE_FLAGS = [
     + [("serve", f, m) for f, m in SERVE_FLAGS],
     ids=lambda v: "_".join(v) if isinstance(v, list) else None)
 def test_reference_flags_parse_and_exit_naming_their_item(
-        command, flags, match, caplog, monkeypatch):
+        command, flags, match, caplog, monkeypatch, tmp_path):
     """Each flag parses (no "unrecognized arguments" or "invalid choice")
     and, set, exits naming its ROADMAP.md item before any work; a flag of
     a done item (``DONE_ITEMS``) trains on one card instead, with its
-    ``ONE_CARD_WARNINGS``."""
+    ``ONE_CARD_WARNINGS``, or (serve ``--stem``) serves a ResNet-18 through
+    the space-to-depth stem."""
     if command == "train":
         args = cli.build_train_parser().parse_args(TINY_ARGV + flags)
         run = cli.train
         if match in DONE_ITEMS:
-            _trains_on_one_card(args, flags[0], caplog, monkeypatch)
+            _trains_on_one_card(args, flags[0], caplog, monkeypatch,
+                                tmp_path)
             return
     else:
         args = cli.build_serve_parser().parse_args(
             ["--device", "cpu", "--model", "tiny", "--port", "0"] + flags)
         run = cli.build_server
+        if match in DONE_ITEMS:
+            _serves_with_the_stem(flags)
+            return
     with pytest.raises(SystemExit, match=f"ROADMAP.md {match}"):
         run(args)
+
+
+def _serves_with_the_stem(flags):
+    """serve ``--stem space_to_depth`` builds a ResNet-18 whose stem is
+    ``SpaceToDepthStem`` (at 72 px: the ImageNet stem above the CIFAR
+    stem's 64) and embeds a row as the conv stem of the same weights
+    does, within the serve path's bf16 tolerance."""
+    base = ["--device", "cpu", "--model", "resnet18", "--port", "0",
+            "--buckets", "1", "--no-warmup", "--head", "embedding"]
+    servers = {stem: cli.build_server(cli.build_serve_parser().parse_args(
+        base + flags + ["--image-size", "72", "--stem", stem]))
+        for stem in ("space_to_depth", "conv")}
+    try:
+        model = servers["space_to_depth"].engine.model
+        assert type(model.backbone.stem_conv).__name__ == "SpaceToDepthStem"
+        x = np.random.default_rng(3).uniform(
+            size=(1, 72, 72, 3)).astype(np.float32)
+        got, want = (np.asarray(servers[s].engine.embed(x))
+                     for s in ("space_to_depth", "conv"))
+    finally:
+        for server in servers.values():
+            server.close()
+    assert got.shape == want.shape and got.shape[0] == 1
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
 
 
 # The serve flags this port runs (each exited naming its ROADMAP.md item

@@ -255,6 +255,32 @@ def test_zeroshot_on_a_tiny_clip_checkpoint_equals_jax(tmp_path, capsys):
     jax.clear_caches()
 
 
+def _evaluates_with_the_stem(tmp_path, capsys):
+    """A ResNet-18 checkpoint at 72 px (the ImageNet stem) evaluated with
+    ``--stem space_to_depth`` and with the conv stem it was written with:
+    the checkpoints interchange (one weight), and the kNN accuracies agree
+    within one row of the 32 (bf16 rounding may flip a near-tie)."""
+    from ntxent_tpu_torch.training import CheckpointManager
+    from ntxent_tpu_torch.training import trainer as ttrain
+
+    model = ["--model", "resnet18", "--image-size", "72",
+             "--proj-hidden-dim", "16", "--proj-dim", "8"]
+    args = cli.build_train_parser().parse_args(["--device", "cpu", *model])
+    state = ttrain.create_train_state(cli.build_model(args),
+                                      ttrain.TrainerConfig(),
+                                      torch.device("cpu"))
+    state.step = 1
+    CheckpointManager(tmp_path).save(1, state)
+    base = ["eval", "--device", "cpu", *model, "--ckpt-dir", str(tmp_path),
+            "--protocol", "knn", "--k", "5", "--max-train", "32",
+            "--max-test", "32", "--batch", "32"]
+    got = {stem: _json(capsys, cli.main, base + ["--stem", stem])
+           for stem in ("space_to_depth", "conv")}
+    assert got["space_to_depth"]["step"] == got["conv"]["step"] == 1
+    assert abs(got["space_to_depth"]["knn_top1"]
+               - got["conv"]["knn_top1"]) <= 1 / 32
+
+
 @pytest.mark.parametrize("flags,code_or_match", [
     (["--protocol", "finetune", "--objective", "clip"], 2),
     (["--protocol", "zeroshot"], 2),
@@ -263,7 +289,14 @@ def test_zeroshot_on_a_tiny_clip_checkpoint_equals_jax(tmp_path, capsys):
     (["--stem", "space_to_depth"], r"ROADMAP.md Queue A 6\(b\)"),
     (["--moe-experts", "2"], "ROADMAP.md Queue A 9"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else None)
-def test_eval_refusals(jax_checkpoint, flags, code_or_match):
+def test_eval_refusals(jax_checkpoint, flags, code_or_match, tmp_path,
+                       capsys):
+    """The JAX CLI's refusals; ``--stem space_to_depth`` (ROADMAP.md Queue
+    A 6(b), ported since) evaluates instead (``_evaluates_with_the_stem``).
+    """
+    if flags[0] == "--stem":
+        _evaluates_with_the_stem(tmp_path, capsys)
+        return
     argv = ["--device", "cpu", *EVAL_MODEL, "--ckpt-dir",
             str(jax_checkpoint), *flags]
     if isinstance(code_or_match, int):

@@ -36,7 +36,7 @@ from ntxent_tpu.training.trainer import TrainerConfig as JaxConfig
 from ntxent_tpu.training.trainer import create_train_state as jax_state
 from ntxent_tpu.training.trainer import make_train_step as jax_step
 from ntxent_tpu_torch import cli
-from ntxent_tpu_torch.models import ResNet, SimCLRModel
+from ntxent_tpu_torch.models import ResNet, SimCLRModel, init_weights
 from ntxent_tpu_torch.models import resnet as tresnet
 from ntxent_tpu_torch.training import trainer as ttrain
 from ntxent_tpu_torch.training.lars import exclusion_mask
@@ -286,5 +286,24 @@ def test_tiny_resnet_train_steps_match_jax(use_fused):
 
 
 def test_space_to_depth_stem_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 6"):
-        ResNet((1,), stem="space_to_depth")
+    """Named when the stem raised NotImplementedError; ported since
+    (ROADMAP.md Queue A 6(b)): ``stem="space_to_depth"`` builds a ResNet
+    whose stem is ``SpaceToDepthStem`` with the conv stem's state dict, and
+    the two compute the same linear map (fp32, the summation order
+    apart); the CIFAR stem and unknown stems refuse it, as in the JAX
+    package (``tests/test_torch_stem.py`` holds it against JAX's)."""
+    from ntxent_tpu_torch.models.resnet import SpaceToDepthStem
+
+    s2d = ResNet((1,), stem="space_to_depth", dtype=torch.float32)
+    conv = ResNet((1,), dtype=torch.float32)
+    assert isinstance(s2d.stem_conv, SpaceToDepthStem)
+    init_weights(conv, torch.Generator().manual_seed(0))
+    s2d.load_state_dict(conv.state_dict())  # one layout, one set of keys
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(2, 72, 72, 3)).astype(np.float32))
+    torch.testing.assert_close(s2d.eval()(x), conv.eval()(x), rtol=0,
+                               atol=1e-4)
+    with pytest.raises(ValueError, match="requires the ImageNet stem"):
+        ResNet((1,), stem="space_to_depth", small_images=True)
+    with pytest.raises(ValueError, match="unknown stem"):
+        ResNet((1,), stem="s2d")

@@ -411,6 +411,31 @@ def test_resnet_embed_over_http_matches_the_jax_serving_engine():
     (["--ckpt-dir", "ckpt"], "no checkpoint under ckpt"),
     (["--vit-attention", "flash"], "ViT encoders only")])
 def test_resnet_serve_refuses_what_it_cannot_serve(flags, match):
+    """What serve cannot serve exits; ``--stem space_to_depth`` (ROADMAP.md
+    Queue A 6(b), ported since) serves a ResNet-18 at 72 px (the ImageNet
+    stem) over HTTP as the model's direct forward embeds."""
+    if flags[0] == "--stem":
+        args = cli.build_serve_parser().parse_args(
+            RESNET_SERVE_ARGV + flags + ["--model", "resnet18",
+                                         "--image-size", "72", "--buckets",
+                                         "1", "--no-warmup"])
+        server = cli.build_server(args)
+        model = server.engine.model
+        assert type(model.backbone.stem_conv).__name__ == "SpaceToDepthStem"
+        x = np.random.default_rng(4).uniform(
+            size=(1, 72, 72, 3)).astype(np.float32)
+        server.start()
+        try:
+            code, _, body = _post(f"http://127.0.0.1:{server.port}/embed",
+                                  {"inputs": x.tolist()})
+        finally:
+            server.close()
+        with torch.no_grad():
+            want = model(torch.from_numpy(x)).float().numpy()
+        assert code == 200 and body["rows"] == 1
+        np.testing.assert_allclose(np.asarray(body["embeddings"]), want,
+                                   rtol=0, atol=EMBED_ATOL)
+        return
     args = cli.build_serve_parser().parse_args(RESNET_SERVE_ARGV + flags)
     with pytest.raises(SystemExit, match=match):
         cli.build_server(args)

@@ -48,6 +48,7 @@ from ntxent_tpu.training.trainer import make_train_step as jax_step
 from ntxent_tpu_torch import cli
 from ntxent_tpu_torch.models import ProjectionHead, SimCLRModel
 from ntxent_tpu_torch.models import VisionTransformer, init_weights
+from ntxent_tpu_torch.models.resnet import SpaceToDepthStem
 from ntxent_tpu_torch.training import augment as taug
 from ntxent_tpu_torch.training import datasets as tdata
 from ntxent_tpu_torch.training import lars as tlars
@@ -454,13 +455,18 @@ def test_train_cli_defaults_match_the_jax_cli():
 # Flags of ROADMAP.md items ported since (Queue A 3(d) and 3(e), the
 # data-parallel wire): a run on one card trains and ignores them, warning
 # as the JAX CLI does (none for --ring-chunks with the strip loss there).
+# Queue A 6(b), the space-to-depth stem (the "--model" case): ResNet-50
+# trains with it at 72 px, the ImageNet stem's smallest size here
+# (--image-size <= 64 takes the CIFAR stem), under plain attention flags.
 PORTED_SINCE = {"--ring-chunks": None,
                 "--dp-loss": "--dp-loss chunked ignored",
-                "--collective-dtype": "--collective-dtype int8 ignored"}
+                "--collective-dtype": "--collective-dtype int8 ignored",
+                "--model": None}
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model", "resnet50", "--stem", "space_to_depth"],
+    ["--model", "resnet50", "--stem", "space_to_depth", "--image-size",
+     "72", "--vit-attention", "xla"],
     ["--ring-chunks", "4"],
     ["--parallel", "tp"], ["--fsdp"],
     ["--moe-experts", "4"],
@@ -477,10 +483,12 @@ def test_train_cli_names_the_roadmap_item_for_unported_flags(flags, caplog,
         return
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with caplog.at_level("WARNING"):
-        _, history = cli.train(args)
+        state, history = cli.train(args)
     assert all(np.isfinite(h["loss"]) for h in history) and history
     if PORTED_SINCE[flags[0]] is not None:
         assert PORTED_SINCE[flags[0]] in caplog.text
+    if "--stem" in flags:
+        assert isinstance(state.model.backbone.stem_conv, SpaceToDepthStem)
 
 
 def test_train_cli_raises_without_a_gpu(monkeypatch):
