@@ -232,7 +232,7 @@ Phases; any failure ends the run with a non-zero exit and no result:
    SIGTERM after its step-2 line: exit 0, the stopped step the newest
    valid one, and the relaunch at the uninterrupted step-6 CRC; CLIP
    ViT-B/16 and (after 12) data-parallel ResNet-50 at world 1 resumed
-   (2 + 1 steps against 3, CRC for CRC);
+   (1 + 1 steps against 2, CRC for CRC);
 12n. training resilience (after 12m, in its temporary directory): [guard]
    a guarded SimCLR ViT-B/16 step at scale 1 equal bit for bit to the
    plain step (params CRC), a NaN batch leaving parameters, momentum,
@@ -245,15 +245,15 @@ Phases; any failure ends the run with a non-zero exit and no result:
    1e-6 of their largest magnitude; #11 24 a step, the rest unchanged;
    step ms and peak memory of both) and (after 12) data-parallel
    ResNet-50 at world 1 with ``--remat`` (the running statistics as the
-   plain run's); [accum] SimCLR and CLIP ViT-B/16 ``--accum-steps 2``, 3
-   steps saved mid-accumulation and relaunched to 4, equal to the
+   plain run's); [accum] SimCLR and CLIP ViT-B/16 ``--accum-steps 2``, 1
+   step saved mid-accumulation and relaunched to 2, equal to the
    uninterrupted run by the state's CRC32; [supervise] run A's flags
    with ``--max-restarts 1 --chaos crash@5,truncate@1``: a crash, a
    restore past the truncated step 4 to step 2, run A's step-6 CRC;
    [crash-audit] ``resilience.crashsim.CrashAudit`` of the single-card
    ResNet-50 path at 224 px and batch 256 (children of ``python -m
-   ntxent_tpu_torch.cli train``, one at a time): 2 SIGKILLs, one inside
-   a save, no torn step, the survivor's final checkpoint equal to the
+   ntxent_tpu_torch.cli train``, one at a time), 4 steps: a SIGKILL
+   inside a save, no torn step, the survivor's final checkpoint equal to the
    reference run's;
 12o. the input pipeline and evaluation (after 12n, in its temporary
    directory): [data] a uint8 npy row store of (1280, 224, 224, 3) written
@@ -316,7 +316,7 @@ Phases; any failure ends the run with a non-zero exit and no result:
    under int8 for 2 steps (1/1/1 of #9 rectangular, #5 cross-modal and #4,
    12/12/12 of the flash kernels a step, the residual nonzero);
    [resume-ef] phase 11's command under int8 with ``--ckpt-save-ef``,
-   2 + 1 steps against 3, CRC for CRC with the residual in the state;
+   1 + 1 steps against 2, CRC for CRC with the residual in the state;
 12r. train-side telemetry and the space-to-depth stem (after 12o, in its
    temporary directory): [obs-train] phase 5's command for 16 steps with
    ``--metrics-port 0 --log-jsonl --trace-dir`` (the trigger and the
@@ -734,7 +734,7 @@ WIDE_PROJ_DIM = 1024
 # mode (EMBED_ATOL: the serve path's bf16 tolerance).
 RESUME_STEPS, RESUME_EVERY, RESUME_KEEP, RESUME_FIRST = 6, 2, 2, 2
 PREEMPT_AFTER = 2
-PAIR_STEPS, PAIR_FIRST = 3, 2
+PAIR_STEPS, PAIR_FIRST = 2, 1
 CHILD_TIMEOUT_S = 420
 
 # Training resilience, at the SimCLR path's width (TRAIN_ARGV) unless
@@ -771,9 +771,9 @@ GUARD_CHAOS = ["--steps", "5", "--nan-policy", "backoff", "--chaos",
 REMAT_STEPS, REMAT_DP_STEPS = 6, 2
 REMAT_RTOL = 1e-6
 REMAT_STEP_LAUNCHES = dict(STEP_LAUNCHES, flash_attention_fwd=24)
-ACCUM_K, ACCUM_FIRST, ACCUM_STEPS = 2, 3, 4
+ACCUM_K, ACCUM_FIRST, ACCUM_STEPS = 2, 1, 2
 SUPERVISE_FLAGS = ["--max-restarts", "1", "--chaos", "crash@5,truncate@1"]
-AUDIT_STEPS, AUDIT_KILLS, AUDIT_MIDSAVE = 6, 2, 1
+AUDIT_STEPS, AUDIT_KILLS, AUDIT_MIDSAVE = 4, 1, 1
 AUDIT_MODEL = dict(model="resnet50", image_size=224, batch=256,
                    device="cuda")
 
@@ -861,6 +861,52 @@ STEM_LAUNCHES = {"ntxent_fwd": 1, "ntxent_bwd_sym": 1}
 SUPERVISE_STALL_AT = 3
 SUPERVISE_STALL_FLAGS = ["--max-restarts", "1", "--stall-timeout", "5"]
 SUPERVISE_STALL_HOLD_S = 7.0
+
+# Model parallelism and MoE (Queue A 9). [moe]: the SimCLR ViT-B/16 path
+# with a switch-MoE MLP of 8 experts in every other block (6 layers) at
+# --batch 256, through the CLI, with a checkpoint for [eval-moe]; the
+# same launches a step as the dense path (the expert FFNs, routing,
+# dispatch and combine are plain products and gathers: no kernel).
+MOE_STEPS = 4
+MOE_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + [
+    "--steps", str(MOE_STEPS), "--dataset", "synthetic", "--device", "cuda",
+    "--log-every", "1", "--moe-experts", "8", "--moe-aux-weight", "0.01"]
+# The step-1 loss of the MoE path, fp32 (TF32 off) at batch 8, card vs
+# CPU from the same weights and views: routing in fp32 gives the same
+# expert ids, slots and kept flags on both sides, the rest differs by
+# summation order -> 1e-2 on the loss (the dense parity's 1e-4 holds in
+# practice, printed).
+MOE_PARITY_BATCH = 8
+MOE_PARITY_ATOL = 1e-2
+# [moe-ep]: make_expert_parallel_moe at P = 1 against switch_moe at the
+# path's MoE layer shape (tokens of 512 images of 197, width 768, 8
+# experts of 3072), bf16: the same operations at P = 1 (the all-to-alls
+# are the identity) -> bitwise.
+MOE_EP_TOKENS = (512, 197)
+# [tp] / [tp-clip] / [fsdp]: the world-1 steps of the model-parallel
+# factories against the single-card and data-parallel steps, fp32 at
+# PARITY_BATCH (TF32 off; 1e-4 on the loss, PARITY_GRAD_RTOL on the
+# relative parameter update) and bf16 at batch 8 (1e-2 on the loss), the
+# timed run at the path's batch with the path's launches.
+MP_STEPS = 4
+MP_BF16_BATCH = 8
+MP_BF16_ATOL = 1e-2
+FSDP_ARGV = DP_ARGV[:DP_ARGV.index("--steps")] + [
+    "--steps", str(MP_STEPS), "--device", "cuda", "--log-every", "1",
+    "--fsdp"]
+# [pp]: make_pipelined_apply on LongContextTransformer at its defaults
+# (512/8/8/2048, bf16) over the stage group of world 1, B 4, L 8192, 4
+# microbatches; forward and gradients against the plain apply of the same
+# weights, bf16, at the long-context path's rtols; #11, #13, #14 8 times
+# a microbatch.
+PP_BATCH, PP_LEN, PP_MICRO = 4, 8192, 4
+# The TP SimCLR step's loss is the data-parallel strip over the data
+# group: #1 general and #6 rows/cols once, the flash kernels 12 times.
+TP_STEP_LAUNCHES = dict(DP_STEP_LAUNCHES, flash_attention_fwd=12,
+                        flash_attention_dq=12, flash_attention_dkv=12)
+PP_LAUNCHES = {"flash_attention_fwd": 8 * PP_MICRO,
+               "flash_attention_dq": 8 * PP_MICRO,
+               "flash_attention_dkv": 8 * PP_MICRO}
 
 # The long-context slice. Fold kernel (#12) cases: (name, (BH, Lq, Lk,
 # D), dtype, causal, q_offset, k_offsets of consecutive folds). Against
@@ -2677,11 +2723,11 @@ def phase_dp_train(card_line: str, argv=DP_ARGV,
 
 
 def _dp_parity_step(sharded: bool, views, loss_impl: str = "strip",
-                    ring_chunks: int | None = None):
+                    ring_chunks: int | None = None, fsdp: bool = False):
     """(loss, flat fp32 gradient) of one fp32 ResNet-50 step from the
     weights of seed 0: the data-parallel step at world 1 (with the
-    ``loss_impl`` schedule, ``ring_chunks`` for chunked) or the
-    single-card step."""
+    ``loss_impl`` schedule, ``ring_chunks`` for chunked; ``fsdp``: the
+    ZeRO-3 step over the world of one) or the single-card step."""
     import torch
 
     from ntxent_tpu_torch.models import (
@@ -2709,6 +2755,14 @@ def _dp_parity_step(sharded: bool, views, loss_impl: str = "strip",
     else:
         step = make_train_step(cfg.temperature, use_fused=True)
     state = create_train_state(model, cfg, torch.device("cuda"))
+    if fsdp:
+        from ntxent_tpu_torch.parallel import (
+            make_fsdp_train_step,
+            shard_train_state_fsdp,
+        )
+
+        state = shard_train_state_fsdp(state)
+        step = make_fsdp_train_step(cfg.temperature)
     _, metrics = step(state, *(v.cuda() for v in views))
     grads = torch.cat([p.grad.detach().float().cpu().flatten()
                        for p in state.model.parameters()])
@@ -2944,7 +2998,7 @@ def phase_wire_clip(card_line: str) -> dict:
 
 def phase_resume_ef(tmp: str) -> None:
     """[resume-ef]: phase 11's command under int8 with ``--ckpt-save-ef``,
-    2 + 1 steps against 3 uninterrupted, CRC for CRC
+    PAIR_FIRST + 1 steps against PAIR_STEPS uninterrupted, CRC for CRC
     (``phase_resume_pair``); the saved state holds the residual in the
     JAX layout, (1,) + each parameter's shape at world 1, nonzero."""
     from pathlib import Path
@@ -6821,6 +6875,627 @@ def phase_stem(tmp: str, card_line: str) -> dict:
     return per_step
 
 
+def _moe_layers(model):
+    from ntxent_tpu_torch.parallel.moe import MoEMlp
+
+    return [m for m in model.modules() if isinstance(m, MoEMlp)]
+
+
+def _steady_ms(history) -> float:
+    steady = history[1:]
+    return 1e3 * sum(1.0 / h["steps_per_sec"] for h in steady) / len(steady)
+
+
+def _moe_parity(card_line: str) -> None:
+    """The step-1 loss of the fp32 MoE ViT-B/16 SimCLR model at batch 8,
+    card against CPU (TF32 off), and its routing: the same experts and
+    kept flags in every MoE layer."""
+    import copy
+
+    import torch
+
+    from ntxent_tpu_torch.models import SimCLRModel, ViT_B16, init_weights
+    from ntxent_tpu_torch.ops import oracle
+    from ntxent_tpu_torch.ops.ntxent import ntxent_loss_fused
+    from ntxent_tpu_torch.parallel import moe
+
+    model = init_weights(SimCLRModel(ViT_B16(
+        image_size=224, attention_impl="flash", moe_experts=8,
+        dtype=torch.float32), dtype=torch.float32),
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    both = torch.from_numpy(rng.uniform(size=(
+        2 * MOE_PARITY_BATCH, 224, 224, 3)).astype(np.float32))
+    routes = {}
+    real = moe.route
+
+    def recording(x2d, router, c, *rest):
+        out = real(x2d, router, c, *rest)
+        routes.setdefault(x2d.device.type, []).append(
+            (out[0].cpu(), out[2].cpu()))
+        return out
+
+    moe.route = recording
+    try:
+        t0 = time.monotonic()
+        with torch.no_grad():
+            loss_cpu = oracle.ntxent_loss(model.train()(both), 0.1).item()
+        cpu_s = time.monotonic() - t0
+        card = copy.deepcopy(model).cuda().train()
+        with torch.no_grad():
+            loss_gpu = ntxent_loss_fused(card(both.cuda()), 0.1).item()
+    finally:
+        moe.route = real
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(routes["cpu"], routes["cuda"]))
+    err = abs(loss_gpu - loss_cpu)
+    ok = err <= MOE_PARITY_ATOL and same and len(routes["cuda"]) == 6
+    print(f"[moe] step-1 loss float32, batch {MOE_PARITY_BATCH}: card "
+          f"{loss_gpu:.6f} vs CPU {loss_cpu:.6f} (|err| {err:.2e}, atol "
+          f"{MOE_PARITY_ATOL:g}); expert ids and kept flags of the "
+          f"{len(routes['cuda'])} MoE layers identical: {same}; CPU forward "
+          f"{cpu_s:.1f} s {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the MoE step-1 loss or routing on the card disagrees with the "
+             "CPU's")
+    del card
+    torch.cuda.empty_cache()
+
+
+def phase_moe(tmp: str, card_line: str) -> tuple[dict, str]:
+    """[moe]: the SimCLR ViT-B/16 path with switch-MoE (8 experts, 6
+    layers) through ``ntxent-train`` on the card at --batch 256: the
+    dense path's launches a step, finite losses and aux, step ms, peak
+    memory, the share of dropped tokens; a checkpoint for [eval-moe];
+    then the step-1 loss against the CPU. Returns (launches, checkpoint
+    directory)."""
+    import math
+    import os
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    ckpt = os.path.join(tmp, "moe_ckpt")
+    # saved at the end only: a save inside the loop lands in a step's time
+    argv = _ckpt_argv(MOE_ARGV, ckpt, MOE_STEPS, every=10 * MOE_STEPS,
+                      keep=1)
+    args = cli.build_train_parser().parse_args(argv)
+    counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    t0 = time.monotonic()
+    state, history = cli.train(args)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = {name: w.launches for name, w in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    auxes = [h.get("moe_aux", float("nan")) for h in history]
+    if len(losses) != MOE_STEPS or not all(map(math.isfinite,
+                                              losses + auxes)):
+        fail(f"MoE losses {losses}, aux {auxes}: expected {MOE_STEPS} "
+             "finite values of each")
+    want = {n: STEP_LAUNCHES.get(n, 0) * MOE_STEPS for n in counters}
+    if launches != want:
+        fail(f"MoE kernel launches over {MOE_STEPS} steps {launches}, "
+             f"expected {want}")
+    layers = _moe_layers(state.model)
+    dropped = [m.dropped.item() for m in layers]
+    for m in layers:
+        if m.w_up.grad is None or not m.w_up.grad.abs().sum().item() > 0 \
+                or not m.router.grad.abs().sum().item() > 0:
+            fail("an MoE layer's experts or router has no gradient")
+    tokens = 2 * args.batch * 197
+    step_ms = _steady_ms(history)
+    print(f"[moe] ViT-B/16 flash + switch-MoE ({len(layers)} layers of 8 "
+          f"experts, capacity {math.ceil(tokens / 8 * 1.25)} of {tokens} "
+          f"tokens), batch {args.batch}, {MOE_STEPS} steps in {wall_s:.1f} s:"
+          f" losses {[round(x, 4) for x in losses]}, moe_aux "
+          f"{[round(x, 4) for x in auxes]}; launches per step "
+          f"{ {n: c // MOE_STEPS for n, c in launches.items() if c} } (every "
+          f"other kernel 0); dropped token share per layer at the last step "
+          f"{[round(x, 4) for x in dropped]}", flush=True)
+    print(f"[moe] step {step_ms:.1f} ms (steps 2-{MOE_STEPS}, host clock "
+          f"around a synchronizing loss read), "
+          f"{2 * args.batch / step_ms * 1e3:.1f} images/s, peak memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) on "
+          f"{card_line}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    _moe_parity(card_line)
+    return launches, ckpt
+
+
+def phase_moe_ep() -> None:
+    """[moe-ep]: make_expert_parallel_moe over the NCCL group of world 1
+    against switch_moe at the path's MoE layer shape: output, aux and
+    gradients bitwise."""
+    import torch
+
+    from ntxent_tpu_torch.parallel import (
+        init_moe_params,
+        make_expert_parallel_moe,
+        switch_moe,
+    )
+
+    params = init_moe_params(torch.Generator().manual_seed(3), 8, 768, 3072)
+    for name in ("router", "w_up", "b_up", "w_down", "b_down"):
+        setattr(params, name, getattr(params, name).cuda().requires_grad_())
+    x = torch.randn(*MOE_EP_TOKENS, 768, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(4)
+                    ).to(torch.bfloat16).requires_grad_()
+    ep = make_expert_parallel_moe(torch.distributed.group.WORLD)
+    results = []
+    for fn in (ep, lambda p, v: switch_moe(p, v)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = fn(params, x)
+        (y.float().square().sum() + aux).backward()
+        torch.cuda.synchronize()
+        results.append((y.detach(), aux.detach(),
+                        [t.grad.clone() for t in (x, params.router,
+                                                  params.w_up,
+                                                  params.w_down)],
+                        (time.perf_counter() - t0) * 1e3))
+        for t in (x, params.router, params.w_up, params.b_up, params.w_down,
+                  params.b_down):
+            t.grad = None
+    (y_a, aux_a, g_a, ms_a), (y_b, aux_b, g_b, ms_b) = results
+    same = torch.equal(y_a, y_b) and torch.equal(aux_a, aux_b) and all(
+        torch.equal(a, b) for a, b in zip(g_a, g_b))
+    print(f"[moe-ep] make_expert_parallel_moe (P = 1, NCCL) vs switch_moe at "
+          f"{MOE_EP_TOKENS[0] * MOE_EP_TOKENS[1]} tokens x 768, 8 experts of "
+          f"3072, bf16: output, aux {aux_a.item():.6f} and the gradients of x,"
+          f" the router and both expert kernels bitwise equal: {same}; "
+          f"forward + backward {ms_a:.1f} / {ms_b:.1f} ms (host clock, "
+          f"first calls)", flush=True)
+    if not same:
+        fail("expert parallelism at P = 1 differs from switch_moe")
+
+
+def _world1_grid():
+    from ntxent_tpu_torch.parallel import mesh
+
+    return mesh.grid_groups(1, 1)  # (data, model)
+
+
+# the model-parallel phases' CPU models of seed 0, drawn once and copied
+# for every state (drawing ViT-B/16's weights takes seconds of host time)
+_TEMPLATES: dict = {}
+
+
+def _template(key, build):
+    import copy
+
+    import torch
+
+    from ntxent_tpu_torch.models import init_weights
+
+    if key not in _TEMPLATES:
+        _TEMPLATES[key] = init_weights(build(),
+                                       torch.Generator().manual_seed(0))
+    return copy.deepcopy(_TEMPLATES[key])
+
+
+def _vit_state(dtype, moe: int = 0, batch: int = 256):
+    import torch
+
+    from ntxent_tpu_torch.models import SimCLRModel, ViT_B16
+    from ntxent_tpu_torch.training import TrainerConfig, create_train_state
+
+    model = _template(("vit", dtype, moe), lambda: SimCLRModel(ViT_B16(
+        image_size=224, attention_impl="flash", moe_experts=moe,
+        dtype=dtype), dtype=dtype))
+    return create_train_state(model, TrainerConfig(batch_size=batch,
+                                                   warmup_steps=1),
+                              torch.device("cuda"))
+
+
+def _clip_state(dtype, moe: int = 0):
+    import torch
+
+    from ntxent_tpu_torch.models import CLIPModel, TextTransformer, ViT_B16
+    from ntxent_tpu_torch.training import (
+        TrainerConfig,
+        create_clip_train_state,
+    )
+
+    model = _template(("clip", dtype, moe), lambda: CLIPModel(
+        ViT_B16(image_size=224, attention_impl="flash", moe_experts=moe,
+                dtype=dtype), TextTransformer(dtype=dtype)))
+    return create_clip_train_state(
+        model, TrainerConfig(base_lr=5e-4, warmup_steps=1),
+        torch.device("cuda"))
+
+
+def _whole_params(state) -> list:
+    if state.sharding is not None:
+        state = state.sharding.gather(state)
+    return [p.detach().float().cpu() for p in state.model.parameters()]
+
+
+def _compare_steps(tag: str, what: str, runs: dict, atol: float,
+                   params: bool) -> None:
+    """Gate the (losses, parameters after two steps) of ``runs`` against
+    the first run's: both losses within ``atol`` and, with ``params``,
+    the two steps' parameter update u within PARITY_GRAD_RTOL of the
+    first run's (u must not be 0: the gate would hold nothing)."""
+    (base, (loss_b, p_b)), *rest = runs.items()
+    moved = torch_cat(p_b[0]) - torch_cat(p_b[1])
+    if params and not moved.norm().item() > 0:
+        fail(f"{tag}: two {base} steps left the parameters where they were")
+    for name, (losses, p) in rest:
+        err = max(abs(a - b) for a, b in zip(losses, loss_b))
+        rel = 0.0
+        if params:
+            rel = ((torch_cat(p[0]) - torch_cat(p[1]) - moved).norm().item()
+                   / moved.norm().item())
+        ok = err <= atol and rel <= PARITY_GRAD_RTOL
+        print(f"[{tag}] {what}: losses of 2 steps {name} "
+              f"{'/'.join(f'{x:.6f}' for x in losses)} vs {base} "
+              f"{'/'.join(f'{x:.6f}' for x in loss_b)} (max |err| {err:.2e}, "
+              f"atol {atol:g})"
+              + (f"; parameter update of the 2 steps |du| / |u| {rel:.2e} "
+                 f"(rtol {PARITY_GRAD_RTOL:g}, |u| "
+                 f"{moved.norm().item():.3e})" if params else "")
+              + f" {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"{tag}: the {name} steps disagree with the {base} steps")
+
+
+def torch_cat(parts):
+    import torch
+
+    return torch.cat([t.reshape(-1) for t in parts])
+
+
+def _two_steps(state, step, *batch):
+    """(the two losses, (parameters after, before)) of two steps of
+    ``state`` on ``batch``. The schedule's learning rate is 0 at the
+    first step (warmup_steps=1), so the second moves the parameters: by
+    the LARS update of its gradient, which the TP backward (Megatron's f
+    and g, LARS's sliced norms) computes."""
+    before = _whole_params(state)
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, *batch)
+        losses.append(metrics["loss"].item())
+    return losses, (_whole_params(state), before)
+
+
+def _timed_steps(tag: str, state, step, batches, want: dict,
+                 card_line: str, what: str) -> dict:
+    """MP_STEPS steps of ``step`` on ``batches`` (one batch reused),
+    launches gated to ``want`` a step; prints the step ms on CUDA
+    events; returns the launches."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(MP_STEPS):
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        state, metrics = step(state, *batches)
+        end.record()
+        losses.append(metrics["loss"].item())
+        times.append(start.elapsed_time(end))
+    launches = {n: w.launches for n, w in counters.items()}
+    expect = {n: want.get(n, 0) * MP_STEPS for n in counters}
+    if launches != expect or not all(map(math.isfinite, losses)):
+        fail(f"[{tag}] launches {launches}, expected {expect}; losses "
+             f"{losses}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] {what}: {MP_STEPS} steps, losses "
+          f"{[round(x, 4) for x in losses]}, step "
+          f"{'/'.join(f'{t:.1f}' for t in times)} ms (CUDA events; steps "
+          f"2-{MP_STEPS} mean {sum(times[1:]) / (MP_STEPS - 1):.1f} ms); "
+          f"launches per step "
+          f"{ {n: c // MP_STEPS for n, c in launches.items() if c} }; peak "
+          f"memory {peak / 2**30:.2f} GiB on {card_line}", flush=True)
+    return launches
+
+
+def phase_tp(card_line: str) -> dict:
+    """[tp]: make_tp_simclr_train_step on ViT-B/16 at the (data 1, model
+    1) grid: the timed path at --batch 256 (the single-card step's
+    launches), then one step against the single-card and the world-1
+    data-parallel steps, fp32 and bf16. Returns the launches."""
+    import torch
+
+    from ntxent_tpu_torch.models import cross_replica_batch_norm
+    from ntxent_tpu_torch.parallel.tp import (
+        make_tp_simclr_train_step,
+        shard_train_state,
+    )
+    from ntxent_tpu_torch.training import (
+        make_sharded_train_step,
+        make_train_step,
+    )
+
+    data, model = _world1_grid()
+    gen = torch.Generator("cuda").manual_seed(6)
+    views = [torch.rand(256, 224, 224, 3, device="cuda", generator=gen)
+             for _ in range(2)]
+    state = shard_train_state(_vit_state(torch.bfloat16), model, data)
+    launches = _timed_steps("tp", state, make_tp_simclr_train_step(0.1),
+                            views, TP_STEP_LAUNCHES, card_line,
+                            "Megatron TP SimCLR ViT-B/16 flash (bf16) at the "
+                            "(1, 1) grid, batch 256")
+    del state
+    torch.cuda.empty_cache()
+    for dtype, batch, atol, params in (
+            (torch.float32, PARITY_BATCH, PARITY_LOSS_ATOL, True),
+            (torch.bfloat16, MP_BF16_BATCH, MP_BF16_ATOL, False)):
+        if dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        small = [v[:batch] for v in views]
+        runs = {}
+        runs["single-card"] = _two_steps(_vit_state(dtype, batch=batch),
+                                        make_train_step(0.1, use_fused=True),
+                                        *small)
+        dp = _vit_state(dtype, batch=batch)
+        cross_replica_batch_norm(dp.model, torch.distributed.group.WORLD)
+        runs["data-parallel"] = _two_steps(dp, make_sharded_train_step(
+            None, 0.1), *small)
+        for axes in ("data", "both"):
+            runs[f"tp loss_axes={axes}"] = _two_steps(
+                shard_train_state(_vit_state(dtype, batch=batch), model,
+                                  data),
+                make_tp_simclr_train_step(0.1, loss_axes=axes), *small)
+        _compare_steps("tp", f"ViT-B/16 {str(dtype)[6:]}, batch {batch}",
+                       runs, atol, params)
+        torch.cuda.empty_cache()
+    _TEMPLATES.clear()
+    return launches
+
+
+def phase_tp_clip(card_line: str) -> dict:
+    """[tp-clip]: make_tp_clip_train_step on OpenAI CLIP ViT-B/16 with
+    --moe-experts 8 at the (1, 1) grid: the timed path at batch 256, then
+    one step against the single-card and world-1 data-parallel MoE CLIP
+    steps, fp32 and bf16. Returns the launches."""
+    import torch
+
+    from ntxent_tpu_torch.parallel.tp import (
+        make_tp_clip_train_step,
+        shard_train_state,
+    )
+    from ntxent_tpu_torch.training import (
+        make_clip_train_step,
+        make_sharded_clip_train_step,
+    )
+
+    data, model = _world1_grid()
+    gen = torch.Generator("cuda").manual_seed(7)
+    images = torch.rand(256, 224, 224, 3, device="cuda", generator=gen)
+    tokens = torch.randint(1, 49408, (256, 77), device="cuda", generator=gen)
+    state = shard_train_state(_clip_state(torch.bfloat16, moe=8), model,
+                              data)
+    launches = _timed_steps(
+        "tp-clip", state, make_tp_clip_train_step(moe_aux_weight=0.01),
+        (images, tokens), CLIP_DP_STEP_LAUNCHES, card_line,
+        "Megatron TP CLIP ViT-B/16 flash + MoE 8 (bf16) at the (1, 1) grid, "
+        "batch 256")
+    del state
+    torch.cuda.empty_cache()
+    for dtype, batch, atol, params in (
+            (torch.float32, PARITY_BATCH, PARITY_LOSS_ATOL, True),
+            (torch.bfloat16, MP_BF16_BATCH, MP_BF16_ATOL, False)):
+        if dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        batch_in = (images[:batch], tokens[:batch])
+        runs = {
+            "single-card": _two_steps(_clip_state(dtype, 8),
+                                     make_clip_train_step(
+                                         use_fused=True, moe_aux_weight=0.01),
+                                     *batch_in),
+            "data-parallel": _two_steps(_clip_state(dtype, 8),
+                                       make_sharded_clip_train_step(
+                                           None, moe_aux_weight=0.01),
+                                       *batch_in),
+            "tp": _two_steps(shard_train_state(_clip_state(dtype, 8), model,
+                                              data),
+                            make_tp_clip_train_step(moe_aux_weight=0.01),
+                            *batch_in)}
+        _compare_steps("tp-clip", f"CLIP ViT-B/16 + MoE 8 {str(dtype)[6:]}, "
+                       f"batch {batch}", runs, atol, params)
+        torch.cuda.empty_cache()
+    _TEMPLATES.clear()
+    return launches
+
+
+def phase_fsdp(tmp: str, card_line: str) -> dict:
+    """[fsdp]: ResNet-50 SimCLR with --fsdp through ``ntxent-train`` in the
+    NCCL group of world 1 (ZeRO-3's step; the data-parallel path's
+    launches), saved under FSDP and restored on a single card CRC for
+    CRC; then one fp32 step against the world-1 data-parallel step.
+    Returns the launches."""
+    import os
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.training import CheckpointManager, create_train_state
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    ckpt = os.path.join(tmp, "fsdp_ckpt")
+    argv = _ckpt_argv(FSDP_ARGV, ckpt, MP_STEPS, every=10 * MP_STEPS,
+                      keep=1)
+    args = cli.build_train_parser().parse_args(argv)
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, history, stats = _train_ckpt(argv, data_parallel=True)
+    launches = {n: w.launches for n, w in counters.items()}
+    want = {n: DP_STEP_LAUNCHES.get(n, 0) * MP_STEPS for n in counters}
+    if launches != want or state.sharding is None:
+        fail(f"FSDP launches {launches}, expected {want}; sharded "
+             f"{state.sharding is not None}")
+    peak = torch.cuda.max_memory_allocated()
+    from ntxent_tpu_torch.parallel import param_bytes_per_device
+
+    per_dev = param_bytes_per_device(state)
+    del state
+    torch.cuda.empty_cache()
+    single = create_train_state(cli.build_model(args), cli._train_config(
+        args), torch.device("cuda"))
+    manager = CheckpointManager(ckpt)
+    try:
+        single = manager.restore(single)
+    finally:
+        manager.close()
+    saved = _manifest_crcs(ckpt)[MP_STEPS]
+    got = _state_crc(single)
+    if single.step != MP_STEPS or got != saved:
+        fail(f"[fsdp] the single-card restore of step {MP_STEPS} re-saves as "
+             f"{got} (size, crc32), the FSDP save wrote {saved}")
+    del single
+    torch.cuda.empty_cache()
+    step_ms = _steady_ms(history)
+    print(f"[fsdp] ResNet-50 SimCLR --fsdp (ZeRO-3 over the NCCL group of "
+          f"world 1), batch {args.batch}, {MP_STEPS} steps: losses "
+          f"{[round(h['loss'], 4) for h in history]}; launches per step "
+          f"{ {n: c // MP_STEPS for n, c in launches.items() if c} }; step "
+          f"{step_ms:.1f} ms (steps 2-{MP_STEPS}, host clock around a "
+          f"synchronizing loss read), {2 * args.batch / step_ms * 1e3:.1f} "
+          f"images/s; parameter bytes a rank {per_dev}; peak memory "
+          f"{peak / 2**30:.2f} GiB; saved under FSDP, restored on a single "
+          f"card: state.msgpack {saved} (size, crc32) both ways; save ms "
+          f"{_ms(stats.get('save_ms', []))} on {card_line}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    views = [torch.from_numpy(rng.uniform(size=(
+        DP_PARITY_BATCH, 224, 224, 3)).astype(np.float32)) for _ in range(2)]
+    loss_dp, g_dp = _dp_parity_step(True, views)
+    loss_f, g_f = _dp_parity_step(True, views, fsdp=True)
+    err = abs(loss_f - loss_dp)
+    rel = ((g_f - g_dp).norm() / g_dp.norm()).item()
+    ok = err <= PARITY_LOSS_ATOL and rel <= PARITY_GRAD_RTOL
+    print(f"[fsdp] ResNet-50 train step float32, batch {DP_PARITY_BATCH}: "
+          f"loss FSDP (world 1) {loss_f:.6f} vs data-parallel (world 1) "
+          f"{loss_dp:.6f} (|err| {err:.2e}, atol {PARITY_LOSS_ATOL:.2e}); "
+          f"relative gradient error {rel:.2e} (rtol {PARITY_GRAD_RTOL:.2e}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the FSDP step disagrees with the data-parallel step")
+    return launches
+
+
+def phase_pp(card_line: str) -> dict:
+    """[pp]: make_pipelined_apply on LongContextTransformer at its defaults
+    over the stage group of world 1 (B 4, L 8192, 4 microbatches): the
+    launches of a forward and backward, its output and every gradient
+    against the plain apply of the same weights, and the times of both.
+    Returns the launches of one pipelined pass."""
+    import torch
+
+    from ntxent_tpu_torch.models import make_pipelined_apply
+    from ntxent_tpu_torch.ops.attention import flash_attention
+    from ntxent_tpu_torch.utils.profiling import (
+        build_long_context,
+        launch_counters,
+        long_context_tokens,
+    )
+
+    model = build_long_context("cuda", flash_attention)
+    tokens = long_context_tokens("cuda", PP_LEN, PP_BATCH)
+    pipe = make_pipelined_apply(model, torch.distributed.group.WORLD,
+                                num_microbatches=PP_MICRO)
+    counters = launch_counters()
+    results = {}
+    for label, fn in (("pipelined", pipe), ("plain", model)):
+        times = []
+        for _ in range(2):
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(tokens)
+            out.float().pow(2).sum().backward()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {n: w.launches for n, w in counters.items()}
+        results[label] = (out.detach(), torch_cat(
+            [p.grad for p in model.parameters()]), times, launches)
+    want = {n: PP_LAUNCHES.get(n, 0) for n in counters}
+    out_p, g_p, t_p, launches = results["pipelined"]
+    out_q, g_q, t_q, _ = results["plain"]
+    out_err, grad_err = _rel(out_p, out_q), _rel(g_p, g_q)
+    ok = (launches == want and torch.isfinite(g_p).all().item()
+          and out_err <= LONGCTX_OUT_RTOL and grad_err <= LONGCTX_GRAD_RTOL)
+    print(f"[pp] make_pipelined_apply, LongContextTransformer 512/8/8/2048 "
+          f"bf16, B {PP_BATCH}, L {PP_LEN}, {PP_MICRO} microbatches over the "
+          f"NCCL stage group of world 1: forward + backward "
+          f"{_ms(t_p)} ms (plain apply {_ms(t_q)} ms; host clock, "
+          f"synchronized), launches "
+          f"{ {n: c for n, c in launches.items() if c} }; "
+          f"output |a - b| / |b| {out_err:.2e} (rtol {LONGCTX_OUT_RTOL:g}), "
+          f"gradients {grad_err:.2e} (rtol {LONGCTX_GRAD_RTOL:g}) against the "
+          f"plain apply {'ok' if ok else 'MISMATCH'} on {card_line}",
+          flush=True)
+    if not ok:
+        fail(f"the pipelined long-context pass disagrees with the plain one "
+             f"(launches {launches}, expected {want})")
+    del model, results
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_eval_moe(ckpt: str, card_line: str) -> dict:
+    """[eval-moe]: ``ntxent-eval --protocol knn`` of [moe]'s checkpoint
+    (the MoE ViT-B/16 restored from the save): #11 12 times a feature
+    batch, every other kernel never; returns the launches of a feature
+    batch."""
+    import math
+
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    args = cli.build_eval_parser().parse_args(
+        EVAL_ARGV + ["--moe-experts", "8", "--ckpt-dir", ckpt, "--protocol",
+                     "knn", "--max-train", "256", "--max-test", "128",
+                     "--batch", "128"])
+    xtr, _, xte, _ = cli._labeled_arrays(args)
+    # knn extracts the train and test images as one array (cli.evaluate)
+    batches = -(-(len(xtr) + len(xte)) // args.batch)
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    t0 = time.monotonic()
+    result = cli.evaluate(args)
+    eval_s = time.monotonic() - t0
+    launches = {n: w.launches for n, w in counters.items()}
+    want = {n: 0 for n in counters}
+    want["flash_attention_fwd"] = 12 * batches
+    if result.get("step") != MOE_STEPS or launches != want \
+            or not math.isfinite(result.get("knn_top1", float("nan"))):
+        fail(f"eval of the MoE checkpoint: {result}, launches {launches}, "
+             f"expected step {MOE_STEPS} and {want}")
+    fwd = launches["flash_attention_fwd"]
+    print(f"[eval-moe] ntxent-eval --moe-experts 8 --protocol knn on [moe]'s "
+          f"step {result['step']}: {result} in {eval_s:.1f} s; launches "
+          f"{ {n: c for n, c in launches.items() if c} } over {batches} "
+          f"feature batches of {args.batch} ({len(xtr)} train and "
+          f"{len(xte)} test images), every other kernel 0, on {card_line}",
+          flush=True)
+    return {"flash_attention_fwd": fwd // batches}
+
+
 def main() -> int:
     import torch
 
@@ -6898,6 +7573,11 @@ def main() -> int:
         phase_data_imagefolder(tmp, smi)
         obs_launches = phase_obs_train(tmp, smi)
         stem_launches = phase_stem(tmp, smi)
+        t_mp = time.monotonic()
+        moe_launches, moe_dir = phase_moe(tmp, smi)
+        eval_moe_launches = phase_eval_moe(moe_dir, smi)
+        shutil.rmtree(moe_dir)
+        t_mp = time.monotonic() - t_mp
     from ntxent_tpu_torch.parallel import mesh
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -6927,6 +7607,14 @@ def main() -> int:
             longctx_launches = phase_long_context(smi)
             phase_world1_plans()
             phase_ring_infonce()
+            t0 = time.monotonic()
+            phase_moe_ep()
+            tp_launches = phase_tp(smi)
+            tp_clip_launches = phase_tp_clip(smi)
+            fsdp_launches = phase_fsdp(tmp, smi)
+            pp_launches = phase_pp(smi)
+            print(f"[mp] the model-parallel and MoE phases ran "
+                  f"{t_mp + time.monotonic() - t0:.1f} s", flush=True)
         finally:
             mesh.shutdown()
     paths = (train_launches, clip_launches, dp_launches, clip_dp_launches,
@@ -6972,6 +7660,16 @@ def main() -> int:
         # ResNet-50 with --stem space_to_depth
         kernel["obs_train_launches"] = obs_launches.get(wrapper, 0)
         kernel["stem_launches"] = stem_launches.get(wrapper, 0)
+        # model parallelism and MoE: a step of the SimCLR MoE path, a
+        # feature batch of its eval, a world-1 step of TP SimCLR, of TP
+        # CLIP with MoE and of FSDP ResNet-50, one pipelined long-context
+        # forward and backward
+        kernel["moe_launches"] = moe_launches[wrapper] // MOE_STEPS
+        kernel["eval_moe_launches"] = eval_moe_launches.get(wrapper, 0)
+        kernel["tp_launches"] = tp_launches[wrapper] // MP_STEPS
+        kernel["tp_clip_launches"] = tp_clip_launches[wrapper] // MP_STEPS
+        kernel["fsdp_launches"] = fsdp_launches[wrapper] // MP_STEPS
+        kernel["pp_launches"] = pp_launches[wrapper]
         for key, per in eval_launches.items():
             kernel[key] = per.get(wrapper, 0)
         kernel |= ring_times.get(wrapper, {})
@@ -6988,6 +7686,9 @@ def main() -> int:
         # a micro-step of SimCLR under --accum-steps 2 --lag-metrics
         kernel["accum_lag_launches"] = accum_lag_launches.get(
             kernel["name"], 0)
+    print("[time] seconds by phase: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in sorted(
+            PHASE_SECONDS.items(), key=lambda kv: -kv[1])), flush=True)
     print(f"[total] chip_smoke.py ran {time.monotonic() - t_start:.1f} s "
           "(the kernels' build included)", flush=True)
     print(smi)
@@ -6996,6 +7697,31 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# Wall seconds of each phase function over the run (the [time] line):
+# where the script's time limit goes when it grows.
+PHASE_SECONDS: dict = {}
+
+
+def _timed(fn):
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        t0 = time.monotonic()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            key = fn.__name__.removeprefix("phase_")
+            PHASE_SECONDS[key] = PHASE_SECONDS.get(key, 0.0) \
+                + time.monotonic() - t0
+
+    return wrapper
+
+
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = _timed(globals()[_name])
 
 
 if __name__ == "__main__":

@@ -99,10 +99,23 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
   ``--class-tokens``) on labelled synthetic, CIFAR-10 or ImageFolder
   data; one JSON line of accuracies.
 
+  Model parallelism and MoE (``cli.py:625-830``, ``:1245-1370``), with
+  the JAX CLI's warnings and exits: ``--moe-experts E`` (ViT towers: a
+  switch-MoE MLP in every other block; ``--moe-aux-weight`` its
+  load-balance loss) on every branch; in a world of several ranks
+  ``--parallel tp`` / ``--clip-parallel tp`` (Megatron on a (data,
+  model) grid of ``--model-par`` model ranks, ``--tp-loss-axes``; with
+  ``--fsdp`` Megatron + ZeRO-3) and ``--fsdp`` (ZeRO-3; hybrid over
+  ``--dcn-slices`` slices). The world comes from ``torchrun``'s
+  environment or, without one, from ``--coordinator host:port
+  --num-processes N --process-id I`` (a ``tcp://`` rendezvous). One rank
+  warns that it ignores ``--parallel tp`` and ``--fsdp`` and trains the
+  single-card step, as the JAX CLI does on one device;
+  ``train(args, data_parallel=True)`` runs their steps in a world of one.
+
 Every flag of the JAX CLI's ``ntxent-train``, ``ntxent-eval`` and
-``ntxent-serve`` parses here. A flag of what is not ported yet (model
-parallelism and MoE) exits, when set, with a message naming its
-ROADMAP.md item; ``--platform cpu|gpu`` selects ``--device``.
+``ntxent-serve`` parses here and runs; ``--platform cpu|gpu`` selects
+``--device``.
 
 Run: ``python -m ntxent_tpu_torch.cli --model vit_b16 --vit-attention
 flash --image-size 224 --head embedding --port 8080`` (serving),
@@ -427,7 +440,8 @@ def _encoder(args):
         return RESNETS[args.model](small_images=args.image_size <= 64,
                                    stem=args.stem)
     return ENCODERS[args.model](image_size=args.image_size,
-                                attention_impl=args.vit_attention)
+                                attention_impl=args.vit_attention,
+                                moe_experts=getattr(args, "moe_experts", 0))
 
 
 def build_model(args) -> SimCLRModel:
@@ -555,13 +569,9 @@ def serve_main(argv=None) -> int:
 # ntxent-train
 # --------------------------------------------------------------------------
 
-# (dest, the JAX CLI's default, item): train flags that exit when set.
-TRAIN_UNPORTED = [
-    ("model_par", 2, "mp"),
-    ("tp_loss_axes", "data", "mp"), ("moe_aux_weight", 0.01, "mp"),
-    ("coordinator", None, "mp"), ("num_processes", None, "mp"),
-    ("process_id", None, "mp"), ("dcn_slices", 1, "mp"),
-]
+# (dest, the JAX CLI's default, item): train flags that exit when set
+# (every train flag runs since Queue A 9; the mechanism stays for serve).
+TRAIN_UNPORTED: list = []
 
 
 def _add_common_args(p: argparse.ArgumentParser) -> None:
@@ -596,8 +606,13 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
                         "attention on the same weights")
     m.add_argument("--proj-hidden-dim", type=int, default=2048)
     m.add_argument("--proj-dim", type=int, default=128)
-    m.add_argument("--moe-experts", type=int, default=0)
-    m.add_argument("--moe-aux-weight", type=float, default=0.01)
+    m.add_argument("--moe-experts", type=int, default=0,
+                   help="ViT towers only (the SimCLR encoder, the CLIP image "
+                        "tower): a switch-MoE MLP with this many experts in "
+                        "every other block; 0 = dense")
+    m.add_argument("--moe-aux-weight", type=float, default=0.01,
+                   help="weight of the MoE load-balance loss when "
+                        "--moe-experts > 0 (the Switch Transformer default)")
 
     p.add_argument("--seed", type=int, default=0)
     _add_platform(p)
@@ -623,12 +638,24 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="clip: tokenized caption length (derived from "
                         "--data-dir tokens when given; 77 for synthetic)")
     t.add_argument("--clip-parallel", default="dp", choices=["dp", "tp"],
-                   help="clip multi-device strategy: dp = data parallelism "
-                        "with the dual InfoNCE (tp is not ported)")
-    t.add_argument("--model-par", type=int, default=2)
-    t.add_argument("--tp-loss-axes", default="data", choices=["data", "both"])
-    t.add_argument("--parallel", default="dp", choices=["dp", "tp"])
-    t.add_argument("--fsdp", action="store_true")
+                   help="clip multi-rank strategy: dp = data parallelism "
+                        "with the dual InfoNCE; tp = Megatron tensor "
+                        "parallelism on a (data, model) grid of ranks")
+    t.add_argument("--model-par", type=int, default=2,
+                   help="tp runs: ranks of the model axis of the (data, "
+                        "model) grid; the world must divide by it")
+    t.add_argument("--tp-loss-axes", default="data", choices=["data", "both"],
+                   help="tp runs: the loss over the data axis (every model "
+                        "rank the same rows) or over every rank")
+    t.add_argument("--parallel", default="dp", choices=["dp", "tp"],
+                   help="simclr multi-rank strategy: dp = data parallelism; "
+                        "tp = Megatron tensor parallelism (ViT encoders) on "
+                        "a (data, model) grid, with --fsdp Megatron + ZeRO-3")
+    t.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3: parameters and optimizer state cut over the "
+                        "data ranks, gathered each step; with --dcn-slices > "
+                        "1 hybrid ZeRO (cut within a slice, replicated "
+                        "across slices)")
     t.add_argument("--dp-loss", default="strip",
                    choices=["strip", "pair", "chunked"],
                    help="data-parallel NT-Xent schedule: strip (local rows "
@@ -753,10 +780,13 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "device time; warmup and first-run steps never "
                         "fire it)")
 
-    h = p.add_argument_group("multi-host rendezvous (not ported: torchrun's "
-                             "environment describes the world)")
-    h.add_argument("--dcn-slices", type=int, default=1)
-    h.add_argument("--coordinator", default=None)
+    h = p.add_argument_group("multi-host rendezvous (torchrun's environment "
+                             "wins when it is set)")
+    h.add_argument("--dcn-slices", type=int, default=1,
+                   help="split the ranks into this many slices: hybrid ZeRO "
+                        "under --fsdp; 1 = one flat world")
+    h.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (tcp:// rendezvous)")
     h.add_argument("--num-processes", type=int, default=None)
     h.add_argument("--process-id", type=int, default=None)
     return p
@@ -777,17 +807,11 @@ def _check_train_args(args) -> None:
                          "--dataset applies to the simclr objective only")
     if args.prefetch < 0:
         raise SystemExit("--prefetch must be >= 0")
-    unported = [
-        (args.parallel != "dp" or args.fsdp, "--parallel tp / --fsdp", "mp"),
-        (clip and args.clip_parallel != "dp", "--clip-parallel tp", "mp"),
-        (args.moe_experts > 0, "--moe-experts", "mp"),
-    ]
-    for hit, flag, item in unported:
-        if hit:
-            raise SystemExit(f"ntxent-train (torch): {flag} is not ported "
-                             f"yet: {ROADMAP_ITEMS[item]}")
     _exit_on_unported("ntxent-train (torch)", args, TRAIN_UNPORTED,
                       ROADMAP_ITEMS)
+    _check_moe(args)
+    if args.model_par < 1 or args.dcn_slices < 1:
+        raise SystemExit("--model-par and --dcn-slices must be positive")
     if not clip and args.vit_attention != "xla" \
             and not args.model.startswith("vit"):
         raise SystemExit(f"--vit-attention {args.vit_attention} applies to "
@@ -804,6 +828,21 @@ def _check_train_args(args) -> None:
     if args.restore_step is not None and args.ckpt_dir is None:
         raise SystemExit("--restore-step needs --ckpt-dir (there is no "
                          "store to restore the named step from)")
+
+
+def _check_moe(args) -> None:
+    """``--moe-experts`` needs a ViT (``cli.py:355-356``)."""
+    if args.moe_experts < 0:
+        raise SystemExit("--moe-experts must be >= 0")
+    if args.moe_experts > 0 and not (args.model.startswith("vit")
+                                     or (args.model == "tiny" and getattr(
+                                         args, "objective", "simclr")
+                                         == "clip")):
+        raise SystemExit("--moe-experts requires a ViT model")
+
+
+def _moe_aux(args) -> float:
+    return args.moe_aux_weight if args.moe_experts > 0 else 0.0
 
 
 def _make_injector(args) -> FaultInjector | None:
@@ -904,6 +943,8 @@ def _make_pipeline(args, device, rank: int = 0, world_size: int = 1,
                                  retry_policy=retry)
     if args.prefetch and rank == 0:
         logger.info("device prefetch: depth %d", args.prefetch)
+    # each rank its rows, the views of their global positions: JAX's
+    # GlobalTwoViewPipeline (cli.py:587-591) for any world size
     return TwoViewPipeline(loader, device, seed=args.seed + 1,
                            prefetch=args.prefetch)
 
@@ -955,7 +996,7 @@ def build_clip_model(args) -> CLIPModel:
     if args.model == "tiny":
         image = VisionTransformer(image_size=args.image_size, patch_size=8,
                                   hidden_dim=32, depth=2, num_heads=2,
-                                  mlp_dim=64,
+                                  mlp_dim=64, moe_experts=args.moe_experts,
                                   attention_impl=args.vit_attention)
         text = TextTransformer(vocab_size=args.vocab_size,
                                max_len=args.token_len, hidden_dim=32,
@@ -963,7 +1004,8 @@ def build_clip_model(args) -> CLIPModel:
         embed_dim = 32
     else:
         image = ENCODERS[args.model](image_size=args.image_size,
-                                     attention_impl=args.vit_attention)
+                                     attention_impl=args.vit_attention,
+                                     moe_experts=args.moe_experts)
         text = TextTransformer(vocab_size=args.vocab_size,
                                max_len=args.token_len)
         embed_dim = 512
@@ -991,8 +1033,14 @@ def _clip_label(args) -> str:
 
 
 def _warn_single_card(args, simclr: bool) -> None:
-    """The data-parallel flags a single-card run ignores, with the JAX
-    CLI's warnings (``cli.py:914-932``)."""
+    """The multi-rank flags a single-card run ignores, with the JAX CLI's
+    warnings (``cli.py:910-932``, ``:1363-1365``)."""
+    if args.fsdp:
+        logger.warning("--fsdp ignored: single-device run has nothing to "
+                       "shard over")
+    if simclr and args.parallel != "dp":
+        logger.warning("--parallel %s ignored: single-device run has no "
+                       "model axis", args.parallel)
     if simclr and args.dp_loss != "strip":
         logger.warning("--dp-loss %s ignored: single-device run has no "
                        "shard-pair schedule", args.dp_loss)
@@ -1026,15 +1074,46 @@ def _train_clip(args, device, stats, injector, timeline):
                 _clip_label(args), device_name(device), args.batch,
                 args.steps, args.base_lr)
     return _fit(args, fresh(), PairedPipeline(loader, device, args.prefetch),
-                make_clip_train_step(remat=args.remat), stats, views=1,
-                state_factory=fresh, injector=injector, timeline=timeline)
+                make_clip_train_step(remat=args.remat,
+                                     moe_aux_weight=_moe_aux(args)),
+                stats, views=1, state_factory=fresh, injector=injector,
+                timeline=timeline)
+
+
+def _multi_process(args) -> bool:
+    """Whether the run spans several processes: a launcher's environment
+    of more than one rank, or ``--coordinator`` (``cli.py:611-613``)."""
+    return int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
+        "WORLD_SIZE" not in os.environ and args.coordinator is not None)
+
+
+def _join(args) -> torch.device:
+    """Join the world (``mesh.init_distributed``: torchrun's environment,
+    else ``--coordinator``); returns this rank's device."""
+    try:
+        device = mesh.init_distributed(args.coordinator, args.num_processes,
+                                       args.process_id, args.device)
+    except ValueError as e:
+        raise SystemExit(f"ntxent-train (torch): {e}") from None
+    return device if device is not None else mesh.init_from_env(args.device)
+
+
+def _data_slices(args, world: int) -> None:
+    """``--dcn-slices`` must divide the world (``cli.py:411-418``); a
+    data-parallel world is one flat group whatever the slices."""
+    if world % args.dcn_slices:
+        raise SystemExit(f"--dcn-slices {args.dcn_slices} must divide the "
+                         f"{world} devices")
 
 
 def _world_size(args) -> int:
     """The world of a data-parallel run; ``--batch`` must divide over it."""
-    world = (torch.distributed.get_world_size()
-             if torch.distributed.is_initialized()
-             else int(os.environ.get("WORLD_SIZE", "1")))
+    if torch.distributed.is_initialized():
+        world = torch.distributed.get_world_size()
+    elif "WORLD_SIZE" not in os.environ and args.coordinator is not None:
+        world = args.num_processes or 1
+    else:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
     if args.batch % world:
         raise SystemExit(f"--batch {args.batch} must divide across {world} "
                          "devices")
@@ -1047,7 +1126,8 @@ def _train_clip_data_parallel(args, stats, injector, timeline):
     ``--seed`` on every rank, each rank its rows of every global batch,
     the dual InfoNCE, rank 0 logging."""
     world = _world_size(args)
-    device = mesh.init_from_env(args.device)
+    device = _join(args)
+    _data_slices(args, world)
     info = mesh.process_info()
     rank, lead = info["process_index"], info["process_index"] == 0
     images, tokens = _clip_data(args)
@@ -1077,7 +1157,8 @@ def _train_clip_data_parallel(args, stats, injector, timeline):
                           PairedPipeline(loader, device, args.prefetch),
                           make_sharded_clip_train_step(
                               None, remat=args.remat,
-                              collective_dtype=args.collective_dtype),
+                              collective_dtype=args.collective_dtype,
+                              moe_aux_weight=_moe_aux(args)),
                           stats, views=1, ranks=world, log=lead,
                           state_factory=fresh, injector=injector,
                           timeline=timeline)
@@ -1106,7 +1187,13 @@ def train(args, data_parallel: bool | None = None,
         _resolve_image_size(args)
     _check_stem(args)  # before a process group is joined
     if data_parallel is None:
-        data_parallel = int(os.environ.get("WORLD_SIZE", "1")) > 1
+        data_parallel = _multi_process(args)
+        if not data_parallel and (args.num_processes is not None
+                                  or args.process_id is not None):
+            # as jax.distributed's auto-detection without a coordinator
+            logger.info("no cluster environment detected; single-process "
+                        "mode (--num-processes/--process-id need "
+                        "--coordinator)")
     obs = _setup_observability(args)
     try:
         return _train(args, data_parallel, checkpoint_stats, injector,
@@ -1117,8 +1204,26 @@ def train(args, data_parallel: bool | None = None,
 
 def _train(args, data_parallel: bool, checkpoint_stats, injector,
            timeline):
+    clip = args.objective == "clip"
+    if clip:
+        if args.parallel != "dp":
+            logger.warning("--parallel %s ignored: the CLIP objective uses "
+                           "--clip-parallel for its strategy", args.parallel)
+        if args.tp_loss_axes != "data" and args.clip_parallel != "tp":
+            logger.warning("--tp-loss-axes %s ignored: only --clip-parallel "
+                           "tp runs shard the loss over the model axis",
+                           args.tp_loss_axes)
+    elif args.tp_loss_axes != "data" and not (data_parallel
+                                              and args.parallel == "tp"):
+        logger.warning("--tp-loss-axes %s ignored: only --parallel tp runs "
+                       "shard the loss over the model axis",
+                       args.tp_loss_axes)
     if data_parallel:
-        if args.objective == "clip":
+        tp = args.clip_parallel == "tp" if clip else args.parallel == "tp"
+        if tp or args.fsdp:
+            return _train_sharded(args, checkpoint_stats, injector, timeline,
+                                  tp)
+        if clip:
             return _train_clip_data_parallel(args, checkpoint_stats,
                                              injector, timeline)
         return _train_data_parallel(args, checkpoint_stats, injector,
@@ -1136,6 +1241,7 @@ def _train(args, data_parallel: bool, checkpoint_stats, injector,
         return create_train_state(build_model(args), cfg, device)
 
     step = make_train_step(cfg.temperature, remat=args.remat,
+                           moe_aux_weight=_moe_aux(args),
                            guard=args.nan_policy != "off")
     logger.info("training %s on %s: batch %d, %d steps, peak lr %g",
                 _model_label(args), device_name(device), args.batch,
@@ -1173,7 +1279,8 @@ def _train_data_parallel(args, stats, injector, timeline):
     ``--measure-overlap`` A/B before training (published on the timeline
     when there is one), rank 0 logging."""
     world = _world_size(args)
-    device = mesh.init_from_env(args.device)
+    device = _join(args)
+    _data_slices(args, world)
     info = mesh.process_info()
     rank, lead = info["process_index"], info["process_index"] == 0
     cfg = _train_config(args)
@@ -1194,7 +1301,8 @@ def _train_data_parallel(args, stats, injector, timeline):
                                    loss_impl=args.dp_loss, remat=args.remat,
                                    guard=args.nan_policy != "off",
                                    collective_dtype=args.collective_dtype,
-                                   ring_chunks=ring_chunks)
+                                   ring_chunks=ring_chunks,
+                                   moe_aux_weight=_moe_aux(args))
     if args.measure_overlap:
         overlap = measure_comms_overlap(None, args.batch // world,
                                         args.proj_dim,
@@ -1217,6 +1325,137 @@ def _train_data_parallel(args, stats, injector, timeline):
                           step, stats, ranks=world, log=lead,
                           state_factory=fresh,
                           step_guard=_make_step_guard(args.nan_policy),
+                          injector=injector, timeline=timeline)
+    if lead:
+        _log_final(history)
+    return state, history
+
+
+def _train_sharded(args, stats, injector, timeline, tp: bool):
+    """The tensor-parallel (``--parallel tp`` / ``--clip-parallel tp``,
+    with ``--fsdp`` Megatron + ZeRO-3) and ZeRO-3 (``--fsdp``) branches
+    (``cli.py:720-830``, ``:1279-1335``): the grid's groups, the state
+    placed by ``parallel.tp`` or ``parallel.fsdp`` (and again on every
+    restart), each data rank its rows of every global batch, the JAX
+    CLI's warnings and exits, rank 0 logging."""
+    from .parallel.fsdp import (
+        make_fsdp_clip_train_step,
+        make_fsdp_train_step,
+        shard_train_state_fsdp,
+    )
+    from .parallel.tp import (
+        make_tp_clip_train_step,
+        make_tp_simclr_train_step,
+        shard_train_state,
+        shard_train_state_tp_fsdp,
+    )
+
+    clip = args.objective == "clip"
+    world = _world_size(args)
+    if tp and args.dcn_slices > 1 and (args.fsdp or not clip):
+        raise SystemExit(f"--dcn-slices > 1 does not compose with "
+                         f"--{'clip-' if clip else ''}parallel tp yet (the "
+                         "TP grid has no 'dcn' axis); use --"
+                         f"{'clip-' if clip else ''}parallel dp")
+    if tp and not clip and args.moe_experts > 0:
+        raise SystemExit("--parallel tp does not collect the MoE aux loss "
+                         "(make_tp_simclr_train_step); use --parallel dp for "
+                         "MoE encoders")
+    if tp and world % args.model_par:
+        raise SystemExit(f"--model-par {args.model_par} must divide {world} "
+                         "devices")
+    if not tp:
+        _data_slices(args, world)
+    device = _join(args)
+    lead = mesh.rank() == 0
+    what = ("Megatron + ZeRO-3" if tp and args.fsdp else
+            "Megatron TP" if tp else "FSDP (ZeRO-3)")
+    if lead:
+        if tp and not clip and not args.model.startswith("vit"):
+            logger.warning("--parallel tp shards transformer weights only; "
+                           "--model %s keeps everything replicated over the "
+                           "model axis", args.model)
+        if args.nan_policy != "off":
+            logger.warning("--nan-policy %s ignored: the %s step carries no "
+                           "in-step divergence guard yet; use data "
+                           "parallelism for guarded runs", args.nan_policy,
+                           what)
+        if args.collective_dtype != "float32":
+            logger.warning("--collective-dtype %s ignored: the %s step's "
+                           "parameter and gradient collectives are not the "
+                           "quantizable data-parallel wire",
+                           args.collective_dtype, what)
+        if args.measure_overlap:
+            logger.warning("--measure-overlap ignored: the overlap A/B "
+                           "measures the data-parallel loss schedule")
+    dcn = None
+    if tp:
+        data_group, model_group = mesh.grid_groups(world // args.model_par,
+                                                   args.model_par)
+        rows, ranks = mesh.rank() // args.model_par, world // args.model_par
+    elif args.dcn_slices > 1:
+        dcn, data_group = mesh.grid_groups(args.dcn_slices,
+                                           world // args.dcn_slices)
+        rows, ranks = mesh.rank(), world
+    else:
+        data_group, rows, ranks = None, mesh.rank(), world
+
+    def place(state):
+        if tp and args.fsdp:
+            return shard_train_state_tp_fsdp(state, model_group, data_group)
+        if tp:
+            return shard_train_state(state, model_group, data_group)
+        return shard_train_state_fsdp(state, data_group, dcn_group=dcn)
+
+    moe = _moe_aux(args)
+    loss_axes = args.tp_loss_axes if tp else None
+    if clip:
+        images, tokens = _clip_data(args)
+
+        def fresh():
+            return place(create_clip_train_state(
+                build_clip_model(args), _clip_config(args), device))
+
+        step = (make_tp_clip_train_step(loss_axes=loss_axes,
+                                        remat=args.remat,
+                                        moe_aux_weight=moe) if tp
+                else make_fsdp_clip_train_step(remat=args.remat,
+                                               moe_aux_weight=moe))
+        data = PairedPipeline(PairedArrayLoader(
+            images, tokens, args.batch, seed=args.seed, rank=rows,
+            world_size=ranks), device, args.prefetch)
+        label, views, lr = _clip_label(args), 1, args.base_lr
+    else:
+        cfg = _train_config(args)
+
+        def fresh():
+            return place(create_train_state(build_model(args), cfg, device))
+
+        ring_chunks = args.ring_chunks if args.dp_loss == "chunked" else None
+        step = (make_tp_simclr_train_step(
+                    cfg.temperature, loss_impl=args.dp_loss,
+                    loss_axes=loss_axes, remat=args.remat,
+                    ring_chunks=ring_chunks) if tp
+                else make_fsdp_train_step(
+                    cfg.temperature, loss_impl=args.dp_loss,
+                    remat=args.remat, moe_aux_weight=moe,
+                    ring_chunks=ring_chunks))
+        data = _make_pipeline(args, device, rows, ranks, injector)
+        label, views, lr = _model_label(args), 2, cfg.learning_rate
+    if lead:
+        logger.info("topology: %s", mesh.process_info())
+        if dcn is not None:
+            logger.info("hybrid ZeRO: params sharded over ICI axis 'data' "
+                        "(size %d), replicated across %d slices",
+                        world // args.dcn_slices, args.dcn_slices)
+        grid = (f"the ({ranks}, {args.model_par}) (data, model) grid"
+                if tp else f"{world} ranks")
+        logger.info("training %s, %s over %s (%s): global batch %d, %d "
+                    "steps, peak lr %g", label, what, grid,
+                    torch.distributed.get_backend(), args.batch, args.steps,
+                    lr)
+    state, history = _fit(args, fresh(), data, step, stats, views=views,
+                          ranks=ranks, log=lead, state_factory=fresh,
                           injector=injector, timeline=timeline)
     if lead:
         _log_final(history)
@@ -1344,8 +1583,8 @@ def _setup_observability(args) -> _ObsContext:
     if args.metrics_port is None and not args.log_jsonl \
             and not args.trace_dir:
         return ctx
-    if int(os.environ.get("RANK", "0")) != 0:
-        return ctx
+    if int(os.environ.get("RANK", args.process_id or 0)) != 0:
+        return ctx  # a rank of torchrun's or of --coordinator's world
     ctx.event_log = obs_events.EventLog(args.log_jsonl)
     obs_events.install(ctx.event_log)
     logger.info("telemetry: run_id=%s%s", ctx.event_log.run_id,
@@ -1510,8 +1749,8 @@ def _labeled_arrays(args, test_only: bool = False):
 
 def _check_eval_args(args) -> str | None:
     """The JAX CLI's early refusals (``cli.py:2699-2717``): the message of
-    a protocol that does not fit the objective, else None. Exits naming
-    the ROADMAP item of a flag not ported."""
+    a protocol that does not fit the objective, else None. Exits on
+    ``--moe-experts`` without a ViT, as building the encoder does."""
     if args.protocol == "finetune" and args.objective == "clip":
         return ("--protocol finetune needs a SimCLR-objective checkpoint "
                 "(an encoder with a features method)")
@@ -1524,9 +1763,7 @@ def _check_eval_args(args) -> str | None:
             return ("--protocol zeroshot requires --class-tokens "
                     "(pre-tokenized class prompts; see --help)")
     _apply_platform(args)
-    if args.moe_experts > 0:
-        raise SystemExit("ntxent-eval (torch): --moe-experts is not ported "
-                         f"yet: {ROADMAP_ITEMS['mp']}")
+    _check_moe(args)
     if args.objective == "clip" and args.model.startswith("resnet"):
         raise SystemExit("--objective clip checkpoints have ViT image "
                          "towers (--model vit_*|tiny); no resnet CLIP "

@@ -13,6 +13,7 @@ from .long_context import (
     LongContextBlock,
     LongContextTransformer,
     default_attention,
+    make_pipelined_apply,
 )
 from .projection import ProjectionHead, SimCLRModel
 from .resnet import (
@@ -66,4 +67,5 @@ __all__ = [
     "cross_replica_batch_norm",
     "default_attention",
     "init_weights",
+    "make_pipelined_apply",
 ]

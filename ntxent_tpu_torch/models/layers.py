@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention
-from ..parallel.mesh import pmean
+from ..parallel.mesh import copy_to_group, pmean, reduce_from_group
 from ..parallel.precision import collective_precision
 
 __all__ = ["AttentionFn", "BatchNorm", "Dense", "LayerNorm",
@@ -91,6 +91,12 @@ class SeqParallelSelfAttention(nn.Module):
 
     ``attention_fn`` defaults to ``flash_attention``: the Hopper kernel
     for tensors on the GPU, its plain version on the CPU.
+
+    Under tensor parallelism (``tp_group``, set by ``parallel.tp``) the
+    q/k/v projections hold this rank's ``local_heads`` heads and ``out``
+    the matching input columns: Megatron's ``f`` before q/k/v, ``g``
+    after ``out``, its bias after the sum. ``num_heads`` stays the
+    tower's.
     """
 
     def __init__(self, hidden: int, num_heads: int,
@@ -107,17 +113,27 @@ class SeqParallelSelfAttention(nn.Module):
         self.key = Dense(hidden, hidden, dtype=dtype)
         self.value = Dense(hidden, hidden, dtype=dtype)
         self.out = Dense(hidden, hidden, dtype=dtype)
+        self.tp_group = None
+        self.local_heads = num_heads
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         b, l, hidden = x.shape
+        if self.tp_group is not None:
+            x = copy_to_group(x, self.tp_group)
 
         def heads(proj):
-            return proj(x).view(b, l, self.num_heads, self.head_dim)
+            return proj(x).view(b, l, self.local_heads, self.head_dim)
 
         qkv = (heads(self.query), heads(self.key), heads(self.value))
         out = (self.attention_fn(*qkv) if mask is None
                else self.attention_fn(*qkv, mask=mask))
-        return self.out(out.reshape(b, l, hidden))
+        out = out.reshape(b, l, self.local_heads * self.head_dim)
+        if self.tp_group is None:
+            return self.out(out)
+        dt = self.out.dtype
+        y = reduce_from_group(F.linear(out.to(dt), self.out.weight.to(dt)),
+                              self.tp_group)
+        return y + self.out.bias.to(dt)
 
 
 class BatchNorm(nn.Module):

@@ -11,10 +11,13 @@ The same parameters run under any of the attention plans of
   ``make_ring_attention(group)`` or ``make_ulysses_attention(group)``.
 
 All are the same function: a checkpoint trained under one runs under the
-others. The port has no GSPMD, so a sequence-parallel plan is explicit:
-each rank feeds its (B, L/P) shard of the tokens, in rank order, and the
-model adds the position-table rows of the shard's GLOBAL positions
-``rank * L/P ...``, read from the plan's ``group`` attribute.
+others. ``make_pipelined_apply(model, group, num_microbatches=M)`` runs
+the same parameters with the block stack as a GPipe pipeline over a group
+of stage ranks (``parallel.pp``). The port has no GSPMD, so a
+sequence-parallel plan is explicit: each rank feeds its (B, L/P) shard of
+the tokens, in rank order, and the model adds the position-table rows of
+the shard's GLOBAL positions ``rank * L/P ...``, read from the plan's
+``group`` attribute.
 
 Same dtype policy as the towers (``models/vit.py``): fp32 parameters,
 activations in ``dtype`` (bf16 by default), fp32 LayerNorm, pre-norm
@@ -34,7 +37,8 @@ from .layers import AttentionFn, LayerNorm, SeqParallelSelfAttention
 from .vit import EncoderBlock
 
 __all__ = ["LongContextBlock", "LongContextTransformer",
-           "SeqParallelSelfAttention", "default_attention"]
+           "SeqParallelSelfAttention", "default_attention",
+           "make_pipelined_apply"]
 
 
 def default_attention() -> AttentionFn:
@@ -126,3 +130,40 @@ class LongContextTransformer(nn.Module):
         for block in self.blocks:
             x = block(x)
         return self.head(x)
+
+
+def make_pipelined_apply(model: LongContextTransformer, group=None, *,
+                         num_microbatches: int, remat: bool = False):
+    """``fn(tokens) -> (B, L, hidden)``, equal to ``model(tokens)``, with
+    the block stack run as a GPipe pipeline over the ranks of ``group``
+    (``long_context.py:168``): rank s applies blocks ``s D/S .. (s + 1)
+    D/S - 1`` of ``model``, the embedding and the final norm run
+    replicated outside the pipeline. The model's attention must be a
+    plain function: a ring or Ulysses plan (an attention with a process
+    ``group``) cannot nest inside the pipeline (``:181-184``)."""
+    from ..parallel.pp import make_gpipe
+
+    if hasattr(model.attention_fn, "group"):
+        raise ValueError("a ring or Ulysses attention plan cannot run inside "
+                         "the pipeline: build the model with a plain "
+                         "attention function")
+    stages = world_size(group)
+    depth = len(model.blocks)
+    if depth % stages:
+        raise ValueError(f"depth {depth} does not split over {stages} "
+                         "stages")
+    per = depth // stages
+    mine = list(model.blocks)[rank(group) * per:(rank(group) + 1) * per]
+
+    def stage_fn(blocks, acts):
+        for block in blocks:
+            acts = block(acts)
+        return acts
+
+    pipe = make_gpipe(stage_fn, group, num_microbatches=num_microbatches,
+                      remat=remat)
+
+    def apply(tokens: torch.Tensor) -> torch.Tensor:
+        return model.head(pipe(mine, model.embed(tokens)))
+
+    return apply

@@ -12,6 +12,10 @@ flash-attention kernel; ``"xla"`` is plain PyTorch that mirrors flax's
 ``nn.MultiHeadDotProductAttention`` on the same weights, and alone takes
 an attention ``mask`` (the CLIP text tower's causal mask), as in the JAX
 block.
+
+``moe_experts`` > 0 mounts ``parallel.moe.MoEMlp`` (switch-MoE) in place
+of the dense MLP of every other block (blocks 1, 3, ...), as the JAX
+tower does (``vit.py:72-77``, ``:117``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention
+from ..parallel.mesh import copy_to_group, reduce_from_group
+from ..parallel.moe import MoEMlp
 from .layers import Dense, LayerNorm, SeqParallelSelfAttention
 
 __all__ = ["EncoderBlock", "MlpBlock", "VisionTransformer", "ViT_B16",
@@ -46,14 +52,27 @@ def dot_product_attention(q, k, v, mask=None):
 
 
 class MlpBlock(nn.Module):
+    """fc1, gelu, fc2. Under tensor parallelism (``tp_group``, set by
+    ``parallel.tp``) fc1 holds this rank's columns and fc2 its rows:
+    Megatron's ``f`` before fc1, ``g`` after fc2, fc2's bias after it."""
+
     def __init__(self, hidden: int, mlp_dim: int, dtype: torch.dtype):
         super().__init__()
         self.fc1 = Dense(hidden, mlp_dim, dtype=dtype)
         self.fc2 = Dense(mlp_dim, hidden, dtype=dtype)
+        self.tp_group = None
 
     def forward(self, x):
+        if self.tp_group is not None:
+            x = copy_to_group(x, self.tp_group)
         # flax nn.gelu defaults to the tanh approximation.
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        h = F.gelu(self.fc1(x), approximate="tanh")
+        if self.tp_group is None:
+            return self.fc2(h)
+        dt = self.fc2.dtype
+        y = reduce_from_group(F.linear(h.to(dt), self.fc2.weight.to(dt)),
+                              self.tp_group)
+        return y + self.fc2.bias.to(dt)
 
 
 class EncoderBlock(nn.Module):
@@ -66,10 +85,6 @@ class EncoderBlock(nn.Module):
         if attention_impl not in ("xla", "flash"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}: "
                              "expected 'xla' or 'flash'")
-        if moe_experts > 0:
-            raise NotImplementedError(
-                "moe_experts > 0: the switch-MoE MLP is not ported yet "
-                "(ROADMAP.md Queue A 9: model parallelism and MoE)")
         self.attention_impl = attention_impl
         self.ln1 = LayerNorm(hidden)
         self.attn = SeqParallelSelfAttention(
@@ -77,7 +92,9 @@ class EncoderBlock(nn.Module):
             attention_fn=(flash_attention if attention_impl == "flash"
                           else dot_product_attention))
         self.ln2 = LayerNorm(hidden)
-        self.mlp = MlpBlock(hidden, mlp_dim, dtype)
+        # the switch-MoE MLP in place of the dense one (moe_experts > 0)
+        self.mlp = (MoEMlp(hidden, moe_experts, mlp_dim, dtype)
+                    if moe_experts > 0 else MlpBlock(hidden, mlp_dim, dtype))
 
     def forward(self, x, mask=None):
         if mask is not None and self.attention_impl == "flash":

@@ -35,6 +35,19 @@ counterpart of the parts of ``ntxent_tpu/parallel/mesh.py`` it needs.
   differentiable, its backward the reverse all-to-all.
 * ``psum_scatter(x, group)`` (``:866``, tiled, dim 0): the sum over
   ranks, this rank's tile; differentiable (its backward all-gathers).
+* Megatron's two conjugate operators for tensor parallelism, which
+  GSPMD inserts by itself in the JAX package: ``copy_to_group`` (the
+  identity forward, a psum of the cotangent backward: the input of a
+  column-sharded product) and ``reduce_from_group`` (a psum forward, the
+  identity backward: the output of a row-sharded product); and
+  ``split_rows`` (this rank's tile of dim 0 forward, an all-gather of the
+  cotangent backward: a replicated activation handed to a loss whose
+  rows spread over the group).
+* ``init_distributed`` (``mesh.py:1138``): the process group of a
+  ``torchrun`` environment, or of ``--coordinator``, ``--num-processes``
+  and ``--process-id`` over TCP; ``grid_groups(outer, inner)``: the
+  groups of a row-major 2-D grid of the ranks (the (data, model) grid of
+  tensor parallelism, the ('dcn', 'data') grid of hybrid ZeRO).
 * The wire policy (``parallel.precision.collective_precision``,
   ``:412-905``): ``all_gather``, ``psum``, ``pmean``, ``pmean_``,
   ``psum_scatter`` and the hops cast float payloads to bf16 or quantize
@@ -73,13 +86,15 @@ from .precision import (
     quantize_int8,
 )
 
-__all__ = ["AXIS", "CommsAccounting", "all_gather", "all_to_all",
-           "chunk_bounds", "comms_accounting", "init_from_env",
+__all__ = ["AXIS", "CommsAccounting", "all_gather", "all_reduce_",
+           "all_to_all", "chunk_bounds", "comms_accounting", "copy_to_group",
+           "grid_groups", "init_distributed", "init_from_env",
            "init_from_file", "local_row_gids", "pmax", "pmean", "pmean_",
            "ppermute", "ppermute_chunked", "ppermute_start", "process_info",
            "psum", "psum_scatter", "quantized_grad_reduce",
-           "quantized_grad_reduce_", "rank", "shutdown", "transpose_wire",
-           "world_size", "world_topology"]
+           "quantized_grad_reduce_", "rank", "reduce_from_group",
+           "shutdown", "split_rows", "transpose_wire", "world_size",
+           "world_topology"]
 
 AXIS = "data"  # the accounting's axis label: the JAX mesh's data axis
 _TIMEOUT = datetime.timedelta(minutes=10)
@@ -126,6 +141,60 @@ def init_from_file(path, rank: int, world_size: int, device="cuda",
     dist.init_process_group(_backend(dev), store=store, rank=rank,
                             world_size=world_size, timeout=timeout)
     return dev
+
+
+def init_distributed(coordinator: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None,
+                     device="cuda") -> torch.device | None:
+    """Join the multi-process world (``mesh.py:1138``, the mpirun role):
+    ``torchrun``'s environment when it sets ``RANK`` and ``WORLD_SIZE``
+    (it wins over the flags), else ``coordinator`` (``host:port`` of
+    process 0) with ``num_processes`` and ``process_id`` over
+    ``tcp://``; returns this rank's device. Without either, and outside
+    a group, a single-process run: None (``num_processes`` and
+    ``process_id`` alone are ignored, as JAX's rendezvous finds no
+    cluster without a coordinator). A coordinator without them raises
+    ``ValueError``."""
+    if dist.is_initialized() or ("RANK" in os.environ
+                                 and "WORLD_SIZE" in os.environ):
+        return init_from_env(device)
+    if coordinator is None:  # as jax.distributed's auto-detection fails
+        return None
+    if num_processes is None or process_id is None:
+        raise ValueError("--coordinator needs --num-processes and "
+                         "--process-id")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"--process-id {process_id} outside [0, "
+                         f"{num_processes})")
+    dev = _rank_device(device, process_id)
+    dist.init_process_group(_backend(dev), init_method=f"tcp://{coordinator}",
+                            rank=process_id, world_size=num_processes,
+                            timeout=_TIMEOUT)
+    return dev
+
+
+def grid_groups(outer: int, inner: int):
+    """``(strided, contiguous)`` groups of this rank on the row-major
+    ``(outer, inner)`` grid of the world's ranks (rank = o * inner + i):
+    ``contiguous`` holds the ``inner`` ranks of this rank's row, ``strided``
+    the ``outer`` ranks of its column. Every rank makes every group, in the
+    same order, as ``dist.new_group`` requires."""
+    _require_group()
+    world, me = dist.get_world_size(), dist.get_rank()
+    if outer * inner != world:
+        raise ValueError(f"a ({outer}, {inner}) grid needs {outer * inner} "
+                         f"ranks, the world has {world}")
+    strided = contiguous = None
+    for i in range(inner):
+        g = dist.new_group([o * inner + i for o in range(outer)])
+        if me % inner == i:
+            strided = g
+    for o in range(outer):
+        g = dist.new_group([o * inner + i for i in range(inner)])
+        if me // inner == o:
+            contiguous = g
+    return strided, contiguous
 
 
 def shutdown() -> None:
@@ -259,17 +328,19 @@ def comms_accounting() -> CommsAccounting:
     return _comms
 
 
-def _record(op: str, tensors, factor: float, wire: str = "float32") -> None:
+def _record(op: str, tensors, factor: float, wire: str = "float32",
+            axis: str = AXIS) -> None:
     """Record one collective of the payload ``tensors`` at ``factor``
     times their bytes as they ride the wire (float tensors as bf16 under a
-    bf16 wire), labelled with that dtype (``mixed`` when they differ)."""
+    bf16 wire), labelled with that dtype (``mixed`` when they differ) and
+    the mesh axis ``axis`` of its group."""
     def dtype(t: torch.Tensor) -> torch.dtype:
         return torch.bfloat16 if wire == "bf16" and t.is_floating_point() \
             else t.dtype
 
     nbytes = sum(t.numel() * dtype(t).itemsize for t in tensors)
     names = {str(dtype(t)).removeprefix("torch.") for t in tensors}
-    _comms.record(op, AXIS, factor * nbytes,
+    _comms.record(op, axis, factor * nbytes,
                   dtype=names.pop() if len(names) == 1 else "mixed")
 
 
@@ -284,10 +355,10 @@ def _record_int8(shape, op: str, factor: float) -> None:
     _comms.record(op, AXIS, factor * rows * 4, dtype="float32")
 
 
-def _record_all_reduce(op: str, tensors, group,
-                       wire: str = "float32") -> None:
+def _record_all_reduce(op: str, tensors, group, wire: str = "float32",
+                       axis: str = AXIS) -> None:
     p = world_size(group)
-    _record(op, tensors, 2.0 * (p - 1) / p, wire)
+    _record(op, tensors, 2.0 * (p - 1) / p, wire, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -928,3 +999,105 @@ def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
     p = world_size(group)
     _record("all_to_all", [x], (p - 1) / p)
     return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
+# ---------------------------------------------------------------------------
+# Megatron's conjugate operators (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=group)
+    return y
+
+
+@torch.no_grad()
+def all_reduce_(x: torch.Tensor, group, op: str, axis: str = AXIS) -> None:
+    """Sum ``x`` over the ranks of ``group`` in place, at full precision
+    whatever the wire policy (a step's bookkeeping, not a payload the
+    policy casts: LARS's squared norms of a sliced parameter). Recorded
+    as the all-reduce ``op`` over ``axis``."""
+    _require_group()
+    _record_all_reduce(op, [x], group, axis=axis)
+    dist.all_reduce(x, group=group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        # the all-reduce Megatron's f issues in the backward: recorded
+        # here, where it runs (a rematerialized forward has none)
+        _record_all_reduce("tp_psum", [g], ctx.group, axis=ctx.axis)
+        return _sum(g, ctx.group), None, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SplitRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        p, r = world_size(group), rank(group)
+        n = x.shape[0] // p
+        return x[r * n:(r + 1) * n]
+
+    @staticmethod
+    def backward(ctx, g):
+        p = world_size(ctx.group)
+        _record("all_gather", [g], p - 1, axis=ctx.axis)
+        parts = [torch.empty_like(g) for _ in range(p)]
+        dist.all_gather(parts, g.contiguous(), group=ctx.group)
+        return torch.cat(parts) / p, None, None
+
+
+def copy_to_group(x: torch.Tensor, group, axis: str = "model"
+                  ) -> torch.Tensor:
+    """Megatron's ``f``: ``x`` itself forward; backward, the sum over the
+    ranks of ``group`` of the cotangent (each rank's column shard of the
+    next product contributes a part of it), recorded as a ``"tp_psum"``
+    all-reduce over ``axis``. A group of one is the identity both ways."""
+    if world_size(group) == 1:
+        return x
+    return _CopyToGroup.apply(x, group, axis)
+
+
+def reduce_from_group(x: torch.Tensor, group, axis: str = "model"
+                      ) -> torch.Tensor:
+    """Megatron's ``g``: the sum over the ranks of ``group`` forward (the
+    partial outputs of a row-sharded product); the cotangent passes
+    through. Recorded as a ``"tp_psum"`` all-reduce over ``axis``."""
+    if world_size(group) == 1:
+        return x
+    _record_all_reduce("tp_psum", [x], group, axis=axis)
+    return _ReduceFromGroup.apply(x, group)
+
+
+def split_rows(x: torch.Tensor, group, axis: str = "model") -> torch.Tensor:
+    """This rank's tile of dim 0 of a value replicated over ``group``;
+    backward, the all-gather of the tiles' cotangents divided by P (rows
+    the rank does not hold get the other ranks' parts, so the replicated
+    producer sees the whole gradient on every rank; a loss psum'd over P
+    times more ranks gives each rank P times the cotangent, which the
+    division takes back), recorded over ``axis``. Not a collective
+    forward."""
+    p = world_size(group)
+    if x.shape[0] % p:
+        raise ValueError(f"split_rows: dim 0 of {tuple(x.shape)} does not "
+                         f"split over {p} ranks")
+    if p == 1:
+        return x
+    return _SplitRows.apply(x, group, axis)

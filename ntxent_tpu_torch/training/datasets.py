@@ -25,7 +25,12 @@
 * ``TwoViewPipeline``: loader batch -> device -> uint8 to [0, 1] -> two
   augmented views, the views' generator seeded from (seed, epoch,
   offset); with ``prefetch`` > 0 a ``data.DevicePrefetcher`` moves the
-  next loader batches to the device ahead of the consumer;
+  next loader batches to the device ahead of the consumer. It is also the
+  multi-process pipeline (JAX's ``GlobalTwoViewPipeline``,
+  ``datasets.py:418``): a rank's loader yields its rows of every global
+  batch, and each row's views are drawn for its position in the GLOBAL
+  batch, so the views of a P-rank world, joined in rank order, are a
+  one-rank run's bit for bit;
 * ``PairedArrayLoader`` / ``PairedPipeline`` (CLIP): (images, tokens)
   batches of in-memory arrays in the same seeded order;
 * ``device_prefetch`` (``datasets.py:477``) and ``grain_loader``

@@ -11,6 +11,12 @@ One step equals ``optax.lars`` with SimCLR's masks, leaf by leaf:
 4. ``trace = u + momentum * trace``; ``p += trace`` (``trace``: momentum
    is applied after the learning rate).
 
+A parameter that a rank holds only a slice of (tensor parallelism,
+ZeRO-3; ``parallel.shards``) takes its norms over the whole tensor: its
+squared sums are psum'd over the groups ``norm_groups`` names for it
+(each recorded as a ``"lars_norms"`` all-reduce over its mesh axis), the
+norms GSPMD computes on the JAX side without being asked.
+
 The mask excludes BatchNorm parameters and every ``bias`` from weight
 decay and the trust ratio, decided on the parameter's flax path
 (``weights.flax_paths``) exactly as ``_is_excluded`` decides it: LayerNorm
@@ -105,6 +111,10 @@ class LARS:
         self.trace = {name: torch.zeros_like(p)
                       for name, p in self.params.items()}
         self._saved = None  # snapshot()'s buffers
+        # {name: ((mesh axis, process group), ...)}: a sliced parameter's
+        # norms are summed over these groups (``parallel.shards``); empty
+        # for whole tensors
+        self.norm_groups: dict[str, tuple] = {}
 
     @property
     def count(self) -> int:
@@ -160,8 +170,7 @@ class LARS:
             u = p.grad.float()
             if self.mask[name]:
                 u = u + self.weight_decay * p
-                p_norm = torch.linalg.vector_norm(p)
-                u_norm = torch.linalg.vector_norm(u)
+                p_norm, u_norm = self._norms(name, p, u)
                 ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                     torch.ones_like(p_norm),
                                     self.trust_coefficient * p_norm / u_norm)
@@ -169,6 +178,17 @@ class LARS:
             trace = self.trace[name]
             trace.mul_(self.momentum).add_(u * neg_lr)
             p.add_(trace)
+
+    def _norms(self, name: str, p: torch.Tensor, u: torch.Tensor):
+        groups = self.norm_groups.get(name)
+        if not groups:
+            return torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        from ..parallel.mesh import all_reduce_
+
+        sq = torch.stack([p.float().square().sum(), u.square().sum()])
+        for axis, group in groups:
+            all_reduce_(sq, group, "lars_norms", axis)
+        return sq[0].sqrt(), sq[1].sqrt()
 
     @torch.no_grad()
     def snapshot(self) -> tuple:

@@ -111,9 +111,14 @@ accumulator there, and ``ok`` keeps the whole micro-step (accumulator and
 counters included) or none of it, as the JAX step's ``MultiSteps`` does
 under its in-jit select.
 
-Not in this slice (the factories raise ``NotImplementedError`` naming
-the ROADMAP.md item, and ``cli`` exits on the flags): the MoE auxiliary
-loss. ``ROADMAP_ITEMS`` names every such item.
+``moe_aux_weight`` > 0 (every factory): that multiple of the switch-MoE
+towers' load-balance loss (``parallel.moe.moe_aux_from``) joins the
+objective and ``metrics["moe_aux"]`` reports it (``trainer.py:234-300``),
+on the guarded, accumulated and lag-1 paths too. On the data-parallel
+steps each rank routes its own rows, so the aux term is the per-shard
+estimator; the reported loss and aux are their pmean, the optimized
+objective. The tensor-parallel and fully-sharded steps are
+``parallel.tp`` and ``parallel.fsdp``.
 """
 
 from __future__ import annotations
@@ -137,7 +142,13 @@ from ..ops import oracle
 from ..ops.infonce import info_nce_fused
 from ..ops.ntxent import ntxent_loss_fused
 from ..parallel.dist_loss import resolve_local_infonce, resolve_local_ntxent
-from ..parallel.mesh import comms_accounting, pmean_, quantized_grad_reduce_
+from ..parallel.mesh import (
+    comms_accounting,
+    pmean,
+    pmean_,
+    quantized_grad_reduce_,
+)
+from ..parallel.moe import moe_aux_from
 from ..parallel.mesh import rank as mesh_rank
 from ..parallel.precision import collective_precision
 from ..weights import flax_orders
@@ -161,16 +172,9 @@ __all__ = ["ROADMAP_ITEMS", "StepOutcome", "TrainState", "TrainerConfig",
            "make_train_step", "measure_comms_overlap",
            "peak_flops_per_chip", "peak_hbm_bytes_per_chip", "train_loop"]
 
-# What training does not port yet, by the ROADMAP.md item that will.
-ROADMAP_ITEMS = {
-    "mp": "ROADMAP.md Queue A 9 (model parallelism and MoE; multi-host "
-          "worlds come from torchrun's environment)",
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: "
-                               f"{ROADMAP_ITEMS[item]}")
+# What training does not port yet, by the ROADMAP.md item that will
+# (every item of training is ported; the labels stay stable).
+ROADMAP_ITEMS: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +223,10 @@ class TrainState:
     # wire; ``init_error_feedback``)
     ef_residual: list[torch.Tensor] | None = dataclasses.field(
         default=None, repr=False, compare=False)
+    # the layout of a tensor-parallel or fully-sharded state
+    # (``parallel.shards.Sharding``; None: every tensor whole)
+    sharding: object = dataclasses.field(default=None, repr=False,
+                                         compare=False)
 
 
 def create_train_state(model: nn.Module, config: TrainerConfig,
@@ -467,17 +475,17 @@ def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
     step_guard=resilience.DivergenceGuard(...))``; it reads ``ok`` on the
     host once a step. With ``lag=True`` (``train_loop(metrics_lag=1)``)
     it reads nothing: the update is kept or dropped on the device
-    (``_kept_update``) and the metrics stay device tensors."""
-    if moe_aux_weight > 0.0:
-        raise _not_ported("the MoE auxiliary loss", "mp")
+    (``_kept_update``) and the metrics stay device tensors.
+    ``moe_aux_weight``: see the module docstring."""
+    aux = _AuxTerm(moe_aux_weight)
 
     def loss_of(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
         fused = use_fused if use_fused is not None \
             else v1.device.type == "cuda"
         loss_fn = ntxent_loss_fused if fused else oracle.ntxent_loss
         state.optimizer.zero_grad()
-        loss = loss_fn(apply_two_views(state.model, v1, v2, remat),
-                       temperature)
+        loss = aux.add(loss_fn(apply_two_views(state.model, v1, v2, remat),
+                               temperature), state.model)
         loss.backward()
         return loss.detach()
 
@@ -485,13 +493,54 @@ def make_train_step(temperature: float = 0.1, use_fused: bool | None = None,
         loss = loss_of(state, v1, v2)
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss}
+        return state, aux.metrics({"loss": loss})
 
     def guarded_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor,
                      scale: float = 1.0, lag: bool = False):
-        return state, _guarded(state, loss_of, v1, v2, scale, lag)
+        return state, aux.metrics(_guarded(state, loss_of, v1, v2, scale,
+                                           lag))
 
     return guarded_step if guard else train_step
+
+
+class _AuxTerm:
+    """The MoE load-balance term of a step built with ``moe_aux_weight``:
+    ``add`` puts ``weight * moe_aux_from(model)`` into the objective and
+    keeps the aux value, ``metrics`` reports it as ``moe_aux``; with a
+    ``group`` the reported aux is its pmean over the ranks (each rank
+    routes its own rows). Inert at weight 0, as the JAX steps collect
+    nothing then."""
+
+    def __init__(self, weight: float, group=None, distributed=False):
+        self.weight, self.group = float(weight), group
+        self.distributed = distributed
+        self.value = None
+
+    @property
+    def on(self) -> bool:
+        return self.weight > 0.0
+
+    def add(self, loss: torch.Tensor, model: nn.Module) -> torch.Tensor:
+        if not self.on:
+            return loss
+        value = moe_aux_from(model)
+        if not torch.is_tensor(value):
+            value = torch.zeros((), device=loss.device)
+        self.value = value.detach()
+        return loss + self.weight * value
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (the loss of a sharded step) averaged over the ranks when
+        the aux term makes it rank-varying (``trainer.py:507-517``)."""
+        if not (self.on and self.distributed):
+            return x
+        with torch.no_grad(), collective_precision("float32"):
+            return pmean(x.float(), self.group).to(x.dtype)
+
+    def metrics(self, metrics: dict) -> dict:
+        if self.on:
+            metrics["moe_aux"] = self.mean(self.value)
+        return metrics
 
 
 def _wire_dtype(collective_dtype: str) -> str:
@@ -531,7 +580,8 @@ def make_sharded_train_step(group=None, temperature: float = 0.1,
                             loss_impl: str = "strip", remat: bool = False,
                             guard: bool = False,
                             collective_dtype: str = "float32",
-                            ring_chunks: int | None = None) -> Callable:
+                            ring_chunks: int | None = None,
+                            moe_aux_weight: float = 0.0) -> Callable:
     """``train_step(state, v1, v2) -> (state, {"loss": tensor})`` over the
     ranks of ``group`` (``None``: the default group) with the NT-Xent
     schedule ``loss_impl`` (``"strip"``, ``"pair"`` or ``"chunked"``; an
@@ -550,7 +600,8 @@ def make_sharded_train_step(group=None, temperature: float = 0.1,
     backward) and of the gradient pmean (``_reduce_grads``: error
     feedback when the state carries ``ef_residual``, see
     ``init_error_feedback``); the BatchNorm statistics' pmeans stay
-    float32. A skipped step keeps the pre-step residual."""
+    float32. A skipped step keeps the pre-step residual.
+    ``moe_aux_weight``: the per-shard aux estimator (module docstring)."""
     loss_body = resolve_local_ntxent(loss_impl)
     if ring_chunks is not None and loss_impl != "chunked":
         raise ValueError(f"ring_chunks tunes the chunked ring-overlap "
@@ -559,27 +610,30 @@ def make_sharded_train_step(group=None, temperature: float = 0.1,
     if loss_impl == "chunked":
         loss_body = functools.partial(loss_body, chunks=ring_chunks)
     wire = _wire_dtype(collective_dtype)
+    aux = _AuxTerm(moe_aux_weight, group, distributed=True)
 
     def loss_of(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
         state.optimizer.zero_grad()
         with collective_precision(wire):
             z = apply_two_views(state.model, v1, v2, remat)
             n = v1.shape[0]
-            loss = loss_body(z[:n], z[n:], temperature, group)
+            loss = aux.add(loss_body(z[:n], z[n:], temperature, group),
+                           state.model)
             loss.backward()
         _reduce_grads(state, group, wire)
         pmean_(_running_stats(state.model), group)
-        return loss.detach()
+        return aux.mean(loss.detach())
 
     def train_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor):
         loss = loss_of(state, v1, v2)
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss}
+        return state, aux.metrics({"loss": loss})
 
     def guarded_step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor,
                      scale: float = 1.0, lag: bool = False):
-        return state, _guarded(state, loss_of, v1, v2, scale, lag)
+        return state, aux.metrics(_guarded(state, loss_of, v1, v2, scale,
+                                           lag))
 
     return guarded_step if guard else train_step
 
@@ -609,9 +663,9 @@ def make_clip_train_step(use_fused: bool | None = None, remat: bool = False,
     ``1 / scale`` on CPU tensors; ``True`` forces the fused loss (on the
     CPU its wrappers run the kernels' plain versions). ``remat``
     rematerializes both towers in the backward (``_clip_towers``,
-    ``trainer.py:306-322``). No guard: the JAX CLIP steps carry none."""
-    if moe_aux_weight > 0.0:
-        raise _not_ported("the MoE auxiliary loss", "mp")
+    ``trainer.py:306-322``). No guard: the JAX CLIP steps carry none.
+    ``moe_aux_weight``: see the module docstring."""
+    aux = _AuxTerm(moe_aux_weight)
 
     def train_step(state: TrainState, images: torch.Tensor,
                    tokens: torch.Tensor):
@@ -619,20 +673,22 @@ def make_clip_train_step(use_fused: bool | None = None, remat: bool = False,
             else images.device.type == "cuda"
         state.optimizer.zero_grad()
         zi, zt, scale = _forward(remat, state.model, images, tokens)
-        loss = (info_nce_fused(zi, zt, scale=scale) if fused
-                else oracle.info_nce_loss(zi, zt, temperature=1.0 / scale))
+        loss = aux.add(info_nce_fused(zi, zt, scale=scale) if fused
+                       else oracle.info_nce_loss(zi, zt,
+                                                 temperature=1.0 / scale),
+                       state.model)
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, aux.metrics({"loss": loss.detach()})
 
     return train_step
 
 
 def make_sharded_clip_train_step(group=None, loss_impl: str = "dual",
                                  remat: bool = False,
-                                 collective_dtype: str = "float32"
-                                 ) -> Callable:
+                                 collective_dtype: str = "float32",
+                                 moe_aux_weight: float = 0.0) -> Callable:
     """``train_step(state, images, tokens) -> (state, {"loss": tensor})``
     over the ranks of ``group`` (``None``: the default group); ``images``
     and ``tokens`` are this rank's rows of the global batch. The loss body
@@ -645,21 +701,23 @@ def make_sharded_clip_train_step(group=None, loss_impl: str = "dual",
     rematerializes both towers in the backward. ``collective_dtype``: the
     wire of the loss's gathers and of the gradient pmean, with error
     feedback when the state carries ``ef_residual``, as in
-    ``make_sharded_train_step`` (``trainer.py:625-700``)."""
+    ``make_sharded_train_step`` (``trainer.py:625-700``).
+    ``moe_aux_weight``: the per-shard aux estimator, as there."""
     local_loss = resolve_local_infonce(loss_impl)
     wire = _wire_dtype(collective_dtype)
+    aux = _AuxTerm(moe_aux_weight, group, distributed=True)
 
     def train_step(state: TrainState, images: torch.Tensor,
                    tokens: torch.Tensor):
         state.optimizer.zero_grad()
         with collective_precision(wire):
             zi, zt, scale = _forward(remat, state.model, images, tokens)
-            loss = local_loss(zi, zt, scale, group)
+            loss = aux.add(local_loss(zi, zt, scale, group), state.model)
             loss.backward()
         _reduce_grads(state, group, wire)
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, aux.metrics({"loss": aux.mean(loss.detach())})
 
     return train_step
 
@@ -804,7 +862,7 @@ class _Metrics:
     queued after it."""
 
     def __init__(self, metrics: dict):
-        self.keys = [k for k in ("loss", "grad_norm", "step_ok")
+        self.keys = [k for k in ("loss", "grad_norm", "step_ok", "moe_aux")
                      if k in metrics]
         values = torch.stack([torch.as_tensor(metrics[k]).float()
                               for k in self.keys])
@@ -951,6 +1009,10 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
         entry = {"step": step, "loss": loss, "steps_per_sec": sps,
                  "images_per_sec": sps * views * rows * ranks,
                  "data_wait_ms": window["wait"] * 1e3 / window["done"]}
+        aux = (values.get("moe_aux") if values is not None
+               else metrics.get("moe_aux"))
+        if aux is not None:
+            entry["moe_aux"] = float(aux)
         if window["timed"]:
             entry["fetch_ms"] = window["fetch"] * 1e3 / window["timed"]
             entry["transfer_ms"] = window["transfer"] * 1e3 / window["timed"]
@@ -1131,7 +1193,11 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
     ``fit`` without the final save (the diverged state must not become
     the newest step). ``checkpoint_fault_hook`` runs at the start of each
     physical write (the chaos plan's ``diskfull@n``). ``metrics_lag`` and
-    ``timeline`` go to ``train_loop``. ``checkpoint_save_ef`` keeps the
+    ``timeline`` go to ``train_loop``. A sharded state
+    (``state.sharding``: tensor parallelism, ZeRO-3) is saved and restored
+    as its whole copy (``Sharding.gather`` / ``scatter``, collectives of
+    every rank), so its steps are in the single-card format, which either
+    package and either layout resumes. ``checkpoint_save_ef`` keeps the
     error-feedback residual in each step
     (``CheckpointManager(save_ef_residual=True)``); in a world of several
     ranks rank 0's decision to save is then broadcast and every rank's
@@ -1160,8 +1226,18 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
                 save_ef_residual=checkpoint_save_ef)
             if async_checkpointing:
                 manager = AsyncCheckpointer(manager)
-            data_state, restored = _restore(manager, state, restore_step,
-                                            group, distributed)
+            if state.sharding is None:
+                data_state, restored = _restore(manager, state, restore_step,
+                                                group, distributed)
+            else:
+                # a sharded state resumes through a whole copy: every rank
+                # gathers, restores the step rank 0 chose and takes its
+                # slices back
+                whole = state.sharding.gather(state)
+                data_state, restored = _restore(manager, whole, restore_step,
+                                                group, distributed)
+                if restored:
+                    state.sharding.scatter(whole, state)
             if restored:
                 if log:
                     logger.info("resumed from checkpoint at step %d%s",
@@ -1189,26 +1265,33 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
 
         gather_ef = (distributed and checkpoint_save_ef
                      and state.ef_residual is not None)
+        sharded = state.sharding is not None
 
         def residual(s: TrainState, want: bool):
             """(rank 0's decision, ``{"ef_residual": every rank's
             residual}`` for the save, or nothing): the gather is a
-            collective, so under ``gather_ef`` every rank takes rank 0's
+            collective, so under ``gather_ef`` (and for a sharded state,
+            whose whole copy is gathered) every rank takes rank 0's
             decision."""
-            if not gather_ef:
+            if not (gather_ef or (sharded and distributed)):
                 return want, {}
             flag = torch.tensor([float(want)], device=device)
             dist.broadcast(flag, src=0, group=group)
             want = bool(flag.item())
             return want, ({"ef_residual": gather_ef_residual(s, group)}
-                          if want else {})
+                          if want and gather_ef else {})
+
+        def saved(s: TrainState) -> TrainState:
+            """What a save writes: the state, or the whole copy of a
+            sharded one (the single-card format)."""
+            return s.sharding.gather(s) if sharded else s
 
         def step_hook(s: TrainState) -> None:
             if manager is None:
                 return
             want, ef = residual(s, manager.should_save(s.step))
             if want:
-                manager.save(s.step, s, data_state=data_iter.state()
+                manager.save(s.step, saved(s), data_state=data_iter.state()
                              if stateful else None, **ef)
 
         history = train_loop(state, data_iter, train_step, remaining,
@@ -1223,10 +1306,10 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
             if want:
                 data_state = data_iter.state() if stateful else None
                 if async_checkpointing and stopped:
-                    manager.emergency_save(state.step, state,
+                    manager.emergency_save(state.step, saved(state),
                                            data_state=data_state, **ef)
                 else:
-                    manager.save(state.step, state, force=True,
+                    manager.save(state.step, saved(state), force=True,
                                  data_state=data_state, **ef)
             if distributed:
                 dist.barrier(group)

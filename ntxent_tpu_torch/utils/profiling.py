@@ -1,6 +1,6 @@
 """Where the port's serving forward and training steps spend device time.
 
-Eight modes, all but ``ntxent`` on the model of its slice (ViT-B/16 or
+Nine modes, all but ``ntxent`` on the model of its slice (ViT-B/16 or
 ResNet-50 at 224 px, random weights from seed 0):
 
 ``--mode forward`` (the default; serving): for one batch-size bucket and
@@ -116,6 +116,16 @@ adds ``--dataset npy --data-dir`` it),
   host fetch and transfer dispatch ms; a tree whose ``train_loop``
   records no data wait reports None for it.
 
+``--mode moe`` (the MoE slice): one switch-MoE layer of the ViT-B/16 MoE
+path (8 experts of 3072, the tokens of ``--batch`` x 2 views of 197, width
+768, bf16, inputs layer-normed around a common direction, as the path's
+tokens at initialization route mostly alike) against the dense MLP of the
+same width on the same tokens, forward and backward,
+
+* times each in turns with CUDA events (dense, MoE, MoE, dense);
+* its peak memory above the inputs, the share of dropped tokens;
+* traces the MoE layer: device ms by kernel group and the top kernels.
+
 Run on the card, from the repository root:
 
     python -m ntxent_tpu_torch.utils.profiling --bucket 64 --impls flash,xla
@@ -133,6 +143,7 @@ Run on the card, from the repository root:
     python -m ntxent_tpu_torch.utils.profiling --mode longctx \
         --ring-emulate 4
     python -m ntxent_tpu_torch.utils.profiling --mode ntxent
+    python -m ntxent_tpu_torch.utils.profiling --mode moe --batch 256
     python -m ntxent_tpu_torch.utils.profiling --mode pipeline --store 1280 \
         -- --loader native --prefetch 2 --lag-metrics --nan-policy skip
 
@@ -971,6 +982,40 @@ def ntxent_profile(device) -> dict:
     return out
 
 
+def moe_profile(batch: int, device) -> dict:
+    """The numbers of ``--mode moe`` (see the module docstring)."""
+    from ..models.layers import init_weights
+    from ..models.vit import MlpBlock
+    from ..parallel.moe import MoEMlp
+
+    gen = torch.Generator().manual_seed(SEED)
+    moe = init_weights(MoEMlp(768, 8, 3072), gen).to(device)
+    dense = init_weights(MlpBlock(768, 3072, torch.bfloat16), gen).to(device)
+    tokens = torch.randn(2 * batch * 197, 768, generator=gen)
+    x = torch.nn.functional.layer_norm(0.3 * tokens + tokens[:1], (768,))
+    x = x.to(device=device, dtype=torch.bfloat16).requires_grad_()
+
+    def run(layer):
+        def once():
+            layer(x).float().square().mean().backward()
+        return once
+
+    times = {"dense": [], "moe": []}
+    for name in ("dense", "moe", "moe", "dense"):
+        times[name].append(cuda_time_ms(run(dense if name == "dense"
+                                            else moe)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    run(moe)()
+    torch.cuda.synchronize()
+    return {"tokens": x.shape[0], "experts": 8,
+            "dense_ms": times["dense"], "moe_ms": times["moe"],
+            "moe_peak_gib": (torch.cuda.max_memory_allocated() - before)
+            / 2**30, "dropped_share": float(moe.dropped),
+            **kernel_breakdown(run(moe), top=10)}
+
+
 def main(argv=None) -> int:
     from ..cli import build_model, build_serve_parser
     from .capability import card_power_line, device_name, resolve_device
@@ -978,7 +1023,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--mode", default="forward",
                    choices=["forward", "train", "clip", "dp", "clip_dp",
-                            "longctx", "ntxent", "pipeline"])
+                            "longctx", "ntxent", "pipeline", "moe"])
     p.add_argument("--bucket", type=int, default=64,
                    help="forward mode: batch size of the profiled forward")
     p.add_argument("--impls", default="flash,xla",
@@ -1022,6 +1067,22 @@ def main(argv=None) -> int:
               f"images/s, data wait {result['data_wait_ms']} ms, fetch "
               f"{result['fetch_ms']} ms, transfer {result['transfer_ms']} ms",
               flush=True)
+        print(json.dumps(result))
+        return 0
+    if args.mode == "moe":
+        card = card_power_line()
+        print(f"card: {card}", flush=True)
+        result = {"device": device_name(device), "card": card,
+                  "mode": "moe", **moe_profile(args.batch, device)}
+        print(f"[moe] {result['tokens']} tokens x 768, 8 experts of 3072, "
+              f"bf16, forward + backward in turns: dense "
+              f"{result['dense_ms']} ms, MoE {result['moe_ms']} ms; peak "
+              f"{result['moe_peak_gib']:.2f} GiB above the inputs; dropped "
+              f"share {result['dropped_share']:.4f}; device ms by group "
+              f"{json.dumps(result['groups_ms_per_run'])}", flush=True)
+        for k in result["top_kernels"]:
+            print(f"[moe]   {k['ms_per_run']:8.3f} ms "
+                  f"{k['calls_per_run']:.0f}x {k['name']}", flush=True)
         print(json.dumps(result))
         return 0
     if args.mode == "ntxent":

@@ -23,6 +23,8 @@ port module: ``SimCLRModel`` (ViT or ResNet backbone), ``CLIPModel``
 * ``cls_token`` and ``pos_embed`` keep their (1, ., hidden) shapes; the
   text tower's ``Embed_0/embedding`` is the (vocab, hidden) table as is,
   and CLIP's ``logit_scale`` a scalar.
+* A switch-MoE block's MLP is ``MoEMlp_0`` with ``router``, ``w_up``,
+  ``b_up``, ``w_down`` and ``b_down`` in the flax layout as they are.
 * ``LongContextTransformer``'s blocks are ``LongContextBlock_i`` with
   ``LayerNorm_0``, ``SeqParallelSelfAttention_0``, ``LayerNorm_1`` and
   ``MlpBlock_0``, its final norm the tower's ``LayerNorm_0``.
@@ -64,6 +66,7 @@ from .models.projection import ProjectionHead, SimCLRModel
 from .models.resnet import ResNet
 from .models.vit import EncoderBlock, MlpBlock, VisionTransformer
 from .parallel.mesh import rank, world_size
+from .parallel.moe import MoEMlp
 
 logger = logging.getLogger(__name__)
 
@@ -136,14 +139,22 @@ def _mlp(module, p, s, path) -> dict:
             | _prefixed("fc2", _dense(p, path + ("Dense_1",))))
 
 
+def _moe(module, p, s, path) -> dict:
+    # the flax layout as it is: (d, E), (E, d, f), (E, f), (E, f, d), (E, d)
+    return {name: p.get(*path, name) for name in
+            ("router", "w_up", "b_up", "w_down", "b_down")}
+
+
 def _block(module, p, s, path,
            attention="MultiHeadDotProductAttention_0") -> dict:
+    mlp = (_moe(module.mlp, p, s, path + ("MoEMlp_0",))
+           if isinstance(module.mlp, MoEMlp)
+           else _mlp(module.mlp, p, s, path + ("MlpBlock_0",)))
     return (_prefixed("ln1", _layer_norm(p, path + ("LayerNorm_0",)))
             | _prefixed("attn", _attention(module.attn, p, s,
                                            path + (attention,)))
             | _prefixed("ln2", _layer_norm(p, path + ("LayerNorm_1",)))
-            | _prefixed("mlp", _mlp(module.mlp, p, s,
-                                    path + ("MlpBlock_0",))))
+            | _prefixed("mlp", mlp))
 
 
 def _blocks(module, p, s, path) -> dict:

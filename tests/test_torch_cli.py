@@ -59,9 +59,13 @@ def test_tiny_resnet_trains_on_one_cpu_process(monkeypatch):
 # ROADMAP.md items a later slice ported: their flags now run, and a run
 # on one card warns that it ignores them, as the JAX CLI does
 # (``cli.py:914-932``). Queue A 6(b) (the space-to-depth stem) and 11(b)
-# (train-side telemetry) are done too: their flags train and do their job.
+# (train-side telemetry) are done too: their flags train and do their job;
+# so is Queue A 9 (model parallelism and MoE): on one process its flags
+# warn as the JAX CLI's do on one device, and ``--coordinator`` without
+# its partners exits as JAX's rendezvous does (``DONE_EXITS``).
 DONE_ITEMS = (r"Queue A 3\(d\)", r"Queue A 3\(e\)", r"Queue A 6\(b\)",
-              r"Queue A 11\(b\)")
+              r"Queue A 11\(b\)", "Queue A 9")
+DONE_EXITS = {"--coordinator": "--num-processes and --process-id"}
 # the one-card warning of each such flag (none for --ring-chunks with the
 # default --dp-loss strip: the JAX CLI warns only in a data-parallel run)
 ONE_CARD_WARNINGS = {"--dp-loss": "--dp-loss chunked ignored",
@@ -70,7 +74,14 @@ ONE_CARD_WARNINGS = {"--dp-loss": "--dp-loss chunked ignored",
                      "--ring-chunks": None, "--stem": None,
                      "--metrics-port": None, "--log-jsonl": None,
                      "--trace-dir": None, "--trace-steps": None,
-                     "--slow-step-factor": None}
+                     "--slow-step-factor": None,
+                     "--parallel": "--parallel tp ignored",
+                     "--fsdp": "--fsdp ignored", "--model-par": None,
+                     "--tp-loss-axes": "--tp-loss-axes both ignored",
+                     "--moe-aux-weight": None,
+                     "--num-processes": "single-process mode",
+                     "--process-id": "single-process mode",
+                     "--dcn-slices": None}
 # what a done flag needs besides TINY_ARGV: the stem is a ResNet's ImageNet
 # stem, so a ResNet-18 above the CIFAR stem's 64 px
 ONE_CARD_EXTRA = {"--stem": ["--model", "resnet18", "--image-size", "72"]}
@@ -236,6 +247,11 @@ def test_reference_flags_parse_and_exit_naming_their_item(
     if command == "train":
         args = cli.build_train_parser().parse_args(TINY_ARGV + flags)
         run = cli.train
+        if flags[0] in DONE_EXITS:
+            monkeypatch.delenv("WORLD_SIZE", raising=False)
+            with pytest.raises(SystemExit, match=DONE_EXITS[flags[0]]):
+                run(args)
+            return
         if match in DONE_ITEMS:
             _trains_on_one_card(args, flags[0], caplog, monkeypatch,
                                 tmp_path)
@@ -765,3 +781,137 @@ def test_tiny_resnet_trains_with_the_platform_flag(monkeypatch):
     args = cli.build_train_parser().parse_args(argv + ["--platform", "cpu"])
     _, history = cli.train(args)
     assert [h["step"] for h in history] == [1, 2]
+
+
+# ---------------------------------------------------------------------------
+# model parallelism and MoE (Queue A 9)
+# ---------------------------------------------------------------------------
+
+VIT_ARGV = ["--device", "cpu", "--model", "vit_t16", "--vit-attention",
+            "flash", "--image-size", "16", "--batch", "4", "--steps", "2",
+            "--log-every", "1", "--proj-hidden-dim", "16", "--proj-dim", "8",
+            "--synthetic-samples", "8", "--warmup-steps", "1"]
+
+
+@pytest.fixture
+def world_of_one(tmp_path):
+    import datetime
+
+    from ntxent_tpu_torch.parallel import mesh
+
+    mesh.init_from_file(tmp_path / "store", 0, 1, device="cpu",
+                        timeout=datetime.timedelta(seconds=60))
+    yield
+    mesh.shutdown()
+
+
+@pytest.mark.parametrize("argv,match", [
+    (VIT_ARGV + ["--parallel", "tp", "--moe-experts", "2"],
+     "does not collect the MoE aux loss"),
+    (VIT_ARGV + ["--parallel", "tp", "--dcn-slices", "2"],
+     "does not compose with --parallel tp"),
+    (VIT_ARGV + ["--parallel", "tp", "--model-par", "3"],
+     "--model-par 3 must divide 1 devices"),
+    (TINY_ARGV + ["--fsdp", "--dcn-slices", "2"],
+     "--dcn-slices 2 must divide the 1 devices"),
+    (TINY_ARGV + ["--moe-experts", "2"], "requires a ViT model"),
+], ids=["tp_moe", "tp_dcn", "model_par", "fsdp_dcn", "moe_resnet"])
+def test_model_parallel_flags_exit_as_the_jax_cli(argv, match,
+                                                  world_of_one):
+    """The JAX CLI's exits (``cli.py:720-745``, ``:411-418``, ``:355``),
+    in a world of one joined beforehand."""
+    with pytest.raises(SystemExit, match=match):
+        cli.train(cli.build_train_parser().parse_args(argv),
+                  data_parallel=True)
+
+
+@pytest.mark.parametrize("argv,branch", [
+    (TINY_ARGV + ["--fsdp"], "FSDP (ZeRO-3) over 1 ranks"),
+    (VIT_ARGV + ["--parallel", "tp", "--fsdp", "--tp-loss-axes", "both",
+                  "--model-par", "1"],
+     "Megatron + ZeRO-3 over the (1, 1) (data, model) grid"),
+    (VIT_ARGV + ["--moe-experts", "2", "--fsdp"],
+     "FSDP (ZeRO-3) over 1 ranks"),
+], ids=["fsdp", "tp_fsdp", "fsdp_moe"])
+def test_model_parallel_branches_train_save_and_resume(
+        argv, branch, world_of_one, tmp_path, caplog):
+    """Each branch trains in a world of one, saves its sharded state in
+    the single-card format, and a longer run resumes it; the JAX CLI's
+    warnings for what it ignores."""
+    ckpt = ["--ckpt-dir", str(tmp_path / "ck"), "--nan-policy", "skip",
+            "--collective-dtype", "bf16"]
+    with caplog.at_level("INFO"):
+        state, history = cli.train(cli.build_train_parser().parse_args(
+            argv + ckpt), data_parallel=True)
+    assert branch in caplog.text and state.sharding is not None
+    assert "--nan-policy skip ignored" in caplog.text
+    assert "--collective-dtype bf16 ignored" in caplog.text
+    assert [h["step"] for h in history] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    if "--moe-experts" in argv:
+        assert all(np.isfinite(h["moe_aux"]) for h in history)
+    caplog.clear()
+    with caplog.at_level("INFO"):
+        _, history = cli.train(cli.build_train_parser().parse_args(
+            argv + ckpt + ["--steps", "3"]), data_parallel=True)
+    assert "resumed from checkpoint at step 2" in caplog.text
+    assert [h["step"] for h in history] == [3]
+
+
+def test_moe_losses_agree_through_both_clis(tmp_path, monkeypatch):
+    """``--moe-experts 2`` through the JAX CLI and the port's on an npy
+    store of black images (every view of a black image is black, so both
+    CLIs see the same views): the JAX CLI's step 1 (at the warmup's lr of
+    0, so its checkpoint holds the initial weights) and the port's step 2
+    from that checkpoint compute the same loss, log(2B - 1) plus 0.01
+    times the same aux; bf16 towers, 1e-3."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from ntxent_tpu_torch.resilience.crashsim import losses_from_jsonl
+
+    repo = Path(__file__).resolve().parents[1]
+    store = tmp_path / "black.npy"
+    np.save(store, np.zeros((16, 16, 16, 3), np.uint8))
+    flags = ["--model", "vit_t16", "--dataset", "npy", "--data-dir",
+             str(store), "--batch", "8", "--moe-experts", "2",
+             "--proj-hidden-dim", "16", "--proj-dim", "8", "--log-every",
+             "1", "--warmup-steps", "1"]
+    env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(repo))
+    env.pop("XLA_FLAGS", None)  # one CPU device: the JAX CLI's one card
+    done = subprocess.run(
+        [sys.executable, "-m", "ntxent_tpu.cli", "--platform", "cpu",
+         *flags, "--steps", "1", "--ckpt-dir", str(tmp_path / "jax"),
+         "--log-jsonl", str(tmp_path / "jax.jsonl")], cwd=str(repo),
+        env=env, capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+    shutil.copytree(tmp_path / "jax", tmp_path / "port")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    _, history = cli.train(cli.build_train_parser().parse_args(
+        ["--device", "cpu", *flags, "--steps", "2", "--ckpt-dir",
+         str(tmp_path / "port")]))
+    jax_loss = losses_from_jsonl(tmp_path / "jax.jsonl")[1]
+    assert [h["step"] for h in history] == [2]
+    np.testing.assert_allclose(history[0]["loss"], jax_loss, atol=1e-3)
+    assert abs(jax_loss - np.log(15.0)) > 1e-4  # the aux is in both
+
+
+def test_eval_takes_moe_checkpoints(tmp_path, monkeypatch, capsys):
+    """``eval --moe-experts 2`` restores a MoE run's checkpoint (the MoE
+    leaves in the flax layout) and reports its step."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    ckpt = str(tmp_path / "ck")
+    cli.train(cli.build_train_parser().parse_args(
+        VIT_ARGV + ["--moe-experts", "2", "--ckpt-dir", ckpt]))
+    assert cli.eval_main(["--device", "cpu", "--model", "vit_t16",
+                          "--vit-attention", "flash", "--image-size", "16",
+                          "--proj-hidden-dim", "16", "--proj-dim", "8",
+                          "--moe-experts", "2", "--ckpt-dir", ckpt,
+                          "--protocol", "knn", "--max-train", "32",
+                          "--max-test", "16", "--batch", "16"]) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["step"] == 2 and 0.0 <= result["knn_top1"] <= 1.0

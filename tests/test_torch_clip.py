@@ -226,8 +226,12 @@ def test_clip_train_step_matches_jax_value_and_grad(use_fused):
 
 
 def test_clip_step_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 9"):
-        ttrain.make_clip_train_step(moe_aux_weight=0.01)
+    """Nothing is refused since Queue A 9: ``moe_aux_weight`` builds the
+    step with the MoE aux loss (held to JAX in ``test_torch_moe.py``), and
+    at weight 0 the metrics carry no ``moe_aux``."""
+    step = ttrain.make_clip_train_step(moe_aux_weight=0.01)
+    assert callable(step)
+    assert not hasattr(ttrain, "_not_ported") and not ttrain.ROADMAP_ITEMS
 
 
 # ---------------------------------------------------------------------------
@@ -361,8 +365,22 @@ def test_train_cli_clip_defaults():
     (["--clip-parallel", "tp"], "ROADMAP.md Queue A 9"),
     (["--moe-experts", "4"], "ROADMAP.md Queue A 9"),
 ])
-def test_train_cli_clip_refusals(flags, match):
+def test_train_cli_clip_refusals(flags, match, monkeypatch):
+    """The JAX CLI's refusals; Queue A 9's flags (ported since) train on
+    one process instead: ``--clip-parallel tp`` takes the single-card step
+    (the JAX CLI's behaviour on one device), ``--moe-experts 4`` the MoE
+    image tower with its aux in every step's history."""
     args = cli.build_train_parser().parse_args(CPU_ARGV + flags)
+    if "Queue A 9" in match:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        state, history = cli.train(args)
+        assert len(history) == 2 and all(np.isfinite(h["loss"])
+                                         for h in history)
+        moe = flags[0] == "--moe-experts"
+        assert all(("moe_aux" in h) == moe for h in history)
+        assert (type(state.model.image_tower.blocks[1].mlp).__name__
+                == ("MoEMlp" if moe else "MlpBlock"))
+        return
     with pytest.raises(SystemExit, match=match):
         cli.train(args)
 

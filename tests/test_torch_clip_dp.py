@@ -592,22 +592,33 @@ def test_resolve_local_infonce():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--clip-parallel", "tp"], "ROADMAP.md Queue A 9"),
+    (["--clip-parallel", "tp", "--model-par", "1"], "ROADMAP.md Queue A 9"),
     (["--fsdp"], "ROADMAP.md Queue A 9"),
     (["--collective-dtype", "bf16"], r"ROADMAP.md Queue A 3\(e\)"),
 ])
 def test_train_cli_clip_data_parallel_refusals(flags, match, tmp_path,
                                                caplog):
-    """Queue A 9's flags exit naming it; 3(e), the wire dtypes, is ported:
-    ``--collective-dtype bf16`` trains the data-parallel CLIP step in a
-    world of one, its gathers and gradient pmean in bf16."""
+    """Queue A 9's flags (ported since) train their branch in a world of
+    one: ``--clip-parallel tp`` Megatron TP on the (1, 1) grid, ``--fsdp``
+    ZeRO-3; 3(e), the wire dtypes, is ported too: ``--collective-dtype
+    bf16`` trains the data-parallel CLIP step in a world of one, its
+    gathers and gradient pmean in bf16."""
     args = cli.build_train_parser().parse_args(CLI_ARGV + flags)
-    if "Queue A 9" in match:
-        with pytest.raises(SystemExit, match=match):
-            cli.train(args, data_parallel=True)
-        return
     mesh.init_from_file(tmp_path / "store", 0, 1, device="cpu",
                         timeout=datetime.timedelta(seconds=60))
+    if "Queue A 9" in match:
+        try:
+            with caplog.at_level("INFO"):
+                state, history = cli.train(args, data_parallel=True)
+        finally:
+            mesh.shutdown()
+        branch = ("Megatron TP over the (1, 1) (data, model) grid"
+                  if flags[0] == "--clip-parallel"
+                  else "FSDP (ZeRO-3) over 1 ranks")
+        assert branch in caplog.text and state.sharding is not None
+        assert [h["step"] for h in history] == [1, 2]
+        assert all(np.isfinite(h["loss"]) for h in history)
+        return
     try:
         mark = mesh.comms_accounting().totals()
         with caplog.at_level("INFO"):

@@ -99,7 +99,9 @@ def test_scan_sees_every_module():
             "models/long_context.py", "models/layers.py",
             "training/checkpoint.py", "training/preemption.py",
             "utils/msgpack.py", "parallel/precision.py",
-            "ops/autotune.py"} <= names
+            "ops/autotune.py", "parallel/moe.py", "parallel/tp.py",
+            "parallel/fsdp.py", "parallel/pp.py",
+            "parallel/shards.py"} <= names
 
 
 @pytest.mark.parametrize("module", ["ntxent_tpu_torch.parallel.precision",

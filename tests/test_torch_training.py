@@ -411,11 +411,26 @@ def test_flash_vit_carries_gradient_to_every_projection():
     dict(moe_aux_weight=0.01), dict(moe_aux_weight=0.01, remat=True),
     dict(moe_aux_weight=0.01, guard=True)])
 def test_unported_step_options_raise(kwargs):
-    """The MoE loss is not ported, with or without the resilience options
-    (remat and the guard are ported: tests/test_torch_remat.py,
-    tests/test_torch_resilience.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttrain.make_train_step(**kwargs)
+    """The MoE loss is ported since Queue A 9 (nothing raises): with or
+    without the resilience options, a step of a tiny MoE ViT reports the
+    same loss and ``moe_aux`` as the plain MoE step (held to JAX in
+    tests/test_torch_moe.py)."""
+    def state():
+        model = init_weights(SimCLRModel(VisionTransformer(
+            image_size=IMAGE, patch_size=8, hidden_dim=32, depth=2,
+            num_heads=2, mlp_dim=64, dtype=torch.float32, moe_experts=2),
+            16, 8, dtype=torch.float32), torch.Generator().manual_seed(0))
+        return ttrain.create_train_state(model, ttrain.TrainerConfig(
+            batch_size=4, warmup_steps=1), torch.device("cpu"))
+
+    rng = np.random.default_rng(11)
+    v1, v2 = (torch.from_numpy(rng.uniform(size=(4, IMAGE, IMAGE, 3)).astype(
+        np.float32)) for _ in range(2))
+    _, want = ttrain.make_train_step(moe_aux_weight=0.01)(state(), v1, v2)
+    _, got = ttrain.make_train_step(**kwargs)(state(), v1, v2)
+    for key in ("loss", "moe_aux"):
+        np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                   atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -458,10 +473,14 @@ def test_train_cli_defaults_match_the_jax_cli():
 # Queue A 6(b), the space-to-depth stem (the "--model" case): ResNet-50
 # trains with it at 72 px, the ImageNet stem's smallest size here
 # (--image-size <= 64 takes the CIFAR stem), under plain attention flags.
+# Queue A 9 (model parallelism and MoE): --parallel tp and --fsdp warn on one
+# card as the JAX CLI does on one device; --moe-experts trains the MoE tower.
 PORTED_SINCE = {"--ring-chunks": None,
                 "--dp-loss": "--dp-loss chunked ignored",
                 "--collective-dtype": "--collective-dtype int8 ignored",
-                "--model": None}
+                "--model": None,
+                "--parallel": "--parallel tp ignored",
+                "--fsdp": "--fsdp ignored", "--moe-experts": None}
 
 
 @pytest.mark.parametrize("flags", [

@@ -276,8 +276,23 @@ def test_loader_rejects_missing_leaves():
 
 
 def test_moe_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VisionTransformer(image_size=IMAGE, moe_experts=4, **SMALL)
+    """Ported since Queue A 9 (the refusal went with it): the tower mounts
+    a switch-MoE MLP in every other block and takes the JAX MoE tower's
+    weights, forward equal to JAX's (fp32, 1e-5)."""
+    x = np.random.default_rng(0).uniform(size=(2, IMAGE, IMAGE, 3)).astype(
+        np.float32)
+    jax_tower = JaxViT(dtype=jnp.float32, moe_experts=4, **SMALL)
+    variables = jax.device_get(jax_tower.init(jax.random.PRNGKey(0), x,
+                                              train=False))
+    tower = load_flax_variables(VisionTransformer(
+        image_size=IMAGE, moe_experts=4, dtype=torch.float32, **SMALL),
+        variables)
+    assert [type(b.mlp).__name__ for b in tower.blocks] == ["MlpBlock",
+                                                            "MoEMlp"]
+    want = jax_tower.apply(variables, x, train=True,
+                           mutable=["intermediates"])[0]
+    np.testing.assert_allclose(tower(torch.tensor(x)).detach().numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_unknown_attention_impl_raises():
