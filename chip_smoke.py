@@ -264,7 +264,7 @@ Phases; any failure ends the run with a non-zero exit and no result:
    --nan-policy skip --ckpt-dir: one state CRC32, 1/1/12/12/12 launches a
    step each, step ms, data wait ms a step and images/s of each;
    [data-lag] the plain loop, the synchronous guard and the lag-1 guard
-   timed in rounds of 8 steps, ending equal; [data-lag-nan] a --chaos NaN
+   timed in rounds of 6 steps, ending equal; [data-lag-nan] a --chaos NaN
    batch under the third way ends bit for bit where the same run without
    --lag-metrics ends, the guard naming the step; [eval] ntxent-eval on
    the third way's checkpoint: the flash forward's features against the
@@ -294,6 +294,20 @@ Phases; any failure ends the run with a non-zero exit and no result:
    --nan-policy skip`` with a NaN micro-batch ends at the synchronous
    guard's CRC32 (and the device fold equals ``step()``'s), and both
    guards under --accum-steps 2 timed in turns on batches on the card;
+   [fleet] (after [serve-worker], on a watched copy of run A's steps)
+   ``python -m ntxent_tpu_torch.fleet_cli`` as a subprocess over three of
+   the port's serve workers at phase 4's width, with the shadow mirror,
+   federation, SLOs, the history spill, the autoscaler and ``--chaos
+   killworker,drainworker``, four clients of 1-8 rows from a pool of 12:
+   every answer 200 or 429 and within EMBED_ATOL of a step's direct
+   forward, cache-only answers bit for bit a worker's, the promote's
+   flush and warm, w0 SIGKILLed and restarted, w2 drained to zero in
+   flight then retired, run A's newer step canaried on w0, shadow-diffed
+   and promoted, a step with the projection's last layer negated rolled
+   back on the drift bar and blocked on both workers, ``/metrics/fleet``,
+   ``/alerts``, ``/metrics/history`` and its spill, a SIGTERM exiting 0
+   with no worker left, one merged Chrome trace of the router's and the
+   workers' logs, and #11's launches in every worker that exited cleanly;
 12q. the data-parallel wire (in the NCCL group of world 1, after 12):
    [dp-chunked] phase 11's command with ``--dp-loss chunked --ring-chunks
    4``: finite losses, exactly 4/4/4 launches a step of #1 general and #6
@@ -328,7 +342,7 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``touch TRIGGER`` giving a ``torch.profiler`` Chrome trace whose CUDA
    kernels include #1's, #5's and #11-#14's walks, ``python -m
    ntxent_tpu_torch.obs.trace`` exporting a step slice a step, 1/1/12/12/12
-   launches a step; then rounds of 8 train_loop steps timing the plain
+   launches a step; then rounds of 6 train_loop steps timing the plain
    loop, the timeline's synchronous path and the timeline under
    ``--lag-metrics``; [stem] ResNet-50 at 224 px and batch 256 with
    ``--stem space_to_depth`` and ``--stem conv`` from the same weights, 4
@@ -764,7 +778,7 @@ CHILD_TIMEOUT_S = 420
 # cuDNN), the first AUDIT_MIDSAVE inside a save, one child at a time
 # (each holds ~35 GiB); no torn step, the survivor equal to the
 # reference run's step-AUDIT_STEPS checkpoint.
-GUARD_TIMED_STEPS = 8
+GUARD_TIMED_STEPS = 6  # a timed round; more would cost the time limit
 GUARD_ROUNDS = ("plain", "guarded", "guarded", "plain")
 GUARD_CHAOS = ["--steps", "5", "--nan-policy", "backoff", "--chaos",
                "nan@2,nan@3"]
@@ -5647,6 +5661,587 @@ def phase_serve_worker(tmp: str, dir_a: str, card_line: str) -> int:
     return launches
 
 
+# [fleet] (ROADMAP Queue A 12(a)): the router process ``python -m
+# ntxent_tpu_torch.fleet_cli`` over FLEET_WORKERS of the port's serve at
+# SERVE_ARGV's width, on a watched copy of run A's steps, with the shadow
+# mirror, federation, SLOs, history, the autoscaler and a chaos plan.
+# Three workers start, one above --max-workers, so that both chaos
+# actions land before the rollout and no supervision tick races a
+# verdict: killworker SIGKILLs w0 (it restarts) and drainworker drains w2
+# (zero in flight, then SIGTERM) down to the ceiling, where no scale-up
+# follows; w0 and w1 carry the rollout. The idle scale-down is off: the
+# drain is the pool's only one. The router parses every 224 px body (about
+# 0.3 s of host time a row), so a canary needs tens of seconds to gather
+# FLEET_CANARY outcomes: w1 adopts a new step FLEET_STAGGER_S after w0,
+# long after the verdict. --eject-after is raised because a worker busy
+# in a 26 MB json.loads answers no /readyz probe for seconds (the probe's
+# timeout is 2 s).
+FLEET_WORKERS = 3
+FLEET_KILL_TICK, FLEET_DRAIN_TICK = 2, 3
+FLEET_STAGGER_S = 40
+FLEET_CANARY = 8
+FLEET_CLIENTS = 4
+# Request bodies a client cycles through: every fourth is 1-2 of
+# FLEET_HOT rows (answered from the cache once seen), the others 1-8 rows
+# of the rest of the pool, which outnumber the cache's --cache-rows, so
+# most of them reach a worker (the canary needs forwarded outcomes).
+FLEET_ROW_POOL, FLEET_HOT, FLEET_CACHE_ROWS = 48, 4, 24
+FLEET_BODIES = 32
+FLEET_FLAGS = [
+    "--workers", str(FLEET_WORKERS), "--watch-poll", "0.5",
+    "--worker-stagger", str(FLEET_STAGGER_S), "--eject-after", "20",
+    "--canary-fraction", "0.5", "--canary-min-requests", str(FLEET_CANARY),
+    "--shadow-fraction", "0.5", "--shadow-min-samples", str(FLEET_CANARY),
+    "--shadow-max-drift", "0.5", "--cache-rows", str(FLEET_CACHE_ROWS),
+    "--fed-interval", "1",
+    "--slo-availability", "0.99", "--slo-latency-ms", "5000",
+    "--autoscale", "--min-workers", "1", "--max-workers",
+    str(FLEET_WORKERS - 1), "--scale-idle-ticks", "1000000",
+    "--chaos", f"killworker@{FLEET_KILL_TICK},drainworker@{FLEET_DRAIN_TICK}",
+    "--run-id", "smoke", "--port", "0"]
+FLEET_BUDGET_S = 180.0
+FLEET_BOOT_S = 240.0  # three workers' first start on a cold host
+
+# The launches of #11 in each worker process: a sitecustomize the
+# workers inherit through PYTHONPATH writes them, with the engine's chunks
+# and first runs, when a worker exits cleanly (SIGTERM: the drain, the
+# shutdown); a SIGKILLed worker reports nothing. It chains to the
+# sitecustomize it shadows.
+_FLEET_SITE = '''
+import atexit, gc, json, os, sys
+
+
+def _report():
+    attention = sys.modules.get("ntxent_tpu_torch.ops.attention")
+    engine = sys.modules.get("ntxent_tpu_torch.serving.engine")
+    if attention is None or engine is None:
+        return
+    engines = [o for o in gc.get_objects()
+               if isinstance(o, engine.InferenceEngine)]
+    argv = sys.argv
+    worker = (os.path.basename(argv[argv.index("--port-file") + 1])
+              .split(".")[0] if "--port-file" in argv else None)
+    rec = {"pid": os.getpid(), "worker": worker,
+           "launches": attention.flash_attention_fwd.launches,
+           "chunks": sum(e.metrics.device_calls for e in engines),
+           "first_runs": sum(e.metrics.compiles + e.metrics.ladder_compiles
+                             for e in engines)}
+    path = os.path.join(os.environ["NTXENT_SMOKE_COUNTS"],
+                        f"{os.getpid()}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(path + ".tmp", path)
+
+
+if os.environ.get("NTXENT_SMOKE_COUNTS"):
+    atexit.register(_report)
+_here = os.path.dirname(os.path.abspath(__file__))
+for _entry in sys.path:
+    _path = os.path.join(_entry or ".", "sitecustomize.py")
+    if os.path.abspath(_entry or ".") != _here and os.path.isfile(_path):
+        exec(compile(open(_path).read(), _path, "exec"))
+        break
+'''
+
+
+def _fleet_refs(dir_a: str, steps: dict, rows: np.ndarray) -> dict:
+    """Each step's direct forward of the row pool on the card; the bad
+    step is ``steps["newer"]`` with the projection's last layer negated,
+    saved by the port's manager at ``steps["bad"]`` under ``stage``."""
+    import torch
+
+    refs = {}
+    with torch.inference_mode():
+        for label in ("first", "newer"):
+            model = _step_model(dir_a, steps[label])
+            refs[label] = model(torch.from_numpy(rows).to(SMOKE_DEVICE)) \
+                .float().cpu().numpy()
+            del model
+    refs["bad"] = -refs["newer"]  # the normalized output of -fc2
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _save_bad_step(dir_a: str, newer: int, bad: int, stage: str) -> None:
+    """Step ``newer``'s weights with ``projector.fc2`` negated, a valid
+    checkpoint at step ``bad`` written by the port's manager."""
+    import torch
+
+    from ntxent_tpu_torch import cli
+    from ntxent_tpu_torch.training import CheckpointManager
+    from ntxent_tpu_torch.training import trainer as ttrain
+
+    model = cli.build_model(cli.build_serve_parser().parse_args(SERVE_ARGV))
+    CheckpointManager(dir_a).restore_variables(model, step=newer)
+    with torch.no_grad():
+        model.projector.fc2.weight.neg_()
+    state = ttrain.create_train_state(model, ttrain.TrainerConfig(),
+                                      torch.device("cpu"))
+    state.step = bad
+    if not CheckpointManager(stage).save(bad, state):
+        fail("fleet: the bad step did not save")
+
+
+def _fleet_get(url: str):
+    status, body = _get_text(url)
+    return status, (json.loads(body) if body.startswith(("{", "[")) else body)
+
+
+def _router_events(path: str, event: str) -> list:
+    from ntxent_tpu_torch.obs import events
+
+    return events.read_events(path, event) if os.path.exists(path) else []
+
+
+def _fleet_stop(router, router_log: str) -> list:
+    """Stop the router (SIGTERM, which stops its workers; SIGKILL after a
+    minute) and SIGKILL any worker it spawned that is still alive, as on
+    a failed phase; returns those workers' pids."""
+    import signal
+    import subprocess
+
+    if router.poll() is None:
+        router.send_signal(signal.SIGTERM)
+        try:
+            router.wait(60)
+        except subprocess.TimeoutExpired:
+            router.kill()
+            router.wait(30)
+    alive = []
+    for r in _router_events(router_log, "fleet"):
+        if r.get("action") != "spawn":
+            continue
+        try:  # a worker still running, not a pid the system reused
+            with open(f"/proc/{r['pid']}/cmdline", "rb") as f:
+                if b"ntxent_tpu_torch.cli" not in f.read():
+                    continue
+            os.kill(r["pid"], signal.SIGKILL)
+            alive.append(r["pid"])
+        except (KeyError, OSError):
+            pass
+    return alive
+
+
+def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
+    """The serving fleet on run A's steps; returns #11's launches in the
+    workers that reported."""
+    import signal
+    import subprocess
+
+    from ntxent_tpu_torch.obs import trace
+    from ntxent_tpu_torch.obs.history import MetricHistory
+    from ntxent_tpu_torch.training import CheckpointManager
+
+    t0 = time.monotonic()
+    first, newer = sorted(CheckpointManager(dir_a).all_steps())[-2:]
+    bad = newer + 1
+    root = f"{tmp}/fleet"
+    watch, stage, counts, site = (f"{root}/{d}" for d in (
+        "watch", "stage", "counts", "site"))
+    for d in (watch, stage, counts, site):
+        os.makedirs(d)
+    shutil.copy(f"{dir_a}/manifests.json", watch)
+
+    def publish(src, step):  # atomically: no watcher sees half a step
+        shutil.copytree(f"{src}/{step}", f"{watch}/.copy-{step}")
+        os.rename(f"{watch}/.copy-{step}", f"{watch}/{step}")
+
+    publish(dir_a, first)
+    with open(f"{site}/sitecustomize.py", "w") as f:
+        f.write(_FLEET_SITE)
+    router_log, history_dir = f"{root}/router.jsonl", f"{root}/history"
+    workdir, port_file = f"{root}/workers", f"{root}/router.port"
+    # SERVE_ARGV's model and batching flags; the fleet places its workers
+    model_flags = list(SERVE_ARGV)
+    for flag in ("--port", "--device"):
+        i = model_flags.index(flag)
+        del model_flags[i:i + 2]
+    argv = [sys.executable, "-m", "ntxent_tpu_torch.fleet_cli",
+            *model_flags, *FLEET_FLAGS, "--ckpt-dir", watch, "--workdir",
+            workdir, "--port-file", port_file, "--log-jsonl", router_log,
+            "--history-dir", history_dir]
+    env = dict(os.environ, NTXENT_SMOKE_COUNTS=counts, PYTHONPATH=os.pathsep
+               .join([site, os.path.dirname(os.path.abspath(__file__)),
+                      os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
+    out_path = f"{root}/router.out"
+    marks, answers, bodies, stop = {"start": time.monotonic()}, [], [], \
+        threading.Event()
+    router = subprocess.Popen(argv, cwd=os.path.dirname(
+        os.path.abspath(__file__)), env=env, stdout=open(out_path, "w"),
+        stderr=subprocess.STDOUT)
+    url = None
+
+    def router_tail() -> str:
+        with open(out_path) as f:
+            return "".join(f.readlines()[-30:])
+
+    def wait(what, predicate, timeout_s):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if router.poll() is not None:
+                fail(f"fleet: the router exited {router.returncode} while "
+                     f"waiting for {what}:\n{router_tail()}")
+            value = predicate()
+            if value:
+                return value
+            time.sleep(0.1)
+        try:
+            state = metrics()
+        except OSError as e:
+            state = repr(e)
+        fail(f"fleet: no {what} within {timeout_s:.0f} s; the router's "
+             f"/metrics: {state}\n{router_tail()}")
+
+    def metrics():
+        return _fleet_get(f"{url}/metrics")[1]
+
+    def served(ready=False):
+        """Each pool member's step (only the ready ones' with ``ready``:
+        a probe that times out under load turns a worker unready for a
+        poll, which says nothing about its step)."""
+        return {w: v["checkpoint_step"] for w, v in metrics()["workers"]
+                .items() if v["ready"] or not ready}
+
+    def client(k: int) -> None:
+        n = 0
+        while not stop.is_set():
+            ids, body = bodies[(k * 7 + n) % FLEET_BODIES]
+            rid = f"fleet-{k}-{n}"
+            t_send = time.monotonic()
+            status, headers, payload = _post_full(f"{url}/embed", body, rid)
+            answers.append(dict(rid=rid, ids=ids, status=status,
+                                t_send=t_send, t_recv=time.monotonic(),
+                                payload=payload, headers=headers))
+            n += 1
+            if status == 429:
+                time.sleep(float(headers.get("Retry-After", 1)))
+
+    clients = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(FLEET_CLIENTS)]
+    try:
+        # while the workers boot: the references, the bad step, the bodies
+        rng = np.random.default_rng(23)
+        pool = rng.uniform(-1, 1, (FLEET_ROW_POOL, SERVE_IMAGE,
+                                   SERVE_IMAGE, 3)).round(3)
+        refs = _fleet_refs(dir_a, {"first": first, "newer": newer},
+                           pool.astype(np.float32))
+        _save_bad_step(dir_a, newer, bad, stage)
+        row_json = [json.dumps(r.tolist()) for r in pool]
+        for i in range(FLEET_BODIES):
+            ids = (rng.choice(FLEET_HOT, size=1 + i % 2) if i % 4 == 0 else
+                   rng.choice(np.arange(FLEET_HOT, FLEET_ROW_POOL),
+                              size=1 + i % 8))
+            bodies.append((ids, ('{"inputs": [' + ", ".join(
+                row_json[j] for j in ids)
+                + '], "timeout_ms": 120000}').encode()))
+        url = "http://127.0.0.1:" + wait(
+            "port file", lambda: os.path.exists(port_file)
+            and open(port_file).read().strip(), 60)
+        wait(f"{FLEET_WORKERS} ready workers on step {first}",
+             lambda: served(ready=True) == {f"w{i}": first
+                                            for i in range(FLEET_WORKERS)},
+             FLEET_BOOT_S)
+        marks["ready"] = time.monotonic()
+        for th in clients:
+            th.start()
+        # killworker (w0) and drainworker (the highest ordinal) land
+        deaths = wait("the killed worker's death", lambda: [
+            r for r in _router_events(router_log, "fleet")
+            if r.get("action") == "death"], 60)
+        drained = wait("the drain", lambda: [
+            r for r in _router_events(router_log, "autoscale")
+            if r.get("action") in ("drain_done", "drain_deadline")], 60)
+        marks["drained"] = time.monotonic()
+        wait("w0 and w1 ready after the restart",
+             lambda: served(ready=True) == {"w0": first, "w1": first}, 120)
+        marks["restarted"] = time.monotonic()
+        restart_ms = (time.time() - deaths[0]["wall"]) * 1e3
+        # the rollout: w0 adopts the newer step at once, w1 later
+        marks["publish_newer"] = time.monotonic()
+        publish(dir_a, newer)
+        wait(f"step {newer} promoted", lambda: metrics()["trusted_step"]
+             == newer, 120)
+        marks["promoted"] = time.monotonic()
+        promote_verdict, promote_view = metrics()["last_verdict"], served()
+        if _fleet_get(f"{url}/healthz")[1].get("trusted_step") != newer:
+            fail(f"fleet: /healthz after the promote of step {newer}")
+        if promote_view.get("w1") != first:
+            fail(f"fleet: step {newer} promoted with the workers on "
+                 f"{promote_view}: w1 adopted before the verdict")
+        wait(f"both workers on step {newer}", lambda: served() == {
+            "w0": newer, "w1": newer}, FLEET_STAGGER_S + 60)
+        marks["publish_bad"] = time.monotonic()
+        publish(stage, bad)
+        wait(f"step {bad} rolled back", lambda: bad in metrics()[
+            "bad_steps"], 120)
+        marks["rolled_back"] = time.monotonic()
+        rollback_verdict = metrics()["last_verdict"]
+        wait(f"both workers back on step {newer}", lambda: served() == {
+            "w0": newer, "w1": newer}, 60)
+        worker_urls = {w: v["url"] for w, v in metrics()["workers"].items()}
+        blocked = {}
+        for w, wurl in worker_urls.items():
+            status, _, body = _post_full(f"{wurl}/rollback", json.dumps(
+                {"step": bad}).encode(), f"blocked-{w}")
+            blocked[w] = body.get("blocked_steps") if status == 200 else None
+            if status != 200 or bad not in body.get("blocked_steps", ()) \
+                    or body.get("checkpoint_step") != newer:
+                fail(f"fleet: {w} after the rollback: {status} {body}")
+            health = _fleet_get(f"{wurl}/healthz")[1]
+            if health.get("checkpoint_step") != newer:
+                fail(f"fleet: {w} serves {health} after the rollback")
+        time.sleep(2.0)  # answers after the rollback, on the newer step
+        # the observability plane, both workers still in the pool
+        status, fed = _fleet_get(f"{url}/metrics/fleet")
+        if status != 200 or any(f'serving_queue_depth{{instance="{w}"}}'
+                                not in fed for w in ("w0", "w1")):
+            fail(f"fleet: /metrics/fleet {status} lacks the workers' "
+                 f"serving series")
+        status, alerts = _fleet_get(f"{url}/alerts")
+        if status != 200 or "availability" in alerts["firing"] or not any(
+                a["name"] == "canary_rollback" for a in alerts["history"]):
+            fail(f"fleet: /alerts {status} {alerts}")
+        status, history = _fleet_get(f"{url}/metrics/history")
+        if status != 200 or history["raw_samples"] < 1:
+            fail(f"fleet: /metrics/history {status} {history}")
+        stop.set()
+        for th in clients:
+            th.join(300)
+        marks["clients_done"] = time.monotonic()
+        time.sleep(1.0)
+        final = metrics()
+        _, prom = _get_text(f"{url}/metrics?format=prometheus")
+        worker_metrics = {w: _fleet_get(f"{wurl}/metrics")[1]
+                          for w, wurl in worker_urls.items()}
+        marks["sigterm"] = time.monotonic()
+        router.send_signal(signal.SIGTERM)
+        rc = router.wait(120)
+        marks["exited"] = time.monotonic()
+    finally:
+        stop.set()
+        alive = _fleet_stop(router, router_log)
+    if rc != 0:
+        fail(f"fleet: the router exited {rc} on SIGTERM:\n{router_tail()}")
+    if alive:
+        fail(f"fleet: worker pids {alive} outlived the router")
+
+    # 1-3: every answer 200 or 429, within EMBED_ATOL of a step's direct
+    # forward (the router forwards no X-Checkpoint-Step, as the JAX
+    # router does not: the nearest step names it); the cache
+    statuses = sorted({a["status"] for a in answers})
+    if not answers or set(statuses) - {200, 429}:
+        fail(f"fleet: client statuses {statuses} over {len(answers)} "
+             "answers")
+    seen = {}  # row id -> its rows' bytes in every forwarded answer
+    by_step, worst, cache_only = {}, 0.0, []
+    for a in answers:
+        if a["status"] != 200:
+            continue
+        got = np.asarray(a["payload"]["embeddings"], np.float32)
+        errs = {s: float(np.abs(got - refs[s][a["ids"]]).max())
+                for s in refs}
+        step = min(errs, key=errs.get)
+        a["step"] = step
+        if errs[step] > EMBED_ATOL:  # two models in one answer?
+            per_row = [min(refs, key=lambda s, i=i: float(np.abs(
+                got[i] - refs[s][j]).max())) for i, j in enumerate(a["ids"])]
+            fail(f"fleet: {a['rid']} answered rows of steps {per_row} "
+                 f"({a['payload'].get('cache_hits')} from the cache, sent "
+                 f"{a['t_send'] - marks['start']:.1f} s after the router "
+                 f"started; marks {marks})")
+        by_step[step] = by_step.get(step, 0) + 1
+        _check_embeddings(f"fleet {a['rid']} (step {step})", got,
+                          refs[step][a["ids"]])
+        worst = max(worst, errs[step])
+        if a["payload"].get("cache_hits", 0) == len(a["ids"]):
+            cache_only.append((a, got))
+        else:
+            for j, row in zip(a["ids"], got):
+                seen.setdefault(int(j), set()).add(row.tobytes())
+    bitwise = 0
+    for a, got in cache_only:
+        if a["step"] == "bad":
+            fail(f"fleet: {a['rid']} came from the cache with the "
+                 "undecided canary's embeddings")
+        if all(row.tobytes() in seen.get(int(j), ()) for j, row in
+               zip(a["ids"], got)):
+            bitwise += 1
+        elif a["t_send"] < marks["promoted"]:
+            fail(f"fleet: cached answer {a['rid']} is no worker's answer "
+                 "bit for bit")
+    late = [a for a in answers if a["status"] == 200
+            and a["t_send"] > marks["rolled_back"] + 1.0]
+    if not late or any(a["step"] == "bad" for a in late):
+        fail(f"fleet: answers after the rollback: "
+             f"{[a['step'] for a in late]}")
+    cache = final["cache"]
+    evictions = [line for line in prom.splitlines()
+                 if line.startswith("fleet_cache_evictions_total")]
+    # the promote's warm replays the hot rows through whichever worker the
+    # pool picks; rows a laggard still on the old step answers fail the
+    # trust gate and stay cold (the JAX router's rule), so the replay is
+    # gated and the rows it warmed are counted
+    warms = [r for r in _router_events(router_log, "span")
+             if r.get("name") == "fleet.cache_warm"]
+    if not cache_only or not bitwise or cache["hits"] < 1 \
+            or not any('reason="promote"' in line for line in evictions) \
+            or not warms or warms[0].get("status") != 200:
+        fail(f"fleet: cache-only answers {len(cache_only)} ({bitwise} bit "
+             f"for bit), hits {cache['hits']}, evictions {evictions}, the "
+             f"promote's warm {warms}")
+    # 4: failover; 5-6: the verdicts; 8: the drain
+    restarts = [line for line in prom.splitlines()
+                if line.startswith("fleet_worker_restarts_total")]
+    if not restarts or float(restarts[0].split()[-1]) < 1:
+        fail(f"fleet: fleet_worker_restarts_total {restarts}")
+    if promote_verdict.get("step") != newer or "drift" not in \
+            promote_verdict.get("reason", "") or promote_verdict.get(
+                "drift_samples", 0) < 1 or promote_verdict.get(
+                "requests", 0) < FLEET_CANARY:
+        fail(f"fleet: the promote of step {newer}: {promote_verdict}")
+    swaps = {}  # the canary adopted first: w0's swap before w1's
+    for w in ("w0", "w1"):
+        swaps[w] = [r["wall"] for r in _router_events(
+            f"{workdir}/{w}.jsonl", "rollout") if r.get("action") == "swap"
+            and r.get("step") == newer]
+    if not swaps["w0"] or not swaps["w1"] or \
+            swaps["w0"][0] >= swaps["w1"][0]:
+        fail(f"fleet: swaps to step {newer}: {swaps}")
+    if rollback_verdict.get("step") != bad or rollback_verdict.get(
+            "reason") != "shadow_drift":
+        fail(f"fleet: the rollback of step {bad}: {rollback_verdict}")
+    drain = drained[0]
+    retired = [r for r in _router_events(router_log, "fleet")
+               if r.get("action") == "retire"]
+    if drain["action"] != "drain_done" or drain.get("worker") != \
+            f"w{FLEET_WORKERS - 1}" or [r["worker"] for r in retired] \
+            != [drain["worker"]]:
+        fail(f"fleet: the drain {drain}, retired {retired}")
+    # 7: the history spill reopens
+    reopened = MetricHistory(spill_dir=history_dir)
+    if not reopened.series_names():
+        fail(f"fleet: the --history-dir spill under {history_dir} is empty")
+    # 10: one merged trace; every forwarded answer in the router's lane
+    # and a worker's (a request answered just before the SIGKILL may have
+    # died in w0's unflushed log)
+    logs = [router_log] + sorted(
+        f"{workdir}/{n}" for n in os.listdir(workdir)
+        if n.startswith("w") and n.endswith(".jsonl"))
+    merged_path = f"{root}/merged.json"
+    done = subprocess.run([sys.executable, "-m", "ntxent_tpu_torch.obs.trace",
+                           "--merge", *logs, "-o", merged_path], env=env,
+                          capture_output=True, text=True, timeout=300)
+    if done.returncode != 0:
+        fail(f"fleet: trace --merge: {done.stdout}{done.stderr}")
+    with open(merged_path) as f:
+        merged = json.load(f)
+    n_events = trace.validate_chrome_trace(merged)
+    lanes = {e["args"]["name"]: e["pid"] for e in merged["traceEvents"]
+             if e.get("name") == "process_name"}
+    rids_by_pid = {}
+    for e in merged["traceEvents"]:
+        rid = e.get("args", {}).get("request_id")
+        if e.get("cat") == "span" and rid:
+            rids_by_pid.setdefault(e["pid"], set()).add(rid)
+    worker_rids = set().union(*(rids_by_pid.get(p, set()) for name, p in
+                                lanes.items() if name != "router"))
+    lost = []
+    for a in answers:
+        if a["status"] != 200 or a["payload"].get("cache_hits", 0) == \
+                len(a["ids"]):
+            continue
+        if a["rid"] not in rids_by_pid.get(lanes["router"], set()):
+            fail(f"fleet: {a['rid']} is not in the router's lane")
+        if a["rid"] not in worker_rids:
+            lost.append(a["rid"])
+    # excused: answered by the killed w0 in the moments before its death
+    # (its log's last records die with it, unflushed)
+    forwards = {r["request_id"]: r for r in _router_events(
+        router_log, "span") if r.get("name") == "fleet.forward"}
+    death_wall = deaths[0]["wall"]
+    unexcused = [r for r in lost if forwards.get(r, {}).get("worker") != "w0"
+                 or not death_wall - 2.0 <= forwards[r]["wall"] <= death_wall]
+    if unexcused:
+        fail(f"fleet: forwarded answers in no worker's lane: {unexcused}")
+    # 11: #11's launches in every worker that reported
+    reports = []
+    for name in sorted(os.listdir(counts)):
+        if name.endswith(".json"):
+            with open(f"{counts}/{name}") as f:
+                reports.append(json.load(f))
+    for r in reports:
+        if r["launches"] != 12 * (r["chunks"] + r["first_runs"]):
+            fail(f"fleet: {r['worker']} (pid {r['pid']}): "
+                 f"flash_attention_fwd {r['launches']} launches over "
+                 f"{r['chunks']} chunks and {r['first_runs']} first runs")
+    if sorted(r["worker"] for r in reports) != ["w0", "w1", "w2"]:
+        fail(f"fleet: reports from {[r['worker'] for r in reports]}, "
+             "expected w0 (after its restart), w1 and w2")
+    launches = sum(r["launches"] for r in reports)
+
+    ok = [a for a in answers if a["status"] == 200]
+    window = [a for a in ok if marks["restarted"] <= a["t_send"]
+              and a["t_recv"] <= marks["clients_done"]]
+    span_s = max(a["t_recv"] for a in window) - min(
+        a["t_send"] for a in window) if window else float("nan")
+    rows_s = sum(len(a["ids"]) for a in window) / span_s
+    lat = sorted((a["t_recv"] - a["t_send"]) * 1e3 for a in ok)
+    router_lat = final["latency_ms"]
+    worker_lat = worker_metrics["w0"]["latency_ms"]["total"]
+    print(f"[fleet] python -m ntxent_tpu_torch.fleet_cli, {FLEET_WORKERS} "
+          f"workers of ViT-B/16 flash 224 px (buckets 1/4/16/64) on run A's "
+          f"steps, {FLEET_CLIENTS} clients of 1-8 rows from a pool of "
+          f"{FLEET_ROW_POOL}: {len(answers)} answers {statuses}, "
+          f"{len(ok)} 200 by step {by_step}, max|err| vs each step's "
+          f"direct forward {worst:.2e}; killworker: w0 ready again "
+          f"{restart_ms:.0f} ms after its death was seen; "
+          f"drainworker: {drain['worker']} drained in {drain['drain_ms']:.0f}"
+          f" ms to zero in flight, then retired; promote of step {newer} "
+          f"{(marks['promoted'] - marks['publish_newer']) * 1e3:.0f} ms after "
+          f"it landed ({promote_verdict['reason']}, drift p99 "
+          f"{promote_verdict.get('drift_p99')} over "
+          f"{promote_verdict.get('drift_samples')} rows, "
+          f"{promote_verdict['requests']} canary outcomes); rollback of the "
+          f"negated step {bad} "
+          f"{(marks['rolled_back'] - marks['publish_bad']) * 1e3:.0f} ms "
+          f"after it landed (drift p99 {rollback_verdict.get('drift_p99')}"
+          f"), blocked on {sorted(blocked)}; cache: {cache['hits']} row "
+          f"hits, {final['cache_only_responses']} cache-only answers "
+          f"({bitwise} bit for bit a worker's), flushed on the promote, "
+          f"{final['cache_warmed']} of {warms[0]['rows']} hot rows warmed "
+          f"(the rest answered by the laggard); router latency p50/p99 "
+          f"total "
+          f"{router_lat['total']['p50_ms']:.1f}/"
+          f"{router_lat['total']['p99_ms']:.1f} ms, forward "
+          f"{router_lat['forward']['p50_ms']:.1f}/"
+          f"{router_lat['forward']['p99_ms']:.1f} ms, w0's own total "
+          f"{worker_lat['p50_ms']:.1f}/{worker_lat['p99_ms']:.1f} ms "
+          f"(added by the router: p50 "
+          f"{router_lat['total']['p50_ms'] - worker_lat['p50_ms']:.1f} ms, "
+          f"p99 {router_lat['total']['p99_ms'] - worker_lat['p99_ms']:.1f}"
+          f" ms); "
+          f"client latency p50 {lat[len(lat) // 2]:.1f} ms, p99 "
+          f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.1f} ms; "
+          f"{rows_s:.2f} rows/s over 2 workers (JSON bodies, client clock); "
+          f"merged trace of {n_events} events in {len(lanes)} lanes, "
+          f"{len(lost)} forwarded answers lost with w0's SIGKILLed log; "
+          f"history {len(reopened.series_names())} series reopened; "
+          f"flash_attention_fwd {launches} launches = 12 x (chunks + first "
+          f"runs) in {sorted(r['worker'] for r in reports)}; |first - "
+          f"newer| {float(np.abs(refs['first'] - refs['newer']).max()):.2e}"
+          f"; SIGTERM: exit "
+          f"0 in {(marks['exited'] - marks['sigterm']):.1f} s, no worker "
+          f"left; on {card_line}; phase {time.monotonic() - t0:.1f} s",
+          flush=True)
+    print("[fleet] timeline (s from the router's start): " + ", ".join(
+        f"{k} {v - marks['start']:.1f}" for k, v in marks.items()),
+          flush=True)
+    if time.monotonic() - t0 > FLEET_BUDGET_S:
+        print(f"[fleet] over its {FLEET_BUDGET_S:.0f} s budget", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def phase_accum_lag(card_line: str) -> dict:
     """--accum-steps 2 --lag-metrics --nan-policy skip against the same run
     without --lag-metrics; returns the lagged run's launches a step."""
@@ -7555,6 +8150,7 @@ def main() -> int:
         int8_launches = phase_serve_int8(smi)
         ladder_launches = phase_serve_ladder(smi)
         worker_launches = phase_serve_worker(tmp, dir_a, smi)
+        fleet_launches = phase_fleet(tmp, dir_a, smi)
         accum_lag_launches = phase_accum_lag(smi)
         phase_preempt(tmp, crc_a)
         shutil.rmtree(dir_a)
@@ -7682,6 +8278,9 @@ def main() -> int:
     kernels[0]["serve_int8_launches"] = int8_launches
     kernels[0]["serve_ladder_launches"] = ladder_launches
     kernels[0]["serve_worker_launches"] = worker_launches
+    # and over the fleet's workers that exited cleanly (the drained one,
+    # and the restarted one at the shutdown)
+    kernels[0]["fleet_launches"] = fleet_launches
     for kernel in kernels:
         # a micro-step of SimCLR under --accum-steps 2 --lag-metrics
         kernel["accum_lag_launches"] = accum_lag_launches.get(

@@ -50,24 +50,40 @@ Ported so far:
   here as they are there; ``losses.NTXentLoss`` is the loss as an
   ``nn.Module``;
 * ``weights.load_flax_variables`` and ``weights.flax_paths`` to carry the
-  JAX package's weights and parameter paths across.
+  JAX package's weights and parameter paths across;
+* the serving fleet (``fleet_cli``, ``python -m ntxent_tpu_torch.fleet_cli``):
+  a router with an embedding cache, canaried rollout, shadow drift,
+  tenant admission and autoscaling over supervised ``serve`` workers, and
+  the fleet's federation, SLO and history planes (``obs``). The router
+  tier imports no torch.
 """
 
-from .api import (
-    backward,
-    check_tensor_core_support,
-    cosine_normalize,
-    forward,
-    info_nce_fused,
-    info_nce_loss,
-    ntxent,
-    ntxent_loss,
-    ntxent_loss_and_lse,
-    ntxent_loss_compat,
-    ntxent_loss_fused,
-    ntxent_loss_paired,
-    ntxent_partial_fused,
-)
+import importlib
+
+# The thirteen names resolve on first access (PEP 562), as in
+# ``ntxent_tpu/__init__.py``: importing the package loads no torch, so the
+# serving fleet's router process (``fleet_cli``, ``serving.router``,
+# ``serving.fleet``) starts without paying the torch import.
+_EXPORTS = {name: "ntxent_tpu_torch.api" for name in (
+    "backward", "check_tensor_core_support", "cosine_normalize", "forward",
+    "info_nce_fused", "info_nce_loss", "ntxent", "ntxent_loss",
+    "ntxent_loss_and_lse", "ntxent_loss_compat", "ntxent_loss_fused",
+    "ntxent_loss_paired", "ntxent_partial_fused")}
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value  # later access skips __getattr__
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
+
 
 __all__ = ["__version__", "backward", "check_tensor_core_support",
            "cosine_normalize", "forward", "info_nce_fused", "info_nce_loss",

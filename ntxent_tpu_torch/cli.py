@@ -1,5 +1,5 @@
-"""Command line of the port: the ``ntxent-serve``, ``ntxent-train`` and
-``ntxent-eval`` counterparts.
+"""Command line of the port: the ``ntxent-serve``, ``ntxent-train``,
+``ntxent-eval`` and ``ntxent-fleet`` counterparts.
 
 Same flag names and defaults as ``ntxent_tpu/cli.py`` for what the port
 supports, plus ``--device`` (cuda by default; raises without a GPU):
@@ -113,9 +113,14 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
   single-card step, as the JAX CLI does on one device;
   ``train(args, data_parallel=True)`` runs their steps in a world of one.
 
+* ``fleet_main`` (``main`` dispatches ``fleet ...``): the serving fleet,
+  defined in the torch-free ``fleet_cli`` (its documented entry point,
+  ``python -m ntxent_tpu_torch.fleet_cli``, loads no torch).
+
 Every flag of the JAX CLI's ``ntxent-train``, ``ntxent-eval`` and
-``ntxent-serve`` parses here and runs; ``--platform cpu|gpu`` selects
-``--device``.
+``ntxent-serve`` parses here and runs, and every ``ntxent-fleet`` flag but
+the retrieval tier's (ROADMAP.md Queue A 12(b)); ``--platform cpu|gpu``
+selects ``--device``.
 
 Run: ``python -m ntxent_tpu_torch.cli --model vit_b16 --vit-attention
 flash --image-size 224 --head embedding --port 8080`` (serving),
@@ -145,6 +150,8 @@ import sys
 import numpy as np
 import torch
 
+from .cli_common import MODEL_CHOICES, PLATFORM_DEVICES, exit_on_unported
+from .fleet_cli import build_fleet_parser, fleet_main  # noqa: F401
 from .models import (
     CLIPModel,
     ResNet,
@@ -224,11 +231,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SERVE_DTYPES = {**DTYPES, "int8": torch.int8}
 
 
-# The JAX CLI's --model choices; those not ported yet exit with the item.
-MODEL_CHOICES = ["resnet18", "resnet34", "resnet50", "resnet50x2",
-                 "resnet101", "resnet152", "vit_t16", "vit_s16",
-                 "vit_b16", "vit_l16", "tiny"]
-
 _STEM_HELP = ("ResNet ImageNet stem: space_to_depth runs the 7x7/s2 conv "
               "as a 4x4/s1 conv on space-to-depth input (the same weight)")
 
@@ -242,21 +244,10 @@ def _apply_platform(args) -> None:
     """``--platform`` of the JAX CLI selects the device the port runs on."""
     if args.platform is None:
         return
-    devices = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
-    if args.platform not in devices:
+    if args.platform not in PLATFORM_DEVICES:
         raise SystemExit(f"--platform {args.platform}: the port runs on the "
                          "CUDA card (gpu) or the CPU (cpu)")
-    args.device = devices[args.platform]
-
-
-def _exit_on_unported(prog: str, args, table, items) -> None:
-    """Exit naming the item of the first flag of ``table`` (dest, default,
-    item) that is set to anything but its default."""
-    for dest, default, item in table:
-        if getattr(args, dest) != default:
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"{prog}: {flag} is not ported yet: "
-                             f"{items[item]}")
+    args.device = PLATFORM_DEVICES[args.platform]
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -807,7 +798,7 @@ def _check_train_args(args) -> None:
                          "--dataset applies to the simclr objective only")
     if args.prefetch < 0:
         raise SystemExit("--prefetch must be >= 0")
-    _exit_on_unported("ntxent-train (torch)", args, TRAIN_UNPORTED,
+    exit_on_unported("ntxent-train (torch)", args, TRAIN_UNPORTED,
                       ROADMAP_ITEMS)
     _check_moe(args)
     if args.model_par < 1 or args.dcn_slices < 1:
@@ -1887,13 +1878,16 @@ def eval_main(argv=None) -> int:
 
 
 def main(argv=None) -> int:
-    """``train ...`` runs ``train_main``, ``eval ...`` ``eval_main``;
-    anything else ``serve_main``."""
+    """``train ...`` runs ``train_main``, ``eval ...`` ``eval_main``,
+    ``fleet ...`` ``fleet_main`` (``python -m ntxent_tpu_torch.fleet_cli``
+    reaches it without loading torch); anything else ``serve_main``."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["train"]:
         return train_main(argv[1:])
     if argv[:1] == ["eval"]:
         return eval_main(argv[1:])
+    if argv[:1] == ["fleet"]:
+        return fleet_main(argv[1:])
     return serve_main(argv)
 
 

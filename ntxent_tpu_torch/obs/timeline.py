@@ -22,10 +22,15 @@ MFU: ``set_flops_per_step`` (``train_loop`` counts step 1's FLOPs,
 ``trainer.count_step_flops``) times steps/s over the card's peak, resolved
 lazily through ``trainer.peak_flops_per_chip``.
 
-Not here: the retained history (``history=``, ROADMAP.md Queue A 12(a))
-and the graph census of ``set_comms_per_step(graph=)`` (Queue A 13):
-``graph`` is accepted as None only, and the declared profile is
-published.
+``history=`` takes an ``obs.history.MetricHistory``: each step also
+lands in the retained time-series plane (``train_step_device_ms``,
+``train_steps_per_sec``, ``train_loss``), which spills when its interval
+has passed, so a training process gets the rollups and the anomaly watch
+the serving fleet has.
+
+Not here: the graph census of ``set_comms_per_step(graph=)`` (ROADMAP.md
+Queue A 13): ``graph`` is accepted as None only, and the declared
+profile is published.
 """
 
 from __future__ import annotations
@@ -51,9 +56,10 @@ class StepTimeline:
 
     def __init__(self, registry: MetricsRegistry | None = None,
                  profiler=None, event_every: int = 1,
-                 histogram_window: int = 2048):
+                 histogram_window: int = 2048, history=None):
         self.registry = registry or default_registry()
         self.profiler = profiler
+        self.history = history
         self.event_every = max(1, int(event_every))
         self.flops_per_step: float | None = None
         self._peak_flops: float | None = None
@@ -249,6 +255,12 @@ class StepTimeline:
             # an unguarded step: nothing else records it
             events.emit("divergence", action="observed", step=int(step),
                         loss=float(loss), guarded=False)
+
+        if self.history is not None:
+            self.history.record("train_step_device_ms", device_s * 1e3)
+            self.history.record("train_steps_per_sec", steps_per_sec)
+            self.history.record("train_loss", loss)  # non-finite: dropped
+            self.history.maybe_spill()
 
         if self.profiler is not None:
             self.profiler.on_step(int(step), device_s * 1e3)

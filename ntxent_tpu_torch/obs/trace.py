@@ -18,7 +18,9 @@ same no-op path when no log is installed.
   ntxent_tpu_torch.obs.trace run.jsonl -o trace.json``): spans become
   complete (``ph="X"``) slices, ``step`` events a step slice with its
   data-wait/device/checkpoint children, every other event an instant on
-  its thread's track.
+  its thread's track; ``export_merged_chrome_trace`` (``--merge``)
+  stitches several processes' logs (the fleet's router and workers) into
+  one trace, a process lane per file on a shared wall-clock axis.
 
 Spans with a ``request_id`` share one track per request (up to
 ``REQUEST_LANES_MAX`` lanes, then hashed onto them); the rest track by
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import threading
 import time
@@ -38,7 +41,8 @@ import zlib
 from . import events
 
 __all__ = ["span", "emit_span", "current_span_id", "new_request_id",
-           "export_chrome_trace", "validate_chrome_trace", "main"]
+           "export_chrome_trace", "export_merged_chrome_trace",
+           "validate_chrome_trace", "main"]
 
 _local = threading.local()
 
@@ -148,20 +152,35 @@ REQUEST_LANES_MAX = 64
 
 class _Lanes:
     """name -> stable tid assignment plus the thread_name metadata
-    records Perfetto uses to label tracks. The time axis is each record's
-    ``t`` (a monotonic offset since the log opened), so wall-clock jumps
-    cannot reorder a timeline."""
+    records Perfetto uses to label tracks — one instance per PROCESS
+    lane (``pid``).
 
-    pid = 1
+    Timebase: a single file's records carry ``t`` (a monotonic offset
+    since that log opened), the right axis for one process but
+    meaningless across processes, each log having opened at another
+    moment. The merged exporter therefore passes ``ts0_wall`` (the
+    earliest wall clock over all files) and slices align on ``wall``
+    instead; single-file export keeps the monotonic axis (wall-clock
+    jumps must not reorder a one-process timeline).
+    """
 
-    def __init__(self):
+    def __init__(self, pid: int = 1, ts0_wall: float | None = None,
+                 process_name: str | None = None):
+        self.pid = pid
+        self.ts0_wall = ts0_wall
         self._tids: dict[str, int] = {}
         self.meta: list[dict] = []
         self._req_pool: list[int] = []
         self._req_map: dict[str, int] = {}
+        if process_name is not None:
+            self.meta.append({
+                "ph": "M", "pid": pid, "tid": 0, "name": "process_name",
+                "args": {"name": process_name},
+            })
 
-    @staticmethod
-    def ts_us(rec: dict) -> float:
+    def ts_us(self, rec: dict) -> float:
+        if self.ts0_wall is not None and "wall" in rec:
+            return (float(rec["wall"]) - self.ts0_wall) * 1e6
         return float(rec["t"]) * 1e6
 
     def tid(self, label: str) -> int:
@@ -296,6 +315,67 @@ def export_chrome_trace(jsonl_path: str, run_id: str | None = None) -> dict:
     }
 
 
+def _process_label(path: str, taken: set[str]) -> str:
+    """A human lane label from a JSONL filename (``w0.jsonl`` -> ``w0``),
+    deduplicated — two files named alike must not merge lanes."""
+    base = os.path.basename(str(path))
+    label = base[:-len(".jsonl")] if base.endswith(".jsonl") else base
+    label = label or "events"
+    candidate, n = label, 1
+    while candidate in taken:
+        n += 1
+        candidate = f"{label}#{n}"
+    taken.add(candidate)
+    return candidate
+
+
+def export_merged_chrome_trace(paths: list[str],
+                               run_id: str | None = None) -> dict:
+    """Stitch SEVERAL processes' JSONL logs into ONE Chrome trace
+    (``python -m ntxent_tpu_torch.obs.trace --merge``): each file becomes its own process lane
+    (pid + ``process_name`` metadata — router, w0, w1, ...), and all
+    lanes share one wall-clock timebase so a request's router hop,
+    worker queue wait, and device chunk line up as the causal sequence
+    they were.
+
+    Per-file ``t`` is a monotonic offset since THAT log opened —
+    meaningless across processes — so merged slices align on the
+    ``wall`` field every record carries (zeroed at the earliest wall
+    time over all files). Cross-process request joins need no flow
+    plumbing: the router forwards ``X-Request-Id``, both sides stamp
+    it on their spans, and the id rides every slice's ``args`` — in
+    Perfetto, selecting a request's router slice and searching the id
+    lights up its worker-side tree.
+    """
+    per_file = [(str(p), events.read_events(str(p))) for p in paths]
+    walls = [float(rec["wall"])
+             for _, records in per_file for rec in records
+             if "wall" in rec and "t" in rec and "event" in rec]
+    ts0_wall = min(walls) if walls else None
+    trace_events: list[dict] = []
+    meta: list[dict] = []
+    run_ids: set[str] = set()
+    sources: dict[str, str] = {}
+    taken: set[str] = set()
+    for pid, (path, records) in enumerate(per_file, start=1):
+        label = _process_label(path, taken)
+        sources[label] = path
+        lanes = _Lanes(pid=pid, ts0_wall=ts0_wall, process_name=label)
+        trace_events.extend(
+            _render_records(records, lanes, run_id, run_ids))
+        meta.extend(lanes.meta)
+    trace_events.sort(key=lambda e: e.get("ts", 0.0))
+    return {
+        "traceEvents": meta + trace_events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "sources": sources,
+            "run_ids": sorted(run_ids),
+            "exporter": "ntxent_tpu_torch.obs.trace --merge",
+        },
+    }
+
+
 def validate_chrome_trace(trace: dict) -> int:
     """Assert ``trace`` is a structurally legal Chrome-trace object
     (the schema Perfetto's JSON importer requires); returns the number
@@ -341,29 +421,43 @@ def validate_chrome_trace(trace: dict) -> int:
 
 
 def main(argv=None) -> int:
-    """JSONL event log -> Perfetto-loadable trace.json (``python -m
+    """JSONL event log(s) -> Perfetto-loadable trace.json (``python -m
     ntxent_tpu_torch.obs.trace``)."""
     p = argparse.ArgumentParser(
         prog="python -m ntxent_tpu_torch.obs.trace",
-        description="Convert a run's typed JSONL event log (the train or "
-                    "serve CLI's --log-jsonl) into a Chrome-trace file; "
-                    "open it at https://ui.perfetto.dev or "
-                    "chrome://tracing.")
-    p.add_argument("jsonl", help="path to a JSONL event log")
+        description="Convert a run's typed JSONL event log (the train, "
+                    "serve or fleet CLI's --log-jsonl) into a Chrome-trace "
+                    "file; open it at https://ui.perfetto.dev or "
+                    "chrome://tracing. Several files (or --merge) stitch "
+                    "into ONE trace with a process lane per file: router "
+                    "and worker logs join on the forwarded X-Request-Id.")
+    p.add_argument("jsonl", nargs="+",
+                   help="path(s) to JSONL event logs; more than one "
+                        "implies --merge")
+    p.add_argument("--merge", action="store_true",
+                   help="force cross-process stitching (process lanes and "
+                        "a shared wall-clock timebase) even for one file")
     p.add_argument("-o", "--output", default="trace.json",
                    help="output trace file (default: trace.json)")
     p.add_argument("--run-id", default=None,
                    help="keep only records from this run_id (a shared "
                         "log file carries one id per process)")
     args = p.parse_args(argv)
+    merge = args.merge or len(args.jsonl) > 1
     try:
-        trace = export_chrome_trace(args.jsonl, run_id=args.run_id)
+        if merge:
+            trace = export_merged_chrome_trace(args.jsonl,
+                                               run_id=args.run_id)
+        else:
+            trace = export_chrome_trace(args.jsonl[0], run_id=args.run_id)
     except OSError as e:
-        print(f"trace: cannot read {args.jsonl}: {e}", file=sys.stderr)
+        print(f"trace: cannot read {' '.join(args.jsonl)}: {e}",
+              file=sys.stderr)
         return 1
     n = validate_chrome_trace(trace)
     if n == 0:
-        print(f"trace: {args.jsonl} contained no exportable events"
+        print(f"trace: {' '.join(args.jsonl)} contained no exportable "
+              "events"
               + (f" for run_id {args.run_id}" if args.run_id else ""),
               file=sys.stderr)
         return 1
@@ -371,8 +465,11 @@ def main(argv=None) -> int:
         json.dump(trace, f)
     spans = sum(1 for e in trace["traceEvents"] if e.get("cat") == "span")
     steps = sum(1 for e in trace["traceEvents"] if e.get("cat") == "step")
+    lanes = len({e["pid"] for e in trace["traceEvents"]
+                 if e.get("ph") != "M"})
+    extra = f", {lanes} process lanes" if merge else ""
     print(f"trace: wrote {args.output} ({n} events: {spans} spans, "
-          f"{steps} steps; load in https://ui.perfetto.dev)")
+          f"{steps} steps{extra}; load in https://ui.perfetto.dev)")
     return 0
 
 

@@ -24,15 +24,18 @@ deterministic ordinal:
   supervisor restarts on the same world);
 * ``truncate@a``: after attempt a ends, truncate the newest checkpoint's
   largest file -> checksum verification and the newest-valid fallback;
-* the fleet's ``killworker``, ``slowworker``, ``spike``, ``drainworker``
-  and the shard fleet's ``killshard``, ``lagshard``: parsed into the plan
-  as in the reference, for the serving fleet (ROADMAP.md Queue A 8(c),
-  12) that will tick them; training never fires them.
+* the fleet's ``killworker``, ``slowworker``, ``spike`` and
+  ``drainworker``, dispensed per supervision tick by ``on_fleet_tick``
+  (``serving/fleet.py``); the shard fleet's ``killshard`` and
+  ``lagshard`` parse into the plan as in the reference, for the
+  retrieval tier's shard plane (ROADMAP.md Queue A 12(b)) that will
+  tick them; training never fires them.
 
 ``FaultPlan`` is the parsed, immutable spec; ``FaultInjector`` carries the
 counters and the hooks. Batch ordinals (nan, sigterm, kill, crash,
 shrink, grow) count served batches; fetch and diskfull their own IO
-calls; truncate the supervisor's attempts. One injector serves a whole
+calls; truncate the supervisor's attempts; the fleet actions the fleet's
+supervision ticks. One injector serves a whole
 supervised run, so ordinals continue across restarts: a plan is a script
 for the run.
 """
@@ -48,7 +51,9 @@ import threading
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# torch is imported by the hook that poisons a batch: the fleet's router
+# process builds its injector from this module and loads no torch.
 
 logger = logging.getLogger(__name__)
 
@@ -135,6 +140,8 @@ def _poison(batch):
     """A batch (a tuple of tensors) with its float tensors NaN-filled on
     their own device; integer tensors (CLIP's tokens: an integer has no
     NaN, and the guard watches the loss) stay."""
+    import torch
+
     return tuple(torch.full_like(x, float("nan"))
                  if x.is_floating_point() else x for x in batch)
 
@@ -174,6 +181,7 @@ class FaultInjector:
         self._fetches = 0
         self._ckpt_writes = 0
         self._attempts = 0
+        self._fleet_ticks = 0
         self._fetch_lock = threading.Lock()  # reads run on loader threads
         self.fired: list[str] = []
 
@@ -247,6 +255,22 @@ class FaultInjector:
             raise OSError(errno.ENOSPC,
                           f"chaos: injected ENOSPC on checkpoint write "
                           f"{self._ckpt_writes}")
+
+    # -- fleet faults (serving/fleet.py calls once a supervision tick) ---
+    def on_fleet_tick(self) -> list[str]:
+        """Advance the fleet-tick ordinal; return the fleet actions due
+        this tick (``["killworker@3", "slowworker@5"]``). The fleet picks
+        which worker, round-robin over the live set, so the plan stays
+        deterministic without naming pids."""
+        self._fleet_ticks += 1
+        t = self._fleet_ticks
+        due = [f"{action}@{t}" for action, ticks in (
+            ("killworker", self.plan.killworker_ticks),
+            ("slowworker", self.plan.slowworker_ticks),
+            ("spike", self.plan.spike_ticks),
+            ("drainworker", self.plan.drainworker_ticks)) if t in ticks]
+        self.fired.extend(due)
+        return due
 
     # -- checkpoint faults (the supervisor calls between attempts) -------
     def between_attempts(self, checkpoint_dir) -> None:

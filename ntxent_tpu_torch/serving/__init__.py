@@ -1,5 +1,7 @@
-"""Embedding serving of the port: engine, micro-batcher, HTTP server,
-checkpoint watcher.
+"""Embedding serving of the port: the worker (engine, micro-batcher, HTTP
+server, checkpoint watcher) and the fleet's router tier over it.
+
+The worker process:
 
 * ``engine.InferenceEngine``: bucket ladder, pad-to-bucket, chunking
   through the largest bucket, ``warmup()``, the int8 rung, atomic weight
@@ -13,32 +15,68 @@ checkpoint watcher.
   restarts of a stalled batcher;
 * ``worker.CheckpointWatcher``: adopts new checkpoint steps, rolls back;
 * ``metrics.ServingMetrics``: the series behind ``/metrics``.
+
+The router tier (``ntxent_tpu_torch.fleet_cli``), which imports no torch:
+
+* ``cache.EmbeddingCache``: row-content-keyed LRU + TTL, generations, the
+  hot store a promote replays;
+* ``router.FleetRouter`` over ``router.WorkerPool``: failover retries,
+  the 429 shed, the canary state machine, ``TokenBucket`` /
+  ``TenantAdmission``;
+* ``shadow.ShadowMirror``: mirrored canary traffic, ``cosine_drift``;
+* ``fleet.ServingFleet``: spawn, readiness probe, eject, backoff restart,
+  the chaos fleet actions;
+* ``autoscale.AutoscaleController``: closed-loop pool sizing,
+  ``flash_crowd``, ``parse_tenant_quotas``.
+
+Exports resolve lazily (PEP 562), as in ``ntxent_tpu/serving/__init__.py``:
+the router process must not pay the torch import that ``engine``,
+``server`` and ``worker`` would bring in.
 """
 
-from .batcher import (
-    BatcherClosed,
-    DeadlineExceededError,
-    MicroBatcher,
-    QueueFullError,
-)
-from .engine import DEFAULT_BUCKETS, InferenceEngine, quantize_host
-from .ladder import SizeHistogram, expected_padded_rows, optimize_ladder
-from .metrics import ServingMetrics
-from .server import EmbeddingServer
-from .worker import CheckpointWatcher
+import importlib
 
-__all__ = [
-    "BatcherClosed",
-    "CheckpointWatcher",
-    "DEFAULT_BUCKETS",
-    "DeadlineExceededError",
-    "EmbeddingServer",
-    "InferenceEngine",
-    "MicroBatcher",
-    "QueueFullError",
-    "ServingMetrics",
-    "SizeHistogram",
-    "expected_padded_rows",
-    "optimize_ladder",
-    "quantize_host",
-]
+# name -> defining submodule; resolved on first attribute access.
+_EXPORTS = {
+    "AutoscaleController": "autoscale",
+    "flash_crowd": "autoscale",
+    "parse_tenant_quotas": "autoscale",
+    "BatcherClosed": "batcher",
+    "DeadlineExceededError": "batcher",
+    "MicroBatcher": "batcher",
+    "QueueFullError": "batcher",
+    "EmbeddingCache": "cache",
+    "DEFAULT_BUCKETS": "engine",
+    "InferenceEngine": "engine",
+    "quantize_host": "engine",
+    "ServingFleet": "fleet",
+    "SizeHistogram": "ladder",
+    "expected_padded_rows": "ladder",
+    "optimize_ladder": "ladder",
+    "ServingMetrics": "metrics",
+    "FleetRouter": "router",
+    "TenantAdmission": "router",
+    "TokenBucket": "router",
+    "WorkerPool": "router",
+    "EmbeddingServer": "server",
+    "ShadowMirror": "shadow",
+    "cosine_drift": "shadow",
+    "CheckpointWatcher": "worker",
+}
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{module}", __name__), name)
+    globals()[name] = value  # later access skips __getattr__
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
+
+
+__all__ = sorted(_EXPORTS)

@@ -32,7 +32,9 @@ after a backoff, while the listener stays up and answers 503 (/healthz
 
 Every POST response echoes ``X-Request-Id`` (the client's, or one minted
 at ingest) and, when the served checkpoint step is known, carries it as
-``X-Checkpoint-Step``. ``/embed`` emits a ``serve.request`` span.
+``X-Checkpoint-Step``: on ``/embed`` the step whose weights computed the
+rows (a request a watcher's swap overlapped runs again, then 503s).
+``/embed`` emits a ``serve.request`` span.
 """
 
 from __future__ import annotations
@@ -67,6 +69,10 @@ __all__ = ["EmbeddingServer"]
 
 # A client asking for a multi-minute wait would hold a handler thread.
 MAX_TIMEOUT_S = 60.0
+# A request whose rows a checkpoint swap overlapped runs again, up to this
+# many times in all; then 503 with this Retry-After (swaps are seconds
+# apart, so the second attempt serves).
+SWAP_ATTEMPTS, SWAP_RETRY_AFTER_S = 3, 0.05
 MAX_REQUEST_ROWS_BUCKETS = 8  # rows cap = this many max-size buckets
 
 
@@ -322,12 +328,14 @@ def _make_handler(server: EmbeddingServer):
             t_ingest = time.monotonic()
             status = {"code": None, "rows": None}
 
-            def reply(code, payload, headers=None):
+            def reply(code, payload, headers=None, step=None):
                 status["code"] = code
                 merged = {"X-Request-Id": rid}
-                # the step that served THIS reply: a health probe lags a
+                # the step that served THIS reply (``step``: the one
+                # whose weights computed its rows): a health probe lags a
                 # hot swap
-                step = server.checkpoint_step()
+                if step is None:
+                    step = server.checkpoint_step()
                 if step is not None:
                     merged["X-Checkpoint-Step"] = str(step)
                 merged.update(headers or {})
@@ -416,7 +424,8 @@ def _make_handler(server: EmbeddingServer):
                                      "the batch client-side"})
                 return
             try:
-                out = batcher.submit(x, timeout_s=timeout_s, request_id=rid)
+                out, step = self._embed_on_one_step(batcher, x, timeout_s,
+                                                    rid)
             except QueueFullError as e:
                 reply(429, {"error": str(e),
                             "retry_after_s": e.retry_after_s},
@@ -431,8 +440,29 @@ def _make_handler(server: EmbeddingServer):
                 logger.exception("serving: /embed failed")
                 reply(500, {"error": f"{type(e).__name__}: {e}"})
             else:
+                if out is None:
+                    reply(503, {"error": "the weights changed under the "
+                                         "request; retry",
+                                "retry_after_s": SWAP_RETRY_AFTER_S},
+                          {"Retry-After": f"{SWAP_RETRY_AFTER_S:.3f}"})
+                    return
                 reply(200, {"embeddings": out.tolist(),
                             "dim": int(out.shape[-1]),
-                            "rows": int(out.shape[0])})
+                            "rows": int(out.shape[0])}, step=step)
+
+        def _embed_on_one_step(self, batcher, x, timeout_s, rid):
+            """``(rows, step)``: the rows computed wholly on the weights of
+            ``step``, the request run again when a swap overlapped it;
+            ``(None, None)`` when swaps overlapped every attempt."""
+            reloader = server.reloader
+            for _ in range(SWAP_ATTEMPTS):
+                generation = reloader.generation if reloader else 0
+                out = batcher.submit(x, timeout_s=timeout_s, request_id=rid)
+                if reloader is None:
+                    return out, None
+                steady, step = reloader.served_step(generation)
+                if steady:
+                    return out, step
+            return None, None
 
     return Handler

@@ -17,7 +17,14 @@ weights when a new step lands:
   first;
 * **rollback** (``rollback()``, the server's ``POST /rollback``): revert
   to the previously served weights and block the bad step, so the
-  watcher never adopts it again.
+  watcher never adopts it again;
+* **the served step** (``served_step()``): ``generation`` is odd while
+  a swap runs and counts every one, so the server labels a reply with
+  ``X-Checkpoint-Step`` only when no swap began or ended while its rows
+  were computed. The JAX worker stamps ``current_step`` at reply time, so
+  a chunk computed before a swap and answered after it carries the new
+  step's label; behind the fleet router that merges two models' rows in
+  one response and caches the old rows as the new step's.
 
 The watcher never writes to the directory: no saves, no retention.
 """
@@ -66,6 +73,9 @@ class CheckpointWatcher:
         self.poll_s = float(poll_s)
         self.delay_s = float(delay_s)
         self.current_step: int | None = initial_step
+        # odd while a swap runs: a reply computed across a change of
+        # weights must not be labeled with either step
+        self.generation = 0
         self.blocked_steps: set[int] = set()
         self.swaps = 0
         self.rollbacks = 0
@@ -149,10 +159,12 @@ class CheckpointWatcher:
             return False
         variables = _variables(self.template)
         prev = (self.current_step, self._served)
+        self.generation += 1
         mode = self.engine.swap_variables(variables)
         self.swap_ms.append((time.monotonic() - t0) * 1e3)
         self._prev, self._served = prev, variables
         self.current_step = step
+        self.generation += 1
         self.swaps += 1
         self._first_seen.pop(step, None)
         self.engine.metrics.set_checkpoint_step(step)
@@ -161,6 +173,13 @@ class CheckpointWatcher:
         logger.info("checkpoint watcher: now serving step %d (%s, previous "
                     "%s)", step, mode, prev[0])
         return True
+
+    def served_step(self, generation: int) -> tuple[bool, int | None]:
+        """``(True, step)`` when no swap began or ended since
+        ``generation`` was read (even) and ``step`` served throughout;
+        ``(False, None)`` otherwise."""
+        step = self.current_step
+        return generation % 2 == 0 and self.generation == generation, step
 
     # -- rollback ---------------------------------------------------------
     def rollback(self, step: int | None = None) -> bool:
@@ -180,8 +199,10 @@ class CheckpointWatcher:
                                "requested but no previous weights held", bad)
                 return False
             prev_step, prev_vars = self._prev
+            self.generation += 1
             self.engine.swap_variables(prev_vars)
             self.current_step = prev_step
+            self.generation += 1
             self._prev, self._served = None, prev_vars
             self.rollbacks += 1
             self.engine.metrics.set_checkpoint_step(

@@ -303,6 +303,60 @@ def test_the_watcher_adopts_jax_and_port_steps_and_rolls_back(tmp_path):
         server.close()
 
 
+def _seeded_step(directory, step, seed):
+    """The model of ``args`` drawn from ``seed``, saved by the port's
+    manager at ``step``; returns it in eval mode."""
+    args = cli.build_serve_parser().parse_args(
+        WATCH_ARGV + ["--ckpt-dir", str(directory), "--seed", str(seed)])
+    state = ttrain.create_train_state(cli.build_model(args),
+                                      ttrain.TrainerConfig(),
+                                      torch.device("cpu"))
+    state.step = step
+    assert CheckpointManager(directory).save(step, state)
+    return state.model.eval()
+
+
+def test_a_reply_a_swap_overlapped_carries_the_step_that_computed_it(
+        tmp_path):
+    """Rows computed on step 3's weights and answered after the watcher
+    adopted step 5 are never labeled 5: the request runs again on step 5
+    (a fleet router merges and caches rows by that label)."""
+    directory = tmp_path / "ck"
+    model3 = _seeded_step(directory, 3, seed=0)
+    args = cli.build_serve_parser().parse_args(
+        WATCH_ARGV + ["--ckpt-dir", str(directory)])
+    server = cli.build_server(args).start()
+    url = f"http://127.0.0.1:{server.port}"
+    x = np.random.default_rng(4).uniform(-1, 1, (3, 8, 8, 3)).astype(
+        np.float32)
+    real_submit, calls = server.batcher.submit, []
+
+    def submit_then_swap(*a, **kw):  # the swap lands before the reply
+        out = real_submit(*a, **kw)
+        calls.append(server.reloader.current_step)
+        if len(calls) == 1:
+            assert server.reloader.poll_once() is True
+        return out
+
+    def run():
+        model5 = _seeded_step(directory, 5, seed=1)
+        server.batcher.submit = submit_then_swap
+        code, headers, body = _post(f"{url}/embed", {"inputs": x.tolist()})
+        assert code == 200 and headers["X-Checkpoint-Step"] == "5"
+        assert calls == [3, 5]  # the overlapped attempt ran again
+        with torch.inference_mode():
+            want5 = model5(torch.from_numpy(x)).numpy()
+            want3 = model3(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(body["embeddings"], want5, atol=1e-5,
+                                   rtol=0)
+        assert np.abs(want5 - want3).max() > 1e-2
+
+    try:
+        _within_limit(run, LIMIT_S)
+    finally:
+        server.close()
+
+
 def test_a_step_that_does_not_load_is_blocked_and_no_watcher_is_404(
         tmp_path):
     directory = tmp_path / "ck"
