@@ -298,7 +298,7 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``python -m ntxent_tpu_torch.fleet_cli`` as a subprocess over three of
    the port's serve workers at phase 4's width, with the shadow mirror,
    federation, SLOs, the history spill, the autoscaler and ``--chaos
-   killworker,drainworker``, four clients of 1-8 rows from a pool of 12:
+   killworker,drainworker``, four clients of 1-8 rows from a pool of 48:
    every answer 200 or 429 and within EMBED_ATOL of a step's direct
    forward, cache-only answers bit for bit a worker's, the promote's
    flush and warm, w0 SIGKILLed and restarted, w2 drained to zero in
@@ -308,6 +308,26 @@ Phases; any failure ends the run with a non-zero exit and no result:
    ``/alerts``, ``/metrics/history`` and its spill, a SIGTERM exiting 0
    with no worker left, one merged Chrome trace of the router's and the
    workers' logs, and #11's launches in every worker that exited cleanly;
+   in the same run the retrieval tier (``--index-mem``, two supervised
+   shard processes with a journal, ``--chaos killshard``): a client
+   storing 48 rows of its own, which no other client sends (the cache
+   holds what the tier embeds), through ``/index/insert`` and
+   ``/embed?store=true``
+   and searching them (k 5), every answer 200 or 429, an insert gated
+   (stored 0, not_trusted) only in a rollout window, each search on a
+   whole plane the brute-force top k of its step's direct forward over
+   the stored rows (the row itself first), the promote's version rebuilt
+   from the docstore and every later search on the promoted step, the
+   drift rollback's stale mark and rebuild, searches 200 and degraded
+   while shard 0 is down, the shard back on its port, the journal's
+   debt redelivered, every stored row its own first hit again (and at
+   the end), ``retrieval_shard_up`` in ``/metrics/history``, no libtorch
+   mapped by the router or a shard; [retrieval-scale] (host only) the
+   port's ``VectorIndex`` at 524,288 rows of width 128 (``bench.py``'s
+   corpus and settings, its rows cut from 4.1 M): recall@10 >= 0.95
+   against brute force, at most 64 bytes a row scanned, build rows/s,
+   quiet and concurrent search p50/p99, brute force p50, resident MB, and
+   ``bench.py``'s repair arm on the port's shard plane;
 12q. the data-parallel wire (in the NCCL group of world 1, after 12):
    [dp-chunked] phase 11's command with ``--dp-loss chunked --ring-chunks
    4``: finite losses, exactly 4/4/4 launches a step of #1 general and #6
@@ -502,7 +522,7 @@ INFONCE_SHAPES = [(256, 512), (1000, 512), (8192, 512), (256, 128),
 INFONCE_SCALE = 17.5  # not 1/T of the default temperature
 INFONCE_TIMED_N = (256, 8192)
 
-TRAIN_STEPS = 5
+TRAIN_STEPS = 4
 TRAIN_ARGV = ["--model", "vit_b16", "--vit-attention", "flash",
               "--image-size", "224", "--batch", "256", "--steps",
               str(TRAIN_STEPS), "--dataset", "synthetic", "--device", "cuda",
@@ -528,7 +548,7 @@ PARITY_BATCH = 4
 PARITY_LOSS_ATOL = 1e-4
 PARITY_GRAD_RTOL = 1e-2
 
-CLIP_STEPS = 5
+CLIP_STEPS = 4
 CLIP_ARGV = ["--objective", "clip", "--model", "vit_b16", "--vit-attention",
              "flash", "--image-size", "224", "--batch", "256", "--steps",
              str(CLIP_STEPS), "--base-lr", "5e-4", "--warmup-steps", "1",
@@ -558,7 +578,7 @@ GENERAL_SHAPES = [(512, 512, 128), (128, 512, 128), (2048, 8192, 128),
 EMULATED_RANKS, EMULATED_BATCH = 4, 256
 EMULATED_LOSS_ATOL, EMULATED_GRAD_RTOL = 1e-5, 1e-4
 
-DP_STEPS = 5
+DP_STEPS = 4
 DP_ARGV = ["--model", "resnet50", "--image-size", "224", "--batch", "256",
            "--steps", str(DP_STEPS), "--dataset", "synthetic", "--device",
            "cuda", "--log-every", "1"]
@@ -604,7 +624,7 @@ DP_CLIP_SCALE = 1 / 0.07  # CLIP's initial exp(logit_scale)
 # info_nce_fused: the same terms summed in another order -> 1e-5 on the
 # mean loss, 1e-4 on each relative gradient.
 DP_CLIP_LOSS_ATOL, DP_CLIP_GRAD_RTOL = 1e-5, 1e-4
-CLIP_DP_STEPS = 5
+CLIP_DP_STEPS = 4
 CLIP_DP_ARGV = ["--objective", "clip", "--model", "vit_b16",
                 "--vit-attention", "flash", "--image-size", "224", "--batch",
                 "256", "--steps", str(CLIP_DP_STEPS), "--base-lr", "5e-4",
@@ -778,11 +798,11 @@ CHILD_TIMEOUT_S = 420
 # cuDNN), the first AUDIT_MIDSAVE inside a save, one child at a time
 # (each holds ~35 GiB); no torn step, the survivor equal to the
 # reference run's step-AUDIT_STEPS checkpoint.
-GUARD_TIMED_STEPS = 6  # a timed round; more would cost the time limit
+GUARD_TIMED_STEPS = 4  # a timed round; more would cost the time limit
 GUARD_ROUNDS = ("plain", "guarded", "guarded", "plain")
 GUARD_CHAOS = ["--steps", "5", "--nan-policy", "backoff", "--chaos",
                "nan@2,nan@3"]
-REMAT_STEPS, REMAT_DP_STEPS = 6, 2
+REMAT_STEPS, REMAT_DP_STEPS = 4, 2
 REMAT_RTOL = 1e-6
 REMAT_STEP_LAUNCHES = dict(STEP_LAUNCHES, flash_attention_fwd=24)
 ACCUM_K, ACCUM_FIRST, ACCUM_STEPS = 2, 1, 2
@@ -815,7 +835,7 @@ AUDIT_MODEL = dict(model="resnet50", image_size=224, batch=256,
 DATA_STORE = (1280, 224, 224, 3)
 DATA_SEED = 18
 DATA_LOADER_BATCHES = 6
-DATA_STEPS = 6
+DATA_STEPS = 4
 DATA_WAYS = {"a": ["--loader", "python"],
              "b": ["--loader", "native"],
              "c": ["--loader", "native", "--prefetch", "2", "--lag-metrics",
@@ -832,7 +852,7 @@ EVAL_CLIP_ARGV = ["--objective", "clip", "--model", "vit_b16",
                   "--device", "cuda"]
 EVAL_PROMPTS = (4, 77)
 IMAGEFOLDER = (512, 4, 256, 320)
-IMAGEFOLDER_STEPS = 4
+IMAGEFOLDER_STEPS = 3
 
 # Train-side telemetry (ROADMAP Queue A 11(b)) and the space-to-depth stem
 # (6(b)). [obs-train]: the SimCLR path (TRAIN_ARGV) for OBS_STEPS steps
@@ -855,7 +875,7 @@ IMAGEFOLDER_STEPS = 4
 # batch held SUPERVISE_STALL_HOLD_S, no --ckpt-dir (the crash above covers
 # the resume): the escalation's flight dump holds the tail of the run's
 # events, and the restart trains again to the step count.
-OBS_STEPS = 16  # the trigger lands on steps 4-9 (the scrape contends for
+OBS_STEPS = 12  # the trigger lands on steps 4-9 (the scrape contends for
                 # the interpreter lock with the loop): room for the capture
 OBS_TRACE_STEPS = 2
 OBS_TRIGGER_AT = 4
@@ -869,7 +889,7 @@ OBS_ROUNDS = ("plain", "sync", "lag", "lag", "sync", "plain")
 STEM_ARGV = ["--model", "resnet50", "--image-size", "224", "--batch", "256",
              "--dataset", "synthetic", "--device", "cuda", "--log-every",
              "1"]
-STEM_STEPS = 4
+STEM_STEPS = 3
 STEM_LOSS_ATOL = 1e-2
 STEM_LAUNCHES = {"ntxent_fwd": 1, "ntxent_bwd_sym": 1}
 SUPERVISE_STALL_AT = 3
@@ -881,7 +901,7 @@ SUPERVISE_STALL_HOLD_S = 7.0
 # --batch 256, through the CLI, with a checkpoint for [eval-moe]; the
 # same launches a step as the dense path (the expert FFNs, routing,
 # dispatch and combine are plain products and gathers: no kernel).
-MOE_STEPS = 4
+MOE_STEPS = 3
 MOE_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + [
     "--steps", str(MOE_STEPS), "--dataset", "synthetic", "--device", "cuda",
     "--log-every", "1", "--moe-experts", "8", "--moe-aux-weight", "0.01"]
@@ -902,7 +922,7 @@ MOE_EP_TOKENS = (512, 197)
 # PARITY_BATCH (TF32 off; 1e-4 on the loss, PARITY_GRAD_RTOL on the
 # relative parameter update) and bf16 at batch 8 (1e-2 on the loss), the
 # timed run at the path's batch with the path's launches.
-MP_STEPS = 4
+MP_STEPS = 3
 MP_BF16_BATCH = 8
 MP_BF16_ATOL = 1e-2
 FSDP_ARGV = DP_ARGV[:DP_ARGV.index("--steps")] + [
@@ -1000,7 +1020,7 @@ SERVE_ARGV = ["--model", "vit_b16", "--vit-attention", "flash",
               # take a while to parse, to coalesce into one device call
               "--max-delay-ms", "250", "--device", "cuda", "--seed", "0"]
 CLIENT_THREADS = 4
-CLIENT_ROUNDS = 3
+CLIENT_ROUNDS = 2
 ROW_COUNTS = (1, 3, 8)
 
 # Serving completeness (ROADMAP Queue A 8(b)-(f)), at SERVE_ARGV's width.
@@ -1036,7 +1056,7 @@ WORKER_FLAGS = ["--max-delay-ms", "5", "--max-restarts", "1",
                 "--stall-timeout", str(STALL_TIMEOUT_S), "--watch-ckpt",
                 "--watch-poll", "0.5", "--run-id", "smoke"]
 WORKER_ROWS = (1, 2, 4, 8)
-ACCUM_LAG_STEPS, ACCUM_LAG_NAN_AT = 6, 3
+ACCUM_LAG_STEPS, ACCUM_LAG_NAN_AT = 4, 3
 ACCUM_LAG_ROUNDS = ("guarded", "lagged", "lagged", "guarded")
 
 
@@ -5678,7 +5698,7 @@ def phase_serve_worker(tmp: str, dir_a: str, card_line: str) -> int:
 # timeout is 2 s).
 FLEET_WORKERS = 3
 FLEET_KILL_TICK, FLEET_DRAIN_TICK = 2, 3
-FLEET_STAGGER_S = 40
+FLEET_STAGGER_S = 34
 FLEET_CANARY = 8
 FLEET_CLIENTS = 4
 # Request bodies a client cycles through: every fourth is 1-2 of
@@ -5687,19 +5707,51 @@ FLEET_CLIENTS = 4
 # most of them reach a worker (the canary needs forwarded outcomes).
 FLEET_ROW_POOL, FLEET_HOT, FLEET_CACHE_ROWS = 48, 4, 24
 FLEET_BODIES = 32
+# The retrieval tier's rows are FLEET_RETRIEVAL_ROWS more, after the
+# pool's: the router caches what /search and the stores embed, so rows the
+# clients also sent would be answered from the cache with the bits of a
+# forward of another batch, which no client saw, and the cache's
+# bit-for-bit gate could not hold them. Its client stores a row a request
+# (through /index/insert and /embed?store=true in turns) and searches one
+# stored row, k FLEET_SEARCH_K; the phase stores FLEET_INDEX_TRAIN rows
+# first, so
+# that the plane is trained before killshard SIGKILLs shard 0, which lands
+# FLEET_KILLSHARD_TICK shard-fleet ticks after the shards are ready: a tick
+# takes --health-poll (1 s) while the workers boot (16-30 s), 1.5-2 s under
+# the clients' load, so the kill lands 45-65 s in, after the seed and
+# around w0's restart; the rollout waits for the shard's recovery. Shard 0
+# owns 3 of the 8 lists (rendezvous placement).
+FLEET_INDEX_TRAIN, FLEET_INDEX_LISTS, FLEET_DOCSTORE = 8, 8, 4
+FLEET_RETRIEVAL_ROWS = 48
+FLEET_KILLSHARD_TICK = 40
+FLEET_SEARCH_K = 5
+FLEET_HIT_ROWS = 8  # rows a self-hit search: ~10 MB of JSON, under 32 MB
 FLEET_FLAGS = [
     "--workers", str(FLEET_WORKERS), "--watch-poll", "0.5",
     "--worker-stagger", str(FLEET_STAGGER_S), "--eject-after", "20",
     "--canary-fraction", "0.5", "--canary-min-requests", str(FLEET_CANARY),
     "--shadow-fraction", "0.5", "--shadow-min-samples", str(FLEET_CANARY),
     "--shadow-max-drift", "0.5", "--cache-rows", str(FLEET_CACHE_ROWS),
-    "--fed-interval", "1",
+    "--fed-interval", "1", "--health-poll", "1.0",
     "--slo-availability", "0.99", "--slo-latency-ms", "5000",
     "--autoscale", "--min-workers", "1", "--max-workers",
     str(FLEET_WORKERS - 1), "--scale-idle-ticks", "1000000",
-    "--chaos", f"killworker@{FLEET_KILL_TICK},drainworker@{FLEET_DRAIN_TICK}",
-    "--run-id", "smoke", "--port", "0"]
-FLEET_BUDGET_S = 180.0
+    "--chaos", f"killworker@{FLEET_KILL_TICK},drainworker@{FLEET_DRAIN_TICK},"
+    f"killshard@{FLEET_KILLSHARD_TICK}",
+    "--run-id", "smoke", "--port", "0",
+    # the retrieval tier (ROADMAP Queue A 12(b)): the in-memory index and a
+    # plane of two supervised shard processes with a journal, both trained
+    # at FLEET_INDEX_TRAIN rows over FLEET_INDEX_LISTS lists, all probed
+    # (their answers exact over the stored rows); the docstore bounded at
+    # FLEET_DOCSTORE rows (602,112 bytes each at 224 px), which a promote
+    # re-embeds through the router's JSON path (~16 MB of JSON a chunk of
+    # 5 rows)
+    "--index-mem", "--index-train-rows", str(FLEET_INDEX_TRAIN),
+    "--index-centroids", str(FLEET_INDEX_LISTS), "--index-nprobe",
+    str(FLEET_INDEX_LISTS), "--index-docstore-rows", str(FLEET_DOCSTORE),
+    "--search-shards", "2", "--shard-procs", "--shard-repair-interval",
+    "0.5", "--slo-retrieval-degraded", "0.9"]
+FLEET_BUDGET_S = 210.0
 FLEET_BOOT_S = 240.0  # three workers' first start on a cold host
 
 # The launches of #11 in each worker process: a sitecustomize the
@@ -5811,15 +5863,203 @@ def _fleet_stop(router, router_log: str) -> list:
     for r in _router_events(router_log, "fleet"):
         if r.get("action") != "spawn":
             continue
-        try:  # a worker still running, not a pid the system reused
+        try:  # a worker or shard still running, not a reused pid
             with open(f"/proc/{r['pid']}/cmdline", "rb") as f:
-                if b"ntxent_tpu_torch.cli" not in f.read():
-                    continue
+                cmdline = f.read()
+            if b"ntxent_tpu_torch.cli" not in cmdline and \
+                    b"ntxent_tpu_torch.retrieval.shard" not in cmdline:
+                continue
             os.kill(r["pid"], signal.SIGKILL)
             alive.append(r["pid"])
         except (KeyError, OSError):
             pass
     return alive
+
+
+def _shard_pids(router_log: str) -> list:
+    """The pids of the shard processes the router spawned that run."""
+    pids = []
+    for r in _router_events(router_log, "fleet"):
+        if r.get("action") != "spawn" or r.get("channel") != "shard":
+            continue
+        try:
+            with open(f"/proc/{r['pid']}/cmdline", "rb") as f:
+                if b"ntxent_tpu_torch.retrieval.shard" in f.read():
+                    pids.append(r["pid"])
+        except OSError:
+            pass
+    return pids
+
+
+def _running(pid: int) -> bool:
+    """Whether the process runs (a zombie, dead but not yet reaped by its
+    parent, does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] not in "ZX"
+    except OSError:
+        return False
+
+
+def _maps_torch(pid: int) -> bool:
+    """Whether the process maps libtorch."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+def _pct(values, q: float) -> float:
+    values = sorted(values)
+    return values[min(len(values) - 1, int(q * len(values)))] \
+        if values else float("nan")
+
+
+def _fleet_retrieval_gates(answers, outage, marks, refs, labels, row_l2,
+                           index_events, seen) -> dict:
+    """The retrieval tier's gates over [fleet]'s run; returns its
+    numbers. ``answers`` are the retrieval client's (and the phase's own)
+    answers, ``refs`` each step's direct forward of the row pool,
+    ``labels`` a step's key in ``refs``, ``row_l2`` the largest L2
+    distance of an answered row from its reference."""
+    first, newer = seen["first"], seen["newer"]
+    statuses = sorted({a["status"] for a in answers})
+    if set(statuses) - {200, 429}:
+        fail(f"fleet: retrieval statuses {statuses}: "
+             f"{[a['payload'] for a in answers if a['status'] not in (200, 429)][:3]}")
+    # stores: stored 0 (and, from /index/insert, reason not_trusted) only
+    # while a canary is undecided or a laggard serves the prior step
+    windows = ((marks["publish_newer"], marks["publish_bad"]),
+               (marks["publish_bad"], marks["reverted"] + 1.0))
+    stores = [a for a in answers if a["kind"] != "search"
+              and a["status"] == 200]
+    gated = []
+    for a in stores:
+        body = a["payload"]
+        if body.get("stored"):
+            if body["index_step"] not in (first, newer) or \
+                    len(body["ids"]) != len(a["rows"]):
+                fail(f"fleet: {a['rid']} stored {body}")
+            continue
+        gated.append(a)
+        if (a["kind"] == "insert" and body.get("reason") != "not_trusted") \
+                or not any(lo <= a["t_recv"] and a["t_send"] <= hi
+                           for lo, hi in windows):
+            fail(f"fleet: {a['rid']} stored nothing outside a rollout "
+                 f"window ({a['t_send'] - marks['start']:.1f} s): {body}; "
+                 f"marks {marks}")
+    for a in stores:  # /embed?store=true answers carry the embeddings
+        if a["kind"] == "store" and a["payload"].get("stored"):
+            got = np.asarray(a["payload"]["embeddings"], np.float32)
+            ref = refs[labels[a["payload"]["index_step"]]][a["rows"]]
+            row_l2 = max(row_l2, float(np.linalg.norm(got - ref,
+                                                      axis=1).max()))
+    # searches: the brute-force top k of the rows stored under the
+    # answer's step, from that step's direct forward, the row itself
+    # first; ids may differ only where reference scores lie within
+    # 4 x row_l2 (each score is off by at most 2 x row_l2). Held: the
+    # searches on a whole plane (no shard down, no promote under way)
+    # whose query that step embedded (or the cache held)
+    tol = 4.0 * row_l2 + 1e-6
+    skip = ((marks["shard_death"] - 0.5, marks["recall_restored"]),
+            (marks["publish_newer"], marks["promoted"] + 2.0))
+    checked = exact = 0
+    for a in answers:
+        if a["kind"] != "search" or a["status"] != 200 or a["k"] == 1:
+            continue
+        body = a["payload"]
+        step = body["index_step"]
+        if a["t_send"] > marks["promoted"] + 2.0 and step != newer:
+            fail(f"fleet: {a['rid']} searched step {step} after the "
+                 f"promote of {newer}")
+        if body["shards"]["degraded"] or body["served_step"] not in (
+                None, step) or any(lo <= a["t_recv"] and a["t_send"] <= hi
+                                   for lo, hi in skip):
+            # (a laggard's query searches the promoted plane from the
+            # prior step's space: the plane does not match versions)
+            continue
+        held = a["stored"].get(step, {})
+        q = a["rows"][0]
+        own = [i for i, j in held.items() if j == q]
+        if not own:
+            continue
+        ids = np.fromiter(held, np.int64)
+        ref = refs[labels[step]]
+        dots = ref[[held[i] for i in ids]] @ ref[q]
+        order = np.argsort(-dots, kind="stable")[:a["k"]]
+        got = [i for i in body["ids"][0] if i >= 0]
+        by_id = dict(zip(ids.tolist(), dots.tolist()))
+        if len(got) != len(order) or got[0] != own[0] \
+                or any(i not in by_id for i in got) \
+                or any(abs(by_id[i] - float(dots[o])) > tol
+                       for i, o in zip(got, order)) \
+                or any(abs(by_id[i] - s) > tol
+                       for i, s in zip(got, body["scores"][0])):
+            fail(f"fleet: {a['rid']} on step {step} answered {got} "
+                 f"({body['scores'][0]}); brute force "
+                 f"{ids[order].tolist()} ({dots[order].tolist()}), "
+                 f"tolerance {tol:.3e}")
+        checked += 1
+        exact += got == ids[order].tolist()
+    if not checked:
+        fail("fleet: no search on a whole plane to hold to brute force")
+    # the promote: the index's promoted version rebuilt from the docstore
+    promoted = [r for r in index_events if r.get("action") == "promote"
+                and r.get("step") == newer]
+    rebuilds = [r for r in index_events if r.get("action") == "rebuild"]
+    after = [r for r in rebuilds if promoted and r["wall"] >= promoted[0][
+        "wall"] and r.get("step") == newer]
+    docstore = min(FLEET_DOCSTORE, sum(
+        a["payload"]["stored"] for a in stores if a["payload"].get("stored")
+        and a["payload"]["index_step"] == first
+        and a["t_recv"] < marks["promoted"]))
+    if not promoted or not after or after[0]["rows"] != docstore:
+        fail(f"fleet: the index's promote {promoted}, rebuilds {rebuilds}; "
+             f"{docstore} rows in the docstore")
+    view = seen["index"]
+    if view["active_step"] != newer or view["versions"][str(newer)][
+            "rows"] < 1:
+        fail(f"fleet: /index after the rollout {view}")
+    # the drift rollback: the live version marked stale
+    stale = [r for r in index_events if r.get("action") == "stale"
+             and "drift" in r.get("reason", "")]
+    if not stale or stale[0].get("step") != newer:
+        fail(f"fleet: the drift rollback's stale mark {stale}")
+    # killshard: 200s reporting the dead shard, the restart on its port,
+    # the journal's debt redelivered, every stored row found again
+    if any(a["status"] != 200 for a in outage) or not any(
+            a["payload"]["shards"]["degraded"] for a in outage):
+        fail(f"fleet: searches while shard 0 was down: "
+             f"{[(a['status'], a['payload'].get('shards')) for a in outage]}")
+    healed, plane0 = seen["healed"], seen["plane0"]
+    if [s["url"] for s in healed["shards"]] != [s["url"] for s in
+                                                plane0["shards"]] \
+            or healed["repaired"] < 1 or healed["dropped"] \
+            or seen["shard_death"]["rc"] != -9:
+        fail(f"fleet: the plane after killshard {healed} (before: "
+             f"{plane0})")
+    final = seen["final_hits"]
+    if final is None or not final[1]:
+        fail(f"fleet: the final self-hits "
+             f"{final and [a['payload'] for a in final[0]]}")
+    if seen["torch_maps"] or len(seen["shard_pids"]) != 2:
+        fail(f"fleet: libtorch mapped in {seen['torch_maps']} (shards "
+             f"{seen['shard_pids']})")
+    ms = lambda kinds: [(a["t_recv"] - a["t_send"]) * 1e3  # noqa: E731
+                        for a in answers if a["status"] == 200
+                        and a["kind"] in kinds and a["k"] != 1]
+    return dict(
+        answers=len(answers), statuses=statuses, gated=len(gated),
+        stores=len(stores), searches=len(ms(("search",))), checked=checked,
+        exact=exact, tol=tol,
+        search_ms=(_pct(ms(("search",)), 0.5), _pct(ms(("search",)), 0.99)),
+        insert_ms=(_pct(ms(("insert", "store")), 0.5),
+                   _pct(ms(("insert", "store")), 0.99)),
+        index_active_ms=(after[0]["wall"] - promoted[0]["wall"]) * 1e3,
+        rebuild_ms=after[0]["duration_ms"], rebuild_rows=after[0]["rows"],
+        outage=len(outage), degraded=sum(
+            a["payload"]["shards"]["degraded"] for a in outage),
+        depth=max(seen["depths"]), repaired=healed["repaired"],
+        healed_rows=len(seen["healed_ids"]),
+        final_rows=sum(len(a["rows"]) for a in final[0]))
 
 
 def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
@@ -5851,6 +6091,7 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
         f.write(_FLEET_SITE)
     router_log, history_dir = f"{root}/router.jsonl", f"{root}/history"
     workdir, port_file = f"{root}/workers", f"{root}/router.port"
+    journal = f"{root}/journal"
     # SERVE_ARGV's model and batching flags; the fleet places its workers
     model_flags = list(SERVE_ARGV)
     for flag in ("--port", "--device"):
@@ -5859,7 +6100,7 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
     argv = [sys.executable, "-m", "ntxent_tpu_torch.fleet_cli",
             *model_flags, *FLEET_FLAGS, "--ckpt-dir", watch, "--workdir",
             workdir, "--port-file", port_file, "--log-jsonl", router_log,
-            "--history-dir", history_dir]
+            "--history-dir", history_dir, "--shard-journal-dir", journal]
     env = dict(os.environ, NTXENT_SMOKE_COUNTS=counts, PYTHONPATH=os.pathsep
                .join([site, os.path.dirname(os.path.abspath(__file__)),
                       os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
@@ -5916,13 +6157,176 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
             if status == 429:
                 time.sleep(float(headers.get("Retry-After", 1)))
 
+    # the retrieval tier: what each step's index holds (row id -> pool
+    # row), every answer of /index/insert, /embed?store=true and /search
+    # with what was stored when it was sent
+    rlock, stored, r_answers = threading.Lock(), {}, []
+    retrieval_rows = list(range(FLEET_ROW_POOL,
+                                FLEET_ROW_POOL + FLEET_RETRIEVAL_ROWS))
+
+    def rows_body(rows, k=None):
+        extra = f', "k": {k}' if k is not None else ""
+        return ('{"inputs": [' + ", ".join(row_json[j] for j in rows)
+                + f'], "timeout_ms": 120000{extra}}}').encode()
+
+    def retrieve(kind, rows, rid, k=FLEET_SEARCH_K):
+        path = {"insert": "/index/insert", "store": "/embed?store=true",
+                "search": "/search"}[kind]
+        body = rows_body(rows, k if kind == "search" else None)
+        with rlock:
+            before = {step: dict(held) for step, held in stored.items()}
+        t_send = time.monotonic()
+        status, headers, payload = _post_full(url + path, body, rid)
+        a = dict(kind=kind, rid=rid, rows=list(rows), status=status,
+                 t_send=t_send, t_recv=time.monotonic(), payload=payload,
+                 headers=headers, stored=before, k=k)
+        if kind != "search" and status == 200 and payload.get("stored"):
+            with rlock:
+                stored.setdefault(payload["index_step"], {}).update(
+                    zip(payload["ids"], rows))
+        r_answers.append(a)
+        return a
+
+    def self_hits(held, rid):
+        """A search of each stored row (``held``: id -> pool row), k 1,
+        FLEET_HIT_ROWS rows a request (under the router's body cap), the
+        requests at once: (the answers, whether every row came back as
+        its own first hit from a whole plane)."""
+        ids = sorted(held)
+        chunks = [ids[lo:lo + FLEET_HIT_ROWS]
+                  for lo in range(0, len(ids), FLEET_HIT_ROWS)]
+        answers = [None] * len(chunks)
+
+        def one(c):
+            answers[c] = retrieve("search", [held[i] for i in chunks[c]],
+                                  f"{rid}-{c}", k=1)
+
+        threads = [threading.Thread(target=one, args=(c,), daemon=True)
+                   for c in range(len(chunks))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        whole = all(a is not None and a["status"] == 200
+                    and not a["payload"]["shards"]["degraded"]
+                    for a in answers)
+        return answers, whole and [row[0] for a in answers for row in
+                                   a["payload"]["ids"]] == ids
+
+    def rebuilding() -> bool:
+        """Whether the index is re-embedding its docstore (after a promote
+        or a stale mark). A rebuild runs in passes until one sees no
+        insert, so the client stores nothing meanwhile."""
+        last = [r["action"] for r in _router_events(router_log, "index")
+                if r.get("action") in ("promote", "stale", "rebuild")]
+        return bool(last) and last[-1] != "rebuild"
+
+    # what the killshard watcher found: the outage's searches and plane
+    # readings, the healed plane, the stored rows it found again
+    heal = {}
+
+    def outage_watch(victim, step) -> None:
+        """From the moment the shard process ``victim`` is gone (its /proc
+        state, polled: the router's log is flushed later), search a
+        stored row over and over (a hot row the cache holds: no worker
+        forward) and read the plane, until the shard is back on its port
+        with no journal debt and every row stored under ``step`` is its
+        own first hit."""
+        if not _running(victim):
+            heal["error"] = ("killshard landed before the plane trained: "
+                             "move FLEET_KILLSHARD_TICK later")
+            return
+        while _running(victim):
+            if stop.is_set():
+                return
+            time.sleep(0.02)
+        marks["shard_death"] = time.monotonic()
+        try:
+            heal_after(step)
+        except Exception as e:  # noqa: BLE001 — the phase's thread fails
+            heal["error"] = f"the killshard watcher: {e!r}"
+
+    def heal_after(step) -> None:
+        outage, depths, n, plane = [], [], 0, None
+        while time.monotonic() < marks["shard_death"] + 180:
+            with rlock:
+                held = dict(stored.get(step, {}))
+            outage.append(retrieve("search", [held[min(held)]],
+                                   f"outage-{n}"))
+            n += 1
+            plane = _fleet_get(f"{url}/index")[1]["shard_plane"]
+            depths.append(plane["journal_depth"])
+            respawned = [r for r in _router_events(router_log, "fleet")
+                         if r.get("channel") == "shard" and r.get(
+                             "action") == "spawn" and r["restarts"] >= 1]
+            if not respawned or plane["journal_depth"] or not all(
+                    sh["alive"] for sh in plane["shards"]):
+                continue
+            hits, every = self_hits(held, f"self-hits-{n}")
+            if every:
+                marks["recall_restored"] = max(a["t_recv"] for a in hits)
+                heal.update(outage=outage, depths=depths, plane=plane,
+                            ids=sorted(held))
+                return
+        heal["error"] = (f"no recall restored within 180 s of killshard; "
+                         f"the plane: {plane}")
+
+    def retrieval_client(step) -> None:
+        n = 0
+        while not stop.is_set():
+            with rlock:
+                held = dict(stored.get(step, {}))
+            fresh = [j for j in retrieval_rows if j not in held.values()]
+            a = None
+            if fresh and not rebuilding():
+                a = retrieve("store" if n % 2 else "insert",
+                             [fresh[(7 * n) % len(fresh)]],
+                             f"retrieval-{n}")
+                if a["status"] == 200 and a["payload"].get("stored"):
+                    step = a["payload"]["index_step"]
+                    held = dict(stored.get(step, {}))
+            if held and not stop.is_set():
+                ids = sorted(held)
+                a = retrieve("search", [held[ids[(3 * n) % len(ids)]]],
+                             f"search-{n}")
+                if a["status"] == 200:  # the plane's step, after a promote
+                    step = a["payload"]["index_step"]
+            n += 1
+            if a is None:
+                time.sleep(0.5)
+            elif a["status"] == 429:
+                time.sleep(float(a["headers"].get("Retry-After", 1)))
+
+    # every worker ready on the first step: killworker lands one tick
+    # (--health-poll) after the fleet's chaos arms there, so a thread
+    # watches for that moment while the phase prepares its data
+    all_ready = threading.Event()
+
+    def watch_ready() -> None:
+        want = {f"w{i}": first for i in range(FLEET_WORKERS)}
+        while not stop.is_set():
+            try:
+                if served(ready=True) == want:
+                    marks["ready"] = time.monotonic()
+                    all_ready.set()
+                    return
+            except (OSError, ValueError):  # the router still starting
+                pass
+            time.sleep(0.1)
+
     clients = [threading.Thread(target=client, args=(k,), daemon=True)
                for k in range(FLEET_CLIENTS)]
     try:
+        url = "http://127.0.0.1:" + wait(
+            "port file", lambda: os.path.exists(port_file)
+            and open(port_file).read().strip(), 60)
+        threading.Thread(target=watch_ready, daemon=True).start()
         # while the workers boot: the references, the bad step, the bodies
         rng = np.random.default_rng(23)
         pool = rng.uniform(-1, 1, (FLEET_ROW_POOL, SERVE_IMAGE,
                                    SERVE_IMAGE, 3)).round(3)
+        pool = np.concatenate([pool, np.random.default_rng(24).uniform(
+            -1, 1, (FLEET_RETRIEVAL_ROWS, *pool.shape[1:])).round(3)])
         refs = _fleet_refs(dir_a, {"first": first, "newer": newer},
                            pool.astype(np.float32))
         _save_bad_step(dir_a, newer, bad, stage)
@@ -5934,20 +6338,35 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
             bodies.append((ids, ('{"inputs": [' + ", ".join(
                 row_json[j] for j in ids)
                 + '], "timeout_ms": 120000}').encode()))
-        url = "http://127.0.0.1:" + wait(
-            "port file", lambda: os.path.exists(port_file)
-            and open(port_file).read().strip(), 60)
         wait(f"{FLEET_WORKERS} ready workers on step {first}",
-             lambda: served(ready=True) == {f"w{i}": first
-                                            for i in range(FLEET_WORKERS)},
-             FLEET_BOOT_S)
-        marks["ready"] = time.monotonic()
+             all_ready.is_set, FLEET_BOOT_S)
         for th in clients:
             th.start()
+        # the retrieval tier: FLEET_INDEX_TRAIN rows stored at once train
+        # the index and the shard plane; then the client
+        seed = retrieve("insert", retrieval_rows[:FLEET_INDEX_TRAIN],
+                        "seed")
+        if seed["status"] != 200 or seed["payload"].get("stored") != \
+                FLEET_INDEX_TRAIN or seed["payload"].get("index_step") \
+                != first:
+            fail(f"fleet: the seed insert {seed['status']} "
+                 f"{seed['payload']}")
+        plane0 = _fleet_get(f"{url}/index")[1]["shard_plane"]
+        if not plane0["trained"]:
+            fail(f"fleet: the shard plane untrained after "
+                 f"{FLEET_INDEX_TRAIN} rows: {plane0}")
+        clients.append(threading.Thread(target=retrieval_client,
+                                        args=(first,), daemon=True))
+        clients[-1].start()
+        shard0 = [r["pid"] for r in _router_events(router_log, "fleet")
+                  if r.get("channel") == "shard" and r.get("action") ==
+                  "spawn" and r["worker"] == "w0"][0]
+        threading.Thread(target=outage_watch, args=(shard0, first),
+                         daemon=True).start()
         # killworker (w0) and drainworker (the highest ordinal) land
         deaths = wait("the killed worker's death", lambda: [
             r for r in _router_events(router_log, "fleet")
-            if r.get("action") == "death"], 60)
+            if r.get("action") == "death" and "channel" not in r], 60)
         drained = wait("the drain", lambda: [
             r for r in _router_events(router_log, "autoscale")
             if r.get("action") in ("drain_done", "drain_deadline")], 60)
@@ -5956,6 +6375,18 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
              lambda: served(ready=True) == {"w0": first, "w1": first}, 120)
         marks["restarted"] = time.monotonic()
         restart_ms = (time.time() - deaths[0]["wall"]) * 1e3
+        # killshard (``outage_watch``): searches during the outage, the
+        # shard restarted on its port, the journal's debt redelivered,
+        # every stored row found again
+        wait("recall restored after killshard", lambda: heal, 240)
+        if "error" in heal:
+            fail(f"fleet: {heal['error']}")
+        shard_death = wait("the killed shard's death event", lambda: [
+            r for r in _router_events(router_log, "fleet")
+            if r.get("action") == "death" and r.get("channel") == "shard"],
+            30)[0]
+        restored_ms = (marks["recall_restored"]
+                       - marks["shard_death"]) * 1e3
         # the rollout: w0 adopts the newer step at once, w1 later
         marks["publish_newer"] = time.monotonic()
         publish(dir_a, newer)
@@ -5970,6 +6401,11 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
                  f"{promote_view}: w1 adopted before the verdict")
         wait(f"both workers on step {newer}", lambda: served() == {
             "w0": newer, "w1": newer}, FLEET_STAGGER_S + 60)
+        wait(f"the index's version of step {newer} rebuilt", lambda: [
+            r for r in _router_events(router_log, "index")
+            if r.get("action") == "rebuild" and r.get("step") == newer],
+            120)
+        marks["rebuilt"] = time.monotonic()
         marks["publish_bad"] = time.monotonic()
         publish(stage, bad)
         wait(f"step {bad} rolled back", lambda: bad in metrics()[
@@ -5978,6 +6414,7 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
         rollback_verdict = metrics()["last_verdict"]
         wait(f"both workers back on step {newer}", lambda: served() == {
             "w0": newer, "w1": newer}, 60)
+        marks["reverted"] = time.monotonic()
         worker_urls = {w: v["url"] for w, v in metrics()["workers"].items()}
         blocked = {}
         for w, wurl in worker_urls.items():
@@ -6004,9 +6441,25 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
         status, history = _fleet_get(f"{url}/metrics/history")
         if status != 200 or history["raw_samples"] < 1:
             fail(f"fleet: /metrics/history {status} {history}")
+        if not any(name.startswith("retrieval_shard_up")
+                   for name in history["series_names"]):
+            fail(f"fleet: no retrieval_shard_up in /metrics/history: "
+                 f"{history['series_names']}")
+        # the retrieval tier after the drift rollback: the newer step's
+        # version active (the breach marks it stale, and its rebuild
+        # re-embeds the docstore in the background), and every row stored
+        # under it finds itself first
+        index_view = _fleet_get(f"{url}/index")[1]
         stop.set()
         for th in clients:
             th.join(300)
+        with rlock:
+            held = dict(stored.get(newer, {}))
+        final_hits = self_hits(held, "self-hits-final") if held else None
+        # neither the router nor a shard maps libtorch
+        shard_pids = _shard_pids(router_log)
+        torch_maps = [pid for pid in [router.pid, *shard_pids]
+                      if _maps_torch(pid)]
         marks["clients_done"] = time.monotonic()
         time.sleep(1.0)
         final = metrics()
@@ -6034,6 +6487,7 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
              "answers")
     seen = {}  # row id -> its rows' bytes in every forwarded answer
     by_step, worst, cache_only = {}, 0.0, []
+    row_l2 = 0.0  # the largest L2 distance of an answered row from its ref
     for a in answers:
         if a["status"] != 200:
             continue
@@ -6053,6 +6507,8 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
         _check_embeddings(f"fleet {a['rid']} (step {step})", got,
                           refs[step][a["ids"]])
         worst = max(worst, errs[step])
+        row_l2 = max(row_l2, float(np.linalg.norm(
+            got - refs[step][a["ids"]], axis=1).max()))
         if a["payload"].get("cache_hits", 0) == len(a["ids"]):
             cache_only.append((a, got))
         else:
@@ -6112,7 +6568,7 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
         fail(f"fleet: the rollback of step {bad}: {rollback_verdict}")
     drain = drained[0]
     retired = [r for r in _router_events(router_log, "fleet")
-               if r.get("action") == "retire"]
+               if r.get("action") == "retire" and "channel" not in r]
     if drain["action"] != "drain_done" or drain.get("worker") != \
             f"w{FLEET_WORKERS - 1}" or [r["worker"] for r in retired] \
             != [drain["worker"]]:
@@ -6178,6 +6634,15 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
         fail(f"fleet: reports from {[r['worker'] for r in reports]}, "
              "expected w0 (after its restart), w1 and w2")
     launches = sum(r["launches"] for r in reports)
+    retrieval = _fleet_retrieval_gates(
+        r_answers, heal["outage"], marks, refs, {first: "first",
+                                                 newer: "newer", bad: "bad"},
+        row_l2, _router_events(router_log, "index"), dict(
+            plane0=plane0, healed=heal["plane"], healed_ids=heal["ids"],
+            index=index_view, final_hits=final_hits,
+            torch_maps=torch_maps, shard_pids=shard_pids,
+            depths=heal["depths"], shard_death=shard_death, newer=newer,
+            first=first))
 
     ok = [a for a in answers if a["status"] == 200]
     window = [a for a in ok if marks["restarted"] <= a["t_send"]
@@ -6236,10 +6701,238 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
     print("[fleet] timeline (s from the router's start): " + ", ".join(
         f"{k} {v - marks['start']:.1f}" for k, v in marks.items()),
           flush=True)
+    r = retrieval
+    print(f"[fleet-retrieval] --index-mem and 2 supervised shard processes "
+          f"(--shard-procs, a journal), {FLEET_INDEX_LISTS} lists all "
+          f"probed, in the same fleet run, over {FLEET_RETRIEVAL_ROWS} "
+          f"rows of its own: {r['answers']} answers "
+          f"{r['statuses']}, {r['stores']} stores ({r['gated']} gated "
+          f"not_trusted, all in a rollout window), {r['searches']} "
+          f"searches (k {FLEET_SEARCH_K}), {r['checked']} on a whole plane "
+          f"held to the brute-force top k of each step's direct forward "
+          f"({r['exact']} id for id, the rest within {r['tol']:.2e}), the "
+          f"row itself first; search p50/p99 {r['search_ms'][0]:.1f}/"
+          f"{r['search_ms'][1]:.1f} ms, insert p50/p99 "
+          f"{r['insert_ms'][0]:.1f}/{r['insert_ms'][1]:.1f} ms (client "
+          f"clock); promote of step {newer}: the index's version active "
+          f"with the docstore re-embedded {r['index_active_ms']:.0f} ms "
+          f"after the index's promote (rebuild {r['rebuild_ms']:.0f} ms, "
+          f"{r['rebuild_rows']} rows); killshard: {r['degraded']} of "
+          f"{r['outage']} searches during the outage degraded (all 200), "
+          f"journal depth up to {r['depth']} rows at the restart, "
+          f"{r['repaired']} rows redelivered, every one of "
+          f"{r['healed_rows']} stored rows its own first hit "
+          f"{restored_ms:.0f} ms after the death (again for "
+          f"{r['final_rows']} rows at the end); no libtorch in the router "
+          f"nor the shards; on {card_line}", flush=True)
     if time.monotonic() - t0 > FLEET_BUDGET_S:
         print(f"[fleet] over its {FLEET_BUDGET_S:.0f} s budget", flush=True)
     shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+# [retrieval-scale] (ROADMAP Queue A 12(b)), host only: the retrieval tier
+# at a size its users run. The JAX package's own committed corpus
+# (``bench.py``'s retrieval arm: 4,100,000 unit rows on a rank-16 manifold
+# plus noise 0.05, ``VectorIndex(train_rows=16384, n_centroids=512,
+# nprobe=48, pq_m=8, pq_rerank=4096, seal_rows=65536, compact_at=16)``,
+# trained on a 32,768-row prefix, 128 held-out queries, 200 quiet
+# searches, 4 searchers against a writer of 4,000 rows, here 64 searches
+# each where ``bench.py`` makes 250) at the fleet's
+# stored width 128 (``--proj-dim``), its rows cut from 4.1 M to 524,288
+# for this script's time limit: 268 MB of float32 against 4 MB of 8-byte
+# codes. Gates: ``bench.py``'s, recall@10 >= 0.95 against
+# ``brute_force_topk`` and at most 1/8 of a raw row scanned (64 bytes).
+# Then ``bench.py``'s repair arm on the port's shard plane: 3 in-process
+# ``ShardServer``s, 24,576 + 8,192 rows of width 64, one shard stopped
+# under a live insert stream and restarted empty on its port; the journal
+# drains to zero and the self-hit probe is back to 1.0.
+RS_ROWS, RS_DIM, RS_RANK, RS_NOISE = 524_288, 128, 16, 0.05
+RS_TRAIN = 32_768
+RS_INDEX = dict(train_rows=16_384, n_centroids=512, nprobe=48, pq_m=8,
+                pq_rerank=4096, seal_rows=65_536, compact_at=16)
+RS_QUERIES, RS_K, RS_RECALL = 128, 10, 0.95
+RS_QUIET, RS_SEARCHERS, RS_SEARCHES, RS_LIVE = 200, 4, 64, 4_000
+RS_REPAIR = dict(dim=64, shards=3, base=24_576, live=8_192)
+
+
+def _ms_stats(values) -> str:
+    return (f"p50 {_pct(values, 0.5):.2f} ms, p99 "
+            f"{_pct(values, 0.99):.2f} ms")
+
+
+def _repair_arm() -> dict:
+    """``bench.py``'s ``_retrieval_repair_arm`` on the port."""
+    from ntxent_tpu_torch.retrieval import ShardFanout, ShardServer
+
+    dim, n_base, n_live = (RS_REPAIR[k] for k in ("dim", "base", "live"))
+
+    def rows(n, seed):
+        x = np.random.RandomState(seed).randn(n, dim).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    servers = [ShardServer(dim).start() for _ in range(RS_REPAIR["shards"])]
+    ports = [s.port for s in servers]
+    jdir = tempfile.mkdtemp(prefix="smoke-shard-journal-")
+    fan = ShardFanout([s.url for s in servers], dim=dim, train_rows=2048,
+                      n_centroids=32, nprobe=32, pq_m=8, journal_dir=jdir,
+                      cooldown_s=0.2)
+    try:
+        fan.activate(100)
+        base = rows(n_base, 1)
+        for i in range(0, n_base, 2048):
+            fan.insert(np.arange(i, min(i + 2048, n_base)), base[i:i + 2048])
+        probe = base[:256]
+
+        def self_hit():
+            res = fan.search(probe, k=1)
+            return float(np.mean(res["ids"][:, 0] == np.arange(256)))
+
+        if self_hit() != 1.0:
+            fail("retrieval-scale: the repair arm's self-hits before the "
+                 "kill")
+        servers[1].stop()
+        live = rows(n_live, 2)
+        for i in range(0, n_live, 1024):
+            fan.insert(np.arange(n_base + i, n_base + min(i + 1024, n_live)),
+                       live[i:i + 1024])
+        degraded = fan.search(probe, k=1)["shards"]["degraded"]
+        dead_hit, depth = self_hit(), fan.journal.depth(1)
+        if not degraded or dead_hit >= 1.0 or depth < 1:
+            fail(f"retrieval-scale: with shard 1 down: degraded {degraded},"
+                 f" self-hits {dead_hit}, journal depth {depth}")
+        servers[1] = ShardServer(dim, port=ports[1]).start()
+        rep0, t0 = fan.repaired, time.perf_counter()
+        drain_s = restored_s = None
+        while time.perf_counter() - t0 < 120.0:
+            fan.repair_tick()
+            if sum(fan.journal.depths().values()) == 0:
+                drain_s = time.perf_counter() - t0
+                break
+        while drain_s is not None and time.perf_counter() - t0 < 120.0:
+            if self_hit() >= 1.0:
+                restored_s = time.perf_counter() - t0
+                break
+            fan.repair_tick()
+        if drain_s is None or restored_s is None or fan.dropped:
+            fail(f"retrieval-scale: the repair arm: drained in {drain_s} s,"
+                 f" recall restored in {restored_s} s, {fan.dropped} "
+                 "dropped")
+        return dict(rows=n_base + n_live, depth=depth, dead_hit=dead_hit,
+                    repaired=fan.repaired - rep0, drain_s=drain_s,
+                    restored_s=restored_s)
+    finally:
+        fan.close()
+        for s in servers:
+            s.stop()
+        shutil.rmtree(jdir, ignore_errors=True)
+
+
+def phase_retrieval_scale(card_line: str) -> None:
+    """The port's ``VectorIndex`` at RS_ROWS rows of width RS_DIM, then
+    the repair arm; host only (the retrieval tier holds no card)."""
+    from ntxent_tpu_torch.retrieval import VectorIndex, brute_force_topk
+
+    t_phase = time.monotonic()
+    proj = np.random.RandomState(0).randn(RS_RANK, RS_DIM).astype(np.float32)
+
+    def make(n, seed):
+        r = np.random.RandomState(seed)
+        x = r.randn(n, RS_RANK).astype(np.float32) @ proj \
+            + RS_NOISE * r.randn(n, RS_DIM).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    base = make(RS_ROWS, 1)
+    idx = VectorIndex(RS_DIM, **RS_INDEX)
+    t0 = time.perf_counter()
+    idx.insert(np.arange(RS_TRAIN), base[:RS_TRAIN])
+    idx.maintain()  # trains on the prefix: centroids and PQ codebooks
+    if not idx.trained:
+        fail("retrieval-scale: the index did not train on its prefix")
+    for i in range(RS_TRAIN, RS_ROWS, 8192):
+        idx.insert(np.arange(i, min(i + 8192, RS_ROWS)), base[i:i + 8192])
+        if (i - RS_TRAIN) % 65_536 == 0:
+            idx.maintain()  # the seal cadence
+    while idx.maintain():
+        pass
+    build_s = time.perf_counter() - t0
+    scanned = idx.scan_bytes_per_row()
+    queries = make(RS_QUERIES, 2)
+    ann_ids, _ = idx.search(queries, k=RS_K)
+    ids_all, vecs_all = idx.store.all_rows()
+    exact_ids, _ = brute_force_topk(queries, ids_all, vecs_all, RS_K)
+    recall = float(np.mean([len(set(a) & set(e)) / RS_K for a, e in zip(
+        ann_ids.tolist(), exact_ids.tolist())]))
+    if recall < RS_RECALL or scanned > RS_DIM * 4 / 8:
+        fail(f"retrieval-scale: recall@{RS_K} {recall:.4f} (at least "
+             f"{RS_RECALL}), {scanned:.2f} bytes a row scanned (at most "
+             f"{RS_DIM * 4 / 8:.0f})")
+    brute = []
+    for q in queries[:32]:
+        t = time.perf_counter()
+        brute_force_topk(q, ids_all, vecs_all, RS_K)
+        brute.append((time.perf_counter() - t) * 1e3)
+    del ids_all, vecs_all
+
+    def searches(n, seed, out):
+        qs = make(n, 100 + seed)
+        for i in range(n):
+            t = time.perf_counter()
+            idx.search(qs[i], k=RS_K)
+            out.append((time.perf_counter() - t) * 1e3)
+
+    quiet = []
+    searches(RS_QUIET, 3, quiet)
+    live, stop = make(RS_LIVE, 4), threading.Event()
+
+    def writer():
+        i = 0
+        while i < RS_LIVE and not stop.is_set():
+            j = min(i + 256, RS_LIVE)
+            idx.insert(np.arange(RS_ROWS + i, RS_ROWS + j), live[i:j])
+            i = j
+            idx.maintain()
+
+    series = [[] for _ in range(RS_SEARCHERS)]
+    threads = [threading.Thread(target=searches,
+                                args=(RS_SEARCHES, 10 + s, series[s]))
+               for s in range(RS_SEARCHERS)]
+    w = threading.Thread(target=writer)
+    t0 = time.perf_counter()
+    for th in (w, *threads):
+        th.start()
+    for th in threads:
+        th.join()
+    stop.set()
+    w.join()
+    busy_s = time.perf_counter() - t0
+    concurrent = [v for s in series for v in s]
+    resident_mb = idx.resident_bytes() / 2**20
+    rows = idx.rows
+    del idx, base
+    repair = _repair_arm()
+    print(f"[retrieval-scale] the port's VectorIndex (host only, numpy) at "
+          f"{RS_ROWS} rows of width {RS_DIM} (bench.py's rank-16 corpus, "
+          f"its rows cut from 4,100,000 for the time limit), 512 lists, "
+          f"nprobe 48, PQ m 8, re-rank 4096: built at "
+          f"{RS_ROWS / build_s:.1f} rows/s ({build_s:.1f} s); recall@"
+          f"{RS_K} {recall:.4f} on {RS_QUERIES} held-out queries against "
+          f"brute force; {scanned:.2f} bytes a row scanned of "
+          f"{RS_DIM * 4} raw; resident {resident_mb:.1f} MB; quiet "
+          f"{_ms_stats(quiet)} ({RS_QUIET} searches); {RS_SEARCHERS} "
+          f"searchers against a writer of {RS_LIVE} rows: "
+          f"{_ms_stats(concurrent)}, {len(concurrent) / busy_s:.1f} "
+          f"searches/s, {rows} rows at the end; brute force "
+          f"{_ms_stats(brute)}; repair arm ({RS_REPAIR['shards']} shards, "
+          f"{repair['rows']} rows of width {RS_REPAIR['dim']}): shard 1 down"
+          f" under {RS_REPAIR['live']} inserted rows, self-hits "
+          f"{repair['dead_hit']:.4f}, journal depth {repair['depth']} at the"
+          f" restart, {repair['repaired']} rows redelivered in "
+          f"{repair['drain_s'] * 1e3:.1f} ms "
+          f"({repair['repaired'] / repair['drain_s']:.1f} rows/s), "
+          f"self-hits 1.0 again {repair['restored_s'] * 1e3:.1f} ms after "
+          f"the restart; host of {card_line}; phase "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
 
 
 def phase_accum_lag(card_line: str) -> dict:
@@ -6917,7 +7610,7 @@ def phase_data(tmp: str, card_line: str):
         if way == "c":
             # saved at step 1 (an empty directory's first save, inside the
             # first step's record) and after the loop: no save in the
-            # records of steps 2-6
+            # records of the later steps
             argv += ["--ckpt-dir", ckpt, "--ckpt-every", "1000"]
         for wrapper in counters.values():
             wrapper.launches = 0
@@ -8151,6 +8844,7 @@ def main() -> int:
         ladder_launches = phase_serve_ladder(smi)
         worker_launches = phase_serve_worker(tmp, dir_a, smi)
         fleet_launches = phase_fleet(tmp, dir_a, smi)
+        phase_retrieval_scale(smi)
         accum_lag_launches = phase_accum_lag(smi)
         phase_preempt(tmp, crc_a)
         shutil.rmtree(dir_a)

@@ -55,7 +55,12 @@ Ported so far:
   a router with an embedding cache, canaried rollout, shadow drift,
   tenant admission and autoscaling over supervised ``serve`` workers, and
   the fleet's federation, SLO and history planes (``obs``). The router
-  tier imports no torch.
+  tier imports no torch;
+* the fleet's retrieval tier (``retrieval``): the checkpoint-step-versioned
+  IVF-PQ index behind the router's ``/search``, ``/index/insert`` and
+  ``/embed?store=true``, and its self-healing shard plane (``python -m
+  ntxent_tpu_torch.retrieval.shard``), numpy and stdlib as in the JAX
+  package.
 """
 
 import importlib

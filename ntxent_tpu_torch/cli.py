@@ -118,9 +118,8 @@ supports, plus ``--device`` (cuda by default; raises without a GPU):
   ``python -m ntxent_tpu_torch.fleet_cli``, loads no torch).
 
 Every flag of the JAX CLI's ``ntxent-train``, ``ntxent-eval`` and
-``ntxent-serve`` parses here and runs, and every ``ntxent-fleet`` flag but
-the retrieval tier's (ROADMAP.md Queue A 12(b)); ``--platform cpu|gpu``
-selects ``--device``.
+``ntxent-serve`` parses here and runs, and so does every ``ntxent-fleet``
+flag; ``--platform cpu|gpu`` selects ``--device``.
 
 Run: ``python -m ntxent_tpu_torch.cli --model vit_b16 --vit-attention
 flash --image-size 224 --head embedding --port 8080`` (serving),

@@ -15,18 +15,24 @@ seconds before it adopts a new step, so the earliest is the canary).
 ``/metrics/fleet`` and records ``/metrics/history`` (``--history-dir``
 spills it); ``--slo-*`` page through ``/alerts``; ``--autoscale`` sizes
 the pool; ``--chaos`` fires ``killworker``, ``slowworker``, ``spike`` and
-``drainworker`` on supervision ticks. A SIGTERM drains the fleet and
-exits 0.
+``drainworker`` on supervision ticks, and ``killshard`` and ``lagshard``
+on the shard fleet's. ``--index-mem`` or ``--index-dir`` attach the
+retrieval tier (``retrieval.IndexManager``: ``POST /search``,
+``/index/insert``, ``/embed?store=true``, ``GET /index``);
+``--search-shards N`` fans searches out over N shard servers
+(``retrieval.ShardFanout``), with ``--shard-procs`` as supervised ``python
+-m ntxent_tpu_torch.retrieval.shard`` subprocesses on fixed ports, their
+inserts journaled (``--shard-journal-dir``) and repaired. A SIGTERM drains
+the fleet and exits 0.
 
 The router process imports no torch (this module, ``obs``, ``serving``'s
-router tier and ``resilience.faults`` load stdlib and numpy only), so it
+router tier, ``retrieval`` and ``resilience.faults`` load stdlib and numpy
+only), and neither does a shard process, so the router
 starts and restarts in well under a second. ``cli.main(["fleet", ...])``
 and ``cli.fleet_main`` reach the same entry.
 
-Every flag of ``ntxent-fleet`` parses, with the JAX CLI's exits and
-warnings; the retrieval tier's (``--index-*``, ``--search-shards``,
-``--shard-*``, ``--slo-retrieval-degraded``) and the ``killshard`` and
-``lagshard`` chaos actions exit naming ROADMAP.md Queue A 12(b).
+Every flag of ``ntxent-fleet`` parses, with the JAX CLI's defaults,
+exits and warnings.
 """
 
 from __future__ import annotations
@@ -36,37 +42,11 @@ import logging
 import os
 import sys
 
-from .cli_common import MODEL_CHOICES, PLATFORM_DEVICES, exit_on_unported
+from .cli_common import MODEL_CHOICES, PLATFORM_DEVICES
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["FLEET_ROADMAP_ITEMS", "FLEET_UNPORTED", "build_fleet_parser",
-           "fleet_main"]
-
-# What the fleet does not port yet, by the ROADMAP.md item that will.
-FLEET_ROADMAP_ITEMS = {
-    "retrieval": "ROADMAP.md Queue A 12(b) (the retrieval tier: the "
-                 "versioned ANN index, /search and the shard plane)",
-}
-
-# (dest, the JAX CLI's default, item): fleet flags that exit when set.
-FLEET_UNPORTED = [
-    ("index_dir", None, "retrieval"),
-    ("index_mem", False, "retrieval"),
-    ("index_train_rows", 2048, "retrieval"),
-    ("index_centroids", 64, "retrieval"),
-    ("index_nprobe", 16, "retrieval"),
-    ("index_seal_rows", 4096, "retrieval"),
-    ("index_docstore_rows", 65536, "retrieval"),
-    ("index_maintain_interval", 2.0, "retrieval"),
-    ("index_pq_m", 8, "retrieval"),
-    ("search_shards", 0, "retrieval"),
-    ("shard_procs", False, "retrieval"),
-    ("shard_journal_dir", None, "retrieval"),
-    ("shard_repair_interval", 1.0, "retrieval"),
-    ("slo_retrieval_degraded", None, "retrieval"),
-]
-
+__all__ = ["build_fleet_parser", "fleet_main"]
 
 def build_fleet_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -173,10 +153,9 @@ def build_fleet_parser() -> argparse.ArgumentParser:
                     help="mirrored rows diffed before the drift bar "
                          "can judge (the verdict defers until then)")
 
-    ix = p.add_argument_group("retrieval (the checkpoint-step-versioned "
-                              "ANN index over served embeddings, POST "
-                              "/search; not ported yet: ROADMAP.md Queue "
-                              "A 12(b), each flag exits when set)")
+    ix = p.add_argument_group("retrieval (ntxent_tpu_torch/retrieval/: "
+                              "checkpoint-step-versioned ANN index "
+                              "over served embeddings — POST /search)")
     ix.add_argument("--index-dir", default=None, metavar="DIR",
                     help="enable the retrieval tier with segment "
                          "persistence under DIR (per-step subdirs; "
@@ -205,7 +184,7 @@ def build_fleet_parser() -> argparse.ArgumentParser:
                     help="background maintenance tick (train/seal/"
                          "compact/recall probe)")
     ix.add_argument("--index-pq-m", type=int, default=8, metavar="M",
-                    help="PQ code bytes per row (0 = raw IVF-flat, "
+                    help="PQ code bytes per row (0 = raw "
                          "IVF-flat); sealed segments carry "
                          "codes, searches ADC-scan + exact re-rank")
     ix.add_argument("--search-shards", type=int, default=0,
@@ -252,12 +231,13 @@ def build_fleet_parser() -> argparse.ArgumentParser:
                    help="per-worker restart budget")
     f.add_argument("--chaos", default=None, metavar="PLAN",
                    help="fleet fault plan, e.g. 'killworker@10,"
-                        "slowworker@30,spike@20,drainworker@40' "
-                        "(ordinals are supervision ticks; "
-                        "resilience/faults.py grammar; spike/drainworker "
-                        "exercise the autoscaler and need --autoscale; "
-                        "the shard plane's killshard/lagshard are not "
-                        "ported yet: ROADMAP.md Queue A 12(b))")
+                        "slowworker@30,spike@20,drainworker@40,"
+                        "killshard@15,lagshard@25' (ordinals are "
+                        "supervision ticks; resilience/faults.py "
+                        "grammar; spike/drainworker exercise the "
+                        "autoscaler and need --autoscale; killshard/"
+                        "lagshard hit the shard plane and need "
+                        "--shard-procs)")
 
     a = p.add_argument_group("autoscaling (closed-loop pool "
                              "sizing over the federated signals — "
@@ -369,9 +349,10 @@ def build_fleet_parser() -> argparse.ArgumentParser:
                         "(alerting view of the shadow bar)")
     o.add_argument("--slo-retrieval-degraded", type=float, default=None,
                    metavar="TARGET",
-                   help="retrieval health SLO target (the retrieval "
-                        "tier's; not ported yet: ROADMAP.md Queue A "
-                        "12(b))")
+                   help="retrieval health SLO target (e.g. 0.99): "
+                        "alert when the fraction of searches served "
+                        "degraded (shard timeouts/failures) burns the "
+                        "budget over both windows")
     o.add_argument("--slo-fast-window", type=float, default=60.0,
                    metavar="SECONDS")
     o.add_argument("--slo-slow-window", type=float, default=300.0,
@@ -425,8 +406,6 @@ def fleet_main(argv=None) -> int:
     from pathlib import Path
 
     args = build_fleet_parser().parse_args(argv)
-    exit_on_unported("ntxent-fleet (torch)", args, FLEET_UNPORTED,
-                     FLEET_ROADMAP_ITEMS)
     if args.platform is not None and args.platform not in PLATFORM_DEVICES:
         raise SystemExit(f"--platform {args.platform}: the port runs on the "
                          "CUDA card (gpu) or the CPU (cpu)")
@@ -453,18 +432,23 @@ def fleet_main(argv=None) -> int:
     injector = None
     if args.chaos:
         plan = FaultPlan.parse(args.chaos, seed=args.seed)
-        if plan.killshard_ticks or plan.lagshard_ticks:
-            raise SystemExit("ntxent-fleet (torch): --chaos killshard/"
-                             "lagshard are not ported yet: "
-                             + FLEET_ROADMAP_ITEMS["retrieval"])
         has_fleet = bool(plan.killworker_ticks or plan.slowworker_ticks
                          or plan.spike_ticks or plan.drainworker_ticks)
+        has_shard = plan.has_shard_actions()
         if attach and has_fleet:
+            # Shard chaos still applies: the shard fleet is owned by
+            # THIS router even when the embed workers belong to a
+            # primary elsewhere.
             logger.warning("--chaos fleet actions are ignored in "
                            "--attach-workdir mode: a replica router "
                            "does not own the worker processes")
             has_fleet = False
-        if has_fleet:
+        if has_shard and not (args.shard_procs and args.search_shards):
+            logger.warning("--chaos shard actions (killshard@T/"
+                           "lagshard@T) need --search-shards N with "
+                           "--shard-procs — ignored here")
+            has_shard = False
+        if has_fleet or has_shard:
             injector = FaultInjector(plan)
         else:
             logger.warning("--chaos %r has no applicable actions — "
@@ -570,6 +554,99 @@ def fleet_main(argv=None) -> int:
         warm_rows=args.cache_warm_rows)
     router.set_run_id(run_id)
 
+    # Retrieval tier: the versioned ANN index rides the router process —
+    # torch-free like everything else here, its rebuild re-embeds through
+    # the router's own forward path.
+    index_mgr = None
+    if args.index_dir or args.index_mem:
+        from .retrieval import IndexManager
+
+        index_mgr = IndexManager(
+            root=args.index_dir, registry=registry,
+            docstore_rows=args.index_docstore_rows,
+            maintain_interval_s=args.index_maintain_interval,
+            train_rows=args.index_train_rows,
+            n_centroids=args.index_centroids,
+            nprobe=args.index_nprobe,
+            seal_rows=args.index_seal_rows,
+            pq_m=args.index_pq_m)
+        router.attach_index(index_mgr)
+        logger.info("retrieval tier: POST /search live (%s, "
+                    "train_rows=%d, nprobe=%d/%d, pq_m=%d)",
+                    args.index_dir or "in-memory",
+                    args.index_train_rows, args.index_nprobe,
+                    args.index_centroids, args.index_pq_m)
+
+    # Sharded index plane: N shard servers, the router fans /search out
+    # and merges — the single-process capacity ceiling becomes a
+    # fleet-shaped one. --shard-procs runs them as SUPERVISED
+    # SUBPROCESSES through the same ServingFleet machinery the embed
+    # workers use (readiness probe, eject-after-streak, backoff restart),
+    # on a second fleet with its own WorkerPool and a PRIVATE registry
+    # (the shard pool's canary state machine must not fight the embed
+    # pool's on the shared metric names). In production the servers run
+    # on separate hosts (python -m ntxent_tpu_torch.retrieval.shard). The
+    # plane's width is --proj-dim, as in the JAX CLI: a fleet serving
+    # another width (--head features) has every shard insert dropped.
+    shard_servers = []
+    shard_fleet = None
+    if args.search_shards > 0:
+        from .retrieval import ShardFanout, ShardServer
+
+        dim = args.proj_dim
+        if args.shard_procs:
+            import socket as _socket
+
+            # FIXED pre-allocated ports: the fan-out routes by URL, so
+            # a shard restarted by supervision must rebind the exact
+            # port its clients already hold — an ephemeral port would
+            # orphan the ring entry and turn every restart into a
+            # permanent hole.
+            shard_ports = []
+            for _ in range(args.search_shards):
+                sk = _socket.socket()
+                sk.bind(("127.0.0.1", 0))
+                shard_ports.append(sk.getsockname()[1])
+                sk.close()
+            shard_workdir = workdir / "shards"
+
+            def make_shard_cmd(worker_id: str, port_file) -> list[str]:
+                idx = int(worker_id.lstrip("w"))
+                return [sys.executable, "-m",
+                        "ntxent_tpu_torch.retrieval.shard",
+                        "--dim", str(dim),
+                        "--port", str(shard_ports[idx]),
+                        "--port-file", str(port_file)]
+
+            shard_pool = WorkerPool(registry=obs.MetricsRegistry())
+            shard_fleet = ServingFleet(
+                make_shard_cmd, n_workers=args.search_shards,
+                workdir=shard_workdir, pool=shard_pool,
+                poll_s=args.health_poll,
+                eject_after=args.eject_after,
+                max_restarts=args.worker_max_restarts,
+                injector=injector, registry=shard_pool.registry,
+                chaos_channel="shard")
+            shard_urls = [f"http://127.0.0.1:{p}" for p in shard_ports]
+        else:
+            shard_servers = [ShardServer(dim).start()
+                             for _ in range(args.search_shards)]
+            shard_urls = [s.url for s in shard_servers]
+        fanout = ShardFanout(
+            shard_urls, dim=dim,
+            train_rows=args.index_train_rows,
+            n_centroids=args.index_centroids,
+            nprobe=args.index_nprobe, pq_m=max(1, args.index_pq_m),
+            journal_dir=args.shard_journal_dir,
+            registry=registry)
+        router.attach_shards(fanout)
+        logger.info("retrieval: shard plane live — %d shard(s)%s, "
+                    "rendezvous list placement, journal %s",
+                    args.search_shards,
+                    " (supervised subprocesses)" if args.shard_procs
+                    else "",
+                    args.shard_journal_dir or "in-memory")
+
     # Fleet observability plane: shadow mirror, metric federation, SLO
     # engine. All off-hot-path; all optional.
     shadow = None
@@ -580,7 +657,8 @@ def fleet_main(argv=None) -> int:
                               forward_timeout_s=args.forward_timeout)
         router.attach_shadow(shadow)
 
-    slo_flags = (args.slo_availability, args.slo_latency_ms, args.slo_drift)
+    slo_flags = (args.slo_availability, args.slo_latency_ms,
+                 args.slo_drift, args.slo_retrieval_degraded)
     if any(f is not None for f in slo_flags) and args.fed_interval <= 0:
         # SLOs evaluate on federation ticks: accepting the flags while
         # silently never arming them would look like paging that is on
@@ -642,6 +720,18 @@ def fleet_main(argv=None) -> int:
                 target=args.slo_drift,
                 metric="fleet_shadow_drift", q=0.99,
                 min_samples=args.shadow_min_samples))
+        if args.slo_retrieval_degraded is not None:
+            # Retrieval health rides the same burn machinery as
+            # availability: a sustained degraded-search fraction over
+            # both windows pages through /alerts.
+            objectives.append(obs.Objective(
+                name="retrieval_degraded", kind="availability",
+                target=args.slo_retrieval_degraded,
+                total_metric="retrieval_searches_total",
+                bad_metric="retrieval_shard_degraded_searches_total",
+                fast_window_s=args.slo_fast_window,
+                slow_window_s=args.slo_slow_window,
+                burn_factor=args.slo_burn_factor))
         if objectives:
             engine = obs.SLOEngine(objectives, store=router.alerts)
             aggregator.on_merge.append(engine.evaluate)
@@ -726,6 +816,16 @@ def fleet_main(argv=None) -> int:
                 daemon=True, name="chaos-spike").start()
 
         fleet.on_spike = _on_spike
+        if index_mgr is not None:
+            # Heavy retrieval maintenance (segment compaction, docstore
+            # log compaction) defers to the autoscaler's idle detector
+            # instead of running blind against a loaded fleet; the
+            # manager bounds the deferral so a permanently busy fleet
+            # still compacts.
+            index_mgr.heavy_gate = controller.maintenance_ok
+            logger.info("retrieval: heavy maintenance gated on fleet "
+                        "idleness (forced through after %d deferred "
+                        "tick(s))", index_mgr.heavy_defer_ticks)
         logger.info("autoscale: pool %d..%d (start %d), up after %d "
                     "pressure tick(s), drain after %d idle tick(s)",
                     min_w, max_w, args.workers, args.scale_up_ticks,
@@ -747,7 +847,15 @@ def fleet_main(argv=None) -> int:
     _signal.signal(_signal.SIGINT, _on_signal)
 
     fleet.start()
+    if shard_fleet is not None:
+        shard_fleet.start()
+    if router.shards is not None:
+        # Repair loop: probe dead shards, drain journal debt through the
+        # normal insert path once they answer.
+        router.shards.start(args.shard_repair_interval)
     router.start()
+    if index_mgr is not None:
+        index_mgr.start()
     if shadow is not None:
         shadow.start()
     if aggregator is not None:
@@ -772,6 +880,14 @@ def fleet_main(argv=None) -> int:
             history.close()
         if shadow is not None:
             shadow.stop()
+        if index_mgr is not None:
+            index_mgr.stop()
+        for srv in shard_servers:
+            srv.stop()
+        if shard_fleet is not None:
+            shard_fleet.stop()
+        if router.shards is not None:
+            router.shards.close()
         router.close()
         fleet.stop()
         if event_log is not None:

@@ -466,8 +466,9 @@ DEFAULT_SERIES = (
                mode="gauge_max"),
     SeriesSpec("serving_compile_cache_entries",
                "serving_compile_cache_entries", mode="gauge_max"),
-    # Per-shard liveness (the retrieval tier, ROADMAP.md Queue A 12(b)): one series per shard id, so a
-    # single shard dropping 1.0 -> 0.0 is a step the detector flags
+    # Per-shard liveness (the retrieval tier's shard plane): one series
+    # per shard id, so a single shard dropping 1.0 -> 0.0 is a step the
+    # detector flags
     # even while the plane as a whole keeps answering.
     SeriesSpec("retrieval_shard_up", "retrieval_shard_up",
                mode="gauge_labeled", label_key="shard"),

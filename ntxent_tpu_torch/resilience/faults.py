@@ -26,10 +26,10 @@ deterministic ordinal:
   largest file -> checksum verification and the newest-valid fallback;
 * the fleet's ``killworker``, ``slowworker``, ``spike`` and
   ``drainworker``, dispensed per supervision tick by ``on_fleet_tick``
-  (``serving/fleet.py``); the shard fleet's ``killshard`` and
-  ``lagshard`` parse into the plan as in the reference, for the
-  retrieval tier's shard plane (ROADMAP.md Queue A 12(b)) that will
-  tick them; training never fires them.
+  (``serving/fleet.py``); the retrieval shard fleet's ``killshard``
+  (SIGKILL a shard) and ``lagshard`` (SIGSTOP one for a few seconds),
+  dispensed by ``on_shard_tick`` on that fleet's own ordinal, counted
+  from its all-ready point; training never fires them.
 
 ``FaultPlan`` is the parsed, immutable spec; ``FaultInjector`` carries the
 counters and the hooks. Batch ordinals (nan, sigterm, kill, crash,
@@ -135,6 +135,12 @@ class FaultPlan:
         return cls(seed=seed, **{_FIELDS[kind]: tuple(ordinals)
                                  for kind, ordinals in buckets.items()})
 
+    def has_shard_actions(self) -> bool:
+        """True when the plan targets the retrieval shard fleet (the
+        fleet's command line hands those ticks to the shard fleet's
+        injector channel)."""
+        return bool(self.killshard_ticks or self.lagshard_ticks)
+
 
 def _poison(batch):
     """A batch (a tuple of tensors) with its float tensors NaN-filled on
@@ -182,6 +188,7 @@ class FaultInjector:
         self._ckpt_writes = 0
         self._attempts = 0
         self._fleet_ticks = 0
+        self._shard_ticks = 0
         self._fetch_lock = threading.Lock()  # reads run on loader threads
         self.fired: list[str] = []
 
@@ -269,6 +276,19 @@ class FaultInjector:
             ("slowworker", self.plan.slowworker_ticks),
             ("spike", self.plan.spike_ticks),
             ("drainworker", self.plan.drainworker_ticks)) if t in ticks]
+        self.fired.extend(due)
+        return due
+
+    def on_shard_tick(self) -> list[str]:
+        """The shard fleet's tick channel: its own ordinal (counted from
+        the shard fleet's all-ready point — two fleets booting at
+        different speeds must not skew each other's chaos schedules),
+        dispensing only the shard actions."""
+        self._shard_ticks += 1
+        t = self._shard_ticks
+        due = [f"{action}@{t}" for action, ticks in (
+            ("killshard", self.plan.killshard_ticks),
+            ("lagshard", self.plan.lagshard_ticks)) if t in ticks]
         self.fired.extend(due)
         return due
 

@@ -236,6 +236,10 @@ class AutoscaleController:
         # worker_id -> {"since": t, "deadline": t, "reason": str}
         self._draining: dict[str, dict] = {}
         self.ticks = 0
+        # Last signal snapshot: the retrieval tier's ``heavy_gate`` reads
+        # fleet idleness from here instead of guessing from a fixed
+        # worker count.
+        self.last_signals: dict | None = None
         r = self.registry
         self._pool_size = r.gauge(
             "fleet_pool_size",
@@ -429,6 +433,7 @@ class AutoscaleController:
                 self.ticks += 1
                 now = self.clock()
                 signals = self.signals(merged)
+                self.last_signals = signals
                 action, reason = self.step_signals(signals, now)
                 if action == "up":
                     self._scale_up(reason, signals)
@@ -441,6 +446,26 @@ class AutoscaleController:
                 # must survive any controller bug.
                 logger.exception("autoscale: control tick failed")
                 return {}
+
+    def maintenance_ok(self) -> bool:
+        """Is the fleet idle enough for heavy background work? The
+        retrieval tier's ``heavy_gate`` (segment compaction, docstore
+        log compaction — big sequential IO + CPU) calls this per
+        maintenance tick. Idle here is the scale-down predicate MINUS
+        the ``routable > 1`` term: a quiet one-worker fleet can't
+        shed capacity but can absolutely afford a compaction. Before
+        federation produces a first snapshot there is no evidence of
+        load, so maintenance proceeds (True) — deferring on ignorance
+        would starve single-process rigs forever."""
+        s = self.last_signals
+        if not s:
+            return True
+        per_worker = max(1, int(s.get("routable", 0)))
+        return (float(s.get("queue_depth", 0.0)) <= 0.0
+                and (s.get("burn") is None
+                     or float(s["burn"]) < 1.0)
+                and float(s.get("inflight", 0.0)) / per_worker
+                <= self.up_inflight * 0.5)
 
     def _scale_up(self, reason: str, signals: dict) -> None:
         worker = self.fleet.add_worker()

@@ -1,7 +1,7 @@
 """Worker-replica supervision: spawn, health-check, eject, restart.
-Counterpart of ``ntxent_tpu/serving/fleet.py`` (stdlib), without the
-shard fleet's chaos channel (the retrieval tier, ROADMAP.md Queue A
-12(b)).
+Counterpart of ``ntxent_tpu/serving/fleet.py`` (stdlib). It supervises
+the embed workers and, with ``chaos_channel="shard"``, the retrieval
+tier's shard processes.
 
 ``ServingFleet`` owns the worker PROCESSES the way ``crashsim`` owns
 training lineages: each worker is a subprocess (the port's serve,
@@ -105,7 +105,8 @@ class ServingFleet:
                  slowworker_s: float = 3.0,
                  env: dict | None = None,
                  registry: MetricsRegistry | None = None,
-                 attach: bool = False):
+                 attach: bool = False,
+                 chaos_channel: str = "fleet"):
         if n_workers < 1:
             raise ValueError(f"n_workers must be >= 1, got {n_workers}")
         self.make_cmd = make_cmd
@@ -120,6 +121,12 @@ class ServingFleet:
             max_attempts=max_restarts + 1, base_delay_s=0.5,
             multiplier=2.0, max_delay_s=15.0, jitter=0.1)
         self.injector = injector
+        self.chaos_channel = str(chaos_channel)
+        # The shard fleet's events carry ``channel="shard"``: the router's
+        # log holds both fleets' events, whose worker ids (w0, w1, ...)
+        # collide. The embed fleet's events are the JAX package's.
+        self._tag = ({} if self.chaos_channel == "fleet"
+                     else {"channel": self.chaos_channel})
         self.slowworker_s = float(slowworker_s)
         self.env = env
         self.registry = registry if registry is not None \
@@ -214,7 +221,7 @@ class ServingFleet:
         self._spawns.inc()
         obs_events.emit("fleet", action="spawn",
                         worker=worker.worker_id, pid=worker.proc.pid,
-                        restarts=worker.restarts)
+                        restarts=worker.restarts, **self._tag)
         logger.info("fleet: spawned %s (pid %d)", worker.worker_id,
                     worker.proc.pid)
 
@@ -247,7 +254,7 @@ class ServingFleet:
                         worker=worker.worker_id, reason=reason,
                         restart=worker.restarts,
                         max_restarts=self.max_restarts,
-                        delay_s=round(delay, 3))
+                        delay_s=round(delay, 3), **self._tag)
         logger.warning("fleet: %s down (%s) — restart %d/%d in %.2fs",
                        worker.worker_id, reason, worker.restarts,
                        self.max_restarts, delay)
@@ -290,7 +297,7 @@ class ServingFleet:
             self.workers.remove(worker)
         self.pool.remove(worker_id)
         obs_events.emit("fleet", action="retire", worker=worker_id,
-                        pid=worker.pid)
+                        pid=worker.pid, **self._tag)
         logger.info("fleet: retiring %s (pid %s)", worker_id, worker.pid)
         proc = worker.proc
         if proc is not None and proc.poll() is None:
@@ -380,7 +387,14 @@ class ServingFleet:
                    if w.ready) < len(self.workers_snapshot()):
                 return
             self._chaos_armed = True
-        for action in self.injector.on_fleet_tick():
+        if self.chaos_channel == "shard":
+            # A shard fleet pulls its OWN ordinal stream: killshard@3
+            # means "3 ticks after the shard plane armed", independent
+            # of how many embed-fleet ticks the same injector served.
+            actions = self.injector.on_shard_tick()
+        else:
+            actions = self.injector.on_fleet_tick()
+        for action in actions:
             if action.startswith("spike"):
                 # Flash crowd: no process to signal — the
                 # CLI wires on_spike to a loadgen burst against the
@@ -414,7 +428,7 @@ class ServingFleet:
                 logger.warning("fleet chaos: %s due but no live worker",
                                action)
                 continue
-            if action.startswith("killworker"):
+            if action.startswith(("killworker", "killshard")):
                 target = live[self._chaos_kills % len(live)]
                 self._chaos_kills += 1
                 logger.warning("fleet chaos: SIGKILL %s (pid %s)",
@@ -423,7 +437,7 @@ class ServingFleet:
                     os.kill(target.pid, signal.SIGKILL)
                 except OSError:
                     pass
-            elif action.startswith("slowworker"):
+            elif action.startswith(("slowworker", "lagshard")):
                 target = live[self._chaos_slows % len(live)]
                 self._chaos_slows += 1
                 logger.warning("fleet chaos: SIGSTOP %s for %.1fs "
@@ -462,7 +476,8 @@ class ServingFleet:
                     self.pool.set_health(worker.worker_id, alive=False,
                                          ready=False)
                     obs_events.emit("fleet", action="death",
-                                    worker=worker.worker_id, rc=rc)
+                                    worker=worker.worker_id, rc=rc,
+                                    **self._tag)
                     self._schedule_restart(worker, f"exited rc={rc}")
                     worker.proc = None
                     # Flight dump AT the death: the event
@@ -490,7 +505,7 @@ class ServingFleet:
                 obs_events.emit("fleet", action="eject",
                                 worker=worker.worker_id,
                                 failures=entry.consecutive_failures,
-                                last_error=entry.last_error)
+                                last_error=entry.last_error, **self._tag)
                 self.pool.set_health(worker.worker_id, alive=False,
                                      ready=False)
                 self._kill(worker)

@@ -1,7 +1,7 @@
 """Fault-tolerant router tier: many workers, one front door.
 Counterpart of ``ntxent_tpu/serving/router.py`` (stdlib and numpy),
-without the retrieval surface (``/search``, ``/index``,
-``/index/insert``, ``/embed?store=true``: ROADMAP.md Queue A 12(b)).
+with its retrieval surface (``/search``, ``/index``, ``/index/insert``,
+``/embed?store=true``) over ``ntxent_tpu_torch/retrieval``.
 
 One ``EmbeddingServer`` is a single point of failure, a single queue,
 and a restart-equals-outage deployment model. ``FleetRouter`` is the
@@ -54,9 +54,23 @@ device chunk in the exported trace; a cache hit emits a ``fleet.cache``
 slice under the same id — a cached answer explains itself instead of
 looking like a mysteriously fast worker.
 
+Retrieval surface (``attach_index``): ``POST /search``
+embeds the query rows through the fleet and answers top-k ids+scores
+from the checkpoint-step-versioned ANN index (``retrieval/``)
+— the version MATCHING the step that embedded the query, so a rollout
+window's laggard-served queries search the space they were embedded
+in. ``POST /embed?store=true`` and ``POST /index/insert`` feed the
+index, trust-gated exactly like cache inserts (a canary model's
+vectors must not survive its own rollback). The rollout state machine
+drives index versions: promote cuts searches to the new step's index
+and rebuilds it by background re-embedding, a fleet-wide rollback
+(every ready worker reverting below the trusted step) demotes the
+trusted step AND restores the prior index version, and a drift-reason
+canary breach marks the live index stale, forcing a rebuild.
+
 Admission control (``TenantAdmission``): per-tenant token
 buckets keyed on the ``X-Tenant`` request header (bare requests share
-the default tenant) meter ``/embed`` by row count, so
+the default tenant) meter ``/embed`` AND ``/search`` by row count, so
 saturation degrades per tenant (the over-quota tenant 429s, everyone
 else keeps their rate) instead of FIFO. Exhaustion answers 429 +
 ``Retry-After`` — the same shed contract the worker queue uses — and
@@ -313,9 +327,10 @@ class WorkerPool:
         # trusted step DEMOTES: every ready worker reports a step older
         # than the trusted one — the fleet was force-rolled-back
         # beneath the router (operator /rollback broadcast, checkpoint
-        # dir rewound). Without demotion the router would gate cache
-        # inserts against a step nobody serves forever; with it the
-        # cache flushes.
+        # dir rewound). Without demotion the router would gate cache/
+        # index inserts against a step nobody serves forever; with it
+        # the cache flushes and the retrieval tier restores the prior
+        # index version.
         self.on_trusted_rollback = None
         self.bad_steps: set[int] = set()
         self._canary_step: int | None = None
@@ -414,7 +429,8 @@ class WorkerPool:
             self._update_gauges()
         if demoted is not None and self.on_trusted_rollback is not None:
             # Outside the lock for the same reason as the adopt hook:
-            # the router flushes its cache.
+            # the router flushes its cache and rolls the retrieval
+            # index back to the restored step's version.
             new_step, old_step = demoted
             try:
                 self.on_trusted_rollback(new_step, old_step)
@@ -451,9 +467,10 @@ class WorkerPool:
         updates every entry's reported step as the reverted workers
         answer /readyz. The cost is the conservative direction: a
         trusted-step worker that dies FOREVER (restart budget
-        exhausted) pins trusted until its entry is removed — inserts
-        stay gated, which beats spuriously flushing the cache on a
-        crash."""
+        exhausted) pins trusted until its entry is removed — searches
+        still answer (version-matched) and inserts stay gated, which
+        beats spuriously flushing the cache and rolling the index
+        back on a crash."""
         if self.trusted_step is None or self._canary_step is not None:
             return None
         known_steps = [w.checkpoint_step for w in self._workers.values()
@@ -821,7 +838,7 @@ class FleetRouter:
         # with no canary verdict to hang the flush on: embeddings from
         # pre-checkpoint (random-init) weights must not survive it.
         # Demotion (a fleet-wide forced rollback) is equally a model
-        # change.
+        # change — and additionally restores the prior index version.
         pool.on_trusted_adopt = self._on_trusted_adopt
         pool.on_trusted_rollback = self._on_trusted_rollback
         self.example_shape = (tuple(int(d) for d in example_shape)
@@ -864,6 +881,8 @@ class FleetRouter:
         }
         # Fleet observability plane: all optional — a bare router
         # (tests) behaves exactly as without it.
+        self.index = None           # retrieval.IndexManager (attach_index)
+        self.shards = None          # retrieval.ShardFanout (attach_shards)
         self.run_id: str | None = None
         self.shadow = None          # ShadowMirror (attach_shadow)
         self.admission = None       # TenantAdmission
@@ -888,17 +907,93 @@ class FleetRouter:
             "router process identity (join key for cross-process "
             "correlation)", labels={"run_id": self.run_id}).set(1)
 
-    def _on_trusted_adopt(self, step: int) -> None:  # noqa: ARG002
+    def attach_index(self, manager) -> None:
+        """Wire a ``retrieval.IndexManager``: ``POST /search`` /
+        ``/index/insert`` / ``/embed?store=true`` go live, rollout
+        decisions drive index versions, and the manager's background
+        rebuilds re-embed through this router's forward path."""
+        self.index = manager
+        manager.reembed = self._reembed
+        if self.pool.trusted_step is not None:
+            # Attached after the fleet already adopted: the index must
+            # version against the step actually serving.
+            manager.activate(self.pool.trusted_step)
+
+    def attach_shards(self, fanout) -> None:
+        """Wire a ``retrieval.ShardFanout``: ``POST /search`` fans out
+        to the shard plane and merges top-k; a dead shard degrades
+        recall (``shards.degraded`` in the payload), never
+        availability. The plane is VERSIONED: the rollout state machine
+        drives it exactly like the in-process ``IndexManager`` —
+        promote cuts every shard to the promoted step's generation,
+        rollback restores the retained one fleet-wide, and the fan-out
+        rejects any shard response carrying the wrong version, so a
+        rollback can never serve mixed-model neighbors across shards.
+        When an ``IndexManager`` is ALSO attached it stays the
+        id/docstore authority and the shards mirror its inserts."""
+        self.shards = fanout
+        if self.pool.trusted_step is not None:
+            # Attached after the fleet already adopted: the shard
+            # plane must version against the step actually serving.
+            fanout.activate(self.pool.trusted_step)
+
+    def _on_trusted_adopt(self, step: int) -> None:
         if self.cache is not None:
             self.cache.clear(reason="adopt")
+        if self.index is not None:
+            self.index.activate(step)
+        if self.shards is not None:
+            self.shards.activate(step)
 
     def _on_trusted_rollback(self, new_step: int, old_step: int) -> None:
         """The fleet reverted beneath the router (WorkerPool demotion):
-        embeddings of the demoted model must not outlive it."""
+        embeddings of the demoted model must not outlive it, and the
+        retrieval tier atomically restores the prior step's retained
+        index version — the in-process index AND the shard plane."""
         if self.cache is not None:
             self.cache.clear(reason="rollback")
+        if self.index is not None:
+            self.index.rollback_to(new_step)
+        if self.shards is not None:
+            self.shards.rollback_to(new_step)
         _events.emit("rollout", action="trusted_demoted",
                      step=new_step, from_step=old_step)
+
+    def _reembed(self, rows: np.ndarray) -> np.ndarray | None:
+        """Embed input rows through the fleet for an index rebuild
+        (runs on the manager's rebuild thread). Chunked under the body
+        cap exactly like ``_warm_cache``; returns the stacked
+        embeddings, or None when any chunk fails — a partial rebuild
+        would silently shrink the index, so all-or-nothing."""
+        x = np.asarray(rows, np.float32)
+        rid = _trace.new_request_id()
+        row_bytes = len(json.dumps(x[0].tolist())) + 2
+        per = max(1, min(x.shape[0],
+                         (self.max_body_bytes // 2) // row_bytes))
+        out: list[np.ndarray] = []
+        i = 0
+        while i < x.shape[0]:
+            chunk = x[i:i + per]
+            body = json.dumps({"inputs": chunk.tolist()}).encode()
+            code, payload, _, _served = self.forward(body, rid)
+            if code == 413 and per > 1:
+                per = max(1, per // 2)
+                continue
+            if code != 200 or not isinstance(payload, dict):
+                logger.warning("retrieval rebuild: re-embed chunk "
+                               "failed (%s)", code)
+                return None
+            try:
+                emb = np.asarray(payload["embeddings"], np.float32)
+                if emb.shape[0] != chunk.shape[0]:
+                    raise ValueError("row-count mismatch")
+            except (KeyError, TypeError, ValueError) as e:
+                logger.warning("retrieval rebuild: malformed re-embed "
+                               "response (%s)", e)
+                return None
+            out.append(emb)
+            i += chunk.shape[0]
+        return np.concatenate(out) if out else None
 
     def attach_shadow(self, mirror) -> None:
         """Wire a ShadowMirror: the router offers every successful
@@ -1014,6 +1109,16 @@ class FleetRouter:
                 daemon=True, name="fleet-rollback").start()
             if self.cache is not None:
                 self.cache.clear(reason="rollback")
+            if self.index is not None:
+                # Drop any candidate version warmed for the breached
+                # step; a DRIFT-reason breach additionally marks the
+                # live index stale (the spaces demonstrably moved) and
+                # forces a rebuild.
+                self.index.on_canary_rollback(
+                    step, verdict.get("reason", "canary_breach"))
+            if self.shards is not None:
+                self.shards.on_canary_rollback(
+                    step, verdict.get("reason", "canary_breach"))
         elif action == "promote":
             if self.cache is not None:
                 # Embeddings from the previous model must not outlive
@@ -1032,6 +1137,20 @@ class FleetRouter:
                     threading.Thread(target=self._warm_cache,
                                      args=(hot,), daemon=True,
                                      name="fleet-cache-warm").start()
+            if self.index is not None:
+                # Cut searches over to the new step's version (created
+                # empty, rebuilt in the background by re-embedding the
+                # retained inputs through the now-trusted fleet); the
+                # prior version stays retained for rollback.
+                self.index.promote(step)
+            if self.shards is not None:
+                # Cut the WHOLE shard plane to the promoted step in one
+                # broadcast: every shard opens a fresh generation at
+                # ``step`` and retains the prior one, so a later
+                # rollback restores the exact pre-promote fleet — no
+                # shard can serve the old model's neighbors next to a
+                # peer serving the new one.
+                self.shards.promote(step)
 
     def _warm_cache(self, rows: list) -> int:
         """Replay hot input rows through the (now trusted) fleet and
@@ -1262,6 +1381,8 @@ class FleetRouter:
         }
         if self.cache is not None:
             out["cache"] = self.cache.snapshot()
+        if self.index is not None:
+            out["index"] = self.index.snapshot()
         if self.shadow is not None:
             out["shadow"] = self.shadow.snapshot()
         if self.admission is not None:
@@ -1395,6 +1516,19 @@ def _make_router_handler(router: FleetRouter):
                 # SLO + canary-verdict breaches (obs/slo.py): active
                 # alerts and the recent history ring.
                 self._reply(200, router.alerts.snapshot())
+            elif route == "/index":
+                # Retrieval-tier state: versions, active step,
+                # staleness, docstore depth; with a shard
+                # plane attached, its per-shard health rides along.
+                if router.index is None and router.shards is None:
+                    self._reply(503, {"error": "no retrieval index "
+                                               "attached"})
+                else:
+                    snap = router.index.snapshot() \
+                        if router.index is not None else {}
+                    if router.shards is not None:
+                        snap["shard_plane"] = router.shards.snapshot()
+                    self._reply(200, snap)
             else:
                 self._reply(404, {"error": f"no route {self.path!r}"})
 
@@ -1429,8 +1563,10 @@ def _make_router_handler(router: FleetRouter):
             rid = (self.headers.get("X-Request-Id")
                    or _trace.new_request_id())
             t0 = time.monotonic()
-            route = urlparse(self.path).path
-            status = {"code": None, "rows": None}
+            url = urlparse(self.path)
+            route = url.path
+            query = parse_qs(url.query)
+            status = {"code": None, "rows": None, "k": None}
 
             def reply(code: int, payload: dict,
                       headers: dict | None = None) -> None:
@@ -1443,15 +1579,35 @@ def _make_router_handler(router: FleetRouter):
                     router._responses.inc()
 
             try:
-                self._do_post(reply, rid, status, route)
+                self._do_post(reply, rid, status, route, query)
             finally:
-                if status["code"] is not None and route == "/embed":
+                if status["code"] is not None:
                     dur_ms = (time.monotonic() - t0) * 1e3
-                    router.latency["total"].observe(dur_ms)
-                    _trace.emit_span("fleet.request", dur_ms,
-                                     request_id=rid, status=status["code"],
-                                     rows=status["rows"])
-        def _do_post(self, reply, rid, status, route) -> None:
+                    if route == "/embed":
+                        router.latency["total"].observe(dur_ms)
+                        _trace.emit_span("fleet.request", dur_ms,
+                                         request_id=rid,
+                                         status=status["code"],
+                                         rows=status["rows"])
+                    elif route == "/search":
+                        # The search request's end-to-end span (embed
+                        # forward + index scan) under the same id the
+                        # worker chunks trace under.
+                        _trace.emit_span("fleet.search", dur_ms,
+                                         request_id=rid,
+                                         status=status["code"],
+                                         rows=status["rows"],
+                                         k=status["k"])
+                        if router.index is not None:
+                            router.index.metrics.latency[
+                                "search_request"].observe(dur_ms)
+                    elif route == "/index/insert":
+                        _trace.emit_span("fleet.insert", dur_ms,
+                                         request_id=rid,
+                                         status=status["code"],
+                                         rows=status["rows"])
+
+        def _do_post(self, reply, rid, status, route, query) -> None:
             try:
                 length = int(self.headers.get("Content-Length", 0))
             except ValueError:
@@ -1464,10 +1620,20 @@ def _make_router_handler(router: FleetRouter):
                       {"Connection": "close"})
                 return
             body = self.rfile.read(length) if length > 0 else b""
+            if route == "/search":
+                router._requests.inc()
+                self._do_search(reply, rid, body, status)
+                return
+            if route == "/index/insert":
+                router._requests.inc()
+                self._do_insert(reply, rid, body, status)
+                return
             if route != "/embed":
                 reply(404, {"error": f"no route {self.path!r}"})
                 return
             router._requests.inc()
+            store = (query.get("store", ["0"])[0].lower()
+                     in ("1", "true", "yes"))
             parsed = self._parse_rows(body)
             # Admission meters by row count when the router can parse
             # the body (cost scales with the work a tenant asks for);
@@ -1476,17 +1642,181 @@ def _make_router_handler(router: FleetRouter):
             cost = int(parsed[0].shape[0]) if parsed is not None else 1
             if not self._admit(reply, cost):
                 return
-            if parsed is None or router.cache is None:
-                # Unparseable here (the worker owns the 400) or no cache
-                # needs the rows: pure pass-through.
+            if parsed is None or (router.cache is None and not store):
+                # Unparseable here (the worker owns the 400) or neither
+                # cache nor store needs the rows: pure pass-through.
                 code, payload, headers, _ = router.forward(body, rid)
                 if isinstance(payload, dict) and "rows" in payload:
                     status["rows"] = payload.get("rows")
+                if store and code == 200 and isinstance(payload, dict):
+                    # store=true on rows the router could not parse for
+                    # keying: the embed succeeded but nothing entered
+                    # the index — say so instead of silently dropping.
+                    payload["stored"] = 0
                 reply(code, payload, headers)
                 return
             x, timeout_ms = parsed
             status["rows"] = int(x.shape[0])
-            reply(*self._embed_full(rid, x, timeout_ms))
+            code, payload, headers, served_step, emb = \
+                self._embed_full(rid, x, timeout_ms)
+            if store and code == 200 and emb is not None \
+                    and isinstance(payload, dict):
+                ids = self._index_store(x, emb, served_step)
+                payload["stored"] = len(ids)
+                payload["ids"] = ids
+                if router.index is not None:
+                    payload["index_step"] = router.index.active_step
+            reply(code, payload, headers)
+
+        def _do_search(self, reply, rid, body, status) -> None:
+            """POST /search {"inputs": ..., "k": N}: embed through the
+            fleet, answer top-k from the step-matched index version —
+            or, when a shard plane is attached, fan out and merge
+            (degraded beats down: a dead shard drops its lists' rows,
+            the response says so, and the status stays 200)."""
+            if router.index is None and router.shards is None:
+                reply(503, {"error": "no retrieval index attached "
+                                     "(start the fleet with "
+                                     "--index-dir)"})
+                return
+            try:
+                req = json.loads(body or b"{}")
+                if not isinstance(req, dict):
+                    # A top-level array/scalar body must be a 400, not
+                    # an AttributeError that drops the connection.
+                    raise ValueError("body is not a JSON object")
+                k = int(req.get("k", 10))
+                if not 1 <= k <= 1024:
+                    raise ValueError(f"k={k} out of [1, 1024]")
+            except (TypeError, ValueError) as e:
+                reply(400, {"error": f"unparseable /search body: {e}"})
+                return
+            status["k"] = k
+            # One parse for the whole request: k above, rows here.
+            parsed = self._parse_rows_obj(req)
+            if parsed is None:
+                reply(400, {"error": "inputs not parseable as rows of "
+                                     "the fleet's example shape"})
+                return
+            x, timeout_ms = parsed
+            status["rows"] = int(x.shape[0])
+            # /search rides the same per-tenant buckets as /embed:
+            # the retrieval path embeds through the fleet
+            # too, so an unmetered /search would be a quota bypass.
+            if not self._admit(reply, int(x.shape[0])):
+                return
+            code, payload, headers, served_step, emb = \
+                self._embed_full(rid, x, timeout_ms)
+            if code != 200 or emb is None:
+                reply(code, payload, headers)
+                return
+            if router.shards is not None:
+                # Shard plane: every shard probes the same global
+                # top-nprobe lists and contributes the ones it owns,
+                # so the merged answer equals the unsharded scan when
+                # all shards report — and shrinks by exactly the dead
+                # shards' lists when they don't.
+                res = router.shards.search(emb, k=k)
+                reply(200, {
+                    "ids": res["ids"].tolist(),
+                    "scores": [[float(s) if np.isfinite(s) else None
+                                for s in row]
+                               for row in res["scores"]],
+                    "k": k, "rows": int(x.shape[0]),
+                    "index_rows": res["rows"],
+                    "shards": res["shards"],
+                    "index_step": res["version"],
+                    "served_step": served_step})
+                return
+            index_dim = router.index.dim
+            if index_dim is not None and emb.shape[-1] != index_dim:
+                # Fleet/index width skew (a changed --proj-dim rolled
+                # out over a persisted index): a config conflict the
+                # client can see, never a ValueError that drops the
+                # connection.
+                reply(409, {"error": f"embedding width "
+                                     f"{emb.shape[-1]} != index dim "
+                                     f"{index_dim} (the fleet's model "
+                                     "changed width; rebuild or "
+                                     "re-create the index)"})
+                return
+            # prefer_step: query vectors must search the index version
+            # of the SPACE they were embedded in — during a rollout
+            # window a laggard-served query legitimately belongs to the
+            # retained prior version.
+            res = router.index.search(emb, k=k, prefer_step=served_step)
+            reply(200, {"ids": res["ids"], "scores": res["scores"],
+                        "k": k, "rows": int(x.shape[0]),
+                        "index_step": res["step"],
+                        "index_stale": res["stale"],
+                        "index_rows": res["rows"],
+                        "served_step": served_step})
+
+        def _do_insert(self, reply, rid, body, status) -> None:
+            """POST /index/insert {"inputs": ...}: embed + store. The
+            insert is trust-gated (same rule as cache inserts); a gated
+            request still answers 200 with stored=0 — rollout windows
+            are normal operation, not client errors."""
+            if router.index is None and router.shards is None:
+                reply(503, {"error": "no retrieval index attached "
+                                     "(start the fleet with "
+                                     "--index-dir)"})
+                return
+            parsed = self._parse_rows(body)
+            if parsed is None:
+                reply(400, {"error": "inputs not parseable as rows of "
+                                     "the fleet's example shape"})
+                return
+            x, timeout_ms = parsed
+            status["rows"] = int(x.shape[0])
+            code, payload, headers, served_step, emb = \
+                self._embed_full(rid, x, timeout_ms)
+            if code != 200 or emb is None:
+                reply(code, payload, headers)
+                return
+            ids = self._index_store(x, emb, served_step)
+            out = {"stored": len(ids), "ids": ids,
+                   "rows": int(x.shape[0]),
+                   "index_step": (router.index.active_step
+                                  if router.index is not None else None),
+                   "served_step": served_step}
+            if not ids:
+                out["reason"] = "not_trusted"
+            reply(200, out)
+
+        def _index_store(self, x, emb, served_step) -> list:
+            """Trust-gated index insert; [] when gated, unattached, or
+            rejected (wrong step/dim). Never raises — a bad payload
+            must degrade to stored:0, not drop the connection. With a
+            shard plane attached the rows ALSO fan out to their owner
+            shards (the IndexManager, when present, stays the id
+            authority; a bare shard plane allocates its own)."""
+            if router.index is None and router.shards is None:
+                return []
+            if not pool.allow_cache_insert(served_step):
+                return []
+            step = served_step if served_step is not None \
+                else pool.trusted_step
+            ids: list = []
+            try:
+                if router.index is not None:
+                    ids = router.index.insert(x, emb, step=step)
+            except Exception:  # noqa: BLE001 — the embed already
+                # succeeded; an index-side failure must not turn a
+                # 200 into a dropped connection.
+                logger.exception("index insert failed")
+                ids = []
+            if router.shards is not None:
+                try:
+                    if router.index is None:
+                        ids = router.shards.insert_auto(emb)
+                    elif ids:
+                        router.shards.insert(
+                            np.asarray(ids, np.int64), emb)
+                except Exception:  # noqa: BLE001 — same contract as
+                    # the local-index failure above.
+                    logger.exception("shard insert failed")
+            return ids
 
         def _admit(self, reply, cost: int) -> bool:
             """Per-tenant admission check (no-op without a configured
@@ -1522,7 +1852,12 @@ def _make_router_handler(router: FleetRouter):
                 req = json.loads(body or b"{}")
             except ValueError:
                 return None
-            if not isinstance(req, dict):
+            return self._parse_rows_obj(req)
+
+        def _parse_rows_obj(self, req):
+            """``_parse_rows`` on an already-parsed body (callers that
+            needed other fields must not pay a second json.loads)."""
+            if router.example_shape is None or not isinstance(req, dict):
                 return None
             try:
                 x = np.asarray(req["inputs"], dtype=np.float32)
@@ -1536,10 +1871,32 @@ def _make_router_handler(router: FleetRouter):
                 return None
 
         def _embed_full(self, rid, x, timeout_ms):
-            """Embed parsed rows through the cache and the fleet; returns
-            ``(code, payload, headers)``. A row the cache holds is not
-            forwarded; the answer never mixes two models' rows."""
+            """Embed parsed rows through cache+fleet; returns ``(code,
+            payload, headers, served_step, embeddings-or-None)`` — the
+            shared engine behind /embed (cached path), /search query
+            embedding, and the index insert surfaces. ``served_step``
+            is None when every row came from the cache (the embeddings
+            are then trusted-model by construction)."""
             cache = router.cache
+            if cache is None:
+                body = {"inputs": x.tolist()}
+                if timeout_ms is not None:
+                    body["timeout_ms"] = timeout_ms
+                code, payload, headers, served_step = router.forward(
+                    json.dumps(body).encode(), rid)
+                if code != 200 or not isinstance(payload, dict):
+                    return code, payload, headers, served_step, None
+                try:
+                    emb = np.asarray(payload["embeddings"], np.float32)
+                    if emb.shape[0] != x.shape[0]:
+                        raise ValueError(f"{emb.shape[0]} rows for "
+                                         f"{x.shape[0]} inputs")
+                except (KeyError, TypeError, ValueError) as e:
+                    router._reject("bad_worker_payload")
+                    return 502, {"error": f"malformed worker response: "
+                                          f"{e}"}, None, served_step, \
+                        None
+                return code, payload, headers, served_step, emb
             t0 = time.monotonic()
             generation = cache.generation
             hits, miss_idx = cache.lookup(x)
@@ -1556,7 +1913,8 @@ def _make_router_handler(router: FleetRouter):
                 return 200, {"embeddings": out.tolist(),
                              "dim": int(out.shape[-1]),
                              "rows": int(out.shape[0]),
-                             "cache_hits": int(out.shape[0])}, None
+                             "cache_hits": int(out.shape[0])}, \
+                    None, None, out
             sub = {"inputs": x[miss_idx].tolist()}
             if timeout_ms is not None:
                 sub["timeout_ms"] = timeout_ms
@@ -1585,7 +1943,7 @@ def _make_router_handler(router: FleetRouter):
                 code, payload, headers, served_step = router.forward(
                     json.dumps(full).encode(), rid)
             if code != 200:
-                return code, payload, headers
+                return code, payload, headers, served_step, None
             try:
                 fetched = np.asarray(payload["embeddings"],
                                      dtype=np.float32)
@@ -1596,7 +1954,7 @@ def _make_router_handler(router: FleetRouter):
             except (KeyError, TypeError, ValueError) as e:
                 router._reject("bad_worker_payload")
                 return 502, {"error": f"malformed worker response: "
-                                      f"{e}"}, None
+                                      f"{e}"}, None, served_step, None
             if pool.allow_cache_insert(served_step):
                 cache.insert(x[miss_idx], fetched)
             merged = np.empty((x.shape[0], fetched.shape[-1]),
@@ -1608,6 +1966,7 @@ def _make_router_handler(router: FleetRouter):
             return 200, {"embeddings": merged.tolist(),
                          "dim": int(merged.shape[-1]),
                          "rows": int(merged.shape[0]),
-                         "cache_hits": len(hits)}, None
+                         "cache_hits": len(hits)}, None, served_step, \
+                merged
 
     return Handler

@@ -6,8 +6,10 @@ the router tier's import boundary.
   and loads neither torch nor JAX (a finder names the module that
   imported torch when one does).
 * **The command line**: every ``ntxent-fleet`` flag of the JAX CLI parses
-  with the JAX default; the retrieval tier's flags and chaos actions exit
-  naming ROADMAP.md Queue A 12(b); the JAX CLI's exits on contradictory
+  with the JAX default; each retrieval flag and shard chaos action parses
+  to the JAX parser's value and is accepted as the JAX CLI accepts it
+  (shard chaos without ``--search-shards N --shard-procs`` ignored with
+  its warning); the JAX CLI's exits on contradictory
   flags are the port's, message for message; ``cli.main(["fleet", ...])``
   reaches the same entry.
 * **End to end**: ``python -m ntxent_tpu_torch.fleet_cli --platform cpu``
@@ -163,7 +165,7 @@ def test_every_jax_fleet_flag_parses_with_the_jax_default():
     assert cli.MODEL_CHOICES is fleet_cli.MODEL_CHOICES
 
 
-UNPORTED_ARGV = {
+RETRIEVAL_ARGV = {
     "index_dir": ["--index-dir", "x"], "index_mem": ["--index-mem"],
     "index_train_rows": ["--index-train-rows", "5"],
     "index_centroids": ["--index-centroids", "5"],
@@ -180,21 +182,49 @@ UNPORTED_ARGV = {
 }
 
 
-def test_the_unported_table_covers_the_retrieval_flags():
-    assert {dest for dest, _, _ in fleet_cli.FLEET_UNPORTED} == set(
-        UNPORTED_ARGV)
-    defaults = _defaults(jcli.build_fleet_parser())
-    for dest, default, item in fleet_cli.FLEET_UNPORTED:
-        assert defaults[dest] == default and item == "retrieval"
+# the JAX CLI's defaults of the retrieval tier's flags
+RETRIEVAL_DEFAULTS = {
+    "index_dir": None, "index_mem": False, "index_train_rows": 2048,
+    "index_centroids": 64, "index_nprobe": 16, "index_seal_rows": 4096,
+    "index_docstore_rows": 65536, "index_maintain_interval": 2.0,
+    "index_pq_m": 8, "search_shards": 0, "shard_procs": False,
+    "shard_journal_dir": None, "shard_repair_interval": 1.0,
+    "slo_retrieval_degraded": None}
+
+
+def test_the_retrieval_flags_are_live_with_the_jax_defaults():
+    assert set(RETRIEVAL_DEFAULTS) == set(RETRIEVAL_ARGV)
+    for table in ("FLEET_UNPORTED", "FLEET_ROADMAP_ITEMS"):
+        assert not hasattr(fleet_cli, table)
+    port = _defaults(fleet_cli.build_fleet_parser())
+    jax = _defaults(jcli.build_fleet_parser())
+    for dest, default in RETRIEVAL_DEFAULTS.items():
+        assert port[dest] == jax[dest] == default
 
 
 @pytest.mark.parametrize("argv", [
-    *UNPORTED_ARGV.values(), ["--chaos", "killworker@3,killshard@2"],
+    *RETRIEVAL_ARGV.values(), ["--chaos", "killworker@3,killshard@2"],
     ["--chaos", "lagshard@1"]], ids=lambda a: a[0] + a[-1])
-def test_each_retrieval_flag_exits_naming_its_roadmap_item(argv):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["fleet", *argv])
-    assert "12(b)" in str(e.value) and "not ported yet" in str(e.value)
+def test_each_retrieval_flag_is_accepted_as_the_jax_cli_accepts_it(
+        tmp_path, caplog, argv):
+    """The flag parses to the JAX parser's value and passes every check
+    the JAX CLI makes before it starts anything: both CLIs go on to the
+    same later exit (a replica router over a missing pool), and a shard
+    chaos action without ``--search-shards N --shard-procs`` is ignored
+    with the JAX CLI's warning."""
+    parsed = [vars(build().parse_args(argv)) for build in (
+        jcli.build_fleet_parser, fleet_cli.build_fleet_parser)]
+    assert parsed[0] == parsed[1]
+    messages = []
+    for main in (jcli.fleet_main, fleet_cli.fleet_main):
+        caplog.clear()
+        with pytest.raises(SystemExit) as e:
+            main([*argv, "--attach-workdir", str(tmp_path / "nope")])
+        messages.append((str(e.value), "need --search-shards N with "
+                         "--shard-procs — ignored here" in caplog.text))
+    assert messages[0] == messages[1]
+    assert "does not exist" in messages[1][0]
+    assert messages[1][1] == (argv[0] == "--chaos")
 
 
 @pytest.mark.parametrize("argv", [

@@ -192,9 +192,13 @@ def test_the_router_tier_answers_without_workers_and_stamps_its_run():
         assert status == 503
         status, _, raw = get(url + "/metrics?format=state")
         assert status == 200 and b"serving_run_info" in raw
+        # the retrieval routes answer as the JAX router's do with no
+        # index attached
         for path in ("/search", "/index/insert"):
-            assert post(url + path, {"inputs": _rows(1, 1.0)})[0] == 404
-        assert get(url + "/index")[0] == 404
+            status, body, _ = post(url + path, {"inputs": _rows(1, 1.0)})
+            assert status == 503
+            assert body["error"].startswith("no retrieval index attached")
+        assert get(url + "/index")[0] == 503
     finally:
         router.close()
 

@@ -179,11 +179,13 @@ def test_killworker_and_slowworker_fire_on_their_ticks(tmp_path):
         assert tick_until(fleet, _ready(fleet, 2))
         # armed: the ticks count from here
         killed = fleet.workers[0]
-        first_pid = killed.pid
+        # the process, not ``killed.proc``: the tick that kills it may reap
+        # it too and clear ``proc`` for the restart
+        first_pid, first_proc = killed.pid, killed.proc
         fleet.tick()
         fleet.tick()  # tick 2: SIGKILL w0 (round-robin from the first)
         assert inj.fired == ["killworker@2"]
-        assert _wait(lambda: killed.proc.poll() is not None)
+        assert _wait(lambda: first_proc.poll() is not None)
         fleet.tick()
         fleet.tick()  # tick 4: SIGSTOP a live worker
         assert inj.fired == ["killworker@2", "slowworker@4"]
