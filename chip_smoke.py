@@ -372,6 +372,19 @@ Phases; any failure ends the run with a non-zero exit and no result:
    --stall-timeout 5 --log-jsonl`` and no checkpoints, batch 3 held 7 s:
    the escalation's flight dump holds the run's step events before it,
    one ``restart`` event, the restart trains to step 6;
+12s. static analysis (in the NCCL group of world 1, after 12's
+   [dp-parity]): [audit] the port's ``ntxent-audit`` on the card, no
+   model built: the collective census (``analysis.graph.census``, a
+   dispatch mode over every ``c10d`` op) of ``dist_loss/fwd`` and
+   ``dist_loss/grad`` at B = 256, D = 128 float32 (#1 general and #6 rows
+   and columns launched), every declared forward call seen per wire op,
+   the backward's ``reduce_scatter_tensor`` seen on autograd's device
+   thread, ``grad_reduce/int8`` and ``/bf16`` free of wire-dtype findings
+   over NCCL, the ``donation`` analyzer clean on a CUDA state after one
+   in-place step; calls and bytes per op (0 bytes at world 1, the ring
+   model); and in 12r's [obs-train] the scrape holds
+   ``collective_graph_bytes_total{source="ad"}`` (step 1 ran under the
+   census) and step 1's wall time with and without the census;
 13. one JSON line describing each kernel of the paths (with each loss
    kernel's D = 1024 times and each flash kernel's fp32 times, and #11's
    launches on the int8, adaptive-ladder and worker serve paths), after
@@ -886,6 +899,8 @@ OBS_KERNELS = ("ntxent_fwd_sym_walk", "ntxent_bwd_sym_walk",
                "flash_dkv_kernel_tma")
 OBS_TRACE_CAT = "kernel"  # torch.profiler's category of CUDA kernels
 OBS_ROUNDS = ("plain", "sync", "lag", "lag", "sync", "plain")
+# step 1 of a timeline with and without the collective census
+CENSUS_ROUNDS = ("census", "nocensus", "nocensus", "census")
 STEM_ARGV = ["--model", "resnet50", "--image-size", "224", "--batch", "256",
              "--dataset", "synthetic", "--device", "cuda", "--log-every",
              "1"]
@@ -1062,6 +1077,14 @@ ACCUM_LAG_ROUNDS = ("guarded", "lagged", "lagged", "guarded")
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# [audit]: the loss targets' rows a view and width on the card, and the
+# kernels their census must launch (#1 general forward, #6 rows and
+# columns: the strip's)
+CENSUS_ROWS, CENSUS_DIM = 256, 128
+CENSUS_KERNELS = ("ntxent_fwd_general", "ntxent_bwd_general_rows",
+                  "ntxent_bwd_general_cols")
 
 
 def _bound(moved: int, flops: int, peak_flops: float):
@@ -2837,6 +2860,84 @@ def phase_dp_parity() -> None:
               flush=True)
         if not ok:
             fail(f"the ResNet-50 steps disagree: {what}")
+
+
+def _census_line(name: str, entries) -> str:
+    from ntxent_tpu_torch.analysis.graph.census import wire_totals
+
+    per = wire_totals(entries, keep_zero=True)
+    return f"{name}: " + (", ".join(
+        f"{op} {c} call{'s' * (c != 1)} {b:.0f} B"
+        for op, (c, b) in sorted(per.items())) or "no collective")
+
+
+def phase_audit(card_line: str) -> None:
+    """[audit]: the port's ntxent-audit on the card in the NCCL group of
+    world 1; fails on any gap (an unmapped c10d op raises from the
+    census, nothing catches it)."""
+    import torch
+
+    from ntxent_tpu_torch.analysis.graph.census import (
+        census_of_callable,
+        declared_wire_totals,
+        wire_totals,
+    )
+    from ntxent_tpu_torch.analysis.graph.donation import donation_findings
+    from ntxent_tpu_torch.analysis.graph.targets import default_targets
+    from ntxent_tpu_torch.analysis.graph.wiredtype import (
+        wire_dtype_findings,
+    )
+    from ntxent_tpu_torch.utils.profiling import launch_counters
+
+    t0 = time.monotonic()
+    targets = {t.name: t for t in default_targets(
+        device=SMOKE_DEVICE, dim=CENSUS_DIM, n_local=CENSUS_ROWS)}
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    lines = []
+    for name in ("dist_loss/fwd", "dist_loss/grad"):
+        built = targets[name].build()
+        entries, declared = census_of_callable(built["fn"], *built["args"])
+        torch.cuda.synchronize()
+        seen = wire_totals(entries, keep_zero=True)
+        for op, (calls, _) in declared_wire_totals(
+                declared, keep_zero=True).items():
+            if seen.get(op, (0, 0.0))[0] < calls:
+                fail(f"audit: {name} declared {calls} {op} call(s), the "
+                     f"census saw {seen.get(op)}")
+        lines.append(_census_line(name, entries))
+        if name == "dist_loss/grad":
+            scatter = [e for e in entries if e.op == "psum_scatter"]
+            if not scatter or {e.thread for e in scatter} != {"autograd"}:
+                fail(f"audit: the backward's reduce_scatter_tensor was not "
+                     f"seen on autograd's device thread: "
+                     f"{[(e.op, e.thread) for e in entries]}")
+    launched = {k: counters[k].launches for k in CENSUS_KERNELS}
+    if not all(launched.values()):
+        fail(f"audit: the strip's kernels did not launch under the census: "
+             f"{launched}")
+    for name in ("grad_reduce/int8", "grad_reduce/bf16"):
+        t = targets[name]
+        built = t.build()
+        entries, _ = census_of_callable(built["fn"], *built["args"])
+        found = wire_dtype_findings(entries, t.policy, name)
+        if found:
+            fail(f"audit: {name} on NCCL: {[f.message for f in found]}")
+        lines.append(_census_line(name, entries) + " " + "/".join(
+            sorted({e.dtype for e in entries})))
+    built = targets["train_step/donated"].build()
+    found = donation_findings(built["step"], built["state"], built["args"],
+                              built["snapshot"], "train_step/donated")
+    if found:
+        fail(f"audit: donation on a CUDA state: {[f.message for f in found]}")
+    torch.cuda.synchronize()
+    print(f"[audit] ntxent-audit in the NCCL group of world 1, B = "
+          f"{CENSUS_ROWS}, D = {CENSUS_DIM} float32: " + "; ".join(lines)
+          + f"; the backward's reduce_scatter_tensor seen on autograd's "
+          f"device thread; wire-dtype clean under int8 and bf16; donation "
+          f"clean after one in-place CUDA step; launches {launched}; "
+          f"{time.monotonic() - t0:.1f} s on {card_line}", flush=True)
 
 
 def phase_dp_chunked(card_line: str) -> dict:
@@ -7956,10 +8057,13 @@ def _obs_rounds(flops: float) -> dict:
             registry=obs.MetricsRegistry())
         torch.cuda.synchronize()
         t = time.perf_counter()
+        # the rounds time the timeline as before; "census" is step 1
+        # under the collective census, "nocensus" the same step without
         train_loop(state, iter(batches[:steps]), step, steps,
                    log_every=steps, log=False, timeline=timeline,
                    metrics_lag=int(name == "lag"),
-                   flops_per_step="auto" if name == "count" else flops)
+                   flops_per_step="auto" if name == "count" else flops,
+                   graph_census=name in ("census", "count"))
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / steps
 
@@ -7971,6 +8075,9 @@ def _obs_rounds(flops: float) -> dict:
         for name in OBS_ROUNDS:
             ms[name].append(run(name, GUARD_TIMED_STEPS))
         ms["count"] = [run("count", 1)]
+        ms["census"], ms["nocensus"] = [], []
+        for name in CENSUS_ROUNDS:
+            ms[name].append(run(name, 1))
     finally:
         obs.install(previous)
     del state, batches
@@ -8025,6 +8132,12 @@ def phase_obs_train(tmp: str, card_line: str) -> dict:
     if missing or not 0.0 < mfu < 1.0:
         fail(f"obs-train: the mid-run scrape lacks {missing}, train_mfu "
              f"{mfu}")
+    graph = scraper.json.get("collective_graph_bytes_total", {})
+    ad_bytes = graph.get('{source="ad"}')
+    if ad_bytes is None \
+            or 'collective_graph_bytes_total{source="ad"}' not in text:
+        fail(f"obs-train: step 1's census published no "
+             f"collective_graph_bytes_total{{source=\"ad\"}} ({graph})")
     steps = read_events(jsonl, "step")
     (compile_rec,) = read_events(jsonl, "compile")
     bad = [r for r in steps
@@ -8099,7 +8212,13 @@ def phase_obs_train(tmp: str, card_line: str) -> dict:
           f"({100 * (mean['sync'] / mean['plain'] - 1):+.2f}%), lag "
           f"{mean['lag']:.3f} ({100 * (mean['lag'] / mean['plain'] - 1):+.2f}"
           f"%); MFU at the plain mean {plain_mfu:.4f}; a warm counted step "
-          f"{ms['count'][0]:.1f} ms; host clock on "
+          f"{ms['count'][0]:.1f} ms (under the census); step 1 of a "
+          f"timeline with the collective census "
+          f"{'/'.join(f'{v:.1f}' for v in ms['census'])} ms, without "
+          f"{'/'.join(f'{v:.1f}' for v in ms['nocensus'])} ms; "
+          f"collective_graph_bytes_total{{source=\"ad\"}} {ad_bytes:.0f} "
+          f"at world 1; "
+          f"host clock on "
           f"{card_line}; phase {time.monotonic() - t0:.1f} s",
           flush=True)
     shutil.rmtree(root)
@@ -8879,6 +8998,7 @@ def main() -> int:
                 smi, DP_PAIR_ARGV, DP_PAIR_STEP_LAUNCHES, "dp-pair")
             phase_dp_parity()
             t_wire = time.monotonic() - t_wire
+            phase_audit(smi)
             t0 = time.monotonic()
             dp_chunked_launches = phase_dp_chunked(smi)
             ring_times_chunked = phase_chunked_emulated()

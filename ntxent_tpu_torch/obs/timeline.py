@@ -28,9 +28,11 @@ lands in the retained time-series plane (``train_step_device_ms``,
 has passed, so a training process gets the rollups and the anomaly watch
 the serving fleet has.
 
-Not here: the graph census of ``set_comms_per_step(graph=)`` (ROADMAP.md
-Queue A 13): ``graph`` is accepted as None only, and the declared
-profile is published.
+The comms profile: ``set_comms_per_step`` publishes the declared
+collectives of step 1 and, with ``graph=`` (``train_loop`` runs step 1
+under ``analysis.graph.census.CollectiveCensus``), the traffic the
+declarations miss (autograd's collectives) as
+``collective_graph_bytes_total{source="ad"}``.
 """
 
 from __future__ import annotations
@@ -150,26 +152,48 @@ class StepTimeline:
 
     def set_comms_per_step(self, profile: dict,
                            graph: dict | None = None) -> None:
-        """Publish one step's collective profile: ``profile`` is a comms
-        accounting delta (``{(op, axis): (calls, bytes)}``,
-        ``parallel.mesh.CommsAccounting.delta``) around step 1. An empty
-        delta (world 1) leaves the series untouched. The graph census
-        (``graph``) is not ported: only None is taken."""
-        if graph:
-            raise NotImplementedError(
-                "the graph census is not ported yet: ROADMAP.md Queue A 13")
+        """Publish one step's collective profile (``timeline.py:170-225``).
+
+        ``profile`` is a comms accounting delta (``{(op, axis): (calls,
+        bytes)}``, ``parallel.mesh.CommsAccounting.delta``) around step 1;
+        an empty delta (world 1) leaves the series untouched unless
+        ``graph`` reports GSPMD traffic (never, in the port).
+
+        ``graph`` is a census summary (``analysis.graph.census.
+        graph_remainder``: ``graph_bytes`` / ``declared_bytes`` /
+        ``ad_bytes``, plus ``gspmd_bytes`` where given): the traffic the
+        helpers cannot see (autograd's collectives) lands on
+        ``collective_graph_bytes_total{source="ad"}`` (published at every
+        census, 0 included) and rides the ``comms_profile`` event. The
+        dict is plain floats: obs stays importable without torch."""
         calls = sum(c for c, _ in profile.values())
         nbytes = sum(b for _, b in profile.values())
-        if not calls:
+        graph = dict(graph) if graph else {}
+        if graph:
+            # one declaration of the counter family, shared with the
+            # ntxent-audit CLI; census.py imports torch only inside its
+            # functions, so this lazy import keeps obs torch-free
+            from ..analysis.graph.census import publish_graph_census
+
+            publish_graph_census(
+                float(graph.get("ad_bytes") or 0.0),
+                float(graph.get("gspmd_bytes") or 0.0),
+                registry=self.registry)
+        if not calls and not graph.get("gspmd_bytes"):
             return
         self._comms_bytes_per_step = float(nbytes)
         self._comms_bytes.set(nbytes)
         self._comms_calls.set(calls)
+        fields = {}
+        for key in ("graph_bytes", "ad_bytes", "gspmd_bytes"):
+            if graph.get(key) is not None:
+                fields[key] = float(graph[key])
         events.emit("comms_profile", calls=int(calls),
                     bytes=float(nbytes),
                     by_op={f"{op}|{ax}": {"calls": int(c),
                                           "bytes": float(b)}
-                           for (op, ax), (c, b) in sorted(profile.items())})
+                           for (op, ax), (c, b) in sorted(profile.items())},
+                    **fields)
 
     def set_comms_overlap(self, overlap_ms: float,
                           monolithic_ms: float | None = None,

@@ -227,6 +227,7 @@ def autotune_ring_chunks(group, n_local: int, dim: int,
                              and time.monotonic() > deadline else 0.0],
                             device=device)
         if p > 1:
+            # ntxent: lint-ok[collective-shim] agreement, pre-train
             torch.distributed.broadcast(stop, 0, group=group)
         if stop.item():
             logger.warning("ring-chunk autotune budget (%.0f s) spent; the "
@@ -240,6 +241,7 @@ def autotune_ring_chunks(group, n_local: int, dim: int,
                            repeats)
         slowest = torch.tensor([ms], device=device)
         if p > 1:
+            # ntxent: lint-ok[collective-shim] agreement, pre-train
             torch.distributed.all_reduce(
                 slowest, op=torch.distributed.ReduceOp.MAX, group=group)
         ms = float(slowest.item())

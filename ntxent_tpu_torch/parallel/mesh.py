@@ -65,7 +65,13 @@ P = 1 too, as the shim records it), an ``all_to_all`` and a
 wire in (an int8 payload and its float32 scales are two calls). Keys are
 ``(op, axis)`` with the axis ``"data"``, as in the JAX package, so a
 step's ``delta`` compares with the JAX step's. Backward collectives are
-not recorded, as the shims do not record them either.
+not recorded, as the shims do not record them either: the collective
+census (``analysis.graph.census.CollectiveCensus``, a dispatch mode over
+every ``c10d`` op) counts them, and ``train_loop`` publishes the
+remainder as ``collective_graph_bytes_total{source="ad"}``. No
+``torch.distributed`` collective is called outside this module but
+control-plane flags, barriers and a save's gathers, each marked
+``# ntxent: lint-ok[collective-shim]`` (the port's ``ntxent-lint``).
 """
 
 from __future__ import annotations
@@ -535,6 +541,23 @@ def _segment_quantize(buf: torch.Tensor, plan: _Plan):
     q = torch.clamp(torch.round(buf / scale.index_select(1, plan.owner)),
                     -127.0, 127.0).to(torch.int8)
     return q, scale
+
+
+@torch.no_grad()
+def gather_parts(x: torch.Tensor, group=None, record: bool = False,
+                 axis: str = AXIS) -> list[torch.Tensor]:
+    """Every rank's ``x`` of ``group``, in rank order (one all-gather of
+    whole tensors, in full precision whatever the wire policy; not
+    differentiable). ``record``: a step's gather (ZeRO-3's parameters),
+    recorded as ``all_gather`` over ``axis``; whole copies for a save are
+    not a step's traffic."""
+    _require_group()
+    p = world_size(group)
+    if record:
+        _record("all_gather", [x], p - 1, axis=axis)
+    parts = [torch.empty_like(x) for _ in range(p)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
 
 
 def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:

@@ -46,7 +46,7 @@ from torch import nn
 
 from .mesh import (
     AXIS,
-    comms_accounting,
+    gather_parts,
     pmean_,
     psum_scatter,
     rank,
@@ -82,16 +82,9 @@ def _join(t: torch.Tensor, dim: int | None, group,
     """The ranks' slices of ``group`` joined along ``dim``. ``record``:
     a step's all-gather (ZeRO-3's parameters), recorded over the data
     axis; the whole copies a checkpoint saves are not."""
-    p = world_size(group)
-    if dim is None or p == 1:
+    if dim is None or world_size(group) == 1:
         return t.detach().clone()
-    if record:
-        comms_accounting().record(
-            "all_gather", AXIS, (p - 1) * t.numel() * t.element_size(),
-            dtype=str(t.dtype).removeprefix("torch."))
-    parts = [torch.empty_like(t) for _ in range(p)]
-    dist.all_gather(parts, t.detach().contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    return torch.cat(gather_parts(t.detach(), group, record=record), dim=dim)
 
 
 def _clone_optimizer(opt, named: dict, convert):

@@ -196,8 +196,16 @@ class EmbeddingCache:
             self._bucket_counter("misses", n).inc(len(misses))
         return hits, misses
 
-    def insert(self, rows: np.ndarray, embeddings: np.ndarray) -> None:
-        """Cache ``embeddings[i]`` under ``rows[i]``'s content hash."""
+    def insert(self, rows: np.ndarray, embeddings: np.ndarray,
+               admit=None) -> None:
+        """Cache ``embeddings[i]`` under ``rows[i]``'s content hash.
+
+        ``admit``: the caller's trust gate (``WorkerPool.
+        allow_cache_insert`` of the step that computed the rows), asked
+        under the lock, after the hashing: nothing is inserted when it
+        says no. A gate asked before the hashing could pass, a promote's
+        flush land while the rows are hashed, and the flushed model's
+        rows then be served beside the new model's."""
         if rows.shape[0] != embeddings.shape[0]:
             raise ValueError(f"rows/embeddings mismatch: {rows.shape[0]} "
                              f"vs {embeddings.shape[0]}")
@@ -210,6 +218,8 @@ class EmbeddingCache:
         values = [np.array(embeddings[i], dtype=np.float32)
                   for i in range(rows.shape[0])]
         with self._lock:
+            if admit is not None and not admit():
+                return
             for key, value in zip(keys, values):
                 if key in self._entries:
                     self._entries.move_to_end(key)

@@ -74,7 +74,7 @@ from torch import nn
 from ..obs import events as _events
 from ..obs import trace as _trace
 from ..utils.capability import resolve_device
-from ._causes import RecompileDiffer
+from ..analysis.graph.recompile import RecompileDiffer
 from .ladder import SizeHistogram, expected_padded_rows, optimize_ladder
 from .metrics import ServingMetrics
 

@@ -385,7 +385,7 @@ class ServingMetrics:
             self.compile_cause(cause)
 
     def compile_cause(self, cause: str) -> None:
-        """Itemize one compile by its cause (serving/_causes.py: a
+        """Itemize one compile by its cause (analysis/graph/recompile.py: a
         closed set, so the ``reason`` label is bounded). The bare
         ``serving_compiles_total`` / ``serving_ladder_compiles_total``
         stay the request-visible against background split."""

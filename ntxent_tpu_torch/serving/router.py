@@ -80,6 +80,7 @@ the ``tenant`` label is cardinality-bounded router-side: at most
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import threading
@@ -1191,12 +1192,13 @@ class FleetRouter:
                                          f"{chunk.shape[0]} inputs")
                 except (KeyError, TypeError, ValueError):
                     emb = None
-                # The same trust gate as any insert: a rollback or a
-                # fresh canary racing the warm-up must not poison the
-                # cache.
+                # The same trust gate as any insert, asked under the
+                # cache's lock: a rollback or a fresh canary racing the
+                # warm-up must not poison the cache.
                 if emb is not None and self.pool.allow_cache_insert(
                         served_step):
-                    self.cache.insert(chunk, emb)
+                    self.cache.insert(chunk, emb, functools.partial(
+                        self.pool.allow_cache_insert, served_step))
                     warmed += int(chunk.shape[0])
             i += chunk.shape[0]
         if warmed:
@@ -1898,6 +1900,10 @@ def _make_router_handler(router: FleetRouter):
                         None
                 return code, payload, headers, served_step, emb
             t0 = time.monotonic()
+            # The trusted step before the flush epoch, both before the
+            # lookup: a promote sets the trusted step and then flushes,
+            # so a reader between the two still sees this step here.
+            trusted = pool.trusted_step
             generation = cache.generation
             hits, miss_idx = cache.lookup(x)
             _trace.emit_span("fleet.cache",
@@ -1923,18 +1929,19 @@ def _make_router_handler(router: FleetRouter):
             if code == 200 and hits and (
                     cache.generation != generation
                     or (served_step is not None
-                        and pool.trusted_step is not None
-                        and served_step != pool.trusted_step)):
+                        and trusted is not None
+                        and served_step != trusted)):
                 # The cached rows and the fetched rows came from
                 # different models — one response must never mix two
                 # embedding spaces. Two ways there: a flush
                 # (promote/rollback/adopt — a MODEL change) landed
                 # while the misses were in flight, or the forward hit a
-                # non-trusted worker (a post-promote laggard still on
-                # the old step, or a canary) while the cache holds the
-                # trusted model. Re-forward the whole request — a
-                # single worker reply is internally consistent
-                # regardless of later flushes.
+                # worker off the step trusted at the lookup (a
+                # post-promote laggard still on the old step, a canary,
+                # or the new step of a promote whose flush has not run
+                # yet) while the cache holds that step's rows.
+                # Re-forward the whole request — a single worker reply
+                # is internally consistent regardless of later flushes.
                 hits = {}
                 miss_idx = list(range(x.shape[0]))
                 full = {"inputs": x.tolist()}
@@ -1956,7 +1963,10 @@ def _make_router_handler(router: FleetRouter):
                 return 502, {"error": f"malformed worker response: "
                                       f"{e}"}, None, served_step, None
             if pool.allow_cache_insert(served_step):
-                cache.insert(x[miss_idx], fetched)
+                # asked again under the cache's lock: a promote whose
+                # flush lands while the rows are hashed drops them
+                cache.insert(x[miss_idx], fetched, functools.partial(
+                    pool.allow_cache_insert, served_step))
             merged = np.empty((x.shape[0], fetched.shape[-1]),
                               dtype=np.float32)
             for j, i in enumerate(miss_idx):

@@ -136,6 +136,11 @@ import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..analysis.graph.census import (
+    CensusError,
+    CollectiveCensus,
+    graph_remainder,
+)
 from ..models.layers import BatchNorm, frozen_running_stats
 from ..ops import flops as kernel_flops
 from ..ops import oracle
@@ -887,6 +892,21 @@ def _outcome(step: int, values: dict, lag: int) -> StepOutcome:
                        ok=bool(values.get("step_ok", 1.0)), lag=lag)
 
 
+def _census_summary(census, declared: dict) -> dict | None:
+    """``graph_remainder`` of step 1's census against its declared
+    delta (``trainer.py:772-806``); None, logged, when the census failed
+    (a collective it cannot price): telemetry must not break training."""
+    if census is None:
+        return None
+    try:
+        return graph_remainder(census.entries, declared)
+    except CensusError:
+        logger.warning("graph census of step 1 failed; the "
+                       "collective_graph_bytes_total series is not "
+                       "published", exc_info=True)
+        return None
+
+
 def train_loop(state: TrainState, data_iter, train_step: Callable,
                num_steps: int, log_every: int = 50,
                views: int = 2, ranks: int = 1,
@@ -894,7 +914,8 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
                step_hook: Callable[[TrainState], None] | None = None,
                watchdog=None, step_guard: Callable | None = None,
                metrics_lag: int = 0, timeline=None,
-               flops_per_step: float | str | None = "auto") -> list[dict]:
+               flops_per_step: float | str | None = "auto",
+               graph_census: bool | None = None) -> list[dict]:
     """Run ``num_steps`` steps; every ``log_every`` steps (and at the
     last) read the loss and log steps/s and images/s over the window.
     Images are those through the image encoder: ``views`` per row of the
@@ -936,6 +957,18 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
     ``flops_per_step`` is taken as given, None disables the MFU. Without
     a timeline nothing is counted and nothing synchronized.
 
+    ``graph_census`` (``trainer.py:967-984``; None: on whenever a
+    ``timeline`` is given): step 1 runs inside
+    ``analysis.graph.census.CollectiveCensus`` (nested with
+    ``count_step_flops``), which sees every collective the step runs,
+    its backward's included; the census minus the step's declared
+    accounting goes to ``set_comms_per_step(graph=)``:
+    ``collective_graph_bytes_total{source="ad"}`` and the
+    ``comms_profile`` event's ``graph_bytes``/``ad_bytes``. It costs step
+    1 a Python call per dispatched op. A census that fails is logged and
+    the step goes on (telemetry never breaks training). ``True`` without
+    a ``timeline`` raises (there is nowhere to publish).
+
     ``metrics_lag=1`` (``trainer.py:944-971``): step N-1's outcome is read
     after step N is queued, so the host does not wait for the card
     between steps. The guarded step then keeps a bad update out on the
@@ -946,6 +979,9 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
     was read."""
     if metrics_lag not in (0, 1):
         raise ValueError(f"metrics_lag must be 0 or 1, got {metrics_lag}")
+    if graph_census and timeline is None:
+        raise ValueError("graph_census=True requires timeline= (the "
+                         "census publishes through its comms bracket)")
     history = []
     use_scale = step_guard is not None and hasattr(step_guard,
                                                    "scale_value")
@@ -956,6 +992,9 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
                   transfer=0.0, timed=0)
     rows, done = 0, 0
     comms_mark, count_flops = None, False
+    census = None
+    if timeline is not None and (graph_census is None or graph_census):
+        census = CollectiveCensus()
     if timeline is not None:
         timeline.new_attempt()  # a restart's gap is no step time
         comms_mark = comms_accounting().totals()
@@ -1063,7 +1102,8 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
             # step 1 with a timeline: its FLOPs, then its wall time as the
             # compile event (the card synchronized once)
             count_flops = False
-            with count_step_flops() as counted:
+            with census or contextlib.nullcontext(), \
+                    count_step_flops() as counted:
                 state, metrics = run(v1, v2)
             _sync(device)
             step_flops = counted.flops
@@ -1073,12 +1113,16 @@ def train_loop(state: TrainState, data_iter, train_step: Callable,
             if log:
                 logger.info("counted step cost: %.3e FLOPs a card",
                             step_flops)
+        elif census is not None:
+            with census:
+                state, metrics = run(v1, v2)
         else:
             state, metrics = run(v1, v2)
         if comms_mark is not None:
-            timeline.set_comms_per_step(
-                comms_accounting().delta(comms_mark))
-            comms_mark = None
+            delta = comms_accounting().delta(comms_mark)
+            timeline.set_comms_per_step(delta,
+                                        graph=_census_summary(census, delta))
+            comms_mark, census = None, None
         if metrics_lag:
             queued = (state.step, _Metrics(metrics), wait, timing, t_step)
             if pending is not None:
@@ -1114,6 +1158,7 @@ def _agreed_stop(stop_fn: Callable[[], bool], group,
 
     def agreed() -> bool:
         flag.fill_(1.0 if stop_fn() else 0.0)
+        # ntxent: lint-ok[collective-shim] stop flag, between steps
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
         return bool(flag.item())
 
@@ -1141,6 +1186,7 @@ def _restore(manager, state: TrainState, restore_step: int | None,
     if distributed:
         box = [step, None if error is None else f"{type(error).__name__}: "
                                                 f"{error}"]
+        # ntxent: lint-ok[collective-shim] restore choice, pre-step
         dist.broadcast_object_list(box, src=0, group=group)
         step, failed = box
         if error is None and failed is not None:
@@ -1276,6 +1322,7 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
             if not (gather_ef or (sharded and distributed)):
                 return want, {}
             flag = torch.tensor([float(want)], device=device)
+            # ntxent: lint-ok[collective-shim] save decision, no payload
             dist.broadcast(flag, src=0, group=group)
             want = bool(flag.item())
             return want, ({"ef_residual": gather_ef_residual(s, group)}
@@ -1312,6 +1359,7 @@ def fit(state: TrainState, data_iter, train_step: Callable, num_steps: int,
                     manager.save(state.step, saved(state), force=True,
                                  data_state=data_state, **ef)
             if distributed:
+                # ntxent: lint-ok[collective-shim] barrier, no payload
                 dist.barrier(group)
         return state, history
     finally:

@@ -137,6 +137,33 @@ def test_cache_hit_miss_and_eviction_sequences_equal_jax():
     assert port_trail == jax_trail
 
 
+def test_the_insert_asks_its_trust_gate_under_the_lock():
+    """The port's one addition to JAX's cache: ``insert(..., admit)``
+    asks the router's trust gate under the cache's lock, after the
+    hashing, so a promote whose flush lands while a laggard's rows are
+    hashed keeps them out of the new model's generation (JAX asks the
+    gate before the hashing; ROADMAP.md Queue C)."""
+    from ntxent_tpu_torch.serving.cache import EmbeddingCache
+
+    rng = np.random.default_rng(1)
+    rows = rng.normal(size=(4, 2, 3)).astype(np.float32)
+    emb = rng.normal(size=(4, 4)).astype(np.float32)
+    cache = EmbeddingCache(capacity_rows=8, ttl_s=10.0, clock=FakeClock())
+    trusted = {"step": 1}
+
+    def admit():  # rows computed at step 1
+        return trusted["step"] == 1
+
+    cache.insert(rows[:2], emb[:2], admit)
+    trusted["step"] = 2                      # the promote
+    cache.clear(reason="promote")
+    cache.insert(rows[2:], emb[2:], admit)   # the laggard's: refused
+    assert cache.lookup(rows) == ({}, [0, 1, 2, 3])
+    cache.insert(rows[2:], emb[2:])
+    hits, misses = cache.lookup(rows)
+    assert sorted(hits) == [2, 3] and misses == [0, 1]
+
+
 # ---------------------------------------------------------------------------
 # the worker pool's routing and canary state machine
 

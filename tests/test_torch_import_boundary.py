@@ -108,7 +108,37 @@ def test_scan_sees_every_module():
             "retrieval/__init__.py", "retrieval/segments.py",
             "retrieval/ivf.py", "retrieval/pq.py", "retrieval/scan.py",
             "retrieval/index.py", "retrieval/versioned.py",
-            "retrieval/journal.py", "retrieval/shard.py"} <= names
+            "retrieval/journal.py", "retrieval/shard.py",
+            "analysis/__init__.py", "analysis/framework.py",
+            "analysis/reporting.py", "analysis/collectives.py",
+            "analysis/hostsync.py", "analysis/locks.py",
+            "analysis/imports.py", "analysis/telemetry.py",
+            "analysis/cli.py", "analysis/graph/__init__.py",
+            "analysis/graph/census.py", "analysis/graph/wiredtype.py",
+            "analysis/graph/donation.py", "analysis/graph/recompile.py",
+            "analysis/graph/targets.py", "analysis/graph/cli.py"} <= names
+
+
+def test_the_scan_agrees_with_the_lint_checker():
+    """This file's AST scan and the port's ``import-boundary`` checker
+    (``analysis.imports``) see the same tree: the static graph knows every
+    module the scan names (``reachable_modules`` from all of them is all
+    of them), and the checker's half (a), JAX or the JAX package imported
+    anywhere, flags what the scan flags: nothing."""
+    from ntxent_tpu_torch.analysis import (
+        LintConfig,
+        reachable_modules,
+        run_lint,
+    )
+
+    names = sorted(_modules())
+    assert sorted(reachable_modules(root=str(REPO),
+                                    roots=tuple(names))) == names
+    scanned = [(path, line) for path in _sources()
+               for line, mod in _imports(path) if _forbidden(mod)]
+    found = run_lint(LintConfig(root=str(REPO)),
+                     rules=("import-boundary",)).findings
+    assert scanned == [] and found == []
 
 
 @pytest.mark.parametrize("module", ["ntxent_tpu_torch.parallel.precision",

@@ -238,9 +238,18 @@ class TestStepTimeline:
                     if rec["event"] == "divergence"]
 
     def test_graph_census_is_not_ported(self):
-        tl = obs.StepTimeline(registry=obs.MetricsRegistry())
-        with pytest.raises(NotImplementedError, match="Queue A 13"):
+        """The graph census this test once saw refused is ported: a
+        census summary is taken, its autograd remainder published on
+        ``collective_graph_bytes_total{source="ad"}`` (an empty declared
+        delta, world 1, emits no ``comms_profile`` event, as in JAX)."""
+        r = obs.MetricsRegistry()
+        tl = obs.StepTimeline(registry=r)
+        with _installed(obs, obs.EventLog(None)) as log:
             tl.set_comms_per_step({}, graph={"ad_bytes": 1.0})
+        assert r.collect()["collective_graph_bytes_total"] == {
+            '{source="ad"}': 1.0}
+        assert not [rec for rec in log.tail(5)
+                    if rec["event"] == "comms_profile"]
 
     def test_the_peak_resolves_through_the_trainer(self):
         """MFU over the card's peak by its name; the CPU takes the JAX

@@ -3,13 +3,14 @@
 ``test_torch_pair.py``, ``test_torch_resilience_dp.py``,
 ``test_torch_ring_attention.py``, ``test_torch_long_context.py``,
 ``test_torch_ring.py``, ``test_torch_quant_collectives.py``,
-``test_torch_error_feedback.py`` and ``test_torch_chunked.py``: worlds
-of gloo ranks on the CPU that meet over a ``FileStore``.
+``test_torch_error_feedback.py``, ``test_torch_chunked.py`` and
+``test_torch_graph_audit.py``: worlds of gloo ranks on the CPU that meet
+over a ``FileStore``.
 
 This module imports torch and the port, never JAX: each rank is a fresh
 interpreter that imports only what it unpickles (``run``, ``run_clip``,
-``run_pair``, ``run_ring``, ``run_guard``, ``run_cli``, ``run_wire`` and
-this module). Inputs come from an ``.npz`` the test wrote; each rank
+``run_pair``, ``run_ring``, ``run_guard``, ``run_cli``, ``run_wire``,
+``run_audit`` and this module). Inputs come from an ``.npz`` the test wrote; each rank
 writes its results to ``<out>/rank<r>.npz``. A rank's collectives give
 up after ``PG_TIMEOUT``, well inside the test's deadline for the whole
 world.
@@ -696,3 +697,81 @@ def run_cli(rank: int, world: int, store: str, argv: list, out: str) -> None:
     records written to ``<out>/rank<r>.log``."""
     _join(store, rank, world)
     sys.exit(_train_main(rank, world, argv, out))
+
+
+def _audit_jobs(rank: int, world: int) -> dict:
+    """``tests/test_torch_graph_audit.py``'s rank work: every analyzer
+    over the default audit targets, each census-fwd/grad and wire-dtype
+    target's census entries, a doctored float32 all-reduce under int8, a
+    snapshot of ``.numpy()`` views under the donation analyzer, and two
+    sharded train steps of the tiny audit model with a timeline."""
+    from ntxent_tpu_torch import obs
+    from ntxent_tpu_torch.analysis.graph import cli as audit_cli
+    from ntxent_tpu_torch.analysis.graph.census import census_of_callable
+    from ntxent_tpu_torch.analysis.graph.donation import donation_findings
+    from ntxent_tpu_torch.analysis.graph.targets import (
+        default_targets,
+        tiny_state,
+    )
+    from ntxent_tpu_torch.analysis.graph.wiredtype import (
+        wire_dtype_findings,
+    )
+    from ntxent_tpu_torch.training import make_train_step, train_loop
+
+    targets = default_targets()
+    findings, report = audit_cli.run_analyzers(
+        targets, ("collective-census", "wire-dtype", "donation"),
+        publish=False)
+    entries = {}
+    for t in targets:
+        if t.kind in ("census-fwd", "census-grad", "wire-dtype"):
+            built = t.build()
+            got, _ = census_of_callable(built["fn"], *built["args"])
+            entries[t.name] = [[e.op, e.dtype, list(e.shape), e.calls,
+                                e.total_bytes, e.thread] for e in got]
+
+    def leak():  # a float32 payload the int8 policy should have cut
+        with collective_precision("int8"):
+            torch.distributed.all_reduce(torch.ones(2048))
+
+    leaked, _ = census_of_callable(leak)
+    doctored = wire_dtype_findings(leaked, "int8", "doctored/f32")
+
+    def views(state):  # zero-copy: aliases the live parameters
+        return {k: t.detach().numpy()
+                for k, t in state.model.state_dict().items()}
+
+    state = tiny_state()
+    rng = np.random.default_rng(1)
+    args = tuple(torch.from_numpy(rng.standard_normal(
+        (4, 8, 8, 3)).astype(np.float32)) for _ in range(2))
+    bad = donation_findings(make_train_step(0.1, use_fused=False), state,
+                            args, views, "doctored/views")
+
+    registry = obs.MetricsRegistry()
+    timeline = obs.StepTimeline(registry=registry)
+    state = tiny_state()
+    batches = [tuple(torch.from_numpy(rng.standard_normal(
+        (2, 8, 8, 3)).astype(np.float32)) for _ in range(2))
+        for _ in range(2)]
+    train_loop(state, iter(batches), make_sharded_train_step(), 2,
+               log=False, timeline=timeline)
+    graph = registry.collect().get("collective_graph_bytes_total", {})
+    return {"findings": [vars(f) for f in findings], "report": report,
+            "entries": entries,
+            "doctored": [vars(f) for f in doctored],
+            "views": [vars(f) for f in bad],
+            "train_ad_bytes": graph.get('{source="ad"}'),
+            "jax_loaded": "jax" in sys.modules}
+
+
+def run_audit(rank: int, world: int, store: str, out: str) -> None:
+    """One rank: join the world, run ``_audit_jobs``, write
+    ``<out>/rank<r>.json``."""
+    _join(store, rank, world)
+    try:
+        result = _audit_jobs(rank, world)
+        with open(Path(out) / f"rank{rank}.json", "w") as f:
+            json.dump(result, f)
+    finally:
+        mesh.shutdown()
