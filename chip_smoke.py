@@ -2967,8 +2967,10 @@ def phase_chunked_emulated() -> dict:
     """[chunked-emulated]: the chunked ring of P ranks emulated on one card
     (``emulated_ring_ntxent(P, T, chunks)``: every rank's hops folded as
     ``chunks`` slices through the ring's ``lse_hop`` over #1 general, the
-    second pass's ``block_grads`` over #6 a slice) against
-    ntxent_loss_fused and its gradient, P * P * chunks launches of each;
+    backward's ``block_grads`` over #6 a slice in reverse hop order, the
+    column cotangents summed last visitor first, as the chunked ring's
+    transposed hops carry them home) against ntxent_loss_fused and its
+    gradient, P * P * chunks launches of each;
     then #1 and #6 at one chunk of the P = 4 hop against their plain
     versions, and their times. Returns the times for the kernels' JSON."""
     from ntxent_tpu_torch.ops import ntxent as N
@@ -3231,13 +3233,52 @@ def _dp_clip_tf32_control(rows: int, cols: int, d: int, scale):
     return out
 
 
+def _dp_clip_one_shot(scale) -> None:
+    """``parallel.info_nce_loss_distributed`` (the one-shot data-parallel
+    InfoNCE) in an NCCL world of one, held bitwise to
+    ``make_sharded_infonce``'s dual body on the same pairs at CLIP's
+    initial scale; the same loss again from ``temperature``."""
+    import torch
+
+    from ntxent_tpu_torch.parallel import (
+        info_nce_loss_distributed,
+        make_sharded_infonce,
+        mesh,
+    )
+
+    rows, _, d = DP_CLIP_SHAPES[0]
+    za = _unit_rows(rows, d, "float32", seed=31)
+    zb = _unit_rows(rows, d, "float32", seed=32)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_from_file(f"{tmp}/store", 0, 1, device="cuda")
+        try:
+            got = info_nce_loss_distributed(za, zb, scale=scale)
+            want = make_sharded_infonce()(za, zb, scale)
+            by_t = info_nce_loss_distributed(za, zb, temperature=0.07)
+            torch.cuda.synchronize()
+        finally:
+            mesh.shutdown()
+    err = (got - want).abs().item()
+    t_err = (by_t - want).abs().item()
+    ok = err == 0.0 and t_err <= INFONCE_ATOL and bool(torch.isfinite(got))
+    print(f"[dp-clip-kernel] info_nce_loss_distributed at world 1, N={rows} "
+          f"D={d} fp32: {got.item():.6f} against make_sharded_infonce's "
+          f"{want.item():.6f} (|err| {err:.3e}, bitwise wanted; from "
+          f"temperature 0.07 |err| {t_err:.3e}, atol {INFONCE_ATOL:g}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("info_nce_loss_distributed disagrees with make_sharded_infonce "
+             "at world 1")
+
+
 def phase_dp_clip_kernels(build_logs: dict) -> tuple[list[dict], float]:
     """#9 rectangular, #5 cross-modal and #4 against their plain versions;
     in fp32 at every shape but the ragged one all three at least
     TF32_CONTROL_FACTOR below a one-pass TF32 control; ptxas's report of
-    their walks; then times at the same shapes; and the symmetric #1
-    re-timed in the same call. Returns the kernel entries and the
-    symmetric #1's ms."""
+    their walks; then times at the same shapes; the one-shot
+    ``info_nce_loss_distributed`` at world 1 (``_dp_clip_one_shot``); and
+    the symmetric #1 re-timed in the same call. Returns the kernel
+    entries and the symmetric #1's ms."""
     import torch
 
     from ntxent_tpu_torch.ops import infonce as I
@@ -3289,6 +3330,7 @@ def phase_dp_clip_kernels(build_logs: dict) -> tuple[list[dict], float]:
                         "infonce_bwd_cols": cols_err}
             del za, zb, got, again, ref_oa, ref_ob
 
+    _dp_clip_one_shot(scale)
     for rows, cols, d in DP_CLIP_SHAPES[:3]:
         pairs = _dp_clip_tf32_control(rows, cols, d, scale)
         ok = all(TF32_CONTROL_FACTOR * k <= c for k, c in pairs)
@@ -4628,8 +4670,9 @@ def phase_ring_ntxent_emulated() -> dict:
     """The fused ring NT-Xent of P = 2, 4, 8 ranks emulated on one card at
     global 2N = 8192, D = 128 (``emulated_ring_ntxent``: each rank's hops
     through the ring's own ``lse_hop`` with block_lse (#1 general), its
-    second pass with block_grads (#6 rows and columns), the column
-    gradients carried to their block's rank); against ntxent_loss_fused
+    backward's block_grads (#6 rows and columns) in reverse hop order, the
+    column gradients carried to their block's rank); against
+    ntxent_loss_fused
     and its gradient. Returns the kernels' times at the P = 4 hop."""
     from ntxent_tpu_torch.ops import ntxent as N
     from ntxent_tpu_torch.parallel.mesh import local_row_gids
@@ -5977,6 +6020,61 @@ def _fleet_stop(router, router_log: str) -> list:
     return alive
 
 
+def _fleet_mix_evidence(router_log: str, pool: np.ndarray, answer: dict,
+                        marks: dict, wall_start: float) -> None:
+    """Print what the router's log says of an answer whose rows came from
+    two steps: the phase's marks (the rollout's promote among them) and
+    every cache insert of the answer's rows, each with the step it was
+    computed at, the step trusted at its lookup, the cache generation and
+    the trust gate's verdict, in seconds since the router started."""
+    from ntxent_tpu_torch.serving.cache import row_key
+
+    keys = {row_key(pool[j].astype(np.float32)).hex()[:16]: int(j)
+            for j in answer["ids"]}
+    print(f"[fleet] mixed answer {answer['rid']}: marks (s) "
+          f"{ {k: round(v - marks['start'], 3) for k, v in marks.items()} }")
+    for r in _router_events(router_log, "fleet"):
+        if r.get("action") != "cache_insert":
+            continue
+        rows = [keys[k] for k in r.get("keys", ()) if k in keys]
+        if rows:
+            print(f"[fleet]   cache insert at "
+                  f"{r['wall'] - wall_start:.3f} s: rows {rows} of step "
+                  f"{r.get('step')} (trusted {r.get('trusted')}, "
+                  f"generation {r.get('generation')}, admitted "
+                  f"{r.get('admitted')}, {r.get('rid')})")
+
+
+def _fleet_status_evidence(router_log: str, bad: list, marks: dict,
+                           wall_start: float) -> None:
+    """Print what the router's log says of answers that were neither 200
+    nor 429: each answer's error body and times, the forwards the router
+    made for it (worker, attempt, error), and the fleet's worker events
+    (spawn, death, restart, eject, retire) and drains, in seconds since
+    the router started."""
+    print(f"[fleet] marks (s) "
+          f"{ {k: round(v - marks['start'], 3) for k, v in marks.items()} }")
+    rids = {a["rid"] for a in bad}
+    for a in bad:
+        print(f"[fleet] {a['rid']}: {a['status']} {a['payload']} sent "
+              f"{a['t_send'] - marks['start']:.3f} s, answered "
+              f"{a['t_recv'] - marks['start']:.3f} s")
+    for r in _router_events(router_log, "span"):
+        if r.get("request_id") in rids and r.get("name") == "fleet.forward":
+            print(f"[fleet]   {r['request_id']} forward to {r.get('worker')} "
+                  f"(attempt {r.get('attempt')}) ended "
+                  f"{r['wall'] - wall_start:.3f} s after {r['dur_ms']} ms"
+                  f", error {r.get('error')}")
+    for event in ("fleet", "autoscale"):
+        for r in _router_events(router_log, event):
+            if r.get("action") in (None, "cache_insert"):
+                continue
+            rest = {k: v for k, v in r.items() if k not in (
+                "event", "t", "wall", "run_id", "attempt", "action")}
+            print(f"[fleet]   {event} {r['action']} at "
+                  f"{r['wall'] - wall_start:.3f} s: {rest}")
+
+
 def _shard_pids(router_log: str) -> list:
     """The pids of the shard processes the router spawned that run."""
     pids = []
@@ -6208,6 +6306,7 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
     out_path = f"{root}/router.out"
     marks, answers, bodies, stop = {"start": time.monotonic()}, [], [], \
         threading.Event()
+    wall_start = time.time()  # the router log's "wall" at marks["start"]
     router = subprocess.Popen(argv, cwd=os.path.dirname(
         os.path.abspath(__file__)), env=env, stdout=open(out_path, "w"),
         stderr=subprocess.STDOUT)
@@ -6556,6 +6655,28 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
             th.join(300)
         with rlock:
             held = dict(stored.get(newer, {}))
+        if not held:
+            # the retrieval client stores only while no rebuild runs, and
+            # the rollout's rebuilds can leave it no window on the newer
+            # step: the phase stores a row never stored before there once
+            # the rollback's rebuild is done
+            wait("the index's rebuild after the rollback",
+                 lambda: not rebuilding(), 120)
+            unused = [j for j in retrieval_rows if all(
+                j not in h.values() for h in stored.values())]
+            if not unused:
+                fail("fleet: no retrieval row left to store on step "
+                     f"{newer}")
+            last = retrieve("store", unused[:1], "final-store")
+            if last["status"] != 200 or last["payload"].get("stored") != 1 \
+                    or last["payload"].get("index_step") != newer:
+                fail(f"fleet: the store on step {newer} after the rollback "
+                     f"{last['status']} {last['payload']}")
+            print(f"[fleet-retrieval] the client stored no row on step "
+                  f"{newer}; the phase stored row {unused[0]} after the "
+                  f"rollback's rebuild", flush=True)
+            with rlock:
+                held = dict(stored.get(newer, {}))
         final_hits = self_hits(held, "self-hits-final") if held else None
         # neither the router nor a shard maps libtorch
         shard_pids = _shard_pids(router_log)
@@ -6584,6 +6705,9 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
     # router does not: the nearest step names it); the cache
     statuses = sorted({a["status"] for a in answers})
     if not answers or set(statuses) - {200, 429}:
+        _fleet_status_evidence(router_log, [
+            a for a in answers if a["status"] not in (200, 429)], marks,
+            wall_start)
         fail(f"fleet: client statuses {statuses} over {len(answers)} "
              "answers")
     seen = {}  # row id -> its rows' bytes in every forwarded answer
@@ -6600,6 +6724,7 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
         if errs[step] > EMBED_ATOL:  # two models in one answer?
             per_row = [min(refs, key=lambda s, i=i: float(np.abs(
                 got[i] - refs[s][j]).max())) for i, j in enumerate(a["ids"])]
+            _fleet_mix_evidence(router_log, pool, a, marks, wall_start)
             fail(f"fleet: {a['rid']} answered rows of steps {per_row} "
                  f"({a['payload'].get('cache_hits')} from the cache, sent "
                  f"{a['t_send'] - marks['start']:.1f} s after the router "
@@ -6745,6 +6870,24 @@ def phase_fleet(tmp: str, dir_a: str, card_line: str) -> int:
             depths=heal["depths"], shard_death=shard_death, newer=newer,
             first=first))
 
+    inserts = [r for r in _router_events(router_log, "fleet")
+               if r.get("action") == "cache_insert"]
+    refused = [r for r in inserts if not r.get("admitted")]
+    print(f"[fleet] the router's log: {len(inserts)} cache inserts of "
+          f"{sum(len(r.get('keys', ())) for r in inserts)} rows, "
+          f"{len(refused)} refused by the trust gate (steps "
+          f"{sorted({str(r.get('step')) for r in refused})}); no answer "
+          f"mixed steps", flush=True)
+    # probes of a live worker past their timeout: the worker stayed in
+    # the pool as busy (the last one left still takes requests)
+    timeouts = [r for r in _router_events(router_log, "fleet")
+                if r.get("action") == "probe_timeout"]
+    print(f"[fleet] probes of a live worker past "
+          f"{timeouts[0]['timeout_s'] if timeouts else '-'} s: "
+          f"{len(timeouts)} ("
+          + ", ".join(f"{r.get('channel', 'embed')} {r['worker']} at "
+                      f"{r['wall'] - wall_start:.1f} s" for r in timeouts)
+          + "); every client answer 200 or 429", flush=True)
     ok = [a for a in answers if a["status"] == 200]
     window = [a for a in ok if marks["restarted"] <= a["t_send"]
               and a["t_recv"] <= marks["clients_done"]]

@@ -1524,6 +1524,16 @@ def _fit(args, state, data, step, stats: dict | None, views: int = 2,
                    restore_step=args.restore_step if attempt == 0 else None,
                    **kwargs)
 
+    if log and injector is not None and (injector.plan.shrink_batches
+                                         or injector.plan.grow_batches):
+        # cli.py:878-908 builds a smaller world in-process only over one
+        # process's devices; a rank here is a process (a card), so the
+        # world changes at the process boundary (crashsim --mode elastic
+        # relaunches it) and shrink@K/grow@K restart on this one
+        logger.warning("shrink/grow: no in-process topology builder for a "
+                       "world of %d rank(s), one process a rank; the "
+                       "attempt restarts on the same world (relaunch at "
+                       "another --num-processes to change it)", ranks)
     # only rank 0 corrupts the shared directory between attempts
     supervisor = Supervisor(
         run_attempt, num_steps=args.steps,

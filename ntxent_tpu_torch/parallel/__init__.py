@@ -11,6 +11,7 @@ composed, over the sharded state of ``parallel.shards``, and the GPipe
 schedule (``parallel.pp``)."""
 
 from .dist_loss import (
+    info_nce_loss_distributed,
     local_infonce_allgather,
     local_infonce_dual,
     local_ntxent_allgather,
@@ -93,6 +94,7 @@ __all__ = [
     "copy_to_group",
     "fsdp_param_spec",
     "grid_groups",
+    "info_nce_loss_distributed",
     "info_nce_loss_ring",
     "init_distributed",
     "init_from_env",

@@ -39,13 +39,18 @@ import functools
 
 import torch
 
-from ..ops.infonce import info_nce_dual_partial, info_nce_partial_fused
+from ..ops.infonce import (
+    info_nce_dual_partial,
+    info_nce_partial_fused,
+    resolve_scale,
+)
 from ..ops.ntxent import ntxent_partial_fused
 from .mesh import all_gather, local_row_gids, psum, rank, world_size
 from .pair import pair_body
 from .ring import _ntxent_fused as ring_fused
 
-__all__ = ["local_infonce_allgather", "local_infonce_dual",
+__all__ = ["info_nce_loss_distributed", "local_infonce_allgather",
+           "local_infonce_dual",
            "local_ntxent_allgather", "local_ntxent_chunked",
            "make_sharded_infonce", "make_sharded_ntxent",
            "ntxent_loss_distributed", "resolve_local_infonce",
@@ -78,12 +83,14 @@ def local_ntxent_chunked(z1_local: torch.Tensor, z2_local: torch.Tensor,
     when None: clamped, cached or the heuristic, never measured); each
     chunk's onward send is issued before its fold, so the transfer
     overlaps the fold (``parallel.ring._RingLseSum``: ``block_lse``, #1,
-    per chunk and hop; ``block_grads``, #6, in the backward's second ring
-    pass, each chunk's column gradient riding home). The visiting rows'
-    global ids follow from the hop, so the forward sends exactly the
-    strip loss's two all-gathers' bytes, (P - 1) 2n D itemsize a rank,
-    each chunk on the wire policy by itself. Every rank returns the same
-    value."""
+    per chunk and hop; ``block_grads``, #6, per chunk and hop in the
+    backward against the blocks the forward received, each chunk's column
+    cotangent sent one hop back a hop, as JAX's AD transposes the
+    forward's hops: (P - 1) 2n D a rank, on the wire and in memory). The
+    visiting rows' global ids follow from the hop, so the forward sends
+    exactly the strip loss's two all-gathers' bytes, (P - 1) 2n D
+    itemsize a rank, each chunk on the wire policy by itself. Every rank
+    returns the same value."""
     from ..ops.autotune import resolve_ring_chunks
 
     n_local, dim = z1_local.shape
@@ -182,3 +189,14 @@ def make_sharded_infonce(group=None, impl: str = "dual"):
     """``loss_fn(za_local, zb_local, scale) -> scalar``: the global-batch
     InfoNCE over the ranks of ``group`` (``dist_loss.py:338``)."""
     return functools.partial(resolve_local_infonce(impl), group=group)
+
+
+def info_nce_loss_distributed(za: torch.Tensor, zb: torch.Tensor,
+                              group=None, temperature: float = 0.07, *,
+                              scale=None) -> torch.Tensor:
+    """Global-batch symmetric InfoNCE over the ranks of ``group`` (one-shot
+    form, ``dist_loss.py:371``): this rank's pairs (n, D) each through
+    ``make_sharded_infonce``'s dual body, at ``scale`` (a tensor or a
+    float) or, without one, ``1 / temperature``."""
+    return make_sharded_infonce(group)(
+        za, zb, resolve_scale(temperature, scale, za.device))

@@ -87,13 +87,15 @@ import torch.distributed as dist
 from ..utils.capability import resolve_device
 from .precision import (
     collective_dtype,
+    collective_precision,
     int8_scale,
     quantizable,
     quantize_int8,
 )
 
 __all__ = ["AXIS", "CommsAccounting", "all_gather", "all_reduce_",
-           "all_to_all", "chunk_bounds", "comms_accounting", "copy_to_group",
+           "all_to_all", "chunk_bounds", "collective_dtype",
+           "collective_precision", "comms_accounting", "copy_to_group",
            "grid_groups", "init_distributed", "init_from_env",
            "init_from_file", "local_row_gids", "pmax", "pmean", "pmean_",
            "ppermute", "ppermute_chunked", "ppermute_start", "process_info",

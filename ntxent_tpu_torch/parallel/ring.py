@@ -19,8 +19,10 @@ only neighbour links carry traffic.
   and ``"jnp"`` on the CPU. ``chunks`` sends each hop as that many slices
   of rows, each slice's onward send issued before its fold (the chunked
   schedule of ``--dp-loss chunked``, ``dist_loss.local_ntxent_chunked``,
-  which runs the fused ring in JAX AD's manner: its second pass records
-  nothing and the column gradients ride at full precision under int8).
+  whose backward is JAX AD's transpose of the forward's hops instead of
+  a second ring pass: #6 against the blocks the forward received, each
+  chunk's column cotangent one hop back a hop, (P - 1) 2n D a rank on
+  the wire, at full precision under int8).
   Every hop rides the wire policy (``parallel.precision``) of the
   forward.
 * ``make_ring_infonce(group, impl)``: ``"dual"`` circulates one block
@@ -139,20 +141,28 @@ def rank_loss_sum(z1, z2, temperature: float, lse_sum):
 
 class _RingLseSum(torch.autograd.Function):
     """``S = sum_i lse_i`` over this rank's rows, the lse accumulated around
-    the ring by ``block_lse`` (#1); the backward is a second ring pass with
-    ``block_grads`` (#6) (``_make_ring_lse_sum``, ``ring.py:101``).
+    the ring by ``block_lse`` (#1), its backward by ``block_grads`` (#6).
 
     Each hop sends the block as ``chunks`` slices of rows, chunk c's
     onward send issued before chunk c is folded, so its transfer overlaps
     the fold (``dist_loss.py:161-175``). The sends ride the wire policy of
-    the forward (``collective_dtype()`` read there): the backward sends
-    the blocks again under it, and the same quantize chain gives the
-    blocks the forward folded, bit for bit. The column gradient of each
-    block rides home with it. ``ad=False`` is the ring NT-Xent's custom
-    backward, whose hops the JAX shims record and send on the policy;
-    ``ad=True`` stands for JAX's AD of the chunked loss: the backward
-    records nothing and the column gradient rides on the hops' transpose
-    wire (full precision under int8, the straight-through estimator)."""
+    the forward (``collective_dtype()`` read there). Two backwards:
+
+    * ``ad=False``, the ring NT-Xent's custom backward
+      (``_make_ring_lse_sum``, ``ring.py:101``): a second ring pass sends
+      the blocks again (the same quantize chain gives the blocks the
+      forward folded, bit for bit) and the column gradient of each block
+      rides home with it; the JAX shims record these hops, and they run
+      on the policy;
+    * ``ad=True``, JAX's AD of the chunked loss (``dist_loss.py:87-117``):
+      the forward keeps the P - 1 blocks it received, as it folded them
+      (after the wire's quantize and dequantize), (P - 1) 2n D of memory
+      a rank; the backward folds each (hop, chunk) against them in reverse
+      hop order and sends each chunk's column cotangent one hop back
+      (rank r to r - 1) per hop, adding its own, the transpose of the
+      forward's hops: (P - 1) 2n D a rank on the wire, recorded nowhere,
+      on the hops' transpose wire (full precision under int8, the
+      straight-through estimator)."""
 
     @staticmethod
     def forward(ctx, z_local, temperature, group, n_local, chunks=1,
@@ -163,6 +173,7 @@ class _RingLseSum(torch.autograd.Function):
         bounds = chunk_bounds(z_local.shape[0], chunks)
         stats = _stats(z_local.shape[0], z_local.device)
         blocks = [z_local[lo:hi] for lo, hi in bounds]
+        received = []  # under ad: the P - 1 hops' blocks, chunk by chunk
         for hop in range(p):
             gid = ids((r - hop) % p)
             sent = []
@@ -173,42 +184,90 @@ class _RingLseSum(torch.autograd.Function):
                 stats = lse_hop(z_local, block, my_gid, gid[lo:hi],
                                 temperature, total, stats)
             blocks = [h.wait()[0] for h in sent]
+            if ad and blocks:
+                received += blocks
         lse = stats[0] + _log_l(stats[1])
-        ctx.save_for_backward(z_local, lse)
+        ctx.save_for_backward(z_local, lse, *received)
         ctx.args = (temperature, group, n_local, bounds, ad, wire)
         return lse.sum()
 
     @staticmethod
     def backward(ctx, ct):
-        z_local, lse = ctx.saved_tensors
+        z_local, lse, *received = ctx.saved_tensors
         temperature, group, n_local, bounds, ad, wire = ctx.args
         p, r, ids = _ring_gids(group, n_local, z_local.device)
         total, my_gid = z_local.shape[0] * p, ids(r)
         grows = torch.zeros(z_local.shape, dtype=torch.float32,
                             device=z_local.device)
-        gcols = [grows.new_zeros((hi - lo, z_local.shape[1]))
-                 for lo, hi in bounds]
-        col_wire = transpose_wire(wire) if ad else wire
-        blocks = [z_local[lo:hi] for lo, hi in bounds]
-        for hop in range(p):
-            gid = ids((r - hop) % p)
-            sent = []
-            for c, ((lo, hi), block) in enumerate(zip(bounds, blocks)):
-                if hop < p - 1:
-                    sent.append(ppermute_start([block], 1, group,
-                                               record=not ad, wire=wire))
-                gr_k, gc_k = block_grads(z_local, block, my_gid, gid[lo:hi],
-                                         lse, temperature, total)
-                grows += gr_k
-                gcols[c] = gcols[c] + gc_k
-            # the column gradient rides with its block: after P hops it
-            # is home, holding every rank's contribution
-            gcols = ppermute_start(gcols, 1, group, record=not ad,
-                                   wire=col_wire).wait()
-            blocks = [h.wait()[0] for h in sent]
-        gblk = torch.cat(gcols) if len(gcols) > 1 else gcols[0]
+        if ad:
+            gblk = _transposed_hops(z_local, received, lse, my_gid, ids,
+                                    bounds, temperature, total, group,
+                                    transpose_wire(wire), grows)
+        else:
+            gblk = _second_pass(z_local, lse, my_gid, ids, bounds,
+                                temperature, total, group, wire, grows)
         return (lse_sum_grad(grows, gblk, ct, temperature, z_local.dtype),
                 None, None, None, None, None)
+
+
+def _second_pass(z_local, lse, my_gid, ids, bounds, temperature, total,
+                 group, wire, grows):
+    """``ad=False``: the blocks go round again, each chunk's column
+    gradient riding with it; after P hops it is home, holding every
+    rank's contribution. Adds the row gradients into ``grows``; returns
+    the column gradient of this rank's block."""
+    p, r = world_size(group), rank(group)
+    gcols = [grows.new_zeros((hi - lo, z_local.shape[1]))
+             for lo, hi in bounds]
+    blocks = [z_local[lo:hi] for lo, hi in bounds]
+    for hop in range(p):
+        gid = ids((r - hop) % p)
+        sent = []
+        for c, ((lo, hi), block) in enumerate(zip(bounds, blocks)):
+            if hop < p - 1:
+                sent.append(ppermute_start([block], 1, group, wire=wire))
+            gr_k, gc_k = block_grads(z_local, block, my_gid, gid[lo:hi], lse,
+                                     temperature, total)
+            grows += gr_k
+            gcols[c] = gcols[c] + gc_k
+        gcols = ppermute_start(gcols, 1, group, wire=wire).wait()
+        blocks = [h.wait()[0] for h in sent]
+    return torch.cat(gcols) if len(gcols) > 1 else gcols[0]
+
+
+def _transposed_hops(z_local, received, lse, my_gid, ids, bounds,
+                     temperature, total, group, col_wire, grows):
+    """``ad=True``: the scan's transpose. Hop h's block came from rank
+    r - h; its chunk c's cotangent is this rank's column gradient of the
+    fold plus what arrives from rank r + 1 (the cotangent of the block it
+    forwarded), sent on to rank r - 1 until hop 0, where it is this
+    rank's own. Each chunk's send goes out before the next chunk's fold.
+    Adds the row gradients into ``grows``; returns the column gradient of
+    this rank's block."""
+    p, r = world_size(group), rank(group)
+    n_chunks = len(bounds)
+    carry, inflight = None, []
+    for hop in reversed(range(p)):
+        gid = ids((r - hop) % p)
+        blocks = (received[(hop - 1) * n_chunks:hop * n_chunks] if hop
+                  else [z_local[lo:hi] for lo, hi in bounds])
+        nxt = []
+        for c, ((lo, hi), block) in enumerate(zip(bounds, blocks)):
+            gr_k, gc_k = block_grads(z_local, block, my_gid, gid[lo:hi], lse,
+                                     temperature, total)
+            grows += gr_k
+            if inflight:
+                gc_k = inflight[c].wait()[0] + gc_k
+            if hop:
+                nxt.append(ppermute_start([gc_k], -1, group, record=False,
+                                          wire=col_wire))
+            else:
+                nxt.append(gc_k)
+        if hop:
+            inflight = nxt
+        else:
+            carry = nxt
+    return torch.cat(carry) if len(carry) > 1 else carry[0]
 
 
 def _ntxent_fused(z1, z2, temperature: float, group, chunks: int = 1,

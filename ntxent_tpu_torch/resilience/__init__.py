@@ -21,8 +21,12 @@ _EXPORTS = {
     "truncate_checkpoint_file": "faults",
     "DivergenceError": "guard",
     "DivergenceGuard": "guard",
+    "DEFAULT_TRANSIENT": "retry",
     "RetryBudgetExceeded": "retry",
     "RetryPolicy": "retry",
+    "AttemptRecord": "supervisor",
+    "Supervisor": "supervisor",
+    "SupervisorResult": "supervisor",
 }
 
 

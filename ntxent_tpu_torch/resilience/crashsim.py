@@ -24,9 +24,19 @@ model flags the caller gives (``--model tiny --image-size 8 --batch 8``
 is the small case). ``python -m ntxent_tpu_torch.resilience.crashsim
 --workdir DIR`` runs the audit. ``losses_from_jsonl`` reads a run's loss
 curve (``{global step: loss}``) from its ``--log-jsonl`` events, so curves
-of resumed incarnations merge by step. Not ported: the elastic audit
-across device counts, the multi-process incarnations and
-``restore_reshards_from_jsonl`` (ROADMAP.md Queue A 3(b) and 9).
+of resumed incarnations merge by step; ``restore_reshards_from_jsonl``
+reads the ``reshard`` of its restore events.
+
+``--mode elastic --schedule 8,4,8`` (``CrashAudit.elastic``) kills a
+lineage across a changing world instead: a reference run on the first
+entry's world, then one incarnation an entry, each but the last
+SIGKILLed at a seeded batch, each restoring the last world's checkpoint
+onto its own (``reshard="gather_replace"``), the loss curve held to the
+reference's within rtol/atol. In the port an entry's device count is its
+rank count, one process a rank joined through ``--coordinator`` (a CPU
+process each under ``--device cpu``, a card each under CUDA); an entry
+``DxP`` with P processes of D / P devices each has no meaning here
+unless P is 1 or D, and is refused.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import os
 import random
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -50,7 +61,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["AuditReport", "CrashAudit", "CrashAuditError",
            "checkpoint_fingerprint", "losses_from_jsonl", "parse_schedule",
-           "scan_checkpoint_dir"]
+           "restore_reshards_from_jsonl", "scan_checkpoint_dir"]
 
 _TMP_PREFIX = ".tmp-"
 _STATE_FILE = "state.msgpack"
@@ -144,10 +155,25 @@ def losses_from_jsonl(path: Path) -> dict[int, float]:
             if "step" in rec and "loss" in rec}
 
 
+def restore_reshards_from_jsonl(path: Path) -> list[str]:
+    """The ``reshard`` field of every checkpoint-restore event of a JSONL
+    log: the proof that an incarnation on a changed world re-placed the
+    state instead of crashing."""
+    from ..obs.events import read_events
+
+    try:
+        records = read_events(str(path), "checkpoint")
+    except OSError:
+        return []
+    return [str(rec.get("reshard")) for rec in records
+            if rec.get("action") == "restore"]
+
+
 def parse_schedule(spec: str) -> list[tuple[int, int]]:
     """Parse an elastic schedule, ``"8,4x2,8"`` -> ``[(8, 1), (4, 2), (8,
     1)]``: each entry a total device count, optionally ``xP`` over P
-    processes. (The elastic audit that runs it is not ported.)"""
+    processes (``CrashAudit.elastic`` takes an entry's devices as its
+    ranks)."""
     out: list[tuple[int, int]] = []
     for item in filter(None, (s.strip() for s in spec.split(","))):
         dev, _, procs = item.partition("x")
@@ -211,7 +237,8 @@ class CrashAudit:
         self.device = device
 
     # -- one training incarnation ----------------------------------------
-    def _cmd(self, ckpt_dir: Path, chaos: str | None) -> list[str]:
+    def _cmd(self, ckpt_dir: Path, chaos: str | None,
+             log_jsonl: Path | None = None) -> list[str]:
         cmd = [sys.executable, "-m", "ntxent_tpu_torch.cli", "train"]
         if self.device == "cpu":
             cmd += ["--device", "cpu"]
@@ -228,6 +255,8 @@ class CrashAudit:
                 "--async-ckpt", "--log-every", "1"]
         if chaos:
             cmd += ["--chaos", chaos]
+        if log_jsonl is not None:
+            cmd += ["--log-jsonl", str(log_jsonl)]
         return cmd
 
     def _env(self, slow_save: bool) -> dict:
@@ -241,12 +270,55 @@ class CrashAudit:
         return env
 
     def _run(self, ckpt_dir: Path, chaos: str | None = None,
-             slow_save: bool = False) -> tuple[int, str]:
+             slow_save: bool = False, ranks: int = 1,
+             log_jsonl: Path | None = None) -> tuple[int, str]:
+        if ranks > 1:
+            return self._run_multiprocess(ckpt_dir, chaos, ranks, log_jsonl)
         proc = subprocess.run(
-            self._cmd(ckpt_dir, chaos), env=self._env(slow_save), cwd=_REPO,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            timeout=self.timeout_s)
+            self._cmd(ckpt_dir, chaos, log_jsonl), env=self._env(slow_save),
+            cwd=_REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, timeout=self.timeout_s)
         return proc.returncode, proc.stdout or ""
+
+    def _run_multiprocess(self, ckpt_dir: Path, chaos: str | None,
+                          ranks: int,
+                          log_jsonl: Path | None) -> tuple[int, str]:
+        """One incarnation as ``ranks`` processes joined through
+        ``--coordinator`` on a free localhost port (``crashsim.py:273``),
+        one device a rank. Every rank runs the same chaos plan over the
+        same batch schedule, so a ``kill@K`` drops the whole world at the
+        same batch. Rank 0 owns the JSONL and its exit code is the
+        incarnation's verdict (a clean one must end 0 on every rank); a
+        straggler past the time limit is killed and reported."""
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+        env = self._env(False)
+        procs = []
+        for pid in range(ranks):
+            cmd = self._cmd(ckpt_dir, chaos, log_jsonl if pid == 0 else None)
+            cmd += ["--coordinator", coordinator, "--num-processes",
+                    str(ranks), "--process-id", str(pid)]
+            procs.append(subprocess.Popen(
+                cmd, env=env, cwd=_REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + self.timeout_s
+        rcs: list[int | None] = [None] * ranks
+        outs = [""] * ranks
+        for i, proc in enumerate(procs):
+            try:
+                outs[i] = proc.communicate(timeout=max(
+                    0.1, deadline - time.monotonic()))[0] or ""
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                outs[i] = (proc.communicate()[0] or "") + \
+                    "\n[crashsim: straggler killed at timeout]"
+            rcs[i] = proc.returncode
+        combined = "\n".join(f"--- process {i} (rc={rcs[i]}) ---\n{out}"
+                              for i, out in enumerate(outs))
+        if chaos is None:
+            return next((rc for rc in rcs if rc != 0), 0), combined
+        return rcs[0], combined
 
     # -- the audit --------------------------------------------------------
     def run_reference(self) -> dict:
@@ -401,15 +473,172 @@ class CrashAudit:
         return report
 
 
+    # -- the elastic audit -------------------------------------------------
+    def _ranks(self, schedule) -> list[tuple[int, int]]:
+        """The schedule as ``(devices, processes)`` pairs, each checked:
+        an entry is a world of ``devices`` ranks, one process a rank."""
+        norm = [(int(e), 1) if not isinstance(e, (tuple, list))
+                else (int(e[0]), int(e[1])) for e in schedule]
+        if not norm:
+            raise CrashAuditError("empty elastic schedule")
+        for devices, processes in norm:
+            if devices < 1 or processes not in (1, devices):
+                raise CrashAuditError(
+                    f"schedule entry {devices}x{processes}: a rank of the "
+                    "port is one process on one device, so an entry's "
+                    "devices are its ranks (write {0} or {0}x{0})".format(
+                        devices))
+            if self.batch % devices:
+                raise CrashAuditError(f"--batch {self.batch} does not split "
+                                      f"over {devices} ranks")
+        return norm
+
+    def elastic(self, schedule=(8, 4, 8), rtol: float = 0.05,
+                atol: float = 0.02) -> dict:
+        """The shrink/grow lineage (``crashsim.py:556-712``): ``kill@K``
+        then a restore on a world of another size, the loss curve held to
+        an uninterrupted reference's.
+
+        One reference run trains the whole job on ``schedule[0]``'s
+        world; the lineage then runs one incarnation an entry, every one
+        but the last SIGKILLed at a seeded batch, each on a world of the
+        entry's ranks (``_run_multiprocess``), restoring the previous
+        world's checkpoint onto its own. Asserts after every death: no
+        torn step; over the lineage: a restore re-sharded
+        (``reshard="gather_replace"`` on a restore event), the last step
+        reached, and every step's loss within ``rtol``/``atol`` of the
+        reference's (the global batch does not depend on the world; the
+        sums' order does). Bit-exactness is reported, not asserted.
+        Writes ``elastic_summary.json`` and returns it."""
+        t0 = time.monotonic()
+        rng = random.Random(self.seed * 7919 + 1)
+        norm = self._ranks(schedule)
+        ref_dir = self.workdir / "elastic_ref"
+        ref_jsonl = self.workdir / "elastic_ref.jsonl"
+        rc, out = self._run(ref_dir, ranks=norm[0][0], log_jsonl=ref_jsonl)
+        if rc != 0:
+            raise CrashAuditError(f"elastic reference run failed rc={rc}:\n"
+                                  f"{out[-2000:]}")
+        ref_losses = losses_from_jsonl(ref_jsonl)
+        if len(ref_losses) < self.steps:
+            raise CrashAuditError(f"elastic reference logged "
+                                  f"{len(ref_losses)} step events, wanted "
+                                  f"{self.steps}")
+        crash_dir = self.workdir / "elastic0"
+        incarnations: list[dict] = []
+        kills = 0
+        merged: dict[int, float] = {}
+        for i, (devices, processes) in enumerate(norm):
+            final = i == len(norm) - 1
+            latest = max(_step_dirs(crash_dir), default=0)
+            jsonl = self.workdir / f"elastic0_run{i}.jsonl"
+            chaos = None
+            if not final:
+                remaining = self.steps - latest
+                if remaining <= 2:
+                    raise CrashAuditError(
+                        f"elastic incarnation {i} has only {remaining} steps "
+                        "left to kill inside; raise --steps")
+                # leave the next world at least a step to train
+                chaos = f"kill@{rng.randint(2, max(2, remaining - 2))}"
+            rc, out = self._run(crash_dir, chaos=chaos, ranks=devices,
+                                log_jsonl=jsonl)
+            scan = scan_checkpoint_dir(crash_dir)
+            if scan["torn"]:
+                raise CrashAuditError(f"elastic incarnation {i} ({devices} "
+                                      f"ranks): torn checkpoint step(s): "
+                                      f"{scan['torn']}")
+            if chaos is None:
+                if rc != 0:
+                    raise CrashAuditError(f"elastic survivor failed rc={rc}:"
+                                          f"\n{out[-2000:]}")
+            elif rc in (-signal.SIGKILL, 128 + signal.SIGKILL):
+                kills += 1
+            elif rc != 0:
+                raise CrashAuditError(
+                    f"elastic incarnation {i}: expected SIGKILL death or "
+                    f"completion, got rc={rc}:\n{out[-2000:]}")
+            merged.update(losses_from_jsonl(jsonl))
+            incarnations.append({
+                "devices": devices, "processes": devices, "chaos": chaos,
+                "rc": rc, "resumed_from": latest,
+                "reshards": restore_reshards_from_jsonl(jsonl)})
+            logger.info("elastic incarnation %d: %d ranks, chaos=%s rc=%s "
+                        "resumed_from=%d", i, devices, chaos, rc, latest)
+        final_step = max(_step_dirs(crash_dir), default=0)
+        if final_step != self.steps:
+            raise CrashAuditError(f"elastic lineage finished at step "
+                                  f"{final_step}, wanted {self.steps}")
+        reshards = [r for inc in incarnations[1:] for r in inc["reshards"]]
+        if "gather_replace" not in reshards:
+            raise CrashAuditError(
+                "no topology re-shard observed across the schedule "
+                f"{tuple(norm)} (restore events: {reshards})")
+        compared = sorted(set(merged) & set(ref_losses))
+        if len(compared) < self.steps // 2:
+            raise CrashAuditError(f"only {len(compared)} comparable steps "
+                                  "between the elastic and reference loss "
+                                  "curves")
+        worst_step, worst_abs, worst_rel, ok = None, 0.0, 0.0, True
+        for step in compared:
+            diff = abs(merged[step] - ref_losses[step])
+            rel = diff / max(1e-9, abs(ref_losses[step]))
+            if diff > worst_abs:
+                worst_step, worst_abs, worst_rel = step, diff, rel
+            if diff > atol + rtol * abs(ref_losses[step]):
+                ok = False
+        try:
+            ref_fp = checkpoint_fingerprint(ref_dir, self.steps)
+            got_fp = checkpoint_fingerprint(crash_dir, self.steps)
+            crc_exact = ref_fp == got_fp
+        except CrashAuditError:
+            ref_fp, got_fp, crc_exact = {}, {}, False
+        summary = {
+            "lineage": "elastic0", "mode": "elastic",
+            "device_schedule": [d for d, _ in norm],
+            "process_schedule": [d for d, _ in norm],
+            "kills": kills, "restarts": len(incarnations) - 1,
+            "device_counts": [inc["devices"] for inc in incarnations],
+            "incarnations": incarnations, "final_step": final_step,
+            "crc_exact": crc_exact, "reference_fingerprint": ref_fp,
+            "survivor_fingerprint": got_fp,
+            "loss_continuity": {
+                "steps_compared": len(compared), "worst_step": worst_step,
+                "max_abs_diff": round(worst_abs, 6),
+                "rel_at_worst": round(worst_rel, 6),
+                "rtol": rtol, "atol": atol, "ok": ok},
+            "elapsed_s": round(time.monotonic() - t0, 2),
+            "verdict": "PASS:loss_continuity" if ok
+            else "FAIL:loss_divergence"}
+        self._write_summary("elastic_summary.json", summary)
+        if not ok:
+            raise CrashAuditError(
+                "elastic loss curve diverged from the uninterrupted "
+                f"reference: step {worst_step} differs by {worst_abs} (rel "
+                f"{worst_rel:.4f}); see elastic_summary.json")
+        return summary
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         description="Crash-replay audit: SIGKILL the port's training at "
                     "seeded random batches (one at least inside a "
-                    "checkpoint write) and prove a bit-exact resume.")
+                    "checkpoint write) and prove a bit-exact resume; or, "
+                    "with --mode elastic, kill across a schedule of world "
+                    "sizes and prove loss-curve continuity through "
+                    "re-sharded restores.")
     parser.add_argument("--workdir", required=True)
+    parser.add_argument("--mode", default="kill",
+                        choices=["kill", "elastic"])
     parser.add_argument("--steps", type=int, default=8)
     parser.add_argument("--kills", type=int, default=5)
     parser.add_argument("--midsave", type=int, default=1)
+    parser.add_argument("--schedule", default="8,4,8",
+                        help="elastic mode: comma list of world sizes, one "
+                             "incarnation each, every one but the last "
+                             "SIGKILLed mid-run; a world of N ranks is N "
+                             "processes joined through --coordinator, one "
+                             "device each (an entry DxP needs P = D)")
     parser.add_argument("--lineages", type=int, default=2)
     parser.add_argument("--workers", type=int, default=None,
                         help="children at a time (default: 1 on the card, "
@@ -431,6 +660,17 @@ def main(argv: list[str] | None = None) -> int:
                        timeout_s=args.timeout_s, model=args.model,
                        device=args.device)
     try:
+        if args.mode == "elastic":
+            summary = audit.elastic(parse_schedule(args.schedule))
+            print(json.dumps(summary, indent=2, sort_keys=True))
+            print(f"elastic audit: OK, schedule "
+                  f"{summary['device_schedule']}, {summary['kills']} kills, "
+                  f"loss continuity over "
+                  f"{summary['loss_continuity']['steps_compared']} steps "
+                  f"(max abs diff "
+                  f"{summary['loss_continuity']['max_abs_diff']}) in "
+                  f"{summary['elapsed_s']}s")
+            return 0
         report = audit.audit(kills=args.kills, midsave=args.midsave,
                              lineages=args.lineages, workers=args.workers)
     except CrashAuditError as e:

@@ -19,9 +19,10 @@ deterministic ordinal:
 * ``diskfull@n``: ``OSError(ENOSPC)`` at the start of the n-th physical
   checkpoint write (``CheckpointManager(fault_hook=...)``) -> the
   skip-a-checkpoint contract, on the sync and the async writer;
-* ``shrink@k`` / ``grow@k``: ``TopologyChange`` at the k-th batch -> a
-  restart (the elastic world rebuild of the reference is not ported: the
-  supervisor restarts on the same world);
+* ``shrink@k`` / ``grow@k``: ``TopologyChange`` at the k-th batch -> the
+  supervisor's ``topology_hook`` and a restart (the CLI passes no hook: a
+  rank is a process, so the world changes when ``crashsim``'s elastic
+  audit relaunches it at another size);
 * ``truncate@a``: after attempt a ends, truncate the newest checkpoint's
   largest file -> checksum verification and the newest-valid fallback;
 * the fleet's ``killworker``, ``slowworker``, ``spike`` and

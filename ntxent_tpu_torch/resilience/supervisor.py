@@ -14,9 +14,13 @@ up to ``max_restarts`` times with a backoff:
 * **stall** -> the watchdog's one-shot ``on_stall`` asks the attempt's
   ``PreemptionGuard`` to stop; the attempt saves and returns at the next
   step boundary and is restarted;
-* ``TopologyChange`` (``shrink@k`` / ``grow@k``) -> a restart on the same
-  world, as the reference does without a ``topology_hook`` (the elastic
-  rebuild of the world is not ported: ROADMAP.md Queue A 3(b)).
+* ``TopologyChange`` (``shrink@k`` / ``grow@k``) -> ``topology_hook(action)``
+  runs before the next attempt and rebuilds the world for it; without a
+  hook the next attempt restarts on the same world. The port's CLI, one
+  process a rank, passes no hook (a world changes at the process
+  boundary, as JAX's does for several processes):
+  ``resilience.crashsim``'s elastic audit relaunches the world at another
+  size, and the checkpoint's restore re-places the state.
 
 The caller's ``run_attempt(attempt, stop_fn, watchdog)`` is usually a
 closure over ``training.fit`` that builds a fresh ``TrainState`` each
@@ -24,8 +28,8 @@ attempt (no tensor of a crashed attempt is reused) and hands ``stop_fn``
 and ``watchdog`` through; ``cli`` wires it for ``--max-restarts`` and
 ``--chaos``. Attempts and restarts are counted in the JAX package's
 registry series (``supervisor_{attempts,restarts,topology_restarts}_
-total``; the last stays 0 until the elastic rebuild is ported), each
-restart is a ``restart`` event, each attempt stamps the event log's
+total``; the last counts the hook's rebuilds), each restart is a
+``restart`` event, each attempt stamps the event log's
 ``attempt``, and a stall's escalation first dumps the flight recorder
 (``obs.events.dump_flight``).
 """
@@ -94,13 +98,22 @@ class Supervisor:
     ``backoff`` (a ``RetryPolicy``) gives only the delays between attempts.
     ``stall_timeout_s`` arms a ``StallWatchdog`` whose escalation stops the
     attempt. ``injector`` (``faults.FaultInjector``) gets its
-    ``between_attempts`` hook, where ``truncate@a`` fires."""
+    ``between_attempts`` hook, where ``truncate@a`` fires.
+
+    ``topology_hook(action)`` is the elastic seam (``supervisor.py:
+    105-138``): when an attempt dies with ``faults.TopologyChange``, the
+    hook runs before the next attempt and rebuilds the world it trains
+    on; the next attempt restores the newest valid checkpoint onto it
+    (the topology sidecar makes that a re-shard). A hook that raises is
+    logged and the next attempt runs on the old world; without a hook a
+    topology fault restarts on the unchanged world."""
 
     def __init__(self, run_attempt: Callable, num_steps: int,
                  checkpoint_dir=None, max_restarts: int = 3,
                  backoff: RetryPolicy | None = None,
                  stall_timeout_s: float | None = None,
                  injector=None,
+                 topology_hook: Callable[[str], None] | None = None,
                  sleep: Callable[[float], None] = time.sleep):
         if max_restarts < 0:
             raise ValueError(f"max_restarts must be >= 0, got "
@@ -114,6 +127,7 @@ class Supervisor:
             multiplier=2.0, max_delay_s=60.0, jitter=0.1)
         self.stall_timeout_s = stall_timeout_s
         self.injector = injector
+        self.topology_hook = topology_hook
         self.sleep = sleep
         self._guard: PreemptionGuard | None = None
 
@@ -131,6 +145,19 @@ class Supervisor:
         except Exception:  # the dump never blocks the escalation
             logger.exception("flight recorder dump failed on stall")
         guard.request()
+
+    def _rebuild(self, action: str) -> None:
+        if self.topology_hook is None:
+            logger.warning("supervisor: topology %s with no topology_hook: "
+                           "restarting on the unchanged world", action)
+            return
+        try:
+            self.topology_hook(action)
+            _TOPOLOGY_RESTARTS.inc()
+        except Exception:
+            # a world that failed to rebuild is still a world
+            logger.exception("supervisor: topology hook failed for %r: "
+                             "restarting on the unchanged world", action)
 
     def run(self) -> SupervisorResult:
         histories: list = []
@@ -164,8 +191,8 @@ class Supervisor:
                         topology = e.action
                         error = f"TopologyChange: {e}"
                         logger.warning("supervisor: attempt %d/%d ended by "
-                                       "a topology %s: the next one runs on "
-                                       "the unchanged world", attempt + 1,
+                                       "a topology %s: rebuilding the world "
+                                       "before the restart", attempt + 1,
                                        total_attempts, e.action)
                     except Exception as e:  # bounded by max_restarts
                         error = f"{type(e).__name__}: {e}"
@@ -191,6 +218,8 @@ class Supervisor:
                 return SupervisorResult(True, state, histories, records)
             if attempt + 1 >= total_attempts:
                 break
+            if topology is not None:
+                self._rebuild(topology)
             if self.injector is not None:
                 self.injector.between_attempts(self.checkpoint_dir)
             delay = self.backoff.delay_for(attempt + 1)

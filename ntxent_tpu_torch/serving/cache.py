@@ -197,8 +197,10 @@ class EmbeddingCache:
         return hits, misses
 
     def insert(self, rows: np.ndarray, embeddings: np.ndarray,
-               admit=None) -> None:
-        """Cache ``embeddings[i]`` under ``rows[i]``'s content hash.
+               admit=None, keys: list[bytes] | None = None) -> bool:
+        """Cache ``embeddings[i]`` under ``rows[i]``'s content hash
+        (``keys``, when the caller hashed the rows already); returns
+        whether the rows went in.
 
         ``admit``: the caller's trust gate (``WorkerPool.
         allow_cache_insert`` of the step that computed the rows), asked
@@ -214,12 +216,13 @@ class EmbeddingCache:
         # matters twice over: embeddings[i] is a VIEW into the worker's
         # whole response batch — caching the view would pin every row's
         # base array for the lifetime of one entry.
-        keys = [row_key(rows[i]) for i in range(rows.shape[0])]
+        if keys is None:
+            keys = [row_key(rows[i]) for i in range(rows.shape[0])]
         values = [np.array(embeddings[i], dtype=np.float32)
                   for i in range(rows.shape[0])]
         with self._lock:
             if admit is not None and not admit():
-                return
+                return False
             for key, value in zip(keys, values):
                 if key in self._entries:
                     self._entries.move_to_end(key)
@@ -228,6 +231,7 @@ class EmbeddingCache:
                 self._entries.popitem(last=False)
                 self._eviction_counter("lru").inc()
             self._size.set(len(self._entries))
+        return True
 
     def clear(self, reason: str = "flush") -> int:
         """Drop everything (the rollout hook); returns entries dropped."""

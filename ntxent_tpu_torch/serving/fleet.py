@@ -364,8 +364,18 @@ class ServingFleet:
                                          f"readyz http {e.code}",
                                          kind="probe")
         except (urllib.error.URLError, OSError, ValueError) as e:
-            self.pool.set_health(worker.worker_id, alive=worker.alive(),
-                                 ready=False)
+            # a timeout of a live worker marks it busy, not gone (logged:
+            # JAX's fleet neither marks nor logs it)
+            alive = worker.alive()
+            busy = alive and isinstance(getattr(e, "reason", e),
+                                        TimeoutError)
+            self.pool.set_health(worker.worker_id, alive=alive, ready=False,
+                                 busy=busy)
+            if busy:
+                obs_events.emit("fleet", action="probe_timeout",
+                                worker=worker.worker_id,
+                                timeout_s=self.health_timeout_s,
+                                **self._tag)
             self.pool.report_failure(worker.worker_id, repr(e),
                                      kind="probe")
             if self.attach:

@@ -22,9 +22,9 @@ import os
 import threading
 import time
 
-from ..obs.registry import MetricsRegistry
+from ..obs.registry import Histogram, MetricsRegistry
 
-__all__ = ["ServingMetrics", "read_rss_bytes"]
+__all__ = ["LatencyWindow", "ServingMetrics", "read_rss_bytes"]
 
 
 def read_rss_bytes() -> int | None:
@@ -37,6 +37,27 @@ def read_rss_bytes() -> int | None:
         return int(fields[1]) * os.sysconf("SC_PAGE_SIZE")
     except (OSError, IndexError, ValueError):
         return None
+
+
+class LatencyWindow(Histogram):
+    """Millisecond-unit ``Histogram`` with the serving snapshot shape
+    (``metrics.py:50``). Its ``snapshot`` is ``snapshot_ms``'s keys built
+    from the base ``snapshot`` (JAX's calls ``snapshot_ms``, which calls
+    ``snapshot`` again and recurses without end)."""
+
+    def __init__(self, window: int = 2048, name: str = "latency_ms",
+                 labels: dict | None = None):
+        super().__init__(name, labels=labels, window=window)
+
+    @property
+    def total_ms(self) -> float:
+        return self.total
+
+    def snapshot(self) -> dict:
+        return {(k if k in ("count", "window") else f"{k}_ms"): v
+                for k, v in super().snapshot().items()}
+
+    snapshot_ms = snapshot
 
 
 class ServingMetrics:

@@ -29,7 +29,10 @@ that turns a worker SIGKILL into zero client-visible 5xx):
 * budget exhausted on 5xx: the client receives the WORKER's status
   code and error body (never a synthetic router error that hides the
   cause); with no ready workers at all the answer is an immediate 503,
-  never a hang.
+  never a hang. A worker whose last /readyz probe only timed out (alive,
+  its listener slow under load) still takes requests when no ready
+  worker remains (``WorkerPool.pick``): the JAX router answers those
+  503.
 
 Canary state machine (one rollout at a time, owned by the pool lock):
 
@@ -97,7 +100,7 @@ from ..obs import trace as _trace
 from ..obs.exporters import PROMETHEUS_CONTENT_TYPE, choose_format
 from ..obs.registry import MetricsRegistry
 from ..obs.slo import AlertStore
-from .cache import EmbeddingCache
+from .cache import EmbeddingCache, row_key
 from .limits import MAX_BODY_BYTES
 
 logger = logging.getLogger(__name__)
@@ -261,6 +264,10 @@ class WorkerEntry:
         # its in-flight requests complete, and the controller SIGTERMs
         # only once inflight hits zero (or the drain deadline passes).
         self.draining = False
+        # Busy: alive, but its last /readyz probe timed out (a listener
+        # slow under load, not a dead or warming worker). Not ready;
+        # selection falls back to it only when no ready worker remains.
+        self.busy = False
         self.checkpoint_step: int | None = None
         self.inflight = 0
         self.consecutive_failures = 0
@@ -401,7 +408,10 @@ class WorkerPool:
             self._update_gauges()
 
     def set_health(self, worker_id: str, alive: bool, ready: bool,
-                   checkpoint_step: int | None = None) -> None:
+                   checkpoint_step: int | None = None,
+                   busy: bool = False) -> None:
+        """A probe's verdict; ``busy``: the probe of a live worker timed
+        out (see ``WorkerEntry.busy``)."""
         adopted: int | None = None
         with self._lock:
             entry = self._workers.get(worker_id)
@@ -409,6 +419,7 @@ class WorkerPool:
                 return
             entry.alive = alive
             entry.ready = ready and alive
+            entry.busy = busy and alive and not ready
             if checkpoint_step is not None:
                 entry.checkpoint_step = int(checkpoint_step)
             if ready and alive \
@@ -564,8 +575,9 @@ class WorkerPool:
 
     def pick(self, exclude: set[str] | None = None) -> WorkerEntry | None:
         """Least-in-flight selection with canary fractioning; None when
-        no ready worker remains (the router's immediate-503 case).
-        Increments the chosen worker's inflight (caller must ``done``).
+        no ready or busy worker remains (the router's immediate-503
+        case). Increments the chosen worker's inflight (caller must
+        ``done``).
         """
         exclude = exclude or set()
         with self._lock:
@@ -576,6 +588,14 @@ class WorkerPool:
             # zero-5xx scale-down contract (serving/autoscale.py).
             all_ready = [w for w in self._workers.values()
                          if w.ready and not w.draining]
+            if not all_ready:
+                # A worker whose probe only timed out beats a 503: it is
+                # alive and answers forwards, slowly. (A difference from
+                # the JAX router, which answers 503: with one worker left
+                # under load, a probe past its timeout turned into
+                # client-visible 503s.)
+                all_ready = [w for w in self._workers.values()
+                             if w.busy and not w.draining]
             ready = [w for w in all_ready
                      if w.worker_id not in exclude]
             if not ready:
@@ -1965,8 +1985,17 @@ def _make_router_handler(router: FleetRouter):
             if pool.allow_cache_insert(served_step):
                 # asked again under the cache's lock: a promote whose
                 # flush lands while the rows are hashed drops them
-                cache.insert(x[miss_idx], fetched, functools.partial(
-                    pool.allow_cache_insert, served_step))
+                keys = [row_key(x[i]) for i in miss_idx]
+                admitted = cache.insert(x[miss_idx], fetched,
+                                        functools.partial(
+                                            pool.allow_cache_insert,
+                                            served_step), keys)
+                # which rows entered the cache from which step (JAX's
+                # router logs no such event)
+                _events.emit("fleet", action="cache_insert", rid=rid,
+                             step=served_step, trusted=trusted,
+                             generation=generation, admitted=admitted,
+                             keys=[k.hex()[:16] for k in keys])
             merged = np.empty((x.shape[0], fetched.shape[-1]),
                               dtype=np.float32)
             for j, i in enumerate(miss_idx):

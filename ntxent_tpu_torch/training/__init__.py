@@ -45,6 +45,7 @@ from .trainer import (
     TrainState,
     create_clip_train_state,
     create_train_state,
+    estimate_mfu,
     fit,
     init_error_feedback,
     make_clip_train_step,
@@ -82,6 +83,7 @@ __all__ = [
     "cosine_warmup_schedule",
     "create_clip_train_state",
     "create_train_state",
+    "estimate_mfu",
     "device_prefetch",
     "extract_features",
     "finetune",

@@ -44,14 +44,20 @@ sizes and CRC32s. Either package restores the other's steps.
   on_checkpoint_write``: ``diskfull@n`` raises ENOSPC there), and
   ``NTXENT_CKPT_SLOW_MS`` sleeps that long after the state file is
   written, so a crash audit can land a SIGKILL inside a save.
-* The state is replicated on every rank, so a step saved at world P
-  restores at world Q by plain placement; the restore logs whether the
-  world changed. Only rank 0 writes.
+* **Elastic restores.** A step saved at world P restores at world Q
+  (``checkpoint.py:1101-1206``): the state is whole on the host, so the
+  load re-places it, replicated state as it was, a ZeRO-3 state re-cut
+  from its whole copy to Q slices by ``parallel.shards.Sharding.scatter``
+  (``training.fit``), and an error-feedback residual saved at another
+  world reset to zeros (``weights.load_train_state_dict``, as
+  ``_from_bytes_tolerant``). Such a restore is ``reshard=
+  "gather_replace"`` on its event, counted in
+  ``checkpoint_reshard_total`` and its load timed in
+  ``checkpoint_reshard_ms``. Only rank 0 writes.
 
 Save, restore and fallback are logged, counted in the JAX package's
 registry series (``checkpoint_saves_total`` to
-``checkpoint_mirror_restores_total``; the reshard pair waits for
-ROADMAP.md Queue A 3(b)) and emitted as ``checkpoint`` events (action
+``checkpoint_reshard_ms``) and emitted as ``checkpoint`` events (action
 save, fallback or restore). ``stats`` keeps the save and restore times and
 the state's bytes.
 """
@@ -132,6 +138,14 @@ _MIRROR_FAILURES = default_registry().counter(
 _MIRROR_RESTORES = default_registry().counter(
     "checkpoint_mirror_restores_total",
     "restores served from the mirror after primary corruption/loss")
+_RESHARDS = default_registry().counter(
+    "checkpoint_reshard_total",
+    "restores that re-placed state onto a mesh differing from the "
+    "recorded save-time topology")
+_RESHARD_MS = default_registry().histogram(
+    "checkpoint_reshard_ms",
+    "wall time of the host-gather -> re-place step on topology-"
+    "mismatched restores")
 
 
 def _crc32_file(path: Path, chunk: int = 1 << 20) -> int:
@@ -464,6 +478,7 @@ class CheckpointManager:
         # save ms (host clock around the write, manifest, mirror and gc),
         # restore ms, the state file's bytes
         self.stats = {"save_ms": [], "restore_ms": [], "state_bytes": None}
+        self._load_ms = 0.0  # the last restore's load
 
     def _call(self, fn, *args, **kwargs):
         if self.retry_policy is not None:
@@ -761,7 +776,7 @@ class CheckpointManager:
                 continue
             try:
                 blob, data_state = self._call(_read_step_payload, step_dir)
-                load(msgpack.from_bytes(blob))
+                self._timed_load(load, blob)
             except (OSError, ValueError, KeyError, TypeError) as e:
                 unreadable = True
                 logger.error("checkpoint step %d in %s is unreadable despite "
@@ -781,6 +796,13 @@ class CheckpointManager:
         raise FileNotFoundError(
             f"step {step} has no valid copy in {self.directory}"
             + (f" or {self.mirror_dir}" if self._mirror else ""))
+
+    def _timed_load(self, load, blob: bytes) -> None:
+        """``load`` the decoded state; its wall time is the re-place
+        step's (``checkpoint_reshard_ms``) when the world changed."""
+        t0 = time.perf_counter()
+        load(msgpack.from_bytes(blob))
+        self._load_ms = (time.perf_counter() - t0) * 1e3
 
     def _load_topology(self, step: int) -> dict | None:
         for backend, _root, _label in self._restore_sources():
@@ -867,13 +889,16 @@ class CheckpointManager:
                 raise FileNotFoundError(f"no checkpoint for step {step} in "
                                         f"{self.directory}")
             blob, data_state = self._call(_read_step_payload, step_dir)
-            load(msgpack.from_bytes(blob))
+            self._timed_load(load, blob)
             chosen = (data_state, source)
         data_state, source = chosen
         saved = (self._load_topology(step) or {}).get("mesh") or {}
         world = _mesh_record()
         changed = bool(saved) and saved.get("device_count") \
             != world["device_count"]
+        if changed:
+            _RESHARDS.inc()
+            _RESHARD_MS.observe(self._load_ms)
         ms = (time.perf_counter() - t0) * 1e3
         self.stats["restore_ms"].append(ms)
         _RESTORES.inc()
@@ -884,7 +909,7 @@ class CheckpointManager:
         logger.info("checkpoint step %d restored from the %s copy in %.1f "
                     "ms; topology %s (saved at world %s, restored at world "
                     "%d)", step, source, ms,
-                    "changed: replicated state re-placed" if changed
+                    "changed: the state re-placed" if changed
                     else "unchanged", saved.get("device_count", "unknown"),
                     world["device_count"])
         return step, data_state

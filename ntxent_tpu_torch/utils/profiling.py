@@ -723,10 +723,12 @@ class _EmulatedRingLseSum(torch.autograd.Function):
     ranks run one after another in one process. zs: (P, 2n, D) each
     rank's stacked views, gids: (P, 2n) their global row ids. Forward:
     rank r folds the blocks of r, r - 1, ... with ``ring.lse_hop`` (#1);
-    returns (P,), each rank's sum of its rows' lse. Backward: each rank's
-    ``block_grads`` (#6) of the same hops, every block's column gradient
-    summed over the ranks it visits, as it arrives home in the real
-    ring."""
+    returns (P,), each rank's sum of its rows' lse. Backward: the
+    transpose of the forward's hops (``ring._transposed_hops``, the
+    chunked ring's backward): each rank's ``block_grads`` (#6) of the same
+    hops in reverse hop order, every block's column gradient summed over
+    the ranks it visited, last visitor first, as the cotangent travels
+    back to its home rank in the real ring."""
 
     @staticmethod
     def forward(ctx, zs, gids, temperature, chunks):
@@ -754,8 +756,8 @@ class _EmulatedRingLseSum(torch.autograd.Function):
         p, rows = zs.shape[:2]
         grows = torch.zeros(zs.shape, dtype=torch.float32, device=zs.device)
         gblk = torch.zeros_like(grows)
-        for r in range(p):
-            for hop in range(p):
+        for hop in reversed(range(p)):
+            for r in range(p):
                 src = (r - hop) % p
                 for lo, hi in ctx.bounds:
                     g_rows, g_cols = block_grads(

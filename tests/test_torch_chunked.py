@@ -6,8 +6,9 @@ in the ranks) on a global batch of 32 views at D = 256 (every chunk of a
 rank's 2n = 2 * 32 / P rows clears the int8 floor of 1024 elements):
 
 * ``local_ntxent_chunked`` (``parallel.ring._RingLseSum``: ``block_lse``
-  per chunk and hop, ``block_grads`` in the second ring pass; here their
-  plain versions) at chunks 1, 3 and 4 in float32 and under int8: the
+  per chunk and hop, ``block_grads`` per chunk and hop of the backward,
+  JAX AD's transpose of the hops; here their plain versions) at chunks
+  1, 3 and 4 in float32 and under int8: the
   loss and the gradients of both views against JAX
   ``make_sharded_ntxent(impl="chunked")`` on a mesh of as many CPU
   devices (float32: 1e-5 on the loss, 1e-6 on gradients of size ~1e-2;
@@ -15,6 +16,15 @@ rank's 2n = 2 * 32 / P rows clears the int8 floor of 1024 elements):
   so the folded blocks are the same int8 values and the bars are 1e-5 and
   1e-5, a gradient near a rounding boundary being the only source of a
   larger gap); the plain ring fold with chunks against the same loss;
+* the backward at 2 chunks under each wire (float32, bf16, int8;
+  ``torch_dist_workers.chunked_ad_job``): the gradients against JAX's
+  (float32 1e-6, int8 1e-5 as above; bf16 2e-4: both packages fold the
+  same bf16 blocks and send the column cotangents as bf16, but sum them
+  in another order, so a sum's last bf16 rounding may differ), and its
+  collective census, which is JAX's AD census exactly: the loss psum's
+  transpose and (P - 1) hops of the (2n, D) block's cotangent a rank,
+  at full precision under int8 (the straight-through estimator) and in
+  bf16 under bf16;
 * the forward's recorded bytes: the ring's ppermutes move exactly the
   strip loss's two all-gathers, (P - 1) 2n D 4 bytes a rank in float32
   and the int8 payload plus its per-row float32 scales under int8, and
@@ -102,7 +112,8 @@ def spawned(setup, tmp_path_factory):
             runs = _cli_runs(out) if world == 2 else None
             futures[world] = pool.submit(
                 _spawn, workers.run_wire, world,
-                (str(tmp / "inputs.npz"), str(out), ["chunked"], runs), out)
+                (str(tmp / "inputs.npz"), str(out),
+                 ["chunked", "chunked_ad"], runs), out)
         yield tmp, futures
 
 
@@ -175,6 +186,109 @@ def test_chunked_loss_and_gradients_match_jax(worlds, jax_refs, world,
                                atol=gtol, rtol=0)
     np.testing.assert_allclose(_rows(ranks, f"{key}:g2") / world, g2,
                                atol=gtol, rtol=0)
+
+
+def _jax_ad_census(world, wire, z1, z2):
+    """``{op: bytes}`` of the JAX chunked loss's autograd traffic (the
+    census of its gradient less the declared forward sites) and the
+    ``ad_bytes`` remainder."""
+    from ntxent_tpu.analysis.graph import census as jcensus
+
+    loss_fn = jsharded(_mesh(world), TEMPERATURE, impl="chunked",
+                       ring_chunks=workers.CHUNKED_AD_CHUNKS, interpret=True)
+
+    def f(a, b):
+        with jprec(wire):
+            return loss_fn(a, b)
+
+    entries, declared = jcensus.census_of_callable(
+        jax.grad(f, argnums=(0, 1)), z1, z2)
+    return jcensus.graph_remainder(entries, declared)["ad_bytes"]
+
+
+@pytest.fixture(scope="module")
+def jax_ad(setup, spawned):
+    z1, z2 = jnp.asarray(setup["z1"]), jnp.asarray(setup["z2"])
+    return {(world, wire): (_jax_case(world, "chunked",
+                                      workers.CHUNKED_AD_CHUNKS, wire, z1,
+                                      z2),
+                            _jax_ad_census(world, wire, z1, z2))
+            for world in WORLDS for wire in workers.WIRE_DTYPES}
+
+
+AD_GRAD_TOL = {"float32": 1e-6, "int8": 1e-5, "bf16": 2e-4}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("wire", workers.WIRE_DTYPES)
+def test_chunked_backward_gradients_match_jax_under_each_wire(
+        worlds, jax_ad, world, wire):
+    (loss, (g1, g2), _), _ = jax_ad[world, wire]
+    ranks = worlds[world]
+    key = f"chunked_ad:{wire}"
+    for res in ranks:
+        np.testing.assert_allclose(res[f"{key}:loss"], loss, atol=1e-5,
+                                   rtol=0)
+    tol = AD_GRAD_TOL[wire]
+    np.testing.assert_allclose(_rows(ranks, f"{key}:g1") / world, g1,
+                               atol=tol, rtol=0)
+    np.testing.assert_allclose(_rows(ranks, f"{key}:g2") / world, g2,
+                               atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("wire", workers.WIRE_DTYPES)
+def test_chunked_backward_bytes_are_the_transposed_hops(worlds, jax_ad,
+                                                        world, wire):
+    """PSUM + (P - 1) B a rank, B the (2n, D) block's cotangent at the
+    hops' transpose wire (4 bytes an element in float32 and under int8,
+    2 in bf16, where the loss's scalar psum rides bf16 too), the JAX
+    census's remainder exactly; the second ring pass this replaced sent
+    PSUM + (P - 1) B + P B."""
+    from ntxent_tpu_torch.analysis.graph.census import RING_FACTORS
+
+    rows = 2 * GLOBAL // world
+    itemsize = 2 if wire == "bf16" else 4
+    block = rows * EMBED * itemsize
+    psum = RING_FACTORS["psum"](itemsize, world)  # the scalar's too
+    for res in worlds[world]:
+        entries = json.loads(str(res[f"chunked_ad:{wire}:census"]))
+        by_op = {}
+        for op, _dtype, nbytes in entries:
+            by_op[op] = by_op.get(op, 0.0) + nbytes
+        assert by_op == {"psum": psum, "ppermute": (world - 1) * block}
+        assert {d for op, d, _ in entries if op == "ppermute"} == {
+            "bfloat16" if wire == "bf16" else "float32"}
+        assert sum(by_op.values()) == jax_ad[world, wire][1]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_the_emulated_ring_equals_the_gloo_ring(setup, worlds, world):
+    """``utils.profiling.emulated_ring_ntxent`` (the P ranks one after
+    another in one process, which ``chip_smoke.py``'s
+    ``[chunked-emulated]`` runs on the card) against the gloo world's
+    chunked loss in float32: the same folds in the same order, the same
+    transposed backward, the cotangents summed last visitor first; equal
+    to fp32 rounding of the loss's scale (the world's gradient is P times
+    its share)."""
+    from ntxent_tpu_torch.utils.profiling import emulated_ring_ntxent
+
+    z1 = torch.from_numpy(setup["z1"]).requires_grad_()
+    z2 = torch.from_numpy(setup["z2"]).requires_grad_()
+    loss = emulated_ring_ntxent(world, TEMPERATURE,
+                                chunks=workers.CHUNKED_AD_CHUNKS)(z1, z2)
+    loss.backward()
+    ranks = worlds[world]
+    key = "chunked_ad:float32"
+    np.testing.assert_allclose(float(loss.detach()),
+                               float(ranks[0][f"{key}:loss"]),
+                               rtol=1e-6, atol=0)
+    np.testing.assert_allclose(z1.grad.numpy(),
+                               _rows(ranks, f"{key}:g1") / world,
+                               rtol=0, atol=1e-8)
+    np.testing.assert_allclose(z2.grad.numpy(),
+                               _rows(ranks, f"{key}:g2") / world,
+                               rtol=0, atol=1e-8)
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -164,6 +164,53 @@ def test_the_insert_asks_its_trust_gate_under_the_lock():
     assert sorted(hits) == [2, 3] and misses == [0, 1]
 
 
+def test_the_router_logs_each_cache_insert_jax_logs_none(tmp_path):
+    """A stated difference: the port's router logs every cache insert of
+    fetched rows as a ``fleet`` event (``action="cache_insert"``: the
+    request, the step that computed the rows, the step trusted at the
+    lookup, the cache generation, the trust gate's verdict and the rows'
+    key prefixes), the evidence ``chip_smoke.py``'s ``[fleet]`` prints
+    for an answer that mixes steps; JAX's router logs none. The same
+    requests through both routers over one fake worker: misses, a full
+    hit (no insert), a partial hit (one insert of the missed row)."""
+    from ntxent_tpu.obs import events as j_events
+    from ntxent_tpu_torch.obs import events as t_events
+
+    from torch_fleet_fakes import FakeWorker, pool_with, post
+
+    rows = [[0.5, 1.5], [2.5, 3.5], [4.5, 5.5]]
+
+    def scenario(pkg, events, path):
+        worker = FakeWorker(dim=3, step=1)
+        reg = pkg.registry.MetricsRegistry()
+        pool = pool_with(pkg.router.WorkerPool, {"w0": worker},
+                         registry=reg)
+        cache = pkg.cache.EmbeddingCache(capacity_rows=8, ttl_s=300.0,
+                                         registry=reg)
+        router = pkg.router.FleetRouter(pool, cache=cache,
+                                        example_shape=(2,), port=0,
+                                        registry=reg).start()
+        previous = events.install(events.EventLog(str(path)))
+        try:
+            url = f"http://127.0.0.1:{router.port}/embed"
+            for payload in (rows[:2], rows[:2], rows[1:]):
+                assert post(url, {"inputs": payload})[0] == 200
+        finally:
+            events.install(previous)
+            router.close()
+        return [r for r in events.read_events(str(path), "fleet")
+                if r.get("action") == "cache_insert"]
+
+    jax_inserts = scenario(JAX, j_events, tmp_path / "jax.jsonl")
+    port_inserts = scenario(PORT, t_events, tmp_path / "port.jsonl")
+    assert jax_inserts == []
+    keys = [t_cache.row_key(np.asarray(r, np.float32)).hex()[:16]
+            for r in rows]
+    assert [(r["step"], r["trusted"], r["admitted"], r["keys"])
+            for r in port_inserts] == [(1, 1, True, keys[:2]),
+                                       (1, 1, True, keys[2:])]
+
+
 # ---------------------------------------------------------------------------
 # the worker pool's routing and canary state machine
 
@@ -233,6 +280,55 @@ def test_worker_pool_decisions_and_snapshots_equal_jax():
     jax_trail, port_trail = _both(_pool_script)
     assert port_trail == jax_trail
     assert ("promote", 2) in port_trail and ("rollback", 3) in port_trail
+
+
+def test_a_busy_worker_beats_a_503_jax_answers_503():
+    """A stated difference: a worker whose last /readyz probe timed out
+    while it was alive (``busy``) is not ready, but the port's pool still
+    picks it when no ready worker remains; JAX's pool picks nothing there
+    (the router's 503). One worker left under load, its probe past the
+    timeout, turned into client-visible 503s. Where a ready worker
+    exists, both pools pick it; a draining or dead worker is never
+    picked."""
+    def script(pkg, busy):
+        pool = pkg.router.WorkerPool(registry=pkg.registry.MetricsRegistry())
+        for wid in ("w0", "w1"):
+            pool.upsert(wid, f"http://127.0.0.1:9000/{wid}")
+            pool.set_health(wid, alive=True, ready=True, checkpoint_step=1)
+        trail = []
+
+        def pick():
+            entry = pool.pick()
+            trail.append(None if entry is None else entry.worker_id)
+            if entry is not None:
+                pool.done(entry.worker_id)
+
+        # w0's probe times out: w1 is ready and takes every pick
+        pool.set_health("w0", alive=True, ready=False, **busy)
+        pick()
+        pick()
+        # w1 retired: w0, busy, is all that is left
+        pool.remove("w1")
+        pick()
+        trail.append(pool.routable_count())
+        pool.set_draining("w0", True)
+        pick()
+        pool.set_draining("w0", False)
+        pool.set_health("w0", alive=False, ready=False)     # dead
+        pick()
+        pool.set_health("w0", alive=True, ready=False)      # warming: 503
+        pick()
+        pool.set_health("w0", alive=True, ready=False, **busy)
+        pool.set_health("w0", alive=True, ready=True, checkpoint_step=1)
+        pick()
+        return trail
+
+    jax_trail = script(JAX, {})
+    port_trail = script(PORT, {"busy": True})
+    assert jax_trail == ["w1", "w1", None, 0, None, None, None, "w0"]
+    assert port_trail == ["w1", "w1", "w0", 0, None, None, None, "w0"]
+    # without the timeout the port's pool is JAX's
+    assert script(PORT, {}) == jax_trail
 
 
 # ---------------------------------------------------------------------------

@@ -199,6 +199,46 @@ def test_killworker_and_slowworker_fire_on_their_ticks(tmp_path):
         fleet.stop()
 
 
+def test_a_probe_that_times_out_marks_a_live_worker_busy(tmp_path):
+    """The port's probe (a stated difference from JAX's, whose pool then
+    picks nothing and whose log says nothing): a live worker whose /readyz
+    times out is not ready but busy, logged as a ``probe_timeout``, and
+    the pool still routes to it when no ready worker remains; the next
+    probe that answers clears it."""
+    log = events.EventLog(str(tmp_path / "router.jsonl"))
+    events.install(log)
+    fleet = ServingFleet(fake_worker_cmd, n_workers=1,
+                         workdir=tmp_path / "fleet", poll_s=0.1,
+                         health_timeout_s=0.3, eject_after=1000,
+                         backoff=RetryPolicy(max_attempts=10,
+                                             base_delay_s=0.05,
+                                             multiplier=1.0, jitter=0.0))
+    worker = fleet.workers[0]
+    fleet._spawn(worker)
+    try:
+        assert tick_until(fleet, _ready(fleet, 1))
+        os.kill(worker.pid, signal.SIGSTOP)  # the listener stops answering
+        try:
+            fleet._probe(worker)
+            [entry] = fleet.pool.workers()
+            assert entry.alive and entry.busy and not entry.ready
+            picked = fleet.pool.pick()
+            assert picked is not None and picked.worker_id == "w0"
+            fleet.pool.done("w0")
+        finally:
+            os.kill(worker.pid, signal.SIGCONT)
+        assert tick_until(fleet, _ready(fleet, 1))
+        assert not fleet.pool.workers()[0].busy
+    finally:
+        fleet.stop()
+        events.install(None)
+        log.close()
+    timeouts = [r for r in events.read_events(
+        str(tmp_path / "router.jsonl"), "fleet")
+        if r["action"] == "probe_timeout"]
+    assert [(r["worker"], r["timeout_s"]) for r in timeouts] == [("w0", 0.3)]
+
+
 def test_drainworker_and_spike_need_their_hooks(tmp_path):
     inj = FaultInjector(FaultPlan.parse("spike@1,drainworker@2"))
     fleet = _fleet(tmp_path, n=2, injector=inj)

@@ -19,9 +19,9 @@ formulas (``RING_FACTORS``) and the targets' shapes:
   backward is an all-reduce of the full cotangent: 4 + 128 = 132 B of
   autograd traffic at P = 2, where NCCL's ``reduce_scatter_tensor``
   gives 4 + 64 = 68 B, JAX's remainder;
-* the chunked ring's backward is a second ring pass that sends the
-  block again and the column gradient round the ring: 4 + (P - 1) B + P
-  B = 388 B, where JAX's AD transposes the two forward hops (132 B).
+* the chunked ring's backward is JAX AD's transpose of the forward's
+  hops: the psum's backward and (P - 1) hops of the block's cotangent,
+  4 + (P - 1) B = 132 B, JAX's census.
 """
 
 import json
@@ -149,13 +149,13 @@ def test_dist_loss_grad_remainder_gloo_and_nccl_forms(world, jax_census):
 
 
 def test_chunked_and_ring_grad_remainders(world, jax_census):
-    """The chunked ring's backward sends the block again ((P - 1) B) and
-    the column gradient round the ring (P B); JAX's AD transposes the
-    forward hops ((P - 1) B). The ring's jnp backward is the inverse hop
-    and the psum's backward; JAX's census misses the psum there too."""
+    """The chunked ring's backward transposes the forward hops, as JAX's
+    AD does: the psum's backward and (P - 1) B of cotangent hops, JAX's
+    census exactly. The ring's jnp backward is the inverse hop and the
+    psum's backward; JAX's census misses the psum there too."""
     report = world["report"]
     assert report["dist_loss_chunked/grad"]["ad_bytes"] == \
-        PSUM(F32, P) + (P - 1) * BLOCK + P * BLOCK == 388.0
+        PSUM(F32, P) + (P - 1) * BLOCK == 132.0
     assert jax_census["dist_loss_chunked/grad"][2] == \
         PSUM(F32, P) + (P - 1) * BLOCK
     assert report["ring/grad"]["ad_bytes"] == \

@@ -567,10 +567,40 @@ def chunked_job(rank: int, world: int, inp) -> dict:
     return out
 
 
+# the chunks of the chunked backward's rank job, one case a wire
+CHUNKED_AD_CHUNKS = 2
+
+
+def chunked_ad_job(rank: int, world: int, inp) -> dict:
+    """The chunked loss's backward under each wire at
+    ``CHUNKED_AD_CHUNKS`` chunks: the gradients of this rank's shards and
+    the collective census of the backward alone (``[op, dtype, bytes]``
+    an entry: autograd's traffic, which the accounting never declares)."""
+    from ntxent_tpu_torch.analysis.graph.census import CollectiveCensus
+
+    out = {}
+    t = float(inp["t"])
+    for wire in WIRE_DTYPES:
+        z1 = _shard(inp["z1"], rank, world).requires_grad_()
+        z2 = _shard(inp["z2"], rank, world).requires_grad_()
+        with collective_precision(wire):
+            loss = make_sharded_ntxent(None, t, impl="chunked",
+                                       ring_chunks=CHUNKED_AD_CHUNKS)(z1, z2)
+            with CollectiveCensus() as census:
+                loss.backward()
+        key = f"chunked_ad:{wire}"
+        out |= {f"{key}:loss": loss.detach().numpy(),
+                f"{key}:g1": z1.grad.numpy(), f"{key}:g2": z2.grad.numpy(),
+                f"{key}:census": np.array(json.dumps(
+                    [[e.op, e.dtype, e.total_bytes]
+                     for e in census.entries]))}
+    return out
+
+
 WIRE_JOBS = {"collectives": collectives_job,
              "backward_thread": backward_thread_job,
              "ef_carry": ef_carry_job, "wire_steps": wire_steps_job,
-             "chunked": chunked_job}
+             "chunked": chunked_job, "chunked_ad": chunked_ad_job}
 
 
 def run_wire(rank: int, world: int, store: str, inputs: str, out: str,

@@ -322,6 +322,65 @@ def run_fsdp(rank: int, world: int, store: str, inputs: str, out: str
 
 
 # ---------------------------------------------------------------------------
+# elastic restores (test_torch_elastic.py: a world of 2 restores steps saved
+# at world 4)
+# ---------------------------------------------------------------------------
+
+
+def _restore_into(state, ckpt: str) -> int:
+    """``fit``'s restore of ``ckpt``'s newest step into ``state`` (a run
+    already at its step trains nothing); returns the
+    ``checkpoint_reshard_total`` it added."""
+    from ntxent_tpu_torch.obs.registry import default_registry
+
+    counter = default_registry().counter("checkpoint_reshard_total", "")
+    before = counter.value
+    fit(state, iter(()), None, 0, checkpoint_dir=ckpt, log=False)
+    return counter.value - before
+
+
+def elastic_job(rank: int, world: int, inp) -> dict:
+    """A ZeRO-3 state restored from ``inp["zero3_ckpt"]`` (the whole model
+    gathered back, this rank's slices, each parameter's cut dimension) and
+    a replicated state with an error-feedback residual of ones restored
+    from ``inp["ef_ckpt"]`` (its parameters and residual); the reshard
+    count of each restore."""
+    from ntxent_tpu_torch.training import init_error_feedback
+
+    out = {}
+    state = shard_train_state_fsdp(_simclr_state(inp, resnet_simclr()),
+                                   min_shard_elems=MIN_SHARD)
+    out["zero3_reshards"] = np.array(_restore_into(state,
+                                                   str(inp["zero3_ckpt"])))
+    out["zero3_step"] = np.array(state.step)
+    whole = state.sharding.gather(state)
+    for k, v in whole.model.state_dict().items():
+        out[f"zero3:{k}"] = v.detach().numpy().copy()
+    for name, t in state.optimizer.params.items():
+        out[f"slice:{name}"] = t.detach().numpy().copy()
+        dim = state.sharding._dp(name)
+        out[f"dim:{name}"] = np.array(-1 if dim is None else dim)
+    state = init_error_feedback(_simclr_state(inp, resnet_simclr()))
+    for e in state.ef_residual:
+        e.fill_(1.0)
+    out["ef_reshards"] = np.array(_restore_into(state, str(inp["ef_ckpt"])))
+    for k, v in state.model.state_dict().items():
+        out[f"ef_model:{k}"] = v.detach().numpy().copy()
+    out["ef_residual_max"] = np.array(max(float(e.abs().max())
+                                          for e in state.ef_residual))
+    return out
+
+
+def run_elastic(rank: int, world: int, store: str, inputs: str, out: str
+                ) -> None:
+    _join(store, rank, world)
+    try:
+        _run((elastic_job,), rank, world, inputs, out)
+    finally:
+        mesh.shutdown()
+
+
+# ---------------------------------------------------------------------------
 # GPipe (world 8 as the (2, 4) (data, stage) grid)
 # ---------------------------------------------------------------------------
 
